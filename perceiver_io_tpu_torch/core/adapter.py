@@ -1,0 +1,81 @@
+"""Token input adapter with rotary support and the tied output adapter
+(counterpart of ``perceiver_io_tpu/core/adapter.py``). Parameter names follow
+the reference PyTorch implementation: ``txt_embedding.weight``,
+``pos_embedding.weight``, ``bias``."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from perceiver_io_tpu_torch.core.position import frequency_position_encoding, positions
+
+
+class TokenInputAdapterWithRotarySupport(nn.Module):
+    """Token embedding + learned absolute position embedding + the rotary
+    frequency encoding of the same absolute positions.
+
+    ``forward(x, abs_pos)`` returns ``(embedded, frq_pos_enc)``. With
+    ``abs_pos=None`` the positions are ``arange(N)`` and the position rows are
+    a table slice (positions past the table repeat its last row); otherwise
+    they are looked up, right-aligned to ``x`` and clipped to the table. The
+    frequency encoding follows the full, unclipped ``abs_pos``.
+    """
+
+    def __init__(self, vocab_size: int, max_seq_len: int, num_input_channels: int,
+                 abs_pos_emb: bool = True, rotated_channels_per_head: int = 0):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.max_seq_len = max_seq_len
+        self.num_input_channels = num_input_channels
+        self.abs_pos_emb = abs_pos_emb
+        self.rotated_channels_per_head = rotated_channels_per_head
+        self.txt_embedding = nn.Embedding(vocab_size, num_input_channels)
+        if abs_pos_emb:
+            self.pos_embedding = nn.Embedding(max_seq_len, num_input_channels)
+
+    def _pos_slice(self, n: int) -> torch.Tensor:
+        table = self.pos_embedding.weight
+        pos_emb = table[: min(n, self.max_seq_len)]
+        if n > self.max_seq_len:
+            tail = table[-1:].expand(n - self.max_seq_len, table.shape[1])
+            pos_emb = torch.cat([pos_emb, tail], dim=0)
+        return pos_emb
+
+    def embed(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        tok = self.txt_embedding(x)
+        if not self.abs_pos_emb:
+            return tok
+        if abs_pos is None:
+            return tok + self._pos_slice(x.shape[1])[None]
+        if x.shape[1] < abs_pos.shape[1]:
+            abs_pos = abs_pos[:, -x.shape[1]:]
+        abs_pos = torch.clamp(abs_pos, 0, self.max_seq_len - 1)
+        return tok + self.pos_embedding(abs_pos)
+
+    def forward(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        embedded = self.embed(x, abs_pos)
+        if abs_pos is None:
+            abs_pos = positions(x.shape[0], x.shape[1], device=x.device)
+        return embedded, frequency_position_encoding(abs_pos, self.rotated_channels_per_head)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits against the tied token embedding (``x @ E^T``)."""
+        return x @ self.txt_embedding.weight.t()
+
+
+class TiedTokenOutputAdapter(nn.Module):
+    """Logits tied to the token embedding: ``attend(x) (+ bias)``; the table
+    stays owned by the input adapter."""
+
+    def __init__(self, vocab_size: int, emb_bias: bool = True):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(vocab_size)) if emb_bias else None
+
+    def forward(self, x: torch.Tensor, attend) -> torch.Tensor:
+        logits = attend(x)
+        if self.bias is not None:
+            logits = logits + self.bias.to(logits.dtype)
+        return logits

@@ -1,0 +1,213 @@
+"""Multi-head attention with contiguous and paged KV caches (counterpart of
+``perceiver_io_tpu/core/attention.py::MultiHeadAttention``).
+
+Routes, each numerically the JAX package's:
+
+- no cache: the packed flash kernel K2 (``ops.flash_attention``) over the
+  projection layout;
+- contiguous cache that entered EMPTY with more than one query (the prompt
+  pass): keys rotate and land in the cache, and K2 computes the attention over
+  the fresh keys/values — eager PyTorch knows the cache length, so no
+  context flag is needed to tell a prefill from a decode;
+- on those two routes, head dims K2 cannot take (not a multiple of 8, or over
+  128) need the heads-major flash kernel, which is not ported: CUDA tensors
+  raise ``NotImplementedError``, CPU tensors take the dense path;
+- any other contiguous cache call (the sequential decode step): the dense
+  path over the cache slots, scores in f32, masked by the slot validity, the
+  pad mask and the right-aligned causal mask;
+- paged cache (the engine's batched one-token step): page-indexed append,
+  then the paged decode kernel K3 (``ops.paged_attention``).
+
+Keys are rotated once at write (rotate-at-write); ``rope_k`` covers only the
+tokens being appended. Queries are scaled by ``Dqk**-0.5`` before rotation.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import torch
+from torch import nn
+
+from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache
+from perceiver_io_tpu_torch.core.position import apply_rotary_pos_emb
+from perceiver_io_tpu_torch.ops.flash_attention import flash_attention_packed, packed_supported
+from perceiver_io_tpu_torch.ops.paged_attention import paged_decode_attention, paged_kernel_supported
+
+_NEG_MAX = -torch.finfo(torch.float32).max
+
+
+class AttentionOutput(NamedTuple):
+    last_hidden_state: torch.Tensor
+    kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention (Perceiver IO Appendix E) with q/k/v/o
+    projections named as in the reference implementation."""
+
+    def __init__(
+        self,
+        num_heads: int,
+        num_q_input_channels: int,
+        num_kv_input_channels: int,
+        num_qk_channels: Optional[int] = None,
+        num_v_channels: Optional[int] = None,
+        num_output_channels: Optional[int] = None,
+        causal_attention: bool = False,
+        qkv_bias: bool = True,
+        out_bias: bool = True,
+    ):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qk_channels = num_qk_channels if num_qk_channels is not None else num_q_input_channels
+        self.v_channels = num_v_channels if num_v_channels is not None else self.qk_channels
+        out_channels = num_output_channels if num_output_channels is not None else num_q_input_channels
+        if self.qk_channels % num_heads != 0:
+            raise ValueError("num_qk_channels must be divisible by num_heads")
+        if self.v_channels % num_heads != 0:
+            raise ValueError("num_v_channels must be divisible by num_heads")
+        self.causal_attention = causal_attention
+        self.q_proj = nn.Linear(num_q_input_channels, self.qk_channels, bias=qkv_bias)
+        self.k_proj = nn.Linear(num_kv_input_channels, self.qk_channels, bias=qkv_bias)
+        self.v_proj = nn.Linear(num_kv_input_channels, self.v_channels, bias=qkv_bias)
+        self.o_proj = nn.Linear(self.v_channels, out_channels, bias=out_bias)
+
+    @property
+    def d_qk(self) -> int:
+        return self.qk_channels // self.num_heads
+
+    @property
+    def d_v(self) -> int:
+        return self.v_channels // self.num_heads
+
+    def _packed_ok(self, q: torch.Tensor) -> bool:
+        """Whether K2 takes this layer's head dims; on a CUDA tensor a
+        refusal raises (the heads-major kernel is not ported), on a CPU
+        tensor the caller takes the dense path."""
+        if packed_supported(self.num_heads, self.d_qk, self.d_v):
+            return True
+        if q.is_cuda:
+            raise NotImplementedError(
+                f"head dims ({self.d_qk}, {self.d_v}) need the heads-major flash kernel, which is not "
+                "ported; the packed kernel takes multiples of 8 up to 128"
+            )
+        return False
+
+    def _rotate_keys(self, k: torch.Tensor, rope_k: Optional[torch.Tensor]) -> torch.Tensor:
+        """Rotate packed keys (B, M, H*D) in place of layout: (B, M, H, D) is
+        a view, so no head transpose is made."""
+        if rope_k is None:
+            return k
+        b, m = k.shape[0], k.shape[1]
+        k4 = apply_rotary_pos_emb(k.reshape(b, m, self.num_heads, self.d_qk), rope_k[:, :, None, :])
+        return k4.reshape(k.shape)
+
+    def _packed_flash(self, q, k, v, rope_q, pad_mask):
+        """Scale and rotate q in the packed layout and run K2 (keys arrive
+        rotated)."""
+        b, n = q.shape[0], q.shape[1]
+        q4 = q.reshape(b, n, self.num_heads, self.d_qk) * self.d_qk**-0.5
+        if rope_q is not None:
+            q4 = apply_rotary_pos_emb(q4, rope_q[:, :, None, :])
+        return flash_attention_packed(
+            q4.reshape(q.shape), k, v, num_heads=self.num_heads, pad_mask=pad_mask,
+            causal=self.causal_attention, sm_scale=1.0,
+        )
+
+    def _scaled_query_heads(self, q, rope_q):
+        b, n = q.shape[0], q.shape[1]
+        qh = q.reshape(b, n, self.num_heads, self.d_qk).transpose(1, 2) * self.d_qk**-0.5
+        if rope_q is not None:
+            qh = apply_rotary_pos_emb(qh, rope_q[:, None, :, :])
+        return qh  # (B, H, N, Dk)
+
+    def _dense(self, q, k, v, rope_q, masked):
+        """Plain attention over packed k/v (B, M, H*D); ``masked`` (B|1, N|1,
+        M) bool, True = masked. Scores and softmax in f32."""
+        b, n, m = q.shape[0], q.shape[1], k.shape[1]
+        h = self.num_heads
+        qh = self._scaled_query_heads(q, rope_q)
+        kh = k.reshape(b, m, h, self.d_qk)
+        vh = v.reshape(b, m, h, self.d_v)
+        scores = torch.einsum("bhic,bjhc->bhij", qh.float(), kh.float())
+        scores = scores.masked_fill(masked[:, None, :, :], _NEG_MAX)
+        attn = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhij,bjhc->bihc", attn.to(vh.dtype), vh)
+        return o.reshape(b, n, self.v_channels)
+
+    def _paged_decode_attend(self, q, cache: PagedKVCache, pad_mask, rope_q) -> AttentionOutput:
+        b = q.shape[0]
+        qh = self._scaled_query_heads(q, rope_q)[:, :, 0, :]  # (B, H, Dk)
+        if not paged_kernel_supported(cache, self.num_heads, self.d_qk, self.d_v):
+            raise ValueError(f"paged pool of dtype {cache.k.dtype} / Dv {self.d_v} is not supported")
+        # slot validity (j >= length) is applied by the paged attention itself
+        mask = None if pad_mask is None else pad_mask[:, : cache.capacity]
+        o = paged_decode_attention(qh, cache, mask)  # (B, H, Dv)
+        return AttentionOutput(self.o_proj(o.reshape(b, 1, self.v_channels).to(q.dtype)), cache)
+
+    def forward(
+        self,
+        x_q: torch.Tensor,
+        x_kv: torch.Tensor,
+        pad_mask: Optional[torch.Tensor] = None,
+        rope_q: Optional[torch.Tensor] = None,
+        rope_k: Optional[torch.Tensor] = None,
+        kv_cache: Optional[Union[KVCache, PagedKVCache]] = None,
+    ) -> AttentionOutput:
+        """Attend ``x_q`` (B, N, Dq) to ``x_kv`` (B, M, Dkv).
+
+        :param pad_mask: bool, True = padding: (B, M) without a cache,
+            slot-aligned (B, capacity) with one.
+        :param rope_q: rotary encodings of the queries (B, N, R), or None.
+        :param rope_k: rotary encodings of ``x_kv``'s tokens (B, M, R), or None.
+        :param kv_cache: the cache the new keys/values are appended to.
+        """
+        n_q, n_kv = x_q.shape[1], x_kv.shape[1]
+        q = self.q_proj(x_q)
+        k = self._rotate_keys(self.k_proj(x_kv), rope_k)
+        v = self.v_proj(x_kv)
+
+        if kv_cache is None:
+            if self._packed_ok(q):
+                o = self._packed_flash(q, k, v, rope_q, pad_mask)
+                return AttentionOutput(self.o_proj(o), None)
+            masked = torch.zeros((1, 1, n_kv), dtype=torch.bool, device=q.device)
+            if pad_mask is not None:
+                masked = masked | pad_mask[:, None, :]
+            if self.causal_attention:
+                masked = masked | self._causal(n_q, n_kv, n_kv, q.device)
+            return AttentionOutput(self.o_proj(self._dense(q, k, v, rope_q, masked)), None)
+
+        if isinstance(kv_cache, PagedKVCache):
+            if n_q != 1:
+                raise NotImplementedError("paged attention is decode-only (n_q == 1); "
+                                          "multi-token paged spans are not ported")
+            return self._paged_decode_attend(q, kv_cache.append(k, v), pad_mask, rope_q)
+
+        entered_empty = kv_cache.length == 0
+        new_cache = kv_cache.append(k, v)
+        if entered_empty and n_q > 1 and self._packed_ok(q):
+            # prefill: attention over [0, length) IS attention over the fresh
+            # keys/values, which occupy slots [0, n_kv)
+            fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]
+            o = self._packed_flash(q, k, v, rope_q, fresh_pad)
+            return AttentionOutput(self.o_proj(o), new_cache)
+
+        eff_len, cap = new_cache.length, new_cache.capacity
+        kv_idx = torch.arange(cap, device=q.device)
+        masked = (kv_idx >= eff_len)[None, None, :]
+        if pad_mask is not None:
+            masked = masked | pad_mask[:, None, :cap]
+        if self.causal_attention:
+            masked = masked | self._causal(n_q, cap, eff_len, q.device)
+        o = self._dense(q, new_cache.k, new_cache.v, rope_q, masked)
+        return AttentionOutput(self.o_proj(o), new_cache)
+
+    @staticmethod
+    def _causal(n_q: int, n_kv: int, eff_len: int, device) -> torch.Tensor:
+        """(1, Nq, Nkv) True where key j lies after query i's absolute slot
+        ``eff_len - n_q + i`` (right-aligned)."""
+        q_abs = eff_len - n_q + torch.arange(n_q, device=device)
+        kv_idx = torch.arange(n_kv, device=device)
+        return (kv_idx[None, :] > q_abs[:, None])[None]

@@ -1,0 +1,184 @@
+"""KV-cache disciplines: the contiguous :class:`KVCache` and the paged
+:class:`PagedKVCache` (counterpart of ``perceiver_io_tpu/core/cache.py``;
+float caches only — int8 storage is not ported yet).
+
+Keys are stored ROTATED (rotate-at-write): a token's rotary rotation rides it
+into the cache, so cached keys are never touched again.
+
+PyTorch runs eagerly, so the port updates the large buffers IN PLACE where the
+JAX package returns updated copies: ``KVCache.append``, ``PagedKVCache.append``
+and :func:`commit_prefill` write into the existing ``k``/``v`` storage (an
+append moves the new tokens' bytes, never the whole buffer). The small
+per-slot tensors (``page_table``, ``length``) are replaced, not mutated, and
+every operation returns the cache to use from then on; the old object must not
+be read again.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from perceiver_io_tpu_torch.device import DeviceLike, resolve_device
+
+
+def _require_float(dtype) -> None:
+    if not torch.empty((), dtype=dtype).is_floating_point():
+        raise ValueError(f"only float KV caches are ported (int8 storage is not), got {dtype}")
+
+
+@dataclass
+class KVCache:
+    """Fixed-capacity contiguous cache: ``k``/``v`` (B, capacity, C) with
+    valid data in slots ``[0, length)``. ``length`` is a Python int — eager
+    PyTorch knows it on the host."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[1]
+
+    def append(self, k: torch.Tensor, v: torch.Tensor) -> "KVCache":
+        """Write ``k``/``v`` (B, N, C), keys already rotated, at ``length``
+        (in place); returns the advanced cache."""
+        start, n = self.length, k.shape[1]
+        if start + n > self.capacity:
+            raise ValueError(f"KV cache overflow: {start} + {n} tokens > capacity {self.capacity}")
+        self.k[:, start:start + n] = k.to(self.k.dtype)
+        self.v[:, start:start + n] = v.to(self.v.dtype)
+        return KVCache(self.k, self.v, start + n)
+
+
+def init_kv_cache(batch_size: int, capacity: int, num_qk_channels: int, num_v_channels: int,
+                  dtype=torch.float32, device: DeviceLike = "cuda") -> KVCache:
+    """Empty contiguous cache (length 0) on ``device`` (CUDA by default;
+    without a card that raises, pass ``device="cpu"``)."""
+    _require_float(dtype)
+    device = resolve_device(device)
+    return KVCache(
+        k=torch.zeros((batch_size, capacity, num_qk_channels), dtype=dtype, device=device),
+        v=torch.zeros((batch_size, capacity, num_v_channels), dtype=dtype, device=device),
+        length=0,
+    )
+
+
+@dataclass
+class PagedKVCache:
+    """Paged cache: ``k``/``v`` (num_pages, page_size, C) pools shared by the
+    decode slots; slot ``s`` owns the pages ``page_table[s]`` names and holds
+    ``length[s]`` tokens — token ``t`` lives at
+    ``(page_table[s, t // page_size], t % page_size)``.
+
+    Page 0 is the SCRATCH page (``serving.pages.PageAllocator`` never hands
+    it out): unowned table entries point at it, so an inactive slot's appends
+    land there harmlessly and the batched step needs no per-slot branches."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    page_table: torch.Tensor  # (S, pages_per_slot) int32
+    length: torch.Tensor  # (S,) int32
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def pages_per_slot(self) -> int:
+        return self.page_table.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        """Per-slot token capacity (the contiguous view's slot axis)."""
+        return self.pages_per_slot * self.page_size
+
+    @property
+    def slots(self) -> int:
+        return self.page_table.shape[0]
+
+    def append(self, k: torch.Tensor, v: torch.Tensor) -> "PagedKVCache":
+        """Append ONE token per slot (``k``/``v`` (S, 1, C), keys rotated)
+        into the pool, in place. Overflowing slots clamp to their last page
+        (inactive slots point at scratch and never overflow live data)."""
+        if k.shape[1] != 1:
+            raise ValueError(f"paged append is one token per slot, got {k.shape[1]}")
+        pos = self.length.long()
+        page_idx = torch.clamp(pos // self.page_size, max=self.pages_per_slot - 1)
+        page_id = torch.gather(self.page_table.long(), 1, page_idx[:, None])[:, 0]
+        offset = pos % self.page_size
+        self.k[page_id, offset] = k[:, 0].to(self.k.dtype)
+        self.v[page_id, offset] = v[:, 0].to(self.v.dtype)
+        return PagedKVCache(self.k, self.v, self.page_table, self.length + 1)
+
+    def gather_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The contiguous (S, capacity, C) view of every slot's pages (a
+        copy) — what the plain paged attention reads."""
+        idx = self.page_table.reshape(-1).long()
+        s, cap = self.slots, self.capacity
+        return (
+            self.k[idx].reshape(s, cap, self.k.shape[2]),
+            self.v[idx].reshape(s, cap, self.v.shape[2]),
+        )
+
+
+def init_paged_kv_cache(slots: int, num_pages: int, page_size: int, pages_per_slot: int,
+                        num_qk_channels: int, num_v_channels: int, dtype=torch.float32,
+                        device: DeviceLike = "cuda") -> PagedKVCache:
+    """Empty paged cache on ``device`` (CUDA by default, as
+    :func:`init_kv_cache`): every table entry points at scratch page 0, every
+    length is 0."""
+    if num_pages < 2:
+        raise ValueError("need at least 2 pages (page 0 is reserved scratch)")
+    _require_float(dtype)
+    device = resolve_device(device)
+    return PagedKVCache(
+        k=torch.zeros((num_pages, page_size, num_qk_channels), dtype=dtype, device=device),
+        v=torch.zeros((num_pages, page_size, num_v_channels), dtype=dtype, device=device),
+        page_table=torch.zeros((slots, pages_per_slot), dtype=torch.int32, device=device),
+        length=torch.zeros((slots,), dtype=torch.int32, device=device),
+    )
+
+
+def commit_prefill(paged: PagedKVCache, slot: int, page_ids: torch.Tensor,
+                   prefill_cache: KVCache, n_tokens: int) -> PagedKVCache:
+    """Move one request's prompt KV from a contiguous prefill cache (batch 1)
+    into its freshly granted pages ``page_ids`` (n,), and point slot
+    ``slot``'s table row at them. Rows past ``n_tokens`` in the last page
+    carry the prefill buffer's slack (or zeros); reads mask them."""
+    page_ids = page_ids.to(device=paged.k.device, dtype=torch.long)
+    n = page_ids.shape[0]
+    page_size = paged.page_size
+
+    def rows_of(buf):
+        want = n * page_size
+        rows = buf[0]
+        if rows.shape[0] < want:
+            rows = torch.cat([rows, rows.new_zeros((want - rows.shape[0],) + tuple(rows.shape[1:]))])
+        return rows[:want].reshape((n, page_size) + tuple(buf.shape[2:]))
+
+    paged.k[page_ids] = rows_of(prefill_cache.k).to(paged.k.dtype)
+    paged.v[page_ids] = rows_of(prefill_cache.v).to(paged.v.dtype)
+    table = paged.page_table.clone()
+    table[slot] = 0
+    table[slot, :n] = page_ids.to(torch.int32)
+    length = paged.length.clone()
+    length[slot] = int(n_tokens)
+    return PagedKVCache(paged.k, paged.v, table, length)
+
+
+def release_slot(paged: PagedKVCache, slot: int) -> PagedKVCache:
+    """Point a retired slot's table row back at scratch and zero its length;
+    no pool bytes move (the host half returns the pages to the allocator)."""
+    table = paged.page_table.clone()
+    table[slot] = 0
+    length = paged.length.clone()
+    length[slot] = 0
+    return PagedKVCache(paged.k, paged.v, table, length)

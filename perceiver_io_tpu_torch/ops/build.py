@@ -1,0 +1,152 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each source in ``ops/csrc/*.cu`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface (``extern "C"``
+launchers that take raw device pointers and the CUDA stream) and loaded with
+``ctypes`` — no PyTorch headers, so a build takes seconds, not minutes. The
+libraries land in ``ops/_build/`` (ignored by git) under a name that carries a
+hash of the sources and flags, so an edited source is rebuilt, never reused
+stale. :func:`build_all` starts one ``nvcc`` per source at once and waits for
+all of them.
+
+Nothing here runs at import: the CPU tests import every module, on machines
+that have neither ``nvcc`` nor a card. A failed build raises with the
+compiler's output; no caller falls back to a plain version on failure.
+
+``LAUNCHES`` counts kernel launches by name: every wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels (``chip_smoke.py`` resets and reads it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# one shared library per source file: source name -> (its C launcher, the
+# launcher's argument types); every launcher returns a cudaError_t
+LAUNCHERS = {
+    "flash_packed": ("pio_flash_packed_fwd", [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P]),
+    "paged_decode": ("pio_paged_decode", [_P] * 8 + [_I] * 7 + [_P]),
+}
+CUDA_SOURCES = tuple(LAUNCHERS)
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: Dict[str, int] = {"flash_packed_fwd": 0, "paged_decode": 0, "layer_norm_fwd": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: Dict[str, object] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME unset and no nvcc on PATH): the CUDA kernels "
+        "of perceiver_io_tpu_torch are built from source on the machine with the card"
+    )
+
+
+def _library_path(name: str) -> str:
+    digest = hashlib.sha256()
+    for fname in sorted(os.listdir(CSRC_DIR)):
+        if fname == f"{name}.cu" or fname.endswith(".cuh"):
+            with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+                digest.update(fname.encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_all(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
+    """Compile every named source that has no up-to-date library yet, one
+    ``nvcc`` process per source, all started together. Returns name -> library
+    path; raises RuntimeError naming every source that failed to build."""
+    names = list(names)
+    paths = {name: _library_path(name) for name in names}
+    todo = [n for n in names if not os.path.isfile(paths[n])]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = f"{paths[name]}.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        else:
+            os.replace(tmp, paths[name])
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def launcher(name: str):
+    """The C launcher of one source, its argument types declared; the
+    library is built and loaded first if needed."""
+    with _LOCK:
+        fn = _LAUNCHERS.get(name)
+        if fn is None:
+            lib = ctypes.CDLL(build_all([name])[name])
+            symbol, argtypes = LAUNCHERS[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
+            _LAUNCHERS[name] = fn
+        return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a launcher's nonzero cudaError_t (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def current_stream(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,55 @@
+"""The port stands alone: importing every module of ``perceiver_io_tpu_torch``
+and ``chip_smoke.py`` loads neither JAX, Flax nor the JAX package; and
+``chip_smoke.py`` refuses to run (non-zero exit, no result line) without a
+CUDA device."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, importlib.util, pkgutil, sys
+import perceiver_io_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(perceiver_io_tpu_torch.__path__, "perceiver_io_tpu_torch.")
+         if not m.name.endswith("layernorm_triton")]  # imports triton, which only the card's machine has
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "perceiver_io_tpu")
+print(len(names), bad)
+"""
+
+
+def _python(args, cwd, env=None):
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    proc = _python(["-c", _IMPORT_ALL], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 15
+    assert bad.strip() == "[]"
+
+
+def _no_cuda_env():
+    return dict(os.environ, CUDA_VISIBLE_DEVICES="")
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_refuses_without_a_card(tmp_path, where):
+    cwd = ROOT
+    if where == "alone":  # a directory that holds chip_smoke.py and nothing else of the repo
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    proc = _python(["chip_smoke.py"], cwd, env=_no_cuda_env())
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
