@@ -6,31 +6,48 @@ Usage, from the root of a checkout: ``python3 chip_smoke.py`` (one card).
 Phases, each fatal on failure (nothing is caught to keep the exit code 0):
 
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: every CUDA kernel of the serving path is compiled from the sources
-   in ``perceiver_io_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at
-   once; the Triton kernel compiles at its first launch);
+2. build: every CUDA kernel of the serving and training paths is compiled
+   from the sources in ``perceiver_io_tpu_torch/ops/csrc`` (one ``nvcc`` per
+   source, all at once; the Triton kernels compile at their first launch);
 3. kernel parity: each kernel against its plain PyTorch version on the card
-   at the flagship's shapes, with the tolerance stated beside each case, and
-   its median time beside the plain version's, the PyTorch library call's
-   where one computes the same function, and the least time the card could
-   take (``bound_ms``);
+   at the flagship's serving and training shapes, with the tolerance stated
+   beside each case, and its median time beside the plain version's, the
+   PyTorch library call's where one computes the same function, and the
+   least time the card could take (``bound_ms``): K2 packed flash forward
+   (at the serving and the training shapes), K3 paged decode, K1 LayerNorm
+   forward (with and without its statistics), K4a/K4b packed flash
+   backward, K5 LayerNorm backward;
 4. serve: the flagship-width Perceiver AR CLM (seeded random weights)
    answers six greedy requests through ``EngineFrontEnd``; every served
    stream must equal the sequential ``make_decode_fns`` stream up to the
    first step where the sequential logits' top-2 gap is a near tie (the
    paged and contiguous decodes sum in different orders); the page
-   allocators must end empty, and every kernel of the path must have
-   launched during the serve.
+   allocators must end empty, and every kernel of the serving path must
+   have launched during the serve; then a profiled serve;
+5. train: the flagship at full width and depth (16384 tokens, 1024 latents,
+   8 layers, seeded random weights) takes five AdamW steps (lr 1e-3, f32
+   moments, global clip 1.0) on one fixed batch of 4 in 2 chunks, with a
+   fresh host-sampled prefix keep set per step; every loss must be finite,
+   the fifth below the first, no step skipped by the non-finite sentinel,
+   and every kernel of the training path must have launched; then one
+   profiled step;
+6. gradient check: one train-step gradient of a full-width model (512
+   channels, 8 heads; 2048 tokens, 256 latents, 2 layers) on the card
+   against the same gradient on the CPU (plain versions), from the same
+   weights, batch and keep set, and the optimizer update each side makes
+   from it.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero and prints
-no result. Parity phases run with TF32 off for matrix products.
+no result. Parity phases run with TF32 off for matrix products; an error
+that is not finite fails every check.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -46,6 +63,13 @@ FLAGSHIP = dict(
 NUM_LATENTS = 512
 N_REQUESTS = 6
 NEAR_TIE = 1e-4
+# the train phase: batch 4 in chunks of 2, five steps
+TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-3
+TRAIN_CHUNK = TRAIN_BATCH // TRAIN_MICROBATCH
+PREFIX_LEN = FLAGSHIP["max_seq_len"] - FLAGSHIP["max_latents"]
+KEEP = PREFIX_LEN - int(PREFIX_LEN * FLAGSHIP["cross_attention_dropout"])  # kept prefix rows: 7680
+SERVE_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd")
+TRAIN_KERNELS = ("layer_norm_fwd", "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq", "layer_norm_bwd")
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tensor cores; bf16 tensor
@@ -75,10 +99,15 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def within(err: float, tol: float) -> bool:
+    """``err <= tol`` for a finite error (a NaN error never passes)."""
+    return math.isfinite(err) and err <= tol
+
+
 def check(name: str, err: float, tol: float) -> None:
-    status = "ok" if err <= tol else "FAIL"
+    status = "ok" if within(err, tol) else "FAIL"
     log(f"parity {name}: max_abs_err={err:.3e} tol={tol:.1e} {status}")
-    if err > tol:
+    if not within(err, tol):
         raise SystemExit(f"kernel parity failed: {name} max_abs_err {err} > {tol}")
 
 
@@ -92,7 +121,10 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def flash_phase(gen: torch.Generator) -> dict:
+def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str) -> dict:
+    """K2 against its plain version on one causal case (out and logsumexp),
+    with its time beside the plain version's, one SDPA call's with the same
+    mask, and the bound. ``path`` names the path whose shapes these are."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops.flash_attention import (
@@ -100,6 +132,38 @@ def flash_phase(gen: torch.Generator) -> dict:
         flash_attention_packed_reference,
     )
 
+    (b, nq, c), nkv, d = q.shape, k.shape[1], q.shape[2] // h
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=True)
+    err = max_err(o, ro)
+    check(f"flash_packed_fwd {name} out", err, tol)
+    check(f"flash_packed_fwd {name} lse", max_err(lse, rlse), 1e-4)
+    ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=True), 3)
+    # the library yardstick: one SDPA call on heads-major views with the
+    # same right-aligned causal + pad mask
+    qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k, v))
+    i = torch.arange(nq, device="cuda")[:, None]
+    j = torch.arange(nkv, device="cuda")[None, :]
+    keep = (j <= i + (nkv - nq))[None, None]
+    if pad is not None:
+        keep = keep & ~pad[:, None, None, :]
+    library_ms = time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
+    el = q.element_size()
+    visible = b * sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))
+    n_bytes = el * b * (2 * nq * c + 2 * nkv * c) + 4 * b * nq * h + (4 * b * nkv if pad is not None else 0)
+    bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible, q.dtype)
+    pads = 0 if pad is None else int(pad[0].sum())
+    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} {str(q.dtype)[6:]}", path=path,
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(f"time flash_packed_fwd {name}: {json.dumps(row)}")
+    return row
+
+
+def flash_phase(gen: torch.Generator) -> dict:
+    """K2 at the serving prefill's shapes (batch 1, 512 latents)."""
     h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
     d = c // h
     cases = {  # name: (nq, nkv, dtype, left pads, tolerance)
@@ -117,31 +181,7 @@ def flash_phase(gen: torch.Generator) -> dict:
         if pads:
             pad = torch.zeros(1, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
-        o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True, return_lse=True)
-        torch.cuda.synchronize()
-        ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=True)
-        err = max_err(o, ro)
-        check(f"flash_packed_fwd {name} out", err, tol)
-        check(f"flash_packed_fwd {name} lse", max_err(lse, rlse), 1e-4)
-        ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True))
-        plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=True), 3)
-        # the library yardstick: one SDPA call on heads-major views with the
-        # same right-aligned causal + pad mask
-        qh, kh, vh = (t.reshape(1, -1, h, d).transpose(1, 2) for t in (q, k, v))
-        i = torch.arange(nq, device="cuda")[:, None]
-        j = torch.arange(nkv, device="cuda")[None, :]
-        keep = (j <= i + (nkv - nq))[None, None]
-        if pad is not None:
-            keep = keep & ~pad[:, None, None, :]
-        library_ms = time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
-        el = torch.finfo(dtype).bits // 8
-        visible = sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))
-        n_bytes = el * (2 * nq * c + 2 * nkv * c) + 4 * nq * h + (4 * nkv if pads else 0)
-        bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible, dtype)
-        row = dict(case=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"time flash_packed_fwd {name}: {json.dumps(row)}")
-        out["cases"].append(row)
+        out["cases"].append(flash_fwd_case(name, q, k, v, pad, h, tol, "serve"))
     return out
 
 
@@ -185,34 +225,178 @@ def paged_phase(gen: torch.Generator) -> dict:
         # walked and lengths; under a mask, its bool entries of those tokens
         n_bytes = 4 * (2 * tokens * c + 2 * slots * c + pages_read + slots) + (tokens if m is not None else 0)
         bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens, torch.float32)
-        row = dict(case=f"{name} slots={slots} page={page} lengths={lengths}", max_abs_err=err, tol=tol, ms=ms,
+        row = dict(case=f"{name} slots={slots} page={page} lengths={lengths}", path="serve", max_abs_err=err,
+                   tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         log(f"time paged_decode {name}: {json.dumps(row)}")
         rows.append(row)
     return {"cases": rows}
 
 
-def layernorm_phase(gen: torch.Generator) -> dict:
-    from torch.nn.functional import layer_norm as torch_layer_norm
-
-    from perceiver_io_tpu_torch.ops.layernorm import layer_norm, layer_norm_reference
-
-    rows, c = FLAGSHIP["max_seq_len"], FLAGSHIP["num_channels"]
+def _ln_inputs(gen: torch.Generator, rows: int, c: int):
     x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).cuda()
     w = (1 + 0.1 * torch.randn(c, generator=gen)).cuda()
     b = (0.1 * torch.randn(c, generator=gen)).cuda()
-    y = layer_norm(x, w, b)
-    torch.cuda.synchronize()
+    return x, w, b
+
+
+def layernorm_phase(gen: torch.Generator) -> dict:
+    from torch.nn.functional import layer_norm as torch_layer_norm
+
+    from perceiver_io_tpu_torch.ops.layernorm import (
+        layer_norm,
+        layer_norm_cuda,
+        layer_norm_reference,
+        layer_norm_reference_stats,
+    )
+
+    c = FLAGSHIP["num_channels"]
     tol = 1e-5
-    err = max_err(y, layer_norm_reference(x, w, b))
-    check("layer_norm_fwd f32", err, tol)
-    ms = time_ms(lambda: layer_norm(x, w, b), 20)
-    plain_ms = time_ms(lambda: layer_norm_reference(x, w, b), 20)
-    library_ms = time_ms(lambda: torch_layer_norm(x, (c,), w, b, 1e-5), 20)
-    bound_ms, bound_by = bound(4 * (2 * rows * c + 2 * c), 8 * rows * c, torch.float32)
-    row = dict(case=f"rows={rows} C={c} f32", max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-    log(f"time layer_norm_fwd: {json.dumps(row)}")
+    rows_out = []
+    # the serving launch (no statistics) at a full prompt, and the training
+    # launch (with the per-row mean/rstd the backward reads) at the kv_norm
+    # rows of one chunk (2 x 7680 kept prefix rows)
+    for rows, stats in ((FLAGSHIP["max_seq_len"], False), (TRAIN_CHUNK * KEEP, True)):
+        x, w, b = _ln_inputs(gen, rows, c)
+        name = "with_stats" if stats else "serving"
+        if stats:
+            got = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
+            want = layer_norm_reference_stats(x, w, b, 1e-5, torch.float32)
+            torch.cuda.synchronize()
+            err = max(max_err(g, r) for g, r in zip(got, want))
+            run = lambda: layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)  # noqa: E731
+            plain = lambda: layer_norm_reference_stats(x, w, b, 1e-5, torch.float32)  # noqa: E731
+        else:
+            y = layer_norm(x, w, b)
+            torch.cuda.synchronize()
+            err = max_err(y, layer_norm_reference(x, w, b))
+            run = lambda: layer_norm(x, w, b)  # noqa: E731
+            plain = lambda: layer_norm_reference(x, w, b)  # noqa: E731
+        check(f"layer_norm_fwd f32 {name} (y, mean, rstd)" if stats else "layer_norm_fwd f32", err, tol)
+        ms = time_ms(run, 20)
+        plain_ms = time_ms(plain, 20)
+        library_ms = time_ms(lambda: torch_layer_norm(x, (c,), w, b, 1e-5), 20)
+        n_bytes = 4 * (2 * rows * c + 2 * c + (2 * rows if stats else 0))
+        bound_ms, bound_by = bound(n_bytes, 8 * rows * c, torch.float32)
+        row = dict(case=f"{name} rows={rows} C={c} f32", path="train" if stats else "serve", max_abs_err=err,
+                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"time layer_norm_fwd {name}: {json.dumps(row)}")
+        rows_out.append(row)
+    return {"cases": rows_out}
+
+
+def flash_bwd_phase(gen: torch.Generator) -> tuple:
+    """K4a (dK/dV) and K4b (dQ) at a training chunk's shapes (batch 2): the
+    causal cross-attention of 1024 latents over 7680 kept prefix keys + the
+    latents, a latent self-attention, and the cross-attention with left-padded
+    keys. K2's forward, whose output and logsumexp the backward reads, is
+    first held against its plain version on the same inputs. The plain
+    backward computes all three gradients at once, so both kernels carry its
+    time; so does the library yardstick, the backward of one
+    ``scaled_dot_product_attention`` call with the same mask. Returns the
+    K4a, K4b and K2 rows."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        bias_row,
+        bwd_delta,
+        bwd_dkv_cuda,
+        bwd_dq_cuda,
+        flash_attention_packed,
+        flash_attention_packed_bwd_reference,
+    )
+
+    h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
+    d, b, lat = c // h, TRAIN_CHUNK, FLAGSHIP["max_latents"]
+    cases = {  # name: (nq, nkv, left pads)
+        "ca_f32": (lat, KEEP + lat, 0),
+        "sa_f32": (lat, lat, 0),
+        "ca_f32_leftpad": (lat, KEEP + lat, 3001),
+    }
+    # measured error 0: the kernels and cuBLAS's f32 SIMT GEMMs under the
+    # plain version accumulate every sum in the same sequential FMA order.
+    # The tolerance allows one reordered f32 sum of these gradients (values
+    # up to ~2, sums of up to 8704 terms), should a library pick another order
+    tol = {"dkv": 1e-5, "dq": 1e-5}
+    out = {"dkv": {"cases": []}, "dq": {"cases": []}, "fwd": {"cases": []}}
+    for name, (nq, nkv, pads) in cases.items():
+        q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda()
+        k, v = (torch.randn(b, nkv, c, generator=gen).cuda() for _ in range(2))
+        do = torch.randn(b, nq, c, generator=gen).cuda()
+        pad = None
+        if pads:
+            pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
+            pad[:, :pads] = True
+        out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h, 1e-5, "train"))
+        o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True, return_lse=True)
+        args = (q, k, v, do, lse, bwd_delta(o, do, h), h, bias_row(pad, b, nkv, q.device), True, 1.0)
+        dk, dv = bwd_dkv_cuda(*args)
+        dq = bwd_dq_cuda(*args)
+        torch.cuda.synchronize()
+        rdq, rdk, rdv = flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad, causal=True)
+        errs = {"dkv": max(max_err(dk, rdk), max_err(dv, rdv)), "dq": max_err(dq, rdq)}
+        for kernel, err in errs.items():
+            check(f"flash_packed_bwd_{kernel} {name}", err, tol[kernel])
+        times = {"dkv": time_ms(lambda: bwd_dkv_cuda(*args)), "dq": time_ms(lambda: bwd_dq_cuda(*args))}
+        plain_ms = time_ms(lambda: flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad,
+                                                                        causal=True), 3)
+        qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        i = torch.arange(nq, device="cuda")[:, None]
+        j = torch.arange(nkv, device="cuda")[None, :]
+        keep = (j <= i + (nkv - nq))[None, None]
+        if pad is not None:
+            keep = keep & ~pad[:, None, None, :]
+        ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)
+        go = do.reshape(b, nq, h, d).transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
+        pairs = b * h * sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))  # visible (query, key) pairs
+        reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h + (b * nkv if pad is not None else 0))
+        bounds = {"dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, torch.float32),
+                  "dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, torch.float32)}
+        for kernel in ("dkv", "dq"):
+            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} f32 causal",
+                       path="train", max_abs_err=errs[kernel], tol=tol[kernel], ms=times[kernel], plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+            log(f"time flash_packed_bwd_{kernel} {name}: {json.dumps(row)}")
+            out[kernel]["cases"].append(row)
+    return out["dkv"], out["dq"], out["fwd"]
+
+
+def layernorm_bwd_phase(gen: torch.Generator) -> dict:
+    """K5 at the kv_norm rows of one training chunk (2 x 7680 x 512 f32),
+    from K1's statistics; the library yardstick is the backward of
+    ``F.layer_norm``."""
+    from torch.nn.functional import layer_norm as torch_layer_norm
+
+    from perceiver_io_tpu_torch.ops.layernorm import layer_norm_bwd_cuda, layer_norm_bwd_reference, layer_norm_cuda
+
+    rows, c = TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"]
+    x, w, b = _ln_inputs(gen, rows, c)
+    dy = torch.randn(rows, c, generator=gen).cuda()
+    _, mean, rstd = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
+    dx, dw, db = layer_norm_bwd_cuda(x, w, mean, rstd, dy)
+    torch.cuda.synchronize()
+    rdx, rdw, rdb = layer_norm_bwd_reference(x, w, mean, rstd, dy)
+    # about four times the errors measured on the card: dx (values up to ~5,
+    # f32 row sums of 512 in another order) 4.8e-7; dgamma/dbeta (sums over
+    # 15360 rows, values up to ~400, taken as per-program partials and a
+    # second pass) 1.2e-4
+    tol, tol_dw_db = 2e-6, 5e-4
+    err, err_dw_db = max_err(dx, rdx), max(max_err(dw, rdw), max_err(db, rdb))
+    check("layer_norm_bwd dx", err, tol)
+    check("layer_norm_bwd dgamma/dbeta", err_dw_db, tol_dw_db)
+    ms = time_ms(lambda: layer_norm_bwd_cuda(x, w, mean, rstd, dy), 20)
+    plain_ms = time_ms(lambda: layer_norm_bwd_reference(x, w, mean, rstd, dy), 20)
+    xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+    ref = torch_layer_norm(xr, (c,), wr, br, 1e-5)
+    library_ms = time_ms(lambda: torch.autograd.grad(ref, (xr, wr, br), dy, retain_graph=True), 20)
+    # x and dy read, dx written, the statistics read, gamma read, dgamma/dbeta
+    # written; about 13 operations per element
+    bound_ms, bound_by = bound(4 * (3 * rows * c + 2 * rows + 3 * c), 13 * rows * c, torch.float32)
+    row = dict(case=f"rows={rows} C={c} f32", path="train", max_abs_err=err, tol=tol, max_abs_err_dw_db=err_dw_db,
+               tol_dw_db=tol_dw_db, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(f"time layer_norm_bwd: {json.dumps(row)}")
     return {"cases": [row]}
 
 
@@ -266,7 +450,7 @@ def serve_phase(card: str) -> dict:
     wall_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     log(f"serve launches: {json.dumps(launches)}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the serving path: {missing}")
     books = engine.books()
@@ -318,7 +502,6 @@ def profile_phase(model, card: str) -> None:
     device-busy share of the wall time and the top operators by device and by
     host time. The profiler's own host cost inflates the wall time, so the
     busy share it shows is a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch.generation import GenerationConfig
@@ -337,6 +520,17 @@ def profile_phase(model, card: str) -> None:
         records = engine.run_closed(specs, concurrency=4)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("profile: " + json.dumps({
+        "card": card, "requests": len(specs), "prompt_len": 4096, "max_new_tokens": 24,
+        "prefill_ms": 1e3 * sum(r.ttft_s for r in records), **profile_summary(prof, wall_ms),
+    }))
+
+
+def profile_summary(prof, wall_ms: float) -> dict:
+    """Device-busy time and share of the wall time, and the top kernels by
+    device time and operators by host time, from a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
     events = prof.key_averages()
 
     def device_us(e):
@@ -345,15 +539,127 @@ def profile_phase(model, card: str) -> None:
     # kernels only: an operator's entry repeats the time of the kernels it launched
     kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy_ms = 1e-3 * sum(device_us(e) for e in kernels)
-    by_device = sorted(kernels, key=device_us, reverse=True)[:10]
+    by_device = sorted(kernels, key=device_us, reverse=True)[:12]
     by_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    log("profile: " + json.dumps({
-        "card": card, "requests": len(specs), "prompt_len": 4096, "max_new_tokens": 24,
-        "wall_ms": wall_ms, "prefill_ms": 1e3 * sum(r.ttft_s for r in records),
-        "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "top_device_ms": [[e.key[:80], e.count, 1e-3 * device_us(e)] for e in by_device],
         "top_host_ms": [[e.key, e.count, 1e-3 * e.self_cpu_time_total] for e in by_host],
+    }
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def train_phase(card: str) -> dict:
+    """Five steps of the flagship at full width and depth, then one more
+    under ``torch.profiler``; returns the launches of the five."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    config = CausalLanguageModelConfig(**FLAGSHIP)
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
+    rng = np.random.default_rng(SEED)
+    t = torch.from_numpy(rng.integers(0, config.vocab_size, size=(TRAIN_BATCH, n + 1))).cuda()
+    tokens = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None}
+    state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0))
+    step = tt.make_train_step(tt.clm_loss_fn(lat), microbatch=TRAIN_MICROBATCH, sentinel=True)
+    losses, step_ms, skipped = [], [], []
+    build.reset_launches()
+    for _ in range(TRAIN_STEPS):
+        keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, dict(tokens, prefix_keep_idx=keep))
+        losses.append(float(metrics["loss"]))
+        skipped.append(float(metrics["sentinel_skipped"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(build.LAUNCHES)
+    # one more step under torch.profiler: where a step's time goes
+    keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, dict(tokens, prefix_keep_idx=keep))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("train_profile: " + json.dumps({"card": card, **profile_summary(prof, wall_ms)}))
+    median_ms = statistics.median(step_ms)
+    log(f"train losses: {losses} card={card}")
+    log("train: " + json.dumps({
+        "card": card, "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH, "seq_len": n, "latents": lat,
+        "steps": TRAIN_STEPS, "step_ms": step_ms, "median_step_ms": median_ms,
+        "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
+        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in TRAIN_KERNELS},
+        "sentinel_skipped": skipped,
     }))
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if any(skipped):
+        raise SystemExit(f"train: the sentinel skipped a step: {skipped}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on the training path: {missing}")
+    return launches
+
+
+def grad_check_phase(card: str) -> None:
+    """One train-step gradient at full width (512 channels, 8 heads; 2048
+    tokens, 256 latents, 2 layers, batch 2, a fixed keep set) on the card
+    against the CPU's plain versions, from the same weights; per parameter,
+    max abs difference over the CPU gradient's max abs value. Then one
+    optimizer update (clip 1.0, AdamW lr 1e-3, as the train phase) from those
+    gradients on each side: the card's update against the CPU's, as the L2
+    norm of their difference over the CPU update's norm."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**dict(FLAGSHIP, max_seq_len=2048, max_latents=256,
+                                              num_self_attention_layers=2))
+    rng = np.random.default_rng(SEED + 2)
+    t = rng.integers(0, config.vocab_size, size=(2, 2049))
+    batch = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None,
+             "prefix_keep_idx": tt.sample_prefix_keep_idx(rng, 2, 2048 - 256, config.cross_attention_dropout)}
+    cpu_model = CausalLanguageModel(config, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    card_model = CausalLanguageModel(config, device="cuda")
+    card_model.load_state_dict(cpu_model.state_dict())
+    grads, losses, updates = [], [], []
+    for model in (cpu_model, card_model):
+        loss, _ = tt.clm_loss_fn(256)(model, batch)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        # copies: the update below clips the gradients in place
+        grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0)).apply_gradients()
+        updates.append(torch.cat([(p.detach().cpu() - before[n]).flatten() for n, p in model.named_parameters()]))
+    rel = {n: float((grads[1][n] - g).abs().max() / g.abs().max()) for n, g in grads[0].items()}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
+    update_err = float((updates[1] - updates[0]).norm() / updates[0].norm())
+    # about four times the largest differences measured on the card: the
+    # gradients 2.2e-6 (f32 on both sides, the sums run in other orders),
+    # well inside 1e-3; the update 7.7e-5 (the first AdamW update is about
+    # lr * sign(g), and gradients within their rounding of 0 may take
+    # opposite signs on the two sides). A zero update, a wrong sign or a rate
+    # 1% off is off by 1e-2 or more
+    tol, update_tol = 1e-5, 3e-4
+    log("grad_check: " + json.dumps({"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
+                                     "max_rel_err": worst[0][1], "tol": tol, "worst": worst,
+                                     "n_params": len(rel), "update_rel_err": update_err,
+                                     "update_tol": update_tol}))
+    if not all(within(r, tol) for r in rel.values()):
+        raise SystemExit(f"grad_check failed: {worst}")
+    if not within(update_err, update_tol):
+        raise SystemExit(f"grad_check: the card's optimizer update differs from the CPU's by {update_err}")
 
 
 def main() -> None:
@@ -374,21 +680,34 @@ def main() -> None:
     log(f"build: {sorted(build.CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator().manual_seed(SEED)
+    bwd_source = "perceiver_io_tpu_torch/ops/csrc/flash_packed_bwd.cu"
+    ln_source = "perceiver_io_tpu_torch/ops/layernorm_triton.py"
+    dkv, dq, fwd_train = flash_bwd_phase(gen)
+    fwd = flash_phase(gen)
+    fwd["cases"] += fwd_train["cases"]
     results = {
         "flash_packed_fwd": ("cuda", "perceiver_io_tpu_torch/ops/csrc/flash_packed.cu",
-                             "perceiver_io_tpu/ops/flash_attention.py:606", flash_phase(gen)),
+                             "perceiver_io_tpu/ops/flash_attention.py:606", fwd),
         "paged_decode": ("cuda", "perceiver_io_tpu_torch/ops/csrc/paged_decode.cu",
                          "perceiver_io_tpu/ops/paged_attention.py:62", paged_phase(gen)),
-        "layer_norm_fwd": ("triton", "perceiver_io_tpu_torch/ops/layernorm_triton.py",
-                           "perceiver_io_tpu/ops/layernorm.py:94", layernorm_phase(gen)),
+        "layer_norm_fwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:94", layernorm_phase(gen)),
+        "flash_packed_bwd_dkv": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:683", dkv),
+        "flash_packed_bwd_dq": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:741", dq),
+        "layer_norm_bwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:116", layernorm_bwd_phase(gen)),
     }
-    launches = serve_phase(card)
+    by_phase = {"serve": serve_phase(card), "train": train_phase(card)}
+    grad_check_phase(card)
 
     kernels = []
     for name, (route, source, replaces, res) in results.items():
-        main_case = res["cases"][0]
+        # each kernel's launches from the path that runs it: the training
+        # path for the five it runs, the serve for the paged decode; its
+        # error, times and bound from the first case at that path's shapes
+        phase = "train" if name in TRAIN_KERNELS else "serve"
+        main_case = next(c for c in res["cases"] if c["path"] == phase)
         kernels.append(dict(
-            name=name, route=route, source=source, replaces=replaces, launches=launches[name],
+            name=name, route=route, source=source, replaces=replaces, launches=by_phase[phase][name],
+            launches_phase=phase, launches_by_phase={p: counts[name] for p, counts in by_phase.items()},
             max_abs_err=max(c["max_abs_err"] for c in res["cases"] if c["tol"] == main_case["tol"]),
             tol=main_case["tol"], ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

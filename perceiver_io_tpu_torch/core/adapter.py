@@ -61,6 +61,27 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
             abs_pos = positions(x.shape[0], x.shape[1], device=x.device)
         return embedded, frequency_position_encoding(abs_pos, self.rotated_channels_per_head)
 
+    def embed_compact(self, x: torch.Tensor, keep_idx: torch.Tensor,
+                      prefix_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Embed the compact ``[kept prefix; latents]`` sequence straight from
+        token ids: the prefix-dropout selection applied before embedding.
+
+        ``x`` (B, N) token ids at positions ``arange(N)`` (no padding);
+        ``keep_idx`` (B, K) the sorted unique prefix keep set. Returns
+        ``(embedded, frq)`` of length ``K + N - prefix_len``: the rows
+        ``forward(x)`` would give at ``[keep_idx; prefix_len..N)``, with the
+        frequency encoding at those absolute positions."""
+        b, n = x.shape
+        ids = torch.cat([torch.gather(x[:, :prefix_len], 1, keep_idx), x[:, prefix_len:]], dim=1)
+        emb = self.txt_embedding(ids)
+        if self.abs_pos_emb:
+            pos = self._pos_slice(n)
+            pos_latent = pos[prefix_len:][None].expand(b, n - prefix_len, pos.shape[1])
+            emb = emb + torch.cat([pos[:prefix_len][keep_idx], pos_latent], dim=1)
+        latent_pos = torch.arange(prefix_len, n, device=x.device)[None].expand(b, n - prefix_len)
+        abs_pos = torch.cat([keep_idx, latent_pos], dim=1)
+        return emb, frequency_position_encoding(abs_pos, self.rotated_channels_per_head)
+
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Logits against the tied token embedding (``x @ E^T``)."""
         return x @ self.txt_embedding.weight.t()

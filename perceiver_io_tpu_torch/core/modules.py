@@ -9,8 +9,15 @@ names (``cross_attention.0.module.q_norm.weight``,
 ``convert.state_dict_from_jax`` is a renaming of the JAX tree and a reference
 checkpoint's ``state_dict`` loads as it is.
 
-The forward is the deterministic (serving/eval) one: cross-attention prefix
-dropout and the other training-time dropouts are not ported yet.
+The cache-free forward is differentiable and takes the training arguments
+(``deterministic``, ``prefix_keep_idx``): cross-attention prefix dropout in
+the default ``"gather"`` mode, on the compact route for an unpadded batch and
+the embedded-row gather for a left-padded one. The other training-time
+options (``prefix_dropout_mode`` ``"mask"``/``"gather_embed"``, post-attention
+and residual dropout, activation checkpointing or offloading) are not ported:
+a training forward that asks for one raises ``NotImplementedError``. Calls
+with a KV cache (prefill and decode) are inference only and run under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -178,9 +185,23 @@ class PerceiverAR(nn.Module):
 
     def __init__(self, input_adapter: TokenInputAdapterWithRotarySupport, num_heads: int = 8,
                  num_self_attention_layers: int = 6, num_self_attention_rotary_layers: int = 1,
-                 self_attention_widening_factor: int = 4, cross_attention_widening_factor: int = 4):
+                 self_attention_widening_factor: int = 4, cross_attention_widening_factor: int = 4,
+                 cross_attention_dropout: float = 0.5, prefix_dropout_mode: str = "gather",
+                 post_attention_dropout: float = 0.0, residual_dropout: float = 0.0,
+                 activation_checkpointing: bool = False, activation_offloading: bool = False):
         super().__init__()
+        if prefix_dropout_mode not in ("gather", "gather_embed", "mask"):
+            raise ValueError(f"unknown prefix_dropout_mode: {prefix_dropout_mode!r}")
         c = input_adapter.num_input_channels
+        self.cross_attention_dropout = cross_attention_dropout
+        self.prefix_dropout_mode = prefix_dropout_mode
+        # training options with no port yet: a training forward refuses them
+        self._unported = {
+            "post_attention_dropout": post_attention_dropout > 0.0,
+            "residual_dropout": residual_dropout > 0.0,
+            "activation_checkpointing": activation_checkpointing,
+            "activation_offloading": activation_offloading,
+        }
         self.input_adapter = input_adapter
         self.cross_attention = CrossAttentionLayer(
             num_heads, c, c, causal_attention=True, widening_factor=cross_attention_widening_factor,
@@ -193,17 +214,52 @@ class PerceiverAR(nn.Module):
         )
 
     def perceiver_ar(self, x, prefix_len: int, pad_mask=None, kv_cache=None, decode: bool = False,
-                     sa_pad_mask=None, pos_shift=None) -> Tuple[torch.Tensor, Optional[tuple]]:
+                     sa_pad_mask=None, pos_shift=None, deterministic: bool = True, prefix_keep_idx=None,
+                     generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Optional[tuple]]:
+        """``deterministic=False`` is the training forward: prefix dropout
+        keeps ``prefix_len - int(prefix_len * cross_attention_dropout)``
+        prefix positions, the set ``prefix_keep_idx`` (B, keep), sorted
+        unique per row, or, without one, the top-k of uniforms drawn on the
+        input's device from ``generator`` (the default generator when None)."""
+        if kv_cache is not None and not deterministic and self.cross_attention_dropout > 0.0:
+            raise ValueError("cross-attention dropout not supported with caching")
         if decode:
             if kv_cache is None:
                 raise ValueError("decode=True requires kv_cache")
+            if prefix_keep_idx is not None:
+                raise ValueError("prefix_keep_idx applies to training forwards, not decode steps")
             return self._decode_step(x, pad_mask, kv_cache, sa_pad_mask, pos_shift)
-        return self._forward(x, prefix_len, pad_mask, kv_cache)
+        return self._forward(x, prefix_len, pad_mask, kv_cache, deterministic, prefix_keep_idx, generator)
 
-    def _forward(self, x, prefix_len, pad_mask, kv_cache):
+    def _forward(self, x, prefix_len, pad_mask, kv_cache, deterministic=True, prefix_keep_idx=None,
+                 generator=None):
         b, n = x.shape[0], x.shape[1]
         if not 0 <= prefix_len < n:
             raise ValueError(f"prefix_len ({prefix_len}) out of valid range [0..{n})")
+        dropout_active = not deterministic and prefix_len > 0 and self.cross_attention_dropout > 0.0
+        if not deterministic:
+            asked = [name for name, on in self._unported.items() if on]
+            if dropout_active and self.prefix_dropout_mode != "gather":
+                asked.append(f"prefix_dropout_mode={self.prefix_dropout_mode!r}")
+            if asked:
+                raise NotImplementedError(f"not ported for training forwards: {', '.join(asked)}")
+        keep_idx = None
+        if dropout_active:
+            keep = prefix_len - int(prefix_len * self.cross_attention_dropout)
+            if prefix_keep_idx is None:
+                rand = torch.rand((b, prefix_len), device=x.device, generator=generator)
+                keep_idx = torch.sort(torch.topk(rand, keep, dim=1).indices, dim=1).values
+            else:
+                keep_idx = torch.as_tensor(prefix_keep_idx, device=x.device).long()
+                if keep_idx.shape[-1] != keep:
+                    raise ValueError(f"prefix_keep_idx carries {keep_idx.shape[-1]} indices; "
+                                     f"this config keeps {keep} of {prefix_len} prefix positions")
+            if pad_mask is None:
+                # compact route: select token ids and position rows before
+                # embedding, so the full-length embedding never exists
+                x_emb, frq = self.input_adapter.embed_compact(x, keep_idx, prefix_len)
+                return self._attend(x_emb[:, keep:], x_emb[:, :keep], frq[:, keep:], frq[:, :keep],
+                                    None, None, kv_cache)
         if pad_mask is None:
             x_emb, frq = self.input_adapter(x, None)
             pad_latent = pad_prefix = None
@@ -211,10 +267,15 @@ class PerceiverAR(nn.Module):
             shift = pad_mask.sum(dim=1, keepdim=True)
             x_emb, frq = self.input_adapter(x, positions(b, n, shift=shift))
             pad_latent, pad_prefix = pad_mask[:, prefix_len:], pad_mask[:, :prefix_len]
-        return self._attend(
-            x_emb[:, prefix_len:], x_emb[:, :prefix_len], frq[:, prefix_len:], frq[:, :prefix_len],
-            pad_latent, pad_prefix, kv_cache,
-        )
+        x_prefix, frq_prefix = x_emb[:, :prefix_len], frq[:, :prefix_len]
+        if keep_idx is not None:
+            # the embedded-row gather (left-padded batch): rows, their rotary
+            # encodings and their pad flags
+            x_prefix = torch.gather(x_prefix, 1, keep_idx[..., None].expand(-1, -1, x_prefix.shape[2]))
+            frq_prefix = torch.gather(frq_prefix, 1, keep_idx[..., None].expand(-1, -1, frq_prefix.shape[2]))
+            pad_prefix = torch.gather(pad_prefix, 1, keep_idx)
+        return self._attend(x_emb[:, prefix_len:], x_prefix, frq[:, prefix_len:], frq_prefix,
+                            pad_latent, pad_prefix, kv_cache)
 
     def _attend(self, x_latent, x_prefix, frq_latent, frq_prefix, pad_latent, pad_prefix, kv_cache):
         rope_k_ca = torch.cat([frq_prefix, frq_latent], dim=1)
@@ -279,6 +340,12 @@ class CausalSequenceModel(PerceiverAR):
             num_self_attention_rotary_layers=config.num_self_attention_rotary_layers,
             self_attention_widening_factor=config.self_attention_widening_factor,
             cross_attention_widening_factor=config.cross_attention_widening_factor,
+            cross_attention_dropout=config.cross_attention_dropout,
+            prefix_dropout_mode=config.prefix_dropout_mode,
+            post_attention_dropout=config.post_attention_dropout,
+            residual_dropout=config.residual_dropout,
+            activation_checkpointing=config.activation_checkpointing,
+            activation_offloading=config.activation_offloading,
         )
         self.config = config
         if config.output_norm:
@@ -343,18 +410,22 @@ class CausalSequenceModel(PerceiverAR):
         )
         return (ca,) + sas
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, prefix_len: int, pad_mask: Optional[torch.Tensor] = None,
                 kv_cache: Optional[tuple] = None, decode: bool = False, sa_pad_mask=None,
-                pos_shift=None) -> CausalModelOutput:
+                pos_shift=None, deterministic: bool = True, prefix_keep_idx=None,
+                generator: Optional[torch.Generator] = None) -> CausalModelOutput:
         """Logits (B, N_latent, V) for token ids ``x`` (B, N); see
-        :class:`PerceiverAR` for the call modes. ``pad_mask`` (True = left
-        padding) is (B, N) for a forward, slot-aligned (B, capacity) for a
-        decode step; ``sa_pad_mask``/``pos_shift`` apply to decode steps."""
+        :class:`PerceiverAR` for the call modes and the training arguments.
+        ``pad_mask`` (True = left padding) is (B, N) for a forward,
+        slot-aligned (B, capacity) for a decode step; ``sa_pad_mask``/
+        ``pos_shift`` apply to decode steps. Differentiable without a cache;
+        with one, it runs under ``torch.no_grad()``."""
         if prefix_len > self.max_prefix_len:
             raise ValueError(f"prefix_len ({prefix_len}) exceeds max_prefix_len ({self.max_prefix_len})")
-        h, cache = self.perceiver_ar(x, prefix_len, pad_mask, kv_cache, decode, sa_pad_mask, pos_shift)
-        if self.config.output_norm:
-            h = self.out_norm(h)
-        logits = self.output_adapter(h, attend=self.input_adapter.attend)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and kv_cache is None):
+            h, cache = self.perceiver_ar(x, prefix_len, pad_mask, kv_cache, decode, sa_pad_mask, pos_shift,
+                                         deterministic, prefix_keep_idx, generator)
+            if self.config.output_norm:
+                h = self.out_norm(h)
+            logits = self.output_adapter(h, attend=self.input_adapter.attend)
         return CausalModelOutput(h, logits, cache)

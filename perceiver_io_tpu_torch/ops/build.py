@@ -31,14 +31,17 @@ from typing import Dict, Iterable
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# one shared library per source file: source name -> (its C launcher, the
-# launcher's argument types); every launcher returns a cudaError_t
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# one shared library per source file; kernel name -> (its source, its C
+# launcher, the launcher's argument types); every launcher returns a
+# cudaError_t
 LAUNCHERS = {
-    "flash_packed": ("pio_flash_packed_fwd", [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P]),
-    "paged_decode": ("pio_paged_decode", [_P] * 8 + [_I] * 7 + [_P]),
+    "flash_packed_fwd": ("flash_packed", "pio_flash_packed_fwd", [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
+    "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _P]),
+    "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 8 + [_I] * 7 + [_P]),
 }
-CUDA_SOURCES = tuple(LAUNCHERS)
+CUDA_SOURCES = tuple(dict.fromkeys(source for source, _, _ in LAUNCHERS.values()))
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -49,7 +52,10 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"flash_packed_fwd": 0, "paged_decode": 0, "layer_norm_fwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_packed_fwd": 0, "paged_decode": 0, "layer_norm_fwd": 0,
+    "flash_packed_bwd_dkv": 0, "flash_packed_bwd_dq": 0, "layer_norm_bwd": 0,
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: Dict[str, object] = {}
@@ -124,17 +130,18 @@ def build_all(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
 
 
 def launcher(name: str):
-    """The C launcher of one source, its argument types declared; the
-    library is built and loaded first if needed."""
+    """The C launcher of one kernel, its argument types declared; its
+    source's library is built and loaded first if needed."""
     with _LOCK:
         fn = _LAUNCHERS.get(name)
         if fn is None:
-            lib = ctypes.CDLL(build_all([name])[name])
-            symbol, argtypes = LAUNCHERS[name]
+            source, symbol, argtypes = LAUNCHERS[name]
+            lib = _LIBS.get(source)
+            if lib is None:
+                lib = _LIBS[source] = ctypes.CDLL(build_all([source])[source])
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _LIBS[name] = lib
             _LAUNCHERS[name] = fn
         return fn
 

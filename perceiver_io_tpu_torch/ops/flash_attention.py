@@ -1,24 +1,34 @@
-"""Packed flash attention forward (K2) and its plain PyTorch version.
+"""Packed flash attention: the forward (K2), the backward (K4a dK/dV, K4b dQ)
+and their plain PyTorch versions, joined by a ``torch.autograd.Function``.
 
 Counterpart of ``perceiver_io_tpu/ops/flash_attention.py::flash_attention_packed``
-(forward only; the backward comes with the training slice). Operands stay in
-the projection layout ``(B, N, H*D)``: a head is a strided column slice.
+and its custom VJP (``_flash_packed_fwd`` / ``_flash_packed_bwd``). Operands
+stay in the projection layout ``(B, N, H*D)``: a head is a strided column
+slice.
 
-Semantics (shared by the CUDA kernel ``csrc/flash_packed.cu`` and
-:func:`flash_attention_packed_reference`):
+Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
+``csrc/flash_packed_bwd.cu`` and the plain versions here):
 
 - scores ``s_ij = sm_scale * q_i . k_j + bias_j`` in f32, where the bias row is
   0 or the finite ``MASK_VALUE`` at padded keys;
 - ``causal``: right-aligned, query ``i`` sees key ``j`` iff
   ``j <= i + (Nkv - Nq)`` from the unpadded lengths; keys past that limit
-  never enter the softmax;
+  never enter the softmax, and in the backward their ``p`` is exactly 0;
 - a row whose visible keys are all padded gets the uniform average of those
   keys' values (finite mask value: not zero, not NaN); a row that sees no key
-  at all (only when ``Nq > Nkv``) gets 0 and logsumexp ``-inf``;
-- output in q's dtype, logsumexp ``(B, Nq, H)`` f32.
+  at all (only when ``Nq > Nkv``) gets 0 and logsumexp ``-inf``, and a zero
+  gradient;
+- output in q's dtype, logsumexp ``(B, Nq, H)`` f32;
+- the backward recomputes ``p = exp(s - lse)`` from the saved logsumexp, with
+  ``delta_i = rowsum(dO_i * O_i)`` per head, ``dV = P^T dO``,
+  ``dS = P * (dO V^T - delta) * sm_scale``, ``dK = dS^T Q``, ``dQ = dS K``.
+  The bias and the pad mask get no gradient, as in the JAX package. The
+  backward kernels take f32 only (the training slice's dtype).
 
-Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor takes the plain version. There is no fallback on failure.
+Dispatch is by device: a CUDA tensor launches the kernels (or raises), a CPU
+tensor takes the plain versions. There is no fallback on failure. Every call
+goes through :class:`_FlashPacked`, whose backward dispatches the same way
+(under ``no_grad`` it records no graph and launches the same forward).
 """
 
 from __future__ import annotations
@@ -39,12 +49,68 @@ def packed_supported(num_heads: int, d_qk: int, d_v: int) -> bool:
     return num_heads >= 1 and all(d % 8 == 0 and 8 <= d <= 128 for d in (d_qk, d_v))
 
 
-def _bias_row(pad_mask: Optional[torch.Tensor], b: int, nkv: int, device) -> Optional[torch.Tensor]:
+def bias_row(pad_mask: Optional[torch.Tensor], b: int, nkv: int, device) -> Optional[torch.Tensor]:
+    """The additive f32 (B, Nkv) kv bias of a pad mask: 0, or ``MASK_VALUE``
+    at padded keys (None without a mask)."""
     if pad_mask is None:
         return None
     if pad_mask.shape != (b, nkv):
         raise ValueError(f"pad_mask must be {(b, nkv)}, got {tuple(pad_mask.shape)}")
     return torch.zeros((b, nkv), dtype=torch.float32, device=device).masked_fill_(pad_mask.to(device), MASK_VALUE)
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    b, n, c = t.shape
+    return t.float().reshape(b, n, h, c // h)
+
+
+def _visible(nq: int, nkv: int, causal: bool, device) -> Optional[torch.Tensor]:
+    """(Nq, Nkv) bool, True where query i sees key j (None: every key)."""
+    if not causal:
+        return None
+    i = torch.arange(nq, device=device)[:, None]
+    j = torch.arange(nkv, device=device)[None, :]
+    return j <= i + (nkv - nq)
+
+
+def _scores(q4, k4, bias, sm_scale):
+    s = torch.einsum("bihc,bjhc->bhij", q4, k4) * sm_scale
+    return s if bias is None else s + bias[:, None, None, :]
+
+
+def _fwd_plain(q, k, v, num_heads, bias, causal, sm_scale):
+    b, nq = q.shape[0], q.shape[1]
+    q4, k4, v4 = _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads)
+    s = _scores(q4, k4, bias, sm_scale)
+    visible = _visible(nq, k.shape[1], causal, q.device)
+    if visible is not None:
+        s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m_use = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m_use)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum("bhij,bjhc->bihc", p, v4) / l_safe.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l_safe))[..., 0].permute(0, 2, 1)  # (B, Nq, H)
+    return o.reshape(b, nq, -1).to(q.dtype), lse.contiguous()
+
+
+def _bwd_plain(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale):
+    b, nq, nkv = q.shape[0], q.shape[1], k.shape[1]
+    q4, k4, v4 = _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads)
+    do4, o4 = _heads(do, num_heads), _heads(o, num_heads)
+    s = _scores(q4, k4, bias, sm_scale)
+    p = torch.exp(s - lse.permute(0, 2, 1)[..., None])
+    visible = _visible(nq, nkv, causal, q.device)
+    if visible is not None:
+        # also drops the NaN of a row that sees nothing (lse = -inf)
+        p = torch.where(visible, p, torch.zeros((), device=p.device))
+    delta = (do4 * o4).sum(dim=-1).permute(0, 2, 1)[..., None]  # (B, H, Nq, 1)
+    dv = torch.einsum("bhij,bihc->bjhc", p, do4)
+    ds = p * (torch.einsum("bihc,bjhc->bhij", do4, v4) - delta) * sm_scale
+    dk = torch.einsum("bhij,bihc->bjhc", ds, q4)
+    dq = torch.einsum("bhij,bjhc->bihc", ds, k4)
+    return (dq.reshape(q.shape).to(q.dtype), dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype))
 
 
 def flash_attention_packed_reference(
@@ -56,49 +122,60 @@ def flash_attention_packed_reference(
     causal: bool = False,
     sm_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: a masked dense f32 softmax. Returns ``(o, lse)``."""
-    b, nq, cq = q.shape
-    nkv = k.shape[1]
-    h = num_heads
-    d_qk, d_v = cq // h, v.shape[2] // h
-    q4 = q.float().reshape(b, nq, h, d_qk)
-    k4 = k.float().reshape(b, nkv, h, d_qk)
-    v4 = v.float().reshape(b, nkv, h, d_v)
-    s = torch.einsum("bihc,bjhc->bhij", q4, k4) * sm_scale
-    bias = _bias_row(pad_mask, b, nkv, q.device)
-    if bias is not None:
-        s = s + bias[:, None, None, :]
-    if causal:
-        i = torch.arange(nq, device=q.device)[:, None]
-        j = torch.arange(nkv, device=q.device)[None, :]
-        s = s.masked_fill(j > i + (nkv - nq), float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m_use = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
-    p = torch.exp(s - m_use)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.einsum("bhij,bjhc->bihc", p, v4) / l_safe.permute(0, 2, 1, 3)
-    lse = (m + torch.log(l_safe))[..., 0].permute(0, 2, 1)  # (B, Nq, H)
-    return o.reshape(b, nq, h * d_v).to(q.dtype), lse.contiguous()
+    """The plain forward: a masked dense f32 softmax. Returns ``(o, lse)``."""
+    bias = bias_row(pad_mask, q.shape[0], k.shape[1], q.device)
+    return _fwd_plain(q, k, v, num_heads, bias, causal, sm_scale)
 
 
-def _flash_packed_cuda(q, k, v, num_heads, pad_mask, causal, sm_scale):
-    b, nq, cq = q.shape
-    nkv = k.shape[1]
-    h = num_heads
-    d_qk, d_v = cq // h, v.shape[2] // h
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_packed takes f32 or bf16 q/k/v of one dtype, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if not (k.is_cuda and v.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("q, k and v must lie on one CUDA device")
-    if not packed_supported(h, d_qk, d_v):
+def flash_attention_packed_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    pad_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward (what K4a and K4b compute): ``(dq, dk, dv)`` from
+    the forward's output ``o`` and logsumexp ``lse`` and the output gradient
+    ``do``, dense in f32."""
+    bias = bias_row(pad_mask, q.shape[0], k.shape[1], q.device)
+    return _bwd_plain(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale)
+
+
+def _check_cuda_operands(tensors, dtypes, what: str) -> None:
+    dev = tensors[0].device
+    if any(t.dtype not in dtypes or t.dtype != tensors[0].dtype for t in tensors):
+        raise TypeError(f"{what} takes {' or '.join(str(d) for d in dtypes)} operands of one dtype, got "
+                        f"{'/'.join(str(t.dtype) for t in tensors)}")
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{what}: operands must lie on one CUDA device")
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned: the kernels read rows as float4."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _head_dims(q, v, num_heads):
+    d_qk, d_v = q.shape[2] // num_heads, v.shape[2] // num_heads
+    if not packed_supported(num_heads, d_qk, d_v):
         raise ValueError(f"head dims ({d_qk}, {d_v}) must be multiples of 8 up to 128")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bias = _bias_row(pad_mask, b, nkv, q.device)
+    return d_qk, d_v
+
+
+def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
+    _check_cuda_operands((q, k, v), tuple(_DTYPE_CODES), "flash_attention_packed")
+    b, nq, nkv, h = q.shape[0], q.shape[1], k.shape[1], num_heads
+    d_qk, d_v = _head_dims(q, v, h)
+    q, k, v = _ready(q), _ready(k), _ready(v)
     o = torch.empty((b, nq, h * d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
-    err = build.launcher("flash_packed")(
+    err = build.launcher("flash_packed_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         o.data_ptr(), lse.data_ptr(),
@@ -108,6 +185,72 @@ def _flash_packed_cuda(q, k, v, num_heads, pad_mask, causal, sm_scale):
     build.check(err, "flash_packed_fwd")
     build.count_launch("flash_packed_fwd")
     return o, lse
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``delta_i = sum_c dO_ic O_ic`` per head, (B, Nq, H) f32: a PyTorch op
+    outside the kernels, as the JAX package computes it in XLA."""
+    b, nq, c = o.shape
+    return (do.float().reshape(b, nq, num_heads, c // num_heads)
+            * o.float().reshape(b, nq, num_heads, c // num_heads)).sum(dim=-1).contiguous()
+
+
+def _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+    _check_cuda_operands((q, k, v, do), (torch.float32,), "the packed flash backward")
+    b, nq, nkv = q.shape[0], q.shape[1], k.shape[1]
+    d_qk, d_v = _head_dims(q, v, num_heads)
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, do, lse, delta)) + (None if bias is None else bias.data_ptr(),)
+    ints = (b, nq, nkv, num_heads, d_qk, d_v, int(bool(causal)), float(sm_scale), build.current_stream(q.device))
+    return ptrs, ints
+
+
+def bwd_dkv_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+    """The K4a wrapper: ``(dk, dv)`` for contiguous, aligned f32 operands,
+    ``lse``/``delta`` (B, Nq, H) f32 and the bias row (or None)."""
+    ptrs, ints = _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    build.check(build.launcher("flash_packed_bwd_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints),
+                "flash_packed_bwd_dkv")
+    build.count_launch("flash_packed_bwd_dkv")
+    return dk, dv
+
+
+def bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+    """The K4b wrapper: ``dq``, for the operands :func:`bwd_dkv_cuda` takes."""
+    ptrs, ints = _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
+    dq = torch.empty_like(q)
+    build.check(build.launcher("flash_packed_bwd_dq")(*ptrs, dq.data_ptr(), *ints), "flash_packed_bwd_dq")
+    build.count_launch("flash_packed_bwd_dq")
+    return dq
+
+
+def _bwd_cuda(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale):
+    q, k, v, do = _ready(q), _ready(k), _ready(v), _ready(do)
+    args = (q, k, v, do, lse.contiguous(), bwd_delta(o, do, num_heads), num_heads, bias, causal, sm_scale)
+    dk, dv = bwd_dkv_cuda(*args)
+    return bwd_dq_cuda(*args), dk, dv
+
+
+class _FlashPacked(torch.autograd.Function):
+    """K2 forward, K4a + K4b backward on CUDA tensors; the plain versions on
+    CPU tensors. Saves ``q, k, v, o, lse`` (and the bias row); ``lse`` is an
+    output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, bias, causal, sm_scale):
+        fwd = _fwd_cuda if q.is_cuda else _fwd_plain
+        o, lse = fwd(q, k, v, num_heads, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
+        ctx.num_heads, ctx.causal, ctx.sm_scale = num_heads, causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, bias = ctx.saved_tensors
+        bwd = _bwd_cuda if do.is_cuda else _bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.num_heads, bias, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_packed(
@@ -127,10 +270,8 @@ def flash_attention_packed(
     :param v: values (B, Nkv, H*Dv).
     :param pad_mask: (B, Nkv) bool, True at padded keys.
     :returns: (B, Nq, H*Dv) in q's dtype, and the (B, Nq, H) f32 logsumexp
-        when ``return_lse``.
+        when ``return_lse``. Differentiable in q, k and v.
     """
-    if q.is_cuda:
-        o, lse = _flash_packed_cuda(q, k, v, num_heads, pad_mask, causal, sm_scale)
-    else:
-        o, lse = flash_attention_packed_reference(q, k, v, num_heads, pad_mask, causal, sm_scale)
+    bias = bias_row(pad_mask, q.shape[0], k.shape[1], q.device)
+    o, lse = _FlashPacked.apply(q, k, v, num_heads, bias, causal, sm_scale)
     return (o, lse) if return_lse else o

@@ -1,16 +1,21 @@
-"""LayerNorm forward (K1) and its plain PyTorch version.
+"""LayerNorm: the forward (K1), the backward (K5) and their plain PyTorch
+versions, joined by a ``torch.autograd.Function``.
 
-Counterpart of ``perceiver_io_tpu/ops/layernorm.py`` (forward; the backward
-comes with the training slice). The formula is flax's fast-variance LayerNorm
-as the JAX package computes it: f32 statistics of the unrounded input,
-``var = max(E[x^2] - E[x]^2, 0)``, ``rsqrt(var + eps)``, the affine in f32, and
-only ``y`` cast to the output dtype. That differs from
+Counterpart of ``perceiver_io_tpu/ops/layernorm.py`` (``layer_norm`` and the
+custom VJP of ``_ln2d``). The formula is flax's fast-variance LayerNorm as the
+JAX package computes it: f32 statistics of the unrounded input, ``var =
+max(E[x^2] - E[x]^2, 0)``, ``rsqrt(var + eps)``, the affine in f32, and only
+``y`` cast to the output dtype. That differs from
 ``torch.nn.functional.layer_norm`` (two-pass variance), which the port does
-not use.
+not use. The backward is the JAX ``_bwd_kernel``'s: from the forward's f32
+``mean``/``rstd`` per row, ``dx`` in x's dtype and f32 ``dgamma``/``dbeta``.
 
-Dispatch is by device: a CUDA tensor launches the Triton kernel in
-``ops/layernorm_triton.py`` (or raises), a CPU tensor takes
-:func:`layer_norm_reference`.
+Dispatch is by device: a CUDA tensor launches the Triton kernels in
+``ops/layernorm_triton.py`` (or raises), a CPU tensor takes the plain
+versions. Under grad mode, with an input that requires grad, the call goes
+through :class:`_LayerNorm`, whose forward launches K1 with its statistics
+and whose backward dispatches the same way; otherwise (serving) K1 runs
+without them.
 """
 
 from __future__ import annotations
@@ -21,40 +26,115 @@ from torch import nn
 from perceiver_io_tpu_torch.ops import build
 
 
-def layer_norm_reference(x, weight, bias, eps: float = 1e-5, dtype=None) -> torch.Tensor:
-    """The plain version (``_reference_ln`` of the JAX package)."""
-    dtype = dtype or x.dtype
+def layer_norm_reference_stats(x, weight, bias, eps, dtype):
+    """The plain forward with its statistics: ``(y, mean, rstd)``, the
+    statistics (rows,) f32 (what K1's ``WANT_STATS`` variant writes)."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     mean2 = (xf * xf).mean(dim=-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean) * rstd
     y = y * weight.float() + bias.float()
-    return y.to(dtype)
+    return y.to(dtype), mean.reshape(-1), rstd.reshape(-1)
 
 
-def _layer_norm_cuda(x, weight, bias, eps, dtype):
-    from perceiver_io_tpu_torch.ops.layernorm_triton import launch_layer_norm_fwd
+def layer_norm_reference(x, weight, bias, eps: float = 1e-5, dtype=None) -> torch.Tensor:
+    """The plain forward (``_reference_ln`` of the JAX package)."""
+    return layer_norm_reference_stats(x, weight, bias, eps, dtype or x.dtype)[0]
 
+
+def layer_norm_bwd_reference(x, weight, mean, rstd, dy):
+    """The plain backward (what K5 computes, ``_bwd_kernel`` of the JAX
+    package): ``(dx, dweight, dbias)`` from the forward's per-row ``mean`` /
+    ``rstd`` (rows,) f32 and the output gradient ``dy``."""
+    c = x.shape[-1]
+    xf, dyf = x.reshape(-1, c).float(), dy.reshape(-1, c).float()
+    rstd = rstd.reshape(-1, 1)
+    xhat = (xf - mean.reshape(-1, 1)) * rstd
+    g = dyf * weight.float()
+    m1 = g.mean(dim=-1, keepdim=True)
+    m2 = (g * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (g - m1 - xhat * m2)
+    dw = (dyf * xhat).sum(dim=0)
+    db = dyf.sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
+
+
+def _check_params(x, weight, bias) -> None:
     c = x.shape[-1]
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"weight/bias must be ({c},), got {tuple(weight.shape)}/{tuple(bias.shape)}")
     if not (weight.is_cuda and bias.is_cuda and weight.device == x.device and bias.device == x.device):
         raise ValueError("x, weight and bias must lie on one CUDA device")
+
+
+def layer_norm_cuda(x, weight, bias, eps, dtype, want_stats: bool = False):
+    """The K1 wrapper: ``(y, mean, rstd)``; the statistics are None unless
+    asked for."""
+    from perceiver_io_tpu_torch.ops.layernorm_triton import launch_layer_norm_fwd
+
+    _check_params(x, weight, bias)
+    c = x.shape[-1]
     x2 = x.reshape(-1, c).contiguous()
     y = torch.empty(x2.shape, dtype=dtype, device=x.device)
-    if x2.shape[0] == 0:
-        return y.reshape(x.shape)
-    launch_layer_norm_fwd(x2, weight.contiguous(), bias.contiguous(), y, float(eps))
-    build.count_launch("layer_norm_fwd")
-    return y.reshape(x.shape)
+    mean = rstd = None
+    if want_stats:
+        mean = torch.empty(x2.shape[0], dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+    if x2.shape[0]:
+        launch_layer_norm_fwd(x2, weight.contiguous(), bias.contiguous(), y, float(eps), mean, rstd)
+        build.count_launch("layer_norm_fwd")
+    return y.reshape(x.shape), mean, rstd
+
+
+def layer_norm_bwd_cuda(x, weight, mean, rstd, dy):
+    """The K5 wrapper: ``(dx, dweight, dbias)`` as
+    :func:`layer_norm_bwd_reference` computes them."""
+    from perceiver_io_tpu_torch.ops.layernorm_triton import launch_layer_norm_bwd
+
+    c = x.shape[-1]
+    if not (dy.device == x.device and weight.device == x.device):
+        raise ValueError("x, dy and weight must lie on one CUDA device")
+    x2, dy2 = x.reshape(-1, c).contiguous(), dy.reshape(-1, c).contiguous()
+    dx = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+    dw = torch.zeros(c, dtype=torch.float32, device=x.device)
+    db = torch.zeros_like(dw)
+    if x2.shape[0]:
+        launch_layer_norm_bwd(x2, weight.contiguous(), mean, rstd, dy2, dx, dw, db)
+        build.count_launch("layer_norm_bwd")
+    return dx.reshape(x.shape), dw.to(weight.dtype), db.to(weight.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """K1 with statistics forward, K5 backward on CUDA tensors; the plain
+    versions on CPU tensors. Saves ``x``, ``weight`` and the statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, dtype):
+        if x.is_cuda:
+            y, mean, rstd = layer_norm_cuda(x, weight, bias, eps, dtype, want_stats=True)
+        else:
+            y, mean, rstd = layer_norm_reference_stats(x, weight, bias, eps, dtype)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, rstd = ctx.saved_tensors
+        bwd = layer_norm_bwd_cuda if dy.is_cuda else layer_norm_bwd_reference
+        dx, dw, db = bwd(x, weight, mean, rstd, dy)
+        return dx, dw, db, None, None
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5, dtype=None) -> torch.Tensor:
-    """LayerNorm over the last axis; Triton kernel for CUDA tensors."""
+    """LayerNorm over the last axis; Triton kernels for CUDA tensors.
+    Differentiable in ``x``, ``weight`` and ``bias``."""
     dtype = dtype or x.dtype
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad):
+        return _LayerNorm.apply(x, weight, bias, eps, dtype)
     if x.is_cuda:
-        return _layer_norm_cuda(x, weight, bias, eps, dtype)
+        return layer_norm_cuda(x, weight, bias, eps, dtype)[0]
     return layer_norm_reference(x, weight, bias, eps, dtype)
 
 

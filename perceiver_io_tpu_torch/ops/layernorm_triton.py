@@ -1,14 +1,26 @@
-"""K1: the LayerNorm forward as a Triton kernel (source module).
+"""K1 (LayerNorm forward) and K5 (LayerNorm backward) as Triton kernels
+(source module).
 
-Replaces the TPU kernel ``perceiver_io_tpu/ops/layernorm.py::_fwd_kernel``
+K1 replaces the TPU kernel ``perceiver_io_tpu/ops/layernorm.py::_fwd_kernel``
 (reached from ``_ln2d_fwd_impl`` via ``layer_norm``): one pass over each row,
-f32 sum and sum of squares, ``var = max(E[x^2] - E[x]^2, 0)``, ``rsqrt(var +
-eps)``, the affine, and a cast of ``y`` only.
+f32 sum and sum of squares, ``var = max(E[x^2] - E[x]^2, 0)``, ``rstd =
+rsqrt(var + eps)``, the affine, and a cast of ``y`` only. Its ``WANT_STATS``
+variant (the JAX ``want_stats``) also writes the per-row f32 ``mean`` and
+``rstd`` the backward reads; the serving path launches it without them.
 
-What bounds it: a row reduction plus one elementwise pass, about 2 FLOP per
+K5 replaces ``_bwd_kernel`` (reached from ``_ln2d_bwd``): with ``xhat = (x -
+mean) * rstd`` and ``g = dy * gamma``, ``dx = rstd * (g - mean(g) - xhat *
+mean(g * xhat))`` per row, and the column sums ``dgamma = sum(dy * xhat)``,
+``dbeta = sum(dy)``. The TPU kernel carries the column sums across its
+sequential grid in scratch; Hopper runs programs in no order, so each program
+of the first pass walks a fixed run of rows and writes f32 partial
+``dgamma``/``dbeta`` rows, and a second small pass sums the partials in a
+fixed order: deterministic, no atomics.
+
+What bounds them: row reductions plus elementwise passes, a few FLOP per
 byte, so memory bytes (each input row read once, each output row written
-once). A program normalizes ``BLOCK_R`` rows held whole in registers
-(``C = 512`` is one tile), so x is read from device memory exactly once.
+once). A program holds ``BLOCK_R`` rows of ``C = 512`` in registers, so x and
+dy are read from device memory exactly once.
 
 This module imports Triton at the top and is therefore imported only by
 ``ops/layernorm.py`` when it launches on a CUDA tensor; the machine without a
@@ -26,8 +38,8 @@ import triton.language as tl
 # compiled kernel per (dtype, C) instead of one per divisibility class
 @triton.jit(do_not_specialize=["n_rows"])
 def _layer_norm_fwd_kernel(
-    x_ptr, w_ptr, b_ptr, y_ptr, n_rows, n_cols, eps,
-    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+    x_ptr, w_ptr, b_ptr, y_ptr, mean_ptr, rstd_ptr, n_rows, n_cols, eps,
+    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr, WANT_STATS: tl.constexpr,
 ):
     rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
     cols = tl.arange(0, BLOCK_C)
@@ -43,16 +55,104 @@ def _layer_norm_fwd_kernel(
     b = tl.load(b_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
     y = (x - mean[:, None]) * rstd[:, None] * w[None, :] + b[None, :]
     tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
+    if WANT_STATS:
+        tl.store(mean_ptr + rows, mean, mask=rows < n_rows)
+        tl.store(rstd_ptr + rows, rstd, mask=rows < n_rows)
 
 
-def launch_layer_norm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor, eps: float) -> None:
-    """``x``/``y`` (rows, C) contiguous on one CUDA device; ``w``/``b`` (C,)."""
-    n_rows, n_cols = x.shape
+@triton.jit(do_not_specialize=["n_rows", "rows_per_prog"])
+def _layer_norm_bwd_dx_kernel(
+    x_ptr, w_ptr, mean_ptr, rstd_ptr, dy_ptr, dx_ptr, dw_part_ptr, db_part_ptr,
+    n_rows, n_cols, rows_per_prog,
+    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+):
+    pid = tl.program_id(0)
+    cols = tl.arange(0, BLOCK_C)
+    cmask = cols < n_cols
+    w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+    dw_acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    db_acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    start = pid * rows_per_prog
+    for r0 in range(start, start + rows_per_prog, BLOCK_R):
+        rows = r0 + tl.arange(0, BLOCK_R)
+        rmask = rows < n_rows
+        mask = rmask[:, None] & cmask[None, :]
+        offs = rows.to(tl.int64)[:, None] * n_cols + cols[None, :]
+        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        mean = tl.load(mean_ptr + rows, mask=rmask, other=0.0)
+        rstd = tl.load(rstd_ptr + rows, mask=rmask, other=0.0)
+        xhat = tl.where(mask, (x - mean[:, None]) * rstd[:, None], 0.0)
+        g = dy * w[None, :]
+        m1 = tl.sum(g, axis=1) / n_cols
+        m2 = tl.sum(g * xhat, axis=1) / n_cols
+        dx = rstd[:, None] * (g - m1[:, None] - xhat * m2[:, None])
+        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+        dw_acc += tl.sum(dy * xhat, axis=0)
+        db_acc += tl.sum(dy, axis=0)
+    tl.store(dw_part_ptr + pid * n_cols + cols, dw_acc, mask=cmask)
+    tl.store(db_part_ptr + pid * n_cols + cols, db_acc, mask=cmask)
+
+
+@triton.jit
+def _layer_norm_bwd_dwdb_kernel(
+    dw_part_ptr, db_part_ptr, dw_ptr, db_ptr, n_parts, n_cols,
+    BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr,
+):
+    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < n_cols
+    dw = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
+    db = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
+    for p0 in range(0, n_parts, BLOCK_P):
+        parts = p0 + tl.arange(0, BLOCK_P)
+        mask = (parts < n_parts)[:, None] & cmask[None, :]
+        offs = parts[:, None] * n_cols + cols[None, :]
+        dw += tl.load(dw_part_ptr + offs, mask=mask, other=0.0)
+        db += tl.load(db_part_ptr + offs, mask=mask, other=0.0)
+    tl.store(dw_ptr + cols, tl.sum(dw, axis=0), mask=cmask)
+    tl.store(db_ptr + cols, tl.sum(db, axis=0), mask=cmask)
+
+
+def _row_block(n_cols: int):
     block_c = triton.next_power_of_2(n_cols)
-    block_r = max(1, min(16, 4096 // block_c))
+    return max(1, min(16, 4096 // block_c)), block_c
+
+
+def launch_layer_norm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor, eps: float,
+                          mean: torch.Tensor = None, rstd: torch.Tensor = None) -> None:
+    """``x``/``y`` (rows, C) contiguous on one CUDA device; ``w``/``b`` (C,);
+    ``mean``/``rstd`` (rows,) f32 to receive the statistics, or None."""
+    n_rows, n_cols = x.shape
+    block_r, block_c = _row_block(n_cols)
+    want_stats = mean is not None
     grid = (triton.cdiv(n_rows, block_r),)
     with torch.cuda.device(x.device):
         _layer_norm_fwd_kernel[grid](
-            x, w, b, y, n_rows, n_cols, eps,
+            x, w, b, y, mean if want_stats else y, rstd if want_stats else y, n_rows, n_cols, eps,
+            BLOCK_R=block_r, BLOCK_C=block_c, WANT_STATS=want_stats, num_warps=4,
+        )
+
+
+def launch_layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                          dy: torch.Tensor, dx: torch.Tensor, dw: torch.Tensor, db: torch.Tensor) -> None:
+    """``x``/``dy``/``dx`` (rows, C) contiguous on one CUDA device, ``w``
+    (C,), ``mean``/``rstd`` (rows,) f32 from K1; writes ``dx`` and the f32
+    ``dw``/``db`` (C,)."""
+    n_rows, n_cols = x.shape
+    block_r, block_c = _row_block(n_cols)
+    # about four programs per SM, each over a fixed run of whole row blocks
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_blocks = triton.cdiv(n_rows, block_r)
+    rows_per_prog = block_r * triton.cdiv(n_blocks, min(n_blocks, 4 * n_sm))
+    n_parts = triton.cdiv(n_rows, rows_per_prog)
+    dw_part = torch.empty((n_parts, n_cols), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((n_parts, n_cols), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _layer_norm_bwd_dx_kernel[(n_parts,)](
+            x, w, mean, rstd, dy, dx, dw_part, db_part, n_rows, n_cols, rows_per_prog,
             BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4,
+        )
+        block_cc = min(block_c, 128)
+        _layer_norm_bwd_dwdb_kernel[(triton.cdiv(n_cols, block_cc),)](
+            dw_part, db_part, dw, db, n_parts, n_cols, BLOCK_P=32, BLOCK_C=block_cc, num_warps=4,
         )

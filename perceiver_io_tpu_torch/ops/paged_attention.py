@@ -27,6 +27,7 @@ import torch
 from perceiver_io_tpu_torch.ops import build
 from perceiver_io_tpu_torch.ops.flash_attention import MASK_VALUE
 
+
 def paged_kernel_supported(cache, num_heads: int, d_qk: int, d_v: int) -> bool:
     """Whether the kernel serves this pool: f32 pools (the serving path's
     cache dtype) and head dims up to 128 (four channels per lane)."""
@@ -94,7 +95,14 @@ def paged_decode_attention(qh: torch.Tensor, cache, mask: Optional[torch.Tensor]
     """Single-query attention over paged KV: ``qh`` (S, H, Dk) scaled and
     rotated, ``cache`` a float ``PagedKVCache`` (f32 on the card), ``mask``
     an optional (S, capacity) bool, True = masked, on top of the slot
-    validity. Returns (S, H, Dv); the caller merges heads."""
+    validity. Returns (S, H, Dv); the caller merges heads.
+
+    Decode only: it has no gradient (nor has the JAX kernel a VJP), so an
+    input that requires grad under grad mode raises rather than return an
+    output cut off from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qh, cache.k, cache.v)):
+        raise RuntimeError("paged_decode_attention has no gradient: call it under torch.no_grad() "
+                           "or with inputs that do not require grad")
     if qh.is_cuda:
         return _paged_decode_cuda(qh, cache, mask)
     return paged_attention_reference(qh, cache, mask)

@@ -1,0 +1,68 @@
+"""The causal LM loss (counterpart of
+``perceiver_io_tpu/training/losses.py``: ``_cross_entropy`` and
+``clm_loss_fn``).
+
+A loss function has the signature ``loss_fn(model, batch, generator) ->
+(loss, metrics)``: the model takes the place of the JAX package's params and
+a ``torch.Generator`` (or None) that of its dropout key. Batch values may be
+numpy arrays or tensors; they are moved to the model's device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+IGNORE_INDEX = -100  # torch CrossEntropyLoss ignore_index parity
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over labels != IGNORE_INDEX (0 when none is valid). Returns
+    (loss, num_valid)."""
+    valid = labels != IGNORE_INDEX
+    safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    num_valid = valid.sum()
+    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / torch.clamp(num_valid, min=1)
+    return loss, num_valid
+
+
+def _on(value, device) -> Optional[torch.Tensor]:
+    return None if value is None else torch.as_tensor(value, device=device)
+
+
+def clm_loss_fn(max_latents: int, deterministic: bool = False) -> Callable:
+    """Causal LM loss: pads are ignored, ``prefix_len = seq_len -
+    max_latents``, CE over the last ``max_latents`` logits.
+
+    Contract: the data pipeline pre-shifts targets (``input_ids = t[:, :-1]``,
+    ``labels = t[:, 1:]``); this function does NOT shift. The batch's
+    ``pad_mask`` key is required, its value may be None (no padding). An
+    optional ``prefix_keep_idx`` (host-sampled keep set,
+    ``training.prefix_dropout``) goes to the model on training forwards."""
+
+    def loss_fn(model, batch: Dict, generator: Optional[torch.Generator] = None,
+                deterministic: bool = deterministic) -> Tuple[torch.Tensor, Dict]:
+        dev = model.device
+        x, labels = _on(batch["input_ids"], dev).long(), _on(batch["labels"], dev).long()
+        pad_mask = _on(batch["pad_mask"], dev)
+        seq_len = x.shape[1]
+        if seq_len < max_latents:
+            raise ValueError(f"Training sequence length must be at least {max_latents} (= max_latents)")
+        if pad_mask is not None:
+            pad_mask = pad_mask.bool()
+            labels = torch.where(pad_mask, torch.full_like(labels, IGNORE_INDEX), labels)
+        keep_idx = None if deterministic else _on(batch.get("prefix_keep_idx"), dev)
+        out = model(x, prefix_len=seq_len - max_latents, pad_mask=pad_mask, deterministic=deterministic,
+                    prefix_keep_idx=keep_idx, generator=generator)
+        logits = out.logits
+        loss, _ = _cross_entropy(logits, labels[:, -logits.shape[1]:])
+        return loss, {"loss": loss}
+
+    # undeclared (None), as in the JAX package: the per-call valid-token
+    # normalization weights chunks equally only without padding, so
+    # make_train_step sniffs each batch's pad_mask instead
+    loss_fn.uniform_weighting = None
+    return loss_fn

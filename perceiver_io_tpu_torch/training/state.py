@@ -1,0 +1,37 @@
+"""The train state (counterpart of ``perceiver_io_tpu/training/state.py``).
+
+PyTorch keeps parameters and optimizer moments in mutable objects, so the
+state holds them instead of a pytree: the model, its :class:`Optimizer` (clip,
+AdamW, schedule), the step counter and the generator of the training
+forwards' random draws. The train step updates it in place and returns it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from perceiver_io_tpu_torch.training.optim import Optimizer
+
+
+@dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: Optimizer
+    step: int = 0
+    generator: Optional[torch.Generator] = None
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, tx: Callable[[Iterable[torch.nn.Parameter]], Optimizer],
+               generator: Optional[torch.Generator] = None) -> "TrainState":
+        """``tx`` from ``make_optimizer``; ``generator`` draws the keep sets
+        of batches that carry none (it must live on the model's device)."""
+        return cls(model=model, optimizer=tx(model.parameters()), generator=generator)
+
+    def apply_gradients(self) -> None:
+        """One optimizer update from the parameters' ``.grad``; the step
+        advances."""
+        self.optimizer.step()
+        self.step += 1

@@ -62,7 +62,8 @@ def test_forward_logits_match_jax(models, padded):
         pad[1, :37] = True
     want = jm.apply(params, jnp.asarray(ids), prefix_len=200,
                     pad_mask=None if pad is None else jnp.asarray(pad)).logits
-    got = tm(torch.from_numpy(ids), prefix_len=200, pad_mask=None if pad is None else torch.from_numpy(pad))
+    with torch.no_grad():  # the cache-free forward is differentiable
+        got = tm(torch.from_numpy(ids), prefix_len=200, pad_mask=None if pad is None else torch.from_numpy(pad))
     assert got.logits.shape == (2, 100, 262)
     np.testing.assert_allclose(got.logits.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 

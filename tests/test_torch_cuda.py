@@ -1,10 +1,12 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 an NVIDIA card, at small shapes: K2 (packed flash forward), K3 (paged
-decode), K1 (LayerNorm forward), and the engine serving through them. Marked
+decode), K1 (LayerNorm forward), K4a/K4b (packed flash backward), K5
+(LayerNorm backward), a train step and the engine serving through them. Marked
 ``cuda``; each test skips on a machine without a card. Run them on one with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
 suite's conftest imports JAX, which the port does not need). Tolerances: f32
-atol 1e-5; bf16 outputs within one bf16 step."""
+atol 1e-5 and bf16 outputs within one bf16 step, unless a test states its
+own."""
 
 import numpy as np
 import pytest
@@ -85,6 +87,115 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(layer_norm(x, w, b).float(), layer_norm_reference(x, w, b).float(), **tol)
 
 
+@pytest.mark.parametrize("d", [64, 40, 128])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [
+    (True, 37, 203, 5),    # Nq < Nkv right-aligned, left-padded keys
+    (False, 64, 64, 0),
+    (True, 130, 130, 0),
+    (True, 90, 40, 0),     # Nq > Nkv: 50 rows see no key, zero gradient
+    (True, 40, 100, 30),   # more padding than one kv tile of K4b
+])
+def test_flash_packed_bwd_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
+    """K4a (dK/dV) and K4b (dQ) through the autograd Function against the
+    plain backward on the card, from the same saved o/lse. Tolerance: atol
+    1e-5 on f32 gradients up to ~5 (measured 0: the kernels and cuBLAS's
+    SIMT GEMMs both sum in sequential FMA order; 1e-5 allows a reordered
+    sum)."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_bwd_reference,
+    )
+
+    g = torch.Generator().manual_seed(3)
+    h = 4
+    q, k, v = (torch.randn(2, n, h * d, generator=g).to(cuda).requires_grad_() for n in (nq, nkv, nkv))
+    do = torch.randn(2, nq, h * d, generator=g).to(cuda)
+    pad = torch.zeros(2, nkv, dtype=torch.bool, device=cuda)
+    pad[1, :n_pad] = True
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, sm_scale=d**-0.5, return_lse=True)
+    assert o.grad_fn is not None
+    build.reset_launches()
+    o.backward(do)
+    assert build.LAUNCHES["flash_packed_bwd_dkv"] == 1 and build.LAUNCHES["flash_packed_bwd_dq"] == 1
+    want = flash_attention_packed_bwd_reference(q.detach(), k.detach(), v.detach(), o.detach(), lse, do, h,
+                                                pad_mask=pad, causal=causal, sm_scale=d**-0.5)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, w, atol=1e-5, rtol=0)
+    if nq > nkv:
+        assert torch.equal(q.grad[:, : nq - nkv], torch.zeros_like(q.grad[:, : nq - nkv]))
+
+
+@pytest.mark.parametrize("rows,c", [(1000, 512), (37, 128), (15360, 512)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda, rows, c):
+    """K1 with statistics and K5 through the autograd Function against the
+    plain forward statistics and backward. Tolerances, about four times the
+    measured errors: dx atol 4e-6 (measured 9.5e-7); the column sums
+    dgamma/dbeta (over up to 15360 rows, values up to ~400) atol 4e-4
+    (measured 9.5e-5)."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd_reference
+
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(rows, c, generator=g) * 3 + 1).to(cuda).requires_grad_()
+    w = torch.randn(c, generator=g).to(cuda).requires_grad_()
+    b = torch.randn(c, generator=g).to(cuda).requires_grad_()
+    dy = torch.randn(rows, c, generator=g).to(cuda)
+    y = layer_norm(x, w, b)
+    assert y.grad_fn is not None
+    build.reset_launches()
+    y.backward(dy)
+    assert build.LAUNCHES["layer_norm_bwd"] == 1
+    xd = x.detach()
+    mean = xd.mean(dim=-1)
+    rstd = torch.rsqrt(torch.clamp((xd * xd).mean(dim=-1) - mean * mean, min=0.0) + 1e-5)
+    dx, dw, db = layer_norm_bwd_reference(xd, w.detach(), mean, rstd, dy)
+    torch.testing.assert_close(x.grad, dx, atol=4e-6, rtol=0)
+    torch.testing.assert_close(w.grad, dw, atol=4e-4, rtol=0)
+    torch.testing.assert_close(b.grad, db, atol=4e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n_pad", [0, 37], ids=["unpadded_compact", "left_padded_gather"])
+def test_micro_train_step_runs_through_the_training_kernels(cuda, n_pad):
+    """The gradient of a small CLM's loss on the card (K1, K2, K4a, K4b, K5)
+    agrees with the CPU's (plain versions) from the same weights, keep set
+    and batch, on both prefix-dropout routes (per parameter, max abs
+    difference <= 1e-4 of the largest value); then a sentinel-guarded train
+    step runs on the card through every training kernel (microbatched when
+    the batch is unpadded: a padded one may not be split)."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    config = CausalLanguageModelConfig(vocab_size=262, max_seq_len=512, max_latents=128, num_channels=64,
+                                       num_heads=4, num_self_attention_layers=2)
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, 262, size=(4, 257))
+    pad = None
+    if n_pad:
+        pad = np.zeros((4, 256), bool)
+        pad[1, :n_pad] = True
+    batch = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": pad,
+             "prefix_keep_idx": tt.sample_prefix_keep_idx(rng, 4, 128, 0.5)}
+    grads = []
+    for dev in ("cpu", cuda):
+        model = CausalLanguageModel(config, device=dev, generator=torch.Generator().manual_seed(0))
+        loss, _ = tt.clm_loss_fn(128)(model, batch)
+        loss.backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    for name, want in grads[0].items():
+        assert float((grads[1][name] - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+    state = tt.TrainState.create(model, tt.make_optimizer(1e-3, gradient_clip=1.0))
+    build.reset_launches()
+    step = tt.make_train_step(tt.clm_loss_fn(128), microbatch=1 if n_pad else 2, sentinel=True)
+    state, metrics = step(state, batch)
+    assert float(metrics["sentinel_skipped"]) == 0.0 and np.isfinite(float(metrics["loss"]))
+    training_kernels = ("layer_norm_fwd", "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq",
+                        "layer_norm_bwd")
+    assert all(build.LAUNCHES[k] > 0 for k in training_kernels), build.LAUNCHES
+
+
 def test_engine_serves_through_the_kernels(cuda):
     from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
@@ -100,7 +211,9 @@ def test_engine_serves_through_the_kernels(cuda):
                             engine_config=EngineConfig(slots=2, page_size=16, max_ca_tokens=48, max_sa_tokens=16))
     build.reset_launches()
     engine.run_closed(specs, concurrency=3)
-    assert all(n > 0 for n in build.LAUNCHES.values()), build.LAUNCHES
+    serving_kernels = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd")
+    assert all(build.LAUNCHES[k] > 0 for k in serving_kernels), build.LAUNCHES
+    assert build.LAUNCHES["layer_norm_bwd"] == build.LAUNCHES["flash_packed_bwd_dq"] == 0
     assert engine.ca_alloc.pages_used == 0 and engine.sa_alloc.pages_used == 0
     for spec in specs:
         prefill, step = make_decode_fns(model, 8, GenerationConfig(max_new_tokens=6), device=cuda)

@@ -75,6 +75,26 @@ def test_paged_decode_with_pad_mask_matches_jax(mask_has_validity):
     assert torch.equal(got, paged_attention_reference(torch.from_numpy(q), tc, mask))
 
 
+@pytest.mark.parametrize("which", ["query", "pool"])
+def test_paged_decode_refuses_inputs_that_require_grad(which):
+    """The paged decode has no gradient (nor has the JAX kernel a VJP): under
+    grad mode an input that requires grad raises instead of returning an
+    output cut off from the graph; without grad the call goes through."""
+    rng = np.random.default_rng(4)
+    k, v = _pools(rng, 1 + S * PPS, H * D)
+    table = np.arange(1, 1 + S * PPS, dtype=np.int32).reshape(S, PPS)
+    _, tc = _caches(k, v, table, np.full((S,), 5, np.int32))
+    q = torch.from_numpy(rng.standard_normal((S, H, D)).astype(np.float32))
+    if which == "query":
+        q.requires_grad_()
+    else:
+        tc.k.requires_grad_()
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        paged_decode_attention(q, tc)
+    with torch.no_grad():
+        assert torch.equal(paged_decode_attention(q, tc), paged_attention_reference(q, tc))
+
+
 def test_paged_append_commit_release_match_jax_exactly():
     rng = np.random.default_rng(2)
     c, slots, pps, page = 16, 3, 3, 4
