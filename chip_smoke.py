@@ -16,7 +16,7 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    least time the card could take (``bound_ms``): K2 packed flash forward
    (at the serving and the training shapes), K3 paged decode, K1 LayerNorm
    forward (with and without its statistics), K4a/K4b packed flash
-   backward, K5 LayerNorm backward;
+   backward, K5 LayerNorm backward, K6/K7a/K7b two-segment flash;
 4. serve: the flagship-width Perceiver AR CLM (seeded random weights)
    answers six greedy requests through ``EngineFrontEnd``; every served
    stream must equal the sequential ``make_decode_fns`` stream up to the
@@ -31,11 +31,26 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    the fifth below the first, no step skipped by the non-finite sentinel,
    and every kernel of the training path must have launched; then one
    profiled step;
-6. gradient check: one train-step gradient of a full-width model (512
+6. train_twoseg: the same five steps from the same seed, weights, batch and
+   keep sets under ``fast_kernels({"twoseg"})``, where each chunk's
+   cross-attention takes the two-segment kernels (K6 forward, K7a/K7b
+   backward; 2 launches each per step) and K2/K4 run the 16 self-attention
+   layers only; every loss must equal the concat route's within a stated
+   tolerance; then one profiled step;
+7. eval_twoseg: one cache-free, no-grad forward of the flagship at its full
+   window (15360 prefix rows, 1024 latents) on each route; the logits must
+   agree within 1e-4;
+8. gradient check: one train-step gradient of a full-width model (512
    channels, 8 heads; 2048 tokens, 256 latents, 2 layers) on the card
    against the same gradient on the CPU (plain versions), from the same
    weights, batch and keep set, and the optimizer update each side makes
-   from it.
+   from it; once on the concat route, once under "twoseg".
+
+The kernel parity phase also holds K6, K7a and K7b against their plain
+versions at the training chunk (with and without 3001 left-padded prefix
+keys), at the eval window (forward) and at the minimum prefix of one row,
+each beside K2/K4 and one SDPA call on the joined operands, the route it
+replaces.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -70,6 +85,17 @@ PREFIX_LEN = FLAGSHIP["max_seq_len"] - FLAGSHIP["max_latents"]
 KEEP = PREFIX_LEN - int(PREFIX_LEN * FLAGSHIP["cross_attention_dropout"])  # kept prefix rows: 7680
 SERVE_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd")
 TRAIN_KERNELS = ("layer_norm_fwd", "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq", "layer_norm_bwd")
+TWOSEG_KERNELS = ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
+ROUTE_FEATURES = {"concat": frozenset(), "twoseg": frozenset({"twoseg"})}
+# per flagship train step (2 chunks): one CA and 8 SA layers per chunk;
+# 3 CA + 16 SA LayerNorms per chunk on either route
+PER_STEP = {"concat": {"flash_packed": 18, "flash_2seg": 0, "layer_norm": 38},
+            "twoseg": {"flash_packed": 16, "flash_2seg": 2, "layer_norm": 38}}
+# |loss(twoseg) - loss(concat)| per step of the five: about four times the
+# largest difference measured on the card, 4.8e-7 (one f32 step at 5.6, in
+# the fifth step; the first four were equal): the routes differ only in
+# GEMM shapes and in the order of the K/V weight-gradient sums
+TWOSEG_LOSS_TOL = 2e-6
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tensor cores; bf16 tensor
@@ -121,6 +147,14 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def _sdpa_keep(nq: int, nkv: int, pad) -> torch.Tensor:
+    """The right-aligned causal + pad keep mask of one SDPA call."""
+    i = torch.arange(nq, device="cuda")[:, None]
+    j = torch.arange(nkv, device="cuda")[None, :]
+    keep = (j <= i + (nkv - nq))[None, None]
+    return keep if pad is None else keep & ~pad[:, None, None, :]
+
+
 def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str) -> dict:
     """K2 against its plain version on one causal case (out and logsumexp),
     with its time beside the plain version's, one SDPA call's with the same
@@ -144,11 +178,7 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str) -> di
     # the library yardstick: one SDPA call on heads-major views with the
     # same right-aligned causal + pad mask
     qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k, v))
-    i = torch.arange(nq, device="cuda")[:, None]
-    j = torch.arange(nkv, device="cuda")[None, :]
-    keep = (j <= i + (nkv - nq))[None, None]
-    if pad is not None:
-        keep = keep & ~pad[:, None, None, :]
+    keep = _sdpa_keep(nq, nkv, pad)
     library_ms = time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
     el = q.element_size()
     visible = b * sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))
@@ -341,12 +371,7 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         plain_ms = time_ms(lambda: flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad,
                                                                         causal=True), 3)
         qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        i = torch.arange(nq, device="cuda")[:, None]
-        j = torch.arange(nkv, device="cuda")[None, :]
-        keep = (j <= i + (nkv - nq))[None, None]
-        if pad is not None:
-            keep = keep & ~pad[:, None, None, :]
-        ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)
+        ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=_sdpa_keep(nq, nkv, pad))
         go = do.reshape(b, nq, h, d).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
         pairs = b * h * sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))  # visible (query, key) pairs
@@ -398,6 +423,123 @@ def layernorm_bwd_phase(gen: torch.Generator) -> dict:
                bound_by=bound_by)
     log(f"time layer_norm_bwd: {json.dumps(row)}")
     return {"cases": [row]}
+
+
+def twoseg_phase(gen: torch.Generator) -> dict:
+    """K6 (forward), K7a (dK/dV) and K7b (dQ) against the plain two-segment
+    versions: the training chunk's cross-attention (batch 2, 1024 latents
+    over 7680 kept prefix rows), the same with 3001 left-padded prefix keys
+    over 7679 rows, the eval window (batch 1, 15360 prefix rows; forward
+    only) and the minimum prefix (one row, 1000 latents). Beside each: the
+    plain version's time, the route it replaces (the K/V join, then K2 or
+    K4a/K4b on the joined operands) and the library yardstick, one
+    ``scaled_dot_product_attention`` call (and its backward) on the joined
+    operands with the explicit causal + pad mask. Returns the rows by
+    kernel."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        bias_row,
+        bwd_2seg_dkv_cuda,
+        bwd_2seg_dq_cuda,
+        bwd_delta,
+        bwd_dkv_cuda,
+        bwd_dq_cuda,
+        flash_attention_packed,
+        flash_attention_packed_2seg,
+        flash_attention_packed_2seg_bwd_reference,
+        flash_attention_packed_2seg_reference,
+    )
+
+    h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
+    d, lat = c // h, FLAGSHIP["max_latents"]
+    cases = {  # name: (batch, prefix rows, latents, left pads, backward too, path)
+        "train_ca": (TRAIN_CHUNK, KEEP, lat, 0, True, "train_twoseg"),
+        "train_ca_leftpad": (TRAIN_CHUNK, KEEP - 1, lat, 3001, True, "train_twoseg"),
+        "eval_window": (1, PREFIX_LEN, lat, 0, False, "eval_twoseg"),
+        "min_prefix": (TRAIN_CHUNK, 1, 1000, 0, True, "edge"),
+    }
+    # measured error 0 for K7a/K7b, as for K4 (the same sequential FMA order
+    # as cuBLAS's SIMT GEMMs under the plain version); 1e-5 allows one
+    # reordered f32 sum
+    tol = 1e-5
+    out = {k: {"cases": []} for k in TWOSEG_KERNELS}
+    for name, (b, n_p, nq, pads, with_bwd, path) in cases.items():
+        q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda()
+        k_p, v_p = (torch.randn(b, n_p, c, generator=gen).cuda() for _ in range(2))
+        k_l, v_l = (torch.randn(b, nq, c, generator=gen).cuda() for _ in range(2))
+        ops = (q, k_p, v_p, k_l, v_l)
+        pad_p = pad_l = pad_cat = None
+        if pads:
+            pad_p = torch.zeros(b, n_p, dtype=torch.bool, device="cuda")
+            pad_p[:, :pads] = True
+            pad_l = torch.zeros(b, nq, dtype=torch.bool, device="cuda")
+            pad_cat = torch.cat([pad_p, pad_l], dim=1)
+        kw = dict(pad_mask_prefix=pad_p, pad_mask_latent=pad_l)
+        o, lse = flash_attention_packed_2seg(*ops, h, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        ro, rlse = flash_attention_packed_2seg_reference(*ops, h, **kw)
+        err = max_err(o, ro)
+        check(f"flash_2seg_fwd {name} out", err, tol)
+        check(f"flash_2seg_fwd {name} lse", max_err(lse, rlse), 1e-4)
+        del ro, rlse
+
+        nkv = n_p + nq
+        k_cat, v_cat = torch.cat([k_p, k_l], dim=1), torch.cat([v_p, v_l], dim=1)
+        concat_ms = time_ms(lambda: (torch.cat([k_p, k_l], dim=1), torch.cat([v_p, v_l], dim=1)))
+        qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k_cat, v_cat))
+        keep = _sdpa_keep(nq, nkv, pad_cat)
+        pairs = b * h * (nq * n_p + nq * (nq + 1) // 2)  # visible (query, key) pairs
+        reads = 4 * (b * nq * c + 2 * b * nkv * c) + (4 * b * nkv if pads else 0)
+        shape = f"{name} batch={b} nq={nq} np={n_p} left_pads={pads} H={h} D={d} f32"
+        bound_ms, bound_by = bound(reads + 4 * (b * nq * c + b * nq * h), 4 * d * pairs, torch.float32)
+        row = dict(case=shape, path=path, max_abs_err=err, tol=tol,
+                   ms=time_ms(lambda: flash_attention_packed_2seg(*ops, h, **kw)),
+                   plain_ms=time_ms(lambda: flash_attention_packed_2seg_reference(*ops, h, **kw), 3),
+                   library_ms=time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)),
+                   concat_ms=concat_ms,
+                   k2_concat_ms=time_ms(lambda: flash_attention_packed(q, k_cat, v_cat, h, pad_mask=pad_cat,
+                                                                       causal=True)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"time flash_2seg_fwd {name}: {json.dumps(row)}")
+        out["flash_2seg_fwd"]["cases"].append(row)
+        if not with_bwd:
+            continue
+
+        do = torch.randn(b, nq, c, generator=gen).cuda()
+        delta = bwd_delta(o, do, h)
+        args = (*ops, do, lse, delta, h, bias_row(pad_p, b, n_p, q.device), bias_row(pad_l, b, nq, q.device), 1.0)
+        dk_p, dv_p, dk_l, dv_l = bwd_2seg_dkv_cuda(*args)
+        dq = bwd_2seg_dq_cuda(*args)
+        torch.cuda.synchronize()
+        rdq, rdk_p, rdv_p, rdk_l, rdv_l = flash_attention_packed_2seg_bwd_reference(*ops, o, lse, do, h, **kw)
+        errs = {"flash_2seg_bwd_dkv": max(max_err(dk_p, rdk_p), max_err(dv_p, rdv_p), max_err(dk_l, rdk_l),
+                                          max_err(dv_l, rdv_l)),
+                "flash_2seg_bwd_dq": max_err(dq, rdq)}
+        del rdq, rdk_p, rdv_p, rdk_l, rdv_l
+        for kernel, e in errs.items():
+            check(f"{kernel} {name}", e, tol)
+        times = {"flash_2seg_bwd_dkv": time_ms(lambda: bwd_2seg_dkv_cuda(*args)),
+                 "flash_2seg_bwd_dq": time_ms(lambda: bwd_2seg_dq_cuda(*args))}
+        args_cat = (q, k_cat, v_cat, do, lse, delta, h, bias_row(pad_cat, b, nkv, q.device), True, 1.0)
+        k4_ms = {"flash_2seg_bwd_dkv": time_ms(lambda: bwd_dkv_cuda(*args_cat)),
+                 "flash_2seg_bwd_dq": time_ms(lambda: bwd_dq_cuda(*args_cat))}
+        plain_ms = time_ms(lambda: flash_attention_packed_2seg_bwd_reference(*ops, o, lse, do, h, **kw), 3)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
+        ref = scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+        go = do.reshape(b, nq, h, d).transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), go, retain_graph=True))
+        reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h) + (4 * b * nkv if pads else 0)
+        bounds = {"flash_2seg_bwd_dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, torch.float32),
+                  "flash_2seg_bwd_dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, torch.float32)}
+        for kernel in errs:
+            row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol, ms=times[kernel],
+                       plain_ms=plain_ms, library_ms=library_ms, concat_ms=concat_ms, k4_concat_ms=k4_ms[kernel],
+                       bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+            log(f"time {kernel} {name}: {json.dumps(row)}")
+            out[kernel]["cases"].append(row)
+        del ref, qg, kg, vg
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -553,15 +695,20 @@ def profile_summary(prof, wall_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_phase(card: str) -> dict:
+def train_phase(card: str, route: str = "concat", concat: dict = None) -> dict:
     """Five steps of the flagship at full width and depth, then one more
-    under ``torch.profiler``; returns the launches of the five."""
+    under ``torch.profiler``, on the concat route or, with ``route="twoseg"``,
+    under ``fast_kernels({"twoseg"})`` from the same seed, weights, batch and
+    keep sets (then each loss is held against ``concat``'s). Returns the
+    launches, losses and step times of the five."""
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
     from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
+    name = "train" if route == "concat" else "train_twoseg"
     config = CausalLanguageModelConfig(**FLAGSHIP)
     model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
     n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
@@ -571,57 +718,112 @@ def train_phase(card: str) -> dict:
     state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0))
     step = tt.make_train_step(tt.clm_loss_fn(lat), microbatch=TRAIN_MICROBATCH, sentinel=True)
     losses, step_ms, skipped = [], [], []
-    build.reset_launches()
-    for _ in range(TRAIN_STEPS):
+    with fast_kernels(ROUTE_FEATURES[route]):
+        build.reset_launches()
+        for _ in range(TRAIN_STEPS):
+            keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, dict(tokens, prefix_keep_idx=keep))
+            losses.append(float(metrics["loss"]))
+            skipped.append(float(metrics["sentinel_skipped"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = dict(build.LAUNCHES)
+        # one more step under torch.profiler: where a step's time goes
         keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, dict(tokens, prefix_keep_idx=keep))
-        losses.append(float(metrics["loss"]))
-        skipped.append(float(metrics["sentinel_skipped"]))
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-    launches = dict(build.LAUNCHES)
-    # one more step under torch.profiler: where a step's time goes
-    keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, dict(tokens, prefix_keep_idx=keep))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    log("train_profile: " + json.dumps({"card": card, **profile_summary(prof, wall_ms)}))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, dict(tokens, prefix_keep_idx=keep))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"{name}_profile: " + json.dumps({"card": card, **profile_summary(prof, wall_ms)}))
     median_ms = statistics.median(step_ms)
-    log(f"train losses: {losses} card={card}")
-    log("train: " + json.dumps({
+    kernels = TRAIN_KERNELS + (TWOSEG_KERNELS if route == "twoseg" else ())
+    report = {
         "card": card, "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH, "seq_len": n, "latents": lat,
-        "steps": TRAIN_STEPS, "step_ms": step_ms, "median_step_ms": median_ms,
+        "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
         "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
-        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in TRAIN_KERNELS},
-        "sentinel_skipped": skipped,
-    }))
+        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in kernels}, "sentinel_skipped": skipped,
+    }
+    if concat is not None:
+        diffs = [abs(a - b) for a, b in zip(losses, concat["losses"])]
+        report.update(concat_median_step_ms=concat["median_step_ms"], loss_diff_to_concat=diffs,
+                      loss_tol=TWOSEG_LOSS_TOL)
+    log(f"{name}: " + json.dumps(report))
     if not all(np.isfinite(losses)):
-        raise SystemExit(f"train: non-finite loss {losses}")
+        raise SystemExit(f"{name}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        raise SystemExit(f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        raise SystemExit(f"{name}: loss did not fall over {TRAIN_STEPS} steps: {losses}")
     if any(skipped):
-        raise SystemExit(f"train: the sentinel skipped a step: {skipped}")
-    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the training path: {missing}")
-    return launches
+        raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
+    want = PER_STEP[route]
+    per_step = {k: want["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
+    per_step.update({k: want["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
+    per_step.update({k: want["flash_2seg"] for k in TWOSEG_KERNELS})
+    wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != v * TRAIN_STEPS}
+    if wrong:
+        raise SystemExit(f"{name}: launches over {TRAIN_STEPS} steps {wrong}, expected per step {per_step}")
+    if concat is not None and not all(within(dd, TWOSEG_LOSS_TOL) for dd in report["loss_diff_to_concat"]):
+        raise SystemExit(f"{name}: losses differ from the concat route's by {report['loss_diff_to_concat']}")
+    return {"launches": launches, "losses": losses, "median_step_ms": median_ms}
 
 
-def grad_check_phase(card: str) -> None:
+def eval_twoseg_phase(card: str) -> dict:
+    """A cache-free, no-grad forward of the flagship at its full window
+    (15360 prefix rows, 1024 latents, batch 1) on the concat route and under
+    "twoseg", from the same weights and tokens: the logits must be finite and
+    agree within 1e-4, and the twoseg forward must have run K6 once and K2
+    for the 8 self-attention layers only. Returns the twoseg forward's
+    launches."""
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
+
+    config = CausalLanguageModelConfig(**FLAGSHIP)
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    ids = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, config.vocab_size,
+                                                                     size=(1, FLAGSHIP["max_seq_len"]))).cuda()
+    logits, launches, ms = {}, {}, {}
+    for route in ("concat", "twoseg"):
+        with torch.no_grad(), fast_kernels(ROUTE_FEATURES[route]):
+            forward = lambda: model(ids, prefix_len=PREFIX_LEN).logits  # noqa: E731
+            build.reset_launches()
+            logits[route] = forward()
+            torch.cuda.synchronize()
+            launches[route] = dict(build.LAUNCHES)
+            ms[route] = time_ms(forward, 5)
+    err = max_err(logits["twoseg"], logits["concat"])
+    tol = 1e-4
+    log("eval_twoseg: " + json.dumps({
+        "card": card, "prefix": PREFIX_LEN, "latents": FLAGSHIP["max_latents"], "max_abs_err": err, "tol": tol,
+        "forward_ms": ms, "launches": {r: {k: v for k, v in l.items() if v} for r, l in launches.items()},
+    }))
+    want_shape = (1, FLAGSHIP["max_latents"], config.vocab_size)
+    if any(tuple(x.shape) != want_shape or not bool(torch.isfinite(x).all()) for x in logits.values()):
+        raise SystemExit(f"eval_twoseg: logits not finite or not of shape {want_shape}")
+    if not within(err, tol):
+        raise SystemExit(f"eval_twoseg: twoseg logits differ from the concat route's by {err} > {tol}")
+    got = [(r, launches[r]["flash_2seg_fwd"], launches[r]["flash_packed_fwd"]) for r in launches]
+    if got != [("concat", 0, 9), ("twoseg", 1, 8)]:
+        raise SystemExit(f"eval_twoseg: (route, K6, K2) launches {got}, expected concat 0/9 and twoseg 1/8")
+    return launches["twoseg"]
+
+
+def grad_check_phase(card: str, route: str = "concat") -> None:
     """One train-step gradient at full width (512 channels, 8 heads; 2048
     tokens, 256 latents, 2 layers, batch 2, a fixed keep set) on the card
-    against the CPU's plain versions, from the same weights; per parameter,
-    max abs difference over the CPU gradient's max abs value. Then one
-    optimizer update (clip 1.0, AdamW lr 1e-3, as the train phase) from those
-    gradients on each side: the card's update against the CPU's, as the L2
-    norm of their difference over the CPU update's norm."""
+    against the CPU's plain versions, from the same weights, on the concat
+    route or under "twoseg" on both sides; per parameter, max abs difference
+    over the CPU gradient's max abs value. Then one optimizer update (clip
+    1.0, AdamW lr 1e-3, as the train phase) from those gradients on each
+    side: the card's update against the CPU's, as the L2 norm of their
+    difference over the CPU update's norm."""
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
     config = CausalLanguageModelConfig(**dict(FLAGSHIP, max_seq_len=2048, max_latents=256,
                                               num_self_attention_layers=2))
@@ -634,7 +836,9 @@ def grad_check_phase(card: str) -> None:
     card_model.load_state_dict(cpu_model.state_dict())
     grads, losses, updates = [], [], []
     for model in (cpu_model, card_model):
-        loss, _ = tt.clm_loss_fn(256)(model, batch)
+        build.reset_launches()
+        with fast_kernels(ROUTE_FEATURES[route]):
+            loss, _ = tt.clm_loss_fn(256)(model, batch)
         loss.backward()
         losses.append(float(loss.detach()))
         # copies: the update below clips the gradients in place
@@ -642,6 +846,11 @@ def grad_check_phase(card: str) -> None:
         before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
         tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0)).apply_gradients()
         updates.append(torch.cat([(p.detach().cpu() - before[n]).flatten() for n, p in model.named_parameters()]))
+    ca_kernels = {k: build.LAUNCHES[k] for k in ("flash_packed_fwd", "flash_2seg_fwd", "flash_2seg_bwd_dkv",
+                                                 "flash_2seg_bwd_dq")}
+    want = [3, 0, 0, 0] if route == "concat" else [2, 1, 1, 1]  # the card's CA + 2 SA layers
+    if list(ca_kernels.values()) != want:
+        raise SystemExit(f"grad_check {route}: the card's launches {ca_kernels}, expected {want}")
     rel = {n: float((grads[1][n] - g).abs().max() / g.abs().max()) for n, g in grads[0].items()}
     worst = sorted(rel.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
     update_err = float((updates[1] - updates[0]).norm() / updates[0].norm())
@@ -652,14 +861,15 @@ def grad_check_phase(card: str) -> None:
     # opposite signs on the two sides). A zero update, a wrong sign or a rate
     # 1% off is off by 1e-2 or more
     tol, update_tol = 1e-5, 3e-4
-    log("grad_check: " + json.dumps({"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
+    name = "grad_check" if route == "concat" else "grad_check_twoseg"
+    log(f"{name}: " + json.dumps({"card": card, "loss_cpu": losses[0], "loss_card": losses[1],
                                      "max_rel_err": worst[0][1], "tol": tol, "worst": worst,
                                      "n_params": len(rel), "update_rel_err": update_err,
                                      "update_tol": update_tol}))
     if not all(within(r, tol) for r in rel.values()):
-        raise SystemExit(f"grad_check failed: {worst}")
+        raise SystemExit(f"{name} failed: {worst}")
     if not within(update_err, update_tol):
-        raise SystemExit(f"grad_check: the card's optimizer update differs from the CPU's by {update_err}")
+        raise SystemExit(f"{name}: the card's optimizer update differs from the CPU's by {update_err}")
 
 
 def main() -> None:
@@ -682,9 +892,11 @@ def main() -> None:
     gen = torch.Generator().manual_seed(SEED)
     bwd_source = "perceiver_io_tpu_torch/ops/csrc/flash_packed_bwd.cu"
     ln_source = "perceiver_io_tpu_torch/ops/layernorm_triton.py"
+    twoseg_source = "perceiver_io_tpu_torch/ops/csrc/flash_2seg"
     dkv, dq, fwd_train = flash_bwd_phase(gen)
     fwd = flash_phase(gen)
     fwd["cases"] += fwd_train["cases"]
+    twoseg = twoseg_phase(gen)
     results = {
         "flash_packed_fwd": ("cuda", "perceiver_io_tpu_torch/ops/csrc/flash_packed.cu",
                              "perceiver_io_tpu/ops/flash_attention.py:606", fwd),
@@ -694,16 +906,28 @@ def main() -> None:
         "flash_packed_bwd_dkv": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:683", dkv),
         "flash_packed_bwd_dq": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:741", dq),
         "layer_norm_bwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:116", layernorm_bwd_phase(gen)),
+        "flash_2seg_fwd": ("cuda", f"{twoseg_source}.cu", "perceiver_io_tpu/ops/flash_attention.py:1107",
+                           twoseg["flash_2seg_fwd"]),
+        "flash_2seg_bwd_dkv": ("cuda", f"{twoseg_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:1189",
+                               twoseg["flash_2seg_bwd_dkv"]),
+        "flash_2seg_bwd_dq": ("cuda", f"{twoseg_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:1263",
+                              twoseg["flash_2seg_bwd_dq"]),
     }
-    by_phase = {"serve": serve_phase(card), "train": train_phase(card)}
+    by_phase = {"serve": serve_phase(card)}
+    train = train_phase(card)
+    train_twoseg = train_phase(card, "twoseg", concat=train)
+    by_phase.update(train=train["launches"], train_twoseg=train_twoseg["launches"],
+                    eval_twoseg=eval_twoseg_phase(card))
     grad_check_phase(card)
+    grad_check_phase(card, "twoseg")
 
     kernels = []
     for name, (route, source, replaces, res) in results.items():
         # each kernel's launches from the path that runs it: the training
-        # path for the five it runs, the serve for the paged decode; its
-        # error, times and bound from the first case at that path's shapes
-        phase = "train" if name in TRAIN_KERNELS else "serve"
+        # path for the five it runs, its twoseg configuration for K6/K7a/K7b,
+        # the serve for the paged decode; its error, times and bound from the
+        # first case at that path's shapes
+        phase = "train" if name in TRAIN_KERNELS else "train_twoseg" if name in TWOSEG_KERNELS else "serve"
         main_case = next(c for c in res["cases"] if c["path"] == phase)
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces, launches=by_phase[phase][name],

@@ -4,7 +4,9 @@
 Routes, each numerically the JAX package's:
 
 - no cache: the packed flash kernel K2 (``ops.flash_attention``) over the
-  projection layout;
+  projection layout; the Perceiver AR cross-attention may instead take
+  :meth:`MultiHeadAttention.two_segment` (K6 and its backward K7a/K7b), which
+  projects the prefix and the latents separately and never joins them;
 - contiguous cache that entered EMPTY with more than one query (the prompt
   pass): keys rotate and land in the cache, and K2 computes the attention over
   the fresh keys/values — eager PyTorch knows the cache length, so no
@@ -31,7 +33,11 @@ from torch import nn
 
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache
 from perceiver_io_tpu_torch.core.position import apply_rotary_pos_emb
-from perceiver_io_tpu_torch.ops.flash_attention import flash_attention_packed, packed_supported
+from perceiver_io_tpu_torch.ops.flash_attention import (
+    flash_attention_packed,
+    flash_attention_packed_2seg,
+    packed_supported,
+)
 from perceiver_io_tpu_torch.ops.paged_attention import paged_decode_attention, paged_kernel_supported
 
 _NEG_MAX = -torch.finfo(torch.float32).max
@@ -81,10 +87,12 @@ class MultiHeadAttention(nn.Module):
     def d_v(self) -> int:
         return self.v_channels // self.num_heads
 
-    def _packed_ok(self, q: torch.Tensor) -> bool:
-        """Whether K2 takes this layer's head dims; on a CUDA tensor a
-        refusal raises (the heads-major kernel is not ported), on a CPU
-        tensor the caller takes the dense path."""
+    def packed_route_ok(self, q: torch.Tensor) -> bool:
+        """The gate shared by every packed-flash route (the cache-free and
+        prefill routes below, and ``CrossAttention``'s two-segment dispatch):
+        whether the packed kernels take this layer's head dims. On a CUDA
+        tensor a refusal raises (the heads-major kernel is not ported); on a
+        CPU tensor the caller takes the dense path."""
         if packed_supported(self.num_heads, self.d_qk, self.d_v):
             return True
         if q.is_cuda:
@@ -103,17 +111,40 @@ class MultiHeadAttention(nn.Module):
         k4 = apply_rotary_pos_emb(k.reshape(b, m, self.num_heads, self.d_qk), rope_k[:, :, None, :])
         return k4.reshape(k.shape)
 
-    def _packed_flash(self, q, k, v, rope_q, pad_mask):
-        """Scale and rotate q in the packed layout and run K2 (keys arrive
-        rotated)."""
+    def _scaled_rotated_queries(self, q, rope_q):
+        """Scale and rotate q in the packed layout (B, N, H*Dqk)."""
         b, n = q.shape[0], q.shape[1]
         q4 = q.reshape(b, n, self.num_heads, self.d_qk) * self.d_qk**-0.5
         if rope_q is not None:
             q4 = apply_rotary_pos_emb(q4, rope_q[:, :, None, :])
+        return q4.reshape(q.shape)
+
+    def _packed_flash(self, q, k, v, rope_q, pad_mask):
+        """Run K2 on scaled, rotated queries (keys arrive rotated)."""
         return flash_attention_packed(
-            q4.reshape(q.shape), k, v, num_heads=self.num_heads, pad_mask=pad_mask,
+            self._scaled_rotated_queries(q, rope_q), k, v, num_heads=self.num_heads, pad_mask=pad_mask,
             causal=self.causal_attention, sm_scale=1.0,
         )
+
+    def two_segment(self, x_q, x_kv_prefix, pad_mask_prefix=None, pad_mask_latent=None, rope_q=None,
+                    rope_k_prefix=None, rope_k_latent=None) -> AttentionOutput:
+        """Causal prefix cross-attention of ``x_q`` (B, Nq, Dq) over the
+        logical kv sequence ``[x_kv_prefix; x_q]`` without joining it (the
+        ``fast_kernels`` "twoseg" route, K6/K7a/K7b): both inputs arrive
+        layer-normed, the latents and the prefix are projected separately
+        (projections are row-wise), each key segment rotates with its own
+        encodings, and ``flash_attention_packed_2seg`` reads the two K/V
+        pairs where they lie. No KV cache on this route."""
+        q = self.q_proj(x_q)
+        k_l = self._rotate_keys(self.k_proj(x_q), rope_k_latent)
+        v_l = self.v_proj(x_q)
+        k_p = self._rotate_keys(self.k_proj(x_kv_prefix), rope_k_prefix)
+        v_p = self.v_proj(x_kv_prefix)
+        o = flash_attention_packed_2seg(
+            self._scaled_rotated_queries(q, rope_q), k_p, v_p, k_l, v_l, num_heads=self.num_heads,
+            pad_mask_prefix=pad_mask_prefix, pad_mask_latent=pad_mask_latent, sm_scale=1.0,
+        )
+        return AttentionOutput(self.o_proj(o), None)
 
     def _scaled_query_heads(self, q, rope_q):
         b, n = q.shape[0], q.shape[1]
@@ -169,7 +200,7 @@ class MultiHeadAttention(nn.Module):
         v = self.v_proj(x_kv)
 
         if kv_cache is None:
-            if self._packed_ok(q):
+            if self.packed_route_ok(q):
                 o = self._packed_flash(q, k, v, rope_q, pad_mask)
                 return AttentionOutput(self.o_proj(o), None)
             masked = torch.zeros((1, 1, n_kv), dtype=torch.bool, device=q.device)
@@ -187,7 +218,7 @@ class MultiHeadAttention(nn.Module):
 
         entered_empty = kv_cache.length == 0
         new_cache = kv_cache.append(k, v)
-        if entered_empty and n_q > 1 and self._packed_ok(q):
+        if entered_empty and n_q > 1 and self.packed_route_ok(q):
             # prefill: attention over [0, length) IS attention over the fresh
             # keys/values, which occupy slots [0, n_kv)
             fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]

@@ -18,6 +18,14 @@ and residual dropout, activation checkpointing or offloading) are not ported:
 a training forward that asks for one raises ``NotImplementedError``. Calls
 with a KV cache (prefill and decode) are inference only and run under
 ``torch.no_grad()``.
+
+Under ``fast_kernels({"twoseg"})`` (``ops.flash_attention``; off by default,
+as in the JAX package) every cache-free causal cross-attention with a
+non-empty prefix takes the two-segment route, training and eval forwards
+alike: the kept prefix and the latents go to the kernels as separate K/V
+operands, and neither ``[kv_norm(prefix); q_norm(latents)]`` nor its
+projections, rotary rows or pad flags are ever joined. Calls with a KV cache,
+and an empty prefix, keep the concat route.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache, init_kv_cac
 from perceiver_io_tpu_torch.core.config import CausalSequenceModelConfig
 from perceiver_io_tpu_torch.core.position import positions
 from perceiver_io_tpu_torch.device import DeviceLike, resolve_device
+from perceiver_io_tpu_torch.ops.flash_attention import fast_features
 from perceiver_io_tpu_torch.ops.layernorm import FusedLayerNorm
 
 LAYER_NORM_EPSILON = 1e-5
@@ -53,10 +62,26 @@ class Residual(nn.Module):
         self.module = module
 
 
+def _split_rows(t, n_p: int):
+    """The (prefix, latent) parts of a ``[prefix; latents]`` row tensor, which
+    may arrive split already as a pair; None gives (None, None)."""
+    if t is None:
+        return None, None
+    return t if isinstance(t, tuple) else (t[:, :n_p], t[:, n_p:])
+
+
+def _joined_rows(t):
+    """A ``[prefix; latents]`` row tensor from a (prefix, latent) pair; a
+    tensor or None passes through."""
+    return torch.cat(t, dim=1) if isinstance(t, tuple) else t
+
+
 class CrossAttention(nn.Module):
     """Pre-layer-norm cross-attention. With ``x_kv_prefix`` instead of
     ``x_kv`` the key/value input is ``[kv_norm(prefix); q_norm(x_q)]`` — the
-    latents attend to themselves at the end of the sequence (Perceiver AR)."""
+    latents attend to themselves at the end of the sequence (Perceiver AR).
+    In that mode ``rope_k`` and ``pad_mask`` cover those rows, each as one
+    tensor or as a (prefix, latent) pair."""
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  causal_attention: bool = False, qkv_bias: bool = True, out_bias: bool = True):
@@ -68,10 +93,26 @@ class CrossAttention(nn.Module):
             causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias,
         )
 
+    def _two_segment_ok(self, x_q, x_kv_prefix, kv_cache) -> bool:
+        """The gate of the two-segment route (JAX's
+        ``CrossAttention._two_segment_ok``): "twoseg" is on, no KV cache, a
+        causal layer, a non-empty prefix, and head dims the packed kernels
+        take (on a CUDA tensor, dims they cannot take raise). When False the
+        concat route runs unchanged."""
+        return ("twoseg" in fast_features() and kv_cache is None and self.attention.causal_attention
+                and x_kv_prefix.shape[1] >= 1 and self.attention.packed_route_ok(x_q))
+
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None, rope_q=None, rope_k=None,
                 kv_cache=None) -> AttentionOutput:
         x_q = self.q_norm(x_q)
         if x_kv is None:
+            if self._two_segment_ok(x_q, x_kv_prefix, kv_cache):
+                n_p = x_kv_prefix.shape[1]
+                pad_p, pad_l = _split_rows(pad_mask, n_p)
+                rope_p, rope_l = _split_rows(rope_k, n_p)
+                return self.attention.two_segment(x_q, self.kv_norm(x_kv_prefix), pad_p, pad_l, rope_q, rope_p,
+                                                  rope_l)
+            pad_mask, rope_k = _joined_rows(pad_mask), _joined_rows(rope_k)
             # an empty prefix (the decode step) needs no kv_norm launch
             x_kv = x_q if x_kv_prefix.shape[1] == 0 else torch.cat([self.kv_norm(x_kv_prefix), x_q], dim=1)
         else:
@@ -278,14 +319,17 @@ class PerceiverAR(nn.Module):
                             pad_latent, pad_prefix, kv_cache)
 
     def _attend(self, x_latent, x_prefix, frq_latent, frq_prefix, pad_latent, pad_prefix, kv_cache):
-        rope_k_ca = torch.cat([frq_prefix, frq_latent], dim=1)
-        pad_ca = None if pad_prefix is None else torch.cat([pad_prefix, pad_latent], dim=1)
+        # the cross-attention's rotary rows and pad flags go as (prefix,
+        # latent) pairs: the two-segment route never joins them
+        rope_k_ca = (frq_prefix, frq_latent)
+        pad_ca = None if pad_prefix is None else (pad_prefix, pad_latent)
         if kv_cache is None:
             ca_cache, sa_cache = None, None
         else:
             ca_cache, sa_cache = kv_cache[0], tuple(kv_cache[1:])
             if pad_ca is not None:
                 # the pad mask reads against cache slots: align it to capacity
+                pad_ca = _joined_rows(pad_ca)
                 pad_ca = torch.nn.functional.pad(pad_ca, (0, ca_cache.capacity - pad_ca.shape[1]))
         ca_out = self.cross_attention(x_latent, None, x_prefix, pad_ca, frq_latent, rope_k_ca, ca_cache)
         h, sa_caches = self.self_attention(ca_out.last_hidden_state, None, frq_latent, frq_latent, sa_cache)

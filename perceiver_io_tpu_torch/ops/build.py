@@ -40,6 +40,9 @@ LAUNCHERS = {
     "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
     "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 8 + [_I] * 7 + [_P]),
+    "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _P]),
+    "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _P]),
 }
 CUDA_SOURCES = tuple(dict.fromkeys(source for source, _, _ in LAUNCHERS.values()))
 NVCC_FLAGS = (
@@ -55,6 +58,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "flash_packed_fwd": 0, "paged_decode": 0, "layer_norm_fwd": 0,
     "flash_packed_bwd_dkv": 0, "flash_packed_bwd_dq": 0, "layer_norm_bwd": 0,
+    "flash_2seg_fwd": 0, "flash_2seg_bwd_dkv": 0, "flash_2seg_bwd_dq": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

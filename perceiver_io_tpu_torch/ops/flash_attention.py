@@ -1,10 +1,13 @@
 """Packed flash attention: the forward (K2), the backward (K4a dK/dV, K4b dQ)
-and their plain PyTorch versions, joined by a ``torch.autograd.Function``.
+and their plain PyTorch versions, joined by a ``torch.autograd.Function``;
+its two-segment form (K6 forward, K7a dK/dV, K7b dQ) for the Perceiver AR
+cross-attention over ``[prefix; latents]``; and the kernel feature switch
+(:func:`fast_kernels`).
 
 Counterpart of ``perceiver_io_tpu/ops/flash_attention.py::flash_attention_packed``
-and its custom VJP (``_flash_packed_fwd`` / ``_flash_packed_bwd``). Operands
-stay in the projection layout ``(B, N, H*D)``: a head is a strided column
-slice.
+and its custom VJP (``_flash_packed_fwd`` / ``_flash_packed_bwd``), of
+``flash_attention_packed_2seg`` and of ``fast_kernels``. Operands stay in the
+projection layout ``(B, N, H*D)``: a head is a strided column slice.
 
 Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
 ``csrc/flash_packed_bwd.cu`` and the plain versions here):
@@ -27,12 +30,21 @@ Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
 
 Dispatch is by device: a CUDA tensor launches the kernels (or raises), a CPU
 tensor takes the plain versions. There is no fallback on failure. Every call
-goes through :class:`_FlashPacked`, whose backward dispatches the same way
-(under ``no_grad`` it records no graph and launches the same forward).
+goes through :class:`_FlashPacked` (or :class:`_FlashPacked2Seg`), whose
+backward dispatches the same way (under ``no_grad`` it records no graph and
+launches the same forward).
+
+The two-segment form computes exactly ``flash_attention_packed(q,
+[k_p; k_l], [v_p; v_l], causal=True)`` with the two pad masks joined, without
+joining anything: query ``i`` sees the whole prefix and latent slots
+``t <= i`` (causal offset 0 in latent-local coordinates), and the kernels read
+each segment where it lies. Its kernels take f32 operands only.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -42,6 +54,52 @@ from perceiver_io_tpu_torch.ops import build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The JAX package's kernel feature names. Only "twoseg" changes anything in
+# the port: it routes the cache-free causal prefix cross-attention through the
+# two-segment kernels (K6, K7a, K7b). "base2", "nobias", "fastmask" and
+# "slimstats" are TPU schedule trims that give the same output within
+# rounding, so the Hopper kernels implement only the default semantics; and
+# the port's paged decode always runs K3, so "paged" has nothing to switch.
+# The names are accepted so that a JAX caller's ``fast_kernels(True)`` works.
+ALL_FEATURES = frozenset({"base2", "nobias", "fastmask", "slimstats", "twoseg", "paged"})
+# a contextvar, not a module global: a scope cannot leak into another thread
+_FAST_FEATURES = contextvars.ContextVar("flash_fast_features", default=frozenset())
+
+
+def _parse_features(mode) -> frozenset:
+    if mode is True:
+        return ALL_FEATURES
+    if mode is False:
+        return frozenset()
+    unknown = frozenset(mode) - ALL_FEATURES
+    if unknown:
+        raise ValueError(f"unknown kernel features: {sorted(unknown)}")
+    return frozenset(mode)
+
+
+def fast_features() -> frozenset:
+    """The active feature set (empty by default), read at each call."""
+    return _FAST_FEATURES.get()
+
+
+def set_fast_kernels(mode) -> None:
+    """Select kernel features for the current context: True = all, False =
+    none, or an iterable of names from :data:`ALL_FEATURES`; prefer the
+    scoped :func:`fast_kernels`."""
+    _FAST_FEATURES.set(_parse_features(mode))
+
+
+@contextlib.contextmanager
+def fast_kernels(mode):
+    """Scoped feature selection: calls inside the with-block see ``mode``. A
+    route is fixed when the forward runs; a backward run after the block
+    still follows it."""
+    token = _FAST_FEATURES.set(_parse_features(mode))
+    try:
+        yield
+    finally:
+        _FAST_FEATURES.reset(token)
 
 
 def packed_supported(num_heads: int, d_qk: int, d_v: int) -> bool:
@@ -274,4 +332,213 @@ def flash_attention_packed(
     """
     bias = bias_row(pad_mask, q.shape[0], k.shape[1], q.device)
     o, lse = _FlashPacked.apply(q, k, v, num_heads, bias, causal, sm_scale)
+    return (o, lse) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# two segments: the Perceiver AR cross-attention over [prefix; latents]
+# ---------------------------------------------------------------------------
+
+
+def _check_2seg(q, k_p, v_p, k_l, v_l, num_heads) -> None:
+    """The JAX wrapper's contract errors, then the operand shapes."""
+    b, nq, cq = q.shape
+    n_p, n_l = k_p.shape[1], k_l.shape[1]
+    if n_l != nq:
+        raise ValueError(f"latent kv length ({n_l}) must equal query length ({nq})")
+    if n_p < 1:
+        raise ValueError("two-segment attention requires a non-empty prefix; "
+                         "use flash_attention_packed(causal=True) when prefix_len == 0")
+    cv = v_l.shape[2]
+    want = {"k_prefix": (b, n_p, cq), "v_prefix": (b, n_p, cv), "k_latent": (b, nq, cq)}
+    for name, t in zip(want, (k_p, v_p, k_l)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    if cq % num_heads or cv % num_heads:
+        raise ValueError(f"widths ({cq}, {cv}) must be divisible by num_heads ({num_heads})")
+
+
+def _joint_bias(bias_p, bias_l, n_p, nq):
+    """The plain versions' (B, Np + Nq) bias row (None when neither segment
+    has one)."""
+    if bias_p is None and bias_l is None:
+        return None
+    like = bias_p if bias_p is not None else bias_l
+    zeros = lambda n: torch.zeros((like.shape[0], n), dtype=torch.float32, device=like.device)  # noqa: E731
+    return torch.cat([zeros(n_p) if bias_p is None else bias_p, zeros(nq) if bias_l is None else bias_l], dim=1)
+
+
+def _fwd_2seg_plain(q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale):
+    """The plain forward joins the segments: it is the plain version, which
+    the kernels are held against."""
+    bias = _joint_bias(bias_p, bias_l, k_p.shape[1], q.shape[1])
+    return _fwd_plain(q, torch.cat([k_p, k_l], dim=1), torch.cat([v_p, v_l], dim=1), num_heads, bias, True,
+                      sm_scale)
+
+
+def _bwd_2seg_plain(q, k_p, v_p, k_l, v_l, o, lse, do, num_heads, bias_p, bias_l, sm_scale):
+    n_p = k_p.shape[1]
+    bias = _joint_bias(bias_p, bias_l, n_p, q.shape[1])
+    dq, dk, dv = _bwd_plain(q, torch.cat([k_p, k_l], dim=1), torch.cat([v_p, v_l], dim=1), o, lse, do, num_heads,
+                            bias, True, sm_scale)
+    return dq, dk[:, :n_p], dv[:, :n_p], dk[:, n_p:], dv[:, n_p:]
+
+
+def _2seg_biases(q, k_p, pad_mask_prefix, pad_mask_latent):
+    b, nq = q.shape[0], q.shape[1]
+    return bias_row(pad_mask_prefix, b, k_p.shape[1], q.device), bias_row(pad_mask_latent, b, nq, q.device)
+
+
+def flash_attention_packed_2seg_reference(
+    q: torch.Tensor,
+    k_prefix: torch.Tensor,
+    v_prefix: torch.Tensor,
+    k_latent: torch.Tensor,
+    v_latent: torch.Tensor,
+    num_heads: int,
+    pad_mask_prefix: Optional[torch.Tensor] = None,
+    pad_mask_latent: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain two-segment forward (what K6 computes): ``(o, lse)``, dense
+    in f32 over the joined segments."""
+    _check_2seg(q, k_prefix, v_prefix, k_latent, v_latent, num_heads)
+    bias_p, bias_l = _2seg_biases(q, k_prefix, pad_mask_prefix, pad_mask_latent)
+    return _fwd_2seg_plain(q, k_prefix, v_prefix, k_latent, v_latent, num_heads, bias_p, bias_l, sm_scale)
+
+
+def flash_attention_packed_2seg_bwd_reference(
+    q: torch.Tensor,
+    k_prefix: torch.Tensor,
+    v_prefix: torch.Tensor,
+    k_latent: torch.Tensor,
+    v_latent: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    pad_mask_prefix: Optional[torch.Tensor] = None,
+    pad_mask_latent: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+) -> Tuple[torch.Tensor, ...]:
+    """The plain two-segment backward (what K7a and K7b compute):
+    ``(dq, dk_prefix, dv_prefix, dk_latent, dv_latent)``."""
+    _check_2seg(q, k_prefix, v_prefix, k_latent, v_latent, num_heads)
+    bias_p, bias_l = _2seg_biases(q, k_prefix, pad_mask_prefix, pad_mask_latent)
+    return _bwd_2seg_plain(q, k_prefix, v_prefix, k_latent, v_latent, o, lse, do, num_heads, bias_p, bias_l,
+                           sm_scale)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd_2seg_cuda(q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale):
+    _check_cuda_operands((q, k_p, v_p, k_l, v_l), (torch.float32,), "flash_attention_packed_2seg")
+    b, nq, n_p, h = q.shape[0], q.shape[1], k_p.shape[1], num_heads
+    d_qk, d_v = _head_dims(q, v_l, h)
+    q, k_p, v_p, k_l, v_l = (_ready(t) for t in (q, k_p, v_p, k_l, v_l))
+    o = torch.empty((b, nq, h * d_v), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
+    err = build.launcher("flash_2seg_fwd")(
+        *(t.data_ptr() for t in (q, k_p, v_p, k_l, v_l)), _ptr(bias_p), _ptr(bias_l), o.data_ptr(), lse.data_ptr(),
+        b, nq, n_p, h, d_qk, d_v, float(sm_scale), build.current_stream(q.device),
+    )
+    build.check(err, "flash_2seg_fwd")
+    build.count_launch("flash_2seg_fwd")
+    return o, lse
+
+
+def _bwd_2seg_args(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale):
+    _check_cuda_operands((q, k_p, v_p, k_l, v_l, do), (torch.float32,), "the two-segment flash backward")
+    d_qk, d_v = _head_dims(q, v_l, num_heads)
+    ptrs = tuple(t.data_ptr() for t in (q, k_p, v_p, k_l, v_l, do, lse, delta)) + (_ptr(bias_p), _ptr(bias_l))
+    ints = (q.shape[0], q.shape[1], k_p.shape[1], num_heads, d_qk, d_v, float(sm_scale),
+            build.current_stream(q.device))
+    return ptrs, ints
+
+
+def bwd_2seg_dkv_cuda(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale):
+    """The K7a wrapper: ``(dk_p, dv_p, dk_l, dv_l)`` for contiguous, aligned
+    f32 operands, ``lse``/``delta`` (B, Nq, H) f32 and the two bias rows (or
+    None)."""
+    ptrs, ints = _bwd_2seg_args(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale)
+    outs = tuple(torch.empty_like(t) for t in (k_p, v_p, k_l, v_l))
+    build.check(build.launcher("flash_2seg_bwd_dkv")(*ptrs, *(t.data_ptr() for t in outs), *ints),
+                "flash_2seg_bwd_dkv")
+    build.count_launch("flash_2seg_bwd_dkv")
+    return outs
+
+
+def bwd_2seg_dq_cuda(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale):
+    """The K7b wrapper: ``dq``, for the operands :func:`bwd_2seg_dkv_cuda`
+    takes."""
+    ptrs, ints = _bwd_2seg_args(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale)
+    dq = torch.empty_like(q)
+    build.check(build.launcher("flash_2seg_bwd_dq")(*ptrs, dq.data_ptr(), *ints), "flash_2seg_bwd_dq")
+    build.count_launch("flash_2seg_bwd_dq")
+    return dq
+
+
+def _bwd_2seg_cuda(q, k_p, v_p, k_l, v_l, o, lse, do, num_heads, bias_p, bias_l, sm_scale):
+    q, k_p, v_p, k_l, v_l, do = (_ready(t) for t in (q, k_p, v_p, k_l, v_l, do))
+    args = (q, k_p, v_p, k_l, v_l, do, lse.contiguous(), bwd_delta(o, do, num_heads), num_heads, bias_p, bias_l,
+            sm_scale)
+    dk_p, dv_p, dk_l, dv_l = bwd_2seg_dkv_cuda(*args)
+    return bwd_2seg_dq_cuda(*args), dk_p, dv_p, dk_l, dv_l
+
+
+class _FlashPacked2Seg(torch.autograd.Function):
+    """K6 forward, K7a + K7b backward on CUDA tensors; the plain versions on
+    CPU tensors. Saves ``q, k_p, v_p, k_l, v_l, o, lse`` and the two bias
+    rows; the backward runs the two-segment kernels whatever the feature set
+    is by then."""
+
+    @staticmethod
+    def forward(ctx, q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale):
+        fwd = _fwd_2seg_cuda if q.is_cuda else _fwd_2seg_plain
+        o, lse = fwd(q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale)
+        ctx.save_for_backward(q, k_p, v_p, k_l, v_l, o, lse, bias_p, bias_l)
+        ctx.num_heads, ctx.sm_scale = num_heads, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k_p, v_p, k_l, v_l, o, lse, bias_p, bias_l = ctx.saved_tensors
+        bwd = _bwd_2seg_cuda if do.is_cuda else _bwd_2seg_plain
+        grads = bwd(q, k_p, v_p, k_l, v_l, o, lse, do, ctx.num_heads, bias_p, bias_l, ctx.sm_scale)
+        return (*grads, None, None, None, None)
+
+
+def flash_attention_packed_2seg(
+    q: torch.Tensor,
+    k_prefix: torch.Tensor,
+    v_prefix: torch.Tensor,
+    k_latent: torch.Tensor,
+    v_latent: torch.Tensor,
+    num_heads: int,
+    pad_mask_prefix: Optional[torch.Tensor] = None,
+    pad_mask_latent: Optional[torch.Tensor] = None,
+    sm_scale: float = 1.0,
+    return_lse: bool = False,
+):
+    """Fused causal attention of ``q`` over the logical kv sequence
+    ``[prefix; latents]`` without joining the segments: query ``i`` sees the
+    whole prefix plus latent slots ``t <= i``, the concat route's
+    ``j <= i + Np``.
+
+    :param q: latent queries (B, Nq, H*Dqk), already scaled/rotated.
+    :param k_prefix: kept-prefix keys (B, Np, H*Dqk), Np >= 1, already rotated.
+    :param v_prefix: kept-prefix values (B, Np, H*Dv).
+    :param k_latent: latent keys (B, Nq, H*Dqk), already rotated.
+    :param v_latent: latent values (B, Nq, H*Dv).
+    :param pad_mask_prefix: (B, Np) bool, True at padded keys, or None.
+    :param pad_mask_latent: (B, Nq) bool, True at padded keys, or None.
+    :returns: (B, Nq, H*Dv) in q's dtype, and the (B, Nq, H) f32 logsumexp
+        when ``return_lse``. Differentiable in q and the four K/V operands.
+    """
+    _check_2seg(q, k_prefix, v_prefix, k_latent, v_latent, num_heads)
+    bias_p, bias_l = _2seg_biases(q, k_prefix, pad_mask_prefix, pad_mask_latent)
+    o, lse = _FlashPacked2Seg.apply(q, k_prefix, v_prefix, k_latent, v_latent, num_heads, bias_p, bias_l, sm_scale)
     return (o, lse) if return_lse else o

@@ -1,7 +1,9 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 an NVIDIA card, at small shapes: K2 (packed flash forward), K3 (paged
 decode), K1 (LayerNorm forward), K4a/K4b (packed flash backward), K5
-(LayerNorm backward), a train step and the engine serving through them. Marked
+(LayerNorm backward), K6/K7a/K7b (the two-segment flash forward and
+backward), train steps (with and without "twoseg") and the engine serving
+through them. Marked
 ``cuda``; each test skips on a machine without a card. Run them on one with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
 suite's conftest imports JAX, which the port does not need). Tolerances: f32
@@ -223,3 +225,92 @@ def test_engine_serves_through_the_kernels(cuda):
             state, token = step(state)
             want.append(int(token[0]))
         assert engine.served_tokens[spec.index] == want
+
+
+@pytest.mark.parametrize("d", [64, 40, 128])
+@pytest.mark.parametrize("n_p,nq,n_pad", [
+    (1, 100, 0),      # the minimum prefix; Nq no tile multiple
+    (70, 130, 5),     # the seam inside a tile; left-padded prefix keys
+    (200, 128, 0),
+    (129, 37, 100),   # a prefix of one tile and one row, mostly padded
+])
+def test_flash_2seg_kernels_match_plain(cuda, d, n_p, nq, n_pad):
+    """K6 (forward, out and logsumexp) and K7a/K7b (through the autograd
+    Function) against the plain two-segment versions on the card, with one
+    launch each. Tolerance: atol 1e-5 (1e-4 on the logsumexp), as for
+    K2/K4."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed_2seg,
+        flash_attention_packed_2seg_bwd_reference,
+        flash_attention_packed_2seg_reference,
+    )
+
+    g = torch.Generator().manual_seed(6)
+    h = 4
+    q, k_l, v_l = (torch.randn(2, nq, h * d, generator=g).to(cuda).requires_grad_() for _ in range(3))
+    k_p, v_p = (torch.randn(2, n_p, h * d, generator=g).to(cuda).requires_grad_() for _ in range(2))
+    do = torch.randn(2, nq, h * d, generator=g).to(cuda)
+    pad_p = torch.zeros(2, n_p, dtype=torch.bool, device=cuda)
+    pad_p[1, :n_pad] = True
+    pad_l = torch.zeros(2, nq, dtype=torch.bool, device=cuda)
+    ops = (q, k_p, v_p, k_l, v_l)
+    kw = dict(pad_mask_prefix=pad_p, pad_mask_latent=pad_l, sm_scale=d**-0.5)
+    build.reset_launches()
+    o, lse = flash_attention_packed_2seg(*ops, h, return_lse=True, **kw)
+    assert o.grad_fn is not None
+    o.backward(do)
+    assert [build.LAUNCHES[k] for k in ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")] == [1, 1, 1]
+    assert build.LAUNCHES["flash_packed_fwd"] == build.LAUNCHES["flash_packed_bwd_dq"] == 0
+    plain = [t.detach() for t in ops]
+    ro, rlse = flash_attention_packed_2seg_reference(*plain, h, **kw)
+    torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    want = flash_attention_packed_2seg_bwd_reference(*plain, o.detach(), lse, do, h, **kw)
+    for got, w in zip((t.grad for t in ops), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, w, atol=1e-5, rtol=0)
+
+
+def test_flash_2seg_takes_f32_only(cuda):
+    from perceiver_io_tpu_torch.ops.flash_attention import flash_attention_packed_2seg
+
+    q, k, v = (torch.randn(1, 64, 128, device=cuda, dtype=torch.bfloat16) for _ in range(3))
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention_packed_2seg(q, k, v, k, v, 2)
+
+
+@pytest.mark.parametrize("n_pad", [0, 37], ids=["unpadded_compact", "left_padded_gather"])
+def test_micro_train_step_under_twoseg_runs_through_the_2seg_kernels(cuda, n_pad):
+    """Under ``fast_kernels({"twoseg"})`` a small CLM's loss gradient on the
+    card (K6, K7a, K7b for the cross-attention) agrees with the CPU's (plain
+    versions) from the same weights, keep set and batch (per parameter, max
+    abs difference <= 1e-4 of the largest value), on both prefix-dropout
+    routes; the backward runs after the scope has closed."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
+
+    config = CausalLanguageModelConfig(vocab_size=262, max_seq_len=512, max_latents=128, num_channels=64,
+                                       num_heads=4, num_self_attention_layers=2)
+    rng = np.random.default_rng(7)
+    t = rng.integers(0, 262, size=(2, 257))
+    pad = None
+    if n_pad:
+        pad = np.zeros((2, 256), bool)
+        pad[1, :n_pad] = True
+    batch = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": pad,
+             "prefix_keep_idx": tt.sample_prefix_keep_idx(rng, 2, 128, 0.5)}
+    grads = []
+    for dev in ("cpu", cuda):
+        model = CausalLanguageModel(config, device=dev, generator=torch.Generator().manual_seed(0))
+        build.reset_launches()
+        with fast_kernels({"twoseg"}):
+            loss, _ = tt.clm_loss_fn(128)(model, batch)
+        loss.backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert [build.LAUNCHES[k] for k in ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")] == [1, 1, 1]
+    assert build.LAUNCHES["flash_packed_fwd"] == 2  # the two SA layers only
+    for name, want in grads[0].items():
+        assert float((grads[1][name] - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
