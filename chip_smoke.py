@@ -6,17 +6,20 @@ Usage, from the root of a checkout: ``python3 chip_smoke.py`` (one card).
 Phases, each fatal on failure (nothing is caught to keep the exit code 0):
 
 1. device: the card's name and power limit as ``nvidia-smi`` reports them;
-2. build: every CUDA kernel of the serving and training paths is compiled
-   from the sources in ``perceiver_io_tpu_torch/ops/csrc`` (one ``nvcc`` per
-   source, all at once; the Triton kernels compile at their first launch);
+2. build: every CUDA kernel of the serving, training and image paths is
+   compiled from the sources in ``perceiver_io_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, all at once; the Triton kernels compile at their
+   first launch), with each kernel's registers and spills from ptxas;
 3. kernel parity: each kernel against its plain PyTorch version on the card
-   at the flagship's serving and training shapes, with the tolerance stated
-   beside each case, and its median time beside the plain version's, the
-   PyTorch library call's where one computes the same function, and the
-   least time the card could take (``bound_ms``): K2 packed flash forward
-   (at the serving and the training shapes), K3 paged decode, K1 LayerNorm
-   forward (with and without its statistics), K4a/K4b packed flash
-   backward, K5 LayerNorm backward, K6/K7a/K7b two-segment flash;
+   at the flagship's serving and training shapes and the image classifier's,
+   with the tolerance stated beside each case, and its median time beside
+   the plain version's, the PyTorch library call's where one computes the
+   same function, and the least time the card could take (``bound_ms``):
+   K2 packed flash forward, K3 paged decode, K1 LayerNorm forward (with and
+   without its statistics), K4a/K4b packed flash backward, K5 LayerNorm
+   backward, K6/K7a/K7b two-segment flash, K8/K9a/K9b heads-major flash
+   (the classifier's cross-attention, 512 latents over 50176 pixels with one
+   264-wide head, and odd-width, causal, pad-mask and split-walk cases);
 4. serve: the flagship-width Perceiver AR CLM (seeded random weights)
    answers six greedy requests through ``EngineFrontEnd``; every served
    stream must equal the sequential ``make_decode_fns`` stream up to the
@@ -44,13 +47,23 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    channels, 8 heads; 2048 tokens, 256 latents, 2 layers) on the card
    against the same gradient on the CPU (plain versions), from the same
    weights, batch and keep set, and the optimizer update each side makes
-   from it; once on the concat route, once under "twoseg".
-
-The kernel parity phase also holds K6, K7a and K7b against their plain
-versions at the training chunk (with and without 3001 left-padded prefix
-keys), at the eval window (forward) and at the minimum prefix of one row,
-each beside K2/K4 and one SDPA call on the joined operands, the route it
-replaces.
+   from it; once on the concat route, once under "twoseg";
+9. image_eval: the Perceiver IO image classifier of ``bench.py``'s image
+   bench (224x224x3, 64 bands, 512 x 1024 latents, 6 x 8 shared SA layers,
+   1000 classes; seeded random weights, f32) classifies 16 random images
+   under ``no_grad`` on the split-kv route and on the standard route: finite
+   logits that agree within ``IMAGE_ROUTE_TOL``, and K8 1, K2 48, K1 101
+   launches a forward, exactly;
+10. image_train: five AdamW steps (lr 1e-3, clip 1.0) of that classifier on
+    one fixed batch of 16 random images and labels: every loss finite, the
+    second below the first, no step skipped, each step launching K8, K9a,
+    K9b once, K2, K4a, K4b 48 times and K1, K5 101 times, exactly; then one
+    profiled step;
+11. image gradient check: the classifier at full width on 32x32 images and
+    one block of 2 layers, the card's gradient and optimizer update against
+    the CPU's;
+12. image_trajectory: five train steps of that reduced classifier at lr
+    1e-3 on the card and on the CPU, the losses compared step by step.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -96,6 +109,47 @@ PER_STEP = {"concat": {"flash_packed": 18, "flash_2seg": 0, "layer_norm": 38},
 # the fifth step; the first four were equal): the routes differ only in
 # GEMM shapes and in the order of the K/V weight-gradient sums
 TWOSEG_LOSS_TOL = 2e-6
+# the Perceiver IO image classifier of bench.py:300-316 (image_bench): 224x224x3
+# images with 64 Fourier bands (261 input channels), 512 latents x 1024
+# channels, one cross-attention head, 8 self-attention heads, 6 layers x 8
+# weight-shared blocks, 1000 classes; f32, seeded random weights
+IMAGE_ENCODER = dict(image_shape=(224, 224, 3), num_frequency_bands=64, num_cross_attention_heads=1,
+                     num_self_attention_heads=8, num_self_attention_layers_per_block=6,
+                     num_self_attention_blocks=8, first_self_attention_block_shared=True)
+IMAGE_DECODER = dict(num_classes=1000, num_output_query_channels=1024, num_cross_attention_heads=1)
+IMAGE_LATENTS, IMAGE_CHANNELS = 512, 1024
+IMAGE_PIXELS = 224 * 224
+IMAGE_D = 264  # the cross-attention's one head: 261 channels zero-padded to a multiple of 8
+# image_train: five steps on one batch of 16 in one chunk. Memory reckoning
+# (f32): the 48 SA layers keep ~12 (16, 512, 1024) tensors each for the
+# backward (~19 GB), the split-kv route ~4 (16, 50176, 264) tensors (~3.4
+# GB), weights and AdamW moments ~1.4 GB: ~25 GB of the card's 80, so no
+# microbatch chunks
+IMAGE_BATCH, IMAGE_STEPS = 16, 5
+# bench.py's rate. AdamW at 1e-3 overshoots on one memorized batch: the loss
+# falls at the first step and rises later, on the card and on the CPU's
+# plain versions alike (image_trajectory holds the card to the CPU step by
+# step), so image_train checks the first step's fall, not the fifth's
+IMAGE_LR = 1e-3
+# |loss(card) - loss(CPU)| / loss(CPU) at each of image_trajectory's steps:
+# the card's gradients differ from the CPU's by a few 1e-6 relative
+# (image_grad_check); the overshoot it rules out as the port's is of order 1
+IMAGE_TRAJECTORY_TOL = 1e-4
+# image_grad_check's and image_trajectory's classifier: full width, 32x32x3
+# images, one block of 2 layers
+IMAGE_SMALL = dict(image_shape=(32, 32, 3), num_self_attention_layers_per_block=2, num_self_attention_blocks=1)
+HEADS_KERNELS = ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")
+# per classifier forward on the split route: K8 once (the encoder's CA), K2
+# 48 times (6 x 8 SA layers), K1 101 times (the CA's q_norm and MLP norm, 2
+# per SA layer, the decoder's q_norm, kv_norm and MLP norm; the CA's kv_norm
+# is folded into the split K/V projection); a train step adds each
+# backward once per forward launch
+IMAGE_FORWARD = {"flash_heads_fwd": 1, "flash_packed_fwd": 48, "layer_norm_fwd": 101}
+IMAGE_STEP = dict(IMAGE_FORWARD, flash_heads_bwd_dkv=1, flash_heads_bwd_dq=1, flash_packed_bwd_dkv=48,
+                  flash_packed_bwd_dq=48, layer_norm_bwd=101)
+# |logits(split) - logits(standard)| at the flagship: the routes differ only
+# in the order of the K/V projections' f32 sums (see image_eval_phase)
+IMAGE_ROUTE_TOL = 1e-4
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tensor cores; bf16 tensor
@@ -155,10 +209,10 @@ def _sdpa_keep(nq: int, nkv: int, pad) -> torch.Tensor:
     return keep if pad is None else keep & ~pad[:, None, None, :]
 
 
-def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str) -> dict:
-    """K2 against its plain version on one causal case (out and logsumexp),
-    with its time beside the plain version's, one SDPA call's with the same
-    mask, and the bound. ``path`` names the path whose shapes these are."""
+def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causal: bool = True) -> dict:
+    """K2 against its plain version on one case (out and logsumexp), with its
+    time beside the plain version's, one SDPA call's with the same mask, and
+    the bound. ``path`` names the path whose shapes these are."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops.flash_attention import (
@@ -167,25 +221,26 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str) -> di
     )
 
     (b, nq, c), nkv, d = q.shape, k.shape[1], q.shape[2] // h
-    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True, return_lse=True)
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
     torch.cuda.synchronize()
-    ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=True)
+    ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
     err = max_err(o, ro)
     check(f"flash_packed_fwd {name} out", err, tol)
     check(f"flash_packed_fwd {name} lse", max_err(lse, rlse), 1e-4)
-    ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=True), 3)
+    ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal))
+    plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal), 3)
     # the library yardstick: one SDPA call on heads-major views with the
     # same right-aligned causal + pad mask
     qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k, v))
-    keep = _sdpa_keep(nq, nkv, pad)
+    keep = _sdpa_keep(nq, nkv, pad) if causal else None
     library_ms = time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
     el = q.element_size()
-    visible = b * sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))
+    visible = b * visible_pairs(nq, nkv, causal)
     n_bytes = el * b * (2 * nq * c + 2 * nkv * c) + 4 * b * nq * h + (4 * b * nkv if pad is not None else 0)
     bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible, q.dtype)
     pads = 0 if pad is None else int(pad[0].sum())
-    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} {str(q.dtype)[6:]}", path=path,
+    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} D={d} left_pads={pads} "
+                    f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}", path=path,
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by)
     log(f"time flash_packed_fwd {name}: {json.dumps(row)}")
@@ -280,15 +335,20 @@ def layernorm_phase(gen: torch.Generator) -> dict:
         layer_norm_reference_stats,
     )
 
-    c = FLAGSHIP["num_channels"]
     tol = 1e-5
     rows_out = []
-    # the serving launch (no statistics) at a full prompt, and the training
+    # the serving launch (no statistics) at a full prompt, the training
     # launch (with the per-row mean/rstd the backward reads) at the kv_norm
-    # rows of one chunk (2 x 7680 kept prefix rows)
-    for rows, stats in ((FLAGSHIP["max_seq_len"], False), (TRAIN_CHUNK * KEEP, True)):
+    # rows of one chunk (2 x 7680 kept prefix rows), and the image
+    # classifier's latent rows (16 x 512 x 1024) with and without statistics
+    c_clm = FLAGSHIP["num_channels"]
+    for name, rows, c, stats, path in (("serving", FLAGSHIP["max_seq_len"], c_clm, False, "serve"),
+                                       ("with_stats", TRAIN_CHUNK * KEEP, c_clm, True, "train"),
+                                       ("image_with_stats", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, True,
+                                        "image_train"),
+                                       ("image_eval", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, False,
+                                        "image_eval")):
         x, w, b = _ln_inputs(gen, rows, c)
-        name = "with_stats" if stats else "serving"
         if stats:
             got = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
             want = layer_norm_reference_stats(x, w, b, 1e-5, torch.float32)
@@ -308,7 +368,7 @@ def layernorm_phase(gen: torch.Generator) -> dict:
         library_ms = time_ms(lambda: torch_layer_norm(x, (c,), w, b, 1e-5), 20)
         n_bytes = 4 * (2 * rows * c + 2 * c + (2 * rows if stats else 0))
         bound_ms, bound_by = bound(n_bytes, 8 * rows * c, torch.float32)
-        row = dict(case=f"{name} rows={rows} C={c} f32", path="train" if stats else "serve", max_abs_err=err,
+        row = dict(case=f"{name} rows={rows} C={c} f32", path=path, max_abs_err=err,
                    tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         log(f"time layer_norm_fwd {name}: {json.dumps(row)}")
         rows_out.append(row)
@@ -319,8 +379,10 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     """K4a (dK/dV) and K4b (dQ) at a training chunk's shapes (batch 2): the
     causal cross-attention of 1024 latents over 7680 kept prefix keys + the
     latents, a latent self-attention, and the cross-attention with left-padded
-    keys. K2's forward, whose output and logsumexp the backward reads, is
-    first held against its plain version on the same inputs. The plain
+    keys; and at the image classifier's non-causal self-attention (batch 16,
+    512 latents, 8 heads of 128). K2's forward, whose output and logsumexp
+    the backward reads, is first held against its plain version on the same
+    inputs. The plain
     backward computes all three gradients at once, so both kernels carry its
     time; so does the library yardstick, the backward of one
     ``scaled_dot_product_attention`` call with the same mask. Returns the
@@ -336,12 +398,13 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         flash_attention_packed_bwd_reference,
     )
 
-    h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
-    d, b, lat = c // h, TRAIN_CHUNK, FLAGSHIP["max_latents"]
-    cases = {  # name: (nq, nkv, left pads)
-        "ca_f32": (lat, KEEP + lat, 0),
-        "sa_f32": (lat, lat, 0),
-        "ca_f32_leftpad": (lat, KEEP + lat, 3001),
+    lat = FLAGSHIP["max_latents"]
+    clm = (TRAIN_CHUNK, FLAGSHIP["num_heads"], FLAGSHIP["num_channels"], True, "train")
+    cases = {  # name: (nq, nkv, left pads, batch, heads, channels, causal, path)
+        "ca_f32": (lat, KEEP + lat, 0, *clm),
+        "sa_f32": (lat, lat, 0, *clm),
+        "ca_f32_leftpad": (lat, KEEP + lat, 3001, *clm),
+        "image_sa_f32": (IMAGE_LATENTS, IMAGE_LATENTS, 0, IMAGE_BATCH, 8, IMAGE_CHANNELS, False, "image_train"),
     }
     # measured error 0: the kernels and cuBLAS's f32 SIMT GEMMs under the
     # plain version accumulate every sum in the same sequential FMA order.
@@ -349,7 +412,8 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     # up to ~2, sums of up to 8704 terms), should a library pick another order
     tol = {"dkv": 1e-5, "dq": 1e-5}
     out = {"dkv": {"cases": []}, "dq": {"cases": []}, "fwd": {"cases": []}}
-    for name, (nq, nkv, pads) in cases.items():
+    for name, (nq, nkv, pads, b, h, c, causal, path) in cases.items():
+        d = c // h
         q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda()
         k, v = (torch.randn(b, nkv, c, generator=gen).cuda() for _ in range(2))
         do = torch.randn(b, nq, c, generator=gen).cuda()
@@ -357,30 +421,30 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         if pads:
             pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
-        out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h, 1e-5, "train"))
-        o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=True, return_lse=True)
-        args = (q, k, v, do, lse, bwd_delta(o, do, h), h, bias_row(pad, b, nkv, q.device), True, 1.0)
+        out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h, 1e-5, path, causal))
+        o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
+        args = (q, k, v, do, lse, bwd_delta(o, do, h), h, bias_row(pad, b, nkv, q.device), causal, 1.0)
         dk, dv = bwd_dkv_cuda(*args)
         dq = bwd_dq_cuda(*args)
         torch.cuda.synchronize()
-        rdq, rdk, rdv = flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad, causal=True)
+        rdq, rdk, rdv = flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad, causal=causal)
         errs = {"dkv": max(max_err(dk, rdk), max_err(dv, rdv)), "dq": max_err(dq, rdq)}
         for kernel, err in errs.items():
             check(f"flash_packed_bwd_{kernel} {name}", err, tol[kernel])
         times = {"dkv": time_ms(lambda: bwd_dkv_cuda(*args)), "dq": time_ms(lambda: bwd_dq_cuda(*args))}
         plain_ms = time_ms(lambda: flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad,
-                                                                        causal=True), 3)
+                                                                        causal=causal), 3)
         qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=_sdpa_keep(nq, nkv, pad))
+        ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=_sdpa_keep(nq, nkv, pad) if causal else None)
         go = do.reshape(b, nq, h, d).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
-        pairs = b * h * sum(min(nkv, ii + nkv - nq + 1) for ii in range(nq))  # visible (query, key) pairs
+        pairs = b * h * visible_pairs(nq, nkv, causal)
         reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h + (b * nkv if pad is not None else 0))
         bounds = {"dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, torch.float32),
                   "dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, torch.float32)}
         for kernel in ("dkv", "dq"):
-            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} f32 causal",
-                       path="train", max_abs_err=errs[kernel], tol=tol[kernel], ms=times[kernel], plain_ms=plain_ms,
+            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} f32 "
+                            f"{'causal' if causal else 'full'}", path=path, max_abs_err=errs[kernel], tol=tol[kernel], ms=times[kernel], plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
             log(f"time flash_packed_bwd_{kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
@@ -388,14 +452,19 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
 
 
 def layernorm_bwd_phase(gen: torch.Generator) -> dict:
-    """K5 at the kv_norm rows of one training chunk (2 x 7680 x 512 f32),
-    from K1's statistics; the library yardstick is the backward of
-    ``F.layer_norm``."""
+    """K5 at the kv_norm rows of one training chunk (2 x 7680 x 512 f32) and
+    at the image classifier's latent rows (16 x 512 x 1024), from K1's
+    statistics; the library yardstick is the backward of ``F.layer_norm``."""
+    rows_out = [layernorm_bwd_case(gen, TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"], "train")]
+    rows_out.append(layernorm_bwd_case(gen, IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, "image_train"))
+    return {"cases": rows_out}
+
+
+def layernorm_bwd_case(gen: torch.Generator, rows: int, c: int, path: str) -> dict:
     from torch.nn.functional import layer_norm as torch_layer_norm
 
     from perceiver_io_tpu_torch.ops.layernorm import layer_norm_bwd_cuda, layer_norm_bwd_reference, layer_norm_cuda
 
-    rows, c = TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"]
     x, w, b = _ln_inputs(gen, rows, c)
     dy = torch.randn(rows, c, generator=gen).cuda()
     _, mean, rstd = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
@@ -418,11 +487,11 @@ def layernorm_bwd_phase(gen: torch.Generator) -> dict:
     # x and dy read, dx written, the statistics read, gamma read, dgamma/dbeta
     # written; about 13 operations per element
     bound_ms, bound_by = bound(4 * (3 * rows * c + 2 * rows + 3 * c), 13 * rows * c, torch.float32)
-    row = dict(case=f"rows={rows} C={c} f32", path="train", max_abs_err=err, tol=tol, max_abs_err_dw_db=err_dw_db,
+    row = dict(case=f"rows={rows} C={c} f32", path=path, max_abs_err=err, tol=tol, max_abs_err_dw_db=err_dw_db,
                tol_dw_db=tol_dw_db, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                bound_by=bound_by)
-    log(f"time layer_norm_bwd: {json.dumps(row)}")
-    return {"cases": [row]}
+    log(f"time layer_norm_bwd {path}: {json.dumps(row)}")
+    return row
 
 
 def twoseg_phase(gen: torch.Generator) -> dict:
@@ -536,6 +605,145 @@ def twoseg_phase(gen: torch.Generator) -> dict:
             row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol, ms=times[kernel],
                        plain_ms=plain_ms, library_ms=library_ms, concat_ms=concat_ms, k4_concat_ms=k4_ms[kernel],
                        bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+            log(f"time {kernel} {name}: {json.dumps(row)}")
+            out[kernel]["cases"].append(row)
+        del ref, qg, kg, vg
+    return out
+
+
+def lse_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max abs difference of two logsumexps that may hold -inf (rows that
+    see no key): inf where one is -inf and the other not."""
+    inf_a, inf_b = torch.isneginf(a), torch.isneginf(b)
+    if not torch.equal(inf_a, inf_b):
+        return math.inf
+    return max_err(a[~inf_a], b[~inf_b]) if bool((~inf_a).any()) else 0.0
+
+
+def visible_pairs(nq: int, nkv: int, causal: bool) -> int:
+    """(query, key) pairs a head sees under the right-aligned causal mask."""
+    if not causal:
+        return nq * nkv
+    return sum(max(0, min(nkv, i + nkv - nq + 1)) for i in range(nq))
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The first fused ``scaled_dot_product_attention`` backend that takes
+    these operands, or "math" (PyTorch's unfused composition)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return name.lower()
+        except RuntimeError:
+            continue
+    return "math"
+
+
+def heads_phase(gen: torch.Generator) -> dict:
+    """K8 (forward), K9a (dK/dV) and K9b (dQ) against the plain heads-major
+    versions: the image classifier's cross-attention (512 latents over 50176
+    pixels, one head of 264 channels, non-causal) at batch 16, the main
+    path's (one q block a CTA, no kv split), and at batch 2 (the kv walk
+    split 8 ways), and the odd-width, causal, pad-mask, Nq > Nkv and
+    split-walk cases of the CPU tests. The plain backward at batch 16 holds
+    ~8 GB of f32 (16, 512, 50176) intermediates. The kernels run through their
+    wrappers on the (B*H, N, D8) operands ``flash_attention`` hands them
+    (odd widths zero-padded); the plain versions and the library yardstick,
+    one ``scaled_dot_product_attention`` call (and its backward) with the
+    same mask, on the (B, H, N, D) operands. Returns the rows by kernel."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from perceiver_io_tpu_torch.ops import flash_attention as tflash
+
+    cases = [  # name, batch, heads, nq, nkv, head dim, causal, left pads, backward too, path
+        ("image_ca_b16", IMAGE_BATCH, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, True, "image_train"),
+        ("image_ca_b2", 2, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, True, "edge"),
+        ("d12_causal_pad", 2, 2, 130, 300, 12, True, 37, True, "edge"),
+        ("d40_full", 2, 2, 130, 300, 40, False, 0, True, "edge"),
+        ("d133_causal_pad", 2, 2, 130, 300, 133, True, 37, True, "edge"),
+        ("d264_full_pad", 2, 1, 130, 300, 264, False, 37, True, "edge"),
+        ("d512_causal", 2, 2, 130, 300, 512, True, 0, True, "edge"),
+        ("nq_gt_nkv_causal", 2, 2, 300, 130, 40, True, 0, True, "edge"),
+        ("split_walk_causal_pad", 2, 2, 100, 3000, 136, True, 50, True, "edge"),
+    ]
+    # K8 and K9a: measured within 4.2e-7 on an H100; 1e-5 allows a
+    # reordered f32 sum of these values (up to ~5). K9b: each row
+    # of dS sums to zero, so dQ = dS K cancels over up to 50176 keys and its
+    # f32 rounding is larger against its values (up to ~9): measured up to
+    # 1.5e-5 (D = 512, 300 keys), the tolerance about four times that
+    tol = {"flash_heads_fwd": 1e-5, "flash_heads_bwd_dkv": 1e-5, "flash_heads_bwd_dq": 6e-5}
+    out = {k: {"cases": []} for k in HEADS_KERNELS}
+    for name, b, h, nq, nkv, d, causal, pads, with_bwd, path in cases:
+        q = (torch.randn(b, h, nq, d, generator=gen) * d**-0.5).cuda()
+        k, v = (torch.randn(b, h, nkv, d, generator=gen).cuda() for _ in range(2))
+        pad = None
+        if pads:
+            pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
+            pad[:, :pads] = True
+        bias = tflash.bias_row(pad, b, nkv, q.device)
+        qf, kf, vf = tflash._heads_layout(q, k, v)
+        d8 = qf.shape[2]
+        o, lse = tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0)
+        torch.cuda.synchronize()
+        ro, rlse = tflash.flash_attention_reference(q, k, v, pad, causal)
+        err = max_err(o[..., :d].reshape(ro.shape), ro)
+        check(f"flash_heads_fwd {name} out", err, tol["flash_heads_fwd"])
+        check(f"flash_heads_fwd {name} lse", lse_err(lse.reshape(rlse.shape), rlse), 1e-4)
+        mask = None
+        if causal or pad is not None:
+            mask = _sdpa_keep(nq, nkv, pad) if causal else ~pad[:, None, None, :]
+        backend = sdpa_backend(q, k, v, mask)
+        pairs = b * h * visible_pairs(nq, nkv, causal)
+        shape = (f"{name} batch={b} H={h} nq={nq} nkv={nkv} D={d} (kernel D={d8}) "
+                 f"{'causal' if causal else 'full'} left_pads={pads} f32")
+        reads = 4 * b * h * (nq * d8 + 2 * nkv * d8) + (4 * b * nkv if pad is not None else 0)
+        bound_ms, bound_by = bound(reads + 4 * b * h * (nq * d8 + nq), 4 * d8 * pairs, torch.float32)
+        row = dict(case=shape, path=path, max_abs_err=err, tol=tol["flash_heads_fwd"],
+                   ms=time_ms(lambda: tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0)),
+                   plain_ms=time_ms(lambda: tflash.flash_attention_reference(q, k, v, pad, causal), 3),
+                   library_ms=time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+                   library=f"scaled_dot_product_attention ({backend})", bound_ms=bound_ms, bound_by=bound_by)
+        log(f"time flash_heads_fwd {name}: {json.dumps(row)}")
+        out["flash_heads_fwd"]["cases"].append(row)
+        del ro, rlse
+        if not with_bwd:
+            continue
+
+        # the plain backward reads the same inputs as K9a/K9b: K8's output
+        # and logsumexp
+        o4, lse4 = o[..., :d].reshape(b, h, nq, d), lse.reshape(b, h, nq)
+        do = torch.randn(b, h, nq, d, generator=gen).cuda()
+        dof = torch.nn.functional.pad(do.reshape(b * h, nq, d), (0, d8 - d))
+        delta = (dof * o).sum(dim=-1)
+        args = (qf, kf, vf, dof, lse, delta, h, bias, causal, 1.0)
+        dk, dv = tflash.heads_bwd_dkv_cuda(*args)
+        dq = tflash.heads_bwd_dq_cuda(*args)
+        torch.cuda.synchronize()
+        rdq, rdk, rdv = tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad, causal)
+        errs = {"flash_heads_bwd_dkv": max(max_err(dk[..., :d].reshape(rdk.shape), rdk),
+                                           max_err(dv[..., :d].reshape(rdv.shape), rdv)),
+                "flash_heads_bwd_dq": max_err(dq[..., :d].reshape(rdq.shape), rdq)}
+        del rdq, rdk, rdv
+        for kernel, e in errs.items():
+            check(f"{kernel} {name}", e, tol[kernel])
+        times = {"flash_heads_bwd_dkv": time_ms(lambda: tflash.heads_bwd_dkv_cuda(*args)),
+                 "flash_heads_bwd_dq": time_ms(lambda: tflash.heads_bwd_dq_cuda(*args))}
+        plain_ms = time_ms(lambda: tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad, causal), 3)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        ref = scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True))
+        reads = 4 * b * h * (2 * nq * d8 + 2 * nkv * d8 + 2 * nq) + (4 * b * nkv if pad is not None else 0)
+        bounds = {"flash_heads_bwd_dkv": bound(reads + 4 * 2 * b * h * nkv * d8, 8 * d8 * pairs, torch.float32),
+                  "flash_heads_bwd_dq": bound(reads + 4 * b * h * nq * d8, 6 * d8 * pairs, torch.float32)}
+        for kernel in errs:
+            row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol[kernel], ms=times[kernel],
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library=f"scaled_dot_product_attention backward ({backend})", bound_ms=bounds[kernel][0],
+                       bound_by=bounds[kernel][1])
             log(f"time {kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
         del ref, qg, kg, vg
@@ -872,6 +1080,240 @@ def grad_check_phase(card: str, route: str = "concat") -> None:
         raise SystemExit(f"{name}: the card's optimizer update differs from the CPU's by {update_err}")
 
 
+# ---------------------------------------------------------------------------
+# the Perceiver IO image classifier
+# ---------------------------------------------------------------------------
+
+
+def image_classifier(device, **encoder_overrides):
+    """The flagship classifier (``IMAGE_ENCODER``), seeded random weights."""
+    from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig
+    from perceiver_io_tpu_torch.models.vision import ImageClassifier, ImageClassifierConfig, ImageEncoderConfig
+
+    config = ImageClassifierConfig(
+        encoder=ImageEncoderConfig(**dict(IMAGE_ENCODER, **encoder_overrides)),
+        decoder=ClassificationDecoderConfig(**IMAGE_DECODER),
+        num_latents=IMAGE_LATENTS, num_latent_channels=IMAGE_CHANNELS,
+    )
+    return ImageClassifier(config, device=device, generator=torch.Generator().manual_seed(SEED))
+
+
+def image_batch(batch: int, image_shape, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"image": rng.normal(size=(batch,) + tuple(image_shape)).astype(np.float32),
+            "label": rng.integers(0, IMAGE_DECODER["num_classes"], size=batch)}
+
+
+def check_launches(name: str, launches: dict, want: dict, times: int) -> None:
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v * times}
+    if wrong:
+        raise SystemExit(f"{name}: launches {wrong}, expected {times} x {want}")
+
+
+def image_eval_phase(card: str) -> dict:
+    """The flagship classifier's forward at batch 16 under ``no_grad``, on
+    the split-kv route (the default) and on the standard route (an all-False
+    pad mask: the joined (B, 50176, 261) input, kv_norm, K8 on the
+    261-wide head the wrapper pads to 264), from the same weights and
+    images: finite logits of shape (16, 1000) that agree within
+    ``IMAGE_ROUTE_TOL``, and the launches of ``IMAGE_FORWARD`` exactly (the
+    standard route adds the kv_norm's K1). Returns the split forward's
+    launches."""
+    from perceiver_io_tpu_torch.ops import build
+
+    model = image_classifier("cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: image classifier {IMAGE_ENCODER} {IMAGE_DECODER}, {IMAGE_LATENTS} x {IMAGE_CHANNELS} latents, "
+        f"{n_params} parameters, f32")
+    x = torch.from_numpy(image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 4)["image"]).cuda()
+    routes = {"split": None, "standard": torch.zeros(IMAGE_BATCH, IMAGE_PIXELS, dtype=torch.bool, device="cuda")}
+    logits, launches, ms = {}, {}, {}
+    with torch.no_grad():
+        for route, pad in routes.items():
+            build.reset_launches()
+            logits[route] = model(x, pad_mask=pad)
+            torch.cuda.synchronize()
+            launches[route] = dict(build.LAUNCHES)
+            ms[route] = time_ms(lambda: model(x, pad_mask=pad), 5)
+    err = max_err(logits["split"], logits["standard"])
+    log("image_eval: " + json.dumps({
+        "card": card, "batch": IMAGE_BATCH, "max_abs_err_split_vs_standard": err, "tol": IMAGE_ROUTE_TOL,
+        "forward_ms": ms, "images_per_s": {r: IMAGE_BATCH / (t / 1e3) for r, t in ms.items()},
+        "launches": {r: {k: v for k, v in l.items() if v} for r, l in launches.items()},
+    }))
+    want_shape = (IMAGE_BATCH, IMAGE_DECODER["num_classes"])
+    if any(tuple(t.shape) != want_shape or not bool(torch.isfinite(t).all()) for t in logits.values()):
+        raise SystemExit(f"image_eval: logits not finite or not of shape {want_shape}")
+    if not within(err, IMAGE_ROUTE_TOL):
+        raise SystemExit(f"image_eval: the split route's logits differ from the standard route's by {err}")
+    check_launches("image_eval split", launches["split"], IMAGE_FORWARD, 1)
+    check_launches("image_eval standard", launches["standard"],
+                   dict(IMAGE_FORWARD, layer_norm_fwd=IMAGE_FORWARD["layer_norm_fwd"] + 1), 1)
+    return launches["split"]
+
+
+def image_train_phase(card: str) -> dict:
+    """Five AdamW steps (lr ``IMAGE_LR``, f32 moments, global clip 1.0) of
+    the flagship classifier on one fixed batch of 16 random images and labels in
+    one chunk (see the memory reckoning at ``IMAGE_BATCH``), with the
+    non-finite sentinel on: every loss finite, the first step lowering the
+    loss (the later ones overshoot at this rate, see ``IMAGE_LR``), no step
+    skipped, the launches of ``IMAGE_STEP`` per step exactly; then one
+    profiled step. Returns the five steps' launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.ops import build
+
+    model = image_classifier("cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 5).items()}
+    state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
+    step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True)
+    losses, step_ms, skipped = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    for _ in range(IMAGE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        skipped.append(float(metrics["sentinel_skipped"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log("image_train_profile: " + json.dumps({"card": card, **profile_summary(prof, wall_ms)}))
+    median_ms = statistics.median(step_ms)
+    log("image_train: " + json.dumps({
+        "card": card, "batch": IMAGE_BATCH, "microbatch": 1, "steps": IMAGE_STEPS, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": median_ms, "images_per_s": IMAGE_BATCH / (median_ms / 1e3),
+        "peak_memory_gb": peak_gb, "sentinel_skipped": skipped,
+        "launches_per_step": {k: launches[k] / IMAGE_STEPS for k in IMAGE_STEP},
+    }))
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"image_train: non-finite loss {losses}")
+    if not losses[1] < losses[0]:
+        raise SystemExit(f"image_train: the first step did not lower the loss: {losses}")
+    if any(skipped):
+        raise SystemExit(f"image_train: the sentinel skipped a step: {skipped}")
+    check_launches("image_train", launches, IMAGE_STEP, IMAGE_STEPS)
+    return launches
+
+
+def image_grad_check_phase(card: str) -> None:
+    """One train-step gradient of the classifier at full width (1024 latent
+    channels, 8 SA heads, 64 bands, 512 latents, 1000 classes) on a reduced
+    image and depth (32x32x3, one block of 2 layers; batch 2) on the card
+    against the CPU's plain versions, from the same weights and batch: per
+    parameter, max abs difference over the CPU gradient's max abs value
+    (the key-projection biases, whose gradient is 0 in exact arithmetic,
+    against an absolute bound instead). Then one optimizer update (clip 1.0,
+    AdamW at ``IMAGE_LR``) from those gradients on each side, compared as the L2
+    norm of their difference over the CPU update's norm."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.ops import build
+
+    batch = image_batch(2, IMAGE_SMALL["image_shape"], SEED + 6)
+    grads, losses, updates = [], [], []
+    for device in ("cpu", "cuda"):
+        model = image_classifier(device, **IMAGE_SMALL)
+        build.reset_launches()
+        loss, _ = tt.classification_loss_fn()(model, batch)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0)).apply_gradients()
+        updates.append(torch.cat([(p.detach().cpu() - before[n]).flatten() for n, p in model.named_parameters()]))
+    heads = [build.LAUNCHES[k] for k in HEADS_KERNELS]
+    if heads != [1, 1, 1]:
+        raise SystemExit(f"image_grad_check: the card's K8/K9a/K9b launches {heads}, expected one each")
+    zero = {n for n in grads[0] if n.endswith("attention.k_proj.bias")}
+    rel = {n: float((grads[1][n] - g).abs().max() / g.abs().max()) for n, g in grads[0].items() if n not in zero}
+    zero_max = max(max(float(grads[0][n].abs().max()), float(grads[1][n].abs().max())) for n in zero)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
+    update_err = float((updates[1] - updates[0]).norm() / updates[0].norm())
+    grad_scale = max(float(g.abs().max()) for g in grads[0].values())
+    # as grad_check_phase: gradients within 1e-5 relative (f32 on both
+    # sides, the sums run in other orders), the update within 3e-4; the zero gradients
+    # within 1e-6 of the largest gradient of the tree
+    tol, update_tol, zero_tol = 1e-5, 3e-4, 1e-6 * grad_scale
+    log("image_grad_check: " + json.dumps({
+        "card": card, "loss_cpu": losses[0], "loss_card": losses[1], "max_rel_err": worst[0][1], "tol": tol,
+        "worst": worst, "n_params": len(grads[0]), "zero_grad_max": zero_max, "zero_grad_tol": zero_tol,
+        "update_rel_err": update_err, "update_tol": update_tol}))
+    if not all(within(r, tol) for r in rel.values()):
+        raise SystemExit(f"image_grad_check failed: {worst}")
+    if not within(zero_max, zero_tol):
+        raise SystemExit(f"image_grad_check: key-bias gradients {zero_max} > {zero_tol}")
+    if not within(update_err, update_tol):
+        raise SystemExit(f"image_grad_check: the card's optimizer update differs from the CPU's by {update_err}")
+
+
+def image_trajectory_phase(card: str) -> None:
+    """Five train steps (``make_train_step`` with the sentinel, AdamW at
+    ``IMAGE_LR``, clip 1.0) of the classifier at the gradient check's size
+    (full width, 32x32x3 images, one block of 2 layers; one fixed batch of
+    2) on the card and on the CPU's plain versions, from the same weights:
+    each step's loss within ``IMAGE_TRAJECTORY_TOL`` of the CPU's,
+    relative, and no step skipped. Where image_train's losses rise at this
+    rate, this phase says whether the port or the optimizer makes them."""
+    from perceiver_io_tpu_torch import training as tt
+
+    batch = image_batch(2, IMAGE_SMALL["image_shape"], SEED + 7)
+    losses, skipped, seconds = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        model = image_classifier(device, **IMAGE_SMALL)
+        state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
+        step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True)
+        losses[device], skipped[device] = [], []
+        t0 = time.perf_counter()
+        for _ in range(IMAGE_STEPS):
+            state, metrics = step(state, batch)
+            losses[device].append(float(metrics["loss"]))
+            skipped[device].append(float(metrics["sentinel_skipped"]))
+        seconds[device] = time.perf_counter() - t0
+    rel = [abs(g - c) / abs(c) for c, g in zip(losses["cpu"], losses["cuda"])]
+    log("image_trajectory: " + json.dumps({
+        "card": card, "lr": IMAGE_LR, "losses_cpu": losses["cpu"], "losses_card": losses["cuda"],
+        "rel_err": rel, "tol": IMAGE_TRAJECTORY_TOL, "sentinel_skipped": skipped, "seconds": seconds}))
+    if not all(within(r, IMAGE_TRAJECTORY_TOL) for r in rel):
+        raise SystemExit(f"image_trajectory: the card's losses {losses['cuda']} leave the CPU's {losses['cpu']}")
+    if any(skipped["cpu"] + skipped["cuda"]):
+        raise SystemExit(f"image_trajectory: the sentinel skipped a step: {skipped}")
+
+
+def ptxas_report(logs: dict) -> dict:
+    """source -> [[kernel (instantiation), registers, spill stores, spill
+    loads]] from the builds' ``-Xptxas=-v`` output."""
+    import re
+
+    report = {}
+    for source, text in logs.items():
+        rows, name, spills = [], None, (0, 0)
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:  # the mangled name's kernel and template argument
+                short = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", m.group(1))
+                name = m.group(1) if not short else short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name is not None:
+                rows.append([name, int(m.group(1)), *spills])
+                name, spills = None, (0, 0)
+        report[source] = rows
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -888,6 +1330,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {sorted(build.CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    log("ptxas: " + json.dumps(ptxas_report(build.BUILD_LOGS)))
 
     gen = torch.Generator().manual_seed(SEED)
     bwd_source = "perceiver_io_tpu_torch/ops/csrc/flash_packed_bwd.cu"
@@ -897,6 +1340,8 @@ def main() -> None:
     fwd = flash_phase(gen)
     fwd["cases"] += fwd_train["cases"]
     twoseg = twoseg_phase(gen)
+    heads = heads_phase(gen)
+    heads_source = "perceiver_io_tpu_torch/ops/csrc/flash_heads"
     results = {
         "flash_packed_fwd": ("cuda", "perceiver_io_tpu_torch/ops/csrc/flash_packed.cu",
                              "perceiver_io_tpu/ops/flash_attention.py:606", fwd),
@@ -912,6 +1357,12 @@ def main() -> None:
                                twoseg["flash_2seg_bwd_dkv"]),
         "flash_2seg_bwd_dq": ("cuda", f"{twoseg_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:1263",
                               twoseg["flash_2seg_bwd_dq"]),
+        "flash_heads_fwd": ("cuda", f"{heads_source}.cu", "perceiver_io_tpu/ops/flash_attention.py:196",
+                            heads["flash_heads_fwd"]),
+        "flash_heads_bwd_dkv": ("cuda", f"{heads_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:294",
+                                heads["flash_heads_bwd_dkv"]),
+        "flash_heads_bwd_dq": ("cuda", f"{heads_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:348",
+                               heads["flash_heads_bwd_dq"]),
     }
     by_phase = {"serve": serve_phase(card)}
     train = train_phase(card)
@@ -920,14 +1371,19 @@ def main() -> None:
                     eval_twoseg=eval_twoseg_phase(card))
     grad_check_phase(card)
     grad_check_phase(card, "twoseg")
+    by_phase.update(image_eval=image_eval_phase(card), image_train=image_train_phase(card))
+    image_grad_check_phase(card)
+    image_trajectory_phase(card)
 
     kernels = []
     for name, (route, source, replaces, res) in results.items():
-        # each kernel's launches from the path that runs it: the training
+        # each kernel's launches from the path that runs it: the CLM training
         # path for the five it runs, its twoseg configuration for K6/K7a/K7b,
-        # the serve for the paged decode; its error, times and bound from the
-        # first case at that path's shapes
-        phase = "train" if name in TRAIN_KERNELS else "train_twoseg" if name in TWOSEG_KERNELS else "serve"
+        # the serve for the paged decode, the image classifier's train step
+        # for K8/K9a/K9b; its error, times and bound from the first case at
+        # that path's shapes
+        phase = ("train" if name in TRAIN_KERNELS else "train_twoseg" if name in TWOSEG_KERNELS
+                 else "image_train" if name in HEADS_KERNELS else "serve")
         main_case = next(c for c in res["cases"] if c["path"] == phase)
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces, launches=by_phase[phase][name],

@@ -2,7 +2,8 @@
 NVIDIA H100.
 
 The package keeps the JAX package's layout (``core/``, ``ops/``,
-``models/text/``, ``generation.py``, ``serving/``, ``training/``) with
+``models/text/``, ``models/vision/``, ``generation.py``, ``serving/``,
+``training/``) with
 PyTorch idiom inside:
 ``nn.Module``s and plain functions on tensors, an explicit ``device`` and
 explicit ``torch.Generator``s. Every TPU kernel on its path is a kernel written

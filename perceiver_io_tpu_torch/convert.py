@@ -44,6 +44,48 @@ def _mlp(tree, prefix, out) -> None:
     _linear(tree["dense_2"], f"{prefix}.3", out)
 
 
+def _cross_attention_layer(tree, prefix, out) -> None:
+    """A ``CrossAttentionLayer`` whose attention sits in a Residual (the
+    layer's default ``attention_residual=True``)."""
+    ca = tree["cross_attn"]
+    _layernorm(ca["q_norm"], f"{prefix}.0.module.q_norm", out)
+    _layernorm(ca["kv_norm"], f"{prefix}.0.module.kv_norm", out)
+    _attention(ca["attention"], f"{prefix}.0.module.attention", out)
+    _mlp(tree["mlp"], f"{prefix}.1.module", out)
+
+
+def _self_attention_block(tree, prefix, out) -> None:
+    for i in range(len(tree)):
+        layer = tree[f"layer_{i}"]
+        _layernorm(layer["self_attn"]["norm"], f"{prefix}.{i}.0.module.norm", out)
+        _attention(layer["self_attn"]["attention"], f"{prefix}.{i}.0.module.attention", out)
+        _mlp(layer["mlp"], f"{prefix}.{i}.1.module", out)
+
+
+def image_classifier_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``ImageClassifier`` params (numpy leaves) -> the port's
+    ``state_dict``, under the reference names (``0.latent_provider._query``,
+    ``0.cross_attn_1.0.module.*``, ``0.self_attn_1.{i}.*``, optional
+    ``0.cross_attn_n``/``0.self_attn_n``, ``1.cross_attn.*``,
+    ``1.output_query_provider._query``, ``1.output_adapter.linear.*``). The
+    image input adapter has no parameters. The decoder's cross-attention is
+    taken with its residual (``cross_attention_residual=True``, the
+    default)."""
+    p = params.get("params", params)
+    enc, dec = p["encoder"], p["decoder"]
+    out: Dict[str, torch.Tensor] = {"0.latent_provider._query": _t(enc["latent_provider"]["query"])}
+    for name in ("cross_attn_1", "cross_attn_n"):
+        if name in enc:
+            _cross_attention_layer(enc[name], f"0.{name}", out)
+    for name in ("self_attn_1", "self_attn_n"):
+        if name in enc:
+            _self_attention_block(enc[name], f"0.{name}", out)
+    _cross_attention_layer(dec["cross_attn"], "1.cross_attn", out)
+    out["1.output_query_provider._query"] = _t(dec["output_query_provider"]["query"])
+    _linear(dec["output_adapter"]["linear"], "1.output_adapter.linear", out)
+    return out
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ``CausalSequenceModel`` params (numpy leaves) -> the port's
     ``state_dict`` (f32 CPU tensors; ``load_state_dict`` moves them)."""
@@ -53,17 +95,8 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out["input_adapter.txt_embedding.weight"] = _t(adapter["txt_embedding"]["embedding"])
     if "pos_embedding" in adapter:
         out["input_adapter.pos_embedding.weight"] = _t(adapter["pos_embedding"]["embedding"])
-    ca = p["perceiver_ar"]["cross_attention"]
-    _layernorm(ca["cross_attn"]["q_norm"], "cross_attention.0.module.q_norm", out)
-    _layernorm(ca["cross_attn"]["kv_norm"], "cross_attention.0.module.kv_norm", out)
-    _attention(ca["cross_attn"]["attention"], "cross_attention.0.module.attention", out)
-    _mlp(ca["mlp"], "cross_attention.1.module", out)
-    sa = p["perceiver_ar"]["self_attention"]
-    for i in range(len(sa)):
-        layer = sa[f"layer_{i}"]
-        _layernorm(layer["self_attn"]["norm"], f"self_attention.{i}.0.module.norm", out)
-        _attention(layer["self_attn"]["attention"], f"self_attention.{i}.0.module.attention", out)
-        _mlp(layer["mlp"], f"self_attention.{i}.1.module", out)
+    _cross_attention_layer(p["perceiver_ar"]["cross_attention"], "cross_attention", out)
+    _self_attention_block(p["perceiver_ar"]["self_attention"], "self_attention", out)
     if "out_norm" in p:
         _layernorm(p["out_norm"], "out_norm", out)
     if "output_adapter" in p:

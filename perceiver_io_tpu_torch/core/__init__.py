@@ -1,2 +1,3 @@
-"""Perceiver AR building blocks in PyTorch: config, positions, adapters, KV
-caches, attention and the modules (counterparts of ``perceiver_io_tpu.core``)."""
+"""Perceiver AR and Perceiver IO building blocks in PyTorch: configs,
+positions, adapters, KV caches, attention and the modules (counterparts of
+``perceiver_io_tpu.core``)."""

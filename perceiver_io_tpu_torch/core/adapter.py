@@ -1,7 +1,9 @@
-"""Token input adapter with rotary support and the tied output adapter
-(counterpart of ``perceiver_io_tpu/core/adapter.py``). Parameter names follow
-the reference PyTorch implementation: ``txt_embedding.weight``,
-``pos_embedding.weight``, ``bias``."""
+"""Query providers and input/output adapters (counterpart of
+``perceiver_io_tpu/core/adapter.py``): the trainable query array, the token
+input adapter with rotary support, the tied output adapter and the
+classification head. Parameter names follow the reference PyTorch
+implementation: ``_query``, ``txt_embedding.weight``,
+``pos_embedding.weight``, ``bias``, ``linear.weight``."""
 
 from __future__ import annotations
 
@@ -11,6 +13,33 @@ import torch
 from torch import nn
 
 from perceiver_io_tpu_torch.core.position import frequency_position_encoding, positions
+
+
+class TrainableQueryProvider(nn.Module):
+    """Learnable cross-attention query array: the latent array of a Perceiver
+    IO encoder and the output query of a decoder. ``forward()`` returns it
+    as (1, N, C)."""
+
+    def __init__(self, num_queries: int, num_query_channels: int):
+        super().__init__()
+        self.num_query_channels = num_query_channels
+        self._query = nn.Parameter(torch.zeros(num_queries, num_query_channels))
+
+    def forward(self, x=None) -> torch.Tensor:
+        return self._query[None]
+
+
+class ClassificationOutputAdapter(nn.Module):
+    """Linear head over the decoder output; squeezes a single output
+    query: (B, 1, C) -> (B, num_classes)."""
+
+    def __init__(self, num_classes: int, num_output_query_channels: int):
+        super().__init__()
+        self.linear = nn.Linear(num_output_query_channels, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.linear(x)
+        return x[:, 0] if x.shape[1] == 1 else x
 
 
 class TokenInputAdapterWithRotarySupport(nn.Module):

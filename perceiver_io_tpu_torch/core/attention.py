@@ -3,20 +3,23 @@
 
 Routes, each numerically the JAX package's:
 
-- no cache: the packed flash kernel K2 (``ops.flash_attention``) over the
-  projection layout; the Perceiver AR cross-attention may instead take
-  :meth:`MultiHeadAttention.two_segment` (K6 and its backward K7a/K7b), which
-  projects the prefix and the latents separately and never joins them;
+- no cache: by head dims, never by device or length. Dims the packed
+  layout takes (multiples of 8 up to 128) go to the packed flash kernel K2
+  (``ops.flash_attention``) over the projection layout; other dims up to
+  512 (odd widths, wide heads) to the heads-major kernel K8, on heads split
+  to (B, H, N, D) with scaled, rotated queries; wider heads to the dense
+  path, as the JAX package's ``flash_supported`` sends them. The Perceiver
+  AR cross-attention may instead take :meth:`MultiHeadAttention.two_segment`
+  (K6 and its backward K7a/K7b), which projects the prefix and the latents
+  separately and never joins them;
 - contiguous cache that entered EMPTY with more than one query (the prompt
-  pass): keys rotate and land in the cache, and K2 computes the attention over
-  the fresh keys/values — eager PyTorch knows the cache length, so no
-  context flag is needed to tell a prefill from a decode;
-- on those two routes, head dims K2 cannot take (not a multiple of 8, or over
-  128) need the heads-major flash kernel, which is not ported: CUDA tensors
-  raise ``NotImplementedError``, CPU tensors take the dense path;
-- any other contiguous cache call (the sequential decode step): the dense
-  path over the cache slots, scores in f32, masked by the slot validity, the
-  pad mask and the right-aligned causal mask;
+  pass): keys rotate and land in the cache, and the same dispatch computes
+  the attention over the fresh keys/values — eager PyTorch knows the cache
+  length, so no context flag is needed to tell a prefill from a decode;
+- any other contiguous cache call (the sequential decode step), and the
+  two routes above for heads wider than 512: the dense path over the
+  slots, scores in f32, masked by the slot validity, the pad mask and the
+  right-aligned causal mask;
 - paged cache (the engine's batched one-token step): page-indexed append,
   then the paged decode kernel K3 (``ops.paged_attention``).
 
@@ -34,8 +37,10 @@ from torch import nn
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache
 from perceiver_io_tpu_torch.core.position import apply_rotary_pos_emb
 from perceiver_io_tpu_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_packed,
     flash_attention_packed_2seg,
+    flash_supported,
     packed_supported,
 )
 from perceiver_io_tpu_torch.ops.paged_attention import paged_decode_attention, paged_kernel_supported
@@ -87,20 +92,11 @@ class MultiHeadAttention(nn.Module):
     def d_v(self) -> int:
         return self.v_channels // self.num_heads
 
-    def packed_route_ok(self, q: torch.Tensor) -> bool:
+    def packed_route_ok(self) -> bool:
         """The gate shared by every packed-flash route (the cache-free and
         prefill routes below, and ``CrossAttention``'s two-segment dispatch):
-        whether the packed kernels take this layer's head dims. On a CUDA
-        tensor a refusal raises (the heads-major kernel is not ported); on a
-        CPU tensor the caller takes the dense path."""
-        if packed_supported(self.num_heads, self.d_qk, self.d_v):
-            return True
-        if q.is_cuda:
-            raise NotImplementedError(
-                f"head dims ({self.d_qk}, {self.d_v}) need the heads-major flash kernel, which is not "
-                "ported; the packed kernel takes multiples of 8 up to 128"
-            )
-        return False
+        whether the packed kernels take this layer's head dims."""
+        return packed_supported(self.num_heads, self.d_qk, self.d_v)
 
     def _rotate_keys(self, k: torch.Tensor, rope_k: Optional[torch.Tensor]) -> torch.Tensor:
         """Rotate packed keys (B, M, H*D) in place of layout: (B, M, H, D) is
@@ -146,12 +142,46 @@ class MultiHeadAttention(nn.Module):
         )
         return AttentionOutput(self.o_proj(o), None)
 
+    def _split_heads(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        b, n = x.shape[0], x.shape[1]
+        return x.reshape(b, n, self.num_heads, d).transpose(1, 2)
+
     def _scaled_query_heads(self, q, rope_q):
-        b, n = q.shape[0], q.shape[1]
-        qh = q.reshape(b, n, self.num_heads, self.d_qk).transpose(1, 2) * self.d_qk**-0.5
+        qh = self._split_heads(q, self.d_qk) * self.d_qk**-0.5
         if rope_q is not None:
             qh = apply_rotary_pos_emb(qh, rope_q[:, None, :, :])
         return qh  # (B, H, N, Dk)
+
+    def project_q(self, x_q: torch.Tensor, rope_q: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Queries as scaled (and rotated) heads (B, H, N, Dk): the query
+        pipeline of ``forward``, for callers that attend themselves."""
+        return self._scaled_query_heads(self.q_proj(x_q), rope_q)
+
+    def project_kv(self, x_kv: torch.Tensor, rope_k: Optional[torch.Tensor] = None):
+        """Keys (rotated) and values as heads, ((B, H, M, Dk), (B, H, M, Dv)):
+        the cache-free key/value pipeline of ``forward``."""
+        k = self._split_heads(self.k_proj(x_kv), self.d_qk)
+        if rope_k is not None:
+            k = apply_rotary_pos_emb(k, rope_k[:, None, :, :])
+        return k, self._split_heads(self.v_proj(x_kv), self.d_v)
+
+    def merge_output(self, o: torch.Tensor) -> torch.Tensor:
+        """Head merge + output projection: (B, H, N, Dv) -> (B, N, out)."""
+        b, _, n, _ = o.shape
+        return self.o_proj(o.transpose(1, 2).reshape(b, n, self.v_channels))
+
+    def _fresh_flash(self, q, k, v, rope_q, pad_mask) -> Optional[torch.Tensor]:
+        """Attention over fresh packed keys/values (B, M, H*D), keys rotated,
+        by head dims: K2 where the packed kernels take them, else the
+        heads-major K8 up to 512; None for wider heads (the dense path)."""
+        if self.packed_route_ok():
+            return self._packed_flash(q, k, v, rope_q, pad_mask)
+        if not flash_supported(self.d_qk, self.d_v):
+            return None
+        o = flash_attention(self._scaled_query_heads(q, rope_q), self._split_heads(k, self.d_qk),
+                            self._split_heads(v, self.d_v), pad_mask=pad_mask, causal=self.causal_attention,
+                            sm_scale=1.0)
+        return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], self.v_channels)
 
     def _dense(self, q, k, v, rope_q, masked):
         """Plain attention over packed k/v (B, M, H*D); ``masked`` (B|1, N|1,
@@ -200,15 +230,15 @@ class MultiHeadAttention(nn.Module):
         v = self.v_proj(x_kv)
 
         if kv_cache is None:
-            if self.packed_route_ok(q):
-                o = self._packed_flash(q, k, v, rope_q, pad_mask)
-                return AttentionOutput(self.o_proj(o), None)
-            masked = torch.zeros((1, 1, n_kv), dtype=torch.bool, device=q.device)
-            if pad_mask is not None:
-                masked = masked | pad_mask[:, None, :]
-            if self.causal_attention:
-                masked = masked | self._causal(n_q, n_kv, n_kv, q.device)
-            return AttentionOutput(self.o_proj(self._dense(q, k, v, rope_q, masked)), None)
+            o = self._fresh_flash(q, k, v, rope_q, pad_mask)
+            if o is None:
+                masked = torch.zeros((1, 1, n_kv), dtype=torch.bool, device=q.device)
+                if pad_mask is not None:
+                    masked = masked | pad_mask[:, None, :]
+                if self.causal_attention:
+                    masked = masked | self._causal(n_q, n_kv, n_kv, q.device)
+                o = self._dense(q, k, v, rope_q, masked)
+            return AttentionOutput(self.o_proj(o), None)
 
         if isinstance(kv_cache, PagedKVCache):
             if n_q != 1:
@@ -218,12 +248,13 @@ class MultiHeadAttention(nn.Module):
 
         entered_empty = kv_cache.length == 0
         new_cache = kv_cache.append(k, v)
-        if entered_empty and n_q > 1 and self.packed_route_ok(q):
+        if entered_empty and n_q > 1:
             # prefill: attention over [0, length) IS attention over the fresh
             # keys/values, which occupy slots [0, n_kv)
             fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]
-            o = self._packed_flash(q, k, v, rope_q, fresh_pad)
-            return AttentionOutput(self.o_proj(o), new_cache)
+            o = self._fresh_flash(q, k, v, rope_q, fresh_pad)
+            if o is not None:
+                return AttentionOutput(self.o_proj(o), new_cache)
 
         eff_len, cap = new_cache.length, new_cache.capacity
         kv_idx = torch.arange(cap, device=q.device)

@@ -1,23 +1,25 @@
-"""Perceiver AR and the causal sequence model in PyTorch (counterpart of
+"""Perceiver IO and Perceiver AR in PyTorch (counterpart of
 ``perceiver_io_tpu/core/modules.py``: ``CrossAttention``, ``SelfAttention``,
-``MLP``, the attention layers, ``SelfAttentionBlock``, ``PerceiverAR`` and
+``MLP``, the attention layers, ``SelfAttentionBlock``, ``PerceiverEncoder``,
+``PerceiverDecoder``, ``PerceiverIO``, ``PerceiverAR`` and
 ``CausalSequenceModel``).
 
 The module tree reproduces the reference PyTorch implementation's parameter
 names (``cross_attention.0.module.q_norm.weight``,
-``self_attention.{i}.1.module.3.weight``, ``output_adapter.bias``, ...), so
-``convert.state_dict_from_jax`` is a renaming of the JAX tree and a reference
+``self_attention.{i}.1.module.3.weight``, ``output_adapter.bias``,
+``0.cross_attn_1.0.module.attention.k_proj.weight``, ...), so the weight
+bridges of ``convert`` are renamings of the JAX trees and a reference
 checkpoint's ``state_dict`` loads as it is.
 
 The cache-free forward is differentiable and takes the training arguments
 (``deterministic``, ``prefix_keep_idx``): cross-attention prefix dropout in
 the default ``"gather"`` mode, on the compact route for an unpadded batch and
 the embedded-row gather for a left-padded one. The other training-time
-options (``prefix_dropout_mode`` ``"mask"``/``"gather_embed"``, post-attention
-and residual dropout, activation checkpointing or offloading) are not ported:
-a training forward that asks for one raises ``NotImplementedError``. Calls
-with a KV cache (prefill and decode) are inference only and run under
-``torch.no_grad()``.
+options (``prefix_dropout_mode`` ``"mask"``/``"gather_embed"``, attention,
+post-attention and residual dropout, activation checkpointing or offloading)
+are not ported: a training forward that asks for one raises
+``NotImplementedError``. Calls with a KV cache (prefill and decode) are
+inference only and run under ``torch.no_grad()``.
 
 Under ``fast_kernels({"twoseg"})`` (``ops.flash_attention``; off by default,
 as in the JAX package) every cache-free causal cross-attention with a
@@ -26,6 +28,13 @@ alike: the kept prefix and the latents go to the kernels as separate K/V
 operands, and neither ``[kv_norm(prefix); q_norm(latents)]`` nor its
 projections, rotary rows or pad flags are ever joined. Calls with a KV cache,
 and an empty prefix, keep the concat route.
+
+The Perceiver IO encoder's cross-attention takes the fused split-kv route
+whenever its gate allows (an input adapter that splits, no pad mask, one
+head, no dropout or checkpointing, head dims the heads-major kernels take):
+the constant position features fold through the kv LayerNorm into the K/V
+projections (:meth:`CrossAttention.split_kv_projection`), so the
+concatenated (B, M, C) input and its LayerNorm output are never built.
 """
 
 from __future__ import annotations
@@ -33,18 +42,33 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from perceiver_io_tpu_torch.core.adapter import TiedTokenOutputAdapter, TokenInputAdapterWithRotarySupport
+from perceiver_io_tpu_torch.core.adapter import (
+    TiedTokenOutputAdapter,
+    TokenInputAdapterWithRotarySupport,
+    TrainableQueryProvider,
+)
 from perceiver_io_tpu_torch.core.attention import AttentionOutput, MultiHeadAttention
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache, init_kv_cache, init_paged_kv_cache
 from perceiver_io_tpu_torch.core.config import CausalSequenceModelConfig
 from perceiver_io_tpu_torch.core.position import positions
 from perceiver_io_tpu_torch.device import DeviceLike, resolve_device
-from perceiver_io_tpu_torch.ops.flash_attention import fast_features
+from perceiver_io_tpu_torch.ops.flash_attention import fast_features, flash_attention, flash_supported
 from perceiver_io_tpu_torch.ops.layernorm import FusedLayerNorm
 
 LAYER_NORM_EPSILON = 1e-5
+
+# channel-pad rounding of the fused split-kv input route: the encoder's gate
+# must predict exactly the padded head dims split_kv_projection emits and
+# call_with_split_kv hands to flash_attention
+SPLIT_KV_PAD = 8
+
+
+def split_padded(n: int) -> int:
+    """Channel width after the split-kv route's zero-padding."""
+    return n + (-n) % SPLIT_KV_PAD
 
 
 class CausalModelOutput(NamedTuple):
@@ -84,29 +108,67 @@ class CrossAttention(nn.Module):
     tensor or as a (prefix, latent) pair."""
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
-                 causal_attention: bool = False, qkv_bias: bool = True, out_bias: bool = True):
+                 causal_attention: bool = False, qkv_bias: bool = True, out_bias: bool = True,
+                 num_qk_channels: Optional[int] = None, num_v_channels: Optional[int] = None):
         super().__init__()
         self.q_norm = FusedLayerNorm(num_q_input_channels, LAYER_NORM_EPSILON)
         self.kv_norm = FusedLayerNorm(num_kv_input_channels, LAYER_NORM_EPSILON)
         self.attention = MultiHeadAttention(
-            num_heads, num_q_input_channels, num_kv_input_channels,
+            num_heads, num_q_input_channels, num_kv_input_channels, num_qk_channels, num_v_channels,
             causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias,
         )
 
-    def _two_segment_ok(self, x_q, x_kv_prefix, kv_cache) -> bool:
+    def split_kv_projection(self, x_pix: torch.Tensor, enc: torch.Tensor):
+        """K/V of ``kv_norm([x_pix | enc])`` without building the joined
+        input or its LayerNorm output.
+
+        ``x_pix`` (B, M, P) is the per-example part (pixels), ``enc`` (M, F)
+        a per-position constant (the Fourier features). With the LayerNorm
+        row ``z = gamma * (x - mu) * r + beta`` and a projection ``W, b``:
+        ``z @ W + b = r * (x @ Wg) - (mu * r) * colsum(Wg) + (beta @ W + b)``
+        with ``Wg = diag(gamma) @ W``, and ``x @ Wg = pix @ Wg[:P] + enc @
+        Wg[P:]``, the second term shared by the batch; the row statistics come
+        from pixel sums plus constants of ``enc``. Outputs are zero-padded to
+        a multiple of ``SPLIT_KV_PAD`` channels through the weights.
+
+        Returns ``(k, v, k_pad, v_pad)``, k/v (B, M, channels + pad)."""
+        mha = self.attention
+        n_pix, c = x_pix.shape[-1], self.kv_norm.weight.shape[0]
+        gamma, beta = self.kv_norm.weight.float(), self.kv_norm.bias.float()
+        enc32, pix32 = enc.float(), x_pix.float()
+        s1 = pix32.sum(-1) + enc32.sum(-1)[None]  # (B, M)
+        s2 = (pix32 * pix32).sum(-1) + (enc32 * enc32).sum(-1)[None]
+        mean = s1 / c
+        r = torch.rsqrt(torch.clamp(s2 / c - mean * mean, min=0.0) + self.kv_norm.eps)
+        r_col, mr_col = r[..., None], (mean * r)[..., None]
+
+        def project(linear: nn.Linear, out_ch: int):
+            w = linear.weight.float().t()  # (C, out)
+            b = linear.bias.float() if linear.bias is not None else torch.zeros(out_ch, device=w.device)
+            pad = split_padded(out_ch) - out_ch
+            wg = w * gamma[:, None]
+            if pad:
+                wg, w, b = F.pad(wg, (0, pad)), F.pad(w, (0, pad)), F.pad(b, (0, pad))
+            xw = pix32 @ wg[:n_pix] + (enc32 @ wg[n_pix:])[None]
+            return xw * r_col - mr_col * wg.sum(0) + (beta @ w + b), pad
+
+        k, k_pad = project(mha.k_proj, mha.qk_channels)
+        v, v_pad = project(mha.v_proj, mha.v_channels)
+        return k, v, k_pad, v_pad
+
+    def _two_segment_ok(self, x_kv_prefix, kv_cache) -> bool:
         """The gate of the two-segment route (JAX's
         ``CrossAttention._two_segment_ok``): "twoseg" is on, no KV cache, a
         causal layer, a non-empty prefix, and head dims the packed kernels
-        take (on a CUDA tensor, dims they cannot take raise). When False the
-        concat route runs unchanged."""
+        take. When False the concat route runs unchanged."""
         return ("twoseg" in fast_features() and kv_cache is None and self.attention.causal_attention
-                and x_kv_prefix.shape[1] >= 1 and self.attention.packed_route_ok(x_q))
+                and x_kv_prefix.shape[1] >= 1 and self.attention.packed_route_ok())
 
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None, rope_q=None, rope_k=None,
                 kv_cache=None) -> AttentionOutput:
         x_q = self.q_norm(x_q)
         if x_kv is None:
-            if self._two_segment_ok(x_q, x_kv_prefix, kv_cache):
+            if self._two_segment_ok(x_kv_prefix, kv_cache):
                 n_p = x_kv_prefix.shape[1]
                 pad_p, pad_l = _split_rows(pad_mask, n_p)
                 rope_p, rope_l = _split_rows(rope_k, n_p)
@@ -124,11 +186,12 @@ class SelfAttention(nn.Module):
     """Pre-layer-norm self-attention."""
 
     def __init__(self, num_heads: int, num_channels: int, causal_attention: bool = False,
-                 qkv_bias: bool = True, out_bias: bool = True):
+                 qkv_bias: bool = True, out_bias: bool = True, num_qk_channels: Optional[int] = None,
+                 num_v_channels: Optional[int] = None):
         super().__init__()
         self.norm = FusedLayerNorm(num_channels, LAYER_NORM_EPSILON)
         self.attention = MultiHeadAttention(
-            num_heads, num_channels, num_channels,
+            num_heads, num_channels, num_channels, num_qk_channels, num_v_channels,
             causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias,
         )
 
@@ -150,23 +213,52 @@ class MLP(nn.Sequential):
 
 
 class CrossAttentionLayer(nn.Sequential):
-    """Cross-attention + MLP, each with a residual."""
+    """Cross-attention + MLP, each with a residual; without
+    ``attention_residual`` the attention output replaces the query input
+    (the reference then holds the attention unwrapped, as ``0`` not
+    ``0.module``)."""
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  causal_attention: bool = False, widening_factor: int = 1, qkv_bias: bool = True,
-                 out_bias: bool = True, mlp_bias: bool = True):
+                 out_bias: bool = True, mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
+                 num_v_channels: Optional[int] = None, attention_residual: bool = True):
+        cross_attn = CrossAttention(num_heads, num_q_input_channels, num_kv_input_channels, causal_attention,
+                                    qkv_bias, out_bias, num_qk_channels, num_v_channels)
         super().__init__(
-            Residual(CrossAttention(num_heads, num_q_input_channels, num_kv_input_channels,
-                                    causal_attention, qkv_bias, out_bias)),
+            Residual(cross_attn) if attention_residual else cross_attn,
             Residual(MLP(num_q_input_channels, widening_factor, mlp_bias)),
         )
+        self.attention_residual = attention_residual
+
+    @property
+    def cross_attn(self) -> CrossAttention:
+        return self[0].module if self.attention_residual else self[0]
+
+    def _residuals(self, x_q, h_attn) -> torch.Tensor:
+        h = x_q + h_attn if self.attention_residual else h_attn
+        return h + self[1].module(h)
 
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None, rope_q=None, rope_k=None,
                 kv_cache=None) -> AttentionOutput:
-        attn = self[0].module(x_q, x_kv, x_kv_prefix, pad_mask, rope_q, rope_k, kv_cache)
-        h = x_q + attn.last_hidden_state
-        h = h + self[1].module(h)
-        return AttentionOutput(h, attn.kv_cache)
+        attn = self.cross_attn(x_q, x_kv, x_kv_prefix, pad_mask, rope_q, rope_k, kv_cache)
+        return AttentionOutput(self._residuals(x_q, attn.last_hidden_state), attn.kv_cache)
+
+    def call_with_split_kv(self, x_q, x_pix, enc) -> AttentionOutput:
+        """The whole layer with k/v from
+        :meth:`CrossAttention.split_kv_projection` and one head through the
+        heads-major kernel (the encoder's fused input route: no pad mask, one
+        head; ``PerceiverEncoder`` gates it). Numerically ``forward`` on
+        ``[x_pix | enc]``."""
+        ca = self.cross_attn
+        mha = ca.attention
+        k, v, k_pad, v_pad = ca.split_kv_projection(x_pix, enc)
+        q = mha.project_q(ca.q_norm(x_q))  # (B, 1, N, Dk), scaled
+        if k_pad:
+            q = F.pad(q, (0, k_pad))
+        o = flash_attention(q, k[:, None], v[:, None])
+        if v_pad:
+            o = o[..., : mha.v_channels]
+        return AttentionOutput(self._residuals(x_q, mha.merge_output(o)), None)
 
 
 class SelfAttentionLayer(nn.Sequential):
@@ -174,9 +266,11 @@ class SelfAttentionLayer(nn.Sequential):
 
     def __init__(self, num_heads: int, num_channels: int, causal_attention: bool = False,
                  widening_factor: int = 1, qkv_bias: bool = True, out_bias: bool = True,
-                 mlp_bias: bool = True):
+                 mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
+                 num_v_channels: Optional[int] = None):
         super().__init__(
-            Residual(SelfAttention(num_heads, num_channels, causal_attention, qkv_bias, out_bias)),
+            Residual(SelfAttention(num_heads, num_channels, causal_attention, qkv_bias, out_bias, num_qk_channels,
+                                   num_v_channels)),
             Residual(MLP(num_channels, widening_factor, mlp_bias)),
         )
 
@@ -193,10 +287,11 @@ class SelfAttentionBlock(nn.Sequential):
 
     def __init__(self, num_layers: int, num_heads: int, num_channels: int, num_rotary_layers: int = 1,
                  causal_attention: bool = False, widening_factor: int = 1, qkv_bias: bool = True,
-                 out_bias: bool = True, mlp_bias: bool = True):
+                 out_bias: bool = True, mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
+                 num_v_channels: Optional[int] = None):
         super().__init__(*[
             SelfAttentionLayer(num_heads, num_channels, causal_attention, widening_factor,
-                               qkv_bias, out_bias, mlp_bias)
+                               qkv_bias, out_bias, mlp_bias, num_qk_channels, num_v_channels)
             for _ in range(num_layers)
         ])
         self.num_rotary_layers = num_rotary_layers
@@ -212,6 +307,170 @@ class SelfAttentionBlock(nn.Sequential):
             if new_caches is not None:
                 new_caches.append(out.kv_cache)
         return x, None if new_caches is None else tuple(new_caches)
+
+
+def _refuse_unported(options: dict) -> None:
+    """Raise for the training options a training forward cannot run yet."""
+    asked = [name for name, on in options.items() if on]
+    if asked:
+        raise NotImplementedError(f"not ported for training forwards: {', '.join(asked)}")
+
+
+class PerceiverEncoder(nn.Module):
+    """Perceiver IO encoder: a learned latent array cross-attends to the
+    adapted input, then self-attention blocks; repeated cross-attention with
+    weight sharing: ``cross_attn_n``/``self_attn_n`` exist only when the
+    repeats do not share the first layer's (block's) weights, else the
+    first one is applied again.
+
+    ``forward(x, pad_mask=None, deterministic=True)``; a training forward
+    (``deterministic=False``) refuses dropout and activation checkpointing
+    or offloading, which are not ported."""
+
+    def __init__(self, input_adapter: nn.Module, num_latents: int, num_latent_channels: int,
+                 num_cross_attention_heads: int = 4, num_cross_attention_qk_channels: Optional[int] = None,
+                 num_cross_attention_v_channels: Optional[int] = None, num_cross_attention_layers: int = 1,
+                 first_cross_attention_layer_shared: bool = False, cross_attention_widening_factor: int = 1,
+                 num_self_attention_heads: int = 4, num_self_attention_qk_channels: Optional[int] = None,
+                 num_self_attention_v_channels: Optional[int] = None, num_self_attention_layers_per_block: int = 6,
+                 num_self_attention_blocks: int = 1, first_self_attention_block_shared: bool = True,
+                 self_attention_widening_factor: int = 1, dropout: float = 0.0, residual_dropout: float = 0.0,
+                 init_scale: float = 0.02, activation_checkpointing: bool = False,
+                 activation_offloading: bool = False):
+        super().__init__()
+        if num_cross_attention_layers <= 0:
+            raise ValueError("num_cross_attention_layers must be > 0")
+        if num_self_attention_blocks <= 0:
+            raise ValueError("num_self_attention_blocks must be > 0")
+        if num_cross_attention_layers > num_self_attention_blocks:
+            raise ValueError("num_cross_attention_layers must be <= num_self_attention_blocks")
+        self.num_cross_attention_heads = num_cross_attention_heads
+        self.num_cross_attention_layers = num_cross_attention_layers
+        self.num_self_attention_blocks = num_self_attention_blocks
+        self.dropout = dropout
+        self.init_scale = init_scale
+        self._unported = {
+            "dropout": dropout > 0.0,
+            "residual_dropout": residual_dropout > 0.0,
+            "activation_checkpointing": activation_checkpointing,
+            "activation_offloading": activation_offloading,
+        }
+        self.input_adapter = input_adapter
+        self.latent_provider = TrainableQueryProvider(num_latents, num_latent_channels)
+
+        def cross_attn():
+            return CrossAttentionLayer(
+                num_cross_attention_heads, num_latent_channels, input_adapter.num_input_channels,
+                widening_factor=cross_attention_widening_factor, num_qk_channels=num_cross_attention_qk_channels,
+                num_v_channels=num_cross_attention_v_channels,
+            )
+
+        def self_attn():
+            return SelfAttentionBlock(
+                num_self_attention_layers_per_block, num_self_attention_heads, num_latent_channels,
+                num_rotary_layers=0, widening_factor=self_attention_widening_factor,
+                num_qk_channels=num_self_attention_qk_channels, num_v_channels=num_self_attention_v_channels,
+            )
+
+        self.cross_attn_1 = cross_attn()
+        self.self_attn_1 = self_attn()
+        if num_cross_attention_layers > 1 and not first_cross_attention_layer_shared:
+            self.cross_attn_n = cross_attn()
+        if num_self_attention_blocks > 1 and not first_self_attention_block_shared:
+            self.self_attn_n = self_attn()
+
+    def _use_split_input(self, pad_mask, deterministic) -> bool:
+        """The fused split-kv route's gate (JAX's ``_use_split_input``): an
+        adapter that splits, no pad mask, one cross-attention head, no active
+        dropout, no checkpointing or offloading. The head dims are checked
+        where the input is known."""
+        if not getattr(self.input_adapter, "supports_split", False):
+            return False
+        if pad_mask is not None or self.num_cross_attention_heads != 1:
+            return False
+        if self.dropout > 0.0 and not deterministic:
+            return False
+        return not (self._unported["activation_checkpointing"] or self._unported["activation_offloading"])
+
+    def forward(self, x, pad_mask=None, deterministic: bool = True) -> torch.Tensor:
+        if not deterministic:
+            _refuse_unported(self._unported)
+        b = x.shape[0]
+        x_latent = self.latent_provider().expand(b, -1, -1)
+        use_split = self._use_split_input(pad_mask, deterministic)
+        if use_split:
+            x_pix, enc = self.input_adapter.split(x)
+            mha = self.cross_attn_1.cross_attn.attention
+            use_split = flash_supported(split_padded(mha.qk_channels), split_padded(mha.v_channels))
+        if use_split:
+            def call_ca(layer, x_latent):
+                return layer.call_with_split_kv(x_latent, x_pix, enc).last_hidden_state
+        else:
+            x_adapted = self.input_adapter(x)
+
+            def call_ca(layer, x_latent):
+                return layer(x_latent, x_adapted, pad_mask=pad_mask).last_hidden_state
+
+        x_latent = call_ca(self.cross_attn_1, x_latent)
+        x_latent = self.self_attn_1(x_latent)[0]
+        cross_attn_n = getattr(self, "cross_attn_n", self.cross_attn_1)
+        self_attn_n = getattr(self, "self_attn_n", self.self_attn_1)
+        for i in range(1, self.num_self_attention_blocks):
+            if i < self.num_cross_attention_layers:
+                x_latent = call_ca(cross_attn_n, x_latent)
+            x_latent = self_attn_n(x_latent)[0]
+        return x_latent
+
+
+class PerceiverDecoder(nn.Module):
+    """Perceiver IO decoder: output queries cross-attend to the latents, and
+    the output adapter maps the result to the task output."""
+
+    def __init__(self, output_adapter: nn.Module, output_query_provider: TrainableQueryProvider,
+                 num_latent_channels: int, num_cross_attention_heads: int = 4,
+                 num_cross_attention_qk_channels: Optional[int] = None,
+                 num_cross_attention_v_channels: Optional[int] = None, cross_attention_widening_factor: int = 1,
+                 cross_attention_residual: bool = True, dropout: float = 0.0, init_scale: float = 0.02,
+                 activation_checkpointing: bool = False, activation_offloading: bool = False):
+        super().__init__()
+        self.init_scale = init_scale
+        self._unported = {
+            "dropout": dropout > 0.0,
+            "activation_checkpointing": activation_checkpointing,
+            "activation_offloading": activation_offloading,
+        }
+        self.output_query_provider = output_query_provider
+        self.output_adapter = output_adapter
+        self.cross_attn = CrossAttentionLayer(
+            num_cross_attention_heads, output_query_provider.num_query_channels, num_latent_channels,
+            widening_factor=cross_attention_widening_factor, num_qk_channels=num_cross_attention_qk_channels,
+            num_v_channels=num_cross_attention_v_channels, attention_residual=cross_attention_residual,
+        )
+
+    def forward(self, x_latent, deterministic: bool = True) -> torch.Tensor:
+        if not deterministic:
+            _refuse_unported(self._unported)
+        query = self.output_query_provider().expand(x_latent.shape[0], -1, -1)
+        return self.output_adapter(self.cross_attn(query, x_latent).last_hidden_state)
+
+
+class PerceiverIO(nn.Sequential):
+    """Encoder + decoder (the reference's ``nn.Sequential``: parameters
+    under ``0.`` and ``1.``)."""
+
+    def __init__(self, encoder: PerceiverEncoder, decoder: PerceiverDecoder):
+        super().__init__(encoder, decoder)
+
+    @property
+    def encoder(self) -> PerceiverEncoder:
+        return self[0]
+
+    @property
+    def decoder(self) -> PerceiverDecoder:
+        return self[1]
+
+    def forward(self, x, pad_mask=None, deterministic: bool = True) -> torch.Tensor:
+        return self.decoder(self.encoder(x, pad_mask=pad_mask, deterministic=deterministic), deterministic)
 
 
 class PerceiverAR(nn.Module):
@@ -279,11 +538,8 @@ class PerceiverAR(nn.Module):
             raise ValueError(f"prefix_len ({prefix_len}) out of valid range [0..{n})")
         dropout_active = not deterministic and prefix_len > 0 and self.cross_attention_dropout > 0.0
         if not deterministic:
-            asked = [name for name, on in self._unported.items() if on]
-            if dropout_active and self.prefix_dropout_mode != "gather":
-                asked.append(f"prefix_dropout_mode={self.prefix_dropout_mode!r}")
-            if asked:
-                raise NotImplementedError(f"not ported for training forwards: {', '.join(asked)}")
+            _refuse_unported({**self._unported, f"prefix_dropout_mode={self.prefix_dropout_mode!r}":
+                              dropout_active and self.prefix_dropout_mode != "gather"})
         keep_idx = None
         if dropout_active:
             keep = prefix_len - int(prefix_len * self.cross_attention_dropout)

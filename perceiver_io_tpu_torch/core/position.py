@@ -1,5 +1,5 @@
-"""Absolute positions and rotary (RoPE) encodings (counterpart of
-``perceiver_io_tpu/core/position.py``).
+"""Absolute positions, rotary (RoPE) encodings and the Fourier position
+encodings of image grids (counterpart of ``perceiver_io_tpu/core/position.py``).
 
 The rotation pairs ADJACENT channels — ``rotate_half`` maps
 ``[x1, x2, x3, x4, ...]`` to ``[-x2, x1, -x4, x3, ...]`` and each frequency is
@@ -9,8 +9,11 @@ a head rotate (``R`` = the encoding's width); the rest pass through.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import functools
+import math
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -64,3 +67,40 @@ def apply_rotary_pos_emb(t: torch.Tensor, pos_enc: torch.Tensor) -> torch.Tensor
     if t_pass.shape[-1] == 0:
         return rotated
     return torch.cat([rotated, t_pass], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def fourier_position_encodings(input_shape: Sequence[int], num_frequency_bands: int,
+                               include_positions: bool = True) -> np.ndarray:
+    """Fourier features over an N-dimensional grid in [-1, 1]: a
+    (prod(input_shape), C) float32 array, C = len(input_shape) * (2 *
+    num_frequency_bands + include_positions), channels ordered [raw
+    positions, sin per dim, cos per dim]. Computed in numpy, memoized per
+    grid (the port's own copy of the JAX package's function)."""
+    input_shape = tuple(input_shape)
+    coords = [np.linspace(-1.0, 1.0, num=s, dtype=np.float32) for s in input_shape]
+    pos = np.stack(np.meshgrid(*coords, indexing="ij"), axis=-1)  # (*shape, ndim)
+    grids = [pos[..., i:i + 1] * np.linspace(1.0, size / 2.0, num=num_frequency_bands, dtype=np.float32)
+             for i, size in enumerate(input_shape)]
+    encodings = [pos] if include_positions else []
+    encodings.extend(np.sin(math.pi * g) for g in grids)
+    encodings.extend(np.cos(math.pi * g) for g in grids)
+    enc = np.concatenate(encodings, axis=-1)
+    return enc.reshape(-1, enc.shape[-1])
+
+
+class FourierPositionEncoding:
+    """Stateless provider of flattened Fourier position encodings for a
+    grid."""
+
+    def __init__(self, input_shape: Sequence[int], num_frequency_bands: int):
+        self.input_shape = tuple(input_shape)
+        self.num_frequency_bands = num_frequency_bands
+
+    def num_position_encoding_channels(self, include_positions: bool = True) -> int:
+        return len(self.input_shape) * (2 * self.num_frequency_bands + include_positions)
+
+    def __call__(self, batch_size: int, device=None) -> torch.Tensor:
+        """(batch_size, prod(input_shape), C) f32, a broadcast view."""
+        enc = torch.from_numpy(fourier_position_encodings(self.input_shape, self.num_frequency_bands))
+        return enc.to(device)[None].expand(batch_size, *enc.shape)

@@ -7,7 +7,8 @@ launchers that take raw device pointers and the CUDA stream) and loaded with
 libraries land in ``ops/_build/`` (ignored by git) under a name that carries a
 hash of the sources and flags, so an edited source is rebuilt, never reused
 stale. :func:`build_all` starts one ``nvcc`` per source at once and waits for
-all of them.
+all of them; ``-Xptxas=-v`` makes each build report its kernels' registers,
+shared memory and spills, which it keeps in ``BUILD_LOGS``.
 
 Nothing here runs at import: the CPU tests import every module, on machines
 that have neither ``nvcc`` nor a card. A failed build raises with the
@@ -43,6 +44,9 @@ LAUNCHERS = {
     "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _P]),
     "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _P]),
+    "flash_heads_fwd": ("flash_heads", "pio_flash_heads_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
+    "flash_heads_bwd_dkv": ("flash_heads_bwd", "pio_flash_heads_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
+    "flash_heads_bwd_dq": ("flash_heads_bwd", "pio_flash_heads_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
 }
 CUDA_SOURCES = tuple(dict.fromkeys(source for source, _, _ in LAUNCHERS.values()))
 NVCC_FLAGS = (
@@ -52,6 +56,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas=-v",
 )
 
 # kernel name -> launches since the last reset_launches()
@@ -59,7 +64,11 @@ LAUNCHES: Dict[str, int] = {
     "flash_packed_fwd": 0, "paged_decode": 0, "layer_norm_fwd": 0,
     "flash_packed_bwd_dkv": 0, "flash_packed_bwd_dq": 0, "layer_norm_bwd": 0,
     "flash_2seg_fwd": 0, "flash_2seg_bwd_dkv": 0, "flash_2seg_bwd_dq": 0,
+    "flash_heads_fwd": 0, "flash_heads_bwd_dkv": 0, "flash_heads_bwd_dq": 0,
 }
+
+# source name -> the compiler's output of its last build in this process
+BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: Dict[str, object] = {}
@@ -122,6 +131,7 @@ def build_all(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
     failures = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
+        BUILD_LOGS[name] = out
         if proc.returncode != 0:
             failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
             if os.path.exists(tmp):

@@ -1,13 +1,15 @@
 """Packed flash attention: the forward (K2), the backward (K4a dK/dV, K4b dQ)
 and their plain PyTorch versions, joined by a ``torch.autograd.Function``;
 its two-segment form (K6 forward, K7a dK/dV, K7b dQ) for the Perceiver AR
-cross-attention over ``[prefix; latents]``; and the kernel feature switch
-(:func:`fast_kernels`).
+cross-attention over ``[prefix; latents]``; the heads-major form (K8
+forward, K9a dK/dV, K9b dQ) over ``(B, H, N, D)`` operands with head dims
+up to 512; and the kernel feature switch (:func:`fast_kernels`).
 
 Counterpart of ``perceiver_io_tpu/ops/flash_attention.py::flash_attention_packed``
 and its custom VJP (``_flash_packed_fwd`` / ``_flash_packed_bwd``), of
-``flash_attention_packed_2seg`` and of ``fast_kernels``. Operands stay in the
-projection layout ``(B, N, H*D)``: a head is a strided column slice.
+``flash_attention_packed_2seg``, of ``flash_attention`` and its custom VJP
+(``_flash``), and of ``fast_kernels``. The packed forms keep the projection
+layout ``(B, N, H*D)``: a head is a strided column slice.
 
 Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
 ``csrc/flash_packed_bwd.cu`` and the plain versions here):
@@ -30,8 +32,8 @@ Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
 
 Dispatch is by device: a CUDA tensor launches the kernels (or raises), a CPU
 tensor takes the plain versions. There is no fallback on failure. Every call
-goes through :class:`_FlashPacked` (or :class:`_FlashPacked2Seg`), whose
-backward dispatches the same way (under ``no_grad`` it records no graph and
+goes through :class:`_FlashPacked` (or :class:`_FlashPacked2Seg`,
+:class:`_FlashHeads`), whose backward dispatches the same way (under ``no_grad`` it records no graph and
 launches the same forward).
 
 The two-segment form computes exactly ``flash_attention_packed(q,
@@ -39,6 +41,10 @@ The two-segment form computes exactly ``flash_attention_packed(q,
 joining anything: query ``i`` sees the whole prefix and latent slots
 ``t <= i`` (causal offset 0 in latent-local coordinates), and the kernels read
 each segment where it lies. Its kernels take f32 operands only.
+
+The heads-major form has the same semantics per (batch, head) row; the
+wrapper zero-pads odd head dims to a multiple of 8 and slices the extra
+output channels off. Its kernels take f32 operands only.
 """
 
 from __future__ import annotations
@@ -542,3 +548,216 @@ def flash_attention_packed_2seg(
     bias_p, bias_l = _2seg_biases(q, k_prefix, pad_mask_prefix, pad_mask_latent)
     o, lse = _FlashPacked2Seg.apply(q, k_prefix, v_prefix, k_latent, v_latent, num_heads, bias_p, bias_l, sm_scale)
     return (o, lse) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# heads-major: (B, H, N, D) operands, head dims up to 512
+# ---------------------------------------------------------------------------
+
+def flash_supported(d_qk: int, d_v: int) -> bool:
+    """Head dims the heads-major kernels take (odd widths are zero-padded to
+    a multiple of 8 by :func:`flash_attention`): up to 512. Wider heads take
+    the dense path, as the JAX package's ``flash_supported`` sends them; its
+    sequence-length floor (128) is not kept: the kernels take any length."""
+    return 1 <= d_qk <= 512 and 1 <= d_v <= 512
+
+
+def _heads_bias(bias, num_heads):
+    """The plain versions' (B*H, Nkv) bias rows."""
+    return None if bias is None else bias.repeat_interleave(num_heads, dim=0)
+
+
+def _heads_fwd_plain(q, k, v, num_heads, bias, causal, sm_scale):
+    """(B*H, N, D) operands as B*H batch rows of one head each."""
+    o, lse = _fwd_plain(q, k, v, 1, _heads_bias(bias, num_heads), causal, sm_scale)
+    return o, lse[..., 0]
+
+
+def _heads_bwd_plain(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale):
+    return _bwd_plain(q, k, v, o, lse[..., None], do, 1, _heads_bias(bias, num_heads), causal, sm_scale)
+
+
+def _heads_layout(q, k, v):
+    """(B, H, N, D) -> contiguous (B*H, N, D8), D zero-padded to a multiple of
+    8 (zero qk channels add nothing to a score; zero v channels give output
+    channels that are sliced off)."""
+    def flat(t):
+        b, h, n, d = t.shape
+        t = t.reshape(b * h, n, d)
+        return torch.nn.functional.pad(t, (0, -d % 8)) if d % 8 else t
+    return flat(q), flat(k), flat(v)
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pad_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain heads-major forward (what K8 computes), dense in f32:
+    ``(o (B, H, Nq, Dv), lse (B, H, Nq))``."""
+    b, h, nq, _ = q.shape
+    bias = bias_row(pad_mask, b, k.shape[2], q.device)
+    o, lse = _heads_fwd_plain(*(t.reshape(b * h, t.shape[2], t.shape[3]) for t in (q, k, v)), h, bias, causal,
+                              sm_scale)
+    return o.reshape(b, h, nq, -1), lse.reshape(b, h, nq)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    pad_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain heads-major backward (what K9a and K9b compute): ``(dq, dk,
+    dv)`` from the forward's ``o`` and ``lse`` and the output gradient ``do``,
+    all in the (B, H, N, D) layout."""
+    b, h = q.shape[0], q.shape[1]
+    bias = bias_row(pad_mask, b, k.shape[2], q.device)
+    flat = [t.reshape(b * h, t.shape[2], t.shape[3]) for t in (q, k, v, o)]
+    grads = _heads_bwd_plain(*flat, lse.reshape(b * h, -1), do.reshape(flat[3].shape), h, bias, causal,
+                             sm_scale)
+    return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
+
+
+def _heads_dims(dqk: int, dv: int) -> None:
+    if not all(d % 8 == 0 and 8 <= d <= 512 for d in (dqk, dv)):
+        raise ValueError(f"heads-major kernels take head dims that are multiples of 8 up to 512, got {(dqk, dv)}")
+
+
+def _kv_splits(bh: int, nq: int, q_rows: int, n_tiles: int, sms: int) -> int:
+    """How many CTAs the kv walk of each q block is split across (K8, K9b):
+    as many as fill the SMs that one CTA per q block leaves idle, at one CTA
+    an SM (the wide-head buckets' occupancy), and no more. A split never adds
+    a wave: each split writes a partial the merge pass reads back, so it pays
+    only on an SM that would otherwise idle. At least 8 tiles a split, at
+    most 64 splits."""
+    base = bh * -(-nq // q_rows)
+    return max(1, min(sms // base, n_tiles // 8, 64))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def heads_fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
+    """The K8 wrapper: ``(o, lse)`` for (B*H, N, D) f32 operands with D a
+    multiple of 8 up to 512 and the (B, Nkv) bias row (or None)."""
+    _check_cuda_operands((q, k, v), (torch.float32,), "flash_attention")
+    bh, nq, dqk = q.shape
+    nkv, dv = k.shape[1], v.shape[2]
+    _heads_dims(dqk, dv)
+    q, k, v = _ready(q), _ready(k), _ready(v)
+    o = torch.empty((bh, nq, dv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
+    nsplit = _kv_splits(bh, nq, 64, -(-nkv // 64), _sms(q.device))
+    part = torch.empty(nsplit * bh * nq * (dv + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
+    err = build.launcher("flash_heads_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(), lse.data_ptr(), _ptr(part),
+        bh, nq, nkv, num_heads, dqk, dv, int(bool(causal)), float(sm_scale), nsplit, build.current_stream(q.device),
+    )
+    build.check(err, "flash_heads_fwd")
+    build.count_launch("flash_heads_fwd")
+    return o, lse
+
+
+def _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+    _check_cuda_operands((q, k, v, do), (torch.float32,), "the heads-major flash backward")
+    bh, nq, dqk = q.shape
+    nkv, dv = k.shape[1], v.shape[2]
+    _heads_dims(dqk, dv)
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, do, lse, delta)) + (_ptr(bias),)
+    return ptrs, (bh, nq, nkv, num_heads, dqk, dv, int(bool(causal)), float(sm_scale))
+
+
+def heads_bwd_dkv_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+    """The K9a wrapper: ``(dk, dv)`` for contiguous, aligned (B*H, N, D) f32
+    operands, ``lse``/``delta`` (B*H, Nq) f32 and the bias row (or None)."""
+    ptrs, ints = _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    build.check(build.launcher("flash_heads_bwd_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints,
+                                                      build.current_stream(q.device)), "flash_heads_bwd_dkv")
+    build.count_launch("flash_heads_bwd_dkv")
+    return dk, dv
+
+
+def heads_bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+    """The K9b wrapper: ``dq``, for the operands :func:`heads_bwd_dkv_cuda`
+    takes."""
+    ptrs, ints = _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
+    bh, nq, dqk = q.shape
+    nsplit = _kv_splits(bh, nq, 64, -(-k.shape[1] // 32), _sms(q.device))
+    dq = torch.empty_like(q)
+    part = torch.empty((nsplit, bh, nq, dqk), dtype=torch.float32, device=q.device) if nsplit > 1 else None
+    build.check(build.launcher("flash_heads_bwd_dq")(*ptrs, dq.data_ptr(), _ptr(part), *ints, nsplit,
+                                                     build.current_stream(q.device)), "flash_heads_bwd_dq")
+    build.count_launch("flash_heads_bwd_dq")
+    return dq
+
+
+def _heads_bwd_cuda(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale):
+    q, k, v, do = _ready(q), _ready(k), _ready(v), _ready(do)
+    delta = (do * o).sum(dim=-1).contiguous()  # (B*H, Nq), outside the kernels as in JAX
+    args = (q, k, v, do, lse.contiguous(), delta, num_heads, bias, causal, sm_scale)
+    dk, dv = heads_bwd_dkv_cuda(*args)
+    return heads_bwd_dq_cuda(*args), dk, dv
+
+
+class _FlashHeads(torch.autograd.Function):
+    """K8 forward, K9a + K9b backward on CUDA tensors; the plain versions on
+    CPU tensors. Operands (B*H, N, D); saves ``q, k, v, o, lse`` and the
+    (B, Nkv) bias row; ``lse`` is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, bias, causal, sm_scale):
+        fwd = heads_fwd_cuda if q.is_cuda else _heads_fwd_plain
+        o, lse = fwd(q, k, v, num_heads, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
+        ctx.num_heads, ctx.causal, ctx.sm_scale = num_heads, causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, bias = ctx.saved_tensors
+        bwd = _heads_bwd_cuda if do.is_cuda else _heads_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.num_heads, bias, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pad_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: float = 1.0,
+    return_lse: bool = False,
+):
+    """Fused attention over heads-major tensors.
+
+    :param q: queries (B, H, Nq, Dqk), already scaled/rotated.
+    :param k: keys (B, H, Nkv, Dqk).
+    :param v: values (B, H, Nkv, Dv); Dqk and Dv up to 512, any width (odd
+        widths are zero-padded to a multiple of 8 and the extra output
+        channels sliced off).
+    :param pad_mask: (B, Nkv) bool, True at padded keys.
+    :param causal: the right-aligned causal mask ``j <= i + (Nkv - Nq)``.
+    :returns: (B, H, Nq, Dv) in q's dtype, and the (B, H, Nq) f32 logsumexp
+        when ``return_lse``. Differentiable in q, k and v.
+    """
+    b, h, nq, _ = q.shape
+    d_v = v.shape[3]
+    if not flash_supported(q.shape[3], d_v):
+        raise ValueError(f"head dims ({q.shape[3]}, {d_v}) exceed the heads-major kernels' 512")
+    bias = bias_row(pad_mask, b, k.shape[2], q.device)
+    o, lse = _FlashHeads.apply(*_heads_layout(q, k, v), h, bias, causal, sm_scale)
+    o = o[..., :d_v].reshape(b, h, nq, d_v).to(q.dtype)
+    return (o, lse.reshape(b, h, nq)) if return_lse else o

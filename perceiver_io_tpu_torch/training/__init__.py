@@ -1,11 +1,11 @@
 """Training for the port (counterpart of ``perceiver_io_tpu/training/``): the
-CLM loss, the clip + AdamW optimizer with its LR schedules, the train state,
+CLM and classification losses, the clip + AdamW optimizer with its LR schedules, the train state,
 the train step with microbatching and the non-finite skip, and host-sampled
 prefix-dropout keep sets. ``Trainer``, checkpointing, faults and metrics are
 not ported yet."""
 
 from perceiver_io_tpu_torch.training.loop import make_train_step
-from perceiver_io_tpu_torch.training.losses import IGNORE_INDEX, clm_loss_fn
+from perceiver_io_tpu_torch.training.losses import IGNORE_INDEX, classification_loss_fn, clm_loss_fn
 from perceiver_io_tpu_torch.training.optim import (
     Optimizer,
     clip_by_global_norm_,
@@ -24,6 +24,7 @@ __all__ = [
     "IGNORE_INDEX",
     "Optimizer",
     "TrainState",
+    "classification_loss_fn",
     "clip_by_global_norm_",
     "clm_loss_fn",
     "constant_with_warmup",

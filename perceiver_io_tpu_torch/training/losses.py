@@ -1,6 +1,6 @@
-"""The causal LM loss (counterpart of
-``perceiver_io_tpu/training/losses.py``: ``_cross_entropy`` and
-``clm_loss_fn``).
+"""The causal LM and classification losses (counterpart of
+``perceiver_io_tpu/training/losses.py``: ``_cross_entropy``, ``clm_loss_fn``
+and ``classification_loss_fn``).
 
 A loss function has the signature ``loss_fn(model, batch, generator) ->
 (loss, metrics)``: the model takes the place of the JAX package's params and
@@ -65,4 +65,27 @@ def clm_loss_fn(max_latents: int, deterministic: bool = False) -> Callable:
     # normalization weights chunks equally only without padding, so
     # make_train_step sniffs each batch's pad_mask instead
     loss_fn.uniform_weighting = None
+    return loss_fn
+
+
+def classification_loss_fn(deterministic: bool = False) -> Callable:
+    """CE + accuracy over ``{"x" | "image", "label"}`` batches (an optional
+    ``pad_mask`` goes to the model); ``deterministic`` builds the eval
+    variant. Per-example means: equal chunks weigh equally, so it declares
+    ``uniform_weighting = True`` and ``make_train_step`` may split any
+    batch."""
+
+    def loss_fn(model, batch: Dict, generator: Optional[torch.Generator] = None,
+                deterministic: bool = deterministic) -> Tuple[torch.Tensor, Dict]:
+        dev = model.device
+        x = _on(batch["x"] if "x" in batch else batch["image"], dev)
+        x = x.float() if x.is_floating_point() else x
+        y = _on(batch["label"], dev).long()
+        pad_mask = _on(batch.get("pad_mask"), dev)
+        logits = model(x, pad_mask=None if pad_mask is None else pad_mask.bool(), deterministic=deterministic)
+        loss, _ = _cross_entropy(logits, y)
+        acc = (torch.argmax(logits, dim=-1) == y).float().mean()
+        return loss, {"loss": loss, "acc": acc}
+
+    loss_fn.uniform_weighting = True
     return loss_fn

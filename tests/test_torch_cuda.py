@@ -2,8 +2,9 @@
 an NVIDIA card, at small shapes: K2 (packed flash forward), K3 (paged
 decode), K1 (LayerNorm forward), K4a/K4b (packed flash backward), K5
 (LayerNorm backward), K6/K7a/K7b (the two-segment flash forward and
-backward), train steps (with and without "twoseg") and the engine serving
-through them. Marked
+backward), K8/K9a/K9b (the heads-major flash forward and backward), train
+steps (with and without "twoseg", and of a small image classifier) and the
+engine serving through them. Marked
 ``cuda``; each test skips on a machine without a card. Run them on one with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
 suite's conftest imports JAX, which the port does not need). Tolerances: f32
@@ -67,15 +68,149 @@ def test_paged_decode_kernel_matches_plain(cuda, with_mask):
                                atol=1e-5, rtol=0)
 
 
-def test_unported_head_dims_raise_on_the_card(cuda):
-    """Head dims the packed kernel cannot take need the heads-major kernel,
-    which is not ported: the cache-free route refuses them on the card."""
-    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+@pytest.mark.parametrize("d", [12, 40, 133, 264, 512])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [
+    (False, 130, 300, 0),   # no tile multiple
+    (True, 130, 300, 7),    # Nq < Nkv right-aligned, left-padded keys
+    (True, 300, 130, 0),    # Nq > Nkv: 170 rows see no key, zero gradient
+    (False, 64, 4096, 0),   # a long kv walk split across CTAs (K8, K9b)
+    (True, 100, 3000, 50),  # split and causal: some splits see nothing
+])
+def test_flash_heads_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
+    """K8 (forward, out and logsumexp) and K9a/K9b (through the autograd
+    Function) against the plain heads-major versions on the card, one
+    launch each; odd widths are zero-padded by the wrapper. Tolerance: atol
+    1e-5 (1e-4 on the logsumexp), as for K2/K4."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
 
-    mha = MultiHeadAttention(2, 24, 24, causal_attention=True).to(cuda)  # head dim 12
-    x = torch.randn(1, 5, 24, device=cuda)
-    with pytest.raises(NotImplementedError, match="heads-major"):
-        mha(x, x)
+    g = torch.Generator().manual_seed(8)
+    b, h = 2, 2
+    q, k, v = (torch.randn(b, h, n, d, generator=g).to(cuda).requires_grad_() for n in (nq, nkv, nkv))
+    do = torch.randn(b, h, nq, d, generator=g).to(cuda)
+    pad = torch.zeros(b, nkv, dtype=torch.bool, device=cuda)
+    pad[1, :n_pad] = True
+    kw = dict(pad_mask=pad, causal=causal, sm_scale=d**-0.5)
+    build.reset_launches()
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert o.grad_fn is not None and o.shape == (b, h, nq, d)
+    o.backward(do)
+    assert [build.LAUNCHES[n] for n in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] == [1, 1, 1]
+    plain = [t.detach() for t in (q, k, v)]
+    ro, rlse = flash_attention_reference(*plain, **kw)
+    torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    want = flash_attention_bwd_reference(*plain, o.detach(), lse, do, **kw)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, w, atol=1e-5, rtol=0)
+    if causal and nq > nkv:
+        assert torch.equal(q.grad[:, :, : nq - nkv], torch.zeros_like(q.grad[:, :, : nq - nkv]))
+
+
+def test_head_dim_12_runs_the_heads_major_kernel_on_the_card(cuda):
+    """Head dims the packed kernel cannot take go to K8 on the card (they
+    raised before the heads-major kernels were ported) and agree with the
+    CPU's plain version from the same weights."""
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+    from perceiver_io_tpu_torch.ops import build
+
+    torch.manual_seed(9)
+    cpu = MultiHeadAttention(2, 24, 24, causal_attention=True)  # head dim 12
+    card = MultiHeadAttention(2, 24, 24, causal_attention=True).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, 5, 24)
+    build.reset_launches()
+    with torch.no_grad():
+        got = card(x.to(cuda), x.to(cuda)).last_hidden_state
+        want = cpu(x, x).last_hidden_state
+    assert build.LAUNCHES["flash_heads_fwd"] == 1 and build.LAUNCHES["flash_packed_fwd"] == 0
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+def test_classifier_shape_kernels_match_plain(cuda):
+    """The image classifier's other kernels at its widths: K1 (with its
+    statistics) and K5 at 1024 channels, K2 and K4a/K4b non-causal at 8
+    heads of 128 over 512 x 512 (batch 2). Tolerances as in the tests
+    above."""
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_bwd_reference,
+        flash_attention_packed_reference,
+    )
+    from perceiver_io_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd_reference, layer_norm_reference
+
+    g = torch.Generator().manual_seed(10)
+    x = (torch.randn(1024, 1024, generator=g) * 3 + 1).to(cuda).requires_grad_()
+    w, b = (torch.randn(1024, generator=g).to(cuda).requires_grad_() for _ in range(2))
+    y = layer_norm(x, w, b)
+    torch.testing.assert_close(y.detach(), layer_norm_reference(x.detach(), w.detach(), b.detach()), atol=1e-5,
+                               rtol=0)
+    dy = torch.randn(1024, 1024, generator=g).to(cuda)
+    y.backward(dy)
+    xd = x.detach()
+    mean = xd.mean(dim=-1)
+    rstd = torch.rsqrt(torch.clamp((xd * xd).mean(dim=-1) - mean * mean, min=0.0) + 1e-5)
+    dx, dw, db = layer_norm_bwd_reference(xd, w.detach(), mean, rstd, dy)
+    torch.testing.assert_close(x.grad, dx, atol=4e-6, rtol=0)
+    torch.testing.assert_close(w.grad, dw, atol=4e-4, rtol=0)
+    torch.testing.assert_close(b.grad, db, atol=4e-4, rtol=0)
+
+    h, d = 8, 128
+    q, k, v = (torch.randn(2, 512, h * d, generator=g).to(cuda).requires_grad_() for _ in range(3))
+    do = torch.randn(2, 512, h * d, generator=g).to(cuda)
+    o, lse = flash_attention_packed(q, k, v, h, sm_scale=d**-0.5, return_lse=True)
+    ro, rlse = flash_attention_packed_reference(q.detach(), k.detach(), v.detach(), h, sm_scale=d**-0.5)
+    torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
+    o.backward(do)
+    want = flash_attention_packed_bwd_reference(q.detach(), k.detach(), v.detach(), o.detach(), lse, do, h,
+                                                sm_scale=d**-0.5)
+    for got, wnt in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, wnt, atol=1e-5, rtol=0)
+
+
+def test_image_classifier_gradient_on_the_card_matches_the_cpu(cuda):
+    """A small image classifier's loss gradient on the card (K8, K9a, K9b on
+    the split route; K1, K2, K4, K5) against the CPU's (plain versions) from
+    the same weights and batch, per parameter max abs difference <= 1e-4 of
+    the largest value (the key-projection biases, whose gradient is 0 in
+    exact arithmetic, within 1e-10 of 0 on both sides: measured 3.0e-13);
+    then a train step runs on the card."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig
+    from perceiver_io_tpu_torch.models.vision import ImageClassifier, ImageClassifierConfig, ImageEncoderConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    config = ImageClassifierConfig(
+        encoder=ImageEncoderConfig(image_shape=(16, 16, 3), num_frequency_bands=32, num_cross_attention_heads=1,
+                                   num_self_attention_heads=2, num_self_attention_layers_per_block=1,
+                                   num_self_attention_blocks=2),
+        decoder=ClassificationDecoderConfig(num_classes=4, num_output_query_channels=32,
+                                            num_cross_attention_heads=1),
+        num_latents=128, num_latent_channels=32,
+    )
+    rng = np.random.default_rng(11)
+    batch = {"image": rng.normal(size=(4, 16, 16, 3)).astype(np.float32), "label": rng.integers(0, 4, size=4)}
+    grads = []
+    for dev in ("cpu", cuda):
+        model = ImageClassifier(config, device=dev, generator=torch.Generator().manual_seed(0))
+        build.reset_launches()
+        loss, _ = tt.classification_loss_fn()(model, batch)
+        loss.backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert [build.LAUNCHES[k] for k in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] == [1, 1, 1]
+    for name, want in grads[0].items():
+        if name.endswith("attention.k_proj.bias"):
+            assert max(float(want.abs().max()), float(grads[1][name].abs().max())) <= 1e-10, name
+            continue
+        assert float((grads[1][name] - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+    state = tt.TrainState.create(model, tt.make_optimizer(1e-3, gradient_clip=1.0))
+    state, metrics = tt.make_train_step(tt.classification_loss_fn(), microbatch=2, sentinel=True)(state, batch)
+    assert float(metrics["sentinel_skipped"]) == 0.0 and np.isfinite(float(metrics["loss"]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

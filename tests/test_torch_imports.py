@@ -36,7 +36,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     proc = _python(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 27  # the serving and training slices' modules
+    assert int(n_modules) >= 29  # the serving, training and image classifier slices' modules
     assert bad.strip() == "[]"
 
 
