@@ -9,12 +9,18 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
 2. build: every CUDA kernel of the serving, training and image paths is
    compiled from the sources in ``perceiver_io_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all at once; the Triton kernels compile at their
-   first launch), with each kernel's registers and spills from ptxas;
+   first launch), with each kernel's registers and spills from ptxas (no
+   kernel may spill) and the tensor-core instructions of K2's and K6's
+   builds from ``cuobjdump -sass`` (TF32 in every f32 build, bf16 in K2's
+   bf16 builds);
 3. kernel parity: each kernel against its plain PyTorch version on the card
    at the flagship's serving and training shapes and the image classifier's,
-   with the tolerance stated beside each case, and its median time beside
-   the plain version's, the PyTorch library call's where one computes the
-   same function, and the least time the card could take (``bound_ms``):
+   with the tolerance stated beside each case, and its median device time
+   (``time_ms``: operands evicted from L2, the card kept busy across the
+   start event) beside the plain version's, the PyTorch library call's where
+   one computes the same function, the least time the card could take
+   (``bound_ms``; f32 attention at the split-TF32 rate), and the host's
+   dispatch time of one call (``dispatch_ms``):
    K2 packed flash forward, K3 paged decode, K1 LayerNorm forward (with and
    without its statistics), K4a/K4b packed flash backward, K5 LayerNorm
    backward, K6/K7a/K7b two-segment flash, K8/K9a/K9b heads-major flash
@@ -150,28 +156,57 @@ IMAGE_STEP = dict(IMAGE_FORWARD, flash_heads_bwd_dkv=1, flash_heads_bwd_dq=1, fl
 # |logits(split) - logits(standard)| at the flagship: the routes differ only
 # in the order of the K/V projections' f32 sums (see image_eval_phase)
 IMAGE_ROUTE_TOL = 1e-4
-# peak rates of one H100 SXM (NVIDIA data sheet, dense)
+# peak rates of one H100 SXM (NVIDIA data sheet, dense). An f32-accurate
+# product on the tensor cores takes three TF32 products (the operands split
+# into a TF32 "big" and "small" part), so every f32 attention kernel is
+# bounded at a third of the TF32 rate; the byte-bound kernels (LayerNorm,
+# the paged decode) keep the CUDA cores' f32 rate
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 without tensor cores; bf16 tensor
+PEAK_OPS = {"f32_cuda_cores": 67e12, "split_tf32": 495e12 / 3, "bf16_tensor": 989e12}
+# the timer: before every timed call a 256 MB write (five times the 50 MB L2)
+# evicts the call's operands, as the main path finds them, then a GPU sleep
+# of at least 1 ms (2e6 cycles at the H100's 1.98 GHz top clock) keeps the
+# card busy while the host dispatches the call, so the events time the
+# device work alone
+FLUSH_BYTES = 256 << 20
+CUSHION_CYCLES = 2_000_000
+_FLUSH = []
+# label -> median host-clock ms of one call's dispatch, the card kept busy
+DISPATCH_MS = {}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    """Median of per-launch CUDA-event times, after warm-up."""
+def time_ms(fn, iters: int = 10, dispatch: str = None) -> float:
+    """The card's time for one call of ``fn``: the median over ``iters`` calls
+    of CUDA-event time, each call queued behind an L2 flush and a GPU sleep
+    that outlasts its dispatch, so the events see the device work from cold
+    L2 and not the host's dispatch. With ``dispatch`` (a label), also logs
+    and keeps in ``DISPATCH_MS`` the median host-clock time of the call
+    itself, taken while the card sleeps: the host's cost of a launch."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda"))
+    flush = _FLUSH[0]
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    events = []
+    events, host = [], []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(CUSHION_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host.append(1e3 * (time.perf_counter() - t0))
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
+    if dispatch is not None:
+        DISPATCH_MS[dispatch] = statistics.median(host)
+        log(f"dispatch {dispatch}: host_ms={DISPATCH_MS[dispatch]:.4f} (median of {iters}, card busy)")
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
@@ -191,8 +226,10 @@ def check(name: str, err: float, tol: float) -> None:
         raise SystemExit(f"kernel parity failed: {name} max_abs_err {err} > {tol}")
 
 
-def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
+def bound(n_bytes: float, n_ops: float, rate: str) -> tuple:
+    """(least ms, "bytes" or "operations") for ``n_bytes`` moved and
+    ``n_ops`` done at the peak ``PEAK_OPS[rate]``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[rate]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -218,16 +255,21 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     from perceiver_io_tpu_torch.ops.flash_attention import (
         flash_attention_packed,
         flash_attention_packed_reference,
+        packed_kv_splits,
     )
 
     (b, nq, c), nkv, d = q.shape, k.shape[1], q.shape[2] // h
+    # the f32 kernel's kv split (the bf16 build takes none)
+    splits = packed_kv_splits(b, h, nq, nkv, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = splits if q.dtype == torch.float32 else 1
     o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
     err = max_err(o, ro)
     check(f"flash_packed_fwd {name} out", err, tol)
     check(f"flash_packed_fwd {name} lse", max_err(lse, rlse), 1e-4)
-    ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal))
+    ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal),
+                 dispatch=f"flash_packed_fwd {name}")
     plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal), 3)
     # the library yardstick: one SDPA call on heads-major views with the
     # same right-aligned causal + pad mask
@@ -237,12 +279,13 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     el = q.element_size()
     visible = b * visible_pairs(nq, nkv, causal)
     n_bytes = el * b * (2 * nq * c + 2 * nkv * c) + 4 * b * nq * h + (4 * b * nkv if pad is not None else 0)
-    bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible, q.dtype)
+    bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible,
+                               "bf16_tensor" if q.dtype == torch.bfloat16 else "split_tf32")
     pads = 0 if pad is None else int(pad[0].sum())
     row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} D={d} left_pads={pads} "
                     f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}", path=path,
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
+               bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"flash_packed_fwd {name}"], kv_splits=splits)
     log(f"time flash_packed_fwd {name}: {json.dumps(row)}")
     return row
 
@@ -267,6 +310,10 @@ def flash_phase(gen: torch.Generator) -> dict:
             pad = torch.zeros(1, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
         out["cases"].append(flash_fwd_case(name, q, k, v, pad, h, tol, "serve"))
+    # 512 latents x 8 heads give 64 q blocks: the prefill fills the card by
+    # splitting the kv walk
+    if out["cases"][0]["kv_splits"] < 2:
+        raise SystemExit(f"flash_packed_fwd: the serving prefill took no kv split: {out['cases'][0]}")
     return out
 
 
@@ -304,15 +351,16 @@ def paged_phase(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         err = max_err(o, paged_attention_reference(qh, cache, m))
         check(f"paged_decode {name}", err, tol)
-        ms = time_ms(lambda: paged_decode_attention(qh, cache, m))
+        ms = time_ms(lambda: paged_decode_attention(qh, cache, m), dispatch=f"paged_decode {name}")
         plain_ms = time_ms(lambda: paged_attention_reference(qh, cache, m), 3)
         # f32 K/V rows of the valid tokens, q and out, int32 table entries
         # walked and lengths; under a mask, its bool entries of those tokens
         n_bytes = 4 * (2 * tokens * c + 2 * slots * c + pages_read + slots) + (tokens if m is not None else 0)
-        bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens, torch.float32)
+        bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens, "f32_cuda_cores")
         row = dict(case=f"{name} slots={slots} page={page} lengths={lengths}", path="serve", max_abs_err=err,
                    tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   dispatch_ms=DISPATCH_MS[f"paged_decode {name}"])
         log(f"time paged_decode {name}: {json.dumps(row)}")
         rows.append(row)
     return {"cases": rows}
@@ -363,13 +411,16 @@ def layernorm_phase(gen: torch.Generator) -> dict:
             run = lambda: layer_norm(x, w, b)  # noqa: E731
             plain = lambda: layer_norm_reference(x, w, b)  # noqa: E731
         check(f"layer_norm_fwd f32 {name} (y, mean, rstd)" if stats else "layer_norm_fwd f32", err, tol)
-        ms = time_ms(run, 20)
+        ms = time_ms(run, 20, dispatch=f"layer_norm_fwd {name}")
         plain_ms = time_ms(plain, 20)
-        library_ms = time_ms(lambda: torch_layer_norm(x, (c,), w, b, 1e-5), 20)
+        library_ms = time_ms(lambda: torch_layer_norm(x, (c,), w, b, 1e-5), 20,
+                             dispatch=f"F.layer_norm {name}")
         n_bytes = 4 * (2 * rows * c + 2 * c + (2 * rows if stats else 0))
-        bound_ms, bound_by = bound(n_bytes, 8 * rows * c, torch.float32)
+        bound_ms, bound_by = bound(n_bytes, 8 * rows * c, "f32_cuda_cores")
         row = dict(case=f"{name} rows={rows} C={c} f32", path=path, max_abs_err=err,
-                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   dispatch_ms=DISPATCH_MS[f"layer_norm_fwd {name}"],
+                   library_dispatch_ms=DISPATCH_MS[f"F.layer_norm {name}"])
         log(f"time layer_norm_fwd {name}: {json.dumps(row)}")
         rows_out.append(row)
     return {"cases": rows_out}
@@ -431,7 +482,8 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         errs = {"dkv": max(max_err(dk, rdk), max_err(dv, rdv)), "dq": max_err(dq, rdq)}
         for kernel, err in errs.items():
             check(f"flash_packed_bwd_{kernel} {name}", err, tol[kernel])
-        times = {"dkv": time_ms(lambda: bwd_dkv_cuda(*args)), "dq": time_ms(lambda: bwd_dq_cuda(*args))}
+        times = {"dkv": time_ms(lambda: bwd_dkv_cuda(*args), dispatch=f"flash_packed_bwd_dkv {name}"),
+                 "dq": time_ms(lambda: bwd_dq_cuda(*args), dispatch=f"flash_packed_bwd_dq {name}")}
         plain_ms = time_ms(lambda: flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad,
                                                                         causal=causal), 3)
         qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -440,12 +492,13 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
         pairs = b * h * visible_pairs(nq, nkv, causal)
         reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h + (b * nkv if pad is not None else 0))
-        bounds = {"dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, torch.float32),
-                  "dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, torch.float32)}
+        bounds = {"dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, "split_tf32"),
+                  "dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, "split_tf32")}
         for kernel in ("dkv", "dq"):
             row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} f32 "
                             f"{'causal' if causal else 'full'}", path=path, max_abs_err=errs[kernel], tol=tol[kernel], ms=times[kernel], plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+                       library_ms=library_ms, bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
+                       dispatch_ms=DISPATCH_MS[f"flash_packed_bwd_{kernel} {name}"])
             log(f"time flash_packed_bwd_{kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
     return out["dkv"], out["dq"], out["fwd"]
@@ -479,17 +532,17 @@ def layernorm_bwd_case(gen: torch.Generator, rows: int, c: int, path: str) -> di
     err, err_dw_db = max_err(dx, rdx), max(max_err(dw, rdw), max_err(db, rdb))
     check("layer_norm_bwd dx", err, tol)
     check("layer_norm_bwd dgamma/dbeta", err_dw_db, tol_dw_db)
-    ms = time_ms(lambda: layer_norm_bwd_cuda(x, w, mean, rstd, dy), 20)
+    ms = time_ms(lambda: layer_norm_bwd_cuda(x, w, mean, rstd, dy), 20, dispatch=f"layer_norm_bwd {path}")
     plain_ms = time_ms(lambda: layer_norm_bwd_reference(x, w, mean, rstd, dy), 20)
     xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
     ref = torch_layer_norm(xr, (c,), wr, br, 1e-5)
     library_ms = time_ms(lambda: torch.autograd.grad(ref, (xr, wr, br), dy, retain_graph=True), 20)
     # x and dy read, dx written, the statistics read, gamma read, dgamma/dbeta
     # written; about 13 operations per element
-    bound_ms, bound_by = bound(4 * (3 * rows * c + 2 * rows + 3 * c), 13 * rows * c, torch.float32)
+    bound_ms, bound_by = bound(4 * (3 * rows * c + 2 * rows + 3 * c), 13 * rows * c, "f32_cuda_cores")
     row = dict(case=f"rows={rows} C={c} f32", path=path, max_abs_err=err, tol=tol, max_abs_err_dw_db=err_dw_db,
                tol_dw_db=tol_dw_db, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by)
+               bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"layer_norm_bwd {path}"])
     log(f"time layer_norm_bwd {path}: {json.dumps(row)}")
     return row
 
@@ -518,10 +571,12 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         flash_attention_packed_2seg,
         flash_attention_packed_2seg_bwd_reference,
         flash_attention_packed_2seg_reference,
+        packed_kv_splits,
     )
 
     h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
     d, lat = c // h, FLAGSHIP["max_latents"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = {  # name: (batch, prefix rows, latents, left pads, backward too, path)
         "train_ca": (TRAIN_CHUNK, KEEP, lat, 0, True, "train_twoseg"),
         "train_ca_leftpad": (TRAIN_CHUNK, KEEP - 1, lat, 3001, True, "train_twoseg"),
@@ -561,15 +616,16 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         pairs = b * h * (nq * n_p + nq * (nq + 1) // 2)  # visible (query, key) pairs
         reads = 4 * (b * nq * c + 2 * b * nkv * c) + (4 * b * nkv if pads else 0)
         shape = f"{name} batch={b} nq={nq} np={n_p} left_pads={pads} H={h} D={d} f32"
-        bound_ms, bound_by = bound(reads + 4 * (b * nq * c + b * nq * h), 4 * d * pairs, torch.float32)
+        bound_ms, bound_by = bound(reads + 4 * (b * nq * c + b * nq * h), 4 * d * pairs, "split_tf32")
         row = dict(case=shape, path=path, max_abs_err=err, tol=tol,
-                   ms=time_ms(lambda: flash_attention_packed_2seg(*ops, h, **kw)),
+                   ms=time_ms(lambda: flash_attention_packed_2seg(*ops, h, **kw), dispatch=f"flash_2seg_fwd {name}"),
                    plain_ms=time_ms(lambda: flash_attention_packed_2seg_reference(*ops, h, **kw), 3),
                    library_ms=time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)),
                    concat_ms=concat_ms,
                    k2_concat_ms=time_ms(lambda: flash_attention_packed(q, k_cat, v_cat, h, pad_mask=pad_cat,
                                                                        causal=True)),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"flash_2seg_fwd {name}"],
+                   kv_splits=packed_kv_splits(b, h, nq, nkv, d, sms))
         log(f"time flash_2seg_fwd {name}: {json.dumps(row)}")
         out["flash_2seg_fwd"]["cases"].append(row)
         if not with_bwd:
@@ -588,8 +644,9 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         del rdq, rdk_p, rdv_p, rdk_l, rdv_l
         for kernel, e in errs.items():
             check(f"{kernel} {name}", e, tol)
-        times = {"flash_2seg_bwd_dkv": time_ms(lambda: bwd_2seg_dkv_cuda(*args)),
-                 "flash_2seg_bwd_dq": time_ms(lambda: bwd_2seg_dq_cuda(*args))}
+        times = {"flash_2seg_bwd_dkv": time_ms(lambda: bwd_2seg_dkv_cuda(*args),
+                                               dispatch=f"flash_2seg_bwd_dkv {name}"),
+                 "flash_2seg_bwd_dq": time_ms(lambda: bwd_2seg_dq_cuda(*args), dispatch=f"flash_2seg_bwd_dq {name}")}
         args_cat = (q, k_cat, v_cat, do, lse, delta, h, bias_row(pad_cat, b, nkv, q.device), True, 1.0)
         k4_ms = {"flash_2seg_bwd_dkv": time_ms(lambda: bwd_dkv_cuda(*args_cat)),
                  "flash_2seg_bwd_dq": time_ms(lambda: bwd_dq_cuda(*args_cat))}
@@ -599,12 +656,13 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         go = do.reshape(b, nq, h, d).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), go, retain_graph=True))
         reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h) + (4 * b * nkv if pads else 0)
-        bounds = {"flash_2seg_bwd_dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, torch.float32),
-                  "flash_2seg_bwd_dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, torch.float32)}
+        bounds = {"flash_2seg_bwd_dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, "split_tf32"),
+                  "flash_2seg_bwd_dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, "split_tf32")}
         for kernel in errs:
             row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol, ms=times[kernel],
                        plain_ms=plain_ms, library_ms=library_ms, concat_ms=concat_ms, k4_concat_ms=k4_ms[kernel],
-                       bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+                       bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
+                       dispatch_ms=DISPATCH_MS[f"{kernel} {name}"])
             log(f"time {kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
         del ref, qg, kg, vg
@@ -701,12 +759,14 @@ def heads_phase(gen: torch.Generator) -> dict:
         shape = (f"{name} batch={b} H={h} nq={nq} nkv={nkv} D={d} (kernel D={d8}) "
                  f"{'causal' if causal else 'full'} left_pads={pads} f32")
         reads = 4 * b * h * (nq * d8 + 2 * nkv * d8) + (4 * b * nkv if pad is not None else 0)
-        bound_ms, bound_by = bound(reads + 4 * b * h * (nq * d8 + nq), 4 * d8 * pairs, torch.float32)
+        bound_ms, bound_by = bound(reads + 4 * b * h * (nq * d8 + nq), 4 * d8 * pairs, "split_tf32")
         row = dict(case=shape, path=path, max_abs_err=err, tol=tol["flash_heads_fwd"],
-                   ms=time_ms(lambda: tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0)),
+                   ms=time_ms(lambda: tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0),
+                              dispatch=f"flash_heads_fwd {name}"),
                    plain_ms=time_ms(lambda: tflash.flash_attention_reference(q, k, v, pad, causal), 3),
                    library_ms=time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask)),
-                   library=f"scaled_dot_product_attention ({backend})", bound_ms=bound_ms, bound_by=bound_by)
+                   library=f"scaled_dot_product_attention ({backend})", bound_ms=bound_ms, bound_by=bound_by,
+                   dispatch_ms=DISPATCH_MS[f"flash_heads_fwd {name}"])
         log(f"time flash_heads_fwd {name}: {json.dumps(row)}")
         out["flash_heads_fwd"]["cases"].append(row)
         del ro, rlse
@@ -730,20 +790,22 @@ def heads_phase(gen: torch.Generator) -> dict:
         del rdq, rdk, rdv
         for kernel, e in errs.items():
             check(f"{kernel} {name}", e, tol[kernel])
-        times = {"flash_heads_bwd_dkv": time_ms(lambda: tflash.heads_bwd_dkv_cuda(*args)),
-                 "flash_heads_bwd_dq": time_ms(lambda: tflash.heads_bwd_dq_cuda(*args))}
+        times = {"flash_heads_bwd_dkv": time_ms(lambda: tflash.heads_bwd_dkv_cuda(*args),
+                                                dispatch=f"flash_heads_bwd_dkv {name}"),
+                 "flash_heads_bwd_dq": time_ms(lambda: tflash.heads_bwd_dq_cuda(*args),
+                                               dispatch=f"flash_heads_bwd_dq {name}")}
         plain_ms = time_ms(lambda: tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad, causal), 3)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         ref = scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True))
         reads = 4 * b * h * (2 * nq * d8 + 2 * nkv * d8 + 2 * nq) + (4 * b * nkv if pad is not None else 0)
-        bounds = {"flash_heads_bwd_dkv": bound(reads + 4 * 2 * b * h * nkv * d8, 8 * d8 * pairs, torch.float32),
-                  "flash_heads_bwd_dq": bound(reads + 4 * b * h * nq * d8, 6 * d8 * pairs, torch.float32)}
+        bounds = {"flash_heads_bwd_dkv": bound(reads + 4 * 2 * b * h * nkv * d8, 8 * d8 * pairs, "split_tf32"),
+                  "flash_heads_bwd_dq": bound(reads + 4 * b * h * nq * d8, 6 * d8 * pairs, "split_tf32")}
         for kernel in errs:
             row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol[kernel], ms=times[kernel],
                        plain_ms=plain_ms, library_ms=library_ms,
                        library=f"scaled_dot_product_attention backward ({backend})", bound_ms=bounds[kernel][0],
-                       bound_by=bounds[kernel][1])
+                       bound_by=bounds[kernel][1], dispatch_ms=DISPATCH_MS[f"{kernel} {name}"])
             log(f"time {kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
         del ref, qg, kg, vg
@@ -1290,6 +1352,24 @@ def image_trajectory_phase(card: str) -> None:
         raise SystemExit(f"image_trajectory: the sentinel skipped a step: {skipped}")
 
 
+def kernel_name(mangled: str) -> str:
+    """A mangled kernel's name and template arguments, e.g.
+    ``heads_fwd_kernel<264>`` or ``flash_packed_kernel<F32,64>`` (a
+    ``pio::mma`` policy and its head-dim bucket); the mangled name itself
+    when no ``*_kernel`` identifier is found."""
+    import re
+
+    pos = 0
+    while (m := re.compile(r"\d+").search(mangled, pos)) is not None:
+        end = m.end() + int(m.group())  # a length-prefixed identifier
+        ident = mangled[m.end():end]
+        if ident.endswith("_kernel"):
+            t = re.match(r"I(?:N3pio3mma\d+([A-Z0-9]+)I)?Li(\d+)E", mangled[end:])
+            return ident + (f"<{t.group(1) + ',' if t.group(1) else ''}{t.group(2)}>" if t else "")
+        pos = end
+    return mangled
+
+
 def ptxas_report(logs: dict) -> dict:
     """source -> [[kernel (instantiation), registers, spill stores, spill
     loads]] from the builds' ``-Xptxas=-v`` output."""
@@ -1300,9 +1380,8 @@ def ptxas_report(logs: dict) -> dict:
         rows, name, spills = [], None, (0, 0)
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:  # the mangled name's kernel and template argument
-                short = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", m.group(1))
-                name = m.group(1) if not short else short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+            if m:
+                name = kernel_name(m.group(1))
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 spills = (int(m.group(1)), int(m.group(2)))
@@ -1311,6 +1390,31 @@ def ptxas_report(logs: dict) -> dict:
                 rows.append([name, int(m.group(1)), *spills])
                 name, spills = None, (0, 0)
         report[source] = rows
+    return report
+
+
+def sass_mma_report(paths: dict) -> dict:
+    """source -> {kernel (instantiation): {tensor-core instruction (``HMMA``
+    with its shape and types): count}} from ``cuobjdump -sass`` of each
+    built library."""
+    import os
+    import re
+
+    from perceiver_io_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    report = {}
+    for source, path in paths.items():
+        text = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
+        counts, name = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = kernel_name(m.group(1))
+                counts[name] = {}
+            elif name is not None and (m := re.search(r"\b(HMMA\.[A-Z0-9.]+)", line)):
+                counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
+        report[source] = counts
     return report
 
 
@@ -1328,9 +1432,23 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {card}")
 
     t0 = time.perf_counter()
-    build.build_all()
+    paths = build.build_all()
     log(f"build: {sorted(build.CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    log("ptxas: " + json.dumps(ptxas_report(build.BUILD_LOGS)))
+    ptxas = ptxas_report(build.BUILD_LOGS)
+    log("ptxas: " + json.dumps(ptxas))
+    spills = [row for rows in ptxas.values() for row in rows if row[2] or row[3]]
+    if spills:
+        raise SystemExit(f"kernels spill registers: {spills}")
+    # K2 and K6 run their products on the tensor cores: TF32 in every f32
+    # build, bf16 in K2's bf16 builds (the 32, 64 and 128 head-dim buckets)
+    sass = sass_mma_report({name: paths[name] for name in ("flash_packed", "flash_2seg")})
+    log("sass HMMA per kernel: " + json.dumps(sass))
+    for source, kernel, kind in (("flash_packed", "flash_packed_kernel<F32", "TF32"),
+                                 ("flash_packed", "flash_packed_kernel<BF16", "BF16"),
+                                 ("flash_2seg", "flash_2seg_fwd_kernel<", "TF32")):
+        found = [n for n, c in sass[source].items() if n.startswith(kernel) and any(kind in i for i in c)]
+        if len(found) != 3:
+            raise SystemExit(f"{source}: {kind} HMMA instructions in {found}, expected in all three {kernel}>s")
 
     gen = torch.Generator().manual_seed(SEED)
     bwd_source = "perceiver_io_tpu_torch/ops/csrc/flash_packed_bwd.cu"
@@ -1391,7 +1509,8 @@ def main() -> None:
             max_abs_err=max(c["max_abs_err"] for c in res["cases"] if c["tol"] == main_case["tol"]),
             tol=main_case["tol"], ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"], shape=main_case["case"], card=card, cases=res["cases"],
+            library_ms=main_case["library_ms"], dispatch_ms=main_case["dispatch_ms"], shape=main_case["case"],
+            card=card, cases=res["cases"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,11 +37,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher, the launcher's argument types); every launcher returns a
 # cudaError_t
 LAUNCHERS = {
-    "flash_packed_fwd": ("flash_packed", "pio_flash_packed_fwd", [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "flash_packed_fwd": ("flash_packed", "pio_flash_packed_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
     "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
     "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _P]),
     "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 8 + [_I] * 7 + [_P]),
-    "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
     "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _P]),
     "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _P]),
     "flash_heads_fwd": ("flash_heads", "pio_flash_heads_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _P]),

@@ -15,7 +15,9 @@
 // What bounds it: at the Perceiver IO image classifier's cross-attention
 // (512 latents over 50176 pixels, one head of 264 channels) the work is
 // 4 * 512 * 50176 * 264 = 27.1 GFLOP per image against ~107 MB of operands:
-// bound by arithmetic, on the CUDA cores (f32 parity forbids TF32). Its
+// bound by arithmetic, on the CUDA cores (one TF32 product would miss the
+// f32 parity tolerance; K2's split-TF32 tiles are the way to the tensor
+// cores). Its
 // design answers three problems of that shape:
 //
 // - width: a 264-wide (up to 512) row fits neither in a thread's registers
@@ -29,11 +31,13 @@
 //   CTAs at batch 1 against 132 SMs, each walking 784 kv tiles. The kv walk
 //   is split across `nsplit` CTAs (grid z, chosen by the wrapper); each
 //   writes its unnormalized partial (acc, m, l) to a scratch buffer and a
-//   second pass merges the splits in a fixed order, as K3 does;
+//   second pass (flash_merge.cuh) merges the splits in a fixed order, as K3
+//   does;
 // - tails: rows past Nq and kv rows past Nkv are staged as zeros and masked;
 //   the wrapper pads odd head dims to a multiple of 8.
 
 #include "flash_heads.cuh"
+#include "flash_merge.cuh"
 
 namespace {
 
@@ -180,42 +184,6 @@ __global__ void __launch_bounds__(NT, 1) heads_fwd_kernel(
   }
 }
 
-// merges the splits' partials of one row per warp, in split order
-__global__ void __launch_bounds__(256) heads_combine_kernel(const float* __restrict__ part, float* __restrict__ o,
-                                                            float* __restrict__ lse, long rows, int dv, int nsplit) {
-  const long row = (long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const float* ml = part + (long)nsplit * rows * dv;
-  float mm = -CUDART_INF_F;
-  for (int z = 0; z < nsplit; ++z) mm = fmaxf(mm, ml[2 * (z * rows + row)]);
-  float ll = 0.f;
-  for (int z = 0; z < nsplit; ++z) {
-    const float mz = ml[2 * (z * rows + row)];
-    if (mz != -CUDART_INF_F) ll = fmaf(ml[2 * (z * rows + row) + 1], expf(mz - mm), ll);
-  }
-  const float inv = ll == 0.f ? 1.f : 1.f / ll;
-  for (int c = 4 * lane; c < dv; c += 128) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int z = 0; z < nsplit; ++z) {
-      const float mz = ml[2 * (z * rows + row)];
-      if (mz == -CUDART_INF_F) continue;
-      const float wz = expf(mz - mm);
-      const float4 x = ld4(part + (z * rows + row) * dv + c);
-      a.x = fmaf(wz, x.x, a.x);
-      a.y = fmaf(wz, x.y, a.y);
-      a.z = fmaf(wz, x.z, a.z);
-      a.w = fmaf(wz, x.w, a.w);
-    }
-    a.x *= inv;
-    a.y *= inv;
-    a.z *= inv;
-    a.w *= inv;
-    *reinterpret_cast<float4*>(o + row * dv + c) = a;
-  }
-  if (lane == 0) lse[row] = mm + logf(ll == 0.f ? 1.f : ll);
-}
-
 template <int DMAX>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias, float* o, float* lse,
                    float* part, int bh, int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale,
@@ -230,9 +198,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   kernel<<<grid, NT, smem, stream>>>(q, k, v, bias, o, lse, part, nq, nkv, h, dqk, dv, causal, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  const long rows = (long)bh * nq;
-  heads_combine_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(part, o, lse, rows, dv, nsplit);
-  return cudaGetLastError();
+  return pio::merge_splits(part, o, lse, (long)bh * nq, dv, nsplit, stream);
 }
 
 }  // namespace

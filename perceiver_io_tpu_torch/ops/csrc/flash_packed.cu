@@ -1,249 +1,141 @@
-// K2: packed flash attention forward for Hopper (sm_90a), plain CUDA C++.
+// K2: packed flash attention forward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel perceiver_io_tpu/ops/flash_attention.py
 // _fwd_packed_kernel (reached from _flash_packed_fwd_impl via
 // flash_attention_packed). Same function: online-softmax attention over the
-// packed (B, N, H*D) layout, right-aligned causal mask j <= i + (nkv - nq)
-// from the unpadded lengths, an additive f32 kv bias row (0 or the finite
+// packed (B, N, H*D) layout, a head being a strided column slice (row stride
+// H*D, no transpose copy), right-aligned causal mask j <= i + (nkv - nq) from
+// the unpadded lengths, an additive f32 kv bias row (0 or the finite
 // MASK_VALUE), f32 running max / sum / accumulator, the l == 0 guard, and the
-// per-row logsumexp (B, Nq, H) the backward will need.
+// per-row logsumexp (B, Nq, H) that K4a/K4b read. Keys past a row's causal
+// limit (or past nkv) never enter its softmax; a row whose visible keys all
+// carry MASK_VALUE gets the uniform average of those keys' values; a row that
+// sees no key gets 0 and logsumexp -inf, like the plain version in
+// ops/flash_attention.py.
 //
-// What bounds it: at the flagship prefill (Nq = 512 latents over Nkv = 16384
-// keys, D = 64) the work is ~17 GFLOP against ~35 MB of operands, far above
-// the card's operations-per-byte line, so it is bound by arithmetic. The f32
-// path must keep full f32 products (TF32 would miss the parity tolerance), so
-// this version runs them on the CUDA cores (no wgmma, no TMA). Its design is
-// about feeding those FMAs from shared memory without stalls:
+// What bounds it: 4 * D * (visible pairs) operations against a few bytes per
+// pair, far above the card's operations-per-byte line, so arithmetic. The
+// f32 build keeps f32-accurate products on the tensor cores by splitting
+// each operand into two TF32 parts and summing three TF32 products
+// (flash_mma.cuh), so its peak is a third of the 495 TFLOP/s TF32 rate:
+// 165 TFLOP/s. At the main path's shapes that bounds it at 0.104 ms (the
+// image classifier's self-attention, 512 x 512, 8 heads of 128, batch 16),
+// 0.208 ms (the CLM's training cross-attention, 1024 over 8704 keys, 8 heads
+// of 64, batch 2) and 0.102 ms (the serving prefill, 512 over 16384 keys,
+// batch 1). The bf16 build runs the same tiles with bf16 products (one for
+// S, two for P.V with P split in two bf16 parts).
 //
-// - one CTA per (q-block of 32 rows, head, batch): 128 CTAs at the flagship
-//   prefill, about one per SM; eight threads share a query row;
-// - the thread's query row lives in registers, so a score costs one
-//   shared-memory load (a float4 of K) per four FMAs; K/V tiles of 64 rows are
-//   staged in shared memory with rows padded to a multiple of four words, so
-//   the eight threads of a row read eight consecutive K rows without bank
-//   conflicts;
-// - P@V: each thread owns DMAX/8 output channels as float4 chunks 32 words
-//   apart, so the eight threads of a row cover 32 consecutive banks.
+// Design (flash_mma.cuh holds the tiles, the fragment layouts and the bank
+// arithmetic): one CTA of 4 warps per (64-row q block, head, batch, split),
+// 16 query rows a warp; K, V and the bias row double-buffered by cp.async;
+// the walk stops at the last tile the block's causal limit can see, and
+// only tiles that cross a warp's limit or the end of the keys pay for the
+// mask. Too few CTAs: the serving prefill's 512 latents x 8 heads x batch 1
+// give 64 q blocks for 264 CTA slots (two an SM), so the wrapper
+// (ops/flash_attention.py packed_kv_splits) splits the f32 kv walk across
+// the slots one CTA per q block leaves idle, never into a second wave; each
+// split writes its unnormalized partial and a second pass (flash_merge.cuh)
+// merges them in a fixed order, with no atomics. The training shapes fill
+// the card unsplit.
 //
-// A head is a strided column slice of the packed rows (row stride H*D), so no
-// transpose copy is made. The kv loop stops at the last tile the block's
-// causal limit can see; keys past a row's own limit (or past nkv) never enter
-// its softmax. A row whose visible keys all carry MASK_VALUE gets the uniform
-// average of those keys' values, like the plain version in
-// ops/flash_attention.py. Moving the products onto the tensor cores (bf16
-// wgmma) is later work.
+// wgmma is the way to the full TF32 rate, but a TF32 wgmma takes both
+// operands K-major, so P.V would need V transposed in shared memory: later
+// work.
 
-#include "common.cuh"
+#include "flash_merge.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 32;          // query rows per CTA
-constexpr int BKV = 64;         // kv rows per shared-memory tile
-constexpr int TPR = 8;          // threads per query row
-constexpr int NT = BQ * TPR;    // 256 threads
-constexpr int SC = BKV / TPR;   // scores each thread holds per kv tile
+using namespace pio::mma;
 
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162 a = reinterpret_cast<const __nv_bfloat162*>(p)[0];
-  const __nv_bfloat162 b = reinterpret_cast<const __nv_bfloat162*>(p)[1];
-  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
-}
-
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT) flash_packed_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
-    int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale) {
+template <typename P>
+__global__ void __launch_bounds__(NT, P::MIN_BLOCKS) flash_packed_kernel(
+    const typename P::T* __restrict__ q, const typename P::T* __restrict__ k, const typename P::T* __restrict__ v,
+    const float* __restrict__ bias, typename P::T* __restrict__ o, float* __restrict__ lse,
+    float* __restrict__ part, int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale, int nsplit) {
+  using T = typename P::T;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldk = dqk + 4;   // rows stay 16-byte aligned; +4 words shifts banks
-  const int ldv = dv + 4;
-  const int ldp = BKV + 1;
-  float* sk = smem;
-  float* sv = sk + BKV * ldk;
-  float* sp = sv + BKV * ldv;
-  float* sb = sp + BQ * ldp;
-
-  const int q0 = blockIdx.x * BQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;    // this thread's query row within the block
-  const int sub = tid % TPR;  // its place among the row's eight threads
-  const int i = q0 + r;
-
-  const long row_qk = (long)h * dqk;
-  const long row_v = (long)h * dv;
-  const T* qh = q + (long)b * nq * row_qk + (long)head * dqk;
+  T* smem = reinterpret_cast<T*>(smem4);
+  const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z / nsplit, z = blockIdx.z % nsplit;
+  const long row_qk = (long)h * dqk, row_v = (long)h * dv;
   const T* kh = k + (long)b * nkv * row_qk + (long)head * dqk;
   const T* vh = v + (long)b * nkv * row_v + (long)head * dv;
+  const float* brow = bias == nullptr ? nullptr : bias + (long)b * nkv;
+  P::stage_q(smem, q + (long)b * nq * row_qk + (long)head * dqk, row_qk, q0, nq, dqk);
 
-  float qr[DMAX];
-#pragma unroll
-  for (int c4 = 0; c4 < DMAX / 4; ++c4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < nq && 4 * c4 < dqk) x = load4(qh + (long)i * row_qk + 4 * c4);
-    qr[4 * c4] = x.x;
-    qr[4 * c4 + 1] = x.y;
-    qr[4 * c4 + 2] = x.z;
-    qr[4 * c4 + 3] = x.w;
-  }
+  // the block's visible kv tiles, then this split's contiguous share
+  const int off = causal ? nkv - nq : NO_LIMIT;
+  const int kv_end = causal ? max(0, min(nkv, min(q0 + BQ, nq) + off)) : nkv;
+  const int n_tiles = (kv_end + P::BKV - 1) / P::BKV;
+  const int per = (n_tiles + nsplit - 1) / nsplit;
+  const int t_begin = min(n_tiles, z * per), t_end = min(n_tiles, t_begin + per);
+  const int i0 = q0 + 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2);
 
-  const int offset = nkv - nq;
-  int kv_end = nkv;
-  if (causal) kv_end = min(nkv, min(q0 + BQ, nq) + offset);
+  State<P::DMAX> st;
+  st.init();
+  walk<P>(st, smem, t_begin, t_end, [&](int t) { return Tile<T>{kh, vh, brow, t * P::BKV, nkv, off}; }, row_qk,
+          row_v, i0, dqk, dv, sm_scale);
 
-  float m = -CUDART_INF_F;
-  float l = 0.f;
-  float acc[DMAX / 8];
-#pragma unroll
-  for (int cc = 0; cc < DMAX / 8; ++cc) acc[cc] = 0.f;
-
-  for (int j0 = 0; j0 < kv_end; j0 += BKV) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BKV * (dqk / 4); idx += NT) {
-      const int rr = idx / (dqk / 4), c = 4 * (idx - rr * (dqk / 4)), gj = j0 + rr;
-      const float4 x = gj < nkv ? load4(kh + (long)gj * row_qk + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(sk + rr * ldk + c) = x;
-    }
-    for (int idx = tid; idx < BKV * (dv / 4); idx += NT) {
-      const int rr = idx / (dv / 4), c = 4 * (idx - rr * (dv / 4)), gj = j0 + rr;
-      const float4 x = gj < nkv ? load4(vh + (long)gj * row_v + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(sv + rr * ldv + c) = x;
-    }
-    if (tid < BKV) {
-      const int gj = j0 + tid;
-      sb[tid] = (bias != nullptr && gj < nkv) ? bias[(long)b * nkv + gj] : 0.f;
-    }
-    __syncthreads();
-
-    float s[SC];
-    float tmax = -CUDART_INF_F;
-#pragma unroll
-    for (int t = 0; t < SC; ++t) {
-      const int jj = sub + TPR * t;
-      const int j = j0 + jj;
-      const float* kr = sk + jj * ldk;
-      float dot = 0.f;
-#pragma unroll
-      for (int c4 = 0; c4 < DMAX / 4; ++c4) {
-        if (4 * c4 < dqk) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr + 4 * c4);
-          dot = fmaf(qr[4 * c4], kk.x, dot);
-          dot = fmaf(qr[4 * c4 + 1], kk.y, dot);
-          dot = fmaf(qr[4 * c4 + 2], kk.z, dot);
-          dot = fmaf(qr[4 * c4 + 3], kk.w, dot);
-        }
-      }
-      const bool visible = j < nkv && (!causal || j <= i + offset);
-      const float val = visible ? dot * sm_scale + sb[jj] : -CUDART_INF_F;
-      s[t] = val;
-      tmax = fmaxf(tmax, val);
-    }
-#pragma unroll
-    for (int w = 1; w < TPR; w <<= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, w));
-    const float m_new = fmaxf(m, tmax);
-    // a row with nothing visible yet keeps p = 0 and alpha = 0 (no inf - inf)
-    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-    const float alpha = expf(m - m_use);
-    float psum = 0.f;
-    float* pr = sp + r * ldp;
-#pragma unroll
-    for (int t = 0; t < SC; ++t) {
-      const float p = expf(s[t] - m_use);
-      psum += p;
-      pr[sub + TPR * t] = p;
-    }
-#pragma unroll
-    for (int w = 1; w < TPR; w <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, w);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // the row's eight threads share pr, all in this warp
-
-#pragma unroll
-    for (int cc = 0; cc < DMAX / 8; ++cc) acc[cc] *= alpha;
-#pragma unroll 4
-    for (int jj = 0; jj < BKV; ++jj) {
-      const float p = pr[jj];
-      const float* vr = sv + jj * ldv;
-#pragma unroll
-      for (int g = 0; g < DMAX / 32; ++g) {
-        const int c = 4 * sub + 32 * g;
-        if (c < dv) {
-          const float4 vv = *reinterpret_cast<const float4*>(vr + c);
-          acc[4 * g] = fmaf(p, vv.x, acc[4 * g]);
-          acc[4 * g + 1] = fmaf(p, vv.y, acc[4 * g + 1]);
-          acc[4 * g + 2] = fmaf(p, vv.z, acc[4 * g + 2]);
-          acc[4 * g + 3] = fmaf(p, vv.w, acc[4 * g + 3]);
-        }
-      }
-    }
-  }
-
-  if (i < nq) {  // padded query rows are never written
-    const float inv = l == 0.f ? 1.f : 1.f / l;
-    T* orow = o + ((long)b * nq + i) * row_v + (long)head * dv;
-#pragma unroll
-    for (int g = 0; g < DMAX / 32; ++g) {
-      const int c = 4 * sub + 32 * g;
-      if (c < dv) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) orow[c + e] = pio::from_f32<T>(acc[4 * g + e] * inv);
-      }
-    }
-    if (sub == 0) lse[((long)b * nq + i) * h + head] = m + logf(l == 0.f ? 1.f : l);
+  // output rows (b, i, head) in the packed (B, Nq, H * Dv) order
+  const long rows = (long)(gridDim.z / nsplit) * nq * h;
+  auto row = [&](int i) { return ((long)b * nq + i) * h + head; };
+  if (nsplit == 1) {
+    store<P::DMAX>(st, i0, nq, dv, [&](int i) { return o + row(i) * dv; }, [&](int i) { return lse + row(i); });
+  } else {
+    store_partial<P::DMAX>(st, i0, nq, dv, [&](int i) { return part + ((long)z * rows + row(i)) * dv; },
+                           [&](int i) { return part + (long)nsplit * rows * dv + 2 * ((long)z * rows + row(i)); });
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* o,
-                   float* lse, int batch, int nq, int nkv, int h, int dqk, int dv, int causal,
-                   float sm_scale, cudaStream_t stream) {
-  const size_t floats = (size_t)BKV * (dqk + 4) + (size_t)BKV * (dv + 4) +
-                        (size_t)BQ * (BKV + 1) + BKV;
-  const size_t smem = floats * sizeof(float);
-  auto kernel = flash_packed_fwd_kernel<T, DMAX>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename P>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* o, float* lse, float* part,
+                   int batch, int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale, int nsplit,
+                   cudaStream_t stream) {
+  using T = typename P::T;
+  auto kernel = flash_packed_kernel<P>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + BQ - 1) / BQ, h, batch);
-  kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), bias, static_cast<T*>(o), lse,
-                                     nq, nkv, h, dqk, dv, causal, sm_scale);
-  return cudaGetLastError();
+  const dim3 grid((nq + BQ - 1) / BQ, h, batch * nsplit);
+  kernel<<<grid, NT, P::BYTES, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                         static_cast<const T*>(v), bias, static_cast<T*>(o), lse, part, nq, nkv, h,
+                                         dqk, dv, causal, sm_scale, nsplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  return pio::merge_splits(part, static_cast<float*>(o), lse, (long)batch * nq * h, dv, nsplit, stream);
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias, void* o,
-                     float* lse, int batch, int nq, int nkv, int h, int dqk, int dv, int causal,
-                     float sm_scale, cudaStream_t stream) {
+template <template <int> class P>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
+                     float* part, int batch, int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale,
+                     int nsplit, cudaStream_t s) {
   const int dmax = dqk > dv ? dqk : dv;
   if (dmax <= 32)
-    return launch<T, 32>(q, k, v, bias, o, lse, batch, nq, nkv, h, dqk, dv, causal, sm_scale, stream);
+    return launch<P<32>>(q, k, v, bias, o, lse, part, batch, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
   if (dmax <= 64)
-    return launch<T, 64>(q, k, v, bias, o, lse, batch, nq, nkv, h, dqk, dv, causal, sm_scale, stream);
-  return launch<T, 128>(q, k, v, bias, o, lse, batch, nq, nkv, h, dqk, dv, causal, sm_scale, stream);
+    return launch<P<64>>(q, k, v, bias, o, lse, part, batch, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
+  return launch<P<128>>(q, k, v, bias, o, lse, part, batch, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
 }
 
 }  // namespace
 
-// q (B, Nq, H*Dqk), k (B, Nkv, H*Dqk), v (B, Nkv, H*Dv), all contiguous and of
-// one dtype (0 = f32, 1 = bf16); bias (B, Nkv) f32 or null; o (B, Nq, H*Dv) in
-// the input dtype; lse (B, Nq, H) f32. Returns a cudaError_t (0 = launched).
-extern "C" int pio_flash_packed_fwd(const void* q, const void* k, const void* v,
-                                    const float* bias, void* o, float* lse, int batch, int nq,
-                                    int nkv, int h, int dqk, int dv, int causal, float sm_scale,
-                                    int dtype, void* stream) {
+// q (B, Nq, H*Dqk), k (B, Nkv, H*Dqk), v (B, Nkv, H*Dv), all contiguous,
+// 16-byte aligned and of one dtype (0 = f32, 1 = bf16), head dims multiples
+// of 8 up to 128; bias (B, Nkv) f32 or null; o (B, Nq, H*Dv) in the input
+// dtype; lse (B, Nq, H) f32; the kv walk split `nsplit` ways (f32 only) with
+// part a scratch of nsplit * B * Nq * H * (Dv + 2) floats when nsplit > 1,
+// else unused. Returns a cudaError_t (0 = launched).
+extern "C" int pio_flash_packed_fwd(const void* q, const void* k, const void* v, const float* bias, void* o,
+                                    float* lse, float* part, int batch, int nq, int nkv, int h, int dqk, int dv,
+                                    int causal, float sm_scale, int nsplit, int dtype, void* stream) {
   if (batch <= 0 || nq <= 0 || h <= 0) return cudaSuccess;
-  if (dqk <= 0 || dv <= 0 || dqk % 8 || dv % 8 || dqk > 128 || dv > 128 || nkv < 0 ||
-      h > 65535 || batch > 65535)
+  if (dqk <= 0 || dv <= 0 || dqk % 8 || dv % 8 || dqk > 128 || dv > 128 || nkv < 0 || h > 65535 ||
+      nsplit < 1 || (long)batch * nsplit > 65535 || (nsplit > 1 && (part == nullptr || dtype != pio::kF32)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == pio::kF32)
-    return dispatch<float>(q, k, v, bias, o, lse, batch, nq, nkv, h, dqk, dv, causal, sm_scale, s);
+    return dispatch<F32>(q, k, v, bias, o, lse, part, batch, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
   if (dtype == pio::kBF16)
-    return dispatch<__nv_bfloat16>(q, k, v, bias, o, lse, batch, nq, nkv, h, dqk, dv, causal,
-                                   sm_scale, s);
+    return dispatch<BF16>(q, k, v, bias, o, lse, part, batch, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
   return cudaErrorInvalidValue;
 }

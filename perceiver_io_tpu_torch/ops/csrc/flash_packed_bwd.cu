@@ -22,9 +22,11 @@
 // 8704 keys, D = 64, batch 2) K4a does four products of 2*D operations per
 // visible (query, key) pair and K4b three, ~69 and ~52 GFLOP against ~100 MB
 // of operands, far above the card's operations-per-byte line: bound by
-// arithmetic. f32 parity forbids TF32, so the products run on the CUDA cores
-// (no wgmma, no TMA), laid out as register-tiled GEMMs (the helpers live in
-// flash_tiles.cuh, shared with the two-segment backward):
+// arithmetic. One TF32 product would miss the f32 parity tolerance, so the
+// products run on the CUDA cores (no wgmma, no TMA; K2's split-TF32 tiles in
+// flash_mma.cuh are the way to the tensor cores), laid out as register-tiled
+// GEMMs (the helpers live in flash_tiles.cuh, shared with the two-segment
+// backward):
 //
 // - every 64 x 64 product tile (S = Q K^T, dP = dO V^T) is split over 256
 //   threads as 4 x 4 micro-tiles with strided rows {ty + 16e} and columns

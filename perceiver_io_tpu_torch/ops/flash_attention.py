@@ -232,6 +232,37 @@ def _head_dims(q, v, num_heads):
     return d_qk, d_v
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _kv_splits(bh: int, nq: int, q_rows: int, n_tiles: int, sms: int) -> int:
+    """How many CTAs the kv walk of each q block is split across (K2, K6,
+    K8, K9b): as many as fill the ``sms`` CTA slots that one CTA per q block
+    leaves idle (one slot an SM for the heads-major kernels), and no more.
+    A split never adds a wave: each split writes a partial the merge pass
+    reads back, so it pays only on an SM that would otherwise idle. At
+    least 8 tiles a split, at most 64 splits."""
+    base = bh * -(-nq // q_rows)
+    return max(1, min(sms // base, n_tiles // 8, 64))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def packed_kv_splits(batch: int, num_heads: int, nq: int, nkv: int, d_max: int, sms: int) -> int:
+    """How many CTAs K2's f32 kernel (and K6, over its two segments' keys)
+    splits each q block's kv walk across: :func:`_kv_splits` over their
+    64-row q blocks, two CTA slots an SM (their shared memory allows two at
+    every head dim) and their kv tiles (64 rows up to head dim 64, 32 above:
+    ``csrc/flash_mma.cuh``). The serving prefill (512 latents x 8 heads x
+    batch 1 over 16384 keys) takes 4, K6's eval window 2; the training
+    shapes fill the card unsplit."""
+    kv_rows = 64 if d_max <= 64 else 32
+    return _kv_splits(batch * num_heads, nq, 64, -(-nkv // kv_rows), 2 * sms)
+
+
 def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
     _check_cuda_operands((q, k, v), tuple(_DTYPE_CODES), "flash_attention_packed")
     b, nq, nkv, h = q.shape[0], q.shape[1], k.shape[1], num_heads
@@ -239,11 +270,12 @@ def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
     q, k, v = _ready(q), _ready(k), _ready(v)
     o = torch.empty((b, nq, h * d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
+    # the bf16 build takes no split (the merge pass writes f32)
+    nsplit = packed_kv_splits(b, h, nq, nkv, max(d_qk, d_v), _sms(q.device)) if q.dtype == torch.float32 else 1
+    part = torch.empty(nsplit * b * nq * h * (d_v + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     err = build.launcher("flash_packed_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        o.data_ptr(), lse.data_ptr(),
-        b, nq, nkv, h, d_qk, d_v, int(bool(causal)), float(sm_scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(), lse.data_ptr(), _ptr(part),
+        b, nq, nkv, h, d_qk, d_v, int(bool(causal)), float(sm_scale), nsplit,
         _DTYPE_CODES[q.dtype], build.current_stream(q.device),
     )
     build.check(err, "flash_packed_fwd")
@@ -435,10 +467,6 @@ def flash_attention_packed_2seg_bwd_reference(
                            sm_scale)
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def _fwd_2seg_cuda(q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale):
     _check_cuda_operands((q, k_p, v_p, k_l, v_l), (torch.float32,), "flash_attention_packed_2seg")
     b, nq, n_p, h = q.shape[0], q.shape[1], k_p.shape[1], num_heads
@@ -446,9 +474,11 @@ def _fwd_2seg_cuda(q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale):
     q, k_p, v_p, k_l, v_l = (_ready(t) for t in (q, k_p, v_p, k_l, v_l))
     o = torch.empty((b, nq, h * d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
+    nsplit = packed_kv_splits(b, h, nq, n_p + nq, max(d_qk, d_v), _sms(q.device))
+    part = torch.empty(nsplit * b * nq * h * (d_v + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     err = build.launcher("flash_2seg_fwd")(
         *(t.data_ptr() for t in (q, k_p, v_p, k_l, v_l)), _ptr(bias_p), _ptr(bias_l), o.data_ptr(), lse.data_ptr(),
-        b, nq, n_p, h, d_qk, d_v, float(sm_scale), build.current_stream(q.device),
+        _ptr(part), b, nq, n_p, h, d_qk, d_v, float(sm_scale), nsplit, build.current_stream(q.device),
     )
     build.check(err, "flash_2seg_fwd")
     build.count_launch("flash_2seg_fwd")
@@ -630,21 +660,6 @@ def flash_attention_bwd_reference(
 def _heads_dims(dqk: int, dv: int) -> None:
     if not all(d % 8 == 0 and 8 <= d <= 512 for d in (dqk, dv)):
         raise ValueError(f"heads-major kernels take head dims that are multiples of 8 up to 512, got {(dqk, dv)}")
-
-
-def _kv_splits(bh: int, nq: int, q_rows: int, n_tiles: int, sms: int) -> int:
-    """How many CTAs the kv walk of each q block is split across (K8, K9b):
-    as many as fill the SMs that one CTA per q block leaves idle, at one CTA
-    an SM (the wide-head buckets' occupancy), and no more. A split never adds
-    a wave: each split writes a partial the merge pass reads back, so it pays
-    only on an SM that would otherwise idle. At least 8 tiles a split, at
-    most 64 splits."""
-    base = bh * -(-nq // q_rows)
-    return max(1, min(sms // base, n_tiles // 8, 64))
-
-
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def heads_fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):

@@ -27,15 +27,27 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,nq,nkv,n_pad", [(True, 37, 203, 5), (False, 64, 64, 0), (True, 130, 130, 0)])
-def test_flash_packed_kernel_matches_plain(cuda, dtype, causal, nq, nkv, n_pad):
+@pytest.mark.parametrize("d", [40, 64, 128])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [
+    (True, 37, 203, 5),     # Nq < Nkv right-aligned, left-padded keys
+    (False, 64, 64, 0),
+    (True, 130, 130, 0),
+    (True, 100, 100, 37),   # rows 0-36 see only padded keys: their uniform average
+    (True, 90, 40, 0),      # Nq > Nkv: 50 rows see no key (0, logsumexp -inf)
+    (False, 70, 333, 200),  # more padding than three kv tiles
+])
+def test_flash_packed_kernel_matches_plain(cuda, dtype, d, causal, nq, nkv, n_pad):
+    """K2 (split-TF32 products on the tensor cores in f32, bf16 products in
+    bf16) against the plain version, out and logsumexp, at head dims 40, 64
+    and 128 and lengths that are not multiples of the kernel's 16-row
+    fragments or 64-row tiles."""
     from perceiver_io_tpu_torch.ops.flash_attention import (
         flash_attention_packed,
         flash_attention_packed_reference,
     )
 
     g = torch.Generator().manual_seed(0)
-    h, d = 4, 64
+    h = 4
     q, k, v = (torch.randn(2, n, h * d, generator=g).to(cuda, dtype) for n in (nq, nkv, nkv))
     pad = torch.zeros(2, nkv, dtype=torch.bool, device=cuda)
     pad[1, :n_pad] = True
@@ -43,6 +55,36 @@ def test_flash_packed_kernel_matches_plain(cuda, dtype, causal, nq, nkv, n_pad):
     ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal, sm_scale=d**-0.5)
     tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=2**-7)
     torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,n_pad", [(True, 0), (True, 3001), (False, 0)])
+def test_flash_packed_kernel_split_walk_matches_plain(cuda, d, causal, n_pad):
+    """The serving prefill's kind of call (batch 1, 8 heads, 512 queries over
+    4100 keys) takes K2's kv split: the walk is split across CTAs and the
+    partials merged by a second pass. Out and logsumexp against the plain
+    version, tolerances as above."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_reference,
+        packed_kv_splits,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    h, nq, nkv = 8, 512, 4100
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert packed_kv_splits(1, h, nq, nkv, d, sms) > 1
+    q = (torch.randn(1, nq, h * d, generator=g) * d**-0.5).to(cuda)
+    k, v = (torch.randn(1, nkv, h * d, generator=g).to(cuda) for _ in range(2))
+    pad = torch.zeros(1, nkv, dtype=torch.bool, device=cuda)
+    pad[:, :n_pad] = True
+    build.reset_launches()
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
+    assert build.LAUNCHES["flash_packed_fwd"] == 1
+    ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
+    torch.testing.assert_close(o, ro, atol=1e-5, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
 
 
@@ -405,6 +447,41 @@ def test_flash_2seg_kernels_match_plain(cuda, d, n_p, nq, n_pad):
     for got, w in zip((t.grad for t in ops), want):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+@pytest.mark.parametrize("b,h,n_p,nq,n_pad,split", [
+    (2, 4, 1000, 130, 0, False),  # a walk of 16 prefix tiles, the seam inside a tile
+    (2, 4, 777, 70, 700, False),  # the first latents' visible keys mostly padded
+    (2, 4, 3, 200, 3, False),     # every prefix key padded: row i averages latents 0..i
+    (1, 8, 5000, 130, 0, True),   # 24 q blocks for 264 CTA slots: the walk split, partials merged
+    (1, 8, 5000, 130, 4500, True),
+])
+def test_flash_2seg_forward_long_walk_matches_plain(cuda, d, b, h, n_p, nq, n_pad, split):
+    """K6 (split-TF32 products on the tensor cores, K2's tiles) over walks
+    longer than its double buffer, split across CTAs where the grid is
+    small; out and logsumexp against the plain two-segment version,
+    tolerances as for K2."""
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed_2seg,
+        flash_attention_packed_2seg_reference,
+        packed_kv_splits,
+    )
+
+    g = torch.Generator().manual_seed(13)
+    if split:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert packed_kv_splits(b, h, nq, n_p + nq, d, sms) > 1
+    q = (torch.randn(b, nq, h * d, generator=g) * d**-0.5).to(cuda)
+    k_l, v_l = (torch.randn(b, nq, h * d, generator=g).to(cuda) for _ in range(2))
+    k_p, v_p = (torch.randn(b, n_p, h * d, generator=g).to(cuda) for _ in range(2))
+    pad_p = torch.zeros(b, n_p, dtype=torch.bool, device=cuda)
+    pad_p[-1, :n_pad] = True
+    ops = (q, k_p, v_p, k_l, v_l)
+    o, lse = flash_attention_packed_2seg(*ops, h, pad_mask_prefix=pad_p, return_lse=True)
+    ro, rlse = flash_attention_packed_2seg_reference(*ops, h, pad_mask_prefix=pad_p)
+    torch.testing.assert_close(o, ro, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
 
 
 def test_flash_2seg_takes_f32_only(cuda):
