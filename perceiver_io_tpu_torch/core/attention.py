@@ -21,7 +21,10 @@ Routes, each numerically the JAX package's:
   slots, scores in f32, masked by the slot validity, the pad mask and the
   right-aligned causal mask;
 - paged cache (the engine's batched one-token step): page-indexed append,
-  then the paged decode kernel K3 (``ops.paged_attention``).
+  then, by the pools' geometry, the paged decode kernel K3
+  (``ops.paged_attention``: f32 pools, head dims up to 128) or, where the
+  JAX package gathers too (or on the CPU), the gather route (the contiguous
+  view of every slot's pages, then the dense path).
 
 Keys are rotated once at write (rotate-at-write); ``rope_k`` covers only the
 tokens being appended. Queries are scaled by ``Dqk**-0.5`` before rotation.
@@ -43,7 +46,11 @@ from perceiver_io_tpu_torch.ops.flash_attention import (
     flash_supported,
     packed_supported,
 )
-from perceiver_io_tpu_torch.ops.paged_attention import paged_decode_attention, paged_kernel_supported
+from perceiver_io_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_kernel_supported,
+    reference_kernel_geometry,
+)
 
 _NEG_MAX = -torch.finfo(torch.float32).max
 
@@ -198,10 +205,26 @@ class MultiHeadAttention(nn.Module):
         return o.reshape(b, n, self.v_channels)
 
     def _paged_decode_attend(self, q, cache: PagedKVCache, pad_mask, rope_q) -> AttentionOutput:
-        b = q.shape[0]
+        """One query per slot over the paged pools. The route is chosen by
+        the pools' geometry before anything launches: K3 where
+        ``paged_kernel_supported`` holds, else the gather route (one gather
+        per pool rebuilds the contiguous view, then the dense decode
+        attention of the contiguous cache) where the JAX package's own
+        kernel refuses the geometry and it gathers too, or where the pools
+        lie on the CPU. A pool on the card that the JAX package's kernel
+        serves and K3 does not (a bf16 pool, heads wider than 128) raises."""
+        b, h = q.shape[0], self.num_heads
+        if not paged_kernel_supported(cache, h, self.d_qk, self.d_v):
+            if cache.k.device.type != "cpu" and reference_kernel_geometry(cache, h, self.d_qk, self.d_v):
+                raise ValueError(f"paged pool of dtype {cache.k.dtype}, head dims {self.d_qk}/{self.d_v}: "
+                                 "the reference's paged kernel serves it, K3 does not")
+            k_slots, v_slots = cache.gather_view()
+            masked = torch.arange(cache.capacity, device=q.device)[None, :] >= cache.length[:, None]
+            if pad_mask is not None:
+                masked = masked | pad_mask[:, : cache.capacity]
+            o = self._dense(q, k_slots, v_slots, rope_q, masked[:, None, :])
+            return AttentionOutput(self.o_proj(o), cache)
         qh = self._scaled_query_heads(q, rope_q)[:, :, 0, :]  # (B, H, Dk)
-        if not paged_kernel_supported(cache, self.num_heads, self.d_qk, self.d_v):
-            raise ValueError(f"paged pool of dtype {cache.k.dtype} / Dv {self.d_v} is not supported")
         # slot validity (j >= length) is applied by the paged attention itself
         mask = None if pad_mask is None else pad_mask[:, : cache.capacity]
         o = paged_decode_attention(qh, cache, mask)  # (B, H, Dv)

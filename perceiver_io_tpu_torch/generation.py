@@ -60,8 +60,11 @@ def _filtered_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Te
     if config.top_p is not None:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-        # number of tokens needed to reach top_p mass (at least 1)
-        cutoff_idx = torch.sum(cum < config.top_p, dim=-1, keepdim=True)
+        # number of tokens needed to reach top_p mass (at least 1); V when the
+        # f32 mass of all V stays below top_p (top_p > 1, or a sum that ends
+        # at 0.99999994), where the last entry's logit keeps every entry, as
+        # the JAX function's out-of-range take keeps them all
+        cutoff_idx = torch.sum(cum < config.top_p, dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
         cutoff_logit = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = logits.masked_fill(logits < cutoff_logit, float("-inf"))
     return logits

@@ -30,10 +30,11 @@
 // kept prefix rows + 1024 latents, D = 64, batch 2) K7a does four products
 // of 2*D operations per visible (query, key) pair and K7b three, ~69 and
 // ~52 GFLOP against ~100 MB of operands: bound by arithmetic, on the CUDA
-// cores (f32 parity forbids TF32). The products are K4's register-tiled
-// GEMMs (flash_tiles.cuh): 4 x 4 micro-tiles, P and dS through shared
-// memory, one CTA per (64-row block, head, batch), 128 registers a thread up
-// to D = 64 so two CTAs share an SM.
+// cores (one TF32 product misses the f32 parity tolerance; K4's split-TF32
+// tiles, flash_mma_bwd.cuh, are the way to the tensor cores). The products
+// are register-tiled GEMMs (flash_tiles.cuh): 4 x 4 micro-tiles, P and dS
+// through shared memory, one CTA per (64-row block, head, batch), 128
+// registers a thread up to D = 64 so two CTAs share an SM.
 
 #include "flash_tiles.cuh"
 

@@ -1,7 +1,7 @@
-// Register-tiled f32 building blocks of the flash backward kernels (K4a/K4b
-// in flash_packed_bwd.cu, K7a/K7b in flash_2seg_bwd.cu): 64-row tiles staged
-// in shared memory, 64 x 64 product tiles split over 256 threads as 4 x 4
-// micro-tiles with strided rows {ty + 16e} and columns {tx + 16f}.
+// Register-tiled f32 building blocks of the two-segment flash backward
+// kernels (K7a/K7b in flash_2seg_bwd.cu), on the CUDA cores: 64-row tiles
+// staged in shared memory, 64 x 64 product tiles split over 256 threads as
+// 4 x 4 micro-tiles with strided rows {ty + 16e} and columns {tx + 16f}.
 //
 // - tile_dot: each step of the depth loop reads four float4 of each operand
 //   from shared memory for 64 FMAs; rows padded to D + 4 words make the 16

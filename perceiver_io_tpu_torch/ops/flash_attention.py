@@ -66,7 +66,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # two-segment kernels (K6, K7a, K7b). "base2", "nobias", "fastmask" and
 # "slimstats" are TPU schedule trims that give the same output within
 # rounding, so the Hopper kernels implement only the default semantics; and
-# the port's paged decode always runs K3, so "paged" has nothing to switch.
+# the port's paged decode runs K3 wherever the pools' geometry allows (the
+# gather route where the JAX package's kernel refuses the geometry too, or on
+# the CPU: core/attention.py), so "paged" has nothing to switch.
 # The names are accepted so that a JAX caller's ``fast_kernels(True)`` works.
 ALL_FEATURES = frozenset({"base2", "nobias", "fastmask", "slimstats", "twoseg", "paged"})
 # a contextvar, not a module global: a scope cannot leak into another thread
@@ -124,8 +126,10 @@ def bias_row(pad_mask: Optional[torch.Tensor], b: int, nkv: int, device) -> Opti
 
 
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, N, H*D) -> (B, N, H, D) in f32 (f64 operands stay f64, so the
+    plain versions can be evaluated exactly on f64 copies of f32 inputs)."""
     b, n, c = t.shape
-    return t.float().reshape(b, n, h, c // h)
+    return (t if t.dtype == torch.float64 else t.float()).reshape(b, n, h, c // h)
 
 
 def _visible(nq: int, nkv: int, causal: bool, device) -> Optional[torch.Tensor]:

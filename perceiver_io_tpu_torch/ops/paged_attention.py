@@ -35,6 +35,14 @@ def paged_kernel_supported(cache, num_heads: int, d_qk: int, d_v: int) -> bool:
             and 1 <= d_qk <= 128 and 1 <= d_v <= 128)
 
 
+def reference_kernel_geometry(cache, num_heads: int, d_qk: int, d_v: int) -> bool:
+    """Whether the JAX package's page-walk kernel serves this geometry: its
+    gate takes any float pool with pages of at least 8 rows whose packed
+    head widths (H * D) are multiples of 128 lanes. Where it does not, the
+    JAX package gathers, and so may the port."""
+    return cache.page_size >= 8 and (num_heads * d_qk) % 128 == 0 and (num_heads * d_v) % 128 == 0
+
+
 def paged_attention_reference(qh: torch.Tensor, cache, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: gather view + dense attention; softmax in f32, value
     product in the storage dtype. ``qh`` (S, H, Dk) -> (S, H, Dv)."""

@@ -266,20 +266,26 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(layer_norm(x, w, b).float(), layer_norm_reference(x, w, b).float(), **tol)
 
 
-@pytest.mark.parametrize("d", [64, 40, 128])
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (40, 40), (128, 128), (32, 32), (64, 128), (128, 40)])
 @pytest.mark.parametrize("causal,nq,nkv,n_pad", [
     (True, 37, 203, 5),    # Nq < Nkv right-aligned, left-padded keys
     (False, 64, 64, 0),
     (True, 130, 130, 0),
     (True, 90, 40, 0),     # Nq > Nkv: 50 rows see no key, zero gradient
     (True, 40, 100, 30),   # more padding than one kv tile of K4b
+    (True, 77, 333, 0),    # neither length a multiple of 16
+    (False, 100, 1000, 17),  # a long kv walk, every q row, left pads
+    (True, 300, 173, 9),   # 127 rows see no key, the rest a ragged causal edge, left pads
+    (True, 1, 70, 0),      # one query row
 ])
-def test_flash_packed_bwd_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
+def test_flash_packed_bwd_kernels_match_plain(cuda, dqk, dv, causal, nq, nkv, n_pad):
     """K4a (dK/dV) and K4b (dQ) through the autograd Function against the
-    plain backward on the card, from the same saved o/lse. Tolerance: atol
-    1e-5 on f32 gradients up to ~5 (measured 0: the kernels and cuBLAS's
-    SIMT GEMMs both sum in sequential FMA order; 1e-5 allows a reordered
-    sum)."""
+    plain backward on the card, from the same saved o/lse, at the shapes the
+    tensor-core tiles make hard: lengths that are no multiple of 16 or 64,
+    Dqk != Dv, the 32 / 40 / 64 / 128 head dims, left pads, and rows that
+    see no key. Tolerance: atol 1e-5 on f32 gradients up to ~5 (the
+    kernels' f64 score products and split-TF32 gradient products keep f32
+    accuracy; the sums run in another order than the plain version's)."""
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.flash_attention import (
         flash_attention_packed,
@@ -288,17 +294,18 @@ def test_flash_packed_bwd_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
 
     g = torch.Generator().manual_seed(3)
     h = 4
-    q, k, v = (torch.randn(2, n, h * d, generator=g).to(cuda).requires_grad_() for n in (nq, nkv, nkv))
-    do = torch.randn(2, nq, h * d, generator=g).to(cuda)
+    q, k = (torch.randn(2, n, h * dqk, generator=g).to(cuda).requires_grad_() for n in (nq, nkv))
+    v = torch.randn(2, nkv, h * dv, generator=g).to(cuda).requires_grad_()
+    do = torch.randn(2, nq, h * dv, generator=g).to(cuda)
     pad = torch.zeros(2, nkv, dtype=torch.bool, device=cuda)
     pad[1, :n_pad] = True
-    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, sm_scale=d**-0.5, return_lse=True)
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, sm_scale=dqk**-0.5, return_lse=True)
     assert o.grad_fn is not None
     build.reset_launches()
     o.backward(do)
     assert build.LAUNCHES["flash_packed_bwd_dkv"] == 1 and build.LAUNCHES["flash_packed_bwd_dq"] == 1
     want = flash_attention_packed_bwd_reference(q.detach(), k.detach(), v.detach(), o.detach(), lse, do, h,
-                                                pad_mask=pad, causal=causal, sm_scale=d**-0.5)
+                                                pad_mask=pad, causal=causal, sm_scale=dqk**-0.5)
     for got, w in zip((q.grad, k.grad, v.grad), want):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, w, atol=1e-5, rtol=0)
@@ -402,6 +409,54 @@ def test_engine_serves_through_the_kernels(cuda):
             state, token = step(state)
             want.append(int(token[0]))
         assert engine.served_tokens[spec.index] == want
+
+
+def test_engine_serves_head_dim_160_by_the_gather_route(cuda):
+    """Pools K3 does not take (head dim 160: 320 channels in 2 heads) take the
+    gather route, chosen by geometry: K3 is never launched, and the served
+    stream equals the sequential one on the card."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd, RequestSpec
+
+    config = CausalLanguageModelConfig(vocab_size=64, max_seq_len=24, max_latents=8, num_channels=320,
+                                       num_heads=2, num_self_attention_layers=2)
+    model = CausalLanguageModel(config, device=cuda, generator=torch.Generator().manual_seed(0))
+    ids = np.random.default_rng(1).integers(0, 64, size=(1, 8))
+    engine = EngineFrontEnd(model, num_latents=4, device=cuda,
+                            engine_config=EngineConfig(slots=2, page_size=8, max_ca_tokens=24, max_sa_tokens=16))
+    build.reset_launches()
+    records = engine.run_closed([RequestSpec(0, 8, 4, ids, 0)], concurrency=1)
+    assert [r.outcome for r in records] == ["ok"]
+    assert build.LAUNCHES["paged_decode"] == 0 and build.LAUNCHES["flash_heads_fwd"] > 0, build.LAUNCHES
+    prefill, step = make_decode_fns(model, 4, GenerationConfig(max_new_tokens=4), device=cuda)
+    token, state = prefill(ids)
+    want = [int(token[0])]
+    for _ in range(3):
+        state, token = step(state)
+        want.append(int(token[0]))
+    assert engine.served_tokens[0] == want
+
+
+@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 64, torch.bfloat16)])
+def test_paged_decode_refuses_what_only_the_jax_kernel_serves(cuda, heads, d, dtype):
+    """Pools that the JAX package's paged kernel serves and K3 cannot take
+    (heads of 192, a bf16 pool) raise on the card before anything launches:
+    the gather route stands in only where the JAX package gathers too."""
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+    from perceiver_io_tpu_torch.core.cache import init_paged_kv_cache
+    from perceiver_io_tpu_torch.ops import build
+
+    c = heads * d
+    layer = MultiHeadAttention(heads, c, c, causal_attention=True).to(device=cuda, dtype=dtype)
+    cache = init_paged_kv_cache(2, 5, 8, 2, c, c, dtype=dtype, device=cuda)
+    cache.length[:] = 3
+    x = torch.randn(2, 1, c, device=cuda, dtype=dtype)
+    build.reset_launches()
+    with torch.no_grad(), pytest.raises(ValueError, match="K3 does not"):
+        layer(x, x, kv_cache=cache)
+    assert build.LAUNCHES["paged_decode"] == 0
 
 
 @pytest.mark.parametrize("d", [64, 40, 128])
