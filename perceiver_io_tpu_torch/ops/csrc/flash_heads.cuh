@@ -1,18 +1,18 @@
-// Shared building blocks of the heads-major flash kernels (K8 in
-// flash_heads.cu, K9a/K9b in flash_heads_bwd.cu): f32 operands (B*H, N, D)
-// with head dims up to 512, so no operand row fits in registers and a whole
-// 64-row tile of Q, K and V does not fit in shared memory at once. Tiles are
-// staged in 64-column chunks (or a few full-width rows) and every product is
-// a register-tiled GEMM over 256 threads, a 16 x 16 grid of (ty, tx):
+// Building blocks of the heads-major flash forward (K8 in flash_heads.cu;
+// its backward, K9a/K9b, runs on the tensor cores: flash_heads_bwd.cu): f32
+// operands (B*H, N, D) with head dims up to 512, so no operand row fits in
+// registers and a whole 64-row tile of Q, K and V does not fit in shared
+// memory at once. Tiles are staged in 64-column chunks (or a few full-width
+// rows) and every product is a register-tiled GEMM over 256 threads, a
+// 16 x 16 grid of (ty, tx):
 //
 // - dot: score-like products, acc[e][f] for rows ty + 16e of A and rows
 //   tx + 16f of B over one chunk's depth; rows padded to a stride of 4 mod 32
 //   words (or 4 * odd) keep the 16 column-threads' float4 reads free of bank
 //   conflicts;
-// - acc_rows: accumulating products (O += P V, dV += P^T dO, dK += dS^T Q,
-//   dQ += dS K), each thread owning float4 column 4tx of a 64-column chunk
-//   for rows ty + 16e; the output chunks stay in registers (DMAX / 64 of
-//   them), indexed at compile time.
+// - acc_rows: accumulating products (O += P V), each thread owning float4
+//   column 4tx of a 64-column chunk for rows ty + 16e; the output chunks
+//   stay in registers (DMAX / 64 of them), indexed at compile time.
 #pragma once
 
 #include "common.cuh"

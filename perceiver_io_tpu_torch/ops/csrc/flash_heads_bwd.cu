@@ -1,5 +1,5 @@
-// K9a + K9b: heads-major flash attention backward for Hopper (sm_90a), plain
-// CUDA C++, f32.
+// K9a + K9b: heads-major flash attention backward for Hopper (sm_90a), CUDA
+// C++, f32, on the tensor cores.
 //
 // Replaces the TPU kernels perceiver_io_tpu/ops/flash_attention.py
 // _dkv_kernel (K9a) and _dq_kernel (K9b), both reached from _flash_bwd via
@@ -7,43 +7,110 @@
 // P is recomputed from the forward's logsumexp,
 // p_ij = exp(sm_scale * q_i.k_j + bias_j - lse_i), only where query i sees
 // key j under the optional right-aligned causal limit j <= i + (Nkv - Nq)
-// (elsewhere p is exactly 0); with delta_i = rowsum(dO_i * O_i) (computed by
-// the wrapper, as the JAX package computes it outside its kernels):
+// (elsewhere p is exactly 0: the mask sets the exponent to -inf before the
+// exp, so a row that sees no key, lse -inf, gets a zero gradient and never
+// an inf * 0); with delta_i = rowsum(dO_i * O_i) (computed by the wrapper,
+// as the JAX package computes it outside its kernels):
 //
 //   dV_j += p_ij dO_i,  dS_ij = p_ij (dO_i.v_j - delta_i) sm_scale,
 //   dK_j += dS_ij q_i,  dQ_i += dS_ij k_j.
 //
 // What bounds them: at the image classifier's cross-attention (512 latents
 // over 50176 pixels, one head of 264 channels) K9a does four products of
-// 2 * 264 operations per (query, key) pair, 54 GFLOP per image, and K9b three,
-// 41 GFLOP, against ~0.2 GB of operands: bound by arithmetic, on the CUDA
-// cores (f32). The design follows K8 (flash_heads.cu) for the width:
+// 2 * 264 operations per (query, key) pair and K9b three, against ~0.2 GB of
+// operands: arithmetic. Every product runs on the tensor cores in f64 by
+// mma.sync m16n8k4 (flash_mma_bwd.cuh's dmma16), whose products of f32
+// inputs are exact and whose sums are f64:
+// - the score products S and dP (S^T and dP^T in K9a), as in K4, since
+//   dS = p (dP - delta) amplifies a score error by |dP - delta| (up to ~90
+//   at head dim 512); the exponent s + bias - lse and dP - delta stay in
+//   f64, p is exp of the f32-rounded exponent corrected by the rounding's
+//   residual (exp64), and dS is rounded to f32 once;
+// - the gradient products dV += P^T dO, dK += dS^T Q and dQ += dS K, summed
+//   in f64 over the whole walk and rounded to f32 once at the end.
+// So the gradients carry no error of their own beyond the f32 roundings of
+// p, dS and the output, and the kernels are held to the plain version
+// evaluated in f64 and to no larger an error than the plain version in f32
+// has from it (chip_smoke.py). On an H100 80GB HBM3 (700 W) this ran faster
+// at the image CA than split-TF32 gradient products (three m16n8k8 TF32
+// mmas a product, a fresh accumulator per walked tile), which also came out
+// further from f64 than the f32 plain version at small head dims (PERF.md;
+// tests/test_torch_flash_tf32.py models both).
 //
-// - K9a: one CTA per 32 kv rows, whose K and V rows stay in shared memory;
-//   it walks the q tiles (64 rows) that can see them, staging each tile's
-//   Q and dO in 64-column chunks twice (once for S and dP, once for
-//   dK += dS^T Q and dV += P^T dO, with P^T and dS^T in shared memory). The
-//   dK and dV rows (2 x 32 x D) stay in registers as DMAX / 64 float4 chunks
-//   per thread: 32-row blocks keep them there, and give 1568 CTAs an image.
-// - K9b: one CTA per 64 q rows walks 32-row kv tiles, all four operands in
-//   64-column chunks, dQ in registers. Its grid has K8's shortage of CTAs
-//   (8 q blocks per image), so the kv walk is split across `nsplit` CTAs
-//   (grid z, chosen by the wrapper), each writing a partial dQ to scratch; a
-//   second pass sums the partials in split order: no atomics, the same sum
-//   on every run.
+// Why not K4's layout: its warps own 16 rows and hold a 16 x D gradient in
+// registers, 2 x 33 n-tiles x 4 = 264 floats for K9a at D = 264, and K4
+// keeps its two A operands at 64 rows and pitch D + 8 beside double-buffered
+// walked tiles: 280 KB at D = 264. Here the score tiles are computed once
+// per CTA, split over its 8 warps, and go through shared memory (P and dS,
+// or P^T and dS^T), so the gradient products can split their output columns
+// over the warps as well:
 //
-// No output row is written by two CTAs.
+// - A CTA owns BO rows (K9a: kv rows, whose K and V stay; K9b: q rows, whose
+//   Q and dO stay) and walks tiles of BW rows of the other side (K9a: Q, dO,
+//   lse and delta; K9b: K, V and the bias), double-buffered by cp.async so
+//   tile t + 1 loads while tile t computes.
+// - Scores: warps 0-3 compute S (S^T in K9a) and warps 4-7 dP (dP^T), each
+//   NSW of the tile's 8-column n-tiles of one 16-row m-tile, in f64. The S
+//   warps write P to shared memory; after a barrier the dP warps read it
+//   and write dS (K9b in place of P; K9a beside P^T).
+// - Gradients: K9a's warps 0-3 dV += P^T dO and 4-7 dK += dS^T Q, K9b's 8
+//   warps dQ += dS K; a warp takes one m-tile and every NG-th n-tile of the
+//   output's columns, up to the real head dim (not the bucket's), from a
+//   group offset: its accumulator is ceil(DMAX / 8 / NG) n-tiles of 4
+//   doubles, 144 registers for K9a and 72 for K9b at the 288 bucket (K9a
+//   uses 255 there without spilling: ptxas, chip_smoke.py).
+//
+// Shared memory (floats; every operand tile at pitch DMAX, a multiple of 32
+// words, swizzled as flash_mma_bwd.cuh's walked tiles are: word c of row r
+// at c ^ 8 sw(r), which serves the score products' float2 loads along the
+// rows and the gradient products' scalar loads down the columns without
+// bank conflicts): 2 BO x DMAX owned + 4 BW x DMAX walked + 2 BO x (BW + 8)
+// for P and dS (pitch BW + 8 = 8 mod 32 for their float2 fragment loads) +
+// 2 BO + 4 BW statistics. By the head-dim bucket of max(Dqk, Dv):
+// - DMAX 64 / 128 / 256: BO = BW = 32, 55,296 / 109,312 / 207,616 bytes;
+// - DMAX 288 (D 257-288: the image CA's 264 is 33 n-tiles, looped to 264):
+//   BO = BW = 32, 232,192 bytes of the 232,448 a CTA may have;
+// - DMAX 512 (D 289-512): BO = BW = 16, 200,064 bytes; the score phase
+//   then has 2 m16n8 units a product, and two of each four warps idle.
+// One CTA of 8 warps an SM from the 256 bucket up (K9b's split rule reads
+// the count from the runtime, pio_flash_heads_bwd_dq_slots). K9a's 32-row
+// kv blocks give 1568 CTAs an image at the image CA, each reading the
+// image's Q and dO (1.1 MB) from L2. K9b's grid is B*H x ceil(Nq / BO) q
+// blocks; where that leaves CTA slots idle the wrapper splits the kv walk
+// across `nsplit` CTAs (grid z), each writing a partial dQ to scratch, and
+// a second pass sums the partials in split order: no atomics, the same sum
+// on every run. No output row is written by two CTAs.
 
-#include "flash_heads.cuh"
+#include "flash_mma_bwd.cuh"
 
 namespace {
 
-using namespace pio::heads;
+using pio::mma::cp_async4;
+using pio::mma::cp_commit;
+using pio::mma::cp_wait;
+using pio::mma::NO_LIMIT;
+using pio::mma::store2;
+using pio::mma_bwd::dmma16;
+using pio::mma_bwd::stage_swizzled;
+using pio::mma_bwd::sw;
 
-constexpr int BQ = 64;         // query rows of a q tile (K9a) or block (K9b)
-constexpr int KB = 32;         // kv rows of a kv block (K9a) or tile (K9b)
-constexpr int LDT = BQ + 4;    // row stride of P^T / dS^T (kv row x q row)
-constexpr int LDS = KB + 4;    // row stride of dS (q row x kv row)
+constexpr int NW = 8;  // warps
+constexpr int NT = 32 * NW;
+
+template <int DMAX_>
+struct Cfg {
+  static constexpr int DMAX = DMAX_;                 // pitch of every operand tile
+  static constexpr int BO = DMAX <= 288 ? 32 : 16;   // rows a CTA owns
+  static constexpr int BW = BO;                      // rows of a walked tile
+  static constexpr int MT = BO / 16;                 // m-tiles of the owned rows
+  static constexpr int NS = BW / 8;                  // score n-tiles; gradient k-steps
+  static constexpr int UNITS = MT * NS;              // m16n8 units of one score product
+  static constexpr int NSW = UNITS >= 4 ? UNITS / 4 : 1;  // n-tiles a score warp takes
+  static constexpr int LDP = BW + 8;                 // pitch of P and dS
+  static constexpr int OWN = BO * DMAX;
+  static constexpr int TILE = BW * DMAX;
+  static constexpr size_t BYTES = (2 * OWN + 4 * TILE + 2 * BO * LDP + 2 * BO + 4 * BW) * sizeof(float);
+};
 
 struct Args {
   const float *q, *k, *v, *dout, *lse, *delta, *bias;
@@ -54,196 +121,370 @@ struct Args {
   cudaStream_t stream;
 };
 
-// p and dS of one (q row ty + 16e, kv row tx + 16f) pair
-__device__ __forceinline__ void p_ds(float s, float dp, float bias, float lse, float delta, bool visible,
-                                     float sm_scale, float& p, float& ds) {
-  p = visible ? expf(s * sm_scale + bias - lse) : 0.f;
-  ds = p * (dp - delta) * sm_scale;
+// c = A B^T in f64 on the tensor cores for m-tile m of a (a swizzled owned
+// tile) and the n-tiles n0 .. n0 + NSW - 1 of b (a swizzled walked tile),
+// depth d: the 8 columns of a k-step are two k = 4 products (column 2t as k
+// index t, then 2t + 1), so each lane's fragments are float2 loads, and c
+// has the m16n8 C layout (rows g, g + 8; columns 2t, 2t + 1 of each n-tile)
+template <int DMAX, int NSW>
+__device__ __forceinline__ void scores64(double (&c)[NSW][4], const float* a, const float* b, int m, int n0,
+                                         int d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * m + g, s0 = sw(r0), s1 = sw(r0 + 8);
+  const float* a0 = a + r0 * DMAX + 2 * t;
+  const float* a1 = a0 + 8 * DMAX;
+  const float* br = b + (8 * n0 + g) * DMAX + 2 * t;
+  int sb[NSW];
+#pragma unroll
+  for (int n = 0; n < NSW; ++n) {
+    sb[n] = sw(8 * (n0 + n) + g);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.0;
+  }
+#pragma unroll 4
+  for (int kk = 0; kk < DMAX / 8; ++kk) {
+    if (8 * kk < d) {
+      const float2 x0 = *reinterpret_cast<const float2*>(a0 + 8 * (kk ^ s0));
+      const float2 x1 = *reinterpret_cast<const float2*>(a1 + 8 * (kk ^ s1));
+#pragma unroll
+      for (int n = 0; n < NSW; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(br + 8 * n * DMAX + 8 * (kk ^ sb[n]));
+        dmma16(c[n], x0.x, x1.x, y.x);
+        dmma16(c[n], x0.y, x1.y, y.y);
+      }
+    }
+  }
 }
 
-// K9a: one CTA per (32 kv rows, batch*head)
+// o[i] += A B in f64 on the tensor cores (exact products, f64 sums) for the
+// n-tiles n = grp + NG i below d/8: A the rows of m-tile m of an f32 buffer
+// of pitch LDP (P, dS, P^T or dS^T; its columns the NS k-steps), B a
+// swizzled walked tile read down its rows. The 8 columns of a k-step are two
+// k = 4 products: A's column 2t (B's row 8kk + 2t) as k index t, then 2t + 1,
+// so A's fragments are float2 loads of rows g and g + 8 and B's are scalar
+// loads of column 8n + g
+template <int DMAX, int NS, int LDP, int NG, int NPW>
+__device__ __forceinline__ void grad64(double (&o)[NPW][4], const float* a, const float* b, int m, int grp,
+                                       int d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float2 x0[NS], x1[NS];
+  const float* ar = a + (16 * m + g) * LDP + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < NS; ++kk) {
+    x0[kk] = *reinterpret_cast<const float2*>(ar + 8 * kk);
+    x1[kk] = *reinterpret_cast<const float2*>(ar + 8 * LDP + 8 * kk);
+  }
+  const float* br = b + 2 * t * DMAX + g;
+  const int s_0 = sw(2 * t), s_1 = sw(2 * t + 1);
+#pragma unroll
+  for (int i = 0; i < NPW; ++i) {
+    const int n = grp + NG * i;
+    if (8 * n < d) {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        const float* row = br + 8 * kk * DMAX;
+        dmma16(o[i], x0[kk].x, x1[kk].x, row[8 * (n ^ ((s_0 + 2 * kk) & 3))]);
+        dmma16(o[i], x0[kk].y, x1[kk].y, row[DMAX + 8 * (n ^ ((s_1 + 2 * kk) & 3))]);
+      }
+    }
+  }
+}
+
+// the lane's rows r0 + g, r0 + g + 8 of a gradient (n-tiles grp + NG i) to
+// a (n, d) row-major output, rows below n and columns below d
+template <int NG, int NPW>
+__device__ __forceinline__ void store_grad(float* out, int d, int r0, int n, int grp, const double (&o)[NPW][4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int i = 0; i < NPW; ++i) {
+      const int c = 8 * (grp + NG * i);
+      if (c < d) store2(out + (long)row * d + c + 2 * t, (float)o[i][2 * r], (float)o[i][2 * r + 1]);
+    }
+  }
+}
+
+template <int NPW>
+__device__ __forceinline__ void zero(double (&o)[NPW][4]) {
+#pragma unroll
+  for (int i = 0; i < NPW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0;
+}
+
+// p = exp(x) for an exponent x in f64: expf of x rounded to f32, corrected
+// by the rounding's residual, exp(x) = exp(xf) (1 + (x - xf)) to second
+// order in x - xf, so the f32 rounding of x (up to 2^-24 |x| absolute, a
+// relative error of p that grows with |x|) leaves p with expf's own error
+__device__ __forceinline__ float exp64(double x) {
+  const float xf = (float)x;
+  const float p = expf(xf);
+  return isinf(xf) ? p : fmaf(p, (float)(x - (double)xf), p);
+}
+
+// K9a: one CTA per (BO kv rows, batch*head); walks the q tiles from the
+// first one whose rows can see the block's first key.
 template <int DMAX>
 __global__ void __launch_bounds__(NT, 1) heads_bwd_dkv_kernel(const Args a) {
-  constexpr int CH = Chunks<DMAX>::N;
+  using C = Cfg<DMAX>;
+  constexpr int NG = 4 / C::MT, NPW = (DMAX / 8 + NG - 1) / NG;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int dqk = a.dqk, dv = a.dv_, nq = a.nq, nkv = a.nkv;
-  const int ldk = dqk + 4, ldv = dv + 4;
-  float* sk = smem;              // KB x ldk: the block's keys
-  float* sv = sk + KB * ldk;     // KB x ldv: the block's values
-  float* sc = sv + KB * ldv;     // BQ x LDC: a column chunk of Q or dO
-  float* spt = sc + BQ * LDC;    // KB x LDT: P^T
-  float* sdst = spt + KB * LDT;  // KB x LDT: dS^T
-  float* slse = sdst + KB * LDT;
-  float* sdelta = slse + BQ;
+  float* sk = reinterpret_cast<float*>(smem4);  // the block's keys
+  float* sv = sk + C::OWN;                      // and values
+  float* tiles = sv + C::OWN;                   // Q buffers, dO buffers
+  float* spt = tiles + 4 * C::TILE;             // P^T (kv row x q row)
+  float* sdst = spt + C::BO * C::LDP;           // dS^T
+  float* sbias = sdst + C::BO * C::LDP;         // the block's bias
+  float* stat = sbias + 2 * C::BO;              // lse buffers, delta buffers
+  auto sq = [&](int u) { return tiles + u * C::TILE; };
+  auto sdo = [&](int u) { return tiles + (2 + u) * C::TILE; };
+  auto slse = [&](int u) { return stat + u * C::BW; };
+  auto sdelta = [&](int u) { return stat + (2 + u) * C::BW; };
 
-  const int j0 = blockIdx.x * KB, bh = blockIdx.y;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int dqk = a.dqk, dv = a.dv_, nq = a.nq, nkv = a.nkv;
+  const int j0 = blockIdx.x * C::BO, bh = blockIdx.y;
   const float* qh = a.q + (long)bh * nq * dqk;
   const float* doh = a.dout + (long)bh * nq * dv;
-  stage<KB>(sk, ldk, a.k + (long)bh * nkv * dqk, dqk, j0, nkv, 0, dqk);
-  stage<KB>(sv, ldv, a.v + (long)bh * nkv * dv, dv, j0, nkv, 0, dv);
+  const float* lh = a.lse + (long)bh * nq;
+  const float* dh = a.delta + (long)bh * nq;
+  // query i sees key j iff j <= i + off: rows below j0 - off see nothing of
+  // this block
+  const int off = a.causal ? nkv - nq : NO_LIMIT;
+  int i_begin = a.causal ? max(0, j0 - off) : 0;
+  i_begin -= i_begin % C::BW;
+  const int n_tiles = i_begin < nq ? (nq - i_begin + C::BW - 1) / C::BW : 0;
 
-  float bias_r[2];
-#pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    const int j = j0 + tx + 16 * f;
-    bias_r[f] = (a.bias != nullptr && j < nkv) ? a.bias[(long)(bh / a.h) * nkv + j] : 0.f;
+  auto stage = [&](int tile, int u) {
+    const int i0 = i_begin + tile * C::BW;
+    stage_swizzled<DMAX, C::BW, NT>(sq(u), qh, dqk, i0, nq, dqk);
+    stage_swizzled<DMAX, C::BW, NT>(sdo(u), doh, dv, i0, nq, dv);
+    if (threadIdx.x < C::BW) {
+      const int i = i0 + threadIdx.x;
+      const bool ok = i < nq;
+      cp_async4(slse(u) + threadIdx.x, lh + (ok ? i : 0), ok);
+      cp_async4(sdelta(u) + threadIdx.x, dh + (ok ? i : 0), ok);
+    }
+  };
+  stage_swizzled<DMAX, C::BO, NT>(sk, a.k + (long)bh * nkv * dqk, dqk, j0, nkv, dqk);
+  stage_swizzled<DMAX, C::BO, NT>(sv, a.v + (long)bh * nkv * dv, dv, j0, nkv, dv);
+  if (threadIdx.x < C::BO) {
+    const int j = j0 + threadIdx.x;
+    sbias[threadIdx.x] = (a.bias != nullptr && j < nkv) ? a.bias[(long)(bh / a.h) * nkv + j] : 0.f;
   }
-  // query i sees key j iff j <= i + offset: rows below j0 - offset see
-  // nothing of this block
-  const int offset = nkv - nq;
-  int i_begin = a.causal ? max(0, j0 - offset) : 0;
-  i_begin -= i_begin % BQ;
+  if (n_tiles > 0) stage(0, 0);
+  cp_commit();
 
-  float4 acc_k[CH][2], acc_v[CH][2];
-  zero(acc_k);
-  zero(acc_v);
-  for (int i0 = i_begin; i0 < nq; i0 += BQ) {
-    // S and dP as (q row ty + 16e, kv row tx + 16f)
-    float s[4][2] = {}, dp[4][2] = {};
-    for (int c0 = 0; c0 < dqk; c0 += DC) {
-      const int w = min(DC, dqk - c0);
-      __syncthreads();
-      stage<BQ>(sc, LDC, qh, dqk, i0, nq, c0, w);
-      if (c0 == 0 && threadIdx.x < BQ) {
-        const int gi = i0 + threadIdx.x;
-        slse[threadIdx.x] = gi < nq ? a.lse[(long)bh * nq + gi] : 0.f;
-        sdelta[threadIdx.x] = gi < nq ? a.delta[(long)bh * nq + gi] : 0.f;
-      }
-      __syncthreads();
-      dot<4, 2>(s, sc, LDC, sk + c0, ldk, w, ty, tx);
+  // scores: warps 0-3 S^T = K Q^T, 4-7 dP^T = V dO^T; NSW n-tiles of one
+  // m-tile a warp. Gradients: warps 0-3 dV += P^T dO, 4-7 dK += dS^T Q; one
+  // m-tile and every NG-th n-tile a warp
+  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int prod = w >> 2, unit = (w & 3) * C::NSW;
+  const bool scoring = unit < C::UNITS;
+  const int sm = unit / C::NS, sn = unit % C::NS;
+  const int gm = (w & 3) % C::MT, grp = (w & 3) / C::MT;
+  const int dgrad = prod == 0 ? dv : dqk;
+
+  double acc[NPW][4];
+  zero(acc);
+  float pv[C::NSW][4];     // P (S warps)
+  double dpd[C::NSW][4];   // dP^T - delta (dP warps)
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int u = tile & 1;
+    if (tile + 1 < n_tiles) {
+      stage(tile + 1, u ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    for (int c0 = 0; c0 < dv; c0 += DC) {
-      const int w = min(DC, dv - c0);
-      __syncthreads();
-      stage<BQ>(sc, LDC, doh, dv, i0, nq, c0, w);
-      __syncthreads();
-      dot<4, 2>(dp, sc, LDC, sv + c0, ldv, w, ty, tx);
-    }
+    __syncthreads();  // tile (and the block's K and V) in shared memory for every warp
+
+    // element e of n-tile n: kv row 16sm + g + 8(e >> 1), q column
+    // 8(sn + n) + 2t + (e & 1)
+    const int i0 = i_begin + tile * C::BW;
+    const bool full = i0 + C::BW <= nq && j0 + C::BO <= nkv && j0 + C::BO - 1 <= i0 + off;
+    if (scoring) {
+      double c[C::NSW][4];
+      if (prod == 0) {
+        scores64<DMAX, C::NSW>(c, sk, sq(u), sm, sn, dqk);
+        const float* lt = slse(u);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ii = ty + 16 * e, i = i0 + ii;
+        for (int n = 0; n < C::NSW; ++n)
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        const int jj = tx + 16 * f, j = j0 + jj;
-        const bool visible = i < nq && j < nkv && (!a.causal || j <= i + offset);
-        float p, ds;
-        p_ds(s[e][f], dp[e][f], bias_r[f], slse[ii], sdelta[ii], visible, a.sm_scale, p, ds);
-        spt[jj * LDT + ii] = p;
-        sdst[jj * LDT + ii] = ds;
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * (sn + n) + 2 * t + (e & 1), row = 16 * sm + g + 8 * (e >> 1);
+            // the exponent s + bias - lse in f64, -inf past the rows or the causal limit
+            double x = c[n][e] * (double)a.sm_scale + (double)sbias[row] - (double)lt[col];
+            if (!full) {
+              const int i = i0 + col, j = j0 + row;
+              if (!(i < nq && j < nkv && j <= i + off)) x = -CUDART_INF;
+            }
+            pv[n][e] = exp64(x);
+          }
+#pragma unroll
+        for (int n = 0; n < C::NSW; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            store2(spt + (16 * sm + g + 8 * r) * C::LDP + 8 * (sn + n) + 2 * t, pv[n][2 * r], pv[n][2 * r + 1]);
+      } else {
+        scores64<DMAX, C::NSW>(c, sv, sdo(u), sm, sn, dv);
+        const float* dt = sdelta(u);
+#pragma unroll
+        for (int n = 0; n < C::NSW; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpd[n][e] = c[n][e] - (double)dt[8 * (sn + n) + 2 * t + (e & 1)];
       }
     }
-    // dV_j += sum_i P^T[j][i] dO_i, dK_j += sum_i dS^T[j][i] q_i, a chunk at a time
+    __syncthreads();  // P^T in shared memory
+    if (scoring && prod == 1) {
+      // dS^T = p (dP^T - delta) sm_scale in f64, rounded once
 #pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c0 = DC * ch;
-      if (c0 < dv) {
-        __syncthreads();
-        stage<BQ>(sc, LDC, doh, dv, i0, nq, c0, min(DC, dv - c0));
-        __syncthreads();
-        if (c0 + 4 * tx < dv) acc_rows<2, BQ>(acc_v[ch], spt, LDT, sc, LDC, ty, tx);
-      }
-    }
+      for (int n = 0; n < C::NSW; ++n)
 #pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c0 = DC * ch;
-      if (c0 < dqk) {
-        __syncthreads();
-        stage<BQ>(sc, LDC, qh, dqk, i0, nq, c0, min(DC, dqk - c0));
-        __syncthreads();
-        if (c0 + 4 * tx < dqk) acc_rows<2, BQ>(acc_k[ch], sdst, LDT, sc, LDC, ty, tx);
-      }
+        for (int r = 0; r < 2; ++r) {
+          const int at = (16 * sm + g + 8 * r) * C::LDP + 8 * (sn + n) + 2 * t;
+          const float2 p = *reinterpret_cast<const float2*>(spt + at);
+          store2(sdst + at, (float)(p.x * dpd[n][2 * r] * a.sm_scale), (float)(p.y * dpd[n][2 * r + 1] * a.sm_scale));
+        }
     }
+    __syncthreads();  // dS^T in shared memory
+    grad64<DMAX, C::NS, C::LDP, NG, NPW>(acc, prod == 0 ? spt : sdst, prod == 0 ? sdo(u) : sq(u), gm, grp, dgrad);
+    __syncthreads();  // every warp is done with buffer u, P^T and dS^T before they are refilled
   }
-  store_rows(a.dk + (long)bh * nkv * dqk, dqk, j0, nkv, acc_k, ty, tx);
-  store_rows(a.dv + (long)bh * nkv * dv, dv, j0, nkv, acc_v, ty, tx);
+  if (prod == 0) {
+    store_grad<NG, NPW>(a.dv + (long)bh * nkv * dv, dv, j0 + 16 * gm, nkv, grp, acc);
+  } else {
+    store_grad<NG, NPW>(a.dk + (long)bh * nkv * dqk, dqk, j0 + 16 * gm, nkv, grp, acc);
+  }
 }
 
-// K9b: one CTA per (64 q rows, batch*head, split of the kv walk)
+// K9b: one CTA per (BO q rows, batch*head, split of the kv walk); walks the
+// kv tiles up to the last one the block's causal limit can see.
 template <int DMAX>
 __global__ void __launch_bounds__(NT, 1) heads_bwd_dq_kernel(const Args a) {
-  constexpr int CH = Chunks<DMAX>::N;
+  using C = Cfg<DMAX>;
+  constexpr int NG = NW / C::MT, NPW = (DMAX / 8 + NG - 1) / NG;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int dqk = a.dqk, dv = a.dv_, nq = a.nq, nkv = a.nkv;
-  float* sa = smem;             // BQ x LDC: a column chunk of Q or dO
-  float* skv = sa + BQ * LDC;   // KB x LDC: a column chunk of K or V
-  float* sds = skv + KB * LDC;  // BQ x LDS: dS
-  float* sb = sds + BQ * LDS;   // KB: the tile's bias
+  float* sq = reinterpret_cast<float*>(smem4);  // the block's queries
+  float* sdo = sq + C::OWN;                     // and output gradients
+  float* tiles = sdo + C::OWN;                  // K buffers, V buffers
+  float* sds = tiles + 4 * C::TILE;             // P, then dS in place (q row x kv row)
+  float* slse = sds + 2 * C::BO * C::LDP;       // the block's lse
+  float* sdelta = slse + C::BO;                 // and delta
+  float* sbias = sdelta + C::BO;                // bias buffers
+  auto sk = [&](int u) { return tiles + u * C::TILE; };
+  auto sv = [&](int u) { return tiles + (2 + u) * C::TILE; };
+  auto sb = [&](int u) { return sbias + u * C::BW; };
 
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, z = blockIdx.z, nsplit = gridDim.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* qh = a.q + (long)bh * nq * dqk;
-  const float* doh = a.dout + (long)bh * nq * dv;
+  const int dqk = a.dqk, dv = a.dv_, nq = a.nq, nkv = a.nkv;
+  const int q0 = blockIdx.x * C::BO, bh = blockIdx.y, z = blockIdx.z, nsplit = gridDim.z;
   const float* kh = a.k + (long)bh * nkv * dqk;
   const float* vh = a.v + (long)bh * nkv * dv;
   const float* brow = a.bias == nullptr ? nullptr : a.bias + (long)(bh / a.h) * nkv;
-
-  const int offset = nkv - nq;
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int i = q0 + ty + 16 * e;
-    lse_r[e] = i < nq ? a.lse[(long)bh * nq + i] : 0.f;
-    delta_r[e] = i < nq ? a.delta[(long)bh * nq + i] : 0.f;
-  }
-  const int kv_end = a.causal ? max(0, min(nkv, min(q0 + BQ, nq) + offset)) : nkv;
-  const int n_tiles = (kv_end + KB - 1) / KB;
+  const int off = a.causal ? nkv - nq : NO_LIMIT;
+  const int kv_end = a.causal ? max(0, min(nkv, min(q0 + C::BO, nq) + off)) : nkv;
+  const int n_tiles = (kv_end + C::BW - 1) / C::BW;
   const int per = (n_tiles + nsplit - 1) / nsplit;
   const int t_begin = min(n_tiles, z * per), t_end = min(n_tiles, t_begin + per);
 
-  float4 acc[CH][4];
+  auto stage = [&](int tile, int u) {
+    const int j0 = tile * C::BW;
+    stage_swizzled<DMAX, C::BW, NT>(sk(u), kh, dqk, j0, nkv, dqk);
+    stage_swizzled<DMAX, C::BW, NT>(sv(u), vh, dv, j0, nkv, dv);
+    if (threadIdx.x < C::BW) {
+      const int j = j0 + threadIdx.x;
+      const bool ok = brow != nullptr && j < nkv;
+      cp_async4(sb(u) + threadIdx.x, ok ? brow + j : kh, ok);
+    }
+  };
+  stage_swizzled<DMAX, C::BO, NT>(sq, a.q + (long)bh * nq * dqk, dqk, q0, nq, dqk);
+  stage_swizzled<DMAX, C::BO, NT>(sdo, a.dout + (long)bh * nq * dv, dv, q0, nq, dv);
+  if (threadIdx.x < C::BO) {
+    const int i = q0 + threadIdx.x;
+    slse[threadIdx.x] = i < nq ? a.lse[(long)bh * nq + i] : 0.f;
+    sdelta[threadIdx.x] = i < nq ? a.delta[(long)bh * nq + i] : 0.f;
+  }
+  if (t_begin < t_end) stage(t_begin, 0);
+  cp_commit();
+
+  // scores: warps 0-3 S = Q K^T, 4-7 dP = dO V^T, NSW n-tiles of one m-tile
+  // a warp; the gradient dQ += dS K: one m-tile and every NG-th n-tile a warp
+  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int prod = w >> 2, unit = (w & 3) * C::NSW;
+  const bool scoring = unit < C::UNITS;
+  const int sm = unit / C::NS, sn = unit % C::NS;
+  const int gm = w % C::MT, grp = w / C::MT;
+
+  double acc[NPW][4];
   zero(acc);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * KB;
-    float s[4][2] = {}, dp[4][2] = {};
-    for (int c0 = 0; c0 < dqk; c0 += DC) {
-      const int w = min(DC, dqk - c0);
-      __syncthreads();
-      stage<BQ>(sa, LDC, qh, dqk, q0, nq, c0, w);
-      stage<KB>(skv, LDC, kh, dqk, j0, nkv, c0, w);
-      if (c0 == 0 && threadIdx.x < KB) {
-        const int gj = j0 + threadIdx.x;
-        sb[threadIdx.x] = (brow != nullptr && gj < nkv) ? brow[gj] : 0.f;
-      }
-      __syncthreads();
-      dot<4, 2>(s, sa, LDC, skv, LDC, w, ty, tx);
+  float pv[C::NSW][4];    // P (S warps)
+  double dpd[C::NSW][4];  // dP - delta (dP warps)
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int u = (tile - t_begin) & 1;
+    if (tile + 1 < t_end) {
+      stage(tile + 1, u ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    for (int c0 = 0; c0 < dv; c0 += DC) {
-      const int w = min(DC, dv - c0);
-      __syncthreads();
-      stage<BQ>(sa, LDC, doh, dv, q0, nq, c0, w);
-      stage<KB>(skv, LDC, vh, dv, j0, nkv, c0, w);
-      __syncthreads();
-      dot<4, 2>(dp, sa, LDC, skv, LDC, w, ty, tx);
-    }
+    __syncthreads();
+
+    // element e of n-tile n: q row 16sm + g + 8(e >> 1), kv column
+    // 8(sn + n) + 2t + (e & 1)
+    const int j0 = tile * C::BW;
+    const bool full = j0 + C::BW <= nkv && j0 + C::BW - 1 <= q0 + off;
+    if (scoring) {
+      double c[C::NSW][4];
+      if (prod == 0) {
+        scores64<DMAX, C::NSW>(c, sq, sk(u), sm, sn, dqk);
+        const float* bt = sb(u);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = q0 + ty + 16 * e;
+        for (int n = 0; n < C::NSW; ++n)
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        const int jj = tx + 16 * f, j = j0 + jj;
-        const bool visible = i < nq && j < nkv && (!a.causal || j <= i + offset);
-        float p, ds;
-        p_ds(s[e][f], dp[e][f], sb[jj], lse_r[e], delta_r[e], visible, a.sm_scale, p, ds);
-        sds[(ty + 16 * e) * LDS + jj] = ds;
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * (sn + n) + 2 * t + (e & 1), row = 16 * sm + g + 8 * (e >> 1);
+            double x = c[n][e] * (double)a.sm_scale + (double)bt[col] - (double)slse[row];
+            if (!full) {
+              const int i = q0 + row, j = j0 + col;
+              if (!(j < nkv && j <= i + off)) x = -CUDART_INF;
+            }
+            pv[n][e] = exp64(x);
+          }
+#pragma unroll
+        for (int n = 0; n < C::NSW; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            store2(sds + (16 * sm + g + 8 * r) * C::LDP + 8 * (sn + n) + 2 * t, pv[n][2 * r], pv[n][2 * r + 1]);
+      } else {
+        scores64<DMAX, C::NSW>(c, sdo, sv(u), sm, sn, dv);
+#pragma unroll
+        for (int n = 0; n < C::NSW; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpd[n][e] = c[n][e] - (double)sdelta[16 * sm + g + 8 * (e >> 1)];
       }
     }
-    // dQ_i += sum_j dS[i][j] k_j, a chunk of K columns at a time
+    __syncthreads();  // P in shared memory
+    if (scoring && prod == 1) {
+      // dS = p (dP - delta) sm_scale in f64, rounded once, in place of P
 #pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c0 = DC * ch;
-      if (c0 < dqk) {
-        __syncthreads();
-        stage<KB>(skv, LDC, kh, dqk, j0, nkv, c0, min(DC, dqk - c0));
-        __syncthreads();
-        if (c0 + 4 * tx < dqk) acc_rows<4, KB>(acc[ch], sds, LDS, skv, LDC, ty, tx);
-      }
+      for (int n = 0; n < C::NSW; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float* at = sds + (16 * sm + g + 8 * r) * C::LDP + 8 * (sn + n) + 2 * t;
+          const float2 p = *reinterpret_cast<const float2*>(at);
+          store2(at, (float)(p.x * dpd[n][2 * r] * a.sm_scale), (float)(p.y * dpd[n][2 * r + 1] * a.sm_scale));
+        }
     }
+    __syncthreads();  // dS in shared memory
+    grad64<DMAX, C::NS, C::LDP, NG, NPW>(acc, sds, sk(u), gm, grp, dqk);
+    __syncthreads();
   }
   float* out = nsplit == 1 ? a.dq : a.part + (long)z * gridDim.y * nq * dqk;
-  store_rows(out + (long)bh * nq * dqk, dqk, q0, nq, acc, ty, tx);
+  store_grad<NG, NPW>(out + (long)bh * nq * dqk, dqk, q0 + 16 * gm, nq, grp, acc);
 }
 
 // dq = the sum of the splits' partials, in split order
@@ -262,25 +503,28 @@ __global__ void __launch_bounds__(256) heads_dq_reduce_kernel(const float4* __re
   }
 }
 
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <int DMAX>
 cudaError_t launch_dkv(const Args& a) {
-  const size_t floats = (size_t)KB * (a.dqk + 4) + (size_t)KB * (a.dv_ + 4) + (size_t)BQ * LDC +
-                        2 * (size_t)KB * LDT + 2 * BQ;
-  const size_t smem = floats * sizeof(float);
+  using C = Cfg<DMAX>;
   auto kernel = heads_bwd_dkv_kernel<DMAX>;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(kernel, C::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.nkv + KB - 1) / KB, a.bh), NT, smem, a.stream>>>(a);
+  kernel<<<dim3((a.nkv + C::BO - 1) / C::BO, a.bh), NT, C::BYTES, a.stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int DMAX>
 cudaError_t launch_dq(const Args& a) {
-  const size_t smem = ((size_t)BQ * LDC + (size_t)KB * LDC + (size_t)BQ * LDS + KB) * sizeof(float);
+  using C = Cfg<DMAX>;
   auto kernel = heads_bwd_dq_kernel<DMAX>;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(kernel, C::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.nq + BQ - 1) / BQ, a.bh, a.nsplit), NT, smem, a.stream>>>(a);
+  kernel<<<dim3((a.nq + C::BO - 1) / C::BO, a.bh, a.nsplit), NT, C::BYTES, a.stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return err;
   const long n4 = (long)a.bh * a.nq * a.dqk / 4;
@@ -290,8 +534,29 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
+// K9b's CTAs an SM (or minus a cudaError_t)
+template <int DMAX>
+int dq_slots() {
+  using C = Cfg<DMAX>;
+  auto kernel = heads_bwd_dq_kernel<DMAX>;
+  cudaError_t err = prepare(kernel, C::BYTES);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, C::BYTES);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+bool valid_dims(int dqk, int dv) {
+  return dqk >= 8 && dv >= 8 && dqk % 8 == 0 && dv % 8 == 0 && dqk <= 512 && dv <= 512;
+}
+
 bool valid(const Args& a) {
   return valid_dims(a.dqk, a.dv_) && a.nq >= 0 && a.nkv >= 0 && a.h > 0 && a.bh <= 65535;
+}
+
+// the head-dim bucket a kernel is instantiated for
+int bucket(int dqk, int dv) {
+  const int d = dqk > dv ? dqk : dv;
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : d <= 288 ? 288 : 512;
 }
 
 }  // namespace
@@ -310,11 +575,11 @@ extern "C" int pio_flash_heads_bwd_dkv(const float* q, const float* k, const flo
                sm_scale, 1, static_cast<cudaStream_t>(stream)};
   if (bh <= 0 || nkv <= 0) return cudaSuccess;
   if (!valid(a)) return cudaErrorInvalidValue;
-  switch (dmax_bucket(dqk, dv_)) {
+  switch (bucket(dqk, dv_)) {
     case 64: return launch_dkv<64>(a);
     case 128: return launch_dkv<128>(a);
     case 256: return launch_dkv<256>(a);
-    case 320: return launch_dkv<320>(a);
+    case 288: return launch_dkv<288>(a);
     default: return launch_dkv<512>(a);
   }
 }
@@ -327,11 +592,24 @@ extern "C" int pio_flash_heads_bwd_dq(const float* q, const float* k, const floa
                sm_scale, nsplit, static_cast<cudaStream_t>(stream)};
   if (bh <= 0 || nq <= 0) return cudaSuccess;
   if (!valid(a) || nsplit < 1 || nsplit > 65535 || (nsplit > 1 && part == nullptr)) return cudaErrorInvalidValue;
-  switch (dmax_bucket(dqk, dv_)) {
+  switch (bucket(dqk, dv_)) {
     case 64: return launch_dq<64>(a);
     case 128: return launch_dq<128>(a);
     case 256: return launch_dq<256>(a);
-    case 320: return launch_dq<320>(a);
+    case 288: return launch_dq<288>(a);
     default: return launch_dq<512>(a);
+  }
+}
+
+// K9b's CTA slots an SM at these head dims on the current device (what its
+// split rule counts), or minus a cudaError_t
+extern "C" int pio_flash_heads_bwd_dq_slots(int dqk, int dv) {
+  if (!valid_dims(dqk, dv)) return -(int)cudaErrorInvalidValue;
+  switch (bucket(dqk, dv)) {
+    case 64: return dq_slots<64>();
+    case 128: return dq_slots<128>();
+    case 256: return dq_slots<256>();
+    case 288: return dq_slots<288>();
+    default: return dq_slots<512>();
   }
 }

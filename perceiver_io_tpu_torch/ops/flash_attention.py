@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -242,10 +243,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _kv_splits(bh: int, nq: int, q_rows: int, n_tiles: int, sms: int) -> int:
     """How many CTAs the kv walk of each q block is split across (K2, K6,
-    K8, K9b): as many as fill the ``sms`` CTA slots that one CTA per q block
-    leaves idle (one slot an SM for the heads-major kernels), and no more.
-    A split never adds a wave: each split writes a partial the merge pass
-    reads back, so it pays only on an SM that would otherwise idle. At
+    K8, K9b): as many as fill the ``sms`` CTA slots (the card's SMs times
+    the kernel's CTAs an SM) that one CTA per q block leaves idle, and no
+    more. A split never adds a wave: each split writes a partial the merge
+    pass reads back, so it pays only on an SM that would otherwise idle. At
     least 8 tiles a split, at most 64 splits."""
     base = bh * -(-nq // q_rows)
     return max(1, min(sms // base, n_tiles // 8, 64))
@@ -707,12 +708,39 @@ def heads_bwd_dkv_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scal
     return dk, dv
 
 
-def heads_bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
+def heads_dq_splits(bh: int, nq: int, nkv: int, d_max: int, sms: int, slots: int) -> int:
+    """How many CTAs K9b splits each q block's kv walk across:
+    :func:`_kv_splits` over its q blocks and kv tiles (32 rows up to head
+    dim 288, 16 above: ``csrc/flash_heads_bwd.cu``) and ``slots`` CTAs an SM
+    (one at the image CA's head dim 264: 232,192 bytes of shared memory a
+    CTA). A split's partial (1.1 MB at the image CA's batch 2) is written
+    once and read once by the merge, which the rule does not charge: on an
+    H100 the four splits at batch 2 cut K9b to a quarter of its unsplit time
+    (``PERF.md``). The image CA: 16 x 16 q blocks at batch 16 fill the card
+    unsplit; 2 x 16 at batch 2 take 4 splits."""
+    rows = 32 if d_max <= 288 else 16
+    return _kv_splits(bh, nq, rows, -(-nkv // rows), slots * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _heads_dq_slots(device_index: int, dqk: int, dv: int) -> int:
+    with torch.cuda.device(device_index):
+        slots = build.launcher("flash_heads_bwd_dq_slots")(dqk, dv)
+    if slots < 1:
+        raise RuntimeError(f"flash_heads_bwd_dq: no CTA slot at head dims ({dqk}, {dv}) (CUDA error {-slots})")
+    return slots
+
+
+def heads_bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale, nsplit: Optional[int] = None):
     """The K9b wrapper: ``dq``, for the operands :func:`heads_bwd_dkv_cuda`
-    takes."""
+    takes; the kv walk split by :func:`heads_dq_splits` unless ``nsplit``
+    is given."""
     ptrs, ints = _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
     bh, nq, dqk = q.shape
-    nsplit = _kv_splits(bh, nq, 64, -(-k.shape[1] // 32), _sms(q.device))
+    dv = v.shape[2]
+    if nsplit is None:
+        nsplit = heads_dq_splits(bh, nq, k.shape[1], max(dqk, dv), _sms(q.device),
+                                 _heads_dq_slots(q.device.index, dqk, dv))
     dq = torch.empty_like(q)
     part = torch.empty((nsplit, bh, nq, dqk), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     build.check(build.launcher("flash_heads_bwd_dq")(*ptrs, dq.data_ptr(), _ptr(part), *ints, nsplit,

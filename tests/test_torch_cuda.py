@@ -110,7 +110,7 @@ def test_paged_decode_kernel_matches_plain(cuda, with_mask):
                                atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [12, 40, 133, 264, 512])
+@pytest.mark.parametrize("d", [8, 12, 40, 133, 264, 320, 512])
 @pytest.mark.parametrize("causal,nq,nkv,n_pad", [
     (False, 130, 300, 0),   # no tile multiple
     (True, 130, 300, 7),    # Nq < Nkv right-aligned, left-padded keys
@@ -119,10 +119,13 @@ def test_paged_decode_kernel_matches_plain(cuda, with_mask):
     (True, 100, 3000, 50),  # split and causal: some splits see nothing
 ])
 def test_flash_heads_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
-    """K8 (forward, out and logsumexp) and K9a/K9b (through the autograd
-    Function) against the plain heads-major versions on the card, one
-    launch each; odd widths are zero-padded by the wrapper. Tolerance: atol
-    1e-5 (1e-4 on the logsumexp), as for K2/K4."""
+    """K8 (forward, out and logsumexp) against the plain heads-major version
+    on the card, and K9a/K9b (through the autograd Function) against the
+    plain backward evaluated in f64 on the same f32 inputs (the plain
+    version in f32 is itself up to ~4e-5 from it at head dim 512), one
+    launch each; odd widths are zero-padded by the wrapper; head dims 8 and
+    320 are the edges of the kernels' buckets. Tolerance: atol 1e-5 (1e-4
+    on the logsumexp), as for K2/K4."""
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -146,12 +149,52 @@ def test_flash_heads_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
     ro, rlse = flash_attention_reference(*plain, **kw)
     torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
-    want = flash_attention_bwd_reference(*plain, o.detach(), lse, do, **kw)
+    want = flash_attention_bwd_reference(*(t.double() for t in (*plain, o.detach(), lse, do)), **kw)
     for got, w in zip((q.grad, k.grad, v.grad), want):
         assert torch.isfinite(got).all()
-        torch.testing.assert_close(got, w, atol=1e-5, rtol=0)
+        torch.testing.assert_close(got.double(), w, atol=1e-5, rtol=0)
     if causal and nq > nkv:
         assert torch.equal(q.grad[:, :, : nq - nkv], torch.zeros_like(q.grad[:, :, : nq - nkv]))
+
+
+@pytest.mark.parametrize("b,nq,nkv,dqk,dv,causal", [
+    (2, 130, 300, 40, 136, True),      # dqk != dv: the 256 bucket from dv
+    (2, 77, 1000, 264, 72, False),     # the 288 bucket from dqk; 77 = 2 blocks of 32 + 13
+    (16, 64, 4096, 264, 264, False),   # a batch-16 grid of 32 q blocks: the walk splits 4 ways
+    (16, 40, 2000, 512, 320, True),    # the 512 bucket's 16-row tiles, split, causal
+])
+def test_flash_heads_backward_kernels_uneven_dims_and_split_grids(cuda, b, nq, nkv, dqk, dv, causal):
+    """K9a and K9b where the tiling is hard: key and value widths that
+    differ (the bucket follows the wider), lengths that are no multiple of
+    the 32- or 16-row tiles, and batch-16 grids on which the split rule
+    splits K9b's walk; against the plain backward in f64, atol 1e-5."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        _heads_dq_slots,
+        flash_attention,
+        flash_attention_bwd_reference,
+        heads_dq_splits,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    h = 1
+    q = (torch.randn(b, h, nq, dqk, generator=g) * dqk**-0.5).to(cuda).requires_grad_()
+    k = torch.randn(b, h, nkv, dqk, generator=g).to(cuda).requires_grad_()
+    v = torch.randn(b, h, nkv, dv, generator=g).to(cuda).requires_grad_()
+    do = torch.randn(b, h, nq, dv, generator=g).to(cuda)
+    splits = heads_dq_splits(b * h, nq, nkv, max(dqk, dv), torch.cuda.get_device_properties(cuda).multi_processor_count,
+                             _heads_dq_slots(torch.cuda.current_device(), dqk, dv))
+    if b == 16:
+        assert splits > 1
+    build.reset_launches()
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    o.backward(do)
+    assert [build.LAUNCHES[n] for n in ("flash_heads_bwd_dkv", "flash_heads_bwd_dq")] == [1, 1]
+    want = flash_attention_bwd_reference(*(t.detach().double() for t in (q, k, v, o, lse)), do.double(),
+                                         causal=causal)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.double(), w, atol=1e-5, rtol=0)
 
 
 def test_head_dim_12_runs_the_heads_major_kernel_on_the_card(cuda):

@@ -1,8 +1,11 @@
-"""Why K2, K4a, K4b and K6 may run their f32 products on the tensor cores: a
-CPU model of the kernels' arithmetic (``ops/csrc/flash_mma.cuh``: K2's and
-K6's split-TF32 forward; ``ops/csrc/flash_mma_bwd.cuh``: K4a's and K4b's
-backward, f64 score products, K4a's gradient products split-TF32 and K4b's
-in f64) against an f64 reference, at the main path's widths.
+"""Why K2, K4a, K4b, K6, K9a and K9b may run their f32 products on the
+tensor cores: a CPU model of the kernels' arithmetic
+(``ops/csrc/flash_mma.cuh``: K2's and K6's split-TF32 forward;
+``ops/csrc/flash_mma_bwd.cuh``: K4a's and K4b's backward, f64 score
+products, K4a's gradient products split-TF32 and K4b's in f64;
+``ops/csrc/flash_heads_bwd.cu``: K9a's and K9b's heads-major backward,
+every product in f64) against an f64 reference, at the main path's widths,
+and the kv-split rules of K2 and K9b.
 
 The model is test code, not port code. It rounds as the kernels do: each
 f32 operand splits into ``big``, rounded as ``cvt.rna.tf32`` rounds (to
@@ -15,7 +18,8 @@ zero ("rz", how the tensor core's f32 accumulation is documented to round);
 score tiles sum at most four 8-wide k-steps in one accumulator, and each kv
 tile's P.V starts from zero and joins the output with one f32 FMA. The
 tolerances are the card's parity tolerances for K2: 1e-5 on the output,
-1e-4 on the logsumexp; and for K4a/K4b: 1e-5 on every gradient.
+1e-4 on the logsumexp; for K4a/K4b: 1e-5 on every gradient; for K9a/K9b:
+1e-5 on dK/dV, 6e-5 on dQ.
 """
 
 import functools
@@ -31,6 +35,7 @@ from perceiver_io_tpu.ops.flash_attention import flash_attention_packed as jax_f
 from perceiver_io_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
     flash_attention_packed_bwd_reference,
+    heads_dq_splits,
     packed_kv_splits,
 )
 
@@ -516,3 +521,223 @@ def test_the_backward_model_agrees_with_the_jax_package(causal, nq, nkv, n_pad):
         dk, dv = tf32_flash_bwd_dkv(*args, np.arange(nkv), bias, offset)
         for name, got, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
             np.testing.assert_allclose(got, w[:, c], atol=OUT_TOL, rtol=0, err_msg=f"{name} head {hd}")
+
+
+# ---------------------------------------------------------------------------
+# the heads-major backward: K9a (dK, dV) and K9b (dQ),
+# ops/csrc/flash_heads_bwd.cu
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's heads-major backward shapes that the model covers, per
+# head: name: (head dim, the kernel's (zero-padded) head dim, nq, nkv,
+# causal, left pads, batch x heads). The image classifier's cross-attention
+# at batch 16 (the main path), and three edge cases of heads_phase.
+K9_SHAPES = {
+    "image_ca": (264, 264, 512, 50176, False, 0, 16),
+    "d133_causal_pad": (133, 136, 130, 300, True, 37, 4),
+    "d512_causal": (512, 512, 130, 300, True, 0, 4),
+    "split_walk_causal_pad": (136, 136, 100, 3000, True, 50, 4),
+}
+K9_DKV_TOL, K9_DQ_TOL = 1e-5, 6e-5  # chip_smoke.py's tolerances
+
+
+def _k9_rows(d):
+    """Rows of K9a's and K9b's blocks and walked tiles."""
+    return 32 if d <= 288 else 16
+
+
+def _exp64(x):
+    """The kernels' p from an f64 exponent: expf of the exponent rounded to
+    f32, corrected by the rounding's residual with one f32 FMA."""
+    xf = x.astype(np.float32)
+    p = np.exp(xf)
+    with np.errstate(invalid="ignore"):
+        lo = (x - xf.astype(np.float64)).astype(np.float32).astype(np.float64)
+    return np.where(np.isinf(xf), p, (p.astype(np.float64) * (1 + lo)).astype(np.float32))
+
+
+def k9_model(q, k, v, do, lse, delta, bias, offset, rows_q, rows_kv, nsplit=1, scores="f64", grads="f64",
+             exp="exp64"):
+    """K9b's dQ rows ``rows_q`` and K9a's dK, dV rows ``rows_kv`` of one
+    head (sm_scale 1), as the kernels compute them: S and dP (S^T and dP^T)
+    in f64 (``scores="tf32"``: split-TF32, KG k-steps a fresh accumulator,
+    rounded toward zero), the exponent s + bias - lse and dP - delta in the
+    products' precision, p = exp of the exponent (``exp="exp64"``: corrected
+    for its f32 rounding; "expf": not), dS = p (dP - delta) rounded to f32
+    once; the gradient products in f64 over the whole walk, rounded to f32
+    once (``grads="tf32"``: split-TF32 with a fresh accumulator per walked
+    tile, rounded toward zero and joined by f32 adds); K9b's walk split
+    ``nsplit`` ways by tiles, the f32 partials summed in split order."""
+    nq, nkv, d = q.shape[0], k.shape[0], q.shape[1]
+    walk = _k9_rows(d)
+    qp, dop, lp, dp_ = _pad_rows(q, walk), _pad_rows(do, walk), _pad_rows(lse, walk), _pad_rows(delta, walk)
+    kp, vp, bp = _pad_rows(k, walk), _pad_rows(v, walk), _pad_rows(bias, walk)
+
+    def prod(a, b):
+        return _scores(a, b, scores == "f64", "rz", 3, KG, "trunc").astype(np.float64)
+
+    def p_ds(qi, kj):
+        x = prod(qp[qi], kp[kj]) + bp[kj][None].astype(np.float64) - lp[qi][:, None].astype(np.float64)
+        visible = (qi[:, None] < nq) & (kj[None] < nkv) & (True if offset is None else kj[None] <= qi[:, None] + offset)
+        x = np.where(visible, x, -np.inf)
+        p = _exp64(x) if exp == "exp64" else np.exp(x.astype(np.float32))
+        ds = (p.astype(np.float64) * (prod(dop[qi], vp[kj]) - dp_[qi][:, None].astype(np.float64))).astype(np.float32)
+        return p, ds
+
+    def grad(a, b):
+        if grads == "f64":
+            return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.float32)
+        return _grad(a, b, np.zeros((a.shape[0], b.shape[1]), np.float32), "rz", 3, walk // 8, "trunc")
+
+    _, ds = p_ds(rows_q, np.arange(kp.shape[0]))
+    dq = np.zeros((len(rows_q), d), np.float32)
+    for r, i in enumerate(rows_q):
+        q0 = i - i % walk
+        kv_end = nkv if offset is None else max(0, min(nkv, min(q0 + walk, nq) + offset))
+        n_tiles = -(-kv_end // walk)
+        per = -(-n_tiles // nsplit)
+        for z in range(nsplit):
+            cols = slice(min(n_tiles, z * per) * walk, min(n_tiles, z * per + per) * walk)
+            dq[r] = (dq[r] + grad(ds[r:r + 1, cols], kp[cols])[0]).astype(np.float32)
+    pt, dst = p_ds(np.arange(qp.shape[0]), rows_kv)
+    return dq, grad(dst.T.copy(), qp), grad(pt.T.copy(), dop)
+
+
+@functools.lru_cache(maxsize=None)
+def _k9_case(name):
+    """One head of a heads-major shape, drawn as chip_smoke.py draws it (q
+    scaled by the head dim's -1/2 power, the wrapper's zero channels added
+    after); lse and delta = rowsum(dO * O) in f32 from an f64 forward; the
+    rows the model computes (dQ: the first and last 16 q rows; dK/dV: the
+    first 16 kv rows, the first 16 unpadded ones and the last 16); the f64
+    gradients of those rows from the same f32 inputs; and K9b's kv split at
+    the chip shape's grid (132 SMs, one CTA slot an SM)."""
+    d, d8, nq, nkv, causal, pads, bh = K9_SHAPES[name]
+    rng = np.random.default_rng(1)
+    q = (rng.standard_normal((nq, d)) * d**-0.5).astype(np.float32)
+    k, v = (rng.standard_normal((nkv, d)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((nq, d)).astype(np.float32)
+    q, k, v, do = (np.pad(t, ((0, 0), (0, d8 - d))) for t in (q, k, v, do))
+    bias = np.where(np.arange(nkv) < pads, np.float32(MASK_VALUE), np.float32(0))
+    offset = nkv - nq if causal else None
+    o, lse = f64_attention(q, k, v, bias=bias, offset=offset)
+    lse = lse.astype(np.float32)
+    delta = (do.astype(np.float64) * o.astype(np.float32)).sum(axis=1).astype(np.float32)
+    rows_q = np.r_[0:16, nq - 16:nq]
+    rows_kv = np.unique(np.r_[0:16, pads:pads + 16, nkv - 16:nkv])
+    q64, k64, v64, do64 = (t.astype(np.float64) for t in (q, k, v, do))
+
+    def p64(qi, kj):
+        s = q64[qi] @ k64[kj].T + bias[kj][None].astype(np.float64)
+        visible = True if offset is None else kj[None] <= qi[:, None] + offset
+        return np.where(visible, np.exp(s - lse[qi][:, None].astype(np.float64)), 0.0)
+
+    p = p64(rows_q, np.arange(nkv))
+    ds = p * (do64[rows_q] @ v64.T - delta[rows_q][:, None])
+    pt = p64(np.arange(nq), rows_kv).T
+    dst = pt * (v64[rows_kv] @ do64.T - delta[None].astype(np.float64))
+    want = {"dq": ds @ k64, "dk": dst @ q64, "dv": pt @ do64}
+    nsplit = heads_dq_splits(bh, nq, nkv, d8, 132, 1)
+    return (q, k, v, do, lse, delta, bias, offset), rows_q, rows_kv, want, nsplit
+
+
+def _k9_errors(name, **model):
+    """Largest error of the model's dQ and dK/dV rows against f64."""
+    args, rows_q, rows_kv, want, nsplit = _k9_case(name)
+    dq, dk, dv = k9_model(*args, rows_q, rows_kv, nsplit=nsplit, **model)
+    return {"dq": float(np.abs(dq - want["dq"]).max()),
+            "dkv": max(float(np.abs(dk - want["dk"]).max()), float(np.abs(dv - want["dv"]).max()))}
+
+
+@pytest.mark.parametrize("name", list(K9_SHAPES))
+def test_the_heads_backward_meets_a_third_of_the_tolerance(name):
+    """K9a's and K9b's arithmetic (every product in f64 on the tensor cores,
+    p corrected for the f32 rounding of its exponent, dS rounded once, K9b's
+    split partials summed in f32) holds dK/dV within a third of the card's
+    1e-5 and dQ within a third of its 6e-5 against f64, at the image
+    classifier's cross-attention (all 50176 keys) and three edge cases of
+    chip_smoke.py."""
+    got = _k9_errors(name)
+    assert got["dkv"] <= K9_DKV_TOL / 3 and got["dq"] <= K9_DQ_TOL / 3, got
+
+
+@pytest.mark.parametrize("name", ["d133_causal_pad", "d512_causal", "split_walk_causal_pad"])
+def test_f64_scores_beat_split_tf32_scores_in_the_heads_backward(name):
+    """What the f64 score products buy: split-TF32 S and dP (four k-steps a
+    fresh accumulator, rounded toward zero) leave dQ 14-21x and dK/dV 9-15x
+    the error of the f64 ones at these shapes (at head dim 512 dQ reaches
+    1.6e-5, a quarter of the tolerance)."""
+    f64, split = _k9_errors(name), _k9_errors(name, scores="tf32")
+    assert split["dq"] >= 8 * f64["dq"] and split["dkv"] >= 8 * f64["dkv"], (f64, split)
+
+
+@pytest.mark.parametrize("name", ["d133_causal_pad", "d512_causal", "split_walk_causal_pad"])
+def test_f64_gradients_beat_split_tf32_gradients_in_the_heads_backward(name):
+    """Split-TF32 gradient products (three TF32 mmas a product, each operand
+    kept to 2^-21, a fresh accumulator per walked tile rounded toward zero
+    and joined by f32 adds) leave 2-5x the error of the f64 sums the kernels
+    run: on the card they came out further from f64 than the plain version
+    in f32 at head dims 8 and 40."""
+    f64, split = _k9_errors(name), _k9_errors(name, grads="tf32")
+    assert split["dq"] >= 2 * f64["dq"] and split["dkv"] >= 2 * f64["dkv"], (f64, split)
+
+
+@pytest.mark.parametrize("name", ["d133_causal_pad", "d512_causal", "split_walk_causal_pad"])
+def test_the_corrected_exp_cuts_the_dkv_error(name):
+    """p = expf of the exponent rounded to f32 carries that rounding (up to
+    2^-24 |x| absolute in x, so a relative error of p that grows with |x|);
+    the kernels' one-FMA correction cuts the dK/dV error by more than 1.4x."""
+    got, plain = _k9_errors(name), _k9_errors(name, exp="expf")
+    assert plain["dkv"] > 1.4 * got["dkv"], (got, plain)
+
+
+@pytest.mark.parametrize("d,causal,nq,nkv,n_pad", [(40, True, 70, 203, 5), (133, False, 45, 130, 10),
+                                                   (320, True, 100, 100, 0)])
+def test_the_heads_backward_model_agrees_with_the_jax_package(d, causal, nq, nkv, n_pad):
+    """The model's dQ, dK, dV (right-aligned causal limit, the MASK_VALUE bias
+    row, lengths that are no tile multiple, 32- and 16-row walks, a head dim
+    the wrapper zero-pads) against the VJP of the JAX package's heads-major
+    ``flash_attention``, whose Pallas backward kernels run in interpret
+    mode, per head, within 1e-5 (output cotangent std 0.25, gradients up to
+    ~4). Every row sees a real key."""
+    from perceiver_io_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    h, d8 = 2, -(-d // 8) * 8
+    rng = np.random.default_rng(5)
+    q = (rng.standard_normal((1, h, nq, d)) * d**-0.5).astype(np.float32)
+    k, v = (rng.standard_normal((1, h, nkv, d)).astype(np.float32) for _ in range(2))
+    do = (0.25 * rng.standard_normal((1, h, nq, d))).astype(np.float32)
+    pad = np.zeros((1, nkv), bool)
+    pad[0, :n_pad] = True
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_flash(q_, k_, v_, pad_mask=jnp.asarray(pad), causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g)[0] for g in vjp(jnp.asarray(do))]
+    bias = np.where(pad[0], np.float32(MASK_VALUE), np.float32(0))
+    offset = nkv - nq if causal else None
+    for hd in range(h):
+        qh, kh, vh, doh = (np.pad(t[0, hd], ((0, 0), (0, d8 - d))) for t in (q, k, v, do))
+        o, lse = f64_attention(qh, kh, vh, bias=bias, offset=offset)
+        delta = (doh.astype(np.float64) * o).sum(axis=1).astype(np.float32)
+        got = k9_model(qh, kh, vh, doh, lse.astype(np.float32), delta, bias, offset, np.arange(nq), np.arange(nkv))
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(g[:, :d], w[hd], atol=OUT_TOL, rtol=0, err_msg=f"{name} head {hd}")
+
+
+@pytest.mark.parametrize("bh,splits", [(16, 1), (2, 4)])
+def test_k9b_kv_split_at_the_main_path_shapes(bh, splits):
+    """K9b at the image classifier's cross-attention (512 latents over 50176
+    pixels, head dim 264; one CTA an SM): 16 x 16 q blocks of 32 rows at
+    batch 16 fill 132 SMs unsplit; 2 x 16 at batch 2 split the walk 4 ways."""
+    assert heads_dq_splits(bh, 512, 50176, 264, sms=132, slots=1) == splits
+
+
+@pytest.mark.parametrize("bh,nq,nkv,d,slots", [(2, 512, 50176, 264, 1), (4, 130, 300, 512, 1), (4, 100, 3000, 136, 1),
+                                               (3, 200, 9000, 40, 2), (1, 64, 600, 64, 2)])
+def test_k9b_kv_split_never_adds_a_wave(bh, nq, nkv, d, slots):
+    """A split fills the CTA slots one CTA per q block leaves idle, never
+    needs a second wave, and keeps at least 8 walked tiles (32 rows up to
+    head dim 288, 16 above) a split."""
+    n = heads_dq_splits(bh, nq, nkv, d, 132, slots)
+    rows = 32 if d <= 288 else 16
+    assert n >= 1 and (n == 1 or n * bh * -(-nq // rows) <= slots * 132)
+    assert n == 1 or -(-nkv // rows) >= 8 * n
