@@ -47,7 +47,8 @@ LAUNCHERS = {
     "flash_heads_fwd": ("flash_heads", "pio_flash_heads_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
     "flash_heads_bwd_dkv": ("flash_heads_bwd", "pio_flash_heads_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
     "flash_heads_bwd_dq": ("flash_heads_bwd", "pio_flash_heads_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
-    # not a kernel: K9b's CTA slots an SM at given head dims (its split rule)
+    # not kernels: K8's and K9b's CTA slots an SM at given head dims (their split rules)
+    "flash_heads_fwd_slots": ("flash_heads", "pio_flash_heads_fwd_slots", [_I, _I]),
     "flash_heads_bwd_dq_slots": ("flash_heads_bwd", "pio_flash_heads_bwd_dq_slots", [_I, _I]),
 }
 CUDA_SOURCES = tuple(dict.fromkeys(source for source, _, _ in LAUNCHERS.values()))

@@ -1,5 +1,5 @@
-// K8: heads-major flash attention forward for Hopper (sm_90a), plain CUDA
-// C++, f32.
+// K8: heads-major flash attention forward for Hopper (sm_90a), CUDA C++,
+// f32, on the tensor cores.
 //
 // Replaces the TPU kernel perceiver_io_tpu/ops/flash_attention.py
 // _fwd_kernel (reached from _flash_fwd_impl via flash_attention). Same
@@ -15,190 +15,455 @@
 // What bounds it: at the Perceiver IO image classifier's cross-attention
 // (512 latents over 50176 pixels, one head of 264 channels) the work is
 // 4 * 512 * 50176 * 264 = 27.1 GFLOP per image against ~107 MB of operands:
-// bound by arithmetic, on the CUDA cores (one TF32 product would miss the
-// f32 parity tolerance; K2's split-TF32 tiles are the way to the tensor
-// cores). Its
-// design answers three problems of that shape:
+// arithmetic. The products run on the tensor cores by mma.sync m16n8k8 TF32
+// under flash_mma.cuh's split policy (each f32 operand split into a rounded
+// TF32 big part and its residual, three products per f32-accurate product,
+// so the bound is a third of the TF32 rate); the softmax stays in f32:
+// - S = Q K^T in chains of at most KG = 4 k-steps, each into a fresh
+//   accumulator that an f32 add joins to the rest (33 k-steps at D = 264:
+//   9 chains an m16n8 unit, a warp's units' chains in flight together);
+// - each kv tile's P V into a fresh accumulator, joined to the output by
+//   one FFMA with the softmax rescale, o = o * alpha + tile.
+// A forward has no gradient amplification (K4, K9), so split-TF32 products
+// keep the output within the f32 parity tolerance.
 //
-// - width: a 264-wide (up to 512) row fits neither in a thread's registers
-//   (K2's layout) nor, as whole Q, K and V tiles, in shared memory. The
-//   block's 64 queries stay resident in shared memory; each 64-row K tile
-//   is staged in 64-column chunks and S = Q K^T accumulated chunk by chunk;
-//   P goes through shared memory and each V tile is staged 16 rows at a
-//   time for O += P V; the output block (64 x Dv) lives in registers as
-//   DMAX / 64 float4 chunks per thread (flash_heads.cuh);
-// - too few CTAs: one head and 512 queries give 8 q blocks per image, 8
-//   CTAs at batch 1 against 132 SMs, each walking 784 kv tiles. The kv walk
-//   is split across `nsplit` CTAs (grid z, chosen by the wrapper); each
-//   writes its unnormalized partial (acc, m, l) to a scratch buffer and a
-//   second pass (flash_merge.cuh) merges the splits in a fixed order, as K3
-//   does;
-// - tails: rows past Nq and kv rows past Nkv are staged as zeros and masked;
-//   the wrapper pads odd head dims to a multiple of 8.
+// Layout (K9's, flash_heads_bwd.cu): a 264-wide row (up to 512) fits in no
+// thread's registers, so the CTA's 8 warps share the work of each tile:
+// - A CTA owns BQ = 64 query rows (staged once) and walks tiles of BKV kv
+//   rows, every operand tile at pitch DMAX and swizzled as
+//   flash_mma_bwd.cuh's walked tiles are, so the score product's float2
+//   loads along the rows of Q and K and the P.V product's scalar loads down
+//   the columns of V are both free of bank conflicts.
+// - Scores: the tile's 4 x BKV / 8 m16n8 units are split over the warps, UW
+//   units of one m-tile a warp (its Q fragments split once for them). Each
+//   warp's partial row maxima, then its partial row sums, pass through
+//   shared memory; every warp reads the row's NWN partials in a fixed order,
+//   so all threads agree on the tile's maximum and rescale. P goes through
+//   shared memory in f32.
+// - P V: a warp takes two m-tiles and every fourth of the output's 8-column
+//   n-tiles, up to the real head dim (264, not the bucket's 288); each V
+//   fragment is split once for the two m-tiles, each n-tile's product is a
+//   fresh accumulator.
+// - Row statistics: thread r < BQ keeps row r's running max and sum in
+//   registers and publishes the max for the next tile.
+// - One buffer each for K and V, and three barriers a tile: the tile's K
+//   has arrived (tile t - 1 done; V(t) starts loading and flies during the
+//   scores), the maxima (K(t) read; K(t + 1) starts loading and flies during
+//   P V), P and the sums (V(t) arrived). On an H100 this ran the image CA
+//   faster than K and V double-buffered at 32 kv rows, the deeper tile
+//   halving the barriers and the fixed work per key (PERF.md).
+// Shared memory (floats): BQ x DMAX for Q, 2 x BKV x DMAX for K and V,
+// BQ x (BKV + 8) for P (pitch 8 or 24 mod 32 for its float2 fragment
+// loads), and a few rows of statistics. By the head-dim bucket of
+// max(Dqk, Dv): DMAX 64 / 128 / 256 / 288 (D 257-288: the image CA's 264 is
+// 33 k-steps and 33 n-tiles, looped to 264): BKV = 48, 57,216 / 98,176 /
+// 180,096 / 200,576 bytes; DMAX 512: BKV = 16, 204,416 bytes.
+// The wrapper reads the CTAs an SM from the runtime
+// (pio_flash_heads_fwd_slots) and splits the kv walk across `nsplit` CTAs
+// (grid z) where the q blocks leave CTA slots idle: each writes its
+// unnormalized partial (acc, m, l) to a scratch buffer and a second pass
+// (flash_merge.cuh) merges the splits in a fixed order, as K2 does. Rows
+// past Nq and kv rows past Nkv are staged as zeros and masked; the wrapper
+// pads odd head dims to a multiple of 8.
 
-#include "flash_heads.cuh"
 #include "flash_merge.cuh"
+#include "flash_mma_bwd.cuh"
 
 namespace {
 
-using namespace pio::heads;
+using pio::mma::cp_async4;
+using pio::mma::cp_commit;
+using pio::mma::cp_wait;
+using pio::mma::KG;
+using pio::mma::mma3;
+using pio::mma::mma3_split;
+using pio::mma::NO_LIMIT;
+using pio::mma::split;
+using pio::mma::store2;
+using pio::mma_bwd::stage_swizzled;
+using pio::mma_bwd::sw;
 
-constexpr int BQ = 64;    // query rows per CTA
-constexpr int BKV = 64;   // kv rows per tile
-constexpr int VR = 16;    // V rows staged at a time
+constexpr int NW = 8;  // warps
+constexpr int NT = 32 * NW;
 
+template <int DMAX_>
+struct Cfg {
+  static constexpr int DMAX = DMAX_;                      // pitch of every operand tile
+  static constexpr int BQ = 64;                           // q rows a CTA owns
+  static constexpr int BKV = DMAX == 512 ? 16 : 48;       // kv rows of a walked tile
+  static constexpr int MT = BQ / 16;                      // m-tiles
+  static constexpr int NS = BKV / 8;                      // score n-tiles, P.V k-steps
+  static constexpr int UNITS = MT * NS;                   // m16n8 units of a score tile
+  static constexpr int UW = UNITS / NW;                   // units a score warp takes
+  static constexpr int NWN = NW / MT;                     // score warps of an m-tile
+  static constexpr int NGRP = (DMAX / 8 + KG - 1) / KG;   // score chains
+  static constexpr int GI = 4 / UW;                       // chains in flight
+  static constexpr int PM = 2;                            // m-tiles of a warp's P.V
+  static constexpr int MG = MT / PM;                      // m-groups
+  static constexpr int NGW = NW / MG;                     // warps an m-group
+  static constexpr int NPW = (DMAX / 8 + NGW - 1) / NGW;  // output n-tiles a warp holds
+  static constexpr int LDP = BKV + 8;                     // pitch of P
+  static constexpr int TILE = BKV * DMAX;
+  static constexpr size_t BYTES =
+      (BQ * DMAX + 2 * TILE + BQ * LDP + 2 * BKV + 2 * NWN * BQ + 2 * BQ) * sizeof(float);
+};
+
+// s = Q K^T for the warp's UW units (m-tile m; n-tiles wn + i NW / MT) of a
+// tile: GI chains of KG k-steps a unit at a time, each in a fresh
+// accumulator, the chains joined in order by f32 adds. Q and K are swizzled tiles of pitch
+// DMAX; the C layout holds rows g, g + 8 and columns 2t, 2t + 1 of each
+// n-tile (mma index t mapped to column 2t, t + 4 to 2t + 1, flash_mma.cuh)
+template <int DMAX>
+__device__ __forceinline__ void scores(float (&s)[Cfg<DMAX>::UW][4], const float* sq, const float* sk, int m,
+                                       int wn, int dqk) {
+  using C = Cfg<DMAX>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * m + g, s0 = sw(r0), s1 = sw(r0 + 8);
+  const float* a0 = sq + r0 * DMAX + 2 * t;
+  const float* a1 = a0 + 8 * DMAX;
+  const float* br[C::UW];
+  int sb[C::UW];
+#pragma unroll
+  for (int i = 0; i < C::UW; ++i) {
+    const int row = 8 * (wn + i * (NW / C::MT)) + g;
+    br[i] = sk + row * DMAX + 2 * t;
+    sb[i] = sw(row);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+  }
+#pragma unroll
+  for (int g0 = 0; g0 < C::NGRP; g0 += C::GI) {
+    float acc[C::GI][C::UW][4];
+#pragma unroll
+    for (int gi = 0; gi < C::GI; ++gi)
+#pragma unroll
+      for (int i = 0; i < C::UW; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gi][i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KG; ++kk)
+#pragma unroll
+      for (int gi = 0; gi < C::GI; ++gi) {
+        const int ks = (g0 + gi) * KG + kk;
+        if (g0 + gi < C::NGRP && 8 * ks < dqk) {
+          const float2 x0 = *reinterpret_cast<const float2*>(a0 + 8 * (ks ^ s0));
+          const float2 x1 = *reinterpret_cast<const float2*>(a1 + 8 * (ks ^ s1));
+          uint32_t ab[4], as[4];
+          split(x0.x, ab[0], as[0]);
+          split(x1.x, ab[1], as[1]);
+          split(x0.y, ab[2], as[2]);
+          split(x1.y, ab[3], as[3]);
+#pragma unroll
+          for (int i = 0; i < C::UW; ++i) {
+            const float2 kv = *reinterpret_cast<const float2*>(br[i] + 8 * (ks ^ sb[i]));
+            mma3(acc[gi][i], ab, as, kv.x, kv.y);
+          }
+        }
+      }
+#pragma unroll
+    for (int gi = 0; gi < C::GI; ++gi)
+      if (g0 + gi < C::NGRP && 8 * (g0 + gi) * KG < dqk) {
+#pragma unroll
+        for (int i = 0; i < C::UW; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][e] += acc[gi][i][e];
+      }
+  }
+}
+
+// o = o * alpha + P V for the warp's PM m-tiles (from m-tile PM mg) and
+// output n-tiles grp + NGW i below dv/8: P from shared memory (pitch LDP;
+// its columns the NS k-steps), split once a tile; V a swizzled tile read
+// down its rows (rows 8kk + 2t and 8kk + 2t + 1 at column 8n + g), each V
+// fragment split once for the PM m-tiles; each n-tile's NS k-steps in a
+// fresh accumulator
+template <int DMAX>
+__device__ __forceinline__ void pv(float (&o)[Cfg<DMAX>::NPW][Cfg<DMAX>::PM][4],
+                                   const float (&alpha)[Cfg<DMAX>::PM][2], const float* sp, const float* sv,
+                                   int mg, int grp, int dv) {
+  using C = Cfg<DMAX>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // P's A fragments, k-step kk: (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)
+  uint32_t pb[C::PM][C::NS][4], ps[C::PM][C::NS][4];
+#pragma unroll
+  for (int pm = 0; pm < C::PM; ++pm) {
+    const float* at = sp + (16 * (C::PM * mg + pm) + g) * C::LDP + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < C::NS; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(at + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(at + 8 * C::LDP + 8 * kk);
+      split(x0.x, pb[pm][kk][0], ps[pm][kk][0]);
+      split(x1.x, pb[pm][kk][1], ps[pm][kk][1]);
+      split(x0.y, pb[pm][kk][2], ps[pm][kk][2]);
+      split(x1.y, pb[pm][kk][3], ps[pm][kk][3]);
+    }
+  }
+  // sw of row 8kk + 2t + e is (s_e + 2kk) & 3
+  const float* br = sv + 2 * t * DMAX + g;
+  const int s_0 = sw(2 * t), s_1 = sw(2 * t + 1);
+#pragma unroll
+  for (int i = 0; i < C::NPW; ++i) {
+    const int n = grp + C::NGW * i;
+    if (8 * n < dv) {
+      float acc[C::PM][4];
+#pragma unroll
+      for (int pm = 0; pm < C::PM; ++pm)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[pm][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < C::NS; ++kk) {
+        const float* row = br + 8 * kk * DMAX;
+        uint32_t bb0, bs0, bb1, bs1;
+        split(row[8 * (n ^ ((s_0 + 2 * kk) & 3))], bb0, bs0);
+        split(row[DMAX + 8 * (n ^ ((s_1 + 2 * kk) & 3))], bb1, bs1);
+#pragma unroll
+        for (int pm = 0; pm < C::PM; ++pm) mma3_split(acc[pm], pb[pm][kk], ps[pm][kk], bb0, bb1, bs0, bs1);
+      }
+#pragma unroll
+      for (int pm = 0; pm < C::PM; ++pm)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][pm][e] = fmaf(o[i][pm][e], alpha[pm][e >> 1], acc[pm][e]);
+    }
+  }
+}
+
+// the tile's maximum of row `row` from the score warps' partials, in order
+template <int NWN, int BQ>
+__device__ __forceinline__ float tile_max(const float* rmax, int row) {
+  float x = rmax[row];
+#pragma unroll
+  for (int k = 1; k < NWN; ++k) x = fmaxf(x, rmax[k * BQ + row]);
+  return x;
+}
+
+// the max a row's softmax shifts by: m, or 0 while the row has seen nothing
+// (p = 0 and alpha = 0, never inf - inf)
+__device__ __forceinline__ float shift(float m) { return m == -CUDART_INF_F ? 0.f : m; }
+
+// One CTA per (BQ q rows, batch*head, split of the kv walk).
 template <int DMAX>
 __global__ void __launch_bounds__(NT, 1) heads_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ bias, float* __restrict__ o, float* __restrict__ lse, float* __restrict__ part,
     int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale) {
-  constexpr int CH = Chunks<DMAX>::N;
+  using C = Cfg<DMAX>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ldq = dqk + 4, ldv = dv + 4;
-  float* sq = smem;             // BQ x ldq: the block's queries
-  float* sk = sq + BQ * ldq;    // BKV x LDC: one column chunk of a K tile
-  float* sv = sk + BKV * LDC;   // VR x ldv: rows of a V tile
-  float* sp = sv + VR * ldv;    // BQ x LDC: P of the tile
-  float* sb = sp + BQ * LDC;    // BKV: the tile's bias
+  float* sq = reinterpret_cast<float*>(smem4);  // the block's queries
+  float* sk = sq + C::BQ * DMAX;                // the tile's keys
+  float* sv = sk + C::TILE;                     // and values
+  float* sp = sv + C::TILE;                     // P
+  float* sbias = sp + C::BQ * C::LDP;           // bias buffers (by tile parity)
+  float* rmax = sbias + 2 * C::BKV;             // partial row maxima (NWN x BQ)
+  float* rsum = rmax + C::NWN * C::BQ;          // partial row sums
+  float* sm = rsum + C::NWN * C::BQ;            // row maxima before the tile
+  float* fl = sm + C::BQ;                       // row sums after the walk
 
-  const int q0 = blockIdx.x * BQ, bh = blockIdx.y, z = blockIdx.z;
-  const int nbh = gridDim.y, nsplit = gridDim.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = blockIdx.x * C::BQ, bh = blockIdx.y, z = blockIdx.z, nsplit = gridDim.z;
   const float* kh = k + (long)bh * nkv * dqk;
   const float* vh = v + (long)bh * nkv * dv;
   const float* brow = bias == nullptr ? nullptr : bias + (long)(bh / h) * nkv;
-  stage<BQ>(sq, ldq, q + (long)bh * nq * dqk, dqk, q0, nq, 0, dqk);
 
   // the block's visible kv tiles, then this split's contiguous share
-  const int offset = nkv - nq;
-  const int kv_end = causal ? max(0, min(nkv, min(q0 + BQ, nq) + offset)) : nkv;
-  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const int off = causal ? nkv - nq : NO_LIMIT;
+  const int kv_end = causal ? max(0, min(nkv, min(q0 + C::BQ, nq) + off)) : nkv;
+  const int n_tiles = (kv_end + C::BKV - 1) / C::BKV;
   const int per = (n_tiles + nsplit - 1) / nsplit;
   const int t_begin = min(n_tiles, z * per), t_end = min(n_tiles, t_begin + per);
 
-  float m[4], l[4];
-  float4 acc[CH][4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    m[e] = -CUDART_INF_F;
-    l[e] = 0.f;
-  }
-  zero(acc);
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int j0 = t * BKV;
-    float s[4][4] = {};
-    for (int c0 = 0; c0 < dqk; c0 += DC) {
-      const int w = min(DC, dqk - c0);
-      __syncthreads();  // the previous chunk's (or tile's) readers are done
-      stage<BKV>(sk, LDC, kh, dqk, j0, nkv, c0, w);
-      if (c0 == 0 && threadIdx.x < BKV) {
-        const int gj = j0 + threadIdx.x;
-        sb[threadIdx.x] = (brow != nullptr && gj < nkv) ? brow[gj] : 0.f;
-      }
-      __syncthreads();
-      dot<4, 4>(s, sq + c0, ldq, sk, LDC, w, ty, tx);
+  auto stage_k = [&](int tile, int u) {  // K and the bias row
+    const int j0 = tile * C::BKV;
+    stage_swizzled<DMAX, C::BKV, NT>(sk, kh, dqk, j0, nkv, dqk);
+    if (threadIdx.x < C::BKV) {
+      const int j = j0 + threadIdx.x;
+      const bool ok = brow != nullptr && j < nkv;
+      cp_async4(sbias + u * C::BKV + threadIdx.x, ok ? brow + j : kh, ok);
     }
+  };
+  stage_swizzled<DMAX, C::BQ, NT>(sq, q + (long)bh * nq * dqk, dqk, q0, nq, dqk);
+  if (t_begin < t_end) stage_k(t_begin, 0);
+  cp_commit();
 
-    // online softmax; a row's 16 column-threads are 16 lanes of one warp
-    float alpha[4];
+  // scores: warp w takes m-tile w % MT and its n-tiles wn + i NW / MT;
+  // P.V: m-tiles PM mg .. PM mg + PM - 1, n-tiles grp + NGW i
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int m_t = w % C::MT, wn = w / C::MT;
+  const int mg = w % C::MG, grp = w / C::MG;
+
+  float acc[C::NPW][C::PM][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = q0 + ty + 16 * e;
-      float tmax = -CUDART_INF_F;
+  for (int i = 0; i < C::NPW; ++i)
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int j = j0 + tx + 16 * f;
-        const bool visible = j < nkv && (!causal || j <= i + offset);
-        s[e][f] = visible ? s[e][f] * sm_scale + sb[tx + 16 * f] : -CUDART_INF_F;
-        tmax = fmaxf(tmax, s[e][f]);
-      }
+    for (int pm = 0; pm < C::PM; ++pm)
 #pragma unroll
-      for (int w = 1; w < 16; w <<= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, w));
-      const float m_new = fmaxf(m[e], tmax);
-      // a row with nothing visible yet keeps p = 0 and alpha = 0 (no inf - inf)
-      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-      alpha[e] = expf(m[e] - m_use);
-      float psum = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][pm][e] = 0.f;
+  float m_row = -CUDART_INF_F, l_row = 0.f;  // row tid's running max and sum (tid < BQ)
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int u = (tile - t_begin) & 1, j0 = tile * C::BKV;
+    cp_wait<0>();
+    __syncthreads();  // the tile's K in shared memory; every warp done with the previous tile
+    if (tid < C::BQ) sm[tid] = m_row;
+    stage_swizzled<DMAX, C::BKV, NT>(sv, vh, dv, j0, nkv, dv);  // V flies while the scores are computed
+    cp_commit();
+
+    // scores, scaled, biased and masked; the partial row maxima. Element e
+    // of unit i: row 16 m_t + g + 8 (e >> 1), column 8 n_i + 2t + (e & 1)
+    float s[C::UW][4];
+    scores<DMAX>(s, sq, sk, m_t, wn, dqk);
+    const float* bt = sbias + u * C::BKV;
+    const bool full = j0 + C::BKV <= nkv && j0 + C::BKV - 1 <= q0 + off;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const float p = expf(s[e][f] - m_use);
-        psum += p;
-        sp[(ty + 16 * e) * LDC + tx + 16 * f] = p;
-      }
-#pragma unroll
-      for (int w = 1; w < 16; w <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, w);
-      l[e] = l[e] * alpha[e] + psum;
-      m[e] = m_new;
-    }
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch)
+    for (int i = 0; i < C::UW; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        acc[ch][e].x *= alpha[e];
-        acc[ch][e].y *= alpha[e];
-        acc[ch][e].z *= alpha[e];
-        acc[ch][e].w *= alpha[e];
+        const int col = 8 * (wn + i * (NW / C::MT)) + 2 * t + (e & 1);
+        float x = fmaf(s[i][e], sm_scale, bt[col]);
+        if (!full) {
+          const int j = j0 + col, qi = q0 + 16 * m_t + g + 8 * (e >> 1);
+          if (!(j < nkv && j <= qi + off)) x = -CUDART_INF_F;
+        }
+        s[i][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-
-    for (int r0 = 0; r0 < BKV; r0 += VR) {
-      __syncthreads();  // P is written; the previous V rows' readers are done
-      stage<VR>(sv, ldv, vh, dv, j0 + r0, nkv, 0, dv);
-      __syncthreads();
 #pragma unroll
-      for (int ch = 0; ch < CH; ++ch)
-        if (DC * ch + 4 * tx < dv) acc_rows<4, VR>(acc[ch], sp + r0, LDC, sv + DC * ch, ldv, ty, tx);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (t == 0) rmax[wn * C::BQ + 16 * m_t + g + 8 * r] = mx[r];
+    }
+    __syncthreads();  // the partial maxima; every warp done with K
+    if (tile + 1 < t_end) {  // the next tile's K flies during this one's P V
+      stage_k(tile + 1, u ^ 1);
+      cp_commit();
+    }
+
+    // p = exp(s - shift(m_new)) into P; the partial row sums
+    float mu[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * m_t + g + 8 * r;
+      mu[r] = shift(fmaxf(sm[row], tile_max<C::NWN, C::BQ>(rmax, row)));
+    }
+#pragma unroll
+    for (int i = 0; i < C::UW; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][e] = expf(s[i][e] - mu[e >> 1]);
+        psum[e >> 1] += s[i][e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int at = (16 * m_t + g + 8 * r) * C::LDP + 8 * (wn + i * (NW / C::MT)) + 2 * t;
+        *reinterpret_cast<float2*>(sp + at) = make_float2(s[i][2 * r], s[i][2 * r + 1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      if (t == 0) rsum[wn * C::BQ + 16 * m_t + g + 8 * r] = psum[r];
+    }
+    if (tile + 1 < t_end) {
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // P, the partial sums and V
+
+    float alpha[C::PM][2];
+#pragma unroll
+    for (int pm = 0; pm < C::PM; ++pm)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * (C::PM * mg + pm) + g + 8 * r;
+        const float m_old = sm[row];
+        alpha[pm][r] = expf(m_old - shift(fmaxf(m_old, tile_max<C::NWN, C::BQ>(rmax, row))));
+      }
+    pv<DMAX>(acc, alpha, sp, sv, mg, grp, dv);
+    if (tid < C::BQ) {
+      const float m_new = fmaxf(m_row, tile_max<C::NWN, C::BQ>(rmax, tid));
+      float sum = rsum[tid];
+#pragma unroll
+      for (int k2 = 1; k2 < C::NWN; ++k2) sum += rsum[k2 * C::BQ + tid];
+      l_row = l_row * expf(m_row - shift(m_new)) + sum;
+      m_row = m_new;
     }
   }
 
-  if (nsplit == 1) {
+  cp_wait<0>();  // (a CTA that walks no tile still has its Q in flight)
+  __syncthreads();
+  if (tid < C::BQ) fl[tid] = l_row;
+  __syncthreads();
+  // output rows (bh, i): normalized, or the unnormalized partial
+  // (nsplit, B*H, Nq, Dv) of a split walk and its (m, l) pairs after them
+  const long rows = (long)gridDim.y * nq;
+  float* out = nsplit == 1 ? o : part + (long)z * rows * dv;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float inv = l[e] == 0.f ? 1.f : 1.f / l[e];
+  for (int pm = 0; pm < C::PM; ++pm)
 #pragma unroll
-      for (int ch = 0; ch < CH; ++ch) {
-        acc[ch][e].x *= inv;
-        acc[ch][e].y *= inv;
-        acc[ch][e].z *= inv;
-        acc[ch][e].w *= inv;
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * (C::PM * mg + pm) + g + 8 * r, i = q0 + row;
+      if (i >= nq) continue;
+      const float inv = nsplit > 1 || fl[row] == 0.f ? 1.f : 1.f / fl[row];
+      float* orow = out + ((long)bh * nq + i) * dv + 2 * t;
+#pragma unroll
+      for (int idx = 0; idx < C::NPW; ++idx) {
+        const int n = grp + C::NGW * idx;
+        if (8 * n < dv) store2(orow + 8 * n, acc[idx][pm][2 * r] * inv, acc[idx][pm][2 * r + 1] * inv);
       }
-      const int i = q0 + ty + 16 * e;
-      if (tx == 0 && i < nq) lse[(long)bh * nq + i] = m[e] + logf(l[e] == 0.f ? 1.f : l[e]);
     }
-    store_rows(o + (long)bh * nq * dv, dv, q0, nq, acc, ty, tx);
-  } else {
-    // unnormalized partials: acc (nsplit, B*H, Nq, Dv), then (m, l) pairs
-    const long rows = (long)nbh * nq;
-    store_rows(part + ((long)z * rows + (long)bh * nq) * dv, dv, q0, nq, acc, ty, tx);
-    float* ml = part + (long)nsplit * rows * dv;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = q0 + ty + 16 * e;
-      if (tx == 0 && i < nq) {
-        const long r = (long)z * rows + (long)bh * nq + i;
-        ml[2 * r] = m[e];
-        ml[2 * r + 1] = l[e];
-      }
+  if (tid < C::BQ && q0 + tid < nq) {
+    const long r = (long)bh * nq + q0 + tid;
+    if (nsplit == 1) {
+      lse[r] = m_row + logf(l_row == 0.f ? 1.f : l_row);
+    } else {
+      float* ml = part + (long)nsplit * rows * dv + 2 * ((long)z * rows + r);
+      ml[0] = m_row;
+      ml[1] = l_row;
     }
   }
+}
+
+template <int DMAX>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(heads_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Cfg<DMAX>::BYTES);
 }
 
 template <int DMAX>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias, float* o, float* lse,
                    float* part, int bh, int nq, int nkv, int h, int dqk, int dv, int causal, float sm_scale,
                    int nsplit, cudaStream_t stream) {
-  const size_t floats =
-      (size_t)BQ * (dqk + 4) + (size_t)BKV * LDC + (size_t)VR * (dv + 4) + (size_t)BQ * LDC + BKV;
-  const size_t smem = floats * sizeof(float);
-  auto kernel = heads_fwd_kernel<DMAX>;
-  cudaError_t err = prepare(kernel, smem);
+  using C = Cfg<DMAX>;
+  cudaError_t err = prepare<DMAX>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + BQ - 1) / BQ, bh, nsplit);
-  kernel<<<grid, NT, smem, stream>>>(q, k, v, bias, o, lse, part, nq, nkv, h, dqk, dv, causal, sm_scale);
+  const dim3 grid((nq + C::BQ - 1) / C::BQ, bh, nsplit);
+  heads_fwd_kernel<DMAX><<<grid, NT, C::BYTES, stream>>>(q, k, v, bias, o, lse, part, nq, nkv, h, dqk, dv, causal,
+                                                         sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   return pio::merge_splits(part, o, lse, (long)bh * nq, dv, nsplit, stream);
+}
+
+// K8's CTAs an SM (or minus a cudaError_t)
+template <int DMAX>
+int slots() {
+  cudaError_t err = prepare<DMAX>();
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, heads_fwd_kernel<DMAX>, NT, Cfg<DMAX>::BYTES);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+bool valid_dims(int dqk, int dv) {
+  return dqk >= 8 && dv >= 8 && dqk % 8 == 0 && dv % 8 == 0 && dqk <= 512 && dv <= 512;
+}
+
+// the head-dim bucket a kernel is instantiated for
+int bucket(int dqk, int dv) {
+  const int d = dqk > dv ? dqk : dv;
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : d <= 288 ? 288 : 512;
 }
 
 }  // namespace
@@ -216,11 +481,24 @@ extern "C" int pio_flash_heads_fwd(const float* q, const float* k, const float* 
       (nsplit > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dmax_bucket(dqk, dv)) {
+  switch (bucket(dqk, dv)) {
     case 64: return launch<64>(q, k, v, bias, o, lse, part, bh, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
     case 128: return launch<128>(q, k, v, bias, o, lse, part, bh, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
     case 256: return launch<256>(q, k, v, bias, o, lse, part, bh, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
-    case 320: return launch<320>(q, k, v, bias, o, lse, part, bh, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
+    case 288: return launch<288>(q, k, v, bias, o, lse, part, bh, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
     default: return launch<512>(q, k, v, bias, o, lse, part, bh, nq, nkv, h, dqk, dv, causal, sm_scale, nsplit, s);
+  }
+}
+
+// K8's CTA slots an SM at these head dims on the current device (what its
+// split rule counts), or minus a cudaError_t
+extern "C" int pio_flash_heads_fwd_slots(int dqk, int dv) {
+  if (!valid_dims(dqk, dv)) return -(int)cudaErrorInvalidValue;
+  switch (bucket(dqk, dv)) {
+    case 64: return slots<64>();
+    case 128: return slots<128>();
+    case 256: return slots<256>();
+    case 288: return slots<288>();
+    default: return slots<512>();
   }
 }

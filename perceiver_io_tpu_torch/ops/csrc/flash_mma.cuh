@@ -1,6 +1,8 @@
 // Flash forward tiles on Hopper's tensor cores by mma.sync, shared by K2
 // (flash_packed.cu, f32 and bf16) and K6 (flash_2seg.cu, f32): the online
-// softmax in f32, two policies for the products.
+// softmax in f32, two policies for the products. K8 (flash_heads.cu) runs
+// the F32 policy's arithmetic (split, mma3, the chains below) on its own
+// heads-major tiles.
 //
 // F32, split-TF32 products. Every f32 operand x is split into a TF32 big
 // part, x rounded to nearest (cvt.rna's rounding; truncating would lose the
@@ -108,15 +110,22 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b at f32 accuracy: the two small cross terms, then big x big
+// d += a b at f32 accuracy for b already split (bb big, bs small): the two
+// small cross terms, then big x big
+__device__ __forceinline__ void mma3_split(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// d += a b at f32 accuracy
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4], float b0,
                                      float b1) {
   uint32_t bb0, bs0, bb1, bs1;
   split(b0, bb0, bs0);
   split(b1, bb1, bs1);
-  mma_tf32(d, as, bb0, bb1);
-  mma_tf32(d, ab, bs0, bs1);
-  mma_tf32(d, ab, bb0, bb1);
+  mma3_split(d, ab, as, bb0, bb1, bs0, bs1);
 }
 
 // d += a b, one m16n8k16 bf16 product with an f32 accumulator

@@ -667,9 +667,43 @@ def _heads_dims(dqk: int, dv: int) -> None:
         raise ValueError(f"heads-major kernels take head dims that are multiples of 8 up to 512, got {(dqk, dv)}")
 
 
-def heads_fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
+def heads_fwd_tiles(d_max: int) -> Tuple[int, int]:
+    """K8's (q rows a CTA owns, kv rows of a walked tile) at the head-dim
+    bucket of ``d_max`` (``Cfg`` in ``csrc/flash_heads.cu``): 64 and 48 up
+    to head dim 288 (the image CA's 264), 64 and 16 above."""
+    return (64, 48) if d_max <= 288 else (64, 16)
+
+
+def heads_fwd_splits(bh: int, nq: int, nkv: int, d_max: int, sms: int, slots: int) -> int:
+    """How many CTAs K8 splits each q block's kv walk across:
+    :func:`_kv_splits` over its q blocks and kv tiles
+    (:func:`heads_fwd_tiles`) and ``slots`` CTAs an SM (one at the image
+    CA's head dim 264: 200,576 bytes of shared memory a CTA). The image CA:
+    16 x 8 q blocks at batch 16 fill 128 of 132 SMs unsplit; 2 x 8 at batch
+    2 take 8 splits."""
+    q_rows, kv_rows = heads_fwd_tiles(d_max)
+    return _kv_splits(bh, nq, q_rows, -(-nkv // kv_rows), slots * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _heads_slots(name: str, device_index: int, dqk: int, dv: int) -> int:
+    """CTA slots an SM of K8 (``name`` "flash_heads_fwd") or K9b
+    ("flash_heads_bwd_dq") at these head dims, from the runtime."""
+    with torch.cuda.device(device_index):
+        slots = build.launcher(f"{name}_slots")(dqk, dv)
+    if slots < 1:
+        raise RuntimeError(f"{name}: no CTA slot at head dims ({dqk}, {dv}) (CUDA error {-slots})")
+    return slots
+
+
+def _heads_fwd_slots(device_index: int, dqk: int, dv: int) -> int:
+    return _heads_slots("flash_heads_fwd", device_index, dqk, dv)
+
+
+def heads_fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale, nsplit: Optional[int] = None):
     """The K8 wrapper: ``(o, lse)`` for (B*H, N, D) f32 operands with D a
-    multiple of 8 up to 512 and the (B, Nkv) bias row (or None)."""
+    multiple of 8 up to 512 and the (B, Nkv) bias row (or None); the kv walk
+    split by :func:`heads_fwd_splits` unless ``nsplit`` is given."""
     _check_cuda_operands((q, k, v), (torch.float32,), "flash_attention")
     bh, nq, dqk = q.shape
     nkv, dv = k.shape[1], v.shape[2]
@@ -677,7 +711,9 @@ def heads_fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
     q, k, v = _ready(q), _ready(k), _ready(v)
     o = torch.empty((bh, nq, dv), dtype=torch.float32, device=q.device)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
-    nsplit = _kv_splits(bh, nq, 64, -(-nkv // 64), _sms(q.device))
+    if nsplit is None:
+        nsplit = heads_fwd_splits(bh, nq, nkv, max(dqk, dv), _sms(q.device),
+                                  _heads_fwd_slots(q.device.index, dqk, dv))
     part = torch.empty(nsplit * bh * nq * (dv + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     err = build.launcher("flash_heads_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(), lse.data_ptr(), _ptr(part),
@@ -722,13 +758,8 @@ def heads_dq_splits(bh: int, nq: int, nkv: int, d_max: int, sms: int, slots: int
     return _kv_splits(bh, nq, rows, -(-nkv // rows), slots * sms)
 
 
-@functools.lru_cache(maxsize=None)
 def _heads_dq_slots(device_index: int, dqk: int, dv: int) -> int:
-    with torch.cuda.device(device_index):
-        slots = build.launcher("flash_heads_bwd_dq_slots")(dqk, dv)
-    if slots < 1:
-        raise RuntimeError(f"flash_heads_bwd_dq: no CTA slot at head dims ({dqk}, {dv}) (CUDA error {-slots})")
-    return slots
+    return _heads_slots("flash_heads_bwd_dq", device_index, dqk, dv)
 
 
 def heads_bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale, nsplit: Optional[int] = None):

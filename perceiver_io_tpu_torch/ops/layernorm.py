@@ -61,6 +61,33 @@ def layer_norm_bwd_reference(x, weight, mean, rstd, dy):
     return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
 
 
+def row_block(n_cols: int) -> tuple:
+    """``(block_r, block_c)``: the rows K1 and K5 hold at a time (up to 4096
+    elements) and the power of two that covers a row."""
+    block_c = 1 << max(0, n_cols - 1).bit_length()
+    return max(1, min(16, 4096 // block_c)), block_c
+
+
+# K5's first pass: programs an SM. One (4 warps, three row blocks in flight)
+# ran both main-path shapes fastest on an H100 among 1, 2, 4 and 8 (PERF.md)
+K5_PROGRAMS_PER_SM = 1
+
+
+def layer_norm_bwd_partition(n_rows: int, n_cols: int, sms: int) -> tuple:
+    """K5's first pass over ``n_rows`` rows of ``n_cols`` on ``sms`` SMs:
+    ``(block_r, rows_per_prog, n_progs)``. A program holds ``block_r`` rows
+    at a time (up to 4096 elements, as K1 does), and program ``p`` walks rows
+    ``[p * rows_per_prog, min(n_rows, (p + 1) * rows_per_prog))``, whole
+    blocks in order, so the programs' partial column sums cover every row
+    once in a fixed grouping. At most ``K5_PROGRAMS_PER_SM * sms`` programs,
+    and no empty one: 128 of 64 rows at 8192 x 1024 and 128 of 120 rows at
+    15360 x 512, on 132 SMs."""
+    block_r = row_block(n_cols)[0]
+    n_blocks = max(1, -(-n_rows // block_r))
+    rows_per_prog = block_r * -(-n_blocks // min(n_blocks, K5_PROGRAMS_PER_SM * sms))
+    return block_r, rows_per_prog, -(-n_rows // rows_per_prog)
+
+
 def _check_params(x, weight, bias) -> None:
     c = x.shape[-1]
     if weight.shape != (c,) or bias.shape != (c,):

@@ -14,13 +14,20 @@ mean(g * xhat))`` per row, and the column sums ``dgamma = sum(dy * xhat)``,
 ``dbeta = sum(dy)``. The TPU kernel carries the column sums across its
 sequential grid in scratch; Hopper runs programs in no order, so each program
 of the first pass walks a fixed run of rows and writes f32 partial
-``dgamma``/``dbeta`` rows, and a second small pass sums the partials in a
-fixed order: deterministic, no atomics.
+``dgamma``/``dbeta`` rows, and a second pass sums the partials in a fixed
+order: deterministic, no atomics.
 
 What bounds them: row reductions plus elementwise passes, a few FLOP per
 byte, so memory bytes (each input row read once, each output row written
-once). A program holds ``BLOCK_R`` rows of ``C = 512`` in registers, so x and
-dy are read from device memory exactly once.
+once). A program holds ``BLOCK_R`` rows of ``C`` in registers, so x and dy
+are read from device memory exactly once. K5's first pass takes its
+partition from ``ops/layernorm.py::layer_norm_bwd_partition``: one
+program an SM, each over one contiguous run of whole row blocks, the next
+blocks' loads in flight while a block computes (``tl.range`` stages), so the
+grid is one wave and the loads never wait on the arithmetic. Its second pass
+gives each program ``REDUCE_COLS`` columns (128 programs at C = 1024), so
+the partial rows, written just before and read from L2, are summed on many
+SMs at once rather than walked serially by ``C / 128`` of them.
 
 This module imports Triton at the top and is therefore imported only by
 ``ops/layernorm.py`` when it launches on a CUDA tensor; the machine without a
@@ -32,6 +39,12 @@ from __future__ import annotations
 import torch
 import triton
 import triton.language as tl
+
+from perceiver_io_tpu_torch.ops.layernorm import layer_norm_bwd_partition, row_block
+
+# K5's second pass: each program sums REDUCE_COLS columns of the partial
+# rows, REDUCE_ROWS rows a step (128 programs at C = 1024, 64 at 512)
+REDUCE_ROWS, REDUCE_COLS = 128, 8
 
 
 # n_rows varies with every prompt length: not specializing on it keeps one
@@ -73,9 +86,11 @@ def _layer_norm_bwd_dx_kernel(
     dw_acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
     db_acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
     start = pid * rows_per_prog
-    for r0 in range(start, start + rows_per_prog, BLOCK_R):
+    end = tl.minimum(start + rows_per_prog, n_rows)
+    # the next two blocks' loads fly while a block computes
+    for r0 in tl.range(start, end, BLOCK_R, num_stages=3):
         rows = r0 + tl.arange(0, BLOCK_R)
-        rmask = rows < n_rows
+        rmask = rows < end
         mask = rmask[:, None] & cmask[None, :]
         offs = rows.to(tl.int64)[:, None] * n_cols + cols[None, :]
         x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
@@ -103,7 +118,7 @@ def _layer_norm_bwd_dwdb_kernel(
     cmask = cols < n_cols
     dw = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
     db = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-    for p0 in range(0, n_parts, BLOCK_P):
+    for p0 in tl.range(0, n_parts, BLOCK_P, num_stages=2):
         parts = p0 + tl.arange(0, BLOCK_P)
         mask = (parts < n_parts)[:, None] & cmask[None, :]
         offs = parts[:, None] * n_cols + cols[None, :]
@@ -113,17 +128,12 @@ def _layer_norm_bwd_dwdb_kernel(
     tl.store(db_ptr + cols, tl.sum(db, axis=0), mask=cmask)
 
 
-def _row_block(n_cols: int):
-    block_c = triton.next_power_of_2(n_cols)
-    return max(1, min(16, 4096 // block_c)), block_c
-
-
 def launch_layer_norm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: torch.Tensor, eps: float,
                           mean: torch.Tensor = None, rstd: torch.Tensor = None) -> None:
     """``x``/``y`` (rows, C) contiguous on one CUDA device; ``w``/``b`` (C,);
     ``mean``/``rstd`` (rows,) f32 to receive the statistics, or None."""
     n_rows, n_cols = x.shape
-    block_r, block_c = _row_block(n_cols)
+    block_r, block_c = row_block(n_cols)
     want_stats = mean is not None
     grid = (triton.cdiv(n_rows, block_r),)
     with torch.cuda.device(x.device):
@@ -133,26 +143,39 @@ def launch_layer_norm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, y: 
         )
 
 
+def launch_layer_norm_bwd_dx(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                             dy: torch.Tensor, dx: torch.Tensor):
+    """K5's first pass: writes ``dx`` and returns the f32 partial
+    ``dgamma``/``dbeta`` rows (programs, C), one a program, for
+    :func:`launch_layer_norm_bwd_dwdb`. Operands as
+    :func:`launch_layer_norm_bwd` takes them."""
+    n_rows, n_cols = x.shape
+    block_r, rows_per_prog, n_progs = layer_norm_bwd_partition(
+        n_rows, n_cols, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    dw_part = torch.empty((n_progs, n_cols), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((n_progs, n_cols), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _layer_norm_bwd_dx_kernel[(n_progs,)](
+            x, w, mean, rstd, dy, dx, dw_part, db_part, n_rows, n_cols, rows_per_prog,
+            BLOCK_R=block_r, BLOCK_C=row_block(n_cols)[1], num_warps=4,
+        )
+    return dw_part, db_part
+
+
+def launch_layer_norm_bwd_dwdb(dw_part: torch.Tensor, db_part: torch.Tensor, dw: torch.Tensor,
+                               db: torch.Tensor) -> None:
+    """K5's second pass: ``dw``/``db`` (C,) f32, each column the sum of its
+    partial rows in row order, ``REDUCE_COLS`` columns a program."""
+    n_parts, n_cols = dw_part.shape
+    with torch.cuda.device(dw_part.device):
+        _layer_norm_bwd_dwdb_kernel[(triton.cdiv(n_cols, REDUCE_COLS),)](
+            dw_part, db_part, dw, db, n_parts, n_cols, BLOCK_P=REDUCE_ROWS, BLOCK_C=REDUCE_COLS, num_warps=4,
+        )
+
+
 def launch_layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                           dy: torch.Tensor, dx: torch.Tensor, dw: torch.Tensor, db: torch.Tensor) -> None:
     """``x``/``dy``/``dx`` (rows, C) contiguous on one CUDA device, ``w``
     (C,), ``mean``/``rstd`` (rows,) f32 from K1; writes ``dx`` and the f32
-    ``dw``/``db`` (C,)."""
-    n_rows, n_cols = x.shape
-    block_r, block_c = _row_block(n_cols)
-    # about four programs per SM, each over a fixed run of whole row blocks
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_blocks = triton.cdiv(n_rows, block_r)
-    rows_per_prog = block_r * triton.cdiv(n_blocks, min(n_blocks, 4 * n_sm))
-    n_parts = triton.cdiv(n_rows, rows_per_prog)
-    dw_part = torch.empty((n_parts, n_cols), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((n_parts, n_cols), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _layer_norm_bwd_dx_kernel[(n_parts,)](
-            x, w, mean, rstd, dy, dx, dw_part, db_part, n_rows, n_cols, rows_per_prog,
-            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4,
-        )
-        block_cc = min(block_c, 128)
-        _layer_norm_bwd_dwdb_kernel[(triton.cdiv(n_cols, block_cc),)](
-            dw_part, db_part, dw, db, n_parts, n_cols, BLOCK_P=32, BLOCK_C=block_cc, num_warps=4,
-        )
+    ``dw``/``db`` (C,): the two passes."""
+    launch_layer_norm_bwd_dwdb(*launch_layer_norm_bwd_dx(x, w, mean, rstd, dy, dx), dw, db)

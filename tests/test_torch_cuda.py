@@ -197,6 +197,29 @@ def test_flash_heads_backward_kernels_uneven_dims_and_split_grids(cuda, b, nq, n
         torch.testing.assert_close(got.double(), w, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 200, 256, 264, 288, 320, 512])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [(False, 130, 1000, 37), (True, 70, 2003, 0)])
+def test_flash_heads_forward_kernel_every_bucket_split_and_unsplit(cuda, d, causal, nq, nkv, n_pad, nsplit):
+    """K8 through its wrapper in every head-dim bucket (64, 128, 256, 288 --
+    where the image CA's 264 runs, looped to 264 -- and 512, with their
+    edges), unsplit and with its kv walk split 3 ways (the merge pass),
+    against the plain heads-major version: out atol 1e-5, logsumexp 1e-4."""
+    from perceiver_io_tpu_torch.ops import flash_attention as tflash
+
+    g = torch.Generator().manual_seed(13)
+    b, h = 2, 1
+    q = (torch.randn(b, h, nq, d, generator=g) * d**-0.5).to(cuda)
+    k, v = (torch.randn(b, h, nkv, d, generator=g).to(cuda) for _ in range(2))
+    pad = torch.zeros(b, nkv, dtype=torch.bool, device=cuda)
+    pad[0, :n_pad] = True
+    bias = tflash.bias_row(pad, b, nkv, q.device)
+    o, lse = tflash.heads_fwd_cuda(*tflash._heads_layout(q, k, v), h, bias, causal, 1.0, nsplit=nsplit)
+    ro, rlse = tflash.flash_attention_reference(q, k, v, pad, causal)
+    torch.testing.assert_close(o.reshape(ro.shape), ro, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse.reshape(rlse.shape), rlse, atol=1e-4, rtol=0)
+
+
 def test_head_dim_12_runs_the_heads_major_kernel_on_the_card(cuda):
     """Head dims the packed kernel cannot take go to K8 on the card (they
     raised before the heads-major kernels were ported) and agree with the
@@ -383,6 +406,31 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda, rows, c):
     torch.testing.assert_close(x.grad, dx, atol=4e-6, rtol=0)
     torch.testing.assert_close(w.grad, dw, atol=4e-4, rtol=0)
     torch.testing.assert_close(b.grad, db, atol=4e-4, rtol=0)
+
+
+@pytest.mark.parametrize("rows,c", [(8192, 1024), (15360, 512), (8191, 1024), (15361, 512), (999, 261), (5, 261)])
+def test_layer_norm_bwd_kernel_main_path_shapes(cuda, rows, c):
+    """K5 at the main path's shapes (the image classifier's 8192 x 1024
+    latent rows, the CLM chunk's 15360 x 512 kv rows), at row counts one off
+    them (a ragged last block and program) and at C = 261 (no power of two),
+    against the plain backward from the same statistics: dx atol 2e-6,
+    dgamma/dbeta 5e-4 (chip_smoke.py's tolerances); two runs give the same
+    bits (the partial sums are summed in a fixed order)."""
+    from perceiver_io_tpu_torch.ops.layernorm import layer_norm_bwd_cuda, layer_norm_bwd_reference, layer_norm_cuda
+
+    g = torch.Generator().manual_seed(14)
+    x = (torch.randn(rows, c, generator=g) * 2 + 0.5).to(cuda)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    b = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    dy = torch.randn(rows, c, generator=g).to(cuda)
+    _, mean, rstd = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
+    got = layer_norm_bwd_cuda(x, w, mean, rstd, dy)
+    again = layer_norm_bwd_cuda(x, w, mean, rstd, dy)
+    dx, dw, db = layer_norm_bwd_reference(x, w, mean, rstd, dy)
+    torch.testing.assert_close(got[0], dx, atol=2e-6, rtol=0)
+    torch.testing.assert_close(got[1], dw, atol=5e-4, rtol=0)
+    torch.testing.assert_close(got[2], db, atol=5e-4, rtol=0)
+    assert all(torch.equal(a, b2) for a, b2 in zip(got, again))
 
 
 @pytest.mark.parametrize("n_pad", [0, 37], ids=["unpadded_compact", "left_padded_gather"])

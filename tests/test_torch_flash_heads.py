@@ -244,3 +244,29 @@ def test_kv_splits_fill_whole_waves():
     assert tflash._kv_splits(5, 64, 64, 1568, 132) == 26
     assert tflash._kv_splits(5, 64, 64, 100, 132) == 12
     assert tflash._kv_splits(2, 130, 64, 5, 132) == 1
+
+
+@pytest.mark.parametrize("bh,splits", [(16, 1), (2, 8)])
+def test_k8_kv_split_at_the_main_path_shapes(bh, splits):
+    """K8 at the image classifier's cross-attention (512 latents over 50176
+    pixels, head dim 264; 64-row q blocks, 48-row kv tiles, one CTA an SM):
+    16 x 8 q blocks at batch 16 fill 128 of 132 SMs unsplit; 2 x 8 at batch
+    2 split the walk 8 ways, 128 CTAs in one wave."""
+    assert tflash.heads_fwd_tiles(264) == (64, 48)
+    n = tflash.heads_fwd_splits(bh, 512, 50176, 264, sms=132, slots=1)
+    assert n == splits
+    assert 0.9 * 132 < n * bh * 8 <= 132
+
+
+@pytest.mark.parametrize("bh,nq,nkv,d,slots", [(16, 512, 50176, 264, 1), (2, 512, 50176, 264, 1), (1, 512, 50176, 264, 1),
+                                               (4, 130, 300, 512, 1), (4, 100, 3000, 136, 1), (3, 200, 9000, 40, 2),
+                                               (1, 64, 600, 64, 2), (64, 512, 4096, 128, 1)])
+def test_k8_kv_split_never_adds_a_wave(bh, nq, nkv, d, slots):
+    """A split fills the CTA slots one CTA per q block leaves idle, never
+    needs a second wave, and keeps at least 8 kv tiles (48 rows up to head
+    dim 288, 16 above) a split."""
+    n = tflash.heads_fwd_splits(bh, nq, nkv, d, 132, slots)
+    q_rows, kv_rows = tflash.heads_fwd_tiles(d)
+    blocks = bh * -(-nq // q_rows)
+    assert n >= 1 and (n == 1 or n * blocks <= slots * 132)
+    assert n == 1 or -(-nkv // kv_rows) >= 8 * n

@@ -1,6 +1,7 @@
-"""Why K2, K4a, K4b, K6, K9a and K9b may run their f32 products on the
+"""Why K2, K4a, K4b, K6, K8, K9a and K9b may run their f32 products on the
 tensor cores: a CPU model of the kernels' arithmetic
-(``ops/csrc/flash_mma.cuh``: K2's and K6's split-TF32 forward;
+(``ops/csrc/flash_mma.cuh``: K2's and K6's split-TF32 forward, and K8's
+over 48-row kv tiles, ``ops/csrc/flash_heads.cu``;
 ``ops/csrc/flash_mma_bwd.cuh``: K4a's and K4b's backward, f64 score
 products, K4a's gradient products split-TF32 and K4b's in f64;
 ``ops/csrc/flash_heads_bwd.cu``: K9a's and K9b's heads-major backward,
@@ -105,24 +106,24 @@ def _chain(a, b, c, mode, passes=3, group=None, small="trunc"):
     return out
 
 
-def tf32_flash(q, k, v, bias=None, offset=None, mode="rz", pv_passes=3, fresh_pv=True, small="trunc"):
+def tf32_flash(q, k, v, bias=None, offset=None, mode="rz", pv_passes=3, fresh_pv=True, small="trunc", bkv=BKV):
     """The kernels' forward for one head: q (Nq, D), k (Nkv, D), v (Nkv, Dv),
     an additive bias row, key j visible to row i iff j <= i + offset (None:
-    every key). Returns (o, lse)."""
+    every key), kv tiles of ``bkv`` rows. Returns (o, lse)."""
     nq, nkv = q.shape[0], k.shape[0]
     bias = np.zeros(nkv, np.float32) if bias is None else bias
     m = np.full(nq, -np.inf, np.float32)
     l = np.zeros(nq, np.float32)
     o = np.zeros((nq, v.shape[1]), np.float32)
     i = np.arange(nq)[:, None]
-    # the last tile zero-filled to BKV rows, its rows past nkv masked
-    k, v = (np.concatenate([t, np.zeros((-nkv % BKV, t.shape[1]), np.float32)]) for t in (k, v))
-    bias = np.concatenate([bias, np.zeros(-nkv % BKV, np.float32)])
-    for j0 in range(0, nkv, BKV):
-        kt, vt = k[j0:j0 + BKV], v[j0:j0 + BKV]
+    # the last tile zero-filled to bkv rows, its rows past nkv masked
+    k, v = (np.concatenate([t, np.zeros((-nkv % bkv, t.shape[1]), np.float32)]) for t in (k, v))
+    bias = np.concatenate([bias, np.zeros(-nkv % bkv, np.float32)])
+    for j0 in range(0, nkv, bkv):
+        kt, vt = k[j0:j0 + bkv], v[j0:j0 + bkv]
         s = _chain(q, kt.T.copy(), None, mode, group=KG, small=small)
-        s = (s.astype(np.float64) + bias[None, j0:j0 + BKV]).astype(np.float32)
-        j = j0 + np.arange(BKV)[None]
+        s = (s.astype(np.float64) + bias[None, j0:j0 + bkv]).astype(np.float32)
+        j = j0 + np.arange(bkv)[None]
         visible = (j < nkv) & (True if offset is None else j <= i + offset)
         s = np.where(visible, s, np.float32(-np.inf))
         m_new = np.maximum(m, s.max(axis=1))
@@ -521,6 +522,82 @@ def test_the_backward_model_agrees_with_the_jax_package(causal, nq, nkv, n_pad):
         dk, dv = tf32_flash_bwd_dkv(*args, np.arange(nkv), bias, offset)
         for name, got, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
             np.testing.assert_allclose(got, w[:, c], atol=OUT_TOL, rtol=0, err_msg=f"{name} head {hd}")
+
+
+# ---------------------------------------------------------------------------
+# the heads-major forward: K8, ops/csrc/flash_heads.cu
+# ---------------------------------------------------------------------------
+
+K8_BKV = 48  # K8's kv rows a tile up to head dim 288 (the fresh P.V accumulators' span)
+
+# chip_smoke.py's heads-major forward cases that the model covers, one head
+# each: name: (head dim, the kernel's (zero-padded) head dim, nq, nkv,
+# causal, left pads). The image classifier's cross-attention at a reduced
+# key count (all 512 latents, 2048 of its 50176 pixels; head dim 264 is 33
+# k-steps, 9 score chains) and the causal / pad / Nq > Nkv / d12 edges.
+K8_SHAPES = {
+    "image_ca_2048_keys": (264, 264, 512, 2048, False, 0),
+    "d12_causal_pad": (12, 16, 130, 300, True, 37),
+    "d133_causal_pad": (133, 136, 130, 300, True, 37),
+    "d264_full_pad": (264, 264, 130, 300, False, 37),
+    "nq_gt_nkv_causal": (40, 40, 300, 130, True, 0),
+}
+
+
+def k8_model(q, k, v, bias, offset):
+    """K8's forward for one head: split-TF32 score products in chains of KG
+    k-steps (each a fresh accumulator rounded toward zero, the chains joined
+    by f32 adds), the online softmax in f32 over 48-row kv tiles, each
+    tile's P V (split-TF32, rounded toward zero) in a fresh accumulator
+    joined by one f32 FMA with the rescale."""
+    return tf32_flash(q, k, v, bias=bias, offset=offset, mode="rz", bkv=K8_BKV)
+
+
+@pytest.mark.parametrize("name", list(K8_SHAPES))
+def test_k8_model_meets_the_f32_tolerance(name):
+    """K8's arithmetic holds the output within the card's 1e-5 and the
+    logsumexp within 1e-4 of the plain version evaluated in f64, at the
+    image classifier's head dim over 2048 keys (43 tiles) and at the edge
+    cases; a row that sees no key (Nq > Nkv, causal) gets 0 and logsumexp
+    -inf."""
+    d, d8, nq, nkv, causal, pads = K8_SHAPES[name]
+    rng = np.random.default_rng(7)
+    q = (rng.standard_normal((nq, d)) * d**-0.5).astype(np.float32)
+    k, v = (rng.standard_normal((nkv, d)).astype(np.float32) for _ in range(2))
+    q, k, v = (np.pad(t, ((0, 0), (0, d8 - d))) for t in (q, k, v))
+    bias = np.where(np.arange(nkv) < pads, np.float32(MASK_VALUE), np.float32(0))
+    offset = nkv - nq if causal else None
+    o, lse = k8_model(q, k, v, bias, offset)
+    sees = np.arange(nq) + (offset if causal else nkv) >= 0
+    ro, rlse = f64_attention(q[sees], k, v, bias=bias, offset=None if offset is None else offset + np.flatnonzero(sees)[0])
+    assert np.abs(o[sees] - ro).max() <= OUT_TOL
+    assert np.abs(lse[sees] - rlse).max() <= LSE_TOL
+    assert not o[~sees].any() and np.isneginf(lse[~sees]).all()
+
+
+@pytest.mark.parametrize("d,causal,nq,nkv,n_pad", [(40, True, 70, 203, 5), (133, False, 45, 130, 10),
+                                                   (264, False, 64, 150, 0), (12, True, 100, 100, 0)])
+def test_k8_model_agrees_with_the_jax_package(d, causal, nq, nkv, n_pad):
+    """The model's output (right-aligned causal limit, the MASK_VALUE bias
+    row, lengths that are no tile multiple, head dims the wrapper zero-pads)
+    against the JAX package's heads-major ``flash_attention``, whose Pallas
+    forward runs in interpret mode, per head, within 1e-5. Every row sees a
+    real key."""
+    from perceiver_io_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    h, d8 = 2, -(-d // 8) * 8
+    rng = np.random.default_rng(6)
+    q = (rng.standard_normal((1, h, nq, d)) * d**-0.5).astype(np.float32)
+    k, v = (rng.standard_normal((1, h, nkv, d)).astype(np.float32) for _ in range(2))
+    pad = np.zeros((1, nkv), bool)
+    pad[0, :n_pad] = True
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pad_mask=jnp.asarray(pad),
+                                causal=causal))[0]
+    bias = np.where(pad[0], np.float32(MASK_VALUE), np.float32(0))
+    for hd in range(h):
+        qh, kh, vh = (np.pad(t[0, hd], ((0, 0), (0, d8 - d))) for t in (q, k, v))
+        o, _ = k8_model(qh, kh, vh, bias, nkv - nq if causal else None)
+        np.testing.assert_allclose(o[:, :d], want[hd], atol=OUT_TOL, rtol=0, err_msg=f"head {hd}")
 
 
 # ---------------------------------------------------------------------------

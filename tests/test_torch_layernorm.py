@@ -18,6 +18,7 @@ from perceiver_io_tpu.ops.layernorm import layer_norm as jax_layer_norm
 from perceiver_io_tpu_torch.ops.layernorm import (
     FusedLayerNorm,
     layer_norm,
+    layer_norm_bwd_partition,
     layer_norm_bwd_reference,
     layer_norm_reference,
 )
@@ -141,3 +142,25 @@ def test_fused_layer_norm_module(rng):
     want = layer_norm_reference(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     assert torch.equal(got, want)
     np.testing.assert_allclose(got.numpy(), _jax(x, w, b, False), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n_rows,n_cols", [(8192, 1024), (15360, 512), (37, 128), (1000, 261), (1, 512),
+                                           (12345, 1024), (15361, 512)])
+def test_k5_partition_covers_every_row_once_in_fixed_groups(n_rows, n_cols, sms):
+    """K5's first pass (``layer_norm_bwd_partition``): program p walks rows
+    [p * rows_per_prog, min(n_rows, (p + 1) * rows_per_prog)) in whole
+    blocks of block_r rows (at most 4096 elements a block, as K1 holds), so
+    the programs cover every row exactly once, each a contiguous run in row
+    order, none empty, and no more programs than one an SM; at the main
+    path's shapes (the image classifier's 8192 x 1024 latent rows, the CLM
+    chunk's 15360 x 512 kv rows) and ragged row counts."""
+    block_r, rows_per_prog, n_progs = layer_norm_bwd_partition(n_rows, n_cols, sms)
+    block_c = 1 << (n_cols - 1).bit_length()
+    assert block_r >= 1 and block_r * block_c <= 4096 and rows_per_prog % block_r == 0
+    assert 1 <= n_progs <= sms
+    runs = [range(p * rows_per_prog, min(n_rows, (p + 1) * rows_per_prog)) for p in range(n_progs)]
+    assert all(len(r) > 0 for r in runs)
+    assert [i for r in runs for i in r] == list(range(n_rows))
+    if n_rows >= 64 * sms:  # the main path's shapes fill the card
+        assert n_progs > 0.9 * sms
