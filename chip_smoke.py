@@ -22,7 +22,9 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    one computes the same function, the least time the card could take
    (``bound_ms``; f32 attention at the split-TF32 rate), and the host's
    dispatch time of one call (``dispatch_ms``):
-   K2 packed flash forward, K3 paged decode, K1 LayerNorm forward (with and
+   K2 packed flash forward, K3 paged decode (at the serve's CA and latent
+   SA pools, and one profiled call that must show K3's walk and merge and
+   no other device op), K1 LayerNorm forward (with and
    without its statistics), K4a/K4b packed flash backward, K5 LayerNorm
    backward, K6/K7a/K7b two-segment flash, K8/K9a/K9b heads-major flash
    (the classifier's cross-attention, 512 latents over 50176 pixels with one
@@ -32,8 +34,9 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    stream must equal the sequential ``make_decode_fns`` stream up to the
    first step where the sequential logits' top-2 gap is a near tie (the
    paged and contiguous decodes sum in different orders); the page
-   allocators must end empty, and every kernel of the serving path must
-   have launched during the serve; then a profiled serve;
+   allocators must end empty, every kernel of the serving path must have
+   launched during the serve, and K3 exactly 9 times a decode step (the CA
+   and 8 SA layers); then a profiled serve;
 5. train: the flagship at full width and depth (16384 tokens, 1024 latents,
    8 layers, seeded random weights) takes five AdamW steps (lr 1e-3, f32
    moments, global clip 1.0) on one fixed batch of 4 in 2 chunks, with a
@@ -324,51 +327,80 @@ def flash_phase(gen: torch.Generator) -> dict:
 
 
 def paged_phase(gen: torch.Generator) -> dict:
+    """K3 at the serve's pool geometries: the CA pool (4 slots of 16384
+    tokens in pages of 16) and a latent SA pool (4 slots of 1024), each with
+    the engine's pad/window mask and without; then one CA call under
+    ``torch.profiler``, which must show K3's two kernels and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from perceiver_io_tpu_torch.core.cache import init_paged_kv_cache
     from perceiver_io_tpu_torch.ops.paged_attention import (
+        kernel_plan,
         paged_attention_reference,
         paged_decode_attention,
     )
 
     h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
     d = c // h
-    slots, page, pps = 4, 16, FLAGSHIP["max_seq_len"] // 16
-    num_pages = slots * pps + 1
-    cache = init_paged_kv_cache(slots, num_pages, page, pps, c, c, device="cuda")
-    cache.k.copy_(torch.randn(num_pages, page, c, generator=gen))
-    cache.v.copy_(torch.randn(num_pages, page, c, generator=gen))
-    # each slot owns a random permutation of disjoint pages
-    perm = (torch.randperm(num_pages - 1, generator=gen) + 1).reshape(slots, pps)
-    cache.page_table = perm.to(torch.int32).cuda()
-    lengths = [1, 2085, 9000, 16320]
-    cache.length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    qh = (torch.randn(slots, h, d, generator=gen) * d**-0.5).cuda()
-    # the engine always passes a pad/window mask: left pads in slot 2,
-    # expired window slots in slot 3; every slot keeps a real key
-    mask = torch.zeros(slots, cache.capacity, dtype=torch.bool, device="cuda")
-    mask[2, :300] = True
-    mask[3, :40] = True
-    tol = 1e-5
-    tokens = sum(lengths)
-    pages_read = sum(-(-n // page) for n in lengths)
-    rows = []
-    for name, m in (("pad_window_mask", mask), ("validity_only", None)):
-        o = paged_decode_attention(qh, cache, m)
+    slots, page, tol = 4, 16, 1e-5
+    rows, calls = [], []
+    # pool: (tokens a slot, lengths, {slot: leading masked tokens}); the CA's
+    # left pads in slot 2 and expired window slots in slot 3, the SA's
+    # expired latents (generation.py's sa_idx < sa_start) in every slot;
+    # every slot keeps a real key
+    pools = {
+        "ca": (FLAGSHIP["max_seq_len"], [1, 2085, 9000, 16320], {2: 300, 3: 40}),
+        "sa": (FLAGSHIP["max_latents"], [513, 600, 777, 1024], {0: 1, 1: 88, 2: 265, 3: 512}),
+    }
+    for pool, (tokens, lengths, masked) in pools.items():
+        pps = tokens // page
+        num_pages = slots * pps + 1
+        cache = init_paged_kv_cache(slots, num_pages, page, pps, c, c, device="cuda")
+        cache.k.copy_(torch.randn(num_pages, page, c, generator=gen))
+        cache.v.copy_(torch.randn(num_pages, page, c, generator=gen))
+        # each slot owns a random permutation of disjoint pages
+        perm = (torch.randperm(num_pages - 1, generator=gen) + 1).reshape(slots, pps)
+        cache.page_table = perm.to(torch.int32).cuda()
+        cache.length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        qh = (torch.randn(slots, h, d, generator=gen) * d**-0.5).cuda()
+        mask = torch.zeros(slots, cache.capacity, dtype=torch.bool, device="cuda")
+        for slot, n in masked.items():
+            mask[slot, :n] = True
+        plan = kernel_plan(torch.cuda.current_device(), slots, h, d, d, page)
+        log(f"plan paged_decode {pool}: {json.dumps(plan._asdict())}")
+        tokens_read = sum(lengths)
+        pages_read = sum(-(-n // page) for n in lengths)
+        names = {"ca": ("pad_window_mask", "validity_only"), "sa": ("sa_window_mask", "sa_validity_only")}[pool]
+        for name, m in zip(names, (mask, None)):
+            o = paged_decode_attention(qh, cache, m)
+            torch.cuda.synchronize()
+            err = max_err(o, paged_attention_reference(qh, cache, m))
+            check(f"paged_decode {name}", err, tol)
+            ms = time_ms(lambda: paged_decode_attention(qh, cache, m), dispatch=f"paged_decode {name}")
+            plain_ms = time_ms(lambda: paged_attention_reference(qh, cache, m), 3)
+            # f32 K/V rows of the valid tokens, q and out, int32 table entries
+            # walked and lengths; under a mask, its bool entries of those tokens
+            n_bytes = 4 * (2 * tokens_read * c + 2 * slots * c + pages_read + slots) + (
+                tokens_read if m is not None else 0)
+            bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens_read, "f32_cuda_cores")
+            row = dict(case=f"{name} slots={slots} page={page} lengths={lengths}", path="serve", max_abs_err=err,
+                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                       dispatch_ms=DISPATCH_MS[f"paged_decode {name}"], grid=plan.grid, stages=plan.stages)
+            log(f"time paged_decode {name}: {json.dumps(row)}")
+            rows.append(row)
+        calls.append((qh, cache, mask))
+    # one profiled call at the CA: K3's walk and merge, and no other device op
+    qh, cache, mask = calls[0]
+    paged_decode_attention(qh, cache, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        paged_decode_attention(qh, cache, mask)
         torch.cuda.synchronize()
-        err = max_err(o, paged_attention_reference(qh, cache, m))
-        check(f"paged_decode {name}", err, tol)
-        ms = time_ms(lambda: paged_decode_attention(qh, cache, m), dispatch=f"paged_decode {name}")
-        plain_ms = time_ms(lambda: paged_attention_reference(qh, cache, m), 3)
-        # f32 K/V rows of the valid tokens, q and out, int32 table entries
-        # walked and lengths; under a mask, its bool entries of those tokens
-        n_bytes = 4 * (2 * tokens * c + 2 * slots * c + pages_read + slots) + (tokens if m is not None else 0)
-        bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens, "f32_cuda_cores")
-        row = dict(case=f"{name} slots={slots} page={page} lengths={lengths}", path="serve", max_abs_err=err,
-                   tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                   dispatch_ms=DISPATCH_MS[f"paged_decode {name}"])
-        log(f"time paged_decode {name}: {json.dumps(row)}")
-        rows.append(row)
+    device = [(e.key, e.count) for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    log(f"profile paged_decode pad_window_mask: device ops {json.dumps(device)}")
+    if not device or sum(n for _, n in device) > 2 or any("paged_" not in key for key, _ in device):
+        raise SystemExit(f"paged_decode: one call launched {device}, not K3's walk and merge alone")
     return {"cases": rows}
 
 
@@ -937,6 +969,14 @@ def serve_phase(card: str) -> dict:
     wall_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     log(f"serve launches: {json.dumps(launches)}")
+    # every decode step attends once over the CA pool and once over each
+    # latent SA layer's pool
+    steps, n_sa = engine._engine_steps, FLAGSHIP["num_self_attention_layers"]
+    log(f"serve decode steps={steps}: paged_decode launches ca={steps} sa={n_sa * steps} "
+        f"total={launches['paged_decode']}")
+    if launches["paged_decode"] != (1 + n_sa) * steps:
+        raise SystemExit(f"paged_decode launched {launches['paged_decode']} times in {steps} decode steps, "
+                         f"not {1 + n_sa} a step")
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the serving path: {missing}")
@@ -1429,9 +1469,10 @@ def image_trajectory_phase(card: str) -> None:
 
 def kernel_name(mangled: str) -> str:
     """A mangled kernel's name and template arguments, e.g.
-    ``heads_fwd_kernel<264>`` or ``flash_packed_kernel<F32,64>`` (a
-    ``pio::mma`` policy and its head-dim bucket); the mangled name itself
-    when no ``*_kernel`` identifier is found."""
+    ``heads_fwd_kernel<264>``, ``flash_packed_kernel<F32,64>`` (a
+    ``pio::mma`` policy and its head-dim bucket) or
+    ``paged_walk_kernel<2,1>``; the mangled name itself when no
+    ``*_kernel`` identifier is found."""
     import re
 
     pos = 0
@@ -1439,8 +1480,11 @@ def kernel_name(mangled: str) -> str:
         end = m.end() + int(m.group())  # a length-prefixed identifier
         ident = mangled[m.end():end]
         if ident.endswith("_kernel"):
-            t = re.match(r"I(?:N3pio3mma\d+([A-Z0-9]+)I)?Li(\d+)E", mangled[end:])
-            return ident + (f"<{t.group(1) + ',' if t.group(1) else ''}{t.group(2)}>" if t else "")
+            t = re.match(r"I(?:N3pio3mma\d+([A-Z0-9]+)I)?((?:Li\d+E)+)", mangled[end:])
+            if t is None:
+                return ident
+            args = ([t.group(1)] if t.group(1) else []) + re.findall(r"Li(\d+)E", t.group(2))
+            return f"{ident}<{','.join(args)}>"
         pos = end
     return mangled
 
@@ -1511,8 +1555,14 @@ def main() -> None:
     log(f"build: {sorted(build.CUDA_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(build.BUILD_LOGS)
     log("ptxas: " + json.dumps(ptxas))
+    # a cached library's log is read back from beside it: every source has rows
+    unreported = [name for name in build.CUDA_SOURCES if not ptxas.get(name)]
+    if unreported:
+        raise SystemExit(f"no ptxas report for {unreported}: the spill check would see nothing of them")
     log("ptxas K8 registers by head-dim bucket: " + json.dumps(
         {name: regs for name, regs, _, _ in ptxas["flash_heads"] if name.startswith("heads_fwd_kernel<")}))
+    log("ptxas K3 (registers, spill stores, spill loads; shared memory is dynamic, see the plan lines): " +
+        json.dumps(ptxas["paged_decode"]))
     spills = [row for rows in ptxas.values() for row in rows if row[2] or row[3]]
     if spills:
         raise SystemExit(f"kernels spill registers: {spills}")

@@ -32,7 +32,7 @@ from typing import Dict, Iterable
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # one shared library per source file; kernel name -> (its source, its C
 # launcher, the launcher's argument types); every launcher returns a
 # cudaError_t
@@ -40,14 +40,16 @@ LAUNCHERS = {
     "flash_packed_fwd": ("flash_packed", "pio_flash_packed_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
     "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
     "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _P]),
-    "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 8 + [_I] * 7 + [_P]),
+    "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 6 + [_L, _P, _P] + [_I] * 12 + [_P]),
     "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
     "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _P]),
     "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _P]),
     "flash_heads_fwd": ("flash_heads", "pio_flash_heads_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
     "flash_heads_bwd_dkv": ("flash_heads_bwd", "pio_flash_heads_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
     "flash_heads_bwd_dq": ("flash_heads_bwd", "pio_flash_heads_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
-    # not kernels: K8's and K9b's CTA slots an SM at given head dims (their split rules)
+    # not kernels: K8's and K9b's CTA slots an SM at given head dims (their
+    # split rules), K3's launch plan for a geometry
+    "paged_decode_plan": ("paged_decode", "pio_paged_decode_plan", [_I] * 6 + [_P]),
     "flash_heads_fwd_slots": ("flash_heads", "pio_flash_heads_fwd_slots", [_I, _I]),
     "flash_heads_bwd_dq_slots": ("flash_heads_bwd", "pio_flash_heads_bwd_dq_slots", [_I, _I]),
 }
@@ -70,7 +72,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_heads_fwd": 0, "flash_heads_bwd_dkv": 0, "flash_heads_bwd_dq": 0,
 }
 
-# source name -> the compiler's output of its last build in this process
+# source name -> the compiler's output of the build of its library (kept
+# beside the library, so a cached library has its log too)
 BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -116,12 +119,17 @@ def _library_path(name: str) -> str:
 
 
 def build_all(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
-    """Compile every named source that has no up-to-date library yet, one
-    ``nvcc`` process per source, all started together. Returns name -> library
-    path; raises RuntimeError naming every source that failed to build."""
+    """Compile every named source that has no up-to-date library (and build
+    log) yet, one ``nvcc`` process per source, all started together; fill
+    ``BUILD_LOGS`` for every named source. Returns name -> library path;
+    raises RuntimeError naming every source that failed to build."""
     names = list(names)
     paths = {name: _library_path(name) for name in names}
-    todo = [n for n in names if not os.path.isfile(paths[n])]
+    todo = [n for n in names if not (os.path.isfile(paths[n]) and os.path.isfile(paths[n] + ".log"))]
+    for name in names:
+        if name not in todo:
+            with open(paths[name] + ".log") as f:
+                BUILD_LOGS[name] = f.read()
     if not todo:
         return paths
     nvcc = _nvcc()
@@ -140,6 +148,9 @@ def build_all(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(out)
+            os.replace(f"{tmp}.log", paths[name] + ".log")
             os.replace(tmp, paths[name])
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))

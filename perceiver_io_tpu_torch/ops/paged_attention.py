@@ -9,18 +9,25 @@ expired window slots. (The JAX function's ``mask`` replaces the validity
 mask instead; its callers always include validity in it, so the results
 agree.)
 
-The CUDA kernel (``csrc/paged_decode.cu``, f32 pools) walks the page table
-and reads each page straight from the pool, up to the slot's length;
+The CUDA kernel (``csrc/paged_decode.cu``, f32 pools) walks the page tables
+of all slots as one list, split into equal runs of pages over a fixed grid
+of CTAs (:func:`paged_work_items` is that rule in plain Python), copies
+whole pages into shared memory ahead of use, reads the mask as bytes, and
+merges each slot's partials in a second launch;
 :func:`paged_attention_reference` rebuilds the contiguous view with
 ``gather_view`` and runs dense attention. The two agree on every slot with
-``length >= 1``; a slot with length 0 (retired, its output discarded by the
-engine) gets 0 from the kernel and a uniform average from the reference.
+``length >= 1``, a slot whose every valid token is masked included (both
+then average the slot's whole capacity, as JAX does); a slot with length 0
+(retired, its output discarded by the engine) gets 0 from the kernel and a
+uniform average from the reference.
 Dispatch is by device, as in ``ops/flash_attention.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -60,6 +67,78 @@ def paged_attention_reference(qh: torch.Tensor, cache, mask: Optional[torch.Tens
     return torch.einsum("bhj,bjhc->bhc", attn.to(v_h.dtype), v_h)
 
 
+class WorkItem(NamedTuple):
+    """One run of consecutive pages of one slot (and head group) that one CTA
+    of K3's walk streams; its partial lands in scratch row ``index``."""
+
+    cta: int
+    group: int
+    slot: int
+    first_page: int
+    pages: int
+    index: int
+
+
+def paged_work_items(lengths: Sequence[int], page: int, grid: int, capacity: Optional[int] = None,
+                     groups: int = 1) -> List[WorkItem]:
+    """K3's partition of the walk, in plain Python (the kernel computes the
+    same on the device from the lengths). Slot ``s`` has ``ceil(len_s /
+    page)`` pages (lengths clamped to ``[0, capacity]``); the pages of all
+    slots, repeated once per head group, form one list of ``P_tot`` pages,
+    and CTA ``b`` takes the ``chunk = ceil(P_tot / grid)`` pages from ``b *
+    chunk``. Where that run crosses a slot boundary it is cut into items, so
+    no item crosses a slot; there are at most ``grid + S * groups`` items
+    and no CTA has more than ``chunk`` pages. Item (virtual slot ``v = g * S
+    + s``, CTA ``b``) writes scratch row ``v + b``: rows are unique because
+    a slot's items have consecutive CTAs and the next slot starts at the CTA
+    where its predecessor ended, or later."""
+    def clamped(x):
+        x = max(int(x), 0)
+        return x if capacity is None else min(x, int(capacity))
+
+    n = [-(-clamped(x) // page) for x in lengths]
+    p1 = sum(n)
+    total = groups * p1
+    if total == 0:
+        return []
+    chunk = -(-total // grid)
+    items = []
+    off = 0
+    for g in range(groups):
+        for s, n_s in enumerate(n):
+            for b in range(off // chunk, (off + n_s - 1) // chunk + 1) if n_s else ():
+                lo, hi = max(off, b * chunk), min(off + n_s, (b + 1) * chunk)
+                items.append(WorkItem(b, g, s, lo - off, hi - lo, g * len(n) + s + b))
+            off += n_s
+    return items
+
+
+class KernelPlan(NamedTuple):
+    """K3's launch geometry from ``pio_paged_decode_plan``: the walk's grid
+    of CTAs, head groups, heads a group, rows a shared-memory stage, stages,
+    dynamic shared-memory bytes and consumer warps a CTA."""
+
+    grid: int
+    groups: int
+    heads_per_group: int
+    rows: int
+    stages: int
+    smem_bytes: int
+    consumer_warps: int
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(device_index: int, slots: int, h: int, d_qk: int, d_v: int, page: int) -> KernelPlan:
+    """K3's plan for this geometry on the card, from the runtime (its SM
+    count and shared memory)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        err = build.launcher("paged_decode_plan")(slots, h, d_qk, d_v, page, sms, out)
+    build.check(err, "paged_decode plan")
+    return KernelPlan(*out)
+
+
 def _paged_decode_cuda(qh, cache, mask):
     s_slots, h, d_qk = qh.shape
     d_v = cache.v.shape[2] // h
@@ -69,30 +148,34 @@ def _paged_decode_cuda(qh, cache, mask):
     if d_qk > 128 or d_v > 128:
         raise ValueError(f"paged decode kernel takes head dims <= 128, got ({d_qk}, {d_v})")
     dev = qh.device
-    for t in (cache.k, cache.v, cache.page_table, cache.length):
-        if t.device != dev:
-            raise ValueError("query, pools, page table and lengths must lie on one CUDA device")
+    tensors = [cache.k, cache.v, cache.page_table, cache.length] + ([] if mask is None else [mask])
+    if any(t.device != dev for t in tensors):
+        raise ValueError("query, pools, page table, lengths and mask must lie on one CUDA device")
     if cache.k.shape[2] != h * d_qk:
         raise ValueError(f"query heads {h}x{d_qk} do not match the K pool width {cache.k.shape[2]}")
-    bias = None
+    for name in ("page_table", "length"):
+        t = getattr(cache, name)
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"the cache's {name} must be contiguous int32, got {t.dtype} "
+                             f"(contiguous: {t.is_contiguous()})")
+    if not (cache.k.is_contiguous() and cache.v.is_contiguous()):
+        raise ValueError("paged decode kernel takes contiguous pools")
+    mask_ptr, mask_stride = None, 0
     if mask is not None:
-        if mask.shape != (s_slots, cache.capacity):
-            raise ValueError(f"mask must be {(s_slots, cache.capacity)}, got {tuple(mask.shape)}")
-        bias = torch.where(mask, MASK_VALUE, 0.0).to(torch.float32)
+        if mask.dtype != torch.bool or mask.shape != (s_slots, cache.capacity) or mask.stride(1) != 1:
+            raise ValueError(f"mask must be a ({s_slots}, {cache.capacity}) bool tensor with unit column "
+                             f"stride, got {mask.dtype} {tuple(mask.shape)} strides {mask.stride()}")
+        mask_ptr, mask_stride = mask.data_ptr(), mask.stride(0)
     q = qh.reshape(s_slots, h * d_qk).contiguous()
-    table = cache.page_table.to(torch.int32).contiguous()
-    length = cache.length.to(torch.int32).contiguous()
-    k_pool, v_pool = cache.k.contiguous(), cache.v.contiguous()
-    # split the page walk so about four CTAs per SM stream pages
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(cache.pages_per_slot, -(-4 * n_sm // (s_slots * h))))
-    part = torch.empty((s_slots, h, nsplit, d_v + 2), dtype=torch.float32, device=dev)
+    plan = kernel_plan(dev.index, s_slots, h, d_qk, d_v, cache.page_size)
+    n_part = plan.grid + s_slots * plan.groups
+    part = torch.empty((n_part * plan.heads_per_group * (d_v + 2),), dtype=torch.float32, device=dev)
     out = torch.empty((s_slots, h * d_v), dtype=torch.float32, device=dev)
     err = build.launcher("paged_decode")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        length.data_ptr(), None if bias is None else bias.data_ptr(), part.data_ptr(), out.data_ptr(),
-        s_slots, h, d_qk, d_v, cache.page_size, cache.pages_per_slot, nsplit,
-        build.current_stream(dev),
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), cache.page_table.data_ptr(), cache.length.data_ptr(),
+        mask_ptr, mask_stride, part.data_ptr(), out.data_ptr(), s_slots, h, d_qk, d_v, cache.page_size,
+        cache.pages_per_slot, plan.grid, plan.groups, plan.heads_per_group, plan.rows, plan.stages,
+        plan.consumer_warps, build.current_stream(dev),
     )
     build.check(err, "paged_decode")
     build.count_launch("paged_decode")

@@ -88,26 +88,59 @@ def test_flash_packed_kernel_split_walk_matches_plain(cuda, d, causal, n_pad):
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
 
 
+# name: (slots, page, pages a slot, heads, head dim, lengths)
+PAGED_CASES = {
+    "serve_ca": (4, 16, 1024, 8, 64, [1, 2085, 9000, 16320]),  # the flagship serve's CA pool
+    "serve_sa": (4, 16, 64, 8, 64, [513, 600, 777, 1024]),  # its latent SA pools
+    "edges": (5, 16, 8, 8, 64, [0, 1, 15, 16, 17]),  # lengths 0, 1, page - 1, page, page + 1
+    "skewed": (4, 16, 1024, 8, 64, [1, 1, 1, 16320]),
+    "all_masked": (3, 16, 8, 8, 64, [40, 100, 128]),  # slot 0: every valid token masked
+    "shared_pages": (3, 16, 8, 8, 64, [70, 128, 50]),  # slot 2 reads slot 0's first 3 pages
+    "micro_odd_page": (3, 3, 6, 4, 16, [7, 18, 2]),  # pages of 3 rows, items ending mid-page
+    "unaligned": (3, 8, 4, 3, 10, [5, 32, 19]),  # rows of 30 floats: 4-byte cp.async, not bulk copies
+    "head_groups": (2, 4, 3, 80, 128, [9, 12]),  # one row of all heads fills no three stages
+    "past_capacity": (2, 16, 4, 8, 64, [70, 9]),  # an idle slot's length past its capacity
+}
+
+
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_paged_decode_kernel_matches_plain(cuda, with_mask):
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_decode_kernel_matches_plain(cuda, case, with_mask):
+    """K3 (the balanced page walk over every slot, pages copied into
+    shared-memory stages, the mask read as bytes) against the plain version
+    within 1e-5 at the serve's CA and SA pool geometries and edge cases,
+    with and without a pad/window mask, on every slot with length >= 1 (an
+    all-masked slot averages its capacity in both); one launch counted a
+    call. A slot with length 0 gets 0 from K3 (the plain version averages
+    its capacity; the engine discards it)."""
     from perceiver_io_tpu_torch.core.cache import init_paged_kv_cache
+    from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
 
     g = torch.Generator().manual_seed(1)
-    slots, page, pps, h, d = 5, 16, 8, 8, 64
+    slots, page, pps, h, d, lengths = PAGED_CASES[case]
     cache = init_paged_kv_cache(slots, 1 + slots * pps, page, pps, h * d, h * d, device=cuda)
     cache.k.copy_(torch.randn(cache.k.shape, generator=g))
     cache.v.copy_(torch.randn(cache.v.shape, generator=g))
-    cache.page_table = (torch.randperm(slots * pps, generator=g) + 1).reshape(slots, pps).to(cuda, torch.int32)
-    cache.length = torch.tensor([1, 16, 17, 100, 128], dtype=torch.int32, device=cuda)
+    table = (torch.randperm(slots * pps, generator=g) + 1).reshape(slots, pps).to(torch.int32)
+    if case == "shared_pages":
+        table[2, :3] = table[0, :3]
+    cache.page_table = table.to(cuda)
+    cache.length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     qh = torch.randn(slots, h, d, generator=g).to(cuda) * d**-0.5
     mask = None
-    if with_mask:  # left pads / expired window slots; every slot keeps a real key
+    if with_mask:  # left pads / expired window slots
         mask = torch.zeros(slots, cache.capacity, dtype=torch.bool, device=cuda)
-        mask[2, :5] = True
-        mask[4, :100] = True
-    torch.testing.assert_close(paged_decode_attention(qh, cache, mask), paged_attention_reference(qh, cache, mask),
-                               atol=1e-5, rtol=0)
+        for s, n in enumerate(lengths):
+            mask[s, : min(n, cache.capacity) // 3] = True
+        if case == "all_masked":
+            mask[0, : lengths[0]] = True
+    build.reset_launches()
+    got = paged_decode_attention(qh, cache, mask)
+    assert build.LAUNCHES["paged_decode"] == 1
+    live = cache.length >= 1
+    torch.testing.assert_close(got[live], paged_attention_reference(qh, cache, mask)[live], atol=1e-5, rtol=0)
+    assert not got[~live].any()
 
 
 @pytest.mark.parametrize("d", [8, 12, 40, 133, 264, 320, 512])

@@ -51,6 +51,29 @@ def test_paged_decode_matches_jax_ragged_permuted():
     np.testing.assert_allclose(got.numpy()[live], want[live], atol=2e-5, rtol=0)
 
 
+def test_all_masked_slot_matches_jax():
+    """A slot whose every valid token the caller masks: with the finite
+    MASK_VALUE its scores are all equal, and the port, like JAX, averages the
+    slot's whole capacity (tokens past the length take MASK_VALUE too)."""
+    rng = np.random.default_rng(5)
+    num_pages = 1 + S * PPS
+    k, v = _pools(rng, num_pages, H * D)
+    table = np.arange(1, num_pages, dtype=np.int32).reshape(S, PPS)
+    length = np.asarray([10, 12, 20, 31, 32], np.int32)
+    jc, tc = _caches(k, v, table, length)
+    cap = PPS * PAGE
+    pads = np.zeros((S, cap), bool)
+    pads[0, :10] = True  # every valid token of slot 0
+    pads[4, :] = True  # slot 4 is full: its capacity is its valid tokens
+    q = rng.standard_normal((S, H, D)).astype(np.float32)
+    got = paged_decode_attention(torch.from_numpy(q), tc, torch.from_numpy(pads)).numpy()
+    want = np.asarray(jax_paged_decode(jnp.asarray(q), jc,
+                                       jnp.asarray(pads | (np.arange(cap)[None, :] >= length[:, None]))))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    rows = table[0].repeat(PAGE) * PAGE + np.tile(np.arange(PAGE), PPS)
+    np.testing.assert_allclose(got[0], v.reshape(-1, H, D)[rows].mean(axis=0), atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("mask_has_validity", [True, False])
 def test_paged_decode_with_pad_mask_matches_jax(mask_has_validity):
     """A caller mask of left pads / expired window slots. The JAX function's
