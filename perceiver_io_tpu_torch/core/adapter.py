@@ -15,6 +15,38 @@ from torch import nn
 from perceiver_io_tpu_torch.core.position import frequency_position_encoding, positions
 
 
+class _RowLookup(torch.autograd.Function):
+    """``F.embedding(ids, weight)`` whose weight gradient sums each row's
+    contributions in an order fixed by the indices: on CUDA ``index_put_``
+    with accumulation, which sorts them; on the CPU ``index_add_``, which
+    takes them in order (the CPU's ``index_put_`` accumulates in an order
+    that moves). The CUDA backward of ``F.embedding`` takes more than 3072
+    indices in an order that moves from call to call, so the card's CLM
+    gradient was not reproducible at the flagship's shapes (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        c = grad.shape[-1]
+        ids, grad = ids.reshape(-1), grad.reshape(-1, c)
+        dw = grad.new_zeros((ctx.rows, c))
+        if grad.is_cuda:
+            return None, dw.index_put_((ids,), grad, accumulate=True)
+        return None, dw.index_add_(0, ids, grad)
+
+
+def lookup(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table, with a gradient that repeats bit
+    for bit (:class:`_RowLookup`)."""
+    return _RowLookup.apply(ids, table.weight)
+
+
 class TrainableQueryProvider(nn.Module):
     """Learnable cross-attention query array: the latent array of a Perceiver
     IO encoder and the output query of a decoder. ``forward()`` returns it
@@ -74,7 +106,7 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
         return pos_emb
 
     def embed(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        tok = self.txt_embedding(x)
+        tok = lookup(self.txt_embedding, x)
         if not self.abs_pos_emb:
             return tok
         if abs_pos is None:
@@ -82,7 +114,7 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
         if x.shape[1] < abs_pos.shape[1]:
             abs_pos = abs_pos[:, -x.shape[1]:]
         abs_pos = torch.clamp(abs_pos, 0, self.max_seq_len - 1)
-        return tok + self.pos_embedding(abs_pos)
+        return tok + lookup(self.pos_embedding, abs_pos)
 
     def forward(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         embedded = self.embed(x, abs_pos)
@@ -102,7 +134,7 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
         frequency encoding at those absolute positions."""
         b, n = x.shape
         ids = torch.cat([torch.gather(x[:, :prefix_len], 1, keep_idx), x[:, prefix_len:]], dim=1)
-        emb = self.txt_embedding(ids)
+        emb = lookup(self.txt_embedding, ids)
         if self.abs_pos_emb:
             pos = self._pos_slice(n)
             pos_latent = pos[prefix_len:][None].expand(b, n - prefix_len, pos.shape[1])

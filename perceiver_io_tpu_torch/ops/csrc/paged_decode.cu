@@ -6,8 +6,10 @@
 // slot's first length[s] tokens (length clamped to [0, capacity]); token t of
 // slot s lives at pool row (page_table[s, t / page], t % page); the caller's
 // optional (S, capacity) bool mask adds the finite MASK_VALUE to the tokens it
-// marks; the softmax runs online in f32. A slot with length 0 gets 0. Pools
-// are f32, the serving path's cache dtype.
+// marks; the softmax runs online in f32. A slot with length 0 gets the
+// uniform average of its capacity's values, as in the JAX kernel, where
+// every token past the length scores the finite MASK_VALUE. Pools are f32,
+// the serving path's cache dtype.
 //
 // What bounds it: decode reads every valid K/V row once and does two FMAs per
 // element read, so it is bound by memory bytes (at the flagship serve's CA,
@@ -72,9 +74,12 @@
 // every page of a slot) then averages the slot's whole capacity, since there
 // a token past the length takes MASK_VALUE too: the merge adds that slot's
 // tokens from its length to its capacity at MASK_VALUE's weight, a walk
-// that only such a slot pays. A slot with length 0 has no item and gets 0
-// from the merge (its output is discarded by the engine; the plain version
-// averages its capacity there). Two slots may name the same pool page
+// that only such a slot pays. A slot with length 0 has no item; its merge
+// CTAs average the whole capacity the same way, with weight 1, before they
+// wait for the walk, so that work overlaps it. That walk sums a page's rows
+// once for a run of equal page-table entries: a retired slot's row points
+// at the scratch page throughout, so it reads one page, not 16384 tokens
+// (0.295 ms at the serve's CA token by token; PERF.md). Two slots may name the same pool page
 // (shared prefix grants): a page is only ever read.
 
 #include <stdint.h>
@@ -509,39 +514,37 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
   __syncthreads();
   const int p1 = geo[0], n = geo[2], len = geo[3];
   float* o = p.out + (long)s * p.h * p.dv + (long)hd * p.dv;
-  if (n == 0) {
-    for (int c = threadIdx.x; c < p.dv; c += MERGE_THREADS) o[c] = 0.f;
-    return;
-  }
-  const int g = hd / p.gh, hh = hd - g * p.gh;
-  const int chunk = (p.groups * p1 + p.grid - 1) / p.grid;
-  const int voff = g * p1 + geo[1];
-  const int b0 = voff / chunk, nb = (voff + n - 1) / chunk - b0 + 1;
-  const long stride = (long)p.gh * (p.dv + 2);
-  const float* base = p.part + ((long)(g * p.slots + s + b0) * p.gh + hh) * (p.dv + 2);
-  asm volatile("griddepcontrol.wait;" ::: "memory");  // the walk's partials are written
   constexpr int IF = 4;  // items a warp loads at once
   float m = -CUDART_INF_F, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b = warp; b < nb; b += NW * IF) {
-    float mb[IF], lb[IF], ab[IF][4];
+  if (n > 0) {  // a slot of length 0 has no item
+    const int g = hd / p.gh, hh = hd - g * p.gh;
+    const int chunk = (p.groups * p1 + p.grid - 1) / p.grid;
+    const int voff = g * p1 + geo[1];
+    const int b0 = voff / chunk, nb = (voff + n - 1) / chunk - b0 + 1;
+    const long stride = (long)p.gh * (p.dv + 2);
+    const float* base = p.part + ((long)(g * p.slots + s + b0) * p.gh + hh) * (p.dv + 2);
+    asm volatile("griddepcontrol.wait;" ::: "memory");  // the walk's partials are written
+    for (int b = warp; b < nb; b += NW * IF) {
+      float mb[IF], lb[IF], ab[IF][4];
 #pragma unroll
-    for (int j = 0; j < IF; ++j) {
-      const bool ok = b + j * NW < nb;
-      const float* it = base + (ok ? b + j * NW : b) * stride;
-      mb[j] = ok ? it[0] : -CUDART_INF_F;
-      lb[j] = it[1];
+      for (int j = 0; j < IF; ++j) {
+        const bool ok = b + j * NW < nb;
+        const float* it = base + (ok ? b + j * NW : b) * stride;
+        mb[j] = ok ? it[0] : -CUDART_INF_F;
+        lb[j] = it[1];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) ab[j][k] = lane + 32 * k < p.dv ? it[2 + lane + 32 * k] : 0.f;
-    }
+        for (int k = 0; k < 4; ++k) ab[j][k] = lane + 32 * k < p.dv ? it[2 + lane + 32 * k] : 0.f;
+      }
 #pragma unroll
-    for (int j = 0; j < IF; ++j) {
-      if (mb[j] == -CUDART_INF_F) continue;
-      const float m_new = fmaxf(m, mb[j]);
-      const float alpha = expf(m - m_new), wb = expf(mb[j] - m_new);
-      l = fmaf(l, alpha, wb * lb[j]);
+      for (int j = 0; j < IF; ++j) {
+        if (mb[j] == -CUDART_INF_F) continue;
+        const float m_new = fmaxf(m, mb[j]);
+        const float alpha = expf(m - m_new), wb = expf(mb[j] - m_new);
+        l = fmaf(l, alpha, wb * lb[j]);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = fmaf(acc[k], alpha, wb * ab[j][k]);
-      m = m_new;
+        for (int k = 0; k < 4; ++k) acc[k] = fmaf(acc[k], alpha, wb * ab[j][k]);
+        m = m_new;
+      }
     }
   }
   if (lane == 0) {
@@ -560,27 +563,64 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
     scale[w] = sm_m[w] == -CUDART_INF_F ? 0.f : expf(sm_m[w] - mx);  // a warp with no item
     ls = fmaf(sm_l[w], scale[w], ls);
   }
-  // every valid token masked (an unmasked score is far above MASK_VALUE / 2):
-  // the tokens from the length to the capacity join at MASK_VALUE's weight,
-  // warp w summing tokens len + w, len + w + 8, ... (the same for every CTA)
+  // every valid token masked (an unmasked score is far above MASK_VALUE / 2),
+  // or none (length 0): every token of the capacity scores MASK_VALUE, so
+  // the tokens from the length to the capacity join at MASK_VALUE's weight
+  // (weight 1 where there is no valid token). The rest of the length's page,
+  // token by token over the warps, then the whole pages after it: warp w
+  // takes a contiguous share of the page-table entries and sums a page's
+  // rows once for a run of equal entries (a retired slot's row is all
+  // scratch page), adding the run's count times that sum. A fixed order for
+  // every CTA.
   const int cap = p.pps * p.page;
-  const bool tail = mx < 0.5f * MASK_VALUE && len < cap;
-  const float w_tail = tail ? expf(MASK_VALUE - mx) : 0.f;
+  const bool tail = (n == 0 || mx < 0.5f * MASK_VALUE) && len < cap;
+  const float w_tail = n == 0 ? 1.f : tail ? expf(MASK_VALUE - mx) : 0.f;
   if (tail) {
+    const long row = (long)p.h * p.dv;
     const float* vcol = p.vpool + (long)hd * p.dv;
     const int* trow = p.table + (long)s * p.pps;
     float t_acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int t = len + warp; t < cap; t += NW) {
-      const float* vr = vcol + ((long)trow[t / p.page] * p.page + t % p.page) * p.h * p.dv;
+    const int j_first = (len + p.page - 1) / p.page;
+    for (int t = len + warp; t < j_first * p.page; t += NW) {
+      const float* vr = vcol + ((long)trow[t / p.page] * p.page + t % p.page) * row;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (lane + 32 * k < p.dv) t_acc[k] += vr[lane + 32 * k];
     }
+    const int per = (p.pps - j_first + NW - 1) / NW;
+    const int ja = j_first + warp * per, jb = min(p.pps, ja + per);
+    float run[4] = {0.f, 0.f, 0.f, 0.f};
+    int prev = -1, count = 0;
+    for (int j0 = ja; j0 < jb; j0 += 32) {
+      const int mine = j0 + lane < jb ? trow[j0 + lane] : -1;
+      const int nj = min(32, jb - j0);
+      for (int i = 0; i < nj; ++i) {
+        const int e = __shfl_sync(FULL, mine, i);
+        if (e == prev) {
+          ++count;
+          continue;
+        }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sm_tail[warp][lane + 32 * k] = t_acc[k];
+        for (int k = 0; k < 4; ++k) t_acc[k] = fmaf((float)count, run[k], t_acc[k]);
+        const float* vp = vcol + (long)e * p.page * row;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) run[k] = 0.f;
+#pragma unroll 4
+        for (int r = 0; r < p.page; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (lane + 32 * k < p.dv) run[k] += vp[r * row + lane + 32 * k];
+        prev = e;
+        count = 1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sm_tail[warp][lane + 32 * k] = fmaf((float)count, run[k], t_acc[k]);
     __syncthreads();
     ls = fmaf(w_tail, (float)(cap - len), ls);
   }
+  // a slot with no item overlapped the walk; the merge still ends after it
+  if (n == 0) asm volatile("griddepcontrol.wait;" ::: "memory");
   for (int c = threadIdx.x; c < p.dv; c += MERGE_THREADS) {
     float a = 0.f;
 #pragma unroll

@@ -15,11 +15,10 @@ of CTAs (:func:`paged_work_items` is that rule in plain Python), copies
 whole pages into shared memory ahead of use, reads the mask as bytes, and
 merges each slot's partials in a second launch;
 :func:`paged_attention_reference` rebuilds the contiguous view with
-``gather_view`` and runs dense attention. The two agree on every slot with
-``length >= 1``, a slot whose every valid token is masked included (both
-then average the slot's whole capacity, as JAX does); a slot with length 0
-(retired, its output discarded by the engine) gets 0 from the kernel and a
-uniform average from the reference.
+``gather_view`` and runs dense attention. The two agree on every slot, a
+slot whose every valid token is masked and a slot of length 0 included
+(both then average the slot's whole capacity, as JAX does: there every
+token scores the finite ``MASK_VALUE``).
 Dispatch is by device, as in ``ops/flash_attention.py``.
 """
 

@@ -1,9 +1,10 @@
-"""Why K2, K4a, K4b, K6, K8, K9a and K9b may run their f32 products on the
-tensor cores: a CPU model of the kernels' arithmetic
+"""Why K2, K4a, K4b, K6, K7a, K7b, K8, K9a and K9b may run their f32
+products on the tensor cores: a CPU model of the kernels' arithmetic
 (``ops/csrc/flash_mma.cuh``: K2's and K6's split-TF32 forward, and K8's
 over 48-row kv tiles, ``ops/csrc/flash_heads.cu``;
 ``ops/csrc/flash_mma_bwd.cuh``: K4a's and K4b's backward, f64 score
-products, K4a's gradient products split-TF32 and K4b's in f64;
+products, K4a's gradient products split-TF32 and K4b's in f64, and the
+same bodies over two segments for K7a and K7b;
 ``ops/csrc/flash_heads_bwd.cu``: K9a's and K9b's heads-major backward,
 every product in f64) against an f64 reference, at the main path's widths,
 and the kv-split rules of K2 and K9b.
@@ -33,6 +34,7 @@ import torch
 
 from perceiver_io_tpu.ops.flash_attention import default_flash
 from perceiver_io_tpu.ops.flash_attention import flash_attention_packed as jax_flash_packed
+from perceiver_io_tpu.ops.flash_attention import flash_attention_packed_2seg as jax_flash_packed_2seg
 from perceiver_io_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
     flash_attention_packed_bwd_reference,
@@ -351,14 +353,14 @@ def tf32_flash_bwd_dq(q, k, v, do, lse, delta, rows, bias, offset, mode="rz", pa
     return dq.astype(np.float32)
 
 
-def tf32_flash_bwd_dkv(q, k, v, do, lse, delta, rows, bias, offset, mode="rz", passes=3, kg=(1, "tile"), f64=True,
+def tf32_flash_bwd_dkv(q, k, v, do, lse, delta, rows, bias, offset, mode="rz", passes=3, kg=(1, 2), f64=True,
                        small="trunc"):
     """K4a for the kv rows ``rows`` of one head (sm_scale 1), transposed: per
     q tile, S^T = K Q^T and dP^T = V dO^T in f64 (``f64``; else split-TF32
     with ``kg[0]`` k-steps a fresh accumulator), p and dS with lse and delta
     per column as in :func:`tf32_flash_bwd_dq`, and dV += P^T dO and
-    dK += dS^T Q split-TF32 with ``kg[1]`` k-steps a fresh accumulator
-    ("tile": one walked tile; None: chained over the walk)."""
+    dK += dS^T Q split-TF32 with ``kg[1]`` k-steps a fresh accumulator (2,
+    as the kernels; "tile": one walked tile; None: chained over the walk)."""
     nq, walk = q.shape[0], _walk_rows(q.shape[1])
     kr, vr, br = k[rows], v[rows], bias[rows][:, None]
     qp, dop, lp, dp_ = _pad_rows(q, walk), _pad_rows(do, walk), _pad_rows(lse, walk), _pad_rows(delta, walk)
@@ -438,9 +440,9 @@ def _f32_plain_errors(name):
 def test_the_backward_meets_a_third_of_the_tolerance(name):
     """The kernels' arithmetic (S and dP, or S^T and dP^T, in f64 on the
     tensor cores; K4b's dQ += dS K in f64 too; K4a's dV and dK split-TF32
-    with a fresh accumulator per walked tile, rounded toward zero and joined
-    by f32 adds) holds every gradient within 3e-6 of f64, a third of the
-    card's 1e-5 tolerance; the port's plain backward in f32 is reported
+    with a fresh accumulator every two k-steps, rounded toward zero and
+    joined by f32 adds) holds every gradient within 3e-6 of f64, a third of
+    the card's 1e-5 tolerance; the port's plain backward in f32 is reported
     beside it."""
     got, plain = _bwd_errors(name), _f32_plain_errors(name)
     for g in got:
@@ -522,6 +524,129 @@ def test_the_backward_model_agrees_with_the_jax_package(causal, nq, nkv, n_pad):
         dk, dv = tf32_flash_bwd_dkv(*args, np.arange(nkv), bias, offset)
         for name, got, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
             np.testing.assert_allclose(got, w[:, c], atol=OUT_TOL, rtol=0, err_msg=f"{name} head {hd}")
+
+
+# ---------------------------------------------------------------------------
+# the two-segment backward: K7a / K7b, ops/csrc/flash_2seg_bwd.cu on K4's
+# bodies (flash_mma_bwd.cuh), the kv sequence read as [prefix; latents]
+# ---------------------------------------------------------------------------
+
+
+def twoseg_bwd_model(q, k_p, v_p, k_l, v_l, do, lse, delta, bias_p, bias_l):
+    """K7b's dQ and K7a's dK, dV of each segment for one head (sm_scale 1):
+    K4's arithmetic over two segments, each cut into its own walked tiles
+    (no tile straddles the seam; each segment's last tile zero-filled and
+    masked past its rows): the prefix's tiles visible to every query, the
+    latents' causal at offset 0, each segment with its own bias row. dQ sums
+    both segments' tiles in f64 and rounds once; the blocks of dK/dV never
+    straddle the seam either (``tf32_flash_bwd_dkv`` per segment). Returns
+    (dq, dk_p, dv_p, dk_l, dv_l)."""
+    nq, walk = q.shape[0], _walk_rows(q.shape[1])
+    rows = np.arange(nq)
+    lr, dr = lse[:, None], delta[:, None]
+    segments = ((k_p, v_p, bias_p, None), (k_l, v_l, bias_l, 0))
+    dq = np.zeros(q.shape, np.float64)
+    for k, v, bias, offset in segments:
+        n = k.shape[0]
+        kp, vp, bp = _pad_rows(k, walk), _pad_rows(v, walk), _pad_rows(bias, walk)
+        for j0 in range(0, n, walk):
+            kt, vt = kp[j0:j0 + walk], vp[j0:j0 + walk]
+            s = q.astype(np.float64) @ kt.T.astype(np.float64)
+            dp = do.astype(np.float64) @ vt.T.astype(np.float64)
+            x = (s + bp[None, j0:j0 + walk] - lr).astype(np.float32)
+            j = j0 + np.arange(walk)[None]
+            visible = (j < n) & (True if offset is None else j <= rows[:, None] + offset)
+            p = np.exp(np.where(visible, x, np.float32(-np.inf)))
+            ds = (p * (dp - dr).astype(np.float32)).astype(np.float32)
+            dq += ds.astype(np.float64) @ kt.astype(np.float64)
+    grads = [dq.astype(np.float32)]
+    for k, v, bias, offset in segments:
+        grads += tf32_flash_bwd_dkv(q, k, v, do, lse, delta, np.arange(k.shape[0]), bias, offset)
+    return tuple(grads)
+
+
+def test_two_k_steps_a_fresh_accumulator_cut_the_short_walk_error():
+    """At a short walk (one prefix row and 100 latents, head dim 64, as the
+    card's test_flash_2seg_kernels_match_plain draws it), one fresh
+    split-TF32 accumulator a walked tile (8 k-steps, each mma truncating the
+    running sum toward zero) leaves K7a's dK/dV 3.2e-6 from f64, further
+    than the f32 plain version on the card (2.6e-6); a fresh accumulator
+    every two k-steps, what K4a and K7a run, cuts that by more than half."""
+    d, nq = 64, 100
+    g = torch.Generator().manual_seed(6)
+    q, k_l, v_l = (torch.randn(2, nq, 4 * d, generator=g) for _ in range(3))
+    k_p, v_p = (torch.randn(2, 1, 4 * d, generator=g) for _ in range(2))
+    do = torch.randn(2, nq, 4 * d, generator=g)
+    c = slice(0, d)
+    qh = (q[0][:, c].numpy().astype(np.float64) * d**-0.5).astype(np.float32)
+    kph, vph, klh, vlh, doh = (x[0][:, c].numpy() for x in (k_p, v_p, k_l, v_l, do))
+    k_cat, v_cat = np.concatenate([kph, klh]), np.concatenate([vph, vlh])
+    o, lse = f64_attention(qh, k_cat, v_cat, offset=1)
+    lse = lse.astype(np.float32)
+    delta = (doh.astype(np.float64) * o.astype(np.float32)).sum(axis=1).astype(np.float32)
+    s = qh.astype(np.float64) @ k_cat.T.astype(np.float64)
+    p = np.where(np.arange(1 + nq)[None] <= np.arange(nq)[:, None] + 1, np.exp(s - lse[:, None]), 0.0)
+    ds = p * (doh.astype(np.float64) @ v_cat.T.astype(np.float64) - delta[:, None].astype(np.float64))
+    want = (ds.T @ qh.astype(np.float64))[1:], (p.T @ doh.astype(np.float64))[1:]
+    errs = {}
+    for kg in ("tile", 2):
+        got = tf32_flash_bwd_dkv(qh, klh, vlh, doh, lse, delta, np.arange(nq), np.zeros(nq, np.float32), 0,
+                                 kg=(1, kg))
+        errs[kg] = max(float(np.abs(x - w).max()) for x, w in zip(got, want))
+    assert errs[2] <= errs["tile"] / 2, errs
+
+
+# name: (head dim, prefix rows, latents, left-padded prefix keys): the
+# minimum prefix (one row), the seam inside a walked tile with left pads,
+# Nq no tile multiple, a prefix of two tiles and a row mostly padded
+TWOSEG_CASES = {
+    "min_prefix": (64, 1, 100, 0),
+    "seam_in_tile_pads": (64, 70, 130, 5),
+    "one_tile_and_a_row_padded": (32, 129, 37, 100),
+    "d128_seam": (128, 200, 77, 3),
+}
+
+
+@pytest.mark.parametrize("name", list(TWOSEG_CASES))
+def test_the_twoseg_backward_model_agrees_with_the_jax_package_and_f64(name):
+    """The two-segment model's dQ and per-segment dK, dV against the JAX
+    package's ``flash_attention_packed_2seg`` VJP (its Pallas kernels
+    ``_dkv_2seg_kernel`` and ``_dq_2seg_kernel`` in interpret mode) and
+    against the gradients in f64 over the joined segments, per head, within
+    the f32 tolerance (1e-5)."""
+    d, n_p, nq, n_pad = TWOSEG_CASES[name]
+    h = 2
+    rng = np.random.default_rng(5)
+    q = (rng.standard_normal((1, nq, h * d)) * d**-0.5).astype(np.float32)
+    k_p, v_p = (rng.standard_normal((1, n_p, h * d)).astype(np.float32) for _ in range(2))
+    k_l, v_l = (rng.standard_normal((1, nq, h * d)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((1, nq, h * d)).astype(np.float32)
+    pad_p = np.zeros((1, n_p), bool)
+    pad_p[0, :n_pad] = True
+    with default_flash(True):
+        _, vjp = jax.vjp(lambda *t: jax_flash_packed_2seg(*t, num_heads=h, pad_mask_prefix=jnp.asarray(pad_p)),
+                         *map(jnp.asarray, (q, k_p, v_p, k_l, v_l)))
+        want_jax = [np.asarray(g)[0] for g in vjp(jnp.asarray(do))]
+    bias_p = np.where(pad_p[0], np.float32(MASK_VALUE), np.float32(0))
+    bias_l = np.zeros(nq, np.float32)
+    for hd in range(h):
+        c = slice(hd * d, (hd + 1) * d)
+        qh, kph, vph, klh, vlh, doh = (x[0][:, c] for x in (q, k_p, v_p, k_l, v_l, do))
+        k_cat, v_cat, b_cat = np.concatenate([kph, klh]), np.concatenate([vph, vlh]), np.concatenate([bias_p, bias_l])
+        o, lse = f64_attention(qh, k_cat, v_cat, bias=b_cat, offset=n_p)
+        delta = (doh.astype(np.float64) * o).sum(axis=1).astype(np.float32)
+        got = twoseg_bwd_model(qh, kph, vph, klh, vlh, doh, lse.astype(np.float32), delta, bias_p, bias_l)
+        # f64 gradients over the joined segments from the same f32 inputs
+        s = qh.astype(np.float64) @ k_cat.T.astype(np.float64) + b_cat[None].astype(np.float64)
+        visible = np.arange(n_p + nq)[None] <= np.arange(nq)[:, None] + n_p
+        p = np.where(visible, np.exp(s - lse.astype(np.float32)[:, None].astype(np.float64)), 0.0)
+        ds = p * (doh.astype(np.float64) @ v_cat.T.astype(np.float64) - delta[:, None].astype(np.float64))
+        dk, dv = ds.T @ qh.astype(np.float64), p.T @ doh.astype(np.float64)
+        want64 = (ds @ k_cat.astype(np.float64), dk[:n_p], dv[:n_p], dk[n_p:], dv[n_p:])
+        names = ("dq", "dk_prefix", "dv_prefix", "dk_latent", "dv_latent")
+        for g_name, x, w64, wj in zip(names, got, want64, want_jax):
+            np.testing.assert_allclose(x, w64, atol=OUT_TOL, rtol=0, err_msg=f"{g_name} head {hd} (f64)")
+            np.testing.assert_allclose(x, wj[:, c], atol=OUT_TOL, rtol=0, err_msg=f"{g_name} head {hd} (JAX)")
 
 
 # ---------------------------------------------------------------------------

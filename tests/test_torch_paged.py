@@ -33,9 +33,10 @@ def _caches(k, v, table, length):
 
 def test_paged_decode_matches_jax_ragged_permuted():
     """Ragged lengths including a one-token slot, pages handed out in a
-    permuted order. Slot 4 is retired (length 0): the engine discards its
-    output, and K3 (0) and the plain version (a uniform average) differ
-    there, so only slots with length >= 1 are compared."""
+    permuted order. Slot 4 is retired (length 0, its row at the scratch
+    page): every token of its capacity scores MASK_VALUE, so it gets the
+    uniform average of the scratch page's values, in JAX, the plain version
+    and K3 alike."""
     rng = np.random.default_rng(0)
     num_pages = 1 + S * PPS
     k, v = _pools(rng, num_pages, H * D)
@@ -47,8 +48,8 @@ def test_paged_decode_matches_jax_ragged_permuted():
     want = np.asarray(jax_paged_decode(jnp.asarray(q), jc))
     got = paged_decode_attention(torch.from_numpy(q), tc)
     assert got.shape == (S, H, D)
-    live = length >= 1
-    np.testing.assert_allclose(got.numpy()[live], want[live], atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy()[4], v[0].reshape(PAGE, H, D).mean(axis=0), atol=2e-5, rtol=0)
 
 
 def test_all_masked_slot_matches_jax():

@@ -4,9 +4,9 @@ every valid page of every slot exactly once, in items that never cross a
 slot, at most ``grid + S * groups`` of them, no CTA streaming more than
 ``chunk`` pages; the split version matches the JAX package's
 ``paged_decode_attention`` (its Pallas page-walk kernel in interpret mode)
-and the port's plain version on every slot with length >= 1, a slot whose
-every valid token is masked included, and gives 0 where the length is 0.
-Attention tolerance: atol 1e-5 (f32)."""
+and the port's plain version on every slot, a slot whose every valid token
+is masked and a slot of length 0 included (both average the slot's whole
+capacity). Attention tolerance: atol 1e-5 (f32)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +28,8 @@ def split_model(qh, cache, mask=None, *, grid, groups=1):
     ``MASK_VALUE`` where ``mask`` is set, then the merge of each slot's
     partials; where every valid token of a slot is masked, the tokens from
     its length to its capacity join at MASK_VALUE's weight, as the kernel's
-    merge adds them. f32 throughout; a slot with length 0 gets 0. ``qh``
+    merge adds them; a slot with length 0 has no item, and its merge
+    averages the whole capacity with weight 1. f32 throughout. ``qh``
     (S, H, Dk) -> (S, H, Dv)."""
     s_slots, h, d_qk = qh.shape
     d_v = cache.v.shape[2] // h
@@ -53,17 +54,23 @@ def split_model(qh, cache, mask=None, *, grid, groups=1):
         parts.setdefault((it.slot, it.group), []).append((m, p.sum(dim=1), torch.einsum("gt,tgc->gc", p,
                                                                                         v_rows[rows][:, heads])))
     out = torch.zeros((s_slots, h, d_v), dtype=torch.float32)
-    for (s, g), items in parts.items():
-        heads = slice(g * gh, min(h, (g + 1) * gh))
-        m = torch.stack([x[0] for x in items])  # (items, g)
-        mx = m.max(dim=0).values
-        w = torch.exp(m - mx)
-        l_sum = (w * torch.stack([x[1] for x in items])).sum(dim=0)
-        acc = (w[:, :, None] * torch.stack([x[2] for x in items])).sum(dim=0)
-        t = torch.arange(lengths[s], cap)
-        w_tail = torch.where(mx < 0.5 * MASK_VALUE, torch.exp(MASK_VALUE - mx), 0.0)  # (g,)
-        tail = v_rows[table[s, t // page] * page + t % page][:, heads].sum(dim=0)  # (g, Dv)
-        out[s, heads] = (acc + w_tail[:, None] * tail) / (l_sum + w_tail * len(t))[:, None]
+    for s in range(s_slots):
+        for g in range(groups):
+            heads = slice(g * gh, min(h, (g + 1) * gh))
+            n_h = heads.stop - heads.start
+            items = parts.get((s, g))
+            t = torch.arange(lengths[s], cap)
+            tail = v_rows[table[s, t // page] * page + t % page][:, heads].sum(dim=0)  # (g, Dv)
+            if items is None:  # length 0: every token of the capacity at weight 1
+                out[s, heads] = tail / len(t)
+                continue
+            m = torch.stack([x[0] for x in items])  # (items, g)
+            mx = m.max(dim=0).values
+            w = torch.exp(m - mx)
+            l_sum = (w * torch.stack([x[1] for x in items])).sum(dim=0)
+            acc = (w[:, :, None] * torch.stack([x[2] for x in items])).sum(dim=0)
+            w_tail = torch.where(mx < 0.5 * MASK_VALUE, torch.exp(MASK_VALUE - mx), torch.zeros(n_h))  # (g,)
+            out[s, heads] = (acc + w_tail[:, None] * tail) / (l_sum + w_tail * len(t))[:, None]
     return out.to(qh.dtype)
 
 
@@ -188,13 +195,13 @@ def test_split_reference_matches_jax(geometry, with_mask, grid):
     want = np.asarray(jax_paged_decode(jnp.asarray(q), jc, jnp.asarray(validity | pads)))
     mask = torch.from_numpy(pads) if with_mask else None
     got = split_model(torch.from_numpy(q), tc, mask, grid=grid, groups=groups)
-    live = length >= 1
-    # a slot with length 0 gets 0 from K3 (JAX and the plain version average
-    # its capacity; the engine discards it)
-    np.testing.assert_allclose(got.numpy()[live], want[live], atol=1e-5, rtol=0)
-    assert not got[torch.from_numpy(~live)].any()
+    # every slot, the retired one of length 0 included (the uniform average
+    # of its capacity, the scratch page's values)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     plain = paged_attention_reference(torch.from_numpy(q), tc, mask)
-    np.testing.assert_allclose(got.numpy()[live], plain.numpy()[live], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+    for s in np.flatnonzero(length == 0):
+        np.testing.assert_allclose(got.numpy()[s], v[0].reshape(page, h, d).mean(axis=0), atol=1e-5, rtol=0)
     if with_mask:
         # slot 0, every valid token masked: a uniform average over its capacity
         rows = table[0, np.arange(cap) // page] * page + np.arange(cap) % page
