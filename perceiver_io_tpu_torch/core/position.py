@@ -58,12 +58,11 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def apply_rotary_pos_emb(t: torch.Tensor, pos_enc: torch.Tensor) -> torch.Tensor:
     """Rotate the first ``pos_enc.shape[-1]`` channels of ``t`` (..., N, C) in
-    f32 (f64 for an f64 ``t``); ``pos_enc`` broadcasts to (..., N, R), R <= C."""
+    f32; ``pos_enc`` broadcasts to (..., N, R), R <= C."""
     rotate_dim = pos_enc.shape[-1]
     t_rot, t_pass = t[..., :rotate_dim], t[..., rotate_dim:]
-    compute = torch.promote_types(t.dtype, torch.float32)
-    pe = pos_enc.to(compute)
-    t_rot32 = t_rot.to(compute)
+    pe = pos_enc.to(torch.float32)
+    t_rot32 = t_rot.to(torch.float32)
     rotated = (t_rot32 * torch.cos(pe) + rotate_half(t_rot32) * torch.sin(pe)).to(t.dtype)
     if t_pass.shape[-1] == 0:
         return rotated

@@ -45,8 +45,8 @@
 // 2t + 1 index t + 4 (and t + 8, t + 12 for the second k-step of k16), on A
 // and B alike, so only the instruction count changes; the products are
 // exact and the sums f64, so the gradients agree to rounding.
-// tools/flash_bwd_variants.py times the builds (each kernel's DK, below
-// the tiles, is the fastest one that does not spill).
+// Each kernel's DK, below the tiles, is the fastest that does not spill on
+// an H100 (PERF.md).
 //
 // Two access patterns on one tile. prod_abt64 reads B rows 8n + g at
 // columns 8kk + 2t, +1 (a float2 a lane); prod_ab and prod_ab64 read rows
@@ -317,28 +317,6 @@ inline int dmax_bucket(int dqk, int dv) {
   return d <= 32 ? 32 : (d <= 64 ? 64 : 128);
 }
 
-// The f64 mma.sync depth (DK) of each kernel, and the k-steps of K4a's and
-// K7a's gradient products summed in one fresh accumulator (KJ), as measured
-// fastest without a spill on an H100 by tools/flash_bwd_variants.py
-// (PERF.md); PIO_DMMA_K, PIO_GRAD_KJ and PIO_GRAD_NG (the gradient
-// products' n-tiles at a time up to head dim 64) override them for that
-// tool.
-#ifdef PIO_DMMA_K
-constexpr int DQ_DK = PIO_DMMA_K, DKV_DK = PIO_DMMA_K;
-#else
-constexpr int DQ_DK = 0, DKV_DK = 4;  // DQ_DK 0: 16 up to head dim 64, 8 above
-#endif
-#ifdef PIO_GRAD_KJ
-constexpr int GRAD_KJ = PIO_GRAD_KJ;
-#else
-constexpr int GRAD_KJ = 2;
-#endif
-#ifdef PIO_GRAD_NG
-constexpr int GRAD_NG = PIO_GRAD_NG;
-#else
-constexpr int GRAD_NG = 4;  // 8 with KJ = 2 spilled at head dim 64
-#endif
-
 template <int DMAX_>
 struct Dq {
   static constexpr int DMAX = DMAX_;
@@ -347,7 +325,7 @@ struct Dq {
   static constexpr int BQ = 16 * NW;                // q rows a CTA owns
   static constexpr int BKV = DMAX <= 64 ? 64 : 32;  // kv rows a walked tile
   static constexpr int NS = BKV / 8;
-  static constexpr int DK = DQ_DK != 0 ? DQ_DK : DMAX <= 64 ? 16 : 8;
+  static constexpr int DK = DMAX <= 64 ? 16 : 8;  // f64 mma.sync depth (16 spills at 128)
   static constexpr int LDA = DMAX + 8;
   static constexpr int A = BQ * LDA;    // Q or dO, in floats
   static constexpr int B = BKV * DMAX;  // one K or V buffer
@@ -363,11 +341,13 @@ struct Dkv {
   static constexpr int BKV = 16 * NW;               // kv rows a CTA owns
   static constexpr int BQT = DMAX <= 64 ? 64 : 32;  // q rows a walked tile
   static constexpr int NS = BQT / 8;
-  // output n-tiles of the gradient products at a time (dK and dV fill the
-  // registers at DMAX = 128)
-  static constexpr int NG = DMAX <= 64 ? (DMAX / 8 < GRAD_NG ? DMAX / 8 : GRAD_NG) : 4;
-  static constexpr int DK = DKV_DK;
-  static constexpr int KJ = GRAD_KJ < NS ? GRAD_KJ : NS;
+  // output n-tiles of the gradient products at a time (8 spills at DMAX =
+  // 64; dK and dV fill the registers at 128)
+  static constexpr int NG = 4;
+  static constexpr int DK = 4;  // f64 mma.sync depth (8 and 16 are slower here)
+  // k-steps of the split-TF32 gradient products summed in one fresh
+  // accumulator before it is added to dK / dV
+  static constexpr int KJ = 2;
   static constexpr int LDA = DMAX + 8;
   static constexpr int A = BKV * LDA;   // K or V
   static constexpr int B = BQT * DMAX;  // one Q or dO buffer

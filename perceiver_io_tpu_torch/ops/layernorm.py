@@ -26,23 +26,16 @@ from torch import nn
 from perceiver_io_tpu_torch.ops import build
 
 
-def _compute(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in the plain versions' compute dtype: f32, or f64 for f64
-    inputs (so that they can be evaluated in f64 as a reference)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
 def layer_norm_reference_stats(x, weight, bias, eps, dtype):
     """The plain forward with its statistics: ``(y, mean, rstd)``, the
-    statistics (rows,) f32 (what K1's ``WANT_STATS`` variant writes; f64
-    for f64 inputs)."""
-    xf = _compute(x)
+    statistics (rows,) f32 (what K1's ``WANT_STATS`` variant writes)."""
+    xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     mean2 = (xf * xf).mean(dim=-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
     y = (xf - mean) * rstd
-    y = y * weight.to(xf.dtype) + bias.to(xf.dtype)
+    y = y * weight.float() + bias.float()
     return y.to(dtype), mean.reshape(-1), rstd.reshape(-1)
 
 
@@ -56,10 +49,10 @@ def layer_norm_bwd_reference(x, weight, mean, rstd, dy):
     package): ``(dx, dweight, dbias)`` from the forward's per-row ``mean`` /
     ``rstd`` (rows,) f32 and the output gradient ``dy``."""
     c = x.shape[-1]
-    xf, dyf = _compute(x.reshape(-1, c)), _compute(dy.reshape(-1, c))
+    xf, dyf = x.reshape(-1, c).float(), dy.reshape(-1, c).float()
     rstd = rstd.reshape(-1, 1)
     xhat = (xf - mean.reshape(-1, 1)) * rstd
-    g = dyf * weight.to(xf.dtype)
+    g = dyf * weight.float()
     m1 = g.mean(dim=-1, keepdim=True)
     m2 = (g * xhat).mean(dim=-1, keepdim=True)
     dx = rstd * (g - m1 - xhat * m2)

@@ -22,7 +22,7 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Te
     (loss, num_valid)."""
     valid = labels != IGNORE_INDEX
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = torch.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
     num_valid = valid.sum()
     loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / torch.clamp(num_valid, min=1)

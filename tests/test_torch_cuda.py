@@ -595,16 +595,11 @@ def test_flash_2seg_kernels_match_plain(cuda, d, n_p, nq, n_pad):
     version, and K7a/K7b (through the autograd Function; f64 score products
     and dQ, split-TF32 dK/dV on K4's tensor-core tiles) against the plain
     backward evaluated in f64 on the same f32 inputs, with one launch each.
-    Tolerance: atol 1e-5 (1e-4 on the logsumexp), as for K2/K4; and the
-    case's five gradients no further from the f64 evaluation than the plain
-    backward evaluated in f32 is (the tensor-core sums do not run in its
-    order, so it cannot be the reference itself). The rule is taken over the
-    case, not per kernel: at walks this short (at most 130 query rows) the
-    f32 sums of dK and dV are short too, and the CPU model of K7a's
-    split-TF32 dK/dV (tests/test_torch_flash_tf32.py) lands up to 2.3x
-    further from f64 than the f32 plain version's dK/dV, while its f64 dQ
-    lands 3-9x closer than the f32 plain version's dQ; chip_smoke.py holds
-    each kernel to the rule at the training shapes."""
+    Tolerance: atol 1e-5 (1e-4 on the logsumexp), as for K2/K4; and each
+    kernel no further from the f64 evaluation than the plain backward
+    evaluated in f32 is (the tensor-core sums do not run in its order, so it
+    cannot be the reference itself): K7a's dK/dV of both segments against
+    the f32 plain dK/dV, K7b's dQ against the f32 plain dQ."""
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.flash_attention import (
         flash_attention_packed_2seg,
@@ -639,10 +634,12 @@ def test_flash_2seg_kernels_match_plain(cuda, d, n_p, nq, n_pad):
         assert torch.isfinite(x).all()
         torch.testing.assert_close(x.double(), w, atol=1e-5, rtol=0)
 
-    def dist(xs):
-        return max(float((x.double() - w).abs().max()) for x, w in zip(xs, want))
+    def dist(xs, ws):
+        return max(float((x.double() - w).abs().max()) for x, w in zip(xs, ws))
 
-    assert dist(got) <= dist(f32), (dist(got), dist(f32))
+    for kernel, grads in (("K7b dQ", slice(0, 1)), ("K7a dK/dV", slice(1, 5))):
+        mine, plain = dist(got[grads], want[grads]), dist(f32[grads], want[grads])
+        assert mine <= plain, (kernel, mine, plain)
 
 
 @pytest.mark.parametrize("d", [40, 64, 128])
