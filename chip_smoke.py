@@ -32,26 +32,33 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    (the classifier's cross-attention, 512 latents over 50176 pixels with one
    264-wide head, and odd-width, causal, pad-mask and split-walk cases);
 4. serve: the flagship-width Perceiver AR CLM (seeded random weights)
-   answers six greedy requests through ``EngineFrontEnd``; every served
-   stream must equal the sequential ``make_decode_fns`` stream up to the
-   first step where the sequential logits' top-2 gap is a near tie (the
-   paged and contiguous decodes sum in different orders); the page
-   allocators must end empty, every kernel of the serving path must have
-   launched during the serve, and K3 exactly 9 times a decode step (the CA
-   and 8 SA layers); then a profiled serve;
+   answers six greedy requests through ``EngineFrontEnd``, its decode step
+   the CUDA graph captured at construction (whose kernel nodes must hold
+   K3's walk and merge 9 times and K1 as often as the eager step launches
+   them, and no K2); every served stream must equal the sequential
+   ``make_decode_fns`` stream up to the first step where the sequential
+   logits' top-2 gap is a near tie (the paged and contiguous decodes sum in
+   different orders); the page allocators must end empty, every kernel of
+   the serving path must have launched during the serve, and K3 exactly 9
+   times a decode step (the CA and 8 SA layers); the same requests through
+   the eager step must give the same streams token for token over the same
+   decode steps (at least 64); then a profiled serve on each step;
 5. train: the flagship at full width and depth (16384 tokens, 1024 latents,
    8 layers, seeded random weights) takes five AdamW steps (lr 1e-3, f32
    moments, global clip 1.0) on one fixed batch of 4 in 2 chunks, with a
-   fresh host-sampled prefix keep set per step; every loss must be finite,
-   the fifth below the first, no step skipped by the non-finite sentinel,
-   and every kernel of the training path must have launched; then one
-   profiled step;
-6. train_twoseg: the same five steps from the same seed, weights, batch and
-   keep sets under ``fast_kernels({"twoseg"})``, where each chunk's
-   cross-attention takes the two-segment kernels (K6 forward, K7a/K7b
-   backward; 2 launches each per step) and K2/K4 run the 16 self-attention
-   layers only; every loss must equal the concat route's within a stated
-   tolerance; then one profiled step;
+   fresh host-sampled prefix keep set per step, as one CUDA graph a step
+   (its nodes holding K1/K5 38, K2/K4a/K4b 18 times); every loss must be
+   finite, the fifth below the first, no step skipped by the non-finite
+   sentinel, and every kernel of the training path must have launched; a
+   step whose loss is NaN must hold parameters, moments and counts bit for
+   bit; then one more step and one profiled step; all again eagerly, the
+   graph's losses and parameters within ``GRAPH_RTOL`` of the eager run's;
+6. train_twoseg: the same (graph and eager) from the same seed, weights,
+   batch and keep sets under ``fast_kernels({"twoseg"})``, where each
+   chunk's cross-attention takes the two-segment kernels (K6 forward,
+   K7a/K7b backward; 2 launches each per step) and K2/K4 run the 16
+   self-attention layers only; every loss must equal the concat route's
+   within a stated tolerance;
 7. eval_twoseg: one cache-free, no-grad forward of the flagship at its full
    window (15360 prefix rows, 1024 latents) on each route; the logits must
    agree within 1e-4;
@@ -63,22 +70,26 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
 9. image_eval: the Perceiver IO image classifier of ``bench.py``'s image
    bench (224x224x3, 64 bands, 512 x 1024 latents, 6 x 8 shared SA layers,
    1000 classes; seeded random weights, f32) classifies 16 random images
-   under ``no_grad`` on the split-kv route and on the standard route: finite
-   logits that agree within ``IMAGE_ROUTE_TOL``, and K8 1, K2 48, K1 101
-   launches a forward, exactly;
+   through ``make_eval_step`` (a CUDA graph) on the split-kv route and on
+   the standard route: finite logits that agree within
+   ``IMAGE_ROUTE_TOL``, a replay's within ``GRAPH_RTOL`` of the eager
+   forward's, and K8 1, K2 48, K1 101 launches a forward, exactly;
 10. image_train: five AdamW steps (lr 1e-3, clip 1.0) of that classifier on
-    one fixed batch of 16 random images and labels: every loss finite, the
-    second below the first, no step skipped, each step launching K8, K9a,
-    K9b once, K2, K4a, K4b 48 times and K1, K5 101 times, exactly; then one
-    profiled step;
+    one fixed batch of 16 random images and labels, as a CUDA graph and
+    eagerly: every loss finite, the second below the first, no step
+    skipped, each step launching K8, K9a, K9b once, K2, K4a, K4b 48 times
+    and K1, K5 101 times, exactly; the graph's losses within
+    ``GRAPH_RTOL`` of the eager run's; then one profiled step of each;
 11. image gradient check: the classifier at full width on 32x32 images and
     one block of 2 layers, the card's gradient and optimizer update against
     the CPU's;
 12. image_trajectory: five train steps of that reduced classifier at lr
-    1e-3 on the card and on the CPU, the losses compared step by step.
+    1e-3 on the card (a CUDA graph) and on the CPU, the losses compared step
+    by step.
 
-The last two lines of standard output are the ``kernels`` JSON line and the
-result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+The last three lines of standard output are the ``graph_nodes`` JSON line
+(each captured graph's kernel nodes and launches), the ``kernels`` JSON line
+and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script exits non-zero and prints
 no result. Parity phases run with TF32 off for matrix products; an error
 that is not finite fails every check.
@@ -102,6 +113,7 @@ FLAGSHIP = dict(
 )
 NUM_LATENTS = 512
 N_REQUESTS = 6
+SERVE_SLOTS = 4
 NEAR_TIE = 1e-4
 # the train phase: batch 4 in chunks of 2, five steps
 TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-3
@@ -179,6 +191,26 @@ CUSHION_CYCLES = 2_000_000
 _FLUSH = []
 # label -> median host-clock ms of one call's dispatch, the card kept busy
 DISPATCH_MS = {}
+# the kernels one counted launch (``build.LAUNCHES``) runs, by the names
+# their nodes carry in a captured CUDA graph: K3 a walk and a merge, K5 two
+# passes (a split walk of K2, K6 or K8 adds a merge, K9b's a reduce)
+GRAPH_KERNELS = {
+    "flash_packed_fwd": ("flash_packed_kernel",), "paged_decode": ("paged_walk_kernel", "paged_merge_kernel"),
+    "layer_norm_fwd": ("_layer_norm_fwd_kernel",), "flash_packed_bwd_dkv": ("flash_bwd_dkv_kernel",),
+    "flash_packed_bwd_dq": ("flash_bwd_dq_kernel",),
+    "layer_norm_bwd": ("_layer_norm_bwd_dx_kernel", "_layer_norm_bwd_dwdb_kernel"),
+    "flash_2seg_fwd": ("flash_2seg_fwd_kernel",), "flash_2seg_bwd_dkv": ("flash_2seg_bwd_dkv_kernel",),
+    "flash_2seg_bwd_dq": ("flash_2seg_bwd_dq_kernel",), "flash_heads_fwd": ("heads_fwd_kernel",),
+    "flash_heads_bwd_dkv": ("heads_bwd_dkv_kernel",), "flash_heads_bwd_dq": ("heads_bwd_dq_kernel",),
+}
+# graph name -> its kernel nodes by name and the launches its capture counted
+GRAPH_NODES = {}
+# metric -> {"graph": x, "eager": y}, both measured in this run
+TIMES = {}
+# |graph - eager| / |eager| allowed for a train step's losses and parameters
+# (the same kernels on the same inputs; cuBLAS may choose other algorithms
+# under capture), printed beside each comparison
+GRAPH_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -235,6 +267,59 @@ def check(name: str, err: float, tol: float) -> None:
     log(f"parity {name}: max_abs_err={err:.3e} tol={tol:.1e} {status}")
     if not within(err, tol):
         raise SystemExit(f"kernel parity failed: {name} max_abs_err {err} > {tol}")
+
+
+def check_graph(name: str, graph, warm_up: dict, want: dict) -> None:
+    """A captured step's graph holds the hand-written kernels it should: its
+    capture counted the launches of the eager warm-up step (``warm_up``),
+    which include ``want`` exactly (launches a step; 0 = none), and its
+    kernel nodes run each kernel as often as those launches say (K3's walk
+    and merge each once a launch) and no other hand-written kernel."""
+    names = [k for ks in GRAPH_KERNELS.values() for k in ks]
+    nodes = graph.kernel_nodes(names)
+    GRAPH_NODES[name] = {"nodes": nodes, "launches": graph.launches}
+    log(f"graph {name}: {json.dumps(GRAPH_NODES[name])}")
+    if graph.launches != warm_up:
+        raise SystemExit(f"graph {name}: its capture counted {graph.launches}, the eager step {warm_up}")
+    off = {k: graph.launches.get(k, 0) for k, v in want.items() if graph.launches.get(k, 0) != v}
+    if off:
+        raise SystemExit(f"graph {name}: launches a step {off}, expected {want}")
+    wrong = {node: nodes[node] for launch, ks in GRAPH_KERNELS.items() for node in ks
+             if nodes[node] != graph.launches.get(launch, 0)}
+    if wrong:
+        raise SystemExit(f"graph {name}: kernel nodes {wrong}, expected one per launch of {graph.launches}")
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| / max |want| over tensors or numbers (0 where both
+    are 0)."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale else diff
+
+
+def wall_ms(fn, iters: int = 5) -> float:
+    """Median host-clock ms of ``fn()`` run to the card's end (host and
+    device together, as a caller sees a step)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def free_card() -> None:
+    """Drop the last phase's models, graphs and their memory pools."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def bound(n_bytes: float, n_ops: float, rate: str) -> tuple:
@@ -963,11 +1048,97 @@ class _LogitRecorder:
         return out
 
 
+def serve_engine(model, graphed: bool):
+    """The serve's engine. Its decode step is the captured CUDA graph
+    (``make_paged_step_fn`` on the card, captured at construction), or,
+    with ``graphed=False``, the eager reference: the host's draws, then the
+    step's body (``generation._paged_decode_step_body``) on the same state.
+    Returns the engine and the launches of the capture's warm-up, one eager
+    decode step while every slot is idle."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd
+
+    config = generation.GenerationConfig()
+    build.reset_launches()
+    engine = EngineFrontEnd(
+        model, num_latents=NUM_LATENTS, base_config=config,
+        engine_config=EngineConfig(slots=SERVE_SLOTS, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024),
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    warm_up = {k: n for k, n in build.LAUNCHES.items() if n}
+    if not graphed:
+        stage = generation._UniformStage(config, model.device)
+
+        def eager_step(state):
+            stage(state)
+            return generation._paged_decode_step_body(model, config, state)
+
+        engine._step_fn = eager_step
+    return engine, warm_up
+
+
+def serve_run(engine, specs, record_lengths: bool = False) -> dict:
+    """One closed-loop serve of ``specs``: launches, decode tok/s and, with
+    ``record_lengths``, the lengths every K3 call of every decode step read
+    (the engine's fixed per-pool ``length`` tensors right after the step,
+    before retires zero them)."""
+    from perceiver_io_tpu_torch.ops import build
+
+    lengths = []
+    if record_lengths:
+        step_fn = engine._step_fn
+
+        def recorded(state):
+            out = step_fn(state)
+            lengths.append(torch.stack([pool.length for pool in state["cache"]]))
+            return out
+
+        engine._step_fn = recorded
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = engine.run_closed(specs, concurrency=len(specs))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    prefill_s = sum(r.ttft_s for r in records)
+    decoded = sum(len(engine.served_tokens[r.index]) - 1 for r in records)
+    return {"records": records, "launches": dict(build.LAUNCHES), "wall_s": wall_s, "prefill_s": prefill_s,
+            "decoded": decoded, "decode_tok_s": decoded / (wall_s - prefill_s), "steps": engine._engine_steps,
+            "lengths": lengths}
+
+
+def check_serve(name: str, engine, run: dict) -> None:
+    """The books, the page allocators and K3's launches (the CA and 8 SA
+    pools, once each a decode step) of one serve."""
+    launches, steps, n_sa = run["launches"], run["steps"], FLAGSHIP["num_self_attention_layers"]
+    log(f"{name} launches: {json.dumps(launches)}")
+    log(f"{name} decode steps={steps}: paged_decode launches ca={steps} sa={n_sa * steps} "
+        f"total={launches['paged_decode']}")
+    if launches["paged_decode"] != (1 + n_sa) * steps:
+        raise SystemExit(f"{name}: paged_decode launched {launches['paged_decode']} times in {steps} decode steps, "
+                         f"not {1 + n_sa} a step")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"{name}: kernels never launched on the serving path: {missing}")
+    books = engine.books()
+    if not books["balanced"] or books["ok"] != N_REQUESTS:
+        raise SystemExit(f"{name}: engine books wrong: {books}")
+    used = (engine.ca_alloc.pages_used, engine.sa_alloc.pages_used)
+    problems = engine.ca_alloc.audit() + engine.sa_alloc.audit()
+    if used != (0, 0) or problems:
+        raise SystemExit(f"{name}: page allocators not returned: used={used} problems={problems}")
+
+
 def serve_phase(card: str) -> dict:
+    """The serve through the captured paged step (the main path), then the
+    same requests through the eager step; their streams must be equal token
+    for token, and each equal to the sequential stream up to its first near
+    tie. Returns the main serve's launches."""
     from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
-    from perceiver_io_tpu_torch.ops import build
-    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd, RequestSpec
+    from perceiver_io_tpu_torch.serving import RequestSpec
 
     config = CausalLanguageModelConfig(**FLAGSHIP)
     model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
@@ -981,62 +1152,35 @@ def serve_phase(card: str) -> dict:
             index=i, prompt_len=n, max_new_tokens=int(rng.integers(32, 65)),
             input_ids=rng.integers(0, config.vocab_size, size=(1, n)), rng_seed=int(rng.integers(1 << 30)),
         ))
-    engine = EngineFrontEnd(
-        model, num_latents=NUM_LATENTS, base_config=GenerationConfig(),
-        engine_config=EngineConfig(slots=4, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024),
-        device="cuda",
-    )
-    # every K3 call's lengths (the cache's (S,) tensor of that step: the
-    # engine replaces it each step, never mutates it), read after the serve
-    from perceiver_io_tpu_torch.core import attention as core_attention
-
-    k3, k3_lengths = core_attention.paged_decode_attention, []
-
-    def k3_recorded(qh, cache, mask=None):
-        k3_lengths.append(cache.length)
-        return k3(qh, cache, mask)
-
-    core_attention.paged_decode_attention = k3_recorded
-    build.reset_launches()
-    torch.cuda.synchronize()
-    try:
-        t0 = time.perf_counter()
-        records = engine.run_closed(specs, concurrency=N_REQUESTS)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    finally:
-        core_attention.paged_decode_attention = k3
-    launches = dict(build.LAUNCHES)
-    log(f"serve launches: {json.dumps(launches)}")
-    lengths = torch.stack(k3_lengths)
+    engine, warm_up = serve_engine(model, graphed=True)
+    n_sa = FLAGSHIP["num_self_attention_layers"]
+    check_graph("serve", engine._step_fn.graph, warm_up, {"paged_decode": 1 + n_sa, "flash_packed_fwd": 0})
+    run = serve_run(engine, specs, record_lengths=True)
+    check_serve("serve", engine, run)
+    lengths = torch.stack(run["lengths"]).reshape(-1, SERVE_SLOTS)
     log(f"serve paged_decode calls with a length-0 slot: {int((lengths == 0).any(dim=1).sum())} of "
-        f"{len(k3_lengths)} (slots at length 0 over all calls: {int((lengths == 0).sum())})")
-    # every decode step attends once over the CA pool and once over each
-    # latent SA layer's pool
-    steps, n_sa = engine._engine_steps, FLAGSHIP["num_self_attention_layers"]
-    log(f"serve decode steps={steps}: paged_decode launches ca={steps} sa={n_sa * steps} "
-        f"total={launches['paged_decode']}")
-    if launches["paged_decode"] != (1 + n_sa) * steps:
-        raise SystemExit(f"paged_decode launched {launches['paged_decode']} times in {steps} decode steps, "
-                         f"not {1 + n_sa} a step")
-    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the serving path: {missing}")
-    books = engine.books()
-    if not books["balanced"] or books["ok"] != N_REQUESTS:
-        raise SystemExit(f"engine books wrong: {books}")
-    used = (engine.ca_alloc.pages_used, engine.sa_alloc.pages_used)
-    problems = engine.ca_alloc.audit() + engine.sa_alloc.audit()
-    if used != (0, 0) or problems:
-        raise SystemExit(f"page allocators not returned: used={used} problems={problems}")
-    prefill_s = sum(r.ttft_s for r in records)
-    decoded = sum(len(engine.served_tokens[r.index]) - 1 for r in records)
-    decode_tok_s = decoded / (wall_s - prefill_s)
-    for r in records:
+        f"{lengths.shape[0]} (slots at length 0 over all calls: {int((lengths == 0).sum())})")
+    for r in run["records"]:
         log(f"ttft request={r.index} prompt_len={r.prompt_len} ttft_ms={1e3 * r.ttft_s:.3f} card={card}")
-    log(f"serve: {N_REQUESTS} requests, {decoded} decoded tokens, wall_s={wall_s:.3f}, "
-        f"prefill_s={prefill_s:.3f}, decode_tok_s={decode_tok_s:.1f}, "
-        f"mean_batch_fill={engine.mean_batch_fill:.3f}, card={card}")
+    log(f"serve: {N_REQUESTS} requests, {run['decoded']} decoded tokens, wall_s={run['wall_s']:.3f}, "
+        f"prefill_s={run['prefill_s']:.3f}, decode_tok_s={run['decode_tok_s']:.1f}, "
+        f"mean_batch_fill={engine.mean_batch_fill:.3f}, decode_steps={run['steps']}, step=graph, card={card}")
+    served = dict(engine.served_tokens)
+    del engine
+
+    eager_engine, _ = serve_engine(model, graphed=False)
+    eager = serve_run(eager_engine, specs)
+    check_serve("serve_eager", eager_engine, eager)
+    log(f"serve_eager: {N_REQUESTS} requests, {eager['decoded']} decoded tokens, wall_s={eager['wall_s']:.3f}, "
+        f"prefill_s={eager['prefill_s']:.3f}, decode_tok_s={eager['decode_tok_s']:.1f}, "
+        f"decode_steps={eager['steps']}, step=eager, card={card}")
+    differ = [i for i in served if served[i] != eager_engine.served_tokens[i]]
+    if differ or eager["steps"] != run["steps"] or run["steps"] < 64:
+        raise SystemExit(f"serve: the graph's streams differ from the eager step's in requests {differ} "
+                         f"(decode steps {run['steps']} graph, {eager['steps']} eager; at least 64 wanted)")
+    log(f"serve graph against eager: {run['steps']} decode steps of {SERVE_SLOTS} slots, every stream identical")
+    TIMES["decode_tok_s"] = {"graph": run["decode_tok_s"], "eager": eager["decode_tok_s"]}
+    del eager_engine
 
     # the sequential reference, token by token with its logits
     for spec in specs:
@@ -1048,7 +1192,7 @@ def serve_phase(card: str) -> dict:
         for _ in range(spec.max_new_tokens - 1):
             state, token = step(state)
             want.append(int(token[0]))
-        got = engine.served_tokens[spec.index]
+        got = served[spec.index]
         logits = torch.stack(rec.logits)
         if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, config.vocab_size):
             raise SystemExit(f"request {spec.index}: sequential logits not finite or of the wrong shape")
@@ -1061,37 +1205,38 @@ def serve_phase(card: str) -> dict:
                              f"first near tie at step {tie}: engine {got} sequential {want}")
         note = "identical" if first_diff is None else f"diverges at step {first_diff}, after the near tie at {tie}"
         log(f"stream request={spec.index} tokens={len(got)} min_top2_gap={min(gaps):.3e} {note}")
-    profile_phase(model, card)
-    return launches
+    for graphed in (True, False):
+        profile_phase(model, card, graphed)
+    return run["launches"]
 
 
-def profile_phase(model, card: str) -> None:
+def profile_phase(model, card: str, graphed: bool) -> None:
     """Where a serve's time goes: four 4096-token requests with 24-token
-    budgets through a fresh engine under ``torch.profiler``; prints the
-    device-busy share of the wall time and the top operators by device and by
-    host time. The profiler's own host cost inflates the wall time, so the
-    busy share it shows is a lower bound."""
+    budgets through a fresh engine (its decode step the captured graph, or
+    the eager step) under ``torch.profiler``; prints the device-busy share
+    of the wall time and the top operators by device and by host time. The
+    profiler's own host cost inflates the wall time, so the busy share it
+    shows is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
-    from perceiver_io_tpu_torch.generation import GenerationConfig
-    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd, RequestSpec
+    from perceiver_io_tpu_torch.serving import RequestSpec
 
     rng = np.random.default_rng(SEED + 1)
     specs = [RequestSpec(i, 4096, 24, rng.integers(0, FLAGSHIP["vocab_size"], size=(1, 4096)), i)
              for i in range(4)]
-    engine = EngineFrontEnd(
-        model, num_latents=NUM_LATENTS, base_config=GenerationConfig(),
-        engine_config=EngineConfig(slots=4, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024),
-        device="cuda",
-    )
+    engine, _ = serve_engine(model, graphed)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         records = engine.run_closed(specs, concurrency=4)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    summary = dict(profile_summary(prof, wall_ms, "paged_"), k3_by_pool=k3_by_pool(prof))
+    step = "graph" if graphed else "eager"
+    TIMES.setdefault("serve_busy_share", {})[step] = summary["device_busy_share"]
+    TIMES.setdefault("serve_busy_union_share", {})[step] = summary["device_union_share"]
     log("profile: " + json.dumps({
-        "card": card, "requests": len(specs), "prompt_len": 4096, "max_new_tokens": 24,
-        "prefill_ms": 1e3 * sum(r.ttft_s for r in records), **profile_summary(prof, wall_ms, "paged_"),
+        "card": card, "step": step, "requests": len(specs), "prompt_len": 4096, "max_new_tokens": 24,
+        "decode_steps": engine._engine_steps, "prefill_ms": 1e3 * sum(r.ttft_s for r in records), **summary,
     }))
 
 
@@ -1121,6 +1266,35 @@ def profile_summary(prof, wall_ms: float, sum_kernels: str = None) -> dict:
         chosen = [e for e in kernels if sum_kernels in e.key]
         out[f"{sum_kernels}kernels"] = {"device_ms": 1e-3 * sum(device_us(e) for e in chosen),
                                         "launches": sum(e.count for e in chosen)}
+    # kernels that overlap (K3's merge starts early and waits on its walk
+    # through a programmatic dependence) count once in the union of their
+    # intervals; the sum above counts them twice
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    union_us, end = 0.0, -math.inf
+    for lo, hi in spans:
+        union_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    out.update(device_union_ms=1e-3 * union_us, device_union_share=1e-3 * union_us / wall_ms)
+    return out
+
+
+def k3_by_pool(prof) -> dict:
+    """K3's device time in a profiled serve by pool: every decode step calls
+    it on the CA pool first, then on the 8 SA pools, and the prefills not at
+    all, so its walks (and its merges), in start order, come in runs of 9:
+    the first of each run is the CA call."""
+    from torch.autograd import DeviceType
+
+    per_step = 1 + FLAGSHIP["num_self_attention_layers"]
+    out = {}
+    for kernel in ("paged_walk_kernel", "paged_merge_kernel"):
+        events = sorted((e for e in prof.events()
+                         if getattr(e, "device_type", None) == DeviceType.CUDA and kernel in e.name),
+                        key=lambda e: e.time_range.start)
+        ms = [1e-3 * e.time_range.elapsed_us() for e in events]
+        out[kernel] = {"calls": len(ms), "ca_ms": sum(ms[::per_step]),
+                       "sa_ms": sum(m for i, m in enumerate(ms) if i % per_step)}
     return out
 
 
@@ -1129,12 +1303,35 @@ def profile_summary(prof, wall_ms: float, sum_kernels: str = None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_phase(card: str, route: str = "concat", concat: dict = None) -> dict:
-    """Five steps of the flagship at full width and depth, then one more
-    under ``torch.profiler``, on the concat route or, with ``route="twoseg"``,
-    under ``fast_kernels({"twoseg"})`` from the same seed, weights, batch and
-    keep sets (then each loss is held against ``concat``'s). Returns the
-    launches, losses and step times of the five."""
+def poisonable(loss_fn):
+    """``loss_fn`` with its loss multiplied by the batch's ``poison[0]``: 1.0
+    (an exact no-op) on every step but the sentinel check's, where NaN makes
+    the step non-finite."""
+    def poisoned(model, batch, generator=None):
+        loss, metrics = loss_fn(model, batch, generator)
+        loss = loss * batch["poison"][0]
+        return loss, dict(metrics, loss=loss)
+
+    poisoned.uniform_weighting = loss_fn.uniform_weighting
+    return poisoned
+
+
+def nonzero_launches() -> dict:
+    from perceiver_io_tpu_torch.ops import build
+
+    return {k: n for k, n in build.LAUNCHES.items() if n}
+
+
+def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict = None) -> dict:
+    """Five steps of the flagship at full width and depth, on the concat route
+    or, with ``route="twoseg"``, under ``fast_kernels({"twoseg"})``, from the
+    same seed, weights, batch and keep sets (then each loss is held against
+    ``concat``'s, the same kind of step's); as a CUDA graph (``jit``, the
+    default) or eagerly. Then the sentinel: one step whose loss is NaN (a
+    replay under the graph) must hold parameters, moments, AdamW's steps and
+    the count bit for bit; one more finite step; one step under
+    ``torch.profiler``. Returns the five steps' launches, losses, median and
+    parameters, and the loss of the step after the NaN one."""
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch import training as tt
@@ -1142,44 +1339,67 @@ def train_phase(card: str, route: str = "concat", concat: dict = None) -> dict:
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
-    name = "train" if route == "concat" else "train_twoseg"
+    name = ("train" if route == "concat" else "train_twoseg") + ("" if jit else "_eager")
     config = CausalLanguageModelConfig(**FLAGSHIP)
     model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
     n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
     rng = np.random.default_rng(SEED)
     t = torch.from_numpy(rng.integers(0, config.vocab_size, size=(TRAIN_BATCH, n + 1))).cuda()
+    ones = np.ones(TRAIN_BATCH, np.float32)
     tokens = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None}
+
+    def batch(poison=ones):
+        keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+        return dict(tokens, prefix_keep_idx=keep, poison=poison)
+
     state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0))
-    step = tt.make_train_step(tt.clm_loss_fn(lat), microbatch=TRAIN_MICROBATCH, sentinel=True)
+    step = tt.make_train_step(poisonable(tt.clm_loss_fn(lat)), microbatch=TRAIN_MICROBATCH, sentinel=True, jit=jit)
     losses, step_ms, skipped = [], [], []
+    per_step = {k: PER_STEP[route]["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
+    per_step.update({k: PER_STEP[route]["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
+    per_step.update({k: PER_STEP[route]["flash_2seg"] for k in TWOSEG_KERNELS})
     with fast_kernels(ROUTE_FEATURES[route]):
         build.reset_launches()
-        for _ in range(TRAIN_STEPS):
-            keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+        for i in range(TRAIN_STEPS):
+            b = batch()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, metrics = step(state, dict(tokens, prefix_keep_idx=keep))
+            state, metrics = step(state, b)
             losses.append(float(metrics["loss"]))
             skipped.append(float(metrics["sentinel_skipped"]))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
+            if i == 0 and jit:
+                check_graph(name, step.captured.graph, nonzero_launches(), per_step)
         launches = dict(build.LAUNCHES)
+        params = [p.detach().cpu().clone() for p in model.parameters()]
+        # the sentinel on the device: a NaN loss holds the whole update
+        held = [x.clone() for x in state.optimizer.state_tensors()]
+        _, metrics = step(state, batch(np.full(TRAIN_BATCH, np.nan, np.float32)))
+        poison_skipped = float(metrics["sentinel_skipped"])
+        poison_held = all(torch.equal(x, h) for x, h in zip(state.optimizer.state_tensors(), held))
+        del held
+        _, metrics = step(state, batch())
+        after_poison_loss = float(metrics["loss"])
         # one more step under torch.profiler: where a step's time goes
-        keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+        b = batch()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(state, dict(tokens, prefix_keep_idx=keep))
+            step(state, b)
             torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"{name}_profile: " + json.dumps({"card": card, **profile_summary(prof, wall_ms)}))
+            wall_ms_ = 1e3 * (time.perf_counter() - t0)
+    summary = profile_summary(prof, wall_ms_)
+    log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
     median_ms = statistics.median(step_ms)
     kernels = TRAIN_KERNELS + (TWOSEG_KERNELS if route == "twoseg" else ())
     report = {
-        "card": card, "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH, "seq_len": n, "latents": lat,
-        "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
-        "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
+        "card": card, "step": "graph" if jit else "eager", "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
+        "seq_len": n, "latents": lat, "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": median_ms, "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
         "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in kernels}, "sentinel_skipped": skipped,
+        "nan_step": {"sentinel_skipped": poison_skipped, "held_bit_for_bit": poison_held,
+                     "next_loss": after_poison_loss},
     }
     if concat is not None:
         diffs = [abs(a - b) for a, b in zip(losses, concat["losses"])]
@@ -1192,16 +1412,46 @@ def train_phase(card: str, route: str = "concat", concat: dict = None) -> dict:
         raise SystemExit(f"{name}: loss did not fall over {TRAIN_STEPS} steps: {losses}")
     if any(skipped):
         raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
-    want = PER_STEP[route]
-    per_step = {k: want["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
-    per_step.update({k: want["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
-    per_step.update({k: want["flash_2seg"] for k in TWOSEG_KERNELS})
+    if poison_skipped != 1.0 or not poison_held or not math.isfinite(after_poison_loss):
+        raise SystemExit(f"{name}: the NaN step was not held: {report['nan_step']}")
     wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != v * TRAIN_STEPS}
     if wrong:
         raise SystemExit(f"{name}: launches over {TRAIN_STEPS} steps {wrong}, expected per step {per_step}")
     if concat is not None and not all(within(dd, TWOSEG_LOSS_TOL) for dd in report["loss_diff_to_concat"]):
         raise SystemExit(f"{name}: losses differ from the concat route's by {report['loss_diff_to_concat']}")
-    return {"launches": launches, "losses": losses, "median_step_ms": median_ms}
+    return {"launches": launches, "losses": losses, "median_step_ms": median_ms, "params": params,
+            "next_loss": after_poison_loss, "busy_share": summary["device_busy_share"],
+            "kernels_ms": summary["device_busy_ms"]}
+
+
+def train_pair(card: str, route: str = "concat", concat: dict = None) -> dict:
+    """The train phase as a CUDA graph, then eagerly from the same seed: the
+    graph's losses, parameters after five steps and loss after the NaN step
+    against the eager run's, within ``GRAPH_RTOL`` relative, the differences
+    printed. Returns both runs by step kind."""
+    runs = {}
+    for jit in (True, False):
+        runs["graph" if jit else "eager"] = train_phase(card, route, jit, None if concat is None else
+                                                        concat["graph" if jit else "eager"])
+        free_card()
+    g, e = runs["graph"], runs["eager"]
+    diffs = {"losses": [rel_diff(a, b) for a, b in zip(g["losses"], e["losses"])],
+             "params": max(rel_diff(a, b) for a, b in zip(g["params"], e["params"])),
+             "loss_after_nan_step": rel_diff(g["next_loss"], e["next_loss"])}
+    identical = (g["losses"] == e["losses"] and g["next_loss"] == e["next_loss"]
+                 and all(torch.equal(a, b) for a, b in zip(g["params"], e["params"])))
+    log(f"train_{route} graph against eager: " + json.dumps({
+        "card": card, "identical": identical, "rel_diff": diffs, "rtol": GRAPH_RTOL,
+        "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
+        "busy_share": {k: r["busy_share"] for k, r in runs.items()},
+        "profiled_kernels_ms": {k: r["kernels_ms"] for k, r in runs.items()}}))
+    if not all(within(d, GRAPH_RTOL) for d in diffs["losses"] + [diffs["params"], diffs["loss_after_nan_step"]]):
+        raise SystemExit(f"train_{route}: the graph's step leaves the eager step's: {diffs}")
+    TIMES[f"train_{route}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
+    TIMES[f"train_{route}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
+    for r in runs.values():
+        del r["params"]
+    return runs
 
 
 def eval_twoseg_phase(card: str) -> dict:
@@ -1339,14 +1589,17 @@ def check_launches(name: str, launches: dict, want: dict, times: int) -> None:
 
 
 def image_eval_phase(card: str) -> dict:
-    """The flagship classifier's forward at batch 16 under ``no_grad``, on
-    the split-kv route (the default) and on the standard route (an all-False
-    pad mask: the joined (B, 50176, 261) input, kv_norm, K8 on the
-    261-wide head the wrapper pads to 264), from the same weights and
-    images: finite logits of shape (16, 1000) that agree within
-    ``IMAGE_ROUTE_TOL``, and the launches of ``IMAGE_FORWARD`` exactly (the
-    standard route adds the kv_norm's K1). Returns the split forward's
-    launches."""
+    """The flagship classifier's forward at batch 16 through ``make_eval_step``
+    (``no_grad``; a CUDA graph on the card), on the split-kv route (the
+    default) and on the standard route (an all-False pad mask: the joined
+    (B, 50176, 261) input, kv_norm, K8 on the 261-wide head the wrapper pads
+    to 264), from the same weights and images: the first call of each (the
+    warm-up, an eager forward) launches ``IMAGE_FORWARD`` exactly (the
+    standard route adds the kv_norm's K1) and gives finite logits of shape
+    (16, 1000) that agree within ``IMAGE_ROUTE_TOL`` across routes; a replay
+    gives the eager forward's logits within ``GRAPH_RTOL``. Returns the split
+    forward's launches."""
+    from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.ops import build
 
     model = image_classifier("cuda")
@@ -1354,54 +1607,72 @@ def image_eval_phase(card: str) -> dict:
     log(f"model: image classifier {IMAGE_ENCODER} {IMAGE_DECODER}, {IMAGE_LATENTS} x {IMAGE_CHANNELS} latents, "
         f"{n_params} parameters, f32")
     x = torch.from_numpy(image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 4)["image"]).cuda()
-    routes = {"split": None, "standard": torch.zeros(IMAGE_BATCH, IMAGE_PIXELS, dtype=torch.bool, device="cuda")}
-    logits, launches, ms = {}, {}, {}
-    with torch.no_grad():
-        for route, pad in routes.items():
-            build.reset_launches()
-            logits[route] = model(x, pad_mask=pad)
-            torch.cuda.synchronize()
-            launches[route] = dict(build.LAUNCHES)
-            ms[route] = time_ms(lambda: model(x, pad_mask=pad), 5)
+    routes = {"split": {"image": x},
+              "standard": {"image": x, "pad_mask": torch.zeros(IMAGE_BATCH, IMAGE_PIXELS, dtype=torch.bool,
+                                                               device="cuda")}}
+    want = {"split": IMAGE_FORWARD, "standard": dict(IMAGE_FORWARD, layer_norm_fwd=IMAGE_FORWARD["layer_norm_fwd"] + 1)}
+
+    def forward(model, batch):
+        return model(batch["image"], pad_mask=batch.get("pad_mask"))
+
+    logits, launches, ms, wall, graph_err = {}, {}, {}, {}, {}
+    for route, batch in routes.items():
+        step = tt.make_eval_step(forward)
+        build.reset_launches()
+        logits[route] = step(model, batch)
+        torch.cuda.synchronize()
+        launches[route] = dict(build.LAUNCHES)
+        check_graph(f"image_eval_{route}", step.captured.graph, nonzero_launches(), want[route])
+        graph_err[route] = rel_diff(step(model, batch), logits[route])
+        with torch.no_grad():
+            ms[route] = time_ms(lambda: forward(model, batch), 5)
+            wall[route] = {"graph": wall_ms(lambda: step(model, batch)), "eager": wall_ms(lambda: forward(model, batch))}
+        del step
+        free_card()
     err = max_err(logits["split"], logits["standard"])
     log("image_eval: " + json.dumps({
         "card": card, "batch": IMAGE_BATCH, "max_abs_err_split_vs_standard": err, "tol": IMAGE_ROUTE_TOL,
-        "forward_ms": ms, "images_per_s": {r: IMAGE_BATCH / (t / 1e3) for r, t in ms.items()},
+        "graph_rel_diff_to_eager": graph_err, "graph_rtol": GRAPH_RTOL, "forward_ms": ms, "wall_ms": wall,
+        "images_per_s": {r: {k: IMAGE_BATCH / (t / 1e3) for k, t in w.items()} for r, w in wall.items()},
         "launches": {r: {k: v for k, v in l.items() if v} for r, l in launches.items()},
     }))
+    TIMES["image_eval_images_per_s"] = {k: IMAGE_BATCH / (t / 1e3) for k, t in wall["split"].items()}
     want_shape = (IMAGE_BATCH, IMAGE_DECODER["num_classes"])
     if any(tuple(t.shape) != want_shape or not bool(torch.isfinite(t).all()) for t in logits.values()):
         raise SystemExit(f"image_eval: logits not finite or not of shape {want_shape}")
     if not within(err, IMAGE_ROUTE_TOL):
         raise SystemExit(f"image_eval: the split route's logits differ from the standard route's by {err}")
-    check_launches("image_eval split", launches["split"], IMAGE_FORWARD, 1)
-    check_launches("image_eval standard", launches["standard"],
-                   dict(IMAGE_FORWARD, layer_norm_fwd=IMAGE_FORWARD["layer_norm_fwd"] + 1), 1)
+    if not all(within(e, GRAPH_RTOL) for e in graph_err.values()):
+        raise SystemExit(f"image_eval: the graph's logits leave the eager forward's: {graph_err}")
+    for route in routes:
+        check_launches(f"image_eval {route}", launches[route], want[route], 1)
     return launches["split"]
 
 
-def image_train_phase(card: str) -> dict:
+def image_train_phase(card: str, jit: bool = True) -> dict:
     """Five AdamW steps (lr ``IMAGE_LR``, f32 moments, global clip 1.0) of
     the flagship classifier on one fixed batch of 16 random images and labels in
     one chunk (see the memory reckoning at ``IMAGE_BATCH``), with the
-    non-finite sentinel on: every loss finite, the first step lowering the
-    loss (the later ones overshoot at this rate, see ``IMAGE_LR``), no step
-    skipped, the launches of ``IMAGE_STEP`` per step exactly; then one
-    profiled step. Returns the five steps' launches."""
+    non-finite sentinel on, as a CUDA graph (``jit``) or eagerly: every loss
+    finite, the first step lowering the loss (the later ones overshoot at
+    this rate, see ``IMAGE_LR``), no step skipped, the launches of
+    ``IMAGE_STEP`` per step exactly; then one profiled step. Returns the
+    five steps' launches, losses and median."""
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.ops import build
 
+    name = "image_train" if jit else "image_train_eager"
     model = image_classifier("cuda")
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 5).items()}
     state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
-    step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True)
+    step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True, jit=jit)
     losses, step_ms, skipped = [], [], []
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    for _ in range(IMAGE_STEPS):
+    for i in range(IMAGE_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -1409,6 +1680,8 @@ def image_train_phase(card: str) -> dict:
         skipped.append(float(metrics["sentinel_skipped"]))
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0 and jit:
+            check_graph(name, step.captured.graph, nonzero_launches(), IMAGE_STEP)
     launches = dict(build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.synchronize()
@@ -1416,23 +1689,44 @@ def image_train_phase(card: str) -> dict:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    log("image_train_profile: " + json.dumps({"card": card, **profile_summary(prof, wall_ms)}))
+        wall_ms_ = 1e3 * (time.perf_counter() - t0)
+    summary = profile_summary(prof, wall_ms_)
+    log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
     median_ms = statistics.median(step_ms)
-    log("image_train: " + json.dumps({
-        "card": card, "batch": IMAGE_BATCH, "microbatch": 1, "steps": IMAGE_STEPS, "losses": losses,
-        "step_ms": step_ms, "median_step_ms": median_ms, "images_per_s": IMAGE_BATCH / (median_ms / 1e3),
-        "peak_memory_gb": peak_gb, "sentinel_skipped": skipped,
+    log(f"{name}: " + json.dumps({
+        "card": card, "step": "graph" if jit else "eager", "batch": IMAGE_BATCH, "microbatch": 1,
+        "steps": IMAGE_STEPS, "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
+        "images_per_s": IMAGE_BATCH / (median_ms / 1e3), "peak_memory_gb": peak_gb, "sentinel_skipped": skipped,
         "launches_per_step": {k: launches[k] / IMAGE_STEPS for k in IMAGE_STEP},
     }))
     if not all(np.isfinite(losses)):
-        raise SystemExit(f"image_train: non-finite loss {losses}")
+        raise SystemExit(f"{name}: non-finite loss {losses}")
     if not losses[1] < losses[0]:
-        raise SystemExit(f"image_train: the first step did not lower the loss: {losses}")
+        raise SystemExit(f"{name}: the first step did not lower the loss: {losses}")
     if any(skipped):
-        raise SystemExit(f"image_train: the sentinel skipped a step: {skipped}")
-    check_launches("image_train", launches, IMAGE_STEP, IMAGE_STEPS)
-    return launches
+        raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
+    check_launches(name, launches, IMAGE_STEP, IMAGE_STEPS)
+    return {"launches": launches, "losses": losses, "median_step_ms": median_ms,
+            "busy_share": summary["device_busy_share"]}
+
+
+def image_train_pair(card: str) -> dict:
+    """The image train phase as a CUDA graph, then eagerly: the losses
+    within ``GRAPH_RTOL`` relative, the differences printed. Returns the
+    graph run's launches."""
+    runs = {}
+    for jit in (True, False):
+        runs["graph" if jit else "eager"] = image_train_phase(card, jit)
+        free_card()
+    diffs = [rel_diff(a, b) for a, b in zip(runs["graph"]["losses"], runs["eager"]["losses"])]
+    log("image_train graph against eager: " + json.dumps({
+        "card": card, "identical": runs["graph"]["losses"] == runs["eager"]["losses"], "loss_rel_diff": diffs,
+        "rtol": GRAPH_RTOL, "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
+        "busy_share": {k: r["busy_share"] for k, r in runs.items()}}))
+    if not all(within(d, GRAPH_RTOL) for d in diffs):
+        raise SystemExit(f"image_train: the graph's losses leave the eager step's: {diffs}")
+    TIMES["image_train_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
+    return runs["graph"]["launches"]
 
 
 def image_grad_check_phase(card: str) -> None:
@@ -1679,15 +1973,21 @@ def main() -> None:
                                heads["flash_heads_bwd_dq"]),
     }
     by_phase = {"serve": serve_phase(card)}
-    train = train_phase(card)
-    train_twoseg = train_phase(card, "twoseg", concat=train)
-    by_phase.update(train=train["launches"], train_twoseg=train_twoseg["launches"],
+    free_card()
+    train = train_pair(card)
+    train_twoseg = train_pair(card, "twoseg", concat=train)
+    by_phase.update(train=train["graph"]["launches"], train_twoseg=train_twoseg["graph"]["launches"],
                     eval_twoseg=eval_twoseg_phase(card))
+    free_card()
     grad_check_phase(card)
     grad_check_phase(card, "twoseg")
-    by_phase.update(image_eval=image_eval_phase(card), image_train=image_train_phase(card))
+    free_card()
+    by_phase["image_eval"] = image_eval_phase(card)
+    free_card()
+    by_phase["image_train"] = image_train_pair(card)
     image_grad_check_phase(card)
     image_trajectory_phase(card)
+    log("graph against eager, this run: " + json.dumps({"card": card, **TIMES}))
 
     kernels = []
     for name, (route, source, replaces, res) in results.items():
@@ -1708,6 +2008,7 @@ def main() -> None:
             library_ms=main_case["library_ms"], dispatch_ms=main_case["dispatch_ms"], shape=main_case["case"],
             card=card, cases=res["cases"],
         ))
+    print(json.dumps({"graph_nodes": GRAPH_NODES}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

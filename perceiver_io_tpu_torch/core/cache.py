@@ -5,13 +5,20 @@ float caches only — int8 storage is not ported yet).
 Keys are stored ROTATED (rotate-at-write): a token's rotary rotation rides it
 into the cache, so cached keys are never touched again.
 
-PyTorch runs eagerly, so the port updates the large buffers IN PLACE where the
-JAX package returns updated copies: ``KVCache.append``, ``PagedKVCache.append``
-and :func:`commit_prefill` write into the existing ``k``/``v`` storage (an
-append moves the new tokens' bytes, never the whole buffer). The small
-per-slot tensors (``page_table``, ``length``) are replaced, not mutated, and
-every operation returns the cache to use from then on; the old object must not
-be read again.
+The port updates the large buffers IN PLACE where the JAX package returns
+updated copies: ``KVCache.append``, ``PagedKVCache.append`` and
+:func:`commit_prefill` write into the existing ``k``/``v`` storage (an append
+moves the new tokens' bytes, never the whole buffer). For the small per-slot
+tensors (``page_table``, ``length``) there are two forms. The serving
+engine's state is fixed for its whole life, since its decode step is a CUDA
+graph that reads fixed addresses: :func:`commit_prefill_` and
+:func:`release_slot_` write the table row and the length in place, and the
+engine's decode step writes the advanced lengths back into the tensors it read
+(``generation._paged_decode_step_body``). The functional forms,
+``PagedKVCache.append``, :func:`commit_prefill` and :func:`release_slot`,
+return a cache with new ``page_table``/``length`` tensors and leave the old
+ones as they were (its pools are shared, so the old object's pages must not
+be read again).
 """
 
 from __future__ import annotations
@@ -147,12 +154,13 @@ def init_paged_kv_cache(slots: int, num_pages: int, page_size: int, pages_per_sl
     )
 
 
-def commit_prefill(paged: PagedKVCache, slot: int, page_ids: torch.Tensor,
-                   prefill_cache: KVCache, n_tokens: int) -> PagedKVCache:
+def commit_prefill_(paged: PagedKVCache, slot: int, page_ids: torch.Tensor,
+                    prefill_cache: KVCache, n_tokens: int) -> None:
     """Move one request's prompt KV from a contiguous prefill cache (batch 1)
     into its freshly granted pages ``page_ids`` (n,), and point slot
-    ``slot``'s table row at them. Rows past ``n_tokens`` in the last page
-    carry the prefill buffer's slack (or zeros); reads mask them."""
+    ``slot``'s table row at them, in place (table row and length included).
+    Rows past ``n_tokens`` in the last page carry the prefill buffer's slack
+    (or zeros); reads mask them."""
     page_ids = page_ids.to(device=paged.k.device, dtype=torch.long)
     n = page_ids.shape[0]
     page_size = paged.page_size
@@ -166,19 +174,35 @@ def commit_prefill(paged: PagedKVCache, slot: int, page_ids: torch.Tensor,
 
     paged.k[page_ids] = rows_of(prefill_cache.k).to(paged.k.dtype)
     paged.v[page_ids] = rows_of(prefill_cache.v).to(paged.v.dtype)
-    table = paged.page_table.clone()
-    table[slot] = 0
-    table[slot, :n] = page_ids.to(torch.int32)
-    length = paged.length.clone()
-    length[slot] = int(n_tokens)
-    return PagedKVCache(paged.k, paged.v, table, length)
+    paged.page_table[slot] = 0
+    paged.page_table[slot, :n] = page_ids.to(torch.int32)
+    paged.length[slot] = int(n_tokens)
+
+
+def release_slot_(paged: PagedKVCache, slot: int) -> None:
+    """Point a retired slot's table row back at scratch and zero its length,
+    in place; no pool bytes move (the host half returns the pages to the
+    allocator)."""
+    paged.page_table[slot] = 0
+    paged.length[slot] = 0
+
+
+def _with_own_slot_tensors(paged: PagedKVCache) -> PagedKVCache:
+    return PagedKVCache(paged.k, paged.v, paged.page_table.clone(), paged.length.clone())
+
+
+def commit_prefill(paged: PagedKVCache, slot: int, page_ids: torch.Tensor,
+                   prefill_cache: KVCache, n_tokens: int) -> PagedKVCache:
+    """:func:`commit_prefill_` into a cache with new table and length
+    tensors (the functional form); returns it."""
+    out = _with_own_slot_tensors(paged)
+    commit_prefill_(out, slot, page_ids, prefill_cache, n_tokens)
+    return out
 
 
 def release_slot(paged: PagedKVCache, slot: int) -> PagedKVCache:
-    """Point a retired slot's table row back at scratch and zero its length;
-    no pool bytes move (the host half returns the pages to the allocator)."""
-    table = paged.page_table.clone()
-    table[slot] = 0
-    length = paged.length.clone()
-    length[slot] = 0
-    return PagedKVCache(paged.k, paged.v, table, length)
+    """:func:`release_slot_` into a cache with new table and length tensors
+    (the functional form); returns it."""
+    out = _with_own_slot_tensors(paged)
+    release_slot_(out, slot)
+    return out

@@ -13,6 +13,9 @@ a row takes exactly ONE uniform draw, ``torch.rand((1,), generator=g)`` from
 that row's CPU generator, mapped through the inverse CDF of the filtered
 softmax. A request decoded in a batched engine slot and the same request
 decoded alone therefore draw the same numbers. Greedy decoding draws nothing.
+The paged step draws on the host before its body runs and hands the draws to
+the device in a fixed buffer, so that its body (a CUDA graph on the card)
+never touches the host.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from perceiver_io_tpu_torch.core.cache import KVCache
 from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
 from perceiver_io_tpu_torch.device import DeviceLike, check_same_device, resolve_device
+from perceiver_io_tpu_torch.graphs import Graph, warm_up
 
 # one generator for every row of a batch, or one per row (None = idle row)
 Generators = Union[torch.Generator, Sequence[Optional[torch.Generator]]]
@@ -83,18 +87,24 @@ def _draw_uniforms(generators: Generators, n_rows: int) -> torch.Tensor:
     ])
 
 
-def _sample(logits: torch.Tensor, config: GenerationConfig, generators: Generators) -> torch.Tensor:
+def _sample_at(logits: torch.Tensor, config: GenerationConfig, u: Optional[torch.Tensor]) -> torch.Tensor:
     """Next-token ids (B,) from (B, V) logits: argmax, or the inverse CDF of
-    the filtered softmax at one uniform draw per row."""
+    the filtered softmax at the uniforms ``u`` (B,) on the logits' device."""
     if not config.do_sample:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(_filtered_logits(logits, config), dim=-1)
     cdf = torch.cumsum(probs, dim=-1)
-    u = _draw_uniforms(generators, logits.shape[0]).to(cdf.device)
     # first index whose cumulative mass exceeds u * total: never a
     # zero-probability (filtered) entry
     idx = torch.searchsorted(cdf, (u[:, None] * cdf[:, -1:]).contiguous(), right=True)[:, 0]
     return idx.clamp_(max=logits.shape[-1] - 1)
+
+
+def _sample(logits: torch.Tensor, config: GenerationConfig, generators: Generators) -> torch.Tensor:
+    """:func:`_sample_at` at one uniform draw per row from ``generators``
+    (none for greedy decoding)."""
+    u = _draw_uniforms(generators, logits.shape[0]).to(logits.device) if config.do_sample else None
+    return _sample_at(logits, config, u)
 
 
 def _require_pads_in_prefix(pad_mask: Optional[torch.Tensor], prefix_len: int) -> None:
@@ -255,9 +265,17 @@ def _paged_decode_step_body(model, config: GenerationConfig, state: dict):
     scratch page and the host discards their samples.
 
     ``state`` keys: ``cache`` (paged CA + per-layer paged SA), ``ca_start`` /
-    ``sa_start`` (S,) int32, ``token`` (S,), ``generators`` (list of S CPU
-    generators, None for idle slots), ``done`` (S,) bool, ``pad_slots``
-    (S, ca_capacity) bool, ``pos_shift`` (S, 1). Returns ``(state, tokens)``."""
+    ``sa_start`` (S,) int32, ``token`` (S,), ``uniforms`` (S,) f32 (this
+    step's draws when sampling, see :class:`_UniformStage`), ``generators``
+    (list of S CPU generators, None for idle slots; read by the host only),
+    ``done`` (S,) bool, ``pad_slots`` (S, ca_capacity) bool, ``pos_shift``
+    (S, 1).
+
+    The body runs on the device alone (no host sync, no host draw), and it
+    writes the next state into the tensors it read: ``token``, ``done``,
+    ``ca_start``, ``sa_start`` and every pool's ``length``, so a CUDA graph
+    of it replays on the same state. Returns ``(state, tokens)``, ``tokens``
+    being ``state["token"]``."""
     mcfg = model.config
     cache = state["cache"]
     ca_cache, sa_cache = cache[0], cache[1]
@@ -271,22 +289,96 @@ def _paged_decode_step_body(model, config: GenerationConfig, state: dict):
         pad_mask=state["pad_slots"] | (ca_idx < ca_start[:, None]), kv_cache=cache, decode=True,
         sa_pad_mask=sa_idx < sa_start[:, None], pos_shift=state["pos_shift"],
     )
-    sampled = _sample(out.logits[:, -1], config, state["generators"])
+    sampled = _sample_at(out.logits[:, -1], config, state["uniforms"])
     sampled, done = _finish_sample(sampled, state["done"], config)
-    new_state = dict(state, cache=out.kv_cache, ca_start=ca_start, sa_start=sa_start,
-                     token=sampled, done=done)
-    return new_state, sampled
+    for pool, advanced in zip(cache, out.kv_cache):
+        pool.length.copy_(advanced.length)
+    state["ca_start"].copy_(ca_start)
+    state["sa_start"].copy_(sa_start)
+    state["token"].copy_(sampled)
+    state["done"].copy_(done)
+    return state, state["token"]
+
+
+class _UniformStage:
+    """The host half of a sampled paged step: one uniform per slot from its
+    own CPU generator (0 for idle slots), staged in pinned memory on the
+    card's machine and copied into the state's fixed ``uniforms`` buffer
+    ahead of the step. Greedy decoding draws nothing."""
+
+    def __init__(self, config: GenerationConfig, device: torch.device):
+        self.config = config
+        self._host: Optional[torch.Tensor] = None
+        self._copied = torch.cuda.Event() if device.type == "cuda" else None
+
+    def __call__(self, state: dict) -> None:
+        if not self.config.do_sample:
+            return
+        u = _draw_uniforms(state["generators"], state["uniforms"].shape[0])
+        if self._copied is None:
+            state["uniforms"].copy_(u)
+            return
+        if self._host is None:
+            self._host = torch.empty(u.shape, dtype=u.dtype, pin_memory=True)
+        self._copied.synchronize()  # the last step's copy has read the staging buffer
+        self._host.copy_(u)
+        state["uniforms"].copy_(self._host, non_blocking=True)
+        self._copied.record()
+
+
+def _state_tensors(state: dict) -> tuple:
+    """The addresses of every tensor a paged step reads or writes."""
+    tensors = [t for pool in state["cache"] for t in (pool.k, pool.v, pool.page_table, pool.length)]
+    tensors += [state[k] for k in ("ca_start", "sa_start", "token", "uniforms", "done", "pad_slots", "pos_shift")]
+    return tuple(t.data_ptr() for t in tensors)
+
+
+class _GraphedPagedStep:
+    """The paged step on the card: the first call runs the body once on a
+    side stream (the warm-up: a real step) and captures it into a CUDA graph
+    on that state's tensors; every later call stages the draws and replays.
+    A call with another state raises."""
+
+    def __init__(self, model, config: GenerationConfig):
+        self.model, self.config = model, config
+        self.stage = _UniformStage(config, model.device)
+        self.graph: Optional[Graph] = None
+        self._bound = None
+        self._stream = torch.cuda.Stream(model.device)
+
+    def __call__(self, state: dict):
+        self.stage(state)
+        if self.graph is None:
+            out = warm_up(lambda: _paged_decode_step_body(self.model, self.config, state), self._stream)
+            self.graph = Graph(lambda: _paged_decode_step_body(self.model, self.config, state)[1],
+                               "the paged decode step", self._stream)
+            self._bound = _state_tensors(state)
+            return out
+        if _state_tensors(state) != self._bound:
+            raise ValueError("this paged step is captured on another state's tensors: a state's tensors "
+                             "are written in place, never replaced (core.cache.commit_prefill_)")
+        return state, self.graph.replay()
 
 
 def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, device: DeviceLike = "cuda"):
     """The batched engine's decode step ``step(state) -> (state, tokens)``
-    over a paged-cache state (see :func:`_paged_decode_step_body`). The page
-    pools are updated in place. ``serving.engine`` builds the state and owns
-    the join/retire loop."""
+    over a paged-cache state (see :func:`_paged_decode_step_body`); the
+    state's tensors are written in place. ``serving.engine`` builds the
+    state and owns the join/retire loop.
+
+    On the card the step is a CUDA graph, as the JAX package jits it: its
+    first call is a real step that also captures the graph on that state's
+    tensors, and later calls replay it. On the CPU, where the caller asked
+    for the CPU, it runs the body eagerly. The host draws each step's
+    uniforms before the body runs (one per active slot, as before)."""
     config = config or GenerationConfig()
-    _model_device(model, device)
+    dev = _model_device(model, device)
+    if dev.type == "cuda":
+        return _GraphedPagedStep(model, config)
+    stage = _UniformStage(config, dev)
 
     def step(state: dict):
+        stage(state)
         return _paged_decode_step_body(model, config, state)
 
     return step

@@ -16,7 +16,12 @@ compiler's output; no caller falls back to a plain version on failure.
 
 ``LAUNCHES`` counts kernel launches by name: every wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels (``chip_smoke.py`` resets and reads it).
+went through the kernels (``chip_smoke.py`` resets and reads it). Inside a
+CUDA graph capture a wrapper records its launch and the card runs nothing:
+``graphs.Graph`` takes the capture's counts back out and adds them at every
+replay, so the counts stay those of the kernels the card ran. The launchers
+run nothing at import and allocate nothing, and each takes the current
+stream, which is the capture stream during a capture.
 """
 
 from __future__ import annotations

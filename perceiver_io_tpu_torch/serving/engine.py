@@ -9,7 +9,10 @@ A fixed set of decode slots is driven through ONE batched step:
   enters the batch;
 - **step**: every engine step decodes one token for every active slot
   (``generation.make_paged_step_fn``: per-slot lengths, window counters and
-  generators, so each slot's stream equals the request decoded alone);
+  generators, so each slot's stream equals the request decoded alone). On
+  the card the step is one CUDA graph, captured at construction while every
+  slot is idle; the engine's state tensors are therefore fixed for its life,
+  and join and retire write into them in place;
 - **retire**: finished slots leave between steps, their pages return to the
   free list, and queued requests join without draining the batch.
 
@@ -29,7 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from perceiver_io_tpu_torch.core.cache import commit_prefill, release_slot
+from perceiver_io_tpu_torch.core.cache import commit_prefill_, release_slot_
 from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
 from perceiver_io_tpu_torch.device import DeviceLike
 from perceiver_io_tpu_torch.generation import (
@@ -126,15 +129,22 @@ class EngineFrontEnd:
         s, dev = ec.slots, self.device
         self._state: Dict[str, Any] = {
             "cache": caches,
-            "ca_start": torch.zeros((s,), dtype=torch.int32, device=dev),
-            "sa_start": torch.zeros((s,), dtype=torch.int32, device=dev),
-            "token": torch.zeros((s,), dtype=torch.long, device=dev),
+            "ca_start": torch.empty((s,), dtype=torch.int32, device=dev),
+            "sa_start": torch.empty((s,), dtype=torch.int32, device=dev),
+            "token": torch.empty((s,), dtype=torch.long, device=dev),
+            "uniforms": torch.empty((s,), dtype=torch.float32, device=dev),
             "generators": [None] * s,
-            "done": torch.ones((s,), dtype=torch.bool, device=dev),
-            "pad_slots": torch.zeros((s, caches[0].capacity), dtype=torch.bool, device=dev),
-            "pos_shift": torch.zeros((s, 1), dtype=torch.long, device=dev),
+            "done": torch.empty((s,), dtype=torch.bool, device=dev),
+            "pad_slots": torch.empty((s, caches[0].capacity), dtype=torch.bool, device=dev),
+            "pos_shift": torch.empty((s, 1), dtype=torch.long, device=dev),
         }
+        self._reset_state()
         self._step_fn = make_paged_step_fn(model, self._gen_config, device=dev)
+        if dev.type == "cuda":
+            # the capture: one step while every slot is idle (it writes only
+            # the scratch page), then the state back to its initial values
+            self._step_fn(self._state)
+            self._reset_state()
         self._prefill_fns: Dict[int, Any] = {}
         self._slots: List[Optional[_EngineSlot]] = [None] * s
         self._queue: deque = deque()
@@ -144,6 +154,19 @@ class EngineFrontEnd:
         # request index -> served token ids (the streaming surface; the
         # token-exactness checks compare these with the sequential path)
         self.served_tokens: Dict[int, List[int]] = {}
+
+    def _reset_state(self) -> None:
+        """Every slot idle, in place: table rows at the scratch page (zeroed),
+        lengths and counters 0, done, a neutral token."""
+        st = self._state
+        for pool in st["cache"]:
+            pool.page_table.zero_()
+            pool.length.zero_()
+            pool.k[0].zero_()
+            pool.v[0].zero_()
+        for key in ("ca_start", "sa_start", "token", "uniforms", "pad_slots", "pos_shift"):
+            st[key].zero_()
+        st["done"].fill_(True)
 
     # -- admission -----------------------------------------------------------
 
@@ -198,19 +221,16 @@ class EngineFrontEnd:
 
     def _join_state(self, slot: int, ca_grant: PageGrant, sa_grant: PageGrant, pstate: dict) -> None:
         """Commit one prefilled request's prompt KV into its granted pages and
-        write its per-slot scalars (the pools update in place)."""
+        write its per-slot scalars, all in place."""
         st, dev = self._state, self.device
         prefill_cache = pstate["cache"]
         ca_pages = torch.tensor(ca_grant.pages, dtype=torch.long, device=dev)
         sa_pages = torch.tensor(sa_grant.pages, dtype=torch.long, device=dev)
-        caches = st["cache"]
-        new_ca = commit_prefill(caches[0], slot, ca_pages, prefill_cache[0], prefill_cache[0].length)
-        new_sas = tuple(
-            commit_prefill(c, slot, sa_pages, pc, pc.length)
-            for c, pc in zip(caches[1:], prefill_cache[1:])
-        )
-        st["cache"] = (new_ca,) + new_sas
-        n = min(pstate["pad_slots"].shape[1], new_ca.capacity)
+        ca, sas = st["cache"][0], st["cache"][1:]
+        commit_prefill_(ca, slot, ca_pages, prefill_cache[0], prefill_cache[0].length)
+        for c, pc in zip(sas, prefill_cache[1:]):
+            commit_prefill_(c, slot, sa_pages, pc, pc.length)
+        n = min(pstate["pad_slots"].shape[1], ca.capacity)
         st["pad_slots"][slot] = False
         st["pad_slots"][slot, :n] = pstate["pad_slots"][0, :n]
         st["pos_shift"][slot] = pstate["pos_shift"][0]
@@ -232,10 +252,11 @@ class EngineFrontEnd:
         slot.record.outcome = "ok"
 
     def _retire_state(self, slot: int) -> None:
-        """Device half of a retire: table row back to scratch, length 0, the
-        slot idle with a neutral token."""
+        """Device half of a retire, in place: table row back to scratch,
+        length 0, the slot idle with a neutral token."""
         st = self._state
-        st["cache"] = tuple(release_slot(c, slot) for c in st["cache"])
+        for c in st["cache"]:
+            release_slot_(c, slot)
         st["token"][slot] = 0
         st["done"][slot] = True
         st["ca_start"][slot] = 0

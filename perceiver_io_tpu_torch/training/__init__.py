@@ -1,10 +1,10 @@
 """Training for the port (counterpart of ``perceiver_io_tpu/training/``): the
 CLM and classification losses, the clip + AdamW optimizer with its LR schedules, the train state,
-the train step with microbatching and the non-finite skip, and host-sampled
-prefix-dropout keep sets. ``Trainer``, checkpointing, faults and metrics are
+the train step with microbatching and the non-finite skip, the eval step (both
+CUDA graphs on the card), and host-sampled prefix-dropout keep sets. ``Trainer``, checkpointing, faults and metrics are
 not ported yet."""
 
-from perceiver_io_tpu_torch.training.loop import make_train_step
+from perceiver_io_tpu_torch.training.loop import make_eval_step, make_train_step
 from perceiver_io_tpu_torch.training.losses import IGNORE_INDEX, classification_loss_fn, clm_loss_fn
 from perceiver_io_tpu_torch.training.optim import (
     Optimizer,
@@ -29,6 +29,7 @@ __all__ = [
     "clm_loss_fn",
     "constant_with_warmup",
     "cosine_with_warmup",
+    "make_eval_step",
     "make_optimizer",
     "make_train_step",
     "prefix_keep_count",

@@ -1,7 +1,9 @@
-"""The train step (counterpart of ``perceiver_io_tpu/training/loop.py::
-make_train_step``): gradients, the optimizer update and metrics for one
-batch. PyTorch runs it eagerly; there is no ``jit``/``donate``, and the
-``overlap`` and ``probes`` options have no counterpart yet.
+"""The train and eval steps (counterpart of ``perceiver_io_tpu/training/loop.py::
+make_train_step`` and ``make_eval_step``): gradients, the optimizer update and
+metrics for one batch, and an evaluation of one batch. On the card each step
+is a CUDA graph (``graphs.CapturedStep``), as the JAX package jits them; on
+the CPU it runs eagerly. ``donate`` has no counterpart (the state is updated
+in place), nor have the ``overlap`` and ``probes`` options yet.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from perceiver_io_tpu_torch.graphs import CapturedStep
 from perceiver_io_tpu_torch.training.state import TrainState
 
 
@@ -23,7 +26,11 @@ def _chunk(x, i: int, k: int):
     return x[i * per:(i + 1) * per]
 
 
-def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = False) -> Callable:
+def _device_of(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = False, jit: bool = True) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; ``state`` is updated
     in place. ``loss_fn(model, batch, generator) -> (loss, metrics)``, e.g.
     ``clm_loss_fn``; ``batch`` is a dict of arrays (batch axis 0) or None.
@@ -38,7 +45,22 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
     ``sentinel=True`` is the in-step non-finite skip: when the loss or any
     gradient is not finite, parameters and optimizer state (its moments and
     its schedule count) hold, the step still advances, and the metrics carry
-    ``sentinel_skipped`` (0.0 or 1.0)."""
+    ``sentinel_skipped`` (0.0 or 1.0, a tensor). The update is applied and
+    then selected on the device, as the JAX package's ``jnp.where``.
+
+    ``jit=True`` (the default) runs the step as a CUDA graph when the model
+    lies on the card: the forward and backward of every chunk, the 1/k
+    scale, the clip, the AdamW update and the select are one graph, captured
+    at the first call (a real step) and again when the batch's keys, shapes
+    or dtypes change; each call copies the batch into the graph's buffers.
+    A CUDA generator in ``state.generator`` draws fresh numbers at every
+    replay; the returned function's ``captured`` attribute is the
+    :class:`~perceiver_io_tpu_torch.graphs.CapturedStep` (its ``graph`` the
+    current capture). Before the first call, drop any eager forward's
+    autograd graph over the same parameters (its loss and metrics): its
+    gradient accumulators would run the captured backward on the stream
+    they were made on, which a capture refuses. ``jit=False``, or a model
+    on the CPU, runs the step eagerly (``captured`` is None)."""
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     if microbatch > 1 and getattr(loss_fn, "uniform_weighting", None) is False:
@@ -48,21 +70,19 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
         )
     uniform_declared = getattr(loss_fn, "uniform_weighting", None) is True
 
-    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        opt = state.optimizer
+    def body(model, opt, generator, batch: Dict) -> Dict:
+        """Gradients, the update and the metrics of one batch, on the device
+        alone (no host sync)."""
         opt.zero_grad()
         if microbatch == 1:
-            loss, metrics = loss_fn(state.model, batch, state.generator)
+            loss, metrics = loss_fn(model, batch, generator)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
-            if not uniform_declared and batch.get("pad_mask") is not None:
-                raise ValueError("microbatch > 1 requires equal chunk weighting; padded batches normalize "
-                                 "per-chunk and would reweight tokens; use microbatch=1")
             metrics = None
             for i in range(microbatch):
                 chunk = {k: _chunk(v, i, microbatch) for k, v in batch.items()}
-                chunk_loss, m = loss_fn(state.model, chunk, state.generator)
+                chunk_loss, m = loss_fn(model, chunk, generator)
                 chunk_loss.backward()  # the chunks' gradients sum in .grad
                 m = {k: v.detach() for k, v in m.items()}
                 metrics = m if metrics is None else {k: metrics[k] + m[k] for k in metrics}
@@ -70,15 +90,51 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
             metrics = {k: v / microbatch for k, v in metrics.items()}
             loss = metrics["loss"]
         if not sentinel:
-            state.apply_gradients()
-            return state, metrics
+            opt.step()
+            return metrics
         finite = [torch.isfinite(loss).reshape(1)] + [torch.isfinite(g).all().reshape(1) for g in opt.grads()]
         ok = torch.cat(finite).all()
-        if bool(ok):
-            state.apply_gradients()
-        else:
-            state.step += 1
+        opt.step_where(ok)
         metrics["sentinel_skipped"] = 1.0 - ok.float()
+        return metrics
+
+    captured = CapturedStep(body, "the train step") if jit else None
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        if microbatch > 1 and not uniform_declared and batch.get("pad_mask") is not None:
+            raise ValueError("microbatch > 1 requires equal chunk weighting; padded batches normalize "
+                             "per-chunk and would reweight tokens; use microbatch=1")
+        parts = (state.model, state.optimizer, state.generator)
+        dev = _device_of(state.model)
+        if captured is not None and dev.type == "cuda":
+            gen = state.generator
+            metrics = captured(*parts, batch=batch, device=dev,
+                               generators=() if gen is None or gen.device.type != "cuda" else (gen,))
+        else:
+            metrics = body(*parts, batch)
+        state.step += 1
         return state, metrics
 
+    train_step.captured = captured
     return train_step
+
+
+def make_eval_step(eval_fn: Callable) -> Callable:
+    """``eval_step(model, batch) -> eval_fn(model, batch)`` under
+    ``torch.no_grad()`` (the JAX package's jitted ``eval_step(params,
+    batch)``): a CUDA graph when the model lies on the card, captured at the
+    first call and again when the batch's keys, shapes or dtypes change, and
+    eager on the CPU. ``eval_fn`` must not sync with the host on the card.
+    The returned function's ``captured`` attribute is the
+    :class:`~perceiver_io_tpu_torch.graphs.CapturedStep`."""
+    captured = CapturedStep(eval_fn, "the eval step")
+
+    @torch.no_grad()
+    def eval_step(model: torch.nn.Module, batch: Dict):
+        dev = _device_of(model)
+        if dev.type == "cuda":
+            return captured(model, batch=batch, device=dev)
+        return eval_fn(model, batch)
+
+    eval_step.captured = captured
+    return eval_step

@@ -16,6 +16,14 @@ What the JAX package chains in optax, the port applies as one
   count is: the first update uses ``lr(0)``, and an update the train step
   skips (non-finite gradients) does not advance it.
 
+The count, the learning rate, AdamW's step and its moments are tensors on the
+parameters' device, created with the optimizer, and an update reads and
+writes them there without a host sync, so a train step captured into a CUDA
+graph (``training.loop``) replays it: the schedule is evaluated on the count
+tensor, as optax evaluates it on its traced count. On the card AdamW runs
+with ``capturable=True``; on the CPU, where torch refuses that, with
+``fused=True``, which also reads its step and learning rate from tensors.
+
 Moments are f32. ``scale_by_adam_compact`` (bf16 moments), Lamb and SGD are
 not ported.
 """
@@ -27,28 +35,39 @@ from typing import Callable, Iterable, List, Optional, Union
 
 import torch
 
-Schedule = Callable[[int], float]
+# step -> learning rate; a schedule the train step can capture takes a 0-d
+# tensor step and returns a tensor on its device (Python numbers otherwise)
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
+
+
+def _in_kind(step, value: torch.Tensor):
+    """A schedule's f64 result: a tensor for a tensor step, a float for an
+    int step."""
+    return value if isinstance(step, torch.Tensor) else float(value)
 
 
 def cosine_with_warmup(base_lr: float, training_steps: int, warmup_steps: int = 0, num_cycles: float = 0.5,
                        min_fraction: float = 0.0) -> Schedule:
-    """Linear warmup then cosine decay to ``min_fraction * base_lr``."""
+    """Linear warmup then cosine decay to ``min_fraction * base_lr``; in f64,
+    for an int step or a 0-d tensor step on any device."""
 
-    def schedule(step: int) -> float:
-        if step < warmup_steps:
-            return base_lr * step / max(1, warmup_steps)
-        progress = (step - warmup_steps) / max(1, training_steps - warmup_steps)
-        cosine = 0.5 * (1.0 - min_fraction) * (1.0 + math.cos(math.pi * num_cycles * 2.0 * progress))
-        return base_lr * (min_fraction + max(0.0, cosine))
+    def schedule(step):
+        s = torch.as_tensor(step, dtype=torch.float64)
+        warm = base_lr * s / max(1, warmup_steps)
+        progress = (s - warmup_steps) / max(1, training_steps - warmup_steps)
+        cosine = 0.5 * (1.0 - min_fraction) * (1.0 + torch.cos(math.pi * num_cycles * 2.0 * progress))
+        decayed = base_lr * (min_fraction + torch.clamp(cosine, min=0.0))
+        return _in_kind(step, torch.where(s < warmup_steps, warm, decayed))
 
     return schedule
 
 
 def constant_with_warmup(base_lr: float, warmup_steps: int = 0) -> Schedule:
-    """Linear warmup then constant."""
+    """Linear warmup then constant; in f64, for an int or a 0-d tensor step."""
 
-    def schedule(step: int) -> float:
-        return base_lr * min(1.0, step / max(1, warmup_steps))
+    def schedule(step):
+        s = torch.as_tensor(step, dtype=torch.float64)
+        return _in_kind(step, base_lr * torch.clamp(s / max(1, warmup_steps), max=1.0))
 
     return schedule
 
@@ -69,16 +88,30 @@ class Optimizer:
     """Global-norm clip + AdamW + LR schedule over one parameter list (see
     the module docstring). ``step()`` applies one update from the
     parameters' ``.grad``; a parameter without one is updated as with a zero
-    gradient, as optax does."""
+    gradient, as optax does. ``count`` (applied updates, the schedule's
+    index) and ``lr`` are 0-d tensors on the parameters' device."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Schedule, weight_decay: float,
                  betas, gradient_clip: Optional[float]):
         self.params = list(params)
         self.schedule = schedule
         self.gradient_clip = gradient_clip
-        self.count = 0  # applied updates: the schedule's index
-        self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=betas, eps=1e-8,
-                                       weight_decay=weight_decay)
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        on_card = dev.type == "cuda"
+        # on the card the multi-tensor form: torch's single-tensor capturable
+        # form divides by the learning rate, and at a rate of 0 (a warmup's
+        # first step) turns every parameter whose second moment is 0 into NaN
+        self.adamw = torch.optim.AdamW(self.params, lr=self.lr, betas=betas, eps=1e-8, weight_decay=weight_decay,
+                                       capturable=on_card, foreach=on_card, fused=not on_card)
+        # AdamW's state as its first step would create it (step 0, zero
+        # moments), made now: the non-finite select holds it from the first
+        # update on, and a capture finds it in place
+        for p in self.params:
+            self.adamw.state[p] = {"step": torch.zeros((), dtype=torch.float32, device=dev),
+                                   "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                                   "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
 
     def grads(self) -> List[torch.Tensor]:
         for p in self.params:
@@ -90,10 +123,44 @@ class Optimizer:
         grads = self.grads()
         if self.gradient_clip is not None:
             clip_by_global_norm_(grads, self.gradient_clip)
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(self.count)
+        lr = self._scheduled_lr()
+        if isinstance(lr, torch.Tensor):
+            self.lr.copy_(lr)
+        else:
+            self.lr.fill_(lr)
         self.adamw.step()
         self.count += 1
+
+    def _scheduled_lr(self):
+        try:
+            return self.schedule(self.count)
+        except RuntimeError as e:
+            if self.count.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "the learning-rate schedule cannot take the update count as a 0-d tensor on the card: a "
+                    "captured train step evaluates it there, as optax evaluates a schedule on its traced count; "
+                    "write it with tensor operations, as cosine_with_warmup is written") from e
+            raise
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor an update writes: the parameters, AdamW's moments and
+        step, the count."""
+        out = list(self.params)
+        for p in self.params:
+            state = self.adamw.state[p]
+            out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
+        return out + [self.count]
+
+    @torch.no_grad()
+    def step_where(self, ok: torch.Tensor) -> None:
+        """One update where the 0-d bool ``ok`` holds, none where it does not,
+        selected on the device (the JAX package's ``jnp.where(ok, updated,
+        held)``): where it holds, the result is :meth:`step`'s exactly."""
+        tensors = self.state_tensors()
+        held = [t.clone() for t in tensors]
+        self.step()
+        for t, h in zip(tensors, held):
+            torch.where(ok, t, h, out=t)
 
     def zero_grad(self) -> None:
         for p in self.params:

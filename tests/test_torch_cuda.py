@@ -3,8 +3,9 @@ an NVIDIA card, at small shapes: K2 (packed flash forward), K3 (paged
 decode), K1 (LayerNorm forward), K4a/K4b (packed flash backward), K5
 (LayerNorm backward), K6/K7a/K7b (the two-segment flash forward and
 backward), K8/K9a/K9b (the heads-major flash forward and backward), train
-steps (with and without "twoseg", and of a small image classifier) and the
-engine serving through them. Marked
+steps (with and without "twoseg", and of a small image classifier), the
+engine serving through them, and the paged decode, train and eval steps
+as CUDA graphs against their eager runs. Marked
 ``cuda``; each test skips on a machine without a card. Run them on one with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
 suite's conftest imports JAX, which the port does not need). Tolerances: f32
@@ -349,6 +350,9 @@ def test_image_classifier_gradient_on_the_card_matches_the_cpu(cuda):
             assert max(float(want.abs().max()), float(grads[1][name].abs().max())) <= 1e-10, name
             continue
         assert float((grads[1][name] - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+    # the eager backward's graph (and its gradient accumulators, made on the
+    # default stream) must be gone before the train step's graph is captured
+    del loss, _
     state = tt.TrainState.create(model, tt.make_optimizer(1e-3, gradient_clip=1.0))
     state, metrics = tt.make_train_step(tt.classification_loss_fn(), microbatch=2, sentinel=True)(state, batch)
     assert float(metrics["sentinel_skipped"]) == 0.0 and np.isfinite(float(metrics["loss"]))
@@ -496,6 +500,9 @@ def test_micro_train_step_runs_through_the_training_kernels(cuda, n_pad):
         grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
     for name, want in grads[0].items():
         assert float((grads[1][name] - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+    # the eager backward's graph (and its gradient accumulators, made on the
+    # default stream) must be gone before the train step's graph is captured
+    del loss, _
     state = tt.TrainState.create(model, tt.make_optimizer(1e-3, gradient_clip=1.0))
     build.reset_launches()
     step = tt.make_train_step(tt.clm_loss_fn(128), microbatch=1 if n_pad else 2, sentinel=True)
@@ -784,3 +791,258 @@ def test_clm_train_step_gradient_is_bitwise_equal_in_two_processes(cuda, route):
     digests = [subprocess.run([sys.executable, "-c", _GRAD_PROCESS, *route], cwd=root, env=env, check=True,
                               capture_output=True, text=True).stdout.strip() for _ in range(2)]
     assert digests[0] and digests[0] == digests[1], digests
+
+
+# ---------------------------------------------------------------------------
+# the steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+_GRAPH_CLM = dict(vocab_size=262, max_seq_len=512, max_latents=128, num_channels=64, num_heads=4,
+                  num_self_attention_layers=2)
+
+
+def _eager_paged_step(model, config):
+    """The paged step's eager reference: the host's draws, then the body."""
+    from perceiver_io_tpu_torch import generation
+
+    stage = generation._UniformStage(config, model.device)
+
+    def step(state):
+        stage(state)
+        return generation._paged_decode_step_body(model, config, state)
+
+    return step
+
+
+def test_graphed_paged_step_equals_the_eager_body_with_joins_and_retires(cuda):
+    """Two engines over one small CLM on the card, one replaying the captured
+    paged step and one running its body eagerly, serve the same ragged,
+    sampled (temperature, top-k, top-p) requests through 3 slots: at least
+    64 decode steps with joins and retires between replays, every stream
+    equal token for token, and the books and page allocators clean."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd, RequestSpec
+
+    config = CausalLanguageModelConfig(**dict(_GRAPH_CLM, max_seq_len=64, max_latents=16))
+    model = CausalLanguageModel(config, device=cuda, generator=torch.Generator().manual_seed(0))
+    gen_config = GenerationConfig(do_sample=True, temperature=0.8, top_k=40, top_p=0.9)
+    rng = np.random.default_rng(3)
+    specs = []
+    for i in range(20):
+        n = int(rng.integers(20, 44))
+        specs.append(RequestSpec(i, n, int(rng.integers(8, 20)), rng.integers(0, 262, size=(1, n)),
+                                 int(rng.integers(1 << 20))))
+    streams, steps = [], []
+    for graphed in (True, False):
+        engine = EngineFrontEnd(model, num_latents=8, base_config=gen_config, device=cuda,
+                                engine_config=EngineConfig(slots=3, page_size=16, max_ca_tokens=64,
+                                                           max_sa_tokens=32))
+        if not graphed:
+            engine._step_fn = _eager_paged_step(model, gen_config)
+        records = engine.run_closed(specs, concurrency=5)
+        assert [r.outcome for r in records] == ["ok"] * len(specs)
+        assert engine.books()["balanced"] and engine.ca_alloc.pages_used == engine.sa_alloc.pages_used == 0
+        streams.append(dict(engine.served_tokens))
+        steps.append(engine._engine_steps)
+    assert steps[0] == steps[1] >= 64
+    assert streams[0] == streams[1]
+
+
+def test_graph_replays_count_their_launches(cuda):
+    """A replay adds the launches its capture recorded: after N replays of
+    the captured paged step, ``LAUNCHES`` holds N times the capture's count,
+    which is K3 once per pool (the CA and each SA layer) a step."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd
+
+    config = CausalLanguageModelConfig(**dict(_GRAPH_CLM, max_seq_len=64, max_latents=16))
+    model = CausalLanguageModel(config, device=cuda, generator=torch.Generator().manual_seed(0))
+    engine = EngineFrontEnd(model, num_latents=8, base_config=GenerationConfig(), device=cuda,
+                            engine_config=EngineConfig(slots=2, page_size=16, max_ca_tokens=64, max_sa_tokens=32))
+    graph = engine._step_fn.graph
+    assert graph.launches["paged_decode"] == 1 + config.num_self_attention_layers
+    build.reset_launches()
+    for _ in range(7):
+        engine._step_fn(engine._state)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in build.LAUNCHES.items() if n} == {k: 7 * n for k, n in graph.launches.items()}
+    nodes = graph.kernel_nodes(["paged_walk_kernel", "paged_merge_kernel"])
+    assert nodes["paged_walk_kernel"] == nodes["paged_merge_kernel"] == graph.launches["paged_decode"], nodes
+
+
+def _graph_train_run(cuda, route, jit, batches, sentinel=False, poison=None, microbatch=2):
+    """A small CLM's train steps on ``batches`` (clip 1.0, a warmup-cosine
+    schedule), a CUDA graph with ``jit``; the loss multiplied
+    by each step's ``poison`` value where given. Returns the state, each
+    step's metrics and each step's optimizer state tensors."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
+                                generator=torch.Generator().manual_seed(0))
+    state = tt.TrainState.create(model, tt.make_optimizer(tt.cosine_with_warmup(1e-3, 6, 1), gradient_clip=1.0))
+    loss_fn = tt.clm_loss_fn(128)
+    if poison is not None:
+        base = loss_fn
+
+        def loss_fn(model, batch, generator=None):
+            loss, _ = base(model, batch, generator)
+            loss = loss * batch["poison"]
+            return loss, {"loss": loss}
+
+    step = tt.make_train_step(loss_fn, microbatch=microbatch, sentinel=sentinel, jit=jit)
+    metrics, tensors = [], []
+    with fast_kernels(set(route)):
+        for i, batch in enumerate(batches):
+            if poison is not None:
+                batch = dict(batch, poison=np.float32(poison[i]))
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            tensors.append([t.clone() for t in state.optimizer.state_tensors()])
+    return state, metrics, tensors
+
+
+def _graph_batches(n, seed=9):
+    from perceiver_io_tpu_torch import training as tt
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t = rng.integers(0, 262, size=(4, 257))
+        out.append({"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None,
+                    "prefix_keep_idx": tt.sample_prefix_keep_idx(rng, 4, 128, 0.5)})
+    return out
+
+
+def _assert_close_relative(got, want, rtol):
+    for g, w in zip(got, want):
+        assert float((g.double() - w.double()).abs().max()) <= rtol * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("route", [(), ("twoseg",)], ids=["concat", "twoseg"])
+def test_graphed_train_step_equals_the_eager_step(cuda, route):
+    """Three CLM train steps (microbatch 2, clip, a warmup-cosine schedule,
+    fresh keep sets) as a CUDA graph and eagerly, from the same weights:
+    the losses, and the parameters, AdamW moments and steps and the count
+    after the third, agree within 1e-6 relative to each tensor's largest
+    value (the same kernels on the same inputs; cuBLAS may pick other
+    algorithms under capture)."""
+    batches = _graph_batches(3)
+    graphed, g_metrics, g_tensors = _graph_train_run(cuda, route, True, batches)
+    eager, e_metrics, e_tensors = _graph_train_run(cuda, route, False, batches)
+    np.testing.assert_allclose([m["loss"] for m in g_metrics], [m["loss"] for m in e_metrics], rtol=1e-6)
+    _assert_close_relative(g_tensors[-1], e_tensors[-1], 1e-6)
+    assert graphed.step == eager.step == 3 and int(graphed.optimizer.count) == 3
+
+
+def test_graphed_train_step_skips_a_poisoned_batch(cuda):
+    """Under the graph a NaN loss (the batch's ``poison`` buffer, step 2, a
+    replay) is skipped on the device: parameters, moments, AdamW's steps and
+    the count hold bit for bit, ``sentinel_skipped`` is 1; the next finite
+    step matches the eager run (within 1e-6 relative)."""
+    batches, poison = _graph_batches(3, seed=10), [1.0, np.nan, 1.0]
+    run = dict(sentinel=True, poison=poison, microbatch=1)  # a 0-d poison value splits into no chunks
+    graphed, g_metrics, g_tensors = _graph_train_run(cuda, (), True, batches, **run)
+    eager, e_metrics, e_tensors = _graph_train_run(cuda, (), False, batches, **run)
+    assert [m["sentinel_skipped"] for m in g_metrics] == [m["sentinel_skipped"] for m in e_metrics] == [0.0, 1.0, 0.0]
+    assert all(torch.equal(a, b) for a, b in zip(g_tensors[1], g_tensors[0]))
+    assert int(graphed.optimizer.count) == 2 and graphed.step == 3
+    np.testing.assert_allclose(g_metrics[2]["loss"], e_metrics[2]["loss"], rtol=1e-6)
+    _assert_close_relative(g_tensors[2], e_tensors[2], 1e-6)
+
+
+def test_graphed_train_step_redraws_a_cuda_generators_keep_set(cuda):
+    """A batch without a keep set makes the forward draw one on the card from
+    ``state.generator``: the graph registers that generator, so replays on
+    the same batch and weights (lr 0) draw other keep sets and give other
+    losses, as the eager steps do."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    batch = dict(_graph_batches(1, seed=11)[0])
+    del batch["prefix_keep_idx"]
+    losses = {}
+    for jit in (True, False):
+        model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
+                                    generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        before = [p.detach().clone() for p in model.parameters()]
+        state = tt.TrainState.create(model, tt.make_optimizer(0.0), generator=gen)
+        step = tt.make_train_step(tt.clm_loss_fn(128), jit=jit)
+        losses[jit] = [float(step(state, batch)[1]["loss"]) for _ in range(4)]
+        assert all(torch.equal(p, q) for p, q in zip(model.parameters(), before))
+    for run in losses.values():
+        assert np.isfinite(run).all() and len(set(run)) == 4, losses
+
+
+def test_graphed_eval_step_equals_the_eager_forward(cuda):
+    """``make_eval_step`` on the card (a CUDA graph) gives the eager
+    forward's logits within 1e-6 relative, for two batches through one
+    capture, and captures anew for another batch shape."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
+                                generator=torch.Generator().manual_seed(0))
+
+    def eval_fn(model, batch):
+        return model(torch.as_tensor(batch["input_ids"], device=cuda), prefix_len=128).logits
+
+    step = tt.make_eval_step(eval_fn)
+    rng = np.random.default_rng(12)
+    for shape in ((2, 256), (2, 256), (3, 200)):
+        batch = {"input_ids": rng.integers(0, 262, size=shape)}
+        got = step(model, batch)
+        with torch.no_grad():
+            want = eval_fn(model, batch)
+        _assert_close_relative([got], [want], 1e-6)
+
+
+def test_capturable_adamw_on_the_card_matches_the_cpus_optimizer(cuda):
+    """Three updates (clip 1.0, a warmup-cosine schedule on the count
+    tensor, so the first at a rate of 0) from the same gradients, one row of
+    which is always 0 (its second moment stays 0): AdamW with
+    ``capturable=True`` on the card against the CPU's fused AdamW, which
+    tests/test_torch_graph_train.py holds to optax; within 1e-6 on
+    parameters of order 1 (f32, the two evaluate the bias corrections in
+    other orders)."""
+    from perceiver_io_tpu_torch import training as tt
+
+    rng = np.random.default_rng(14)
+    p0 = [rng.normal(size=s).astype(np.float32) for s in ((64, 32), (32,))]
+    params = {dev: [torch.nn.Parameter(torch.from_numpy(a.copy()).to(dev)) for a in p0] for dev in ("cpu", cuda)}
+    opts = {dev: tt.make_optimizer(tt.cosine_with_warmup(5e-2, 4, 1), weight_decay=0.05, gradient_clip=1.0)(ps)
+            for dev, ps in params.items()}
+    assert opts[cuda].adamw.param_groups[0]["capturable"]
+    for _ in range(3):
+        grads = [rng.normal(size=a.shape).astype(np.float32) for a in p0]
+        grads[0][0] = 0.0
+        for dev, ps in params.items():
+            for p, g in zip(ps, grads):
+                p.grad = torch.from_numpy(g).to(dev)
+            opts[dev].step()
+    for got, want in zip(params[cuda], params["cpu"]):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-6, rtol=0)
+    assert int(opts[cuda].count) == 3
+
+
+def test_a_schedule_that_cannot_take_a_tensor_refuses_the_capture(cuda):
+    """A schedule that branches on the host cannot run inside the graph: the
+    captured step raises and says so (the eager step still runs it)."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    def host_schedule(step):
+        return 1e-3 if step < 10 else 1e-4
+
+    batch = _graph_batches(1, seed=13)[0]
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
+                                generator=torch.Generator().manual_seed(0))
+    state = tt.TrainState.create(model, tt.make_optimizer(host_schedule))
+    tt.make_train_step(tt.clm_loss_fn(128), jit=False)(state, batch)
+    with pytest.raises(RuntimeError, match="schedule"):
+        tt.make_train_step(tt.clm_loss_fn(128))(state, batch)
