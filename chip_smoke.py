@@ -13,8 +13,8 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    kernel may spill) and the tensor-core instructions of K2's, K4a's,
    K4b's, K6's, K7a's, K7b's, K8's, K9a's and K9b's builds from
    ``cuobjdump -sass`` (TF32 in every f32 build of K2, K4a, K6, K7a and K8,
-   f64 DMMA in every build of K4a, K4b, K7a, K7b, K9a and K9b, bf16 in K2's
-   bf16 builds);
+   f64 DMMA in every f32 build of K4a, K4b, K7a, K7b, K9a and K9b, bf16 in
+   K2's, K4a's and K4b's bf16 builds);
 3. kernel parity: each kernel against its plain PyTorch version on the card
    at the flagship's serving and training shapes and the image classifier's,
    with the tolerance stated beside each case, and its median device time
@@ -31,6 +31,15 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    backward, K6/K7a/K7b two-segment flash, K8/K9a/K9b heads-major flash
    (the classifier's cross-attention, 512 latents over 50176 pixels with one
    264-wide head, and odd-width, causal, pad-mask and split-walk cases);
+   and the bf16 builds of the bf16 CLM's path (K2 at the serve's and the
+   train step's cross-attention, K3 at the serve's CA and SA pools and
+   ``ca_retired``, K4a/K4b at the train step's cross- and self-attention,
+   K1/K5 at 16384 x 512 and 15360 x 512), each held by ``check_bf16`` to the
+   plain version evaluated in f64 on the same bf16 inputs (no further than
+   1.25x the bf16 plain version, 1.0x for K3, in L2) and within 2e-2 (K3
+   1e-2) of the bf16 plain version's largest magnitude, with the library
+   yardsticks in bf16 and bounds at half the bytes and the bf16 tensor-core
+   rate;
 4. serve: the flagship-width Perceiver AR CLM (seeded random weights)
    answers six greedy requests through ``EngineFrontEnd``, its decode step
    the CUDA graph captured at construction (whose kernel nodes must hold
@@ -67,23 +76,34 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    against the same gradient on the CPU (plain versions), from the same
    weights, batch and keep set, and the optimizer update each side makes
    from it; once on the concat route, once under "twoseg";
-9. image_eval: the Perceiver IO image classifier of ``bench.py``'s image
+9. serve_bf16: the serve with bf16 compute (``dtype=torch.bfloat16``, f32
+   parameters) and bf16 page pools through the captured decode step: K3's
+   bf16 build 9 times a decode step and no f32 build, its graph's nodes,
+   TTFT and decode tok/s, every stream equal to the sequential bf16 stream
+   up to its first top-2 gap under ``NEAR_TIE_BF16``;
+10. train_bf16: the train phase (concat) with bf16 compute and bf16 Adam
+    moments, graph and eager, equal bit for bit, every launch a bf16 build;
+    its step ms, tokens/s and busy share beside the f32 step's;
+11. grad_check_bf16: grad_check's gradient in bf16 on the card against the
+    CPU's f32 gradient, per parameter no further (L2) than 1.5x the CPU's
+    bf16 gradient;
+12. image_eval: the Perceiver IO image classifier of ``bench.py``'s image
    bench (224x224x3, 64 bands, 512 x 1024 latents, 6 x 8 shared SA layers,
    1000 classes; seeded random weights, f32) classifies 16 random images
    through ``make_eval_step`` (a CUDA graph) on the split-kv route and on
    the standard route: finite logits that agree within
    ``IMAGE_ROUTE_TOL``, a replay's within ``GRAPH_RTOL`` of the eager
    forward's, and K8 1, K2 48, K1 101 launches a forward, exactly;
-10. image_train: five AdamW steps (lr 1e-3, clip 1.0) of that classifier on
+13. image_train: five AdamW steps (lr 1e-3, clip 1.0) of that classifier on
     one fixed batch of 16 random images and labels, as a CUDA graph and
     eagerly: every loss finite, the second below the first, no step
     skipped, each step launching K8, K9a, K9b once, K2, K4a, K4b 48 times
     and K1, K5 101 times, exactly; the graph's losses within
     ``GRAPH_RTOL`` of the eager run's; then one profiled step of each;
-11. image gradient check: the classifier at full width on 32x32 images and
+14. image gradient check: the classifier at full width on 32x32 images and
     one block of 2 layers, the card's gradient and optimizer update against
     the CPU's;
-12. image_trajectory: five train steps of that reduced classifier at lr
+15. image_trajectory: five train steps of that reduced classifier at lr
     1e-3 on the card (a CUDA graph) and on the CPU, the losses compared step
     by step.
 
@@ -115,6 +135,14 @@ NUM_LATENTS = 512
 N_REQUESTS = 6
 SERVE_SLOTS = 4
 NEAR_TIE = 1e-4
+# serve_bf16's near tie: bf16 logits (|logit| < 2 at these random weights)
+# have steps of 2^-8 to 2^-7, and the engine's K3 (f32 softmax weights) and
+# the sequential decode's dense attention (weights rounded to bf16, as the
+# JAX package rounds them) differ by a few such steps after 9 layers; a top-2
+# gap under 0.05 (6 to 12 steps) may flip between the two
+NEAR_TIE_BF16 = 5e-2
+# the suffix under which build.LAUNCHES counts a kernel's bf16 build
+BF16 = "_bf16"
 # the train phase: batch 4 in chunks of 2, five steps
 TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-3
 TRAIN_CHUNK = TRAIN_BATCH // TRAIN_MICROBATCH
@@ -122,6 +150,9 @@ PREFIX_LEN = FLAGSHIP["max_seq_len"] - FLAGSHIP["max_latents"]
 KEEP = PREFIX_LEN - int(PREFIX_LEN * FLAGSHIP["cross_attention_dropout"])  # kept prefix rows: 7680
 SERVE_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd")
 TRAIN_KERNELS = ("layer_norm_fwd", "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq", "layer_norm_bwd")
+# the phases that run the bf16 builds, by kernel: serve_bf16 K3, train_bf16
+# the rest
+BF16_PHASE = {**{k + BF16: "train_bf16" for k in TRAIN_KERNELS}, "paged_decode" + BF16: "serve_bf16"}
 TWOSEG_KERNELS = ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
 ROUTE_FEATURES = {"concat": frozenset(), "twoseg": frozenset({"twoseg"})}
 # per flagship train step (2 chunks): one CA and 8 SA layers per chunk;
@@ -202,6 +233,15 @@ GRAPH_KERNELS = {
     "flash_2seg_fwd": ("flash_2seg_fwd_kernel",), "flash_2seg_bwd_dkv": ("flash_2seg_bwd_dkv_kernel",),
     "flash_2seg_bwd_dq": ("flash_2seg_bwd_dq_kernel",), "flash_heads_fwd": ("heads_fwd_kernel",),
     "flash_heads_bwd_dkv": ("heads_bwd_dkv_kernel",), "flash_heads_bwd_dq": ("heads_bwd_dq_kernel",),
+    # the bf16 builds: K4's kernels carry names of their own; K2's, K3's and
+    # the Triton kernels' share their f32 builds' names, so a node of one of
+    # those counts for the launches of both builds together
+    "flash_packed_fwd" + BF16: ("flash_packed_kernel",),
+    "paged_decode" + BF16: ("paged_walk_kernel", "paged_merge_kernel"),
+    "layer_norm_fwd" + BF16: ("_layer_norm_fwd_kernel",),
+    "flash_packed_bwd_dkv" + BF16: ("flash_bwd_dkv_bf16_kernel",),
+    "flash_packed_bwd_dq" + BF16: ("flash_bwd_dq_bf16_kernel",),
+    "layer_norm_bwd" + BF16: ("_layer_norm_bwd_dx_kernel", "_layer_norm_bwd_dwdb_kernel"),
 }
 # graph name -> its kernel nodes by name and the launches its capture counted
 GRAPH_NODES = {}
@@ -257,6 +297,30 @@ def max_err64(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def l2_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The L2 norm of ``a - b``, in f64."""
+    return float((a.double() - b.double()).norm())
+
+
+def check_bf16(name: str, kernel, plain, f64, margin: float, slack: float = 0.0, rel: float = 2e-2) -> dict:
+    """A bf16 build's rule: its output (a tensor or a tuple of them) no
+    further from the plain version evaluated in f64 on the same bf16 inputs
+    than ``margin`` x the bf16 plain version's distance (L2 over the whole
+    output; plus ``slack`` x the f64 output's L2 size), and within ``rel`` of
+    the plain version's largest magnitude, element by element. Returns the
+    measured distances."""
+    flat = lambda ts: torch.cat([t.double().reshape(-1) for t in (ts if isinstance(ts, tuple) else (ts,))])  # noqa: E731
+    k, p, e = flat(kernel), flat(plain), flat(f64)
+    out = {"l2_kernel_f64": l2_err(k, e), "l2_plain_f64": l2_err(p, e), "margin": margin, "slack": slack,
+           "max_abs_err": float((k - p).abs().max()), "rel_tol": rel * float(p.abs().max())}
+    bound = margin * out["l2_plain_f64"] + slack * float(e.norm())
+    ok = within(out["l2_kernel_f64"], bound) and within(out["max_abs_err"], out["rel_tol"])
+    log(f"bf16 {name}: {json.dumps(out)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"bf16 kernel parity failed: {name}: {out}")
+    return out
+
+
 def within(err: float, tol: float) -> bool:
     """``err <= tol`` for a finite error (a NaN error never passes)."""
     return math.isfinite(err) and err <= tol
@@ -275,7 +339,7 @@ def check_graph(name: str, graph, warm_up: dict, want: dict) -> None:
     which include ``want`` exactly (launches a step; 0 = none), and its
     kernel nodes run each kernel as often as those launches say (K3's walk
     and merge each once a launch) and no other hand-written kernel."""
-    names = [k for ks in GRAPH_KERNELS.values() for k in ks]
+    names = list(dict.fromkeys(k for ks in GRAPH_KERNELS.values() for k in ks))
     nodes = graph.kernel_nodes(names)
     GRAPH_NODES[name] = {"nodes": nodes, "launches": graph.launches}
     log(f"graph {name}: {json.dumps(GRAPH_NODES[name])}")
@@ -284,8 +348,11 @@ def check_graph(name: str, graph, warm_up: dict, want: dict) -> None:
     off = {k: graph.launches.get(k, 0) for k, v in want.items() if graph.launches.get(k, 0) != v}
     if off:
         raise SystemExit(f"graph {name}: launches a step {off}, expected {want}")
-    wrong = {node: nodes[node] for launch, ks in GRAPH_KERNELS.items() for node in ks
-             if nodes[node] != graph.launches.get(launch, 0)}
+    want_nodes = dict.fromkeys(names, 0)
+    for launch, ks in GRAPH_KERNELS.items():
+        for node in ks:
+            want_nodes[node] += graph.launches.get(launch, 0)
+    wrong = {node: nodes[node] for node, n in want_nodes.items() if nodes[node] != n}
     if wrong:
         raise SystemExit(f"graph {name}: kernel nodes {wrong}, expected one per launch of {graph.launches}")
 
@@ -362,8 +429,14 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     torch.cuda.synchronize()
     ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
     err = max_err(o, ro)
-    check(f"flash_packed_fwd {name} out", err, tol)
+    if tol is not None:  # None: a bf16 case held by check_bf16 alone
+        check(f"flash_packed_fwd {name} out", err, tol)
     check(f"flash_packed_fwd {name} lse", max_err(lse, rlse), 1e-4)
+    bf16 = None
+    if q.dtype == torch.bfloat16:
+        eo, _ = flash_attention_packed_reference(q.double(), k.double(), v.double(), h, pad_mask=pad, causal=causal)
+        bf16 = check_bf16(f"flash_packed_fwd {name}", o, ro, eo, 1.25)
+        del eo
     ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal),
                  dispatch=f"flash_packed_fwd {name}")
     plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal), 3)
@@ -380,8 +453,10 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     pads = 0 if pad is None else int(pad[0].sum())
     row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} D={d} left_pads={pads} "
                     f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}", path=path,
-               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"flash_packed_fwd {name}"], kv_splits=splits)
+               max_abs_err=err, tol="check_bf16 (1.25x)" if tol is None else tol, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               dispatch_ms=DISPATCH_MS[f"flash_packed_fwd {name}"], kv_splits=splits,
+               dtype=str(q.dtype)[6:], bf16_rule=bf16)
     log(f"time flash_packed_fwd {name}: {json.dumps(row)}")
     return row
 
@@ -405,7 +480,8 @@ def flash_phase(gen: torch.Generator) -> dict:
         if pads:
             pad = torch.zeros(1, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
-        out["cases"].append(flash_fwd_case(name, q, k, v, pad, h, tol, "serve"))
+        out["cases"].append(flash_fwd_case(name, q, k, v, pad, h, tol,
+                                           "serve" + (BF16 if dtype == torch.bfloat16 else "")))
     # 512 latents x 8 heads give 64 q blocks: the prefill fills the card by
     # splitting the kv walk
     if out["cases"][0]["kv_splits"] < 2:
@@ -413,13 +489,17 @@ def flash_phase(gen: torch.Generator) -> dict:
     return out
 
 
-def paged_phase(gen: torch.Generator) -> dict:
+def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dict:
     """K3 at the serve's pool geometries: the CA pool (4 slots of 16384
     tokens in pages of 16), the same with slot 0 retired (length 0, its
     table row all at the scratch page 0: K3 averages its capacity) and a
     latent SA pool (4 slots of 1024), each with the engine's pad/window mask
     and without; then one CA call under ``torch.profiler``, which must show
-    K3's two kernels and nothing else."""
+    K3's two kernels and nothing else. With ``dtype`` bf16, K3's bf16 build
+    over bf16 pools (serve_bf16's), held to its bf16 plain version within
+    1e-2 of its largest magnitude and to no more distance from the f64
+    evaluation than the plain version's (L2, plus 1e-6 of the output's size
+    for the f32 sums' rounding); no profiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -430,9 +510,13 @@ def paged_phase(gen: torch.Generator) -> dict:
         paged_decode_attention,
     )
 
+    from perceiver_io_tpu_torch.core.cache import PagedKVCache
+
     h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
     d = c // h
     slots, page, tol = 4, 16, 1e-5
+    bf16 = dtype == torch.bfloat16
+    suffix, el = (BF16, 2) if bf16 else ("", 4)
     rows, calls = [], []
     # pool: (tokens a slot, lengths, {slot: leading masked tokens}); the CA's
     # left pads in slot 2 and expired window slots in slot 3, the SA's
@@ -446,7 +530,7 @@ def paged_phase(gen: torch.Generator) -> dict:
     for pool, (tokens, lengths, masked) in pools.items():
         pps = tokens // page
         num_pages = slots * pps + 1
-        cache = init_paged_kv_cache(slots, num_pages, page, pps, c, c, device="cuda")
+        cache = init_paged_kv_cache(slots, num_pages, page, pps, c, c, dtype=dtype, device="cuda")
         cache.k.copy_(torch.randn(num_pages, page, c, generator=gen))
         cache.v.copy_(torch.randn(num_pages, page, c, generator=gen))
         # each slot owns a random permutation of disjoint pages
@@ -455,37 +539,50 @@ def paged_phase(gen: torch.Generator) -> dict:
         perm[retired] = 0  # a retired slot's row points at the scratch page
         cache.page_table = perm.to(torch.int32).cuda()
         cache.length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        qh = (torch.randn(slots, h, d, generator=gen) * d**-0.5).cuda()
+        qh = (torch.randn(slots, h, d, generator=gen) * d**-0.5).cuda().to(dtype)
         mask = torch.zeros(slots, cache.capacity, dtype=torch.bool, device="cuda")
         for slot, n in masked.items():
             mask[slot, :n] = True
-        plan = kernel_plan(torch.cuda.current_device(), slots, h, d, d, page)
-        log(f"plan paged_decode {pool}: {json.dumps(plan._asdict())}")
+        plan = kernel_plan(torch.cuda.current_device(), slots, h, d, d, page, dtype)
+        log(f"plan paged_decode{suffix} {pool}: {json.dumps(plan._asdict())}")
         tokens_read = sum(lengths)
         pages_read = sum(-(-n // page) for n in lengths)
         names = {"ca": ("pad_window_mask", "validity_only"),
                  "ca_retired": ("ca_retired_pad_window_mask", "ca_retired_validity_only"),
                  "sa": ("sa_window_mask", "sa_validity_only")}[pool]
         for name, m in zip(names, (mask, None)):
+            name += suffix
             o = paged_decode_attention(qh, cache, m)
             torch.cuda.synchronize()
-            err = max_err(o, paged_attention_reference(qh, cache, m))
-            check(f"paged_decode {name}", err, tol)
+            plain = paged_attention_reference(qh, cache, m)
+            err, rule = max_err(o, plain), None
+            if bf16:
+                c64 = PagedKVCache(cache.k.double(), cache.v.double(), cache.page_table, cache.length)
+                rule = check_bf16(f"paged_decode {name}", o, plain, paged_attention_reference(qh.double(), c64, m),
+                                  1.0, slack=1e-6, rel=1e-2)
+                del c64
+            else:
+                check(f"paged_decode {name}", err, tol)
+            del plain
             ms = time_ms(lambda: paged_decode_attention(qh, cache, m), dispatch=f"paged_decode {name}")
             plain_ms = time_ms(lambda: paged_attention_reference(qh, cache, m), 3)
-            # f32 K/V rows of the valid tokens, q and out, int32 table entries
-            # walked and lengths; under a mask, its bool entries of those
-            # tokens; a retired slot's V rows of its one (scratch) page and
-            # its table row
-            n_bytes = 4 * (2 * tokens_read * c + 2 * slots * c + pages_read + slots) + (
-                tokens_read if m is not None else 0) + 4 * len(retired) * (page * c + pps)
+            # K/V rows of the valid tokens, q and out (el bytes an element),
+            # int32 table entries walked and lengths; under a mask, its bool
+            # entries of those tokens; a retired slot's V rows of its one
+            # (scratch) page and its table row
+            n_bytes = el * (2 * tokens_read * c + 2 * slots * c) + 4 * (pages_read + slots) + (
+                tokens_read if m is not None else 0) + len(retired) * (el * page * c + 4 * pps)
             bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens_read, "f32_cuda_cores")
-            row = dict(case=f"{name} slots={slots} page={page} lengths={lengths}", path="serve", max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                       dispatch_ms=DISPATCH_MS[f"paged_decode {name}"], grid=plan.grid, stages=plan.stages)
+            row = dict(case=f"{name} slots={slots} page={page} lengths={lengths} {str(dtype)[6:]}",
+                       path="serve" + suffix, max_abs_err=err, tol=tol if not bf16 else "check_bf16 (1.0x)",
+                       bf16_rule=rule, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                       bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"paged_decode {name}"], grid=plan.grid,
+                       stages=plan.stages, dtype=str(dtype)[6:])
             log(f"time paged_decode {name}: {json.dumps(row)}")
             rows.append(row)
         calls.append((qh, cache, mask))
+    if bf16:
+        return {"cases": rows}
     # one profiled call at the CA: K3's walk and merge, and no other device op
     qh, cache, mask = calls[0]
     paged_decode_attention(qh, cache, mask)
@@ -524,37 +621,54 @@ def layernorm_phase(gen: torch.Generator) -> dict:
     # rows of one chunk (2 x 7680 kept prefix rows), and the image
     # classifier's latent rows (16 x 512 x 1024) with and without statistics
     c_clm = FLAGSHIP["num_channels"]
-    for name, rows, c, stats, path in (("serving", FLAGSHIP["max_seq_len"], c_clm, False, "serve"),
-                                       ("with_stats", TRAIN_CHUNK * KEEP, c_clm, True, "train"),
-                                       ("image_with_stats", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, True,
-                                        "image_train"),
-                                       ("image_eval", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, False,
-                                        "image_eval")):
+    f32, bf16 = torch.float32, torch.bfloat16
+    for name, rows, c, stats, path, dt in (("serving", FLAGSHIP["max_seq_len"], c_clm, False, "serve", f32),
+                                           ("with_stats", TRAIN_CHUNK * KEEP, c_clm, True, "train", f32),
+                                           ("image_with_stats", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, True,
+                                            "image_train", f32),
+                                           ("image_eval", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, False,
+                                            "image_eval", f32),
+                                           # the bf16 CLM's: bf16 activations, f32 statistics and parameters
+                                           ("serving_bf16", FLAGSHIP["max_seq_len"], c_clm, False, "serve" + BF16,
+                                            bf16),
+                                           ("with_stats_bf16", TRAIN_CHUNK * KEEP, c_clm, True, "train" + BF16,
+                                            bf16)):
         x, w, b = _ln_inputs(gen, rows, c)
+        x = x.to(dt)
+        rule = None
         if stats:
-            got = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
-            want = layer_norm_reference_stats(x, w, b, 1e-5, torch.float32)
+            got = layer_norm_cuda(x, w, b, 1e-5, dt, want_stats=True)
+            want = layer_norm_reference_stats(x, w, b, 1e-5, dt)
             torch.cuda.synchronize()
             err = max(max_err(g, r) for g, r in zip(got, want))
-            run = lambda: layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)  # noqa: E731
-            plain = lambda: layer_norm_reference_stats(x, w, b, 1e-5, torch.float32)  # noqa: E731
+            run = lambda: layer_norm_cuda(x, w, b, 1e-5, dt, want_stats=True)  # noqa: E731
+            plain = lambda: layer_norm_reference_stats(x, w, b, 1e-5, dt)  # noqa: E731
         else:
-            y = layer_norm(x, w, b)
+            got = layer_norm(x, w, b)
             torch.cuda.synchronize()
-            err = max_err(y, layer_norm_reference(x, w, b))
+            want = layer_norm_reference(x, w, b)
+            err = max_err(got, want)
             run = lambda: layer_norm(x, w, b)  # noqa: E731
             plain = lambda: layer_norm_reference(x, w, b)  # noqa: E731
-        check(f"layer_norm_fwd f32 {name} (y, mean, rstd)" if stats else "layer_norm_fwd f32", err, tol)
+        if dt == bf16:
+            f64 = layer_norm_reference_stats(x.double(), w.double(), b.double(), 1e-5, torch.float64)
+            rule = check_bf16(f"layer_norm_fwd {name}", got, want, f64 if stats else f64[0], 1.25)
+            del f64
+        else:
+            check(f"layer_norm_fwd f32 {name} (y, mean, rstd)" if stats else "layer_norm_fwd f32", err, tol)
         ms = time_ms(run, 20, dispatch=f"layer_norm_fwd {name}")
         plain_ms = time_ms(plain, 20)
-        library_ms = time_ms(lambda: torch_layer_norm(x, (c,), w, b, 1e-5), 20,
+        wl, bl = w.to(dt), b.to(dt)
+        library_ms = time_ms(lambda: torch_layer_norm(x, (c,), wl, bl, 1e-5), 20,
                              dispatch=f"F.layer_norm {name}")
-        n_bytes = 4 * (2 * rows * c + 2 * c + (2 * rows if stats else 0))
+        el = x.element_size()
+        n_bytes = 2 * el * rows * c + 4 * 2 * c + (4 * 2 * rows if stats else 0)
         bound_ms, bound_by = bound(n_bytes, 8 * rows * c, "f32_cuda_cores")
-        row = dict(case=f"{name} rows={rows} C={c} f32", path=path, max_abs_err=err,
-                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+        row = dict(case=f"{name} rows={rows} C={c} {str(dt)[6:]}", path=path, max_abs_err=err,
+                   tol=tol if dt == f32 else "check_bf16 (1.25x)", bf16_rule=rule, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                    dispatch_ms=DISPATCH_MS[f"layer_norm_fwd {name}"],
-                   library_dispatch_ms=DISPATCH_MS[f"F.layer_norm {name}"])
+                   library_dispatch_ms=DISPATCH_MS[f"F.layer_norm {name}"], dtype=str(dt)[6:])
         log(f"time layer_norm_fwd {name}: {json.dumps(row)}")
         rows_out.append(row)
     return {"cases": rows_out}
@@ -584,12 +698,17 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     )
 
     lat = FLAGSHIP["max_latents"]
-    clm = (TRAIN_CHUNK, FLAGSHIP["num_heads"], FLAGSHIP["num_channels"], True, "train")
-    cases = {  # name: (nq, nkv, left pads, batch, heads, channels, causal, path)
-        "ca_f32": (lat, KEEP + lat, 0, *clm),
-        "sa_f32": (lat, lat, 0, *clm),
-        "ca_f32_leftpad": (lat, KEEP + lat, 3001, *clm),
-        "image_sa_f32": (IMAGE_LATENTS, IMAGE_LATENTS, 0, IMAGE_BATCH, 8, IMAGE_CHANNELS, False, "image_train"),
+    clm = (TRAIN_CHUNK, FLAGSHIP["num_heads"], FLAGSHIP["num_channels"], True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {  # name: (nq, nkv, left pads, batch, heads, channels, causal, path, dtype)
+        "ca_f32": (lat, KEEP + lat, 0, *clm, "train", f32),
+        "sa_f32": (lat, lat, 0, *clm, "train", f32),
+        "ca_f32_leftpad": (lat, KEEP + lat, 3001, *clm, "train", f32),
+        "image_sa_f32": (IMAGE_LATENTS, IMAGE_LATENTS, 0, IMAGE_BATCH, 8, IMAGE_CHANNELS, False, "image_train", f32),
+        # the bf16 builds at the bf16 CLM step's cross-attention and latent
+        # self-attention, held to the rule of check_bf16 (1.25x)
+        "ca_bf16": (lat, KEEP + lat, 0, *clm, "train" + BF16, bf16),
+        "sa_bf16": (lat, lat, 0, *clm, "train" + BF16, bf16),
     }
     # The kernels are held to the plain version evaluated in f64 on the same
     # f32 inputs, within 1e-5, and to no larger an error than the plain
@@ -605,16 +724,17 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     # kernels and to the f64 evaluation is logged beside each case.
     tol = {"dkv": 1e-5, "dq": 1e-5}
     out = {"dkv": {"cases": []}, "dq": {"cases": []}, "fwd": {"cases": []}}
-    for name, (nq, nkv, pads, b, h, c, causal, path) in cases.items():
+    for name, (nq, nkv, pads, b, h, c, causal, path, dtype) in cases.items():
         d = c // h
-        q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda()
-        k, v = (torch.randn(b, nkv, c, generator=gen).cuda() for _ in range(2))
-        do = torch.randn(b, nq, c, generator=gen).cuda()
+        q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda().to(dtype)
+        k, v = (torch.randn(b, nkv, c, generator=gen).cuda().to(dtype) for _ in range(2))
+        do = torch.randn(b, nq, c, generator=gen).cuda().to(dtype)
         pad = None
         if pads:
             pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
-        out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h, 1e-5, path, causal))
+        out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h,
+                                                  1e-5 if dtype == f32 else None, path, causal))
         o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
         args = (q, k, v, do, lse, bwd_delta(o, do, h), h, bias_row(pad, b, nkv, q.device), causal, 1.0)
         dk, dv = bwd_dkv_cuda(*args)
@@ -627,8 +747,17 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         f32_plain = {"dkv": {"kernel": max(max_err(dk, rdk), max_err(dv, rdv)),
                              "f64": max(max_err64(rdk, edk), max_err64(rdv, edv))},
                      "dq": {"kernel": max_err(dq, rdq), "f64": max_err64(rdq, edq)}}
+        rules = {}
+        if dtype == bf16:
+            # each gradient apart: dK, dV (K4a) and dQ (K4b)
+            rules = {"dkv": [check_bf16(f"flash_packed_bwd_dkv {name} {g}", got, plain, ref, 1.25)
+                             for g, got, plain, ref in (("dk", dk, rdk, edk), ("dv", dv, rdv, edv))],
+                     "dq": [check_bf16(f"flash_packed_bwd_dq {name} dq", dq, rdq, edq, 1.25)]}
+            errs = {"dkv": max(max_err(dk, rdk), max_err(dv, rdv)), "dq": max_err(dq, rdq)}
         del edq, edk, edv
         for kernel, err in errs.items():
+            if dtype == bf16:
+                continue
             log(f"f32 plain flash_packed_bwd_{kernel} {name}: to the kernel {f32_plain[kernel]['kernel']:.3e}, "
                 f"to the f64 evaluation {f32_plain[kernel]['f64']:.3e}")
             check(f"flash_packed_bwd_{kernel} {name} (to the f64 plain version)", err, tol[kernel])
@@ -643,15 +772,18 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         go = do.reshape(b, nq, h, d).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
         pairs = b * h * visible_pairs(nq, nkv, causal)
-        reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h + (b * nkv if pad is not None else 0))
-        bounds = {"dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, "split_tf32"),
-                  "dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, "split_tf32")}
+        el, rate = q.element_size(), "split_tf32" if dtype == f32 else "bf16_tensor"
+        reads = el * (2 * b * nq * c + 2 * b * nkv * c) + 4 * (2 * b * nq * h + (b * nkv if pad is not None else 0))
+        bounds = {"dkv": bound(reads + el * 2 * b * nkv * c, 8 * d * pairs, rate),
+                  "dq": bound(reads + el * b * nq * c, 6 * d * pairs, rate)}
         for kernel in ("dkv", "dq"):
-            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} f32 "
-                            f"{'causal' if causal else 'full'}", path=path, max_abs_err=errs[kernel], tol=tol[kernel],
-                       reference="plain version in f64", f32_plain=f32_plain[kernel], ms=times[kernel], plain_ms=plain_ms,
+            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} {str(dtype)[6:]} "
+                            f"{'causal' if causal else 'full'}", path=path, max_abs_err=errs[kernel],
+                       tol=tol[kernel] if dtype == f32 else "check_bf16 (1.25x)",
+                       reference="plain version in f64" if dtype == f32 else "bf16 plain version",
+                       f32_plain=f32_plain[kernel], bf16_rule=rules.get(kernel), ms=times[kernel], plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
-                       dispatch_ms=DISPATCH_MS[f"flash_packed_bwd_{kernel} {name}"])
+                       dispatch_ms=DISPATCH_MS[f"flash_packed_bwd_{kernel} {name}"], dtype=str(dtype)[6:])
             log(f"time flash_packed_bwd_{kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
     return out["dkv"], out["dq"], out["fwd"]
@@ -665,43 +797,58 @@ def layernorm_bwd_phase(gen: torch.Generator) -> dict:
     yardstick is the backward of ``F.layer_norm``."""
     rows_out = [layernorm_bwd_case(gen, TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"], "train")]
     rows_out.append(layernorm_bwd_case(gen, IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, "image_train"))
+    rows_out.append(layernorm_bwd_case(gen, TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"], "train" + BF16,
+                                       torch.bfloat16))
     return {"cases": rows_out}
 
 
-def layernorm_bwd_case(gen: torch.Generator, rows: int, c: int, path: str) -> dict:
+def layernorm_bwd_case(gen: torch.Generator, rows: int, c: int, path: str, dtype=torch.float32) -> dict:
+    """One K5 case; in bf16 (x and dy bf16, dx bf16, dgamma/dbeta f32) the
+    whole (dx, dgamma, dbeta) held to ``check_bf16`` (1.25x) and dgamma/dbeta
+    to the f32 case's tolerance against the plain sums."""
     from torch.nn.functional import layer_norm as torch_layer_norm
 
     from perceiver_io_tpu_torch.ops.layernorm import layer_norm_bwd_cuda, layer_norm_bwd_reference, layer_norm_cuda
     from perceiver_io_tpu_torch.ops.layernorm_triton import launch_layer_norm_bwd_dwdb, launch_layer_norm_bwd_dx
 
     x, w, b = _ln_inputs(gen, rows, c)
-    dy = torch.randn(rows, c, generator=gen).cuda()
-    _, mean, rstd = layer_norm_cuda(x, w, b, 1e-5, torch.float32, want_stats=True)
+    x = x.to(dtype)
+    dy = torch.randn(rows, c, generator=gen).cuda().to(dtype)
+    _, mean, rstd = layer_norm_cuda(x, w, b, 1e-5, dtype, want_stats=True)
     dx, dw, db = layer_norm_bwd_cuda(x, w, mean, rstd, dy)
     torch.cuda.synchronize()
     rdx, rdw, rdb = layer_norm_bwd_reference(x, w, mean, rstd, dy)
+    rule = None
+    if dtype == torch.bfloat16:
+        f64 = layer_norm_bwd_reference(x.double(), w.double(), mean.double(), rstd.double(), dy.double())
+        rule = check_bf16(f"layer_norm_bwd {path}", (dx, dw, db), (rdx, rdw, rdb), f64, 1.25)
+        del f64
     # about four times the errors measured on the card: dx (values up to ~5,
     # f32 row sums of 512 in another order) 4.8e-7; dgamma/dbeta (sums over
     # 15360 rows, values up to ~400, taken as per-program partials and a
     # second pass) 1.2e-4
     tol, tol_dw_db = 2e-6, 5e-4
     err, err_dw_db = max_err(dx, rdx), max(max_err(dw, rdw), max_err(db, rdb))
-    check("layer_norm_bwd dx", err, tol)
-    check("layer_norm_bwd dgamma/dbeta", err_dw_db, tol_dw_db)
+    if rule is None:
+        check("layer_norm_bwd dx", err, tol)
+    check(f"layer_norm_bwd dgamma/dbeta {path}", err_dw_db, tol_dw_db)
     ms = time_ms(lambda: layer_norm_bwd_cuda(x, w, mean, rstd, dy), 20, dispatch=f"layer_norm_bwd {path}")
     parts = launch_layer_norm_bwd_dx(x, w, mean, rstd, dy, torch.empty_like(x))
     p1_ms = time_ms(lambda: launch_layer_norm_bwd_dx(x, w, mean, rstd, dy, dx), 20)
     p2_ms = time_ms(lambda: launch_layer_norm_bwd_dwdb(*parts, dw, db), 20)
     plain_ms = time_ms(lambda: layer_norm_bwd_reference(x, w, mean, rstd, dy), 20)
-    xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+    xr, wr, br = (t.detach().to(dtype).requires_grad_() for t in (x, w, b))
     ref = torch_layer_norm(xr, (c,), wr, br, 1e-5)
     library_ms = time_ms(lambda: torch.autograd.grad(ref, (xr, wr, br), dy, retain_graph=True), 20)
-    # x and dy read, dx written, the statistics read, gamma read, dgamma/dbeta
-    # written; about 13 operations per element
-    bound_ms, bound_by = bound(4 * (3 * rows * c + 2 * rows + 3 * c), 13 * rows * c, "f32_cuda_cores")
-    row = dict(case=f"rows={rows} C={c} f32", path=path, max_abs_err=err, tol=tol, max_abs_err_dw_db=err_dw_db,
+    # x and dy read, dx written (el bytes an element), the statistics read,
+    # gamma read, dgamma/dbeta written; about 13 operations per element
+    el = x.element_size()
+    bound_ms, bound_by = bound(3 * el * rows * c + 4 * (2 * rows + 3 * c), 13 * rows * c, "f32_cuda_cores")
+    row = dict(case=f"rows={rows} C={c} {str(dtype)[6:]}", path=path, max_abs_err=err,
+               tol=tol if rule is None else "check_bf16 (1.25x)", bf16_rule=rule, max_abs_err_dw_db=err_dw_db,
                tol_dw_db=tol_dw_db, ms=ms, p1_ms=p1_ms, p2_ms=p2_ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"layer_norm_bwd {path}"])
+               bound_ms=bound_ms, bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"layer_norm_bwd {path}"],
+               dtype=str(dtype)[6:])
     log(f"time layer_norm_bwd {path}: {json.dumps(row)}")
     return row
 
@@ -1048,7 +1195,7 @@ class _LogitRecorder:
         return out
 
 
-def serve_engine(model, graphed: bool):
+def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None):
     """The serve's engine. Its decode step is the captured CUDA graph
     (``make_paged_step_fn`` on the card, captured at construction), or,
     with ``graphed=False``, the eager reference: the host's draws, then the
@@ -1064,7 +1211,7 @@ def serve_engine(model, graphed: bool):
     engine = EngineFrontEnd(
         model, num_latents=NUM_LATENTS, base_config=config,
         engine_config=EngineConfig(slots=SERVE_SLOTS, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024),
-        device="cuda",
+        cache_dtype=cache_dtype, device="cuda",
     )
     torch.cuda.synchronize()
     warm_up = {k: n for k, n in build.LAUNCHES.items() if n}
@@ -1109,17 +1256,19 @@ def serve_run(engine, specs, record_lengths: bool = False) -> dict:
             "lengths": lengths}
 
 
-def check_serve(name: str, engine, run: dict) -> None:
+def check_serve(name: str, engine, run: dict, suffix: str = "") -> None:
     """The books, the page allocators and K3's launches (the CA and 8 SA
-    pools, once each a decode step) of one serve."""
+    pools, once each a decode step) of one serve; with ``suffix`` (``BF16``)
+    every kernel launch of the serve's path must be its bf16 build's."""
     launches, steps, n_sa = run["launches"], run["steps"], FLAGSHIP["num_self_attention_layers"]
+    k3 = "paged_decode" + suffix
     log(f"{name} launches: {json.dumps(launches)}")
-    log(f"{name} decode steps={steps}: paged_decode launches ca={steps} sa={n_sa * steps} "
-        f"total={launches['paged_decode']}")
-    if launches["paged_decode"] != (1 + n_sa) * steps:
-        raise SystemExit(f"{name}: paged_decode launched {launches['paged_decode']} times in {steps} decode steps, "
-                         f"not {1 + n_sa} a step")
-    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    log(f"{name} decode steps={steps}: {k3} launches ca={steps} sa={n_sa * steps} total={launches[k3]}")
+    if launches[k3] != (1 + n_sa) * steps:
+        raise SystemExit(f"{name}: {k3} launched {launches[k3]} times in {steps} decode steps, not {1 + n_sa} a step")
+    if suffix and any(launches[k] for k in SERVE_KERNELS):
+        raise SystemExit(f"{name}: f32 builds launched in a bf16 serve: {launches}")
+    missing = [k + suffix for k in SERVE_KERNELS if launches[k + suffix] == 0]
     if missing:
         raise SystemExit(f"{name}: kernels never launched on the serving path: {missing}")
     books = engine.books()
@@ -1131,27 +1280,70 @@ def check_serve(name: str, engine, run: dict) -> None:
         raise SystemExit(f"{name}: page allocators not returned: used={used} problems={problems}")
 
 
-def serve_phase(card: str) -> dict:
-    """The serve through the captured paged step (the main path), then the
-    same requests through the eager step; their streams must be equal token
-    for token, and each equal to the sequential stream up to its first near
-    tie. Returns the main serve's launches."""
-    from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
-    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+def serve_specs() -> list:
+    """The serve's six greedy requests: prompts of 2048-16256 tokens and
+    budgets of 32-64 tokens, from the seed."""
     from perceiver_io_tpu_torch.serving import RequestSpec
 
-    config = CausalLanguageModelConfig(**FLAGSHIP)
-    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: flagship CLM {FLAGSHIP}, {n_params} parameters, f32")
     rng = np.random.default_rng(SEED)
     specs = []
     for i in range(N_REQUESTS):
         n = int(rng.integers(2048, 16257))
         specs.append(RequestSpec(
             index=i, prompt_len=n, max_new_tokens=int(rng.integers(32, 65)),
-            input_ids=rng.integers(0, config.vocab_size, size=(1, n)), rng_seed=int(rng.integers(1 << 30)),
+            input_ids=rng.integers(0, FLAGSHIP["vocab_size"], size=(1, n)), rng_seed=int(rng.integers(1 << 30)),
         ))
+    return specs
+
+
+def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_dtype=torch.float32) -> list:
+    """Each served stream against the sequential ``make_decode_fns`` stream
+    (contiguous caches of ``cache_dtype``), token by token with the
+    sequential logits: equal up to the first step whose top-2 gap is under
+    ``near_tie`` (the paged and contiguous decodes sum in different orders).
+    Returns, per request, how many leading tokens the two share."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
+
+    agreed = []
+    for spec in specs:
+        rec = _LogitRecorder(model)
+        prefill, step = make_decode_fns(rec, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
+                                        cache_dtype, device="cuda")
+        token, state = prefill(spec.input_ids)
+        want = [int(token[0])]
+        for _ in range(spec.max_new_tokens - 1):
+            state, token = step(state)
+            want.append(int(token[0]))
+        got = served[spec.index]
+        logits = torch.stack(rec.logits)
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, FLAGSHIP["vocab_size"]):
+            raise SystemExit(f"{name} request {spec.index}: sequential logits not finite or of the wrong shape")
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        tie = next((t for t, g in enumerate(gaps) if g < near_tie), len(gaps))
+        first_diff = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if len(got) != len(want) or (first_diff is not None and first_diff < tie):
+            raise SystemExit(f"{name} request {spec.index}: engine stream diverges at step {first_diff} before the "
+                             f"first near tie at step {tie}: engine {got} sequential {want}")
+        agreed.append(len(got) if first_diff is None else first_diff)
+        note = "identical" if first_diff is None else f"diverges at step {first_diff}, after the near tie at {tie}"
+        log(f"stream {name} request={spec.index} tokens={len(got)} first_near_tie={tie} "
+            f"min_top2_gap={min(gaps):.3e} {note}")
+    return agreed
+
+
+def serve_phase(card: str) -> dict:
+    """The serve through the captured paged step (the main path), then the
+    same requests through the eager step; their streams must be equal token
+    for token, and each equal to the sequential stream up to its first near
+    tie. Returns the main serve's launches."""
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**FLAGSHIP)
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: flagship CLM {FLAGSHIP}, {n_params} parameters, f32")
+    specs = serve_specs()
     engine, warm_up = serve_engine(model, graphed=True)
     n_sa = FLAGSHIP["num_self_attention_layers"]
     check_graph("serve", engine._step_fn.graph, warm_up, {"paged_decode": 1 + n_sa, "flash_packed_fwd": 0})
@@ -1182,31 +1374,46 @@ def serve_phase(card: str) -> dict:
     TIMES["decode_tok_s"] = {"graph": run["decode_tok_s"], "eager": eager["decode_tok_s"]}
     del eager_engine
 
-    # the sequential reference, token by token with its logits
-    for spec in specs:
-        rec = _LogitRecorder(model)
-        prefill, step = make_decode_fns(rec, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
-                                        device="cuda")
-        token, state = prefill(spec.input_ids)
-        want = [int(token[0])]
-        for _ in range(spec.max_new_tokens - 1):
-            state, token = step(state)
-            want.append(int(token[0]))
-        got = served[spec.index]
-        logits = torch.stack(rec.logits)
-        if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, config.vocab_size):
-            raise SystemExit(f"request {spec.index}: sequential logits not finite or of the wrong shape")
-        top2 = torch.topk(logits, 2, dim=-1).values
-        gaps = (top2[:, 0] - top2[:, 1]).tolist()
-        tie = next((t for t, g in enumerate(gaps) if g < NEAR_TIE), len(gaps))
-        first_diff = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b), None)
-        if len(got) != len(want) or (first_diff is not None and first_diff < tie):
-            raise SystemExit(f"request {spec.index}: engine stream diverges at step {first_diff} before the "
-                             f"first near tie at step {tie}: engine {got} sequential {want}")
-        note = "identical" if first_diff is None else f"diverges at step {first_diff}, after the near tie at {tie}"
-        log(f"stream request={spec.index} tokens={len(got)} min_top2_gap={min(gaps):.3e} {note}")
+    check_streams("serve", model, specs, served, NEAR_TIE)
     for graphed in (True, False):
         profile_phase(model, card, graphed)
+    return run["launches"]
+
+
+def serve_bf16_phase(card: str) -> dict:
+    """serve's configuration with bf16 compute and bf16 page pools (the JAX
+    package's ``dtype=jnp.bfloat16`` with ``cache_dtype=jnp.bfloat16``)
+    through the captured decode step: its graph's nodes, K3's bf16 build 9
+    times a decode step and no f32 build anywhere, TTFT and decode tok/s;
+    every stream equal to the sequential bf16 ``make_decode_fns`` stream
+    (bf16 caches) up to its first top-2 gap under ``NEAR_TIE_BF16``. Returns
+    the serve's launches."""
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    bf16 = torch.bfloat16
+    config = CausalLanguageModelConfig(**FLAGSHIP)
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED), dtype=bf16)
+    log(f"model: flagship CLM {FLAGSHIP}, f32 parameters, bf16 compute, bf16 page pools")
+    specs = serve_specs()
+    engine, warm_up = serve_engine(model, graphed=True, cache_dtype=bf16)
+    if any(pool.k.dtype != bf16 for pool in engine._state["cache"]):
+        raise SystemExit("serve_bf16: the engine's page pools are not bf16")
+    n_sa = FLAGSHIP["num_self_attention_layers"]
+    check_graph("serve_bf16", engine._step_fn.graph, warm_up,
+                {"paged_decode" + BF16: 1 + n_sa, "paged_decode": 0, "flash_packed_fwd" + BF16: 0})
+    run = serve_run(engine, specs)
+    check_serve("serve_bf16", engine, run, BF16)
+    for r in run["records"]:
+        log(f"ttft_bf16 request={r.index} prompt_len={r.prompt_len} ttft_ms={1e3 * r.ttft_s:.3f} card={card}")
+    log(f"serve_bf16: {N_REQUESTS} requests, {run['decoded']} decoded tokens, wall_s={run['wall_s']:.3f}, "
+        f"prefill_s={run['prefill_s']:.3f}, decode_tok_s={run['decode_tok_s']:.1f}, "
+        f"mean_batch_fill={engine.mean_batch_fill:.3f}, decode_steps={run['steps']}, step=graph, card={card}")
+    TIMES["serve_bf16"] = {"decode_tok_s": run["decode_tok_s"], "ttft_ms": [1e3 * r.ttft_s for r in run["records"]],
+                           "k3_graph_nodes": GRAPH_NODES["serve_bf16"]["nodes"]["paged_walk_kernel"]}
+    served = dict(engine.served_tokens)
+    del engine
+    TIMES["serve_bf16"]["tokens_equal_to_sequential"] = check_streams("serve_bf16", model, specs, served,
+                                                                      NEAR_TIE_BF16, bf16)
     return run["launches"]
 
 
@@ -1322,7 +1529,8 @@ def nonzero_launches() -> dict:
     return {k: n for k, n in build.LAUNCHES.items() if n}
 
 
-def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict = None) -> dict:
+def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict = None,
+                dtype: torch.dtype = torch.float32) -> dict:
     """Five steps of the flagship at full width and depth, on the concat route
     or, with ``route="twoseg"``, under ``fast_kernels({"twoseg"})``, from the
     same seed, weights, batch and keep sets (then each loss is held against
@@ -1330,7 +1538,9 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     default) or eagerly. Then the sentinel: one step whose loss is NaN (a
     replay under the graph) must hold parameters, moments, AdamW's steps and
     the count bit for bit; one more finite step; one step under
-    ``torch.profiler``. Returns the five steps' launches, losses, median and
+    ``torch.profiler``. With ``dtype`` bf16 (train_bf16): bf16 compute and
+    bf16 Adam moments (``moment_dtype="bfloat16"``), every kernel launch its
+    bf16 build's. Returns the five steps' launches, losses, median and
     parameters, and the loss of the step after the NaN one."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1339,9 +1549,10 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
-    name = ("train" if route == "concat" else "train_twoseg") + ("" if jit else "_eager")
+    suffix = BF16 if dtype == torch.bfloat16 else ""
+    name = ("train" if route == "concat" else "train_twoseg") + suffix + ("" if jit else "_eager")
     config = CausalLanguageModelConfig(**FLAGSHIP)
-    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED), dtype=dtype)
     n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
     rng = np.random.default_rng(SEED)
     t = torch.from_numpy(rng.integers(0, config.vocab_size, size=(TRAIN_BATCH, n + 1))).cuda()
@@ -1352,12 +1563,15 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
         keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
         return dict(tokens, prefix_keep_idx=keep, poison=poison)
 
-    state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0))
+    state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0,
+                                                          moment_dtype="bfloat16" if suffix else None))
     step = tt.make_train_step(poisonable(tt.clm_loss_fn(lat)), microbatch=TRAIN_MICROBATCH, sentinel=True, jit=jit)
     losses, step_ms, skipped = [], [], []
-    per_step = {k: PER_STEP[route]["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
-    per_step.update({k: PER_STEP[route]["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
+    per_step = {k + suffix: PER_STEP[route]["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
+    per_step.update({k + suffix: PER_STEP[route]["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
     per_step.update({k: PER_STEP[route]["flash_2seg"] for k in TWOSEG_KERNELS})
+    if suffix:  # no f32 build in a bf16 step
+        per_step.update({k: 0 for k in TRAIN_KERNELS})
     with fast_kernels(ROUTE_FEATURES[route]):
         build.reset_launches()
         for i in range(TRAIN_STEPS):
@@ -1392,9 +1606,10 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     summary = profile_summary(prof, wall_ms_)
     log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
     median_ms = statistics.median(step_ms)
-    kernels = TRAIN_KERNELS + (TWOSEG_KERNELS if route == "twoseg" else ())
+    kernels = tuple(k + suffix for k in TRAIN_KERNELS) + (TWOSEG_KERNELS if route == "twoseg" else ())
     report = {
-        "card": card, "step": "graph" if jit else "eager", "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
+        "card": card, "dtype": str(dtype)[6:], "moments": "bfloat16" if suffix else "float32",
+        "step": "graph" if jit else "eager", "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
         "seq_len": n, "latents": lat, "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
         "median_step_ms": median_ms, "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
         "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in kernels}, "sentinel_skipped": skipped,
@@ -1424,15 +1639,17 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
             "kernels_ms": summary["device_busy_ms"]}
 
 
-def train_pair(card: str, route: str = "concat", concat: dict = None) -> dict:
+def train_pair(card: str, route: str = "concat", concat: dict = None, dtype: torch.dtype = torch.float32) -> dict:
     """The train phase as a CUDA graph, then eagerly from the same seed: the
     graph's losses, parameters after five steps and loss after the NaN step
     against the eager run's, within ``GRAPH_RTOL`` relative, the differences
-    printed. Returns both runs by step kind."""
+    printed; in bf16 they must be equal bit for bit. Returns both runs by
+    step kind."""
     runs = {}
+    suffix = BF16 if dtype == torch.bfloat16 else ""
     for jit in (True, False):
         runs["graph" if jit else "eager"] = train_phase(card, route, jit, None if concat is None else
-                                                        concat["graph" if jit else "eager"])
+                                                        concat["graph" if jit else "eager"], dtype)
         free_card()
     g, e = runs["graph"], runs["eager"]
     diffs = {"losses": [rel_diff(a, b) for a, b in zip(g["losses"], e["losses"])],
@@ -1440,15 +1657,18 @@ def train_pair(card: str, route: str = "concat", concat: dict = None) -> dict:
              "loss_after_nan_step": rel_diff(g["next_loss"], e["next_loss"])}
     identical = (g["losses"] == e["losses"] and g["next_loss"] == e["next_loss"]
                  and all(torch.equal(a, b) for a, b in zip(g["params"], e["params"])))
-    log(f"train_{route} graph against eager: " + json.dumps({
+    log(f"train_{route}{suffix} graph against eager: " + json.dumps({
         "card": card, "identical": identical, "rel_diff": diffs, "rtol": GRAPH_RTOL,
         "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
         "busy_share": {k: r["busy_share"] for k, r in runs.items()},
         "profiled_kernels_ms": {k: r["kernels_ms"] for k, r in runs.items()}}))
     if not all(within(d, GRAPH_RTOL) for d in diffs["losses"] + [diffs["params"], diffs["loss_after_nan_step"]]):
-        raise SystemExit(f"train_{route}: the graph's step leaves the eager step's: {diffs}")
-    TIMES[f"train_{route}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
-    TIMES[f"train_{route}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
+        raise SystemExit(f"train_{route}{suffix}: the graph's step leaves the eager step's: {diffs}")
+    if suffix and not identical:
+        raise SystemExit(f"train_{route}{suffix}: the graph's losses and parameters are not the eager step's bit for "
+                         f"bit: {diffs}")
+    TIMES[f"train_{route}{suffix}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
+    TIMES[f"train_{route}{suffix}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
     for r in runs.values():
         del r["params"]
     return runs
@@ -1556,6 +1776,48 @@ def grad_check_phase(card: str, route: str = "concat") -> None:
         raise SystemExit(f"{name} failed: {worst}")
     if not within(update_err, update_tol):
         raise SystemExit(f"{name}: the card's optimizer update differs from the CPU's by {update_err}")
+
+
+def grad_check_bf16_phase(card: str) -> None:
+    """grad_check's model and batch (2048 tokens, 256 latents, 2 layers,
+    full width) in bf16 compute on the card against the CPU: per parameter,
+    the card's bf16 gradient lies no further from the CPU's f32 gradient than
+    1.5x the CPU's bf16 gradient (the plain versions, the same rounding
+    points) does (L2). Both bf16 gradients carry bf16's rounding; the check
+    asks the card's to carry no more than the CPU's evaluation of the same
+    arithmetic."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    config = CausalLanguageModelConfig(**dict(FLAGSHIP, max_seq_len=2048, max_latents=256,
+                                              num_self_attention_layers=2))
+    rng = np.random.default_rng(SEED + 2)
+    t = rng.integers(0, config.vocab_size, size=(2, 2049))
+    batch = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None,
+             "prefix_keep_idx": tt.sample_prefix_keep_idx(rng, 2, 2048 - 256, config.cross_attention_dropout)}
+    weights = CausalLanguageModel(config, device="cpu", generator=torch.Generator().manual_seed(SEED)).state_dict()
+    grads, losses = {}, {}
+    for name, device, dtype in (("cpu_f32", "cpu", torch.float32), ("cpu_bf16", "cpu", torch.bfloat16),
+                                ("card_bf16", "cuda", torch.bfloat16)):
+        model = CausalLanguageModel(config, device=device, dtype=dtype)
+        model.load_state_dict(weights)
+        build.reset_launches()
+        loss, _ = tt.clm_loss_fn(256)(model, batch)
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    launches = {k: build.LAUNCHES[k] for k in ("flash_packed_bwd_dq" + BF16, "flash_packed_bwd_dq", "paged_decode")}
+    if launches != {"flash_packed_bwd_dq" + BF16: 3, "flash_packed_bwd_dq": 0, "paged_decode": 0}:
+        raise SystemExit(f"grad_check_bf16: the card's launches {launches}, expected K4b's bf16 build 3 times")
+    ratios = {n: l2_err(g, grads["cpu_f32"][n]) / max(l2_err(grads["cpu_bf16"][n], grads["cpu_f32"][n]), 1e-30)
+              for n, g in grads["card_bf16"].items()}
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
+    log("grad_check_bf16: " + json.dumps({"card": card, "cpu_threads": torch.get_num_threads(), "losses": losses,
+                                          "max_ratio": worst[0][1], "ratio_tol": 1.5, "worst": worst,
+                                          "n_params": len(ratios)}))
+    if not all(within(r, 1.5) for r in ratios.values()):
+        raise SystemExit(f"grad_check_bf16 failed: {worst}")
 
 
 # ---------------------------------------------------------------------------
@@ -1917,7 +2179,7 @@ def main() -> None:
     # every f32 build of K2, K6 and K8 and in K4a's and K7a's (their dV and
     # dK), f64 DMMA in K4a's, K4b's, K7a's and K7b's (their score products,
     # and K4b's and K7b's dQ) and in K9a's and K9b's (all their products),
-    # bf16 in K2's bf16 builds
+    # bf16 in K2's, K4a's and K4b's bf16 builds
     sass_sources = ("flash_packed", "flash_packed_bwd", "flash_2seg", "flash_2seg_bwd", "flash_heads",
                     "flash_heads_bwd")
     sass = sass_mma_report({name: paths[name] for name in sass_sources})
@@ -1927,6 +2189,8 @@ def main() -> None:
                                          ("flash_packed_bwd", "flash_bwd_dkv_kernel<", "TF32", 3),
                                          ("flash_packed_bwd", "flash_bwd_dkv_kernel<", "DMMA", 3),
                                          ("flash_packed_bwd", "flash_bwd_dq_kernel<", "DMMA", 3),
+                                         ("flash_packed_bwd", "flash_bwd_dkv_bf16_kernel<", "BF16", 3),
+                                         ("flash_packed_bwd", "flash_bwd_dq_bf16_kernel<", "BF16", 3),
                                          ("flash_2seg", "flash_2seg_fwd_kernel<", "TF32", 3),
                                          ("flash_2seg_bwd", "flash_2seg_bwd_dkv_kernel<", "TF32", 3),
                                          ("flash_2seg_bwd", "flash_2seg_bwd_dkv_kernel<", "DMMA", 3),
@@ -1944,21 +2208,41 @@ def main() -> None:
     bwd_source = "perceiver_io_tpu_torch/ops/csrc/flash_packed_bwd.cu"
     ln_source = "perceiver_io_tpu_torch/ops/layernorm_triton.py"
     twoseg_source = "perceiver_io_tpu_torch/ops/csrc/flash_2seg"
+
+    def by_dtype(res: dict, bf16: bool) -> dict:
+        return {"cases": [c for c in res["cases"] if (c.get("dtype") == "bfloat16") == bf16]}
+
     dkv, dq, fwd_train = flash_bwd_phase(gen)
     fwd = flash_phase(gen)
     fwd["cases"] += fwd_train["cases"]
     twoseg = twoseg_phase(gen)
     heads = heads_phase(gen)
     heads_source = "perceiver_io_tpu_torch/ops/csrc/flash_heads"
+    paged = paged_phase(gen)
+    paged_bf16 = paged_phase(gen, torch.bfloat16)
+    ln_fwd, ln_bwd = layernorm_phase(gen), layernorm_bwd_phase(gen)
+    k2_source = "perceiver_io_tpu_torch/ops/csrc/flash_packed.cu"
+    k3_source = "perceiver_io_tpu_torch/ops/csrc/paged_decode.cu"
     results = {
-        "flash_packed_fwd": ("cuda", "perceiver_io_tpu_torch/ops/csrc/flash_packed.cu",
-                             "perceiver_io_tpu/ops/flash_attention.py:606", fwd),
-        "paged_decode": ("cuda", "perceiver_io_tpu_torch/ops/csrc/paged_decode.cu",
-                         "perceiver_io_tpu/ops/paged_attention.py:62", paged_phase(gen)),
-        "layer_norm_fwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:94", layernorm_phase(gen)),
-        "flash_packed_bwd_dkv": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:683", dkv),
-        "flash_packed_bwd_dq": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:741", dq),
-        "layer_norm_bwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:116", layernorm_bwd_phase(gen)),
+        "flash_packed_fwd": ("cuda", k2_source, "perceiver_io_tpu/ops/flash_attention.py:606", by_dtype(fwd, False)),
+        "paged_decode": ("cuda", k3_source, "perceiver_io_tpu/ops/paged_attention.py:62", paged),
+        "layer_norm_fwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:94", by_dtype(ln_fwd, False)),
+        "flash_packed_bwd_dkv": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:683",
+                                 by_dtype(dkv, False)),
+        "flash_packed_bwd_dq": ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:741",
+                                by_dtype(dq, False)),
+        "layer_norm_bwd": ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:116", by_dtype(ln_bwd, False)),
+        # the bf16 builds of the bf16 CLM's path
+        "flash_packed_fwd" + BF16: ("cuda", k2_source, "perceiver_io_tpu/ops/flash_attention.py:606",
+                                    by_dtype(fwd, True)),
+        "paged_decode" + BF16: ("cuda", k3_source, "perceiver_io_tpu/ops/paged_attention.py:62", paged_bf16),
+        "layer_norm_fwd" + BF16: ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:94", by_dtype(ln_fwd, True)),
+        "flash_packed_bwd_dkv" + BF16: ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:683",
+                                        by_dtype(dkv, True)),
+        "flash_packed_bwd_dq" + BF16: ("cuda", bwd_source, "perceiver_io_tpu/ops/flash_attention.py:741",
+                                       by_dtype(dq, True)),
+        "layer_norm_bwd" + BF16: ("triton", ln_source, "perceiver_io_tpu/ops/layernorm.py:116",
+                                  by_dtype(ln_bwd, True)),
         "flash_2seg_fwd": ("cuda", f"{twoseg_source}.cu", "perceiver_io_tpu/ops/flash_attention.py:1107",
                            twoseg["flash_2seg_fwd"]),
         "flash_2seg_bwd_dkv": ("cuda", f"{twoseg_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:1189",
@@ -1982,6 +2266,18 @@ def main() -> None:
     grad_check_phase(card)
     grad_check_phase(card, "twoseg")
     free_card()
+    # the bf16 CLM: serve, train step (graph and eager), gradient check
+    by_phase["serve_bf16"] = serve_bf16_phase(card)
+    free_card()
+    train_bf16 = train_pair(card, dtype=torch.bfloat16)
+    by_phase["train_bf16"] = train_bf16["graph"]["launches"]
+    log("train_bf16 against train (f32), this run: " + json.dumps({"card": card, **{
+        f"{dt} {kind}": {"median_step_ms": run["median_step_ms"],
+                         "train_tokens_per_s": TRAIN_BATCH * FLAGSHIP["max_seq_len"] / (run["median_step_ms"] / 1e3),
+                         "busy_share": run["busy_share"], "losses": run["losses"]}
+        for dt, pair in (("f32", train), ("bf16", train_bf16)) for kind, run in pair.items()}}))
+    grad_check_bf16_phase(card)
+    free_card()
     by_phase["image_eval"] = image_eval_phase(card)
     free_card()
     by_phase["image_train"] = image_train_pair(card)
@@ -1996,12 +2292,12 @@ def main() -> None:
         # the serve for the paged decode, the image classifier's train step
         # for K8/K9a/K9b; its error, times and bound from the first case at
         # that path's shapes
-        phase = ("train" if name in TRAIN_KERNELS else "train_twoseg" if name in TWOSEG_KERNELS
-                 else "image_train" if name in HEADS_KERNELS else "serve")
+        phase = BF16_PHASE.get(name) or ("train" if name in TRAIN_KERNELS else "train_twoseg" if name in TWOSEG_KERNELS
+                                         else "image_train" if name in HEADS_KERNELS else "serve")
         main_case = next(c for c in res["cases"] if c["path"] == phase)
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces, launches=by_phase[phase][name],
-            launches_phase=phase, launches_by_phase={p: counts[name] for p, counts in by_phase.items()},
+            launches_phase=phase, launches_by_phase={p: counts.get(name, 0) for p, counts in by_phase.items()},
             max_abs_err=max(c["max_abs_err"] for c in res["cases"] if c["tol"] == main_case["tol"]),
             tol=main_case["tol"], ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

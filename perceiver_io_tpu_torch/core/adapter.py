@@ -83,11 +83,20 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
     a table slice (positions past the table repeat its last row); otherwise
     they are looked up, right-aligned to ``x`` and clipped to the table. The
     frequency encoding follows the full, unclipped ``abs_pos``.
+
+    ``dtype``: the compute dtype (Flax's ``nn.Embed(dtype=...)``). The f32
+    rows are looked up, then cast, and the token and position rows added in
+    ``dtype``: the forward of JAX's cast-then-look-up, since a cast commutes
+    with a row gather. The tables' gradients sum in f32
+    (:func:`lookup`), where JAX's one-hot contraction sums them in its
+    bf16 matrix product.
     """
 
     def __init__(self, vocab_size: int, max_seq_len: int, num_input_channels: int,
-                 abs_pos_emb: bool = True, rotated_channels_per_head: int = 0):
+                 abs_pos_emb: bool = True, rotated_channels_per_head: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
         self.num_input_channels = num_input_channels
@@ -106,15 +115,16 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
         return pos_emb
 
     def embed(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        tok = lookup(self.txt_embedding, x)
+        dt = self.dtype
+        tok = lookup(self.txt_embedding, x).to(dt)
         if not self.abs_pos_emb:
             return tok
         if abs_pos is None:
-            return tok + self._pos_slice(x.shape[1])[None]
+            return tok + self._pos_slice(x.shape[1])[None].to(dt)
         if x.shape[1] < abs_pos.shape[1]:
             abs_pos = abs_pos[:, -x.shape[1]:]
         abs_pos = torch.clamp(abs_pos, 0, self.max_seq_len - 1)
-        return tok + lookup(self.pos_embedding, abs_pos)
+        return tok + lookup(self.pos_embedding, abs_pos).to(dt)
 
     def forward(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         embedded = self.embed(x, abs_pos)
@@ -134,18 +144,19 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
         frequency encoding at those absolute positions."""
         b, n = x.shape
         ids = torch.cat([torch.gather(x[:, :prefix_len], 1, keep_idx), x[:, prefix_len:]], dim=1)
-        emb = lookup(self.txt_embedding, ids)
+        emb = lookup(self.txt_embedding, ids).to(self.dtype)
         if self.abs_pos_emb:
             pos = self._pos_slice(n)
             pos_latent = pos[prefix_len:][None].expand(b, n - prefix_len, pos.shape[1])
-            emb = emb + torch.cat([pos[:prefix_len][keep_idx], pos_latent], dim=1)
+            emb = emb + torch.cat([pos[:prefix_len][keep_idx], pos_latent], dim=1).to(self.dtype)
         latent_pos = torch.arange(prefix_len, n, device=x.device)[None].expand(b, n - prefix_len)
         abs_pos = torch.cat([keep_idx, latent_pos], dim=1)
         return emb, frequency_position_encoding(abs_pos, self.rotated_channels_per_head)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits against the tied token embedding (``x @ E^T``)."""
-        return x @ self.txt_embedding.weight.t()
+        """Logits against the tied token embedding (``x @ E^T``), in the
+        compute dtype (Flax's ``Embed.attend``)."""
+        return x.to(self.dtype) @ self.txt_embedding.weight.to(self.dtype).t()
 
 
 class TiedTokenOutputAdapter(nn.Module):

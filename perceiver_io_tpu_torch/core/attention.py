@@ -22,12 +22,17 @@ Routes, each numerically the JAX package's:
   right-aligned causal mask;
 - paged cache (the engine's batched one-token step): page-indexed append,
   then, by the pools' geometry, the paged decode kernel K3
-  (``ops.paged_attention``: f32 pools, head dims up to 128) or, where the
-  JAX package gathers too (or on the CPU), the gather route (the contiguous
-  view of every slot's pages, then the dense path).
+  (``ops.paged_attention``: f32 or bf16 pools, head dims up to 128) or,
+  where the JAX package gathers too (or on the CPU), the gather route (the
+  contiguous view of every slot's pages, then the dense path).
 
 Keys are rotated once at write (rotate-at-write); ``rope_k`` covers only the
 tokens being appended. Queries are scaled by ``Dqk**-0.5`` before rotation.
+
+``dtype`` is the compute dtype, Flax's ``nn.Dense(dtype=...)``: the
+parameters stay f32 and each projection casts its input and weights to
+``dtype`` (:func:`dense`), so in bf16 the projections, the attention
+operands and the output are bf16, the scores and softmax f32.
 """
 
 from __future__ import annotations
@@ -55,6 +60,18 @@ from perceiver_io_tpu_torch.ops.paged_attention import (
 _NEG_MAX = -torch.finfo(torch.float32).max
 
 
+def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``linear`` applied in the compute dtype, as Flax's ``nn.Dense(dtype=
+    dtype)`` applies its f32 parameters: input, weight and bias cast to
+    ``dtype``, the product (f32 sums on the tensor cores) in ``dtype``. Where
+    all three are ``dtype`` already (the f32 default), ``linear(x)`` as it
+    is."""
+    if x.dtype == dtype and linear.weight.dtype == dtype:
+        return linear(x)
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
+
+
 class AttentionOutput(NamedTuple):
     last_hidden_state: torch.Tensor
     kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
@@ -75,8 +92,10 @@ class MultiHeadAttention(nn.Module):
         causal_attention: bool = False,
         qkv_bias: bool = True,
         out_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         self.num_heads = num_heads
         self.qk_channels = num_qk_channels if num_qk_channels is not None else num_q_input_channels
         self.v_channels = num_v_channels if num_v_channels is not None else self.qk_channels
@@ -90,6 +109,9 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = nn.Linear(num_kv_input_channels, self.qk_channels, bias=qkv_bias)
         self.v_proj = nn.Linear(num_kv_input_channels, self.v_channels, bias=qkv_bias)
         self.o_proj = nn.Linear(self.v_channels, out_channels, bias=out_bias)
+
+    def _proj(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return dense(linear, x, self.dtype)
 
     @property
     def d_qk(self) -> int:
@@ -138,16 +160,16 @@ class MultiHeadAttention(nn.Module):
         (projections are row-wise), each key segment rotates with its own
         encodings, and ``flash_attention_packed_2seg`` reads the two K/V
         pairs where they lie. No KV cache on this route."""
-        q = self.q_proj(x_q)
-        k_l = self._rotate_keys(self.k_proj(x_q), rope_k_latent)
-        v_l = self.v_proj(x_q)
-        k_p = self._rotate_keys(self.k_proj(x_kv_prefix), rope_k_prefix)
-        v_p = self.v_proj(x_kv_prefix)
+        q = self._proj(self.q_proj, x_q)
+        k_l = self._rotate_keys(self._proj(self.k_proj, x_q), rope_k_latent)
+        v_l = self._proj(self.v_proj, x_q)
+        k_p = self._rotate_keys(self._proj(self.k_proj, x_kv_prefix), rope_k_prefix)
+        v_p = self._proj(self.v_proj, x_kv_prefix)
         o = flash_attention_packed_2seg(
             self._scaled_rotated_queries(q, rope_q), k_p, v_p, k_l, v_l, num_heads=self.num_heads,
             pad_mask_prefix=pad_mask_prefix, pad_mask_latent=pad_mask_latent, sm_scale=1.0,
         )
-        return AttentionOutput(self.o_proj(o), None)
+        return AttentionOutput(self._proj(self.o_proj, o), None)
 
     def _split_heads(self, x: torch.Tensor, d: int) -> torch.Tensor:
         b, n = x.shape[0], x.shape[1]
@@ -162,20 +184,20 @@ class MultiHeadAttention(nn.Module):
     def project_q(self, x_q: torch.Tensor, rope_q: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Queries as scaled (and rotated) heads (B, H, N, Dk): the query
         pipeline of ``forward``, for callers that attend themselves."""
-        return self._scaled_query_heads(self.q_proj(x_q), rope_q)
+        return self._scaled_query_heads(self._proj(self.q_proj, x_q), rope_q)
 
     def project_kv(self, x_kv: torch.Tensor, rope_k: Optional[torch.Tensor] = None):
         """Keys (rotated) and values as heads, ((B, H, M, Dk), (B, H, M, Dv)):
         the cache-free key/value pipeline of ``forward``."""
-        k = self._split_heads(self.k_proj(x_kv), self.d_qk)
+        k = self._split_heads(self._proj(self.k_proj, x_kv), self.d_qk)
         if rope_k is not None:
             k = apply_rotary_pos_emb(k, rope_k[:, None, :, :])
-        return k, self._split_heads(self.v_proj(x_kv), self.d_v)
+        return k, self._split_heads(self._proj(self.v_proj, x_kv), self.d_v)
 
     def merge_output(self, o: torch.Tensor) -> torch.Tensor:
         """Head merge + output projection: (B, H, N, Dv) -> (B, N, out)."""
         b, _, n, _ = o.shape
-        return self.o_proj(o.transpose(1, 2).reshape(b, n, self.v_channels))
+        return self._proj(self.o_proj, o.transpose(1, 2).reshape(b, n, self.v_channels))
 
     def _fresh_flash(self, q, k, v, rope_q, pad_mask) -> Optional[torch.Tensor]:
         """Attention over fresh packed keys/values (B, M, H*D), keys rotated,
@@ -207,12 +229,14 @@ class MultiHeadAttention(nn.Module):
     def _paged_decode_attend(self, q, cache: PagedKVCache, pad_mask, rope_q) -> AttentionOutput:
         """One query per slot over the paged pools. The route is chosen by
         the pools' geometry before anything launches: K3 where
-        ``paged_kernel_supported`` holds, else the gather route (one gather
-        per pool rebuilds the contiguous view, then the dense decode
-        attention of the contiguous cache) where the JAX package's own
-        kernel refuses the geometry and it gathers too, or where the pools
-        lie on the CPU. A pool on the card that the JAX package's kernel
-        serves and K3 does not (a bf16 pool, heads wider than 128) raises."""
+        ``paged_kernel_supported`` holds (f32 or bf16 pools, heads up to
+        128), else the gather route (one gather per pool rebuilds the
+        contiguous view, then the dense decode attention of the contiguous
+        cache) where the JAX package's own kernel refuses the geometry and it
+        gathers too, or where the pools lie on the CPU. A pool on the card
+        that the JAX package's kernel serves and K3 does not (heads wider
+        than 128) raises. bf16 queries over f32 pools go to K3 as f32, which
+        they are exactly (JAX's product promotes them the same way)."""
         b, h = q.shape[0], self.num_heads
         if not paged_kernel_supported(cache, h, self.d_qk, self.d_v):
             if cache.k.device.type != "cpu" and reference_kernel_geometry(cache, h, self.d_qk, self.d_v):
@@ -223,12 +247,14 @@ class MultiHeadAttention(nn.Module):
             if pad_mask is not None:
                 masked = masked | pad_mask[:, : cache.capacity]
             o = self._dense(q, k_slots, v_slots, rope_q, masked[:, None, :])
-            return AttentionOutput(self.o_proj(o), cache)
+            return AttentionOutput(self._proj(self.o_proj, o), cache)
         qh = self._scaled_query_heads(q, rope_q)[:, :, 0, :]  # (B, H, Dk)
+        if qh.dtype == torch.bfloat16 and cache.k.dtype == torch.float32:
+            qh = qh.float()
         # slot validity (j >= length) is applied by the paged attention itself
         mask = None if pad_mask is None else pad_mask[:, : cache.capacity]
         o = paged_decode_attention(qh, cache, mask)  # (B, H, Dv)
-        return AttentionOutput(self.o_proj(o.reshape(b, 1, self.v_channels).to(q.dtype)), cache)
+        return AttentionOutput(self._proj(self.o_proj, o.reshape(b, 1, self.v_channels).to(q.dtype)), cache)
 
     def forward(
         self,
@@ -248,9 +274,9 @@ class MultiHeadAttention(nn.Module):
         :param kv_cache: the cache the new keys/values are appended to.
         """
         n_q, n_kv = x_q.shape[1], x_kv.shape[1]
-        q = self.q_proj(x_q)
-        k = self._rotate_keys(self.k_proj(x_kv), rope_k)
-        v = self.v_proj(x_kv)
+        q = self._proj(self.q_proj, x_q)
+        k = self._rotate_keys(self._proj(self.k_proj, x_kv), rope_k)
+        v = self._proj(self.v_proj, x_kv)
 
         if kv_cache is None:
             o = self._fresh_flash(q, k, v, rope_q, pad_mask)
@@ -261,7 +287,7 @@ class MultiHeadAttention(nn.Module):
                 if self.causal_attention:
                     masked = masked | self._causal(n_q, n_kv, n_kv, q.device)
                 o = self._dense(q, k, v, rope_q, masked)
-            return AttentionOutput(self.o_proj(o), None)
+            return AttentionOutput(self._proj(self.o_proj, o), None)
 
         if isinstance(kv_cache, PagedKVCache):
             if n_q != 1:
@@ -277,7 +303,7 @@ class MultiHeadAttention(nn.Module):
             fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]
             o = self._fresh_flash(q, k, v, rope_q, fresh_pad)
             if o is not None:
-                return AttentionOutput(self.o_proj(o), new_cache)
+                return AttentionOutput(self._proj(self.o_proj, o), new_cache)
 
         eff_len, cap = new_cache.length, new_cache.capacity
         kv_idx = torch.arange(cap, device=q.device)
@@ -287,7 +313,7 @@ class MultiHeadAttention(nn.Module):
         if self.causal_attention:
             masked = masked | self._causal(n_q, cap, eff_len, q.device)
         o = self._dense(q, new_cache.k, new_cache.v, rope_q, masked)
-        return AttentionOutput(self.o_proj(o), new_cache)
+        return AttentionOutput(self._proj(self.o_proj, o), new_cache)
 
     @staticmethod
     def _causal(n_q: int, n_kv: int, eff_len: int, device) -> torch.Tensor:

@@ -29,6 +29,15 @@ operands, and neither ``[kv_norm(prefix); q_norm(latents)]`` nor its
 projections, rotary rows or pad flags are ever joined. Calls with a KV cache,
 and an empty prefix, keep the concat route.
 
+``dtype`` is the compute dtype of the Perceiver AR modules (Flax's module
+``dtype``; ``CausalSequenceModel(config, dtype=torch.bfloat16)`` is the JAX
+package's ``CausalLanguageModel(config, dtype=jnp.bfloat16)``): parameters
+stay f32; projections, MLPs and the tied logits compute in ``dtype``
+(:func:`core.attention.dense`), the embeddings are cast to it after the
+lookup, the residual stream stays in it, LayerNorm keeps f32 statistics and
+writes ``dtype``, RoPE rotates in f32 and casts back, and attention scores
+and softmax are f32. The f32 default is the f32 path as it was.
+
 The Perceiver IO encoder's cross-attention takes the fused split-kv route
 whenever its gate allows (an input adapter that splits, no pad mask, one
 head, no dropout or checkpointing, head dims the heads-major kernels take):
@@ -50,7 +59,7 @@ from perceiver_io_tpu_torch.core.adapter import (
     TokenInputAdapterWithRotarySupport,
     TrainableQueryProvider,
 )
-from perceiver_io_tpu_torch.core.attention import AttentionOutput, MultiHeadAttention
+from perceiver_io_tpu_torch.core.attention import AttentionOutput, MultiHeadAttention, dense
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache, init_kv_cache, init_paged_kv_cache
 from perceiver_io_tpu_torch.core.config import CausalSequenceModelConfig
 from perceiver_io_tpu_torch.core.position import positions
@@ -109,13 +118,14 @@ class CrossAttention(nn.Module):
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  causal_attention: bool = False, qkv_bias: bool = True, out_bias: bool = True,
-                 num_qk_channels: Optional[int] = None, num_v_channels: Optional[int] = None):
+                 num_qk_channels: Optional[int] = None, num_v_channels: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.q_norm = FusedLayerNorm(num_q_input_channels, LAYER_NORM_EPSILON)
         self.kv_norm = FusedLayerNorm(num_kv_input_channels, LAYER_NORM_EPSILON)
         self.attention = MultiHeadAttention(
             num_heads, num_q_input_channels, num_kv_input_channels, num_qk_channels, num_v_channels,
-            causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias,
+            causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype,
         )
 
     def split_kv_projection(self, x_pix: torch.Tensor, enc: torch.Tensor):
@@ -187,12 +197,12 @@ class SelfAttention(nn.Module):
 
     def __init__(self, num_heads: int, num_channels: int, causal_attention: bool = False,
                  qkv_bias: bool = True, out_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None):
+                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = FusedLayerNorm(num_channels, LAYER_NORM_EPSILON)
         self.attention = MultiHeadAttention(
             num_heads, num_channels, num_channels, num_qk_channels, num_v_channels,
-            causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias,
+            causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype,
         )
 
     def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache=None) -> AttentionOutput:
@@ -201,15 +211,22 @@ class SelfAttention(nn.Module):
 
 
 class MLP(nn.Sequential):
-    """LayerNorm -> Linear(widening * C) -> GELU (exact) -> Linear(C)."""
+    """LayerNorm -> Linear(widening * C) -> GELU (exact) -> Linear(C), the
+    Linears in the compute ``dtype``."""
 
-    def __init__(self, num_channels: int, widening_factor: int, bias: bool = True):
+    def __init__(self, num_channels: int, widening_factor: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(
             FusedLayerNorm(num_channels, LAYER_NORM_EPSILON),
             nn.Linear(num_channels, widening_factor * num_channels, bias=bias),
             nn.GELU(),
             nn.Linear(widening_factor * num_channels, num_channels, bias=bias),
         )
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = dense(self[1], self[0](x), self.dtype)
+        return dense(self[3], self[2](x), self.dtype)
 
 
 class CrossAttentionLayer(nn.Sequential):
@@ -221,12 +238,13 @@ class CrossAttentionLayer(nn.Sequential):
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  causal_attention: bool = False, widening_factor: int = 1, qkv_bias: bool = True,
                  out_bias: bool = True, mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None, attention_residual: bool = True):
+                 num_v_channels: Optional[int] = None, attention_residual: bool = True,
+                 dtype: torch.dtype = torch.float32):
         cross_attn = CrossAttention(num_heads, num_q_input_channels, num_kv_input_channels, causal_attention,
-                                    qkv_bias, out_bias, num_qk_channels, num_v_channels)
+                                    qkv_bias, out_bias, num_qk_channels, num_v_channels, dtype)
         super().__init__(
             Residual(cross_attn) if attention_residual else cross_attn,
-            Residual(MLP(num_q_input_channels, widening_factor, mlp_bias)),
+            Residual(MLP(num_q_input_channels, widening_factor, mlp_bias, dtype)),
         )
         self.attention_residual = attention_residual
 
@@ -267,11 +285,11 @@ class SelfAttentionLayer(nn.Sequential):
     def __init__(self, num_heads: int, num_channels: int, causal_attention: bool = False,
                  widening_factor: int = 1, qkv_bias: bool = True, out_bias: bool = True,
                  mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None):
+                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
         super().__init__(
             Residual(SelfAttention(num_heads, num_channels, causal_attention, qkv_bias, out_bias, num_qk_channels,
-                                   num_v_channels)),
-            Residual(MLP(num_channels, widening_factor, mlp_bias)),
+                                   num_v_channels, dtype)),
+            Residual(MLP(num_channels, widening_factor, mlp_bias, dtype)),
         )
 
     def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache=None) -> AttentionOutput:
@@ -288,10 +306,10 @@ class SelfAttentionBlock(nn.Sequential):
     def __init__(self, num_layers: int, num_heads: int, num_channels: int, num_rotary_layers: int = 1,
                  causal_attention: bool = False, widening_factor: int = 1, qkv_bias: bool = True,
                  out_bias: bool = True, mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None):
+                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
         super().__init__(*[
             SelfAttentionLayer(num_heads, num_channels, causal_attention, widening_factor,
-                               qkv_bias, out_bias, mlp_bias, num_qk_channels, num_v_channels)
+                               qkv_bias, out_bias, mlp_bias, num_qk_channels, num_v_channels, dtype)
             for _ in range(num_layers)
         ])
         self.num_rotary_layers = num_rotary_layers
@@ -488,7 +506,8 @@ class PerceiverAR(nn.Module):
                  self_attention_widening_factor: int = 4, cross_attention_widening_factor: int = 4,
                  cross_attention_dropout: float = 0.5, prefix_dropout_mode: str = "gather",
                  post_attention_dropout: float = 0.0, residual_dropout: float = 0.0,
-                 activation_checkpointing: bool = False, activation_offloading: bool = False):
+                 activation_checkpointing: bool = False, activation_offloading: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if prefix_dropout_mode not in ("gather", "gather_embed", "mask"):
             raise ValueError(f"unknown prefix_dropout_mode: {prefix_dropout_mode!r}")
@@ -503,14 +522,15 @@ class PerceiverAR(nn.Module):
             "activation_offloading": activation_offloading,
         }
         self.input_adapter = input_adapter
+        self.dtype = dtype
         self.cross_attention = CrossAttentionLayer(
             num_heads, c, c, causal_attention=True, widening_factor=cross_attention_widening_factor,
-            qkv_bias=False, out_bias=True, mlp_bias=False,
+            qkv_bias=False, out_bias=True, mlp_bias=False, dtype=dtype,
         )
         self.self_attention = SelfAttentionBlock(
             num_self_attention_layers, num_heads, c, num_rotary_layers=num_self_attention_rotary_layers,
             causal_attention=True, widening_factor=self_attention_widening_factor,
-            qkv_bias=False, out_bias=False, mlp_bias=False,
+            qkv_bias=False, out_bias=False, mlp_bias=False, dtype=dtype,
         )
 
     def perceiver_ar(self, x, prefix_len: int, pad_mask=None, kv_cache=None, decode: bool = False,
@@ -622,17 +642,20 @@ class CausalSequenceModel(PerceiverAR):
         unit LayerNorms); a generator seeded 0 when None, so construction is
         deterministic. Weights are drawn on the CPU and then moved, so one
         seed gives the same model on every device.
+    :param dtype: the compute dtype (``torch.bfloat16`` is the JAX package's
+        ``dtype=jnp.bfloat16``; see the module docstring); the parameters are
+        f32 either way.
     """
 
     def __init__(self, config: CausalSequenceModelConfig, *, device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         dev = resolve_device(device)
         rotated = config.num_channels // config.num_heads
         if config.abs_pos_emb:
             rotated //= 2  # rotary embedding on the first half of each head's channels
         adapter = TokenInputAdapterWithRotarySupport(
             config.vocab_size, config.max_seq_len, config.num_channels,
-            abs_pos_emb=config.abs_pos_emb, rotated_channels_per_head=rotated,
+            abs_pos_emb=config.abs_pos_emb, rotated_channels_per_head=rotated, dtype=dtype,
         )
         super().__init__(
             adapter, num_heads=config.num_heads,
@@ -645,7 +668,7 @@ class CausalSequenceModel(PerceiverAR):
             post_attention_dropout=config.post_attention_dropout,
             residual_dropout=config.residual_dropout,
             activation_checkpointing=config.activation_checkpointing,
-            activation_offloading=config.activation_offloading,
+            activation_offloading=config.activation_offloading, dtype=dtype,
         )
         self.config = config
         if config.output_norm:

@@ -192,7 +192,9 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
       (seeded 0 when None).
     - ``step(state) -> (state, token)``: one decode step.
 
-    The model must live on ``device``; asking for CUDA without a card raises.
+    ``cache_dtype`` is the contiguous caches' dtype (f32 by default, as in
+    the JAX package, whatever the model's compute dtype). The model must
+    live on ``device``; asking for CUDA without a card raises.
     """
     config = config or GenerationConfig()
     if config.max_new_tokens < 1:

@@ -43,9 +43,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # cudaError_t
 LAUNCHERS = {
     "flash_packed_fwd": ("flash_packed", "pio_flash_packed_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
-    "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _P]),
-    "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _P]),
-    "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 6 + [_L, _P, _P] + [_I] * 12 + [_P]),
+    "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+    "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 6 + [_L, _P, _P] + [_I] * 13 + [_P]),
     "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
     "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _P]),
     "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _P]),
@@ -54,7 +54,7 @@ LAUNCHERS = {
     "flash_heads_bwd_dq": ("flash_heads_bwd", "pio_flash_heads_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     # not kernels: K8's and K9b's CTA slots an SM at given head dims (their
     # split rules), K3's launch plan for a geometry
-    "paged_decode_plan": ("paged_decode", "pio_paged_decode_plan", [_I] * 6 + [_P]),
+    "paged_decode_plan": ("paged_decode", "pio_paged_decode_plan", [_I] * 7 + [_P]),
     "flash_heads_fwd_slots": ("flash_heads", "pio_flash_heads_fwd_slots", [_I, _I]),
     "flash_heads_bwd_dq_slots": ("flash_heads_bwd", "pio_flash_heads_bwd_dq_slots", [_I, _I]),
 }
@@ -69,12 +69,18 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+# the kernels whose bf16 builds count apart, under the name + BF16_SUFFIX
+BF16_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq",
+                "layer_norm_bwd")
+BF16_SUFFIX = "_bf16"
+
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "flash_packed_fwd": 0, "paged_decode": 0, "layer_norm_fwd": 0,
     "flash_packed_bwd_dkv": 0, "flash_packed_bwd_dq": 0, "layer_norm_bwd": 0,
     "flash_2seg_fwd": 0, "flash_2seg_bwd_dkv": 0, "flash_2seg_bwd_dq": 0,
     "flash_heads_fwd": 0, "flash_heads_bwd_dkv": 0, "flash_heads_bwd_dq": 0,
+    **{name + BF16_SUFFIX: 0 for name in BF16_KERNELS},
 }
 
 # source name -> the compiler's output of the build of its library (kept
@@ -91,7 +97,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, dtype=None) -> None:
+    """One launch of ``name``; a launch of its bf16 build (``dtype``
+    ``torch.bfloat16``) counts under ``name + BF16_SUFFIX``."""
+    if dtype is not None and str(dtype) == "torch.bfloat16":
+        name += BF16_SUFFIX
     LAUNCHES[name] += 1
 
 

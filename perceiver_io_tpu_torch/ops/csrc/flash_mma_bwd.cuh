@@ -581,5 +581,358 @@ __device__ __forceinline__ void dkv_walk(const float* __restrict__ q, const floa
   store_rows<DMAX>(dvo, row_v, jw, seg.n, dv, acc_v);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: the kernel bodies of K4a / K4b's bf16 build
+// ---------------------------------------------------------------------------
+//
+// The JAX package's bf16 backward (perceiver_io_tpu/ops/flash_attention.py
+// _dkv_packed_kernel, _dq_packed_kernel on bf16 operands): every product
+// takes bf16 operands and sums in f32, which m16n8k16 bf16 mma.sync does
+// exactly (the products of bf16 values are exact in f32). p is recomputed in
+// f32 from the score product and the f32 logsumexp, and rounded to bf16 (to
+// nearest) before dV += P^T dO; dS = p (dP - delta) sm_scale in f32, rounded
+// to bf16 before dK += dS^T Q and dQ += dS K, where the JAX kernels round
+// them. No f64 and no split: the f32 build's accuracy has no bf16 form to
+// keep, and bf16 rounding of p and dS sets the gradients' error.
+//
+// Fragments, all by ldmatrix from shared memory (bf16 rows of pitch
+// LD = DMAX + 8 elements, an odd number of 16-byte units, so the eight rows
+// of each 8x8 matrix fall on distinct banks): the A operand (the warp's 16
+// rows of the block's own operand) and the B operand of a score product
+// (rows of a walked tile, channels along k) by ldmatrix.x4, the B operand of
+// a gradient product (rows of a walked tile along k, channels along n) by
+// ldmatrix.x4.trans; one tile serves both reads, so no swizzle is needed.
+// The C fragment of n-tiles 2kk and 2kk + 1 of a score tile is, pair for
+// pair, the A fragment of k-step kk of the gradient product that follows it.
+// Each walked tile's gradient product sums into a fresh accumulator that an
+// f32 add joins to dQ, dK or dV (the tensor core rounds a chained sum toward
+// zero; see flash_mma.cuh).
+//
+// Tiles: 4 warps, a CTA owns 64 rows (16 a warp), walked tiles of 64 rows
+// up to head dim 64 and 32 at 128, double-buffered by cp.async (rows past
+// the sequence and channels from d to d rounded up to 16 zero-filled).
+
+using bf16 = __nv_bfloat16;
+using mma::ldmatrix_x4_trans;
+using mma::mma_bf16;
+
+template <int DMAX_>
+struct B16 {
+  static constexpr int DMAX = DMAX_;
+  static constexpr int NW = 4;
+  static constexpr int NT = 32 * NW;
+  static constexpr int BM = 16 * NW;                // rows a CTA owns
+  static constexpr int BN = DMAX <= 64 ? 64 : 32;   // rows a walked tile
+  static constexpr int NS = BN / 8;                 // score n-tiles
+  static constexpr int LD = DMAX + 8;               // row pitch, in elements
+  static constexpr int A = BM * LD;                 // the CTA's operand
+  static constexpr int B = BN * LD;                 // one walked buffer
+  // two own operands, two double-buffered walked operands, and four f32 rows
+  // of BN (bias rows in K4b; lse and delta rows in K4a)
+  static constexpr size_t BYTES = (2 * A + 4 * B) * sizeof(bf16) + 4 * BN * sizeof(float);
+  static constexpr int MIN_BLOCKS = DMAX <= 64 ? 2 : 1;
+};
+
+// four 8x8 b16 matrices: lanes 8i..8i+7 address matrix i's rows
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + BR) of a head slice (row stride row_stride, d channels) into
+// a buffer of pitch LD by cp.async, 8 elements a copy: rows at or past n and
+// channels [d, d rounded up to 16) zero-filled; the caller commits and waits
+template <int LD, int BR, int NT>
+__device__ __forceinline__ void stage16(bf16* dst, const bf16* src, long row_stride, int r0, int n, int d) {
+  const int per = (d + 15) / 16 * 2;
+  for (int idx = threadIdx.x; idx < BR * per; idx += NT) {
+    const int r = idx / per, c = 8 * (idx - r * per), gr = r0 + r;
+    const bool ok = gr < n && c < d;
+    cp_async16(dst + r * LD + c, ok ? src + (long)gr * row_stride + c : src, ok);
+  }
+}
+
+// c = A B^T for the warp's 16 rows: a at the warp's first row, b a walked
+// tile of NS * 8 rows, both of pitch LD; depth d
+template <int DMAX, int LD, int NS>
+__device__ __forceinline__ void prod_abt16(float (&c)[NS][4], const bf16* a, const bf16* b, int d) {
+  static_assert(NS % 2 == 0, "n-tiles come in pairs");
+  const int lane = threadIdx.x & 31;
+  const bf16* ap = a + (lane & 15) * LD + 8 * (lane >> 4);
+  const bf16* bp = b + ((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    if (16 * kk < d) {
+      uint32_t af[4];
+      ldmatrix_x4(af, ap + 16 * kk);
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, bp + 8 * n * LD + 16 * kk);
+        mma_bf16(c[n], af, bq[0], bq[1]);
+        mma_bf16(c[n + 1], af, bq[2], bq[3]);
+      }
+    }
+  }
+}
+
+// o += bf16(P) B: P the C fragments of NS n-tiles (the k-steps: rows of b),
+// rounded to bf16 here; b a walked tile of pitch LD read down its rows;
+// output n-tiles of 8 channels up to d, a fresh accumulator a pair
+template <int DMAX, int LD, int NS>
+__device__ __forceinline__ void prod_ab16(float (&o)[DMAX / 8][4], const float (&p)[NS][4], const bf16* b, int d) {
+  const int lane = threadIdx.x & 31;
+  uint32_t pa[NS / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    pa[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pa[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pa[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  }
+  const bf16* bl = b + (lane & 15) * LD + 8 * (lane >> 4);
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; n += 2) {
+    if (8 * n < d) {
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, bl + 16 * kk * LD + 8 * n);
+        mma_bf16(acc[0], pa[kk], r[0], r[1]);
+        mma_bf16(acc[1], pa[kk], r[2], r[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[n][e] += acc[0][e];
+        o[n + 1][e] += acc[1][e];
+      }
+    }
+  }
+}
+
+// the lane's rows r0 + g, r0 + g + 8 of an accumulator to bf16 rows of a
+// head slice, up to row n and channel d
+template <int DMAX>
+__device__ __forceinline__ void store_rows16(bf16* dst, long row_stride, int r0, int n, int d,
+                                             const float (&o)[DMAX / 8][4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= n) continue;
+    bf16* out = dst + (long)row * row_stride + 2 * t;
+#pragma unroll
+    for (int m = 0; m < DMAX / 8; ++m)
+      if (8 * m < d) mma::store2(out + 8 * m, o[m][2 * r], o[m][2 * r + 1]);
+  }
+}
+
+// dQ of the CTA's B16::BM query rows from q0 (grid (q blocks, head, batch)),
+// bf16: walks kv tiles 0 .. n_tiles - 1 named by tile_of (as dq_walk). Per
+// tile, S = Q K^T and dP = dO V^T, then dQ += bf16(dS) K.
+template <int DMAX, typename TileOf>
+__device__ __forceinline__ void dq_walk16(const bf16* __restrict__ q, const bf16* __restrict__ dout,
+                                          const float* __restrict__ lse, const float* __restrict__ delta,
+                                          bf16* __restrict__ dq, int nq, int h, int dqk, int dv, float sm_scale,
+                                          int n_tiles, TileOf tile_of) {
+  using P = B16<DMAX>;
+  constexpr int NS = P::NS, LD = P::LD;
+  extern __shared__ float4 smem4[];
+  bf16* sq = reinterpret_cast<bf16*>(smem4);
+  bf16* sdo = sq + P::A;
+  bf16* tiles = sdo + P::A;  // K buffers, V buffers, then the bias rows
+  auto sk = [&](int u) { return tiles + u * P::B; };
+  auto sv = [&](int u) { return tiles + (2 + u) * P::B; };
+  auto sb = [&](int u) { return reinterpret_cast<float*>(tiles + 4 * P::B) + u * P::BN; };
+
+  const int q0 = blockIdx.x * P::BM, head = blockIdx.y, b = blockIdx.z;
+  const long row_qk = (long)h * dqk, row_v = (long)h * dv;
+  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int i0 = q0 + 16 * w + g;  // the lane's rows i0, i0 + 8
+
+  auto stage = [&](int tile, int u) {
+    const Tile<bf16> tl = tile_of(tile);
+    stage16<LD, P::BN, P::NT>(sk(u), tl.k, row_qk, tl.j0, tl.n, dqk);
+    stage16<LD, P::BN, P::NT>(sv(u), tl.v, row_v, tl.j0, tl.n, dv);
+    if (threadIdx.x < P::BN) {
+      const int j = tl.j0 + threadIdx.x;
+      const bool ok = tl.bias != nullptr && j < tl.n;
+      cp_async4(sb(u) + threadIdx.x, ok ? static_cast<const void*>(tl.bias + j) : tl.k, ok);
+    }
+  };
+  stage16<LD, P::BM, P::NT>(sq, q + (long)b * nq * row_qk + (long)head * dqk, row_qk, q0, nq, dqk);
+  stage16<LD, P::BM, P::NT>(sdo, dout + (long)b * nq * row_v + (long)head * dv, row_v, q0, nq, dv);
+  if (n_tiles > 0) stage(0, 0);
+  cp_commit();
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    const long stat = ((long)b * nq + i) * h + head;
+    lse_r[r] = i < nq ? lse[stat] : 0.f;
+    delta_r[r] = i < nq ? delta[stat] : 0.f;
+  }
+
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const bf16* qw = sq + 16 * w * LD;
+  const bf16* dow = sdo + 16 * w * LD;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int u = tile & 1;
+    if (tile + 1 < n_tiles) {
+      stage(tile + 1, u ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // tile (and the block's Q and dO) in shared memory for every warp
+
+    const Tile<bf16> tl = tile_of(tile);
+    const bool full = tl.j0 + P::BN <= tl.n && tl.j0 + P::BN - 1 <= q0 + 16 * w + tl.off;
+    const float* bt = sb(u);
+    float p[NS][4], ds[NS][4];
+    prod_abt16<DMAX, LD, NS>(p, qw, sk(u), dqk);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1), r = e >> 1;
+        float x = fmaf(p[n][e], sm_scale, bt[c]) - lse_r[r];
+        if (!full) {
+          const int j = tl.j0 + c;
+          if (!(j < tl.n && j <= i0 + 8 * r + tl.off)) x = -CUDART_INF_F;
+        }
+        p[n][e] = expf(x);
+      }
+    prod_abt16<DMAX, LD, NS>(ds, dow, sv(u), dv);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - delta_r[e >> 1]) * sm_scale;
+    prod_ab16<DMAX, LD, NS>(acc, ds, sk(u), dqk);
+    __syncthreads();  // every warp is done with buffer u before it is refilled
+  }
+  cp_wait<0>();  // no copy left in flight (an empty walk staged Q and dO alone)
+  store_rows16<DMAX>(dq + (long)b * nq * row_qk + (long)head * dqk, row_qk, q0 + 16 * w, nq, dqk, acc);
+}
+
+// dK and dV of the CTA's B16::BM kv rows of one segment (as dkv_walk), bf16:
+// walks the q tiles that can see the block, transposed: S^T = K Q^T and
+// dP^T = V dO^T, dV += bf16(P^T) dO and dK += bf16(dS^T) Q.
+template <int DMAX>
+__device__ __forceinline__ void dkv_walk16(const bf16* __restrict__ q, const bf16* __restrict__ dout,
+                                           const float* __restrict__ lse, const float* __restrict__ delta,
+                                           const Tile<bf16>& seg, bf16* __restrict__ dk, bf16* __restrict__ dvo,
+                                           int b, int head, int nq, int h, int dqk, int dv, float sm_scale) {
+  using P = B16<DMAX>;
+  constexpr int NS = P::NS, LD = P::LD;
+  extern __shared__ float4 smem4[];
+  bf16* sk = reinterpret_cast<bf16*>(smem4);
+  bf16* sv = sk + P::A;
+  bf16* tiles = sv + P::A;  // Q buffers, dO buffers, then lse and delta rows
+  auto sq = [&](int u) { return tiles + u * P::B; };
+  auto sdo = [&](int u) { return tiles + (2 + u) * P::B; };
+  auto slse = [&](int u) { return reinterpret_cast<float*>(tiles + 4 * P::B) + u * P::BN; };
+  auto sdelta = [&](int u) { return reinterpret_cast<float*>(tiles + 4 * P::B) + (2 + u) * P::BN; };
+
+  const int j0 = seg.j0;
+  const long row_qk = (long)h * dqk, row_v = (long)h * dv;
+  const bf16* qh = q + (long)b * nq * row_qk + (long)head * dqk;
+  const bf16* doh = dout + (long)b * nq * row_v + (long)head * dv;
+  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int jw = j0 + 16 * w;  // the warp's first kv row; the lane's are jw + g, jw + g + 8
+  int i_begin = max(0, j0 - seg.off);
+  i_begin -= i_begin % P::BN;
+  const int n_tiles = i_begin < nq ? (nq - i_begin + P::BN - 1) / P::BN : 0;
+
+  auto stage = [&](int tile, int u) {
+    const int i0 = i_begin + tile * P::BN;
+    stage16<LD, P::BN, P::NT>(sq(u), qh, row_qk, i0, nq, dqk);
+    stage16<LD, P::BN, P::NT>(sdo(u), doh, row_v, i0, nq, dv);
+    if (threadIdx.x < P::BN) {
+      const int i = i0 + threadIdx.x;
+      const bool ok = i < nq;
+      const long stat = ((long)b * nq + (ok ? i : 0)) * h + head;
+      cp_async4(slse(u) + threadIdx.x, lse + stat, ok);
+      cp_async4(sdelta(u) + threadIdx.x, delta + stat, ok);
+    }
+  };
+  stage16<LD, P::BM, P::NT>(sk, seg.k, row_qk, j0, seg.n, dqk);
+  stage16<LD, P::BM, P::NT>(sv, seg.v, row_v, j0, seg.n, dv);
+  if (n_tiles > 0) stage(0, 0);
+  cp_commit();
+  float bias_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = jw + g + 8 * r;
+    bias_r[r] = (seg.bias != nullptr && j < seg.n) ? seg.bias[j] : 0.f;
+  }
+
+  float acc_k[DMAX / 8][4], acc_v[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const bf16* kw = sk + 16 * w * LD;
+  const bf16* vw = sv + 16 * w * LD;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int u = tile & 1;
+    if (tile + 1 < n_tiles) {
+      stage(tile + 1, u ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+
+    const int i0 = i_begin + tile * P::BN;
+    const bool full = i0 + P::BN <= nq && jw + 15 < seg.n && jw + 15 <= i0 + seg.off;
+    const float *lt = slse(u), *dt = sdelta(u);
+    float p[NS][4], ds[NS][4];
+    prod_abt16<DMAX, LD, NS>(p, kw, sq(u), dqk);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1), r = e >> 1;
+        float x = fmaf(p[n][e], sm_scale, bias_r[r]) - lt[c];
+        if (!full) {
+          const int i = i0 + c, j = jw + g + 8 * r;
+          if (!(i < nq && j < seg.n && j <= i + seg.off)) x = -CUDART_INF_F;
+        }
+        p[n][e] = expf(x);
+      }
+    prod_abt16<DMAX, LD, NS>(ds, vw, sdo(u), dv);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - dt[8 * n + 2 * t + (e & 1)]) * sm_scale;
+    prod_ab16<DMAX, LD, NS>(acc_v, p, sdo(u), dv);
+    prod_ab16<DMAX, LD, NS>(acc_k, ds, sq(u), dqk);
+    __syncthreads();
+  }
+  cp_wait<0>();
+  store_rows16<DMAX>(dk, row_qk, jw, seg.n, dqk, acc_k);
+  store_rows16<DMAX>(dvo, row_v, jw, seg.n, dv, acc_v);
+}
+
 }  // namespace mma_bwd
 }  // namespace pio

@@ -1,5 +1,6 @@
 // K4a + K4b: packed flash attention backward for Hopper (sm_90a), CUDA C++,
-// f32, on the tensor cores.
+// on the tensor cores: an f32 build and a bf16 build behind one C interface
+// with a dtype code (0 f32, 1 bf16), as K2's.
 //
 // Replaces the TPU kernels perceiver_io_tpu/ops/flash_attention.py
 // _dkv_packed_kernel (K4a) and _dq_packed_kernel (K4b), both reached from
@@ -61,6 +62,13 @@
 // n-tiles x 4 doubles, 128 registers). No kernel spills (ptxas,
 // chip_smoke.py).
 //
+// The bf16 build (flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel,
+// bodies dq_walk16 / dkv_walk16 in flash_mma_bwd.cuh) is the JAX kernels' bf16
+// arithmetic: bf16 products summed in f32 by mma.sync m16n8k16, p and dS
+// rounded to bf16 before the gradient products, gradients written in bf16.
+// It moves half the f32 build's bytes and runs at the bf16 tensor-core rate
+// (989 TFLOP/s dense), the bound chip_smoke.py charges it.
+//
 // A head is a strided column slice of the packed rows (row stride H*D), so no
 // transpose copy is made. The kernel bodies (dq_walk, dkv_walk) live in
 // flash_mma_bwd.cuh, shared with K7a / K7b (flash_2seg_bwd.cu): a K4 CTA
@@ -110,13 +118,59 @@ __global__ void __launch_bounds__(Dkv<DMAX>::NT, Dkv<DMAX>::MIN_BLOCKS) flash_bw
   dkv_walk<DMAX>(q, dout, lse, delta, seg, dk + kv_qk, dvo + kv_v, b, head, nq, h, dqk, dv, sm_scale);
 }
 
+// K4b, bf16: as flash_bwd_dq_kernel, on B16's tiles
+template <int DMAX>
+__global__ void __launch_bounds__(B16<DMAX>::NT, B16<DMAX>::MIN_BLOCKS) flash_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ bias, bf16* __restrict__ dq, int nq, int nkv, int h, int dqk, int dv, int causal,
+    float sm_scale) {
+  using P = B16<DMAX>;
+  const int q0 = blockIdx.x * P::BM, head = blockIdx.y, b = blockIdx.z;
+  const long row_qk = (long)h * dqk, row_v = (long)h * dv;
+  const int off = causal ? nkv - nq : NO_LIMIT;
+  const int kv_end = causal ? max(0, min(nkv, min(q0 + P::BM, nq) + off)) : nkv;
+  const Tile<bf16> seg{k + (long)b * nkv * row_qk + (long)head * dqk, v + (long)b * nkv * row_v + (long)head * dv,
+                       bias == nullptr ? nullptr : bias + (long)b * nkv, 0, nkv, off};
+  dq_walk16<DMAX>(q, dout, lse, delta, dq, nq, h, dqk, dv, sm_scale, (kv_end + P::BN - 1) / P::BN, [&](int t) {
+    Tile<bf16> tl = seg;
+    tl.j0 = t * P::BN;
+    return tl;
+  });
+}
+
+// K4a, bf16: as flash_bwd_dkv_kernel, on B16's tiles
+template <int DMAX>
+__global__ void __launch_bounds__(B16<DMAX>::NT, B16<DMAX>::MIN_BLOCKS) flash_bwd_dkv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ bias, bf16* __restrict__ dk, bf16* __restrict__ dvo, int nq, int nkv, int h,
+    int dqk, int dv, int causal, float sm_scale) {
+  const int head = blockIdx.y, b = blockIdx.z;
+  const long kv_qk = (long)b * nkv * h * dqk + (long)head * dqk, kv_v = (long)b * nkv * h * dv + (long)head * dv;
+  const Tile<bf16> seg{k + kv_qk, v + kv_v, bias == nullptr ? nullptr : bias + (long)b * nkv,
+                       (int)blockIdx.x * B16<DMAX>::BM, nkv, causal ? nkv - nq : NO_LIMIT};
+  dkv_walk16<DMAX>(q, dout, lse, delta, seg, dk + kv_qk, dvo + kv_v, b, head, nq, h, dqk, dv, sm_scale);
+}
+
 struct Args {
-  const float *q, *k, *v, *dout, *lse, *delta, *bias;
-  float *dq, *dk, *dv;
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta, *bias;
+  void *dq, *dk, *dv;
   int batch, nq, nkv, h, dqk, dv_, causal;
   float sm_scale;
   cudaStream_t stream;
 };
+
+template <typename T>
+const T* in(const void* p) {
+  return static_cast<const T*>(p);
+}
+
+template <typename T>
+T* out(void* p) {
+  return static_cast<T*>(p);
+}
 
 template <int DMAX>
 cudaError_t launch_dq(const Args& a) {
@@ -125,8 +179,22 @@ cudaError_t launch_dq(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nq + P::BQ - 1) / P::BQ, a.h, a.batch);
-  kernel<<<grid, P::NT, P::BYTES, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, a.dq, a.nq, a.nkv,
-                                                a.h, a.dqk, a.dv_, a.causal, a.sm_scale);
+  kernel<<<grid, P::NT, P::BYTES, a.stream>>>(in<float>(a.q), in<float>(a.k), in<float>(a.v), in<float>(a.dout),
+                                                a.lse, a.delta, a.bias, out<float>(a.dq), a.nq, a.nkv, a.h, a.dqk,
+                                                a.dv_, a.causal, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dq_bf16(const Args& a) {
+  using P = B16<DMAX>;
+  auto kernel = flash_bwd_dq_bf16_kernel<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nq + P::BM - 1) / P::BM, a.h, a.batch);
+  kernel<<<grid, P::NT, P::BYTES, a.stream>>>(in<bf16>(a.q), in<bf16>(a.k), in<bf16>(a.v), in<bf16>(a.dout), a.lse,
+                                                a.delta, a.bias, out<bf16>(a.dq), a.nq, a.nkv, a.h, a.dqk, a.dv_,
+                                                a.causal, a.sm_scale);
   return cudaGetLastError();
 }
 
@@ -137,8 +205,22 @@ cudaError_t launch_dkv(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nkv + P::BKV - 1) / P::BKV, a.h, a.batch);
-  kernel<<<grid, P::NT, P::BYTES, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, a.dk, a.dv, a.nq,
+  kernel<<<grid, P::NT, P::BYTES, a.stream>>>(in<float>(a.q), in<float>(a.k), in<float>(a.v), in<float>(a.dout),
+                                                a.lse, a.delta, a.bias, out<float>(a.dk), out<float>(a.dv), a.nq,
                                                 a.nkv, a.h, a.dqk, a.dv_, a.causal, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dkv_bf16(const Args& a) {
+  using P = B16<DMAX>;
+  auto kernel = flash_bwd_dkv_bf16_kernel<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nkv + P::BM - 1) / P::BM, a.h, a.batch);
+  kernel<<<grid, P::NT, P::BYTES, a.stream>>>(in<bf16>(a.q), in<bf16>(a.k), in<bf16>(a.v), in<bf16>(a.dout), a.lse,
+                                                a.delta, a.bias, out<bf16>(a.dk), out<bf16>(a.dv), a.nq, a.nkv, a.h,
+                                                a.dqk, a.dv_, a.causal, a.sm_scale);
   return cudaGetLastError();
 }
 
@@ -149,34 +231,41 @@ bool valid(const Args& a) {
 
 }  // namespace
 
-// q/dout (B, Nq, H*D), k/v (B, Nkv, H*D), all f32, contiguous and 16-byte
-// aligned; lse/delta (B, Nq, H) f32; bias (B, Nkv) f32 or null. K4a writes dk
-// (B, Nkv, H*Dqk) and dv (B, Nkv, H*Dv); K4b writes dq (B, Nq, H*Dqk). Each
-// returns a cudaError_t (0 = launched).
-extern "C" int pio_flash_packed_bwd_dkv(const float* q, const float* k, const float* v, const float* dout,
-                                        const float* lse, const float* delta, const float* bias, float* dk,
-                                        float* dv, int batch, int nq, int nkv, int h, int dqk, int dv_, int causal,
-                                        float sm_scale, void* stream) {
+// q/dout (B, Nq, H*D), k/v (B, Nkv, H*D), all f32 (dtype 0) or all bf16
+// (dtype 1), contiguous and 16-byte aligned; lse/delta (B, Nq, H) f32; bias
+// (B, Nkv) f32 or null. K4a writes dk (B, Nkv, H*Dqk) and dv (B, Nkv, H*Dv);
+// K4b writes dq (B, Nq, H*Dqk), in the operands' dtype. Each returns a
+// cudaError_t (0 = launched).
+extern "C" int pio_flash_packed_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                        const float* lse, const float* delta, const float* bias, void* dk, void* dv,
+                                        int batch, int nq, int nkv, int h, int dqk, int dv_, int causal,
+                                        float sm_scale, int dtype, void* stream) {
   const Args a{q, k, v, dout, lse, delta, bias, nullptr, dk, dv, batch, nq, nkv, h, dqk, dv_, causal, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (batch <= 0 || nkv <= 0 || h <= 0) return cudaSuccess;
-  if (!valid(a)) return cudaErrorInvalidValue;
-  switch (dmax_bucket(a.dqk, a.dv_)) {
+  if (!valid(a) || (dtype != pio::kF32 && dtype != pio::kBF16)) return cudaErrorInvalidValue;
+  const int bucket = dmax_bucket(a.dqk, a.dv_);
+  if (dtype == pio::kBF16) return bucket == 32 ? launch_dkv_bf16<32>(a) : bucket == 64 ? launch_dkv_bf16<64>(a)
+                                                                                    : launch_dkv_bf16<128>(a);
+  switch (bucket) {
     case 32: return launch_dkv<32>(a);
     case 64: return launch_dkv<64>(a);
     default: return launch_dkv<128>(a);
   }
 }
 
-extern "C" int pio_flash_packed_bwd_dq(const float* q, const float* k, const float* v, const float* dout,
-                                       const float* lse, const float* delta, const float* bias, float* dq, int batch,
+extern "C" int pio_flash_packed_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                       const float* lse, const float* delta, const float* bias, void* dq, int batch,
                                        int nq, int nkv, int h, int dqk, int dv_, int causal, float sm_scale,
-                                       void* stream) {
+                                       int dtype, void* stream) {
   const Args a{q, k, v, dout, lse, delta, bias, dq, nullptr, nullptr, batch, nq, nkv, h, dqk, dv_, causal,
                sm_scale, static_cast<cudaStream_t>(stream)};
   if (batch <= 0 || nq <= 0 || h <= 0) return cudaSuccess;
-  if (!valid(a)) return cudaErrorInvalidValue;
-  switch (dmax_bucket(a.dqk, a.dv_)) {
+  if (!valid(a) || (dtype != pio::kF32 && dtype != pio::kBF16)) return cudaErrorInvalidValue;
+  const int bucket = dmax_bucket(a.dqk, a.dv_);
+  if (dtype == pio::kBF16) return bucket == 32 ? launch_dq_bf16<32>(a) : bucket == 64 ? launch_dq_bf16<64>(a)
+                                                                                   : launch_dq_bf16<128>(a);
+  switch (bucket) {
     case 32: return launch_dq<32>(a);
     case 64: return launch_dq<64>(a);
     default: return launch_dq<128>(a);

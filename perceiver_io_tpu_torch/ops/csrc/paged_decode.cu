@@ -8,8 +8,15 @@
 // optional (S, capacity) bool mask adds the finite MASK_VALUE to the tokens it
 // marks; the softmax runs online in f32. A slot with length 0 gets the
 // uniform average of its capacity's values, as in the JAX kernel, where
-// every token past the length scores the finite MASK_VALUE. Pools are f32,
-// the serving path's cache dtype.
+// every token past the length scores the finite MASK_VALUE. Two builds
+// behind one C interface with a dtype code (0 f32, 1 bf16): q, the pools and
+// the output all f32 or all bf16 (the engine's cache_dtype); scores, the
+// softmax, the value sums and the merge's scratch are f32 in both, and the
+// bf16 build rounds only its output. A bf16 page is half an f32 one's bytes,
+// so the plan fits twice the rows in a stage's bytes; a consumer lane reads
+// its channels lane + 32k as 2-byte elements (two lanes share a 4-byte
+// shared-memory word, which the bank broadcasts), and the producer copies
+// rows that are no multiple of 16 bytes element by element.
 //
 // What bounds it: decode reads every valid K/V row once and does two FMAs per
 // element read, so it is bound by memory bytes (at the flagship serve's CA,
@@ -98,33 +105,45 @@ constexpr int HEADER = 2 * MAX_STAGES * 8;   // the stages' full and empty mbarr
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;  // ops/flash_attention.py MASK_VALUE
 constexpr unsigned FULL = 0xffffffffu;
 
+// T: the element type of q, the pools and the output (float or bf16)
+template <typename T>
 struct Params {
-  const float* q;       // (S, H * Dqk)
-  const float* kpool;   // (P, page, H * Dqk)
-  const float* vpool;   // (P, page, H * Dv)
+  const T* q;           // (S, H * Dqk)
+  const T* kpool;       // (P, page, H * Dqk)
+  const T* vpool;       // (P, page, H * Dv)
   const int* table;     // (S, pps)
   const int* length;    // (S,)
   const unsigned char* mask;  // (S, >= capacity) bool with row stride mask_stride, or null
   long long mask_stride;
   float* part;          // (S * groups + grid, gh, Dv + 2) scratch
-  float* out;           // (S, H * Dv)
+  T* out;               // (S, H * Dv)
   int slots, h, dqk, dv, page, pps;
   int grid, groups, gh, rows, stages, ncw, bulk;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// floats of one stage: K rows, V rows, the rows' mask bias, each 16-byte aligned
-__host__ __device__ inline int stage_floats(int rows, int gh, int dqk, int dv) {
-  return round4(rows * gh * dqk) + round4(rows * gh * dv) + round4(rows);
+// n elements of T rounded up to a whole number of 16-byte chunks
+template <typename T>
+__host__ __device__ inline int round16(int n) {
+  constexpr int E = 16 / sizeof(T);
+  return (n + E - 1) / E * E;
+}
+
+// bytes of one stage: K rows, V rows (T), the rows' mask bias (f32), each
+// 16-byte aligned
+template <typename T>
+__host__ __device__ inline int stage_bytes(int rows, int gh, int dqk, int dv) {
+  return (int)sizeof(T) * (round16<T>(rows * gh * dqk) + round16<T>(rows * gh * dv)) + 4 * round4(rows);
 }
 
 // bytes before the stages: the mbarriers, then each slot's first page in the
 // walk and its clamped length (S + 1 and S ints), rounded to 128
 __host__ __device__ inline int header_bytes(int slots) { return HEADER + (((2 * slots + 1) * 4 + 127) & ~127); }
 
-__host__ __device__ inline int smem_bytes(const Params& p) {
-  return header_bytes(p.slots) + 4 * p.stages * stage_floats(p.rows, p.gh, p.dqk, p.dv);
+template <typename T>
+__host__ __device__ inline int smem_bytes(const Params<T>& p) {
+  return header_bytes(p.slots) + p.stages * stage_bytes<T>(p.rows, p.gh, p.dqk, p.dv);
 }
 
 __device__ __forceinline__ uint32_t sptr(const void* p) {
@@ -168,14 +187,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 }
 
 // one 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
                    sptr(dst)),
                "l"(src), "r"(bytes), "r"(sptr(bar))
                : "memory");
 }
 
-__device__ __forceinline__ int slot_pages(const Params& p, int s, int* len_out) {
+template <typename T>
+__device__ __forceinline__ int slot_pages(const Params<T>& p, int s, int* len_out) {
   int len = p.length[s];
   len = len < 0 ? 0 : len > p.pps * p.page ? p.pps * p.page : len;
   *len_out = len;
@@ -186,7 +206,8 @@ __device__ __forceinline__ int slot_pages(const Params& p, int s, int* len_out) 
 // pages of all slots) and each slot's clamped length, by warp 0 in chunks of
 // 32 slots. Virtual slot v = g * S + s (head group g) starts at
 // g * P1 + off[s].
-__device__ void partition(const Params& p, int* off, int* len) {
+template <typename T>
+__device__ void partition(const Params<T>& p, int* off, int* len) {
   const int lane = threadIdx.x & 31;
   int carry = 0;
   for (int s0 = 0; s0 < p.slots; s0 += 32) {
@@ -217,8 +238,8 @@ struct Walk {
 // The walk of one role over this CTA's work items and their tiles; `item`
 // is called once per item with (virtual slot, first page, end page), the
 // role's tile loop inside it.
-template <typename ItemFn>
-__device__ __forceinline__ void for_items(const Params& p, const int* off, ItemFn item) {
+template <typename T, typename ItemFn>
+__device__ __forceinline__ void for_items(const Params<T>& p, const int* off, ItemFn item) {
   const Walk w{off, p.slots, off[p.slots]};
   const int total = p.groups * w.p1;
   const int chunk = (total + p.grid - 1) / p.grid;
@@ -237,21 +258,23 @@ __device__ __forceinline__ void for_items(const Params& p, const int* off, ItemF
 
 // the producer warp: page-table entries 32 at a time, each tile's rows into
 // the next free stage, the tile's mask bias beside them
-__device__ void produce(const Params& p, const int* off, const int* len, float* tiles, uint64_t* full,
+template <typename T>
+__device__ void produce(const Params<T>& p, const int* off, const int* len, unsigned char* tiles, uint64_t* full,
                         uint64_t* empty) {
+  constexpr uint32_t ES = sizeof(T);
   const int lane = threadIdx.x & 31;
   const int gwk = p.gh * p.dqk, gwv = p.gh * p.dv;
-  const int kst = round4(p.rows * gwk), vst = round4(p.rows * gwv);
-  const int sf = stage_floats(p.rows, p.gh, p.dqk, p.dv);
+  const int kst = round16<T>(p.rows * gwk), vst = round16<T>(p.rows * gwv);
+  const int sb = stage_bytes<T>(p.rows, p.gh, p.dqk, p.dv);
   const long ck = (long)p.h * p.dqk, cv = (long)p.h * p.dv;
   int st = 0, ph = 0;
   for_items(p, off, [&](int sv, int pb, int pe) {
     const int s = sv % p.slots, g = sv / p.slots;
     const int n_tok = len[s];
     const int ghc = min(p.gh, p.h - g * p.gh);
-    const int kw = ghc * p.dqk, vw = ghc * p.dv;  // floats a row of the group
-    const float* kbase = p.kpool + (long)g * gwk;
-    const float* vbase = p.vpool + (long)g * gwv;
+    const int kw = ghc * p.dqk, vw = ghc * p.dv;  // elements a row of the group
+    const T* kbase = p.kpool + (long)g * gwk;
+    const T* vbase = p.vpool + (long)g * gwv;
     const int* trow = p.table + (long)s * p.pps;
     const unsigned char* mrow = p.mask == nullptr ? nullptr : p.mask + s * p.mask_stride;
     for (int j0 = pb; j0 < pe; j0 += 32) {
@@ -263,25 +286,25 @@ __device__ void produce(const Params& p, const int* off, const int* len, float* 
         for (int r0 = 0; r0 < p.page && tp + r0 < n_tok; r0 += p.rows) {
           const int nr = min(p.rows, min(p.page - r0, n_tok - tp - r0));
           const long row0 = pid * p.page + r0;
-          float* ks = tiles + (long)st * sf;
-          float* vs = ks + kst;
-          float* bs = vs + vst;
+          T* ks = reinterpret_cast<T*>(tiles + (long)st * sb);
+          T* vs = ks + kst;
+          float* bs = reinterpret_cast<float*>(vs + vst);
           mbar_wait(&empty[st], ph ^ 1);
           if (p.bulk) {
-            if (lane == 0) mbar_arrive_expect_tx(&full[st], 4u * nr * (kw + vw));
+            if (lane == 0) mbar_arrive_expect_tx(&full[st], ES * nr * (kw + vw));
             __syncwarp();
             if (p.groups == 1) {
               if (lane == 0) {
-                bulk_copy(ks, kbase + row0 * ck, 4u * nr * kw, &full[st]);
-                bulk_copy(vs, vbase + row0 * cv, 4u * nr * vw, &full[st]);
+                bulk_copy(ks, kbase + row0 * ck, ES * nr * kw, &full[st]);
+                bulk_copy(vs, vbase + row0 * cv, ES * nr * vw, &full[st]);
               }
             } else {
               for (int r = lane; r < nr; r += 32) {
-                bulk_copy(ks + r * gwk, kbase + (row0 + r) * ck, 4u * kw, &full[st]);
-                bulk_copy(vs + r * gwv, vbase + (row0 + r) * cv, 4u * vw, &full[st]);
+                bulk_copy(ks + r * gwk, kbase + (row0 + r) * ck, ES * kw, &full[st]);
+                bulk_copy(vs + r * gwv, vbase + (row0 + r) * cv, ES * vw, &full[st]);
               }
             }
-          } else {
+          } else if constexpr (sizeof(T) == 4) {
             for (int e = lane; e < nr * kw; e += 32) {
               const int r = e / kw, c = e - r * kw;
               cp_async4(ks + r * gwk + c, kbase + (row0 + r) * ck + c);
@@ -291,6 +314,17 @@ __device__ void produce(const Params& p, const int* off, const int* len, float* 
               cp_async4(vs + r * gwv + c, vbase + (row0 + r) * cv + c);
             }
             cp_async_arrive(&full[st]);
+          } else {
+            // 2-byte elements: no cp.async that small; plain copies, which
+            // each lane's arrival below releases to the consumers
+            for (int e = lane; e < nr * kw; e += 32) {
+              const int r = e / kw, c = e - r * kw;
+              ks[r * gwk + c] = kbase[(row0 + r) * ck + c];
+            }
+            for (int e = lane; e < nr * vw; e += 32) {
+              const int r = e / vw, c = e - r * vw;
+              vs[r * gwv + c] = vbase[(row0 + r) * cv + c];
+            }
           }
           // lane 0's arrival (with the expected bytes) may precede its
           // copies, so the bias is written by the other lanes, each before
@@ -328,14 +362,14 @@ __device__ __forceinline__ void fold(float (&x)[TB], int lane) {
 }
 
 // a consumer warp: HPW heads of each item's group (heads cw, cw + ncw, ...),
-// CPL channels a lane (Dqk, Dv <= 32 * CPL)
-template <int CPL, int HPW>
-__device__ void consume(const Params& p, const int* off, const int* len, const float* tiles, uint64_t* full,
-                        uint64_t* empty) {
+// CPL channels a lane (Dqk, Dv <= 32 * CPL), f32 arithmetic on either T
+template <typename T, int CPL, int HPW>
+__device__ void consume(const Params<T>& p, const int* off, const int* len, const unsigned char* tiles,
+                        uint64_t* full, uint64_t* empty) {
   const int lane = threadIdx.x & 31, cw = (threadIdx.x >> 5) - 1;
   const int gwk = p.gh * p.dqk, gwv = p.gh * p.dv;
-  const int kst = round4(p.rows * gwk), vst = round4(p.rows * gwv);
-  const int sf = stage_floats(p.rows, p.gh, p.dqk, p.dv);
+  const int kst = round16<T>(p.rows * gwk), vst = round16<T>(p.rows * gwv);
+  const int sb = stage_bytes<T>(p.rows, p.gh, p.dqk, p.dv);
   const int u_mine = lane >> 1;  // the token whose score this lane holds after the butterfly
   bool kc[CPL], vc[CPL];  // the lane's channels that exist
 #pragma unroll
@@ -358,23 +392,25 @@ __device__ void consume(const Params& p, const int* off, const int* len, const f
       for (int k = 0; k < CPL; ++k) {
         const int c = lane + 32 * k;
         acc[i][k] = 0.f;
-        q[i][k] = head < ghc && c < p.dqk ? p.q[(long)s * p.h * p.dqk + (long)(g * p.gh + head) * p.dqk + c] : 0.f;
+        q[i][k] = head < ghc && c < p.dqk
+                      ? pio::to_f32(p.q[(long)s * p.h * p.dqk + (long)(g * p.gh + head) * p.dqk + c])
+                      : 0.f;
       }
     }
     for (int j = pb; j < pe; ++j) {
       const int tp = j * p.page;
       for (int r0 = 0; r0 < p.page && tp + r0 < n_tok; r0 += p.rows) {
         const int nr = min(p.rows, min(p.page - r0, n_tok - tp - r0));
-        const float* ks = tiles + (long)st * sf;
-        const float* vs = ks + kst;
-        const float* bs = vs + vst;
+        const T* ks = reinterpret_cast<const T*>(tiles + (long)st * sb);
+        const T* vs = ks + kst;
+        const float* bs = reinterpret_cast<const float*>(vs + vst);
         mbar_wait(&full[st], ph);
 #pragma unroll
         for (int i = 0; i < HPW; ++i) {
           const int head = cw + i * p.ncw;
           if (head >= ghc) continue;
-          const float* kh = ks + head * p.dqk;  // the sub-block's first row
-          const float* vh = vs + head * p.dv;
+          const T* kh = ks + head * p.dqk;  // the sub-block's first row
+          const T* vh = vs + head * p.dv;
           for (int rb = 0; rb < nr; rb += TB) {
             // rows past the tile read its last row (no branch): their
             // scores are dropped and their probabilities are 0
@@ -382,11 +418,11 @@ __device__ void consume(const Params& p, const int* off, const int* len, const f
             float x[TB];
 #pragma unroll
             for (int u = 0; u < TB; ++u) {
-              const float* kr = kh + min(u, last) * gwk;
+              const T* kr = kh + min(u, last) * gwk;
               x[u] = 0.f;
 #pragma unroll
               for (int k = 0; k < CPL; ++k)
-                if (kc[k]) x[u] = fmaf(q[i][k], kr[lane + 32 * k], x[u]);
+                if (kc[k]) x[u] = fmaf(q[i][k], pio::to_f32(kr[lane + 32 * k]), x[u]);
             }
             fold<16, 16>(x, lane);
             fold<8, 8>(x, lane);
@@ -408,10 +444,10 @@ __device__ void consume(const Params& p, const int* off, const int* len, const f
 #pragma unroll
             for (int u = 0; u < TB; ++u) {
               const float pv = __shfl_sync(FULL, pu, 2 * u);
-              const float* vr = vh + min(u, last) * gwv;
+              const T* vr = vh + min(u, last) * gwv;
 #pragma unroll
               for (int k = 0; k < CPL; ++k)
-                if (vc[k]) acc[i][k] = fmaf(pv, vr[lane + 32 * k], acc[i][k]);
+                if (vc[k]) acc[i][k] = fmaf(pv, pio::to_f32(vr[lane + 32 * k]), acc[i][k]);
             }
             kh += TB * gwk;
             vh += TB * gwv;
@@ -448,14 +484,14 @@ __device__ void consume(const Params& p, const int* off, const int* len, const f
   });
 }
 
-template <int CPL, int HPW>
-__global__ void __launch_bounds__(NT, 1) paged_walk_kernel(const Params p) {
+template <typename T, int CPL, int HPW>
+__global__ void __launch_bounds__(NT, 1) paged_walk_kernel(const Params<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
   int* off = reinterpret_cast<int*>(smem + HEADER);
   int* len = off + p.slots + 1;
-  float* tiles = reinterpret_cast<float*>(smem + header_bytes(p.slots));
+  unsigned char* tiles = smem + header_bytes(p.slots);
   // the merge may launch now: it waits for this grid's writes itself
   asm volatile("griddepcontrol.launch_dependents;");
   const int warp = threadIdx.x >> 5;
@@ -473,7 +509,7 @@ __global__ void __launch_bounds__(NT, 1) paged_walk_kernel(const Params p) {
   if (warp == 0)
     produce(p, off, len, tiles, full, empty);
   else
-    consume<CPL, HPW>(p, off, len, tiles, full, empty);
+    consume<T, CPL, HPW>(p, off, len, tiles, full, empty);
 }
 
 // one (slot, head): the slot's items' partials merged, warp w taking items
@@ -481,7 +517,8 @@ __global__ void __launch_bounds__(NT, 1) paged_walk_kernel(const Params p) {
 // fixed order: the result does not depend on timing). Launched as the walk's
 // programmatic dependent: its CTAs start while the walk runs, form the
 // slot's geometry from the lengths, then wait for the walk's partials.
-__global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params p) {
+template <typename T>
+__global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params<T> p) {
   constexpr int NW = MERGE_THREADS / 32;
   __shared__ float sm_m[NW], sm_l[NW], sm_acc[NW][128], sm_tail[NW][128];
   __shared__ int geo[4];
@@ -513,7 +550,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
   }
   __syncthreads();
   const int p1 = geo[0], n = geo[2], len = geo[3];
-  float* o = p.out + (long)s * p.h * p.dv + (long)hd * p.dv;
+  T* o = p.out + (long)s * p.h * p.dv + (long)hd * p.dv;
   constexpr int IF = 4;  // items a warp loads at once
   float m = -CUDART_INF_F, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (n > 0) {  // a slot of length 0 has no item
@@ -577,15 +614,15 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
   const float w_tail = n == 0 ? 1.f : tail ? expf(MASK_VALUE - mx) : 0.f;
   if (tail) {
     const long row = (long)p.h * p.dv;
-    const float* vcol = p.vpool + (long)hd * p.dv;
+    const T* vcol = p.vpool + (long)hd * p.dv;
     const int* trow = p.table + (long)s * p.pps;
     float t_acc[4] = {0.f, 0.f, 0.f, 0.f};
     const int j_first = (len + p.page - 1) / p.page;
     for (int t = len + warp; t < j_first * p.page; t += NW) {
-      const float* vr = vcol + ((long)trow[t / p.page] * p.page + t % p.page) * row;
+      const T* vr = vcol + ((long)trow[t / p.page] * p.page + t % p.page) * row;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (lane + 32 * k < p.dv) t_acc[k] += vr[lane + 32 * k];
+        if (lane + 32 * k < p.dv) t_acc[k] += pio::to_f32(vr[lane + 32 * k]);
     }
     const int per = (p.pps - j_first + NW - 1) / NW;
     const int ja = j_first + warp * per, jb = min(p.pps, ja + per);
@@ -602,14 +639,14 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) t_acc[k] = fmaf((float)count, run[k], t_acc[k]);
-        const float* vp = vcol + (long)e * p.page * row;
+        const T* vp = vcol + (long)e * p.page * row;
 #pragma unroll
         for (int k = 0; k < 4; ++k) run[k] = 0.f;
 #pragma unroll 4
         for (int r = 0; r < p.page; ++r)
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            if (lane + 32 * k < p.dv) run[k] += vp[r * row + lane + 32 * k];
+            if (lane + 32 * k < p.dv) run[k] += pio::to_f32(vp[r * row + lane + 32 * k]);
         prev = e;
         count = 1;
       }
@@ -631,19 +668,21 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
       for (int w = 0; w < NW; ++w) t_sum += sm_tail[w][c];
       a = fmaf(w_tail, t_sum, a);
     }
-    o[c] = a / ls;
+    o[c] = pio::from_f32<T>(a / ls);
   }
 }
 
-using WalkFn = void (*)(Params);
+template <typename T>
+using WalkFn = void (*)(Params<T>);
 
 // the walk's instantiation: CPL channels a lane (1, 2, 4), HPW heads a
 // consumer warp (1, 2, 4)
-WalkFn walk_kernel(int cpl, int hpw) {
-  static const WalkFn table[3][3] = {
-      {paged_walk_kernel<1, 1>, paged_walk_kernel<1, 2>, paged_walk_kernel<1, 4>},
-      {paged_walk_kernel<2, 1>, paged_walk_kernel<2, 2>, paged_walk_kernel<2, 4>},
-      {paged_walk_kernel<4, 1>, paged_walk_kernel<4, 2>, paged_walk_kernel<4, 4>},
+template <typename T>
+WalkFn<T> walk_kernel(int cpl, int hpw) {
+  static const WalkFn<T> table[3][3] = {
+      {paged_walk_kernel<T, 1, 1>, paged_walk_kernel<T, 1, 2>, paged_walk_kernel<T, 1, 4>},
+      {paged_walk_kernel<T, 2, 1>, paged_walk_kernel<T, 2, 2>, paged_walk_kernel<T, 2, 4>},
+      {paged_walk_kernel<T, 4, 1>, paged_walk_kernel<T, 4, 2>, paged_walk_kernel<T, 4, 4>},
   };
   return table[cpl == 1 ? 0 : cpl == 2 ? 1 : 2][hpw == 1 ? 0 : hpw == 2 ? 1 : 2];
 }
@@ -655,18 +694,8 @@ int cpl_of(int dqk, int dv) {
 
 int hpw_of(int gh) { return gh <= MAX_CW ? 1 : gh <= 2 * MAX_CW ? 2 : 4; }
 
-}  // namespace
-
-// K3's plan for a geometry on the current device: plan = {grid, head groups,
-// heads a group, rows a tile, stages, dynamic shared memory bytes, consumer
-// warps}. Whole pages of all heads a stage where three stages fit, else runs
-// of a page's rows, else head groups; as many stages as fit, up to 8; one
-// CTA an SM where a CTA takes more than half of one's shared memory, else
-// two. Also lifts the walk's shared-memory limit to the device's. Returns a
-// cudaError_t.
-extern "C" int pio_paged_decode_plan(int slots, int h, int dqk, int dv, int page, int n_sm, int* plan) {
-  if (slots <= 0 || h <= 0 || dqk <= 0 || dv <= 0 || dqk > 128 || dv > 128 || page <= 0 || n_sm <= 0)
-    return cudaErrorInvalidValue;
+template <typename T>
+cudaError_t plan_for(int slots, int h, int dqk, int dv, int page, int n_sm, int* plan) {
   int dev = 0, budget = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -677,7 +706,7 @@ extern "C" int pio_paged_decode_plan(int slots, int h, int dqk, int dv, int page
     const int g = (h + ng - 1) / ng;
     if (g > 4 * MAX_CW) continue;
     int r = page;
-    while (r > 0 && head + MIN_STAGES * 4L * stage_floats(r, g, dqk, dv) > budget) --r;
+    while (r > 0 && head + MIN_STAGES * (long)stage_bytes<T>(r, g, dqk, dv) > budget) --r;
     if (r >= 1) {
       gh = g;
       groups = (h + g - 1) / g;
@@ -686,13 +715,13 @@ extern "C" int pio_paged_decode_plan(int slots, int h, int dqk, int dv, int page
     }
   }
   if (rows < 1) return cudaErrorInvalidValue;
-  const long tile = 4L * stage_floats(rows, gh, dqk, dv);
+  const long tile = stage_bytes<T>(rows, gh, dqk, dv);
   long stages = (budget - head) / tile;
   stages = stages > MAX_STAGES ? MAX_STAGES : stages;
   const int smem = (int)(head + stages * tile);
   const int hpw = hpw_of(gh);
   const int ncw = (gh + hpw - 1) / hpw;
-  WalkFn kernel = walk_kernel(cpl_of(dqk, dv), hpw);
+  WalkFn<T> kernel = walk_kernel<T>(cpl_of(dqk, dv), hpw);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
   int per_sm = 0;
   if (err == cudaSuccess)
@@ -709,42 +738,77 @@ extern "C" int pio_paged_decode_plan(int slots, int h, int dqk, int dv, int page
   return cudaSuccess;
 }
 
-// q (S, H*Dqk); pools k (P, page, H*Dqk), v (P, page, H*Dv); table (S, pps)
-// and length (S,) int32; mask (S, >= pps*page) bool with row stride
-// mask_stride, or null; part (S * groups + grid, gh, Dv + 2) scratch; out
-// (S, H*Dv); all contiguous, float tensors f32; the plan's values from
-// pio_paged_decode_plan for this geometry. Launches the walk, then the
-// merge. Returns a cudaError_t (0 = launched).
-extern "C" int pio_paged_decode(const float* q, const float* kpool, const float* vpool, const int* table,
-                                const int* length, const unsigned char* mask, long long mask_stride, float* part,
-                                float* out, int slots, int h, int dqk, int dv, int page, int pps, int grid,
-                                int groups, int gh, int rows, int stages, int ncw, void* stream) {
-  if (slots <= 0 || h <= 0) return cudaSuccess;
-  if (dqk <= 0 || dv <= 0 || dqk > 128 || dv > 128 || page <= 0 || pps <= 0 || grid <= 0 ||
-      groups <= 0 || gh <= 0 || (long)gh * groups < h || rows <= 0 || rows > page || stages < 1 ||
-      stages > MAX_STAGES || ncw <= 0 || ncw > MAX_CW || (long)ncw * hpw_of(gh) < gh || slots > 65535 ||
-      h > 65535)
-    return cudaErrorInvalidValue;
-  Params p{q, kpool, vpool, table, length, mask, mask_stride, part, out, slots, h, dqk, dv, page, pps,
-           grid, groups, gh, rows, stages, ncw, 0};
+template <typename T>
+cudaError_t launch(Params<T> p, cudaStream_t s) {
   // 1-D bulk copies want 16-byte multiples and alignment: rows of whole
-  // channel groups of 4 floats, from 16-byte aligned pools
-  p.bulk = dqk % 4 == 0 && dv % 4 == 0 && reinterpret_cast<uintptr_t>(kpool) % 16 == 0 &&
-           reinterpret_cast<uintptr_t>(vpool) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  walk_kernel(cpl_of(dqk, dv), hpw_of(gh))<<<grid, (ncw + 1) * 32, smem_bytes(p), s>>>(p);
+  // 16-byte chunks (4 f32 or 8 bf16 channels a head), from 16-byte aligned
+  // pools
+  p.bulk = (p.dqk * (int)sizeof(T)) % 16 == 0 && (p.dv * (int)sizeof(T)) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(p.kpool) % 16 == 0 && reinterpret_cast<uintptr_t>(p.vpool) % 16 == 0;
+  walk_kernel<T>(cpl_of(p.dqk, p.dv), hpw_of(p.gh))<<<p.grid, (p.ncw + 1) * 32, smem_bytes(p), s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(slots, h);
+  cfg.gridDim = dim3(p.slots, p.h);
   cfg.blockDim = dim3(MERGE_THREADS);
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_merge_kernel, p);
+  err = cudaLaunchKernelEx(&cfg, paged_merge_kernel<T>, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// K3's plan for a geometry and dtype (0 f32, 1 bf16) on the current device:
+// plan = {grid, head groups, heads a group, rows a tile, stages, dynamic
+// shared memory bytes, consumer warps}. Whole pages of all heads a stage
+// where three stages fit, else runs of a page's rows, else head groups; as
+// many stages as fit, up to 8; one CTA an SM where a CTA takes more than half
+// of one's shared memory, else two. Also lifts the walk's shared-memory limit
+// to the device's. Returns a cudaError_t.
+extern "C" int pio_paged_decode_plan(int slots, int h, int dqk, int dv, int page, int n_sm, int dtype, int* plan) {
+  if (slots <= 0 || h <= 0 || dqk <= 0 || dv <= 0 || dqk > 128 || dv > 128 || page <= 0 || n_sm <= 0)
+    return cudaErrorInvalidValue;
+  if (dtype == pio::kF32) return plan_for<float>(slots, h, dqk, dv, page, n_sm, plan);
+  if (dtype == pio::kBF16) return plan_for<__nv_bfloat16>(slots, h, dqk, dv, page, n_sm, plan);
+  return cudaErrorInvalidValue;
+}
+
+// q (S, H*Dqk); pools k (P, page, H*Dqk), v (P, page, H*Dv); table (S, pps)
+// and length (S,) int32; mask (S, >= pps*page) bool with row stride
+// mask_stride, or null; part (S * groups + grid, gh, Dv + 2) f32 scratch; out
+// (S, H*Dv); all contiguous; q, the pools and out all f32 (dtype 0) or all
+// bf16 (dtype 1); the plan's values from pio_paged_decode_plan for this
+// geometry and dtype. Launches the walk, then the merge. Returns a
+// cudaError_t (0 = launched).
+extern "C" int pio_paged_decode(const void* q, const void* kpool, const void* vpool, const int* table,
+                                const int* length, const unsigned char* mask, long long mask_stride, float* part,
+                                void* out, int slots, int h, int dqk, int dv, int page, int pps, int grid,
+                                int groups, int gh, int rows, int stages, int ncw, int dtype, void* stream) {
+  if (slots <= 0 || h <= 0) return cudaSuccess;
+  if (dqk <= 0 || dv <= 0 || dqk > 128 || dv > 128 || page <= 0 || pps <= 0 || grid <= 0 ||
+      groups <= 0 || gh <= 0 || (long)gh * groups < h || rows <= 0 || rows > page || stages < 1 ||
+      stages > MAX_STAGES || ncw <= 0 || ncw > MAX_CW || (long)ncw * hpw_of(gh) < gh || slots > 65535 ||
+      h > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == pio::kF32)
+    return launch(Params<float>{static_cast<const float*>(q), static_cast<const float*>(kpool),
+                                static_cast<const float*>(vpool), table, length, mask, mask_stride, part,
+                                static_cast<float*>(out), slots, h, dqk, dv, page, pps, grid, groups, gh, rows,
+                                stages, ncw, 0},
+                  s);
+  if (dtype == pio::kBF16) {
+    using B = __nv_bfloat16;
+    return launch(Params<B>{static_cast<const B*>(q), static_cast<const B*>(kpool), static_cast<const B*>(vpool),
+                            table, length, mask, mask_stride, part, static_cast<B*>(out), slots, h, dqk, dv, page,
+                            pps, grid, groups, gh, rows, stages, ncw, 0},
+                  s);
+  }
+  return cudaErrorInvalidValue;
 }

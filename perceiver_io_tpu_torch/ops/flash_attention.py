@@ -25,10 +25,17 @@ Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
   gradient;
 - output in q's dtype, logsumexp ``(B, Nq, H)`` f32;
 - the backward recomputes ``p = exp(s - lse)`` from the saved logsumexp, with
-  ``delta_i = rowsum(dO_i * O_i)`` per head, ``dV = P^T dO``,
+  ``delta_i = rowsum(dO_i * O_i)`` per head (f32), ``dV = P^T dO``,
   ``dS = P * (dO V^T - delta) * sm_scale``, ``dK = dS^T Q``, ``dQ = dS K``.
-  The bias and the pad mask get no gradient, as in the JAX package. The
-  backward kernels take f32 only (the training slice's dtype).
+  The bias and the pad mask get no gradient, as in the JAX package.
+- bf16 operands (K2, K4a and K4b take them, as the JAX package's kernels
+  do): every product takes bf16 operands and sums in f32, the softmax and
+  ``delta`` are f32, and the gradients come out in bf16. The backward rounds
+  ``p`` to bf16 before ``dV = P^T dO`` and ``dS`` to bf16 before ``dK`` and
+  ``dQ``, where the JAX kernels round them. The forward keeps ``p`` in f32
+  for ``P V`` (K2's bf16 build splits ``p`` into two bf16 parts, ~2^-16),
+  where the JAX kernel rounds it to bf16 once: a closer answer, within the
+  JAX package's bf16 rounding.
 
 Dispatch is by device: a CUDA tensor launches the kernels (or raises), a CPU
 tensor takes the plain versions. There is no fallback on failure. Every call
@@ -40,11 +47,13 @@ The two-segment form computes exactly ``flash_attention_packed(q,
 [k_p; k_l], [v_p; v_l], causal=True)`` with the two pad masks joined, without
 joining anything: query ``i`` sees the whole prefix and latent slots
 ``t <= i`` (causal offset 0 in latent-local coordinates), and the kernels read
-each segment where it lies. Its kernels take f32 operands only.
+each segment where it lies. Its kernels take f32 operands only (their bf16
+builds are not ported yet).
 
 The heads-major form has the same semantics per (batch, head) row; the
 wrapper zero-pads odd head dims to a multiple of 8 and slices the extra
-output channels off. Its kernels take f32 operands only.
+output channels off. Its kernels take f32 operands only (their bf16 builds
+are not ported yet).
 """
 
 from __future__ import annotations
@@ -133,6 +142,15 @@ def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
     return (t if t.dtype == torch.float64 else t.float()).reshape(b, n, h, c // h)
 
 
+def _rounding(dtype: torch.dtype):
+    """The backward's rounding of ``p`` and ``dS`` before a gradient
+    product: to bf16 and back for bf16 operands (where the JAX kernels cast
+    them to the operands' dtype), none for f32 and f64 ones."""
+    if dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).to(x.dtype)
+    return lambda x: x
+
+
 def _visible(nq: int, nkv: int, causal: bool, device) -> Optional[torch.Tensor]:
     """(Nq, Nkv) bool, True where query i sees key j (None: every key)."""
     if not causal:
@@ -175,8 +193,9 @@ def _bwd_plain(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale):
         # also drops the NaN of a row that sees nothing (lse = -inf)
         p = torch.where(visible, p, torch.zeros((), device=p.device))
     delta = (do4 * o4).sum(dim=-1).permute(0, 2, 1)[..., None]  # (B, H, Nq, 1)
-    dv = torch.einsum("bhij,bihc->bjhc", p, do4)
-    ds = p * (torch.einsum("bihc,bjhc->bhij", do4, v4) - delta) * sm_scale
+    rnd = _rounding(q.dtype)
+    dv = torch.einsum("bhij,bihc->bjhc", rnd(p), do4)
+    ds = rnd(p * (torch.einsum("bihc,bjhc->bhij", do4, v4) - delta) * sm_scale)
     dk = torch.einsum("bhij,bihc->bjhc", ds, q4)
     dq = torch.einsum("bhij,bjhc->bihc", ds, k4)
     return (dq.reshape(q.shape).to(q.dtype), dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype))
@@ -210,7 +229,8 @@ def flash_attention_packed_bwd_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward (what K4a and K4b compute): ``(dq, dk, dv)`` from
     the forward's output ``o`` and logsumexp ``lse`` and the output gradient
-    ``do``, dense in f32."""
+    ``do``, dense in f32 (``p`` and ``dS`` rounded to bf16 for bf16
+    operands)."""
     bias = bias_row(pad_mask, q.shape[0], k.shape[1], q.device)
     return _bwd_plain(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale)
 
@@ -284,7 +304,7 @@ def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
         _DTYPE_CODES[q.dtype], build.current_stream(q.device),
     )
     build.check(err, "flash_packed_fwd")
-    build.count_launch("flash_packed_fwd")
+    build.count_launch("flash_packed_fwd", q.dtype)
     return o, lse
 
 
@@ -297,22 +317,24 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor, num_heads: int) -> torch.Tensor
 
 
 def _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
-    _check_cuda_operands((q, k, v, do), (torch.float32,), "the packed flash backward")
+    _check_cuda_operands((q, k, v, do), tuple(_DTYPE_CODES), "the packed flash backward")
     b, nq, nkv = q.shape[0], q.shape[1], k.shape[1]
     d_qk, d_v = _head_dims(q, v, num_heads)
     ptrs = tuple(t.data_ptr() for t in (q, k, v, do, lse, delta)) + (None if bias is None else bias.data_ptr(),)
-    ints = (b, nq, nkv, num_heads, d_qk, d_v, int(bool(causal)), float(sm_scale), build.current_stream(q.device))
+    ints = (b, nq, nkv, num_heads, d_qk, d_v, int(bool(causal)), float(sm_scale), _DTYPE_CODES[q.dtype],
+            build.current_stream(q.device))
     return ptrs, ints
 
 
 def bwd_dkv_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
-    """The K4a wrapper: ``(dk, dv)`` for contiguous, aligned f32 operands,
-    ``lse``/``delta`` (B, Nq, H) f32 and the bias row (or None)."""
+    """The K4a wrapper: ``(dk, dv)`` for contiguous, aligned operands of one
+    dtype (f32 or bf16; the gradients in it), ``lse``/``delta`` (B, Nq, H)
+    f32 and the bias row (or None)."""
     ptrs, ints = _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.check(build.launcher("flash_packed_bwd_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints),
                 "flash_packed_bwd_dkv")
-    build.count_launch("flash_packed_bwd_dkv")
+    build.count_launch("flash_packed_bwd_dkv", q.dtype)
     return dk, dv
 
 
@@ -321,7 +343,7 @@ def bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
     ptrs, ints = _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
     dq = torch.empty_like(q)
     build.check(build.launcher("flash_packed_bwd_dq")(*ptrs, dq.data_ptr(), *ints), "flash_packed_bwd_dq")
-    build.count_launch("flash_packed_bwd_dq")
+    build.count_launch("flash_packed_bwd_dq", q.dtype)
     return dq
 
 

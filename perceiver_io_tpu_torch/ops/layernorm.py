@@ -26,16 +26,24 @@ from torch import nn
 from perceiver_io_tpu_torch.ops import build
 
 
+def _acc(t: torch.Tensor, like: torch.Tensor = None) -> torch.Tensor:
+    """``t`` in the plain versions' arithmetic: f32, or f64 where ``like``
+    (``t`` itself by default) is f64."""
+    like = t if like is None else like
+    return t.double() if like.dtype == torch.float64 else t.float()
+
+
 def layer_norm_reference_stats(x, weight, bias, eps, dtype):
     """The plain forward with its statistics: ``(y, mean, rstd)``, the
-    statistics (rows,) f32 (what K1's ``WANT_STATS`` variant writes)."""
-    xf = x.float()
+    statistics (rows,) f32 (what K1's ``WANT_STATS`` variant writes; f64
+    for f64 copies, which evaluate in f64)."""
+    xf = _acc(x)
     mean = xf.mean(dim=-1, keepdim=True)
     mean2 = (xf * xf).mean(dim=-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
     y = (xf - mean) * rstd
-    y = y * weight.float() + bias.float()
+    y = y * _acc(weight, x) + _acc(bias, x)
     return y.to(dtype), mean.reshape(-1), rstd.reshape(-1)
 
 
@@ -49,10 +57,10 @@ def layer_norm_bwd_reference(x, weight, mean, rstd, dy):
     package): ``(dx, dweight, dbias)`` from the forward's per-row ``mean`` /
     ``rstd`` (rows,) f32 and the output gradient ``dy``."""
     c = x.shape[-1]
-    xf, dyf = x.reshape(-1, c).float(), dy.reshape(-1, c).float()
+    xf, dyf = _acc(x.reshape(-1, c)), _acc(dy.reshape(-1, c), x)
     rstd = rstd.reshape(-1, 1)
     xhat = (xf - mean.reshape(-1, 1)) * rstd
-    g = dyf * weight.float()
+    g = dyf * _acc(weight, x)
     m1 = g.mean(dim=-1, keepdim=True)
     m2 = (g * xhat).mean(dim=-1, keepdim=True)
     dx = rstd * (g - m1 - xhat * m2)
@@ -111,7 +119,7 @@ def layer_norm_cuda(x, weight, bias, eps, dtype, want_stats: bool = False):
         rstd = torch.empty_like(mean)
     if x2.shape[0]:
         launch_layer_norm_fwd(x2, weight.contiguous(), bias.contiguous(), y, float(eps), mean, rstd)
-        build.count_launch("layer_norm_fwd")
+        build.count_launch("layer_norm_fwd", x.dtype)
     return y.reshape(x.shape), mean, rstd
 
 
@@ -129,7 +137,7 @@ def layer_norm_bwd_cuda(x, weight, mean, rstd, dy):
     db = torch.zeros_like(dw)
     if x2.shape[0]:
         launch_layer_norm_bwd(x2, weight.contiguous(), mean, rstd, dy2, dx, dw, db)
-        build.count_launch("layer_norm_bwd")
+        build.count_launch("layer_norm_bwd", x.dtype)
     return dx.reshape(x.shape), dw.to(weight.dtype), db.to(weight.dtype)
 
 

@@ -9,11 +9,12 @@ expired window slots. (The JAX function's ``mask`` replaces the validity
 mask instead; its callers always include validity in it, so the results
 agree.)
 
-The CUDA kernel (``csrc/paged_decode.cu``, f32 pools) walks the page tables
-of all slots as one list, split into equal runs of pages over a fixed grid
-of CTAs (:func:`paged_work_items` is that rule in plain Python), copies
-whole pages into shared memory ahead of use, reads the mask as bytes, and
-merges each slot's partials in a second launch;
+The CUDA kernel (``csrc/paged_decode.cu``; f32 or bf16 q and pools of one
+dtype, the output in it) walks the page tables of all slots as one list,
+split into equal runs of pages over a fixed grid of CTAs
+(:func:`paged_work_items` is that rule in plain Python), copies whole pages
+into shared memory ahead of use, reads the mask as bytes, and merges each
+slot's partials in a second launch;
 :func:`paged_attention_reference` rebuilds the contiguous view with
 ``gather_view`` and runs dense attention. The two agree on every slot, a
 slot whose every valid token is masked and a slot of length 0 included
@@ -31,13 +32,13 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 from perceiver_io_tpu_torch.ops import build
-from perceiver_io_tpu_torch.ops.flash_attention import MASK_VALUE
+from perceiver_io_tpu_torch.ops.flash_attention import _DTYPE_CODES, MASK_VALUE
 
 
 def paged_kernel_supported(cache, num_heads: int, d_qk: int, d_v: int) -> bool:
-    """Whether the kernel serves this pool: f32 pools (the serving path's
-    cache dtype) and head dims up to 128 (four channels per lane)."""
-    return (cache.k.dtype == torch.float32 and cache.v.dtype == torch.float32
+    """Whether the kernel serves this pool: f32 or bf16 pools (the engine's
+    ``cache_dtype``) and head dims up to 128 (four channels a lane)."""
+    return (cache.k.dtype in _DTYPE_CODES and cache.v.dtype == cache.k.dtype
             and 1 <= d_qk <= 128 and 1 <= d_v <= 128)
 
 
@@ -60,7 +61,8 @@ def paged_attention_reference(qh: torch.Tensor, cache, mask: Optional[torch.Tens
     d_v = cache.v.shape[2] // h
     k_h = k_slots.reshape(s_slots, cap, h, d_qk)
     v_h = v_slots.reshape(s_slots, cap, h, d_v)
-    scores = torch.einsum("bhc,bjhc->bhj", qh.float(), k_h.float())
+    acc = torch.float64 if qh.dtype == torch.float64 else torch.float32  # f64 copies evaluate in f64
+    scores = torch.einsum("bhc,bjhc->bhj", qh.to(acc), k_h.to(acc))
     scores = scores.masked_fill(mask[:, None, :], MASK_VALUE)
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("bhj,bjhc->bhc", attn.to(v_h.dtype), v_h)
@@ -127,13 +129,14 @@ class KernelPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_plan(device_index: int, slots: int, h: int, d_qk: int, d_v: int, page: int) -> KernelPlan:
-    """K3's plan for this geometry on the card, from the runtime (its SM
-    count and shared memory)."""
+def kernel_plan(device_index: int, slots: int, h: int, d_qk: int, d_v: int, page: int,
+                dtype: torch.dtype = torch.float32) -> KernelPlan:
+    """K3's plan for this geometry and dtype on the card, from the runtime
+    (its SM count and shared memory)."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(device_index):
-        err = build.launcher("paged_decode_plan")(slots, h, d_qk, d_v, page, sms, out)
+        err = build.launcher("paged_decode_plan")(slots, h, d_qk, d_v, page, sms, _DTYPE_CODES[dtype], out)
     build.check(err, "paged_decode plan")
     return KernelPlan(*out)
 
@@ -141,8 +144,9 @@ def kernel_plan(device_index: int, slots: int, h: int, d_qk: int, d_v: int, page
 def _paged_decode_cuda(qh, cache, mask):
     s_slots, h, d_qk = qh.shape
     d_v = cache.v.shape[2] // h
-    if qh.dtype != torch.float32 or cache.k.dtype != torch.float32 or cache.v.dtype != torch.float32:
-        raise TypeError(f"paged_decode_attention takes f32 q and pools, got "
+    dtype = qh.dtype
+    if dtype not in _DTYPE_CODES or cache.k.dtype != dtype or cache.v.dtype != dtype:
+        raise TypeError(f"paged_decode_attention takes f32 or bf16 q and pools of one dtype, got "
                         f"{qh.dtype}/{cache.k.dtype}/{cache.v.dtype}")
     if d_qk > 128 or d_v > 128:
         raise ValueError(f"paged decode kernel takes head dims <= 128, got ({d_qk}, {d_v})")
@@ -166,26 +170,29 @@ def _paged_decode_cuda(qh, cache, mask):
                              f"stride, got {mask.dtype} {tuple(mask.shape)} strides {mask.stride()}")
         mask_ptr, mask_stride = mask.data_ptr(), mask.stride(0)
     q = qh.reshape(s_slots, h * d_qk).contiguous()
-    plan = kernel_plan(dev.index, s_slots, h, d_qk, d_v, cache.page_size)
+    plan = kernel_plan(dev.index, s_slots, h, d_qk, d_v, cache.page_size, dtype)
     n_part = plan.grid + s_slots * plan.groups
     part = torch.empty((n_part * plan.heads_per_group * (d_v + 2),), dtype=torch.float32, device=dev)
-    out = torch.empty((s_slots, h * d_v), dtype=torch.float32, device=dev)
+    out = torch.empty((s_slots, h * d_v), dtype=dtype, device=dev)
     err = build.launcher("paged_decode")(
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), cache.page_table.data_ptr(), cache.length.data_ptr(),
         mask_ptr, mask_stride, part.data_ptr(), out.data_ptr(), s_slots, h, d_qk, d_v, cache.page_size,
         cache.pages_per_slot, plan.grid, plan.groups, plan.heads_per_group, plan.rows, plan.stages,
-        plan.consumer_warps, build.current_stream(dev),
+        plan.consumer_warps, _DTYPE_CODES[dtype], build.current_stream(dev),
     )
     build.check(err, "paged_decode")
-    build.count_launch("paged_decode")
+    build.count_launch("paged_decode", dtype)
     return out.reshape(s_slots, h, d_v)
 
 
 def paged_decode_attention(qh: torch.Tensor, cache, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-query attention over paged KV: ``qh`` (S, H, Dk) scaled and
-    rotated, ``cache`` a float ``PagedKVCache`` (f32 on the card), ``mask``
-    an optional (S, capacity) bool, True = masked, on top of the slot
-    validity. Returns (S, H, Dv); the caller merges heads.
+    rotated, ``cache`` a float ``PagedKVCache`` (on the card f32 or bf16 pools
+    of ``qh``'s dtype), ``mask`` an optional (S, capacity) bool, True =
+    masked, on top of the slot validity. Returns (S, H, Dv): on the card in
+    ``qh``'s dtype, in the plain version in the pools' (which rounds the
+    softmax weights to it before the value product, as the JAX package's
+    plain version does); the caller merges heads.
 
     Decode only: it has no gradient (nor has the JAX kernel a VJP), so an
     input that requires grad under grad mode raises rather than return an

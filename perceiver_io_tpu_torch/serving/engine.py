@@ -103,16 +103,21 @@ class EngineFrontEnd:
     :param base_config: sampling policy (``max_new_tokens`` comes from each
         request).
     :param engine_config: slot and page geometry.
+    :param cache_dtype: the dtype of the page pools and of the prefill's
+        contiguous caches (None: f32, as in the JAX engine); a bf16 model
+        serves from bf16 pools with ``torch.bfloat16``.
     :param device: ``"cuda"`` by default; asking for CUDA without a card
         raises (pass ``device="cpu"`` for the plain versions).
     """
 
     def __init__(self, model: CausalSequenceModel, *, num_latents: int = 1,
                  base_config: Optional[GenerationConfig] = None,
-                 engine_config: Optional[EngineConfig] = None, device: DeviceLike = "cuda"):
+                 engine_config: Optional[EngineConfig] = None, cache_dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = "cuda"):
         self.device = _model_device(model, device)
         self.model = model
         self.num_latents = int(num_latents)
+        self.cache_dtype = torch.float32 if cache_dtype is None else cache_dtype
         self.engine_config = ec = engine_config or EngineConfig()
         self._gen_config = base_config or GenerationConfig()
         ps = ec.page_size
@@ -124,7 +129,8 @@ class EngineFrontEnd:
         self.sa_alloc = PageAllocator(sa_pool, ps)
         caches = CausalSequenceModel.init_paged_cache(
             model.config, ec.slots, ps, ca_num_pages=ca_pool, ca_pages_per_slot=self._ca_pages_per_slot,
-            sa_num_pages=sa_pool, sa_pages_per_slot=self._sa_pages_per_slot, device=self.device,
+            sa_num_pages=sa_pool, sa_pages_per_slot=self._sa_pages_per_slot, dtype=self.cache_dtype,
+            device=self.device,
         )
         s, dev = ec.slots, self.device
         self._state: Dict[str, Any] = {
@@ -194,7 +200,7 @@ class EngineFrontEnd:
         if max_new not in self._prefill_fns:
             cfg = dataclasses.replace(self._gen_config, max_new_tokens=max_new)
             self._prefill_fns[max_new], _ = make_decode_fns(
-                self.model, self.num_latents, cfg, device=self.device)
+                self.model, self.num_latents, cfg, self.cache_dtype, device=self.device)
         return self._prefill_fns[max_new]
 
     def _try_join(self, slot_id: int) -> bool:

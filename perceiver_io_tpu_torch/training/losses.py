@@ -18,8 +18,9 @@ IGNORE_INDEX = -100  # torch CrossEntropyLoss ignore_index parity
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean CE over labels != IGNORE_INDEX (0 when none is valid). Returns
-    (loss, num_valid)."""
+    """Mean CE over labels != IGNORE_INDEX (0 when none is valid), the
+    logits cast to f32 before the log-softmax (bf16 logits too, as the JAX
+    package casts them). Returns (loss, num_valid)."""
     valid = labels != IGNORE_INDEX
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -12,6 +12,14 @@ What the JAX package chains in optax, the port applies as one
 - optax's ``adamw``, which ``torch.optim.AdamW`` computes: bias-corrected
   moments, ``eps`` outside the square root, weight decay decoupled, applied
   to the pre-step parameter and to every parameter;
+- or, with ``moment_dtype`` (``make_optimizer(..., moment_dtype="bfloat16")``),
+  the JAX package's chain ``scale_by_adam_compact`` -> ``add_decayed_weights``
+  -> ``scale_by_learning_rate``: the moments are STORED in ``moment_dtype``
+  and the update is computed in f32 (the moments upcast, updated, rounded to
+  nearest even on store), the weight decay added to the update (optax's
+  order, not torch's decay of the pre-step parameter), written by hand with
+  ``torch._foreach_*`` ops (``torch.optim.AdamW`` keeps its moments in the
+  parameters' dtype);
 - the LR schedule indexed by the count of applied updates from 0, as optax's
   count is: the first update uses ``lr(0)``, and an update the train step
   skips (non-finite gradients) does not advance it.
@@ -23,8 +31,10 @@ graph (``training.loop``) replays it: the schedule is evaluated on the count
 tensor, as optax evaluates it on its traced count. On the card AdamW runs
 with ``capturable=True``; on the CPU, where torch refuses that, with
 ``fused=True``, which also reads its step and learning rate from tensors.
+The compact update is capturable as written (its bias corrections read the
+count tensor, its rate the rate tensor).
 
-Moments are f32. ``scale_by_adam_compact`` (bf16 moments), Lamb and SGD are
+The ``"adam"`` optimizer (with or without compact moments), Lamb and SGD are
 not ported.
 """
 
@@ -84,21 +94,82 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+class CompactAdam:
+    """``scale_by_adam_compact`` -> ``add_decayed_weights`` ->
+    ``scale_by_learning_rate`` (the JAX package's ``make_optimizer("adamw",
+    moment_dtype=...)``) over one parameter list: moments ``mu``/``nu``
+    stored in ``moment_dtype``, the update in f32, every operation in optax's
+    order, so each rounding falls where the JAX package's does."""
+
+    def __init__(self, params: List[torch.nn.Parameter], betas, weight_decay: float, moment_dtype: torch.dtype,
+                 eps: float = 1e-8):
+        self.params = params
+        self.b1, self.b2 = betas
+        self.weight_decay, self.eps = weight_decay, eps
+        self.mu = [torch.zeros_like(p, dtype=moment_dtype) for p in params]
+        self.nu = [torch.zeros_like(p, dtype=moment_dtype) for p in params]
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor], count: torch.Tensor, lr: torch.Tensor) -> None:
+        """One update from f32 ``grads``; ``count`` is the number of updates
+        applied before this one (optax's count then becomes ``count + 1``),
+        ``lr`` the 0-d rate."""
+        b1, b2 = self.b1, self.b2
+        t = (count + 1).to(torch.float32)
+        bc1, bc2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+        # m = b1 m + (1 - b1) g and v = b2 v + (1 - b2) g g in f32, the
+        # gradient term's last product fused into the sum (one rounding of
+        # a * g + round(beta * moment)), as XLA contracts them in the JAX
+        # package's jitted update: that product of two f32 values is exact
+        # in f64, so the f64 sum rounded to f32 is the fused result
+        m = self._fused(grads, torch.tensor(1.0 - b1, dtype=torch.float32).item(),
+                        torch._foreach_mul([x.float() for x in self.mu], b1))
+        v = self._fused(grads, torch._foreach_mul(grads, 1.0 - b2), torch._foreach_mul([x.float() for x in self.nu], b2))
+        torch._foreach_copy_(self.mu, m)
+        torch._foreach_copy_(self.nu, v)
+        den = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(m, bc1)
+        torch._foreach_div_(u, den)
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(self.params, u)
+
+    @staticmethod
+    def _fused(a: List[torch.Tensor], b, c: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``a * b + c`` for f32 lists ``a`` and ``c`` and an f32 list or an
+        f32-representable number ``b``, rounded once to f32."""
+        out = [x.double() for x in a]
+        torch._foreach_mul_(out, b if isinstance(b, float) else [x.double() for x in b])
+        torch._foreach_add_(out, [x.double() for x in c])
+        return [x.float() for x in out]
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        return self.mu + self.nu
+
+
 class Optimizer:
-    """Global-norm clip + AdamW + LR schedule over one parameter list (see
-    the module docstring). ``step()`` applies one update from the
-    parameters' ``.grad``; a parameter without one is updated as with a zero
-    gradient, as optax does. ``count`` (applied updates, the schedule's
-    index) and ``lr`` are 0-d tensors on the parameters' device."""
+    """Global-norm clip + AdamW (torch's, or :class:`CompactAdam` with
+    ``moment_dtype``) + LR schedule over one parameter list (see the module
+    docstring). ``step()`` applies one update from the parameters'
+    ``.grad``; a parameter without one is updated as with a zero gradient, as
+    optax does. ``count`` (applied updates, the schedule's index) and ``lr``
+    are 0-d tensors on the parameters' device."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Schedule, weight_decay: float,
-                 betas, gradient_clip: Optional[float]):
+                 betas, gradient_clip: Optional[float], moment_dtype: Optional[torch.dtype] = None):
         self.params = list(params)
         self.schedule = schedule
         self.gradient_clip = gradient_clip
         dev = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.adamw, self.compact = None, None
+        if moment_dtype is not None:
+            self.compact = CompactAdam(self.params, betas, weight_decay, moment_dtype)
+            return
         on_card = dev.type == "cuda"
         # on the card the multi-tensor form: torch's single-tensor capturable
         # form divides by the learning rate, and at a rate of 0 (a warmup's
@@ -128,7 +199,10 @@ class Optimizer:
             self.lr.copy_(lr)
         else:
             self.lr.fill_(lr)
-        self.adamw.step()
+        if self.compact is not None:
+            self.compact.step(grads, self.count, self.lr)
+        else:
+            self.adamw.step()
         self.count += 1
 
     def _scheduled_lr(self):
@@ -143,9 +217,11 @@ class Optimizer:
             raise
 
     def state_tensors(self) -> List[torch.Tensor]:
-        """Every tensor an update writes: the parameters, AdamW's moments and
-        step, the count."""
+        """Every tensor an update writes: the parameters, the moments (and
+        AdamW's step), the count."""
         out = list(self.params)
+        if self.compact is not None:
+            return out + self.compact.state_tensors() + [self.count]
         for p in self.params:
             state = self.adamw.state[p]
             out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
@@ -168,16 +244,23 @@ class Optimizer:
 
 
 def make_optimizer(learning_rate: Union[float, Schedule], optimizer: str = "adamw", weight_decay: float = 0.01,
-                   beta1: float = 0.9, beta2: float = 0.999,
-                   gradient_clip: Optional[float] = None) -> Callable[[Iterable[torch.nn.Parameter]], Optimizer]:
+                   beta1: float = 0.9, beta2: float = 0.999, gradient_clip: Optional[float] = None,
+                   moment_dtype: Optional[Union[str, torch.dtype]] = None,
+                   ) -> Callable[[Iterable[torch.nn.Parameter]], Optimizer]:
     """A factory ``tx(params) -> Optimizer`` (``TrainState.create`` calls
     it): the port's ``make_optimizer("adamw", gradient_clip=...,
-    weight_decay=...)``. Only AdamW with f32 moments is ported."""
+    weight_decay=..., moment_dtype=...)``. ``moment_dtype`` (``"bfloat16"``
+    or a torch dtype) stores the Adam moments in it (:class:`CompactAdam`);
+    None keeps torch's AdamW with f32 moments. Only AdamW is ported."""
+    if moment_dtype is not None and optimizer not in ("adamw", "adam"):
+        raise ValueError(f"moment_dtype is only supported for adam/adamw, not {optimizer}")
     if optimizer != "adamw":
         raise NotImplementedError(f"optimizer {optimizer!r} is not ported (only 'adamw')")
+    if isinstance(moment_dtype, str):
+        moment_dtype = getattr(torch, moment_dtype)
     schedule = learning_rate if callable(learning_rate) else (lambda step, lr=float(learning_rate): lr)
 
     def tx(params: Iterable[torch.nn.Parameter]) -> Optimizer:
-        return Optimizer(params, schedule, weight_decay, (beta1, beta2), gradient_clip)
+        return Optimizer(params, schedule, weight_decay, (beta1, beta2), gradient_clip, moment_dtype)
 
     return tx

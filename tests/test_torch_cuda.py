@@ -570,11 +570,12 @@ def test_engine_serves_head_dim_160_by_the_gather_route(cuda):
     assert engine.served_tokens[0] == want
 
 
-@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 64, torch.bfloat16)])
+@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 192, torch.bfloat16)])
 def test_paged_decode_refuses_what_only_the_jax_kernel_serves(cuda, heads, d, dtype):
     """Pools that the JAX package's paged kernel serves and K3 cannot take
-    (heads of 192, a bf16 pool) raise on the card before anything launches:
-    the gather route stands in only where the JAX package gathers too."""
+    (heads of 192, in f32 or bf16 pools) raise on the card before anything
+    launches: the gather route stands in only where the JAX package gathers
+    too."""
     from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
     from perceiver_io_tpu_torch.core.cache import init_paged_kv_cache
     from perceiver_io_tpu_torch.ops import build
@@ -873,18 +874,21 @@ def test_graph_replays_count_their_launches(cuda):
     assert nodes["paged_walk_kernel"] == nodes["paged_merge_kernel"] == graph.launches["paged_decode"], nodes
 
 
-def _graph_train_run(cuda, route, jit, batches, sentinel=False, poison=None, microbatch=2):
+def _graph_train_run(cuda, route, jit, batches, sentinel=False, poison=None, microbatch=2, dtype=torch.float32,
+                     moment_dtype=None):
     """A small CLM's train steps on ``batches`` (clip 1.0, a warmup-cosine
     schedule), a CUDA graph with ``jit``; the loss multiplied
-    by each step's ``poison`` value where given. Returns the state, each
+    by each step's ``poison`` value where given; the model's compute dtype
+    and the moments' storage dtype as given. Returns the state, each
     step's metrics and each step's optimizer state tensors."""
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
     from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
     model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
-                                generator=torch.Generator().manual_seed(0))
-    state = tt.TrainState.create(model, tt.make_optimizer(tt.cosine_with_warmup(1e-3, 6, 1), gradient_clip=1.0))
+                                generator=torch.Generator().manual_seed(0), dtype=dtype)
+    state = tt.TrainState.create(model, tt.make_optimizer(tt.cosine_with_warmup(1e-3, 6, 1), gradient_clip=1.0,
+                                                          moment_dtype=moment_dtype))
     loss_fn = tt.clm_loss_fn(128)
     if poison is not None:
         base = loss_fn
@@ -1046,3 +1050,228 @@ def test_a_schedule_that_cannot_take_a_tensor_refuses_the_capture(cuda):
     tt.make_train_step(tt.clm_loss_fn(128), jit=False)(state, batch)
     with pytest.raises(RuntimeError, match="schedule"):
         tt.make_train_step(tt.clm_loss_fn(128))(state, batch)
+
+
+
+# ---------------------------------------------------------------------------
+# bf16: the CLM's bf16 builds (K4a/K4b, K3) and its bf16 train step
+# ---------------------------------------------------------------------------
+
+
+def _l2(a, b) -> float:
+    return float((a.double() - b.double()).norm())
+
+
+def _bf16_rule(kernel, plain, f64, margin: float, slack: float = 0.0):
+    """The card's bf16 rule: the kernel no further from the f64 evaluation
+    of the same bf16 inputs than ``margin`` x the bf16 plain version (L2),
+    plus ``slack`` x |f64| (L2); and within 2e-2 of the plain version's
+    largest magnitude, element by element."""
+    assert torch.isfinite(kernel.float()).all()
+    assert _l2(kernel, f64) <= margin * _l2(plain, f64) + slack * float(f64.double().norm())
+    assert float((kernel.float() - plain.float()).abs().max()) <= 2e-2 * float(plain.float().abs().max())
+
+
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (40, 40), (128, 128), (32, 32), (64, 128)])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [
+    (True, 37, 203, 5),    # Nq < Nkv right-aligned, left-padded keys
+    (False, 64, 64, 0),
+    (True, 130, 130, 0),
+    (True, 90, 40, 0),     # Nq > Nkv: 50 rows see no key, zero gradient
+    (True, 77, 333, 0),    # neither length a multiple of 16
+    (False, 100, 1000, 17),  # a long kv walk, left pads
+])
+def test_flash_packed_bwd_bf16_kernels_match_plain(cuda, dqk, dv, causal, nq, nkv, n_pad):
+    """K4a/K4b's bf16 build (bf16 mma.sync, p and dS rounded to bf16 before
+    the gradient products) through the autograd Function: each gradient is
+    no further from the plain backward evaluated in f64 on the same bf16
+    inputs than 1.25x the bf16 plain version (L2), and within 2e-2 of the
+    plain version's largest magnitude; one bf16 launch each, no f32 one."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_bwd_reference,
+    )
+
+    g = torch.Generator().manual_seed(3)
+    h = 4
+    q, k = (torch.randn(2, n, h * dqk, generator=g).to(cuda, torch.bfloat16).requires_grad_() for n in (nq, nkv))
+    v = torch.randn(2, nkv, h * dv, generator=g).to(cuda, torch.bfloat16).requires_grad_()
+    do = torch.randn(2, nq, h * dv, generator=g).to(cuda, torch.bfloat16)
+    pad = torch.zeros(2, nkv, dtype=torch.bool, device=cuda)
+    pad[1, :n_pad] = True
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, sm_scale=dqk**-0.5, return_lse=True)
+    build.reset_launches()
+    o.backward(do)
+    assert (build.LAUNCHES["flash_packed_bwd_dkv_bf16"], build.LAUNCHES["flash_packed_bwd_dq_bf16"]) == (1, 1)
+    assert build.LAUNCHES["flash_packed_bwd_dkv"] == build.LAUNCHES["flash_packed_bwd_dq"] == 0
+    ops = [t.detach() for t in (q, k, v, o)]
+    plain = flash_attention_packed_bwd_reference(*ops, lse, do, h, pad_mask=pad, causal=causal, sm_scale=dqk**-0.5)
+    f64 = flash_attention_packed_bwd_reference(*(t.double() for t in ops), lse.double(), do.double(), h,
+                                               pad_mask=pad, causal=causal, sm_scale=dqk**-0.5)
+    for got, p, e in zip((q.grad, k.grad, v.grad), plain, f64):
+        assert got.dtype == torch.bfloat16
+        _bf16_rule(got, p, e, 1.25)
+    if nq > nkv:
+        assert torch.equal(q.grad[:, : nq - nkv], torch.zeros_like(q.grad[:, : nq - nkv]))
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("case", ["serve_ca", "serve_sa", "edges", "ca_retired", "skewed", "all_masked",
+                                  "shared_pages", "micro_odd_page", "unaligned", "head_groups"])
+def test_paged_decode_bf16_kernel_matches_plain(cuda, case, with_mask):
+    """K3's bf16 build over bf16 pools (the bulk copies at half the bytes;
+    2-byte element copies where rows are no multiple of 16 bytes) against
+    the plain version: within 1e-2 of its largest magnitude, and no further
+    from the f64 evaluation than the plain version (L2, plus 1e-6 of the
+    output's size for the f32 sums' rounding), at the serve's CA and SA
+    pools, a length-0 slot, an all-masked slot and the edge cases; one bf16
+    launch a call."""
+    from perceiver_io_tpu_torch.core.cache import PagedKVCache, init_paged_kv_cache
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
+
+    g = torch.Generator().manual_seed(1)
+    slots, page, pps, h, d, lengths = PAGED_CASES[case]
+    cache = init_paged_kv_cache(slots, 1 + slots * pps, page, pps, h * d, h * d, dtype=torch.bfloat16, device=cuda)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=g))
+    table = (torch.randperm(slots * pps, generator=g) + 1).reshape(slots, pps).to(torch.int32)
+    if case == "shared_pages":
+        table[2, :3] = table[0, :3]
+    if case == "ca_retired":
+        table[0] = 0
+    cache.page_table = table.to(cuda)
+    cache.length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    qh = (torch.randn(slots, h, d, generator=g) * d**-0.5).to(cuda, torch.bfloat16)
+    mask = None
+    if with_mask:
+        mask = torch.zeros(slots, cache.capacity, dtype=torch.bool, device=cuda)
+        for s, n in enumerate(lengths):
+            mask[s, : min(n, cache.capacity) // 3] = True
+        if case == "all_masked":
+            mask[0, : lengths[0]] = True
+    build.reset_launches()
+    got = paged_decode_attention(qh, cache, mask)
+    assert build.LAUNCHES["paged_decode_bf16"] == 1 and build.LAUNCHES["paged_decode"] == 0
+    assert got.dtype == torch.bfloat16
+    plain = paged_attention_reference(qh, cache, mask)
+    c64 = PagedKVCache(cache.k.double(), cache.v.double(), cache.page_table, cache.length)
+    _bf16_rule(got, plain, paged_attention_reference(qh.double(), c64, mask), 1.0, slack=1e-6)
+    assert float((got.float() - plain.float()).abs().max()) <= 1e-2 * float(plain.float().abs().max())
+
+
+def test_paged_decode_takes_a_bf16_pool_of_heads_of_64(cuda):
+    """A bf16 pool of heads of 64 (the flagship's) goes to K3's bf16 build
+    through the attention layer; the gate that refuses heads of 192 (above)
+    lets it through."""
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+    from perceiver_io_tpu_torch.core.cache import init_paged_kv_cache
+    from perceiver_io_tpu_torch.ops import build
+
+    layer = MultiHeadAttention(2, 128, 128, causal_attention=True, dtype=torch.bfloat16).to(cuda)
+    cache = init_paged_kv_cache(2, 5, 8, 2, 128, 128, dtype=torch.bfloat16, device=cuda)
+    cache.page_table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    cache.length[:] = 3
+    x = torch.randn(2, 1, 128, generator=torch.Generator().manual_seed(7)).to(cuda, torch.bfloat16)
+    build.reset_launches()
+    with torch.no_grad():
+        out = layer(x, x, kv_cache=cache)
+    assert build.LAUNCHES["paged_decode_bf16"] == 1 and build.LAUNCHES["paged_decode"] == 0
+    assert out.last_hidden_state.dtype == torch.bfloat16 and out.kv_cache.length.tolist() == [4, 4]
+
+
+@pytest.mark.parametrize("rows", [16384, 15360])
+def test_layer_norm_bf16_kernels_at_the_flagship_shapes(cuda, rows):
+    """K1 (with its statistics at the training rows, 15360 x 512; without at
+    the serving prompt, 16384 x 512) and K5 at 15360 x 512, bf16 activations:
+    each output tuple no further from the f64 evaluation than 1.25x the
+    bf16 plain version (L2 over the tuple), within 2e-2 of the plain
+    version's largest magnitude, dgamma/dbeta within the f32 case's 5e-4 of
+    the plain sums; one bf16 launch each."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.layernorm import (
+        layer_norm_bwd_cuda,
+        layer_norm_bwd_reference,
+        layer_norm_cuda,
+        layer_norm_reference_stats,
+    )
+
+    g = torch.Generator().manual_seed(21)
+    c = 512
+    x = (torch.randn(rows, c, generator=g) * 2 + 0.5).to(cuda, torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    b = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    stats = rows == 15360
+    build.reset_launches()
+    got = layer_norm_cuda(x, w, b, 1e-5, torch.bfloat16, want_stats=stats)
+    assert build.LAUNCHES["layer_norm_fwd_bf16"] == 1 and build.LAUNCHES["layer_norm_fwd"] == 0
+    plain = layer_norm_reference_stats(x, w, b, 1e-5, torch.bfloat16)
+    f64 = layer_norm_reference_stats(x.double(), w.double(), b.double(), 1e-5, torch.float64)
+    n = 3 if stats else 1
+    flat = lambda ts: torch.cat([t.double().reshape(-1) for t in ts[:n]])  # noqa: E731
+    _bf16_rule(flat(got), flat(plain), flat(f64), 1.25)
+    if not stats:
+        return
+    dy = torch.randn(rows, c, generator=g).to(cuda, torch.bfloat16)
+    _, mean, rstd = got
+    build.reset_launches()
+    kernel = layer_norm_bwd_cuda(x, w, mean, rstd, dy)
+    assert build.LAUNCHES["layer_norm_bwd_bf16"] == 1 and build.LAUNCHES["layer_norm_bwd"] == 0
+    assert kernel[0].dtype == torch.bfloat16
+    plain = layer_norm_bwd_reference(x, w, mean, rstd, dy)
+    f64 = layer_norm_bwd_reference(x.double(), w.double(), mean.double(), rstd.double(), dy.double())
+    _bf16_rule(torch.cat([t.double().reshape(-1) for t in kernel]), torch.cat([t.double().reshape(-1) for t in plain]),
+               torch.cat([t.double().reshape(-1) for t in f64]), 1.25)
+    for k_, p_ in zip(kernel[1:], plain[1:]):
+        torch.testing.assert_close(k_, p_, atol=5e-4, rtol=0)
+
+
+def test_bf16_graphed_train_step_equals_the_eager_step_bit_for_bit(cuda):
+    """Three bf16 CLM train steps with bf16 Adam moments (microbatch 2, clip,
+    a warmup-cosine schedule whose first rate is 0, fresh keep sets) as a
+    CUDA graph and eagerly, from the same weights: the losses and every
+    parameter, moment and the count after the third, bit for bit; every
+    attention backward on K4's bf16 build."""
+    from perceiver_io_tpu_torch.ops import build
+
+    batches = _graph_batches(3)
+    build.reset_launches()
+    graphed, g_metrics, g_tensors = _graph_train_run(cuda, (), True, batches, dtype=torch.bfloat16,
+                                                     moment_dtype="bfloat16")
+    assert build.LAUNCHES["flash_packed_bwd_dq_bf16"] > 0 and build.LAUNCHES["flash_packed_bwd_dq"] == 0
+    eager, e_metrics, e_tensors = _graph_train_run(cuda, (), False, batches, dtype=torch.bfloat16,
+                                                   moment_dtype="bfloat16")
+    assert [m["loss"] for m in g_metrics] == [m["loss"] for m in e_metrics]
+    assert all(torch.equal(a, b) for a, b in zip(g_tensors[-1], e_tensors[-1]))
+    assert all(t.dtype == torch.bfloat16 for t in graphed.optimizer.compact.mu)
+    assert int(graphed.optimizer.count) == 3 and np.isfinite([m["loss"] for m in g_metrics]).all()
+
+
+def test_capturable_compact_adamw_keeps_a_zero_gradient_row_at_a_zero_rate(cuda):
+    """The compact update on the card (as a captured step runs it: rate and
+    count on the device) against the CPU's, three updates from the same
+    gradients under a warmup whose first rate is 0, one gradient row always
+    0: no NaN anywhere (a form that divides by the rate turns such a row
+    into NaN at rate 0), the zero row unchanged but for the decay, the
+    bf16 moments bit for bit and the parameters within 1e-6."""
+    from perceiver_io_tpu_torch import training as tt
+
+    rng = np.random.default_rng(14)
+    p0 = [rng.normal(size=s).astype(np.float32) for s in ((64, 32), (32,))]
+    params = {dev: [torch.nn.Parameter(torch.from_numpy(a.copy()).to(dev)) for a in p0] for dev in ("cpu", cuda)}
+    opts = {dev: tt.make_optimizer(tt.cosine_with_warmup(5e-2, 4, 1), weight_decay=0.0, gradient_clip=1.0,
+                                   moment_dtype="bfloat16")(ps) for dev, ps in params.items()}
+    for _ in range(3):
+        grads = [rng.normal(size=a.shape).astype(np.float32) for a in p0]
+        grads[0][0] = 0.0
+        for dev, ps in params.items():
+            for p, g in zip(ps, grads):
+                p.grad = torch.from_numpy(g).to(dev)
+            opts[dev].step()
+    for got, want in zip(params[cuda], params["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-6, rtol=0)
+    assert torch.equal(params[cuda][0][0].detach().cpu(), torch.from_numpy(p0[0][0]))
+    for got, want in zip(opts[cuda].compact.mu + opts[cuda].compact.nu, opts["cpu"].compact.mu + opts["cpu"].compact.nu):
+        assert torch.equal(got.cpu(), want)

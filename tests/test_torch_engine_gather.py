@@ -7,7 +7,8 @@ the served stream equals the port's sequential ``make_decode_fns`` stream and
 the JAX engine's stream, token for token (greedy, from the same parameters).
 The port's copy of the JAX kernel's gate agrees with the JAX function; on
 the CPU the gather route also serves the geometries only the JAX kernel
-takes (the card refuses those, tests/test_torch_cuda.py)."""
+takes (the card refuses those, tests/test_torch_cuda.py): heads wider than
+128, in f32 or bf16 pools (K3 takes both dtypes)."""
 
 import jax
 import jax.numpy as jnp
@@ -86,7 +87,7 @@ def test_head_dim_160_engine_serves_by_the_gather_route(models):
 @pytest.mark.parametrize("heads,d,page_size,dtype", [
     (2, 160, 8, "float32"),   # 320 channels: both gather
     (2, 192, 8, "float32"),   # 384: the JAX kernel serves, K3 (head dims <= 128) does not
-    (2, 64, 8, "bfloat16"),   # 128: the JAX kernel serves, K3 (f32 pools) does not
+    (2, 192, 8, "bfloat16"),  # 384 in bf16: the JAX kernel serves, K3 (head dims <= 128) does not
     (8, 64, 8, "float32"),    # the flagship's heads: both kernels
     (2, 64, 4, "float32"),    # pages below 8 rows: the JAX kernel refuses
     (3, 40, 8, "float32"),    # 120 channels
@@ -99,7 +100,7 @@ def test_the_route_gate_copies_the_jax_kernels_gate(heads, d, page_size, dtype):
     assert reference_kernel_geometry(tcache, heads, d, d) == jax_paged_kernel_supported(jcache, heads, d, d)
 
 
-@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 64, torch.bfloat16)])
+@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 192, torch.bfloat16)])
 def test_cpu_gathers_where_only_the_jax_kernel_serves(heads, d, dtype):
     """On the CPU the gather route serves pools K3 cannot take, and gives
     K3's plain version over the same pools, projected."""
