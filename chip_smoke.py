@@ -14,7 +14,7 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    K4b's, K6's, K7a's, K7b's, K8's, K9a's and K9b's builds from
    ``cuobjdump -sass`` (TF32 in every f32 build of K2, K4a, K6, K7a and K8,
    f64 DMMA in every f32 build of K4a, K4b, K7a, K7b, K9a and K9b, bf16 in
-   K2's, K4a's and K4b's bf16 builds);
+   K2's, K4a's, K4b's, K8's, K9a's and K9b's bf16 builds);
 3. kernel parity: each kernel against its plain PyTorch version on the card
    at the flagship's serving and training shapes and the image classifier's,
    with the tolerance stated beside each case, and its median device time
@@ -34,7 +34,9 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    and the bf16 builds of the bf16 CLM's path (K2 at the serve's and the
    train step's cross-attention, K3 at the serve's CA and SA pools and
    ``ca_retired``, K4a/K4b at the train step's cross- and self-attention,
-   K1/K5 at 16384 x 512 and 15360 x 512), each held by ``check_bf16`` to the
+   K1/K5 at 16384 x 512 and 15360 x 512) and of the bf16 image step's
+   (K8/K9a/K9b at the image CA, batch 16 and a split batch 2; K2/K4a/K4b at
+   its self-attention; K1/K5 at 8192 x 1024), each held by ``check_bf16`` to the
    plain version evaluated in f64 on the same bf16 inputs (no further than
    1.25x the bf16 plain version, 1.0x for K3, in L2) and within 2e-2 (K3
    1e-2) of the bf16 plain version's largest magnitude, with the library
@@ -105,7 +107,20 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
     the CPU's;
 15. image_trajectory: five train steps of that reduced classifier at lr
     1e-3 on the card (a CUDA graph) and on the CPU, the losses compared step
-    by step.
+    by step;
+16. image_eval_bf16: image_eval with bf16 compute (``dtype=torch.bfloat16``,
+    f32 parameters), the JAX package's image benchmark default: every
+    launch a bf16 build (the standard route's kv_norm reads the f32 joined
+    input: one f32 K1), a replay equal to the eager forward bit for bit,
+    the two routes within ``IMAGE_ROUTE_TOL_BF16`` and each within
+    ``IMAGE_BF16_TOL`` of the f32 forward's logits (L2, relative);
+17. image_train_bf16: image_train with bf16 compute and f32 Adam moments,
+    graph and eager, equal bit for bit, the first step lowering the loss,
+    K8, K9a and K9b's bf16 builds once a step and no f32 build; its step
+    ms, images/s and busy share beside the f32 step's;
+18. image_grad_check_bf16: image_grad_check's classifier in bf16 on the
+    card against the CPU's f32 gradient, per parameter no further (L2) than
+    1.5x the CPU's bf16 gradient.
 
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
@@ -150,9 +165,11 @@ PREFIX_LEN = FLAGSHIP["max_seq_len"] - FLAGSHIP["max_latents"]
 KEEP = PREFIX_LEN - int(PREFIX_LEN * FLAGSHIP["cross_attention_dropout"])  # kept prefix rows: 7680
 SERVE_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd")
 TRAIN_KERNELS = ("layer_norm_fwd", "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq", "layer_norm_bwd")
-# the phases that run the bf16 builds, by kernel: serve_bf16 K3, train_bf16
-# the rest
-BF16_PHASE = {**{k + BF16: "train_bf16" for k in TRAIN_KERNELS}, "paged_decode" + BF16: "serve_bf16"}
+# the phases that run the bf16 builds, by kernel: serve_bf16 K3,
+# image_train_bf16 K8, K9a and K9b, train_bf16 the rest
+BF16_PHASE = {**{k + BF16: "train_bf16" for k in TRAIN_KERNELS}, "paged_decode" + BF16: "serve_bf16",
+              **{k + BF16: "image_train_bf16" for k in ("flash_heads_fwd", "flash_heads_bwd_dkv",
+                                                          "flash_heads_bwd_dq")}}
 TWOSEG_KERNELS = ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
 ROUTE_FEATURES = {"concat": frozenset(), "twoseg": frozenset({"twoseg"})}
 # per flagship train step (2 chunks): one CA and 8 SA layers per chunk;
@@ -202,9 +219,25 @@ HEADS_KERNELS = ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")
 IMAGE_FORWARD = {"flash_heads_fwd": 1, "flash_packed_fwd": 48, "layer_norm_fwd": 101}
 IMAGE_STEP = dict(IMAGE_FORWARD, flash_heads_bwd_dkv=1, flash_heads_bwd_dq=1, flash_packed_bwd_dkv=48,
                   flash_packed_bwd_dq=48, layer_norm_bwd=101)
+# the bf16 classifier (image_eval_bf16, image_train_bf16): the same launches,
+# every one a bf16 build (the latent stream is bf16 from the query array on,
+# so every LayerNorm reads bf16), and no f32 build
+IMAGE_FORWARD_BF16 = {**{k + BF16: n for k, n in IMAGE_FORWARD.items()}, **dict.fromkeys(IMAGE_FORWARD, 0)}
+IMAGE_STEP_BF16 = {**{k + BF16: n for k, n in IMAGE_STEP.items()}, **dict.fromkeys(IMAGE_STEP, 0)}
 # |logits(split) - logits(standard)| at the flagship: the routes differ only
 # in the order of the K/V projections' f32 sums (see image_eval_phase)
 IMAGE_ROUTE_TOL = 1e-4
+# image_eval_bf16, L2 distances relative to the f32 forward's logits: the
+# bf16 split route against the bf16 standard route, which round at other
+# points (the split route's bf16 K/V formula, the standard route's kv_norm
+# then the bf16 projection), and each bf16 route against the f32 forward;
+# about four times the distances measured on an H100 (5.7e-3 and 9.1e-3,
+# PERF.md)
+IMAGE_ROUTE_TOL_BF16 = 2e-2
+IMAGE_BF16_TOL = 4e-2
+# image_grad_check_bf16: the key-projection bias gradients (0 in exact
+# arithmetic) of both bf16 evaluations, relative to the largest f32 gradient
+IMAGE_ZERO_GRAD_BF16 = 1e-3
 # peak rates of one H100 SXM (NVIDIA data sheet, dense). An f32-accurate
 # product on the tensor cores takes three TF32 products (the operands split
 # into a TF32 "big" and "small" part), so every f32 attention kernel is
@@ -242,6 +275,9 @@ GRAPH_KERNELS = {
     "flash_packed_bwd_dkv" + BF16: ("flash_bwd_dkv_bf16_kernel",),
     "flash_packed_bwd_dq" + BF16: ("flash_bwd_dq_bf16_kernel",),
     "layer_norm_bwd" + BF16: ("_layer_norm_bwd_dx_kernel", "_layer_norm_bwd_dwdb_kernel"),
+    "flash_heads_fwd" + BF16: ("heads_fwd_bf16_kernel",),
+    "flash_heads_bwd_dkv" + BF16: ("heads_bwd_dkv_bf16_kernel",),
+    "flash_heads_bwd_dq" + BF16: ("heads_bwd_dq_bf16_kernel",),
 }
 # graph name -> its kernel nodes by name and the launches its capture counted
 GRAPH_NODES = {}
@@ -632,7 +668,10 @@ def layernorm_phase(gen: torch.Generator) -> dict:
                                            ("serving_bf16", FLAGSHIP["max_seq_len"], c_clm, False, "serve" + BF16,
                                             bf16),
                                            ("with_stats_bf16", TRAIN_CHUNK * KEEP, c_clm, True, "train" + BF16,
-                                            bf16)):
+                                            bf16),
+                                           # the bf16 image step's latent rows
+                                           ("image_with_stats_bf16", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS,
+                                            True, "image_train" + BF16, bf16)):
         x, w, b = _ln_inputs(gen, rows, c)
         x = x.to(dt)
         rule = None
@@ -679,7 +718,7 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     causal cross-attention of 1024 latents over 7680 kept prefix keys + the
     latents, a latent self-attention, and the cross-attention with left-padded
     keys; and at the image classifier's non-causal self-attention (batch 16,
-    512 latents, 8 heads of 128). K2's forward, whose output and logsumexp
+    512 latents, 8 heads of 128), in f32 and in bf16. K2's forward, whose output and logsumexp
     the backward reads, is first held against its plain version on the same
     inputs. The plain
     backward computes all three gradients at once, so both kernels carry its
@@ -709,6 +748,9 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         # self-attention, held to the rule of check_bf16 (1.25x)
         "ca_bf16": (lat, KEEP + lat, 0, *clm, "train" + BF16, bf16),
         "sa_bf16": (lat, lat, 0, *clm, "train" + BF16, bf16),
+        # and at the bf16 image step's self-attention (8 heads of 128)
+        "image_sa_bf16": (IMAGE_LATENTS, IMAGE_LATENTS, 0, IMAGE_BATCH, 8, IMAGE_CHANNELS, False,
+                          "image_train" + BF16, bf16),
     }
     # The kernels are held to the plain version evaluated in f64 on the same
     # f32 inputs, within 1e-5, and to no larger an error than the plain
@@ -791,13 +833,16 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
 
 def layernorm_bwd_phase(gen: torch.Generator) -> dict:
     """K5 at the kv_norm rows of one training chunk (2 x 7680 x 512 f32) and
-    at the image classifier's latent rows (16 x 512 x 1024), from K1's
+    at the image classifier's latent rows (16 x 512 x 1024), and in bf16 at
+    both (the bf16 CLM's and the bf16 image step's), from K1's
     statistics, its two passes also timed apart (``p1_ms``: dx and the
     partial column sums; ``p2_ms``: their fixed-order sum); the library
     yardstick is the backward of ``F.layer_norm``."""
     rows_out = [layernorm_bwd_case(gen, TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"], "train")]
     rows_out.append(layernorm_bwd_case(gen, IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, "image_train"))
     rows_out.append(layernorm_bwd_case(gen, TRAIN_CHUNK * KEEP, FLAGSHIP["num_channels"], "train" + BF16,
+                                       torch.bfloat16))
+    rows_out.append(layernorm_bwd_case(gen, IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, "image_train" + BF16,
                                        torch.bfloat16))
     return {"cases": rows_out}
 
@@ -1027,28 +1072,39 @@ def heads_phase(gen: torch.Generator) -> dict:
     pixels, one head of 264 channels, non-causal) at batch 16, the main
     path's (no kv split), and at batch 2 (K8's kv walk split 8 ways, K9b's
     4), and the odd-width, causal, pad-mask, Nq > Nkv and split-walk cases
-    of the CPU tests. K9a and K9b are held to the plain backward evaluated
-    in f64 and to the f32 plain version's own distance from it; at batch 16
-    the plain backward holds ~8 GB of f32 (16, 512, 50176) intermediates,
-    its f64 evaluation ~16 GB, one after the other. The kernels run through their
-    wrappers on the (B*H, N, D8) operands ``flash_attention`` hands them
-    (odd widths zero-padded); the plain versions and the library yardstick,
-    one ``scaled_dot_product_attention`` call (and its backward) with the
-    same mask, on the (B, H, N, D) operands. Returns the rows by kernel."""
+    of the CPU tests; then the bf16 builds at the image CA (batch 16, the
+    bf16 image step's shape, and batch 2). K9a and K9b are held to the plain
+    backward evaluated in f64 and to the f32 plain version's own distance
+    from it; at batch 16 the plain backward holds ~8 GB of f32 (16, 512,
+    50176) intermediates, its f64 evaluation ~16 GB, one after the other.
+    The bf16 builds are held by ``check_bf16`` (1.25x the bf16 plain
+    version's L2 distance from the f64 evaluation of the same bf16 inputs),
+    output and each gradient apart. The kernels run through their wrappers
+    on the (B*H, N, D8) operands ``flash_attention`` hands them (odd widths
+    zero-padded); the plain versions and the library yardstick, one
+    ``scaled_dot_product_attention`` call (and its backward) with the same
+    mask in the same dtype, on the (B, H, N, D) operands. Returns the rows by
+    kernel (the bf16 builds' under ``<kernel>_bf16``)."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops import flash_attention as tflash
 
-    cases = [  # name, batch, heads, nq, nkv, head dim, causal, left pads, backward too, path
-        ("image_ca_b16", IMAGE_BATCH, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, True, "image_train"),
-        ("image_ca_b2", 2, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, True, "edge"),
-        ("d12_causal_pad", 2, 2, 130, 300, 12, True, 37, True, "edge"),
-        ("d40_full", 2, 2, 130, 300, 40, False, 0, True, "edge"),
-        ("d133_causal_pad", 2, 2, 130, 300, 133, True, 37, True, "edge"),
-        ("d264_full_pad", 2, 1, 130, 300, 264, False, 37, True, "edge"),
-        ("d512_causal", 2, 2, 130, 300, 512, True, 0, True, "edge"),
-        ("nq_gt_nkv_causal", 2, 2, 300, 130, 40, True, 0, True, "edge"),
-        ("split_walk_causal_pad", 2, 2, 100, 3000, 136, True, 50, True, "edge"),
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, batch, heads, nq, nkv, head dim, causal, left pads, path, dtype
+        ("image_ca_b16", IMAGE_BATCH, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, "image_train", f32),
+        ("image_ca_b2", 2, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, "edge", f32),
+        ("d12_causal_pad", 2, 2, 130, 300, 12, True, 37, "edge", f32),
+        ("d40_full", 2, 2, 130, 300, 40, False, 0, "edge", f32),
+        ("d133_causal_pad", 2, 2, 130, 300, 133, True, 37, "edge", f32),
+        ("d264_full_pad", 2, 1, 130, 300, 264, False, 37, "edge", f32),
+        ("d512_causal", 2, 2, 130, 300, 512, True, 0, "edge", f32),
+        ("nq_gt_nkv_causal", 2, 2, 300, 130, 40, True, 0, "edge", f32),
+        ("split_walk_causal_pad", 2, 2, 100, 3000, 136, True, 50, "edge", f32),
+        # the bf16 builds: the bf16 image step's cross-attention, and batch 2
+        # (K8's walk split, K9b's split)
+        ("image_ca_b16_bf16", IMAGE_BATCH, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, "image_train" + BF16,
+         bf16),
+        ("image_ca_b2_bf16", 2, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, "edge", bf16),
     ]
     # K8 against the plain version in f32: measured within 2.2e-6 on an
     # H100 (split-TF32 products; 4.7e-7 at the image CA, PERF.md); 1e-5
@@ -1066,10 +1122,12 @@ def heads_phase(gen: torch.Generator) -> dict:
     # cores, measured within 1.9e-6 (dQ) and 3.2e-7 (dK/dV) of it on an H100
     # 80GB HBM3 (PERF.md). Both distances are logged beside each case.
     tol = {"flash_heads_fwd": 1e-5, "flash_heads_bwd_dkv": 1e-5, "flash_heads_bwd_dq": 6e-5}
-    out = {k: {"cases": []} for k in HEADS_KERNELS}
-    for name, b, h, nq, nkv, d, causal, pads, with_bwd, path in cases:
-        q = (torch.randn(b, h, nq, d, generator=gen) * d**-0.5).cuda()
-        k, v = (torch.randn(b, h, nkv, d, generator=gen).cuda() for _ in range(2))
+    out = {k + sfx: {"cases": []} for k in HEADS_KERNELS for sfx in ("", BF16)}
+    for name, b, h, nq, nkv, d, causal, pads, path, dtype in cases:
+        sfx = BF16 if dtype == bf16 else ""
+        rate, el = ("bf16_tensor", 2) if dtype == bf16 else ("split_tf32", 4)
+        q = (torch.randn(b, h, nq, d, generator=gen) * d**-0.5).cuda().to(dtype)
+        k, v = (torch.randn(b, h, nkv, d, generator=gen).cuda().to(dtype) for _ in range(2))
         pad = None
         if pads:
             pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
@@ -1081,46 +1139,51 @@ def heads_phase(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         ro, rlse = tflash.flash_attention_reference(q, k, v, pad, causal)
         err = max_err(o[..., :d].reshape(ro.shape), ro)
-        check(f"flash_heads_fwd {name} out", err, tol["flash_heads_fwd"])
-        check(f"flash_heads_fwd {name} lse", lse_err(lse.reshape(rlse.shape), rlse), 1e-4)
+        check(f"flash_heads_fwd{sfx} {name} lse", lse_err(lse.reshape(rlse.shape), rlse), 1e-4)
         exact = tflash.flash_attention_reference(*(t.double() for t in (q, k, v)), pad, causal)[0]
-        f64 = {"kernel": max_err64(o[..., :d].reshape(ro.shape), exact), "f32_plain": max_err64(ro, exact)}
+        rule = None
+        if dtype == bf16:
+            rule = check_bf16(f"flash_heads_fwd {name}", o[..., :d].reshape(ro.shape), ro, exact, 1.25)
+        else:
+            check(f"flash_heads_fwd {name} out", err, tol["flash_heads_fwd"])
+        f64 = {"kernel": max_err64(o[..., :d].reshape(ro.shape), exact), "plain": max_err64(ro, exact)}
         del exact
-        log(f"f64 flash_heads_fwd {name}: kernel {f64['kernel']:.3e}, f32 plain version {f64['f32_plain']:.3e}")
+        log(f"f64 flash_heads_fwd{sfx} {name}: kernel {f64['kernel']:.3e}, plain version {f64['plain']:.3e}")
         mask = None
         if causal or pad is not None:
             mask = _sdpa_keep(nq, nkv, pad) if causal else ~pad[:, None, None, :]
         backend = sdpa_backend(q, k, v, mask)
         pairs = b * h * visible_pairs(nq, nkv, causal)
         shape = (f"{name} batch={b} H={h} nq={nq} nkv={nkv} D={d} (kernel D={d8}) "
-                 f"{'causal' if causal else 'full'} left_pads={pads} f32")
-        reads = 4 * b * h * (nq * d8 + 2 * nkv * d8) + (4 * b * nkv if pad is not None else 0)
-        bound_ms, bound_by = bound(reads + 4 * b * h * (nq * d8 + nq), 4 * d8 * pairs, "split_tf32")
+                 f"{'causal' if causal else 'full'} left_pads={pads} {str(dtype)[6:]}")
+        reads = el * b * h * (nq * d8 + 2 * nkv * d8) + (4 * b * nkv if pad is not None else 0)
+        bound_ms, bound_by = bound(reads + el * b * h * nq * d8 + 4 * b * h * nq, 4 * d8 * pairs, rate)
         # K8's kv split, priced as K9b's below
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        fwd_splits = tflash.heads_fwd_splits(b * h, nq, nkv, d8, sms, tflash._heads_fwd_slots(q.device.index, d8, d8))
-        row = dict(case=shape, path=path, max_abs_err=err, tol=tol["flash_heads_fwd"], f64_err=f64,
+        fwd_splits = tflash.heads_fwd_splits(b * h, nq, nkv, d8, sms,
+                                             tflash._heads_fwd_slots(q.device.index, d8, d8, dtype))
+        row = dict(case=shape, path=path, max_abs_err=err, tol="check_bf16 (1.25x)" if rule else tol["flash_heads_fwd"],
+                   bf16_rule=rule, f64_err=f64, dtype=str(dtype)[6:],
                    ms=time_ms(lambda: tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0),
-                              dispatch=f"flash_heads_fwd {name}"),
+                              dispatch=f"flash_heads_fwd{sfx} {name}"),
                    plain_ms=time_ms(lambda: tflash.flash_attention_reference(q, k, v, pad, causal), 3),
                    library_ms=time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=mask)),
                    library=f"scaled_dot_product_attention ({backend})", bound_ms=bound_ms, bound_by=bound_by,
-                   dispatch_ms=DISPATCH_MS[f"flash_heads_fwd {name}"], kv_splits=fwd_splits,
+                   dispatch_ms=DISPATCH_MS[f"flash_heads_fwd{sfx} {name}"], kv_splits=fwd_splits,
                    unsplit_ms=(time_ms(lambda: tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0, nsplit=1))
                                if fwd_splits > 1 else None))
-        log(f"split flash_heads_fwd {name}: kv_splits={fwd_splits} ms={row['ms']:.4f} unsplit_ms={row['unsplit_ms']}")
-        log(f"time flash_heads_fwd {name}: {json.dumps(row)}")
-        out["flash_heads_fwd"]["cases"].append(row)
+        log(f"split flash_heads_fwd{sfx} {name}: kv_splits={fwd_splits} ms={row['ms']:.4f} "
+            f"unsplit_ms={row['unsplit_ms']}")
+        log(f"time flash_heads_fwd{sfx} {name}: {json.dumps(row)}")
+        out["flash_heads_fwd" + sfx]["cases"].append(row)
         del ro, rlse
-        if not with_bwd:
-            continue
 
         # the plain backward reads the same inputs as K9a/K9b: K8's output
         # and logsumexp
         o4, lse4 = o[..., :d].reshape(b, h, nq, d), lse.reshape(b, h, nq)
-        do = torch.randn(b, h, nq, d, generator=gen).cuda()
+        do = torch.randn(b, h, nq, d, generator=gen).cuda().to(dtype)
         dof = torch.nn.functional.pad(do.reshape(b * h, nq, d), (0, d8 - d))
-        delta = (dof * o).sum(dim=-1)
+        delta = (dof.float() * o.float()).sum(dim=-1)
         args = (qf, kf, vf, dof, lse, delta, h, bias, causal, 1.0)
         dk, dv = tflash.heads_bwd_dkv_cuda(*args)
         dq = tflash.heads_bwd_dq_cuda(*args)
@@ -1128,51 +1191,64 @@ def heads_phase(gen: torch.Generator) -> dict:
         got = {"dq": dq[..., :d].reshape(q.shape), "dk": dk[..., :d].reshape(k.shape),
                "dv": dv[..., :d].reshape(v.shape)}
         del dq, dk, dv
-        # the f32 plain version first (its (B, H, Nq, Nkv) intermediates are
+        # the plain version first (its (B, H, Nq, Nkv) intermediates are
         # freed when it returns), then the f64 one: ~20 GB at batch 16
         plain = dict(zip(("dq", "dk", "dv"), tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad,
                                                                                   causal)))
         exact = dict(zip(("dq", "dk", "dv"), tflash.flash_attention_bwd_reference(
             *(t.double() for t in (q, k, v, o4, lse4, do)), pad, causal)))
         parts = {"flash_heads_bwd_dkv": ("dk", "dv"), "flash_heads_bwd_dq": ("dq",)}
-        errs = {kernel: max(max_err64(got[g], exact[g]) for g in gs) for kernel, gs in parts.items()}
-        f32_plain = {kernel: {"kernel": max(max_err(got[g], plain[g]) for g in gs),
-                              "f64": max(max_err64(plain[g], exact[g]) for g in gs)} for kernel, gs in parts.items()}
+        rules = {}
+        if dtype == bf16:
+            rules = {kernel: [check_bf16(f"{kernel} {name} {g}", got[g], plain[g], exact[g], 1.25) for g in gs]
+                     for kernel, gs in parts.items()}
+            errs = {kernel: max(max_err(got[g], plain[g]) for g in gs) for kernel, gs in parts.items()}
+        else:
+            errs = {kernel: max(max_err64(got[g], exact[g]) for g in gs) for kernel, gs in parts.items()}
+            f32_plain = {kernel: {"kernel": max(max_err(got[g], plain[g]) for g in gs),
+                                  "f64": max(max_err64(plain[g], exact[g]) for g in gs)}
+                         for kernel, gs in parts.items()}
+            for kernel, e in errs.items():
+                log(f"f32 plain {kernel} {name}: to the kernel {f32_plain[kernel]['kernel']:.3e}, "
+                    f"to the f64 evaluation {f32_plain[kernel]['f64']:.3e}")
+                check(f"{kernel} {name} (to the f64 plain version)", e, tol[kernel])
+                check(f"{kernel} {name} (to the f64 plain version, within the f32 plain version's own error)", e,
+                      f32_plain[kernel]["f64"])
         del got, plain, exact
-        for kernel, e in errs.items():
-            log(f"f32 plain {kernel} {name}: to the kernel {f32_plain[kernel]['kernel']:.3e}, "
-                f"to the f64 evaluation {f32_plain[kernel]['f64']:.3e}")
-            check(f"{kernel} {name} (to the f64 plain version)", e, tol[kernel])
-            check(f"{kernel} {name} (to the f64 plain version, within the f32 plain version's own error)", e,
-                  f32_plain[kernel]["f64"])
         times = {"flash_heads_bwd_dkv": time_ms(lambda: tflash.heads_bwd_dkv_cuda(*args),
-                                                dispatch=f"flash_heads_bwd_dkv {name}"),
+                                                dispatch=f"flash_heads_bwd_dkv{sfx} {name}"),
                  "flash_heads_bwd_dq": time_ms(lambda: tflash.heads_bwd_dq_cuda(*args),
-                                               dispatch=f"flash_heads_bwd_dq {name}")}
+                                               dispatch=f"flash_heads_bwd_dq{sfx} {name}")}
         # K9b's kv split, priced: the rule's split count and, where it
         # splits, the time of the same call unsplit
-        splits = tflash.heads_dq_splits(b * h, nq, nkv, d8, sms, tflash._heads_dq_slots(q.device.index, d8, d8))
+        splits = tflash.heads_dq_splits(b * h, nq, nkv, d8, sms,
+                                        tflash._heads_dq_slots(q.device.index, d8, d8, dtype))
         unsplit_ms = time_ms(lambda: tflash.heads_bwd_dq_cuda(*args, nsplit=1)) if splits > 1 else None
-        log(f"split flash_heads_bwd_dq {name}: kv_splits={splits} ms={times['flash_heads_bwd_dq']:.4f} "
+        log(f"split flash_heads_bwd_dq{sfx} {name}: kv_splits={splits} ms={times['flash_heads_bwd_dq']:.4f} "
             f"unsplit_ms={unsplit_ms}")
         plain_ms = time_ms(lambda: tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad, causal), 3)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         ref = scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True))
-        reads = 4 * b * h * (2 * nq * d8 + 2 * nkv * d8 + 2 * nq) + (4 * b * nkv if pad is not None else 0)
-        bounds = {"flash_heads_bwd_dkv": bound(reads + 4 * 2 * b * h * nkv * d8, 8 * d8 * pairs, "split_tf32"),
-                  "flash_heads_bwd_dq": bound(reads + 4 * b * h * nq * d8, 6 * d8 * pairs, "split_tf32")}
+        reads = el * b * h * (2 * nq * d8 + 2 * nkv * d8) + 4 * 2 * b * h * nq + (4 * b * nkv if pad is not None
+                                                                                  else 0)
+        bounds = {"flash_heads_bwd_dkv": bound(reads + el * 2 * b * h * nkv * d8, 8 * d8 * pairs, rate),
+                  "flash_heads_bwd_dq": bound(reads + el * b * h * nq * d8, 6 * d8 * pairs, rate)}
         for kernel in errs:
-            row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol[kernel],
-                       reference="plain version in f64", f32_plain=f32_plain[kernel], ms=times[kernel],
-                       plain_ms=plain_ms, library_ms=library_ms,
+            row = dict(case=shape, path=path, max_abs_err=errs[kernel],
+                       tol="check_bf16 (1.25x)" if rules else tol[kernel],
+                       reference="bf16 plain version" if rules else "plain version in f64",
+                       f32_plain=None if rules else f32_plain[kernel], bf16_rule=rules.get(kernel),
+                       ms=times[kernel], plain_ms=plain_ms, library_ms=library_ms,
                        library=f"scaled_dot_product_attention backward ({backend})", bound_ms=bounds[kernel][0],
-                       bound_by=bounds[kernel][1], dispatch_ms=DISPATCH_MS[f"{kernel} {name}"])
+                       bound_by=bounds[kernel][1], dispatch_ms=DISPATCH_MS[f"{kernel}{sfx} {name}"],
+                       dtype=str(dtype)[6:])
             if kernel == "flash_heads_bwd_dq":
                 row.update(kv_splits=splits, unsplit_ms=unsplit_ms)
-            log(f"time {kernel} {name}: {json.dumps(row)}")
-            out[kernel]["cases"].append(row)
-        del ref, qg, kg, vg
+            log(f"time {kernel}{sfx} {name}: {json.dumps(row)}")
+            out[kernel + sfx]["cases"].append(row)
+        del ref, qg, kg, vg, args, o, lse, qf, kf, vf, q, k, v, do, dof
+        free_card()
     return out
 
 
@@ -1825,8 +1901,9 @@ def grad_check_bf16_phase(card: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def image_classifier(device, **encoder_overrides):
-    """The flagship classifier (``IMAGE_ENCODER``), seeded random weights."""
+def image_classifier(device, dtype: torch.dtype = torch.float32, **encoder_overrides):
+    """The flagship classifier (``IMAGE_ENCODER``), seeded random weights (f32
+    parameters; ``dtype`` the compute dtype)."""
     from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig
     from perceiver_io_tpu_torch.models.vision import ImageClassifier, ImageClassifierConfig, ImageEncoderConfig
 
@@ -1835,7 +1912,7 @@ def image_classifier(device, **encoder_overrides):
         decoder=ClassificationDecoderConfig(**IMAGE_DECODER),
         num_latents=IMAGE_LATENTS, num_latent_channels=IMAGE_CHANNELS,
     )
-    return ImageClassifier(config, device=device, generator=torch.Generator().manual_seed(SEED))
+    return ImageClassifier(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
 
 
 def image_batch(batch: int, image_shape, seed: int) -> dict:
@@ -1850,7 +1927,7 @@ def check_launches(name: str, launches: dict, want: dict, times: int) -> None:
         raise SystemExit(f"{name}: launches {wrong}, expected {times} x {want}")
 
 
-def image_eval_phase(card: str) -> dict:
+def image_eval_phase(card: str, dtype: torch.dtype = torch.float32, f32_logits: torch.Tensor = None) -> dict:
     """The flagship classifier's forward at batch 16 through ``make_eval_step``
     (``no_grad``; a CUDA graph on the card), on the split-kv route (the
     default) and on the standard route (an all-False pad mask: the joined
@@ -1859,20 +1936,29 @@ def image_eval_phase(card: str) -> dict:
     warm-up, an eager forward) launches ``IMAGE_FORWARD`` exactly (the
     standard route adds the kv_norm's K1) and gives finite logits of shape
     (16, 1000) that agree within ``IMAGE_ROUTE_TOL`` across routes; a replay
-    gives the eager forward's logits within ``GRAPH_RTOL``. Returns the split
-    forward's launches."""
+    gives the eager forward's logits within ``GRAPH_RTOL``. With ``dtype``
+    bf16 (``image_eval_bf16``): every launch a bf16 build (``IMAGE_FORWARD``
+    under the bf16 names; the standard route's kv_norm reads the f32 joined
+    input, one f32 K1), a replay equal to the eager forward bit for bit, the
+    routes within ``IMAGE_ROUTE_TOL_BF16`` of each other and each within
+    ``IMAGE_BF16_TOL`` of the f32 forward's logits (``f32_logits``), all
+    relative in L2. Returns the split forward's launches and logits."""
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.ops import build
 
-    model = image_classifier("cuda")
+    bf16 = dtype == torch.bfloat16
+    name = "image_eval" + (BF16 if bf16 else "")
+    model = image_classifier("cuda", dtype)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: image classifier {IMAGE_ENCODER} {IMAGE_DECODER}, {IMAGE_LATENTS} x {IMAGE_CHANNELS} latents, "
-        f"{n_params} parameters, f32")
+        f"{n_params} parameters (f32), compute {str(dtype)[6:]}")
     x = torch.from_numpy(image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 4)["image"]).cuda()
     routes = {"split": {"image": x},
               "standard": {"image": x, "pad_mask": torch.zeros(IMAGE_BATCH, IMAGE_PIXELS, dtype=torch.bool,
                                                                device="cuda")}}
-    want = {"split": IMAGE_FORWARD, "standard": dict(IMAGE_FORWARD, layer_norm_fwd=IMAGE_FORWARD["layer_norm_fwd"] + 1)}
+    forward_launches = IMAGE_FORWARD_BF16 if bf16 else IMAGE_FORWARD
+    kv_norm = {"layer_norm_fwd": 1} if bf16 else {"layer_norm_fwd": IMAGE_FORWARD["layer_norm_fwd"] + 1}
+    want = {"split": forward_launches, "standard": dict(forward_launches, **kv_norm)}
 
     def forward(model, batch):
         return model(batch["image"], pad_mask=batch.get("pad_mask"))
@@ -1884,49 +1970,65 @@ def image_eval_phase(card: str) -> dict:
         logits[route] = step(model, batch)
         torch.cuda.synchronize()
         launches[route] = dict(build.LAUNCHES)
-        check_graph(f"image_eval_{route}", step.captured.graph, nonzero_launches(), want[route])
-        graph_err[route] = rel_diff(step(model, batch), logits[route])
+        check_graph(f"{name}_{route}", step.captured.graph, nonzero_launches(), want[route])
+        replay = step(model, batch)
+        graph_err[route] = 0.0 if torch.equal(replay, logits[route]) else rel_diff(replay, logits[route])
         with torch.no_grad():
             ms[route] = time_ms(lambda: forward(model, batch), 5)
             wall[route] = {"graph": wall_ms(lambda: step(model, batch)), "eager": wall_ms(lambda: forward(model, batch))}
         del step
         free_card()
-    err = max_err(logits["split"], logits["standard"])
-    log("image_eval: " + json.dumps({
-        "card": card, "batch": IMAGE_BATCH, "max_abs_err_split_vs_standard": err, "tol": IMAGE_ROUTE_TOL,
-        "graph_rel_diff_to_eager": graph_err, "graph_rtol": GRAPH_RTOL, "forward_ms": ms, "wall_ms": wall,
+    want_shape = (IMAGE_BATCH, IMAGE_DECODER["num_classes"])
+    if any(tuple(t.shape) != want_shape or not bool(torch.isfinite(t).all()) for t in logits.values()):
+        raise SystemExit(f"{name}: logits not finite or not of shape {want_shape}")
+    if bf16:
+        # L2 distances relative to the f32 forward's logits' L2 size
+        size = float(f32_logits.double().norm())
+        err = l2_err(logits["split"], logits["standard"]) / size
+        to_f32 = {r: l2_err(t, f32_logits) / size for r, t in logits.items()}
+        tols = {"route": IMAGE_ROUTE_TOL_BF16, "to_f32": IMAGE_BF16_TOL, "graph": 0.0}
+    else:
+        err, to_f32 = max_err(logits["split"], logits["standard"]), None
+        tols = {"route": IMAGE_ROUTE_TOL, "graph": GRAPH_RTOL}
+    log(f"{name}: " + json.dumps({
+        "card": card, "batch": IMAGE_BATCH, "dtype": str(dtype)[6:],
+        ("l2_rel_split_vs_standard" if bf16 else "max_abs_err_split_vs_standard"): err, "l2_rel_to_f32": to_f32,
+        "tols": tols, "graph_rel_diff_to_eager": graph_err, "forward_ms": ms, "wall_ms": wall,
         "images_per_s": {r: {k: IMAGE_BATCH / (t / 1e3) for k, t in w.items()} for r, w in wall.items()},
         "launches": {r: {k: v for k, v in l.items() if v} for r, l in launches.items()},
     }))
-    TIMES["image_eval_images_per_s"] = {k: IMAGE_BATCH / (t / 1e3) for k, t in wall["split"].items()}
-    want_shape = (IMAGE_BATCH, IMAGE_DECODER["num_classes"])
-    if any(tuple(t.shape) != want_shape or not bool(torch.isfinite(t).all()) for t in logits.values()):
-        raise SystemExit(f"image_eval: logits not finite or not of shape {want_shape}")
-    if not within(err, IMAGE_ROUTE_TOL):
-        raise SystemExit(f"image_eval: the split route's logits differ from the standard route's by {err}")
-    if not all(within(e, GRAPH_RTOL) for e in graph_err.values()):
-        raise SystemExit(f"image_eval: the graph's logits leave the eager forward's: {graph_err}")
+    TIMES[f"{name}_images_per_s"] = {k: IMAGE_BATCH / (t / 1e3) for k, t in wall["split"].items()}
+    if not within(err, tols["route"]):
+        raise SystemExit(f"{name}: the split route's logits differ from the standard route's by {err}")
+    if bf16 and not all(within(e, tols["to_f32"]) for e in to_f32.values()):
+        raise SystemExit(f"{name}: the bf16 logits leave the f32 forward's by {to_f32}")
+    if not all(within(e, tols["graph"]) for e in graph_err.values()):
+        raise SystemExit(f"{name}: the graph's logits leave the eager forward's: {graph_err}")
     for route in routes:
-        check_launches(f"image_eval {route}", launches[route], want[route], 1)
-    return launches["split"]
+        check_launches(f"{name} {route}", launches[route], want[route], 1)
+    return {"launches": launches["split"], "logits": logits["split"]}
 
 
-def image_train_phase(card: str, jit: bool = True) -> dict:
+def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.float32) -> dict:
     """Five AdamW steps (lr ``IMAGE_LR``, f32 moments, global clip 1.0) of
     the flagship classifier on one fixed batch of 16 random images and labels in
     one chunk (see the memory reckoning at ``IMAGE_BATCH``), with the
     non-finite sentinel on, as a CUDA graph (``jit``) or eagerly: every loss
     finite, the first step lowering the loss (the later ones overshoot at
     this rate, see ``IMAGE_LR``), no step skipped, the launches of
-    ``IMAGE_STEP`` per step exactly; then one profiled step. Returns the
-    five steps' launches, losses and median."""
+    ``IMAGE_STEP`` per step exactly (``IMAGE_STEP_BF16`` with ``dtype``
+    bf16: every launch a bf16 build, K8, K9a and K9b's once a step); then
+    one profiled step. Returns the five steps' launches, losses and median,
+    and the parameters after them."""
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.ops import build
 
-    name = "image_train" if jit else "image_train_eager"
-    model = image_classifier("cuda")
+    bf16 = dtype == torch.bfloat16
+    name = "image_train" + (BF16 if bf16 else "") + ("" if jit else "_eager")
+    want = IMAGE_STEP_BF16 if bf16 else IMAGE_STEP
+    model = image_classifier("cuda", dtype)
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 5).items()}
     state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
@@ -1943,8 +2045,9 @@ def image_train_phase(card: str, jit: bool = True) -> dict:
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         if i == 0 and jit:
-            check_graph(name, step.captured.graph, nonzero_launches(), IMAGE_STEP)
+            check_graph(name, step.captured.graph, nonzero_launches(), want)
     launches = dict(build.LAUNCHES)
+    params = [p.detach().clone() for p in model.parameters()]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1956,10 +2059,10 @@ def image_train_phase(card: str, jit: bool = True) -> dict:
     log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
     median_ms = statistics.median(step_ms)
     log(f"{name}: " + json.dumps({
-        "card": card, "step": "graph" if jit else "eager", "batch": IMAGE_BATCH, "microbatch": 1,
-        "steps": IMAGE_STEPS, "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
+        "card": card, "step": "graph" if jit else "eager", "dtype": str(dtype)[6:], "batch": IMAGE_BATCH,
+        "microbatch": 1, "steps": IMAGE_STEPS, "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
         "images_per_s": IMAGE_BATCH / (median_ms / 1e3), "peak_memory_gb": peak_gb, "sentinel_skipped": skipped,
-        "launches_per_step": {k: launches[k] / IMAGE_STEPS for k in IMAGE_STEP},
+        "launches_per_step": {k: launches[k] / IMAGE_STEPS for k in want},
     }))
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{name}: non-finite loss {losses}")
@@ -1967,28 +2070,35 @@ def image_train_phase(card: str, jit: bool = True) -> dict:
         raise SystemExit(f"{name}: the first step did not lower the loss: {losses}")
     if any(skipped):
         raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
-    check_launches(name, launches, IMAGE_STEP, IMAGE_STEPS)
+    check_launches(name, launches, want, IMAGE_STEPS)
     return {"launches": launches, "losses": losses, "median_step_ms": median_ms,
-            "busy_share": summary["device_busy_share"]}
+            "busy_share": summary["device_busy_share"], "params": params}
 
 
-def image_train_pair(card: str) -> dict:
+def image_train_pair(card: str, dtype: torch.dtype = torch.float32) -> dict:
     """The image train phase as a CUDA graph, then eagerly: the losses
-    within ``GRAPH_RTOL`` relative, the differences printed. Returns the
-    graph run's launches."""
+    within ``GRAPH_RTOL`` relative, the differences printed; in bf16
+    (``image_train_bf16``) the losses and the parameters after five steps
+    must be equal bit for bit. Returns the graph run's launches."""
     runs = {}
+    name = "image_train" + (BF16 if dtype == torch.bfloat16 else "")
     for jit in (True, False):
-        runs["graph" if jit else "eager"] = image_train_phase(card, jit)
+        runs["graph" if jit else "eager"] = image_train_phase(card, jit, dtype)
         free_card()
-    diffs = [rel_diff(a, b) for a, b in zip(runs["graph"]["losses"], runs["eager"]["losses"])]
-    log("image_train graph against eager: " + json.dumps({
-        "card": card, "identical": runs["graph"]["losses"] == runs["eager"]["losses"], "loss_rel_diff": diffs,
-        "rtol": GRAPH_RTOL, "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
+    g, e = runs["graph"], runs["eager"]
+    diffs = [rel_diff(a, b) for a, b in zip(g["losses"], e["losses"])]
+    identical = g["losses"] == e["losses"] and all(torch.equal(a, b) for a, b in zip(g["params"], e["params"]))
+    log(f"{name} graph against eager: " + json.dumps({
+        "card": card, "identical": identical, "loss_rel_diff": diffs, "rtol": GRAPH_RTOL,
+        "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
         "busy_share": {k: r["busy_share"] for k, r in runs.items()}}))
     if not all(within(d, GRAPH_RTOL) for d in diffs):
-        raise SystemExit(f"image_train: the graph's losses leave the eager step's: {diffs}")
-    TIMES["image_train_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
-    return runs["graph"]["launches"]
+        raise SystemExit(f"{name}: the graph's losses leave the eager step's: {diffs}")
+    if dtype == torch.bfloat16 and not identical:
+        raise SystemExit(f"{name}: the graph's losses and parameters are not the eager step's bit for bit: {diffs}")
+    TIMES[f"{name}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
+    TIMES[f"{name}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
+    return {"launches": g["launches"], "losses": {k: r["losses"] for k, r in runs.items()}}
 
 
 def image_grad_check_phase(card: str) -> None:
@@ -2072,6 +2182,51 @@ def image_trajectory_phase(card: str) -> None:
         raise SystemExit(f"image_trajectory: the card's losses {losses['cuda']} leave the CPU's {losses['cpu']}")
     if any(skipped["cpu"] + skipped["cuda"]):
         raise SystemExit(f"image_trajectory: the sentinel skipped a step: {skipped}")
+
+
+def image_grad_check_bf16_phase(card: str) -> None:
+    """image_grad_check's classifier (full width, 32x32x3 images, one block
+    of 2 layers) and batch in bf16 compute on the card against the CPU: per
+    parameter, the card's bf16 gradient lies no further from the CPU's f32
+    gradient than 1.5x the CPU's bf16 gradient (the plain versions, the same
+    rounding points) does (L2), as grad_check_bf16 holds the CLM; the
+    key-projection biases, whose gradient is 0 in exact arithmetic, within
+    ``IMAGE_ZERO_GRAD_BF16`` of the largest f32 gradient on both bf16 sides.
+    The card's cross-attention runs K8, K9a and K9b's bf16 builds once each,
+    and no f32 build."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.ops import build
+
+    batch = image_batch(2, IMAGE_SMALL["image_shape"], SEED + 6)
+    grads, losses, seconds = {}, {}, {}
+    for name, device, dtype in (("cpu_f32", "cpu", torch.float32), ("cpu_bf16", "cpu", torch.bfloat16),
+                                ("card_bf16", "cuda", torch.bfloat16)):
+        t0 = time.perf_counter()
+        model = image_classifier(device, dtype, **IMAGE_SMALL)
+        build.reset_launches()
+        loss, _ = tt.classification_loss_fn()(model, batch)
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        seconds[name] = time.perf_counter() - t0
+    heads = {k: build.LAUNCHES[k] for k in HEADS_KERNELS + tuple(k + BF16 for k in HEADS_KERNELS)}
+    if heads != {**dict.fromkeys(HEADS_KERNELS, 0), **{k + BF16: 1 for k in HEADS_KERNELS}}:
+        raise SystemExit(f"image_grad_check_bf16: the card's heads-major launches {heads}, expected one of each "
+                         "bf16 build")
+    zero = {n for n in grads["cpu_f32"] if n.endswith("attention.k_proj.bias")}
+    ratios = {n: l2_err(g, grads["cpu_f32"][n]) / max(l2_err(grads["cpu_bf16"][n], grads["cpu_f32"][n]), 1e-30)
+              for n, g in grads["card_bf16"].items() if n not in zero}
+    scale = max(float(g.abs().max()) for g in grads["cpu_f32"].values())
+    zero_max = max(float(grads[side][n].abs().max()) for side in ("cpu_bf16", "card_bf16") for n in zero)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
+    log("image_grad_check_bf16: " + json.dumps({
+        "card": card, "cpu_threads": torch.get_num_threads(), "losses": losses, "seconds": seconds,
+        "max_ratio": worst[0][1], "ratio_tol": 1.5, "worst": worst, "n_params": len(ratios),
+        "zero_grad_max": zero_max, "zero_grad_tol": IMAGE_ZERO_GRAD_BF16 * scale}))
+    if not all(within(r, 1.5) for r in ratios.values()):
+        raise SystemExit(f"image_grad_check_bf16 failed: {worst}")
+    if not within(zero_max, IMAGE_ZERO_GRAD_BF16 * scale):
+        raise SystemExit(f"image_grad_check_bf16: key-bias gradients {zero_max} > {IMAGE_ZERO_GRAD_BF16 * scale}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -2167,7 +2322,7 @@ def main() -> None:
     if unreported:
         raise SystemExit(f"no ptxas report for {unreported}: the spill check would see nothing of them")
     log("ptxas K8 registers by head-dim bucket: " + json.dumps(
-        {name: regs for name, regs, _, _ in ptxas["flash_heads"] if name.startswith("heads_fwd_kernel<")}))
+        {name: regs for name, regs, _, _ in ptxas["flash_heads"] if name.startswith("heads_fwd")}))
     log("ptxas K3 (registers, spill stores, spill loads; shared memory is dynamic, see the plan lines): " +
         json.dumps(ptxas["paged_decode"]))
     spills = [row for rows in ptxas.values() for row in rows if row[2] or row[3]]
@@ -2179,7 +2334,7 @@ def main() -> None:
     # every f32 build of K2, K6 and K8 and in K4a's and K7a's (their dV and
     # dK), f64 DMMA in K4a's, K4b's, K7a's and K7b's (their score products,
     # and K4b's and K7b's dQ) and in K9a's and K9b's (all their products),
-    # bf16 in K2's, K4a's and K4b's bf16 builds
+    # bf16 in K2's, K4a's, K4b's, K8's, K9a's and K9b's bf16 builds
     sass_sources = ("flash_packed", "flash_packed_bwd", "flash_2seg", "flash_2seg_bwd", "flash_heads",
                     "flash_heads_bwd")
     sass = sass_mma_report({name: paths[name] for name in sass_sources})
@@ -2197,7 +2352,10 @@ def main() -> None:
                                          ("flash_2seg_bwd", "flash_2seg_bwd_dq_kernel<", "DMMA", 3),
                                          ("flash_heads", "heads_fwd_kernel<", "TF32", 5),
                                          ("flash_heads_bwd", "heads_bwd_dkv_kernel<", "DMMA", 5),
-                                         ("flash_heads_bwd", "heads_bwd_dq_kernel<", "DMMA", 5)):
+                                         ("flash_heads_bwd", "heads_bwd_dq_kernel<", "DMMA", 5),
+                                         ("flash_heads", "heads_fwd_bf16_kernel<", "BF16", 5),
+                                         ("flash_heads_bwd", "heads_bwd_dkv_bf16_kernel<", "BF16", 5),
+                                         ("flash_heads_bwd", "heads_bwd_dq_bf16_kernel<", "BF16", 5)):
         built = [n for n in sass[source] if n.startswith(kernel)]
         found = [n for n in built if any(kind in i for i in sass[source][n])]
         if len(built) != builds or found != built:
@@ -2255,6 +2413,13 @@ def main() -> None:
                                 heads["flash_heads_bwd_dkv"]),
         "flash_heads_bwd_dq": ("cuda", f"{heads_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:348",
                                heads["flash_heads_bwd_dq"]),
+        # the bf16 builds of the bf16 image classifier's path
+        "flash_heads_fwd" + BF16: ("cuda", f"{heads_source}.cu", "perceiver_io_tpu/ops/flash_attention.py:196",
+                                   heads["flash_heads_fwd" + BF16]),
+        "flash_heads_bwd_dkv" + BF16: ("cuda", f"{heads_source}_bwd.cu",
+                                       "perceiver_io_tpu/ops/flash_attention.py:294", heads["flash_heads_bwd_dkv" + BF16]),
+        "flash_heads_bwd_dq" + BF16: ("cuda", f"{heads_source}_bwd.cu",
+                                      "perceiver_io_tpu/ops/flash_attention.py:348", heads["flash_heads_bwd_dq" + BF16]),
     }
     by_phase = {"serve": serve_phase(card)}
     free_card()
@@ -2278,11 +2443,29 @@ def main() -> None:
         for dt, pair in (("f32", train), ("bf16", train_bf16)) for kind, run in pair.items()}}))
     grad_check_bf16_phase(card)
     free_card()
-    by_phase["image_eval"] = image_eval_phase(card)
+    image_f32 = image_eval_phase(card)
+    by_phase["image_eval"] = image_f32["launches"]
     free_card()
-    by_phase["image_train"] = image_train_pair(card)
+    image_train = image_train_pair(card)
+    by_phase["image_train"] = image_train["launches"]
     image_grad_check_phase(card)
     image_trajectory_phase(card)
+    free_card()
+    # the bf16 image classifier: eval and train step (graph and eager), then
+    # its gradient against the CPU's
+    by_phase["image_eval_bf16"] = image_eval_phase(card, torch.bfloat16, image_f32["logits"])["launches"]
+    del image_f32
+    free_card()
+    image_train_bf16 = image_train_pair(card, torch.bfloat16)
+    by_phase["image_train_bf16"] = image_train_bf16["launches"]
+    log("image_train_bf16 against image_train (f32), this run: " + json.dumps({"card": card, **{
+        f"{dt} {kind}": {"median_step_ms": TIMES[f"{name}_median_ms"][kind],
+                         "images_per_s": IMAGE_BATCH / (TIMES[f"{name}_median_ms"][kind] / 1e3),
+                         "busy_share": TIMES[f"{name}_busy_share"][kind], "losses": run["losses"][kind]}
+        for dt, name, run in (("f32", "image_train", image_train), ("bf16", "image_train" + BF16, image_train_bf16))
+        for kind in ("graph", "eager")}}))
+    free_card()
+    image_grad_check_bf16_phase(card)
     log("graph against eager, this run: " + json.dumps({"card": card, **TIMES}))
 
     kernels = []
@@ -2290,7 +2473,8 @@ def main() -> None:
         # each kernel's launches from the path that runs it: the CLM training
         # path for the five it runs, its twoseg configuration for K6/K7a/K7b,
         # the serve for the paged decode, the image classifier's train step
-        # for K8/K9a/K9b; its error, times and bound from the first case at
+        # for K8/K9a/K9b (each bf16 build from its phase in BF16_PHASE); its
+        # error, times and bound from the first case at
         # that path's shapes
         phase = BF16_PHASE.get(name) or ("train" if name in TRAIN_KERNELS else "train_twoseg" if name in TWOSEG_KERNELS
                                          else "image_train" if name in HEADS_KERNELS else "serve")

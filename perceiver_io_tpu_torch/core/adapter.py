@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from perceiver_io_tpu_torch.core.attention import dense
 from perceiver_io_tpu_torch.core.position import frequency_position_encoding, positions
 
 
@@ -50,27 +51,31 @@ def lookup(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
 class TrainableQueryProvider(nn.Module):
     """Learnable cross-attention query array: the latent array of a Perceiver
     IO encoder and the output query of a decoder. ``forward()`` returns it
-    as (1, N, C)."""
+    as (1, N, C) in the compute ``dtype`` (the parameter stays f32, as
+    JAX's ``query.astype(self.dtype)``)."""
 
-    def __init__(self, num_queries: int, num_query_channels: int):
+    def __init__(self, num_queries: int, num_query_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_query_channels = num_query_channels
+        self.dtype = dtype
         self._query = nn.Parameter(torch.zeros(num_queries, num_query_channels))
 
     def forward(self, x=None) -> torch.Tensor:
-        return self._query[None]
+        return self._query.to(self.dtype)[None]
 
 
 class ClassificationOutputAdapter(nn.Module):
-    """Linear head over the decoder output; squeezes a single output
-    query: (B, 1, C) -> (B, num_classes)."""
+    """Linear head over the decoder output, in the compute ``dtype``
+    (:func:`core.attention.dense`); squeezes a single output query:
+    (B, 1, C) -> (B, num_classes)."""
 
-    def __init__(self, num_classes: int, num_output_query_channels: int):
+    def __init__(self, num_classes: int, num_output_query_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.linear = nn.Linear(num_output_query_channels, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.linear(x)
+        x = dense(self.linear, x, self.dtype)
         return x[:, 0] if x.shape[1] == 1 else x
 
 

@@ -29,14 +29,17 @@ operands, and neither ``[kv_norm(prefix); q_norm(latents)]`` nor its
 projections, rotary rows or pad flags are ever joined. Calls with a KV cache,
 and an empty prefix, keep the concat route.
 
-``dtype`` is the compute dtype of the Perceiver AR modules (Flax's module
-``dtype``; ``CausalSequenceModel(config, dtype=torch.bfloat16)`` is the JAX
-package's ``CausalLanguageModel(config, dtype=jnp.bfloat16)``): parameters
-stay f32; projections, MLPs and the tied logits compute in ``dtype``
-(:func:`core.attention.dense`), the embeddings are cast to it after the
-lookup, the residual stream stays in it, LayerNorm keeps f32 statistics and
-writes ``dtype``, RoPE rotates in f32 and casts back, and attention scores
-and softmax are f32. The f32 default is the f32 path as it was.
+``dtype`` is the compute dtype of the Perceiver AR and Perceiver IO modules
+(Flax's module ``dtype``; ``CausalSequenceModel(config, dtype=torch.bfloat16)``
+is the JAX package's ``CausalLanguageModel(config, dtype=jnp.bfloat16)``, and
+the image classifier's ``dtype`` reaches ``PerceiverEncoder`` and
+``PerceiverDecoder`` the same way): parameters stay f32; projections, MLPs,
+the tied logits and the classification head compute in ``dtype``
+(:func:`core.attention.dense`), the embeddings and the trainable query
+arrays are cast to it, the residual stream stays in it, LayerNorm keeps f32
+statistics and writes ``dtype``, RoPE rotates in f32 and casts back, and
+attention scores and softmax are f32. The f32 default is the f32 path as it
+was.
 
 The Perceiver IO encoder's cross-attention takes the fused split-kv route
 whenever its gate allows (an input adapter that splits, no pad mask, one
@@ -130,7 +133,8 @@ class CrossAttention(nn.Module):
 
     def split_kv_projection(self, x_pix: torch.Tensor, enc: torch.Tensor):
         """K/V of ``kv_norm([x_pix | enc])`` without building the joined
-        input or its LayerNorm output.
+        input or its LayerNorm output, in the compute dtype ``dt`` of the
+        attention.
 
         ``x_pix`` (B, M, P) is the per-example part (pixels), ``enc`` (M, F)
         a per-position constant (the Fourier features). With the LayerNorm
@@ -141,8 +145,15 @@ class CrossAttention(nn.Module):
         from pixel sums plus constants of ``enc``. Outputs are zero-padded to
         a multiple of ``SPLIT_KV_PAD`` channels through the weights.
 
-        Returns ``(k, v, k_pad, v_pad)``, k/v (B, M, channels + pad)."""
+        As the JAX package computes it: the row statistics in f32; ``r``,
+        ``mean * r``, ``colsum(Wg)`` and ``beta @ W + b`` cast to ``dt``; the
+        two products ``x_pix @ Wg[:P]`` and ``enc @ Wg[P:]`` on ``dt``
+        operands; the rest in ``dt``. In f32 every cast is the identity.
+
+        Returns ``(k, v, k_pad, v_pad)``, k/v (B, M, channels + pad) in
+        ``dt``."""
         mha = self.attention
+        dt = mha.dtype
         n_pix, c = x_pix.shape[-1], self.kv_norm.weight.shape[0]
         gamma, beta = self.kv_norm.weight.float(), self.kv_norm.bias.float()
         enc32, pix32 = enc.float(), x_pix.float()
@@ -150,7 +161,8 @@ class CrossAttention(nn.Module):
         s2 = (pix32 * pix32).sum(-1) + (enc32 * enc32).sum(-1)[None]
         mean = s1 / c
         r = torch.rsqrt(torch.clamp(s2 / c - mean * mean, min=0.0) + self.kv_norm.eps)
-        r_col, mr_col = r[..., None], (mean * r)[..., None]
+        r_col, mr_col = r.to(dt)[..., None], (mean * r).to(dt)[..., None]
+        enc_dt, pix_dt = enc.to(dt), x_pix.to(dt)
 
         def project(linear: nn.Linear, out_ch: int):
             w = linear.weight.float().t()  # (C, out)
@@ -159,8 +171,8 @@ class CrossAttention(nn.Module):
             wg = w * gamma[:, None]
             if pad:
                 wg, w, b = F.pad(wg, (0, pad)), F.pad(w, (0, pad)), F.pad(b, (0, pad))
-            xw = pix32 @ wg[:n_pix] + (enc32 @ wg[n_pix:])[None]
-            return xw * r_col - mr_col * wg.sum(0) + (beta @ w + b), pad
+            xw = pix_dt @ wg[:n_pix].to(dt) + (enc_dt @ wg[n_pix:].to(dt))[None]
+            return xw * r_col - mr_col * wg.sum(0).to(dt) + (beta @ w + b).to(dt), pad
 
         k, k_pad = project(mha.k_proj, mha.qk_channels)
         v, v_pad = project(mha.v_proj, mha.v_channels)
@@ -266,7 +278,8 @@ class CrossAttentionLayer(nn.Sequential):
         :meth:`CrossAttention.split_kv_projection` and one head through the
         heads-major kernel (the encoder's fused input route: no pad mask, one
         head; ``PerceiverEncoder`` gates it). Numerically ``forward`` on
-        ``[x_pix | enc]``."""
+        ``[x_pix | enc]``. In bf16 the query, the zero-padded k/v and the
+        output are bf16 (K8, K9a and K9b's bf16 builds on the card)."""
         ca = self.cross_attn
         mha = ca.attention
         k, v, k_pad, v_pad = ca.split_kv_projection(x_pix, enc)
@@ -354,7 +367,7 @@ class PerceiverEncoder(nn.Module):
                  num_self_attention_blocks: int = 1, first_self_attention_block_shared: bool = True,
                  self_attention_widening_factor: int = 1, dropout: float = 0.0, residual_dropout: float = 0.0,
                  init_scale: float = 0.02, activation_checkpointing: bool = False,
-                 activation_offloading: bool = False):
+                 activation_offloading: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if num_cross_attention_layers <= 0:
             raise ValueError("num_cross_attention_layers must be > 0")
@@ -374,13 +387,13 @@ class PerceiverEncoder(nn.Module):
             "activation_offloading": activation_offloading,
         }
         self.input_adapter = input_adapter
-        self.latent_provider = TrainableQueryProvider(num_latents, num_latent_channels)
+        self.latent_provider = TrainableQueryProvider(num_latents, num_latent_channels, dtype)
 
         def cross_attn():
             return CrossAttentionLayer(
                 num_cross_attention_heads, num_latent_channels, input_adapter.num_input_channels,
                 widening_factor=cross_attention_widening_factor, num_qk_channels=num_cross_attention_qk_channels,
-                num_v_channels=num_cross_attention_v_channels,
+                num_v_channels=num_cross_attention_v_channels, dtype=dtype,
             )
 
         def self_attn():
@@ -388,6 +401,7 @@ class PerceiverEncoder(nn.Module):
                 num_self_attention_layers_per_block, num_self_attention_heads, num_latent_channels,
                 num_rotary_layers=0, widening_factor=self_attention_widening_factor,
                 num_qk_channels=num_self_attention_qk_channels, num_v_channels=num_self_attention_v_channels,
+                dtype=dtype,
             )
 
         self.cross_attn_1 = cross_attn()
@@ -449,7 +463,8 @@ class PerceiverDecoder(nn.Module):
                  num_cross_attention_qk_channels: Optional[int] = None,
                  num_cross_attention_v_channels: Optional[int] = None, cross_attention_widening_factor: int = 1,
                  cross_attention_residual: bool = True, dropout: float = 0.0, init_scale: float = 0.02,
-                 activation_checkpointing: bool = False, activation_offloading: bool = False):
+                 activation_checkpointing: bool = False, activation_offloading: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.init_scale = init_scale
         self._unported = {
@@ -463,6 +478,7 @@ class PerceiverDecoder(nn.Module):
             num_cross_attention_heads, output_query_provider.num_query_channels, num_latent_channels,
             widening_factor=cross_attention_widening_factor, num_qk_channels=num_cross_attention_qk_channels,
             num_v_channels=num_cross_attention_v_channels, attention_residual=cross_attention_residual,
+            dtype=dtype,
         )
 
     def forward(self, x_latent, deterministic: bool = True) -> torch.Tensor:

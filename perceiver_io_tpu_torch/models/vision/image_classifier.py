@@ -29,9 +29,10 @@ ImageClassifierConfig = PerceiverIOConfig[ImageEncoderConfig, ClassificationDeco
 
 class ImageInputAdapter(nn.Module):
     """Flattens the pixels and appends the Fourier position encodings of the
-    grid; ``split`` gives the two parts unjoined (the encoder's fused input
-    route). The encodings are a non-persistent buffer: no parameter, nothing
-    in the ``state_dict``, moved with the module."""
+    grid, cast to the image's dtype as the JAX package casts them; ``split``
+    gives the two parts unjoined (the encoder's fused input route). The
+    encodings are a non-persistent buffer: no parameter, nothing in the
+    ``state_dict``, moved with the module."""
 
     supports_split = True
 
@@ -67,10 +68,16 @@ class ImageClassifier(PerceiverIO):
         unit LayerNorms; the encoder's and the decoder's own scales); a
         generator seeded 0 when None. Weights are drawn on the CPU and then
         moved, so one seed gives the same model on every device.
+    :param dtype: the compute dtype (``torch.bfloat16`` is the JAX package's
+        ``ImageClassifier(config, dtype=jnp.bfloat16)``, its image
+        benchmark's default): the encoder, the decoder, the query arrays and
+        the classification head compute in it (``core.modules``); the
+        parameters are f32 either way, and the images keep their own dtype
+        up to the split K/V projection, which casts them.
     """
 
-    def __init__(self, config: ImageClassifierConfig, *, device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, config: ImageClassifierConfig, *, dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = "cuda", generator: Optional[torch.Generator] = None):
         dev = resolve_device(device)
         enc, dec = config.encoder, config.decoder
         input_adapter = ImageInputAdapter(enc.image_shape, enc.num_frequency_bands)
@@ -81,17 +88,18 @@ class ImageClassifier(PerceiverIO):
         encoder = PerceiverEncoder(
             input_adapter, config.num_latents, config.num_latent_channels,
             activation_checkpointing=config.activation_checkpointing,
-            activation_offloading=config.activation_offloading, **encoder_kwargs,
+            activation_offloading=config.activation_offloading, dtype=dtype, **encoder_kwargs,
         )
         decoder = PerceiverDecoder(
-            ClassificationOutputAdapter(dec.num_classes, dec.num_output_query_channels),
-            TrainableQueryProvider(1, dec.num_output_query_channels),
+            ClassificationOutputAdapter(dec.num_classes, dec.num_output_query_channels, dtype),
+            TrainableQueryProvider(1, dec.num_output_query_channels, dtype),
             config.num_latent_channels,
             activation_checkpointing=config.activation_checkpointing,
-            activation_offloading=config.activation_offloading, **dec.base_kwargs(),
+            activation_offloading=config.activation_offloading, dtype=dtype, **dec.base_kwargs(),
         )
         super().__init__(encoder, decoder)
         self.config = config
+        self.dtype = dtype
         self._init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(dev)
         self.eval()

@@ -22,4 +22,13 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
+// four f32 values to four consecutive outputs (16-byte aligned f32, 8-byte
+// aligned bf16, each rounded to nearest)
+__device__ __forceinline__ void store4(float* p, float4 a) { *reinterpret_cast<float4*>(p) = a; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 a) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(a.x, a.y);
+  q[1] = __floats2bfloat162_rn(a.z, a.w);
+}
+
 }  // namespace pio

@@ -4,7 +4,8 @@
 // (nsplit, rows, Dv) and then the (m, l) pairs as (nsplit, rows, 2), where
 // `rows` numbers the output rows in the order of the output's (rows, Dv)
 // layout. One warp per row merges them in split order (no atomics, the
-// same sums every run) and writes the normalized row and its logsumexp.
+// same sums every run) and writes the normalized row (f32, or bf16 for
+// K8's bf16 build) and its f32 logsumexp.
 // A split that saw no key (m = -inf) adds nothing; a row that saw none gets
 // 0 and logsumexp -inf.
 #pragma once
@@ -13,7 +14,8 @@
 
 namespace pio {
 
-__global__ void __launch_bounds__(256) merge_splits_kernel(const float* __restrict__ part, float* __restrict__ o,
+template <typename T>
+__global__ void __launch_bounds__(256) merge_splits_kernel(const float* __restrict__ part, T* __restrict__ o,
                                                            float* __restrict__ lse, long rows, int dv, int nsplit) {
   const long row = (long)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -43,12 +45,13 @@ __global__ void __launch_bounds__(256) merge_splits_kernel(const float* __restri
     a.y *= inv;
     a.z *= inv;
     a.w *= inv;
-    *reinterpret_cast<float4*>(o + row * dv + c) = a;
+    store4(o + row * dv + c, a);
   }
   if (lane == 0) lse[row] = mm + logf(ll == 0.f ? 1.f : ll);
 }
 
-inline cudaError_t merge_splits(const float* part, float* o, float* lse, long rows, int dv, int nsplit,
+template <typename T>
+inline cudaError_t merge_splits(const float* part, T* o, float* lse, long rows, int dv, int nsplit,
                                 cudaStream_t stream) {
   merge_splits_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(part, o, lse, rows, dv, nsplit);
   return cudaGetLastError();

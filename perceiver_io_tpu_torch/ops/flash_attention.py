@@ -28,14 +28,15 @@ Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
   ``delta_i = rowsum(dO_i * O_i)`` per head (f32), ``dV = P^T dO``,
   ``dS = P * (dO V^T - delta) * sm_scale``, ``dK = dS^T Q``, ``dQ = dS K``.
   The bias and the pad mask get no gradient, as in the JAX package.
-- bf16 operands (K2, K4a and K4b take them, as the JAX package's kernels
-  do): every product takes bf16 operands and sums in f32, the softmax and
-  ``delta`` are f32, and the gradients come out in bf16. The backward rounds
-  ``p`` to bf16 before ``dV = P^T dO`` and ``dS`` to bf16 before ``dK`` and
-  ``dQ``, where the JAX kernels round them. The forward keeps ``p`` in f32
-  for ``P V`` (K2's bf16 build splits ``p`` into two bf16 parts, ~2^-16),
-  where the JAX kernel rounds it to bf16 once: a closer answer, within the
-  JAX package's bf16 rounding.
+- bf16 operands (K2, K4a, K4b, K8, K9a and K9b take them, as the JAX
+  package's kernels do): every product takes bf16 operands and sums in f32,
+  the softmax and ``delta`` are f32, and the outputs and gradients come out
+  in bf16. The backward rounds ``p`` to bf16 before ``dV = P^T dO`` and
+  ``dS`` to bf16 before ``dK`` and ``dQ``, where the JAX kernels round them.
+  The heads-major forward (K8) rounds ``p`` to bf16 once before ``P V``, as
+  the JAX kernel does; the packed forward (K2) keeps ``p`` in f32 for
+  ``P V`` (K2's bf16 build splits ``p`` into two bf16 parts, ~2^-16): a
+  closer answer, within the JAX package's bf16 rounding.
 
 Dispatch is by device: a CUDA tensor launches the kernels (or raises), a CPU
 tensor takes the plain versions. There is no fallback on failure. Every call
@@ -52,8 +53,7 @@ builds are not ported yet).
 
 The heads-major form has the same semantics per (batch, head) row; the
 wrapper zero-pads odd head dims to a multiple of 8 and slices the extra
-output channels off. Its kernels take f32 operands only (their bf16 builds
-are not ported yet).
+output channels off. Its kernels take f32 or bf16 operands.
 """
 
 from __future__ import annotations
@@ -165,7 +165,10 @@ def _scores(q4, k4, bias, sm_scale):
     return s if bias is None else s + bias[:, None, None, :]
 
 
-def _fwd_plain(q, k, v, num_heads, bias, causal, sm_scale):
+def _fwd_plain(q, k, v, num_heads, bias, causal, sm_scale, round_p: bool = False):
+    """``round_p``: for bf16 operands, ``p`` rounded to bf16 once before
+    ``P V`` (K8's and the JAX kernel's rounding; the row sums stay those of
+    the f32 ``p``)."""
     b, nq = q.shape[0], q.shape[1]
     q4, k4, v4 = _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads)
     s = _scores(q4, k4, bias, sm_scale)
@@ -177,6 +180,8 @@ def _fwd_plain(q, k, v, num_heads, bias, causal, sm_scale):
     p = torch.exp(s - m_use)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    if round_p:
+        p = _rounding(q.dtype)(p)
     o = torch.einsum("bhij,bjhc->bihc", p, v4) / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0].permute(0, 2, 1)  # (B, Nq, H)
     return o.reshape(b, nq, -1).to(q.dtype), lse.contiguous()
@@ -625,8 +630,10 @@ def _heads_bias(bias, num_heads):
 
 
 def _heads_fwd_plain(q, k, v, num_heads, bias, causal, sm_scale):
-    """(B*H, N, D) operands as B*H batch rows of one head each."""
-    o, lse = _fwd_plain(q, k, v, 1, _heads_bias(bias, num_heads), causal, sm_scale)
+    """(B*H, N, D) operands as B*H batch rows of one head each; ``p``
+    rounded to bf16 before ``P V`` for bf16 operands, as K8 and the JAX
+    kernel round it."""
+    o, lse = _fwd_plain(q, k, v, 1, _heads_bias(bias, num_heads), causal, sm_scale, round_p=True)
     return o, lse[..., 0]
 
 
@@ -653,8 +660,9 @@ def flash_attention_reference(
     causal: bool = False,
     sm_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain heads-major forward (what K8 computes), dense in f32:
-    ``(o (B, H, Nq, Dv), lse (B, H, Nq))``."""
+    """The plain heads-major forward (what K8 computes), dense in f32 (``p``
+    rounded to bf16 before ``P V`` for bf16 operands): ``(o (B, H, Nq, Dv),
+    lse (B, H, Nq))``, ``o`` in q's dtype."""
     b, h, nq, _ = q.shape
     bias = bias_row(pad_mask, b, k.shape[2], q.device)
     o, lse = _heads_fwd_plain(*(t.reshape(b * h, t.shape[2], t.shape[3]) for t in (q, k, v)), h, bias, causal,
@@ -675,7 +683,8 @@ def flash_attention_bwd_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain heads-major backward (what K9a and K9b compute): ``(dq, dk,
     dv)`` from the forward's ``o`` and ``lse`` and the output gradient ``do``,
-    all in the (B, H, N, D) layout."""
+    all in the (B, H, N, D) layout (``p`` and ``dS`` rounded to bf16 for
+    bf16 operands)."""
     b, h = q.shape[0], q.shape[1]
     bias = bias_row(pad_mask, b, k.shape[2], q.device)
     flat = [t.reshape(b * h, t.shape[2], t.shape[3]) for t in (q, k, v, o)]
@@ -691,63 +700,69 @@ def _heads_dims(dqk: int, dv: int) -> None:
 
 def heads_fwd_tiles(d_max: int) -> Tuple[int, int]:
     """K8's (q rows a CTA owns, kv rows of a walked tile) at the head-dim
-    bucket of ``d_max`` (``Cfg`` in ``csrc/flash_heads.cu``): 64 and 48 up
-    to head dim 288 (the image CA's 264), 64 and 16 above."""
+    bucket of ``d_max`` (``Cfg`` and, for the bf16 build, ``Cfg16`` in
+    ``csrc/flash_heads.cu``; the two builds tile alike): 64 and 48 up to
+    head dim 288 (the image CA's 264), 64 and 16 above."""
     return (64, 48) if d_max <= 288 else (64, 16)
 
 
 def heads_fwd_splits(bh: int, nq: int, nkv: int, d_max: int, sms: int, slots: int) -> int:
     """How many CTAs K8 splits each q block's kv walk across:
     :func:`_kv_splits` over its q blocks and kv tiles
-    (:func:`heads_fwd_tiles`) and ``slots`` CTAs an SM (one at the image
-    CA's head dim 264: 200,576 bytes of shared memory a CTA). The image CA:
-    16 x 8 q blocks at batch 16 fill 128 of 132 SMs unsplit; 2 x 8 at batch
-    2 take 8 splits."""
+    (:func:`heads_fwd_tiles`) and ``slots`` CTAs an SM (the build's own
+    count from the runtime, :func:`_heads_fwd_slots`; the f32 build takes
+    one at the image CA's head dim 264: 200,576 bytes of shared memory a
+    CTA). The image CA in f32: 16 x 8 q blocks at batch 16 fill 128 of 132
+    SMs unsplit; 2 x 8 at batch 2 take 8 splits."""
     q_rows, kv_rows = heads_fwd_tiles(d_max)
     return _kv_splits(bh, nq, q_rows, -(-nkv // kv_rows), slots * sms)
 
 
 @functools.lru_cache(maxsize=None)
-def _heads_slots(name: str, device_index: int, dqk: int, dv: int) -> int:
+def _heads_slots(name: str, device_index: int, dqk: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
     """CTA slots an SM of K8 (``name`` "flash_heads_fwd") or K9b
-    ("flash_heads_bwd_dq") at these head dims, from the runtime."""
+    ("flash_heads_bwd_dq") at these head dims, for the build of ``dtype``
+    (f32 or bf16: each has its own tiles and registers), from the
+    runtime."""
     with torch.cuda.device(device_index):
-        slots = build.launcher(f"{name}_slots")(dqk, dv)
+        slots = build.launcher(f"{name}_slots")(dqk, dv, _DTYPE_CODES[dtype])
     if slots < 1:
-        raise RuntimeError(f"{name}: no CTA slot at head dims ({dqk}, {dv}) (CUDA error {-slots})")
+        raise RuntimeError(f"{name}: no CTA slot at head dims ({dqk}, {dv}), {dtype} (CUDA error {-slots})")
     return slots
 
 
-def _heads_fwd_slots(device_index: int, dqk: int, dv: int) -> int:
-    return _heads_slots("flash_heads_fwd", device_index, dqk, dv)
+def _heads_fwd_slots(device_index: int, dqk: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
+    return _heads_slots("flash_heads_fwd", device_index, dqk, dv, dtype)
 
 
 def heads_fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale, nsplit: Optional[int] = None):
-    """The K8 wrapper: ``(o, lse)`` for (B*H, N, D) f32 operands with D a
-    multiple of 8 up to 512 and the (B, Nkv) bias row (or None); the kv walk
-    split by :func:`heads_fwd_splits` unless ``nsplit`` is given."""
-    _check_cuda_operands((q, k, v), (torch.float32,), "flash_attention")
+    """The K8 wrapper: ``(o, lse)`` for (B*H, N, D) operands of one dtype
+    (f32 or bf16; ``o`` in it, ``lse`` f32) with D a multiple of 8 up to 512
+    and the (B, Nkv) bias row (or None); the kv walk split by
+    :func:`heads_fwd_splits` unless ``nsplit`` is given."""
+    _check_cuda_operands((q, k, v), tuple(_DTYPE_CODES), "flash_attention")
     bh, nq, dqk = q.shape
     nkv, dv = k.shape[1], v.shape[2]
     _heads_dims(dqk, dv)
     q, k, v = _ready(q), _ready(k), _ready(v)
-    o = torch.empty((bh, nq, dv), dtype=torch.float32, device=q.device)
+    o = torch.empty((bh, nq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
     if nsplit is None:
         nsplit = heads_fwd_splits(bh, nq, nkv, max(dqk, dv), _sms(q.device),
-                                  _heads_fwd_slots(q.device.index, dqk, dv))
+                                  _heads_fwd_slots(q.device.index, dqk, dv, q.dtype))
     part = torch.empty(nsplit * bh * nq * (dv + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     err = build.launcher("flash_heads_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(), lse.data_ptr(), _ptr(part),
-        bh, nq, nkv, num_heads, dqk, dv, int(bool(causal)), float(sm_scale), nsplit, build.current_stream(q.device),
+        bh, nq, nkv, num_heads, dqk, dv, int(bool(causal)), float(sm_scale), nsplit, _DTYPE_CODES[q.dtype],
+        build.current_stream(q.device),
     )
     build.check(err, "flash_heads_fwd")
-    build.count_launch("flash_heads_fwd")
+    build.count_launch("flash_heads_fwd", q.dtype)
     return o, lse
 
 
 def _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
-    _check_cuda_operands((q, k, v, do), (torch.float32,), "the heads-major flash backward")
+    _check_cuda_operands((q, k, v, do), tuple(_DTYPE_CODES), "the heads-major flash backward")
     bh, nq, dqk = q.shape
     nkv, dv = k.shape[1], v.shape[2]
     _heads_dims(dqk, dv)
@@ -756,13 +771,15 @@ def _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
 
 
 def heads_bwd_dkv_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
-    """The K9a wrapper: ``(dk, dv)`` for contiguous, aligned (B*H, N, D) f32
-    operands, ``lse``/``delta`` (B*H, Nq) f32 and the bias row (or None)."""
+    """The K9a wrapper: ``(dk, dv)`` for contiguous, aligned (B*H, N, D)
+    operands of one dtype (f32 or bf16; the gradients in it), ``lse``/
+    ``delta`` (B*H, Nq) f32 and the bias row (or None)."""
     ptrs, ints = _heads_bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.check(build.launcher("flash_heads_bwd_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints,
-                                                      build.current_stream(q.device)), "flash_heads_bwd_dkv")
-    build.count_launch("flash_heads_bwd_dkv")
+                                                      _DTYPE_CODES[q.dtype], build.current_stream(q.device)),
+                "flash_heads_bwd_dkv")
+    build.count_launch("flash_heads_bwd_dkv", q.dtype)
     return dk, dv
 
 
@@ -770,8 +787,9 @@ def heads_dq_splits(bh: int, nq: int, nkv: int, d_max: int, sms: int, slots: int
     """How many CTAs K9b splits each q block's kv walk across:
     :func:`_kv_splits` over its q blocks and kv tiles (32 rows up to head
     dim 288, 16 above: ``csrc/flash_heads_bwd.cu``) and ``slots`` CTAs an SM
-    (one at the image CA's head dim 264: 232,192 bytes of shared memory a
-    CTA). A split's partial (1.1 MB at the image CA's batch 2) is written
+    (the build's own count from the runtime; the f32 build takes one at the
+    image CA's head dim 264: 232,192 bytes of shared memory a CTA; both
+    builds walk the same tiles). A split's partial (1.1 MB at the image CA's batch 2) is written
     once and read once by the merge, which the rule does not charge: on an
     H100 the four splits at batch 2 cut K9b to a quarter of its unsplit time
     (``PERF.md``). The image CA: 16 x 16 q blocks at batch 16 fill the card
@@ -780,8 +798,8 @@ def heads_dq_splits(bh: int, nq: int, nkv: int, d_max: int, sms: int, slots: int
     return _kv_splits(bh, nq, rows, -(-nkv // rows), slots * sms)
 
 
-def _heads_dq_slots(device_index: int, dqk: int, dv: int) -> int:
-    return _heads_slots("flash_heads_bwd_dq", device_index, dqk, dv)
+def _heads_dq_slots(device_index: int, dqk: int, dv: int, dtype: torch.dtype = torch.float32) -> int:
+    return _heads_slots("flash_heads_bwd_dq", device_index, dqk, dv, dtype)
 
 
 def heads_bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale, nsplit: Optional[int] = None):
@@ -793,18 +811,19 @@ def heads_bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale
     dv = v.shape[2]
     if nsplit is None:
         nsplit = heads_dq_splits(bh, nq, k.shape[1], max(dqk, dv), _sms(q.device),
-                                 _heads_dq_slots(q.device.index, dqk, dv))
+                                 _heads_dq_slots(q.device.index, dqk, dv, q.dtype))
     dq = torch.empty_like(q)
     part = torch.empty((nsplit, bh, nq, dqk), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     build.check(build.launcher("flash_heads_bwd_dq")(*ptrs, dq.data_ptr(), _ptr(part), *ints, nsplit,
-                                                     build.current_stream(q.device)), "flash_heads_bwd_dq")
-    build.count_launch("flash_heads_bwd_dq")
+                                                     _DTYPE_CODES[q.dtype], build.current_stream(q.device)),
+                "flash_heads_bwd_dq")
+    build.count_launch("flash_heads_bwd_dq", q.dtype)
     return dq
 
 
 def _heads_bwd_cuda(q, k, v, o, lse, do, num_heads, bias, causal, sm_scale):
     q, k, v, do = _ready(q), _ready(k), _ready(v), _ready(do)
-    delta = (do * o).sum(dim=-1).contiguous()  # (B*H, Nq), outside the kernels as in JAX
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()  # (B*H, Nq) f32, outside the kernels as in JAX
     args = (q, k, v, do, lse.contiguous(), delta, num_heads, bias, causal, sm_scale)
     dk, dv = heads_bwd_dkv_cuda(*args)
     return heads_bwd_dq_cuda(*args), dk, dv

@@ -1275,3 +1275,153 @@ def test_capturable_compact_adamw_keeps_a_zero_gradient_row_at_a_zero_rate(cuda)
     assert torch.equal(params[cuda][0][0].detach().cpu(), torch.from_numpy(p0[0][0]))
     for got, want in zip(opts[cuda].compact.mu + opts[cuda].compact.nu, opts["cpu"].compact.mu + opts["cpu"].compact.nu):
         assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the image classifier's bf16 builds (K8, K9a/K9b) and its bf16 steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [40, 64, 128, 256, 264, 512])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [
+    (False, 130, 300, 0),   # no tile multiple
+    (True, 130, 300, 7),    # Nq < Nkv right-aligned, left-padded keys
+    (True, 300, 130, 0),    # Nq > Nkv: 170 rows see no key, zero gradient
+    (False, 64, 4096, 0),   # a long kv walk split across CTAs (K8, K9b)
+    (True, 100, 3000, 50),  # split and causal: some splits see nothing
+])
+def test_flash_heads_bf16_kernels_match_plain(cuda, d, causal, nq, nkv, n_pad):
+    """K8, K9a and K9b's bf16 builds (bf16 mma.sync; p rounded to bf16 once
+    before P V, p and dS before the gradient products) through the autograd
+    Function, one bucket each (64: head dims 40, which is no multiple of 16,
+    and 64; 128; 256; 288: the image CA's 264, whose last k-step is half
+    zeros; 512): the output and each gradient no further from the plain
+    version evaluated in f64 on the same bf16 inputs than 1.25x the bf16
+    plain version (L2) and within 2e-2 of the plain version's largest
+    magnitude; the logsumexp within 1e-4 of the plain one; one bf16 launch
+    each and no f32 one."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    g = torch.Generator().manual_seed(15)
+    b, h = 2, 2
+    q = (torch.randn(b, h, nq, d, generator=g) * d**-0.5).to(cuda, torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(b, h, nkv, d, generator=g).to(cuda, torch.bfloat16).requires_grad_() for _ in range(2))
+    do = torch.randn(b, h, nq, d, generator=g).to(cuda, torch.bfloat16)
+    pad = torch.zeros(b, nkv, dtype=torch.bool, device=cuda)
+    pad[1, :n_pad] = True
+    kw = dict(pad_mask=pad, causal=causal)
+    build.reset_launches()
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    o.backward(do)
+    assert [build.LAUNCHES[n + "_bf16"] for n in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] \
+        == [1, 1, 1]
+    assert build.LAUNCHES["flash_heads_fwd"] == build.LAUNCHES["flash_heads_bwd_dkv"] == 0
+    assert o.dtype == q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    plain = [t.detach() for t in (q, k, v)]
+    ro, rlse = flash_attention_reference(*plain, **kw)
+    eo, _ = flash_attention_reference(*(t.double() for t in plain), **kw)
+    _bf16_rule(o.detach(), ro, eo, 1.25)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    ops = (*plain, o.detach(), lse, do)
+    want = flash_attention_bwd_reference(*ops, **kw)
+    f64 = flash_attention_bwd_reference(*(t.double() for t in ops), **kw)
+    for got, p, e in zip((q.grad, k.grad, v.grad), want, f64):
+        _bf16_rule(got, p, e, 1.25)
+    if causal and nq > nkv:
+        assert torch.equal(q.grad[:, :, : nq - nkv], torch.zeros_like(q.grad[:, :, : nq - nkv]))
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("d", [8, 72, 200, 264, 288, 320, 512])
+def test_flash_heads_bf16_kernels_every_bucket_split_and_unsplit(cuda, d, nsplit):
+    """K8's and K9b's bf16 builds through their wrappers in every bucket
+    (with its edges), their kv walks unsplit and split 3 ways (K8's merge
+    and K9b's reduce write bf16 from f32 partials), and K9a beside them,
+    under ``_bf16_rule`` (1.25x) against the plain versions; split and
+    unsplit within one bf16 step of each other."""
+    from perceiver_io_tpu_torch.ops import flash_attention as tflash
+
+    g = torch.Generator().manual_seed(16)
+    b, h, nq, nkv = 2, 1, 130, 1000
+    q = (torch.randn(b, h, nq, d, generator=g) * d**-0.5).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(b, h, nkv, d, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    do = torch.randn(b, h, nq, d, generator=g).to(cuda, torch.bfloat16)
+    pad = torch.zeros(b, nkv, dtype=torch.bool, device=cuda)
+    pad[0, :37] = True
+    bias = tflash.bias_row(pad, b, nkv, q.device)
+    qf, kf, vf = tflash._heads_layout(q, k, v)
+    d8 = qf.shape[2]
+    o, lse = tflash.heads_fwd_cuda(qf, kf, vf, h, bias, False, 1.0, nsplit=nsplit)
+    assert o.dtype == torch.bfloat16
+    ro, _ = tflash.flash_attention_reference(q, k, v, pad)
+    eo, _ = tflash.flash_attention_reference(q.double(), k.double(), v.double(), pad)
+    _bf16_rule(o[..., :d].reshape(ro.shape), ro, eo, 1.25)
+    dof = torch.nn.functional.pad(do.reshape(b * h, nq, d), (0, d8 - d))
+    args = (qf, kf, vf, dof, lse, (dof.float() * o.float()).sum(-1), h, bias, False, 1.0)
+    dq = tflash.heads_bwd_dq_cuda(*args, nsplit=nsplit)
+    dk, dv = tflash.heads_bwd_dkv_cuda(*args)
+    o4, lse4 = o[..., :d].reshape(ro.shape), lse.reshape(b, h, nq)
+    want = tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad)
+    f64 = tflash.flash_attention_bwd_reference(*(t.double() for t in (q, k, v, o4, lse4, do)), pad)
+    for got, p, e in zip((dq, dk, dv), want, f64):
+        _bf16_rule(got[..., :d].reshape(p.shape), p, e, 1.25)
+    if nsplit > 1:
+        o1, _ = tflash.heads_fwd_cuda(qf, kf, vf, h, bias, False, 1.0, nsplit=1)
+        dq1 = tflash.heads_bwd_dq_cuda(*args, nsplit=1)
+        for split, whole in ((o, o1), (dq, dq1)):
+            # one bf16 rounding step apart at most, or a step of the largest
+            # value where a result lies near 0
+            atol = 2**-8 * float(whole.float().abs().max())
+            torch.testing.assert_close(split.float(), whole.float(), atol=atol, rtol=2**-7)
+
+
+def _bf16_image_run(cuda, jit: bool, steps: int = 3):
+    """``steps`` AdamW steps (f32 moments, clip 1.0) of a small bf16 image
+    classifier (split route) on fixed batches: (losses, parameters and
+    moments after the last step, launches)."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig
+    from perceiver_io_tpu_torch.models.vision import ImageClassifier, ImageClassifierConfig, ImageEncoderConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    config = ImageClassifierConfig(
+        encoder=ImageEncoderConfig(image_shape=(16, 16, 3), num_frequency_bands=32, num_cross_attention_heads=1,
+                                   num_self_attention_heads=2, num_self_attention_layers_per_block=1,
+                                   num_self_attention_blocks=2),
+        decoder=ClassificationDecoderConfig(num_classes=4, num_output_query_channels=32,
+                                            num_cross_attention_heads=1),
+        num_latents=128, num_latent_channels=32,
+    )
+    model = ImageClassifier(config, dtype=torch.bfloat16, device=cuda, generator=torch.Generator().manual_seed(0))
+    state = tt.TrainState.create(model, tt.make_optimizer(1e-3, gradient_clip=1.0))
+    step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True, jit=jit)
+    rng = np.random.default_rng(17)
+    build.reset_launches()
+    losses = []
+    for _ in range(steps):
+        batch = {"image": rng.normal(size=(4, 16, 16, 3)).astype(np.float32), "label": rng.integers(0, 4, size=4)}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    return losses, [t.detach().clone() for t in state.optimizer.state_tensors()], dict(build.LAUNCHES)
+
+
+def test_bf16_image_graphed_train_step_equals_the_eager_step_bit_for_bit(cuda):
+    """Three train steps of the bf16 image classifier with f32 Adam moments
+    as a CUDA graph and eagerly, from the same weights and batches: the
+    losses and every parameter and moment after the third step bit for bit;
+    every step's cross-attention on K8, K9a and K9b's bf16 builds, once each,
+    and no f32 build of them."""
+    graphed = _bf16_image_run(cuda, True)
+    eager = _bf16_image_run(cuda, False)
+    assert graphed[0] == eager[0] and np.isfinite(graphed[0]).all()
+    assert all(torch.equal(a, b) for a, b in zip(graphed[1], eager[1]))
+    assert all(t.dtype == torch.float32 for t in graphed[1] if t.is_floating_point())
+    for launches in (graphed[2], eager[2]):
+        assert [launches[n + "_bf16"] for n in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] \
+            == [3, 3, 3]
+        assert launches["flash_heads_fwd"] == launches["flash_heads_bwd_dkv"] == launches["flash_heads_bwd_dq"] == 0
