@@ -14,7 +14,7 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    K4b's, K6's, K7a's, K7b's, K8's, K9a's and K9b's builds from
    ``cuobjdump -sass`` (TF32 in every f32 build of K2, K4a, K6, K7a and K8,
    f64 DMMA in every f32 build of K4a, K4b, K7a, K7b, K9a and K9b, bf16 in
-   K2's, K4a's, K4b's, K8's, K9a's and K9b's bf16 builds);
+   the bf16 builds of all nine);
 3. kernel parity: each kernel against its plain PyTorch version on the card
    at the flagship's serving and training shapes and the image classifier's,
    with the tolerance stated beside each case, and its median device time
@@ -32,9 +32,11 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    (the classifier's cross-attention, 512 latents over 50176 pixels with one
    264-wide head, and odd-width, causal, pad-mask and split-walk cases);
    and the bf16 builds of the bf16 CLM's path (K2 at the serve's and the
-   train step's cross-attention, K3 at the serve's CA and SA pools and
-   ``ca_retired``, K4a/K4b at the train step's cross- and self-attention,
-   K1/K5 at 16384 x 512 and 15360 x 512) and of the bf16 image step's
+   train step's cross-attention, its kv split timed against the unsplit
+   walk, K3 at the serve's CA and SA pools and ``ca_retired``, K4a/K4b at
+   the train step's cross- and self-attention, K6/K7a/K7b at the twoseg
+   cases above, K1/K5 at 16384 x 512 and 15360 x 512) and of the bf16 image
+   step's
    (K8/K9a/K9b at the image CA, batch 16 and a split batch 2; K2/K4a/K4b at
    its self-attention; K1/K5 at 8192 x 1024), each held by ``check_bf16`` to the
    plain version evaluated in f64 on the same bf16 inputs (no further than
@@ -53,7 +55,8 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    the serving path must have launched during the serve, and K3 exactly 9
    times a decode step (the CA and 8 SA layers); the same requests through
    the eager step must give the same streams token for token over the same
-   decode steps (at least 64); then a profiled serve on each step;
+   decode steps (at least 64); then a profiled serve on each step; the
+   sequential streams come from ``make_decode_fns``' captured step;
 5. train: the flagship at full width and depth (16384 tokens, 1024 latents,
    8 layers, seeded random weights) takes five AdamW steps (lr 1e-3, f32
    moments, global clip 1.0) on one fixed batch of 4 in 2 chunks, with a
@@ -89,36 +92,49 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
 11. grad_check_bf16: grad_check's gradient in bf16 on the card against the
     CPU's f32 gradient, per parameter no further (L2) than 1.5x the CPU's
     bf16 gradient;
-12. image_eval: the Perceiver IO image classifier of ``bench.py``'s image
+12. train_twoseg_bf16: train_bf16 under "twoseg" (K6/K7a/K7b's bf16
+    builds 2 launches each a step, K2/K4a/K4b's 16), graph and eager equal
+    bit for bit, each loss within ``TWOSEG_LOSS_TOL_BF16`` of train_bf16's;
+13. eval_twoseg_bf16: eval_twoseg in bf16, the two routes' logits within
+    ``TWOSEG_EVAL_L2_BF16`` (L2, relative), only bf16 builds launched;
+14. grad_check_twoseg_bf16: grad_check_bf16 under "twoseg" on the card and
+    the CPU;
+15. decode_pair: ``generate``/``make_decode_fns`` at full width, its step
+    the captured CUDA graph: 128 greedy tokens after one 8192-token prompt
+    (batch 1) and after four serve prompts (batch 4), in f32 and in bf16
+    with f32 and bf16 caches, each stream equal to the eager step's token
+    for token and to ``generate``'s, tok/s of both, the graph's nodes K1
+    only;
+16. image_eval: the Perceiver IO image classifier of ``bench.py``'s image
    bench (224x224x3, 64 bands, 512 x 1024 latents, 6 x 8 shared SA layers,
    1000 classes; seeded random weights, f32) classifies 16 random images
    through ``make_eval_step`` (a CUDA graph) on the split-kv route and on
    the standard route: finite logits that agree within
    ``IMAGE_ROUTE_TOL``, a replay's within ``GRAPH_RTOL`` of the eager
    forward's, and K8 1, K2 48, K1 101 launches a forward, exactly;
-13. image_train: five AdamW steps (lr 1e-3, clip 1.0) of that classifier on
+17. image_train: five AdamW steps (lr 1e-3, clip 1.0) of that classifier on
     one fixed batch of 16 random images and labels, as a CUDA graph and
     eagerly: every loss finite, the second below the first, no step
     skipped, each step launching K8, K9a, K9b once, K2, K4a, K4b 48 times
     and K1, K5 101 times, exactly; the graph's losses within
     ``GRAPH_RTOL`` of the eager run's; then one profiled step of each;
-14. image gradient check: the classifier at full width on 32x32 images and
+18. image gradient check: the classifier at full width on 32x32 images and
     one block of 2 layers, the card's gradient and optimizer update against
     the CPU's;
-15. image_trajectory: five train steps of that reduced classifier at lr
+19. image_trajectory: five train steps of that reduced classifier at lr
     1e-3 on the card (a CUDA graph) and on the CPU, the losses compared step
     by step;
-16. image_eval_bf16: image_eval with bf16 compute (``dtype=torch.bfloat16``,
+20. image_eval_bf16: image_eval with bf16 compute (``dtype=torch.bfloat16``,
     f32 parameters), the JAX package's image benchmark default: every
     launch a bf16 build (the standard route's kv_norm reads the f32 joined
     input: one f32 K1), a replay equal to the eager forward bit for bit,
     the two routes within ``IMAGE_ROUTE_TOL_BF16`` and each within
     ``IMAGE_BF16_TOL`` of the f32 forward's logits (L2, relative);
-17. image_train_bf16: image_train with bf16 compute and f32 Adam moments,
+21. image_train_bf16: image_train with bf16 compute and f32 Adam moments,
     graph and eager, equal bit for bit, the first step lowering the loss,
     K8, K9a and K9b's bf16 builds once a step and no f32 build; its step
     ms, images/s and busy share beside the f32 step's;
-18. image_grad_check_bf16: image_grad_check's classifier in bf16 on the
+22. image_grad_check_bf16: image_grad_check's classifier in bf16 on the
     card against the CPU's f32 gradient, per parameter no further (L2) than
     1.5x the CPU's bf16 gradient.
 
@@ -150,6 +166,8 @@ NUM_LATENTS = 512
 N_REQUESTS = 6
 SERVE_SLOTS = 4
 NEAR_TIE = 1e-4
+# decode_pair: greedy tokens after the prompt, and the batch-1 prompt's length
+DECODE_NEW_TOKENS, DECODE_PROMPT = 128, 8192
 # serve_bf16's near tie: bf16 logits (|logit| < 2 at these random weights)
 # have steps of 2^-8 to 2^-7, and the engine's K3 (f32 softmax weights) and
 # the sequential decode's dense attention (weights rounded to bf16, as the
@@ -167,10 +185,11 @@ SERVE_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd")
 TRAIN_KERNELS = ("layer_norm_fwd", "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq", "layer_norm_bwd")
 # the phases that run the bf16 builds, by kernel: serve_bf16 K3,
 # image_train_bf16 K8, K9a and K9b, train_bf16 the rest
+TWOSEG_KERNELS = ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
 BF16_PHASE = {**{k + BF16: "train_bf16" for k in TRAIN_KERNELS}, "paged_decode" + BF16: "serve_bf16",
+              **{k + BF16: "train_twoseg_bf16" for k in TWOSEG_KERNELS},
               **{k + BF16: "image_train_bf16" for k in ("flash_heads_fwd", "flash_heads_bwd_dkv",
                                                           "flash_heads_bwd_dq")}}
-TWOSEG_KERNELS = ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
 ROUTE_FEATURES = {"concat": frozenset(), "twoseg": frozenset({"twoseg"})}
 # per flagship train step (2 chunks): one CA and 8 SA layers per chunk;
 # 3 CA + 16 SA LayerNorms per chunk on either route
@@ -181,6 +200,20 @@ PER_STEP = {"concat": {"flash_packed": 18, "flash_2seg": 0, "layer_norm": 38},
 # the fifth step; the first four were equal): the routes differ only in
 # GEMM shapes and in the order of the K/V weight-gradient sums
 TWOSEG_LOSS_TOL = 2e-6
+# the same in bf16 (train_twoseg_bf16 against train_bf16): K6 and K2 sum
+# the online softmax over other tiles at the seam, so a bf16 output may
+# round to its other neighbour, and an Adam step moves a parameter by about
+# lr * sign(g), whose sign a gradient within bf16 rounding of 0 may flip;
+# 1e-2 (0.2% of a loss of 5.6) allows a few such flips, where a route that
+# computed another function would be off by the loss's own steps (0.1-0.2)
+TWOSEG_LOSS_TOL_BF16 = 1e-2
+# eval_twoseg_bf16: the two routes' bf16 logits, L2 distance relative to
+# the concat route's. K6 runs K2's bf16 tiles, and at the flagship the seam
+# (15360 prefix rows) falls on a 64-row tile boundary, so the two walks
+# visit the same tiles in the same order: measured 0.0 on an H100. 1e-3
+# leaves room for a bf16 step (2^-8 relative) in a few logits, where a
+# route that computed another function would be off by far more
+TWOSEG_EVAL_L2_BF16 = 1e-3
 # the Perceiver IO image classifier of bench.py:300-316 (image_bench): 224x224x3
 # images with 64 Fourier bands (261 input channels), 512 latents x 1024
 # channels, one cross-attention head, 8 self-attention heads, 6 layers x 8
@@ -266,15 +299,18 @@ GRAPH_KERNELS = {
     "flash_2seg_fwd": ("flash_2seg_fwd_kernel",), "flash_2seg_bwd_dkv": ("flash_2seg_bwd_dkv_kernel",),
     "flash_2seg_bwd_dq": ("flash_2seg_bwd_dq_kernel",), "flash_heads_fwd": ("heads_fwd_kernel",),
     "flash_heads_bwd_dkv": ("heads_bwd_dkv_kernel",), "flash_heads_bwd_dq": ("heads_bwd_dq_kernel",),
-    # the bf16 builds: K4's kernels carry names of their own; K2's, K3's and
-    # the Triton kernels' share their f32 builds' names, so a node of one of
-    # those counts for the launches of both builds together
+    # the bf16 builds: K4's and K7's kernels carry names of their own; K2's,
+    # K3's, K6's and the Triton kernels' share their f32 builds' names, so a
+    # node of one of those counts for the launches of both builds together
     "flash_packed_fwd" + BF16: ("flash_packed_kernel",),
     "paged_decode" + BF16: ("paged_walk_kernel", "paged_merge_kernel"),
     "layer_norm_fwd" + BF16: ("_layer_norm_fwd_kernel",),
     "flash_packed_bwd_dkv" + BF16: ("flash_bwd_dkv_bf16_kernel",),
     "flash_packed_bwd_dq" + BF16: ("flash_bwd_dq_bf16_kernel",),
     "layer_norm_bwd" + BF16: ("_layer_norm_bwd_dx_kernel", "_layer_norm_bwd_dwdb_kernel"),
+    "flash_2seg_fwd" + BF16: ("flash_2seg_fwd_kernel",),
+    "flash_2seg_bwd_dkv" + BF16: ("flash_2seg_bwd_dkv_bf16_kernel",),
+    "flash_2seg_bwd_dq" + BF16: ("flash_2seg_bwd_dq_bf16_kernel",),
     "flash_heads_fwd" + BF16: ("heads_fwd_bf16_kernel",),
     "flash_heads_bwd_dkv" + BF16: ("heads_bwd_dkv_bf16_kernel",),
     "flash_heads_bwd_dq" + BF16: ("heads_bwd_dq_bf16_kernel",),
@@ -452,15 +488,16 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops.flash_attention import (
+        _fwd_cuda,
+        bias_row,
         flash_attention_packed,
         flash_attention_packed_reference,
         packed_kv_splits,
     )
 
     (b, nq, c), nkv, d = q.shape, k.shape[1], q.shape[2] // h
-    # the f32 kernel's kv split (the bf16 build takes none)
-    splits = packed_kv_splits(b, h, nq, nkv, d, torch.cuda.get_device_properties(0).multi_processor_count)
-    splits = splits if q.dtype == torch.float32 else 1
+    # the kernel's kv split, in either build
+    splits = packed_kv_splits(b, h, nq, nkv, d, torch.cuda.get_device_properties(0).multi_processor_count, q.dtype)
     o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
@@ -468,13 +505,22 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     if tol is not None:  # None: a bf16 case held by check_bf16 alone
         check(f"flash_packed_fwd {name} out", err, tol)
     check(f"flash_packed_fwd {name} lse", max_err(lse, rlse), 1e-4)
+    # where the rule splits the walk, the unsplit walk too: its output held
+    # as the split one's, its time beside it
+    bias = bias_row(pad, b, nkv, q.device)
+    unsplit = lambda: _fwd_cuda(q, k, v, h, bias, causal, 1.0, nsplit=1)  # noqa: E731
     bf16 = None
     if q.dtype == torch.bfloat16:
         eo, _ = flash_attention_packed_reference(q.double(), k.double(), v.double(), h, pad_mask=pad, causal=causal)
         bf16 = check_bf16(f"flash_packed_fwd {name}", o, ro, eo, 1.25)
+        if splits > 1:
+            check_bf16(f"flash_packed_fwd {name} unsplit", unsplit()[0], ro, eo, 1.25)
         del eo
+    elif splits > 1 and tol is not None:
+        check(f"flash_packed_fwd {name} unsplit out", max_err(unsplit()[0], ro), tol)
     ms = time_ms(lambda: flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal),
                  dispatch=f"flash_packed_fwd {name}")
+    unsplit_ms = time_ms(unsplit) if splits > 1 else None
     plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal), 3)
     # the library yardstick: one SDPA call on heads-major views with the
     # same right-aligned causal + pad mask
@@ -491,7 +537,7 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
                     f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}", path=path,
                max_abs_err=err, tol="check_bf16 (1.25x)" if tol is None else tol, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               dispatch_ms=DISPATCH_MS[f"flash_packed_fwd {name}"], kv_splits=splits,
+               dispatch_ms=DISPATCH_MS[f"flash_packed_fwd {name}"], kv_splits=splits, unsplit_ms=unsplit_ms,
                dtype=str(q.dtype)[6:], bf16_rule=bf16)
     log(f"time flash_packed_fwd {name}: {json.dumps(row)}")
     return row
@@ -900,15 +946,16 @@ def layernorm_bwd_case(gen: torch.Generator, rows: int, c: int, path: str, dtype
 
 def twoseg_phase(gen: torch.Generator) -> dict:
     """K6 (forward), K7a (dK/dV) and K7b (dQ) against the plain two-segment
-    versions: the training chunk's cross-attention (batch 2, 1024 latents
-    over 7680 kept prefix rows), the same with 3001 left-padded prefix keys
-    over 7679 rows, the eval window (batch 1, 15360 prefix rows; forward
-    only) and the minimum prefix (one row, 1000 latents). Beside each: the
-    plain version's time, the route it replaces (the K/V join, then K2 or
-    K4a/K4b on the joined operands) and the library yardstick, one
-    ``scaled_dot_product_attention`` call (and its backward) on the joined
-    operands with the explicit causal + pad mask. Returns the rows by
-    kernel."""
+    versions, in f32 and in bf16: the training chunk's cross-attention
+    (batch 2, 1024 latents over 7680 kept prefix rows), the same with 3001
+    left-padded prefix keys over 7679 rows, the eval window (batch 1, 15360
+    prefix rows; forward only, its kv walk split) and the minimum prefix (one
+    row, 1000 latents). Beside each: the plain version's time, the route it
+    replaces (the K/V join, then K2 or K4a/K4b on the joined operands) and
+    the library yardstick, one ``scaled_dot_product_attention`` call (and
+    its backward) on the joined operands with the explicit causal + pad
+    mask, in the same dtype. Returns the rows by kernel (bf16 builds under
+    their ``_bf16`` names)."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops.flash_attention import (
@@ -928,24 +975,32 @@ def twoseg_phase(gen: torch.Generator) -> dict:
     h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
     d, lat = c // h, FLAGSHIP["max_latents"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = {  # name: (batch, prefix rows, latents, left pads, backward too, path)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = {  # name: (batch, prefix rows, latents, left pads, backward too, path)
         "train_ca": (TRAIN_CHUNK, KEEP, lat, 0, True, "train_twoseg"),
         "train_ca_leftpad": (TRAIN_CHUNK, KEEP - 1, lat, 3001, True, "train_twoseg"),
         "eval_window": (1, PREFIX_LEN, lat, 0, False, "eval_twoseg"),
         "min_prefix": (TRAIN_CHUNK, 1, 1000, 0, True, "edge"),
     }
-    # K6 against the plain version in f32 (1e-5); K7a and K7b, as K4a and
-    # K4b in flash_bwd_phase, against the plain backward evaluated in f64 on
-    # the same f32 inputs, within 1e-5, and no further from it than the
+    cases = {**{name: (*shape, f32) for name, shape in shapes.items()},
+             **{f"{name}_bf16": (*shape[:5], shape[5] + (BF16 if shape[5] != "edge" else ""), bf16)
+                for name, shape in shapes.items()}}
+    # f32: K6 against the plain version in f32 (1e-5); K7a and K7b, as K4a
+    # and K4b in flash_bwd_phase, against the plain backward evaluated in f64
+    # on the same f32 inputs, within 1e-5, and no further from it than the
     # plain backward evaluated in f32 is, kernel by kernel and case by case:
     # their tensor-core sums (f64 scores and dQ, split-TF32 dK/dV) do not
-    # run in the f32 plain version's order, so it cannot be the reference
+    # run in the f32 plain version's order, so it cannot be the reference.
+    # bf16: each output held by check_bf16 (1.25x the bf16 plain version's
+    # L2 distance from the f64 evaluation of the same bf16 inputs)
     tol = 1e-5
-    out = {k: {"cases": []} for k in TWOSEG_KERNELS}
-    for name, (b, n_p, nq, pads, with_bwd, path) in cases.items():
-        q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda()
-        k_p, v_p = (torch.randn(b, n_p, c, generator=gen).cuda() for _ in range(2))
-        k_l, v_l = (torch.randn(b, nq, c, generator=gen).cuda() for _ in range(2))
+    out = {k + sfx: {"cases": []} for k in TWOSEG_KERNELS for sfx in ("", BF16)}
+    for name, (b, n_p, nq, pads, with_bwd, path, dtype) in cases.items():
+        sfx, el = (BF16 if dtype == bf16 else ""), (2 if dtype == bf16 else 4)
+        rate = "bf16_tensor" if dtype == bf16 else "split_tf32"
+        q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda().to(dtype)
+        k_p, v_p = (torch.randn(b, n_p, c, generator=gen).cuda().to(dtype) for _ in range(2))
+        k_l, v_l = (torch.randn(b, nq, c, generator=gen).cuda().to(dtype) for _ in range(2))
         ops = (q, k_p, v_p, k_l, v_l)
         pad_p = pad_l = pad_cat = None
         if pads:
@@ -958,7 +1013,13 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         ro, rlse = flash_attention_packed_2seg_reference(*ops, h, **kw)
         err = max_err(o, ro)
-        check(f"flash_2seg_fwd {name} out", err, tol)
+        rule = None
+        if dtype == bf16:
+            eo, _ = flash_attention_packed_2seg_reference(*(t.double() for t in ops), h, **kw)
+            rule = check_bf16(f"flash_2seg_fwd {name}", o, ro, eo, 1.25)
+            del eo
+        else:
+            check(f"flash_2seg_fwd {name} out", err, tol)
         check(f"flash_2seg_fwd {name} lse", max_err(lse, rlse), 1e-4)
         del ro, rlse
 
@@ -968,10 +1029,11 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k_cat, v_cat))
         keep = _sdpa_keep(nq, nkv, pad_cat)
         pairs = b * h * (nq * n_p + nq * (nq + 1) // 2)  # visible (query, key) pairs
-        reads = 4 * (b * nq * c + 2 * b * nkv * c) + (4 * b * nkv if pads else 0)
-        shape = f"{name} batch={b} nq={nq} np={n_p} left_pads={pads} H={h} D={d} f32"
-        bound_ms, bound_by = bound(reads + 4 * (b * nq * c + b * nq * h), 4 * d * pairs, "split_tf32")
-        row = dict(case=shape, path=path, max_abs_err=err, tol=tol,
+        reads = el * (b * nq * c + 2 * b * nkv * c) + (4 * b * nkv if pads else 0)
+        shape = f"{name} batch={b} nq={nq} np={n_p} left_pads={pads} H={h} D={d} {str(dtype)[6:]}"
+        bound_ms, bound_by = bound(reads + el * b * nq * c + 4 * b * nq * h, 4 * d * pairs, rate)
+        row = dict(case=shape, path=path, max_abs_err=err, tol=tol if dtype == f32 else "check_bf16 (1.25x)",
+                   bf16_rule=rule, dtype=str(dtype)[6:],
                    ms=time_ms(lambda: flash_attention_packed_2seg(*ops, h, **kw), dispatch=f"flash_2seg_fwd {name}"),
                    plain_ms=time_ms(lambda: flash_attention_packed_2seg_reference(*ops, h, **kw), 3),
                    library_ms=time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep)),
@@ -979,13 +1041,13 @@ def twoseg_phase(gen: torch.Generator) -> dict:
                    k2_concat_ms=time_ms(lambda: flash_attention_packed(q, k_cat, v_cat, h, pad_mask=pad_cat,
                                                                        causal=True)),
                    bound_ms=bound_ms, bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"flash_2seg_fwd {name}"],
-                   kv_splits=packed_kv_splits(b, h, nq, nkv, d, sms))
+                   kv_splits=packed_kv_splits(b, h, nq, nkv, d, sms, dtype))
         log(f"time flash_2seg_fwd {name}: {json.dumps(row)}")
-        out["flash_2seg_fwd"]["cases"].append(row)
+        out["flash_2seg_fwd" + sfx]["cases"].append(row)
         if not with_bwd:
             continue
 
-        do = torch.randn(b, nq, c, generator=gen).cuda()
+        do = torch.randn(b, nq, c, generator=gen).cuda().to(dtype)
         delta = bwd_delta(o, do, h)
         args = (*ops, do, lse, delta, h, bias_row(pad_p, b, n_p, q.device), bias_row(pad_l, b, nq, q.device), 1.0)
         dk_p, dv_p, dk_l, dv_l = bwd_2seg_dkv_cuda(*args)
@@ -995,14 +1057,22 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         e64 = flash_attention_packed_2seg_bwd_reference(*(t.double() for t in (*ops, o, lse, do)), h, **kw)
         r32 = flash_attention_packed_2seg_bwd_reference(*ops, o, lse, do, h, **kw)
         refs = {"flash_2seg_bwd_dkv": (e64[1:], r32[1:]), "flash_2seg_bwd_dq": (e64[:1], r32[:1])}
-        errs, f32_plain = {}, {}
+        errs, f32_plain, rules = {}, {}, {}
         for kernel, xs in got.items():
             w64, w32 = refs[kernel]
+            if dtype == bf16:  # each gradient apart, against the bf16 plain version's
+                grads = ("dk_p", "dv_p", "dk_l", "dv_l") if kernel.endswith("dkv") else ("dq",)
+                rules[kernel] = [check_bf16(f"{kernel} {name} {g}", x, p, e, 1.25)
+                                 for g, x, p, e in zip(grads, xs, w32, w64)]
+                errs[kernel] = max(max_err(x, w) for x, w in zip(xs, w32))
+                continue
             errs[kernel] = max(max_err64(x, w) for x, w in zip(xs, w64))
             f32_plain[kernel] = {"kernel": max(max_err(x, w) for x, w in zip(xs, w32)),
                                  "f64": max(max_err64(x, w) for x, w in zip(w32, w64))}
         del e64, r32, refs
         for kernel, e in errs.items():
+            if dtype == bf16:
+                continue
             log(f"f32 plain {kernel} {name}: to the kernel {f32_plain[kernel]['kernel']:.3e}, "
                 f"to the f64 evaluation {f32_plain[kernel]['f64']:.3e}")
             check(f"{kernel} {name} (to the f64 plain version)", e, tol)
@@ -1019,17 +1089,18 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         ref = scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
         go = do.reshape(b, nq, h, d).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), go, retain_graph=True))
-        reads = 4 * (2 * b * nq * c + 2 * b * nkv * c + 2 * b * nq * h) + (4 * b * nkv if pads else 0)
-        bounds = {"flash_2seg_bwd_dkv": bound(reads + 4 * 2 * b * nkv * c, 8 * d * pairs, "split_tf32"),
-                  "flash_2seg_bwd_dq": bound(reads + 4 * b * nq * c, 6 * d * pairs, "split_tf32")}
+        reads = el * (2 * b * nq * c + 2 * b * nkv * c) + 4 * 2 * b * nq * h + (4 * b * nkv if pads else 0)
+        bounds = {"flash_2seg_bwd_dkv": bound(reads + el * 2 * b * nkv * c, 8 * d * pairs, rate),
+                  "flash_2seg_bwd_dq": bound(reads + el * b * nq * c, 6 * d * pairs, rate)}
         for kernel in errs:
-            row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol, reference="plain version in f64",
-                       f32_plain=f32_plain[kernel], ms=times[kernel],
-                       plain_ms=plain_ms, library_ms=library_ms, concat_ms=concat_ms, k4_concat_ms=k4_ms[kernel],
-                       bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
-                       dispatch_ms=DISPATCH_MS[f"{kernel} {name}"])
+            row = dict(case=shape, path=path, max_abs_err=errs[kernel], tol=tol if dtype == f32 else
+                       "check_bf16 (1.25x)", reference="plain version in f64" if dtype == f32 else
+                       "bf16 plain version", f32_plain=f32_plain.get(kernel), bf16_rule=rules.get(kernel),
+                       dtype=str(dtype)[6:], ms=times[kernel], plain_ms=plain_ms, library_ms=library_ms,
+                       concat_ms=concat_ms, k4_concat_ms=k4_ms[kernel], bound_ms=bounds[kernel][0],
+                       bound_by=bounds[kernel][1], dispatch_ms=DISPATCH_MS[f"{kernel} {name}"])
             log(f"time {kernel} {name}: {json.dumps(row)}")
-            out[kernel]["cases"].append(row)
+            out[kernel + sfx]["cases"].append(row)
         del ref, qg, kg, vg
     return out
 
@@ -1257,25 +1328,11 @@ def heads_phase(gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class _LogitRecorder:
-    """Forwards to the model and keeps each call's last-position logits (the
-    sequential path's near-tie check reads them)."""
-
-    def __init__(self, model):
-        self.model, self.config, self.device = model, model.config, model.device
-        self.logits = []
-
-    def __call__(self, *args, **kwargs):
-        out = self.model(*args, **kwargs)
-        self.logits.append(out.logits[0, -1].float())
-        return out
-
-
 def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None):
     """The serve's engine. Its decode step is the captured CUDA graph
     (``make_paged_step_fn`` on the card, captured at construction), or,
     with ``graphed=False``, the eager reference: the host's draws, then the
-    step's body (``generation._paged_decode_step_body``) on the same state.
+    step's body (``generation._eager_step``) on the same state.
     Returns the engine and the launches of the capture's warm-up, one eager
     decode step while every slot is idle."""
     from perceiver_io_tpu_torch import generation
@@ -1292,13 +1349,7 @@ def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None):
     torch.cuda.synchronize()
     warm_up = {k: n for k, n in build.LAUNCHES.items() if n}
     if not graphed:
-        stage = generation._UniformStage(config, model.device)
-
-        def eager_step(state):
-            stage(state)
-            return generation._paged_decode_step_body(model, config, state)
-
-        engine._step_fn = eager_step
+        engine._step_fn = generation._eager_step(model, config, model.device)
     return engine, warm_up
 
 
@@ -1374,24 +1425,28 @@ def serve_specs() -> list:
 
 def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_dtype=torch.float32) -> list:
     """Each served stream against the sequential ``make_decode_fns`` stream
-    (contiguous caches of ``cache_dtype``), token by token with the
-    sequential logits: equal up to the first step whose top-2 gap is under
-    ``near_tie`` (the paged and contiguous decodes sum in different orders).
-    Returns, per request, how many leading tokens the two share."""
-    from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
+    (contiguous caches of ``cache_dtype``; its step the captured graph),
+    token by token with the sequential logits (``state["logits"]`` after the
+    prefill and each step): equal up to the first step whose top-2 gap is
+    under ``near_tie`` (the paged and contiguous decodes sum in different
+    orders). Returns, per request, how many leading tokens the two share."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig, _GraphedStep, make_decode_fns
 
     agreed = []
     for spec in specs:
-        rec = _LogitRecorder(model)
-        prefill, step = make_decode_fns(rec, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
+        prefill, step = make_decode_fns(model, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
                                         cache_dtype, device="cuda")
+        if not isinstance(step.body, _GraphedStep):
+            raise SystemExit(f"{name}: the sequential decode step on the card is not the captured graph")
         token, state = prefill(spec.input_ids)
-        want = [int(token[0])]
+        # copies: the step rewrites the state's logits in place
+        want, logits = [int(token[0])], [state["logits"][0].clone().float()]
         for _ in range(spec.max_new_tokens - 1):
             state, token = step(state)
             want.append(int(token[0]))
+            logits.append(state["logits"][0].clone().float())
         got = served[spec.index]
-        logits = torch.stack(rec.logits)
+        logits = torch.stack(logits)
         if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, FLAGSHIP["vocab_size"]):
             raise SystemExit(f"{name} request {spec.index}: sequential logits not finite or of the wrong shape")
         top2 = torch.topk(logits, 2, dim=-1).values
@@ -1491,6 +1546,112 @@ def serve_bf16_phase(card: str) -> dict:
     TIMES["serve_bf16"]["tokens_equal_to_sequential"] = check_streams("serve_bf16", model, specs, served,
                                                                       NEAR_TIE_BF16, bf16)
     return run["launches"]
+
+
+def decode_pair_phase(card: str) -> dict:
+    """The contiguous decode pair at full width (A3): ``make_decode_fns``'
+    step is one captured CUDA graph on the card, replayed for every token
+    after the first step (which runs eagerly and captures). Greedy, 128 new
+    tokens, on one 8192-token prompt at batch 1 and on four of the serve's
+    prompts left-padded to the longest at batch 4; in f32, and in bf16
+    compute with f32 and with bf16 caches. Each graphed run beside an eager
+    run of the same body (``generation._eager_step``) from the same prefill:
+    the streams must be equal token for token, every token in the
+    vocabulary and the last logits finite; decode tok/s of both over the
+    126 steps after the first; ``generate`` must give the graphed stream.
+    The batch-1 graph's kernel nodes (``graph decode_pair*`` lines): K1
+    only, no K2, no K3. Returns the f32 batch-4 graphed run's launches
+    (prefill and steps)."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    new = DECODE_NEW_TOKENS
+    config = generation.GenerationConfig(max_new_tokens=new)
+    vocab = FLAGSHIP["vocab_size"]
+    single = np.random.default_rng(SEED + 4).integers(0, vocab, size=(1, DECODE_PROMPT))
+    specs = serve_specs()[:4]
+    width = max(spec.prompt_len for spec in specs)
+    batch, pad = np.zeros((4, width), np.int64), np.ones((4, width), bool)
+    for i, spec in enumerate(specs):
+        batch[i, width - spec.prompt_len:] = spec.input_ids[0]
+        pad[i, width - spec.prompt_len:] = False
+    prompts = {"batch1": (single, None), "batch4": (batch, pad)}
+    main_launches = None
+    for label, dtype, cache_dtype in (("", f32, f32), (BF16, bf16, f32), (BF16 + "_cache" + BF16, bf16, bf16)):
+        model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda", dtype=dtype,
+                                    generator=torch.Generator().manual_seed(SEED))
+        for pname, (ids, mask) in prompts.items():
+            name = f"decode_pair{label} {pname}"
+            runs = {}
+            for kind in ("graph", "eager"):
+                prefill, step = generation.make_decode_fns(model, NUM_LATENTS, config, cache_dtype, device="cuda")
+                if kind == "eager":
+                    body = generation._eager_step(model, config, model.device)
+
+                    def step(st, body=body):  # the pair's step on the eager body
+                        st, tok = body(st)
+                        return st, tok.clone()
+                build.reset_launches()
+                token, state = prefill(ids, mask)
+                tokens = [token]
+                prefill_launches = nonzero_launches()
+                build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, token = step(state)  # the graph's warm-up and capture
+                tokens.append(token)
+                torch.cuda.synchronize()
+                first_ms = 1e3 * (time.perf_counter() - t0)
+                first_launches = nonzero_launches()
+                t0 = time.perf_counter()
+                for _ in range(new - 2):
+                    state, token = step(state)
+                    tokens.append(token)
+                torch.cuda.synchronize()
+                steady_s = time.perf_counter() - t0
+                stream = torch.stack(tokens, dim=1).cpu()
+                runs[kind] = {"stream": stream, "tok_s": ids.shape[0] * (new - 2) / steady_s,
+                              "step_ms": 1e3 * steady_s / (new - 2), "first_step_ms": first_ms,
+                              "logits_finite": bool(torch.isfinite(state["logits"]).all()),
+                              "launches": {k: prefill_launches.get(k, 0) + n for k, n in build.LAUNCHES.items()
+                                           if prefill_launches.get(k, 0) + n}}
+                if kind == "graph":
+                    if not isinstance(step.body, generation._GraphedStep):
+                        raise SystemExit(f"{name}: the decode step on the card is not the captured graph")
+                    if pname == "batch1":
+                        ln = sum(first_launches.get("layer_norm_fwd" + sfx, 0) for sfx in ("", BF16))
+                        check_graph(f"decode_pair{label}", step.body.graph, first_launches,
+                                    {"paged_decode": 0, "paged_decode" + BF16: 0, "flash_packed_fwd": 0,
+                                     "flash_packed_fwd" + BF16: 0})
+                        if ln == 0:
+                            raise SystemExit(f"{name}: the captured step launched no LayerNorm kernel")
+                    out = generation.generate(model, ids, NUM_LATENTS, pad_mask=mask, config=config,
+                                              cache_dtype=cache_dtype, device="cuda")
+                    runs[kind]["generate_equal"] = torch.equal(out[:, ids.shape[1]:].cpu(), stream)
+                del prefill, step, state
+            g, e = runs["graph"], runs["eager"]
+            identical = torch.equal(g["stream"], e["stream"])
+            report = {"card": card, "dtype": str(dtype)[6:], "cache_dtype": str(cache_dtype)[6:],
+                      "batch": ids.shape[0], "prompt_len": ids.shape[1],
+                      "left_pads": [] if mask is None else [int(x) for x in mask.sum(1)], "new_tokens": new,
+                      "streams_identical": identical, "generate_equal": g["generate_equal"],
+                      **{f"{k}_{kind}": r[k] for kind, r in runs.items()
+                         for k in ("tok_s", "step_ms", "first_step_ms", "logits_finite")}}
+            log(f"{name}: " + json.dumps(report))
+            if not identical or not g["generate_equal"]:
+                raise SystemExit(f"{name}: the graphed stream differs from the eager one or from generate's: "
+                                 f"{report}")
+            if not (g["logits_finite"] and e["logits_finite"]) or not bool(((g["stream"] >= 0)
+                                                                           & (g["stream"] < vocab)).all()):
+                raise SystemExit(f"{name}: non-finite logits or tokens outside the vocabulary: {report}")
+            TIMES.setdefault("decode_pair_tok_s", {})[name] = {kind: r["tok_s"] for kind, r in runs.items()}
+            if not label and pname == "batch4":
+                main_launches = g["launches"]
+        del model
+        free_card()
+    return main_launches
 
 
 def profile_phase(model, card: str, graphed: bool) -> None:
@@ -1645,9 +1806,9 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     losses, step_ms, skipped = [], [], []
     per_step = {k + suffix: PER_STEP[route]["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
     per_step.update({k + suffix: PER_STEP[route]["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
-    per_step.update({k: PER_STEP[route]["flash_2seg"] for k in TWOSEG_KERNELS})
+    per_step.update({k + suffix: PER_STEP[route]["flash_2seg"] for k in TWOSEG_KERNELS})
     if suffix:  # no f32 build in a bf16 step
-        per_step.update({k: 0 for k in TRAIN_KERNELS})
+        per_step.update({k: 0 for k in TRAIN_KERNELS + TWOSEG_KERNELS})
     with fast_kernels(ROUTE_FEATURES[route]):
         build.reset_launches()
         for i in range(TRAIN_STEPS):
@@ -1682,7 +1843,7 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     summary = profile_summary(prof, wall_ms_)
     log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
     median_ms = statistics.median(step_ms)
-    kernels = tuple(k + suffix for k in TRAIN_KERNELS) + (TWOSEG_KERNELS if route == "twoseg" else ())
+    kernels = tuple(k + suffix for k in TRAIN_KERNELS + (TWOSEG_KERNELS if route == "twoseg" else ()))
     report = {
         "card": card, "dtype": str(dtype)[6:], "moments": "bfloat16" if suffix else "float32",
         "step": "graph" if jit else "eager", "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
@@ -1692,10 +1853,10 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
         "nan_step": {"sentinel_skipped": poison_skipped, "held_bit_for_bit": poison_held,
                      "next_loss": after_poison_loss},
     }
+    loss_tol = TWOSEG_LOSS_TOL_BF16 if suffix else TWOSEG_LOSS_TOL
     if concat is not None:
         diffs = [abs(a - b) for a, b in zip(losses, concat["losses"])]
-        report.update(concat_median_step_ms=concat["median_step_ms"], loss_diff_to_concat=diffs,
-                      loss_tol=TWOSEG_LOSS_TOL)
+        report.update(concat_median_step_ms=concat["median_step_ms"], loss_diff_to_concat=diffs, loss_tol=loss_tol)
     log(f"{name}: " + json.dumps(report))
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{name}: non-finite loss {losses}")
@@ -1708,7 +1869,7 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != v * TRAIN_STEPS}
     if wrong:
         raise SystemExit(f"{name}: launches over {TRAIN_STEPS} steps {wrong}, expected per step {per_step}")
-    if concat is not None and not all(within(dd, TWOSEG_LOSS_TOL) for dd in report["loss_diff_to_concat"]):
+    if concat is not None and not all(within(dd, loss_tol) for dd in report["loss_diff_to_concat"]):
         raise SystemExit(f"{name}: losses differ from the concat route's by {report['loss_diff_to_concat']}")
     return {"launches": launches, "losses": losses, "median_step_ms": median_ms, "params": params,
             "next_loss": after_poison_loss, "busy_share": summary["device_busy_share"],
@@ -1750,19 +1911,23 @@ def train_pair(card: str, route: str = "concat", concat: dict = None, dtype: tor
     return runs
 
 
-def eval_twoseg_phase(card: str) -> dict:
+def eval_twoseg_phase(card: str, dtype: torch.dtype = torch.float32) -> dict:
     """A cache-free, no-grad forward of the flagship at its full window
     (15360 prefix rows, 1024 latents, batch 1) on the concat route and under
     "twoseg", from the same weights and tokens: the logits must be finite and
-    agree within 1e-4, and the twoseg forward must have run K6 once and K2
-    for the 8 self-attention layers only. Returns the twoseg forward's
-    launches."""
+    agree within 1e-4 (in bf16, ``eval_twoseg_bf16``: within
+    ``TWOSEG_EVAL_L2_BF16`` of each other, L2 relative), and the twoseg
+    forward must have run K6 once and K2 for the 8 self-attention layers only
+    (in bf16, their bf16 builds and no f32 build). Returns the twoseg
+    forward's launches."""
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
+    sfx = BF16 if dtype == torch.bfloat16 else ""
+    name = "eval_twoseg" + sfx
     config = CausalLanguageModelConfig(**FLAGSHIP)
-    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED), dtype=dtype)
     ids = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, config.vocab_size,
                                                                      size=(1, FLAGSHIP["max_seq_len"]))).cuda()
     logits, launches, ms = {}, {}, {}
@@ -1775,19 +1940,25 @@ def eval_twoseg_phase(card: str) -> dict:
             launches[route] = dict(build.LAUNCHES)
             ms[route] = time_ms(forward, 5)
     err = max_err(logits["twoseg"], logits["concat"])
-    tol = 1e-4
-    log("eval_twoseg: " + json.dumps({
-        "card": card, "prefix": PREFIX_LEN, "latents": FLAGSHIP["max_latents"], "max_abs_err": err, "tol": tol,
-        "forward_ms": ms, "launches": {r: {k: v for k, v in l.items() if v} for r, l in launches.items()},
+    rel_l2 = l2_err(logits["twoseg"], logits["concat"]) / float(logits["concat"].double().norm())
+    tol = ("rel_l2", TWOSEG_EVAL_L2_BF16) if sfx else ("max_abs_err", 1e-4)
+    log(f"{name}: " + json.dumps({
+        "card": card, "dtype": str(dtype)[6:], "prefix": PREFIX_LEN, "latents": FLAGSHIP["max_latents"],
+        "max_abs_err": err, "rel_l2": rel_l2, "tol": tol, "forward_ms": ms,
+        "launches": {r: {k: v for k, v in l.items() if v} for r, l in launches.items()},
     }))
     want_shape = (1, FLAGSHIP["max_latents"], config.vocab_size)
     if any(tuple(x.shape) != want_shape or not bool(torch.isfinite(x).all()) for x in logits.values()):
-        raise SystemExit(f"eval_twoseg: logits not finite or not of shape {want_shape}")
-    if not within(err, tol):
-        raise SystemExit(f"eval_twoseg: twoseg logits differ from the concat route's by {err} > {tol}")
-    got = [(r, launches[r]["flash_2seg_fwd"], launches[r]["flash_packed_fwd"]) for r in launches]
+        raise SystemExit(f"{name}: logits not finite or not of shape {want_shape}")
+    if not within(rel_l2 if sfx else err, tol[1]):
+        raise SystemExit(f"{name}: twoseg logits differ from the concat route's by {tol[0]} "
+                         f"{rel_l2 if sfx else err} > {tol[1]}")
+    got = [(r, launches[r]["flash_2seg_fwd" + sfx], launches[r]["flash_packed_fwd" + sfx]) for r in launches]
     if got != [("concat", 0, 9), ("twoseg", 1, 8)]:
-        raise SystemExit(f"eval_twoseg: (route, K6, K2) launches {got}, expected concat 0/9 and twoseg 1/8")
+        raise SystemExit(f"{name}: (route, K6, K2) launches {got}, expected concat 0/9 and twoseg 1/8")
+    if sfx and any(launches[r][k] for r in launches for k in ("flash_2seg_fwd", "flash_packed_fwd")):
+        raise SystemExit(f"{name}: f32 builds launched in a bf16 forward: {launches}")
+    TIMES[name + "_forward_ms"] = ms
     return launches["twoseg"]
 
 
@@ -1854,17 +2025,19 @@ def grad_check_phase(card: str, route: str = "concat") -> None:
         raise SystemExit(f"{name}: the card's optimizer update differs from the CPU's by {update_err}")
 
 
-def grad_check_bf16_phase(card: str) -> None:
+def grad_check_bf16_phase(card: str, route: str = "concat") -> None:
     """grad_check's model and batch (2048 tokens, 256 latents, 2 layers,
-    full width) in bf16 compute on the card against the CPU: per parameter,
-    the card's bf16 gradient lies no further from the CPU's f32 gradient than
-    1.5x the CPU's bf16 gradient (the plain versions, the same rounding
-    points) does (L2). Both bf16 gradients carry bf16's rounding; the check
-    asks the card's to carry no more than the CPU's evaluation of the same
-    arithmetic."""
+    full width) in bf16 compute on the card against the CPU, on the concat
+    route or under "twoseg" on every side (``grad_check_twoseg_bf16``): per
+    parameter, the card's bf16 gradient lies no further from the CPU's f32
+    gradient than 1.5x the CPU's bf16 gradient (the plain versions, the same
+    rounding points) does (L2). Both bf16 gradients carry bf16's rounding;
+    the check asks the card's to carry no more than the CPU's evaluation of
+    the same arithmetic."""
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
     from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
     config = CausalLanguageModelConfig(**dict(FLAGSHIP, max_seq_len=2048, max_latents=256,
                                               num_self_attention_layers=2))
@@ -1879,21 +2052,29 @@ def grad_check_bf16_phase(card: str) -> None:
         model = CausalLanguageModel(config, device=device, dtype=dtype)
         model.load_state_dict(weights)
         build.reset_launches()
-        loss, _ = tt.clm_loss_fn(256)(model, batch)
+        with fast_kernels(ROUTE_FEATURES[route]):
+            loss, _ = tt.clm_loss_fn(256)(model, batch)
         loss.backward()
         losses[name] = float(loss.detach())
         grads[name] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-    launches = {k: build.LAUNCHES[k] for k in ("flash_packed_bwd_dq" + BF16, "flash_packed_bwd_dq", "paged_decode")}
-    if launches != {"flash_packed_bwd_dq" + BF16: 3, "flash_packed_bwd_dq": 0, "paged_decode": 0}:
-        raise SystemExit(f"grad_check_bf16: the card's launches {launches}, expected K4b's bf16 build 3 times")
+    phase = "grad_check_bf16" if route == "concat" else "grad_check_twoseg_bf16"
+    kernels = ("flash_packed_bwd_dq", "flash_2seg_bwd_dq")
+    launches = {k + sfx: build.LAUNCHES[k + sfx] for k in kernels for sfx in (BF16, "")}
+    # the card's CA (K4b, or K7b under twoseg) and 2 SA layers (K4b), all bf16
+    ca = "flash_packed_bwd_dq" if route == "concat" else "flash_2seg_bwd_dq"
+    want = {k + sfx: 0 for k in kernels for sfx in (BF16, "")}
+    want["flash_packed_bwd_dq" + BF16] += 2
+    want[ca + BF16] += 1
+    if launches != want:
+        raise SystemExit(f"{phase}: the card's launches {launches}, expected {want}")
     ratios = {n: l2_err(g, grads["cpu_f32"][n]) / max(l2_err(grads["cpu_bf16"][n], grads["cpu_f32"][n]), 1e-30)
               for n, g in grads["card_bf16"].items()}
     worst = sorted(ratios.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
-    log("grad_check_bf16: " + json.dumps({"card": card, "cpu_threads": torch.get_num_threads(), "losses": losses,
-                                          "max_ratio": worst[0][1], "ratio_tol": 1.5, "worst": worst,
-                                          "n_params": len(ratios)}))
+    log(f"{phase}: " + json.dumps({"card": card, "cpu_threads": torch.get_num_threads(), "losses": losses,
+                                    "max_ratio": worst[0][1], "ratio_tol": 1.5, "worst": worst,
+                                    "n_params": len(ratios)}))
     if not all(within(r, 1.5) for r in ratios.values()):
-        raise SystemExit(f"grad_check_bf16 failed: {worst}")
+        raise SystemExit(f"{phase} failed: {worst}")
 
 
 # ---------------------------------------------------------------------------
@@ -2334,7 +2515,7 @@ def main() -> None:
     # every f32 build of K2, K6 and K8 and in K4a's and K7a's (their dV and
     # dK), f64 DMMA in K4a's, K4b's, K7a's and K7b's (their score products,
     # and K4b's and K7b's dQ) and in K9a's and K9b's (all their products),
-    # bf16 in K2's, K4a's, K4b's, K8's, K9a's and K9b's bf16 builds
+    # bf16 in the bf16 builds of K2, K4a, K4b, K6, K7a, K7b, K8, K9a and K9b
     sass_sources = ("flash_packed", "flash_packed_bwd", "flash_2seg", "flash_2seg_bwd", "flash_heads",
                     "flash_heads_bwd")
     sass = sass_mma_report({name: paths[name] for name in sass_sources})
@@ -2346,10 +2527,13 @@ def main() -> None:
                                          ("flash_packed_bwd", "flash_bwd_dq_kernel<", "DMMA", 3),
                                          ("flash_packed_bwd", "flash_bwd_dkv_bf16_kernel<", "BF16", 3),
                                          ("flash_packed_bwd", "flash_bwd_dq_bf16_kernel<", "BF16", 3),
-                                         ("flash_2seg", "flash_2seg_fwd_kernel<", "TF32", 3),
+                                         ("flash_2seg", "flash_2seg_fwd_kernel<F32", "TF32", 3),
+                                         ("flash_2seg", "flash_2seg_fwd_kernel<BF16", "BF16", 3),
                                          ("flash_2seg_bwd", "flash_2seg_bwd_dkv_kernel<", "TF32", 3),
                                          ("flash_2seg_bwd", "flash_2seg_bwd_dkv_kernel<", "DMMA", 3),
                                          ("flash_2seg_bwd", "flash_2seg_bwd_dq_kernel<", "DMMA", 3),
+                                         ("flash_2seg_bwd", "flash_2seg_bwd_dkv_bf16_kernel<", "BF16", 3),
+                                         ("flash_2seg_bwd", "flash_2seg_bwd_dq_bf16_kernel<", "BF16", 3),
                                          ("flash_heads", "heads_fwd_kernel<", "TF32", 5),
                                          ("flash_heads_bwd", "heads_bwd_dkv_kernel<", "DMMA", 5),
                                          ("flash_heads_bwd", "heads_bwd_dq_kernel<", "DMMA", 5),
@@ -2407,6 +2591,13 @@ def main() -> None:
                                twoseg["flash_2seg_bwd_dkv"]),
         "flash_2seg_bwd_dq": ("cuda", f"{twoseg_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:1263",
                               twoseg["flash_2seg_bwd_dq"]),
+        # the bf16 builds of the bf16 CLM's twoseg route
+        "flash_2seg_fwd" + BF16: ("cuda", f"{twoseg_source}.cu", "perceiver_io_tpu/ops/flash_attention.py:1107",
+                                  twoseg["flash_2seg_fwd" + BF16]),
+        "flash_2seg_bwd_dkv" + BF16: ("cuda", f"{twoseg_source}_bwd.cu",
+                                      "perceiver_io_tpu/ops/flash_attention.py:1189", twoseg["flash_2seg_bwd_dkv" + BF16]),
+        "flash_2seg_bwd_dq" + BF16: ("cuda", f"{twoseg_source}_bwd.cu",
+                                     "perceiver_io_tpu/ops/flash_attention.py:1263", twoseg["flash_2seg_bwd_dq" + BF16]),
         "flash_heads_fwd": ("cuda", f"{heads_source}.cu", "perceiver_io_tpu/ops/flash_attention.py:196",
                             heads["flash_heads_fwd"]),
         "flash_heads_bwd_dkv": ("cuda", f"{heads_source}_bwd.cu", "perceiver_io_tpu/ops/flash_attention.py:294",
@@ -2442,6 +2633,21 @@ def main() -> None:
                          "busy_share": run["busy_share"], "losses": run["losses"]}
         for dt, pair in (("f32", train), ("bf16", train_bf16)) for kind, run in pair.items()}}))
     grad_check_bf16_phase(card)
+    free_card()
+    # the bf16 CLM's twoseg route: train step (graph and eager) against
+    # train_bf16's, the full-window forward on both routes, the gradient
+    train_twoseg_bf16 = train_pair(card, "twoseg", concat=train_bf16, dtype=torch.bfloat16)
+    by_phase["train_twoseg_bf16"] = train_twoseg_bf16["graph"]["launches"]
+    log("train_twoseg_bf16 against train_bf16 (concat), this run: " + json.dumps({"card": card, **{
+        f"{route} {kind}": {"median_step_ms": run["median_step_ms"], "busy_share": run["busy_share"],
+                            "train_tokens_per_s": TRAIN_BATCH * FLAGSHIP["max_seq_len"] / (run["median_step_ms"] / 1e3)}
+        for route, pair in (("concat", train_bf16), ("twoseg", train_twoseg_bf16)) for kind, run in pair.items()}}))
+    by_phase["eval_twoseg_bf16"] = eval_twoseg_phase(card, torch.bfloat16)
+    free_card()
+    grad_check_bf16_phase(card, "twoseg")
+    free_card()
+    # the contiguous decode pair (make_decode_fns, generate) as a CUDA graph
+    by_phase["decode_pair"] = decode_pair_phase(card)
     free_card()
     image_f32 = image_eval_phase(card)
     by_phase["image_eval"] = image_f32["launches"]

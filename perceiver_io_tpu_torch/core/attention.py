@@ -14,9 +14,11 @@ Routes, each numerically the JAX package's:
   separately and never joins them;
 - contiguous cache that entered EMPTY with more than one query (the prompt
   pass): keys rotate and land in the cache, and the same dispatch computes
-  the attention over the fresh keys/values — eager PyTorch knows the cache
-  length, so no context flag is needed to tell a prefill from a decode;
-- any other contiguous cache call (the sequential decode step), and the
+  the attention over the fresh keys/values — the prompt pass's cache length
+  is a host int, so no context flag is needed to tell a prefill from a
+  decode;
+- any other contiguous cache call (the sequential decode step, whose cache
+  length is a device tensor that no route reads back), and the
   two routes above for heads wider than 512: the dense path over the
   slots, scores in f32, masked by the slot validity, the pad mask and the
   right-aligned causal mask;
@@ -295,9 +297,12 @@ class MultiHeadAttention(nn.Module):
                                           "multi-token paged spans are not ported")
             return self._paged_decode_attend(q, kv_cache.append(k, v), pad_mask, rope_q)
 
-        entered_empty = kv_cache.length == 0
+        # the prefill: a span into an empty cache, whose length (the prompt
+        # pass's host int) is read only then; a device length (the decode
+        # step's) is never read back
+        prefill = n_q > 1 and not torch.is_tensor(kv_cache.length) and kv_cache.length == 0
         new_cache = kv_cache.append(k, v)
-        if entered_empty and n_q > 1:
+        if prefill:
             # prefill: attention over [0, length) IS attention over the fresh
             # keys/values, which occupy slots [0, n_kv)
             fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]

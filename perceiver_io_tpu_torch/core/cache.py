@@ -8,13 +8,18 @@ into the cache, so cached keys are never touched again.
 The port updates the large buffers IN PLACE where the JAX package returns
 updated copies: ``KVCache.append``, ``PagedKVCache.append`` and
 :func:`commit_prefill` write into the existing ``k``/``v`` storage (an append
-moves the new tokens' bytes, never the whole buffer). For the small per-slot
-tensors (``page_table``, ``length``) there are two forms. The serving
+moves the new tokens' bytes, never the whole buffer). A contiguous cache's
+``length`` has two forms: a Python int (the prompt pass's, known on the
+host) and a 0-d int32 tensor on the cache's device (the decode step's, JAX's
+traced int32 scalar, :meth:`KVCache.on_device`), which the decode step writes
+back in place (``generation._decode_step_body``) so that a CUDA graph of the
+step reads it where it lies. For the small per-slot tensors of the paged
+cache (``page_table``, ``length``) there are two forms too. The serving
 engine's state is fixed for its whole life, since its decode step is a CUDA
 graph that reads fixed addresses: :func:`commit_prefill_` and
 :func:`release_slot_` write the table row and the length in place, and the
 engine's decode step writes the advanced lengths back into the tensors it read
-(``generation._paged_decode_step_body``). The functional forms,
+(``generation._decode_step_body``). The functional forms,
 ``PagedKVCache.append``, :func:`commit_prefill` and :func:`release_slot`,
 return a cache with new ``page_table``/``length`` tensors and leave the old
 ones as they were (its pools are shared, so the old object's pages must not
@@ -24,7 +29,7 @@ be read again).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -39,21 +44,35 @@ def _require_float(dtype) -> None:
 @dataclass
 class KVCache:
     """Fixed-capacity contiguous cache: ``k``/``v`` (B, capacity, C) with
-    valid data in slots ``[0, length)``. ``length`` is a Python int — eager
-    PyTorch knows it on the host."""
+    valid data in slots ``[0, length)``. ``length`` is a Python int, or a 0-d
+    int32 tensor on the cache's device (see the module docstring)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: Union[int, torch.Tensor]
 
     @property
     def capacity(self) -> int:
         return self.k.shape[1]
 
+    def on_device(self) -> "KVCache":
+        """The same buffers with ``length`` as a 0-d int32 tensor on their
+        device (a new tensor: the cache's own form is left as it is)."""
+        return KVCache(self.k, self.v, torch.tensor(self.length, dtype=torch.int32, device=self.k.device))
+
     def append(self, k: torch.Tensor, v: torch.Tensor) -> "KVCache":
         """Write ``k``/``v`` (B, N, C), keys already rotated, at ``length``
-        (in place); returns the advanced cache."""
-        start, n = self.length, k.shape[1]
+        (in place); returns the advanced cache. A host length is checked
+        against the capacity; a device length is not read (as in JAX's jit,
+        the caller sizes the cache: ``generation`` gives it
+        ``max_new_tokens`` of slack)."""
+        n = k.shape[1]
+        if torch.is_tensor(self.length):
+            idx = self.length + torch.arange(n, device=self.k.device)
+            self.k.index_copy_(1, idx, k.to(self.k.dtype))
+            self.v.index_copy_(1, idx, v.to(self.v.dtype))
+            return KVCache(self.k, self.v, self.length + n)
+        start = self.length
         if start + n > self.capacity:
             raise ValueError(f"KV cache overflow: {start} + {n} tokens > capacity {self.capacity}")
         self.k[:, start:start + n] = k.to(self.k.dtype)

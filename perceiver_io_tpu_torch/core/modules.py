@@ -637,8 +637,9 @@ class PerceiverAR(nn.Module):
             shift = None if pad_mask is None else pad_mask.sum(dim=1, keepdim=True)
         offset = ca_cache.length
         if torch.is_tensor(offset):
-            # paged cache: each slot continues from its own fill level
-            offset = offset.long()[:, None]
+            # a device length: per slot (paged, (S,)) or for the batch
+            # (contiguous, 0-d); each row continues from its fill level
+            offset = offset.long().reshape(-1, 1)
         q_pos = positions(b, n_x, shift=shift, offset=offset, device=x.device)
         x_emb, frq_q = self.input_adapter(x, q_pos)
         x_prefix = x_emb.new_zeros((b, 0, x_emb.shape[-1]))

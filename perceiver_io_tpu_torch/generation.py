@@ -13,9 +13,10 @@ a row takes exactly ONE uniform draw, ``torch.rand((1,), generator=g)`` from
 that row's CPU generator, mapped through the inverse CDF of the filtered
 softmax. A request decoded in a batched engine slot and the same request
 decoded alone therefore draw the same numbers. Greedy decoding draws nothing.
-The paged step draws on the host before its body runs and hands the draws to
-the device in a fixed buffer, so that its body (a CUDA graph on the card)
-never touches the host.
+Both steps (the pair's and the engine's, one body: :func:`_decode_step_body`)
+draw on the host before the body runs and hand the draws to the device in a
+fixed buffer, and keep their window counters and cache lengths on the
+device, so that the body (a CUDA graph on the card) never touches the host.
 """
 
 from __future__ import annotations
@@ -154,31 +155,134 @@ def _finish_sample(sampled: torch.Tensor, done: torch.Tensor, config: Generation
 
 
 def _decode_step_body(model, config: GenerationConfig, state: dict):
-    """One decode step over the contiguous caches, shared by
-    :func:`make_decode_fns` and :func:`generate`: slide the windows when full
-    (expired slots masked through the start counters, host ints here), apply
-    the model on the last token, sample, freeze finished rows."""
+    """One decode step, over the contiguous caches of :func:`make_decode_fns`
+    (one window for the batch: 0-d ``ca_start``/``sa_start`` and cache
+    lengths) or over the engine's paged caches (every window counter,
+    length, draw and done flag per slot, (S,)). Slide the windows when full
+    (expired slots masked through the start counters), apply the model on
+    the last token, sample at this step's staged uniforms, freeze finished
+    rows. Total over all rows: the engine's idle slots decode into the
+    scratch page and the host discards their samples.
+
+    ``state`` keys: ``cache``, ``ca_start`` / ``sa_start`` int32,
+    ``token``, ``uniforms`` f32 (this step's draws when sampling, see
+    :class:`_UniformStage`), ``generator`` (the pair's, one for the batch)
+    or ``generators`` (the engine's, one per slot, None for idle slots;
+    read by the host only), ``done`` bool, ``pad_slots`` (rows,
+    ca_capacity) bool, ``pos_shift`` (rows, 1), and the pair's ``logits``
+    (the last position's, (B, V)).
+
+    The body runs on the device alone (no host sync, no host draw), and it
+    writes the next state into the tensors it read: ``token``, ``done``,
+    ``ca_start``, ``sa_start``, every cache's ``length`` (and ``logits``),
+    so a CUDA graph of it replays on the same state. Returns ``(state,
+    tokens)``, ``tokens`` being ``state["token"]``."""
     mcfg = model.config
     cache = state["cache"]
     ca_cache, sa_cache = cache[0], cache[1]
-    ca_start, sa_start = state["ca_start"], state["sa_start"]
-    if ca_cache.length - ca_start >= mcfg.max_seq_len:
-        ca_start += 1
-    if sa_cache.length - sa_start >= mcfg.max_latents:
-        sa_start += 1
+    ca_start = state["ca_start"] + ((ca_cache.length - state["ca_start"]) >= mcfg.max_seq_len).int()
+    sa_start = state["sa_start"] + ((sa_cache.length - state["sa_start"]) >= mcfg.max_latents).int()
     dev = state["token"].device
     ca_idx = torch.arange(ca_cache.capacity, device=dev)[None, :]
     sa_idx = torch.arange(sa_cache.capacity, device=dev)[None, :]
     out = model(
         state["token"][:, None], prefix_len=0,
-        pad_mask=state["pad_slots"] | (ca_idx < ca_start), kv_cache=cache, decode=True,
-        sa_pad_mask=sa_idx < sa_start, pos_shift=state["pos_shift"],
+        pad_mask=state["pad_slots"] | (ca_idx < ca_start.reshape(-1, 1)), kv_cache=cache, decode=True,
+        sa_pad_mask=sa_idx < sa_start.reshape(-1, 1), pos_shift=state["pos_shift"],
     )
-    sampled = _sample(out.logits[:, -1], config, state["generator"])
+    logits = out.logits[:, -1]
+    sampled = _sample_at(logits, config, state["uniforms"])
     sampled, done = _finish_sample(sampled, state["done"], config)
-    new_state = dict(state, cache=out.kv_cache, ca_start=ca_start, sa_start=sa_start,
-                     token=sampled, done=done)
-    return new_state, sampled
+    for c, advanced in zip(cache, out.kv_cache):
+        c.length.copy_(advanced.length)
+    state["ca_start"].copy_(ca_start)
+    state["sa_start"].copy_(sa_start)
+    state["token"].copy_(sampled)
+    state["done"].copy_(done)
+    if "logits" in state:
+        state["logits"].copy_(logits)
+    return state, state["token"]
+
+
+# the engine's step: the same body over paged caches
+_paged_decode_step_body = _decode_step_body
+
+
+class _UniformStage:
+    """The host half of a sampled step: one uniform per row, from the
+    pair's generator or from each engine slot's own (0 for idle slots),
+    staged in pinned memory on the card's machine and copied into the
+    state's fixed ``uniforms`` buffer ahead of the step. Greedy decoding
+    draws nothing."""
+
+    def __init__(self, config: GenerationConfig, device: torch.device):
+        self.config = config
+        self._host: Optional[torch.Tensor] = None
+        self._copied = torch.cuda.Event() if device.type == "cuda" else None
+
+    def __call__(self, state: dict) -> None:
+        if not self.config.do_sample:
+            return
+        generators = state["generators"] if "generators" in state else state["generator"]
+        u = _draw_uniforms(generators, state["uniforms"].shape[0])
+        if self._copied is None:
+            state["uniforms"].copy_(u)
+            return
+        if self._host is None:
+            self._host = torch.empty(u.shape, dtype=u.dtype, pin_memory=True)
+        self._copied.synchronize()  # the last step's copy has read the staging buffer
+        self._host.copy_(u)
+        state["uniforms"].copy_(self._host, non_blocking=True)
+        self._copied.record()
+
+
+_STATE_KEYS = ("ca_start", "sa_start", "token", "uniforms", "done", "pad_slots", "pos_shift", "logits")
+
+
+def _state_tensors(state: dict) -> tuple:
+    """The addresses of every tensor a step reads or writes: each cache's
+    buffers, (table) and length, and the state's own tensors."""
+    tensors = [t for pool in state["cache"] for t in vars(pool).values()]
+    tensors += [state[k] for k in _STATE_KEYS if k in state]
+    return tuple(t.data_ptr() for t in tensors)
+
+
+class _GraphedStep:
+    """A decode step on the card: the first call runs the body once on a
+    side stream (the warm-up: a real step) and captures it into a CUDA graph
+    on that state's tensors; every later call stages the draws and replays.
+    A call with another state raises."""
+
+    def __init__(self, model, config: GenerationConfig, name: str):
+        self.model, self.config, self.name = model, config, name
+        self.stage = _UniformStage(config, model.device)
+        self.graph: Optional[Graph] = None
+        self._bound = None
+        self._stream = torch.cuda.Stream(model.device)
+
+    def __call__(self, state: dict):
+        self.stage(state)
+        if self.graph is None:
+            out = warm_up(lambda: _decode_step_body(self.model, self.config, state), self._stream)
+            self.graph = Graph(lambda: _decode_step_body(self.model, self.config, state)[1], self.name, self._stream)
+            self._bound = _state_tensors(state)
+            return out
+        if _state_tensors(state) != self._bound:
+            raise ValueError(f"{self.name} is captured on another state's tensors: a state's tensors are written "
+                             "in place, never replaced (core.cache.commit_prefill_ for the engine's)")
+        return state, self.graph.replay()
+
+
+def _eager_step(model, config: GenerationConfig, device: torch.device):
+    """The step's body run eagerly, its draws staged first: the step on the
+    CPU, and the card's reference for the captured one."""
+    stage = _UniformStage(config, device)
+
+    def step(state: dict):
+        stage(state)
+        return _decode_step_body(model, config, state)
+
+    return step
 
 
 def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
@@ -189,8 +293,20 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
       state)``: validation, cache allocation (``max_new_tokens`` of slack),
       the prompt pass, the first sample. ``input_ids`` (B, S) may be a numpy
       array; ``generator`` is one CPU ``torch.Generator`` for the batch
-      (seeded 0 when None).
-    - ``step(state) -> (state, token)``: one decode step.
+      (seeded 0 when None). It runs eagerly (its prompt length varies, as
+      it retraces in JAX). The state's caches carry their lengths on the
+      device (``KVCache.on_device``).
+    - ``step(state) -> (state, token)``: one decode step
+      (:func:`_decode_step_body`). It writes the state's tensors in place
+      and returns the same state, and the emitted token (B,) as a tensor of
+      its own; ``state["logits"]`` holds the step's last-position logits.
+
+    On the card the step is a CUDA graph, as the JAX package jits it: its
+    first call is a real step that also captures the graph on that state's
+    tensors, and later calls replay it (a call with another state's tensors
+    raises; one ``make_decode_fns`` pair serves one prefilled state at a
+    time). On the CPU, where the caller asked for the CPU, it runs the body
+    eagerly. The host draws each step's uniforms before the body runs.
 
     ``cache_dtype`` is the contiguous caches' dtype (f32 by default, as in
     the JAX package, whatever the model's compute dtype). The model must
@@ -218,25 +334,33 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
         pad_slots = torch.zeros((b, ca_capacity), dtype=torch.bool, device=dev)
         pad_slots[:, :seq_len] = pad_mask
         out = model(input_ids, prefix_len=prefix_len, pad_mask=pad_mask, kv_cache=cache)
-        next_token = _sample(out.logits[:, -1], config, generator)
+        logits = out.logits[:, -1].clone()
+        next_token = _sample(logits, config, generator)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         if config.eos_token_id is not None:
             done = next_token == config.eos_token_id
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
         state = {
-            "cache": out.kv_cache,
-            "ca_start": 0,
-            "sa_start": 0,
-            "token": next_token,
+            "cache": tuple(c.on_device() for c in out.kv_cache),
+            "ca_start": zero(),
+            "sa_start": zero(),
+            "token": next_token.clone(),
+            "uniforms": torch.zeros((b,), dtype=torch.float32, device=dev),
             "generator": generator,
             "done": done,
             "pad_slots": pad_slots,
             "pos_shift": pos_shift,
+            "logits": logits,
         }
         return next_token, state
 
     def step(state: dict):
-        return _decode_step_body(model, config, state)
+        state, token = step.body(state)
+        return state, token.clone()
 
+    # the body: a _GraphedStep on the card (its ``graph`` is the captured
+    # CUDA graph once the first call has run), the eager body on the CPU
+    step.body = _GraphedStep(model, config, "the decode step") if dev.type == "cuda" else _eager_step(model, config, dev)
     return prefill, step
 
 
@@ -245,7 +369,9 @@ def generate(model, input_ids, num_latents: int = 1, pad_mask=None,
              cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda") -> torch.Tensor:
     """Generate ``config.max_new_tokens`` continuation tokens for a
     left-padded prompt ``input_ids`` (B, S); returns (B, S + max_new_tokens)
-    including the prompt."""
+    including the prompt. The prefill runs eagerly, then :func:`make_decode_fns`'
+    step: on the card one captured CUDA graph, replayed for every token after
+    the second (the JAX package's compiled scan)."""
     config = config or GenerationConfig()
     dev = _model_device(model, device)
     input_ids = torch.as_tensor(input_ids, device=dev).long()
@@ -260,111 +386,9 @@ def generate(model, input_ids, num_latents: int = 1, pad_mask=None,
     return torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
 
 
-def _paged_decode_step_body(model, config: GenerationConfig, state: dict):
-    """One BATCHED decode step over paged caches: the engine analog of
-    :func:`_decode_step_body` with every window counter, length, generator
-    and done flag per slot. Total over all slots: idle slots decode into the
-    scratch page and the host discards their samples.
-
-    ``state`` keys: ``cache`` (paged CA + per-layer paged SA), ``ca_start`` /
-    ``sa_start`` (S,) int32, ``token`` (S,), ``uniforms`` (S,) f32 (this
-    step's draws when sampling, see :class:`_UniformStage`), ``generators``
-    (list of S CPU generators, None for idle slots; read by the host only),
-    ``done`` (S,) bool, ``pad_slots`` (S, ca_capacity) bool, ``pos_shift``
-    (S, 1).
-
-    The body runs on the device alone (no host sync, no host draw), and it
-    writes the next state into the tensors it read: ``token``, ``done``,
-    ``ca_start``, ``sa_start`` and every pool's ``length``, so a CUDA graph
-    of it replays on the same state. Returns ``(state, tokens)``, ``tokens``
-    being ``state["token"]``."""
-    mcfg = model.config
-    cache = state["cache"]
-    ca_cache, sa_cache = cache[0], cache[1]
-    ca_start = state["ca_start"] + ((ca_cache.length - state["ca_start"]) >= mcfg.max_seq_len).int()
-    sa_start = state["sa_start"] + ((sa_cache.length - state["sa_start"]) >= mcfg.max_latents).int()
-    dev = state["token"].device
-    ca_idx = torch.arange(ca_cache.capacity, device=dev)[None, :]
-    sa_idx = torch.arange(sa_cache.capacity, device=dev)[None, :]
-    out = model(
-        state["token"][:, None], prefix_len=0,
-        pad_mask=state["pad_slots"] | (ca_idx < ca_start[:, None]), kv_cache=cache, decode=True,
-        sa_pad_mask=sa_idx < sa_start[:, None], pos_shift=state["pos_shift"],
-    )
-    sampled = _sample_at(out.logits[:, -1], config, state["uniforms"])
-    sampled, done = _finish_sample(sampled, state["done"], config)
-    for pool, advanced in zip(cache, out.kv_cache):
-        pool.length.copy_(advanced.length)
-    state["ca_start"].copy_(ca_start)
-    state["sa_start"].copy_(sa_start)
-    state["token"].copy_(sampled)
-    state["done"].copy_(done)
-    return state, state["token"]
-
-
-class _UniformStage:
-    """The host half of a sampled paged step: one uniform per slot from its
-    own CPU generator (0 for idle slots), staged in pinned memory on the
-    card's machine and copied into the state's fixed ``uniforms`` buffer
-    ahead of the step. Greedy decoding draws nothing."""
-
-    def __init__(self, config: GenerationConfig, device: torch.device):
-        self.config = config
-        self._host: Optional[torch.Tensor] = None
-        self._copied = torch.cuda.Event() if device.type == "cuda" else None
-
-    def __call__(self, state: dict) -> None:
-        if not self.config.do_sample:
-            return
-        u = _draw_uniforms(state["generators"], state["uniforms"].shape[0])
-        if self._copied is None:
-            state["uniforms"].copy_(u)
-            return
-        if self._host is None:
-            self._host = torch.empty(u.shape, dtype=u.dtype, pin_memory=True)
-        self._copied.synchronize()  # the last step's copy has read the staging buffer
-        self._host.copy_(u)
-        state["uniforms"].copy_(self._host, non_blocking=True)
-        self._copied.record()
-
-
-def _state_tensors(state: dict) -> tuple:
-    """The addresses of every tensor a paged step reads or writes."""
-    tensors = [t for pool in state["cache"] for t in (pool.k, pool.v, pool.page_table, pool.length)]
-    tensors += [state[k] for k in ("ca_start", "sa_start", "token", "uniforms", "done", "pad_slots", "pos_shift")]
-    return tuple(t.data_ptr() for t in tensors)
-
-
-class _GraphedPagedStep:
-    """The paged step on the card: the first call runs the body once on a
-    side stream (the warm-up: a real step) and captures it into a CUDA graph
-    on that state's tensors; every later call stages the draws and replays.
-    A call with another state raises."""
-
-    def __init__(self, model, config: GenerationConfig):
-        self.model, self.config = model, config
-        self.stage = _UniformStage(config, model.device)
-        self.graph: Optional[Graph] = None
-        self._bound = None
-        self._stream = torch.cuda.Stream(model.device)
-
-    def __call__(self, state: dict):
-        self.stage(state)
-        if self.graph is None:
-            out = warm_up(lambda: _paged_decode_step_body(self.model, self.config, state), self._stream)
-            self.graph = Graph(lambda: _paged_decode_step_body(self.model, self.config, state)[1],
-                               "the paged decode step", self._stream)
-            self._bound = _state_tensors(state)
-            return out
-        if _state_tensors(state) != self._bound:
-            raise ValueError("this paged step is captured on another state's tensors: a state's tensors "
-                             "are written in place, never replaced (core.cache.commit_prefill_)")
-        return state, self.graph.replay()
-
-
 def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, device: DeviceLike = "cuda"):
     """The batched engine's decode step ``step(state) -> (state, tokens)``
-    over a paged-cache state (see :func:`_paged_decode_step_body`); the
+    over a paged-cache state (see :func:`_decode_step_body`); the
     state's tensors are written in place. ``serving.engine`` builds the
     state and owns the join/retire loop.
 
@@ -376,11 +400,5 @@ def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, devi
     config = config or GenerationConfig()
     dev = _model_device(model, device)
     if dev.type == "cuda":
-        return _GraphedPagedStep(model, config)
-    stage = _UniformStage(config, dev)
-
-    def step(state: dict):
-        stage(state)
-        return _paged_decode_step_body(model, config, state)
-
-    return step
+        return _GraphedStep(model, config, "the paged decode step")
+    return _eager_step(model, config, dev)

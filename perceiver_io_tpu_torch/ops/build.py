@@ -46,9 +46,9 @@ LAUNCHERS = {
     "flash_packed_bwd_dkv": ("flash_packed_bwd", "pio_flash_packed_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     "flash_packed_bwd_dq": ("flash_packed_bwd", "pio_flash_packed_bwd_dq", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "paged_decode": ("paged_decode", "pio_paged_decode", [_P] * 6 + [_L, _P, _P] + [_I] * 13 + [_P]),
-    "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
-    "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _P]),
-    "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _P]),
+    "flash_2seg_fwd": ("flash_2seg", "pio_flash_2seg_fwd", [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]),
+    "flash_2seg_bwd_dkv": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dkv", [_P] * 14 + [_I] * 6 + [_F, _I, _P]),
+    "flash_2seg_bwd_dq": ("flash_2seg_bwd", "pio_flash_2seg_bwd_dq", [_P] * 11 + [_I] * 6 + [_F, _I, _P]),
     "flash_heads_fwd": ("flash_heads", "pio_flash_heads_fwd", [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
     "flash_heads_bwd_dkv": ("flash_heads_bwd", "pio_flash_heads_bwd_dkv", [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     "flash_heads_bwd_dq": ("flash_heads_bwd", "pio_flash_heads_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
@@ -71,7 +71,8 @@ NVCC_FLAGS = (
 
 # the kernels whose bf16 builds count apart, under the name + BF16_SUFFIX
 BF16_KERNELS = ("flash_packed_fwd", "paged_decode", "layer_norm_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq",
-                "layer_norm_bwd", "flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")
+                "layer_norm_bwd", "flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq", "flash_heads_fwd",
+                "flash_heads_bwd_dkv", "flash_heads_bwd_dq")
 BF16_SUFFIX = "_bf16"
 
 # kernel name -> launches since the last reset_launches()

@@ -1,11 +1,11 @@
-// The second pass of a split kv walk, shared by K2 (flash_packed.cu) and K8
-// (flash_heads.cu): each of `nsplit` CTAs of a q block wrote the unnormalized
+// The second pass of a split kv walk, shared by K2 (flash_packed.cu), K6
+// (flash_2seg.cu) and K8 (flash_heads.cu): each of `nsplit` CTAs of a q block wrote the unnormalized
 // partial (acc, m, l) of its contiguous share of the walk, acc as
 // (nsplit, rows, Dv) and then the (m, l) pairs as (nsplit, rows, 2), where
 // `rows` numbers the output rows in the order of the output's (rows, Dv)
 // layout. One warp per row merges them in split order (no atomics, the
 // same sums every run) and writes the normalized row (f32, or bf16 for
-// K8's bf16 build) and its f32 logsumexp.
+// the bf16 builds) and its f32 logsumexp.
 // A split that saw no key (m = -inf) adds nothing; a row that saw none gets
 // 0 and logsumexp -inf.
 #pragma once

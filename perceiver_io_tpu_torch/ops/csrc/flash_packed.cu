@@ -31,12 +31,13 @@
 // the walk stops at the last tile the block's causal limit can see, and
 // only tiles that cross a warp's limit or the end of the keys pay for the
 // mask. Too few CTAs: the serving prefill's 512 latents x 8 heads x batch 1
-// give 64 q blocks for 264 CTA slots (two an SM), so the wrapper
-// (ops/flash_attention.py packed_kv_splits) splits the f32 kv walk across
-// the slots one CTA per q block leaves idle, never into a second wave; each
-// split writes its unnormalized partial and a second pass (flash_merge.cuh)
-// merges them in a fixed order, with no atomics. The training shapes fill
-// the card unsplit.
+// give 64 q blocks for 264 CTA slots (two an SM, in both builds), so the
+// wrapper (ops/flash_attention.py packed_kv_splits) splits the kv walk
+// across the slots one CTA per q block leaves idle, never into a second
+// wave; each split writes its unnormalized f32 partial and a second pass
+// (flash_merge.cuh) merges them in a fixed order, with no atomics, and
+// writes the output in its dtype. The training shapes fill the card
+// unsplit.
 //
 // wgmma is the way to the full TF32 rate, but a TF32 wgmma takes both
 // operands K-major, so P.V would need V transposed in shared memory: later
@@ -102,7 +103,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
                                          dqk, dv, causal, sm_scale, nsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  return pio::merge_splits(part, static_cast<float*>(o), lse, (long)batch * nq * h, dv, nsplit, stream);
+  return pio::merge_splits(part, static_cast<T*>(o), lse, (long)batch * nq * h, dv, nsplit, stream);
 }
 
 template <template <int> class P>
@@ -122,15 +123,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const float* b
 // q (B, Nq, H*Dqk), k (B, Nkv, H*Dqk), v (B, Nkv, H*Dv), all contiguous,
 // 16-byte aligned and of one dtype (0 = f32, 1 = bf16), head dims multiples
 // of 8 up to 128; bias (B, Nkv) f32 or null; o (B, Nq, H*Dv) in the input
-// dtype; lse (B, Nq, H) f32; the kv walk split `nsplit` ways (f32 only) with
-// part a scratch of nsplit * B * Nq * H * (Dv + 2) floats when nsplit > 1,
+// dtype; lse (B, Nq, H) f32; the kv walk split `nsplit` ways with part a
+// scratch of nsplit * B * Nq * H * (Dv + 2) floats when nsplit > 1,
 // else unused. Returns a cudaError_t (0 = launched).
 extern "C" int pio_flash_packed_fwd(const void* q, const void* k, const void* v, const float* bias, void* o,
                                     float* lse, float* part, int batch, int nq, int nkv, int h, int dqk, int dv,
                                     int causal, float sm_scale, int nsplit, int dtype, void* stream) {
   if (batch <= 0 || nq <= 0 || h <= 0) return cudaSuccess;
   if (dqk <= 0 || dv <= 0 || dqk % 8 || dv % 8 || dqk > 128 || dv > 128 || nkv < 0 || h > 65535 ||
-      nsplit < 1 || (long)batch * nsplit > 65535 || (nsplit > 1 && (part == nullptr || dtype != pio::kF32)))
+      nsplit < 1 || (long)batch * nsplit > 65535 || (nsplit > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == pio::kF32)

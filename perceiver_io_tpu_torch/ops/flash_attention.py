@@ -28,15 +28,16 @@ Semantics (shared by the CUDA kernels ``csrc/flash_packed.cu`` and
   ``delta_i = rowsum(dO_i * O_i)`` per head (f32), ``dV = P^T dO``,
   ``dS = P * (dO V^T - delta) * sm_scale``, ``dK = dS^T Q``, ``dQ = dS K``.
   The bias and the pad mask get no gradient, as in the JAX package.
-- bf16 operands (K2, K4a, K4b, K8, K9a and K9b take them, as the JAX
-  package's kernels do): every product takes bf16 operands and sums in f32,
+- bf16 operands (every flash kernel takes them, as the JAX package's
+  kernels do): every product takes bf16 operands and sums in f32,
   the softmax and ``delta`` are f32, and the outputs and gradients come out
   in bf16. The backward rounds ``p`` to bf16 before ``dV = P^T dO`` and
   ``dS`` to bf16 before ``dK`` and ``dQ``, where the JAX kernels round them.
   The heads-major forward (K8) rounds ``p`` to bf16 once before ``P V``, as
-  the JAX kernel does; the packed forward (K2) keeps ``p`` in f32 for
-  ``P V`` (K2's bf16 build splits ``p`` into two bf16 parts, ~2^-16): a
-  closer answer, within the JAX package's bf16 rounding.
+  the JAX kernel does; the packed and two-segment forwards (K2, K6) keep
+  ``p`` in f32 for ``P V`` (their bf16 builds split ``p`` into two bf16
+  parts, ~2^-16): a closer answer, within the JAX package's bf16 rounding,
+  and the concat and two-segment routes compute the same function.
 
 Dispatch is by device: a CUDA tensor launches the kernels (or raises), a CPU
 tensor takes the plain versions. There is no fallback on failure. Every call
@@ -48,8 +49,7 @@ The two-segment form computes exactly ``flash_attention_packed(q,
 [k_p; k_l], [v_p; v_l], causal=True)`` with the two pad masks joined, without
 joining anything: query ``i`` sees the whole prefix and latent slots
 ``t <= i`` (causal offset 0 in latent-local coordinates), and the kernels read
-each segment where it lies. Its kernels take f32 operands only (their bf16
-builds are not ported yet).
+each segment where it lies. Its kernels take f32 or bf16 operands.
 
 The heads-major form has the same semantics per (batch, head) row; the
 wrapper zero-pads odd head dims to a multiple of 8 and slices the extra
@@ -281,27 +281,31 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def packed_kv_splits(batch: int, num_heads: int, nq: int, nkv: int, d_max: int, sms: int) -> int:
-    """How many CTAs K2's f32 kernel (and K6, over its two segments' keys)
-    splits each q block's kv walk across: :func:`_kv_splits` over their
-    64-row q blocks, two CTA slots an SM (their shared memory allows two at
-    every head dim) and their kv tiles (64 rows up to head dim 64, 32 above:
-    ``csrc/flash_mma.cuh``). The serving prefill (512 latents x 8 heads x
-    batch 1 over 16384 keys) takes 4, K6's eval window 2; the training
-    shapes fill the card unsplit."""
-    kv_rows = 64 if d_max <= 64 else 32
+def packed_kv_splits(batch: int, num_heads: int, nq: int, nkv: int, d_max: int, sms: int,
+                     dtype: torch.dtype = torch.float32) -> int:
+    """How many CTAs K2 (and K6, over its two segments' keys) splits each q
+    block's kv walk across: :func:`_kv_splits` over their 64-row q blocks,
+    two CTA slots an SM (their shared memory allows two at every head dim,
+    in both builds) and their kv tiles (``csrc/flash_mma.cuh``: the f32
+    build's 64 rows up to head dim 64 and 32 above, the bf16 build's 64).
+    The serving prefill (512 latents x 8 heads x batch 1 over 16384 keys)
+    takes 4, K6's eval window 2; the training shapes fill the card
+    unsplit."""
+    kv_rows = 64 if d_max <= 64 or dtype == torch.bfloat16 else 32
     return _kv_splits(batch * num_heads, nq, 64, -(-nkv // kv_rows), 2 * sms)
 
 
-def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale):
+def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale, nsplit: Optional[int] = None):
+    """The K2 wrapper; ``nsplit`` forces a kv split (default: the split rule,
+    :func:`packed_kv_splits`)."""
     _check_cuda_operands((q, k, v), tuple(_DTYPE_CODES), "flash_attention_packed")
     b, nq, nkv, h = q.shape[0], q.shape[1], k.shape[1], num_heads
     d_qk, d_v = _head_dims(q, v, h)
     q, k, v = _ready(q), _ready(k), _ready(v)
     o = torch.empty((b, nq, h * d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
-    # the bf16 build takes no split (the merge pass writes f32)
-    nsplit = packed_kv_splits(b, h, nq, nkv, max(d_qk, d_v), _sms(q.device)) if q.dtype == torch.float32 else 1
+    if nsplit is None:
+        nsplit = packed_kv_splits(b, h, nq, nkv, max(d_qk, d_v), _sms(q.device), q.dtype)
     part = torch.empty(nsplit * b * nq * h * (d_v + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     err = build.launcher("flash_packed_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(), lse.data_ptr(), _ptr(part),
@@ -500,41 +504,42 @@ def flash_attention_packed_2seg_bwd_reference(
 
 
 def _fwd_2seg_cuda(q, k_p, v_p, k_l, v_l, num_heads, bias_p, bias_l, sm_scale):
-    _check_cuda_operands((q, k_p, v_p, k_l, v_l), (torch.float32,), "flash_attention_packed_2seg")
+    _check_cuda_operands((q, k_p, v_p, k_l, v_l), tuple(_DTYPE_CODES), "flash_attention_packed_2seg")
     b, nq, n_p, h = q.shape[0], q.shape[1], k_p.shape[1], num_heads
     d_qk, d_v = _head_dims(q, v_l, h)
     q, k_p, v_p, k_l, v_l = (_ready(t) for t in (q, k_p, v_p, k_l, v_l))
     o = torch.empty((b, nq, h * d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, h), dtype=torch.float32, device=q.device)
-    nsplit = packed_kv_splits(b, h, nq, n_p + nq, max(d_qk, d_v), _sms(q.device))
+    nsplit = packed_kv_splits(b, h, nq, n_p + nq, max(d_qk, d_v), _sms(q.device), q.dtype)
     part = torch.empty(nsplit * b * nq * h * (d_v + 2), dtype=torch.float32, device=q.device) if nsplit > 1 else None
     err = build.launcher("flash_2seg_fwd")(
         *(t.data_ptr() for t in (q, k_p, v_p, k_l, v_l)), _ptr(bias_p), _ptr(bias_l), o.data_ptr(), lse.data_ptr(),
-        _ptr(part), b, nq, n_p, h, d_qk, d_v, float(sm_scale), nsplit, build.current_stream(q.device),
+        _ptr(part), b, nq, n_p, h, d_qk, d_v, float(sm_scale), nsplit, _DTYPE_CODES[q.dtype],
+        build.current_stream(q.device),
     )
     build.check(err, "flash_2seg_fwd")
-    build.count_launch("flash_2seg_fwd")
+    build.count_launch("flash_2seg_fwd", q.dtype)
     return o, lse
 
 
 def _bwd_2seg_args(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale):
-    _check_cuda_operands((q, k_p, v_p, k_l, v_l, do), (torch.float32,), "the two-segment flash backward")
+    _check_cuda_operands((q, k_p, v_p, k_l, v_l, do), tuple(_DTYPE_CODES), "the two-segment flash backward")
     d_qk, d_v = _head_dims(q, v_l, num_heads)
     ptrs = tuple(t.data_ptr() for t in (q, k_p, v_p, k_l, v_l, do, lse, delta)) + (_ptr(bias_p), _ptr(bias_l))
-    ints = (q.shape[0], q.shape[1], k_p.shape[1], num_heads, d_qk, d_v, float(sm_scale),
+    ints = (q.shape[0], q.shape[1], k_p.shape[1], num_heads, d_qk, d_v, float(sm_scale), _DTYPE_CODES[q.dtype],
             build.current_stream(q.device))
     return ptrs, ints
 
 
 def bwd_2seg_dkv_cuda(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale):
     """The K7a wrapper: ``(dk_p, dv_p, dk_l, dv_l)`` for contiguous, aligned
-    f32 operands, ``lse``/``delta`` (B, Nq, H) f32 and the two bias rows (or
-    None)."""
+    operands of one dtype (f32 or bf16; the gradients in it), ``lse``/``delta``
+    (B, Nq, H) f32 and the two bias rows (or None)."""
     ptrs, ints = _bwd_2seg_args(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale)
     outs = tuple(torch.empty_like(t) for t in (k_p, v_p, k_l, v_l))
     build.check(build.launcher("flash_2seg_bwd_dkv")(*ptrs, *(t.data_ptr() for t in outs), *ints),
                 "flash_2seg_bwd_dkv")
-    build.count_launch("flash_2seg_bwd_dkv")
+    build.count_launch("flash_2seg_bwd_dkv", q.dtype)
     return outs
 
 
@@ -544,7 +549,7 @@ def bwd_2seg_dq_cuda(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, b
     ptrs, ints = _bwd_2seg_args(q, k_p, v_p, k_l, v_l, do, lse, delta, num_heads, bias_p, bias_l, sm_scale)
     dq = torch.empty_like(q)
     build.check(build.launcher("flash_2seg_bwd_dq")(*ptrs, dq.data_ptr(), *ints), "flash_2seg_bwd_dq")
-    build.count_launch("flash_2seg_bwd_dq")
+    build.count_launch("flash_2seg_bwd_dq", q.dtype)
     return dq
 
 

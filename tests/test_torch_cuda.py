@@ -686,11 +686,15 @@ def test_flash_2seg_forward_long_walk_matches_plain(cuda, d, b, h, n_p, nq, n_pa
 
 
 def test_flash_2seg_takes_f32_only(cuda):
+    """K6/K7 take f32 and (since their bf16 builds) bf16 operands of one
+    dtype, nothing else: f16 operands and mixed dtypes raise."""
     from perceiver_io_tpu_torch.ops.flash_attention import flash_attention_packed_2seg
 
-    q, k, v = (torch.randn(1, 64, 128, device=cuda, dtype=torch.bfloat16) for _ in range(3))
-    with pytest.raises(TypeError, match="float32"):
+    q, k, v = (torch.randn(1, 64, 128, device=cuda, dtype=torch.float16) for _ in range(3))
+    with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
         flash_attention_packed_2seg(q, k, v, k, v, 2)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention_packed_2seg(q.float(), k.bfloat16(), v.bfloat16(), k.bfloat16(), v.bfloat16(), 2)
 
 
 @pytest.mark.parametrize("n_pad", [0, 37], ids=["unpadded_compact", "left_padded_gather"])
@@ -1425,3 +1429,156 @@ def test_bf16_image_graphed_train_step_equals_the_eager_step_bit_for_bit(cuda):
         assert [launches[n + "_bf16"] for n in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] \
             == [3, 3, 3]
         assert launches["flash_heads_fwd"] == launches["flash_heads_bwd_dkv"] == launches["flash_heads_bwd_dq"] == 0
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b,h,n_p,nq,n_pad,bwd", [
+    (2, 4, 1, 100, 0, True),      # the minimum prefix; Nq no tile multiple
+    (2, 4, 70, 130, 5, True),     # the seam inside a tile; left-padded prefix keys; Np no tile multiple
+    (2, 4, 200, 128, 0, True),
+    (2, 4, 129, 37, 100, True),   # a prefix of two tiles and one row, mostly padded
+    (1, 8, 5000, 130, 0, False),  # the eval window's kind of call: the walk split, the partials merged
+    (1, 8, 5000, 130, 4500, False),
+])
+def test_flash_2seg_bf16_kernels_match_plain(cuda, d, b, h, n_p, nq, n_pad, bwd):
+    """K6, K7a and K7b's bf16 builds (bf16 mma.sync; K6 keeps p in two bf16
+    parts, K7 rounds p and dS to bf16 before the gradient products) through
+    the autograd Function: the output and each of the five gradients no
+    further from the plain version evaluated in f64 on the same bf16 inputs
+    than 1.25x the bf16 plain version (L2), and within 2e-2 of the plain
+    version's largest magnitude; the logsumexp within 1e-4 of the plain
+    version's; one bf16 launch each, no f32 one."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed_2seg,
+        flash_attention_packed_2seg_bwd_reference,
+        flash_attention_packed_2seg_reference,
+        packed_kv_splits,
+    )
+
+    g = torch.Generator().manual_seed(17)
+    if not bwd:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert packed_kv_splits(b, h, nq, n_p + nq, d, sms, torch.bfloat16) > 1
+    bf16 = torch.bfloat16
+    q = (torch.randn(b, nq, h * d, generator=g) * d**-0.5).to(cuda, bf16).requires_grad_()
+    k_l, v_l = (torch.randn(b, nq, h * d, generator=g).to(cuda, bf16).requires_grad_() for _ in range(2))
+    k_p, v_p = (torch.randn(b, n_p, h * d, generator=g).to(cuda, bf16).requires_grad_() for _ in range(2))
+    do = torch.randn(b, nq, h * d, generator=g).to(cuda, bf16)
+    pad_p = torch.zeros(b, n_p, dtype=torch.bool, device=cuda)
+    pad_p[-1, :n_pad] = True
+    ops = (q, k_p, v_p, k_l, v_l)
+    kw = dict(pad_mask_prefix=pad_p)
+    build.reset_launches()
+    o, lse = flash_attention_packed_2seg(*ops, h, return_lse=True, **kw)
+    if bwd:
+        o.backward(do)
+    torch.cuda.synchronize()
+    names = ("flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
+    assert [build.LAUNCHES[k + "_bf16"] for k in names] == [1, int(bwd), int(bwd)]
+    assert all(build.LAUNCHES[k] == 0 for k in names)
+    plain = [t.detach() for t in ops]
+    ro, rlse = flash_attention_packed_2seg_reference(*plain, h, **kw)
+    eo, _ = flash_attention_packed_2seg_reference(*(t.double() for t in plain), h, **kw)
+    assert o.dtype == bf16
+    _bf16_rule(o.detach(), ro, eo, 1.25)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    if not bwd:
+        return
+    want = flash_attention_packed_2seg_bwd_reference(*plain, o.detach(), lse, do, h, **kw)
+    f64 = flash_attention_packed_2seg_bwd_reference(*(t.double() for t in (*plain, o.detach(), lse, do)), h, **kw)
+    for x, p, e in zip(ops, want, f64):
+        assert x.grad.dtype == bf16
+        _bf16_rule(x.grad, p, e, 1.25)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,n_pad", [(True, 0), (True, 3001), (False, 0)])
+def test_flash_packed_bf16_split_walk_matches_plain(cuda, d, causal, n_pad):
+    """K2's bf16 build takes the kv split (the merge writes bf16): the
+    serving prefill's kind of call (batch 1, 8 heads, 512 queries over 4100
+    keys), against the plain version evaluated in f64 (1.25x the bf16 plain
+    version, L2), the logsumexp within 1e-4; and the unsplit walk
+    (``_fwd_cuda(..., nsplit=1)``) within the same rule."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        _fwd_cuda,
+        bias_row,
+        flash_attention_packed,
+        flash_attention_packed_reference,
+        packed_kv_splits,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    h, nq, nkv = 8, 512, 4100
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert packed_kv_splits(1, h, nq, nkv, d, sms, torch.bfloat16) > 1
+    q = (torch.randn(1, nq, h * d, generator=g) * d**-0.5).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(1, nkv, h * d, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    pad = torch.zeros(1, nkv, dtype=torch.bool, device=cuda)
+    pad[:, :n_pad] = True
+    build.reset_launches()
+    o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
+    assert build.LAUNCHES["flash_packed_fwd_bf16"] == 1 and o.dtype == torch.bfloat16
+    ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
+    eo, _ = flash_attention_packed_reference(q.double(), k.double(), v.double(), h, pad_mask=pad, causal=causal)
+    _bf16_rule(o, ro, eo, 1.25)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    uo, ulse = _fwd_cuda(q, k, v, h, bias_row(pad, 1, nkv, cuda), causal, 1.0, nsplit=1)
+    _bf16_rule(uo, ro, eo, 1.25)
+    torch.testing.assert_close(ulse, rlse, atol=1e-4, rtol=0)
+
+
+_DECODE_CLM = dict(vocab_size=262, max_seq_len=64, max_latents=16, num_channels=64, num_heads=4,
+                   num_self_attention_layers=2)
+
+
+@pytest.mark.parametrize("dtype,cache_dtype,sample", [
+    (torch.float32, torch.float32, False),
+    (torch.float32, torch.float32, True),
+    (torch.bfloat16, torch.float32, False),
+    (torch.bfloat16, torch.bfloat16, True),
+], ids=["f32", "f32_sampled", "bf16_f32_cache", "bf16_bf16_cache_sampled"])
+def test_decode_pair_graph_equals_eager(cuda, dtype, cache_dtype, sample):
+    """``make_decode_fns``' step on the card is a captured CUDA graph; its
+    stream equals the eager body's (``generation._eager_step``, the same
+    draws) token for token over 20 steps, the prompt filling both windows so
+    that they slide at every step, and its logits the eager step's within
+    2^-8 of their largest magnitude (the same kernels; cuBLAS may pick
+    another GEMM algorithm under capture, and a bf16 logit is 2^-8 wide);
+    ``generate`` gives the same stream; the graph holds the step's kernels
+    (K1's nodes, no K2, no K3); a call with another state raises."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_DECODE_CLM), device=cuda, dtype=dtype,
+                                generator=torch.Generator().manual_seed(0))
+    config = generation.GenerationConfig(max_new_tokens=21, do_sample=sample, temperature=0.8, top_k=40,
+                                         eos_token_id=5 if sample else None)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 262, size=(2, 64))
+    pad = np.zeros((2, 64), bool)
+    pad[1, :9] = True
+    prefill, step = generation.make_decode_fns(model, 16, config, cache_dtype, device=cuda)
+    streams, logits = {}, {}
+    for name in ("graph", "eager"):
+        body = step if name == "graph" else generation._eager_step(model, config, cuda)
+        token, state = prefill(ids, pad, torch.Generator().manual_seed(7))
+        streams[name], logits[name] = [token.clone()], []
+        for _ in range(20):
+            state, token = body(state)
+            streams[name].append(token.clone())
+            logits[name].append(state["logits"].clone())
+        assert int(state["ca_start"]) == 20 and int(state["sa_start"]) == 20
+    assert all(torch.equal(a, b) for a, b in zip(streams["graph"], streams["eager"]))
+    for a, b in zip(logits["graph"], logits["eager"]):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= 2**-8 * float(b.float().abs().max())
+    out = generation.generate(model, ids, 16, pad_mask=pad, config=config, generator=torch.Generator().manual_seed(7),
+                              cache_dtype=cache_dtype, device=cuda)
+    assert torch.equal(out[:, 64:], torch.stack(streams["eager"], dim=1))
+    assert isinstance(step.body, generation._GraphedStep)
+    nodes = step.body.graph.kernel_nodes(["_layer_norm_fwd_kernel", "flash_packed_kernel", "paged_walk_kernel"])
+    assert nodes["_layer_norm_fwd_kernel"] > 0 and nodes["flash_packed_kernel"] == nodes["paged_walk_kernel"] == 0
+    with pytest.raises(ValueError, match="another state"):
+        step(prefill(ids, pad)[1])
