@@ -138,6 +138,36 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
     card against the CPU's f32 gradient, per parameter no further (L2) than
     1.5x the CPU's bf16 gradient.
 
+The training options (ROADMAP A4), each a train pair (graph and eager, from
+the same seed, weights, batch and keep sets) of the flagship:
+
+- train_remat (f32, after train_twoseg's phases), train_remat_bf16 and
+  train_offload_bf16 (after grad_check_twoseg_bf16): activation
+  checkpointing or offloading; losses, gradients and parameters after the
+  five steps equal to train's / train_bf16's bit for bit, graph against
+  graph and eager against eager; at a lower peak of device memory, both the
+  step's peak over what was allocated before its first call and a chunk's
+  forward and backward peak (``chunk_activation_gb``); K1 and K2 launch twice
+  a step (the backward's recompute);
+- train_mask_bf16 and train_mask_twoseg_bf16: the "mask" prefix-dropout
+  mode (all 15360 prefix rows, the 7680 dropped ones masked), K2/K4 (or
+  K6/K7 and K2/K4 for the latents) at 1024 x 16384 with a scattered kv
+  bias; each loss within ``MASK_LOSS_TOL_BF16`` of train_bf16's on the same
+  keep sets; the mask-mode kernel cases (``ca_mask_bf16``,
+  ``train_ca_mask_bf16``) hold those kernels to their plain versions;
+- train_dropout_bf16: post-attention and residual dropout 0.1 from a CUDA
+  generator (the dense attention route: no attention kernel), the loss
+  falling, graph equal to eager bit for bit; then its step at lr 0 on one
+  batch and keep set: two replays draw other masks (other losses), the
+  eager steps give the same three losses;
+- optim: Adam (f32 and bf16 moments), Lamb, SGD, AdamW with accumulation
+  and a frozen layer, Lamb with accumulation: graph against eager bit for
+  bit, and the card's update against the CPU's;
+- image_train_remat_bf16 (after image_train_bf16): the classifier with
+  checkpointing (the standard route, as the JAX package's gate sends it),
+  ``IMAGE_STEP_REMAT_BF16``'s launches exactly, each loss within
+  ``IMAGE_REMAT_LOSS_TOL`` of image_train_bf16's, at a lower peak.
+
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -214,6 +244,23 @@ TWOSEG_LOSS_TOL_BF16 = 1e-2
 # leaves room for a bf16 step (2^-8 relative) in a few logits, where a
 # route that computed another function would be off by far more
 TWOSEG_EVAL_L2_BF16 = 1e-3
+# the train variants: the flagship config's training options, by variant
+# name (the phases train_<variant>[_twoseg][_bf16])
+TRAIN_VARIANTS = {
+    "": {},
+    "remat": dict(activation_checkpointing=True),
+    "offload": dict(activation_offloading=True),
+    "mask": dict(prefix_dropout_mode="mask"),
+    "dropout": dict(post_attention_dropout=0.1, residual_dropout=0.1),
+}
+# train_mask_bf16 (and under twoseg) against train_bf16 (the gather mode) on
+# the same keep sets, per step: the mask mode walks all 16384 keys with the
+# dropped ones masked, so K2 (K6) sums the online softmax over other tiles,
+# a bf16 output may round to its other neighbour, and an Adam step may flip
+# the sign of a gradient within bf16 rounding of 0, as for
+# TWOSEG_LOSS_TOL_BF16; a mode that kept other rows would be off by the
+# loss's own steps (0.1-0.2)
+MASK_LOSS_TOL_BF16 = 1e-2
 # the Perceiver IO image classifier of bench.py:300-316 (image_bench): 224x224x3
 # images with 64 Fourier bands (261 input channels), 512 latents x 1024
 # channels, one cross-attention head, 8 self-attention heads, 6 layers x 8
@@ -257,6 +304,18 @@ IMAGE_STEP = dict(IMAGE_FORWARD, flash_heads_bwd_dkv=1, flash_heads_bwd_dq=1, fl
 # so every LayerNorm reads bf16), and no f32 build
 IMAGE_FORWARD_BF16 = {**{k + BF16: n for k, n in IMAGE_FORWARD.items()}, **dict.fromkeys(IMAGE_FORWARD, 0)}
 IMAGE_STEP_BF16 = {**{k + BF16: n for k, n in IMAGE_STEP.items()}, **dict.fromkeys(IMAGE_STEP, 0)}
+# image_train_remat_bf16: checkpointing refuses the split route (as the JAX
+# package's gate does), so the encoder's CA takes the standard route: the
+# joined f32 input's kv_norm (one f32 K1, and its K5 for the weights) and K8
+# bf16 on the 261-wide head; the backward recomputes every layer's forward
+# (K1, K2, K8 twice a step); the backward kernels run once
+IMAGE_STEP_REMAT_BF16 = dict(IMAGE_STEP_BF16, flash_heads_fwd_bf16=2, flash_packed_fwd_bf16=96,
+                             layer_norm_fwd_bf16=202, layer_norm_fwd=2, layer_norm_bwd=1)
+# |loss(image_train_remat_bf16) - loss(image_train_bf16)| / loss per step:
+# the standard route against the split route, which round at other points
+# in bf16 (image_eval_bf16 holds their logits within IMAGE_ROUTE_TOL_BF16 in
+# L2); over five steps at lr 1e-3 the bf16 steps compound that
+IMAGE_REMAT_LOSS_TOL = 2e-2
 # |logits(split) - logits(standard)| at the flagship: the routes differ only
 # in the order of the K/V projections' f32 sums (see image_eval_phase)
 IMAGE_ROUTE_TOL = 1e-4
@@ -481,10 +540,13 @@ def _sdpa_keep(nq: int, nkv: int, pad) -> torch.Tensor:
     return keep if pad is None else keep & ~pad[:, None, None, :]
 
 
-def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causal: bool = True) -> dict:
+def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causal: bool = True,
+                   scattered: bool = False) -> dict:
     """K2 against its plain version on one case (out and logsumexp), with its
     time beside the plain version's, one SDPA call's with the same mask, and
-    the bound. ``path`` names the path whose shapes these are."""
+    the bound. ``path`` names the path whose shapes these are; ``scattered``:
+    ``pad`` masks prefix keys (the "mask" prefix-dropout mode), which the
+    bound counts no work for."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops.flash_attention import (
@@ -528,12 +590,12 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     keep = _sdpa_keep(nq, nkv, pad) if causal else None
     library_ms = time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
     el = q.element_size()
-    visible = b * visible_pairs(nq, nkv, causal)
+    visible = b * visible_pairs(nq, nkv, causal) - (nq * int(pad.sum()) if scattered else 0)
     n_bytes = el * b * (2 * nq * c + 2 * nkv * c) + 4 * b * nq * h + (4 * b * nkv if pad is not None else 0)
     bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible,
                                "bf16_tensor" if q.dtype == torch.bfloat16 else "split_tf32")
     pads = 0 if pad is None else int(pad[0].sum())
-    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} D={d} left_pads={pads} "
+    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} D={d} {'masked' if scattered else 'left_pads'}={pads} "
                     f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}", path=path,
                max_abs_err=err, tol="check_bf16 (1.25x)" if tol is None else tol, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -759,11 +821,23 @@ def layernorm_phase(gen: torch.Generator) -> dict:
     return {"cases": rows_out}
 
 
+def mask_mode_pad(gen: torch.Generator, b: int, n_prefix: int, n_latent: int) -> torch.Tensor:
+    """The cross-attention's pad mask (b, n_prefix + n_latent) under the
+    "mask" prefix-dropout mode: ``KEEP`` of the ``n_prefix`` prefix rows
+    kept, drawn per row from ``gen``, the rest masked (scattered), the
+    latents unmasked."""
+    keep = torch.stack([torch.randperm(n_prefix, generator=gen)[:KEEP] for _ in range(b)])
+    drop = torch.ones(b, n_prefix, dtype=torch.bool).scatter_(1, keep, False)
+    return torch.cat([drop, torch.zeros(b, n_latent, dtype=torch.bool)], dim=1).cuda()
+
+
 def flash_bwd_phase(gen: torch.Generator) -> tuple:
     """K4a (dK/dV) and K4b (dQ) at a training chunk's shapes (batch 2): the
     causal cross-attention of 1024 latents over 7680 kept prefix keys + the
     latents, a latent self-attention, and the cross-attention with left-padded
-    keys; and at the image classifier's non-causal self-attention (batch 16,
+    keys; in bf16 the "mask" prefix-dropout mode's cross-attention (1024
+    latents over all 15360 prefix rows + the latents, the 7680 dropped rows
+    masked where they lie); and at the image classifier's non-causal self-attention (batch 16,
     512 latents, 8 heads of 128), in f32 and in bf16. K2's forward, whose output and logsumexp
     the backward reads, is first held against its plain version on the same
     inputs. The plain
@@ -794,6 +868,8 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         # self-attention, held to the rule of check_bf16 (1.25x)
         "ca_bf16": (lat, KEEP + lat, 0, *clm, "train" + BF16, bf16),
         "sa_bf16": (lat, lat, 0, *clm, "train" + BF16, bf16),
+        # the mask mode's cross-attention: 7680 of the 15360 prefix keys masked
+        "ca_mask_bf16": (lat, PREFIX_LEN + lat, "mask", *clm, "train_mask" + BF16, bf16),
         # and at the bf16 image step's self-attention (8 heads of 128)
         "image_sa_bf16": (IMAGE_LATENTS, IMAGE_LATENTS, 0, IMAGE_BATCH, 8, IMAGE_CHANNELS, False,
                           "image_train" + BF16, bf16),
@@ -817,12 +893,14 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda().to(dtype)
         k, v = (torch.randn(b, nkv, c, generator=gen).cuda().to(dtype) for _ in range(2))
         do = torch.randn(b, nq, c, generator=gen).cuda().to(dtype)
-        pad = None
-        if pads:
+        pad, scattered = None, pads == "mask"
+        if scattered:
+            pad = mask_mode_pad(gen, b, nkv - nq, nq)
+        elif pads:
             pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
         out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h,
-                                                  1e-5 if dtype == f32 else None, path, causal))
+                                                  1e-5 if dtype == f32 else None, path, causal, scattered))
         o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
         args = (q, k, v, do, lse, bwd_delta(o, do, h), h, bias_row(pad, b, nkv, q.device), causal, 1.0)
         dk, dv = bwd_dkv_cuda(*args)
@@ -859,13 +937,14 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=_sdpa_keep(nq, nkv, pad) if causal else None)
         go = do.reshape(b, nq, h, d).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
-        pairs = b * h * visible_pairs(nq, nkv, causal)
+        pairs = b * h * visible_pairs(nq, nkv, causal) - (h * nq * int(pad.sum()) if scattered else 0)
         el, rate = q.element_size(), "split_tf32" if dtype == f32 else "bf16_tensor"
         reads = el * (2 * b * nq * c + 2 * b * nkv * c) + 4 * (2 * b * nq * h + (b * nkv if pad is not None else 0))
         bounds = {"dkv": bound(reads + el * 2 * b * nkv * c, 8 * d * pairs, rate),
                   "dq": bound(reads + el * b * nq * c, 6 * d * pairs, rate)}
         for kernel in ("dkv", "dq"):
-            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} left_pads={pads} H={h} D={d} {str(dtype)[6:]} "
+            pad_label = f"masked={int(pad[0].sum())}" if scattered else f"left_pads={pads}"
+            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} {pad_label} H={h} D={d} {str(dtype)[6:]} "
                             f"{'causal' if causal else 'full'}", path=path, max_abs_err=errs[kernel],
                        tol=tol[kernel] if dtype == f32 else "check_bf16 (1.25x)",
                        reference="plain version in f64" if dtype == f32 else "bf16 plain version",
@@ -984,7 +1063,10 @@ def twoseg_phase(gen: torch.Generator) -> dict:
     }
     cases = {**{name: (*shape, f32) for name, shape in shapes.items()},
              **{f"{name}_bf16": (*shape[:5], shape[5] + (BF16 if shape[5] != "edge" else ""), bf16)
-                for name, shape in shapes.items()}}
+                for name, shape in shapes.items()},
+             # the "mask" prefix-dropout mode under twoseg: all 15360 prefix
+             # rows, the 7680 dropped ones masked where they lie
+             "train_ca_mask_bf16": (TRAIN_CHUNK, PREFIX_LEN, lat, "mask", True, "train_mask_twoseg" + BF16, bf16)}
     # f32: K6 against the plain version in f32 (1e-5); K7a and K7b, as K4a
     # and K4b in flash_bwd_phase, against the plain backward evaluated in f64
     # on the same f32 inputs, within 1e-5, and no further from it than the
@@ -1003,7 +1085,10 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         k_l, v_l = (torch.randn(b, nq, c, generator=gen).cuda().to(dtype) for _ in range(2))
         ops = (q, k_p, v_p, k_l, v_l)
         pad_p = pad_l = pad_cat = None
-        if pads:
+        if pads == "mask":
+            pad_cat = mask_mode_pad(gen, b, n_p, nq)
+            pad_p, pad_l = pad_cat[:, :n_p], pad_cat[:, n_p:]
+        elif pads:
             pad_p = torch.zeros(b, n_p, dtype=torch.bool, device="cuda")
             pad_p[:, :pads] = True
             pad_l = torch.zeros(b, nq, dtype=torch.bool, device="cuda")
@@ -1028,9 +1113,12 @@ def twoseg_phase(gen: torch.Generator) -> dict:
         concat_ms = time_ms(lambda: (torch.cat([k_p, k_l], dim=1), torch.cat([v_p, v_l], dim=1)))
         qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k_cat, v_cat))
         keep = _sdpa_keep(nq, nkv, pad_cat)
-        pairs = b * h * (nq * n_p + nq * (nq + 1) // 2)  # visible (query, key) pairs
+        # visible (query, key) pairs: no work for a masked prefix row of the mask mode
+        masked = int(pad_p.sum()) if pads == "mask" else 0
+        pairs = h * (b * (nq * n_p + nq * (nq + 1) // 2) - nq * masked)
         reads = el * (b * nq * c + 2 * b * nkv * c) + (4 * b * nkv if pads else 0)
-        shape = f"{name} batch={b} nq={nq} np={n_p} left_pads={pads} H={h} D={d} {str(dtype)[6:]}"
+        pad_label = f"masked={masked // b}" if pads == "mask" else f"left_pads={pads}"
+        shape = f"{name} batch={b} nq={nq} np={n_p} {pad_label} H={h} D={d} {str(dtype)[6:]}"
         bound_ms, bound_by = bound(reads + el * b * nq * c + 4 * b * nq * h, 4 * d * pairs, rate)
         row = dict(case=shape, path=path, max_abs_err=err, tol=tol if dtype == f32 else "check_bf16 (1.25x)",
                    bf16_rule=rule, dtype=str(dtype)[6:],
@@ -1766,19 +1854,47 @@ def nonzero_launches() -> dict:
     return {k: n for k, n in build.LAUNCHES.items() if n}
 
 
+def train_per_step(route: str, variant: str, suffix: str) -> dict:
+    """The launches a flagship train step makes, by kernel (``suffix`` the
+    build's): ``PER_STEP``'s, with the backward's recompute of every layer's
+    LayerNorms and attention forward under checkpointing or offloading (K1,
+    K2 and K6 twice), and no attention kernel under attention dropout (the
+    dense route, as the JAX package's gate sends it)."""
+    n = dict(PER_STEP[route])
+    fwd = {"layer_norm": n["layer_norm"], "flash_packed": n["flash_packed"], "flash_2seg": n["flash_2seg"]}
+    if variant in ("remat", "offload"):
+        fwd = {k: 2 * v for k, v in fwd.items()}
+    if variant == "dropout":
+        n.update(flash_packed=0, flash_2seg=0)
+        fwd.update(flash_packed=0, flash_2seg=0)
+    per_step = {}
+    for k in TRAIN_KERNELS + TWOSEG_KERNELS:
+        family = "layer_norm" if k.startswith("layer_norm") else "flash_2seg" if "2seg" in k else "flash_packed"
+        per_step[k + suffix] = fwd[family] if k.endswith("_fwd") else n[family]
+    if suffix:  # no f32 build in a bf16 step
+        per_step.update({k: 0 for k in TRAIN_KERNELS + TWOSEG_KERNELS})
+    return per_step
+
+
 def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict = None,
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32, variant: str = "", lr: float = TRAIN_LR,
+                steps: int = TRAIN_STEPS, fixed_keep: bool = False) -> dict:
     """Five steps of the flagship at full width and depth, on the concat route
     or, with ``route="twoseg"``, under ``fast_kernels({"twoseg"})``, from the
     same seed, weights, batch and keep sets (then each loss is held against
-    ``concat``'s, the same kind of step's); as a CUDA graph (``jit``, the
-    default) or eagerly. Then the sentinel: one step whose loss is NaN (a
-    replay under the graph) must hold parameters, moments, AdamW's steps and
-    the count bit for bit; one more finite step; one step under
-    ``torch.profiler``. With ``dtype`` bf16 (train_bf16): bf16 compute and
-    bf16 Adam moments (``moment_dtype="bfloat16"``), every kernel launch its
-    bf16 build's. Returns the five steps' launches, losses, median and
-    parameters, and the loss of the step after the NaN one."""
+    ``concat``'s, the same kind of step's, within the route's or variant's
+    tolerance); as a CUDA graph (``jit``, the default) or eagerly. Then the
+    sentinel: one step whose loss is NaN (a replay under the graph) must hold
+    parameters, moments, AdamW's steps and the count bit for bit; one more
+    finite step; one step under ``torch.profiler``. With ``dtype`` bf16
+    (train_bf16): bf16 compute and bf16 Adam moments
+    (``moment_dtype="bfloat16"``), every kernel launch its bf16 build's.
+    ``variant`` (``TRAIN_VARIANTS``) sets the config's training options;
+    the dropout variant's masks come from a CUDA generator seeded ``SEED``. A short
+    run (``steps`` below five) stops after the steps, and ``fixed_keep``
+    gives every step the first step's keep set. Returns
+    the five steps' launches, losses, median, peak memory, the parameters
+    and gradients after them, and the loss of the step after the NaN one."""
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch import training as tt
@@ -1787,8 +1903,9 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
     suffix = BF16 if dtype == torch.bfloat16 else ""
-    name = ("train" if route == "concat" else "train_twoseg") + suffix + ("" if jit else "_eager")
-    config = CausalLanguageModelConfig(**FLAGSHIP)
+    name = ("train" + (f"_{variant}" if variant else "") + ("" if route == "concat" else "_twoseg") + suffix
+            + ("" if jit else "_eager"))
+    config = CausalLanguageModelConfig(**FLAGSHIP, **TRAIN_VARIANTS[variant])
     model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED), dtype=dtype)
     n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
     rng = np.random.default_rng(SEED)
@@ -1796,22 +1913,26 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     ones = np.ones(TRAIN_BATCH, np.float32)
     tokens = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None}
 
+    fixed = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout) if fixed_keep else None
+
     def batch(poison=ones):
-        keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, config.cross_attention_dropout)
+        keep = fixed if fixed_keep else tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat,
+                                                                  config.cross_attention_dropout)
         return dict(tokens, prefix_keep_idx=keep, poison=poison)
 
-    state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0,
-                                                          moment_dtype="bfloat16" if suffix else None))
+    # the dropout masks' generator, on the card so that a replay draws anew
+    gen = torch.Generator(device="cuda").manual_seed(SEED) if variant == "dropout" else None
+    state = tt.TrainState.create(model, tt.make_optimizer(lr, gradient_clip=1.0,
+                                                          moment_dtype="bfloat16" if suffix else None), generator=gen)
     step = tt.make_train_step(poisonable(tt.clm_loss_fn(lat)), microbatch=TRAIN_MICROBATCH, sentinel=True, jit=jit)
     losses, step_ms, skipped = [], [], []
-    per_step = {k + suffix: PER_STEP[route]["flash_packed"] for k in TRAIN_KERNELS if k.startswith("flash_packed")}
-    per_step.update({k + suffix: PER_STEP[route]["layer_norm"] for k in TRAIN_KERNELS if k.startswith("layer_norm")})
-    per_step.update({k + suffix: PER_STEP[route]["flash_2seg"] for k in TWOSEG_KERNELS})
-    if suffix:  # no f32 build in a bf16 step
-        per_step.update({k: 0 for k in TRAIN_KERNELS + TWOSEG_KERNELS})
+    per_step = train_per_step(route, variant, suffix)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
     with fast_kernels(ROUTE_FEATURES[route]):
         build.reset_launches()
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             b = batch()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1823,7 +1944,11 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
             if i == 0 and jit:
                 check_graph(name, step.captured.graph, nonzero_launches(), per_step)
         launches = dict(build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         params = [p.detach().cpu().clone() for p in model.parameters()]
+        grads = [p.grad.detach().cpu().clone() for p in model.parameters()]
+        if steps < TRAIN_STEPS:  # a short run (the dropout replays): no sentinel or profile
+            return {"losses": losses, "launches": launches, "step_ms": step_ms}
         # the sentinel on the device: a NaN loss holds the whole update
         held = [x.clone() for x in state.optimizer.state_tensors()]
         _, metrics = step(state, batch(np.full(TRAIN_BATCH, np.nan, np.float32)))
@@ -1843,17 +1968,19 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     summary = profile_summary(prof, wall_ms_)
     log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
     median_ms = statistics.median(step_ms)
-    kernels = tuple(k + suffix for k in TRAIN_KERNELS + (TWOSEG_KERNELS if route == "twoseg" else ()))
+    kernels = tuple(k for k, v in per_step.items() if v)
     report = {
         "card": card, "dtype": str(dtype)[6:], "moments": "bfloat16" if suffix else "float32",
-        "step": "graph" if jit else "eager", "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
-        "seq_len": n, "latents": lat, "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
-        "median_step_ms": median_ms, "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
-        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in kernels}, "sentinel_skipped": skipped,
+        "options": TRAIN_VARIANTS[variant], "step": "graph" if jit else "eager", "batch": TRAIN_BATCH,
+        "microbatch": TRAIN_MICROBATCH, "seq_len": n, "latents": lat, "steps": steps, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": median_ms, "train_tokens_per_s": TRAIN_BATCH * n / (median_ms / 1e3),
+        "peak_memory_gb": peak_gb, "memory_before_steps_gb": base_gb,
+        "launches_per_step": {k: launches[k] / steps for k in kernels},
+        "sentinel_skipped": skipped,
         "nan_step": {"sentinel_skipped": poison_skipped, "held_bit_for_bit": poison_held,
                      "next_loss": after_poison_loss},
     }
-    loss_tol = TWOSEG_LOSS_TOL_BF16 if suffix else TWOSEG_LOSS_TOL
+    loss_tol = MASK_LOSS_TOL_BF16 if variant == "mask" else TWOSEG_LOSS_TOL_BF16 if suffix else TWOSEG_LOSS_TOL
     if concat is not None:
         diffs = [abs(a - b) for a, b in zip(losses, concat["losses"])]
         report.update(concat_median_step_ms=concat["median_step_ms"], loss_diff_to_concat=diffs, loss_tol=loss_tol)
@@ -1861,54 +1988,150 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{name}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        raise SystemExit(f"{name}: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        raise SystemExit(f"{name}: loss did not fall over {steps} steps: {losses}")
     if any(skipped):
         raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
     if poison_skipped != 1.0 or not poison_held or not math.isfinite(after_poison_loss):
         raise SystemExit(f"{name}: the NaN step was not held: {report['nan_step']}")
-    wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != v * TRAIN_STEPS}
+    wrong = {k: launches[k] for k, v in per_step.items() if launches[k] != v * steps}
     if wrong:
-        raise SystemExit(f"{name}: launches over {TRAIN_STEPS} steps {wrong}, expected per step {per_step}")
+        raise SystemExit(f"{name}: launches over {steps} steps {wrong}, expected per step {per_step}")
     if concat is not None and not all(within(dd, loss_tol) for dd in report["loss_diff_to_concat"]):
         raise SystemExit(f"{name}: losses differ from the concat route's by {report['loss_diff_to_concat']}")
     return {"launches": launches, "losses": losses, "median_step_ms": median_ms, "params": params,
-            "next_loss": after_poison_loss, "busy_share": summary["device_busy_share"],
-            "kernels_ms": summary["device_busy_ms"]}
+            "grads": grads, "next_loss": after_poison_loss, "busy_share": summary["device_busy_share"],
+            "kernels_ms": summary["device_busy_ms"], "peak_memory_gb": peak_gb, "step_peak_gb": peak_gb - base_gb}
 
 
-def train_pair(card: str, route: str = "concat", concat: dict = None, dtype: torch.dtype = torch.float32) -> dict:
+def chunk_activation_gb(dtype: torch.dtype, variant: str) -> float:
+    """The device memory (GB) one training chunk's forward and backward of the
+    flagship (batch 2, a host keep set) takes at its peak above what the
+    model and its gradients hold, eagerly: the memory activation
+    checkpointing and offloading exist to cut. A train step's own peak may
+    lie elsewhere (the optimizer's update), so the two are printed apart."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**FLAGSHIP, **TRAIN_VARIANTS[variant])
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED), dtype=dtype)
+    n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
+    rng = np.random.default_rng(SEED)
+    t = torch.from_numpy(rng.integers(0, config.vocab_size, size=(TRAIN_CHUNK, n + 1))).cuda()
+    batch = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None,
+             "prefix_keep_idx": tt.sample_prefix_keep_idx(rng, TRAIN_CHUNK, n - lat, config.cross_attention_dropout)}
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = tt.clm_loss_fn(lat)(model, batch, torch.Generator(device="cuda").manual_seed(SEED))
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del model, loss, t, batch
+    free_card()
+    return peak
+
+
+def identical_runs(a: dict, b: dict) -> bool:
+    """Two train runs' losses, loss after the NaN step, and parameters and
+    gradients after the five steps equal bit for bit."""
+    return (a["losses"] == b["losses"] and a["next_loss"] == b["next_loss"]
+            and all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+            and all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])))
+
+
+def train_pair(card: str, route: str = "concat", concat: dict = None, dtype: torch.dtype = torch.float32,
+               variant: str = "", plain: dict = None) -> dict:
     """The train phase as a CUDA graph, then eagerly from the same seed: the
     graph's losses, parameters after five steps and loss after the NaN step
     against the eager run's, within ``GRAPH_RTOL`` relative, the differences
-    printed; in bf16 they must be equal bit for bit. Returns both runs by
-    step kind."""
+    printed; in bf16 they must be equal bit for bit. ``plain``: the pair of
+    the same route and dtype without the variant, which a checkpointing or
+    offloading variant must equal bit for bit (losses, gradients and
+    parameters, graph against graph and eager against eager) at a lower peak
+    of device memory: the step's peak over the memory held before its first
+    call, and a chunk's forward and backward peak (``chunk_activation_gb``).
+    Returns both runs by step kind."""
     runs = {}
     suffix = BF16 if dtype == torch.bfloat16 else ""
+    label = "train" + (f"_{variant}" if variant else "") + f"_{route}{suffix}"
     for jit in (True, False):
         runs["graph" if jit else "eager"] = train_phase(card, route, jit, None if concat is None else
-                                                        concat["graph" if jit else "eager"], dtype)
+                                                        concat["graph" if jit else "eager"], dtype, variant)
         free_card()
     g, e = runs["graph"], runs["eager"]
     diffs = {"losses": [rel_diff(a, b) for a, b in zip(g["losses"], e["losses"])],
              "params": max(rel_diff(a, b) for a, b in zip(g["params"], e["params"])),
              "loss_after_nan_step": rel_diff(g["next_loss"], e["next_loss"])}
-    identical = (g["losses"] == e["losses"] and g["next_loss"] == e["next_loss"]
-                 and all(torch.equal(a, b) for a, b in zip(g["params"], e["params"])))
-    log(f"train_{route}{suffix} graph against eager: " + json.dumps({
+    identical = identical_runs(g, e)
+    log(f"{label} graph against eager: " + json.dumps({
         "card": card, "identical": identical, "rel_diff": diffs, "rtol": GRAPH_RTOL,
         "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
+        "peak_memory_gb": {k: r["peak_memory_gb"] for k, r in runs.items()},
         "busy_share": {k: r["busy_share"] for k, r in runs.items()},
         "profiled_kernels_ms": {k: r["kernels_ms"] for k, r in runs.items()}}))
     if not all(within(d, GRAPH_RTOL) for d in diffs["losses"] + [diffs["params"], diffs["loss_after_nan_step"]]):
-        raise SystemExit(f"train_{route}{suffix}: the graph's step leaves the eager step's: {diffs}")
+        raise SystemExit(f"{label}: the graph's step leaves the eager step's: {diffs}")
     if suffix and not identical:
-        raise SystemExit(f"train_{route}{suffix}: the graph's losses and parameters are not the eager step's bit for "
+        raise SystemExit(f"{label}: the graph's losses and parameters are not the eager step's bit for "
                          f"bit: {diffs}")
-    TIMES[f"train_{route}{suffix}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
-    TIMES[f"train_{route}{suffix}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
-    for r in runs.values():
-        del r["params"]
+    if plain is not None:
+        activations = {v or "plain": chunk_activation_gb(dtype, v) for v in (variant, "")}
+        log(f"{label} chunk forward and backward peak over the model and gradients, GB: " + json.dumps(
+            {"card": card, **activations}))
+        if not activations[variant] < activations["plain"]:
+            raise SystemExit(f"{label}: a chunk's forward and backward peak {activations} not below the plain one's")
+        TIMES[f"{label}_chunk_activation_gb"] = activations
+        against = {kind: {"identical": identical_runs(runs[kind], plain[kind]),
+                          "loss_rel_diff": [rel_diff(a, b) for a, b in zip(runs[kind]["losses"],
+                                                                             plain[kind]["losses"])],
+                          "params_rel_diff": max(rel_diff(a, b) for a, b in zip(runs[kind]["params"],
+                                                                                 plain[kind]["params"])),
+                          "median_step_ms": [runs[kind]["median_step_ms"], plain[kind]["median_step_ms"]],
+                          "peak_memory_gb": [runs[kind]["peak_memory_gb"], plain[kind]["peak_memory_gb"]],
+                          "step_peak_over_base_gb": [runs[kind]["step_peak_gb"], plain[kind]["step_peak_gb"]]}
+                   for kind in runs}
+        log(f"{label} against the plain step ([{variant}, plain]): " + json.dumps({"card": card, **against}))
+        for kind, a in against.items():
+            if not a["identical"]:
+                raise SystemExit(f"{label} {kind}: not the plain step's losses, gradients and parameters bit for "
+                                 f"bit: {a}")
+            if not a["step_peak_over_base_gb"][0] < a["step_peak_over_base_gb"][1]:
+                raise SystemExit(f"{label} {kind}: the step's peak over the memory before it is not below the "
+                                 f"plain step's: {a}")
+    TIMES[f"{label}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
+    TIMES[f"{label}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
+    TIMES[f"{label}_peak_memory_gb"] = {k: r["peak_memory_gb"] for k, r in runs.items()}
     return runs
+
+
+def drop_params(*pairs: dict) -> None:
+    """Free the parameter and gradient copies a pair kept for comparisons."""
+    for pair in pairs:
+        for r in pair.values():
+            r.pop("params", None)
+            r.pop("grads", None)
+
+
+def dropout_replays_phase(card: str) -> None:
+    """train_dropout_bf16's step at a learning rate of 0 (the parameters never
+    move) on one fixed batch and keep set, three calls: the warm-up (eager),
+    then two replays of the graph. The two replays must give different
+    losses (the CUDA generator registered with the graph draws new masks at
+    each replay), and the same calls eagerly, from the same generator seed,
+    the same three losses bit for bit."""
+    losses = {}
+    for jit in (True, False):
+        run = train_phase(card, jit=jit, dtype=torch.bfloat16, variant="dropout", lr=0.0, steps=3, fixed_keep=True)
+        losses["graph" if jit else "eager"] = run["losses"]
+        free_card()
+    log("train_dropout_bf16 replays at lr 0: " + json.dumps({"card": card, **losses}))
+    g = losses["graph"]
+    if not (g[1] != g[2] and g[0] != g[1]):
+        raise SystemExit(f"train_dropout_bf16: replays at lr 0 repeat a loss, the masks did not change: {g}")
+    if losses["graph"] != losses["eager"]:
+        raise SystemExit(f"train_dropout_bf16: the graph's replays are not the eager steps' bit for bit: {losses}")
 
 
 def eval_twoseg_phase(card: str, dtype: torch.dtype = torch.float32) -> dict:
@@ -2077,14 +2300,124 @@ def grad_check_bf16_phase(card: str, route: str = "concat") -> None:
         raise SystemExit(f"{phase} failed: {worst}")
 
 
+# the optim phase's optimizers (make_optimizer's arguments beside lr 1e-3 and
+# clip 1.0); "frozen" freezes the first self-attention layer by the JAX
+# package's path string
+OPTIM_VARIANTS = {
+    "adam": dict(optimizer="adam"),
+    "adam_bf16_moments": dict(optimizer="adam", moment_dtype="bfloat16"),
+    "lamb": dict(optimizer="lamb"),
+    "sgd": dict(optimizer="sgd"),
+    "adamw_accumulate2_frozen": dict(accumulate_grad_batches=2, frozen=["perceiver_ar/self_attention/layer_0"]),
+    "lamb_accumulate3": dict(optimizer="lamb", accumulate_grad_batches=3),
+}
+OPTIM_CALLS = 4
+# the card's parameters after OPTIM_CALLS calls against the CPU's from the
+# same parameters and gradients, max abs difference over the largest
+# parameter: the two run the same f32 operations (f64 for the compact
+# moments' fused sums), whose results the card's and the CPU's kernels may
+# round apart where a library function (pow, the norms' sums) differs in its
+# last bit; a wrong rule, rate or selection is off by the update itself
+# (lr 1e-3 against parameters of 0.1). The other state tensors (moments,
+# the running mean, the counts) each within 1e-4 of their largest value: the
+# clip's norm sums 4.4M squares in f32 in other orders on the two sides
+# (measured 1.8e-5 apart on an H100 80GB HBM3), and the first moment is the
+# clipped gradient's. With bf16 moments a moment that lies at a bf16 rounding
+# boundary may round to its other neighbour on one side (the clip's scale
+# differs in its last bit), as tests/test_torch_bf16_optim.py finds against
+# optax: the moments within one bf16 step (2^-7 relative), the parameters
+# within 3 x lr x 2^-7 (absolute)
+OPTIM_CPU_TOL = {"params": 1e-6, "state": 1e-4}
+OPTIM_CPU_TOL_BF16 = {"params": 3 * TRAIN_LR * 2**-7, "state": 2**-7}
+
+
+def optim_phase(card: str) -> None:
+    """Each optimizer of ``OPTIM_VARIANTS`` twice. First in
+    ``make_train_step`` (the sentinel on, batch 2 in one chunk) on
+    grad_check's model (full width, 2048 tokens, 256 latents, 2 layers) and
+    batches, as a CUDA graph and eagerly from the same weights: losses,
+    parameters and every optimizer state tensor after ``OPTIM_CALLS`` calls
+    equal bit for bit. Then the optimizer alone on the card against the
+    CPU: the same parameters and seeded gradients, ``OPTIM_CALLS`` calls,
+    parameters and state within ``OPTIM_CPU_TOL`` (``OPTIM_CPU_TOL_BF16``
+    with bf16 moments)."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**dict(FLAGSHIP, max_seq_len=2048, max_latents=256,
+                                              num_self_attention_layers=2))
+    weights = CausalLanguageModel(config, device="cpu", generator=torch.Generator().manual_seed(SEED)).state_dict()
+    rng = np.random.default_rng(SEED + 6)
+    batches = []
+    for _ in range(OPTIM_CALLS):
+        t = rng.integers(0, config.vocab_size, size=(2, 2049))
+        batches.append({"input_ids": torch.from_numpy(t[:, :-1]).cuda(), "labels": torch.from_numpy(t[:, 1:]).cuda(),
+                        "pad_mask": None, "prefix_keep_idx": tt.sample_prefix_keep_idx(
+                            rng, 2, 2048 - 256, config.cross_attention_dropout)})
+
+    def tx(model, options):
+        options = dict(options)
+        frozen = options.pop("frozen", None)
+        mask = None if frozen is None else tt.freeze_mask(model, frozen)
+        return tt.make_optimizer(TRAIN_LR, gradient_clip=1.0, frozen_mask=mask, **options)
+
+    report = {}
+    for name, options in OPTIM_VARIANTS.items():
+        runs = {}
+        for jit in (True, False):
+            model = CausalLanguageModel(config, device="cuda")
+            model.load_state_dict(weights)
+            state = tt.TrainState.create(model, tx(model, options))
+            step = tt.make_train_step(tt.clm_loss_fn(256), sentinel=True, jit=jit)
+            losses = [float(step(state, b)[1]["loss"]) for b in batches]
+            runs[jit] = (losses, [t.detach().cpu().clone() for t in state.optimizer.state_tensors()])
+            del model, state, step
+            free_card()
+        graph_eager = runs[True][0] == runs[False][0] and all(
+            torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+        # the optimizer alone, on the card and on the CPU
+        states = {}
+        for device in ("cpu", "cuda"):
+            model = CausalLanguageModel(config, device=device)
+            model.load_state_dict(weights)
+            opt = tx(model, options)(model.named_parameters())
+            gen = torch.Generator().manual_seed(SEED + 7)
+            for _ in range(OPTIM_CALLS):
+                for p in model.parameters():
+                    p.grad = (torch.randn(p.shape, generator=gen) * 1e-2).to(device)
+                opt.step()
+            states[device] = [t.detach().cpu() for t in opt.state_tensors()]
+            del model, opt
+        # the parameters lead state_tensors(); the model's state_dict is its parameters
+        n = len(weights)
+        p_err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(states["cuda"][:n], states["cpu"][:n]))
+        p_scale = max(float(t.abs().max()) for t in states["cpu"][:n])
+        s_err = max([rel_diff(a, b) for a, b in zip(states["cuda"][n:], states["cpu"][n:])] or [0.0])
+        bf16 = "moment_dtype" in options
+        errs = {"params": p_err if bf16 else p_err / p_scale, "state": s_err}
+        tols = OPTIM_CPU_TOL_BF16 if bf16 else OPTIM_CPU_TOL
+        report[name] = {"losses": runs[True][0], "graph_equals_eager": graph_eager, "card_vs_cpu": errs,
+                        "card_vs_cpu_tol": tols, "params": "absolute" if bf16 else "relative to the largest"}
+        free_card()
+    log("optim: " + json.dumps({"card": card, "calls": OPTIM_CALLS, "cpu_threads": torch.get_num_threads(),
+                                **report}))
+    bad = {k: r for k, r in report.items() if not (
+        r["graph_equals_eager"] and all(np.isfinite(r["losses"]))
+        and all(within(r["card_vs_cpu"][x], r["card_vs_cpu_tol"][x]) for x in ("params", "state")))}
+    if bad:
+        raise SystemExit(f"optim: {bad}")
+
+
 # ---------------------------------------------------------------------------
 # the Perceiver IO image classifier
 # ---------------------------------------------------------------------------
 
 
-def image_classifier(device, dtype: torch.dtype = torch.float32, **encoder_overrides):
+def image_classifier(device, dtype: torch.dtype = torch.float32, activation_checkpointing: bool = False,
+                     **encoder_overrides):
     """The flagship classifier (``IMAGE_ENCODER``), seeded random weights (f32
-    parameters; ``dtype`` the compute dtype)."""
+    parameters; ``dtype`` the compute dtype), with activation checkpointing
+    where asked, as ``bench.py --remat`` passes it."""
     from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig
     from perceiver_io_tpu_torch.models.vision import ImageClassifier, ImageClassifierConfig, ImageEncoderConfig
 
@@ -2092,6 +2425,7 @@ def image_classifier(device, dtype: torch.dtype = torch.float32, **encoder_overr
         encoder=ImageEncoderConfig(**dict(IMAGE_ENCODER, **encoder_overrides)),
         decoder=ClassificationDecoderConfig(**IMAGE_DECODER),
         num_latents=IMAGE_LATENTS, num_latent_channels=IMAGE_CHANNELS,
+        activation_checkpointing=activation_checkpointing,
     )
     return ImageClassifier(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
 
@@ -2190,7 +2524,7 @@ def image_eval_phase(card: str, dtype: torch.dtype = torch.float32, f32_logits: 
     return {"launches": launches["split"], "logits": logits["split"]}
 
 
-def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.float32) -> dict:
+def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.float32, remat: bool = False) -> dict:
     """Five AdamW steps (lr ``IMAGE_LR``, f32 moments, global clip 1.0) of
     the flagship classifier on one fixed batch of 16 random images and labels in
     one chunk (see the memory reckoning at ``IMAGE_BATCH``), with the
@@ -2199,17 +2533,19 @@ def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.fl
     this rate, see ``IMAGE_LR``), no step skipped, the launches of
     ``IMAGE_STEP`` per step exactly (``IMAGE_STEP_BF16`` with ``dtype``
     bf16: every launch a bf16 build, K8, K9a and K9b's once a step); then
-    one profiled step. Returns the five steps' launches, losses and median,
-    and the parameters after them."""
+    one profiled step. With ``remat`` (``image_train_remat_bf16``): activation
+    checkpointing, ``IMAGE_STEP_REMAT_BF16``'s launches. Returns the five
+    steps' launches, losses, median and peak memory, and the parameters after
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.ops import build
 
     bf16 = dtype == torch.bfloat16
-    name = "image_train" + (BF16 if bf16 else "") + ("" if jit else "_eager")
-    want = IMAGE_STEP_BF16 if bf16 else IMAGE_STEP
-    model = image_classifier("cuda", dtype)
+    name = "image_train" + ("_remat" if remat else "") + (BF16 if bf16 else "") + ("" if jit else "_eager")
+    want = IMAGE_STEP_REMAT_BF16 if remat else IMAGE_STEP_BF16 if bf16 else IMAGE_STEP
+    model = image_classifier("cuda", dtype, activation_checkpointing=remat)
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 5).items()}
     state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
@@ -2253,18 +2589,22 @@ def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.fl
         raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
     check_launches(name, launches, want, IMAGE_STEPS)
     return {"launches": launches, "losses": losses, "median_step_ms": median_ms,
-            "busy_share": summary["device_busy_share"], "params": params}
+            "busy_share": summary["device_busy_share"], "params": params, "peak_memory_gb": peak_gb}
 
 
-def image_train_pair(card: str, dtype: torch.dtype = torch.float32) -> dict:
+def image_train_pair(card: str, dtype: torch.dtype = torch.float32, remat: bool = False,
+                     plain: dict = None) -> dict:
     """The image train phase as a CUDA graph, then eagerly: the losses
     within ``GRAPH_RTOL`` relative, the differences printed; in bf16
     (``image_train_bf16``) the losses and the parameters after five steps
-    must be equal bit for bit. Returns the graph run's launches."""
+    must be equal bit for bit. With ``remat`` against ``plain`` (the pair
+    without it): each step's loss within ``IMAGE_REMAT_LOSS_TOL`` of the plain
+    step's (another route, see there) at a lower peak of device memory.
+    Returns the graph run's launches, both runs' losses and peaks."""
     runs = {}
-    name = "image_train" + (BF16 if dtype == torch.bfloat16 else "")
+    name = "image_train" + ("_remat" if remat else "") + (BF16 if dtype == torch.bfloat16 else "")
     for jit in (True, False):
-        runs["graph" if jit else "eager"] = image_train_phase(card, jit, dtype)
+        runs["graph" if jit else "eager"] = image_train_phase(card, jit, dtype, remat)
         free_card()
     g, e = runs["graph"], runs["eager"]
     diffs = [rel_diff(a, b) for a, b in zip(g["losses"], e["losses"])]
@@ -2279,7 +2619,22 @@ def image_train_pair(card: str, dtype: torch.dtype = torch.float32) -> dict:
         raise SystemExit(f"{name}: the graph's losses and parameters are not the eager step's bit for bit: {diffs}")
     TIMES[f"{name}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
     TIMES[f"{name}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
-    return {"launches": g["launches"], "losses": {k: r["losses"] for k, r in runs.items()}}
+    TIMES[f"{name}_peak_memory_gb"] = {k: r["peak_memory_gb"] for k, r in runs.items()}
+    peaks = {k: r["peak_memory_gb"] for k, r in runs.items()}
+    if plain is not None:
+        against = {kind: {"loss_rel_diff": [rel_diff(a, b) for a, b in zip(runs[kind]["losses"],
+                                                                             plain["losses"][kind])],
+                          "peak_memory_gb": [peaks[kind], plain["peak_memory_gb"][kind]],
+                          "median_step_ms": [runs[kind]["median_step_ms"], TIMES[
+                              "image_train" + BF16 + "_median_ms"][kind]]} for kind in runs}
+        log(f"{name} against image_train_bf16 ([remat, plain]): " + json.dumps({
+            "card": card, "loss_tol": IMAGE_REMAT_LOSS_TOL, **against}))
+        for kind, a in against.items():
+            if not all(within(d, IMAGE_REMAT_LOSS_TOL) for d in a["loss_rel_diff"]):
+                raise SystemExit(f"{name} {kind}: losses leave image_train_bf16's: {a}")
+            if not a["peak_memory_gb"][0] < a["peak_memory_gb"][1]:
+                raise SystemExit(f"{name} {kind}: peak memory not below image_train_bf16's: {a}")
+    return {"launches": g["launches"], "losses": {k: r["losses"] for k, r in runs.items()}, "peak_memory_gb": peaks}
 
 
 def image_grad_check_phase(card: str) -> None:
@@ -2619,6 +2974,10 @@ def main() -> None:
     by_phase.update(train=train["graph"]["launches"], train_twoseg=train_twoseg["graph"]["launches"],
                     eval_twoseg=eval_twoseg_phase(card))
     free_card()
+    # activation checkpointing in f32: train's step bit for bit, at a lower peak
+    by_phase["train_remat"] = train_pair(card, variant="remat", plain=train)["graph"]["launches"]
+    drop_params(train, train_twoseg)
+    free_card()
     grad_check_phase(card)
     grad_check_phase(card, "twoseg")
     free_card()
@@ -2646,6 +3005,30 @@ def main() -> None:
     free_card()
     grad_check_bf16_phase(card, "twoseg")
     free_card()
+    # the training options (ROADMAP A4) at the flagship in bf16: checkpointing
+    # and offloading (train_bf16's step bit for bit, at a lower peak), the
+    # "mask" prefix-dropout mode on both routes (train_bf16's losses within
+    # MASK_LOSS_TOL_BF16), attention and residual dropout (its own graph and
+    # eager runs, then the replays at lr 0); then the optimizers
+    variants = {"train_remat_bf16": dict(variant="remat", plain=train_bf16),
+                "train_offload_bf16": dict(variant="offload", plain=train_bf16),
+                "train_mask_bf16": dict(variant="mask", concat=train_bf16),
+                "train_mask_twoseg_bf16": dict(route="twoseg", variant="mask", concat=train_bf16),
+                "train_dropout_bf16": dict(variant="dropout")}
+    a4 = {}
+    for phase, kwargs in variants.items():
+        a4[phase] = train_pair(card, dtype=torch.bfloat16, **kwargs)
+        drop_params(a4[phase])
+        by_phase[phase] = a4[phase]["graph"]["launches"]
+        free_card()
+    drop_params(train_bf16, train_twoseg_bf16)
+    log("A4 training options against train_bf16, this run: " + json.dumps({"card": card, **{
+        f"{phase} {kind}": {"median_step_ms": run["median_step_ms"], "peak_memory_gb": run["peak_memory_gb"],
+                            "busy_share": run["busy_share"]}
+        for phase, pair in (("train_bf16", train_bf16), *a4.items()) for kind, run in pair.items()}}))
+    dropout_replays_phase(card)
+    optim_phase(card)
+    free_card()
     # the contiguous decode pair (make_decode_fns, generate) as a CUDA graph
     by_phase["decode_pair"] = decode_pair_phase(card)
     free_card()
@@ -2664,6 +3047,9 @@ def main() -> None:
     free_card()
     image_train_bf16 = image_train_pair(card, torch.bfloat16)
     by_phase["image_train_bf16"] = image_train_bf16["launches"]
+    # activation checkpointing (bench.py --remat): the standard route
+    by_phase["image_train_remat_bf16"] = image_train_pair(card, torch.bfloat16, remat=True,
+                                                          plain=image_train_bf16)["launches"]
     log("image_train_bf16 against image_train (f32), this run: " + json.dumps({"card": card, **{
         f"{dt} {kind}": {"median_step_ms": TIMES[f"{name}_median_ms"][kind],
                          "images_per_s": IMAGE_BATCH / (TIMES[f"{name}_median_ms"][kind] / 1e3),

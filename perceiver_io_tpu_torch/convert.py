@@ -102,3 +102,56 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "output_adapter" in p:
         out["output_adapter.bias"] = _t(p["output_adapter"]["bias"])
     return out
+
+
+def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """``{port parameter name: the JAX package's path of its counterpart}``
+    (``"params/perceiver_ar/cross_attention/cross_attn/q_norm/scale"``, ...):
+    the inverse of the renamings above, read off the port's module tree, for
+    a causal sequence model or an image classifier."""
+    from torch import nn
+
+    from perceiver_io_tpu_torch.core import modules
+    from perceiver_io_tpu_torch.core.adapter import TrainableQueryProvider
+    from perceiver_io_tpu_torch.ops.layernorm import FusedLayerNorm
+
+    def child(parent: nn.Module, name: str) -> str:
+        """The JAX segments of ``parent``'s child ``name`` (with a trailing
+        slash; empty for a ``Residual``'s ``module``)."""
+        if isinstance(parent, modules.Residual):
+            return ""
+        if isinstance(parent, modules.CrossAttentionLayer):
+            return "cross_attn/" if name == "0" else "mlp/"
+        if isinstance(parent, modules.SelfAttentionLayer):
+            return "self_attn/" if name == "0" else "mlp/"
+        if isinstance(parent, modules.SelfAttentionBlock):
+            return f"layer_{name}/"
+        if isinstance(parent, modules.MLP):
+            return {"0": "LayerNorm_0/", "1": "dense_1/", "3": "dense_2/"}.get(name, name + "/")
+        if isinstance(parent, modules.PerceiverIO):
+            return {"0": "encoder/", "1": "decoder/"}[name]
+        if isinstance(parent, modules.PerceiverAR) and name in ("cross_attention", "self_attention"):
+            return f"perceiver_ar/{name}/"
+        return name + "/"
+
+    def leaf(module: nn.Module, name: str) -> str:
+        if isinstance(module, FusedLayerNorm) and name == "weight":
+            return "scale"
+        if isinstance(module, nn.Linear) and name == "weight":
+            return "kernel"
+        if isinstance(module, nn.Embedding):
+            return "embedding"
+        if isinstance(module, TrainableQueryProvider):
+            return "query"
+        return name
+
+    out: Dict[str, str] = {}
+
+    def walk(module: nn.Module, port: str, jax: str) -> None:
+        for name, _ in module.named_parameters(recurse=False):
+            out[port + name] = jax + leaf(module, name)
+        for name, sub in module.named_children():
+            walk(sub, f"{port}{name}.", jax + child(module, name))
+
+    walk(model, "", "params/")
+    return out

@@ -3,7 +3,11 @@
 
 Routes, each numerically the JAX package's:
 
-- no cache: by head dims, never by device or length. Dims the packed
+- no cache, with an active dropout on the attention probabilities: the
+  dense path below, the probabilities dropped in f32 before the ``P V``
+  product (the JAX package's gate refuses its kernels under dropout and
+  computes this route with einsums);
+- no cache otherwise: by head dims, never by device or length. Dims the packed
   layout takes (multiples of 8 up to 128) go to the packed flash kernel K2
   (``ops.flash_attention``) over the projection layout; other dims up to
   512 (odd widths, wide heads) to the heads-major kernel K8, on heads split
@@ -45,7 +49,9 @@ import torch
 from torch import nn
 
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache
+from perceiver_io_tpu_torch.core.dropout import dropout as apply_dropout
 from perceiver_io_tpu_torch.core.position import apply_rotary_pos_emb
+from perceiver_io_tpu_torch.core.remat import offloaded_linear
 from perceiver_io_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_packed,
@@ -67,11 +73,16 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     dtype)`` applies its f32 parameters: input, weight and bias cast to
     ``dtype``, the product (f32 sums on the tensor cores) in ``dtype``. Where
     all three are ``dtype`` already (the f32 default), ``linear(x)`` as it
-    is."""
+    is. Inside an offloaded layer body (``core.remat``) the product goes
+    through the offload, which keeps its output on the host for the
+    recompute."""
     if x.dtype == dtype and linear.weight.dtype == dtype:
-        return linear(x)
-    bias = None if linear.bias is None else linear.bias.to(dtype)
-    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
+        x_dt, w_dt, bias = x, linear.weight, linear.bias
+    else:
+        x_dt, w_dt = x.to(dtype), linear.weight.to(dtype)
+        bias = None if linear.bias is None else linear.bias.to(dtype)
+    y = offloaded_linear(x_dt, w_dt, bias)
+    return nn.functional.linear(x_dt, w_dt, bias) if y is None else y
 
 
 class AttentionOutput(NamedTuple):
@@ -95,9 +106,11 @@ class MultiHeadAttention(nn.Module):
         qkv_bias: bool = True,
         out_bias: bool = True,
         dtype: torch.dtype = torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.num_heads = num_heads
         self.qk_channels = num_qk_channels if num_qk_channels is not None else num_q_input_channels
         self.v_channels = num_v_channels if num_v_channels is not None else self.qk_channels
@@ -214,9 +227,10 @@ class MultiHeadAttention(nn.Module):
                             sm_scale=1.0)
         return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], self.v_channels)
 
-    def _dense(self, q, k, v, rope_q, masked):
+    def _dense(self, q, k, v, rope_q, masked, attn_keep=None):
         """Plain attention over packed k/v (B, M, H*D); ``masked`` (B|1, N|1,
-        M) bool, True = masked. Scores and softmax in f32."""
+        M) bool, True = masked. Scores and softmax in f32; ``attn_keep`` (B,
+        H, N, M), where given, is the dropout of the f32 probabilities."""
         b, n, m = q.shape[0], q.shape[1], k.shape[1]
         h = self.num_heads
         qh = self._scaled_query_heads(q, rope_q)
@@ -224,7 +238,7 @@ class MultiHeadAttention(nn.Module):
         vh = v.reshape(b, m, h, self.d_v)
         scores = torch.einsum("bhic,bjhc->bhij", qh.float(), kh.float())
         scores = scores.masked_fill(masked[:, None, :, :], _NEG_MAX)
-        attn = torch.softmax(scores, dim=-1)
+        attn = apply_dropout(torch.softmax(scores, dim=-1), attn_keep, self.dropout)
         o = torch.einsum("bhij,bjhc->bihc", attn.to(vh.dtype), vh)
         return o.reshape(b, n, self.v_channels)
 
@@ -266,6 +280,7 @@ class MultiHeadAttention(nn.Module):
         rope_q: Optional[torch.Tensor] = None,
         rope_k: Optional[torch.Tensor] = None,
         kv_cache: Optional[Union[KVCache, PagedKVCache]] = None,
+        attn_keep: Optional[torch.Tensor] = None,
     ) -> AttentionOutput:
         """Attend ``x_q`` (B, N, Dq) to ``x_kv`` (B, M, Dkv).
 
@@ -274,21 +289,27 @@ class MultiHeadAttention(nn.Module):
         :param rope_q: rotary encodings of the queries (B, N, R), or None.
         :param rope_k: rotary encodings of ``x_kv``'s tokens (B, M, R), or None.
         :param kv_cache: the cache the new keys/values are appended to.
+        :param attn_keep: the keep mask (B, H, N, M) of an active dropout on
+            the attention probabilities (``core.dropout``): the call takes
+            the dense route, as the JAX package's gate refuses its kernels
+            under dropout. Cache-free calls only.
         """
         n_q, n_kv = x_q.shape[1], x_kv.shape[1]
+        if attn_keep is not None and kv_cache is not None:
+            raise ValueError("attention dropout applies to cache-free forwards, not to calls with a KV cache")
         q = self._proj(self.q_proj, x_q)
         k = self._rotate_keys(self._proj(self.k_proj, x_kv), rope_k)
         v = self._proj(self.v_proj, x_kv)
 
         if kv_cache is None:
-            o = self._fresh_flash(q, k, v, rope_q, pad_mask)
+            o = None if attn_keep is not None else self._fresh_flash(q, k, v, rope_q, pad_mask)
             if o is None:
                 masked = torch.zeros((1, 1, n_kv), dtype=torch.bool, device=q.device)
                 if pad_mask is not None:
                     masked = masked | pad_mask[:, None, :]
                 if self.causal_attention:
                     masked = masked | self._causal(n_q, n_kv, n_kv, q.device)
-                o = self._dense(q, k, v, rope_q, masked)
+                o = self._dense(q, k, v, rope_q, masked, attn_keep)
             return AttentionOutput(self._proj(self.o_proj, o), None)
 
         if isinstance(kv_cache, PagedKVCache):

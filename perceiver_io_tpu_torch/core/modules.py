@@ -12,14 +12,23 @@ bridges of ``convert`` are renamings of the JAX trees and a reference
 checkpoint's ``state_dict`` loads as it is.
 
 The cache-free forward is differentiable and takes the training arguments
-(``deterministic``, ``prefix_keep_idx``): cross-attention prefix dropout in
-the default ``"gather"`` mode, on the compact route for an unpadded batch and
-the embedded-row gather for a left-padded one. The other training-time
-options (``prefix_dropout_mode`` ``"mask"``/``"gather_embed"``, attention,
-post-attention and residual dropout, activation checkpointing or offloading)
-are not ported: a training forward that asks for one raises
-``NotImplementedError``. Calls with a KV cache (prefill and decode) are
-inference only and run under ``torch.no_grad()``.
+(``deterministic``, ``prefix_keep_idx``, ``generator``) and every training
+option of the JAX package's configs:
+
+- cross-attention prefix dropout in its three modes: ``"gather"`` (the
+  compact route for an unpadded batch, the embedded-row gather for a
+  left-padded one), ``"gather_embed"`` (the embedded-row gather always) and
+  ``"mask"`` (the full prefix, the dropped rows joining the cross-attention's
+  pad mask);
+- dropout on the attention probabilities (``post_attention_dropout``, the
+  encoder's and decoder's ``dropout``) and on the residual branches
+  (``residual_dropout``), Flax's ``nn.Dropout`` (``core.dropout``): a layer
+  draws its masks from ``generator`` when it is entered;
+- activation checkpointing and offloading per attention layer
+  (``core.remat``).
+
+Calls with a KV cache (prefill and decode) are inference only and run under
+``torch.no_grad()``.
 
 Under ``fast_kernels({"twoseg"})`` (``ops.flash_attention``; off by default,
 as in the JAX package) every cache-free causal cross-attention with a
@@ -65,7 +74,11 @@ from perceiver_io_tpu_torch.core.adapter import (
 from perceiver_io_tpu_torch.core.attention import AttentionOutput, MultiHeadAttention, dense
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache, init_kv_cache, init_paged_kv_cache
 from perceiver_io_tpu_torch.core.config import CausalSequenceModelConfig
+from perceiver_io_tpu_torch.core.dropout import dropout as apply_dropout
+from perceiver_io_tpu_torch.core.dropout import keep_mask
 from perceiver_io_tpu_torch.core.position import positions
+from perceiver_io_tpu_torch.core.remat import OffloadArena, remat_mode
+from perceiver_io_tpu_torch.core.remat import run as run_remat
 from perceiver_io_tpu_torch.device import DeviceLike, resolve_device
 from perceiver_io_tpu_torch.ops.flash_attention import fast_features, flash_attention, flash_supported
 from perceiver_io_tpu_torch.ops.layernorm import FusedLayerNorm
@@ -122,13 +135,14 @@ class CrossAttention(nn.Module):
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  causal_attention: bool = False, qkv_bias: bool = True, out_bias: bool = True,
                  num_qk_channels: Optional[int] = None, num_v_channels: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.q_norm = FusedLayerNorm(num_q_input_channels, LAYER_NORM_EPSILON)
         self.kv_norm = FusedLayerNorm(num_kv_input_channels, LAYER_NORM_EPSILON)
         self.attention = MultiHeadAttention(
             num_heads, num_q_input_channels, num_kv_input_channels, num_qk_channels, num_v_channels,
             causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype,
+            dropout=dropout,
         )
 
     def split_kv_projection(self, x_pix: torch.Tensor, enc: torch.Tensor):
@@ -178,19 +192,22 @@ class CrossAttention(nn.Module):
         v, v_pad = project(mha.v_proj, mha.v_channels)
         return k, v, k_pad, v_pad
 
-    def _two_segment_ok(self, x_kv_prefix, kv_cache) -> bool:
+    def _two_segment_ok(self, x_kv_prefix, kv_cache, attn_keep) -> bool:
         """The gate of the two-segment route (JAX's
         ``CrossAttention._two_segment_ok``): "twoseg" is on, no KV cache, a
-        causal layer, a non-empty prefix, and head dims the packed kernels
-        take. When False the concat route runs unchanged."""
+        causal layer, a non-empty prefix, no active dropout on the attention
+        probabilities, and head dims the packed kernels take. When False the
+        concat route runs unchanged."""
         return ("twoseg" in fast_features() and kv_cache is None and self.attention.causal_attention
-                and x_kv_prefix.shape[1] >= 1 and self.attention.packed_route_ok())
+                and x_kv_prefix.shape[1] >= 1 and attn_keep is None and self.attention.packed_route_ok())
 
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None, rope_q=None, rope_k=None,
-                kv_cache=None) -> AttentionOutput:
+                kv_cache=None, attn_keep=None) -> AttentionOutput:
+        """``attn_keep``: the keep mask of an active dropout on the attention
+        probabilities (``MultiHeadAttention.forward``)."""
         x_q = self.q_norm(x_q)
         if x_kv is None:
-            if self._two_segment_ok(x_kv_prefix, kv_cache):
+            if self._two_segment_ok(x_kv_prefix, kv_cache, attn_keep):
                 n_p = x_kv_prefix.shape[1]
                 pad_p, pad_l = _split_rows(pad_mask, n_p)
                 rope_p, rope_l = _split_rows(rope_k, n_p)
@@ -201,7 +218,8 @@ class CrossAttention(nn.Module):
             x_kv = x_q if x_kv_prefix.shape[1] == 0 else torch.cat([self.kv_norm(x_kv_prefix), x_q], dim=1)
         else:
             x_kv = self.kv_norm(x_kv)
-        return self.attention(x_q, x_kv, pad_mask=pad_mask, rope_q=rope_q, rope_k=rope_k, kv_cache=kv_cache)
+        return self.attention(x_q, x_kv, pad_mask=pad_mask, rope_q=rope_q, rope_k=rope_k, kv_cache=kv_cache,
+                              attn_keep=attn_keep)
 
 
 class SelfAttention(nn.Module):
@@ -209,17 +227,19 @@ class SelfAttention(nn.Module):
 
     def __init__(self, num_heads: int, num_channels: int, causal_attention: bool = False,
                  qkv_bias: bool = True, out_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.norm = FusedLayerNorm(num_channels, LAYER_NORM_EPSILON)
         self.attention = MultiHeadAttention(
             num_heads, num_channels, num_channels, num_qk_channels, num_v_channels,
             causal_attention=causal_attention, qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype,
+            dropout=dropout,
         )
 
-    def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache=None) -> AttentionOutput:
+    def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache=None, attn_keep=None) -> AttentionOutput:
         x = self.norm(x)
-        return self.attention(x, x, pad_mask=pad_mask, rope_q=rope_q, rope_k=rope_k, kv_cache=kv_cache)
+        return self.attention(x, x, pad_mask=pad_mask, rope_q=rope_q, rope_k=rope_k, kv_cache=kv_cache,
+                              attn_keep=attn_keep)
 
 
 class MLP(nn.Sequential):
@@ -241,47 +261,90 @@ class MLP(nn.Sequential):
         return dense(self[3], self[2](x), self.dtype)
 
 
-class CrossAttentionLayer(nn.Sequential):
+class _LayerOptions:
+    """The training options of an attention layer: residual dropout and the
+    remat mode (``core.remat``, set by the module that owns the layer), and
+    the keep masks of one call, drawn at its entry (``core.dropout``)."""
+
+    residual_dropout: float = 0.0
+    remat = None  # (mode, OffloadArena) or None
+
+    def set_remat(self, mode: Optional[str], arena: OffloadArena) -> None:
+        self.remat = None if mode is None else (mode, arena)
+
+    def _draws(self, mha: MultiHeadAttention, x_q: torch.Tensor, n_kv: int, deterministic: bool,
+               generator, attention: bool = True, residuals: int = 2) -> tuple:
+        """(attention probabilities' keep mask, the residual branches' keep
+        masks), in that order, None where a dropout is inactive."""
+        if deterministic:
+            return (None,) * (1 + residuals)
+        b, n, dev = x_q.shape[0], x_q.shape[1], x_q.device
+        attn = keep_mask(mha, 0, (b, mha.num_heads, n, n_kv), mha.dropout, generator, dev) if attention else None
+        res = tuple(keep_mask(self, i, x_q.shape, self.residual_dropout, generator, dev) for i in range(residuals))
+        return (attn,) + res
+
+
+class CrossAttentionLayer(_LayerOptions, nn.Sequential):
     """Cross-attention + MLP, each with a residual; without
     ``attention_residual`` the attention output replaces the query input
     (the reference then holds the attention unwrapped, as ``0`` not
-    ``0.module``)."""
+    ``0.module``). ``dropout`` drops attention probabilities,
+    ``residual_dropout`` both residual branches."""
 
     def __init__(self, num_heads: int, num_q_input_channels: int, num_kv_input_channels: int,
                  causal_attention: bool = False, widening_factor: int = 1, qkv_bias: bool = True,
                  out_bias: bool = True, mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
                  num_v_channels: Optional[int] = None, attention_residual: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0, residual_dropout: float = 0.0):
         cross_attn = CrossAttention(num_heads, num_q_input_channels, num_kv_input_channels, causal_attention,
-                                    qkv_bias, out_bias, num_qk_channels, num_v_channels, dtype)
+                                    qkv_bias, out_bias, num_qk_channels, num_v_channels, dtype, dropout)
         super().__init__(
             Residual(cross_attn) if attention_residual else cross_attn,
             Residual(MLP(num_q_input_channels, widening_factor, mlp_bias, dtype)),
         )
         self.attention_residual = attention_residual
+        self.residual_dropout = residual_dropout
 
     @property
     def cross_attn(self) -> CrossAttention:
         return self[0].module if self.attention_residual else self[0]
 
-    def _residuals(self, x_q, h_attn) -> torch.Tensor:
-        h = x_q + h_attn if self.attention_residual else h_attn
-        return h + self[1].module(h)
+    def _residuals(self, x_q, h_attn, res_keeps) -> torch.Tensor:
+        rate = self.residual_dropout
+        if self.attention_residual:
+            h = x_q + apply_dropout(h_attn, res_keeps[0], rate)
+            res_keeps = res_keeps[1:]
+        else:
+            h = h_attn
+        return h + apply_dropout(self[1].module(h), res_keeps[0], rate)
 
     def forward(self, x_q, x_kv=None, x_kv_prefix=None, pad_mask=None, rope_q=None, rope_k=None,
-                kv_cache=None) -> AttentionOutput:
-        attn = self.cross_attn(x_q, x_kv, x_kv_prefix, pad_mask, rope_q, rope_k, kv_cache)
-        return AttentionOutput(self._residuals(x_q, attn.last_hidden_state), attn.kv_cache)
+                kv_cache=None, deterministic: bool = True, generator=None) -> AttentionOutput:
+        n_kv = x_kv.shape[1] if x_kv is not None else x_kv_prefix.shape[1] + x_q.shape[1]
+        attn_keep, *res_keeps = self._draws(self.cross_attn.attention, x_q, n_kv, deterministic, generator,
+                                            residuals=1 + self.attention_residual)
+        if kv_cache is not None and (attn_keep is not None or any(k is not None for k in res_keeps)):
+            raise ValueError("dropout applies to cache-free forwards, not to calls with a KV cache")
+        return run_remat(self.remat, self._body, x_q, x_kv, x_kv_prefix, pad_mask, rope_q, rope_k, kv_cache,
+                         attn_keep, *res_keeps)
 
-    def call_with_split_kv(self, x_q, x_pix, enc) -> AttentionOutput:
+    def _body(self, x_q, x_kv, x_kv_prefix, pad_mask, rope_q, rope_k, kv_cache, attn_keep, *res_keeps):
+        attn = self.cross_attn(x_q, x_kv, x_kv_prefix, pad_mask, rope_q, rope_k, kv_cache, attn_keep)
+        return AttentionOutput(self._residuals(x_q, attn.last_hidden_state, res_keeps), attn.kv_cache)
+
+    def call_with_split_kv(self, x_q, x_pix, enc, deterministic: bool = True, generator=None) -> AttentionOutput:
         """The whole layer with k/v from
         :meth:`CrossAttention.split_kv_projection` and one head through the
         heads-major kernel (the encoder's fused input route: no pad mask, one
-        head; ``PerceiverEncoder`` gates it). Numerically ``forward`` on
-        ``[x_pix | enc]``. In bf16 the query, the zero-padded k/v and the
-        output are bf16 (K8, K9a and K9b's bf16 builds on the card)."""
+        head, no attention-probability dropout or remat;
+        ``PerceiverEncoder`` gates it). Numerically ``forward`` on
+        ``[x_pix | enc]``, residual dropout included. In bf16 the query, the
+        zero-padded k/v and the output are bf16 (K8, K9a and K9b's bf16
+        builds on the card)."""
         ca = self.cross_attn
         mha = ca.attention
+        _, *res_keeps = self._draws(mha, x_q, 0, deterministic, generator, attention=False,
+                                    residuals=1 + self.attention_residual)
         k, v, k_pad, v_pad = ca.split_kv_projection(x_pix, enc)
         q = mha.project_q(ca.q_norm(x_q))  # (B, 1, N, Dk), scaled
         if k_pad:
@@ -289,26 +352,36 @@ class CrossAttentionLayer(nn.Sequential):
         o = flash_attention(q, k[:, None], v[:, None])
         if v_pad:
             o = o[..., : mha.v_channels]
-        return AttentionOutput(self._residuals(x_q, mha.merge_output(o)), None)
+        return AttentionOutput(self._residuals(x_q, mha.merge_output(o), res_keeps), None)
 
 
-class SelfAttentionLayer(nn.Sequential):
-    """Self-attention + MLP, each with a residual."""
+class SelfAttentionLayer(_LayerOptions, nn.Sequential):
+    """Self-attention + MLP, each with a residual; ``dropout`` drops
+    attention probabilities, ``residual_dropout`` both residual branches."""
 
     def __init__(self, num_heads: int, num_channels: int, causal_attention: bool = False,
                  widening_factor: int = 1, qkv_bias: bool = True, out_bias: bool = True,
                  mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, residual_dropout: float = 0.0):
         super().__init__(
             Residual(SelfAttention(num_heads, num_channels, causal_attention, qkv_bias, out_bias, num_qk_channels,
-                                   num_v_channels, dtype)),
+                                   num_v_channels, dtype, dropout)),
             Residual(MLP(num_channels, widening_factor, mlp_bias, dtype)),
         )
+        self.residual_dropout = residual_dropout
 
-    def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache=None) -> AttentionOutput:
-        attn = self[0].module(x, pad_mask, rope_q, rope_k, kv_cache)
-        h = x + attn.last_hidden_state
-        h = h + self[1].module(h)
+    def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache=None, deterministic: bool = True,
+                generator=None) -> AttentionOutput:
+        attn_keep, res0, res1 = self._draws(self[0].module.attention, x, x.shape[1], deterministic, generator)
+        if kv_cache is not None and not (attn_keep is None and res0 is None):
+            raise ValueError("dropout applies to cache-free forwards, not to calls with a KV cache")
+        return run_remat(self.remat, self._body, x, pad_mask, rope_q, rope_k, kv_cache, attn_keep, res0, res1)
+
+    def _body(self, x, pad_mask, rope_q, rope_k, kv_cache, attn_keep, res0, res1):
+        attn = self[0].module(x, pad_mask, rope_q, rope_k, kv_cache, attn_keep)
+        h = x + apply_dropout(attn.last_hidden_state, res0, self.residual_dropout)
+        h = h + apply_dropout(self[1].module(h), res1, self.residual_dropout)
         return AttentionOutput(h, attn.kv_cache)
 
 
@@ -319,32 +392,31 @@ class SelfAttentionBlock(nn.Sequential):
     def __init__(self, num_layers: int, num_heads: int, num_channels: int, num_rotary_layers: int = 1,
                  causal_attention: bool = False, widening_factor: int = 1, qkv_bias: bool = True,
                  out_bias: bool = True, mlp_bias: bool = True, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 num_v_channels: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, residual_dropout: float = 0.0):
         super().__init__(*[
             SelfAttentionLayer(num_heads, num_channels, causal_attention, widening_factor,
-                               qkv_bias, out_bias, mlp_bias, num_qk_channels, num_v_channels, dtype)
+                               qkv_bias, out_bias, mlp_bias, num_qk_channels, num_v_channels, dtype,
+                               dropout, residual_dropout)
             for _ in range(num_layers)
         ])
         self.num_rotary_layers = num_rotary_layers
 
-    def forward(self, x, pad_mask=None, rope_q=None, rope_k=None,
-                kv_cache: Optional[Sequence] = None) -> Tuple[torch.Tensor, Optional[tuple]]:
+    def set_remat(self, mode: Optional[str], arena: OffloadArena) -> None:
+        for layer in self:
+            layer.set_remat(mode, arena)
+
+    def forward(self, x, pad_mask=None, rope_q=None, rope_k=None, kv_cache: Optional[Sequence] = None,
+                deterministic: bool = True, generator=None) -> Tuple[torch.Tensor, Optional[tuple]]:
         new_caches = [] if kv_cache is not None else None
         for i, layer in enumerate(self):
             use_rope = i < self.num_rotary_layers or self.num_rotary_layers == -1
             out = layer(x, pad_mask, rope_q if use_rope else None, rope_k if use_rope else None,
-                        None if kv_cache is None else kv_cache[i])
+                        None if kv_cache is None else kv_cache[i], deterministic, generator)
             x = out.last_hidden_state
             if new_caches is not None:
                 new_caches.append(out.kv_cache)
         return x, None if new_caches is None else tuple(new_caches)
-
-
-def _refuse_unported(options: dict) -> None:
-    """Raise for the training options a training forward cannot run yet."""
-    asked = [name for name, on in options.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported for training forwards: {', '.join(asked)}")
 
 
 class PerceiverEncoder(nn.Module):
@@ -354,9 +426,12 @@ class PerceiverEncoder(nn.Module):
     repeats do not share the first layer's (block's) weights, else the
     first one is applied again.
 
-    ``forward(x, pad_mask=None, deterministic=True)``; a training forward
-    (``deterministic=False``) refuses dropout and activation checkpointing
-    or offloading, which are not ported."""
+    ``forward(x, pad_mask=None, deterministic=True, generator=None)``; a
+    training forward (``deterministic=False``) draws its dropout masks from
+    ``generator``. ``dropout`` drops attention probabilities,
+    ``residual_dropout`` residual branches; ``activation_checkpointing`` and
+    ``activation_offloading`` apply to every attention layer
+    (``core.remat``)."""
 
     def __init__(self, input_adapter: nn.Module, num_latents: int, num_latent_channels: int,
                  num_cross_attention_heads: int = 4, num_cross_attention_qk_channels: Optional[int] = None,
@@ -380,12 +455,8 @@ class PerceiverEncoder(nn.Module):
         self.num_self_attention_blocks = num_self_attention_blocks
         self.dropout = dropout
         self.init_scale = init_scale
-        self._unported = {
-            "dropout": dropout > 0.0,
-            "residual_dropout": residual_dropout > 0.0,
-            "activation_checkpointing": activation_checkpointing,
-            "activation_offloading": activation_offloading,
-        }
+        self.remat_mode = remat_mode(activation_checkpointing, activation_offloading)
+        self.offload_arena = OffloadArena()
         self.input_adapter = input_adapter
         self.latent_provider = TrainableQueryProvider(num_latents, num_latent_channels, dtype)
 
@@ -393,7 +464,8 @@ class PerceiverEncoder(nn.Module):
             return CrossAttentionLayer(
                 num_cross_attention_heads, num_latent_channels, input_adapter.num_input_channels,
                 widening_factor=cross_attention_widening_factor, num_qk_channels=num_cross_attention_qk_channels,
-                num_v_channels=num_cross_attention_v_channels, dtype=dtype,
+                num_v_channels=num_cross_attention_v_channels, dtype=dtype, dropout=dropout,
+                residual_dropout=residual_dropout,
             )
 
         def self_attn():
@@ -401,7 +473,7 @@ class PerceiverEncoder(nn.Module):
                 num_self_attention_layers_per_block, num_self_attention_heads, num_latent_channels,
                 num_rotary_layers=0, widening_factor=self_attention_widening_factor,
                 num_qk_channels=num_self_attention_qk_channels, num_v_channels=num_self_attention_v_channels,
-                dtype=dtype,
+                dtype=dtype, dropout=dropout, residual_dropout=residual_dropout,
             )
 
         self.cross_attn_1 = cross_attn()
@@ -410,6 +482,9 @@ class PerceiverEncoder(nn.Module):
             self.cross_attn_n = cross_attn()
         if num_self_attention_blocks > 1 and not first_self_attention_block_shared:
             self.self_attn_n = self_attn()
+        for child in self.children():
+            if isinstance(child, (CrossAttentionLayer, SelfAttentionBlock)):
+                child.set_remat(self.remat_mode, self.offload_arena)
 
     def _use_split_input(self, pad_mask, deterministic) -> bool:
         """The fused split-kv route's gate (JAX's ``_use_split_input``): an
@@ -422,11 +497,10 @@ class PerceiverEncoder(nn.Module):
             return False
         if self.dropout > 0.0 and not deterministic:
             return False
-        return not (self._unported["activation_checkpointing"] or self._unported["activation_offloading"])
+        return self.remat_mode is None
 
-    def forward(self, x, pad_mask=None, deterministic: bool = True) -> torch.Tensor:
-        if not deterministic:
-            _refuse_unported(self._unported)
+    def forward(self, x, pad_mask=None, deterministic: bool = True, generator=None) -> torch.Tensor:
+        self.offload_arena.reset()
         b = x.shape[0]
         x_latent = self.latent_provider().expand(b, -1, -1)
         use_split = self._use_split_input(pad_mask, deterministic)
@@ -436,27 +510,33 @@ class PerceiverEncoder(nn.Module):
             use_split = flash_supported(split_padded(mha.qk_channels), split_padded(mha.v_channels))
         if use_split:
             def call_ca(layer, x_latent):
-                return layer.call_with_split_kv(x_latent, x_pix, enc).last_hidden_state
+                return layer.call_with_split_kv(x_latent, x_pix, enc, deterministic, generator).last_hidden_state
         else:
             x_adapted = self.input_adapter(x)
 
             def call_ca(layer, x_latent):
-                return layer(x_latent, x_adapted, pad_mask=pad_mask).last_hidden_state
+                return layer(x_latent, x_adapted, pad_mask=pad_mask, deterministic=deterministic,
+                             generator=generator).last_hidden_state
+
+        def call_sa(block, x_latent):
+            return block(x_latent, deterministic=deterministic, generator=generator)[0]
 
         x_latent = call_ca(self.cross_attn_1, x_latent)
-        x_latent = self.self_attn_1(x_latent)[0]
+        x_latent = call_sa(self.self_attn_1, x_latent)
         cross_attn_n = getattr(self, "cross_attn_n", self.cross_attn_1)
         self_attn_n = getattr(self, "self_attn_n", self.self_attn_1)
         for i in range(1, self.num_self_attention_blocks):
             if i < self.num_cross_attention_layers:
                 x_latent = call_ca(cross_attn_n, x_latent)
-            x_latent = self_attn_n(x_latent)[0]
+            x_latent = call_sa(self_attn_n, x_latent)
         return x_latent
 
 
 class PerceiverDecoder(nn.Module):
     """Perceiver IO decoder: output queries cross-attend to the latents, and
-    the output adapter maps the result to the task output."""
+    the output adapter maps the result to the task output. ``dropout`` drops
+    the cross-attention's probabilities in a training forward; checkpointing
+    and offloading apply to the cross-attention layer."""
 
     def __init__(self, output_adapter: nn.Module, output_query_provider: TrainableQueryProvider,
                  num_latent_channels: int, num_cross_attention_heads: int = 4,
@@ -467,25 +547,22 @@ class PerceiverDecoder(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.init_scale = init_scale
-        self._unported = {
-            "dropout": dropout > 0.0,
-            "activation_checkpointing": activation_checkpointing,
-            "activation_offloading": activation_offloading,
-        }
+        self.offload_arena = OffloadArena()
         self.output_query_provider = output_query_provider
         self.output_adapter = output_adapter
         self.cross_attn = CrossAttentionLayer(
             num_cross_attention_heads, output_query_provider.num_query_channels, num_latent_channels,
             widening_factor=cross_attention_widening_factor, num_qk_channels=num_cross_attention_qk_channels,
             num_v_channels=num_cross_attention_v_channels, attention_residual=cross_attention_residual,
-            dtype=dtype,
+            dtype=dtype, dropout=dropout,
         )
+        self.cross_attn.set_remat(remat_mode(activation_checkpointing, activation_offloading), self.offload_arena)
 
-    def forward(self, x_latent, deterministic: bool = True) -> torch.Tensor:
-        if not deterministic:
-            _refuse_unported(self._unported)
+    def forward(self, x_latent, deterministic: bool = True, generator=None) -> torch.Tensor:
+        self.offload_arena.reset()
         query = self.output_query_provider().expand(x_latent.shape[0], -1, -1)
-        return self.output_adapter(self.cross_attn(query, x_latent).last_hidden_state)
+        out = self.cross_attn(query, x_latent, deterministic=deterministic, generator=generator)
+        return self.output_adapter(out.last_hidden_state)
 
 
 class PerceiverIO(nn.Sequential):
@@ -503,8 +580,9 @@ class PerceiverIO(nn.Sequential):
     def decoder(self) -> PerceiverDecoder:
         return self[1]
 
-    def forward(self, x, pad_mask=None, deterministic: bool = True) -> torch.Tensor:
-        return self.decoder(self.encoder(x, pad_mask=pad_mask, deterministic=deterministic), deterministic)
+    def forward(self, x, pad_mask=None, deterministic: bool = True, generator=None) -> torch.Tensor:
+        x_latent = self.encoder(x, pad_mask=pad_mask, deterministic=deterministic, generator=generator)
+        return self.decoder(x_latent, deterministic, generator)
 
 
 class PerceiverAR(nn.Module):
@@ -530,24 +608,24 @@ class PerceiverAR(nn.Module):
         c = input_adapter.num_input_channels
         self.cross_attention_dropout = cross_attention_dropout
         self.prefix_dropout_mode = prefix_dropout_mode
-        # training options with no port yet: a training forward refuses them
-        self._unported = {
-            "post_attention_dropout": post_attention_dropout > 0.0,
-            "residual_dropout": residual_dropout > 0.0,
-            "activation_checkpointing": activation_checkpointing,
-            "activation_offloading": activation_offloading,
-        }
         self.input_adapter = input_adapter
         self.dtype = dtype
+        # post-attention dropout is the layers' dropout on attention probabilities
         self.cross_attention = CrossAttentionLayer(
             num_heads, c, c, causal_attention=True, widening_factor=cross_attention_widening_factor,
-            qkv_bias=False, out_bias=True, mlp_bias=False, dtype=dtype,
+            qkv_bias=False, out_bias=True, mlp_bias=False, dtype=dtype, dropout=post_attention_dropout,
+            residual_dropout=residual_dropout,
         )
         self.self_attention = SelfAttentionBlock(
             num_self_attention_layers, num_heads, c, num_rotary_layers=num_self_attention_rotary_layers,
             causal_attention=True, widening_factor=self_attention_widening_factor,
-            qkv_bias=False, out_bias=False, mlp_bias=False, dtype=dtype,
+            qkv_bias=False, out_bias=False, mlp_bias=False, dtype=dtype, dropout=post_attention_dropout,
+            residual_dropout=residual_dropout,
         )
+        self.offload_arena = OffloadArena()
+        mode = remat_mode(activation_checkpointing, activation_offloading)
+        self.cross_attention.set_remat(mode, self.offload_arena)
+        self.self_attention.set_remat(mode, self.offload_arena)
 
     def perceiver_ar(self, x, prefix_len: int, pad_mask=None, kv_cache=None, decode: bool = False,
                      sa_pad_mask=None, pos_shift=None, deterministic: bool = True, prefix_keep_idx=None,
@@ -556,7 +634,10 @@ class PerceiverAR(nn.Module):
         keeps ``prefix_len - int(prefix_len * cross_attention_dropout)``
         prefix positions, the set ``prefix_keep_idx`` (B, keep), sorted
         unique per row, or, without one, the top-k of uniforms drawn on the
-        input's device from ``generator`` (the default generator when None)."""
+        input's device from ``generator`` (the default generator when None;
+        in ``"mask"`` mode the uniforms at or above the keep-th largest, the
+        same set). The layers then draw their dropout masks from
+        ``generator`` in call order."""
         if kv_cache is not None and not deterministic and self.cross_attention_dropout > 0.0:
             raise ValueError("cross-attention dropout not supported with caching")
         if decode:
@@ -572,27 +653,33 @@ class PerceiverAR(nn.Module):
         b, n = x.shape[0], x.shape[1]
         if not 0 <= prefix_len < n:
             raise ValueError(f"prefix_len ({prefix_len}) out of valid range [0..{n})")
+        self.offload_arena.reset()
         dropout_active = not deterministic and prefix_len > 0 and self.cross_attention_dropout > 0.0
-        if not deterministic:
-            _refuse_unported({**self._unported, f"prefix_dropout_mode={self.prefix_dropout_mode!r}":
-                              dropout_active and self.prefix_dropout_mode != "gather"})
-        keep_idx = None
+        mode = self.prefix_dropout_mode
+        keep_idx = drop = None
         if dropout_active:
             keep = prefix_len - int(prefix_len * self.cross_attention_dropout)
             if prefix_keep_idx is None:
                 rand = torch.rand((b, prefix_len), device=x.device, generator=generator)
-                keep_idx = torch.sort(torch.topk(rand, keep, dim=1).indices, dim=1).values
+                if mode == "mask":
+                    # threshold at the keep-th largest uniform: top-k's set
+                    drop = rand < torch.topk(rand, keep, dim=1).values[:, -1:]
+                else:
+                    keep_idx = torch.sort(torch.topk(rand, keep, dim=1).indices, dim=1).values
             else:
                 keep_idx = torch.as_tensor(prefix_keep_idx, device=x.device).long()
                 if keep_idx.shape[-1] != keep:
                     raise ValueError(f"prefix_keep_idx carries {keep_idx.shape[-1]} indices; "
                                      f"this config keeps {keep} of {prefix_len} prefix positions")
-            if pad_mask is None:
+                if mode == "mask":
+                    drop = torch.ones((b, prefix_len), dtype=torch.bool, device=x.device).scatter_(1, keep_idx, False)
+                    keep_idx = None
+            if pad_mask is None and mode == "gather":
                 # compact route: select token ids and position rows before
                 # embedding, so the full-length embedding never exists
                 x_emb, frq = self.input_adapter.embed_compact(x, keep_idx, prefix_len)
                 return self._attend(x_emb[:, keep:], x_emb[:, :keep], frq[:, keep:], frq[:, :keep],
-                                    None, None, kv_cache)
+                                    None, None, kv_cache, deterministic, generator)
         if pad_mask is None:
             x_emb, frq = self.input_adapter(x, None)
             pad_latent = pad_prefix = None
@@ -602,15 +689,23 @@ class PerceiverAR(nn.Module):
             pad_latent, pad_prefix = pad_mask[:, prefix_len:], pad_mask[:, :prefix_len]
         x_prefix, frq_prefix = x_emb[:, :prefix_len], frq[:, :prefix_len]
         if keep_idx is not None:
-            # the embedded-row gather (left-padded batch): rows, their rotary
-            # encodings and their pad flags
+            # the embedded-row gather (a left-padded batch, or "gather_embed"):
+            # rows, their rotary encodings and their pad flags
             x_prefix = torch.gather(x_prefix, 1, keep_idx[..., None].expand(-1, -1, x_prefix.shape[2]))
             frq_prefix = torch.gather(frq_prefix, 1, keep_idx[..., None].expand(-1, -1, frq_prefix.shape[2]))
-            pad_prefix = torch.gather(pad_prefix, 1, keep_idx)
+            if pad_prefix is not None:
+                pad_prefix = torch.gather(pad_prefix, 1, keep_idx)
+        if drop is not None:
+            # "mask": the full prefix, its dropped rows masked out of the
+            # cross-attention's softmax (the gathered softmax, numerically)
+            pad_prefix = drop if pad_prefix is None else pad_prefix | drop
+            if pad_latent is None:
+                pad_latent = torch.zeros((b, n - prefix_len), dtype=torch.bool, device=x.device)
         return self._attend(x_emb[:, prefix_len:], x_prefix, frq[:, prefix_len:], frq_prefix,
-                            pad_latent, pad_prefix, kv_cache)
+                            pad_latent, pad_prefix, kv_cache, deterministic, generator)
 
-    def _attend(self, x_latent, x_prefix, frq_latent, frq_prefix, pad_latent, pad_prefix, kv_cache):
+    def _attend(self, x_latent, x_prefix, frq_latent, frq_prefix, pad_latent, pad_prefix, kv_cache,
+                deterministic=True, generator=None):
         # the cross-attention's rotary rows and pad flags go as (prefix,
         # latent) pairs: the two-segment route never joins them
         rope_k_ca = (frq_prefix, frq_latent)
@@ -623,8 +718,10 @@ class PerceiverAR(nn.Module):
                 # the pad mask reads against cache slots: align it to capacity
                 pad_ca = _joined_rows(pad_ca)
                 pad_ca = torch.nn.functional.pad(pad_ca, (0, ca_cache.capacity - pad_ca.shape[1]))
-        ca_out = self.cross_attention(x_latent, None, x_prefix, pad_ca, frq_latent, rope_k_ca, ca_cache)
-        h, sa_caches = self.self_attention(ca_out.last_hidden_state, None, frq_latent, frq_latent, sa_cache)
+        ca_out = self.cross_attention(x_latent, None, x_prefix, pad_ca, frq_latent, rope_k_ca, ca_cache,
+                                      deterministic, generator)
+        h, sa_caches = self.self_attention(ca_out.last_hidden_state, None, frq_latent, frq_latent, sa_cache,
+                                           deterministic, generator)
         new_cache = None if kv_cache is None else (ca_out.kv_cache,) + sa_caches
         return h, new_cache
 

@@ -29,7 +29,7 @@ import torch
 from perceiver_io_tpu_torch.core.cache import KVCache
 from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
 from perceiver_io_tpu_torch.device import DeviceLike, check_same_device, resolve_device
-from perceiver_io_tpu_torch.graphs import Graph, warm_up
+from perceiver_io_tpu_torch.graphs import Graph, capture_stream, warm_up
 
 # one generator for every row of a batch, or one per row (None = idle row)
 Generators = Union[torch.Generator, Sequence[Optional[torch.Generator]]]
@@ -258,7 +258,7 @@ class _GraphedStep:
         self.stage = _UniformStage(config, model.device)
         self.graph: Optional[Graph] = None
         self._bound = None
-        self._stream = torch.cuda.Stream(model.device)
+        self._stream = capture_stream(model.device)
 
     def __call__(self, state: dict):
         self.stage(state)

@@ -9,8 +9,9 @@ static input buffers that the caller fills before each replay.
 
 - :func:`warm_up` runs a step once, eagerly, on the side stream the capture
   will use. That first run loads the kernels' libraries, compiles the Triton
-  kernels, caches K3's launch plan and lets cuBLAS and the optimizer create
-  their state, none of which may happen inside a capture. It is a real step:
+  kernels, caches K3's launch plan, lets cuBLAS and the optimizer create
+  their state and activation offloading allocate its pinned host buffers
+  (``core.remat``), none of which may happen inside a capture. It is a real step:
   its result is the caller's, and its launches are counted.
 - :class:`Graph` captures a warmed-up step. A capture runs no kernel, so the
   launches the wrappers count while it records are taken back out of
@@ -36,6 +37,20 @@ import torch
 from torch.utils._pytree import tree_map_only
 
 from perceiver_io_tpu_torch.ops import build
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The side stream every capture on ``device`` warms up and records on,
+    one a device: torch keeps a cuBLAS workspace for each stream it runs a
+    GEMM on and never frees it (65 MiB on an H100), so a new stream for each
+    capture would keep that much with every captured step that is dropped."""
+    device = torch.device(device)
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
 
 
 def warm_up(fn: Callable[[], Any], stream: "torch.cuda.Stream") -> Any:
@@ -147,7 +162,6 @@ class CapturedStep:
         self._bound: tuple = ()
         self._key = None
         self._static: Dict[str, Optional[torch.Tensor]] = {}
-        self._stream = None
 
     def __call__(self, *bound, batch: Dict[str, Any], device: torch.device,
                  generators: Iterable[torch.Generator] = ()) -> Any:
@@ -160,10 +174,9 @@ class CapturedStep:
         self._static = {k: None if t is None else torch.empty(t.shape, dtype=t.dtype, device=device)
                         for k, t in ((k, _as_tensor(v)) for k, v in batch.items())}
         self._fill(batch)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-        out = warm_up(lambda: self.fn(*bound, self._static), self._stream)
-        self.graph = Graph(lambda: self.fn(*bound, self._static), self.name, self._stream, generators)
+        stream = capture_stream(device)
+        out = warm_up(lambda: self.fn(*bound, self._static), stream)
+        self.graph = Graph(lambda: self.fn(*bound, self._static), self.name, stream, generators)
         self._bound, self._key = bound, key
         return out
 

@@ -1,5 +1,6 @@
 """Training for the port (counterpart of ``perceiver_io_tpu/training/``): the
-CLM and classification losses, the clip + AdamW optimizer with its LR schedules, the train state,
+CLM and classification losses, ``make_optimizer`` (AdamW, Adam, Lamb, SGD; clip,
+accumulation, frozen parameters) with its LR schedules, the train state,
 the train step with microbatching and the non-finite skip, the eval step (both
 CUDA graphs on the card), and host-sampled prefix-dropout keep sets. ``Trainer``, checkpointing, faults and metrics are
 not ported yet."""
@@ -11,6 +12,7 @@ from perceiver_io_tpu_torch.training.optim import (
     clip_by_global_norm_,
     constant_with_warmup,
     cosine_with_warmup,
+    freeze_mask,
     make_optimizer,
 )
 from perceiver_io_tpu_torch.training.prefix_dropout import (
@@ -29,6 +31,7 @@ __all__ = [
     "clm_loss_fn",
     "constant_with_warmup",
     "cosine_with_warmup",
+    "freeze_mask",
     "make_eval_step",
     "make_optimizer",
     "make_train_step",

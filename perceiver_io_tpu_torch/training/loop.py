@@ -3,7 +3,8 @@ make_train_step`` and ``make_eval_step``): gradients, the optimizer update and
 metrics for one batch, and an evaluation of one batch. On the card each step
 is a CUDA graph (``graphs.CapturedStep``), as the JAX package jits them; on
 the CPU it runs eagerly. ``donate`` has no counterpart (the state is updated
-in place), nor have the ``overlap`` and ``probes`` options yet.
+in place), nor have the ``overlap`` (parallelism) and ``probes``
+(observability) options yet.
 """
 
 from __future__ import annotations
@@ -43,16 +44,19 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
     ``pad_mask``.
 
     ``sentinel=True`` is the in-step non-finite skip: when the loss or any
-    gradient is not finite, parameters and optimizer state (its moments and
-    its schedule count) hold, the step still advances, and the metrics carry
+    gradient is not finite, parameters and optimizer state (its moments, its
+    schedule count, an accumulation's running mean and counters) hold, the
+    step still advances, and the metrics carry
     ``sentinel_skipped`` (0.0 or 1.0, a tensor). The update is applied and
     then selected on the device, as the JAX package's ``jnp.where``.
 
     ``jit=True`` (the default) runs the step as a CUDA graph when the model
-    lies on the card: the forward and backward of every chunk, the 1/k
-    scale, the clip, the AdamW update and the select are one graph, captured
-    at the first call (a real step) and again when the batch's keys, shapes
-    or dtypes change; each call copies the batch into the graph's buffers.
+    lies on the card: the forward and backward of every chunk (a
+    checkpointed layer's recompute included), the 1/k scale, the optimizer
+    call (clip, update rule, accumulation) and the select are one graph,
+    captured at the first call (a real step) and again when the batch's
+    keys, shapes or dtypes change; each call copies the batch into the
+    graph's buffers.
     A CUDA generator in ``state.generator`` draws fresh numbers at every
     replay; the returned function's ``captured`` attribute is the
     :class:`~perceiver_io_tpu_torch.graphs.CapturedStep` (its ``graph`` the

@@ -83,7 +83,8 @@ def classification_loss_fn(deterministic: bool = False) -> Callable:
         x = x.float() if x.is_floating_point() else x
         y = _on(batch["label"], dev).long()
         pad_mask = _on(batch.get("pad_mask"), dev)
-        logits = model(x, pad_mask=None if pad_mask is None else pad_mask.bool(), deterministic=deterministic)
+        logits = model(x, pad_mask=None if pad_mask is None else pad_mask.bool(), deterministic=deterministic,
+                       generator=generator)
         loss, _ = _cross_entropy(logits, y)
         acc = (torch.argmax(logits, dim=-1) == y).float().mean()
         return loss, {"loss": loss, "acc": acc}

@@ -1,10 +1,14 @@
 """The optimizer and LR schedules (counterpart of
-``perceiver_io_tpu/training/optim.py``: ``make_optimizer("adamw", ...)``,
+``perceiver_io_tpu/training/optim.py``: ``make_optimizer``, ``freeze_mask``,
 ``cosine_with_warmup``, ``constant_with_warmup``).
 
 What the JAX package chains in optax, the port applies as one
 :class:`Optimizer`:
 
+- with a frozen mask, ``masked(set_to_zero())`` on the gradients first (a
+  frozen gradient enters neither the clip's norm nor the moments) and on the
+  updates last (AdamW's decay would move a frozen parameter): the port zeroes
+  the frozen gradients and puts the frozen parameters back after the update;
 - ``clip_by_global_norm(max_norm)``, exactly optax's: the gradients are scaled
   by ``max_norm / norm`` only when their global norm exceeds ``max_norm``
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so it is not
@@ -20,9 +24,15 @@ What the JAX package chains in optax, the port applies as one
   order, not torch's decay of the pre-step parameter), written by hand with
   ``torch._foreach_*`` ops (``torch.optim.AdamW`` keeps its moments in the
   parameters' dtype);
+- ``"adam"``: the same without decay (compact or not); ``"lamb"``: optax's
+  ``lamb`` (:class:`Lamb`); ``"sgd"``: ``-lr * g``;
 - the LR schedule indexed by the count of applied updates from 0, as optax's
   count is: the first update uses ``lr(0)``, and an update the train step
-  skips (non-finite gradients) does not advance it.
+  skips (non-finite gradients) does not advance it;
+- with ``accumulate_grad_batches`` k > 1, optax's ``MultiSteps`` around all of
+  it: the running mean of the gradients, the inner update computed at every
+  call and selected on the device at every k-th (``where(emit, new, held)``),
+  so a captured step stays one graph.
 
 The count, the learning rate, AdamW's step and its moments are tensors on the
 parameters' device, created with the optimizer, and an update reads and
@@ -31,17 +41,14 @@ graph (``training.loop``) replays it: the schedule is evaluated on the count
 tensor, as optax evaluates it on its traced count. On the card AdamW runs
 with ``capturable=True``; on the CPU, where torch refuses that, with
 ``fused=True``, which also reads its step and learning rate from tensors.
-The compact update is capturable as written (its bias corrections read the
-count tensor, its rate the rate tensor).
-
-The ``"adam"`` optimizer (with or without compact moments), Lamb and SGD are
-not ported.
+The compact, Lamb and SGD updates are capturable as written (their bias
+corrections read the count tensor, their rate the rate tensor).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import torch
 
@@ -94,12 +101,34 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+# the elements a compact update works on at once (the largest flagship
+# tensor, the position table, is 8.4M): its f64 temporaries then take about
+# 0.2 GB where the whole parameter list's took about 1 GB at the flagship
+COMPACT_BUCKET = 1 << 23
+
+
+def _buckets(params: List[torch.Tensor], size: int) -> List[List[int]]:
+    """Runs of consecutive parameter indices of at most ``size`` elements
+    each (a larger tensor alone)."""
+    out, n = [], size
+    for i, p in enumerate(params):
+        if n + p.numel() > size:
+            out.append([])
+            n = 0
+        out[-1].append(i)
+        n += p.numel()
+    return out
+
+
 class CompactAdam:
     """``scale_by_adam_compact`` -> ``add_decayed_weights`` ->
     ``scale_by_learning_rate`` (the JAX package's ``make_optimizer("adamw",
     moment_dtype=...)``) over one parameter list: moments ``mu``/``nu``
     stored in ``moment_dtype``, the update in f32, every operation in optax's
-    order, so each rounding falls where the JAX package's does."""
+    order, so each rounding falls where the JAX package's does. The update
+    runs over buckets of at most ``COMPACT_BUCKET`` elements (element by
+    element the same arithmetic), and, given the sentinel's flag, holds and
+    selects one bucket at a time, so its transient memory is a bucket's."""
 
     def __init__(self, params: List[torch.nn.Parameter], betas, weight_decay: float, moment_dtype: torch.dtype,
                  eps: float = 1e-8):
@@ -108,34 +137,48 @@ class CompactAdam:
         self.weight_decay, self.eps = weight_decay, eps
         self.mu = [torch.zeros_like(p, dtype=moment_dtype) for p in params]
         self.nu = [torch.zeros_like(p, dtype=moment_dtype) for p in params]
+        self.buckets = _buckets(params, COMPACT_BUCKET)
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], count: torch.Tensor, lr: torch.Tensor) -> None:
+    def step(self, grads: List[torch.Tensor], count: torch.Tensor, lr: torch.Tensor,
+             ok: Optional[torch.Tensor] = None) -> None:
         """One update from f32 ``grads``; ``count`` is the number of updates
         applied before this one (optax's count then becomes ``count + 1``),
-        ``lr`` the 0-d rate."""
+        ``lr`` the 0-d rate. With the 0-d bool ``ok``, parameters and moments
+        end as they began where it is false (``Optimizer.step_where``)."""
         b1, b2 = self.b1, self.b2
         t = (count + 1).to(torch.float32)
         bc1, bc2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
-        # m = b1 m + (1 - b1) g and v = b2 v + (1 - b2) g g in f32, the
-        # gradient term's last product fused into the sum (one rounding of
-        # a * g + round(beta * moment)), as XLA contracts them in the JAX
-        # package's jitted update: that product of two f32 values is exact
-        # in f64, so the f64 sum rounded to f32 is the fused result
-        m = self._fused(grads, torch.tensor(1.0 - b1, dtype=torch.float32).item(),
-                        torch._foreach_mul([x.float() for x in self.mu], b1))
-        v = self._fused(grads, torch._foreach_mul(grads, 1.0 - b2), torch._foreach_mul([x.float() for x in self.nu], b2))
-        torch._foreach_copy_(self.mu, m)
-        torch._foreach_copy_(self.nu, v)
-        den = torch._foreach_div(v, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        u = torch._foreach_div(m, bc1)
-        torch._foreach_div_(u, den)
-        if self.weight_decay:
-            torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
-        torch._foreach_mul_(u, -lr)
-        torch._foreach_add_(self.params, u)
+        for idx in self.buckets:
+            ps, gs = [self.params[i] for i in idx], [grads[i] for i in idx]
+            mus, nus = [self.mu[i] for i in idx], [self.nu[i] for i in idx]
+            state = ps + mus + nus
+            held = None if ok is None else [x.clone() for x in state]
+            # m = b1 m + (1 - b1) g and v = b2 v + (1 - b2) g g in f32, the
+            # gradient term's last product fused into the sum (one rounding
+            # of a * g + round(beta * moment)), as XLA contracts them in the
+            # JAX package's jitted update: that product of two f32 values is
+            # exact in f64, so the f64 sum rounded to f32 is the fused result
+            m = self._fused(gs, torch.tensor(1.0 - b1, dtype=torch.float32).item(),
+                            torch._foreach_mul([x.float() for x in mus], b1))
+            v = self._fused(gs, torch._foreach_mul(gs, 1.0 - b2), torch._foreach_mul([x.float() for x in nus], b2))
+            torch._foreach_copy_(mus, m)
+            torch._foreach_copy_(nus, v)
+            den = torch._foreach_div(v, bc2)
+            del v
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            u = torch._foreach_div(m, bc1)
+            del m
+            torch._foreach_div_(u, den)
+            del den
+            if self.weight_decay:
+                torch._foreach_add_(u, torch._foreach_mul(ps, self.weight_decay))
+            torch._foreach_mul_(u, -lr)
+            torch._foreach_add_(ps, u)
+            if held is not None:
+                for x, h in zip(state, held):
+                    torch.where(ok, x, h, out=x)
 
     @staticmethod
     def _fused(a: List[torch.Tensor], b, c: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -150,17 +193,121 @@ class CompactAdam:
         return self.mu + self.nu
 
 
-class Optimizer:
-    """Global-norm clip + AdamW (torch's, or :class:`CompactAdam` with
-    ``moment_dtype``) + LR schedule over one parameter list (see the module
-    docstring). ``step()`` applies one update from the parameters'
-    ``.grad``; a parameter without one is updated as with a zero gradient, as
-    optax does. ``count`` (applied updates, the schedule's index) and ``lr``
-    are 0-d tensors on the parameters' device."""
+class Lamb:
+    """optax's ``lamb`` (the JAX package's ``make_optimizer("lamb")``):
+    ``scale_by_adam(eps=1e-6, eps_root=0)`` -> ``add_decayed_weights`` ->
+    ``scale_by_trust_ratio`` -> ``scale_by_learning_rate``, f32 moments. The
+    trust ratio is per parameter tensor, ``|p| / |u|``, and 1 where either
+    norm is 0 (optax's guard)."""
 
-    def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Schedule, weight_decay: float,
-                 betas, gradient_clip: Optional[float], moment_dtype: Optional[torch.dtype] = None):
-        self.params = list(params)
+    def __init__(self, params: List[torch.nn.Parameter], betas, weight_decay: float, eps: float = 1e-6):
+        self.params = params
+        self.b1, self.b2 = betas
+        self.weight_decay, self.eps = weight_decay, eps
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor], count: torch.Tensor, lr: torch.Tensor) -> None:
+        b1, b2 = self.b1, self.b2
+        t = (count + 1).to(torch.float32)
+        # optax's update_moment: (1 - b) * g + b * m, and g * g for nu
+        m = torch._foreach_mul(grads, 1.0 - b1)
+        torch._foreach_add_(m, torch._foreach_mul(self.mu, b1))
+        v = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(v, 1.0 - b2)
+        torch._foreach_add_(v, torch._foreach_mul(self.nu, b2))
+        torch._foreach_copy_(self.mu, m)
+        torch._foreach_copy_(self.nu, v)
+        u = torch._foreach_div(m, 1.0 - torch.pow(b1, t))
+        den = torch._foreach_div(v, 1.0 - torch.pow(b2, t))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(u, den)
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
+        p_norm = torch.stack(torch._foreach_norm(self.params))
+        u_norm = torch.stack(torch._foreach_norm(u))
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
+        for x, r in zip(u, ratio):
+            x.mul_(r)
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(self.params, u)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        return self.mu + self.nu
+
+
+class Sgd:
+    """optax's ``sgd`` without momentum: the update ``-lr * g``."""
+
+    def __init__(self, params: List[torch.nn.Parameter]):
+        self.params = params
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor], count: torch.Tensor, lr: torch.Tensor) -> None:
+        torch._foreach_add_(self.params, torch._foreach_mul(grads, -lr))
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        return []
+
+
+class TorchAdamW:
+    """optax's ``adamw`` (and, without decay, ``adam``) through
+    ``torch.optim.AdamW``, which reads the parameters' ``.grad`` and keeps its
+    own step; its state made as its first step would make it."""
+
+    def __init__(self, params: List[torch.nn.Parameter], lr: torch.Tensor, betas, weight_decay: float):
+        self.params = params
+        dev = params[0].device
+        on_card = dev.type == "cuda"
+        # on the card the multi-tensor form: torch's single-tensor capturable
+        # form divides by the learning rate, and at a rate of 0 (a warmup's
+        # first step) turns every parameter whose second moment is 0 into NaN
+        self.adamw = torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8, weight_decay=weight_decay,
+                                       capturable=on_card, foreach=on_card, fused=not on_card)
+        # AdamW's state as its first step would create it (step 0, zero
+        # moments), made now: the non-finite select holds it from the first
+        # update on, and a capture finds it in place
+        for p in params:
+            self.adamw.state[p] = {"step": torch.zeros((), dtype=torch.float32, device=dev),
+                                   "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                                   "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
+    def step(self, grads: List[torch.Tensor], count: torch.Tensor, lr: torch.Tensor) -> None:
+        self.adamw.step()
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        out = []
+        for p in self.params:
+            state = self.adamw.state[p]
+            out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
+        return out
+
+
+class Optimizer:
+    """The JAX package's ``make_optimizer`` chain over one parameter list
+    (see the module docstring): frozen gradients zeroed, global-norm clip,
+    the update rule (``rule``: :class:`TorchAdamW`, :class:`CompactAdam`,
+    :class:`Lamb` or :class:`Sgd`), frozen parameters held, the LR schedule;
+    with ``accumulate`` > 1 all of it inside optax's ``MultiSteps``.
+    ``step()`` applies one call from the parameters' ``.grad``; a parameter
+    without one is updated as with a zero gradient, as optax does. ``count``
+    (applied updates, the schedule's index) and ``lr`` are 0-d tensors on the
+    parameters' device; so are ``mini_step`` and ``gradient_step`` (optax's
+    ``MultiStepsState``) with accumulation.
+
+    ``params`` are parameters or ``(name, parameter)`` pairs;
+    ``frozen_mask`` (``{name: bool}``, :func:`freeze_mask`) needs the
+    names."""
+
+    def __init__(self, params: Iterable, schedule: Schedule, optimizer: str = "adamw", weight_decay: float = 0.01,
+                 betas=(0.9, 0.999), gradient_clip: Optional[float] = None,
+                 moment_dtype: Optional[torch.dtype] = None, frozen_mask: Optional[Dict[str, bool]] = None,
+                 accumulate: int = 1):
+        items = list(params)
+        named = bool(items) and isinstance(items[0], tuple)
+        self.params = [p for _, p in items] if named else items
         self.schedule = schedule
         self.gradient_clip = gradient_clip
         dev = self.params[0].device
@@ -168,21 +315,29 @@ class Optimizer:
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
         self.adamw, self.compact = None, None
         if moment_dtype is not None:
-            self.compact = CompactAdam(self.params, betas, weight_decay, moment_dtype)
-            return
-        on_card = dev.type == "cuda"
-        # on the card the multi-tensor form: torch's single-tensor capturable
-        # form divides by the learning rate, and at a rate of 0 (a warmup's
-        # first step) turns every parameter whose second moment is 0 into NaN
-        self.adamw = torch.optim.AdamW(self.params, lr=self.lr, betas=betas, eps=1e-8, weight_decay=weight_decay,
-                                       capturable=on_card, foreach=on_card, fused=not on_card)
-        # AdamW's state as its first step would create it (step 0, zero
-        # moments), made now: the non-finite select holds it from the first
-        # update on, and a capture finds it in place
-        for p in self.params:
-            self.adamw.state[p] = {"step": torch.zeros((), dtype=torch.float32, device=dev),
-                                   "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
-                                   "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+            self.rule = self.compact = CompactAdam(self.params, betas, weight_decay if optimizer == "adamw" else 0.0,
+                                                   moment_dtype)
+        elif optimizer in ("adamw", "adam"):
+            self.rule = TorchAdamW(self.params, self.lr, betas, weight_decay if optimizer == "adamw" else 0.0)
+            self.adamw = self.rule.adamw
+        elif optimizer == "lamb":
+            self.rule = Lamb(self.params, betas, weight_decay)
+        else:
+            self.rule = Sgd(self.params)
+        self.frozen: List[torch.nn.Parameter] = []
+        if frozen_mask is not None:
+            if not named:
+                raise ValueError("frozen_mask needs named parameters: pass (name, parameter) pairs "
+                                 "(TrainState.create passes model.named_parameters())")
+            names = [n for n, _ in items]
+            if sorted(frozen_mask) != sorted(names):
+                raise ValueError("frozen_mask must name every parameter (freeze_mask(model, paths) does)")
+            self.frozen = [p for n, p in items if frozen_mask[n]]
+        self.accumulate = accumulate
+        if accumulate > 1:
+            self.acc = [torch.zeros_like(p) for p in self.params]
+            self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
+            self.gradient_step = torch.zeros((), dtype=torch.int32, device=dev)
 
     def grads(self) -> List[torch.Tensor]:
         for p in self.params:
@@ -190,8 +345,40 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         return [p.grad for p in self.params]
 
+    @torch.no_grad()
     def step(self) -> None:
+        """One call: the update from ``.grad``, or with accumulation optax's
+        ``MultiSteps`` (the running mean ``acc + (g - acc) / (n + 1)``, the
+        inner update computed on it at every call and kept only at every
+        ``accumulate``-th, where the mean restarts from zero)."""
         grads = self.grads()
+        if self.accumulate == 1:
+            self._update(grads)
+            return
+        n = self.mini_step
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, (n + 1).to(torch.float32))
+        torch._foreach_add_(self.acc, delta)
+        torch._foreach_copy_(grads, self.acc)
+        emit = n == self.accumulate - 1
+        inner = self._inner_state()
+        held = [t.clone() for t in inner]
+        self._update(grads)
+        for t, h in zip(inner, held):
+            torch.where(emit, t, h, out=t)
+        torch._foreach_mul_(self.acc, (~emit).to(torch.float32))
+        self.gradient_step += emit.to(torch.int32)
+        self.mini_step.copy_((n + 1) % self.accumulate)
+
+    def _update(self, grads: List[torch.Tensor], ok: Optional[torch.Tensor] = None) -> None:
+        """The inner chain: frozen gradients zeroed (before the clip, as
+        optax's masked ``set_to_zero``), the clip, the rule, the frozen
+        parameters put back (their update zeroed after the decay). ``ok``
+        goes to the compact rule, which selects its own state."""
+        held = None
+        if self.frozen:
+            torch._foreach_zero_([p.grad for p in self.frozen])
+            held = [p.clone() for p in self.frozen]
         if self.gradient_clip is not None:
             clip_by_global_norm_(grads, self.gradient_clip)
         lr = self._scheduled_lr()
@@ -199,10 +386,12 @@ class Optimizer:
             self.lr.copy_(lr)
         else:
             self.lr.fill_(lr)
-        if self.compact is not None:
-            self.compact.step(grads, self.count, self.lr)
+        if ok is None:
+            self.rule.step(grads, self.count, self.lr)
         else:
-            self.adamw.step()
+            self.rule.step(grads, self.count, self.lr, ok)
+        if held is not None:
+            torch._foreach_copy_(self.frozen, held)
         self.count += 1
 
     def _scheduled_lr(self):
@@ -216,22 +405,30 @@ class Optimizer:
                     "write it with tensor operations, as cosine_with_warmup is written") from e
             raise
 
+    def _inner_state(self) -> List[torch.Tensor]:
+        return list(self.params) + self.rule.state_tensors() + [self.count]
+
     def state_tensors(self) -> List[torch.Tensor]:
-        """Every tensor an update writes: the parameters, the moments (and
-        AdamW's step), the count."""
-        out = list(self.params)
-        if self.compact is not None:
-            return out + self.compact.state_tensors() + [self.count]
-        for p in self.params:
-            state = self.adamw.state[p]
-            out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
+        """Every tensor a call writes: the parameters, the rule's state
+        (moments, AdamW's steps), with accumulation the running mean and
+        optax's two step counters, and the count, last."""
+        out = list(self.params) + self.rule.state_tensors()
+        if self.accumulate > 1:
+            out += self.acc + [self.mini_step, self.gradient_step]
         return out + [self.count]
 
     @torch.no_grad()
     def step_where(self, ok: torch.Tensor) -> None:
-        """One update where the 0-d bool ``ok`` holds, none where it does not,
+        """One call where the 0-d bool ``ok`` holds, none where it does not,
         selected on the device (the JAX package's ``jnp.where(ok, updated,
         held)``): where it holds, the result is :meth:`step`'s exactly."""
+        if self.compact is not None and self.accumulate == 1:
+            # the compact update holds and selects its parameters and moments
+            # a bucket at a time; the count is the rest of the state
+            held_count = self.count.clone()
+            self._update(self.grads(), ok)
+            torch.where(ok, self.count, held_count, out=self.count)
+            return
         tensors = self.state_tensors()
         held = [t.clone() for t in tensors]
         self.step()
@@ -243,24 +440,52 @@ class Optimizer:
             p.grad = None
 
 
+OPTIMIZERS = ("adamw", "adam", "lamb", "sgd")
+
+
 def make_optimizer(learning_rate: Union[float, Schedule], optimizer: str = "adamw", weight_decay: float = 0.01,
                    beta1: float = 0.9, beta2: float = 0.999, gradient_clip: Optional[float] = None,
+                   accumulate_grad_batches: int = 1, frozen_mask: Optional[Dict[str, bool]] = None,
                    moment_dtype: Optional[Union[str, torch.dtype]] = None,
-                   ) -> Callable[[Iterable[torch.nn.Parameter]], Optimizer]:
-    """A factory ``tx(params) -> Optimizer`` (``TrainState.create`` calls
-    it): the port's ``make_optimizer("adamw", gradient_clip=...,
-    weight_decay=..., moment_dtype=...)``. ``moment_dtype`` (``"bfloat16"``
-    or a torch dtype) stores the Adam moments in it (:class:`CompactAdam`);
-    None keeps torch's AdamW with f32 moments. Only AdamW is ported."""
+                   ) -> Callable[[Iterable], Optimizer]:
+    """A factory ``tx(params) -> Optimizer`` (``TrainState.create`` calls it
+    with the model's named parameters): the JAX package's ``make_optimizer``.
+
+    ``optimizer``: ``"adamw"`` (torch's AdamW), ``"adam"`` (no decay),
+    ``"lamb"`` (optax's) or ``"sgd"``. ``moment_dtype`` (``"bfloat16"`` or a
+    torch dtype; adam/adamw only) stores the Adam moments in it
+    (:class:`CompactAdam`). ``accumulate_grad_batches`` > 1 is optax's
+    ``MultiSteps`` around the whole chain. ``frozen_mask`` (``{name: bool}``
+    from :func:`freeze_mask`) zeroes the frozen gradients before the clip and
+    holds the frozen parameters."""
     if moment_dtype is not None and optimizer not in ("adamw", "adam"):
         raise ValueError(f"moment_dtype is only supported for adam/adamw, not {optimizer}")
-    if optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {optimizer!r} is not ported (only 'adamw')")
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer: {optimizer}")
     if isinstance(moment_dtype, str):
         moment_dtype = getattr(torch, moment_dtype)
     schedule = learning_rate if callable(learning_rate) else (lambda step, lr=float(learning_rate): lr)
 
-    def tx(params: Iterable[torch.nn.Parameter]) -> Optimizer:
-        return Optimizer(params, schedule, weight_decay, (beta1, beta2), gradient_clip, moment_dtype)
+    def tx(params: Iterable) -> Optimizer:
+        return Optimizer(params, schedule, optimizer, weight_decay, (beta1, beta2), gradient_clip, moment_dtype,
+                         frozen_mask, accumulate_grad_batches)
 
     return tx
+
+
+def freeze_mask(model: torch.nn.Module, frozen_paths: Sequence[str]) -> Dict[str, bool]:
+    """``{name: frozen}`` over ``model.named_parameters()``: a parameter is
+    frozen where the JAX package's path of its counterpart
+    (:func:`convert.jax_param_paths`, ``params/...``) holds one of
+    ``frozen_paths`` (``"a/b"`` strings) as a run of whole segments, the JAX
+    package's ``freeze_mask`` rule (``"encoder"`` freezes
+    ``params/encoder/...``, not ``params/image_encoder/...``)."""
+    from perceiver_io_tpu_torch.convert import jax_param_paths
+
+    patterns = [p.split("/") for p in frozen_paths]
+
+    def frozen(path: str) -> bool:
+        segments = path.split("/")
+        return any(segments[i:i + len(pat)] == pat for pat in patterns for i in range(len(segments) - len(pat) + 1))
+
+    return {name: frozen(path) for name, path in jax_param_paths(model).items()}

@@ -1,8 +1,9 @@
 """The train state (counterpart of ``perceiver_io_tpu/training/state.py``).
 
 PyTorch keeps parameters and optimizer moments in mutable objects, so the
-state holds them instead of a pytree: the model, its :class:`Optimizer` (clip,
-AdamW, schedule), the step counter and the generator of the training
+state holds them instead of a pytree: the model, its :class:`Optimizer` (the
+``make_optimizer`` chain), the step counter (calls, as the JAX package counts
+them) and the generator of the training
 forwards' random draws. The train step updates it in place and returns it.
 """
 
@@ -26,12 +27,14 @@ class TrainState:
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Callable[[Iterable[torch.nn.Parameter]], Optimizer],
                generator: Optional[torch.Generator] = None) -> "TrainState":
-        """``tx`` from ``make_optimizer``; ``generator`` draws the keep sets
-        of batches that carry none (it must live on the model's device)."""
-        return cls(model=model, optimizer=tx(model.parameters()), generator=generator)
+        """``tx`` from ``make_optimizer`` (given the model's named
+        parameters, which a frozen mask reads); ``generator`` draws the keep
+        sets of batches that carry none and the dropout masks (it must live
+        on the model's device)."""
+        return cls(model=model, optimizer=tx(model.named_parameters()), generator=generator)
 
     def apply_gradients(self) -> None:
-        """One optimizer update from the parameters' ``.grad``; the step
-        advances."""
+        """One optimizer call from the parameters' ``.grad`` (an update, or
+        with accumulation a mini-step); the step advances."""
         self.optimizer.step()
         self.step += 1

@@ -167,10 +167,30 @@ def test_moment_dtype_outside_adam_is_refused_as_in_jax(optimizer):
 
 
 def test_compact_adam_without_decay_is_not_ported():
-    """``"adam"`` (compact or not) is not ported: it raises, it does not
-    quietly become AdamW."""
-    with pytest.raises(NotImplementedError):
-        tt.make_optimizer(1e-3, optimizer="adam", moment_dtype="bfloat16")
+    """``"adam"`` with compact moments is ported now and does not quietly
+    become AdamW: with a decay set, its parameters and bf16 moments after
+    three steps are the JAX package's ``make_optimizer("adam",
+    moment_dtype="bfloat16")`` chain's (no decay), as in the test above."""
+    rng = np.random.default_rng(4)
+    p0 = [(rng.standard_normal(s) * 0.1).astype(np.float32) for s in SHAPES]
+    gs = [[rng.standard_normal(s).astype(np.float32) for s in SHAPES] for _ in range(3)]
+    tx = joptim.make_optimizer(1e-3, optimizer="adam", moment_dtype="bfloat16", weight_decay=0.05)
+    jp = [jnp.asarray(p) for p in p0]
+    st = tx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    opt = tt.make_optimizer(1e-3, optimizer="adam", moment_dtype="bfloat16", weight_decay=0.05)(tp)
+    for g in gs:
+        u, st = jax.jit(tx.update)([jnp.asarray(x) for x in g], st, jp)
+        jp = optax.apply_updates(jp, u)
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x.copy())
+        opt.step()
+    for a, b in zip(jp, tp):
+        a, b = np.asarray(a), b.detach().numpy()
+        assert np.abs(a - b).max() <= 1e-6 * np.abs(a).max()
+    jst = _adam_state(st)
+    for w, g in zip(jst.mu + jst.nu, opt.compact.mu + opt.compact.nu):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w.astype(jnp.float32)))
 
 
 def test_sentinel_holds_the_bf16_moments():

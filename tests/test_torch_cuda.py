@@ -879,20 +879,25 @@ def test_graph_replays_count_their_launches(cuda):
 
 
 def _graph_train_run(cuda, route, jit, batches, sentinel=False, poison=None, microbatch=2, dtype=torch.float32,
-                     moment_dtype=None):
+                     moment_dtype=None, options=None, optim=None, lr=None):
     """A small CLM's train steps on ``batches`` (clip 1.0, a warmup-cosine
     schedule), a CUDA graph with ``jit``; the loss multiplied
     by each step's ``poison`` value where given; the model's compute dtype
-    and the moments' storage dtype as given. Returns the state, each
-    step's metrics and each step's optimizer state tensors."""
+    and the moments' storage dtype as given; ``options`` the config's
+    training options (dropout drawn from a CUDA generator seeded 5),
+    ``optim`` more ``make_optimizer`` arguments, ``lr`` a constant rate.
+    Returns the state, each step's metrics and each step's optimizer state
+    tensors."""
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
     from perceiver_io_tpu_torch.ops.flash_attention import fast_kernels
 
-    model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM, **(options or {})), device=cuda,
                                 generator=torch.Generator().manual_seed(0), dtype=dtype)
-    state = tt.TrainState.create(model, tt.make_optimizer(tt.cosine_with_warmup(1e-3, 6, 1), gradient_clip=1.0,
-                                                          moment_dtype=moment_dtype))
+    schedule = tt.cosine_with_warmup(1e-3, 6, 1) if lr is None else lr
+    state = tt.TrainState.create(model, tt.make_optimizer(schedule, gradient_clip=1.0, moment_dtype=moment_dtype,
+                                                          **(optim or {})),
+                                 generator=torch.Generator(device=cuda).manual_seed(5))
     loss_fn = tt.clm_loss_fn(128)
     if poison is not None:
         base = loss_fn
@@ -1582,3 +1587,178 @@ def test_decode_pair_graph_equals_eager(cuda, dtype, cache_dtype, sample):
     assert nodes["_layer_norm_fwd_kernel"] > 0 and nodes["flash_packed_kernel"] == nodes["paged_walk_kernel"] == 0
     with pytest.raises(ValueError, match="another state"):
         step(prefill(ids, pad)[1])
+
+
+# ---------------------------------------------------------------------------
+# the training options: prefix-dropout mask mode, dropout, checkpointing and
+# offloading, the optimizers, in captured steps
+# ---------------------------------------------------------------------------
+
+
+def _scattered_drop(g, b, n_p, keep):
+    """A "mask"-mode drop mask (b, n_p): ``keep`` rows kept per row, drawn
+    from ``g``, the rest masked where they lie."""
+    kept = torch.stack([torch.randperm(n_p, generator=g)[:keep] for _ in range(b)])
+    return torch.ones(b, n_p, dtype=torch.bool).scatter_(1, kept, False)
+
+
+@pytest.mark.parametrize("kernels", ["packed", "2seg"])
+def test_mask_mode_kernels_match_plain(cuda, kernels):
+    """The "mask" prefix-dropout mode's call shape, bf16 as its flagship
+    phase runs it: K2/K4a/K4b over [prefix; latents] with half the prefix
+    keys masked where they lie (a scattered kv bias), and K6/K7a/K7b with
+    the same as a scattered prefix bias; each output and gradient held to
+    the bf16 rule (1.25x the bf16 plain version's L2 distance from the f64
+    evaluation), the logsumexp within 1e-4."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_2seg,
+        flash_attention_packed_2seg_bwd_reference,
+        flash_attention_packed_2seg_reference,
+        flash_attention_packed_bwd_reference,
+        flash_attention_packed_reference,
+    )
+
+    g = torch.Generator().manual_seed(21)
+    bf16, b, h, d, n_p, nq = torch.bfloat16, 2, 4, 64, 1000, 128
+    drop = _scattered_drop(g, b, n_p, n_p // 2).to(cuda)
+    q = (torch.randn(b, nq, h * d, generator=g) * d**-0.5).to(cuda, bf16).requires_grad_()
+    k_p, v_p, k_l, v_l = ((torch.randn(b, n, h * d, generator=g)).to(cuda, bf16).requires_grad_()
+                          for n in (n_p, n_p, nq, nq))
+    do = torch.randn(b, nq, h * d, generator=g).to(cuda, bf16)
+    build.reset_launches()
+    if kernels == "packed":
+        k, v = (torch.cat([a, c], dim=1).detach().requires_grad_() for a, c in ((k_p, k_l), (v_p, v_l)))
+        pad = torch.cat([drop, torch.zeros(b, nq, dtype=torch.bool, device=cuda)], dim=1)
+        ops, kw = (q, k, v), dict(pad_mask=pad, causal=True)
+        o, lse = flash_attention_packed(*ops, h, return_lse=True, **kw)
+        ref, bwd_ref, names = flash_attention_packed_reference, flash_attention_packed_bwd_reference, (
+            "flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq")
+    else:
+        ops, kw = (q, k_p, v_p, k_l, v_l), dict(pad_mask_prefix=drop)
+        o, lse = flash_attention_packed_2seg(*ops, h, return_lse=True, **kw)
+        ref, bwd_ref, names = flash_attention_packed_2seg_reference, flash_attention_packed_2seg_bwd_reference, (
+            "flash_2seg_fwd", "flash_2seg_bwd_dkv", "flash_2seg_bwd_dq")
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert [build.LAUNCHES[k + "_bf16"] for k in names] == [1, 1, 1]
+    plain = [t.detach() for t in ops]
+    ro, rlse = ref(*plain, h, **kw)
+    _bf16_rule(o.detach(), ro, ref(*(t.double() for t in plain), h, **kw)[0], 1.25)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    want = bwd_ref(*plain, o.detach(), lse, do, h, **kw)
+    f64 = bwd_ref(*(t.double() for t in (*plain, o.detach(), lse, do)), h, **kw)
+    for x, p, e in zip(ops, want, f64):
+        _bf16_rule(x.grad, p, e, 1.25)
+
+
+@pytest.mark.parametrize("route", [(), ("twoseg",)], ids=["concat", "twoseg"])
+@pytest.mark.parametrize("remat", ["activation_checkpointing", "activation_offloading"])
+def test_graphed_remat_train_step_equals_the_plain_step_bit_for_bit(cuda, route, remat):
+    """Three bf16 CLM train steps with checkpointing or offloading (the
+    recompute inside the captured backward; the offloaded projections in
+    pinned host buffers the warm-up step allocated) as a CUDA graph and
+    eagerly: the losses and every parameter, moment and the count after the
+    third equal the plain step's bit for bit, graph against graph and eager
+    against eager, and the graph's equal the eager run's."""
+    from perceiver_io_tpu_torch.ops import build
+
+    batches = _graph_batches(3, seed=12)
+    runs = {}
+    for name, options in (("plain", {}), ("remat", {remat: True})):
+        for jit in (True, False):
+            build.reset_launches()
+            _, metrics, tensors = _graph_train_run(cuda, route, jit, batches, dtype=torch.bfloat16,
+                                                   moment_dtype="bfloat16", options=options)
+            runs[name, jit] = ([m["loss"] for m in metrics], tensors[-1], dict(build.LAUNCHES))
+    for jit in (True, False):
+        assert runs["remat", jit][0] == runs["plain", jit][0]
+        assert all(torch.equal(a, b) for a, b in zip(runs["remat", jit][1], runs["plain", jit][1]))
+    assert runs["remat", True][0] == runs["remat", False][0]
+    # the recompute launches each layer's LayerNorms once more
+    assert runs["remat", False][2]["layer_norm_fwd_bf16"] == 2 * runs["plain", False][2]["layer_norm_fwd_bf16"]
+
+
+def test_graphed_dropout_train_step_equals_eager_and_redraws(cuda):
+    """Attention and residual dropout (0.1) from a CUDA generator: three bf16
+    steps as a graph equal the eager steps from the same generator state bit
+    for bit, no attention kernel runs (the dense route), and at a rate of 0
+    on one batch each replay draws other masks (other losses)."""
+    from perceiver_io_tpu_torch.ops import build
+
+    options = dict(post_attention_dropout=0.1, residual_dropout=0.1)
+    batches = _graph_batches(3, seed=13)
+    runs = {}
+    for jit in (True, False):
+        build.reset_launches()
+        _, metrics, tensors = _graph_train_run(cuda, (), jit, batches, dtype=torch.bfloat16,
+                                               moment_dtype="bfloat16", options=options)
+        runs[jit] = ([m["loss"] for m in metrics], tensors[-1])
+        assert build.LAUNCHES["flash_packed_fwd_bf16"] == 0 and build.LAUNCHES["layer_norm_fwd_bf16"] > 0
+    assert runs[True][0] == runs[False][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+    _, metrics, _ = _graph_train_run(cuda, (), True, batches[:1] * 3, dtype=torch.bfloat16,
+                                     moment_dtype="bfloat16", options=options, lr=0.0)
+    losses = [m["loss"] for m in metrics]
+    assert len(set(losses)) == 3, losses
+
+
+def test_graphed_mask_mode_train_step_equals_eager(cuda):
+    """The "mask" prefix-dropout mode (the full prefix, the dropped rows in
+    the pad mask) in three bf16 steps on both routes: graph equal to eager
+    bit for bit, and each loss within 1e-2 of the gather mode's on the same
+    keep sets (the kernels walk other tiles; see chip_smoke.py's
+    MASK_LOSS_TOL_BF16)."""
+    batches = _graph_batches(3, seed=14)
+    for route in ((), ("twoseg",)):
+        runs = {}
+        for mode in ("gather", "mask"):
+            for jit in (True, False):
+                _, metrics, tensors = _graph_train_run(cuda, route, jit, batches, dtype=torch.bfloat16,
+                                                       moment_dtype="bfloat16", options=dict(prefix_dropout_mode=mode))
+                runs[mode, jit] = ([m["loss"] for m in metrics], tensors[-1])
+        assert runs["mask", True][0] == runs["mask", False][0]
+        assert all(torch.equal(a, b) for a, b in zip(runs["mask", True][1], runs["mask", False][1]))
+        np.testing.assert_allclose(runs["mask", True][0], runs["gather", True][0], atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("optim", [
+    dict(optimizer="adam"), dict(optimizer="adam", moment_dtype="bfloat16"), dict(optimizer="lamb"),
+    dict(optimizer="sgd"), dict(optimizer="adamw", accumulate_grad_batches=2),
+], ids=["adam", "adam_bf16", "lamb", "sgd", "adamw_accumulate2"])
+def test_graphed_optimizers_equal_the_eager_step_bit_for_bit(cuda, optim):
+    """Four bf16 CLM train steps (the sentinel on) with each optimizer as a
+    CUDA graph and eagerly: losses and every state tensor (parameters,
+    moments, the running mean and optax's step counters) bit for bit."""
+    optim = dict(optim)
+    moments = optim.pop("moment_dtype", None)
+    batches = _graph_batches(4, seed=15)
+    runs = {}
+    for jit in (True, False):
+        state, metrics, tensors = _graph_train_run(cuda, (), jit, batches, sentinel=True, dtype=torch.bfloat16,
+                                                   moment_dtype=moments, optim=optim)
+        runs[jit] = ([m["loss"] for m in metrics], tensors[-1])
+    assert runs[True][0] == runs[False][0] and np.isfinite(runs[True][0]).all()
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+    assert state.step == 4
+
+
+def test_dropped_captured_steps_release_their_memory(cuda):
+    """Captured train steps made and dropped one after another leave no
+    device memory behind: every capture shares one side stream a device
+    (``graphs.capture_stream``). A stream each kept torch's per-stream cuBLAS
+    workspace, 65 MiB on an H100, for every step dropped."""
+    import gc
+
+    from perceiver_io_tpu_torch import graphs
+
+    batches = _graph_batches(2, seed=16)
+    held = []
+    for _ in range(3):
+        _graph_train_run(cuda, (), True, batches, dtype=torch.bfloat16, moment_dtype="bfloat16")
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert held[2] == held[1] == held[0], held
+    assert len(graphs._CAPTURE_STREAMS) == 1

@@ -262,14 +262,17 @@ def test_decoder_without_attention_residual():
 
 
 def test_unported_training_options_raise():
+    """The encoder's dropout is ported now: a training forward with it runs
+    (parity with JAX is in ``tests/test_torch_perceiver_io_options.py``),
+    and the deterministic forward is unaffected."""
     _, tcfg = _configs()
     tcfg.encoder.dropout = 0.1
     tm = ImageClassifier(tcfg, device="cpu")
     x = torch.from_numpy(_images())
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tm(x, deterministic=False)
+    logits = tm(x, deterministic=False, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (2, 4) and bool(torch.isfinite(logits).all())
     with torch.no_grad():  # the deterministic forward is unaffected
-        assert tm(x).shape == (2, 4)
+        assert torch.equal(tm(x), ImageClassifier(_configs()[1], device="cpu")(x))
 
 
 def test_cuda_is_the_default_device():

@@ -275,12 +275,19 @@ def test_training_forward_contracts(models):
     dict(post_attention_dropout=0.1), dict(residual_dropout=0.1), dict(activation_checkpointing=True),
 ])
 def test_unported_training_options_raise(option):
+    """Every training option of the JAX package's config is ported now: a
+    training forward with it runs and differentiates (parity with JAX is in
+    ``tests/test_torch_train_options.py``), and the deterministic forward
+    is unaffected."""
     tm = CausalLanguageModel(CausalLanguageModelConfig(**MICRO, **option), device="cpu")
     x = torch.zeros((1, SEQ), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm(x, PREFIX, deterministic=False)
+    logits = tm(x, PREFIX, deterministic=False, generator=torch.Generator().manual_seed(0)).logits
+    assert logits.shape == (1, SEQ - PREFIX, 262) and bool(torch.isfinite(logits).all())
+    logits.square().mean().backward()
+    assert all(p.grad is not None for p in tm.parameters())
     with torch.no_grad():  # the deterministic forward is unaffected
-        assert tm(x, PREFIX).logits.shape == (1, SEQ - PREFIX, 262)
+        plain = CausalLanguageModel(CausalLanguageModelConfig(**MICRO), device="cpu")(x, PREFIX).logits
+        assert torch.equal(tm(x, PREFIX).logits, plain)
 
 
 def test_train_step_rejections(models):
