@@ -168,6 +168,19 @@ the same seed, weights, batch and keep sets) of the flagship:
   ``IMAGE_STEP_REMAT_BF16``'s launches exactly, each loss within
   ``IMAGE_REMAT_LOSS_TOL`` of image_train_bf16's, at a lower peak.
 
+The trainer (ROADMAP A5), after optim: fit_bf16, ``Trainer.fit`` around
+train_bf16's captured step (seed, weights, batch of 4 in 2 chunks, host keep
+sets, bf16 moments; a 2-step warmup, clip 1.0) for 8 steps with the
+sentinel, prefetch 2, the input double buffer, a log row every 2 steps and
+validation and a checkpoint every 4: the fit's losses and parameters equal a
+bare loop of the step bit for bit; a fit preempted at step 4 and resumed by a
+fresh Trainer into a fresh state equals it bit for bit (losses, parameters,
+optimizer tensors, generator); a sentinel ladder (a skip, then a rollback to
+the step-4 checkpoint written into the same tensors, no recapture); the
+fit's launches exactly train_bf16's a step plus the validations'; its ms a
+step against the bare step's (sentinel on and off), input wait, async-save
+block and write times, restore time, checkpoint bytes, peak memory and mfu.
+
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2003,6 +2016,276 @@ def train_phase(card: str, route: str = "concat", jit: bool = True, concat: dict
             "kernels_ms": summary["device_busy_ms"], "peak_memory_gb": peak_gb, "step_peak_gb": peak_gb - base_gb}
 
 
+# fit_bf16: Trainer.fit over train_bf16's step (bf16 compute, bf16 Adam
+# moments, AdamW at 1e-3 with a 2-step warmup into a cosine, clip 1.0, batch
+# 4 in 2 chunks, host keep sets), 8 steps, a log row every 2, validation and
+# a checkpoint every 4, the guard tripped at FIT_KILL_AT; the ladder's NaN
+# batches (1-based): one skip, then two in a row, a rollback to step 4
+FIT_STEPS, FIT_LOG, FIT_VAL, FIT_WARMUP, FIT_KILL_AT = 8, 2, 4, 2, 4
+FIT_POISON = (2, 6, 7)
+# one validation forward of the flagship (batch 4, deterministic: the whole
+# 15360-row prefix): the CA and 8 SA layers through K2, their 3 + 16
+# LayerNorms through K1, the bf16 builds
+FIT_EVAL_FORWARD = {"flash_packed_fwd" + BF16: 9, "layer_norm_fwd" + BF16: 19}
+
+
+def fit_batches(poison_at=()):
+    """train_bf16's batch (its tokens and, drawn after them from the same
+    seeded generator, a fresh host keep set per step), as numpy; endless.
+    The ``poison`` of the i-th batch (1-based) is NaN where ``i`` is in
+    ``poison_at``."""
+    from perceiver_io_tpu_torch import training as tt
+
+    n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
+    rng = np.random.default_rng(SEED)
+    t = rng.integers(0, FLAGSHIP["vocab_size"], size=(TRAIN_BATCH, n + 1))
+    tokens = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None}
+    i = 0
+    while True:
+        i += 1
+        keep = tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, FLAGSHIP["cross_attention_dropout"])
+        yield dict(tokens, prefix_keep_idx=keep,
+                   poison=np.full(TRAIN_BATCH, np.nan if i in poison_at else 1.0, np.float32))
+
+
+def fit_state():
+    """The flagship as train_bf16 builds it (seed, bf16 compute, f32
+    parameters, bf16 Adam moments, clip 1.0), the warmup-cosine schedule, and
+    a CUDA generator seeded SEED in the state (the checkpoint carries it)."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**FLAGSHIP)
+    model = CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                                dtype=torch.bfloat16)
+    schedule = tt.cosine_with_warmup(TRAIN_LR, FIT_STEPS, FIT_WARMUP)
+    state = tt.TrainState.create(model, tt.make_optimizer(schedule, gradient_clip=1.0, moment_dtype="bfloat16"),
+                                 generator=torch.Generator(device="cuda").manual_seed(SEED))
+    return config, schedule, state
+
+
+def fit_run(root: str, sentinel=True, resume=False, trip_at=None, poison_at=(), held_skip=None) -> dict:
+    """One ``Trainer.fit`` of a fresh flagship state (``fit_state``) on
+    ``fit_batches``, logging and checkpointing under ``root``: each step's
+    loss (the step's own tensor, read after the fit), the state, the
+    trainer's captured train step, its checkpoint manager's save rows, the
+    events and metrics.csv's steps, the launches and the peak memory of the
+    fit, and whether every tensor of the state kept its address. ``trip_at`` trips the preemption guard when the
+    state reaches that step; ``held_skip`` (a list) gets, for the first NaN
+    step, whether every optimizer tensor held bit for bit."""
+    import csv
+    import os
+
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.obs.mfu import clm_train_telemetry
+    from perceiver_io_tpu_torch.ops import build
+
+    config, schedule, state = fit_state()
+    tokens_per_sample, flops_per_sample = clm_train_telemetry(config)
+    lat = FLAGSHIP["max_latents"]
+    cfg = tt.TrainerConfig(max_steps=FIT_STEPS, log_interval=FIT_LOG, val_interval=FIT_VAL,
+                           microbatch=TRAIN_MICROBATCH, prefetch_batches=2, input_double_buffer=True,
+                           sentinel=tt.SentinelConfig(skip_limit=2) if sentinel else False,
+                           checkpoint_dir=os.path.join(root, "ckpt"), tokens_per_sample=tokens_per_sample,
+                           flops_per_sample=flops_per_sample)
+    trainer = tt.Trainer(poisonable(tt.clm_loss_fn(lat)), eval_loss_fn=tt.clm_loss_fn(lat, deterministic=True),
+                         config=cfg, logger=tt.MetricsLogger(os.path.join(root, "logs"), use_tensorboard=False),
+                         lr_schedule=schedule)
+    step, losses = trainer._train_step, []
+
+    def tracked(st, batch):
+        held = None
+        if held_skip is not None and not held_skip and bool(torch.isnan(batch["poison"]).any()):
+            held = [t.clone() for t in st.optimizer.state_tensors()]
+        st, metrics = step(st, batch)
+        losses.append(metrics["loss"])
+        if held is not None:
+            held_skip.append(all(torch.equal(t, h) for t, h in zip(st.optimizer.state_tensors(), held)))
+        if trip_at is not None and st.step == trip_at:
+            trainer._preempt_guard.trip()
+        return st, metrics
+
+    trainer._train_step = tracked
+
+    def addresses(st):
+        return [t.data_ptr() for t in list(st.model.state_dict().values()) + st.optimizer.state_tensors()]
+
+    before = addresses(state)
+    tokens = next(fit_batches())
+    val = [{k: tokens[k] for k in ("input_ids", "labels", "pad_mask")}]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.fit(state, fit_batches(poison_at), val_loader=val, model_config=config, resume=resume)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = nonzero_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    saves = list(trainer.checkpoints.saves)
+    addresses_kept = addresses(out) == before
+    trainer.close()
+    with open(os.path.join(root, "logs", "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    with open(os.path.join(root, "logs", "metrics.csv"), newline="") as f:
+        csv_steps = [int(r["step"]) for r in csv.DictReader(f)]
+    return {"losses": [float(x) for x in losses], "state": out, "captured": step.captured, "saves": saves,
+            "events": events, "csv_steps": csv_steps, "launches": launches, "peak_gb": peak_gb, "wall_s": wall_s,
+            "addresses_kept": addresses_kept}
+
+
+def fit_window_ms(events: list) -> list:
+    """ms a step of each log window after the first (which holds the
+    capture), from the ``log`` events' steps_per_sec."""
+    return [1e3 / e["steps_per_sec"] for e in events if e["event"] == "log"][1:]
+
+
+def fit_dispatch_ms(events: list) -> float:
+    """Median host ms of issuing a step (the train step call: the batch's
+    fill and the graph's replay) over the steps after the first, from the
+    ``step`` spans' ``dispatch_ms``."""
+    spans = [e for e in events if e["event"] == "span" and e["name"] == "step"]
+    return statistics.median(e["attrs"]["dispatch_ms"] for e in spans[1:])
+
+
+def fit_phase(card: str) -> dict:
+    """fit_bf16: ``Trainer.fit`` at the flagship in bf16 around the captured
+    train step (see ``FIT_*``). Checks, each fatal:
+
+    1. the fit leaves the step alone: each step's loss and the final
+       parameters equal a bare loop of the captured ``make_train_step`` over
+       the same batches, bit for bit;
+    2. preempt and resume: a fit tripped at ``FIT_KILL_AT``, then a fresh
+       state and Trainer with ``resume="auto"`` to the end, give the
+       uninterrupted fit's losses of the later steps, parameters, every
+       optimizer tensor and the generator's state bit for bit; metrics.csv
+       holds the uninterrupted fit's steps; events.jsonl has
+       ``fault.preempt`` and ``resume`` with ``fast_forward_batches``
+       ``FIT_KILL_AT``;
+    3. the sentinel ladder (NaN batches ``FIT_POISON``): ``fault.skip`` with
+       every optimizer tensor held, then ``fault.rollback`` to the step-4
+       checkpoint written into the same tensors (every parameter and moment
+       keeps its address) with no recapture of the train step, and the fit
+       finishes;
+    4. the fit's launches: train_bf16's per step times the steps taken, plus
+       ``FIT_EVAL_FORWARD`` per validation, exactly, and no other kernel.
+
+    Recorded, not gated: ms a step in the log windows after the first
+    against the bare step's median (sentinel on and off), input_wait_ms, the
+    time the loop blocks on an async save and the save's write time, the
+    rollback's restore time, the checkpoint's bytes, the fit's peak memory,
+    and the mfu column (the card's peak, ``obs.mfu``)."""
+    import tempfile
+
+    from perceiver_io_tpu_torch import training as tt
+
+    lat = FLAGSHIP["max_latents"]
+    per_step = train_per_step("concat", "", BF16)
+    want_launches = {k: v * FIT_STEPS for k, v in per_step.items() if v}
+    for k, v in FIT_EVAL_FORWARD.items():
+        want_launches[k] += v * (FIT_STEPS // FIT_VAL)
+    report = {"card": card, "steps": FIT_STEPS, "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH}
+    # the bare loop: the captured step over the same batches
+    _, _, state = fit_state()
+    bare_step = tt.make_train_step(poisonable(tt.clm_loss_fn(lat)), microbatch=TRAIN_MICROBATCH, sentinel=True)
+    bare_losses, bare_ms = [], []
+    batches = fit_batches()
+    for _ in range(FIT_STEPS):
+        b = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = bare_step(state, b)
+        bare_losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        bare_ms.append(1e3 * (time.perf_counter() - t0))
+    bare_params = [p.detach().cpu().clone() for p in state.model.parameters()]
+    del state, bare_step, metrics
+    with tempfile.TemporaryDirectory() as tmp:
+        fit = fit_run(f"{tmp}/fit")
+        st = fit["state"]
+        fit_params = [p.detach().cpu().clone() for p in st.model.parameters()]
+        fit_tensors = [t.detach().cpu().clone() for t in st.optimizer.state_tensors()]
+        fit_gen = st.generator.get_state()
+        fit_rows = [e for e in fit["events"] if e["event"] == "log"]
+        fit_end = next(e for e in fit["events"] if e["event"] == "fit_end")
+        del st, fit["state"], fit["captured"]
+        check1 = {"losses_equal": fit["losses"] == bare_losses,
+                  "params_equal": all(torch.equal(a, b) for a, b in zip(fit_params, bare_params))}
+        del bare_params
+        # preempt at FIT_KILL_AT, then resume from a fresh state and Trainer
+        first = fit_run(f"{tmp}/run", trip_at=FIT_KILL_AT)
+        del first["state"], first["captured"]
+        resumed = fit_run(f"{tmp}/run", resume="auto")
+        rs = resumed["state"]
+        resume_ev = [e for e in resumed["events"] if e["event"] == "resume"]
+        check2 = {
+            "steps_run": [len(first["losses"]), len(resumed["losses"])],
+            "losses_equal": resumed["losses"] == fit["losses"][FIT_KILL_AT:],
+            "params_equal": all(torch.equal(p.detach().cpu(), q) for p, q in zip(rs.model.parameters(), fit_params)),
+            "optimizer_equal": all(torch.equal(t.detach().cpu(), q)
+                                   for t, q in zip(rs.optimizer.state_tensors(), fit_tensors)),
+            "generator_equal": torch.equal(rs.generator.get_state(), fit_gen),
+            "csv_steps": resumed["csv_steps"], "uninterrupted_csv_steps": fit["csv_steps"],
+            "preempt_event": any(e["event"] == "fault.preempt" for e in resumed["events"]),
+            "fast_forward_batches": [e["fast_forward_batches"] for e in resume_ev],
+        }
+        restore_end = next(e for e in resumed["events"] if e["event"] == "fit_end" and e["step"] == FIT_STEPS)
+        del rs, resumed["state"], resumed["captured"], fit_tensors
+        free_card()
+        # the sentinel ladder: a skip, then a rollback in place
+        held_skip = []
+        ladder = fit_run(f"{tmp}/ladder", poison_at=FIT_POISON, held_skip=held_skip)
+        ls = ladder["state"]
+        captured = ladder["captured"]
+        faults_seen = [(e["event"], e.get("step"), e.get("from_step"), e.get("to_step"))
+                       for e in ladder["events"] if e["event"].startswith("fault.")]
+        ladder_end = next(e for e in ladder["events"] if e["event"] == "fit_end")
+        check3 = {"faults": faults_seen, "held_skip": held_skip, "captures": captured.captures,
+                  "step": ls.step, "losses": ladder["losses"], "addresses_kept": ladder["addresses_kept"]}
+        del ls, ladder["state"], captured, ladder["captured"]
+        free_card()
+        # the sentinel off: time only
+        off = fit_run(f"{tmp}/off", sentinel=False)
+        off_rows = [e for e in off["events"] if e["event"] == "log"]
+        del off["state"], off["captured"]
+        free_card()
+    report.update(
+        check1=check1, check2=check2, check3=check3,
+        launches={k: fit["launches"].get(k, 0) for k in sorted(set(fit["launches"]) | set(want_launches))},
+        want_launches=want_launches, losses=fit["losses"],
+        bare_step_ms=bare_ms, bare_median_ms=statistics.median(bare_ms[1:]),
+        fit_window_ms_sentinel_on=fit_window_ms(fit["events"]),
+        fit_window_ms_sentinel_off=fit_window_ms(off["events"]),
+        step_dispatch_ms={"sentinel_on": fit_dispatch_ms(fit["events"]),
+                          "sentinel_off": fit_dispatch_ms(off["events"])},
+        input_wait_ms=[r["input_wait_ms"] for r in fit_rows], goodput=[r["goodput"] for r in fit_rows],
+        mfu=[r.get("mfu") for r in fit_rows], tokens_per_sec=[r.get("tokens_per_sec") for r in fit_rows],
+        mfu_sentinel_off=[r.get("mfu") for r in off_rows],
+        saves=fit["saves"], fit_end=fit_end, restore_fit_end=restore_end, ladder_fit_end=ladder_end,
+        peak_memory_gb=fit["peak_gb"], fit_wall_s=fit["wall_s"],
+    )
+    log("fit_bf16: " + json.dumps(report))
+    if not (check1["losses_equal"] and check1["params_equal"]):
+        raise SystemExit(f"fit_bf16: the fit's losses or parameters are not the bare step's bit for bit: {check1}")
+    if not (check2["steps_run"] == [FIT_KILL_AT, FIT_STEPS - FIT_KILL_AT] and check2["losses_equal"]
+            and check2["params_equal"] and check2["optimizer_equal"] and check2["generator_equal"]
+            and check2["csv_steps"] == check2["uninterrupted_csv_steps"] and check2["preempt_event"]
+            and check2["fast_forward_batches"] == [FIT_KILL_AT]):
+        raise SystemExit(f"fit_bf16: preempt and resume is not the uninterrupted fit: {check2}")
+    want_faults = [("fault.skip", FIT_POISON[0], None, None), ("fault.skip", FIT_POISON[1], None, None),
+                   ("fault.rollback", None, FIT_POISON[2], FIT_VAL)]
+    if not (check3["faults"] == want_faults and check3["held_skip"] == [True] and check3["captures"] == 1
+            and check3["step"] == FIT_STEPS and check3["addresses_kept"] is True
+            and all(math.isfinite(x) for x in check3["losses"][-2:])):
+        raise SystemExit(f"fit_bf16: the sentinel ladder went wrong (want {want_faults}): {check3}")
+    if report["launches"] != {k: want_launches.get(k, 0) for k in report["launches"]}:
+        raise SystemExit(f"fit_bf16: launches {report['launches']}, expected {want_launches}")
+    TIMES["fit_bf16_ms_a_step"] = {"fit_sentinel_on": report["fit_window_ms_sentinel_on"],
+                                   "fit_sentinel_off": report["fit_window_ms_sentinel_off"],
+                                   "bare_median": report["bare_median_ms"]}
+    return fit["launches"]
+
+
 def chunk_activation_gb(dtype: torch.dtype, variant: str) -> float:
     """The device memory (GB) one training chunk's forward and backward of the
     flagship (batch 2, a host keep set) takes at its peak above what the
@@ -3028,6 +3311,9 @@ def main() -> None:
         for phase, pair in (("train_bf16", train_bf16), *a4.items()) for kind, run in pair.items()}}))
     dropout_replays_phase(card)
     optim_phase(card)
+    free_card()
+    # the trainer (ROADMAP A5): Trainer.fit around train_bf16's captured step
+    by_phase["fit_bf16"] = fit_phase(card)
     free_card()
     # the contiguous decode pair (make_decode_fns, generate) as a CUDA graph
     by_phase["decode_pair"] = decode_pair_phase(card)

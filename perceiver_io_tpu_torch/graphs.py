@@ -22,16 +22,20 @@ static input buffers that the caller fills before each replay.
   dict (the train and eval steps): it captures at the first call and again
   when the batch's keys, shapes or dtypes change (as ``jit`` retraces), and
   copies each call's batch into the capture's static buffers before a replay.
+  It counts its captures and their host seconds (``obs.recompile`` reads
+  them, as the JAX package's tracker reads ``jit``'s cache size).
 
 A capture that fails raises; no caller falls back to the eager step.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import re
 import tempfile
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 from torch.utils._pytree import tree_map_only
@@ -70,7 +74,14 @@ class Graph:
 
     CUDA generators that ``fn`` draws from are registered with the graph, so
     each replay draws fresh numbers (the default generator always is). The
-    captured graph is kept beside its executable for :meth:`kernel_nodes`."""
+    captured graph is kept beside its executable for :meth:`kernel_nodes`.
+
+    Python's automatic garbage collection is off while the capture records:
+    a collection could free a dropped graph held in a reference cycle, and
+    destroying a CUDA graph is refused while a stream captures, which ends
+    the capture with an error. The capture is thread-local, so the threads a
+    trainer runs beside it (the batch prefetch, the checkpoint writer) may
+    call into CUDA meanwhile."""
 
     def __init__(self, fn: Callable[[], Any], name: str, stream: "torch.cuda.Stream",
                  generators: Iterable[torch.Generator] = ()):
@@ -87,8 +98,10 @@ class Graph:
                 failure.append(e)
                 raise
 
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
                 self.outputs = body()
         except RuntimeError as e:
             first = failure[0] if failure else e
@@ -97,6 +110,8 @@ class Graph:
                     "metrics) before the first call") if "legacy stream" in str(first) else ""
             raise RuntimeError(f"capturing {name} into a CUDA graph failed: {first}{hint}") from first
         finally:
+            if collecting:
+                gc.enable()
             self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items() if n != before[k]}
             build.LAUNCHES.update(before)
         self.graph.instantiate()
@@ -154,11 +169,15 @@ class CapturedStep:
     first). The first call of each capture is the warm-up and returns its
     own result; later calls copy the batch into the capture's device
     buffers and replay. Results are copies of the graph's outputs, so a
-    caller may keep them across calls."""
+    caller may keep them across calls. ``captures`` counts the captures made
+    and ``capture_s`` holds each capturing call's host seconds (the warm-up
+    step's dispatch, the capture and the instantiation)."""
 
     def __init__(self, fn: Callable, name: str):
         self.fn, self.name = fn, name
         self.graph: Optional[Graph] = None
+        self.captures = 0
+        self.capture_s: List[float] = []
         self._bound: tuple = ()
         self._key = None
         self._static: Dict[str, Optional[torch.Tensor]] = {}
@@ -170,6 +189,7 @@ class CapturedStep:
         if self.graph is not None and same and key == self._key:
             self._fill(batch)
             return tree_map_only(torch.Tensor, torch.Tensor.clone, self.graph.replay())
+        t0 = time.perf_counter()
         self.graph = None
         self._static = {k: None if t is None else torch.empty(t.shape, dtype=t.dtype, device=device)
                         for k, t in ((k, _as_tensor(v)) for k, v in batch.items())}
@@ -178,6 +198,8 @@ class CapturedStep:
         out = warm_up(lambda: self.fn(*bound, self._static), stream)
         self.graph = Graph(lambda: self.fn(*bound, self._static), self.name, stream, generators)
         self._bound, self._key = bound, key
+        self.captures += 1
+        self.capture_s.append(time.perf_counter() - t0)
         return out
 
     def _fill(self, batch: Dict[str, Any]) -> None:

@@ -1,0 +1,428 @@
+"""Fault handling for preemption-safe training (a port of
+``perceiver_io_tpu/training/faults.py``; the process index from
+``torch.distributed``, the batch walk over dicts, lists and tuples).
+
+Four pieces, wired through ``Trainer.fit``:
+
+- :class:`PreemptionGuard` — SIGTERM/SIGINT turn into a "save at the next
+  step boundary and exit cleanly" request instead of killing the process
+  mid-checkpoint. ``Trainer.fit`` installs one per fit (main thread only)
+  and, when tripped, writes a final checkpoint and returns. A second
+  signal falls through to the previous handler (so ctrl-C twice still
+  force-kills).
+- :class:`DivergenceSentinel` — the host half of divergence detection.
+  The in-step half (``make_train_step(sentinel=True)``) tests the loss and
+  gradients for finiteness on the device and *skips* the update for
+  non-finite steps (parameters and optimizer state held, the step counter
+  and the generator advance). The host half watches the per-step loss and
+  the skip flag and walks a policy ladder: skip-step →
+  rollback-to-last-checkpoint (the restored step counter rewinds any
+  step-indexed LR schedule with it) → halt.
+- :class:`RetryPolicy` / :func:`call_with_retry` — bounded retry with
+  exponential backoff + deterministic jitter for input-pipeline fetches
+  (``data.loader.Batches(retry=...)``) and checkpoint I/O.
+- :class:`QuarantineIterator` — poison-batch quarantine: batches carrying
+  non-finite float leaves are dropped (with the offending leaf path
+  reported) instead of poisoning gradients; bounded consecutive drops so
+  a fully-poisoned stream still fails loudly.
+"""
+
+from __future__ import annotations
+
+import signal
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class DivergenceHalt(RuntimeError):
+    """The sentinel's last rung: the run diverged past its rollback budget
+    (or diverged with no checkpoint to roll back to) and was stopped to
+    save the remaining compute budget."""
+
+
+class FetchRetriesExhausted(RuntimeError):
+    """A loader fetch kept failing past ``RetryPolicy.max_retries``."""
+
+
+# ---------------------------------------------------------------------------
+# preemption: signal -> save-at-next-step-boundary request
+# ---------------------------------------------------------------------------
+
+
+class PreemptionGuard:
+    """Convert SIGTERM/SIGINT into a cooperative stop request.
+
+    The train loop polls :attr:`requested` at each step boundary — the only
+    point where host state (train state, data iterator position, metrics
+    window) is consistent enough to checkpoint. ``install()`` chains the
+    previous handlers: the FIRST signal only sets the flag; a SECOND signal
+    of the same kind falls through to the previous handler (default
+    SIGTERM death / KeyboardInterrupt), so a stuck run can still be killed.
+
+    ``trip()`` requests preemption programmatically — the chaos harness
+    uses it for deterministic kill-at-step-N injection, and tests use it
+    where real signals are unavailable (non-main threads).
+    """
+
+    def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT)):
+        self.signals = tuple(signals)
+        self._requested = threading.Event()
+        self._previous: dict = {}
+        self._installed = False
+        self.signal_count = 0
+
+    @property
+    def requested(self) -> bool:
+        return self._requested.is_set()
+
+    def trip(self) -> None:
+        self._requested.set()
+
+    def _handle(self, signum, frame):
+        self.signal_count += 1
+        if self._requested.is_set():
+            # second signal: escalate to the previous behavior
+            prev = self._previous.get(signum)
+            if callable(prev):
+                prev(signum, frame)
+                return
+            if prev == signal.SIG_DFL:
+                signal.signal(signum, signal.SIG_DFL)
+                signal.raise_signal(signum)
+            return  # SIG_IGN / None: stay cooperative
+        self._requested.set()
+
+    def install(self) -> bool:
+        """Install the handlers; returns False (and installs nothing) when
+        not on the main thread — ``signal.signal`` is main-thread-only, and
+        a worker-thread fit simply runs unguarded."""
+        if self._installed:
+            return True
+        if threading.current_thread() is not threading.main_thread():
+            return False
+        try:
+            for s in self.signals:
+                self._previous[s] = signal.getsignal(s)
+                signal.signal(s, self._handle)
+        except ValueError:  # non-main interpreter contexts
+            self._previous.clear()
+            return False
+        self._installed = True
+        return True
+
+    def uninstall(self) -> None:
+        if not self._installed:
+            return
+        for s, prev in self._previous.items():
+            try:
+                signal.signal(s, prev)
+            except (ValueError, TypeError):
+                pass
+        self._previous.clear()
+        self._installed = False
+
+    def __enter__(self) -> "PreemptionGuard":
+        self.install()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()
+
+
+# ---------------------------------------------------------------------------
+# divergence sentinel: policy ladder over per-step loss + in-graph skip flag
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SentinelConfig:
+    """Policy ladder thresholds for :class:`DivergenceSentinel`.
+
+    The in-graph check (``make_train_step(sentinel=True)``) already holds
+    params/opt state on non-finite steps; this config decides when skipped
+    or spiking steps escalate from "noted" to "roll back" to "halt".
+    """
+
+    # trailing finite-loss window the spike detector compares against
+    window: int = 50
+    # observations required before spike detection arms (a cold-start loss
+    # drop must not look like the "normal" level a later spike is measured
+    # against — warmup losses are volatile)
+    min_history: int = 20
+    # loss > spike_factor * trailing-window median => one spike observation
+    spike_factor: float = 10.0
+    # consecutive spike observations before rolling back (a single outlier
+    # batch is not divergence)
+    spike_patience: int = 5
+    # consecutive in-graph skips (non-finite loss/grads) before rolling
+    # back — persistent non-finiteness means the trajectory, not the batch
+    skip_limit: int = 3
+    # rollbacks before halting the run (each rollback replays the interval
+    # from the last checkpoint; a run that keeps diverging past the same
+    # point is burning its budget)
+    rollback_limit: int = 2
+    # compile the finiteness check + conditional update into the train step
+    # (unsupported by the overlap-scheduled step: there detection is
+    # host-side only and non-finite losses go straight to the rollback rung)
+    in_graph_skip: bool = True
+
+
+@dataclass
+class SentinelDecision:
+    action: str  # "ok" | "skip" | "rollback" | "halt"
+    reason: str = ""
+    detail: dict = field(default_factory=dict)
+
+
+class DivergenceSentinel:
+    """Windowed loss watcher implementing the skip → rollback → halt ladder.
+
+    ``observe(step, loss, skipped)`` is called once per completed step with
+    the (host-fetched) scalar loss and the in-graph skip flag; it returns a
+    :class:`SentinelDecision` the trainer acts on. The sentinel itself
+    never touches state — rollback/halt are the trainer's moves — so it is
+    trivially unit-testable and reusable outside ``Trainer``.
+    """
+
+    def __init__(self, config: Optional[SentinelConfig] = None):
+        self.config = config or SentinelConfig()
+        self._window: list = []
+        self._consecutive_skips = 0
+        self._consecutive_spikes = 0
+        self.rollbacks = 0
+        self.skips = 0
+        self.spikes = 0
+
+    def _rollback_or_halt(self, reason: str, detail: dict) -> SentinelDecision:
+        if self.rollbacks >= self.config.rollback_limit:
+            return SentinelDecision("halt", reason, detail)
+        self.rollbacks += 1
+        return SentinelDecision("rollback", reason, detail)
+
+    def notify_rollback_unavailable(self) -> SentinelDecision:
+        """The trainer had no checkpoint to roll back to: the ladder's
+        middle rung is gone, so the decision escalates to halt."""
+        return SentinelDecision("halt", "rollback-unavailable", {})
+
+    def reset_window(self) -> None:
+        """Forget the trailing window (after a rollback: the replayed
+        interval re-fills it; the diverged losses must not set the level)."""
+        self._window.clear()
+        self._consecutive_spikes = 0
+        self._consecutive_skips = 0
+
+    def observe(self, step: int, loss: Optional[float], skipped: bool) -> SentinelDecision:
+        cfg = self.config
+        if skipped or (loss is not None and not np.isfinite(loss)):
+            self.skips += 1
+            self._consecutive_skips += 1
+            self._consecutive_spikes = 0
+            if self._consecutive_skips >= cfg.skip_limit:
+                detail = {"consecutive_skips": self._consecutive_skips}
+                self._consecutive_skips = 0
+                return self._rollback_or_halt("persistent-nonfinite", detail)
+            if not skipped:
+                # non-finite loss NOT held off by an in-graph skip (overlap
+                # step, or in_graph_skip=False): the update already landed in
+                # params — waiting out skip_limit would train on garbage
+                detail = {"loss": None, "step": int(step)}
+                self._consecutive_skips = 0
+                return self._rollback_or_halt("nonfinite-applied", detail)
+            return SentinelDecision("skip", "nonfinite", {"step": int(step)})
+        self._consecutive_skips = 0
+        if loss is None:
+            return SentinelDecision("ok")
+        level = float(np.median(self._window)) if len(self._window) >= cfg.min_history else None
+        # windowed spike detection: compare against the trailing median of
+        # FINITE losses (median, not mean — one spike must not drag the level
+        # up and mask the next)
+        self._window.append(float(loss))
+        if len(self._window) > cfg.window:
+            self._window.pop(0)
+        if level is not None and abs(loss) > cfg.spike_factor * max(abs(level), 1e-12):
+            self.spikes += 1
+            self._consecutive_spikes += 1
+            if self._consecutive_spikes >= cfg.spike_patience:
+                detail = {
+                    "loss": float(loss),
+                    "window_median": level,
+                    "consecutive_spikes": self._consecutive_spikes,
+                }
+                self._consecutive_spikes = 0
+                return self._rollback_or_halt("loss-spike", detail)
+            return SentinelDecision(
+                "ok", "spike-noted", {"loss": float(loss), "window_median": level}
+            )
+        self._consecutive_spikes = 0
+        return SentinelDecision("ok")
+
+
+# ---------------------------------------------------------------------------
+# input-pipeline resilience: bounded retry + poison-batch quarantine
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded retry with exponential backoff + deterministic jitter.
+
+    ``delay(attempt) = min(base_delay * 2**attempt, max_delay)`` scaled by a
+    jitter factor drawn from ``[1-jitter, 1+jitter)`` with a counter-seeded
+    RNG — deterministic for a given (host, attempt) pair, so chaos runs
+    reproduce exactly. The seed mixes in the process index so
+    different hosts of a multi-host program draw DIFFERENT schedules — the
+    point of jitter: many hosts retrying a shared store after an outage
+    must not stampede in lockstep.
+    """
+
+    max_retries: int = 3
+    base_delay: float = 0.05
+    max_delay: float = 2.0
+    jitter: float = 0.25
+    # exception types considered transient; everything else propagates
+    retry_on: Tuple[type, ...] = (OSError, IOError, TimeoutError, ConnectionError)
+    seed: int = 0
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.base_delay * (2.0**attempt), self.max_delay)
+        if self.jitter:
+            from perceiver_io_tpu_torch.parallel.dist import process_index
+
+            seed = self.seed + attempt + 7919 * process_index()  # decorrelate processes
+            u = np.random.default_rng(seed).random()
+            d *= 1.0 + self.jitter * (2.0 * u - 1.0)
+        return float(max(d, 0.0))
+
+
+def call_with_retry(
+    fn: Callable,
+    policy: RetryPolicy,
+    on_retry: Optional[Callable[[int, BaseException, float], None]] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    reraise: bool = False,
+):
+    """``fn()`` with ``policy``-bounded retries on its transient exception
+    types. ``on_retry(attempt, exc, delay)`` observes each retry (the loader
+    surfaces these as ``fault.fetch_retry`` events); ``sleep`` is injectable
+    so tests assert the backoff schedule without waiting it out.
+
+    Exhaustion raises :class:`FetchRetriesExhausted` chained to the last
+    error (the loader contract — ``Batches`` callers catch one stable
+    type). ``reraise=True`` instead re-raises the ORIGINAL exception — the
+    serving front end's contract (the JAX package's, ROADMAP A6 for the
+    port): it classifies terminal outcomes by the real exception type, not
+    a retry wrapper."""
+    last: Optional[BaseException] = None
+    for attempt in range(policy.max_retries + 1):
+        try:
+            return fn()
+        except policy.retry_on as e:  # noqa: PERF203 — retry loop
+            last = e
+            if attempt >= policy.max_retries:
+                break
+            d = policy.delay(attempt)
+            if on_retry is not None:
+                on_retry(attempt, e, d)
+            sleep(d)
+    if reraise:
+        raise last
+    raise FetchRetriesExhausted(
+        f"fetch failed after {policy.max_retries + 1} attempts: {last!r}"
+    ) from last
+
+
+def fetch_retry_emitter(event_log) -> Callable[[int, BaseException, float], None]:
+    """An ``on_retry`` callback (for :func:`call_with_retry` /
+    ``data.loader.Batches(on_retry=...)``) that surfaces every loader retry
+    as a ``fault.fetch_retry`` event — flaky-input incidents then show up in
+    the same audit trail as preemptions and sentinel trips."""
+
+    def on_retry(attempt: int, exc: BaseException, delay: float) -> None:
+        event_log.emit(
+            "fault.fetch_retry", attempt=int(attempt), error=str(exc), delay_s=round(delay, 6)
+        )
+
+    return on_retry
+
+
+def find_nonfinite_leaf(batch) -> Optional[str]:
+    """Path of the first float leaf carrying a non-finite value, or None.
+
+    Dicts (in sorted key order), lists and tuples are walked as
+    ``jax.tree_util`` flattens them, and the path is written as its
+    ``keystr`` writes it (``"['x']"``, ``"['aux'][1]"``). Integer/bool leaves
+    (token ids, labels, masks) cannot be non-finite and are skipped; numpy
+    arrays, Python numbers and float torch tensors are checked. The check
+    runs in the loader/prefetch thread, not the step.
+    """
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                found = walk(node[key], f"{path}[{key!r}]")
+                if found is not None:
+                    return found
+            return None
+        if isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                found = walk(child, f"{path}[{i}]")
+                if found is not None:
+                    return found
+            return None
+        if isinstance(node, torch.Tensor):
+            finite = not node.is_floating_point() or bool(torch.isfinite(node).all())
+            return None if finite else path
+        arr = np.asarray(node) if hasattr(node, "shape") or np.isscalar(node) else None
+        if arr is None or arr.dtype.kind != "f" or np.isfinite(arr).all():
+            return None
+        return path
+
+    return walk(batch, "")
+
+
+class QuarantineIterator:
+    """Drop batches carrying non-finite float leaves instead of feeding
+    them to the step (poison-batch quarantine).
+
+    Each dropped batch reports the offending leaf path through
+    ``on_quarantine(path, n_dropped)`` — the trainer emits these as
+    ``fault.poison_batch`` events. ``max_consecutive`` bounds the silent
+    skipping: a stream that is ALL poison raises instead of spinning
+    through an epoch producing nothing.
+    """
+
+    def __init__(
+        self,
+        iterator: Iterable,
+        on_quarantine: Optional[Callable[[str, int], None]] = None,
+        max_consecutive: int = 16,
+    ):
+        self._it = iter(iterator)
+        self._on_quarantine = on_quarantine
+        self._max_consecutive = max_consecutive
+        self.n_quarantined = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        consecutive = 0
+        while True:
+            batch = next(self._it)
+            path = find_nonfinite_leaf(batch)
+            if path is None:
+                return batch
+            self.n_quarantined += 1
+            consecutive += 1
+            if self._on_quarantine is not None:
+                self._on_quarantine(path, self.n_quarantined)
+            if consecutive >= self._max_consecutive:
+                raise RuntimeError(
+                    f"{consecutive} consecutive poison batches (last non-finite "
+                    f"leaf: {path}); the input pipeline is broken, not flaky"
+                )

@@ -1,0 +1,198 @@
+"""Analytic training-FLOPs accounting for Perceiver AR — the scaling-study
+estimator (reference: examples/scaling/clm/scaling/flops.py:7-191); a copy of
+``perceiver_io_tpu/utils/flops.py`` whose parameter count builds the port's
+model.
+
+The cost model splits Perceiver AR into a decoder-only-equivalent
+self-attention part (Kaplan-style per-token accounting, arXiv:2001.08361
+§2.1) and the cross-attention extra over the prefix, discounted by the
+prefix-dropout keep rate. FLOPs are per *latent* token; forward+backward is
+3x the forward matmuls.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+
+class ComputeEstimator:
+    """Training FLOPs per latent token (reference: flops.py:7-88).
+
+    Assumes qkv width == model width and MLP widening 4 (the paper/reference
+    defaults for Perceiver AR CLM)."""
+
+    def __init__(self, vocab_size: int, max_seq_len: int, num_latents: int):
+        self.vocab_size = vocab_size
+        self.num_prefix = max_seq_len - num_latents
+        self.num_latents = num_latents
+
+    # ---------------------------------------------------------------- parts
+
+    @staticmethod
+    def _input_embed(num_channels: int) -> int:
+        return 4 * num_channels
+
+    @staticmethod
+    def _mlp_layer(num_channels: int) -> int:
+        # two matmuls at widening 4: 2*(C*4C) + 2*(4C*C)
+        return 16 * num_channels**2
+
+    def _self_attn_layer(self, num_channels: int) -> int:
+        qkv = 6 * num_channels**2
+        attn = 2 * num_channels * self.num_latents
+        out = 2 * num_channels**2
+        return qkv + attn + out
+
+    def _cross_attn_layer(self, num_channels: int) -> int:
+        # per *prefix* token: k/v projections + attention reads
+        kv = 4 * num_channels**2
+        attn = 2 * num_channels * self.num_latents
+        return kv + attn
+
+    def _final_logits(self, num_channels: int) -> int:
+        return 2 * num_channels * self.vocab_size
+
+    # ---------------------------------------------------------------- totals
+
+    def self_attn(self, num_channels: int, num_layers: int) -> int:
+        """Self-attention-part FLOPs per latent token (== decoder-only
+        transformer of ``num_layers`` layers incl. the hybrid layer)."""
+        forward = (
+            self._input_embed(num_channels)
+            + (self._self_attn_layer(num_channels) + self._mlp_layer(num_channels)) * num_layers
+            + self._final_logits(num_channels)
+        )
+        return forward * 3
+
+    def cross_attn(self, num_channels: int, prefix_dropout: float = 0.5) -> int:
+        """Cross-attention extra FLOPs per latent token: prefix embedding and
+        attention amortized over the latents, dropout-discounted."""
+        prefix_latent_ratio = self.num_prefix / self.num_latents
+        embed_prefix = self._input_embed(num_channels) * prefix_latent_ratio
+        attn_prefix = (
+            self._cross_attn_layer(num_channels) * prefix_latent_ratio * (1.0 - prefix_dropout)
+        )
+        return int(embed_prefix + attn_prefix) * 3
+
+
+@functools.lru_cache(maxsize=64)
+def num_model_params(
+    num_channels: int, num_layers: int, num_latents: int, num_prefix: int, vocab_size: int
+) -> int:
+    """Exact parameter count of the corresponding ``CausalLanguageModel``
+    (reference: flops.py:164-174, via model instantiation): the port's model
+    for the same config, built on the CPU."""
+    from perceiver_io_tpu_torch.models.text.clm import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(
+        vocab_size=vocab_size,
+        max_seq_len=num_latents + num_prefix,
+        max_latents=num_latents,
+        num_channels=num_channels,
+        num_self_attention_layers=num_layers - 1,
+    )
+    model = CausalLanguageModel(config, device="cpu")
+    return sum(p.numel() for p in model.parameters())
+
+
+def num_cross_attn_params(num_channels: int, num_prefix: int) -> int:
+    """Prefix position-embedding parameters (reference: flops.py:159-161)."""
+    return num_channels * num_prefix
+
+
+def num_self_attn_params(
+    num_channels: int, num_layers: int, num_latents: int, num_prefix: int, vocab_size: int
+) -> int:
+    return num_model_params(
+        num_channels, num_layers, num_latents, num_prefix, vocab_size
+    ) - num_cross_attn_params(num_channels, num_prefix)
+
+
+class ModelInfo:
+    """Per-configuration accounting helper (reference: flops.py:91-151)."""
+
+    def __init__(self, num_channels: int, num_layers: int, compute_estimator: ComputeEstimator):
+        self.num_channels = num_channels
+        self.num_layers = num_layers
+        self.compute_estimator = compute_estimator
+
+    @property
+    def num_latents(self) -> int:
+        return self.compute_estimator.num_latents
+
+    @property
+    def num_prefix(self) -> int:
+        return self.compute_estimator.num_prefix
+
+    @property
+    def vocab_size(self) -> int:
+        return self.compute_estimator.vocab_size
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.num_prefix + self.num_latents
+
+    def num_self_attn_params(self) -> int:
+        return num_self_attn_params(
+            self.num_channels, self.num_layers, self.num_latents, self.num_prefix, self.vocab_size
+        )
+
+    def num_cross_attn_params(self) -> int:
+        return num_cross_attn_params(self.num_channels, self.num_prefix)
+
+    def self_attn_flops_approx(self) -> int:
+        """Chinchilla C = 6N approximation (arXiv:2203.15556 App. F)."""
+        return 6 * self.num_self_attn_params()
+
+    def self_attn_flops(self) -> int:
+        return self.compute_estimator.self_attn(self.num_channels, self.num_layers)
+
+    def cross_attn_flops(self, prefix_dropout: float = 0.5) -> int:
+        return self.compute_estimator.cross_attn(self.num_channels, prefix_dropout)
+
+
+def train_step_flops(config, batch_size: int, prefix_dropout_keep: float) -> float:
+    """Analytic training FLOPs (fwd+bwd ~ 3x fwd matmuls) for one step of a
+    Perceiver AR CLM config: self-attention part over latents +
+    cross-attention over the (dropout-discounted) prefix.
+
+    This is THE shared cost model for MFU across surfaces — ``bench.py``'s
+    telemetry block and the trainer's per-log-row ``mfu``
+    (``obs.mfu.clm_train_telemetry``) both use it, so the two numbers are
+    directly comparable for the same config on the same chip. Unlike the
+    reference :class:`ComputeEstimator` (kept for scaling-study parity) it
+    counts the CA q/o projections and CA MLP and honors the config's
+    widening factors.
+    """
+    lat, c, layers = config.max_latents, config.num_channels, config.num_self_attention_layers
+    prefix = (config.max_seq_len - lat) * prefix_dropout_keep
+    kv = prefix + lat
+    wf_sa, wf_ca = config.self_attention_widening_factor, config.cross_attention_widening_factor
+
+    # per-token matmul FLOPs (x2 for multiply-add)
+    ca_proj = 2 * lat * (4 * c * c) + 2 * prefix * (2 * c * c)  # q,o over latents; k,v over all kv
+    ca_attn = 2 * 2 * lat * kv * c
+    ca_mlp = 2 * lat * 2 * wf_ca * c * c
+    sa_proj = layers * 2 * lat * 4 * c * c
+    sa_attn = layers * 2 * 2 * lat * lat * c
+    sa_mlp = layers * 2 * lat * 2 * wf_sa * c * c
+    logits = 2 * lat * c * config.vocab_size
+    fwd = ca_proj + ca_attn + ca_mlp + sa_proj + sa_attn + sa_mlp + logits
+    return 3.0 * fwd * batch_size
+
+
+def num_training_tokens(num_steps: int, num_latents: int, batch_size: int) -> int:
+    return batch_size * num_latents * num_steps
+
+
+def num_training_steps(num_tokens: int, num_latents: int, batch_size: int) -> int:
+    return math.ceil(num_tokens / num_latents / batch_size)
+
+
+def training_flops(ref_model: ModelInfo, num_steps: int, batch_size: int):
+    """(total self-attention FLOPs, total latent tokens) for a run
+    (reference: flops.py:184-191)."""
+    d_ref = num_training_tokens(num_steps, ref_model.num_latents, batch_size)
+    c_ref = ref_model.self_attn_flops() * d_ref
+    return c_ref, d_ref

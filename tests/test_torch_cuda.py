@@ -4,8 +4,10 @@ decode), K1 (LayerNorm forward), K4a/K4b (packed flash backward), K5
 (LayerNorm backward), K6/K7a/K7b (the two-segment flash forward and
 backward), K8/K9a/K9b (the heads-major flash forward and backward), train
 steps (with and without "twoseg", and of a small image classifier), the
-engine serving through them, and the paged decode, train and eval steps
-as CUDA graphs against their eager runs. Marked
+engine serving through them, the paged decode, train and eval steps
+as CUDA graphs against their eager runs, and ``Trainer.fit`` around them
+(against the CPU's fit, a bit-for-bit resume, a rollback without a
+recapture, the input double buffer). Marked
 ``cuda``; each test skips on a machine without a card. Run them on one with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
 suite's conftest imports JAX, which the port does not need). Tolerances: f32
@@ -1762,3 +1764,193 @@ def test_dropped_captured_steps_release_their_memory(cuda):
         held.append(torch.cuda.memory_allocated())
     assert held[2] == held[1] == held[0], held
     assert len(graphs._CAPTURE_STREAMS) == 1
+
+
+# ---------------------------------------------------------------------------
+# the trainer on the card (ROADMAP A5)
+# ---------------------------------------------------------------------------
+
+
+def _fit_state(device, dtype=torch.float32, moment_dtype=None, seed=0):
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=device,
+                                generator=torch.Generator().manual_seed(seed), dtype=dtype)
+    return tt.TrainState.create(model, tt.make_optimizer(tt.cosine_with_warmup(1e-3, 8, 2), gradient_clip=1.0,
+                                                         moment_dtype=moment_dtype),
+                                generator=torch.Generator(device=device).manual_seed(5))
+
+
+def _fit(root, state, batches, val=None, resume=False, hook=None, **cfg):
+    """A fit of ``state`` on ``batches`` logging to ``root``; returns the
+    state, each step's loss (as the step returned it) and the trainer's
+    captured train step."""
+    from perceiver_io_tpu_torch import training as tt
+
+    settings = dict(max_steps=len(batches), log_interval=2, microbatch=2, sentinel=True,
+                    checkpoint_dir=str(root / "ckpt"))
+    settings.update(cfg)
+    tr = tt.Trainer(tt.clm_loss_fn(128), config=tt.TrainerConfig(**settings),
+                    logger=tt.MetricsLogger(str(root / "logs"), use_tensorboard=False))
+    losses, orig = [], tr._train_step
+
+    def wrapped(state, batch):
+        state, metrics = orig(state, batch)
+        losses.append(metrics["loss"])
+        if hook is not None:
+            hook(tr, state)
+        return state, metrics
+
+    tr._train_step = wrapped
+    out = tr.fit(state, iter(batches), val_loader=val, resume=resume)
+    tr.close()
+    return out, [float(x) for x in losses], orig.captured
+
+
+def test_micro_fit_on_the_card_matches_the_cpu_fit(cuda, tmp_path):
+    """``Trainer.fit`` (6 steps, validation every 3, the captured steps, the
+    double buffer) on the card against the same fit on the CPU's plain
+    versions: each loss and validation loss within 1e-5 relative, each
+    parameter within 1e-5 of its largest value (the card's gradients are
+    within 1e-4 relative of the CPU's; AdamW at 1e-3 takes them through six
+    steps)."""
+    import csv
+
+    batches, val = _graph_batches(6, seed=20), _graph_batches(1, seed=21)
+    runs = {}
+    for dev in ("cpu", cuda):
+        state, losses, _ = _fit(tmp_path / str(dev), _fit_state(dev), batches, val=val, val_interval=3)
+        with open(tmp_path / str(dev) / "logs" / "metrics.csv", newline="") as f:
+            vals = [float(r["val_loss"]) for r in csv.DictReader(f) if r["val_loss"]]
+        runs[str(dev)] = (losses, vals, {n: p.detach().cpu() for n, p in state.model.named_parameters()})
+    (cl, cv, cp), (gl, gv, gp) = runs["cpu"], runs[str(cuda)]
+    assert len(cv) == len(gv) == 2
+    np.testing.assert_allclose(gl + gv, cl + cv, rtol=1e-5)
+    for name, want in cp.items():
+        err = float((gp[name] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (name, err)
+
+
+def test_resume_on_the_card_is_bit_for_bit(cuda, tmp_path):
+    """bf16 compute and moments, batches WITHOUT keep sets, so the captured
+    step draws them on the card from the state's CUDA generator (registered
+    with the graph): a fit preempted at step 3 and resumed by a fresh Trainer
+    into a fresh state (another generator seed) equals the uninterrupted fit
+    bit for bit: losses, every optimizer tensor and the generator state."""
+    batches = [{k: v for k, v in b.items() if k != "prefix_keep_idx"} for b in _graph_batches(6, seed=22)]
+    kw = dict(dtype=torch.bfloat16, moment_dtype="bfloat16")
+    ref, ref_losses, _ = _fit(tmp_path / "ref", _fit_state(cuda, **kw), batches)
+
+    def trip(tr, state):
+        if state.step == 3:
+            tr._preempt_guard.trip()
+
+    _, part1, _ = _fit(tmp_path / "run", _fit_state(cuda, **kw), batches, hook=trip)
+    fresh = _fit_state(cuda, seed=1, **kw)
+    fresh.generator.manual_seed(77)
+    out, part2, _ = _fit(tmp_path / "run", fresh, batches, resume="auto")
+    assert part1 + part2 == ref_losses and len(part1) == 3
+    assert all(torch.equal(a, b) for a, b in zip(out.optimizer.state_tensors(), ref.optimizer.state_tensors()))
+    assert torch.equal(out.generator.get_state(), ref.generator.get_state())
+    assert len(set(ref_losses)) == 6
+
+
+def test_rollback_on_the_card_does_not_recapture(cuda, tmp_path):
+    """Two NaN steps after a checkpoint roll the fit back: the checkpoint is
+    copied into the captured step's own tensors (every parameter and
+    optimizer tensor keeps its address, the values are the checkpoint's),
+    the train step keeps its one capture and graph, and the fit finishes."""
+    from perceiver_io_tpu_torch import training as tt
+
+    batches = _graph_batches(11, seed=23)  # 8 steps and the 3 the rollback replays
+    for i, b in enumerate(batches):
+        b["poison"] = np.full(4, np.nan if i in (4, 5) else 1.0, np.float32)
+
+    def poisoned(model, batch, generator=None):
+        loss, _ = tt.clm_loss_fn(128)(model, batch, generator)
+        loss = loss * batch["poison"][0]
+        return loss, {"loss": loss}
+
+    tr = tt.Trainer(poisoned, eval_loss_fn=tt.clm_loss_fn(128, deterministic=True), config=tt.TrainerConfig(
+        max_steps=8, log_interval=2, val_interval=3, microbatch=2, checkpoint_dir=str(tmp_path / "ckpt"),
+        sentinel=tt.SentinelConfig(skip_limit=2)), logger=tt.MetricsLogger(str(tmp_path / "logs"),
+                                                                          use_tensorboard=False))
+    step, restore = tr._train_step, tr.checkpoints.restore
+    graphs, at_rollback = [], []
+
+    def tracked_restore(st, at=None):
+        out = restore(st, at)
+        at_rollback.append(([t.clone() for t in out.optimizer.state_tensors()],
+                            tr.checkpoints._load_payload(tr.checkpoints.last_restore["step"])))
+        return out
+
+    def tracked_step(st, b):
+        st, m = step(st, b)
+        graphs.append(step.captured.graph)
+        return st, m
+
+    tr.checkpoints.restore, tr._train_step = tracked_restore, tracked_step
+    state = _fit_state(cuda)
+    ptrs = [t.data_ptr() for t in list(state.model.state_dict().values()) + state.optimizer.state_tensors()]
+    out = tr.fit(state, iter(batches), val_loader=_graph_batches(1, seed=24))
+    tr.close()
+    assert out is state and out.step == 8
+    assert [t.data_ptr() for t in list(state.model.state_dict().values()) + state.optimizer.state_tensors()] == ptrs
+    assert step.captured.captures == 1 and len({id(g) for g in graphs}) == 1
+    ((tensors, saved),) = at_rollback
+    assert saved["step"] == 3
+    names = [name for name, _ in state.model.named_parameters()]
+    assert all(torch.equal(t.cpu(), saved["model"][name]) for name, t in zip(names, tensors))
+    assert all(torch.equal(t.cpu(), w) for t, w in zip(tensors[len(names):], saved["optimizer"]))
+
+
+def test_double_buffered_fit_equals_the_unbuffered_fit(cuda, tmp_path):
+    """The input double buffer (the next batch's pinned copies on the copy
+    stream, the wait and ``record_stream`` before the step reads them) gives
+    the losses and parameters of the fit without it, bit for bit, with fresh
+    batches every step (a batch read before its copy landed, or from memory
+    the allocator reused, would not)."""
+    batches = _graph_batches(8, seed=25)
+    runs = {}
+    for buffered in (False, True):
+        state, losses, _ = _fit(tmp_path / str(buffered), _fit_state(cuda, torch.bfloat16, "bfloat16"), batches,
+                                input_double_buffer=buffered, prefetch_batches=2)
+        runs[buffered] = (losses, [p.detach().clone() for p in state.model.parameters()])
+    assert runs[True][0] == runs[False][0] and len(set(runs[True][0])) == 8
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+
+
+def test_a_capture_survives_the_collector_freeing_a_dropped_graph(cuda):
+    """A captured graph held in a reference cycle turns into garbage while
+    another capture records, and the collector is due then (its thresholds
+    at 1, the captured function allocating): the capture still succeeds,
+    and the old graph is freed after it. Destroying a CUDA graph is refused
+    while a stream captures; before ``graphs.Graph`` paused automatic
+    collection for its capture, that ended the capture with CUDA error 901
+    (a flagship serve's decode pair failed so, its five earlier pairs' graphs
+    collected mid-capture)."""
+    import gc
+
+    from perceiver_io_tpu_torch import graphs
+
+    stream = graphs.capture_stream(cuda)
+    x = torch.arange(4.0, device=cuda)
+    cycle = {"graph": graphs.Graph(lambda: x * 2, "old", stream)}
+    cycle["self"] = cycle
+    keep = [cycle]
+    del cycle
+
+    def body():
+        keep.clear()  # the cycle, and the graph in it, is garbage from here on
+        junk = [[i] for i in range(20000)]  # allocations that make the collector due
+        return x + len(junk)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = graphs.Graph(body, "new", stream)
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    assert torch.equal(graph.replay(), x + 20000)

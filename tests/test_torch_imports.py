@@ -24,6 +24,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "perceiver_io_tpu")
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -35,9 +36,14 @@ def _python(args, cwd, env=None):
 def test_port_imports_no_jax_and_no_jax_package():
     proc = _python(["-c", _IMPORT_ALL], ROOT)
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 29  # the serving, training and image classifier slices' modules
+    counts, names = proc.stdout.splitlines()
+    n_modules, bad = counts.split(maxsplit=1)
+    assert int(n_modules) >= 45  # the serving, training, image classifier and trainer slices' modules
     assert bad.strip() == "[]"
+    for name in ("parallel.dist", "obs.events", "obs.trace", "obs.mfu", "obs.recompile", "utils.flops",
+                 "data.loader", "data.text.tokenizer", "data.text.collators", "data.text.datamodule",
+                 "training.metrics", "training.faults", "training.checkpoint", "training.trainer"):
+        assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 
 def _no_cuda_env():
