@@ -85,7 +85,15 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    parameters) and bf16 page pools through the captured decode step: K3's
    bf16 build 9 times a decode step and no f32 build, its graph's nodes,
    TTFT and decode tok/s, every stream equal to the sequential bf16 stream
-   up to its first top-2 gap under ``NEAR_TIE_BF16``;
+   up to its first top-2 gap under ``NEAR_TIE_BF16``; then
+   serve_admission_bf16, the same model behind the admission tier (ROADMAP
+   A6): a 16-request fault plan under a ``ManualClock`` (``admission_drive``:
+   a kill, a prefill failure, a stall past a deadline, a cancel of a live
+   slot, the five shed reasons, a poisoned prefill, one breaker cycle, a
+   drain) booked exactly as planned, its events valid, its ok streams the
+   sequential ones, one capture, K3's bf16 build 9 times a step, the
+   parameters unchanged; then the front end's cost (events and breaker on
+   and off, in turns) and an open loop at twice the closed loop's rate;
 10. train_bf16: the train phase (concat) with bf16 compute and bf16 Adam
     moments, graph and eager, equal bit for bit, every launch a bf16 build;
     its step ms, tokens/s and busy share beside the f32 step's;
@@ -191,6 +199,8 @@ that is not finite fails every check.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import math
 import statistics
@@ -219,6 +229,16 @@ DECODE_NEW_TOKENS, DECODE_PROMPT = 128, 8192
 NEAR_TIE_BF16 = 5e-2
 # the suffix under which build.LAUNCHES counts a kernel's bf16 build
 BF16 = "_bf16"
+# serve_admission_bf16, part 1: the fault plan's 16 requests (prompts of
+# 2048-8192 tokens, budgets of 16-32) and the outcome each must book
+# (admission_drive says why); the poisoned request (11) books ok, its stream
+# is not compared (NaN logits)
+ADMISSION_PROMPTS, ADMISSION_BUDGETS = (2048, 8192), (16, 32)
+ADMISSION_OUTCOMES = {0: "error", 1: "error", 2: "timeout", 3: "shed", 4: "shed", 5: "cancelled", 6: "shed",
+                      7: "error", 8: "error", 9: "shed", 10: "ok", 11: "ok", 12: "ok", 13: "ok", 14: "ok", 15: "shed"}
+ADMISSION_SHEDS = {3: "deadline_unmeetable", 4: "kv_pages_exhausted", 6: "queue_full", 9: "breaker_open",
+                   15: "draining"}
+ADMISSION_POISONED = 11
 # the train phase: batch 4 in chunks of 2, five steps
 TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-3
 TRAIN_CHUNK = TRAIN_BATCH // TRAIN_MICROBATCH
@@ -1429,13 +1449,14 @@ def heads_phase(gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None):
+def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, **kw):
     """The serve's engine. Its decode step is the captured CUDA graph
     (``make_paged_step_fn`` on the card, captured at construction), or,
     with ``graphed=False``, the eager reference: the host's draws, then the
-    step's body (``generation._eager_step``) on the same state.
-    Returns the engine and the launches of the capture's warm-up, one eager
-    decode step while every slot is idle."""
+    step's body (``generation._eager_step``) on the same state. ``kw`` goes
+    to ``EngineFrontEnd`` (the admission tier's events, clock, injector,
+    config). Returns the engine and the launches of the capture's warm-up,
+    one eager decode step while every slot is idle."""
     from perceiver_io_tpu_torch import generation
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd
@@ -1445,7 +1466,7 @@ def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None):
     engine = EngineFrontEnd(
         model, num_latents=NUM_LATENTS, base_config=config,
         engine_config=EngineConfig(slots=SERVE_SLOTS, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024),
-        cache_dtype=cache_dtype, device="cuda",
+        cache_dtype=cache_dtype, device="cuda", **kw,
     )
     torch.cuda.synchronize()
     warm_up = {k: n for k, n in build.LAUNCHES.items() if n}
@@ -1578,7 +1599,7 @@ def serve_phase(card: str) -> dict:
     specs = serve_specs()
     engine, warm_up = serve_engine(model, graphed=True)
     n_sa = FLAGSHIP["num_self_attention_layers"]
-    check_graph("serve", engine._step_fn.graph, warm_up, {"paged_decode": 1 + n_sa, "flash_packed_fwd": 0})
+    check_graph("serve", engine._step_fn.captured.graph, warm_up, {"paged_decode": 1 + n_sa, "flash_packed_fwd": 0})
     run = serve_run(engine, specs, record_lengths=True)
     check_serve("serve", engine, run)
     lengths = torch.stack(run["lengths"]).reshape(-1, SERVE_SLOTS)
@@ -1631,7 +1652,7 @@ def serve_bf16_phase(card: str) -> dict:
     if any(pool.k.dtype != bf16 for pool in engine._state["cache"]):
         raise SystemExit("serve_bf16: the engine's page pools are not bf16")
     n_sa = FLAGSHIP["num_self_attention_layers"]
-    check_graph("serve_bf16", engine._step_fn.graph, warm_up,
+    check_graph("serve_bf16", engine._step_fn.captured.graph, warm_up,
                 {"paged_decode" + BF16: 1 + n_sa, "paged_decode": 0, "flash_packed_fwd" + BF16: 0})
     run = serve_run(engine, specs)
     check_serve("serve_bf16", engine, run, BF16)
@@ -1647,6 +1668,278 @@ def serve_bf16_phase(card: str) -> dict:
     TIMES["serve_bf16"]["tokens_equal_to_sequential"] = check_streams("serve_bf16", model, specs, served,
                                                                       NEAR_TIE_BF16, bf16)
     return run["launches"]
+
+
+# ---------------------------------------------------------------------------
+# serve_admission_bf16: the admission tier around the captured paged step
+# ---------------------------------------------------------------------------
+
+
+def admission_specs(request_spec, vocab: int, prompts: tuple, budgets: tuple, max_ca_tokens: int) -> list:
+    """The fault plan's 16 greedy requests from the seed: prompts and budgets
+    drawn in the ranges given, and request 4 one whose prompt alone fills
+    ``max_ca_tokens`` (it can never fit). ``request_spec`` is the
+    ``RequestSpec`` class of the package that serves them (the CPU test
+    holds the JAX package's engine to the same plan)."""
+    rng = np.random.default_rng(SEED + 2)
+    specs = []
+    for i in range(16):
+        n = max_ca_tokens if i == 4 else int(rng.integers(prompts[0], prompts[1] + 1))
+        specs.append(request_spec(index=i, prompt_len=n, max_new_tokens=int(rng.integers(budgets[0], budgets[1] + 1)),
+                                  input_ids=rng.integers(0, vocab, size=(1, n)), rng_seed=i))
+    return specs
+
+
+def admission_config(serving, retry_policy):
+    """The plan's admission policy: 4 queued at most, 1 s of projected
+    service a queued request, a breaker over a window of 4 that opens at an
+    error rate of 0.6 and probes 1 s after its first open (no jitter)."""
+    return serving.FrontEndConfig(max_queue=4, est_service_s=1.0, breaker=serving.BreakerConfig(
+        window=4, min_requests=2, error_rate_to_open=0.6, probe_backoff=retry_policy(base_delay=1.0, jitter=0.0)))
+
+
+def admission_faults(injector):
+    """The plan's injected faults: a kill after token 3 of request 0, one
+    prefill failure of request 1, a 10 s stall at token 2 of request 2, kills
+    after token 1 of requests 7 and 8, and NaN weights for request 11."""
+    return (injector.kill_at(0, 3).fail_prefill(1).stall_at(2, 2, 10.0).kill_at(7, 1).kill_at(8, 1)
+            .poison_at(ADMISSION_POISONED))
+
+
+def admission_drive(fe, specs, clock, guard) -> None:
+    """Drive an engine front end through the plan under its ``ManualClock``;
+    it books ``ADMISSION_OUTCOMES``. ``guard`` is a ``PreemptionGuard`` of the
+    front end's package, tripped by hand.
+
+    1. Requests 0-2 queue (2 with a 5 s deadline); 3 (2 s deadline, 3 s of
+       projected wait) sheds deadline_unmeetable, 4 kv_pages_exhausted; 5
+       queues and 6 finds 4 queued: queue_full. One fill and step, then 5,
+       live in its slot, is cancelled: at the next step 2's stall moves the
+       clock past its deadline (timeout), 5 retires cancelled, and at the
+       third 0 is killed. 1's prefill failed at the join (error). The
+       breaker's window, error ok ok error, stays under 0.6.
+    2. Requests 7 and 8 are killed after their first decoded token: the
+       window reaches 0.75 and the breaker opens; 9 sheds breaker_open; 1 s
+       later 10 is the half-open probe, and its ok closes the breaker.
+    3. Request 11's prefill runs on NaN weights beside the clean 12.
+    4. Requests 13 and 14 are decoding when the guard trips: the drain
+       finishes them, 15 sheds draining, and ``drain`` books the end.
+    """
+    for i in (0, 1):
+        fe.submit(specs[i])
+    fe.submit(specs[2], deadline_s=5.0)
+    for i, deadline_s in ((3, 2.0), (4, None), (5, None), (6, None)):
+        fe.submit(specs[i], deadline_s=deadline_s)
+    fe._fill_slots()
+    fe._engine_step()
+    fe.cancel(5)
+    fe.pump()
+    for i in (7, 8):
+        fe.submit(specs[i])
+    fe.pump()
+    fe.submit(specs[9])
+    clock.advance(1.0)
+    fe.submit(specs[10])
+    fe.pump()
+    for i in (11, 12):
+        fe.submit(specs[i])
+    fe.pump()
+    for i in (13, 14):
+        fe.submit(specs[i])
+    fe._fill_slots()
+    fe._engine_step()
+    fe._guard = guard
+    guard.trip()
+    fe.pump()
+    fe.submit(specs[15])
+    fe.drain()
+
+
+def check_admission_books(name: str, fe) -> None:
+    """The plan's books: each request's outcome and shed reason, the
+    per-outcome counts, a clean audit."""
+    got = {r.index: r.outcome for r in fe.records}
+    sheds = {r.index: r.shed_reason for r in fe.records if r.outcome == "shed"}
+    books = fe.books()
+    want = collections.Counter(ADMISSION_OUTCOMES.values())
+    problems = fe.audit()
+    if got != ADMISSION_OUTCOMES or sheds != ADMISSION_SHEDS or problems or books["parked"] or any(
+            books[o] != want[o] for o in ("ok", "error", "timeout", "shed", "cancelled")) or books["submitted"] != 16:
+        raise SystemExit(f"{name}: the plan booked {got}, sheds {sheds}, books {books}, audit {problems}; "
+                         f"planned {ADMISSION_OUTCOMES}, sheds {ADMISSION_SHEDS}")
+
+
+def timed_steps(engine) -> dict:
+    """Time every engine step of ``engine`` from now on: ``step`` the decode
+    step's call and the card's work (synchronized, so the token fetch that
+    follows waits for nothing), ``engine_step`` the whole of ``_engine_step``;
+    their difference is the host's bookkeeping (seams, histograms, retires,
+    events, gauges)."""
+    t = {"step": 0.0, "engine_step": 0.0}
+    step_fn, engine_step = engine._step_fn, engine._engine_step
+
+    def step(state):
+        t0 = time.perf_counter()
+        out = step_fn(state)
+        torch.cuda.synchronize()
+        t["step"] += time.perf_counter() - t0
+        return out
+
+    def timed_engine_step():
+        t0 = time.perf_counter()
+        engine_step()
+        t["engine_step"] += time.perf_counter() - t0
+
+    engine._step_fn, engine._engine_step = step, timed_engine_step
+    return t
+
+
+def serve_admission_bf16_phase(card: str) -> dict:
+    """serve_bf16's model (flagship width, bf16 compute, f32 parameters, bf16
+    pools) behind the admission tier.
+
+    Part 1, the fault plan (``admission_drive``) under a ``ManualClock`` with
+    an ``EventLog`` and a ``FaultInjector``, each check fatal: the books and
+    every outcome as planned with a clean audit; ``validate_events`` clean,
+    one ``request`` row a submission, one open, probe, close cycle of
+    ``serve.breaker`` rows, a ``serve.drain`` row; every ok stream (but the
+    poisoned one's) the sequential bf16 stream up to its first near tie,
+    every cut-short stream a prefix of it; both page allocators empty and
+    clean; the paged step captured once, K3's bf16 build 9 times an engine
+    step and no f32 build; every parameter bit for bit as before the
+    poisoned request; the K3 calls that saw a length-0 slot, logged.
+
+    Part 2, the cost on the real clock: serve_specs() closed-loop through the
+    front end with events, the registry and the breaker, and with
+    ``events=None`` and no breaker, in turns (on, off, off, on): decode
+    tok/s, ms an engine step, the host's bookkeeping ms a step. Then
+    ``run_open`` of serve_specs() twice over (12 requests) at twice the
+    closed loop's request rate with ``max_queue=2`` and a deadline of the
+    closed loop's wall time: the achieved rate, the sheds by reason, TTFT
+    p50/p99 from ``generate_ttft_s``, a clean audit. Returns part 1's
+    launches."""
+    import tempfile
+
+    from perceiver_io_tpu_torch import serving
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.obs.events import EventLog, merged_events, validate_events
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.training.faults import PreemptionGuard, RetryPolicy
+
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED), dtype=bf16)
+    n_sa = FLAGSHIP["num_self_attention_layers"]
+    specs = admission_specs(serving.RequestSpec, FLAGSHIP["vocab_size"], ADMISSION_PROMPTS, ADMISSION_BUDGETS, 16384)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as out:
+        clock = serving.ManualClock()
+        engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16, config=admission_config(serving, RetryPolicy),
+                                 events=EventLog(out, main_process=True), clock=clock, sleep=clock.sleep,
+                                 injector=admission_faults(serving.FaultInjector(clock=clock)))
+        lengths = []
+        step_fn = engine._step_fn
+
+        def recorded(state):
+            result = step_fn(state)
+            lengths.append(torch.stack([pool.length for pool in state["cache"]]))
+            return result
+
+        engine._step_fn = recorded
+        build.reset_launches()
+        t0 = time.perf_counter()
+        admission_drive(engine, specs, clock, PreemptionGuard())
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check_admission_books("serve_admission_bf16", engine)
+        rows = merged_events(out)
+        problems = validate_events(out, warnings_out=[])
+    kinds = collections.Counter(e["event"] for e in rows)
+    if problems or kinds["request"] != 16 or kinds["serve.drain"] != 1:
+        raise SystemExit(f"serve_admission_bf16: event stream wrong: {dict(kinds)}, problems {problems[:5]}")
+    breaker = [(e["prev"], e["state"]) for e in rows if e["event"] == "serve.breaker"]
+    if breaker != [("closed", "open"), ("open", "half_open"), ("half_open", "closed")]:
+        raise SystemExit(f"serve_admission_bf16: breaker transitions {breaker}, not one open-probe-close cycle")
+    changed = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
+    if changed:
+        raise SystemExit(f"serve_admission_bf16: parameters changed by the poisoned request: {changed[:5]}")
+    del before
+    used = (engine.ca_alloc.pages_used, engine.sa_alloc.pages_used)
+    if used != (0, 0) or engine.ca_alloc.audit() + engine.sa_alloc.audit():
+        raise SystemExit(f"serve_admission_bf16: page allocators not returned: used={used}")
+    steps, captures = engine._engine_steps, step_fn.captured.captures
+    k3 = launches.get("paged_decode" + BF16, 0)
+    f32 = {k: n for k, n in launches.items() if n and not k.endswith(BF16)}
+    log(f"serve_admission_bf16 launches: {json.dumps({k: n for k, n in launches.items() if n})}")
+    if captures != 1 or k3 != (1 + n_sa) * steps or f32:
+        raise SystemExit(f"serve_admission_bf16: captures={captures} (1 wanted), paged_decode{BF16}={k3} in {steps} "
+                         f"engine steps ({1 + n_sa} a step wanted), f32 builds {f32}")
+    lengths = torch.stack(lengths).reshape(-1, SERVE_SLOTS)
+    zero_calls = int((lengths == 0).any(dim=1).sum())
+    log(f"serve_admission_bf16 paged_decode calls with a length-0 slot: {zero_calls} of {lengths.shape[0]} "
+        f"(slots at length 0 over all calls: {int((lengths == 0).sum())})")
+    served = dict(engine.served_tokens)
+    outcomes = {r.index: [r.outcome, r.tokens_out] for r in engine.records}
+    del engine
+    # every ok stream whole, every cut-short stream as a prefix (the
+    # sequential stream of its length is the prefix of the whole one)
+    compared = [dataclasses.replace(spec, max_new_tokens=len(served[spec.index])) for spec in specs
+                if spec.index != ADMISSION_POISONED and served.get(spec.index)]
+    agreed = check_streams("serve_admission_bf16", model, compared, served, NEAR_TIE_BF16, bf16)
+    log("serve_admission_bf16 part 1: " + json.dumps({
+        "card": card, "outcomes": outcomes, "engine_steps": steps, "captures": captures, "k3_bf16_launches": k3,
+        "k3_calls_with_a_length_0_slot": zero_calls, "k3_calls": int(lengths.shape[0]), "plan_s": plan_s,
+        "event_kinds": dict(kinds), "tokens_equal_to_sequential": dict(zip([s.index for s in compared], agreed))}))
+
+    # part 2: the admission tier's cost on the real clock
+    closed = collections.defaultdict(list)
+    for label in ("frontend", "bare", "bare", "frontend"):
+        with tempfile.TemporaryDirectory() as out:
+            kw = ({"events": EventLog(out, main_process=True)} if label == "frontend"
+                  else {"events": None, "config": serving.FrontEndConfig(breaker=None)})
+            engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16, **kw)
+            t = timed_steps(engine)
+            run = serve_run(engine, serve_specs())
+            check_serve(f"serve_admission_bf16 {label}", engine, run, BF16)
+            steps = run["steps"]
+            closed[label].append({
+                "decode_tok_s": run["decode_tok_s"], "wall_s": run["wall_s"], "prefill_s": run["prefill_s"],
+                "engine_steps": steps, "ms_per_engine_step": 1e3 * t["engine_step"] / steps,
+                "step_ms": 1e3 * t["step"] / steps,
+                "host_bookkeeping_ms_per_step": 1e3 * (t["engine_step"] - t["step"]) / steps,
+                "request_rows": sum(e["event"] == "request" for e in merged_events(out)) if kw["events"] else 0})
+            del engine
+    log("serve_admission_bf16 part 2 closed loop, events on and off: " + json.dumps({"card": card, **closed}))
+    wall_s = statistics.mean(r["wall_s"] for r in closed["frontend"])
+    rate, deadline_s = 2 * N_REQUESTS / wall_s, wall_s
+    with tempfile.TemporaryDirectory() as out:
+        engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16, events=EventLog(out, main_process=True),
+                                 config=serving.FrontEndConfig(max_queue=2))
+        open_specs = [dataclasses.replace(spec, index=spec.index + N_REQUESTS * k)
+                      for k in range(2) for spec in serve_specs()]
+        t0 = time.perf_counter()
+        records = engine.run_open(open_specs, rate_rps=rate, deadline_s=deadline_s, seed=SEED)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        problems = engine.audit() + validate_events(out, warnings_out=[])
+        ttft = engine.registry.histogram("generate_ttft_s")
+        report = {"card": card, "requests": len(open_specs), "offered_rps": rate, "deadline_s": deadline_s,
+                  "wall_s": wall_s, "achieved_rps": len(records) / wall_s,
+                  "served_rps": sum(r.outcome == "ok" for r in records) / wall_s,
+                  "outcomes": dict(collections.Counter(r.outcome for r in records)),
+                  "sheds": dict(collections.Counter(r.shed_reason for r in records if r.outcome == "shed")),
+                  "ttft_p50_s": ttft.percentile(50), "ttft_p99_s": ttft.percentile(99),
+                  "errors": sorted({r.error for r in records if r.error}),
+                  "max_queue_depth": engine.books()["max_queue_depth"], "audit": problems}
+        del engine
+    log("serve_admission_bf16 part 2 open loop: " + json.dumps(report))
+    if problems or len(records) != len(open_specs) or report["errors"]:
+        raise SystemExit(f"serve_admission_bf16: the open loop's books or events are wrong: {problems[:5]}")
+    TIMES["serve_admission_bf16"] = {"closed": closed, "open": report, "phase_s": time.perf_counter() - t_phase}
+    log(f"serve_admission_bf16: {time.perf_counter() - t_phase:.1f} s, card={card}")
+    return launches
 
 
 def decode_pair_phase(card: str) -> dict:
@@ -3266,6 +3559,9 @@ def main() -> None:
     free_card()
     # the bf16 CLM: serve, train step (graph and eager), gradient check
     by_phase["serve_bf16"] = serve_bf16_phase(card)
+    free_card()
+    # the admission tier (ROADMAP A6) around serve_bf16's captured step
+    by_phase["serve_admission_bf16"] = serve_admission_bf16_phase(card)
     free_card()
     train_bf16 = train_pair(card, dtype=torch.bfloat16)
     by_phase["train_bf16"] = train_bf16["graph"]["launches"]

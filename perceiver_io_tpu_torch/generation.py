@@ -1,7 +1,10 @@
 """Autoregressive generation with KV caches and a sliding window (counterpart
 of ``perceiver_io_tpu/generation.py``): sampling, the host-driven decode
-pair :func:`make_decode_fns`, :func:`generate`, and the batched paged decode
-step the serving engine drives (:func:`make_paged_step_fn`).
+pair :func:`make_decode_fns`, :func:`generate`, the batched paged decode
+step the serving engine drives (:func:`make_paged_step_fn`), and the serving
+measurement wrapper :func:`make_instrumented_generate_fn` with its
+cancellation seam (:class:`GenerationAborted`,
+:class:`GenerationDeadlineExceeded`) and :class:`GenerationStats`.
 
 Windows follow the JAX package's roll-free discipline: the caches get
 ``max_new_tokens`` slots of slack, and "truncate the oldest" masks the
@@ -21,7 +24,10 @@ device, so that the body (a CUDA graph on the card) never touches the host.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+import time
+from collections import OrderedDict
+from dataclasses import asdict, dataclass
 from typing import List, Optional, Sequence, Union
 
 import torch
@@ -44,6 +50,27 @@ class GenerationConfig:
     top_p: Optional[float] = None
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
+
+
+class GenerationAborted(RuntimeError):
+    """Raise from an ``on_token`` callback to stop a request mid-decode.
+
+    The cancellation seam of :func:`make_instrumented_generate_fn`: the
+    wrapper classifies the abort by :attr:`outcome` instead of ``"error"``,
+    so the ``request`` event (and ``GenerationStats``) carries the honest
+    terminal outcome with the partial TTFT/TPOT already measured. The
+    serving front end (``perceiver_io_tpu_torch.serving``) raises the
+    :class:`GenerationDeadlineExceeded` subclass when a request's deadline
+    expires mid-decode and this base class for explicit cancellation.
+    """
+
+    outcome = "cancelled"
+
+
+class GenerationDeadlineExceeded(GenerationAborted):
+    """Mid-decode deadline expiry — stamped as a ``timeout`` outcome."""
+
+    outcome = "timeout"
 
 
 def _shift_left_if_full(cache: KVCache) -> KVCache:
@@ -259,13 +286,20 @@ class _GraphedStep:
         self.graph: Optional[Graph] = None
         self._bound = None
         self._stream = capture_stream(model.device)
+        # read by obs.recompile.RecompileTracker, as CapturedStep's are: the
+        # captures made (0 or 1) and each capturing call's host seconds
+        self.captures = 0
+        self.capture_s: List[float] = []
 
     def __call__(self, state: dict):
         self.stage(state)
         if self.graph is None:
+            t0 = time.perf_counter()
             out = warm_up(lambda: _decode_step_body(self.model, self.config, state), self._stream)
             self.graph = Graph(lambda: _decode_step_body(self.model, self.config, state)[1], self.name, self._stream)
             self._bound = _state_tensors(state)
+            self.captures += 1
+            self.capture_s.append(time.perf_counter() - t0)
             return out
         if _state_tensors(state) != self._bound:
             raise ValueError(f"{self.name} is captured on another state's tensors: a state's tensors are written "
@@ -359,8 +393,10 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
         return state, token.clone()
 
     # the body: a _GraphedStep on the card (its ``graph`` is the captured
-    # CUDA graph once the first call has run), the eager body on the CPU
+    # CUDA graph once the first call has run), the eager body on the CPU;
+    # ``captured`` is what obs.recompile.RecompileTracker reads
     step.body = _GraphedStep(model, config, "the decode step") if dev.type == "cuda" else _eager_step(model, config, dev)
+    step.captured = step.body if dev.type == "cuda" else None
     return prefill, step
 
 
@@ -402,3 +438,272 @@ def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, devi
     if dev.type == "cuda":
         return _GraphedStep(model, config, "the paged decode step")
     return _eager_step(model, config, dev)
+
+
+def _load_state_(dst: dict, src: dict) -> None:
+    """Write a prefilled state into another state of the same geometry, in
+    place: every cache's buffers and length, the state's own tensors, and the
+    generator (a host object). ``dst``'s tensors keep their addresses, so a
+    step captured on them replays on the new request."""
+    for d, c in zip(dst["cache"], src["cache"]):
+        d.k.copy_(c.k)
+        d.v.copy_(c.v)
+        d.length.copy_(c.length)
+    for key in _STATE_KEYS:
+        if key in dst:
+            dst[key].copy_(src[key])
+    dst["generator"] = src["generator"]
+
+
+@dataclass
+class GenerationStats:
+    """Host-measured serving telemetry for one generate request (the
+    per-request numbers serving comparisons gate on)."""
+
+    batch: int
+    prompt_len: int
+    new_tokens: int  # requested
+    prefill_s: float  # TTFT: prompt pass + first token on the host clock
+    decode_s: float  # wall time for the remaining tokens
+    per_token_s: float  # MEAN TPOT — the percentiles live in the event/fields below
+    tokens_per_sec: float  # batch * tokens_out / (prefill_s + decode_s)
+    compiled: bool  # True when THIS call captured its decode step (timings include it)
+    ttft_s: float = 0.0  # == prefill_s (serving-literature name)
+    tokens_out: int = 0  # tokens actually produced (== new_tokens unless aborted)
+    # terminal outcome of THIS call: "ok" | "error" | "timeout" | "cancelled"
+    # ("shed" never reaches this wrapper — a shed request is rejected at
+    # admission by the serving front end and never decodes)
+    outcome: str = "ok"
+    tpot_p50_s: Optional[float] = None  # histogram-derived decode percentiles
+    tpot_p90_s: Optional[float] = None
+    tpot_p99_s: Optional[float] = None
+    # time the request sat queued before the worker picked it up (measured
+    # by the caller and handed in per call); None when the caller did no
+    # admission accounting
+    queue_wait_s: Optional[float] = None
+    # worst per-token non-finite-logit fraction: the decode health probes'
+    # field (ROADMAP A11); always None in the port today
+    nonfinite_logit_frac: Optional[float] = None
+
+
+# contiguous decode states kept per (batch, prompt length) by one
+# instrumented generate fn: each holds its captured step (on the card) and
+# the caches it replays on
+_DECODE_STATES_MAX = 8
+
+
+def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
+                                  cache_dtype: torch.dtype = torch.float32, weight_dtype=None, events=None,
+                                  registry=None, on_token=None, snapshot_interval_s: float = 30.0,
+                                  probes: bool = False, *, device: DeviceLike = "cuda"):
+    """``fn(input_ids, pad_mask=None, generator=None) -> (tokens,
+    GenerationStats)``: the serving measurement wrapper (the JAX function's
+    counterpart; the model holds its own weights, so there is no ``params``
+    argument). A host-driven decode over :func:`make_decode_fns` with every
+    token individually host-timed (a host value fetch of the token).
+
+    Per call it records TTFT (prompt pass + first token) and a per-token
+    decode-latency distribution in a log-bucketed ``obs.metrics.Histogram``;
+    the ``request`` event emitted per call carries TTFT, TPOT p50/p90/p99
+    from that histogram, tokens in/out, the cache geometry, the sparse
+    bucket counts and the outcome. A request that dies mid-decode still
+    emits its event with ``outcome="error"`` and the partial TPOT data
+    before the exception re-raises; an ``on_token(i, token)`` callback
+    raising :class:`GenerationAborted` / :class:`GenerationDeadlineExceeded`
+    classifies the event as ``cancelled`` / ``timeout`` instead. Either way
+    the exception re-raises with the partial stats attached as
+    ``e.generation_stats`` (the marker the serving front end reads).
+
+    On the card the step is the captured decode pair: one pair and one
+    decode state per (batch, prompt length), the first request of a geometry
+    capturing (``stats.compiled``; a ``compile`` event through
+    ``obs.recompile``), later ones writing their prefilled state into that
+    state (:func:`_load_state_`) and replaying. On the CPU the same loop
+    runs the eager step, which never captures.
+
+    ``fn(..., queue_wait_s=, arrival_ts=, tenant=)`` is the admission seam:
+    queue wait lands on the ``request`` event, the request span and the
+    ``generate_queue_wait_s`` histogram. ``registry`` (an
+    ``obs.metrics.MetricsRegistry``; a fresh one when None) accumulates the
+    cross-request counters and histograms and snapshots into ``metrics``
+    rows at most every ``snapshot_interval_s``. ``probes=True`` (the decode
+    health gauges, ``obs/probes.py``) waits for ROADMAP A11 and int8
+    ``weight_dtype`` for A10: both raise NotImplementedError.
+    """
+    config = config or GenerationConfig()
+    if config.max_new_tokens < 1:
+        raise ValueError("instrumented generation requires max_new_tokens >= 1")
+    if probes:
+        raise NotImplementedError("probes=True needs the decode health gauges (obs/probes.py), ROADMAP A11")
+    if weight_dtype is not None:
+        raise NotImplementedError(f"weight_dtype={weight_dtype!r}: int8 weights are ROADMAP A10")
+    from perceiver_io_tpu_torch.obs import trace as obs_trace
+    from perceiver_io_tpu_torch.obs.metrics import Histogram, MetricsRegistry
+    from perceiver_io_tpu_torch.obs.recompile import RecompileTracker
+
+    dev = _model_device(model, device)
+    tracker = RecompileTracker(events=events)
+    prefill_fn = tracker.wrap(make_decode_fns(model, num_latents, config, cache_dtype, device=dev)[0],
+                              "generate_prefill")
+    decode_states: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+    def decode_state(state: dict):
+        """The step and the fixed state of ``state``'s geometry, ``state``
+        written into it (a new geometry keeps ``state`` itself)."""
+        key = tuple(state["pad_slots"].shape)
+        if key in decode_states:
+            step, fixed = decode_states.pop(key)
+            _load_state_(fixed, state)
+        else:
+            while len(decode_states) >= _DECODE_STATES_MAX:
+                decode_states.popitem(last=False)
+            step = tracker.wrap(make_decode_fns(model, num_latents, config, cache_dtype, device=dev)[1],
+                                "generate_decode_step")
+            fixed = state
+        decode_states[key] = (step, fixed)
+        return step, fixed
+
+    registry = registry if registry is not None else MetricsRegistry()
+    m_requests = registry.counter("generate_requests_total")
+    m_cold = registry.counter("generate_cold_requests_total")
+    m_errors = registry.counter("generate_request_errors_total")
+    m_timeouts = registry.counter("generate_request_timeouts_total")
+    m_cancelled = registry.counter("generate_request_cancelled_total")
+    m_tokens = registry.counter("generate_tokens_out_total")
+    # WARM samples only: a capture-inflated sample would poison the
+    # dashboards' tails for good (the request's own event still reports it,
+    # flagged by `compiled`)
+    m_ttft = registry.histogram("generate_ttft_s")
+    m_tpot = registry.histogram("generate_tpot_s")
+    m_queue = registry.histogram("generate_queue_wait_s")
+    tracer = obs_trace.Tracer(events, flush_every=64) if events is not None else None
+
+    def fn(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None, queue_wait_s=None,
+           arrival_ts=None, tenant=None):
+        b, prompt_len = input_ids.shape
+        compiles_before = tracker.total_compiles
+        request_id = obs_trace.new_span_id()
+        hist = Histogram("tpot_s")  # THIS request's decode latencies
+        toks: List[torch.Tensor] = []
+        outcome, err = "ok", None
+        ttft = 0.0
+        if queue_wait_s is not None:
+            queue_wait_s = float(queue_wait_s)
+            m_queue.record(queue_wait_s)
+        span_cm = tracer.span("request", request_id=request_id) if tracer is not None else contextlib.nullcontext()
+        t_all0 = time.perf_counter()
+        with span_cm as sp:
+            try:
+                # timings end at a host value fetch of the token
+                c0 = tracker.total_compiles
+                t0 = time.perf_counter()
+                token, state = prefill_fn(input_ids, pad_mask, generator)
+                int(token[0])
+                ttft = time.perf_counter() - t0
+                if tracker.total_compiles == c0:
+                    m_ttft.record(ttft)
+                toks.append(token)
+                if on_token is not None:
+                    on_token(0, token)
+                if config.max_new_tokens > 1:
+                    step_fn, state = decode_state(state)
+                for i in range(1, config.max_new_tokens):
+                    c0 = tracker.total_compiles
+                    t1 = time.perf_counter()
+                    state, token = step_fn(state)
+                    int(token[0])
+                    dt = time.perf_counter() - t1
+                    hist.record(dt)
+                    if tracker.total_compiles == c0:
+                        m_tpot.record(dt)
+                    toks.append(token)
+                    if on_token is not None:
+                        on_token(i, token)
+            except BaseException as e:  # noqa: BLE001 — event out, then reraise
+                # the cancellation seam: an on_token callback raising
+                # GenerationAborted (deadline expiry, explicit cancel)
+                # classifies by its declared outcome, not as an error
+                outcome = e.outcome if isinstance(e, GenerationAborted) else "error"
+                err = e
+            if sp is not None:
+                sp.set("outcome", outcome)
+                sp.set("tokens_out", len(toks))
+                if queue_wait_s is not None:
+                    sp.set("queue_wait_s", round(queue_wait_s, 6))
+                if tenant is not None:
+                    sp.set("tenant", str(tenant))
+        elapsed = time.perf_counter() - t_all0
+        decode_s = max(elapsed - ttft, 0.0)
+        tokens_out = len(toks)
+        compiled = tracker.total_compiles > compiles_before
+        stats = GenerationStats(
+            batch=b,
+            prompt_len=prompt_len,
+            new_tokens=config.max_new_tokens,
+            prefill_s=round(ttft, 6),
+            decode_s=round(decode_s, 6),
+            per_token_s=round(decode_s / max(tokens_out - 1, 1), 6),
+            tokens_per_sec=round(b * tokens_out / max(elapsed, 1e-9), 3),
+            compiled=compiled,
+            ttft_s=round(ttft, 6),
+            tokens_out=tokens_out,
+            outcome=outcome,
+            tpot_p50_s=hist.percentile(50),
+            tpot_p90_s=hist.percentile(90),
+            tpot_p99_s=hist.percentile(99),
+            queue_wait_s=None if queue_wait_s is None else round(queue_wait_s, 6),
+        )
+        m_requests.inc()
+        m_tokens.inc(tokens_out * b)
+        if compiled:
+            m_cold.inc()
+        if outcome == "error":
+            m_errors.inc()
+        elif outcome == "timeout":
+            m_timeouts.inc()
+        elif outcome == "cancelled":
+            m_cancelled.inc()
+        if events is not None:
+            row = asdict(stats)
+            row.update(
+                request_id=request_id,
+                span_id=None if tracer is None else sp.span_id,
+                # cache geometry: the fixed-capacity windows this request
+                # decoded against (the admission-relevant footprint)
+                ca_capacity=prompt_len + config.max_new_tokens,
+                sa_capacity=num_latents + config.max_new_tokens,
+                num_latents=num_latents,
+                tpot_hist=dict(sorted((str(k), v) for k, v in hist.counts.items())),
+            )
+            row.pop("nonfinite_logit_frac", None)  # the probes' field
+            if queue_wait_s is None:
+                row.pop("queue_wait_s", None)  # no admission accounting upstream
+            elif arrival_ts is not None:
+                row["arrival_ts"] = round(float(arrival_ts), 6)
+            if tenant is not None:
+                row["tenant"] = str(tenant)
+            if hist.n and hist.n < 5:
+                row["tpot_low_n"] = True
+            if err is not None:
+                row["error"] = repr(err)
+            if row.get("span_id") is None:
+                row.pop("span_id", None)  # let the ambient span stamp it
+            # spans BEFORE the request row: a consumer reading the stream
+            # finds the request's span already there
+            if tracer is not None:
+                tracer.flush()
+            events.emit("request", **row)
+            registry.maybe_emit(events, min_interval_s=snapshot_interval_s)
+        if err is not None:
+            # the caller sees the exception, not the return value: carry the
+            # partial stats along so a serving front end keeps honest books
+            try:
+                err.generation_stats = stats
+            except Exception:  # noqa: BLE001 — slotted/frozen exception types
+                pass
+            raise err
+        out = torch.cat([torch.as_tensor(input_ids, device=dev).long()] + [t[:, None] for t in toks], dim=1)
+        return out, stats
+
+    fn.registry = registry  # exporter access (to_prometheus / snapshot)
+    return fn

@@ -19,9 +19,16 @@ and trainer configs.
 A single process writes ``events.jsonl`` (process 0 of a group alone); a
 multi-process program shards, every process writing its own
 ``events-p{rank}.jsonl``, and :func:`merged_events` merges the shards back
-into one stream. The process topology is ``torch.distributed``'s. The JAX
-module's schema validator (``validate_events``) and the serving outcome
-vocabulary wait for ROADMAP A6 and A11.
+into one stream. The process topology is ``torch.distributed``'s.
+
+The serving front ends (``serving/``) emit ``request`` rows (one per
+submitted request, its ``outcome`` from the closed vocabulary
+:data:`REQUEST_OUTCOMES`), ``metrics`` registry snapshots
+(``obs/metrics.py``), ``serve.breaker`` / ``serve.retry`` /
+``serve.preempt`` / ``serve.drain``. :func:`validate_events` checks a
+stream against the per-kind required-field table (copied whole from the JAX
+module, the kinds the port does not emit yet included) plus span
+referential integrity.
 """
 
 from __future__ import annotations
@@ -291,3 +298,255 @@ def merged_events(run_dir: str) -> List[Dict]:
             keyed.append(((ts_eff, shard_i, row_i), row))
         streams.append(keyed)
     return [row for _, row in heapq.merge(*streams, key=lambda kr: kr[0])]
+
+
+# per-kind required fields (validate_events); kinds not listed are allowed —
+# the table pins the CONSUMED schema, not an exhaustive vocabulary
+_REQUIRED_FIELDS: Dict[str, tuple] = {
+    "fit_start": ("start_step", "max_steps"),
+    "fit_end": ("step", "aborted"),
+    "log": ("step",),
+    "eval": ("step",),
+    "compile": ("fn", "wall_s", "n_compiles"),
+    "resume": ("from_step", "to_step"),
+    # elastic resume (training/checkpoint.py, docs/robustness.md#elastic-
+    # resume): a checkpoint landed on a different mesh than it was saved
+    # under — old/new mesh shapes, leaves/bytes moved, restore wall time
+    "resume.reshard": ("old_mesh", "new_mesh", "step"),
+    # transient checkpoint-I/O retry (save/restore wrapped in RetryPolicy —
+    # same discipline as the loader's fault.fetch_retry)
+    "fault.ckpt_retry": ("attempt", "delay_s"),
+    "span": ("name", "span_id", "t_start", "t_end", "dur_ms", "process_index", "attrs"),
+    "request": ("request_id", "batch", "prompt_len", "ttft_s", "outcome", "tokens_out"),
+    "metrics": ("counters", "gauges", "histograms"),
+    "graphlint": (),
+    "graphcheck": (),
+    # Probeline (obs/probes.py): per-scope numerics snapshots at log
+    # boundaries, and the blast-radius attribution a sentinel trip dumps
+    "probe": ("step", "scopes"),
+    "probe.blast": ("trigger", "scope", "step", "affected"),
+    # Loadline (obs/loadgen.py): one summary row per load-generator run —
+    # the artifact body's load-bearing fields; queue_wait_s/arrival_ts ride
+    # the per-request `request` rows (optional — only loadgen-issued
+    # requests carry admission telemetry)
+    "load.summary": ("mode", "n_requests", "achieved_rps"),
+    # flight recorder (obs/flightrec.py): a dump fired — the post-mortem
+    # entry point must name what tripped it and which span to start from
+    "flight.dump": ("trigger", "path", "n_events", "trigger_span_id"),
+    # Shedline (perceiver_io_tpu/serving, docs/robustness.md#serving-
+    # hardening): circuit-breaker state transitions, pre-decode retry
+    # attempts, and the drain summary carrying the final books
+    "serve.breaker": ("state", "prev", "reason"),
+    "serve.retry": ("attempt", "delay_s"),
+    "serve.drain": ("books",),
+    # Evictline (serving/engine.py + serving/journal.py, docs/robustness.md
+    # #engine-eviction-and-recovery). Vocabulary note: `serve.preempt`
+    # (below, in KNOWN_EVENT_KINDS) is the SIGTERM/drain signal — the whole
+    # PROCESS winding down; these three are per-REQUEST preemption: a slot
+    # evicted under page pressure (its pages reclaimed, the request parked
+    # resumable), a parked request resumed by token-exact prefill replay,
+    # and a journaled request re-admitted into a fresh engine after a crash.
+    "serve.evict": ("request_index", "tokens_out", "pages_freed"),
+    "serve.resume": ("request_index", "tokens_out"),
+    "serve.recover": ("request_index", "tokens_resumed"),
+    # Shareline (serving/prefix.py + serving/pages.py, docs/serving.md
+    # #prefix-sharing): a joining request's prompt matched a resident page
+    # run in the radix prefix index and its prefill skipped those pages —
+    # pages_matched of pages_total prompt pages came for free
+    "serve.prefix_hit": ("request_index", "pages_matched", "pages_total"),
+    # Simline (serving/sim.py, docs/observability.md#sim-artifacts): one
+    # summary row per discrete-event simulation run — the SIM_r* artifact
+    # body's load-bearing fields (per-tenant detail rides `tenants`)
+    "sim.summary": (
+        "n_requests", "n_tenants", "offered_rps", "achieved_rps",
+        "fairness_jain", "max_starvation_age_s",
+    ),
+    # Fleetline (serving/router.py, docs/serving.md#fleet): replica
+    # lifecycle transitions on the fleet router (join / drain / drained /
+    # dead / degraded / restored), and the journal failover — a dead
+    # replica's write-ahead journal replayed onto a survivor, the
+    # fleet-level half of the Evictline recovery audit trail
+    "serve.replica": ("replica_id", "transition"),
+    "serve.failover": ("dead_replica", "survivor", "n_replayed"),
+}
+
+# OPTIONAL fields validated WHEN PRESENT (type-checked, never required —
+# forward compatibility: older streams without them stay valid, newer
+# streams with them validate their types instead of sailing through):
+# the engine's request-row telemetry — batch_size_at_decode (Pageline) and
+# the speculative-decode quality pair (Specline: per-request drafter
+# acceptance rate and decode tokens emitted per batched verify step)
+_OPTIONAL_FIELD_TYPES: Dict[str, Dict[str, tuple]] = {
+    "request": {
+        "batch_size_at_decode": (int, float),
+        "acceptance_rate": (int, float),
+        "tokens_per_step": (int, float),
+        # Simline: the submitting tenant's identity (multi-tenant serving;
+        # docs/serving.md#multi-tenant-telemetry) — optional so
+        # single-tenant streams stay valid, a string when present
+        "tenant": (str,),
+    },
+    # Evictline: the engine leg of tools/loadgen.py stamps its eviction
+    # behavior into the load.summary row (and the LOAD_r* artifact body) —
+    # optional so pre-Evictline streams/artifacts stay valid, type-checked
+    # when present so a regression in the counters cannot sail through
+    "load.summary": {
+        "evictions": (int, float),
+        "resumes": (int, float),
+        "parked_depth_peak": (int, float),
+        # Shareline: the prefix leg of tools/loadgen.py stamps its sharing
+        # figures (hit rate, shared/unshared TTFT ratio) into the summary
+        # row — optional so pre-Shareline streams stay valid
+        "prefix": (dict,),
+    },
+    # Simline tenant identity on the per-request preemption audit trail
+    "serve.evict": {"tenant": (str,)},
+    "serve.resume": {"tenant": (str,)},
+    "serve.recover": {"tenant": (str,)},
+    # Shareline: tenant identity and the token count the skip saved
+    "serve.prefix_hit": {"tenant": (str,), "tokens_skipped": (int, float)},
+    # Fleetline: the replica's outstanding depth at the transition and a
+    # free-form reason ("heartbeat_timeout", "injected_kill", "sigterm") —
+    # optional so minimal transition rows stay valid
+    "serve.replica": {"reason": (str,), "outstanding": (int, float)},
+    # Fleetline: how many of the dead replica's requests were parked vs
+    # re-queued on the survivor, and the dead journal's path for post-mortem
+    "serve.failover": {
+        "n_parked": (int, float), "n_queued": (int, float),
+        "n_already_complete": (int, float), "n_shed": (int, float),
+        "journal": (str,),
+    },
+}
+
+# the closed terminal-outcome vocabulary of `request` rows (the serving
+# front end's clean-books invariant rides on it): "shed" is stamped at
+# admission by perceiver_io_tpu.serving, "timeout"/"cancelled" by the
+# generation cancellation seam, "ok"/"error" by the instrumented wrapper.
+# validate_events warns on outcomes outside it (forward compatibility —
+# a newer stream must not fail an older gate) and FAILS on a missing or
+# non-string outcome.
+REQUEST_OUTCOMES = frozenset({"ok", "error", "timeout", "shed", "cancelled"})
+
+# the full vocabulary THIS version of the library emits. validate_events
+# flags kinds outside it as WARNINGS (never problems): an older tool
+# reading a newer stream must keep working — forward compatibility is a
+# warning list, not a hard failure.
+KNOWN_EVENT_KINDS = frozenset(_REQUIRED_FIELDS) | frozenset(
+    {
+        "fault.preempt", "fault.skip", "fault.spike", "fault.rollback",
+        "fault.halt", "fault.poison_batch", "fault.fetch_retry",
+        "serve.preempt",  # SIGTERM noticed by the serving front end (drain begins)
+        "generate",  # pre-`request` legacy rows (obs_report still reads them)
+    }
+)
+
+
+def validate_events(
+    path: str, strict_spans: bool = True, warnings_out: Optional[List[str]] = None
+) -> List[str]:
+    """Validate an event stream (a run directory or one shard file);
+    returns a list of problems (empty = valid).
+
+    Checks every row parses as strict JSON, carries ``ts``/``event``/
+    ``schema_version`` (pinned to :data:`EVENT_SCHEMA_VERSION`), and has the
+    per-kind required fields; a torn line is tolerated only as the LAST line
+    of its shard. With ``strict_spans`` every ``span_id``/``parent_id``
+    reference must resolve to a ``span`` row in the same (merged) stream —
+    the property that makes fault events attributable after the fact.
+
+    Event kinds outside :data:`KNOWN_EVENT_KINDS` are NEVER problems —
+    older tooling must survive newer streams. Pass a list as
+    ``warnings_out`` to collect them as forward-compatibility warnings
+    (one per unknown kind, first occurrence)."""
+    problems: List[str] = []
+    unknown_seen: set = set()
+    shards = event_shards(path) if os.path.isdir(path) else [path]
+    if not shards:
+        return [f"{path}: no events.jsonl / events-p*.jsonl"]
+    rows: List[Dict] = []
+    for shard in shards:
+        name = os.path.basename(shard)
+        with open(shard) as f:
+            lines = [ln for ln in (l.strip() for l in f) if ln]
+        for i, line in enumerate(lines):
+            try:
+                row = json.loads(line)
+            except json.JSONDecodeError:
+                if i == len(lines) - 1:
+                    continue  # torn tail of a killed run: expected
+                problems.append(f"{name}:{i + 1}: unparseable line mid-file")
+                continue
+            if not isinstance(row, dict):
+                problems.append(f"{name}:{i + 1}: row is not an object")
+                continue
+            rows.append(row)
+            kind = row.get("event")
+            if not isinstance(kind, str):
+                problems.append(f"{name}:{i + 1}: missing/invalid 'event'")
+                continue
+            if (
+                warnings_out is not None
+                and kind not in KNOWN_EVENT_KINDS
+                and kind not in unknown_seen
+            ):
+                unknown_seen.add(kind)
+                warnings_out.append(
+                    f"{name}:{i + 1}: unknown event kind {kind!r} "
+                    "(newer stream? tolerated — forward-compatible)"
+                )
+            if not isinstance(row.get("ts"), (int, float)):
+                problems.append(f"{name}:{i + 1} [{kind}]: missing/invalid 'ts'")
+            if row.get("schema_version") != EVENT_SCHEMA_VERSION:
+                problems.append(
+                    f"{name}:{i + 1} [{kind}]: schema_version "
+                    f"{row.get('schema_version')!r} != {EVENT_SCHEMA_VERSION}"
+                )
+            for field in _REQUIRED_FIELDS.get(kind, ()):
+                if field not in row:
+                    problems.append(f"{name}:{i + 1} [{kind}]: missing field {field!r}")
+            for field, types in _OPTIONAL_FIELD_TYPES.get(kind, {}).items():
+                # bool is an int subclass — "numeric" here means a real
+                # measurement, so True/False fail like any other non-number
+                # (and fail string-typed fields like tenant outright)
+                if field in row and (
+                    isinstance(row[field], bool)
+                    or not isinstance(row[field], types)
+                ):
+                    want = "numeric" if int in types or float in types else "a string"
+                    problems.append(
+                        f"{name}:{i + 1} [{kind}]: optional field {field!r} "
+                        f"must be {want} when present, got {row[field]!r}"
+                    )
+            if kind == "request" and "outcome" in row:
+                # outcome is validated against the CLOSED vocabulary: a
+                # missing outcome is a hard failure (required field above),
+                # an unknown one only a forward-compat warning — an older
+                # gate must survive a newer library's taxonomy
+                outcome = row["outcome"]
+                if not isinstance(outcome, str):
+                    problems.append(
+                        f"{name}:{i + 1} [request]: outcome {outcome!r} is not a string"
+                    )
+                elif (
+                    warnings_out is not None
+                    and outcome not in REQUEST_OUTCOMES
+                    and ("outcome", outcome) not in unknown_seen
+                ):
+                    unknown_seen.add(("outcome", outcome))
+                    warnings_out.append(
+                        f"{name}:{i + 1} [request]: unknown outcome {outcome!r} "
+                        f"(known: {', '.join(sorted(REQUEST_OUTCOMES))}; "
+                        "newer stream? tolerated — forward-compatible)"
+                    )
+    if strict_spans:
+        span_ids = {r.get("span_id") for r in rows if r.get("event") == "span"}
+        for r in rows:
+            kind = r.get("event")
+            sid = r.get("span_id")
+            if kind != "span" and sid is not None and sid not in span_ids:
+                problems.append(f"[{kind}] span_id {sid!r} has no span row in the stream")
+            if kind == "span":
+                pid = r.get("parent_id")
+                if pid is not None and pid not in span_ids:
+                    problems.append(f"[span {r.get('name')}] parent_id {pid!r} unresolvable")
+    return problems

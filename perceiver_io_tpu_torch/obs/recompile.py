@@ -1,15 +1,18 @@
 """Recapture tracking (counterpart of ``perceiver_io_tpu/obs/recompile.py``).
 
 The JAX package watches a jitted step's executable cache: a call that grew it
-compiled. The port's compile is a CUDA graph capture
-(``graphs.CapturedStep``): a step captures at its first call and again when
-the batch's keys, shapes or dtypes change, or when it is handed other
-objects. :class:`RecompileTracker` wraps a step whose ``captured`` attribute
-is a ``CapturedStep`` (``make_train_step``'s and ``make_eval_step``'s
-functions), reads its capture count around each call, and books each new
-capture's host seconds: a ``compile`` event and the goodput ``compile``
-bucket. A step that runs eagerly (on the CPU) never captures and books
-nothing.
+compiled. The port's compile is a CUDA graph capture: a ``graphs.CapturedStep``
+captures at its first call and again when the batch's keys, shapes or dtypes
+change, or when it is handed other objects; a decode step
+(``generation._GraphedStep``) captures once, at its first call.
+:class:`RecompileTracker` wraps a step whose ``captured`` attribute is such an
+object (``make_train_step``'s and ``make_eval_step``'s functions,
+``make_decode_fns``' step), or which is one itself (``make_paged_step_fn``'s
+step on the card), reads its ``captures`` count around each call, and books
+each new capture's host seconds: a ``compile`` event and the goodput
+``compile`` bucket. So a ``compiled`` flag of the serving path means "this
+call captured". A step that runs eagerly (on the CPU) never captures and
+books nothing.
 
 The first capture is expected; any later ``compile`` event on the same step
 is a batch whose shape moved.
@@ -55,6 +58,8 @@ class RecompileTracker:
     def wrap(self, fn: Callable, name: str) -> Callable:
         st = self._state.setdefault(name, {"calls": 0, "compiles": 0, "compile_s": 0.0})
         captured = getattr(fn, "captured", None)
+        if captured is None and hasattr(fn, "captures"):
+            captured = fn
 
         def wrapped(*args, **kwargs):
             before = 0 if captured is None else captured.captures

@@ -1,7 +1,54 @@
-"""The port's serving layer: the continuous-batching engine over paged KV
-caches and its host-side page allocator."""
+"""The port's serving layer (counterpart of ``perceiver_io_tpu/serving``): the
+hardened request front end (``serving.frontend.RequestFrontEnd``: a bounded,
+deadline-aware admission queue with first-class shedding, mid-decode
+deadlines and cancellation through the ``on_token`` seam, bounded pre-decode
+retry, graceful drain and the clean-books invariant), the circuit breaker
+(``serving.breaker``), the deterministic fault injector and manual clock
+(``serving.faultinject``), and the continuous-batching engine over paged KV
+caches (``serving.engine.EngineFrontEnd``, a ``RequestFrontEnd``) with its
+host-side page allocator. ``RequestSpec`` lives in ``obs.loadgen``. The
+journal, the fleet router and the prefix index wait for ROADMAP A7, A8 and
+A11."""
 
-from perceiver_io_tpu_torch.serving.engine import EngineConfig, EngineFrontEnd, RequestRecord, RequestSpec
-from perceiver_io_tpu_torch.serving.pages import PageAllocator, PageGrant
+from perceiver_io_tpu_torch.obs.loadgen import RequestSpec
+from perceiver_io_tpu_torch.serving.breaker import STATE_VALUES, BreakerConfig, CircuitBreaker
+from perceiver_io_tpu_torch.serving.engine import EngineConfig, EngineFrontEnd
+from perceiver_io_tpu_torch.serving.faultinject import (
+    EngineCrash,
+    FaultInjector,
+    InjectedFault,
+    ManualClock,
+    poison_params,
+)
+from perceiver_io_tpu_torch.serving.frontend import (
+    SHED_REASONS,
+    TERMINAL_OUTCOMES,
+    DecodePathFailure,
+    FrontEndConfig,
+    FrontEndRecord,
+    RequestFrontEnd,
+)
+from perceiver_io_tpu_torch.serving.pages import PageAllocator, PageGrant, PageStats
 
-__all__ = ["EngineConfig", "EngineFrontEnd", "PageAllocator", "PageGrant", "RequestRecord", "RequestSpec"]
+__all__ = [
+    "EngineConfig",
+    "EngineCrash",
+    "EngineFrontEnd",
+    "PageAllocator",
+    "PageGrant",
+    "PageStats",
+    "RequestSpec",
+    "STATE_VALUES",
+    "BreakerConfig",
+    "CircuitBreaker",
+    "FaultInjector",
+    "InjectedFault",
+    "ManualClock",
+    "poison_params",
+    "SHED_REASONS",
+    "TERMINAL_OUTCOMES",
+    "FrontEndConfig",
+    "FrontEndRecord",
+    "DecodePathFailure",
+    "RequestFrontEnd",
+]

@@ -1,0 +1,872 @@
+"""The hardened serving front end (counterpart of
+``perceiver_io_tpu/serving/frontend.py``, whose design notes follow).
+
+Per-request events and a metrics registry make serving *measurable*; they
+do not *defend* the path: without this tier an open-loop overload grows the
+queue without bound, a request has no deadline, and a mid-decode failure
+has no owner guaranteeing terminal accounting. :class:`RequestFrontEnd` is
+that owner: a host-side admission tier wrapping
+``generation.make_instrumented_generate_fn``, which the continuous-batching
+engine (``serving.engine.EngineFrontEnd``) subclasses, so the engine plugs
+into the same clean books:
+
+- **bounded admission queue** — depth-capped; a full queue sheds instead
+  of growing (*Ragged Paged Attention*, arXiv:2604.15464, treats bounded
+  admission as a prerequisite for tail-latency guarantees);
+- **deadline-aware admission** — when the projected queue wait (worker
+  busy-time remaining + an EWMA service estimate per queued request)
+  already exceeds a request's deadline, the request is shed AT ADMISSION:
+  a first-class ``shed`` outcome on a ``request`` event, never a silent
+  drop, and no deadline budget burned queueing for a guaranteed timeout;
+- **mid-decode deadline enforcement** — through the existing ``on_token``
+  streaming seam: expiry raises ``GenerationDeadlineExceeded`` inside the
+  decode loop, the instrumented wrapper emits the ``timeout`` request
+  event with the partial TTFT/TPOT already measured, and the worker slot
+  is freed in ``finally``; :meth:`RequestFrontEnd.cancel` rides the same
+  seam for explicit cancellation (``cancelled``);
+- **circuit breaking** — ``serving.breaker.CircuitBreaker``: windowed
+  error rate or a numerics sentinel (non-finite logits from the decode
+  health gauges, ROADMAP A11 for the port) opens it, half-open probes are spaced by
+  the ``RetryPolicy`` backoff discipline, sheds are stamped
+  ``breaker_open``;
+- **bounded pre-decode retry** — transient failures (``RetryPolicy.retry_on``
+  types) before the first token streams are retried through
+  ``faults.call_with_retry(reraise=True)`` with ``serve.retry`` events;
+  once tokens have streamed a failure is never retried (the partial stream
+  is gone) and books as ``error``;
+- **graceful drain** — the ``PreemptionGuard`` pattern: SIGTERM stops
+  admission (subsequent submissions shed as ``draining``), in-flight and
+  queued work finishes, spans/metrics flush, one ``serve.drain`` event
+  carries the final books.
+
+The load-bearing invariant is **clean books**: every submitted request
+reaches exactly one terminal outcome (``ok | error | timeout | shed |
+cancelled``), auditable via :meth:`RequestFrontEnd.books` /
+:meth:`RequestFrontEnd.audit` — ``tests/test_torch_frontend.py``,
+``tests/test_torch_engine_admission.py`` and ``chip_smoke.py``'s
+``serve_admission_bf16`` hold it under overload, kill-mid-decode, deadline
+expiry, breaker trips and drain, with the deterministic
+``serving.faultinject`` injector and a
+:class:`~perceiver_io_tpu_torch.serving.faultinject.ManualClock` so the runs
+are wall-clock-free.
+
+Single-worker by design (the instrumented path serializes device work
+anyway); ``run_closed``/``run_open`` interleave arrivals and service as a
+discrete-event loop over the injectable clock, so the same code is an
+honest real-time server under ``time.monotonic`` and an exactly
+reproducible simulation under a ``ManualClock``.
+
+The port's differences from the JAX module: the model holds its own weights,
+so the constructor takes no ``params`` (a poisoned request's mapping from the
+fault injector is written into the parameters in place for that request and
+the originals restored after it, :meth:`RequestFrontEnd._served_with`); it
+takes ``device=`` (``"cuda"`` by default, as every entry point of the port);
+the write-ahead ``journal=`` (ROADMAP A8) and ``FrontEndConfig(probes=True)``
+(the decode health gauges, A11) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from perceiver_io_tpu_torch.device import DeviceLike
+from perceiver_io_tpu_torch.serving.breaker import STATE_VALUES, BreakerConfig, CircuitBreaker
+from perceiver_io_tpu_torch.training.faults import PreemptionGuard, RetryPolicy, call_with_retry
+
+# the closed outcome vocabulary, ORDERED for display; the set itself is
+# owned by obs.events.REQUEST_OUTCOMES (what validate_events enforces on
+# request rows) — one source of truth, pinned at import so the two can
+# never drift
+TERMINAL_OUTCOMES = ("ok", "error", "timeout", "shed", "cancelled")
+from perceiver_io_tpu_torch.obs.events import REQUEST_OUTCOMES as _REQUEST_OUTCOMES  # noqa: E402
+
+if frozenset(TERMINAL_OUTCOMES) != _REQUEST_OUTCOMES:  # pragma: no cover
+    raise ImportError(
+        "serving.TERMINAL_OUTCOMES drifted from obs.events.REQUEST_OUTCOMES: "
+        f"{sorted(TERMINAL_OUTCOMES)} vs {sorted(_REQUEST_OUTCOMES)}"
+    )
+
+# shed reasons (the `shed_reason` field of a shed request event);
+# kv_pages_exhausted is the engine's (serving.engine) page-admission shed: a
+# request whose KV footprint can never fit the page pool is rejected at
+# admission instead of waiting in queue forever
+SHED_REASONS = (
+    "queue_full", "deadline_unmeetable", "breaker_open", "draining",
+    "kv_pages_exhausted",
+)
+
+
+class DecodePathFailure(RuntimeError):
+    """A transient-typed failure from INSIDE the decode path — wrapped so
+    the retry policy cannot catch it: the instrumented wrapper already
+    emitted the attempt's terminal request event (a retry would emit a
+    second row for one request), and any streamed tokens are gone
+    (replaying would double-serve). ``cause`` is the original error."""
+
+    def __init__(self, cause: BaseException):
+        super().__init__(f"decode-path failure (not retryable): {cause!r}")
+        self.cause = cause
+
+
+@dataclass
+class FrontEndConfig:
+    """Admission/deadline/retry/breaker policy for :class:`RequestFrontEnd`."""
+
+    # admission queue depth cap; a full queue sheds (queue_full)
+    max_queue: int = 64
+    # deadline applied to requests submitted without one (None = no deadline)
+    default_deadline_s: Optional[float] = None
+    # reject-on-admission when projected queue wait exceeds the deadline
+    admission_projection: bool = True
+    # initial per-request service estimate the projection uses before any
+    # request completes; EWMA-updated from observed service after that
+    est_service_s: float = 0.05
+    ewma_alpha: float = 0.3
+    # bounded retry for transient PRE-decode failures (None disables)
+    retry: Optional[RetryPolicy] = field(
+        default_factory=lambda: RetryPolicy(max_retries=2, base_delay=0.01, max_delay=0.5)
+    )
+    # circuit breaker (None disables breaking entirely)
+    breaker: Optional[BreakerConfig] = field(default_factory=BreakerConfig)
+    # the decode-health gauges (non-finite logits feeding the breaker's
+    # sentinel input): ROADMAP A11, refused until then
+    probes: bool = False
+    snapshot_interval_s: float = 30.0
+
+    def __post_init__(self):
+        if self.probes:
+            raise NotImplementedError("FrontEndConfig(probes=True) needs the decode health gauges "
+                                      "(obs/probes.py), ROADMAP A11")
+
+
+@dataclass
+class FrontEndRecord:
+    """What one submitted request experienced, start to terminal outcome."""
+
+    index: int
+    prompt_len: int
+    max_new_tokens: int
+    batch: int
+    tenant: Optional[str] = None  # multi-tenant identity (None = single-tenant)
+    outcome: Optional[str] = None  # one of TERMINAL_OUTCOMES once terminal
+    shed_reason: Optional[str] = None
+    queue_wait_s: Optional[float] = None
+    service_s: Optional[float] = None
+    ttft_s: Optional[float] = None
+    decode_s: Optional[float] = None  # engine-measured decode wall (sum of step times)
+    tokens_out: int = 0
+    attempts: int = 0
+    compiled: bool = False
+    probe: bool = False  # served as the breaker's half-open probe
+    error: Optional[str] = None
+
+
+@dataclass
+class _Ticket:
+    """Internal queue entry: the spec plus its admission-time facts."""
+
+    spec: object  # obs.loadgen.RequestSpec (duck-typed)
+    record: FrontEndRecord
+    arrival_s: float
+    deadline_at: Optional[float]
+    probe: bool = False
+    probe_cycle: Optional[int] = None  # breaker open-cycle id at probe issue
+    cancelled: bool = False
+
+
+class RequestFrontEnd:
+    """The hardened serving front end (see module docstring).
+
+    :param model: a ``CausalSequenceModel`` family model on ``device``,
+        serving its own weights (the fault injector may poison them for one
+        request: :meth:`_served_with`).
+    :param events: event sink (``EventLog`` or a ``FlightRecorder``
+        wrapping one) — every request/shed/breaker/drain event goes here.
+    :param registry: ``obs.metrics.MetricsRegistry`` (fresh when None).
+    :param clock: monotonic-seconds callable; a
+        ``serving.faultinject.ManualClock`` makes runs wall-clock-free. If
+        the object has ``advance_to`` the run loops step it (simulation);
+        otherwise they pace with ``sleep`` (real time).
+    :param injector: optional ``serving.faultinject.FaultInjector``.
+    :param journal: the write-ahead request journal, ROADMAP A8: anything
+        but None raises NotImplementedError.
+    :param device: ``"cuda"`` by default; asking for CUDA without a card
+        raises (pass ``device="cpu"`` for the plain kernel versions).
+    """
+
+    def __init__(
+        self,
+        model,
+        *,
+        num_latents: int = 1,
+        base_config=None,
+        cache_dtype=None,
+        weight_dtype=None,
+        config: Optional[FrontEndConfig] = None,
+        events=None,
+        registry=None,
+        clock: Callable[[], float] = time.monotonic,
+        sleep: Callable[[float], None] = time.sleep,
+        injector=None,
+        journal=None,
+        device: DeviceLike = "cuda",
+    ):
+        from perceiver_io_tpu_torch.generation import _model_device
+        from perceiver_io_tpu_torch.obs.metrics import MetricsRegistry
+
+        self.device = _model_device(model, device)
+        if journal is not None:
+            raise NotImplementedError("journal=: the write-ahead request journal is ROADMAP A8")
+        if weight_dtype is not None:
+            raise NotImplementedError(f"weight_dtype={weight_dtype!r}: int8 weights are ROADMAP A10")
+        self.model = model
+        self.num_latents = num_latents
+        self.base_config = base_config
+        self.cache_dtype = cache_dtype
+        self.weight_dtype = weight_dtype
+        self.config = config or FrontEndConfig()
+        self.events = events
+        # the default registry inherits our injected clock so its
+        # maybe_emit rate limit runs in the same (possibly virtual) time
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry(clock=clock))
+        self._clock, self._sleep = clock, sleep
+        self._injector = injector
+        self._fns: Dict[int, Callable] = {}
+        self._queue: deque = deque()
+        # extra admission predicates run after the standard shed chain; each
+        # is fn(spec, deadline_s) -> None (admit) or (reason, detail_dict).
+        # The engine front end (serving.engine) registers its page-fit check
+        # here so kv_pages_exhausted sheds ride the same books/events path.
+        self._admission_checks: List[Callable] = []
+        self._busy_until = float(clock())
+        self._est_service = float(self.config.est_service_s)
+        self._n = {k: 0 for k in ("submitted", "admitted", *TERMINAL_OUTCOMES)}
+        # the outcome dict is mutated by the serving thread and iterated by
+        # the scrape thread (ObsServer -> health/books): every _n mutation
+        # and the books() snapshot hold this lock — a dict resize during
+        # iteration is a RuntimeError, not just a stale read (hostlint
+        # shared-state-race pins this)
+        self._books_lock = threading.Lock()
+        self._in_flight = 0
+        # the JAX engine's eviction state (page-evicted requests parked
+        # resumable; ROADMAP A8 for the port): carried here so books()/audit()
+        # speak the JAX package's identity, with parked == 0 until then
+        self._parked: List = []
+        self._n_evictions = 0
+        self._n_resumes = 0
+        self._n_recovered = 0
+        self._active: Optional[_Ticket] = None
+        self._draining = False
+        self._guard: Optional[PreemptionGuard] = None
+        self.max_queue_depth = 0
+        self.records: List[FrontEndRecord] = []
+        # front-end-emitted terminal rows (shed / queue-expiry / queued-
+        # cancel) get their own short spans so flight dumps can name them
+        from perceiver_io_tpu_torch.obs import trace as obs_trace
+
+        self._trace_mod = obs_trace
+        self._tracer = obs_trace.Tracer(events, flush_every=1) if events is not None else None
+        r = self.registry
+        self._m_submitted = r.counter("serve_submitted_total")
+        self._m_admitted = r.counter("serve_admitted_total")
+        self._m_shed = r.counter("serve_shed_total")
+        self._m_retries = r.counter("serve_retries_total")
+        self._m_queue_expired = r.counter("serve_queue_expired_total")
+        self._m_queue_depth = r.gauge("serve_queue_depth")
+        self._m_breaker_state = r.gauge("serve_breaker_state")
+        self.breaker: Optional[CircuitBreaker] = (
+            CircuitBreaker(self.config.breaker, clock=clock, on_transition=self._on_breaker)
+            if self.config.breaker is not None
+            else None
+        )
+
+    # -- wiring -------------------------------------------------------------
+
+    def _fn_for(self, max_new: int) -> Callable:
+        if max_new not in self._fns:
+            import dataclasses as _dc
+
+            from perceiver_io_tpu_torch.generation import (
+                GenerationConfig,
+                make_instrumented_generate_fn,
+            )
+
+            base = self.base_config or GenerationConfig()
+            cfg = _dc.replace(base, max_new_tokens=max_new)
+            kwargs = {} if self.cache_dtype is None else {"cache_dtype": self.cache_dtype}
+            self._fns[max_new] = make_instrumented_generate_fn(
+                self.model,
+                num_latents=self.num_latents,
+                config=cfg,
+                events=self.events,
+                registry=self.registry,
+                on_token=self._on_token,
+                snapshot_interval_s=self.config.snapshot_interval_s,
+                device=self.device,
+                **kwargs,
+            )
+        return self._fns[max_new]
+
+    def _on_token(self, i: int, token) -> None:
+        """The per-token seam: injector first (stalls move the clock the
+        deadline check reads), then cancellation, then the deadline."""
+        t = self._active
+        if t is None:
+            return
+        t.record.tokens_out = i + 1
+        if self._injector is not None:
+            self._injector.on_token(t.record.index, i)
+        from perceiver_io_tpu_torch.generation import GenerationAborted, GenerationDeadlineExceeded
+
+        if t.cancelled:
+            raise GenerationAborted(f"request {t.record.index} cancelled mid-decode")
+        if t.deadline_at is not None and self._clock() > t.deadline_at:
+            raise GenerationDeadlineExceeded(
+                f"request {t.record.index} exceeded its deadline after {i + 1} token(s)"
+            )
+
+    @contextlib.contextmanager
+    def _served_with(self, request_index: int):
+        """The weights request ``request_index`` is served with, as the
+        fault injector decides (``FaultInjector.params_for`` on the model's
+        ``state_dict()``). A poisoned mapping is written into the parameters
+        in place, under ``torch.no_grad()``, and the saved originals are
+        written back on exit, whatever happens inside: the tensors keep
+        their addresses, so a captured step reads the poisoned values during
+        the request and the original ones after it."""
+        if self._injector is None:
+            yield
+            return
+        params = self.model.state_dict()
+        served = self._injector.params_for(request_index, params)
+        swapped = [(params[name], t) for name, t in served.items() if t is not params[name]]
+        saved = [p.clone() for p, _ in swapped]
+        try:
+            with torch.no_grad():
+                for p, t in swapped:
+                    p.copy_(t)
+            yield
+        finally:
+            with torch.no_grad():
+                for (p, _), original in zip(swapped, saved):
+                    p.copy_(original)
+
+    def _on_breaker(self, prev: str, new: str, reason: str, detail: dict) -> None:
+        self._m_breaker_state.set(STATE_VALUES[new])
+        if self.events is not None:
+            self.events.emit("serve.breaker", state=new, prev=prev, reason=reason, **detail)
+
+    def _set_queue_gauge(self) -> None:
+        depth = len(self._queue)
+        self._m_queue_depth.set(depth)
+        self.max_queue_depth = max(self.max_queue_depth, depth)
+
+    def _advance_to(self, t: float) -> None:
+        advance_to = getattr(self._clock, "advance_to", None)
+        if advance_to is not None:
+            advance_to(t)
+            return
+        dt = t - self._clock()
+        if dt > 0:
+            self._sleep(dt)
+
+    # -- admission ----------------------------------------------------------
+
+    def submit(self, spec, arrival_s: Optional[float] = None,
+               deadline_s: Optional[float] = None) -> FrontEndRecord:
+        """Admit or shed one request (``spec`` is an
+        ``obs.loadgen.RequestSpec``-shaped object). Returns its record —
+        ``outcome == "shed"`` means rejected at admission (``shed_reason``
+        says why); otherwise it is queued and a later
+        :meth:`pump`/``run_*`` call drives it to a terminal outcome."""
+        now = float(self._clock()) if arrival_s is None else float(arrival_s)
+        deadline_s = (
+            self.config.default_deadline_s if deadline_s is None else deadline_s
+        )
+        tenant = getattr(spec, "tenant", None)
+        rec = FrontEndRecord(
+            index=int(spec.index),
+            prompt_len=int(spec.prompt_len),
+            max_new_tokens=int(spec.max_new_tokens),
+            batch=int(getattr(spec.input_ids, "shape", (1,))[0]),
+            tenant=None if tenant is None else str(tenant),
+        )
+        self.records.append(rec)
+        with self._books_lock:
+            self._n["submitted"] += 1
+        self._m_submitted.inc()
+        if rec.tenant is not None:
+            # per-tenant child series under the same family — the unlabeled
+            # parent above stays the all-tenant total
+            self._m_submitted.labels(tenant=rec.tenant).inc()
+        reason, detail = None, {}
+        if self._draining:
+            reason = "draining"
+        elif len(self._queue) >= self.config.max_queue:
+            reason = "queue_full"
+        elif (
+            deadline_s is not None
+            and self.config.admission_projection
+            and (projected := max(self._busy_until - now, 0.0)
+                 + self._est_service * len(self._queue)) > deadline_s
+        ):
+            reason = "deadline_unmeetable"
+            detail = {"projected_wait_s": round(projected, 6),
+                      "deadline_s": round(deadline_s, 6)}
+        if reason is None:
+            for check in self._admission_checks:
+                verdict = check(spec, deadline_s)
+                if verdict is not None:
+                    reason, detail = verdict
+                    break
+        probe = False
+        if reason is None and self.breaker is not None:
+            verdict = self.breaker.allow()
+            if verdict == "shed":
+                reason = "breaker_open"
+            else:
+                probe = verdict == "probe"
+        if reason is not None:
+            rec.outcome, rec.shed_reason = "shed", reason
+            with self._books_lock:
+                self._n["shed"] += 1
+            self._m_shed.inc()
+            if rec.tenant is not None:
+                self._m_shed.labels(tenant=rec.tenant).inc()
+            self._emit_frontend_request(rec, shed_reason=reason,
+                                        queue_depth=len(self._queue), **detail)
+            return rec
+        rec.probe = probe
+        with self._books_lock:
+            self._n["admitted"] += 1
+        self._m_admitted.inc()
+        if rec.tenant is not None:
+            self._m_admitted.labels(tenant=rec.tenant).inc()
+        self._queue.append(_Ticket(
+            spec=spec, record=rec, arrival_s=now, probe=probe,
+            probe_cycle=self.breaker.cycle if probe else None,
+            deadline_at=None if deadline_s is None else now + float(deadline_s),
+        ))
+        self._set_queue_gauge()
+        return rec
+
+    def cancel(self, request_index: int) -> bool:
+        """Cancel a queued or in-flight request: queued → terminal
+        ``cancelled`` when its turn comes; in-flight → the decode loop
+        aborts at the next token via the ``on_token`` seam."""
+        if self._active is not None and self._active.record.index == request_index:
+            self._active.cancelled = True
+            return True
+        for t in self._queue:
+            if t.record.index == request_index and not t.cancelled:
+                t.cancelled = True
+                return True
+        return False
+
+    # -- service ------------------------------------------------------------
+
+    def _head_start(self) -> Optional[float]:
+        if not self._queue:
+            return None
+        return max(self._busy_until, self._queue[0].arrival_s)
+
+    def _finish(self, ticket: _Ticket, outcome: str) -> None:
+        rec = ticket.record
+        rec.outcome = outcome
+        with self._books_lock:
+            self._n[outcome] += 1
+        if self.breaker is None:
+            return
+        if ticket.probe:
+            # a probe judges the backend ONLY when it was actually served:
+            # ok closes, error re-opens; a timeout/cancelled probe never
+            # exercised the path and must not flip the state either way.
+            # The cycle id makes a STALE probe (the breaker re-opened while
+            # it was queued) inert instead of judging the new cycle.
+            if outcome == "ok":
+                self.breaker.record(True, probe=True, cycle=ticket.probe_cycle)
+            elif outcome == "error":
+                self.breaker.record(False, probe=True, cycle=ticket.probe_cycle)
+            else:
+                self.breaker.release_probe(cycle=ticket.probe_cycle)
+        else:
+            # timeouts/cancels are load/deadline facts, not a broken
+            # backend — only errors (and sentinels, fed separately) count
+            self.breaker.record(outcome != "error")
+
+    def _serve_next(self) -> Optional[FrontEndRecord]:
+        """Serve the queue head to a terminal outcome; frees the worker
+        slot on EVERY path (the clean-books invariant's load-bearing
+        ``finally``)."""
+        if not self._queue:
+            return None
+        from perceiver_io_tpu_torch.generation import GenerationAborted
+
+        ticket = self._queue.popleft()
+        self._set_queue_gauge()
+        rec = ticket.record
+        start = max(self._busy_until, ticket.arrival_s)
+        self._advance_to(start)
+        now = float(self._clock())
+        rec.queue_wait_s = round(max(now - ticket.arrival_s, 0.0), 6)
+        if ticket.cancelled:
+            self._finish(ticket, "cancelled")
+            self._emit_frontend_request(rec, queue_wait_s=rec.queue_wait_s)
+            return rec
+        if ticket.deadline_at is not None and now > ticket.deadline_at:
+            # expired while queued: terminal timeout without burning the
+            # worker on a request whose budget is already gone
+            self._m_queue_expired.inc()
+            self._finish(ticket, "timeout")
+            self._emit_frontend_request(rec, queue_wait_s=rec.queue_wait_s,
+                                        queue_expired=True)
+            return rec
+
+        spec = ticket.spec
+        policy = self.config.retry
+        # tracks whether the DECODE PATH emitted this request's event, so a
+        # terminal failure that never reached it gets a front-end-emitted
+        # row below and books/stream stay 1:1. Evidence, not assumption:
+        # the instrumented wrapper attaches the partial GenerationStats to
+        # every exception its emit path handled, so `generation_stats` on
+        # the exception (or a clean return) IS the emission marker — a
+        # failure in the wrapper's pre-emit prologue (e.g. a bad input
+        # shape) carries no marker and is known un-emitted. (A foreign
+        # slotted exception the wrapper could not attach to would cost one
+        # DUPLICATE row — visible and validator-clean — never a silent
+        # zero-row request.)
+        event_emitted = False
+
+        def attempt():
+            nonlocal event_emitted
+            rec.attempts += 1
+            if self._injector is not None:
+                self._injector.before_attempt(rec.index)
+            try:
+                generator = torch.Generator().manual_seed(int(spec.rng_seed))
+                out = fn(spec.input_ids, None, generator,
+                         queue_wait_s=rec.queue_wait_s, tenant=rec.tenant)
+            except GenerationAborted:
+                raise
+            except Exception as e:
+                if (
+                    getattr(e, "generation_stats", None) is not None
+                    and policy is not None
+                    and isinstance(e, policy.retry_on)
+                ):
+                    # transient-typed, but the decode path OWNS it (the
+                    # attached stats prove its request event went out, and
+                    # any streamed tokens are gone) — a retry would emit a
+                    # second terminal row for one request. Wrap so
+                    # call_with_retry cannot replay it; an UN-emitted
+                    # transient (host pre-decode stage: the before_attempt
+                    # seam, wrapper prologue) stays bare and is retried.
+                    raise DecodePathFailure(e) from e
+                raise
+            event_emitted = True
+            return out
+
+        self._in_flight += 1
+        self._active = ticket
+        stats = None
+        outcome = "ok"
+        fatal = None
+        try:
+            # a poisoned request is served its poisoned weights from the
+            # prefill through every decode step, as JAX's serve_params
+            with self._served_with(rec.index):
+                fn = self._fn_for(rec.max_new_tokens)
+                if policy is not None:
+                    _, stats = call_with_retry(
+                        attempt, policy, on_retry=self._emit_retry(rec),
+                        sleep=self._sleep, reraise=True,
+                    )
+                else:
+                    _, stats = attempt()
+        except GenerationAborted as e:
+            outcome = e.outcome
+            stats = getattr(e, "generation_stats", None)
+        except DecodePathFailure as e:
+            outcome = "error"
+            rec.error = repr(e.cause)
+            stats = getattr(e.cause, "generation_stats", None)
+        except Exception as e:  # noqa: BLE001 — terminal error, books still close
+            outcome = "error"
+            rec.error = repr(e)
+            stats = getattr(e, "generation_stats", None)
+        except BaseException as e:  # KeyboardInterrupt/SystemExit: account, THEN propagate
+            outcome = "error"
+            rec.error = repr(e)
+            stats = getattr(e, "generation_stats", None)
+            fatal = e
+        finally:
+            self._in_flight -= 1
+            self._active = None
+        end = float(self._clock())
+        self._busy_until = end
+        rec.service_s = round(max(end - now, 0.0), 6)
+        a = self.config.ewma_alpha
+        self._est_service = (1.0 - a) * self._est_service + a * max(
+            rec.service_s, 1e-9
+        )
+        if stats is not None:
+            rec.ttft_s = stats.ttft_s
+            rec.tokens_out = stats.tokens_out
+            rec.compiled = stats.compiled
+            event_emitted = True  # attached stats == the wrapper's emit path ran
+        self._finish(ticket, outcome)
+        if not event_emitted:
+            # the failure preceded the decode path (pre-decode retry
+            # exhaustion, setup error): the stream still gets its one
+            # terminal row, from the front end
+            extra = {"queue_wait_s": rec.queue_wait_s}
+            if rec.error is not None:
+                extra["error"] = rec.error
+            self._emit_frontend_request(rec, **extra)
+        nonfinite = getattr(stats, "nonfinite_logit_frac", None)
+        if self.breaker is not None and nonfinite:
+            # the Probeline sentinel feed: the request *completed*, but its
+            # logits went non-finite — the backend is numerically broken
+            self.breaker.record_sentinel("nonfinite-logits")
+        if fatal is not None:
+            raise fatal
+        return rec
+
+    def _emit_retry(self, rec: FrontEndRecord):
+        def on_retry(attempt: int, exc: BaseException, delay: float) -> None:
+            self._m_retries.inc()
+            if self.events is not None:
+                self.events.emit(
+                    "serve.retry", request_index=rec.index, attempt=int(attempt),
+                    error=str(exc), delay_s=round(delay, 6),
+                )
+
+        return on_retry
+
+    def _emit_frontend_request(self, rec: FrontEndRecord, **extra) -> None:
+        """A terminal ``request`` row for a request the decode path never
+        ran (shed / queue-expired / cancelled-in-queue): same schema, a
+        short span of its own so a flight dump can still name it."""
+        if self.events is None:
+            return
+        request_id = self._trace_mod.new_span_id()
+        span_id = None
+        if self._tracer is not None:
+            with self._tracer.span("request", request_id=request_id) as sp:
+                sp.set("outcome", rec.outcome)
+                if rec.tenant is not None:
+                    sp.set("tenant", rec.tenant)
+            self._tracer.flush()  # span row lands BEFORE the request row
+            span_id = sp.span_id
+        row = dict(
+            request_id=request_id,
+            batch=rec.batch,
+            prompt_len=rec.prompt_len,
+            new_tokens=rec.max_new_tokens,
+            ttft_s=0.0,
+            tokens_out=rec.tokens_out,
+            outcome=rec.outcome,
+            **extra,
+        )
+        if rec.tenant is not None:
+            row["tenant"] = rec.tenant
+        if span_id is not None:
+            row["span_id"] = span_id
+        self.events.emit("request", **row)
+
+    # -- driving ------------------------------------------------------------
+
+    def _check_guard(self) -> None:
+        if self._guard is not None and self._guard.requested and not self._draining:
+            self._draining = True
+            if self.events is not None:
+                self.events.emit("serve.preempt", queued=len(self._queue),
+                                 in_flight=self._in_flight)
+
+    def pump(self, max_requests: Optional[int] = None) -> int:
+        """Serve queued requests (all of them, or at most ``max_requests``);
+        returns how many reached a terminal outcome."""
+        n = 0
+        while self._queue and (max_requests is None or n < max_requests):
+            self._check_guard()
+            self._serve_next()
+            n += 1
+        return n
+
+    def run_closed(self, specs, *, concurrency: int = 4,
+                   deadline_s: Optional[float] = None) -> List[FrontEndRecord]:
+        """Closed-loop drive: ``concurrency`` requests in flight, each
+        completion admits the next (the Loadline closed-loop operating
+        point, now behind real admission control)."""
+        if concurrency < 1:
+            raise ValueError("run_closed needs concurrency >= 1")
+        pending = deque(specs)
+        out: List[FrontEndRecord] = []
+
+        def admit():
+            while pending and len(self._queue) < concurrency:
+                out.append(self.submit(pending.popleft(), deadline_s=deadline_s))
+
+        admit()
+        while self._queue or pending:
+            self._check_guard()
+            if not self._queue:
+                admit()
+                continue
+            self._serve_next()
+            admit()
+        if self._draining:
+            self.drain()
+        return out
+
+    def _resolve_offsets(self, specs, rate_rps, offsets, seed):
+        """Arrival offsets for an open-loop drive: the seeded Poisson
+        schedule, or explicit ``offsets`` validated loudly — both drive
+        loops only ever inspect the HEAD of the pending deque, so an
+        out-of-order arrival would be admitted late with its queue-wait
+        charged against the wrong interval."""
+        from perceiver_io_tpu_torch.obs.loadgen import arrival_schedule
+
+        if offsets is None:
+            if rate_rps is None or rate_rps <= 0:
+                raise ValueError("run_open needs rate_rps > 0 (or explicit offsets)")
+            return arrival_schedule(len(specs), rate_rps, seed=seed)
+        if len(offsets) != len(specs):
+            raise ValueError(f"{len(offsets)} offsets for {len(specs)} requests")
+        if any(b < a for a, b in zip(offsets, offsets[1:])):
+            raise ValueError("run_open offsets must be non-decreasing (arrival order)")
+        return offsets
+
+    def run_open(self, specs, *, rate_rps: Optional[float] = None,
+                 offsets: Optional[List[float]] = None,
+                 deadline_s: Optional[float] = None,
+                 seed: int = 1) -> List[FrontEndRecord]:
+        """Open-loop drive: arrivals at seeded Poisson offsets (or explicit
+        ``offsets``), service interleaved as a discrete-event loop — a
+        request is served before the next arrival iff the worker would
+        start it first. Under a ``ManualClock`` the whole overload run is
+        wall-clock-free; under a real clock it paces with ``sleep``."""
+        specs = list(specs)
+        offsets = self._resolve_offsets(specs, rate_rps, offsets, seed)
+        t0 = float(self._clock())
+        pending = deque(zip(specs, offsets))
+        out: List[FrontEndRecord] = []
+        while pending or self._queue:
+            self._check_guard()
+            next_arrival = t0 + pending[0][1] if pending else None
+            start = self._head_start()
+            if start is not None and (next_arrival is None or start <= next_arrival):
+                self._serve_next()
+            else:
+                spec, off = pending.popleft()
+                self._advance_to(t0 + off)
+                out.append(self.submit(spec, arrival_s=t0 + off, deadline_s=deadline_s))
+        if self._draining:
+            self.drain()
+        return out
+
+    # -- drain / guard ------------------------------------------------------
+
+    def install_guard(self, guard: Optional[PreemptionGuard] = None) -> PreemptionGuard:
+        """Install a ``PreemptionGuard``: SIGTERM/SIGINT turn into a drain
+        request the run loops notice at the next request boundary."""
+        self._guard = guard or PreemptionGuard()
+        self._guard.install()
+        return self._guard
+
+    def drain(self) -> dict:
+        """Stop admitting, finish queued work, flush telemetry; returns the
+        final books (also carried on the ``serve.drain`` event)."""
+        self._draining = True
+        finished = self.pump()
+        if self._tracer is not None:
+            self._tracer.flush()
+        if self.events is not None:
+            self.registry.maybe_emit(self.events, min_interval_s=0.0)
+        books = self.books()
+        if self.events is not None:
+            self.events.emit("serve.drain", finished=finished, books=books)
+        return books
+
+    # -- the books ----------------------------------------------------------
+
+    def books(self) -> dict:
+        """The accounting audit surface: per-outcome terminal counts plus
+        live queue/slot state. ``balanced`` is the clean-books invariant,
+        extended by Evictline with the parked (page-evicted, resumable)
+        population — ``submitted == terminal + queued + in_flight + parked``
+        AND ``admitted`` equals its own terminal/live decomposition; a
+        leaked slot or a double-counted outcome breaks it immediately. The
+        sequential front end never parks, so its identity degenerates to
+        the pre-Evictline one. ``evictions``/``resumes``/``recovered`` are
+        the preemption/recovery odometers (an evicted-then-resumed request
+        is still ONE submission — these count transitions, not requests)."""
+        with self._books_lock:
+            # one locked snapshot: the scrape thread must never iterate _n
+            # while the serving thread books an outcome into it
+            b = dict(self._n)
+            b["terminal"] = sum(self._n[o] for o in TERMINAL_OUTCOMES)
+            admitted_terminal = sum(
+                self._n[o] for o in ("ok", "error", "timeout", "cancelled")
+            )
+        b["queued"] = len(self._queue)
+        b["in_flight"] = self._in_flight
+        b["parked"] = len(self._parked)
+        b["max_queue_depth"] = self.max_queue_depth
+        b["draining"] = self._draining
+        b["evictions"] = self._n_evictions
+        b["resumes"] = self._n_resumes
+        b["recovered"] = self._n_recovered
+        live = b["queued"] + b["in_flight"] + b["parked"]
+        b["balanced"] = (
+            b["submitted"] == b["terminal"] + live
+            and b["admitted"] == admitted_terminal + live
+            and b["submitted"] == b["admitted"] + b["shed"]
+        )
+        if self.breaker is not None:
+            b["breaker"] = self.breaker.state
+        return b
+
+    def audit(self, expect_drained: bool = True) -> List[str]:
+        """Clean-books problems (empty list = certified clean). The chaos
+        scenarios call this after every injection run."""
+        b = self.books()
+        problems = []
+        if not b["balanced"]:
+            problems.append(f"books unbalanced: {b}")
+        if self._in_flight != 0:
+            problems.append(f"leaked in-flight slots: {self._in_flight}")
+        if expect_drained and b["queued"] != 0:
+            problems.append(f"{b['queued']} requests still queued")
+        if expect_drained and b["parked"] != 0:
+            # a parked request after drain is a leak: it owes tokens and no
+            # loop is left to resume it
+            problems.append(f"{b['parked']} evicted requests still parked")
+        return problems
+
+    def health(self) -> dict:
+        """The ``/healthz`` provider (``ObsServer(health=frontend.health)``):
+        breaker state, queue depth, drain status, books balance."""
+        b = self.books()
+        out = {
+            "status": "draining" if self._draining else (
+                "shedding" if self.breaker is not None and self.breaker.state == "open"
+                else "ok"
+            ),
+            "queue_depth": b["queued"],
+            "in_flight": b["in_flight"],
+            "draining": b["draining"],
+            "books_balanced": b["balanced"],
+            "outcomes": {k: b[k] for k in TERMINAL_OUTCOMES},
+        }
+        if self.breaker is not None:
+            out["breaker"] = self.breaker.health()
+        return out

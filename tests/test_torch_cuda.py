@@ -869,7 +869,7 @@ def test_graph_replays_count_their_launches(cuda):
     model = CausalLanguageModel(config, device=cuda, generator=torch.Generator().manual_seed(0))
     engine = EngineFrontEnd(model, num_latents=8, base_config=GenerationConfig(), device=cuda,
                             engine_config=EngineConfig(slots=2, page_size=16, max_ca_tokens=64, max_sa_tokens=32))
-    graph = engine._step_fn.graph
+    graph = engine._step_fn.captured.graph
     assert graph.launches["paged_decode"] == 1 + config.num_self_attention_layers
     build.reset_launches()
     for _ in range(7):
@@ -1954,3 +1954,92 @@ def test_a_capture_survives_the_collector_freeing_a_dropped_graph(cuda):
         gc.set_threshold(*thresholds)
     gc.collect()
     assert torch.equal(graph.replay(), x + 20000)
+
+
+# the admission tier (ROADMAP A6): chip_smoke.py's fault plan at micro size
+_ADMISSION_CLM = dict(vocab_size=64, max_seq_len=64, max_latents=16, num_channels=64, num_heads=4,
+                      num_self_attention_layers=2)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def admission_runs():
+    """The plan through the engine on the card and on the CPU, from the same
+    weights: each run's books, streams, captures, launches and, on the card,
+    the parameters before and after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from perceiver_io_tpu_torch import serving
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.obs.events import EventLog, validate_events
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.training.faults import PreemptionGuard, RetryPolicy
+    import tempfile
+
+    cs = _chip_smoke()
+    config = CausalLanguageModelConfig(**_ADMISSION_CLM)
+    cpu_model = CausalLanguageModel(config, device="cpu", generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = cpu_model
+        if device == "cuda":
+            model = CausalLanguageModel(config, device="cuda")
+            model.load_state_dict(cpu_model.state_dict())
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        addresses = {k: v.data_ptr() for k, v in model.state_dict().items()}
+        clock = serving.ManualClock()
+        with tempfile.TemporaryDirectory() as out:
+            engine = serving.EngineFrontEnd(
+                model, num_latents=8, device=device, events=EventLog(out, main_process=True), clock=clock,
+                sleep=clock.sleep, injector=cs.admission_faults(serving.FaultInjector(clock=clock)),
+                config=cs.admission_config(serving, RetryPolicy),
+                engine_config=serving.EngineConfig(slots=4, page_size=16, max_ca_tokens=64, max_sa_tokens=32))
+            specs = cs.admission_specs(serving.RequestSpec, 64, (20, 40), (8, 12), 64)
+            build.reset_launches()
+            cs.admission_drive(engine, specs, clock, PreemptionGuard())
+            cs.check_admission_books(device, engine)
+            runs[device] = dict(
+                books=engine.books(), served=dict(engine.served_tokens), steps=engine._engine_steps,
+                launches=dict(build.LAUNCHES), captures=getattr(engine._step_fn.captured, "captures", None),
+                problems=validate_events(out, warnings_out=[]) + engine.audit(),
+                unchanged=all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
+                addresses={k: v.data_ptr() for k, v in model.state_dict().items()} == addresses,
+                pages=(engine.ca_alloc.pages_used, engine.sa_alloc.pages_used))
+    runs["poisoned"] = cs.ADMISSION_POISONED
+    return runs
+
+
+def test_admission_plan_books_as_planned_on_the_card(admission_runs):
+    card, cpu = admission_runs["cuda"], admission_runs["cpu"]
+    assert card["problems"] == [] and card["pages"] == (0, 0)
+    assert card["books"] == cpu["books"] and card["steps"] == cpu["steps"]
+
+
+def test_admission_plan_captures_once_across_kill_cancel_and_timeout(admission_runs):
+    """One capture at construction serves every step of the plan: its kill,
+    cancel, timeout, prefill failure and drain retire slots in place."""
+    card = admission_runs["cuda"]
+    assert card["captures"] == 1
+    assert card["launches"]["paged_decode"] == (1 + _ADMISSION_CLM["num_self_attention_layers"]) * card["steps"]
+
+
+def test_admission_poisoned_prefill_restores_the_parameters_on_the_card(admission_runs):
+    card = admission_runs["cuda"]
+    assert card["unchanged"] and card["addresses"]
+
+
+def test_admission_ok_streams_equal_the_cpu(admission_runs):
+    card, cpu, poisoned = admission_runs["cuda"], admission_runs["cpu"], admission_runs["poisoned"]
+    assert {i: s for i, s in card["served"].items() if i != poisoned} == {
+        i: s for i, s in cpu["served"].items() if i != poisoned}

@@ -2,8 +2,8 @@
 versions): every served stream equals the port's sequential
 ``make_decode_fns`` stream for the same prompt and seed, token for token,
 greedy and sampled, with both windows sliding; the page allocators end
-empty; a request that can never fit is refused loudly; the entry points run
-on ``cuda`` unless asked for the CPU."""
+empty; a request that can never fit sheds ``kv_pages_exhausted`` at
+admission; the entry points run on ``cuda`` unless asked for the CPU."""
 
 import dataclasses
 
@@ -84,22 +84,28 @@ def test_engine_eos_retires_early(model):
     for spec in specs:
         engine.submit(spec)
     engine.pump()
-    assert engine.books() == {"submitted": 4, "ok": 4, "queued": 0, "in_flight": 0, "balanced": True}
+    books = engine.books()
+    assert {k: books[k] for k in ("submitted", "ok", "queued", "in_flight", "parked", "balanced")} == {
+        "submitted": 4, "ok": 4, "queued": 0, "in_flight": 0, "parked": 0, "balanced": True}
     got = engine.served_tokens[0]
     assert got == want[0][: want[0].index(eos) + 1]
     assert engine.ca_alloc.pages_used == 0 and engine.sa_alloc.pages_used == 0
 
 
 def test_engine_refuses_what_can_never_fit(model):
+    """A request whose KV footprint can never fit is refused at admission:
+    a first-class ``kv_pages_exhausted`` shed (as the JAX engine books it),
+    never a ValueError, and the books stay balanced."""
     engine = _engine(model, GenerationConfig())
     rng = np.random.default_rng(0)
     too_long = RequestSpec(0, 20, 8, rng.integers(0, VOCAB, size=(1, 20)), 0)  # 28 > 24 CA tokens
-    with pytest.raises(ValueError, match="kv_pages_exhausted"):
-        engine.submit(too_long)
     too_many = RequestSpec(1, 8, 13, rng.integers(0, VOCAB, size=(1, 8)), 0)  # 4 + 13 > 16 SA tokens
-    with pytest.raises(ValueError, match="kv_pages_exhausted"):
-        engine.submit(too_many)
-    assert engine.books()["submitted"] == 0
+    for spec in (too_long, too_many):
+        rec = engine.submit(spec)
+        assert rec.outcome == "shed" and rec.shed_reason == "kv_pages_exhausted", rec
+    books = engine.books()
+    assert books["submitted"] == 2 and books["shed"] == 2 and books["admitted"] == 0 and books["balanced"]
+    assert engine.ca_alloc.pages_used == 0 and engine.sa_alloc.pages_used == 0
 
 
 def test_engine_config_has_no_unported_options():

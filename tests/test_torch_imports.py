@@ -38,11 +38,14 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stderr
     counts, names = proc.stdout.splitlines()
     n_modules, bad = counts.split(maxsplit=1)
-    assert int(n_modules) >= 45  # the serving, training, image classifier and trainer slices' modules
+    assert int(n_modules) >= 50  # the serving, training, image classifier, trainer and admission slices' modules
     assert bad.strip() == "[]"
     for name in ("parallel.dist", "obs.events", "obs.trace", "obs.mfu", "obs.recompile", "utils.flops",
                  "data.loader", "data.text.tokenizer", "data.text.collators", "data.text.datamodule",
-                 "training.metrics", "training.faults", "training.checkpoint", "training.trainer"):
+                 "training.metrics", "training.faults", "training.checkpoint", "training.trainer",
+                 # the admission tier (ROADMAP A6)
+                 "obs.metrics", "obs.loadgen", "serving.breaker", "serving.faultinject", "serving.frontend",
+                 "serving.engine"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 
