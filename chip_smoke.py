@@ -31,8 +31,9 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    backward, K6/K7a/K7b two-segment flash, K8/K9a/K9b heads-major flash
    (the classifier's cross-attention, 512 latents over 50176 pixels with one
    264-wide head, and odd-width, causal, pad-mask and split-walk cases);
-   and the bf16 builds of the bf16 CLM's path (K2 at the serve's and the
-   train step's cross-attention, its kv split timed against the unsplit
+   and the bf16 builds of the bf16 CLM's path (K2 at the serve's, the
+   shared-prefix prefill's (512 latents over the filled slots of a
+   contiguous cache) and the train step's cross-attention, its kv split timed against the unsplit
    walk, K3 at the serve's CA and SA pools and ``ca_retired``, K4a/K4b at
    the train step's cross- and self-attention, K6/K7a/K7b at the twoseg
    cases above, K1/K5 at 16384 x 512 and 15360 x 512) and of the bf16 image
@@ -94,6 +95,16 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
    sequential ones, one capture, K3's bf16 build 9 times a step, the
    parameters unchanged; then the front end's cost (events and breaker on
    and off, in turns) and an open loop at twice the closed loop's rate;
+   then serve_share_evict_bf16 (ROADMAP A7 + A8), the same model and
+   engine geometry: six requests sharing a 12288-token document (five
+   prefix hits of 768 pages, every shared prefill K2 bf16 9 times, the
+   sharing audit clean mid-run and at drain, TTFT beside an unshared
+   engine's), eight requests under page pressure (evictions, as many
+   resumes by prefill replay, each replay K2 bf16 9 times) and a journal
+   recovered by a fresh engine after the first was dropped mid-decode (the
+   journal's books across both engines, a second recover all skipped);
+   every stream the sequential one up to its first near tie, and no dense
+   attention call on the card while an engine serves;
 10. train_bf16: the train phase (concat) with bf16 compute and bf16 Adam
     moments, graph and eager, equal bit for bit, every launch a bf16 build;
     its step ms, tokens/s and busy share beside the f32 step's;
@@ -218,6 +229,7 @@ FLAGSHIP = dict(
 NUM_LATENTS = 512
 N_REQUESTS = 6
 SERVE_SLOTS = 4
+SERVE_GEOMETRY = dict(slots=SERVE_SLOTS, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024)
 NEAR_TIE = 1e-4
 # decode_pair: greedy tokens after the prompt, and the batch-1 prompt's length
 DECODE_NEW_TOKENS, DECODE_PROMPT = 128, 8192
@@ -238,6 +250,14 @@ ADMISSION_OUTCOMES = {0: "error", 1: "error", 2: "timeout", 3: "shed", 4: "shed"
                       7: "error", 8: "error", 9: "shed", 10: "ok", 11: "ok", 12: "ok", 13: "ok", 14: "ok", 15: "shed"}
 ADMISSION_SHEDS = {3: "deadline_unmeetable", 4: "kv_pages_exhausted", 6: "queue_full", 9: "breaker_open",
                    15: "draining"}
+# serve_share_evict_bf16: part 1's shared document (768 pages of 16) and the
+# distinct suffixes after it, budgets 32-64; part 2's eight prompts of
+# 4096-8192 tokens and the pool headroom that makes a queued request evict
+# (the SA pool then holds three requests' latent streams of 544-576 tokens);
+# part 3's six requests, decoded this many steps before the engine is dropped
+SHARE_DOC, SHARE_SUFFIXES, SHARE_BUDGETS = 12288, (1024, 3072), (32, 64)
+EVICT_PROMPTS, EVICT_BUDGETS, EVICT_HEADROOM, EVICT_REQUESTS = (4096, 8192), (32, 64), 0.5, 8
+RECOVER_PROMPTS, RECOVER_BUDGETS, RECOVER_REQUESTS, RECOVER_STEPS = (2048, 4096), (16, 32), 6, 5
 ADMISSION_POISONED = 11
 # the train phase: batch 4 in chunks of 2, five steps
 TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-3
@@ -659,6 +679,14 @@ def flash_phase(gen: torch.Generator) -> dict:
             pad[:, :pads] = True
         out["cases"].append(flash_fwd_case(name, q, k, v, pad, h, tol,
                                            "serve" + (BF16 if dtype == torch.bfloat16 else "")))
+    # the shared-prefix prefill's cross-attention (serve_share_evict_bf16):
+    # 512 latents over the filled slots of a contiguous bf16 cache, the keys
+    # and values the leading rows of its (capacity, C) buffers
+    nkv = SHARE_DOC + SHARE_SUFFIXES[0]
+    q = (torch.randn(1, NUM_LATENTS, c, generator=gen) * d**-0.5).cuda().to(torch.bfloat16)
+    k, v = (torch.randn(1, nkv + SHARE_BUDGETS[1], c, generator=gen).cuda().to(torch.bfloat16) for _ in range(2))
+    out["cases"].append(flash_fwd_case("ca_shared_bf16", q, k[:, :nkv], v[:, :nkv], None, h, 5e-4,
+                                       "serve_share_evict" + BF16))
     # 512 latents x 8 heads give 64 q blocks: the prefill fills the card by
     # splitting the kv walk
     if out["cases"][0]["kv_splits"] < 2:
@@ -1449,14 +1477,16 @@ def heads_phase(gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, **kw):
+def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, engine: dict = None, **kw):
     """The serve's engine. Its decode step is the captured CUDA graph
     (``make_paged_step_fn`` on the card, captured at construction), or,
     with ``graphed=False``, the eager reference: the host's draws, then the
-    step's body (``generation._eager_step``) on the same state. ``kw`` goes
-    to ``EngineFrontEnd`` (the admission tier's events, clock, injector,
-    config). Returns the engine and the launches of the capture's warm-up,
-    one eager decode step while every slot is idle."""
+    step's body (``generation._eager_step``) on the same state. ``engine``
+    overrides fields of the serve's ``EngineConfig`` (sharing, eviction, pool
+    headroom); ``kw`` goes to ``EngineFrontEnd`` (the admission tier's
+    events, clock, injector, config, journal). Returns the engine and the
+    launches of the capture's warm-up, one eager decode step while every
+    slot is idle."""
     from perceiver_io_tpu_torch import generation
     from perceiver_io_tpu_torch.ops import build
     from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd
@@ -1465,7 +1495,7 @@ def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, **kw):
     build.reset_launches()
     engine = EngineFrontEnd(
         model, num_latents=NUM_LATENTS, base_config=config,
-        engine_config=EngineConfig(slots=SERVE_SLOTS, page_size=16, max_ca_tokens=16384, max_sa_tokens=1024),
+        engine_config=EngineConfig(**{**SERVE_GEOMETRY, **(engine or {})}),
         cache_dtype=cache_dtype, device="cuda", **kw,
     )
     torch.cuda.synchronize()
@@ -1505,10 +1535,11 @@ def serve_run(engine, specs, record_lengths: bool = False) -> dict:
             "lengths": lengths}
 
 
-def check_serve(name: str, engine, run: dict, suffix: str = "") -> None:
-    """The books, the page allocators and K3's launches (the CA and 8 SA
-    pools, once each a decode step) of one serve; with ``suffix`` (``BF16``)
-    every kernel launch of the serve's path must be its bf16 build's."""
+def check_serve(name: str, engine, run: dict, suffix: str = "", n_ok: int = N_REQUESTS) -> None:
+    """The books (``n_ok`` requests served ok), the page allocators and K3's
+    launches (the CA and 8 SA pools, once each a decode step) of one serve;
+    with ``suffix`` (``BF16``) every kernel launch of the serve's path must
+    be its bf16 build's."""
     launches, steps, n_sa = run["launches"], run["steps"], FLAGSHIP["num_self_attention_layers"]
     k3 = "paged_decode" + suffix
     log(f"{name} launches: {json.dumps(launches)}")
@@ -1521,7 +1552,7 @@ def check_serve(name: str, engine, run: dict, suffix: str = "") -> None:
     if missing:
         raise SystemExit(f"{name}: kernels never launched on the serving path: {missing}")
     books = engine.books()
-    if not books["balanced"] or books["ok"] != N_REQUESTS:
+    if not books["balanced"] or books["ok"] != n_ok:
         raise SystemExit(f"{name}: engine books wrong: {books}")
     used = (engine.ca_alloc.pages_used, engine.sa_alloc.pages_used)
     problems = engine.ca_alloc.audit() + engine.sa_alloc.audit()
@@ -1939,6 +1970,302 @@ def serve_admission_bf16_phase(card: str) -> dict:
         raise SystemExit(f"serve_admission_bf16: the open loop's books or events are wrong: {problems[:5]}")
     TIMES["serve_admission_bf16"] = {"closed": closed, "open": report, "phase_s": time.perf_counter() - t_phase}
     log(f"serve_admission_bf16: {time.perf_counter() - t_phase:.1f} s, card={card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# serve_share_evict_bf16: prefix sharing, eviction and journal recovery
+# ---------------------------------------------------------------------------
+
+
+def drawn_specs(request_spec, n: int, prompts: tuple, budgets: tuple, seed: int, doc: int = 0) -> list:
+    """``n`` greedy requests from ``seed``: prompts of ``prompts[0]`` to
+    ``prompts[1]`` tokens (after a shared document of ``doc`` tokens, when
+    given) and budgets in ``budgets``."""
+    rng = np.random.default_rng(seed)
+    vocab = FLAGSHIP["vocab_size"]
+    shared = rng.integers(0, vocab, size=doc)
+    specs = []
+    for i in range(n):
+        ids = np.concatenate([shared, rng.integers(0, vocab, size=int(rng.integers(prompts[0], prompts[1] + 1)))])
+        specs.append(request_spec(index=i, prompt_len=len(ids), max_new_tokens=int(rng.integers(budgets[0],
+                                                                                               budgets[1] + 1)),
+                                  input_ids=ids[None], rng_seed=int(rng.integers(1 << 30))))
+    return specs
+
+
+def count_prefills(engine) -> list:
+    """Record, for every prefill the engine runs from now on, its kind
+    (``join``, ``shared`` or ``replay``, a resume's), the launches of K2's
+    bf16 build it made and its time (synchronized) in ms."""
+    from perceiver_io_tpu_torch.ops import build
+
+    calls = []
+    k2 = "flash_packed_fwd" + BF16
+
+    def counted(fn, kind):
+        def call(*args, **kwargs):
+            before = build.LAUNCHES[k2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append((kind, build.LAUNCHES[k2] - before, 1e3 * (time.perf_counter() - t0)))
+            return out
+        return call
+
+    shared_for, prefill_for = engine._shared_prefill_for, engine._prefill_for
+    engine._shared_prefill_for = lambda *a: counted(shared_for(*a), "shared")
+    engine._prefill_for = lambda max_new, num_latents=None: counted(
+        prefill_for(max_new, num_latents), "join" if num_latents in (None, NUM_LATENTS) else "replay")
+    return calls
+
+
+def count_dense(counter: list):
+    """A context in which every call of the attention's dense path on a card
+    tensor adds one to ``counter[0]``."""
+    import contextlib
+
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+
+    @contextlib.contextmanager
+    def scope():
+        dense = MultiHeadAttention._dense
+
+        def counted(self, q, *args, **kwargs):
+            counter[0] += int(q.is_cuda)
+            return dense(self, q, *args, **kwargs)
+
+        MultiHeadAttention._dense = counted
+        try:
+            yield
+        finally:
+            MultiHeadAttention._dense = dense
+
+    return scope()
+
+
+def check_prefills(name: str, calls: list, want: dict, per_call: int) -> dict:
+    """Every prefill of ``calls`` launched K2's bf16 build ``per_call``
+    times (the CA and each SA layer), and the kinds were counted as ``want``
+    says. Returns the ms of each kind's calls."""
+    kinds = collections.Counter(kind for kind, _, _ in calls)
+    wrong = [(kind, n) for kind, n, _ in calls if n != per_call]
+    if dict(kinds) != want or wrong:
+        raise SystemExit(f"{name}: prefills {dict(kinds)} (wanted {want}); K2 bf16 launches off {per_call} a "
+                         f"prefill: {wrong}")
+    return {kind: [ms for k, _, ms in calls if k == kind] for kind in kinds}
+
+
+def join_profile(model, specs, sharing: bool) -> dict:
+    """Where one join's time goes: ``specs[1]`` joins an engine (bf16
+    pools, ``prefix_sharing`` as given) that ``specs[0]`` joined first (its
+    pages published when sharing), under ``torch.profiler``: the join's
+    wall ms (the profiler's host cost included), its kernels' device-busy
+    ms, the top kernels, and the host ms of the prefix index's work: the
+    prompt's chunk hashes, the match (its hashes and any deferred insert it
+    settles included) and the publish."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, _ = serve_engine(model, graphed=True, cache_dtype=torch.bfloat16, engine={"prefix_sharing": sharing})
+    host = collections.defaultdict(float)
+    for name in ("_context_keys", "_match_prefix", "_publish_prefix"):
+        def timed(*args, fn=getattr(engine, name), name=name, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host[name] += 1e3 * (time.perf_counter() - t0)
+            return out
+        setattr(engine, name, timed)
+    engine.submit(specs[0])
+    engine._fill_slots()
+    engine.submit(specs[1])
+    host.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._fill_slots()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    summary = profile_summary(prof, wall_ms)
+    out = {"hits": engine._n_prefix_hits, "wall_ms": wall_ms, "device_busy_ms": summary["device_busy_ms"],
+           "device_union_ms": summary["device_union_ms"], "top_device_ms": summary["top_device_ms"][:6],
+           "hash_ms": host["_context_keys"], "match_ms": host["_match_prefix"], "publish_ms": host["_publish_prefix"]}
+    del engine
+    free_card()
+    return out
+
+
+def serve_share_evict_bf16_phase(card: str) -> dict:
+    """serve_bf16's model and engine geometry (flagship width, bf16 compute
+    and pools) with prefix sharing, eviction and journal recovery, each
+    check fatal. No call of the attention's dense path may run on the card
+    while an engine serves (the shared prefills and the replays take K2).
+
+    Part 1, sharing: six greedy requests, one seeded 12288-token document
+    then distinct suffixes of 1024-3072 tokens: five prefix hits of 768
+    pages (``serve.prefix_hit`` rows), every shared prefill (and the one
+    unshared join) launching K2 bf16 9 times, K3 bf16 9 times a step, a
+    clean ``sharing_audit()`` every 8 steps and at drain with the index
+    empty and the pools returned; every stream the sequential bf16 stream up
+    to its first near tie. The same requests through a ``prefix_sharing=
+    False`` engine: TTFT request by request beside the shared engine's.
+    Then one join of each kind under ``torch.profiler`` (``join_profile``).
+
+    Part 2, eviction: eight requests of 4096-8192 tokens at pool headroom
+    0.5: at least two evictions, as many resumes, every replay launching K2
+    bf16 9 times, ``parked == 0`` and balanced books at drain, every stream
+    the sequential one up to its first near tie; the replays' ms.
+
+    Part 3, recovery: six requests under a ``ManualClock`` with a journal in
+    a temporary directory, five engine steps, the engine dropped and the card
+    freed; a fresh engine's ``recover(path)`` (then again at once: all
+    skipped) and its drain; the journal's replayed streams the sequential
+    ones up to the first near tie, its books and audit clean over both
+    engines, a third ``recover`` after the drain a no-op. Returns part 1's
+    shared serve's launches."""
+    import os
+    import tempfile
+
+    from perceiver_io_tpu_torch import serving
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.obs.events import EventLog, merged_events, validate_events
+
+    bf16, name = torch.bfloat16, "serve_share_evict_bf16"
+    t_phase = time.perf_counter()
+    model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED), dtype=bf16)
+    per_prefill = 1 + FLAGSHIP["num_self_attention_layers"]
+    page = SERVE_GEOMETRY["page_size"]
+    dense, report = [0], {"card": card}
+
+    # part 1: sharing, then the same requests unshared
+    specs = drawn_specs(serving.RequestSpec, N_REQUESTS, SHARE_SUFFIXES, SHARE_BUDGETS, SEED + 1, doc=SHARE_DOC)
+    ttft, served = {}, {}
+    for label, sharing in (("shared", True), ("unshared", False)):
+        with tempfile.TemporaryDirectory() as out:
+            engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16, engine={"prefix_sharing": sharing},
+                                     events=EventLog(out, main_process=True))
+            calls, audits, step = count_prefills(engine), [], engine._engine_step
+
+            def audited(engine=engine, step=step, audits=audits):
+                step()
+                if engine._engine_steps % 8 == 0:
+                    audits.append(engine.sharing_audit())
+
+            engine._engine_step = audited
+            with count_dense(dense):
+                run = serve_run(engine, specs)
+            rows, problems = merged_events(out), validate_events(out, warnings_out=[])
+        check_serve(f"{name} part 1 {label}", engine, run, BF16)
+        hits = [e["pages_matched"] for e in rows if e["event"] == "serve.prefix_hit"]
+        ms = check_prefills(f"{name} part 1 {label}", calls, {"join": 1, "shared": 5} if sharing else {"join": 6},
+                            per_prefill)
+        audits.append(engine.sharing_audit())
+        left = (engine.prefix_index.pages(), engine.ca_alloc._rc)
+        if problems or hits != ([SHARE_DOC // page] * 5 if sharing else []) or any(audits) or left != ((), {}):
+            raise SystemExit(f"{name} part 1 {label}: prefix hits {hits}, audits {[a for a in audits if a][:2]}, "
+                             f"events {problems[:3]}, index and refcounts left {left}")
+        if sharing:
+            launches = run["launches"]
+        ttft[label] = {r.index: 1e3 * r.ttft_s for r in run["records"]}
+        served[label] = dict(engine.served_tokens)
+        # the CA pool's high-water mark (the gauge is read after each fill
+        # and step): what one resident copy of the document saves
+        ca_peak = engine.registry.gauge("engine_kv_pages_frac").peak * engine.ca_alloc.num_allocatable
+        report[f"part 1 {label}"] = {"decode_tok_s": run["decode_tok_s"], "steps": run["steps"],
+                                     "prefill_ms": ms, "audits": len(audits), "ca_pages_peak": round(ca_peak)}
+        del engine
+        free_card()
+    if dense[0]:
+        raise SystemExit(f"{name} part 1: {dense[0]} dense attention calls on the card")
+    report["part 1 ttft_ms"] = {i: {"prompt_len": s.prompt_len, "shared": ttft["shared"][s.index],
+                                    "unshared": ttft["unshared"][s.index]} for i, s in enumerate(specs)}
+    report["part 1 shared streams equal to unshared"] = [served["shared"][s.index] == served["unshared"][s.index]
+                                                         for s in specs]
+    report["part 1 tokens_equal_to_sequential"] = check_streams(f"{name} part 1", model, specs, served["shared"],
+                                                                NEAR_TIE_BF16, bf16)
+    report["part 1 join profile"] = {label: join_profile(model, specs, sharing)
+                                     for label, sharing in (("shared", True), ("unshared", False))}
+    if report["part 1 join profile"]["shared"]["hits"] != 1:
+        raise SystemExit(f"{name} part 1: the profiled join did not share: {report['part 1 join profile']}")
+    log(f"{name} part 1: " + json.dumps(report["part 1 ttft_ms"]) + f" card={card}")
+
+    # part 2: eviction under page pressure
+    specs = drawn_specs(serving.RequestSpec, EVICT_REQUESTS, EVICT_PROMPTS, EVICT_BUDGETS, SEED + 2)
+    with tempfile.TemporaryDirectory() as out:
+        engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16,
+                                 engine={"eviction": True, "pool_headroom": EVICT_HEADROOM},
+                                 events=EventLog(out, main_process=True))
+        calls = count_prefills(engine)
+        with count_dense(dense):
+            run = serve_run(engine, specs, record_lengths=True)
+        rows, problems = merged_events(out), validate_events(out, warnings_out=[])
+    check_serve(f"{name} part 2", engine, run, BF16, n_ok=EVICT_REQUESTS)
+    lengths = torch.stack(run["lengths"]).reshape(-1, SERVE_SLOTS)
+    books = engine.books()
+    evicted = [(e["request_index"], e["tokens_out"]) for e in rows if e["event"] == "serve.evict"]
+    ms = check_prefills(f"{name} part 2", calls, {"join": EVICT_REQUESTS, "replay": books["resumes"]}, per_prefill)
+    if (books["evictions"] < 2 or books["resumes"] != books["evictions"] or books["parked"] or problems
+            or len(evicted) != books["evictions"] or engine.audit() or dense[0]):
+        raise SystemExit(f"{name} part 2: books {books}, evict rows {evicted}, events {problems[:3]}, "
+                         f"audit {engine.audit()}, dense calls {dense[0]}")
+    served = dict(engine.served_tokens)
+    del engine
+    free_card()
+    report["part 2"] = {"books": {k: books[k] for k in ("ok", "evictions", "resumes", "parked", "balanced")},
+                        "evicted_at": evicted, "decode_tok_s": run["decode_tok_s"], "steps": run["steps"],
+                        "prefill_ms": ms, "k3_calls": int(lengths.shape[0]),
+                        "k3_calls_with_a_length_0_slot": int((lengths == 0).any(dim=1).sum()),
+                        "tokens_equal_to_sequential": check_streams(f"{name} part 2", model, specs, served,
+                                                                    NEAR_TIE_BF16, bf16)}
+
+    # part 3: the engine dropped mid-decode, its journal recovered
+    specs = drawn_specs(serving.RequestSpec, RECOVER_REQUESTS, RECOVER_PROMPTS, RECOVER_BUDGETS, SEED + 3)
+    with tempfile.TemporaryDirectory() as out:
+        path = os.path.join(out, "journal.jsonl")
+        clock = serving.ManualClock()
+        engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16, journal=path, clock=clock,
+                                 sleep=clock.sleep)
+        for spec in specs:
+            engine.submit(spec)
+        with count_dense(dense):
+            for _ in range(RECOVER_STEPS):
+                engine._fill_slots()
+                engine._engine_step()
+        dead = engine.books()
+        del engine
+        free_card()
+        t0 = time.perf_counter()
+        fresh, _ = serve_engine(model, graphed=True, cache_dtype=bf16, clock=clock, sleep=clock.sleep)
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with count_dense(dense):
+            info = fresh.recover(path)
+            again = fresh.recover(path)
+            fresh.pump()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        after = fresh.recover(path)
+        journal = serving.RequestJournal(path)
+        jbooks, jaudit = journal.books(), journal.audit()
+        replayed = {i: e.tokens for i, e in journal.replay().items()}
+    books = fresh.books()
+    owed = RECOVER_REQUESTS - dead["terminal"]
+    if (info["recovered"] != owed or info["parked"] < 1 or again["recovered"] or again["skipped"] != owed
+            or any(after.values()) or not jbooks["balanced"] or jbooks["pending"] or jaudit
+            or jbooks["outcomes"] != {"ok": RECOVER_REQUESTS} or not books["balanced"] or books["parked"]
+            or fresh.audit() or dense[0]):
+        raise SystemExit(f"{name} part 3: dead engine {dead}, recover {info}, again {again}, after the drain "
+                         f"{after}, journal {jbooks} {jaudit[:3]}, books {books}, dense calls {dense[0]}")
+    del fresh
+    report["part 3"] = {"dead_engine": {k: dead[k] for k in ("in_flight", "queued", "terminal")}, "recover": info,
+                        "again": again, "after_drain": after, "journal": jbooks, "engine_build_s": built_s,
+                        "recover_and_drain_s": recover_s,
+                        "tokens_equal_to_sequential": check_streams(f"{name} part 3", model, specs, replayed,
+                                                                    NEAR_TIE_BF16, bf16)}
+    report["phase_s"] = time.perf_counter() - t_phase
+    TIMES[name] = report
+    log(f"{name}: " + json.dumps(report))
     return launches
 
 
@@ -3562,6 +3889,9 @@ def main() -> None:
     free_card()
     # the admission tier (ROADMAP A6) around serve_bf16's captured step
     by_phase["serve_admission_bf16"] = serve_admission_bf16_phase(card)
+    free_card()
+    # prefix sharing, eviction and journal recovery (ROADMAP A7 + A8)
+    by_phase["serve_share_evict_bf16"] = serve_share_evict_bf16_phase(card)
     free_card()
     train_bf16 = train_pair(card, dtype=torch.bfloat16)
     by_phase["train_bf16"] = train_bf16["graph"]["launches"]

@@ -21,11 +21,19 @@ Routes, each numerically the JAX package's:
   the attention over the fresh keys/values — the prompt pass's cache length
   is a host int, so no context flag is needed to tell a prefill from a
   decode;
+- contiguous cache that entered FILLED (a host length > 0) with more than
+  one query (the shared-prefix prefill's cross-attention: the resident
+  prefix rows were gathered into the cache, the suffix's rows are
+  appended): K2 over the filled slots ``[0, length)``, keys as the cache
+  holds them (rotated at write), the causal mask right-aligned, where the
+  packed kernels take the head dims. The JAX package runs its einsum over
+  the slots here; K2 computes the same function, and the unshared prefill's
+  arithmetic;
 - any other contiguous cache call (the sequential decode step, whose cache
   length is a device tensor that no route reads back), and the
-  two routes above for heads wider than 512: the dense path over the
-  slots, scores in f32, masked by the slot validity, the pad mask and the
-  right-aligned causal mask;
+  routes above for head dims their kernels cannot take: the dense path over
+  the slots, scores in f32, masked by the slot validity, the pad mask and
+  the right-aligned causal mask;
 - paged cache (the engine's batched one-token step): page-indexed append,
   then, by the pools' geometry, the paged decode kernel K3
   (``ops.paged_attention``: f32 or bf16 pools, head dims up to 128) or,
@@ -318,20 +326,28 @@ class MultiHeadAttention(nn.Module):
                                           "multi-token paged spans are not ported")
             return self._paged_decode_attend(q, kv_cache.append(k, v), pad_mask, rope_q)
 
-        # the prefill: a span into an empty cache, whose length (the prompt
-        # pass's host int) is read only then; a device length (the decode
-        # step's) is never read back
-        prefill = n_q > 1 and not torch.is_tensor(kv_cache.length) and kv_cache.length == 0
+        # a span (the prompt pass, or the shared-prefix prefill's suffix):
+        # its cache length is a host int, read only then; a device length
+        # (the decode step's) is never read back
+        span = n_q > 1 and not torch.is_tensor(kv_cache.length)
         new_cache = kv_cache.append(k, v)
-        if prefill:
+        eff_len, cap = new_cache.length, new_cache.capacity
+        if span and kv_cache.length == 0:
             # prefill: attention over [0, length) IS attention over the fresh
             # keys/values, which occupy slots [0, n_kv)
             fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]
             o = self._fresh_flash(q, k, v, rope_q, fresh_pad)
             if o is not None:
                 return AttentionOutput(self._proj(self.o_proj, o), new_cache)
+        elif span and self.packed_route_ok():
+            # a span over a filled cache: K2 over the filled slots, in the
+            # fresh keys' dtype (rows a bf16 layer wrote into an f32 cache
+            # come back exactly)
+            span_pad = None if pad_mask is None else pad_mask[:, :eff_len]
+            o = self._packed_flash(q, new_cache.k[:, :eff_len].to(k.dtype), new_cache.v[:, :eff_len].to(v.dtype),
+                                   rope_q, span_pad)
+            return AttentionOutput(self._proj(self.o_proj, o), new_cache)
 
-        eff_len, cap = new_cache.length, new_cache.capacity
         kv_idx = torch.arange(cap, device=q.device)
         masked = (kv_idx >= eff_len)[None, None, :]
         if pad_mask is not None:

@@ -629,7 +629,8 @@ class PerceiverAR(nn.Module):
 
     def perceiver_ar(self, x, prefix_len: int, pad_mask=None, kv_cache=None, decode: bool = False,
                      sa_pad_mask=None, pos_shift=None, deterministic: bool = True, prefix_keep_idx=None,
-                     generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Optional[tuple]]:
+                     generator: Optional[torch.Generator] = None,
+                     pos_offset: Optional[int] = None) -> Tuple[torch.Tensor, Optional[tuple]]:
         """``deterministic=False`` is the training forward: prefix dropout
         keeps ``prefix_len - int(prefix_len * cross_attention_dropout)``
         prefix positions, the set ``prefix_keep_idx`` (B, keep), sorted
@@ -637,24 +638,41 @@ class PerceiverAR(nn.Module):
         input's device from ``generator`` (the default generator when None;
         in ``"mask"`` mode the uniforms at or above the keep-th largest, the
         same set). The layers then draw their dropout masks from
-        ``generator`` in call order."""
+        ``generator`` in call order.
+
+        ``pos_offset``: the absolute position of the input's first token,
+        for the shared-prefix prefill (``generation.make_shared_prefill_fn``):
+        the prompt's leading ``pos_offset`` tokens already lie in the
+        cross-attention cache, and the forward runs over the suffix alone,
+        whose token ``i`` sits at ``pos_offset + i``. Keys rotate at write
+        and the causal mask is right-aligned, so the result is the
+        full-prompt forward's. Forwards only: a decode step takes its
+        positions from the cache, and prefix dropout would draw its keep set
+        over positions from 0."""
         if kv_cache is not None and not deterministic and self.cross_attention_dropout > 0.0:
             raise ValueError("cross-attention dropout not supported with caching")
         if decode:
             if kv_cache is None:
                 raise ValueError("decode=True requires kv_cache")
+            if pos_offset is not None:
+                raise ValueError("pos_offset applies to the forward route; decode steps derive positions "
+                                 "from the cache fill level")
             if prefix_keep_idx is not None:
                 raise ValueError("prefix_keep_idx applies to training forwards, not decode steps")
             return self._decode_step(x, pad_mask, kv_cache, sa_pad_mask, pos_shift)
-        return self._forward(x, prefix_len, pad_mask, kv_cache, deterministic, prefix_keep_idx, generator)
+        return self._forward(x, prefix_len, pad_mask, kv_cache, deterministic, prefix_keep_idx, generator,
+                             pos_offset)
 
     def _forward(self, x, prefix_len, pad_mask, kv_cache, deterministic=True, prefix_keep_idx=None,
-                 generator=None):
+                 generator=None, pos_offset=None):
         b, n = x.shape[0], x.shape[1]
         if not 0 <= prefix_len < n:
             raise ValueError(f"prefix_len ({prefix_len}) out of valid range [0..{n})")
         self.offload_arena.reset()
         dropout_active = not deterministic and prefix_len > 0 and self.cross_attention_dropout > 0.0
+        if pos_offset is not None and dropout_active:
+            raise ValueError("pos_offset is a serving-forward seam; cross-attention dropout is not supported "
+                             "with it")
         mode = self.prefix_dropout_mode
         keep_idx = drop = None
         if dropout_active:
@@ -681,11 +699,12 @@ class PerceiverAR(nn.Module):
                 return self._attend(x_emb[:, keep:], x_emb[:, :keep], frq[:, keep:], frq[:, :keep],
                                     None, None, kv_cache, deterministic, generator)
         if pad_mask is None:
-            x_emb, frq = self.input_adapter(x, None)
+            pos = None if pos_offset is None else positions(b, n, offset=pos_offset, device=x.device)
+            x_emb, frq = self.input_adapter(x, pos)
             pad_latent = pad_prefix = None
         else:
             shift = pad_mask.sum(dim=1, keepdim=True)
-            x_emb, frq = self.input_adapter(x, positions(b, n, shift=shift))
+            x_emb, frq = self.input_adapter(x, positions(b, n, shift=shift, offset=pos_offset))
             pad_latent, pad_prefix = pad_mask[:, prefix_len:], pad_mask[:, :prefix_len]
         x_prefix, frq_prefix = x_emb[:, :prefix_len], frq[:, :prefix_len]
         if keep_idx is not None:
@@ -850,18 +869,18 @@ class CausalSequenceModel(PerceiverAR):
     def forward(self, x: torch.Tensor, prefix_len: int, pad_mask: Optional[torch.Tensor] = None,
                 kv_cache: Optional[tuple] = None, decode: bool = False, sa_pad_mask=None,
                 pos_shift=None, deterministic: bool = True, prefix_keep_idx=None,
-                generator: Optional[torch.Generator] = None) -> CausalModelOutput:
+                generator: Optional[torch.Generator] = None, pos_offset: Optional[int] = None) -> CausalModelOutput:
         """Logits (B, N_latent, V) for token ids ``x`` (B, N); see
-        :class:`PerceiverAR` for the call modes and the training arguments.
-        ``pad_mask`` (True = left padding) is (B, N) for a forward,
-        slot-aligned (B, capacity) for a decode step; ``sa_pad_mask``/
+        :class:`PerceiverAR` for the call modes, the training arguments and
+        ``pos_offset``. ``pad_mask`` (True = left padding) is (B, N) for a
+        forward, slot-aligned (B, capacity) for a decode step; ``sa_pad_mask``/
         ``pos_shift`` apply to decode steps. Differentiable without a cache;
         with one, it runs under ``torch.no_grad()``."""
         if prefix_len > self.max_prefix_len:
             raise ValueError(f"prefix_len ({prefix_len}) exceeds max_prefix_len ({self.max_prefix_len})")
         with torch.set_grad_enabled(torch.is_grad_enabled() and kv_cache is None):
             h, cache = self.perceiver_ar(x, prefix_len, pad_mask, kv_cache, decode, sa_pad_mask, pos_shift,
-                                         deterministic, prefix_keep_idx, generator)
+                                         deterministic, prefix_keep_idx, generator, pos_offset)
             if self.config.output_norm:
                 h = self.out_norm(h)
             logits = self.output_adapter(h, attend=self.input_adapter.attend)

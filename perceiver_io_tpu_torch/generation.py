@@ -1,10 +1,13 @@
 """Autoregressive generation with KV caches and a sliding window (counterpart
 of ``perceiver_io_tpu/generation.py``): sampling, the host-driven decode
-pair :func:`make_decode_fns`, :func:`generate`, the batched paged decode
-step the serving engine drives (:func:`make_paged_step_fn`), and the serving
-measurement wrapper :func:`make_instrumented_generate_fn` with its
-cancellation seam (:class:`GenerationAborted`,
-:class:`GenerationDeadlineExceeded`) and :class:`GenerationStats`.
+pair :func:`make_decode_fns` (its prefill alone: :func:`make_prefill_fn`),
+:func:`generate`, the batched paged decode step the serving engine drives
+(:func:`make_paged_step_fn`), the engine's shared-prefix prefill
+(:func:`make_shared_prefill_fn`) and its resume seam
+(:func:`advance_generator`), and the serving measurement wrapper
+:func:`make_instrumented_generate_fn` with its cancellation seam
+(:class:`GenerationAborted`, :class:`GenerationDeadlineExceeded`) and
+:class:`GenerationStats`.
 
 Windows follow the JAX package's roll-free discipline: the caches get
 ``max_new_tokens`` slots of slack, and "truncate the oldest" masks the
@@ -16,6 +19,9 @@ a row takes exactly ONE uniform draw, ``torch.rand((1,), generator=g)`` from
 that row's CPU generator, mapped through the inverse CDF of the filtered
 softmax. A request decoded in a batched engine slot and the same request
 decoded alone therefore draw the same numbers. Greedy decoding draws nothing.
+So a generator's position is the count of tokens it has sampled: a request
+resumed after ``n`` tokens draws on from :func:`advance_generator`'s ``n``
+draws, as JAX's ``advance_rng_chain`` splits its key ``n`` times.
 Both steps (the pair's and the engine's, one body: :func:`_decode_step_body`)
 draw on the host before the body runs and hand the draws to the device in a
 fixed buffer, and keep their window counters and cache lengths on the
@@ -28,7 +34,7 @@ import contextlib
 import time
 from collections import OrderedDict
 from dataclasses import asdict, dataclass
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -319,6 +325,165 @@ def _eager_step(model, config: GenerationConfig, device: torch.device):
     return step
 
 
+def _prefilled_state(out, logits: torch.Tensor, next_token: torch.Tensor, generator: torch.Generator,
+                     config: GenerationConfig, pad_slots: torch.Tensor, pos_shift: torch.Tensor) -> dict:
+    """The decode state a prefill hands over (see :func:`make_decode_fns`)."""
+    dev, b = next_token.device, next_token.shape[0]
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    if config.eos_token_id is not None:
+        done = next_token == config.eos_token_id
+    zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+    return {
+        "cache": tuple(c.on_device() for c in out.kv_cache),
+        "ca_start": zero(),
+        "sa_start": zero(),
+        "token": next_token.clone(),
+        "uniforms": torch.zeros((b,), dtype=torch.float32, device=dev),
+        "generator": generator,
+        "done": done,
+        "pad_slots": pad_slots,
+        "pos_shift": pos_shift,
+        "logits": logits,
+    }
+
+
+def _prefill_config(model, config: Optional[GenerationConfig], device: DeviceLike):
+    """The budget check and the device both prefill builders start from."""
+    config = config or GenerationConfig()
+    if config.max_new_tokens < 1:
+        raise ValueError("decode fns require max_new_tokens >= 1")
+    return config, _model_device(model, device)
+
+
+def _prefill_pass(model, input_ids: torch.Tensor, pad_mask: Optional[torch.Tensor], prefix_len: int,
+                  num_latents: int, config: GenerationConfig, cache_dtype: torch.dtype, generator: torch.Generator,
+                  ca_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The prefill both builders run over (B, M) ``input_ids`` on the
+    model's device: a fresh cache for the whole prompt and the budget, the
+    model's pass, the first sample (one draw from ``generator``) and the
+    decode state. ``ca_rows`` are the resident (k, v) cross-attention rows of
+    the prompt's ``skip`` leading tokens, (skip, C) each, that ``input_ids``
+    follow: they fill the cache's slots [0, skip) and the pass runs at
+    ``pos_offset=skip``."""
+    dev = input_ids.device
+    b, m = input_ids.shape
+    skip = 0 if ca_rows is None else ca_rows[0].shape[0]
+    ca_capacity = skip + m + config.max_new_tokens
+    cache = CausalSequenceModel.init_cache(model.config, b, ca_capacity, num_latents + config.max_new_tokens,
+                                           cache_dtype, dev)
+    pos_offset = None
+    if ca_rows is not None:
+        ca = cache[0]
+        ca.k[:, :skip] = ca_rows[0].to(ca.k.dtype)
+        ca.v[:, :skip] = ca_rows[1].to(ca.v.dtype)
+        cache, pos_offset = (KVCache(ca.k, ca.v, skip),) + tuple(cache[1:]), skip
+    pad_slots = torch.zeros((b, ca_capacity), dtype=torch.bool, device=dev)
+    if pad_mask is None:
+        pos_shift = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    else:
+        pos_shift = pad_mask.sum(dim=1, keepdim=True)
+        pad_slots[:, skip:skip + m] = pad_mask
+    out = model(input_ids, prefix_len=prefix_len, pad_mask=pad_mask, kv_cache=cache, pos_offset=pos_offset)
+    logits = out.logits[:, -1].clone()
+    next_token = _sample(logits, config, generator)
+    return next_token, _prefilled_state(out, logits, next_token, generator, config, pad_slots, pos_shift)
+
+
+def make_prefill_fn(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
+                    cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda"):
+    """The prefill of :func:`make_decode_fns` alone, ``prefill(input_ids,
+    pad_mask=None, generator=None) -> (first_token, state)``: no decode step
+    is built beside it (the serving engine keeps one prefill per decode
+    budget and latent count, and decodes through its own paged step)."""
+    config, dev = _prefill_config(model, config, device)
+    mcfg = model.config
+
+    def prefill(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None):
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        input_ids = torch.as_tensor(input_ids, device=dev).long()
+        b, seq_len = input_ids.shape
+        prefix_len = _validate_window(mcfg, seq_len, num_latents)
+        if pad_mask is None:
+            pad_mask = torch.zeros((b, seq_len), dtype=torch.bool, device=dev)
+        pad_mask = torch.as_tensor(pad_mask, device=dev).bool()
+        _require_pads_in_prefix(pad_mask, prefix_len)
+        return _prefill_pass(model, input_ids, pad_mask, prefix_len, num_latents, config, cache_dtype, generator)
+
+    return prefill
+
+
+def make_shared_prefill_fn(model, num_latents: int, skip_tokens: int, seq_len: int,
+                           config: Optional[GenerationConfig] = None, cache_dtype: torch.dtype = torch.float32,
+                           *, device: DeviceLike = "cuda"):
+    """The prefill of a ``seq_len``-token prompt whose first ``skip_tokens``
+    tokens have their cross-attention K/V rows resident in shared pool pages
+    (the engine's prefix match): the rows are gathered from the pages into a
+    fresh contiguous cache, and the model runs over the unshared suffix alone
+    (``pos_offset=skip_tokens``), so the prefill's work shrinks to the
+    suffix's.
+
+    The result is the unshared prefill's (:func:`make_prefill_fn`) where
+    both hold: ``skip_tokens`` is whole pages inside the prompt's context
+    region (``skip_tokens <= seq_len - num_latents``; a context row is a
+    function of its token and absolute position alone under rotate-at-write
+    RoPE, while latent rows pass through ``q_norm`` and the SA stack), and
+    the suffix carries every latent. The engine enforces both and otherwise
+    joins unshared; this function refuses a geometry that breaks them. The
+    suffix's cross-attention runs K2 over the filled cache
+    (``core.attention``), as the unshared prefill runs it over the fresh
+    keys.
+
+    Returns ``shared_prefill(suffix_ids, pool_k, pool_v, page_ids,
+    generator=None) -> (first_token, state)``: ``suffix_ids`` (B,
+    ``seq_len - skip_tokens``), ``pool_k``/``pool_v`` the paged CA pools
+    (num_pages, page_size, C), ``page_ids`` the matched run
+    (``skip_tokens // page_size``,). The first token takes one draw from
+    ``generator``, as the unshared prefill's does, and ``state`` carries the
+    unshared prefill's keys. Only the pools' pages named are read; nothing
+    is written into them.
+    """
+    config, dev = _prefill_config(model, config, device)
+    suffix_len = seq_len - skip_tokens
+    if skip_tokens < 1:
+        raise ValueError(f"skip_tokens must be >= 1, got {skip_tokens}")
+    if suffix_len < num_latents:
+        raise ValueError(f"matched run ({skip_tokens} tokens) reaches into the latent region of a {seq_len}-token "
+                         f"prompt with {num_latents} latents: latent rows are not shareable")
+    _validate_window(model.config, seq_len, num_latents)
+
+    def shared_prefill(suffix_ids, pool_k: torch.Tensor, pool_v: torch.Tensor, page_ids,
+                       generator: Optional[torch.Generator] = None):
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        suffix_ids = torch.as_tensor(suffix_ids, device=dev).long()
+        if suffix_ids.shape[1] != suffix_len:
+            raise ValueError(f"suffix is {suffix_ids.shape[1]} tokens; this fn skips {skip_tokens} of {seq_len}")
+        page_ids = torch.as_tensor(page_ids, device=dev).long()
+        if page_ids.shape[0] * pool_k.shape[1] != skip_tokens:
+            raise ValueError(f"{page_ids.shape[0]} pages of {pool_k.shape[1]} do not cover {skip_tokens} skipped "
+                             "tokens (whole pages only)")
+        # the resident prefix rows: pool pages -> contiguous slots [0, skip)
+        rows = (pool_k[page_ids].reshape(skip_tokens, -1), pool_v[page_ids].reshape(skip_tokens, -1))
+        return _prefill_pass(model, suffix_ids, None, suffix_len - num_latents, num_latents, config, cache_dtype,
+                             generator, rows)
+
+    return shared_prefill
+
+
+def advance_generator(generator: torch.Generator, n_tokens: int, config: GenerationConfig) -> torch.Generator:
+    """Advance ``generator`` (in place; returned) past the draws of
+    ``n_tokens`` emitted tokens: one ``torch.rand((1,))`` a token when
+    ``config.do_sample``, as :func:`_draw_uniforms` draws a row's uniform,
+    and nothing for greedy decoding. One draw at a time, as the decode draws
+    them (torch does not promise that a batched draw of ``n`` uniforms
+    leaves a CPU generator where ``n`` single draws do). The engine's resume by prefill replay hands the replay's
+    first sample the generator the uninterrupted stream would hold (JAX:
+    ``advance_rng_chain``)."""
+    if config.do_sample:
+        for _ in range(int(n_tokens)):
+            torch.rand((1,), generator=generator)
+    return generator
+
+
 def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
                     cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda"):
     """The host-driven decode pair ``(prefill, step)``.
@@ -347,46 +512,8 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
     live on ``device``; asking for CUDA without a card raises.
     """
     config = config or GenerationConfig()
-    if config.max_new_tokens < 1:
-        raise ValueError("decode fns require max_new_tokens >= 1")
     dev = _model_device(model, device)
-    mcfg = model.config
-
-    def prefill(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None):
-        generator = generator if generator is not None else torch.Generator().manual_seed(0)
-        input_ids = torch.as_tensor(input_ids, device=dev).long()
-        b, seq_len = input_ids.shape
-        prefix_len = _validate_window(mcfg, seq_len, num_latents)
-        if pad_mask is None:
-            pad_mask = torch.zeros((b, seq_len), dtype=torch.bool, device=dev)
-        pad_mask = torch.as_tensor(pad_mask, device=dev).bool()
-        _require_pads_in_prefix(pad_mask, prefix_len)
-        ca_capacity = seq_len + config.max_new_tokens
-        sa_capacity = num_latents + config.max_new_tokens
-        cache = CausalSequenceModel.init_cache(mcfg, b, ca_capacity, sa_capacity, cache_dtype, dev)
-        pos_shift = pad_mask.sum(dim=1, keepdim=True)
-        pad_slots = torch.zeros((b, ca_capacity), dtype=torch.bool, device=dev)
-        pad_slots[:, :seq_len] = pad_mask
-        out = model(input_ids, prefix_len=prefix_len, pad_mask=pad_mask, kv_cache=cache)
-        logits = out.logits[:, -1].clone()
-        next_token = _sample(logits, config, generator)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        if config.eos_token_id is not None:
-            done = next_token == config.eos_token_id
-        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
-        state = {
-            "cache": tuple(c.on_device() for c in out.kv_cache),
-            "ca_start": zero(),
-            "sa_start": zero(),
-            "token": next_token.clone(),
-            "uniforms": torch.zeros((b,), dtype=torch.float32, device=dev),
-            "generator": generator,
-            "done": done,
-            "pad_slots": pad_slots,
-            "pos_shift": pos_shift,
-            "logits": logits,
-        }
-        return next_token, state
+    prefill = make_prefill_fn(model, num_latents, config, cache_dtype, device=dev)
 
     def step(state: dict):
         state, token = step.body(state)

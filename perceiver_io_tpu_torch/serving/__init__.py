@@ -4,11 +4,12 @@ deadline-aware admission queue with first-class shedding, mid-decode
 deadlines and cancellation through the ``on_token`` seam, bounded pre-decode
 retry, graceful drain and the clean-books invariant), the circuit breaker
 (``serving.breaker``), the deterministic fault injector and manual clock
-(``serving.faultinject``), and the continuous-batching engine over paged KV
+(``serving.faultinject``), the continuous-batching engine over paged KV
 caches (``serving.engine.EngineFrontEnd``, a ``RequestFrontEnd``) with its
-host-side page allocator. ``RequestSpec`` lives in ``obs.loadgen``. The
-journal, the fleet router and the prefix index wait for ROADMAP A7, A8 and
-A11."""
+host-side page allocator, radix prefix index (``serving.prefix``), eviction
+and the write-ahead request journal its crash recovery replays
+(``serving.journal``). ``RequestSpec`` lives in ``obs.loadgen``. The fleet
+router waits for ROADMAP A13."""
 
 from perceiver_io_tpu_torch.obs.loadgen import RequestSpec
 from perceiver_io_tpu_torch.serving.breaker import STATE_VALUES, BreakerConfig, CircuitBreaker
@@ -20,6 +21,7 @@ from perceiver_io_tpu_torch.serving.faultinject import (
     ManualClock,
     poison_params,
 )
+from perceiver_io_tpu_torch.serving.journal import JOURNAL_KINDS, JournalEntry, RequestJournal
 from perceiver_io_tpu_torch.serving.frontend import (
     SHED_REASONS,
     TERMINAL_OUTCOMES,
@@ -29,14 +31,19 @@ from perceiver_io_tpu_torch.serving.frontend import (
     RequestFrontEnd,
 )
 from perceiver_io_tpu_torch.serving.pages import PageAllocator, PageGrant, PageStats
+from perceiver_io_tpu_torch.serving.prefix import PrefixIndex
 
 __all__ = [
     "EngineConfig",
     "EngineCrash",
     "EngineFrontEnd",
+    "JOURNAL_KINDS",
+    "JournalEntry",
+    "RequestJournal",
     "PageAllocator",
     "PageGrant",
     "PageStats",
+    "PrefixIndex",
     "RequestSpec",
     "STATE_VALUES",
     "BreakerConfig",

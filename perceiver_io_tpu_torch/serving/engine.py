@@ -8,8 +8,8 @@ adds a page-fit check (a request whose KV footprint can never fit the pools
 sheds ``kv_pages_exhausted`` at admission), and replaces the sequential
 service loop by a fixed set of decode slots driven through ONE batched step:
 
-- **join**: a queued request's prompt runs the contiguous prefill of
-  ``generation.make_decode_fns`` (batch 1), then ``core.cache.commit_prefill_``
+- **join**: a queued request's prompt runs the contiguous prefill
+  (``generation.make_prefill_fn``, batch 1), then ``core.cache.commit_prefill_``
   lands its KV rows in freshly granted pages (``serving.pages``) and the slot
   enters the batch; a prefill failure frees both grants and books ``error``;
 - **step**: every engine step decodes one token for every active slot
@@ -28,15 +28,35 @@ service loop by a fixed set of decode slots driven through ONE batched step:
   queue wait and mean batch size at decode, and queued requests join without
   draining the batch.
 
+- **prefix sharing** (``EngineConfig.prefix_sharing``, on by default as in
+  JAX): every join publishes its prompt's whole context-region pages into a
+  radix prefix index (``serving.prefix.PrefixIndex``); a later prompt that
+  matches a resident run joins through
+  ``generation.make_shared_prefill_fn`` (the matched pages' CA rows
+  gathered from the pool, the suffix alone prefilled), and the refcounted
+  allocator holds one copy of the run. A page leaves the pool, and the
+  index, at its last holder's free (:meth:`EngineFrontEnd._free_ca`);
+- **eviction** (``EngineConfig.eviction``, off by default): a queued
+  request that fits the pool but not the free list reclaims pages from the
+  least-progressed slot, which is PARKED (its prompt and served tokens
+  kept) and later resumed by prefill replay over ``prompt + served`` with
+  one latent more per served token and its generator advanced one draw a
+  served token when sampling (``generation.advance_generator``); the books
+  identity is ``submitted == terminal + queued + in_flight + parked``;
+- **recovery**: with a ``serving.journal.RequestJournal`` the same replay
+  survives the engine's death: :meth:`EngineFrontEnd.recover` on a fresh
+  engine re-admits every journaled request that has no terminal record.
+
 A poisoned request (``FaultInjector.poison_at``) is served its poisoned
 weights for its prefill only, as in JAX: they are written into the model's
 parameters in place for the prefill and the originals written back before
 anything else runs, so the captured step keeps reading the same addresses
 with the original values.
 
-Prefix sharing (ROADMAP A7), eviction, parking and journal recovery (A8)
-and the speculative slot mode (A9) are not ported: :class:`EngineConfig` has
-no fields for them, so asking for one fails at construction.
+Every join, fork, eviction and resume writes into the captured step's state
+in place (``commit_prefill_``, ``release_slot_``, ``copy_``): no pool or
+table tensor is ever rebound. The speculative slot mode (ROADMAP A9) is not
+ported: :class:`EngineConfig` has no ``spec_k``.
 """
 
 from __future__ import annotations
@@ -44,20 +64,29 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from perceiver_io_tpu_torch.core.cache import commit_prefill_, release_slot_
 from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
-from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns, make_paged_step_fn
+from perceiver_io_tpu_torch.generation import (
+    GenerationConfig,
+    advance_generator,
+    make_paged_step_fn,
+    make_prefill_fn,
+    make_shared_prefill_fn,
+)
 from perceiver_io_tpu_torch.obs import trace as obs_trace
 from perceiver_io_tpu_torch.obs.metrics import Histogram, bucket_index
 from perceiver_io_tpu_torch.obs.recompile import RecompileTracker
-from perceiver_io_tpu_torch.serving.frontend import RequestFrontEnd, _Ticket
+from perceiver_io_tpu_torch.serving.frontend import FrontEndRecord, RequestFrontEnd, _Ticket
+from perceiver_io_tpu_torch.serving.journal import RequestJournal
 from perceiver_io_tpu_torch.serving.pages import PageAllocator, PageGrant
+from perceiver_io_tpu_torch.serving.prefix import PrefixIndex, chunk_key
 
 
 @dataclass
@@ -76,6 +105,28 @@ class EngineConfig:
     # maxed-out requests, plus the scratch page); below 1.0 the allocator
     # exerts real backpressure
     pool_headroom: float = 1.0
+    # cross-request prefix sharing: joining prompts are matched against the
+    # radix prefix index and the prefill skips resident pages (refcounted
+    # shared grants); False runs the same workload unshared
+    prefix_sharing: bool = True
+    # page-pressure preemption: a queued request that COULD fit the pool but
+    # not the free list reclaims pages from the least-progressed slot
+    # (parked, resumed by prefill replay) instead of waiting. Requires the
+    # no-slide geometry (max_ca_tokens <= max_seq_len, max_sa_tokens <=
+    # max_latents; checked at construction): the replay rebuilds the
+    # victim's latents as the tail of prompt + served tokens, which a slid
+    # window cannot express
+    eviction: bool = False
+
+
+def _no_slide(ec: EngineConfig, mcfg) -> bool:
+    return ec.max_ca_tokens <= mcfg.max_seq_len and ec.max_sa_tokens <= mcfg.max_latents
+
+
+def _slide_error(ec: EngineConfig, mcfg, what: str) -> ValueError:
+    return ValueError(f"{what} by prefill replay and never slide the window: need max_ca_tokens <= max_seq_len "
+                      f"({ec.max_ca_tokens} vs {mcfg.max_seq_len}) and max_sa_tokens <= max_latents "
+                      f"({ec.max_sa_tokens} vs {mcfg.max_latents})")
 
 
 class EngineFrontEnd(RequestFrontEnd):
@@ -89,16 +140,22 @@ class EngineFrontEnd(RequestFrontEnd):
     ``cache_dtype`` (the page pools' and the prefill caches' dtype; None:
     f32, as in the JAX engine; a bf16 model serves from bf16 pools with
     ``torch.bfloat16``), ``config``, ``events``, ``registry``, ``clock``,
-    ``sleep``, ``injector`` and ``device`` (``"cuda"`` by default; asking for
-    CUDA without a card raises, pass ``device="cpu"`` for the plain
-    versions).
+    ``sleep``, ``injector``, ``journal`` (a ``RequestJournal`` or a path;
+    it needs the no-slide geometry, as ``eviction`` does) and ``device``
+    (``"cuda"`` by default; asking for CUDA without a card raises, pass
+    ``device="cpu"`` for the plain versions).
     """
+
+    # resume replays hit a (remaining, num_latents + n) geometry per
+    # progress mark: the prefill caches are LRU-bounded, as JAX's are
+    _PREFILL_CACHE_MAX = 64
 
     def __init__(self, model: CausalSequenceModel, *, engine_config: Optional[EngineConfig] = None, **kw):
         super().__init__(model, **kw)
         self.engine_config = ec = engine_config or EngineConfig()
+        if (ec.eviction or self.journal is not None) and not _no_slide(ec, model.config):
+            raise _slide_error(ec, model.config, "eviction and journal recovery resume")
         self._gen_config = self.base_config or GenerationConfig()
-        cache_dtype = torch.float32 if self.cache_dtype is None else self.cache_dtype
         ps = ec.page_size
         self._ca_pages_per_slot = -(-ec.max_ca_tokens // ps)
         self._sa_pages_per_slot = -(-ec.max_sa_tokens // ps)
@@ -106,9 +163,12 @@ class EngineFrontEnd(RequestFrontEnd):
         sa_pool = 1 + max(2, int(round(ec.slots * self._sa_pages_per_slot * ec.pool_headroom)))
         self.ca_alloc = PageAllocator(ca_pool, ps)
         self.sa_alloc = PageAllocator(sa_pool, ps)
+        # the radix prefix index over CA pool pages (SA rows pass through
+        # q_norm and the SA stack: request-specific, never shared)
+        self.prefix_index = PrefixIndex(ps)
         caches = CausalSequenceModel.init_paged_cache(
             model.config, ec.slots, ps, ca_num_pages=ca_pool, ca_pages_per_slot=self._ca_pages_per_slot,
-            sa_num_pages=sa_pool, sa_pages_per_slot=self._sa_pages_per_slot, dtype=cache_dtype,
+            sa_num_pages=sa_pool, sa_pages_per_slot=self._sa_pages_per_slot, dtype=self._cache_dtype,
             device=self.device,
         )
         s, dev = ec.slots, self.device
@@ -134,7 +194,10 @@ class EngineFrontEnd(RequestFrontEnd):
             # the scratch page), then the state back to its initial values
             self._step_fn(self._state)
             self._reset_state()
-        self._prefill_fns: Dict[int, Any] = {}
+        self._prefill_fns: "OrderedDict[tuple, Any]" = OrderedDict()
+        self._shared_prefill_fns: "OrderedDict[tuple, Any]" = OrderedDict()
+        # self._parked (the front end's) holds evicted and recovered slots,
+        # FIFO: the oldest preempted work resumes first
         self._slots: List[Optional[_EngineSlot]] = [None] * s
         self._engine_steps = 0
         self._fill_sum = 0  # sum of active-slot counts over steps
@@ -150,6 +213,16 @@ class EngineFrontEnd(RequestFrontEnd):
         self._m_fill = r.gauge("engine_batch_fill_frac")
         self._m_pages = r.gauge("engine_kv_pages_used")
         self._m_pages_frac = r.gauge("engine_kv_pages_frac")
+        self._m_evictions = r.counter("serve_evictions_total")
+        self._m_resumes = r.counter("serve_resumes_total")
+        self._m_recovered = r.counter("serve_recovered_total")
+        self._m_parked = r.gauge("serve_parked_depth")
+        # joins whose prefill skipped resident pages, and the pages skipped
+        # (tenant-labelled children too)
+        self._m_prefix_hits = r.counter("serve_prefix_hits_total")
+        self._m_prefix_pages = r.counter("serve_prefix_pages_shared")
+        self._n_prefix_hits = 0
+        self._n_prefix_pages_shared = 0
         # per-tenant pages held (feeds engine_kv_pages_used{tenant=...})
         self._tenant_pages: Dict[str, int] = {}
         self._admission_checks.append(self._page_fit_check)
@@ -214,15 +287,121 @@ class EngineFrontEnd(RequestFrontEnd):
 
     # -- join ----------------------------------------------------------------
 
-    def _prefill_for(self, max_new: int):
+    def _cached(self, cache: OrderedDict, key: tuple, build):
+        """``cache[key]``, built on a miss; least recently used entries go
+        past ``_PREFILL_CACHE_MAX``."""
+        if key in cache:
+            cache.move_to_end(key)
+            return cache[key]
+        while len(cache) >= self._PREFILL_CACHE_MAX:
+            cache.popitem(last=False)
+        cache[key] = build()
+        return cache[key]
+
+    def _prefill_for(self, max_new: int, num_latents: Optional[int] = None):
         """The prefill for one decode budget (eager: its prompt length
-        varies per request)."""
-        if max_new not in self._prefill_fns:
-            cfg = dataclasses.replace(self._gen_config, max_new_tokens=max_new)
-            cache_dtype = torch.float32 if self.cache_dtype is None else self.cache_dtype
-            self._prefill_fns[max_new], _ = make_decode_fns(self.model, self.num_latents, cfg, cache_dtype,
-                                                            device=self.device)
-        return self._prefill_fns[max_new]
+        varies per request). ``num_latents`` (the engine's by default) is
+        the resume seam: a parked request with ``n`` served tokens replays
+        over ``prompt + served`` with ``num_latents + n`` latents, the
+        uninterrupted slot's latent set. No decode step is built with it."""
+        num_latents = self.num_latents if num_latents is None else int(num_latents)
+        cfg = dataclasses.replace(self._gen_config, max_new_tokens=max_new)
+        return self._cached(self._prefill_fns, (max_new, num_latents), lambda: make_prefill_fn(
+            self.model, num_latents, cfg, self._cache_dtype, device=self.device))
+
+    @property
+    def _cache_dtype(self) -> torch.dtype:
+        return torch.float32 if self.cache_dtype is None else self.cache_dtype
+
+    def _shared_prefill_for(self, skip_tokens: int, prompt_len: int, max_new: int):
+        """The shared prefill of one (skip, prompt, budget) geometry
+        (``generation.make_shared_prefill_fn``), LRU-bounded as
+        :meth:`_prefill_for`'s."""
+        cfg = dataclasses.replace(self._gen_config, max_new_tokens=max_new)
+        return self._cached(self._shared_prefill_fns, (skip_tokens, prompt_len, max_new),
+                            lambda: make_shared_prefill_fn(self.model, self.num_latents, skip_tokens, prompt_len,
+                                                           cfg, self._cache_dtype, device=self.device))
+
+    def _context_pages(self, ticket: _Ticket) -> int:
+        """The prompt's whole context-region pages (``prompt_len -
+        num_latents`` tokens, page by page): the run a join may share (the
+        suffix must carry every latent, so a match never reaches past it)
+        and the run it publishes. 0 with sharing off."""
+        if not self.engine_config.prefix_sharing:
+            return 0
+        return max((ticket.record.prompt_len - self.num_latents) // self.engine_config.page_size, 0)
+
+    def _context_keys(self, ticket: _Ticket) -> list:
+        """The chunk keys of the prompt's context-region pages, hashed once a
+        ticket (a join that waits for pages, or is resumed, reuses them)."""
+        if ticket.prefix_keys is None:
+            n = self._context_pages(ticket) * self.engine_config.page_size
+            ticket.prefix_keys = self.prefix_index.chunks(np.asarray(ticket.spec.input_ids).reshape(-1)[:n])
+        return ticket.prefix_keys
+
+    def _first_key(self, ticket: _Ticket) -> bytes:
+        """The key of the prompt's first chunk: the only hash a prompt costs
+        while the index holds nothing under it."""
+        if ticket.prefix_keys is not None:
+            return ticket.prefix_keys[0]
+        return chunk_key(np.asarray(ticket.spec.input_ids).reshape(-1)[: self.engine_config.page_size])
+
+    def _match_prefix(self, ticket: _Ticket) -> Tuple[int, ...]:
+        """The resident run a join shares: the longest indexed run of the
+        prompt's context-region pages (empty with sharing off)."""
+        if self._context_pages(ticket) < 1:
+            return ()
+        return self.prefix_index.match_first(self._first_key(ticket), lambda: self._context_keys(ticket))
+
+    def _publish_prefix(self, ticket: _Ticket, ca_grant: PageGrant, defer: bool) -> None:
+        """Index a landed request's context-region pages, after the join
+        committed their rows. A shared join publishes too: its fresh context
+        pages extend the resident run (the matched head is a no-op). A
+        join's run waits in the index until a match could read it
+        (``PrefixIndex.defer_insert``; the free withdraws it); a resume's,
+        which may repoint a run another request published, goes in now."""
+        n = self._context_pages(ticket)
+        if n < 1:
+            return
+        if defer:
+            self.prefix_index.defer_insert(ticket.record.index, self._first_key(ticket),
+                                           lambda: self._context_keys(ticket), ca_grant.pages[:n])
+        else:
+            self.prefix_index.insert_keys(self._context_keys(ticket), ca_grant.pages[:n])
+
+    def _free_ca(self, grant: PageGrant, owner: Optional[int] = None) -> None:
+        """Free a CA grant and expire the index entries of every page whose
+        last holder this was: every CA free (retire, evict, failed joins and
+        resumes) comes here, so a recycled page never satisfies a match.
+        ``owner`` (a landed request's index) withdraws its run if it still
+        waits to be indexed."""
+        if owner is not None:
+            self.prefix_index.withdraw(owner)
+        released = self.ca_alloc.free(grant)
+        if released:
+            self.prefix_index.expire_pages(released)
+
+    def _fork_shared_append_page(self, ca_grant: PageGrant, append_pos: int) -> Optional[PageGrant]:
+        """Copy-on-write on the decode append path: when the CA page that
+        token position ``append_pos`` writes into is shared with a co-owner,
+        fork it (``PageAllocator.cow_fork``) and copy the page's rows into
+        the fresh page, in place in the captured pools. Returns the grant
+        (forked or not), or None when the pool has no page to fork into
+        (the caller backs off as from a failed allocation; nothing
+        changed). With matches capped to whole pages inside the context
+        region the append page is never shared, so this guards only."""
+        page_slot = append_pos // self.engine_config.page_size
+        page = ca_grant.pages[page_slot]
+        if page not in ca_grant.shared_pages:
+            return ca_grant
+        forked = self.ca_alloc.cow_fork(ca_grant, page)
+        if forked is None:
+            return None
+        fresh = forked.pages[page_slot]
+        pool = self._state["cache"][0]
+        pool.k[fresh].copy_(pool.k[page])
+        pool.v[fresh].copy_(pool.v[page])
+        return forked
 
     def _try_join(self, ticket: _Ticket, slot_id: int) -> bool:
         """Prefill the ticket's request and land it in ``slot_id``. Returns
@@ -230,13 +409,25 @@ class EngineFrontEnd(RequestFrontEnd):
         raises nothing: a prefill failure books the request as a terminal
         error (pages freed), keeping the stream 1:1."""
         rec = ticket.record
-        ca_grant = self.ca_alloc.alloc_tokens(rec.prompt_len + rec.max_new_tokens)
+        ca_tokens = rec.prompt_len + rec.max_new_tokens
+        matched = self._match_prefix(ticket)
+        ca_grant = (self.ca_alloc.alloc_tokens_shared(ca_tokens, matched) if matched
+                    else self.ca_alloc.alloc_tokens(ca_tokens))
         if ca_grant is None:
             return False
         sa_grant = self.sa_alloc.alloc_tokens(self.num_latents + rec.max_new_tokens)
         if sa_grant is None:
-            self.ca_alloc.free(ca_grant)
+            self._free_ca(ca_grant)
             return False
+        if ca_grant.shared_pages:
+            # the first decode append (CA position prompt_len) must never
+            # write into a page a co-owner still reads
+            forked = self._fork_shared_append_page(ca_grant, rec.prompt_len)
+            if forked is None:
+                self._free_ca(ca_grant)
+                self.sa_alloc.free(sa_grant)
+                return False
+            ca_grant = forked
         self._queue.remove(ticket)
         self._set_queue_gauge()
         now = float(self._clock())
@@ -259,11 +450,19 @@ class EngineFrontEnd(RequestFrontEnd):
             generator = torch.Generator().manual_seed(int(ticket.spec.rng_seed))
             # a poisoned request's weights serve its prefill alone; the
             # originals are back before the next replay of the step
-            with self._served_with(rec.index):
-                token, pstate = self._prefill_for(rec.max_new_tokens)(ticket.spec.input_ids, None, generator)
+            with self._served_with(rec.index) as poisoned:
+                if matched:
+                    # the matched run's CA rows are resident: gather them and
+                    # prefill the suffix alone (one draw, as unshared)
+                    skip = len(matched) * self.engine_config.page_size
+                    pool = self._state["cache"][0]
+                    token, pstate = self._shared_prefill_for(skip, rec.prompt_len, rec.max_new_tokens)(
+                        np.asarray(ticket.spec.input_ids)[:, skip:], pool.k, pool.v, matched, generator)
+                else:
+                    token, pstate = self._prefill_for(rec.max_new_tokens)(ticket.spec.input_ids, None, generator)
             first = int(token[0])
         except Exception as e:  # noqa: BLE001 — books close, pages return
-            self.ca_alloc.free(ca_grant)
+            self._free_ca(ca_grant)
             self.sa_alloc.free(sa_grant)
             self._tenant_pages_delta(rec, -(ca_grant.n_pages + sa_grant.n_pages))
             rec.error = repr(e)
@@ -274,14 +473,43 @@ class EngineFrontEnd(RequestFrontEnd):
         rec.attempts += 1
         slot.tokens_out = 1
         self.served_tokens[rec.index] = [first]
+        if self.journal is not None:
+            self.journal.append("progress", rec.index, tokens=[first])
+        # a shared join's commit rewrites the matched pages with the bytes
+        # they hold (the rows were gathered from them)
         self._join_state(slot_id, ca_grant, sa_grant, pstate)
         self._slots[slot_id] = slot
         self._in_flight += 1
+        if not poisoned:
+            # a poisoned request's rows are its own: no later request shares them
+            self._publish_prefix(ticket, ca_grant, defer=True)
+        if matched:
+            self._book_prefix_hit(slot, len(matched))
         self._m_ttft.record(slot.ttft_s)
         # the per-token seam fires for token 0 exactly like the sequential
         # path (injector stalls and kills, cancellation, deadline)
         self._token_seam(slot, 0)
         return True
+
+    def _book_prefix_hit(self, slot: "_EngineSlot", n_pages: int) -> None:
+        """The counters and the ``serve.prefix_hit`` row of a shared join."""
+        rec = slot.ticket.record
+        ps = self.engine_config.page_size
+        self._n_prefix_hits += 1
+        self._n_prefix_pages_shared += n_pages
+        self._m_prefix_hits.inc()
+        self._m_prefix_pages.inc(n_pages)
+        if rec.tenant is not None:
+            self._m_prefix_hits.labels(tenant=rec.tenant).inc()
+            self._m_prefix_pages.labels(tenant=rec.tenant).inc(n_pages)
+        if self.events is not None:
+            row = dict(request_index=rec.index, pages_matched=n_pages, pages_total=-(-rec.prompt_len // ps),
+                       tokens_skipped=n_pages * ps)
+            if rec.tenant is not None:
+                row["tenant"] = rec.tenant
+            if slot.span is not None:
+                row["span_id"] = slot.span.span_id
+            self.events.emit("serve.prefix_hit", **row)
 
     def _join_state(self, slot: int, ca_grant: PageGrant, sa_grant: PageGrant, pstate: dict) -> None:
         """Commit one prefilled request's prompt KV into its granted pages and
@@ -374,7 +602,7 @@ class EngineFrontEnd(RequestFrontEnd):
         slot = self._slots[slot_id]
         self._slots[slot_id] = None
         self._in_flight -= 1
-        self.ca_alloc.free(slot.ca_grant)
+        self._free_ca(slot.ca_grant, slot.ticket.record.index)
         self.sa_alloc.free(slot.sa_grant)
         self._tenant_pages_delta(slot.ticket.record, -(slot.ca_grant.n_pages + slot.sa_grant.n_pages))
         self._retire_state(slot_id)
@@ -395,17 +623,324 @@ class EngineFrontEnd(RequestFrontEnd):
         st["pos_shift"][slot] = 0
         st["generators"][slot] = None
 
+    # -- eviction, parking, resume -------------------------------------------
+
+    def _select_victim(self) -> Optional[int]:
+        """The least-progressed slot: fewest tokens served, ties to the
+        latest admitted (highest index). Slots already terminal or at their
+        budget are never victims: the next sweep frees them anyway."""
+        cands = [(s.tokens_out, -s.ticket.record.index, slot_id) for slot_id, s in enumerate(self._slots)
+                 if s is not None and s.outcome is None and s.tokens_out < s.ticket.record.max_new_tokens]
+        return min(cands)[2] if cands else None
+
+    def _evict_slot(self, slot_id: int) -> None:
+        """Preempt one slot: its pages return (a shared page only loses a
+        holder), its device slot is released in place, and the request is
+        PARKED with its served tokens. Not a terminal transition: the books
+        move it from in_flight to parked."""
+        slot = self._slots[slot_id]
+        self._slots[slot_id] = None
+        self._in_flight -= 1
+        pages_freed = slot.ca_grant.n_pages + slot.sa_grant.n_pages
+        self._free_ca(slot.ca_grant, slot.ticket.record.index)
+        self.sa_alloc.free(slot.sa_grant)
+        self._tenant_pages_delta(slot.ticket.record, -pages_freed)
+        slot.ca_grant = slot.sa_grant = None
+        self._retire_state(slot_id)
+        slot.slot_id = -1
+        slot.evictions += 1
+        self._n_evictions += 1
+        self._m_evictions.inc()
+        rec = slot.ticket.record
+        span_id = None
+        if slot.span is not None:
+            # the preempted segment's span closes here; a resume opens a
+            # fresh one under the same request_id
+            slot.span.set("outcome", "evicted")
+            slot.span.set("tokens_out", slot.tokens_out)
+            span_id = slot.span.span_id
+            self._tracer.record(slot.span)
+            self._tracer.flush()
+        slot.span = None
+        self._parked.append(slot)
+        self._m_parked.set(len(self._parked))
+        if self.journal is not None:
+            self.journal.append("evict", rec.index, tokens_out=slot.tokens_out)
+        if self.events is not None:
+            row = dict(request_index=rec.index, tokens_out=slot.tokens_out, pages_freed=pages_freed)
+            if rec.tenant is not None:
+                row["tenant"] = rec.tenant
+            if span_id is not None:
+                row["span_id"] = span_id
+            self.events.emit("serve.evict", **row)
+
+    def _evict_for(self, ticket: _Ticket) -> bool:
+        """Evict least-progressed slots until the queued request fits the
+        free lists (True), or no victim is left (False: backpressure, as
+        with eviction off)."""
+        if not self.engine_config.eviction:
+            return False
+        rec = ticket.record
+        ca_tokens = rec.prompt_len + rec.max_new_tokens
+        sa_tokens = self.num_latents + rec.max_new_tokens
+        while not (self.ca_alloc.can_fit_now(ca_tokens) and self.sa_alloc.can_fit_now(sa_tokens)):
+            victim = self._select_victim()
+            if victim is None:
+                return False
+            self._evict_slot(victim)
+        return True
+
+    def _park_terminal(self, slot: "_EngineSlot", outcome: str) -> None:
+        """A parked request reaching a terminal outcome without a slot
+        (cancelled or expired while parked, a failed replay, a recovered
+        stream already whole): the books close through the retire path."""
+        slot.ticket.record.tokens_out = slot.tokens_out
+        self._retire_books(slot, outcome, emit=True)
+
+    def _try_resume(self, slot: "_EngineSlot", slot_id: int) -> bool:
+        """Resume a parked request into ``slot_id`` by prefill replay over
+        ``prompt + its n served tokens`` with ``num_latents + n`` latents and
+        its generator advanced past n draws (when sampling): the replay's
+        sample is token n + 1 of the uninterrupted stream. Returns False
+        only when pages are short now (it stays parked); a replay failure
+        books ``error`` as a join failure does."""
+        rec = slot.ticket.record
+        idx, n = rec.index, slot.tokens_out
+        # the demand is the join's: prompt + n + remaining CA tokens,
+        # (num_latents + n) + remaining SA tokens
+        ca_grant = self.ca_alloc.alloc_tokens(rec.prompt_len + rec.max_new_tokens)
+        if ca_grant is None:
+            return False
+        sa_grant = self.sa_alloc.alloc_tokens(self.num_latents + rec.max_new_tokens)
+        if sa_grant is None:
+            self._free_ca(ca_grant)
+            return False
+        slot.ca_grant, slot.sa_grant = ca_grant, sa_grant
+        self._tenant_pages_delta(rec, ca_grant.n_pages + sa_grant.n_pages)
+        emitted = self.served_tokens[idx]
+        replay_ids = np.concatenate([np.asarray(slot.ticket.spec.input_ids).reshape(1, -1),
+                                     np.asarray([emitted])], axis=1)
+        if self.events is not None and self._tracer is not None:
+            attrs = {"request_id": slot.request_id}
+            if rec.tenant is not None:
+                attrs["tenant"] = rec.tenant
+            slot.span = obs_trace.Span(name="request", parent_id=None, attrs=attrs)
+        try:
+            if self._injector is not None:
+                self._injector.before_attempt(idx)
+            generator = advance_generator(torch.Generator().manual_seed(int(slot.ticket.spec.rng_seed)), n,
+                                          self._gen_config)
+            with self._served_with(idx) as poisoned:
+                token, pstate = self._prefill_for(rec.max_new_tokens - n, self.num_latents + n)(
+                    replay_ids, None, generator)
+            first = int(token[0])
+        except Exception as e:  # noqa: BLE001 — books close, pages return
+            self._free_ca(ca_grant)
+            self.sa_alloc.free(sa_grant)
+            self._tenant_pages_delta(rec, -(ca_grant.n_pages + sa_grant.n_pages))
+            slot.ca_grant = slot.sa_grant = None
+            rec.error = repr(e)
+            rec.attempts += 1
+            self._park_terminal(slot, "error")
+            return True
+        rec.attempts += 1
+        slot.tokens_out = n + 1
+        slot.slot_id = slot_id
+        emitted.append(first)
+        self._join_state(slot_id, ca_grant, sa_grant, pstate)
+        self._slots[slot_id] = slot
+        self._in_flight += 1
+        # the replay's context rows are the join's (same tokens, same
+        # positions): a resume republishes them, which is also how recovery
+        # rebuilds the index
+        if not poisoned:
+            self._publish_prefix(slot.ticket, ca_grant, defer=False)
+        self._n_resumes += 1
+        self._m_resumes.inc()
+        if self.journal is not None:
+            self.journal.append("resume", idx, tokens_out=n)
+            self.journal.append("progress", idx, tokens=[first])
+        if self.events is not None:
+            row = dict(request_index=idx, tokens_out=n)
+            if rec.tenant is not None:
+                row["tenant"] = rec.tenant
+            if slot.span is not None:
+                row["span_id"] = slot.span.span_id
+            self.events.emit("serve.resume", **row)
+        self._token_seam(slot, slot.tokens_out - 1)
+        return True
+
+    def _resume_parked(self) -> None:
+        """Fill free slots from the parked queue first (FIFO), on the pages
+        free now: a resume never evicts, so every segment between two
+        preemptions serves at least one token and the work left shrinks."""
+        if not self._parked:
+            return
+        for slot_id, occupant in enumerate(self._slots):
+            if occupant is not None:
+                continue
+            while self._parked:
+                slot = self._parked[0]
+                if slot.ticket.cancelled or (slot.ticket.deadline_at is not None
+                                             and float(self._clock()) > slot.ticket.deadline_at):
+                    self._parked.pop(0)
+                    self._m_parked.set(len(self._parked))
+                    self._park_terminal(slot, "cancelled" if slot.ticket.cancelled else "timeout")
+                    continue
+                if not self._try_resume(slot, slot_id):
+                    return  # pages short: the parked head waits
+                self._parked.pop(0)
+                self._m_parked.set(len(self._parked))
+                break  # the slot is filled (or the head reached terminal)
+            if not self._parked:
+                return
+
+    # -- crash recovery ------------------------------------------------------
+
+    def recover(self, journal, handoff_id: Optional[str] = None) -> dict:
+        """Re-admit a dead engine's non-terminal requests from its
+        write-ahead journal (a ``RequestJournal`` or a path) into this
+        engine.
+
+        Idempotent on request index: an index this engine already carries
+        (queued, in a slot, parked or terminal) is skipped, so a second pass
+        of the same journal is a no-op (``skipped`` counts them).
+
+        Two shapes. An engine without a journal of its own ADOPTS this one:
+        both incarnations append to one file, whose books close over the
+        union. A survivor with its own journal keeps it: each adopted
+        request is re-journaled (submitted, admitted, progress) there, where
+        its terminal record will land, and the dead journal gets a
+        ``recovered`` record with ``handoff`` (``handoff_id``, this engine's
+        journal path by default), which closes it there.
+
+        A request with journaled progress is PARKED, as an evicted one, and
+        resumes by prefill replay; one without re-enters the queue. Only the
+        page-fit check of admission runs again: a request this engine can
+        never fit sheds ``kv_pages_exhausted`` here. Deadlines restart from
+        now. A stream already at its budget (or ending in eos) books ``ok``
+        without a replay. One ``serve.recover`` row (and span) a request.
+        Returns a summary dict."""
+        ec, mcfg = self.engine_config, self.model.config
+        if not _no_slide(ec, mcfg):
+            raise _slide_error(ec, mcfg, "journal recovery resumes")
+        if not isinstance(journal, RequestJournal):
+            journal = RequestJournal(journal)
+        handoff_mode = self.journal is not None and self.journal is not journal
+        if handoff_mode:
+            own = self.journal
+            if handoff_id is None:
+                handoff_id = own.path
+        else:
+            self.journal = own = journal
+        now = float(self._clock())
+        eos = self._gen_config.eos_token_id
+        n = done_already = shed = skipped = 0
+        known = {r.index for r in self.records}
+        for entry in journal.pending():
+            if entry.index in known:
+                skipped += 1
+                continue
+            spec = entry.spec()
+            if handoff_mode:
+                jfields = dict(prompt_len=int(entry.prompt_len), max_new_tokens=int(entry.max_new_tokens),
+                               input_ids=list(entry.input_ids), rng_seed=int(entry.rng_seed),
+                               deadline_s=None if entry.deadline_s is None else float(entry.deadline_s))
+                if entry.tenant is not None:
+                    jfields["tenant"] = entry.tenant
+                own.append("submitted", entry.index, **jfields)
+            rec = FrontEndRecord(index=entry.index, prompt_len=int(entry.prompt_len),
+                                 max_new_tokens=int(entry.max_new_tokens), batch=1, tenant=entry.tenant)
+            rec.queue_wait_s = 0.0
+            self.records.append(rec)
+            with self._books_lock:
+                self._n["submitted"] += 1
+            self._m_submitted.inc()
+            if rec.tenant is not None:
+                self._m_submitted.labels(tenant=rec.tenant).inc()
+            verdict = self._page_fit_check(spec, None)
+            if verdict is not None:
+                # this engine's geometry can never fit it: re-queueing would
+                # spin the drive loops forever
+                reason, detail = verdict
+                rec.outcome, rec.shed_reason = "shed", reason
+                with self._books_lock:
+                    self._n["shed"] += 1
+                self._m_shed.inc()
+                if rec.tenant is not None:
+                    self._m_shed.labels(tenant=rec.tenant).inc()
+                own.append("terminal", entry.index, outcome="shed", shed_reason=reason)
+                if handoff_mode:
+                    journal.append("recovered", entry.index, tokens_resumed=0, handoff=str(handoff_id))
+                self._emit_frontend_request(rec, shed_reason=reason, queue_depth=len(self._queue), **detail)
+                shed += 1
+                continue
+            with self._books_lock:
+                self._n["admitted"] += 1
+            self._m_admitted.inc()
+            if rec.tenant is not None:
+                self._m_admitted.labels(tenant=rec.tenant).inc()
+            ticket = _Ticket(spec=spec, record=rec, arrival_s=now,
+                             deadline_at=None if entry.deadline_s is None else now + float(entry.deadline_s))
+            tokens = [int(t) for t in entry.tokens]
+            slot = None
+            if tokens:
+                slot = _EngineSlot(ticket=ticket, slot_id=-1, ca_grant=None, sa_grant=None)
+                slot.t_joined = self._now_s()
+                slot.tokens_out = len(tokens)
+                self.served_tokens[entry.index] = tokens
+            self._n_recovered += 1
+            self._m_recovered.inc()
+            if handoff_mode:
+                own.append("admitted", entry.index)
+                if tokens:
+                    own.append("progress", entry.index, tokens=tokens)
+                journal.append("recovered", entry.index, tokens_resumed=len(tokens), handoff=str(handoff_id))
+            else:
+                journal.append("recovered", entry.index, tokens_resumed=len(tokens))
+            if self.events is not None:
+                row = dict(request_index=entry.index, tokens_resumed=len(tokens))
+                if entry.tenant is not None:
+                    row["tenant"] = entry.tenant
+                if self._tracer is not None:
+                    # the span carries the request_id the request's resume
+                    # span and terminal row will (the parked slot mints it)
+                    rid = slot.request_id if slot is not None else self._trace_mod.new_span_id()
+                    with self._tracer.span("request", request_id=rid, request_index=entry.index) as sp:
+                        sp.set("outcome", "recovered")
+                        sp.set("tokens_resumed", len(tokens))
+                    self._tracer.flush()
+                    row["span_id"] = sp.span_id
+                self.events.emit("serve.recover", **row)
+            if slot is None:
+                self._queue.append(ticket)
+                self._set_queue_gauge()
+            elif len(tokens) >= rec.max_new_tokens or (eos is not None and tokens[-1] == eos):
+                # died between the last token and its retire: nothing to decode
+                self._park_terminal(slot, "ok")
+                done_already += 1
+            else:
+                self._parked.append(slot)
+            n += 1
+        self._m_parked.set(len(self._parked))
+        return {"recovered": n, "parked": len(self._parked), "queued": len(self._queue),
+                "already_complete": done_already, "shed": shed, "skipped": skipped}
+
     # -- the engine loop -----------------------------------------------------
 
     def _active_ids(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s is not None]
 
     def _fill_slots(self) -> None:
-        """Batched prefill admission: join queued requests into every free
-        slot, booking queued cancels and queue-expired deadlines first. Page
-        backpressure stops the fill; it never sheds."""
-        if not self._queue:
+        """Batched prefill admission: resume parked requests first (on the
+        pages free now), then join queued requests into every free slot,
+        booking queued cancels and queue-expired deadlines first. Page
+        backpressure stops the fill; with ``eviction`` a blocked queue head
+        first reclaims pages from the least-progressed slot. It never
+        sheds."""
+        if not (self._queue or self._parked):
             return  # nothing joins: the gauges hold the last step's values
+        self._resume_parked()
         for slot_id, occupant in enumerate(self._slots):
             if occupant is not None:
                 continue
@@ -429,9 +964,23 @@ class EngineFrontEnd(RequestFrontEnd):
                                                 queue_expired=True)
                     continue
                 if not self._try_join(ticket, slot_id):
-                    return  # pages short: the queue waits for retires
+                    # pages short now: evict (when enabled) so the queue head
+                    # proceeds, else wait for retires
+                    if not self._evict_for(ticket) or not self._try_join(ticket, slot_id):
+                        return
                 break  # joined (or terminally booked): next slot
         self._update_gauges()
+
+    def sharing_audit(self) -> List[str]:
+        """The sharing invariants (empty = clean): both allocators' books,
+        refcounts included, the prefix index's structure, and the seam
+        between them: every page the index names must be live in the CA
+        allocator."""
+        problems = self.ca_alloc.audit() + self.sa_alloc.audit() + self.prefix_index.audit()
+        for page in self.prefix_index.pages():
+            if self.ca_alloc.refcount(page) < 1:
+                problems.append(f"prefix index names page {page} with refcount 0 (expire-on-release seam leaked)")
+        return problems
 
     def _update_gauges(self) -> None:
         """The batch-fill and page gauges, once a step: from the allocators'
@@ -442,6 +991,7 @@ class EngineFrontEnd(RequestFrontEnd):
         ca_used = self.ca_alloc.pages_used
         self._m_pages.set(ca_used + self.sa_alloc.pages_used)
         self._m_pages_frac.set(ca_used / self.ca_alloc.num_allocatable)
+        self._m_parked.set(len(self._parked))
 
     def _sweep_terminal(self) -> None:
         """Retire slots whose outcome is already terminal (a kill at token 0
@@ -490,6 +1040,10 @@ class EngineFrontEnd(RequestFrontEnd):
             if cold_step:
                 slot.compiled = True
             self._token_seam(slot, slot.tokens_out - 1)
+            if self.journal is not None:
+                # one progress record a slot a step; a token a crash tore
+                # off is re-derived by the recovery's replay
+                self.journal.append("progress", rec.index, tokens=[tok])
             if slot.outcome is not None:  # killed / cancelled / deadline
                 self._retire_slot(slot_id, slot.outcome)
             elif slot.tokens_out >= rec.max_new_tokens or (eos is not None and tok == eos):
@@ -497,10 +1051,16 @@ class EngineFrontEnd(RequestFrontEnd):
         self._update_gauges()
 
     def cancel(self, request_index: int) -> bool:
-        """Cancel a queued request or one live in a decode slot (the slot
-        retires ``cancelled`` at its next token boundary)."""
+        """Cancel a queued request, one live in a decode slot (the slot
+        retires ``cancelled`` at its next token boundary), or a parked one
+        (booked ``cancelled`` when the resume loop reaches it, without a
+        replay)."""
         for slot in self._slots:
             if slot is not None and slot.ticket.record.index == request_index:
+                slot.ticket.cancelled = True
+                return True
+        for slot in self._parked:
+            if slot.ticket.record.index == request_index and not slot.ticket.cancelled:
                 slot.ticket.cancelled = True
                 return True
         return super().cancel(request_index)
@@ -521,7 +1081,8 @@ class EngineFrontEnd(RequestFrontEnd):
         ``max_requests`` reached terminal outcomes)."""
         terminal0 = self._terminal_served()
         done = 0
-        while self._queue or self._active_ids():
+        # parked is live work: a recovered engine may owe everything parked
+        while self._queue or self._active_ids() or self._parked:
             self._check_guard()
             self._fill_slots()
             self._engine_step()
@@ -544,10 +1105,10 @@ class EngineFrontEnd(RequestFrontEnd):
                 out.append(self.submit(pending.popleft(), deadline_s=deadline_s))
 
         admit()
-        while self._queue or pending or self._active_ids():
+        while self._queue or pending or self._active_ids() or self._parked:
             self._check_guard()
             admit()
-            if not (self._queue or self._active_ids()):
+            if not (self._queue or self._active_ids() or self._parked):
                 continue
             self._fill_slots()
             self._engine_step()
@@ -568,13 +1129,13 @@ class EngineFrontEnd(RequestFrontEnd):
         t0 = float(self._clock())
         pending = deque(zip(specs, offsets))
         out = []
-        while pending or self._queue or self._active_ids():
+        while pending or self._queue or self._active_ids() or self._parked:
             self._check_guard()
             # admit every arrival whose time has passed on the clock
             while pending and t0 + pending[0][1] <= float(self._clock()):
                 spec, off = pending.popleft()
                 out.append(self.submit(spec, arrival_s=t0 + off, deadline_s=deadline_s))
-            if not (self._queue or self._active_ids()):
+            if not (self._queue or self._active_ids() or self._parked):
                 if pending:  # idle: jump to the next arrival
                     spec, off = pending.popleft()
                     self._advance_to(t0 + off)
@@ -589,16 +1150,18 @@ class EngineFrontEnd(RequestFrontEnd):
 
 @dataclass
 class _EngineSlot:
-    """Host-side record of one occupied decode slot."""
+    """Host-side record of one occupied decode slot; a parked request is
+    its slot record without a device slot and grants (``slot_id`` -1)."""
 
     ticket: _Ticket
     slot_id: int
-    ca_grant: PageGrant
-    sa_grant: PageGrant
+    ca_grant: Optional[PageGrant]
+    sa_grant: Optional[PageGrant]
     tokens_out: int = 0
     ttft_s: Optional[float] = None
     compiled: bool = False
     outcome: Optional[str] = None  # set mid-decode by the token seam
+    evictions: int = 0  # times this request was evicted (and parked)
     span = None
 
     def __post_init__(self):

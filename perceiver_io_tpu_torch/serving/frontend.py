@@ -61,19 +61,21 @@ so the constructor takes no ``params`` (a poisoned request's mapping from the
 fault injector is written into the parameters in place for that request and
 the originals restored after it, :meth:`RequestFrontEnd._served_with`); it
 takes ``device=`` (``"cuda"`` by default, as every entry point of the port);
-the write-ahead ``journal=`` (ROADMAP A8) and ``FrontEndConfig(probes=True)``
-(the decode health gauges, A11) raise NotImplementedError.
+``FrontEndConfig(probes=True)`` (the decode health gauges, ROADMAP A11)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from perceiver_io_tpu_torch.device import DeviceLike
@@ -179,6 +181,9 @@ class _Ticket:
     probe: bool = False
     probe_cycle: Optional[int] = None  # breaker open-cycle id at probe issue
     cancelled: bool = False
+    # the chunk keys of the prompt's context-region pages, hashed once, when
+    # the paged engine first needs them (its prefix match or publish)
+    prefix_keys: Optional[list] = None
 
 
 class RequestFrontEnd:
@@ -195,8 +200,11 @@ class RequestFrontEnd:
         the object has ``advance_to`` the run loops step it (simulation);
         otherwise they pace with ``sleep`` (real time).
     :param injector: optional ``serving.faultinject.FaultInjector``.
-    :param journal: the write-ahead request journal, ROADMAP A8: anything
-        but None raises NotImplementedError.
+    :param journal: optional write-ahead request journal
+        (``serving.journal.RequestJournal`` or a path): every submission is
+        journaled BEFORE admission runs and every terminal outcome after, so
+        ``EngineFrontEnd.recover`` on a fresh engine can re-admit whatever a
+        dead one still owed.
     :param device: ``"cuda"`` by default; asking for CUDA without a card
         raises (pass ``device="cpu"`` for the plain kernel versions).
     """
@@ -222,8 +230,11 @@ class RequestFrontEnd:
         from perceiver_io_tpu_torch.obs.metrics import MetricsRegistry
 
         self.device = _model_device(model, device)
-        if journal is not None:
-            raise NotImplementedError("journal=: the write-ahead request journal is ROADMAP A8")
+        if isinstance(journal, (str, os.PathLike)):
+            from perceiver_io_tpu_torch.serving.journal import RequestJournal
+
+            journal = RequestJournal(journal)
+        self.journal = journal
         if weight_dtype is not None:
             raise NotImplementedError(f"weight_dtype={weight_dtype!r}: int8 weights are ROADMAP A10")
         self.model = model
@@ -256,9 +267,9 @@ class RequestFrontEnd:
         # shared-state-race pins this)
         self._books_lock = threading.Lock()
         self._in_flight = 0
-        # the JAX engine's eviction state (page-evicted requests parked
-        # resumable; ROADMAP A8 for the port): carried here so books()/audit()
-        # speak the JAX package's identity, with parked == 0 until then
+        # preemption state (populated only by the engine subclass; carried
+        # here so books()/audit() speak one identity for both front ends:
+        # the sequential path always shows parked == 0)
         self._parked: List = []
         self._n_evictions = 0
         self._n_resumes = 0
@@ -341,9 +352,10 @@ class RequestFrontEnd:
         in place, under ``torch.no_grad()``, and the saved originals are
         written back on exit, whatever happens inside: the tensors keep
         their addresses, so a captured step reads the poisoned values during
-        the request and the original ones after it."""
+        the request and the original ones after it. Yields whether any
+        parameter was swapped."""
         if self._injector is None:
-            yield
+            yield False
             return
         params = self.model.state_dict()
         served = self._injector.params_for(request_index, params)
@@ -353,7 +365,7 @@ class RequestFrontEnd:
             with torch.no_grad():
                 for p, t in swapped:
                     p.copy_(t)
-            yield
+            yield bool(swapped)
         finally:
             with torch.no_grad():
                 for (p, _), original in zip(swapped, saved):
@@ -407,6 +419,20 @@ class RequestFrontEnd:
             # per-tenant child series under the same family — the unlabeled
             # parent above stays the all-tenant total
             self._m_submitted.labels(tenant=rec.tenant).inc()
+        if self.journal is not None:
+            # WRITE-AHEAD, before any admission verdict: the full request
+            # identity, so a fresh engine can reconstruct the spec verbatim
+            # (a shed below still writes its terminal row)
+            jfields = dict(
+                prompt_len=rec.prompt_len,
+                max_new_tokens=rec.max_new_tokens,
+                input_ids=np.asarray(spec.input_ids).tolist(),
+                rng_seed=int(spec.rng_seed),
+                deadline_s=None if deadline_s is None else float(deadline_s),
+            )
+            if rec.tenant is not None:
+                jfields["tenant"] = rec.tenant
+            self.journal.append("submitted", rec.index, **jfields)
         reason, detail = None, {}
         if self._draining:
             reason = "draining"
@@ -441,6 +467,11 @@ class RequestFrontEnd:
             self._m_shed.inc()
             if rec.tenant is not None:
                 self._m_shed.labels(tenant=rec.tenant).inc()
+            if self.journal is not None:
+                # sheds close their journal entry here (they never reach
+                # _finish): the write-ahead submitted row must not read as
+                # owed to a recovering engine
+                self.journal.append("terminal", rec.index, outcome="shed", shed_reason=reason)
             self._emit_frontend_request(rec, shed_reason=reason,
                                         queue_depth=len(self._queue), **detail)
             return rec
@@ -450,6 +481,8 @@ class RequestFrontEnd:
         self._m_admitted.inc()
         if rec.tenant is not None:
             self._m_admitted.labels(tenant=rec.tenant).inc()
+        if self.journal is not None:
+            self.journal.append("admitted", rec.index)
         self._queue.append(_Ticket(
             spec=spec, record=rec, arrival_s=now, probe=probe,
             probe_cycle=self.breaker.cycle if probe else None,
@@ -483,6 +516,11 @@ class RequestFrontEnd:
         rec.outcome = outcome
         with self._books_lock:
             self._n[outcome] += 1
+        if self.journal is not None:
+            # exactly one terminal journal record per finished request: every
+            # served path (engine retire, queue cancel/expiry, the sequential
+            # worker) funnels through here
+            self.journal.append("terminal", rec.index, outcome=outcome, tokens_out=rec.tokens_out)
         if self.breaker is None:
             return
         if ticket.probe:

@@ -21,8 +21,8 @@ Discipline:
 - pages are refcounted: a grant may reference pages another live grant
   already owns (``alloc_tokens_shared``), and a page returns to the free list
   only when its last holder frees it. ``cow_fork`` is the copy-on-write
-  bookkeeping seam (the device copy is the caller's job). The port's engine
-  does not share prefixes yet; the allocator keeps the whole contract.
+  bookkeeping seam (the device copy is the caller's job: the engine's
+  ``_fork_shared_append_page`` copies the page in place in its pools).
 """
 
 from __future__ import annotations

@@ -2043,3 +2043,166 @@ def test_admission_ok_streams_equal_the_cpu(admission_runs):
     card, cpu, poisoned = admission_runs["cuda"], admission_runs["cpu"], admission_runs["poisoned"]
     assert {i: s for i, s in card["served"].items() if i != poisoned} == {
         i: s for i, s in cpu["served"].items() if i != poisoned}
+
+
+# prefix sharing, eviction and journal recovery (ROADMAP A7 + A8), at micro
+# size: 8 latents, pages of 16, the no-slide geometry of _ADMISSION_CLM
+_SHARE_ENGINE = dict(slots=4, page_size=16, max_ca_tokens=64, max_sa_tokens=16)
+
+
+def _twin_models(dtype=torch.float32):
+    """The micro CLM on the CPU and the same weights on the card."""
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**_ADMISSION_CLM)
+    cpu = CausalLanguageModel(config, device="cpu", generator=torch.Generator().manual_seed(0), dtype=dtype)
+    card = CausalLanguageModel(config, device="cuda", dtype=dtype)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_shared_prefill_on_the_card_matches_the_cpu(cuda, dtype):
+    """``make_shared_prefill_fn`` on the card (K2 over the filled CA cache,
+    K2 for each SA layer: 3 launches) against the same call on the CPU (the
+    plain versions), from the same weights, pool and pages: the first token
+    equal, the logits and every cache within 2e-5 in f32, within 1e-2 (L2,
+    relative) in bf16."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig, make_prefill_fn, make_shared_prefill_fn
+    from perceiver_io_tpu_torch.ops import build
+
+    cpu, card = _twin_models(dtype)
+    cfg = GenerationConfig(max_new_tokens=4)
+    prompt = np.random.default_rng(3).integers(0, 64, size=(1, 40))
+    skip, ps, nl = 32, 16, 8
+    _, ref = make_prefill_fn(cpu, nl, cfg, dtype, device="cpu")(prompt)
+    pool_k = torch.zeros((5, ps, 64), dtype=dtype)
+    pool_v = torch.zeros_like(pool_k)
+    pool_k[[3, 1]] = ref["cache"][0].k[0, :skip].reshape(2, ps, 64)
+    pool_v[[3, 1]] = ref["cache"][0].v[0, :skip].reshape(2, ps, 64)
+    out = {}
+    for device, model in (("cpu", cpu), ("cuda", card)):
+        build.reset_launches()
+        fn = make_shared_prefill_fn(model, nl, skip, 40, cfg, dtype, device=device)
+        out[device] = fn(prompt[:, skip:], pool_k.to(device), pool_v.to(device), [3, 1])
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    assert build.LAUNCHES["flash_packed_fwd" + suffix] == 1 + _ADMISSION_CLM["num_self_attention_layers"]
+    (tok_cpu, st_cpu), (tok_card, st_card) = out["cpu"], out["cuda"]
+    assert int(tok_card[0]) == int(tok_cpu[0])
+    pairs = [(st_card["logits"], st_cpu["logits"])]
+    pairs += [(t_card, t_cpu) for c_card, c_cpu in zip(st_card["cache"], st_cpu["cache"])
+              for t_card, t_cpu in ((c_card.k, c_cpu.k), (c_card.v, c_cpu.v))]
+    for got, want in pairs:
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+        else:
+            assert _rel_l2(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_span_over_a_filled_cache_runs_k2_on_the_card(cuda, dtype):
+    """Eight queries appended to a cache that holds 200 rows (8 heads of
+    64): one K2 launch over the 208 filled slots, no dense path, against
+    the dense path over the slots on the card (causal, right-aligned):
+    within 1e-5 in f32, 1e-2 in L2 relative in bf16."""
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+    from perceiver_io_tpu_torch.core.cache import init_kv_cache
+    from perceiver_io_tpu_torch.ops import build
+
+    g = torch.Generator().manual_seed(0)
+    mha = MultiHeadAttention(8, 512, 512, causal_attention=True, dtype=dtype)
+    with torch.no_grad():
+        for p in mha.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    mha.to(cuda)
+    cache = init_kv_cache(1, 256, 512, 512, dtype, cuda)
+    cache.k[:, :200] = torch.randn(1, 200, 512, generator=g).to(cuda, dtype)
+    cache.v[:, :200] = torch.randn(1, 200, 512, generator=g).to(cuda, dtype)
+    cache.length = 200
+    x = torch.randn(1, 8, 512, generator=g).to(cuda, dtype)
+    rope = torch.randn(1, 8, 32, generator=g).to(cuda)
+    dense, calls = MultiHeadAttention._dense, []
+    MultiHeadAttention._dense = lambda self, *a, **k: calls.append(1) or dense(self, *a, **k)
+    try:
+        build.reset_launches()
+        with torch.no_grad():
+            out = mha(x, x, rope_q=rope, rope_k=rope, kv_cache=cache)
+        torch.cuda.synchronize()
+    finally:
+        MultiHeadAttention._dense = dense
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    assert calls == [] and build.LAUNCHES["flash_packed_fwd" + suffix] == 1 and out.kv_cache.length == 208
+    with torch.no_grad():
+        masked = (torch.arange(256, device=cuda) >= 208)[None, None, :] | MultiHeadAttention._causal(8, 256, 208, cuda)
+        want = mha._proj(mha.o_proj, dense(mha, mha._proj(mha.q_proj, x), out.kv_cache.k, out.kv_cache.v, rope,
+                                           masked))
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.last_hidden_state, want, atol=1e-5, rtol=0)
+    else:
+        assert _rel_l2(out.last_hidden_state, want) < 1e-2
+
+
+def _share_engine(model, device, **engine):
+    from perceiver_io_tpu_torch import serving
+
+    return serving.EngineFrontEnd(model, num_latents=8, device=device,
+                                  engine_config=serving.EngineConfig(**{**_SHARE_ENGINE, **engine}))
+
+
+def test_cow_fork_copies_in_place_under_the_captured_step(cuda):
+    """A fork on the card copies the shared page into the fresh one inside
+    the captured pools: the step's graph keeps its addresses (the next step
+    replays without a capture), the copy is exact."""
+    from perceiver_io_tpu_torch.generation import _state_tensors
+
+    _, card = _twin_models()
+    engine = _share_engine(card, "cuda")
+    captured = engine._step_fn.captured
+    bound = _state_tensors(engine._state)
+    a = engine.ca_alloc
+    g1 = a.alloc_tokens(32)
+    g2 = a.alloc_tokens_shared(48, g1.pages)
+    pool = engine._state["cache"][0]
+    pool.k[g2.pages[1]] = 7.0
+    forked = engine._fork_shared_append_page(g2, 20)
+    fresh = forked.pages[1]
+    assert fresh != g2.pages[1] and bool((pool.k[fresh] == 7.0).all()) and bool((pool.k[g2.pages[1]] == 7.0).all())
+    assert _state_tensors(engine._state) == bound == captured._bound
+    engine._step_fn(engine._state)
+    assert captured.captures == 1
+    for grant in (forked, g1):
+        a.free(grant)
+
+
+@pytest.mark.parametrize("mode", ["share", "evict"])
+def test_share_and_evict_under_the_captured_step_equal_the_cpu(cuda, mode):
+    """Shared-prefix joins ("share": six requests over one 32-token
+    document) or evictions and resumes ("evict": eight requests in a pool at
+    half headroom) on the card, through the step captured at construction:
+    one capture (no recapture, ``RecompileTracker`` counts one compile), the
+    hits or the evictions, the books and every stream equal to the same run
+    on the CPU."""
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec
+
+    cpu, card = _twin_models()
+    if mode == "share":
+        specs = WorkloadSpec(seed=21, prompt_lens=(40, 48), max_new_tokens=(4, 8), shared_prefix_len=32).draw(6, 64)
+        engine = {}
+    else:
+        specs = WorkloadSpec(seed=13, prompt_lens=(24, 40), max_new_tokens=(4, 8)).draw(8, 64)
+        engine = dict(eviction=True, pool_headroom=0.5)
+    runs = {}
+    for device, model in (("cpu", cpu), ("cuda", card)):
+        fe = _share_engine(model, device, **engine)
+        fe.run_closed(specs, concurrency=len(specs))
+        runs[device] = (fe.books(), dict(fe.served_tokens), fe._n_prefix_hits, fe.sharing_audit(), fe.audit())
+        if device == "cuda":
+            assert fe._step_fn.captured.captures == 1 and fe._tracker.total_compiles == 1
+    books, served, hits, sharing, audit = runs["cuda"]
+    assert runs["cuda"] == runs["cpu"] and sharing == [] and audit == [] and books["balanced"]
+    assert (hits >= 1) if mode == "share" else (books["evictions"] >= 1 and books["resumes"] == books["evictions"])

@@ -109,9 +109,12 @@ def test_engine_refuses_what_can_never_fit(model):
 
 
 def test_engine_config_has_no_unported_options():
-    for option in ("spec_k", "prefix_sharing", "eviction"):
-        with pytest.raises(TypeError):
-            EngineConfig(**{option: 1})
+    """The speculative slot mode (ROADMAP A9) is not ported: ``spec_k`` is
+    no field. Prefix sharing and eviction are (on and off by default, as in
+    JAX)."""
+    with pytest.raises(TypeError):
+        EngineConfig(spec_k=1)
+    assert EngineConfig().prefix_sharing is True and EngineConfig().eviction is False
 
 
 def test_generate_equals_decode_fns(model):

@@ -5,11 +5,9 @@ package's engine, on the CPU: the same seeded specs, fault plan and
 and write the same multiset of event kinds and the same ``request`` rows
 (outcome, shed reason, tokens out), exactly. Timing fields are never
 compared, nor are ``compile`` rows (JAX compiles its join, retire and step
-programs on the CPU; the port's eager step never captures). The JAX engine
-runs with ``prefix_sharing=False``: the port has no prefix sharing (ROADMAP
-A7), and shared pages change when backpressure releases the queue. Pages of
-4 rows keep the JAX engine on its gather route, as in
-``tests/test_torch_graph_paged.py``.
+programs on the CPU; the port's eager step never captures). Both engines run
+at their default ``prefix_sharing`` (on). Pages of 4 rows keep the JAX
+engine on its gather route, as in ``tests/test_torch_graph_paged.py``.
 
 Covers the ``kv_pages_exhausted`` shed (CA and SA), a kill at token 0, a
 cancel mid-batch, the events' ``batch_size_at_decode`` and the gauges, queue
@@ -70,10 +68,9 @@ def make_engine(models, side, tmp_path, *, label=None, clock=None, injector=None
     ns = SIDES[side]
     clock = clock or ns.serving.ManualClock()
     out = str(tmp_path / (label or side))
-    kw = {"prefix_sharing": False} if side == "jax" else {}
     extra = {} if side == "jax" else {"device": "cpu"}
     fe = ns.serving.EngineFrontEnd(
-        *models[side], num_latents=NUM_LATENTS, engine_config=ns.serving.EngineConfig(**{**ENGINE, **engine}, **kw),
+        *models[side], num_latents=NUM_LATENTS, engine_config=ns.serving.EngineConfig(**{**ENGINE, **engine}),
         events=ns.events.EventLog(out, main_process=True), clock=clock, sleep=clock.sleep, injector=injector,
         config=config, **extra)
     fe.out = out

@@ -443,8 +443,6 @@ def test_unported_options_raise(models):
     tm = models["torch"][0]
     with pytest.raises(NotImplementedError, match="A11"):
         torch_serving.FrontEndConfig(probes=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        torch_serving.RequestFrontEnd(tm, journal="journal.jsonl", device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         torch_serving.RequestFrontEnd(tm, weight_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):

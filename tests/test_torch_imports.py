@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "training.metrics", "training.faults", "training.checkpoint", "training.trainer",
                  # the admission tier (ROADMAP A6)
                  "obs.metrics", "obs.loadgen", "serving.breaker", "serving.faultinject", "serving.frontend",
-                 "serving.engine"):
+                 "serving.engine",
+                 # prefix sharing, eviction and journal recovery (ROADMAP A7 + A8)
+                 "serving.prefix", "serving.journal"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 
