@@ -155,7 +155,24 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
     ms, images/s and busy share beside the f32 step's;
 22. image_grad_check_bf16: image_grad_check's classifier in bf16 on the
     card against the CPU's f32 gradient, per parameter no further (L2) than
-    1.5x the CPU's bf16 gradient.
+    1.5x the CPU's bf16 gradient;
+23. serve_spec_bf16 (ROADMAP A9): serve_bf16's model and engine in the
+    speculative slot mode (``spec_k`` 4, ``spec_depth`` 6): (a) serve's six
+    greedy requests, (b) the same with eviction at pool headroom 0.5, each
+    through the span step captured at construction (its graph's nodes: K3's
+    walk and merge 35 times, K1, no K2) with K3's bf16 build exactly 35
+    times a step (the drafter's 5 steps over its CA and 6 SA pools; none on
+    the verify, whose span attention takes the gather route), K2 9 times a
+    prefill, one capture, the books, audit and pages clean, every stream the
+    sequential bf16 stream up to its first near tie; decode tok/s beside
+    serve_bf16's engine on the same requests, acceptance, tokens a step,
+    TTFT, one profiled step's busy share, the verify's gather and attend ms,
+    the pools' memory and the peak; (c) the speculative pair against the
+    graphed sequential pair and ``generate`` (batch 1, 8192 tokens, 128 new);
+24. beam_bf16 (A10): ``beam_search`` of the bf16 flagship over a
+    4096-token prompt, 64 new tokens, one beam (equal to the sequential
+    stream up to its first near tie) and four (one captured step a call, K1
+    nodes only), tok/s beside ``generate``'s.
 
 The training options (ROADMAP A4), each a train pair (graph and eager, from
 the same seed, weights, batch and keep sets) of the flagship:
@@ -259,6 +276,10 @@ SHARE_DOC, SHARE_SUFFIXES, SHARE_BUDGETS = 12288, (1024, 3072), (32, 64)
 EVICT_PROMPTS, EVICT_BUDGETS, EVICT_HEADROOM, EVICT_REQUESTS = (4096, 8192), (32, 64), 0.5, 8
 RECOVER_PROMPTS, RECOVER_BUDGETS, RECOVER_REQUESTS, RECOVER_STEPS = (2048, 4096), (16, 32), 6, 5
 ADMISSION_POISONED = 11
+# serve_spec_bf16: bench.py's committed A/B geometry (k = 4 drafts a span from
+# a 6-layer self-drafter); beam_bf16: beams, prompt and new tokens
+SPEC_K, SPEC_DEPTH = 4, 6
+BEAM_WIDTH, BEAM_PROMPT, BEAM_NEW_TOKENS = 4, 4096, 64
 # the train phase: batch 4 in chunks of 2, five steps
 TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-3
 TRAIN_CHUNK = TRAIN_BATCH // TRAIN_MICROBATCH
@@ -431,6 +452,9 @@ GRAPH_KERNELS = {
 GRAPH_NODES = {}
 # metric -> {"graph": x, "eager": y}, both measured in this run
 TIMES = {}
+# (compute dtype, cache dtype, budget, prompt shape, prompt bytes) -> the
+# sequential stream and its logits (check_streams)
+SEQUENTIAL = {}
 # |graph - eager| / |eager| allowed for a train step's losses and parameters
 # (the same kernels on the same inputs; cuBLAS may choose other algorithms
 # under capture), printed beside each comparison
@@ -1582,24 +1606,32 @@ def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_
     token by token with the sequential logits (``state["logits"]`` after the
     prefill and each step): equal up to the first step whose top-2 gap is
     under ``near_tie`` (the paged and contiguous decodes sum in different
-    orders). Returns, per request, how many leading tokens the two share."""
+    orders). Returns, per request, how many leading tokens the two share.
+    The sequential streams and logits are kept (``SEQUENTIAL``): every phase
+    builds the flagship from ``SEED``, so a later phase on the same prompts
+    reads them back."""
     from perceiver_io_tpu_torch.generation import GenerationConfig, _GraphedStep, make_decode_fns
 
     agreed = []
     for spec in specs:
-        prefill, step = make_decode_fns(model, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
-                                        cache_dtype, device="cuda")
-        if not isinstance(step.body, _GraphedStep):
-            raise SystemExit(f"{name}: the sequential decode step on the card is not the captured graph")
-        token, state = prefill(spec.input_ids)
-        # copies: the step rewrites the state's logits in place
-        want, logits = [int(token[0])], [state["logits"][0].clone().float()]
-        for _ in range(spec.max_new_tokens - 1):
-            state, token = step(state)
-            want.append(int(token[0]))
-            logits.append(state["logits"][0].clone().float())
+        ids = np.asarray(spec.input_ids)
+        key = (model.dtype, cache_dtype, spec.max_new_tokens, ids.shape, ids.tobytes())
+        if key not in SEQUENTIAL:
+            prefill, step = make_decode_fns(model, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
+                                            cache_dtype, device="cuda")
+            if not isinstance(step.body, _GraphedStep):
+                raise SystemExit(f"{name}: the sequential decode step on the card is not the captured graph")
+            token, state = prefill(spec.input_ids)
+            # copies: the step rewrites the state's logits in place
+            want, logits = [int(token[0])], [state["logits"][0].clone().float()]
+            for _ in range(spec.max_new_tokens - 1):
+                state, token = step(state)
+                want.append(int(token[0]))
+                logits.append(state["logits"][0].clone().float())
+            SEQUENTIAL[key] = want, torch.stack(logits)
+            del prefill, step, state
+        want, logits = SEQUENTIAL[key]
         got = served[spec.index]
-        logits = torch.stack(logits)
         if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, FLAGSHIP["vocab_size"]):
             raise SystemExit(f"{name} request {spec.index}: sequential logits not finite or of the wrong shape")
         top2 = torch.topk(logits, 2, dim=-1).values
@@ -2266,6 +2298,356 @@ def serve_share_evict_bf16_phase(card: str) -> dict:
     report["phase_s"] = time.perf_counter() - t_phase
     TIMES[name] = report
     log(f"{name}: " + json.dumps(report))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# serve_spec_bf16 and beam_bf16: speculative decode and beam search
+# ---------------------------------------------------------------------------
+
+
+def spec_engine(model, **engine):
+    """serve_bf16's engine in the speculative slot mode (``SPEC_K`` drafts a
+    span from a ``SPEC_DEPTH``-layer self-drafter), its step captured at
+    construction; ``engine`` overrides further fields. Returns the engine and
+    the launches of its capture's warm-up step, and an event log directory
+    it writes (the caller removes it)."""
+    import tempfile
+
+    from perceiver_io_tpu_torch.obs.events import EventLog
+
+    out = tempfile.mkdtemp()
+    engine, warm_up = serve_engine(model, graphed=True, cache_dtype=torch.bfloat16,
+                                   engine=dict(spec_k=SPEC_K, spec_depth=SPEC_DEPTH, **engine),
+                                   events=EventLog(out, main_process=True))
+    return engine, warm_up, out
+
+
+def check_spec_serve(name: str, engine, run: dict, dense: tuple, n_ok: int) -> dict:
+    """A speculative serve's checks: K3's bf16 build exactly (k + 1)(1 +
+    depth) times a step (the drafter's CA and SA pools at every drafter
+    step) and no other K3 (none on the verify), K2 bf16 9 times a prefill,
+    the verify's span attention on the gather route 9 times in each of the
+    two runs of the step's body that built the engine (the warm-up and the
+    capture; ``dense`` holds the dense path's card calls then, and during
+    the serve, where only the graph runs: none), one capture, the books and
+    audit clean, every page back and every pool's table row, the drafter's
+    too, on the scratch page. Returns the request rows' acceptance
+    numbers."""
+    from perceiver_io_tpu_torch.obs.events import merged_events, validate_events
+
+    launches, steps = run["launches"], run["steps"]
+    per_step = (SPEC_K + 1) * (1 + SPEC_DEPTH)
+    n_layers = 1 + FLAGSHIP["num_self_attention_layers"]
+    books = engine.books()
+    prefills = books["ok"] + books.get("resumes", 0)
+    pools = engine._state["cache"] + engine._state["draft_cache"]
+    problems = []
+    if launches["paged_decode" + BF16] != per_step * steps or launches["paged_decode"]:
+        problems.append(f"K3 launched {launches['paged_decode' + BF16]} (f32 {launches['paged_decode']}) times in "
+                        f"{steps} steps, not {per_step} a step")
+    if launches["flash_packed_fwd" + BF16] != n_layers * prefills:
+        problems.append(f"K2 bf16 launched {launches['flash_packed_fwd' + BF16]} times for {prefills} prefills")
+    if dense != (2 * n_layers, 0):
+        problems.append(f"span attentions on the gather route (building, serving): {dense}, not {n_layers} in each "
+                        "of the two runs of the body and none while the graph replays")
+    if engine._step_fn.captured.captures != 1 or engine._tracker.total_compiles != 1:
+        problems.append(f"{engine._step_fn.captured.captures} captures")
+    if not books["balanced"] or books["ok"] != n_ok or books["parked"] or engine.audit():
+        problems.append(f"books {books}, audit {engine.audit()[:3]}")
+    if (engine.ca_alloc.pages_used, engine.sa_alloc.pages_used) != (0, 0) or any(
+            int(p.page_table.abs().sum()) for p in pools):
+        problems.append("pages not returned, or a table row off the scratch page")
+    rows = [e for e in merged_events(engine._events_dir) if e["event"] == "request"]
+    if validate_events(engine._events_dir, warnings_out=[]) or len(rows) != n_ok:
+        problems.append(f"{len(rows)} request rows, or invalid events")
+    if problems:
+        raise SystemExit(f"{name}: " + "; ".join(problems))
+    accept = [r["acceptance_rate"] for r in rows]
+    per = [r["tokens_per_step"] for r in rows]
+    return {"acceptance_rate": statistics.mean(accept), "acceptance_rate_by_request": accept,
+            "tokens_per_step": statistics.mean(per), "tokens_per_step_by_request": per}
+
+
+def verify_attend_ms(engine, model) -> dict:
+    """The verify's span attention at the live pools (slots mid-decode), one
+    call each: the contiguous views alone (``gather_view`` of the CA pool
+    and of one SA pool), then ``_paged_span_attend`` (views, masks, scores,
+    softmax, values and the output projection) on the CA pool and on one SA
+    pool with the flagship's first layers, queries of the span's shape; the
+    verify's whole share is the CA call and 8 SA calls."""
+    state = engine._state
+    ca, sa = state["cache"][0], state["cache"][1]
+    q = torch.randn(SERVE_SLOTS, SPEC_K + 1, FLAGSHIP["num_channels"], device="cuda").to(torch.bfloat16)
+    attn = {"ca": (model.cross_attention.cross_attn.attention, ca), "sa": (model.self_attention[0][0].module.attention,
+                                                                           sa)}
+    out = {"lengths_ca": ca.length.tolist(), "lengths_sa": sa.length.tolist()}
+    for label, (mha, pool) in attn.items():
+        out[f"gather_{label}_ms"] = time_ms(lambda pool=pool: pool.gather_view())
+        out[f"attend_{label}_ms"] = time_ms(lambda mha=mha, pool=pool: mha._paged_span_attend(q, pool, None, None))
+    n_sa = FLAGSHIP["num_self_attention_layers"]
+    out["verify_gather_ms"] = out["gather_ca_ms"] + n_sa * out["gather_sa_ms"]
+    out["verify_attend_ms"] = out["attend_ca_ms"] + n_sa * out["attend_sa_ms"]
+    return out
+
+
+def spec_profile(model, specs) -> dict:
+    """Where a speculative step's time goes, on a fresh speculative engine
+    (serve_spec_bf16's) with ``specs`` in its slots: six steps, then one
+    under ``torch.profiler`` (its wall ms, the profiler's host cost in it,
+    and the kernels' device-busy share), then the verify's times at the
+    live pools (``verify_attend_ms``)."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, _, out = spec_engine(model)
+    for spec in specs:
+        engine.submit(spec)
+    engine._fill_slots()
+    for _ in range(6):
+        engine._engine_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._engine_step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    summary = profile_summary(prof, wall_ms, "paged_")
+    report = {"profile": {k: summary[k] for k in ("wall_ms", "device_busy_ms", "device_busy_share",
+                                                  "device_union_share", "paged_kernels", "top_device_ms")},
+              "verify": verify_attend_ms(engine, model)}
+    del engine
+    shutil.rmtree(out, ignore_errors=True)
+    free_card()
+    return report
+
+
+def serve_spec_bf16_phase(card: str) -> dict:
+    """serve_bf16's model and engine geometry in the speculative slot mode
+    (``spec_k`` 4, ``spec_depth`` 6: bench.py's committed A/B geometry), each
+    check fatal (``check_spec_serve``).
+
+    Part (a): serve's six greedy requests through the speculative engine,
+    then through serve_bf16's engine (decode tok/s of both, this run); every
+    stream of both equal to the sequential bf16 stream up to its first near
+    tie (``check_streams``), so the two engines' streams agree that far;
+    TTFT; acceptance and tokens a step from the request rows; the pools'
+    memory with the drafter's and the peak; then, on a fresh engine, one
+    profiled step's device-busy share and the verify's gather and attend ms
+    (``spec_profile``).
+
+    Part (b): the same with eviction at pool headroom 0.5: evictions, as many
+    resumes by replay into both pool families, the same checks.
+
+    Part (c): the speculative pair (``make_speculative_decode_fns``, its step
+    a CUDA graph) against the graphed sequential pair and ``generate`` at
+    batch 1 on an 8192-token prompt, 128 new tokens: ``generate``'s stream
+    the sequential pair's, the speculative stream equal to it up to its
+    first near tie, tok/s of both pairs after their capturing first step,
+    the spans and accepted drafts.
+
+    Returns part (a)'s launches."""
+    import shutil
+
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    bf16, name = torch.bfloat16, "serve_spec_bf16"
+    t_phase = time.perf_counter()
+    model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED), dtype=bf16)
+    report = {"card": card, "spec_k": SPEC_K, "spec_depth": SPEC_DEPTH}
+    specs = serve_specs()
+    served = {}
+    for part, engine_kw in (("a", {}), ("b", {"eviction": True, "pool_headroom": EVICT_HEADROOM})):
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 2**30
+        built = [0]
+        with count_dense(built):
+            engine, warm_up, out = spec_engine(model, **engine_kw)
+        engine._events_dir = out
+        if part == "a":
+            # the drafter's k + 1 steps over its CA and SA pools; the verify
+            # on the gather route (no K3), no prefill kernel
+            check_graph(name, engine._step_fn.captured.graph, warm_up,
+                        {"paged_decode" + BF16: (SPEC_K + 1) * (1 + SPEC_DEPTH), "paged_decode": 0,
+                         "flash_packed_fwd" + BF16: 0})
+        pools_gb = sum(t.numel() * t.element_size() for key in ("cache", "draft_cache")
+                       for p in engine._state[key] for t in (p.k, p.v)) / 2**30
+        drafter_gb = sum(t.numel() * t.element_size() for p in engine._state["draft_cache"]
+                         for t in (p.k, p.v)) / 2**30
+        dense = [0]
+        with count_dense(dense):
+            run = serve_run(engine, specs)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        label = f"{name} part ({part})"
+        quality = check_spec_serve(label, engine, run, (built[0], dense[0]), N_REQUESTS)
+        books = engine.books()
+        if part == "b" and (books["evictions"] < 1 or books["resumes"] != books["evictions"]):
+            raise SystemExit(f"{label}: books {books}: the pool headroom evicted nothing")
+        served[part] = dict(engine.served_tokens)
+        if part == "a":
+            launches = run["launches"]
+        report[f"part {part}"] = {
+            "decode_tok_s": run["decode_tok_s"], "steps": run["steps"], "decoded": run["decoded"],
+            "ttft_ms": [1e3 * r.ttft_s for r in run["records"]], **quality,
+            "books": {k: books[k] for k in ("ok", "evictions", "resumes", "parked", "balanced")},
+            "pools_gb": pools_gb, "drafter_pools_gb": drafter_gb, "peak_allocated_gb": peak_gb,
+            "allocated_before_gb": before_gb}
+        del engine
+        shutil.rmtree(out, ignore_errors=True)
+        free_card()
+    report["part a"].update(spec_profile(model, specs[:SERVE_SLOTS]))
+    # serve_bf16's engine on the same requests, this run: the decode rate
+    # the speculative one is held beside
+    engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16)
+    plain = serve_run(engine, specs)
+    report["non_speculative"] = {"decode_tok_s": plain["decode_tok_s"], "steps": plain["steps"],
+                                 "ttft_ms": [1e3 * r.ttft_s for r in plain["records"]]}
+    report["streams identical to the non-speculative engine's"] = [
+        served["a"][s.index] == engine.served_tokens[s.index] for s in specs]
+    served["non-speculative"] = dict(engine.served_tokens)
+    del engine
+    free_card()
+    # each stream of the three serves equal to the sequential one up to its
+    # first near tie, so the speculative streams equal the non-speculative
+    # engine's that far
+    report["non_speculative"]["tokens_equal_to_sequential"] = check_streams(
+        f"{name} non-speculative", model, specs, served["non-speculative"], NEAR_TIE_BF16, bf16)
+    for part in ("a", "b"):
+        report[f"part {part}"]["tokens_equal_to_sequential"] = check_streams(f"{name} part ({part})", model, specs,
+                                                                             served[part], NEAR_TIE_BF16, bf16)
+
+    # part (c): the pair against the graphed sequential pair and generate;
+    # each pair's first step runs eagerly and captures, then tok/s over the
+    # rest, every step's tokens read on the host (as a streaming server does)
+    new = DECODE_NEW_TOKENS
+    config = generation.GenerationConfig(max_new_tokens=new)
+    ids = np.random.default_rng(SEED + 4).integers(0, FLAGSHIP["vocab_size"], size=(1, DECODE_PROMPT))
+    pair = {}
+    prefill, step = generation.make_decode_fns(model, NUM_LATENTS, config, bf16, device="cuda")
+    token, state = prefill(ids)
+    state, second = step(state)
+    plain = [int(token[0]), int(second[0])]
+    t0 = time.perf_counter()
+    while len(plain) < new:
+        state, token = step(state)
+        plain.append(int(token[0]))
+    pair["sequential_tok_s"] = (new - 2) / (time.perf_counter() - t0)
+    del prefill, step, state
+    out = generation.generate(model, ids, NUM_LATENTS, config=config, cache_dtype=bf16, device="cuda")
+    pair["generate_equal_to_sequential"] = out[0, DECODE_PROMPT:].tolist() == plain
+    prefill, step = generation.make_speculative_decode_fns(model, NUM_LATENTS, config, k=SPEC_K,
+                                                           draft_depth=SPEC_DEPTH, cache_dtype=bf16, device="cuda")
+    token, state = prefill(ids)
+    state, tokens, m = step(state)
+    stream, spans = [int(token[0])] + tokens[0, :int(m[0])].tolist(), [int(m[0])]
+    first, t0 = len(stream), time.perf_counter()
+    while len(stream) < new:
+        state, tokens, m = step(state)
+        n = int(m[0])
+        stream.extend(tokens[0, :n].tolist())
+        spans.append(n)
+    pair["speculative_tok_s"] = (len(stream) - first) / (time.perf_counter() - t0)
+    if not isinstance(step.body, generation._GraphedStep) or step.body.captures != 1:
+        raise SystemExit(f"{name} part (c): the speculative pair's step is not one captured graph")
+    del prefill, step, state
+    spec_stream = stream[:new]
+    pair.update(spans=len(spans), accepted=sum(spans) - len(spans), streams_identical=spec_stream == plain)
+    if not pair["generate_equal_to_sequential"]:
+        raise SystemExit(f"{name} part (c): generate's stream is not the graphed sequential pair's")
+    pair["tokens_equal_to_sequential"] = check_streams(
+        f"{name} part (c)", model, [serve_spec(0, ids, new)], {0: spec_stream}, NEAR_TIE_BF16, bf16)[0]
+    pair["tokens_per_span"] = new / max(pair["spans"], 1)
+    report["part c"] = pair
+    report["phase_s"] = time.perf_counter() - t_phase
+    TIMES[name] = report
+    log(f"{name}: " + json.dumps(report))
+    return launches
+
+
+def serve_spec(index: int, ids, new: int):
+    """A ``RequestSpec`` for the prompt ``ids`` (1, n), greedy, ``new``
+    tokens."""
+    from perceiver_io_tpu_torch.serving import RequestSpec
+
+    return RequestSpec(index=index, prompt_len=ids.shape[1], max_new_tokens=new, input_ids=ids, rng_seed=0)
+
+
+def beam_bf16_phase(card: str) -> dict:
+    """``beam_search`` on the bf16 flagship: one beam over a 4096-token
+    prompt and 64 new tokens against the graphed greedy ``generate`` (equal
+    up to its first near tie), then ``BEAM_WIDTH`` beams: one captured step
+    a call (the beam step holds K1's nodes and no K2 or K3), finite scores,
+    every token in the vocabulary, tok/s (beams x tokens a second) of both.
+    Returns the 4-beam call's launches."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+
+    bf16, name, new = torch.bfloat16, "beam_bf16", BEAM_NEW_TOKENS
+    model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED), dtype=bf16)
+    ids = np.random.default_rng(SEED + 5).integers(0, FLAGSHIP["vocab_size"], size=(1, BEAM_PROMPT))
+    report, graphs = {"card": card, "prompt_len": BEAM_PROMPT, "new_tokens": new}, []
+    real = generation._GraphedStep
+
+    def recorded(model, config, step_name, body, stage):
+        # the launches of each call of the body: the first is the warm-up
+        calls = []
+
+        def counted(state):
+            before = dict(build.LAUNCHES)
+            out = body(state)
+            calls.append({k: n - before.get(k, 0) for k, n in build.LAUNCHES.items() if n != before.get(k, 0)})
+            return out
+
+        graphs.append((real(model, config, step_name, counted, stage), calls))
+        return graphs[-1][0]
+
+    generation._GraphedStep = recorded
+    try:
+        for beams in (1, BEAM_WIDTH):
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seqs, scores = generation.beam_search(model, ids, NUM_LATENTS, num_beams=beams, max_new_tokens=new,
+                                                  cache_dtype=bf16, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tail = seqs[0, BEAM_PROMPT:].tolist()
+            if (seqs.shape != (1, BEAM_PROMPT + new) or not bool(torch.isfinite(scores).all())
+                    or not all(0 <= t < FLAGSHIP["vocab_size"] for t in tail)):
+                raise SystemExit(f"{name}: {beams} beams gave {tuple(seqs.shape)}, scores {scores.tolist()}")
+            report[f"beams_{beams}"] = {"wall_s": wall, "tok_s": beams * new / wall, "score": float(scores[0]),
+                                        "launches": nonzero_launches()}
+            if beams == 1:
+                beam_1 = tail
+    finally:
+        generation._GraphedStep = real
+    report["beam_1 tokens_equal_to_sequential"] = check_streams(
+        f"{name} beam 1", model, [serve_spec(0, ids, new)], {0: beam_1}, NEAR_TIE_BF16, bf16)[0]
+    if len(graphs) != 2 or any(g.captures != 1 for g, _ in graphs):
+        raise SystemExit(f"{name}: {len(graphs)} beam steps, captures {[g.captures for g, _ in graphs]}")
+    step, calls = graphs[-1]
+    ln = step.graph.launches.get("layer_norm_fwd" + BF16, 0)
+    check_graph(name, step.graph, calls[0],
+                {"paged_decode" + BF16: 0, "paged_decode": 0, "flash_packed_fwd" + BF16: 0, "flash_packed_fwd": 0})
+    if ln == 0:
+        raise SystemExit(f"{name}: the captured beam step launched no LayerNorm kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generation.generate(model, ids, NUM_LATENTS, config=generation.GenerationConfig(max_new_tokens=new),
+                              cache_dtype=bf16, device="cuda")
+    torch.cuda.synchronize()
+    report["generate_tok_s"] = new / (time.perf_counter() - t0)
+    report["beam_1 identical to generate"] = out[0, BEAM_PROMPT:].tolist() == beam_1
+    TIMES[name] = report
+    log(f"{name}: " + json.dumps(report))
+    launches = report[f"beams_{BEAM_WIDTH}"]["launches"]
+    del model
+    free_card()
     return launches
 
 
@@ -3970,6 +4352,12 @@ def main() -> None:
         for kind in ("graph", "eager")}}))
     free_card()
     image_grad_check_bf16_phase(card)
+    free_card()
+    # speculative decode (ROADMAP A9) and beam search (A10) on the bf16 CLM
+    by_phase["serve_spec_bf16"] = serve_spec_bf16_phase(card)
+    free_card()
+    by_phase["beam_bf16"] = beam_bf16_phase(card)
+    free_card()
     log("graph against eager, this run: " + json.dumps({"card": card, **TIMES}))
 
     kernels = []

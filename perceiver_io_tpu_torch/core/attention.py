@@ -38,7 +38,11 @@ Routes, each numerically the JAX package's:
   then, by the pools' geometry, the paged decode kernel K3
   (``ops.paged_attention``: f32 or bf16 pools, head dims up to 128) or,
   where the JAX package gathers too (or on the CPU), the gather route (the
-  contiguous view of every slot's pages, then the dense path).
+  contiguous view of every slot's pages, then the dense path);
+- paged cache with more than one query (the speculative verify span of
+  ``generation.make_speculative_paged_step_fn``): ``append_span``, then the
+  gather route with a right-aligned causal mask per slot, for every
+  geometry, as in the JAX package (its page-walk kernel is single-query).
 
 Keys are rotated once at write (rotate-at-write); ``rope_k`` covers only the
 tokens being appended. Queries are scaled by ``Dqk**-0.5`` before rotation.
@@ -280,6 +284,23 @@ class MultiHeadAttention(nn.Module):
         o = paged_decode_attention(qh, cache, mask)  # (B, H, Dv)
         return AttentionOutput(self._proj(self.o_proj, o.reshape(b, 1, self.v_channels).to(q.dtype)), cache)
 
+    def _paged_span_attend(self, q, cache: PagedKVCache, pad_mask, rope_q) -> AttentionOutput:
+        """``n_q`` queries per slot over the paged pools, the span just
+        appended (the speculative verify): the contiguous view of every
+        slot's pages, then the dense path with per-slot validity and a
+        right-aligned causal mask (query ``i`` of slot ``s`` sits at
+        ``length[s] - n_q + i``), the caller's pad mask, f32 scores. This is
+        the route for every geometry, as in the JAX package."""
+        n_q = q.shape[1]
+        k_slots, v_slots = cache.gather_view()
+        kv_idx = torch.arange(cache.capacity, device=q.device)
+        q_abs = cache.length.long()[:, None] - n_q + torch.arange(n_q, device=q.device)[None, :]
+        masked = kv_idx[None, None, :] > q_abs[:, :, None]  # (S, n_q, capacity)
+        if pad_mask is not None:
+            masked = masked | pad_mask[:, None, : cache.capacity]
+        o = self._dense(q, k_slots, v_slots, rope_q, masked)
+        return AttentionOutput(self._proj(self.o_proj, o), cache)
+
     def forward(
         self,
         x_q: torch.Tensor,
@@ -322,8 +343,7 @@ class MultiHeadAttention(nn.Module):
 
         if isinstance(kv_cache, PagedKVCache):
             if n_q != 1:
-                raise NotImplementedError("paged attention is decode-only (n_q == 1); "
-                                          "multi-token paged spans are not ported")
+                return self._paged_span_attend(q, kv_cache.append_span(k, v), pad_mask, rope_q)
             return self._paged_decode_attend(q, kv_cache.append(k, v), pad_mask, rope_q)
 
         # a span (the prompt pass, or the shared-prefix prefill's suffix):

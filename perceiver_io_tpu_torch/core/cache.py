@@ -144,6 +144,24 @@ class PagedKVCache:
         self.v[page_id, offset] = v[:, 0].to(self.v.dtype)
         return PagedKVCache(self.k, self.v, self.page_table, self.length + 1)
 
+    def append_span(self, k: torch.Tensor, v: torch.Tensor) -> "PagedKVCache":
+        """Append ``n`` tokens per slot (``k``/``v`` (S, n, C), keys rotated)
+        into the pool, in place: token ``i`` of slot ``s`` lands at position
+        ``length[s] + i``, its page id read through the table and clamped
+        into the slot's last page (callers give every slot's page span the
+        span's slack), one ``index_put_`` a pool. Returns the cache with
+        ``length + n``; rolling a rejected suffix back is the caller's move
+        of ``length`` (the slots past it are dead until the next span
+        overwrites them)."""
+        n = k.shape[1]
+        pos = self.length.long()[:, None] + torch.arange(n, device=self.length.device)[None, :]  # (S, n)
+        page_idx = torch.clamp(pos // self.page_size, max=self.pages_per_slot - 1)
+        page_id = torch.gather(self.page_table.long(), 1, page_idx)
+        offset = pos % self.page_size
+        self.k.index_put_((page_id, offset), k.to(self.k.dtype))
+        self.v.index_put_((page_id, offset), v.to(self.v.dtype))
+        return PagedKVCache(self.k, self.v, self.page_table, self.length + n)
+
     def gather_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The contiguous (S, capacity, C) view of every slot's pages (a
         copy) — what the plain paged attention reads."""

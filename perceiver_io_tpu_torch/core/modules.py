@@ -820,6 +820,31 @@ class CausalSequenceModel(PerceiverAR):
                 if getattr(module, "bias", None) is not None:
                     module.bias.zero_()
 
+    def truncated(self, config: CausalSequenceModelConfig) -> "CausalSequenceModel":
+        """A model of this class over ``config`` (this model's config with
+        fewer latent self-attention layers) that shares this model's modules:
+        the embedding, the cross-attention layer, the first
+        ``config.num_self_attention_layers`` self-attention layers, the
+        out-norm and the tied readout. No parameter is copied, so a write
+        into this model's weights reaches it (the speculative drafter,
+        ``generation.make_drafter``)."""
+        out = type(self).__new__(type(self))
+        nn.Module.__init__(out)
+        for name in ("input_adapter", "cross_attention", "out_norm", "output_adapter"):
+            if hasattr(self, name):
+                setattr(out, name, getattr(self, name))
+        block = SelfAttentionBlock.__new__(SelfAttentionBlock)
+        nn.Sequential.__init__(block, *list(self.self_attention)[: config.num_self_attention_layers])
+        block.num_rotary_layers = config.num_self_attention_rotary_layers
+        out.self_attention = block
+        out.offload_arena = self.offload_arena
+        out.cross_attention_dropout = self.cross_attention_dropout
+        out.prefix_dropout_mode = self.prefix_dropout_mode
+        out.dtype = self.dtype
+        out.config = config
+        out.training = self.training
+        return out
+
     @property
     def device(self) -> torch.device:
         return self.input_adapter.txt_embedding.weight.device

@@ -1,17 +1,23 @@
 """Autoregressive generation with KV caches and a sliding window (counterpart
 of ``perceiver_io_tpu/generation.py``): sampling, the host-driven decode
 pair :func:`make_decode_fns` (its prefill alone: :func:`make_prefill_fn`),
-:func:`generate`, the batched paged decode step the serving engine drives
+:func:`generate` and its many-call form :func:`make_generate_fn`, the
+batched paged decode step the serving engine drives
 (:func:`make_paged_step_fn`), the engine's shared-prefix prefill
 (:func:`make_shared_prefill_fn`) and its resume seam
-(:func:`advance_generator`), and the serving measurement wrapper
+(:func:`advance_generator`), speculative self-drafting decode (the drafter
+:func:`make_drafter`, the pair :func:`make_speculative_decode_fns` and the
+engine's span step :func:`make_speculative_paged_step_fn`),
+:func:`beam_search`, and the serving measurement wrapper
 :func:`make_instrumented_generate_fn` with its cancellation seam
 (:class:`GenerationAborted`, :class:`GenerationDeadlineExceeded`) and
 :class:`GenerationStats`.
 
 Windows follow the JAX package's roll-free discipline: the caches get
 ``max_new_tokens`` slots of slack, and "truncate the oldest" masks the
-expired slot through start counters instead of shifting the buffers.
+expired slot through start counters instead of shifting the buffers. The
+speculative paths and beam search do not slide the CA window (they refuse a
+geometry that would); beam search slides its SA windows by rolling them.
 
 Sampling randomness: JAX's key chain cannot be reproduced with
 ``torch.Generator``, so the port has its own contract. Every emitted token of
@@ -26,11 +32,30 @@ Both steps (the pair's and the engine's, one body: :func:`_decode_step_body`)
 draw on the host before the body runs and hand the draws to the device in a
 fixed buffer, and keep their window counters and cache lengths on the
 device, so that the body (a CUDA graph on the card) never touches the host.
+
+A speculative span keeps the same invariant, a slot's generator position is
+the count of tokens it has emitted, so :func:`advance_generator`, the
+engine's resume and ``recover`` work unchanged in spec mode
+(:func:`_span_draws`, :func:`advance_span_generators`):
+
+- before a span the host stages ``k + 1`` token uniforms a slot, drawn one
+  at a time from a CLONE of the slot's generator; emitted token ``j`` is the
+  inverse CDF of the residual (``j < k``) or of ``p_{k+1}`` at draw ``j``;
+- after the host reads the emitted count ``m``, it advances the real
+  generator by ``m`` draws, the same numbers;
+- the ``k`` drafter draws and ``k`` acceptance uniforms come from a
+  generator seeded by a blake2b hash of the slot generator's state at the
+  span's start and a salt (JAX: ``fold_in(rng, _DRAFT_SALT)``), so they
+  depend on the seed and the tokens emitted alone;
+- all of them go into the state's fixed ``uniforms`` buffer, (rows, 3k+1),
+  ahead of the step (:class:`_UniformStage`); greedy spans draw nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import time
 from collections import OrderedDict
 from dataclasses import asdict, dataclass
@@ -81,7 +106,15 @@ class GenerationDeadlineExceeded(GenerationAborted):
 
 def _shift_left_if_full(cache: KVCache) -> KVCache:
     """Drop the oldest slot when the cache is full (the fixed-capacity analog
-    of the reference's ``[:, -max_len+1:]`` truncation)."""
+    of the reference's ``[:, -max_len+1:]`` truncation). A host length
+    returns rolled copies; a device length (:func:`beam_search`'s captured
+    step) rolls the buffers in place where the cache is full, so the branch
+    is the device's and the addresses stay."""
+    if torch.is_tensor(cache.length):
+        full = cache.length >= cache.capacity
+        for buf in (cache.k, cache.v):
+            buf.copy_(torch.where(full, torch.roll(buf, -1, dims=1), buf))
+        return KVCache(cache.k, cache.v, cache.length - full.int())
     if cache.length < cache.capacity:
         return cache
     return KVCache(torch.roll(cache.k, -1, dims=1), torch.roll(cache.v, -1, dims=1), cache.length - 1)
@@ -245,11 +278,12 @@ class _UniformStage:
     """The host half of a sampled step: one uniform per row, from the
     pair's generator or from each engine slot's own (0 for idle slots),
     staged in pinned memory on the card's machine and copied into the
-    state's fixed ``uniforms`` buffer ahead of the step. Greedy decoding
-    draws nothing."""
+    state's fixed ``uniforms`` buffer ahead of the step. With ``k`` > 0 (a
+    speculative span of ``k`` drafts) a row stages the span's ``3k + 1``
+    draws instead (:func:`_span_draws`). Greedy decoding draws nothing."""
 
-    def __init__(self, config: GenerationConfig, device: torch.device):
-        self.config = config
+    def __init__(self, config: GenerationConfig, device: torch.device, k: int = 0):
+        self.config, self.k = config, k
         self._host: Optional[torch.Tensor] = None
         self._copied = torch.cuda.Event() if device.type == "cuda" else None
 
@@ -257,7 +291,13 @@ class _UniformStage:
         if not self.config.do_sample:
             return
         generators = state["generators"] if "generators" in state else state["generator"]
-        u = _draw_uniforms(generators, state["uniforms"].shape[0])
+        rows = state["uniforms"].shape[0]
+        if self.k:
+            if isinstance(generators, torch.Generator):
+                generators = [generators] * rows
+            u = torch.stack([_span_draws(g, self.k) for g in generators])
+        else:
+            u = _draw_uniforms(generators, rows)
         if self._copied is None:
             state["uniforms"].copy_(u)
             return
@@ -274,9 +314,10 @@ _STATE_KEYS = ("ca_start", "sa_start", "token", "uniforms", "done", "pad_slots",
 
 def _state_tensors(state: dict) -> tuple:
     """The addresses of every tensor a step reads or writes: each cache's
-    buffers, (table) and length, and the state's own tensors."""
-    tensors = [t for pool in state["cache"] for t in vars(pool).values()]
-    tensors += [state[k] for k in _STATE_KEYS if k in state]
+    buffers, (table) and length (the drafter's too), and the state's own
+    tensors."""
+    tensors = [t for key in ("cache", "draft_cache") for pool in state.get(key, ()) for t in vars(pool).values()]
+    tensors += [state[k] for k in _STATE_KEYS if state.get(k) is not None]
     return tuple(t.data_ptr() for t in tensors)
 
 
@@ -284,11 +325,18 @@ class _GraphedStep:
     """A decode step on the card: the first call runs the body once on a
     side stream (the warm-up: a real step) and captures it into a CUDA graph
     on that state's tensors; every later call stages the draws and replays.
-    A call with another state raises."""
+    A call with another state raises.
 
-    def __init__(self, model, config: GenerationConfig, name: str):
+    ``body(state) -> (state, *outputs)`` is the step (the decode step's
+    :func:`_decode_step_body` by default) and ``stage(state)`` its host half
+    (a :class:`_UniformStage` by default); a call returns ``(state,
+    *outputs)``, the outputs the graph's own tensors, rewritten by the next
+    replay."""
+
+    def __init__(self, model, config: GenerationConfig, name: str, body=None, stage=None):
         self.model, self.config, self.name = model, config, name
-        self.stage = _UniformStage(config, model.device)
+        self.body = body if body is not None else (lambda state: _decode_step_body(model, config, state))
+        self.stage = stage if stage is not None else _UniformStage(config, model.device)
         self.graph: Optional[Graph] = None
         self._bound = None
         self._stream = capture_stream(model.device)
@@ -301,8 +349,8 @@ class _GraphedStep:
         self.stage(state)
         if self.graph is None:
             t0 = time.perf_counter()
-            out = warm_up(lambda: _decode_step_body(self.model, self.config, state), self._stream)
-            self.graph = Graph(lambda: _decode_step_body(self.model, self.config, state)[1], self.name, self._stream)
+            out = warm_up(lambda: self.body(state), self._stream)
+            self.graph = Graph(lambda: self.body(state)[1:], self.name, self._stream)
             self._bound = _state_tensors(state)
             self.captures += 1
             self.capture_s.append(time.perf_counter() - t0)
@@ -310,17 +358,19 @@ class _GraphedStep:
         if _state_tensors(state) != self._bound:
             raise ValueError(f"{self.name} is captured on another state's tensors: a state's tensors are written "
                              "in place, never replaced (core.cache.commit_prefill_ for the engine's)")
-        return state, self.graph.replay()
+        return (state,) + tuple(self.graph.replay())
 
 
-def _eager_step(model, config: GenerationConfig, device: torch.device):
+def _eager_step(model, config: GenerationConfig, device: torch.device, body=None, stage=None):
     """The step's body run eagerly, its draws staged first: the step on the
-    CPU, and the card's reference for the captured one."""
-    stage = _UniformStage(config, device)
+    CPU, and the card's reference for the captured one. ``body`` and
+    ``stage`` are :class:`_GraphedStep`'s."""
+    stage = stage if stage is not None else _UniformStage(config, device)
+    body = body if body is not None else (lambda state: _decode_step_body(model, config, state))
 
     def step(state: dict):
         stage(state)
-        return _decode_step_body(model, config, state)
+        return body(state)
 
     return step
 
@@ -582,6 +632,417 @@ def _load_state_(dst: dict, src: dict) -> None:
     dst["generator"] = src["generator"]
 
 
+# ---------------------------------------------------------------------------
+# speculative self-drafting decode
+# ---------------------------------------------------------------------------
+
+# mixed into the hash that seeds a span's drafter and acceptance draws, so
+# they never repeat the slot generator's own numbers
+_DRAFT_SALT = b"perceiver-io-speculative-draft"
+
+
+def make_drafter(model, draft_depth: int):
+    """The truncated-depth self-drafter: a model of ``model``'s class over
+    its config with the latent self-attention stack cut to its first
+    ``draft_depth`` layers, sharing ``model``'s modules
+    (:meth:`CausalSequenceModel.truncated`: no parameter is copied, so a
+    poisoned request's in-place weights reach the drafter as they reach the
+    flagship). Layer ``i``'s input is layer ``i - 1``'s output, so the
+    drafter's prompt pass is the flagship's truncated after layer
+    ``draft_depth - 1`` (plus the shared out-norm and readout): its caches
+    are the flagship's prefill caches' prefix (the CA cache and the first
+    ``draft_depth`` SA caches)."""
+    mcfg = model.config
+    n_layers = mcfg.num_self_attention_layers
+    if not 1 <= draft_depth < n_layers:
+        raise ValueError(f"draft_depth must be in [1..{n_layers - 1}] (a {n_layers}-layer flagship), "
+                         f"got {draft_depth}")
+    rotary = mcfg.num_self_attention_rotary_layers
+    cfg = dataclasses.replace(mcfg, num_self_attention_layers=draft_depth,
+                              num_self_attention_rotary_layers=rotary if rotary == -1 else min(rotary, draft_depth))
+    return model.truncated(cfg)
+
+
+def _span_draws(generator: Optional[torch.Generator], k: int) -> torch.Tensor:
+    """A span's ``3k + 1`` uniforms for one row (zeros for an idle slot):
+    ``[0, k+1)`` the next ``k + 1`` draws of ``generator``, one at a time
+    from a clone (the real generator is advanced by the emitted count after
+    the span, :func:`advance_generator`), emitted token ``j``'s draw;
+    ``[k+1, 2k+1)`` the drafter's draws and ``[2k+1, 3k+1)`` the acceptance
+    uniforms, from a generator seeded by a hash of ``generator``'s state, so
+    they depend on the seed and the tokens emitted alone."""
+    if generator is None:
+        return torch.zeros(3 * k + 1)
+    state = generator.get_state()
+    clone = torch.Generator()
+    clone.set_state(state)
+    own = [torch.rand((1,), generator=clone) for _ in range(k + 1)]
+    digest = hashlib.blake2b(state.numpy().tobytes() + _DRAFT_SALT, digest_size=8).digest()
+    side = torch.Generator().manual_seed(int.from_bytes(digest, "little") >> 1)
+    return torch.cat(own + [torch.rand((2 * k,), generator=side)])
+
+
+def _inverse_cdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Ids (...) drawn from ``probs`` (..., V) at the uniforms ``u`` (...):
+    the first index whose cumulative mass exceeds ``u`` times the total,
+    never a zero-probability entry (:func:`_sample_at`'s rule)."""
+    cdf = torch.cumsum(probs, dim=-1)
+    idx = torch.searchsorted(cdf, (u[..., None] * cdf[..., -1:]).contiguous(), right=True)[..., 0]
+    return idx.clamp_(max=probs.shape[-1] - 1)
+
+
+def _speculative_accept(config: GenerationConfig, drafts: torch.Tensor, q_logits: torch.Tensor,
+                        p_logits: torch.Tensor, done: torch.Tensor, uniforms: Optional[torch.Tensor] = None):
+    """The draft/verify acceptance core of the pair and the engine, row by
+    row (ragged accepted prefixes fall out per slot).
+
+    Greedy: accept while the flagship's argmax agrees with the draft; the
+    first disagreement (or the bonus position after ``k`` accepts) emits the
+    flagship's argmax, the sequential greedy stream token for token.
+    Sampling: accept ``d_i`` with probability ``min(1, p_i(d_i) /
+    q_i(d_i))`` (the multiplied form ``u q <= p``), draw the first rejection
+    from the residual ``norm(max(p_i - q_i, 0))`` (``p_i`` where the
+    residual is 0), the bonus position from ``p_{k+1}``, both over the
+    filtered distributions of :func:`_filtered_logits`: the emitted
+    marginals are the sequential path's. Emitted token ``j``'s draw is
+    ``uniforms[:, j]`` (the span layout of :func:`_span_draws`).
+
+    :param drafts: (B, k) the drafter's proposals.
+    :param q_logits: (B, k, V) the drafter's logits they were drawn from.
+    :param p_logits: (B, k+1, V) the flagship's verify logits.
+    :param done: (B,) EOS flags; the flag latches per emitted token.
+    :param uniforms: (B, 3k+1) the span's draws when sampling, else None.
+    :return: ``(tokens (B, k+1), m (B,), new_token (B,), done (B,))``: a row
+        emits ``tokens[:m]`` (``pad_token_id`` past ``m``), ``new_token`` is
+        ``tokens[m-1]``.
+    """
+    b, k = drafts.shape
+    if config.do_sample:
+        pf = torch.softmax(_filtered_logits(p_logits, config), dim=-1)
+        qf = torch.softmax(_filtered_logits(q_logits, config), dim=-1)
+        p_d = torch.gather(pf[:, :k], -1, drafts[..., None])[..., 0]
+        q_d = torch.gather(qf, -1, drafts[..., None])[..., 0]
+        accept = uniforms[:, 2 * k + 1:] * q_d <= p_d
+        residual = torch.clamp(pf[:, :k] - qf, min=0.0)
+        rsum = residual.sum(dim=-1, keepdim=True)
+        resid = torch.where(rsum > 0, residual / torch.clamp(rsum, min=1e-20), pf[:, :k])
+        fix = _inverse_cdf(torch.cat([resid, pf[:, k:]], dim=1), uniforms[:, : k + 1])
+    else:
+        fix = torch.argmax(p_logits, dim=-1)  # (B, k+1)
+        accept = fix[:, :k] == drafts
+    n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+    m = n_acc + 1
+    pad, eos = config.pad_token_id, config.eos_token_id
+    toks, carry = [], done
+    for j in range(k + 1):
+        drafted = drafts[:, j] if j < k else fix[:, j]
+        raw = torch.where(j < n_acc, drafted, torch.where(j == n_acc, fix[:, j], pad))
+        emitted = j < m
+        if eos is not None:
+            raw = torch.where(carry, pad, raw)
+            carry = torch.where(emitted, carry | (raw == eos), carry)
+        toks.append(torch.where(emitted, raw, pad))
+    tokens = torch.stack(toks, dim=1)
+    new_token = torch.gather(tokens, 1, n_acc[:, None])[:, 0]
+    return tokens, m, new_token, carry
+
+
+def _validate_no_slide(mcfg, seq_len: int, num_latents: int, config: GenerationConfig) -> None:
+    """A verify span scores ``k + 1`` positions in one forward, and a window
+    that slid mid-span would need a different expiry mask per position, so
+    the speculative paths (as :func:`beam_search`) need a geometry whose
+    windows never fill while decoding."""
+    n_lat = min(seq_len, num_latents)
+    if seq_len + config.max_new_tokens > mcfg.max_seq_len or n_lat + config.max_new_tokens > mcfg.max_latents:
+        raise ValueError(
+            "speculative decode does not slide the window: need seq_len + max_new_tokens <= max_seq_len "
+            f"({seq_len} + {config.max_new_tokens} vs {mcfg.max_seq_len}) and num_latents + max_new_tokens <= "
+            f"max_latents ({n_lat} + {config.max_new_tokens} vs {mcfg.max_latents})")
+
+
+def _speculative_step_body(model, drafter, config: GenerationConfig, k: int, state: dict):
+    """One draft/verify span over the pair's contiguous caches (batch 1, 0-d
+    lengths) or the engine's paged pools (per-slot lengths, idle slots into
+    the scratch page): ``k + 1`` drafter decode steps over
+    ``state["draft_cache"]`` (``k`` proposals by argmax or at the staged
+    drafter draws, and a last append that keeps the drafter's caches whole
+    through a span that accepts every draft), one flagship forward over
+    ``[token, d_0..d_{k-1}]`` (the verify), :func:`_speculative_accept`,
+    then the rollback: every cache's length tensor, the flagship's and the
+    drafter's, gets ``length + m``, in place. The windows never slide
+    (:func:`_validate_no_slide`; the engine checks its geometry). Like
+    :func:`_decode_step_body` it runs on the device alone and writes the
+    next state into the tensors it read. Returns ``(state, tokens (rows,
+    k+1), m (rows,))``."""
+    cache, drafted = state["cache"], state["draft_cache"]
+    token, pos_shift = state["token"], state["pos_shift"]
+    ca_idx = torch.arange(cache[0].capacity, device=token.device)[None, :]
+    pad_rows = state["pad_slots"] | (ca_idx < state["ca_start"].reshape(-1, 1))
+    u = state["uniforms"] if config.do_sample else None
+    cur, drafts, q_logits = token, [], []
+    for i in range(k + 1):
+        out = drafter(cur[:, None], prefix_len=0, pad_mask=pad_rows, kv_cache=drafted, decode=True,
+                      pos_shift=pos_shift)
+        drafted = out.kv_cache
+        if i < k:
+            logits = out.logits[:, -1]
+            cur = _sample_at(logits, config, None if u is None else u[:, k + 1 + i])
+            drafts.append(cur)
+            q_logits.append(logits)
+    drafts = torch.stack(drafts, dim=1)
+    verified = model(torch.cat([token[:, None], drafts], dim=1), prefix_len=0, pad_mask=pad_rows, kv_cache=cache,
+                     decode=True, pos_shift=pos_shift)
+    tokens, m, new_token, done = _speculative_accept(config, drafts, torch.stack(q_logits, dim=1),
+                                                     verified.logits, state["done"], u)
+    back = (m - (k + 1)).int()
+    for c, full in zip(cache + state["draft_cache"], verified.kv_cache + drafted):
+        c.length.copy_(full.length + back.reshape(full.length.shape))
+    state["token"].copy_(new_token)
+    state["done"].copy_(done)
+    return state, tokens, m
+
+
+def advance_span_generators(generators: Generators, m, config: GenerationConfig) -> None:
+    """After a span: advance each row's generator (one, or one per slot,
+    None for idle slots) by the tokens the row emitted, ``m`` (host ints),
+    the draws its span read from a clone (:func:`_span_draws`), so a
+    generator's position stays the count of tokens it has emitted."""
+    if not config.do_sample:
+        return
+    if isinstance(generators, torch.Generator):
+        generators = [generators]
+    for g, n in zip(generators, m):
+        if g is not None:
+            advance_generator(g, int(n), config)
+
+
+def _speculative_step(model, config: GenerationConfig, k: int, draft_depth: int, dev: torch.device, name: str):
+    """The span step of both speculative builders: a :class:`_GraphedStep`
+    on the card, the eager body on the CPU."""
+    drafter = make_drafter(model, draft_depth)
+    stage = _UniformStage(config, dev, k)
+
+    def body(state):
+        return _speculative_step_body(model, drafter, config, k, state)
+
+    if dev.type == "cuda":
+        return _GraphedStep(model, config, name, body, stage)
+    return _eager_step(model, config, dev, body, stage)
+
+
+def make_speculative_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConfig] = None, *,
+                                k: int = 4, draft_depth: int = 1, cache_dtype: torch.dtype = torch.float32,
+                                device: DeviceLike = "cuda"):
+    """The speculative host-driven pair ``(prefill, step)``.
+
+    - ``prefill(input_ids, pad_mask=None, generator=None) -> (first_token,
+      state)``: :func:`make_prefill_fn`'s prefill at batch 1 (batched
+      speculative decode is the engine's, :func:`make_speculative_paged_step_fn`)
+      with ``k + 1`` slots of slack on every cache for the span appended
+      before the rollback, and the windows checked never to slide
+      (:func:`_validate_no_slide`). The state adds ``draft_cache``: the
+      drafter's caches (:func:`make_drafter`), copies of the prefill's CA
+      cache and first ``draft_depth`` SA caches (no second prompt pass). They
+      are tensors of their own, since the drafter's in-place appends would
+      otherwise write into the flagship's span slots.
+    - ``step(state) -> (state, tokens (1, k+1), m (1,))``: one span
+      (:func:`_speculative_step_body`); the caller streams ``tokens[:, :m]``
+      and calls again while budget remains. The host reads ``m`` when
+      sampling, to advance the generator by the emitted tokens.
+
+    Greedy output is the sequential pair's token for token; sampling keeps
+    the sequential marginals and the generator contract of the module
+    docstring. On the card the step is one CUDA graph (the first call a real
+    step that captures), on the CPU the eager body, as
+    :func:`make_decode_fns`' step.
+    """
+    config = config or GenerationConfig()
+    if config.max_new_tokens < 1:
+        raise ValueError("speculative decode fns require max_new_tokens >= 1")
+    if k < 1:
+        raise ValueError(f"k (draft tokens per span) must be >= 1, got {k}")
+    dev = _model_device(model, device)
+    mcfg = model.config
+    slack = dataclasses.replace(config, max_new_tokens=config.max_new_tokens + k + 1)
+
+    def prefill(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None):
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        input_ids = torch.as_tensor(input_ids, device=dev).long()
+        b, seq_len = input_ids.shape
+        if b != 1:
+            raise ValueError("the speculative host-driven pair serves batch 1 (ragged accepted-prefix lengths need "
+                             "per-row cache lengths: batched speculative decode is the engine's paged slot mode)")
+        prefix_len = _validate_window(mcfg, seq_len, num_latents)
+        if pad_mask is None:
+            pad_mask = torch.zeros((b, seq_len), dtype=torch.bool, device=dev)
+        pad_mask = torch.as_tensor(pad_mask, device=dev).bool()
+        _require_pads_in_prefix(pad_mask, prefix_len)
+        _validate_no_slide(mcfg, seq_len, num_latents, config)
+        token, state = _prefill_pass(model, input_ids, pad_mask, prefix_len, num_latents, slack, cache_dtype,
+                                     generator)
+        state.pop("logits")
+        state["draft_cache"] = tuple(KVCache(c.k.clone(), c.v.clone(), c.length.clone())
+                                     for c in state["cache"][: 1 + draft_depth])
+        state["uniforms"] = torch.zeros((b, 3 * k + 1), dtype=torch.float32, device=dev)
+        return token, state
+
+    def step(state: dict):
+        state, tokens, m = step.body(state)
+        tokens, m = tokens.clone(), m.clone()
+        advance_span_generators(state["generator"], m.tolist() if config.do_sample else (), config)
+        return state, tokens, m
+
+    step.body = _speculative_step(model, config, k, draft_depth, dev, "the speculative decode step")
+    step.captured = step.body if dev.type == "cuda" else None
+    return prefill, step
+
+
+def make_speculative_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, k: int = 4,
+                                   draft_depth: int = 1, device: DeviceLike = "cuda"):
+    """The engine's speculative batched step ``step(state) -> (state, tokens
+    (S, k+1), m (S,))`` over :func:`make_paged_step_fn`'s paged state plus
+    ``draft_cache`` (the drafter's CA pool and first ``draft_depth`` SA
+    pools, with the flagship pools' geometry and page ids; ``serving.engine``
+    commits and releases them beside the flagship's). One span a step
+    (:func:`_speculative_step_body`): per-slot ``pad_rows`` from
+    ``ca_start``, per-slot acceptance, done flags and rollback; total over
+    idle slots, which draft and verify into the scratch page. The host
+    stages the span's draws before the step (``uniforms`` (S, 3k+1)) and,
+    having read ``m``, advances each slot's generator
+    (:func:`advance_span_generators`). On the card one CUDA graph, on the CPU
+    the eager body. The windows must never slide: the engine checks its
+    geometry when it is built."""
+    config = config or GenerationConfig()
+    if k < 1:
+        raise ValueError(f"k (draft tokens per span) must be >= 1, got {k}")
+    dev = _model_device(model, device)
+    return _speculative_step(model, config, k, draft_depth, dev, "the speculative paged step")
+
+
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+
+def _beam_step_body(model, state: dict):
+    """One beam-search step over the tiled contiguous caches, in place: the
+    SA windows slide when full (:func:`_shift_left_if_full`; the CA cache
+    cannot fill), the model on each beam's last token, every beam's top
+    continuations over the flattened ``(beams x V)`` candidates, then the
+    caches, sequences and flags reordered into their own buffers
+    (``index_select``, JAX's ``take``). Finished beams continue with
+    ``pad_token_id`` at no cost. Returns ``(state, tokens)``."""
+    cache, b, beams, vocab = state["cache"], state["batch"], state["beams"], model.config.vocab_size
+    shifted = (cache[0],) + tuple(_shift_left_if_full(c) for c in cache[1:])
+    out = model(state["token"][:, None], prefix_len=0, pad_mask=state["pad_slots"], kv_cache=shifted, decode=True,
+                pos_shift=state["pos_shift"])
+    logprobs = torch.log_softmax(out.logits[:, -1].float(), dim=-1)
+    if state["eos"] is not None:
+        logprobs = torch.where(state["done"][:, None], state["frozen"][None, :], logprobs)
+    cand = (state["beam_scores"][:, None] + logprobs).reshape(b, beams * vocab)
+    new_scores, flat_idx = torch.topk(cand, beams, dim=1)
+    new_token = (flat_idx % vocab).reshape(-1)
+    rows = (state["batch_base"].reshape(b, beams) + flat_idx // vocab).reshape(-1)
+    for c, advanced in zip(cache, out.kv_cache):
+        c.k.copy_(c.k.index_select(0, rows))
+        c.v.copy_(c.v.index_select(0, rows))
+        c.length.copy_(advanced.length)
+    seqs = state["seqs"]
+    seqs.copy_(seqs.index_select(0, rows))
+    seqs.scatter_(1, state["t"].expand(seqs.shape[0], 1), new_token[:, None])
+    done = state["done"].index_select(0, rows)
+    if state["eos"] is not None:
+        done = done | (new_token == state["eos"])
+    state["done"].copy_(done)
+    state["beam_scores"].copy_(new_scores.reshape(-1))
+    state["token"].copy_(new_token)
+    state["t"].add_(1)
+    return state, state["token"]
+
+
+def beam_search(model, input_ids, num_latents: int = 1, num_beams: int = 4, max_new_tokens: int = 64,
+                length_penalty: float = 1.0, eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+                pad_mask=None, cache_dtype: torch.dtype = torch.float32, *,
+                device: DeviceLike = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decoding over the fixed-capacity caches (the JAX
+    function's counterpart). Beams live as extra batch rows (B * num_beams):
+    the prompt pass runs on the B rows, its caches are tiled, and each step
+    (:func:`_beam_step_body`) reorders them in place. On the card the step is
+    one CUDA graph a call (the first step a real step that captures), on the
+    CPU the eager body.
+
+    ``seq_len + max_new_tokens`` must not exceed ``max_seq_len``: the search
+    does not slide the CA window (beams share absolute positions); the SA
+    windows slide. ``pad_mask`` (B, S), True at left padding, shifts each
+    row's positions so a padded row decodes as its unpadded self. Scores are
+    the summed log-probabilities over ``length ** length_penalty`` (the
+    length up to and with the first EOS).
+
+    :return: ``(sequences (B, S + max_new_tokens), scores (B,))``: each
+        batch element's best beam and its length-penalized score.
+    """
+    dev = _model_device(model, device)
+    mcfg = model.config
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    b, seq_len = input_ids.shape
+    if num_beams < 1:
+        raise ValueError("num_beams must be >= 1")
+    if seq_len + max_new_tokens > mcfg.max_seq_len:
+        raise ValueError(f"seq_len + max_new_tokens ({seq_len + max_new_tokens}) exceeds max_seq_len "
+                         f"({mcfg.max_seq_len}) — beam search does not slide the window")
+    prefix_len = _validate_window(mcfg, seq_len, num_latents)
+    if pad_mask is not None:
+        pad_mask = torch.as_tensor(pad_mask, device=dev).bool()
+    _require_pads_in_prefix(pad_mask, prefix_len)
+    out = model(input_ids, prefix_len=prefix_len, pad_mask=pad_mask,
+                kv_cache=CausalSequenceModel.init_cache(mcfg, b, dtype=cache_dtype, device=dev))
+    bb = b * num_beams
+
+    def tile(x):
+        return x.repeat_interleave(num_beams, dim=0)
+
+    cache = tuple(KVCache(tile(c.k), tile(c.v), torch.tensor(c.length, dtype=torch.int32, device=dev))
+                  for c in out.kv_cache)
+    pad_slots = pos_shift = None
+    if pad_mask is not None:
+        pos_shift = tile(pad_mask.sum(dim=1, keepdim=True))
+        pad_slots = torch.zeros((bb, cache[0].capacity), dtype=torch.bool, device=dev)
+        pad_slots[:, :seq_len] = tile(pad_mask)
+    top0, tok0 = torch.topk(torch.log_softmax(out.logits[:, -1].float(), dim=-1), num_beams, dim=-1)
+    token = tok0.reshape(bb)
+    seqs = torch.zeros((bb, max_new_tokens), dtype=torch.long, device=dev)
+    seqs[:, 0] = token
+    done = torch.zeros((bb,), dtype=torch.bool, device=dev) if eos_token_id is None else token == eos_token_id
+    frozen = torch.full((mcfg.vocab_size,), float("-inf"), device=dev)
+    frozen[pad_token_id] = 0.0
+    state = {"cache": cache, "token": token, "done": done, "beam_scores": top0.reshape(bb), "seqs": seqs,
+             "t": torch.ones((1, 1), dtype=torch.long, device=dev), "pad_slots": pad_slots, "pos_shift": pos_shift,
+             "batch_base": torch.arange(b, device=dev).repeat_interleave(num_beams) * num_beams, "frozen": frozen,
+             "eos": eos_token_id, "batch": b, "beams": num_beams}
+    if max_new_tokens > 1:
+        config = GenerationConfig()
+
+        def body(st):
+            return _beam_step_body(model, st)
+
+        def no_draws(st):
+            return None
+
+        step = (_GraphedStep(model, config, "the beam search step", body, no_draws) if dev.type == "cuda"
+                else _eager_step(model, config, dev, body, no_draws))
+        for _ in range(max_new_tokens - 1):
+            step(state)
+    seqs, beam_scores = state["seqs"], state["beam_scores"]
+    if eos_token_id is not None:
+        is_eos = seqs == eos_token_id
+        lengths = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1, max_new_tokens)
+    else:
+        lengths = torch.full((bb,), max_new_tokens, device=dev)
+    final = beam_scores / lengths.float() ** length_penalty
+    best_rows = torch.arange(b, device=dev) * num_beams + torch.argmax(final.reshape(b, num_beams), dim=1)
+    return torch.cat([input_ids, seqs[best_rows]], dim=1), final[best_rows]
+
+
 @dataclass
 class GenerationStats:
     """Host-measured serving telemetry for one generate request (the
@@ -613,10 +1074,68 @@ class GenerationStats:
     nonfinite_logit_frac: Optional[float] = None
 
 
-# contiguous decode states kept per (batch, prompt length) by one
-# instrumented generate fn: each holds its captured step (on the card) and
-# the caches it replays on
+# contiguous decode states kept per (batch, prompt length) by one generate
+# fn: each holds its captured step (on the card) and the caches it replays on
 _DECODE_STATES_MAX = 8
+
+
+class _DecodeStates:
+    """The decode steps of one generate fn, one step and one fixed state per
+    (batch, prompt length), least recently used first out past
+    ``_DECODE_STATES_MAX``: ``states(state) -> (step, fixed)`` writes a
+    prefilled ``state`` into its geometry's fixed state (:func:`_load_state_`)
+    so that the step captured there replays on it; a new geometry keeps
+    ``state`` itself and a fresh step (``wrap(step)`` of
+    :func:`make_decode_fns`' step)."""
+
+    def __init__(self, model, num_latents: int, config: GenerationConfig, cache_dtype: torch.dtype,
+                 device: torch.device, wrap=None):
+        self._build = lambda: make_decode_fns(model, num_latents, config, cache_dtype, device=device)[1]
+        self._wrap = wrap if wrap is not None else (lambda step: step)
+        self._states: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+    def __call__(self, state: dict):
+        key = tuple(state["pad_slots"].shape)
+        if key in self._states:
+            step, fixed = self._states.pop(key)
+            _load_state_(fixed, state)
+        else:
+            while len(self._states) >= _DECODE_STATES_MAX:
+                self._states.popitem(last=False)
+            step, fixed = self._wrap(self._build()), state
+        self._states[key] = (step, fixed)
+        return step, fixed
+
+
+def make_generate_fn(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
+                     cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda"):
+    """``fn(input_ids, pad_mask=None, generator=None) -> tokens`` (B, S +
+    max_new_tokens): :func:`generate` for many calls (the JAX function's
+    counterpart, which jits it once a prompt shape). It keeps one captured
+    decode state per (batch, prompt length), as
+    :func:`make_instrumented_generate_fn` does: the first call of a geometry
+    captures the step on its state, later ones write their prefill into that
+    state and replay."""
+    config = config or GenerationConfig()
+    dev = _model_device(model, device)
+    if config.max_new_tokens > 0:
+        prefill = make_prefill_fn(model, num_latents, config, cache_dtype, device=dev)
+        states = _DecodeStates(model, num_latents, config, cache_dtype, dev)
+
+    def fn(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        input_ids = torch.as_tensor(input_ids, device=dev).long()
+        if config.max_new_tokens <= 0:
+            return input_ids
+        token, state = prefill(input_ids, pad_mask, generator)
+        tokens: List[torch.Tensor] = [token]
+        if config.max_new_tokens > 1:
+            step, state = states(state)
+            for _ in range(config.max_new_tokens - 1):
+                state, token = step(state)
+                tokens.append(token)
+        return torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
+
+    return fn
 
 
 def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
@@ -672,23 +1191,8 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
     tracker = RecompileTracker(events=events)
     prefill_fn = tracker.wrap(make_decode_fns(model, num_latents, config, cache_dtype, device=dev)[0],
                               "generate_prefill")
-    decode_states: "OrderedDict[tuple, tuple]" = OrderedDict()
-
-    def decode_state(state: dict):
-        """The step and the fixed state of ``state``'s geometry, ``state``
-        written into it (a new geometry keeps ``state`` itself)."""
-        key = tuple(state["pad_slots"].shape)
-        if key in decode_states:
-            step, fixed = decode_states.pop(key)
-            _load_state_(fixed, state)
-        else:
-            while len(decode_states) >= _DECODE_STATES_MAX:
-                decode_states.popitem(last=False)
-            step = tracker.wrap(make_decode_fns(model, num_latents, config, cache_dtype, device=dev)[1],
-                                "generate_decode_step")
-            fixed = state
-        decode_states[key] = (step, fixed)
-        return step, fixed
+    decode_state = _DecodeStates(model, num_latents, config, cache_dtype, dev,
+                                 lambda step: tracker.wrap(step, "generate_decode_step"))
 
     registry = registry if registry is not None else MetricsRegistry()
     m_requests = registry.counter("generate_requests_total")

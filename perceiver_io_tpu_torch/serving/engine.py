@@ -53,10 +53,19 @@ parameters in place for the prefill and the originals written back before
 anything else runs, so the captured step keeps reading the same addresses
 with the original values.
 
+- **speculative slots** (``EngineConfig.spec_k`` > 0): every engine step is
+  one draft/verify span a slot (``generation.make_speculative_paged_step_fn``:
+  ``spec_k`` drafts of a ``spec_depth``-layer self-drafter sharing the
+  model's weights, one verify forward, per-slot acceptance and rollback),
+  emitting 1 to ``spec_k + 1`` tokens a slot, each through the per-token
+  seam. The drafter's pools mirror the flagship's geometry and page ids, so
+  one grant covers both; grants carry ``spec_k + 1`` tokens of slack for the
+  span appended before the rollback. The mode needs the no-slide geometry,
+  and prefix sharing is off in it (as in JAX).
+
 Every join, fork, eviction and resume writes into the captured step's state
 in place (``commit_prefill_``, ``release_slot_``, ``copy_``): no pool or
-table tensor is ever rebound. The speculative slot mode (ROADMAP A9) is not
-ported: :class:`EngineConfig` has no ``spec_k``.
+table tensor is ever rebound.
 """
 
 from __future__ import annotations
@@ -76,9 +85,12 @@ from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
 from perceiver_io_tpu_torch.generation import (
     GenerationConfig,
     advance_generator,
+    advance_span_generators,
+    make_drafter,
     make_paged_step_fn,
     make_prefill_fn,
     make_shared_prefill_fn,
+    make_speculative_paged_step_fn,
 )
 from perceiver_io_tpu_torch.obs import trace as obs_trace
 from perceiver_io_tpu_torch.obs.metrics import Histogram, bucket_index
@@ -117,6 +129,13 @@ class EngineConfig:
     # victim's latents as the tail of prompt + served tokens, which a slid
     # window cannot express
     eviction: bool = False
+    # the speculative slot mode: spec_k > 0 drafts that many tokens a step
+    # with a self-drafter of spec_depth latent SA layers sharing the model's
+    # weights and verifies them in one batched forward, so a step emits 1 to
+    # spec_k + 1 tokens a slot. Requires the no-slide geometry (checked at
+    # construction); per-slot page spans carry spec_k + 1 tokens of slack
+    spec_k: int = 0
+    spec_depth: int = 1
 
 
 def _no_slide(ec: EngineConfig, mcfg) -> bool:
@@ -124,7 +143,7 @@ def _no_slide(ec: EngineConfig, mcfg) -> bool:
 
 
 def _slide_error(ec: EngineConfig, mcfg, what: str) -> ValueError:
-    return ValueError(f"{what} by prefill replay and never slide the window: need max_ca_tokens <= max_seq_len "
+    return ValueError(f"{what} the window: need max_ca_tokens <= max_seq_len "
                       f"({ec.max_ca_tokens} vs {mcfg.max_seq_len}) and max_sa_tokens <= max_latents "
                       f"({ec.max_sa_tokens} vs {mcfg.max_latents})")
 
@@ -154,11 +173,18 @@ class EngineFrontEnd(RequestFrontEnd):
         super().__init__(model, **kw)
         self.engine_config = ec = engine_config or EngineConfig()
         if (ec.eviction or self.journal is not None) and not _no_slide(ec, model.config):
-            raise _slide_error(ec, model.config, "eviction and journal recovery resume")
+            raise _slide_error(ec, model.config, "eviction and journal recovery resume by prefill replay and never "
+                                                 "slide")
+        self._spec = ec.spec_k > 0
+        if self._spec and not _no_slide(ec, model.config):
+            raise _slide_error(ec, model.config, "speculative slot mode never slides")
+        # a verify span appends spec_k + 1 tokens before its rollback: every
+        # per-slot page span and grant carries that slack
+        self._spec_slack = ec.spec_k + 1 if self._spec else 0
         self._gen_config = self.base_config or GenerationConfig()
         ps = ec.page_size
-        self._ca_pages_per_slot = -(-ec.max_ca_tokens // ps)
-        self._sa_pages_per_slot = -(-ec.max_sa_tokens // ps)
+        self._ca_pages_per_slot = -(-(ec.max_ca_tokens + self._spec_slack) // ps)
+        self._sa_pages_per_slot = -(-(ec.max_sa_tokens + self._spec_slack) // ps)
         ca_pool = 1 + max(2, int(round(ec.slots * self._ca_pages_per_slot * ec.pool_headroom)))
         sa_pool = 1 + max(2, int(round(ec.slots * self._sa_pages_per_slot * ec.pool_headroom)))
         self.ca_alloc = PageAllocator(ca_pool, ps)
@@ -166,29 +192,44 @@ class EngineFrontEnd(RequestFrontEnd):
         # the radix prefix index over CA pool pages (SA rows pass through
         # q_norm and the SA stack: request-specific, never shared)
         self.prefix_index = PrefixIndex(ps)
-        caches = CausalSequenceModel.init_paged_cache(
-            model.config, ec.slots, ps, ca_num_pages=ca_pool, ca_pages_per_slot=self._ca_pages_per_slot,
-            sa_num_pages=sa_pool, sa_pages_per_slot=self._sa_pages_per_slot, dtype=self._cache_dtype,
-            device=self.device,
-        )
+        def pools(config):
+            return CausalSequenceModel.init_paged_cache(
+                config, ec.slots, ps, ca_num_pages=ca_pool, ca_pages_per_slot=self._ca_pages_per_slot,
+                sa_num_pages=sa_pool, sa_pages_per_slot=self._sa_pages_per_slot, dtype=self._cache_dtype,
+                device=self.device,
+            )
+
+        caches = pools(model.config)
         s, dev = ec.slots, self.device
         self._state: Dict[str, Any] = {
             "cache": caches,
             "ca_start": torch.empty((s,), dtype=torch.int32, device=dev),
             "sa_start": torch.empty((s,), dtype=torch.int32, device=dev),
             "token": torch.empty((s,), dtype=torch.long, device=dev),
-            "uniforms": torch.empty((s,), dtype=torch.float32, device=dev),
+            # one draw a slot, or a span's 3 spec_k + 1 (generation._span_draws)
+            "uniforms": torch.empty((s, 3 * ec.spec_k + 1) if self._spec else (s,), dtype=torch.float32,
+                                    device=dev),
             "generators": [None] * s,
             "done": torch.empty((s,), dtype=torch.bool, device=dev),
             "pad_slots": torch.empty((s, caches[0].capacity), dtype=torch.bool, device=dev),
             "pos_shift": torch.empty((s, 1), dtype=torch.long, device=dev),
         }
+        if self._spec:
+            # the drafter's pools mirror the flagship's geometry and page ids:
+            # a slot's grant indexes both, so the allocators' books cover the
+            # drafter too
+            self._state["draft_cache"] = pools(make_drafter(model, ec.spec_depth).config)
         self._reset_state()
         # a capture of the step is its "compile": a `compile` event, and the
         # `compiled` flag of the slots a capturing step decodes for
         self._tracker = RecompileTracker(events=self.events)
-        self._step_fn = self._tracker.wrap(make_paged_step_fn(model, self._gen_config, device=dev),
-                                           "engine_decode_step")
+        if self._spec:
+            self._step_fn = self._tracker.wrap(make_speculative_paged_step_fn(
+                model, self._gen_config, k=ec.spec_k, draft_depth=ec.spec_depth, device=dev),
+                "engine_decode_spec_step")
+        else:
+            self._step_fn = self._tracker.wrap(make_paged_step_fn(model, self._gen_config, device=dev),
+                                               "engine_decode_step")
         if dev.type == "cuda":
             # the capture: one step while every slot is idle (it writes only
             # the scratch page), then the state back to its initial values
@@ -223,6 +264,10 @@ class EngineFrontEnd(RequestFrontEnd):
         self._m_prefix_pages = r.counter("serve_prefix_pages_shared")
         self._n_prefix_hits = 0
         self._n_prefix_pages_shared = 0
+        if self._spec:
+            # per-request drafter quality, recorded at retire
+            self._m_accept = r.histogram("spec_acceptance_rate")
+            self._m_tps = r.histogram("spec_tokens_per_step")
         # per-tenant pages held (feeds engine_kv_pages_used{tenant=...})
         self._tenant_pages: Dict[str, int] = {}
         self._admission_checks.append(self._page_fit_check)
@@ -231,7 +276,7 @@ class EngineFrontEnd(RequestFrontEnd):
         """Every slot idle, in place: table rows at the scratch page (zeroed),
         lengths and counters 0, done, a neutral token."""
         st = self._state
-        for pool in st["cache"]:
+        for pool in st["cache"] + st.get("draft_cache", ()):
             pool.page_table.zero_()
             pool.length.zero_()
             pool.k[0].zero_()
@@ -269,11 +314,12 @@ class EngineFrontEnd(RequestFrontEnd):
         ca_tokens = int(spec.prompt_len) + int(spec.max_new_tokens)
         sa_tokens = self.num_latents + int(spec.max_new_tokens)
         ec = self.engine_config
+        ca_grant, sa_grant = self._grant_tokens(spec.prompt_len, spec.max_new_tokens)
         fits = (
             ca_tokens <= ec.max_ca_tokens
             and sa_tokens <= ec.max_sa_tokens
-            and self.ca_alloc.can_ever_fit(ca_tokens)
-            and self.sa_alloc.can_ever_fit(sa_tokens)
+            and self.ca_alloc.can_ever_fit(ca_grant)
+            and self.sa_alloc.can_ever_fit(sa_grant)
         )
         if fits:
             return None
@@ -284,6 +330,13 @@ class EngineFrontEnd(RequestFrontEnd):
             "max_sa_tokens": ec.max_sa_tokens,
             "pool_pages": self.ca_alloc.num_allocatable,
         }
+
+    def _grant_tokens(self, prompt_len: int, max_new_tokens: int) -> Tuple[int, int]:
+        """The CA and SA tokens a request's grants cover: its prompt and
+        budget, and the speculative span's slack (the span appended before
+        its rollback)."""
+        return (int(prompt_len) + int(max_new_tokens) + self._spec_slack,
+                self.num_latents + int(max_new_tokens) + self._spec_slack)
 
     # -- join ----------------------------------------------------------------
 
@@ -326,8 +379,10 @@ class EngineFrontEnd(RequestFrontEnd):
         """The prompt's whole context-region pages (``prompt_len -
         num_latents`` tokens, page by page): the run a join may share (the
         suffix must carry every latent, so a match never reaches past it)
-        and the run it publishes. 0 with sharing off."""
-        if not self.engine_config.prefix_sharing:
+        and the run it publishes. 0 with sharing off, and in the speculative
+        slot mode (as in JAX: the drafter's pools would need shared pages of
+        their own)."""
+        if not self.engine_config.prefix_sharing or self._spec:
             return 0
         return max((ticket.record.prompt_len - self.num_latents) // self.engine_config.page_size, 0)
 
@@ -409,13 +464,13 @@ class EngineFrontEnd(RequestFrontEnd):
         raises nothing: a prefill failure books the request as a terminal
         error (pages freed), keeping the stream 1:1."""
         rec = ticket.record
-        ca_tokens = rec.prompt_len + rec.max_new_tokens
+        ca_tokens, sa_tokens = self._grant_tokens(rec.prompt_len, rec.max_new_tokens)
         matched = self._match_prefix(ticket)
         ca_grant = (self.ca_alloc.alloc_tokens_shared(ca_tokens, matched) if matched
                     else self.ca_alloc.alloc_tokens(ca_tokens))
         if ca_grant is None:
             return False
-        sa_grant = self.sa_alloc.alloc_tokens(self.num_latents + rec.max_new_tokens)
+        sa_grant = self.sa_alloc.alloc_tokens(sa_tokens)
         if sa_grant is None:
             self._free_ca(ca_grant)
             return False
@@ -518,10 +573,13 @@ class EngineFrontEnd(RequestFrontEnd):
         prefill_cache = pstate["cache"]
         ca_pages = torch.tensor(ca_grant.pages, dtype=torch.long, device=dev)
         sa_pages = torch.tensor(sa_grant.pages, dtype=torch.long, device=dev)
-        ca, sas = st["cache"][0], st["cache"][1:]
-        commit_prefill_(ca, slot, ca_pages, prefill_cache[0], prefill_cache[0].length)
-        for c, pc in zip(sas, prefill_cache[1:]):
-            commit_prefill_(c, slot, sa_pages, pc, pc.length)
+        ca = st["cache"][0]
+        # the drafter's caches are the prefill caches' prefix (shared weights,
+        # generation.make_drafter): they land in the drafter's pools under
+        # the same page ids
+        for pools in (st["cache"], st.get("draft_cache", ())):
+            for i, (c, pc) in enumerate(zip(pools, prefill_cache)):
+                commit_prefill_(c, slot, ca_pages if i == 0 else sa_pages, pc, pc.length)
         n = min(pstate["pad_slots"].shape[1], ca.capacity)
         st["pad_slots"][slot] = False
         st["pad_slots"][slot, :n] = pstate["pad_slots"][0, :n]
@@ -561,6 +619,14 @@ class EngineFrontEnd(RequestFrontEnd):
         hist = slot.tpot_hist()
         rec.service_s = round(self._now_s() - slot.t_joined, 6)
         self._finish(slot.ticket, outcome)
+        # the drafter's quality: raw acceptance over the slot's spans, and
+        # decode tokens emitted a span
+        accept_rate = tokens_per_step = None
+        if slot.spec_spans:
+            accept_rate = slot.spec_accepted / (slot.spec_spans * max(self.engine_config.spec_k, 1))
+            tokens_per_step = max(slot.tokens_out - 1, 0) / slot.spec_spans
+            self._m_accept.record(accept_rate)
+            self._m_tps.record(tokens_per_step)
         if slot.span is not None:
             slot.span.set("outcome", outcome)
             slot.span.set("tokens_out", slot.tokens_out)
@@ -584,6 +650,9 @@ class EngineFrontEnd(RequestFrontEnd):
                 row["tenant"] = rec.tenant
             if slot.batch_sizes:
                 row["batch_size_at_decode"] = round(sum(slot.batch_sizes) / len(slot.batch_sizes), 3)
+            if accept_rate is not None:
+                row["acceptance_rate"] = round(accept_rate, 6)
+                row["tokens_per_step"] = round(tokens_per_step, 6)
             if slot.span is not None:
                 row["span_id"] = slot.span.span_id
             for p in (50, 90, 99):
@@ -613,7 +682,7 @@ class EngineFrontEnd(RequestFrontEnd):
         """Device half of a retire, in place: table row back to scratch,
         length 0, the slot idle with a neutral token."""
         st = self._state
-        for c in st["cache"]:
+        for c in st["cache"] + st.get("draft_cache", ()):
             release_slot_(c, slot)
         st["token"][slot] = 0
         st["done"][slot] = True
@@ -680,9 +749,7 @@ class EngineFrontEnd(RequestFrontEnd):
         with eviction off)."""
         if not self.engine_config.eviction:
             return False
-        rec = ticket.record
-        ca_tokens = rec.prompt_len + rec.max_new_tokens
-        sa_tokens = self.num_latents + rec.max_new_tokens
+        ca_tokens, sa_tokens = self._grant_tokens(ticket.record.prompt_len, ticket.record.max_new_tokens)
         while not (self.ca_alloc.can_fit_now(ca_tokens) and self.sa_alloc.can_fit_now(sa_tokens)):
             victim = self._select_victim()
             if victim is None:
@@ -708,10 +775,11 @@ class EngineFrontEnd(RequestFrontEnd):
         idx, n = rec.index, slot.tokens_out
         # the demand is the join's: prompt + n + remaining CA tokens,
         # (num_latents + n) + remaining SA tokens
-        ca_grant = self.ca_alloc.alloc_tokens(rec.prompt_len + rec.max_new_tokens)
+        ca_tokens, sa_tokens = self._grant_tokens(rec.prompt_len, rec.max_new_tokens)
+        ca_grant = self.ca_alloc.alloc_tokens(ca_tokens)
         if ca_grant is None:
             return False
-        sa_grant = self.sa_alloc.alloc_tokens(self.num_latents + rec.max_new_tokens)
+        sa_grant = self.sa_alloc.alloc_tokens(sa_tokens)
         if sa_grant is None:
             self._free_ca(ca_grant)
             return False
@@ -823,7 +891,7 @@ class EngineFrontEnd(RequestFrontEnd):
         Returns a summary dict."""
         ec, mcfg = self.engine_config, self.model.config
         if not _no_slide(ec, mcfg):
-            raise _slide_error(ec, mcfg, "journal recovery resumes")
+            raise _slide_error(ec, mcfg, "journal recovery resumes by prefill replay and never slides")
         if not isinstance(journal, RequestJournal):
             journal = RequestJournal(journal)
         handoff_mode = self.journal is not None and self.journal is not journal
@@ -1009,44 +1077,77 @@ class EngineFrontEnd(RequestFrontEnd):
 
     def _engine_step(self) -> None:
         """One batched decode step, then per-slot accounting and retires:
-        every emitted token streams through the per-token seam."""
+        every emitted token streams through the per-token seam. In the
+        speculative slot mode a step emits ``m`` of 1 to ``spec_k + 1``
+        tokens a slot: a span past the budget is clipped, and a kill, cancel
+        or deadline mid-span drops the span's remaining tokens (the slot
+        retires at that token, as the sequential path would); each slot's
+        generator then advances by its ``m``
+        (``generation.advance_span_generators``)."""
         self._sweep_terminal()
         active = self._active_ids()
         if not active:
             return
         compiles0 = self._tracker.total_compiles
         t0 = self._now_s()
-        self._state, tokens = self._step_fn(self._state)
-        tokens = tokens.tolist()  # the one host fetch of the step
+        if self._spec:
+            self._state, tokens, m = self._step_fn(self._state)
+            # the one host fetch of the step
+            rows = torch.cat([tokens, m[:, None]], dim=1).tolist()
+            tokens, m = [r[:-1] for r in rows], [r[-1] for r in rows]
+            advance_span_generators(self._state["generators"], m, self._gen_config)
+        else:
+            self._state, tokens = self._step_fn(self._state)
+            tokens = [[t] for t in tokens.tolist()]  # the one host fetch of the step
+            m = [1] * len(tokens)
         dt = self._now_s() - t0
         self._engine_steps += 1
         self._fill_sum += len(active)
         cold_step = self._tracker.total_compiles > compiles0
         batch_size = len(active)
-        # one TPOT sample a slot: the step's time, bucketed once for all
+        # one TPOT sample a token: the step's time shared by the slot's
+        # tokens, bucketed once a step without spans
         bucket = bucket_index(dt)
-        if not cold_step:
+        if not cold_step and not self._spec:
             self._m_tpot.record(dt, count=batch_size)
         eos = self._gen_config.eos_token_id
         for slot_id in active:
             slot = self._slots[slot_id]
             rec = slot.ticket.record
-            tok = int(tokens[slot_id])
-            slot.tokens_out += 1
-            self.served_tokens[rec.index].append(tok)
-            slot.step_times.append(dt)
-            slot.step_buckets.append(bucket)
-            slot.batch_sizes.append(batch_size)
-            if cold_step:
-                slot.compiled = True
-            self._token_seam(slot, slot.tokens_out - 1)
-            if self.journal is not None:
+            span = int(m[slot_id])
+            n_emit = min(span, rec.max_new_tokens - slot.tokens_out)
+            if self._spec:
+                # the raw span (drafter quality), before the budget's clip
+                slot.spec_spans += 1
+                slot.spec_accepted += span - 1
+            per_tok = dt / max(n_emit, 1)
+            tok_bucket = bucket if n_emit == 1 else bucket_index(per_tok)
+            if self._spec and not cold_step:
+                self._m_tpot.record(per_tok, count=n_emit)
+            emitted, finished = [], False
+            for j in range(n_emit):
+                tok = int(tokens[slot_id][j])
+                slot.tokens_out += 1
+                self.served_tokens[rec.index].append(tok)
+                emitted.append(tok)
+                slot.step_times.append(per_tok)
+                slot.step_buckets.append(tok_bucket)
+                slot.batch_sizes.append(batch_size)
+                if cold_step:
+                    slot.compiled = True
+                self._token_seam(slot, slot.tokens_out - 1)
+                if slot.outcome is not None:  # killed / cancelled / deadline
+                    break
+                if eos is not None and tok == eos:
+                    finished = True
+                    break
+            if self.journal is not None and emitted:
                 # one progress record a slot a step; a token a crash tore
                 # off is re-derived by the recovery's replay
-                self.journal.append("progress", rec.index, tokens=[tok])
-            if slot.outcome is not None:  # killed / cancelled / deadline
+                self.journal.append("progress", rec.index, tokens=emitted)
+            if slot.outcome is not None:
                 self._retire_slot(slot_id, slot.outcome)
-            elif slot.tokens_out >= rec.max_new_tokens or (eos is not None and tok == eos):
+            elif finished or slot.tokens_out >= rec.max_new_tokens:
                 self._retire_slot(slot_id, "ok")
         self._update_gauges()
 
@@ -1162,6 +1263,10 @@ class _EngineSlot:
     compiled: bool = False
     outcome: Optional[str] = None  # set mid-decode by the token seam
     evictions: int = 0  # times this request was evicted (and parked)
+    # the speculative slot mode: spans this slot rode and the drafts they
+    # accepted, before the budget's clip (drafter quality)
+    spec_spans: int = 0
+    spec_accepted: int = 0
     span = None
 
     def __post_init__(self):

@@ -2206,3 +2206,168 @@ def test_share_and_evict_under_the_captured_step_equal_the_cpu(cuda, mode):
     books, served, hits, sharing, audit = runs["cuda"]
     assert runs["cuda"] == runs["cpu"] and sharing == [] and audit == [] and books["balanced"]
     assert (hits >= 1) if mode == "share" else (books["evictions"] >= 1 and books["resumes"] == books["evictions"])
+
+
+# ---------------------------------------------------------------------------
+# speculative decode and beam search as CUDA graphs
+# ---------------------------------------------------------------------------
+
+_SPEC_ENGINE = dict(slots=4, page_size=16, max_ca_tokens=64, max_sa_tokens=16, spec_k=3, spec_depth=1)
+
+
+def _spec_engine(model, device, **engine):
+    from perceiver_io_tpu_torch import serving
+
+    return serving.EngineFrontEnd(model, num_latents=8, device=device,
+                                  engine_config=serving.EngineConfig(**{**_SPEC_ENGINE, **engine}))
+
+
+def _recorded(engine, rows):
+    """Wrap the engine's step to keep each step's tokens, m, every pool's
+    length and every pool's bytes (copies, before the host retires)."""
+    step = engine._step_fn
+
+    def recorded(state):
+        state, tokens, m = step(state)
+        pools = state["cache"] + state["draft_cache"]
+        rows.append((tokens.clone(), m.clone(), [p.length.clone() for p in pools],
+                     [(p.k.clone(), p.v.clone()) for p in pools]))
+        return state, tokens, m
+
+    engine._step_fn = recorded
+
+
+def test_spec_engine_graph_equals_the_eager_step_bit_for_bit(cuda):
+    """The speculative engine step captured at construction against the
+    same step run eagerly (``generation._eager_step`` on its body and draw
+    stage) over the same ragged requests: every step's tokens, m, every
+    length and every pool row (the flagship's and the drafter's) bit for
+    bit, and the streams equal."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec
+
+    _, card = _twin_models()
+    specs = WorkloadSpec(seed=13, prompt_lens=(24, 40), max_new_tokens=(4, 8)).draw(8, 64)
+    runs = {}
+    for kind in ("graph", "eager"):
+        fe = _spec_engine(card, "cuda")
+        captured = fe._step_fn.captured
+        assert isinstance(captured, generation._GraphedStep) and captured.captures == 1
+        if kind == "eager":
+            fe._step_fn = generation._eager_step(card, fe._gen_config, cuda, captured.body, captured.stage)
+        rows = []
+        _recorded(fe, rows)
+        fe.run_closed(specs, concurrency=8)
+        assert fe.books()["balanced"] and fe.audit() == []
+        runs[kind] = (rows, dict(fe.served_tokens))
+    (g_rows, g_served), (e_rows, e_served) = runs["graph"], runs["eager"]
+    assert g_served == e_served and len(g_rows) == len(e_rows) >= 4
+    for (gt, gm, gl, gp), (et, em, el, ep) in zip(g_rows, e_rows):
+        assert torch.equal(gt, et) and torch.equal(gm, em)
+        assert all(torch.equal(a, b) for a, b in zip(gl, el))
+        assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(gp, ep))
+
+
+def test_spec_engine_captures_once_over_joins_kills_and_an_eviction(cuda):
+    """Joins, a kill mid-span and evictions with resumes on the card, through
+    the speculative step captured at construction: one capture, one compile,
+    the books and every stream equal to the same run on the CPU."""
+    from perceiver_io_tpu_torch import serving
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec
+
+    cpu, card = _twin_models()
+    specs = WorkloadSpec(seed=13, prompt_lens=(24, 40), max_new_tokens=(4, 8)).draw(8, 64)
+    runs = {}
+    for device, model in (("cpu", cpu), ("cuda", card)):
+        fe = serving.EngineFrontEnd(model, num_latents=8, device=device,
+                                    injector=serving.FaultInjector().kill_at(2, 2),
+                                    engine_config=serving.EngineConfig(**{**_SPEC_ENGINE, "eviction": True,
+                                                                          "pool_headroom": 0.5}))
+        fe.run_closed(specs, concurrency=len(specs))
+        runs[device] = (fe.books(), dict(fe.served_tokens), fe.audit())
+        if device == "cuda":
+            assert fe._step_fn.captured.captures == 1 and fe._tracker.total_compiles == 1
+    books, _, audit = runs["cuda"]
+    assert runs["cuda"] == runs["cpu"] and audit == [] and books["balanced"] and books["error"] == 1
+    assert books["evictions"] >= 1 and books["resumes"] == books["evictions"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_spec_engine_k3_launches_per_step(cuda, dtype):
+    """Each speculative step launches K3 (k + 1)(1 + depth) times: every
+    drafter step over the drafter's CA pool and its depth SA pools, and
+    never on the verify (the gather route); K3's build is the pools'."""
+    from perceiver_io_tpu_torch import serving
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec
+    from perceiver_io_tpu_torch.ops import build
+
+    _, card = _twin_models(dtype)
+    fe = serving.EngineFrontEnd(card, num_latents=8, device="cuda", cache_dtype=dtype,
+                                engine_config=serving.EngineConfig(**_SPEC_ENGINE))
+    build.reset_launches()
+    fe.run_closed(WorkloadSpec(seed=5, prompt_lens=(24,), max_new_tokens=(8,)).draw(4, 64), concurrency=4)
+    k3 = "paged_decode" + ("_bf16" if dtype == torch.bfloat16 else "")
+    other = "paged_decode" if dtype == torch.bfloat16 else "paged_decode_bf16"
+    steps = fe._engine_steps
+    per_step = (_SPEC_ENGINE["spec_k"] + 1) * (1 + _SPEC_ENGINE["spec_depth"])
+    assert steps >= 2 and build.LAUNCHES[k3] == steps * per_step and build.LAUNCHES[other] == 0
+
+
+@pytest.mark.parametrize("sample", [False, True], ids=["greedy", "sampled"])
+def test_speculative_pair_graph_equals_eager(cuda, sample):
+    """``make_speculative_decode_fns``' step on the card is a captured CUDA
+    graph; its spans (tokens and m), lengths and generator positions equal
+    the eager body's from the same prefill, and a call with another state
+    raises."""
+    from perceiver_io_tpu_torch import generation
+
+    _, card = _twin_models()
+    config = generation.GenerationConfig(max_new_tokens=8, do_sample=sample, temperature=0.8, top_k=20)
+    ids = np.random.default_rng(4).integers(0, 64, size=(1, 40))
+    prefill, step = generation.make_speculative_decode_fns(card, 8, config, k=3, draft_depth=1, device=cuda)
+    assert isinstance(step.body, generation._GraphedStep)
+    eager = generation._eager_step(card, config, cuda, step.body.body, step.body.stage)
+    runs = {}
+    for kind in ("graph", "eager"):
+        generator = torch.Generator().manual_seed(7)
+        token, state = prefill(ids, None, generator)
+        spans = []
+        for _ in range(3):
+            if kind == "graph":
+                state, tokens, m = step(state)
+            else:
+                state, tokens, m = eager(state)
+                tokens, m = tokens.clone(), m.clone()
+                generation.advance_span_generators(generator, m.tolist(), config)
+            spans.append((tokens, m, [int(c.length) for c in state["cache"] + state["draft_cache"]],
+                          generator.get_state().clone()))
+        runs[kind] = spans
+    for (gt, gm, gl, gg), (et, em, el, eg) in zip(runs["graph"], runs["eager"]):
+        assert torch.equal(gt, et) and torch.equal(gm, em) and gl == el and torch.equal(gg, eg)
+    with pytest.raises(ValueError, match="another state"):
+        step(prefill(ids)[1])
+
+
+def test_beam_step_graph_equals_eager(cuda, monkeypatch):
+    """``beam_search`` on the card captures its step once a call; its
+    sequences and scores equal the same search with the step run eagerly
+    (``generation._eager_step`` in the graph's place), with left padding and
+    the SA windows sliding."""
+    from perceiver_io_tpu_torch import generation
+
+    _, card = _twin_models()
+    ids = np.random.default_rng(6).integers(0, 64, size=(2, 40))
+    pad = np.zeros((2, 40), bool)
+    pad[1, :5] = True
+    kw = dict(num_latents=8, num_beams=3, max_new_tokens=12, pad_mask=pad, device=cuda)
+    seqs, scores = generation.beam_search(card, ids, **kw)
+    graphed = []
+    real = generation._GraphedStep
+    monkeypatch.setattr(generation, "_GraphedStep", lambda *a, **k: graphed.append(real(*a, **k)) or graphed[-1])
+    generation.beam_search(card, ids, **kw)
+    assert len(graphed) == 1 and graphed[0].captures == 1
+    monkeypatch.setattr(generation, "_GraphedStep",
+                        lambda model, config, name, body, stage: generation._eager_step(model, config, cuda, body,
+                                                                                        stage))
+    eager_seqs, eager_scores = generation.beam_search(card, ids, **kw)
+    assert torch.equal(seqs, eager_seqs) and torch.equal(scores, eager_scores)

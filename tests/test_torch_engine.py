@@ -109,11 +109,10 @@ def test_engine_refuses_what_can_never_fit(model):
 
 
 def test_engine_config_has_no_unported_options():
-    """The speculative slot mode (ROADMAP A9) is not ported: ``spec_k`` is
-    no field. Prefix sharing and eviction are (on and off by default, as in
-    JAX)."""
-    with pytest.raises(TypeError):
-        EngineConfig(spec_k=1)
+    """Every option of JAX's ``EngineConfig`` is ported, with JAX's
+    defaults: the speculative slot mode off (``spec_k`` 0, ``spec_depth``
+    1), prefix sharing on, eviction off."""
+    assert EngineConfig().spec_k == 0 and EngineConfig().spec_depth == 1
     assert EngineConfig().prefix_sharing is True and EngineConfig().eviction is False
 
 
