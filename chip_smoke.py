@@ -250,6 +250,13 @@ SERVE_GEOMETRY = dict(slots=SERVE_SLOTS, page_size=16, max_ca_tokens=16384, max_
 NEAR_TIE = 1e-4
 # decode_pair: greedy tokens after the prompt, and the batch-1 prompt's length
 DECODE_NEW_TOKENS, DECODE_PROMPT = 128, 8192
+# paged_phase's K3 cases at heads wider than 128: (heads, head dim)
+WIDE_HEADS = ((2, 192), (2, 256), (1, 512))
+# wide_serve_check: a small f32 model with heads of 256, its engine geometry
+# and latents
+WIDE_SERVE = (dict(vocab_size=262, max_seq_len=2048, max_latents=128, num_channels=512, num_heads=2,
+                   num_self_attention_layers=2, cross_attention_dropout=0.5),
+              dict(slots=4, page_size=16, max_ca_tokens=2048, max_sa_tokens=128), 64)
 # serve_bf16's near tie: bf16 logits (|logit| < 2 at these random weights)
 # have steps of 2^-8 to 2^-7, and the engine's K3 (f32 softmax weights) and
 # the sequential decode's dense attention (weights rounded to bf16, as the
@@ -452,8 +459,8 @@ GRAPH_KERNELS = {
 GRAPH_NODES = {}
 # metric -> {"graph": x, "eager": y}, both measured in this run
 TIMES = {}
-# (compute dtype, cache dtype, budget, prompt shape, prompt bytes) -> the
-# sequential stream and its logits (check_streams)
+# (compute dtype, channels, cache dtype, weight dtype, budget, prompt shape,
+# prompt bytes) -> the sequential stream and its logits (check_streams)
 SEQUENTIAL = {}
 # |graph - eager| / |eager| allowed for a train step's losses and parameters
 # (the same kernels on the same inputs; cuBLAS may choose other algorithms
@@ -728,7 +735,11 @@ def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dic
     over bf16 pools (serve_bf16's), held to its bf16 plain version within
     1e-2 of its largest magnitude and to no more distance from the f64
     evaluation than the plain version's (L2, plus 1e-6 of the output's size
-    for the f32 sums' rounding); no profiled call."""
+    for the f32 sums' rounding); no profiled call. In both dtypes, the CA
+    pool's lengths and mask at heads wider than 128 (2 x 192, 2 x 256 and
+    1 x 512 channels: 8 or 16 channels a lane), at the same tolerances; and
+    in f32 one engine serve of a small model with heads of 256
+    (:func:`wide_serve_check`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -741,8 +752,6 @@ def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dic
 
     from perceiver_io_tpu_torch.core.cache import PagedKVCache
 
-    h, c = FLAGSHIP["num_heads"], FLAGSHIP["num_channels"]
-    d = c // h
     slots, page, tol = 4, 16, 1e-5
     bf16 = dtype == torch.bfloat16
     suffix, el = (BF16, 2) if bf16 else ("", 4)
@@ -751,12 +760,18 @@ def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dic
     # left pads in slot 2 and expired window slots in slot 3, the SA's
     # expired latents (generation.py's sa_idx < sa_start) in every slot;
     # every slot keeps a real key
+    # (heads, head dim): the flagship's, then the wide heads
+    flagship = (FLAGSHIP["num_heads"], FLAGSHIP["num_channels"] // FLAGSHIP["num_heads"])
+    ca = (FLAGSHIP["max_seq_len"], [1, 2085, 9000, 16320], {2: 300, 3: 40})
     pools = {
-        "ca": (FLAGSHIP["max_seq_len"], [1, 2085, 9000, 16320], {2: 300, 3: 40}),
-        "ca_retired": (FLAGSHIP["max_seq_len"], [0, 2085, 9000, 16320], {2: 300, 3: 40}),
-        "sa": (FLAGSHIP["max_latents"], [513, 600, 777, 1024], {0: 1, 1: 88, 2: 265, 3: 512}),
+        "ca": ca + flagship,
+        "ca_retired": (FLAGSHIP["max_seq_len"], [0, 2085, 9000, 16320], {2: 300, 3: 40}) + flagship,
+        "sa": (FLAGSHIP["max_latents"], [513, 600, 777, 1024], {0: 1, 1: 88, 2: 265, 3: 512}) + flagship,
+        **{f"wide_{h}x{d}": ca + (h, d) for h, d in WIDE_HEADS},
     }
-    for pool, (tokens, lengths, masked) in pools.items():
+    for pool, (tokens, lengths, masked, h, d) in pools.items():
+        c = h * d
+        wide = pool.startswith("wide")
         pps = tokens // page
         num_pages = slots * pps + 1
         cache = init_paged_kv_cache(slots, num_pages, page, pps, c, c, dtype=dtype, device="cuda")
@@ -778,7 +793,7 @@ def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dic
         pages_read = sum(-(-n // page) for n in lengths)
         names = {"ca": ("pad_window_mask", "validity_only"),
                  "ca_retired": ("ca_retired_pad_window_mask", "ca_retired_validity_only"),
-                 "sa": ("sa_window_mask", "sa_validity_only")}[pool]
+                 "sa": ("sa_window_mask", "sa_validity_only")}.get(pool, (f"{pool}_pad_window_mask",))
         for name, m in zip(names, (mask, None)):
             name += suffix
             o = paged_decode_attention(qh, cache, m)
@@ -802,16 +817,20 @@ def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dic
             n_bytes = el * (2 * tokens_read * c + 2 * slots * c) + 4 * (pages_read + slots) + (
                 tokens_read if m is not None else 0) + len(retired) * (el * page * c + 4 * pps)
             bound_ms, bound_by = bound(n_bytes, 4 * d * h * tokens_read, "f32_cuda_cores")
-            row = dict(case=f"{name} slots={slots} page={page} lengths={lengths} {str(dtype)[6:]}",
-                       path="serve" + suffix, max_abs_err=err, tol=tol if not bf16 else "check_bf16 (1.0x)",
+            row = dict(case=f"{name} slots={slots} page={page} lengths={lengths} heads={h}x{d} {str(dtype)[6:]}",
+                       path=("wide_heads" if wide else "serve") + suffix, max_abs_err=err,
+                       tol=tol if not bf16 else "check_bf16 (1.0x)",
                        bf16_rule=rule, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                        bound_by=bound_by, dispatch_ms=DISPATCH_MS[f"paged_decode {name}"], grid=plan.grid,
                        stages=plan.stages, dtype=str(dtype)[6:])
             log(f"time paged_decode {name}: {json.dumps(row)}")
             rows.append(row)
-        calls.append((qh, cache, mask))
+        if not calls:
+            calls.append((qh, cache, mask))
+        del cache
     if bf16:
         return {"cases": rows}
+    wide_serve_check()
     # one profiled call at the CA: K3's walk and merge, and no other device op
     qh, cache, mask = calls[0]
     paged_decode_attention(qh, cache, mask)
@@ -824,6 +843,36 @@ def paged_phase(gen: torch.Generator, dtype: torch.dtype = torch.float32) -> dic
     if not device or sum(n for _, n in device) > 2 or any("paged_" not in key for key, _ in device):
         raise SystemExit(f"paged_decode: one call launched {device}, not K3's walk and merge alone")
     return {"cases": rows}
+
+
+def wide_serve_check() -> None:
+    """One engine serve of a small f32 model with heads of 256 (512
+    channels in 2 heads; ``WIDE_SERVE``): K3 serves its pools (launched
+    once a pool a decode step), and every stream equals the sequential
+    ``make_decode_fns`` stream up to its first near tie."""
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd, RequestSpec
+
+    config, geometry, latents = WIDE_SERVE
+    model = CausalLanguageModel(CausalLanguageModelConfig(**config), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 20)
+    specs = []
+    for i in range(4):
+        n = int(rng.integers(300, 1900))
+        specs.append(RequestSpec(index=i, prompt_len=n, max_new_tokens=int(rng.integers(16, 33)),
+                                 input_ids=rng.integers(0, config["vocab_size"], size=(1, n)), rng_seed=i))
+    engine = EngineFrontEnd(model, num_latents=latents, engine_config=EngineConfig(**geometry), device="cuda")
+    run = serve_run(engine, specs)
+    launches, steps, n_sa = run["launches"], run["steps"], config["num_self_attention_layers"]
+    log(f"wide_serve heads=2x256 launches: {json.dumps(launches)} decode steps={steps}")
+    if launches["paged_decode"] != (1 + n_sa) * steps or not engine.books()["balanced"] or \
+            engine.books()["ok"] != len(specs):
+        raise SystemExit(f"wide_serve: K3 launched {launches['paged_decode']} times in {steps} steps "
+                         f"(not {1 + n_sa} a step) or books {engine.books()}")
+    check_streams("wide_serve", model, specs, dict(engine.served_tokens), NEAR_TIE, num_latents=latents)
+    del engine, model
+    free_card()
 
 
 def _ln_inputs(gen: torch.Generator, rows: int, c: int):
@@ -1501,7 +1550,8 @@ def heads_phase(gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, engine: dict = None, **kw):
+def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, engine: dict = None, weight_dtype=None,
+                 **kw):
     """The serve's engine. Its decode step is the captured CUDA graph
     (``make_paged_step_fn`` on the card, captured at construction), or,
     with ``graphed=False``, the eager reference: the host's draws, then the
@@ -1520,7 +1570,7 @@ def serve_engine(model, graphed: bool, cache_dtype: torch.dtype = None, engine: 
     engine = EngineFrontEnd(
         model, num_latents=NUM_LATENTS, base_config=config,
         engine_config=EngineConfig(**{**SERVE_GEOMETRY, **(engine or {})}),
-        cache_dtype=cache_dtype, device="cuda", **kw,
+        cache_dtype=cache_dtype, weight_dtype=weight_dtype, device="cuda", **kw,
     )
     torch.cuda.synchronize()
     warm_up = {k: n for k, n in build.LAUNCHES.items() if n}
@@ -1600,9 +1650,11 @@ def serve_specs() -> list:
     return specs
 
 
-def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_dtype=torch.float32) -> list:
+def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_dtype=torch.float32,
+                  weight_dtype=None, num_latents: int = NUM_LATENTS) -> list:
     """Each served stream against the sequential ``make_decode_fns`` stream
-    (contiguous caches of ``cache_dtype``; its step the captured graph),
+    (contiguous caches of ``cache_dtype``, decode weights ``weight_dtype``,
+    ``num_latents`` latents; its step the captured graph),
     token by token with the sequential logits (``state["logits"]`` after the
     prefill and each step): equal up to the first step whose top-2 gap is
     under ``near_tie`` (the paged and contiguous decodes sum in different
@@ -1615,10 +1667,11 @@ def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_
     agreed = []
     for spec in specs:
         ids = np.asarray(spec.input_ids)
-        key = (model.dtype, cache_dtype, spec.max_new_tokens, ids.shape, ids.tobytes())
+        key = (model.dtype, model.config.num_channels, cache_dtype, weight_dtype, spec.max_new_tokens, ids.shape,
+               ids.tobytes())
         if key not in SEQUENTIAL:
-            prefill, step = make_decode_fns(model, NUM_LATENTS, GenerationConfig(max_new_tokens=spec.max_new_tokens),
-                                            cache_dtype, device="cuda")
+            prefill, step = make_decode_fns(model, num_latents, GenerationConfig(max_new_tokens=spec.max_new_tokens),
+                                            cache_dtype, weight_dtype, device="cuda")
             if not isinstance(step.body, _GraphedStep):
                 raise SystemExit(f"{name}: the sequential decode step on the card is not the captured graph")
             token, state = prefill(spec.input_ids)
@@ -1632,7 +1685,7 @@ def check_streams(name: str, model, specs, served: dict, near_tie: float, cache_
             del prefill, step, state
         want, logits = SEQUENTIAL[key]
         got = served[spec.index]
-        if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, FLAGSHIP["vocab_size"]):
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (spec.max_new_tokens, model.config.vocab_size):
             raise SystemExit(f"{name} request {spec.index}: sequential logits not finite or of the wrong shape")
         top2 = torch.topk(logits, 2, dim=-1).values
         gaps = (top2[:, 0] - top2[:, 1]).tolist()
@@ -1725,12 +1778,184 @@ def serve_bf16_phase(card: str) -> dict:
         f"prefill_s={run['prefill_s']:.3f}, decode_tok_s={run['decode_tok_s']:.1f}, "
         f"mean_batch_fill={engine.mean_batch_fill:.3f}, decode_steps={run['steps']}, step=graph, card={card}")
     TIMES["serve_bf16"] = {"decode_tok_s": run["decode_tok_s"], "ttft_ms": [1e3 * r.ttft_s for r in run["records"]],
-                           "k3_graph_nodes": GRAPH_NODES["serve_bf16"]["nodes"]["paged_walk_kernel"]}
+                           "k3_graph_nodes": GRAPH_NODES["serve_bf16"]["nodes"]["paged_walk_kernel"],
+                           "pools_bytes": pool_bytes(engine._state["cache"])}
     served = dict(engine.served_tokens)
     del engine
     TIMES["serve_bf16"]["tokens_equal_to_sequential"] = check_streams("serve_bf16", model, specs, served,
                                                                       NEAR_TIE_BF16, bf16)
     return run["launches"]
+
+
+def pool_bytes(caches) -> int:
+    """The bytes of a tuple of caches' buffers (rows and, int8, scales)."""
+    return sum(buf.numel() * buf.element_size() for c in caches for buf in c.buffers())
+
+
+def serve_int8_bf16_phase(card: str, bf16_run: dict) -> dict:
+    """serve_bf16's model, ``EngineConfig`` and six requests on int8 page
+    pools (a), and on int8 pools with int8 weights (b): K3 never launches
+    (int8 pools take the gather route, as in JAX), the step captures once, K2
+    and K1 run in bf16, the books close, and every stream equals the int8
+    sequential pair's (``make_decode_fns`` with the same stores) up to its
+    first top-2 gap under ``NEAR_TIE_BF16``. Reports decode tok/s, TTFT and
+    the pools' bytes beside serve_bf16's (``bf16_run``), and the pools'
+    ratio against its arithmetic, ``(C + 2) / (2 C)`` (a row of C int8
+    channels and one bf16 scale, against C bf16 channels). Returns (a)'s
+    launches."""
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    bf16, int8 = torch.bfloat16, torch.int8
+    model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda",
+                                generator=torch.Generator().manual_seed(SEED), dtype=bf16)
+    specs = serve_specs()
+    c = FLAGSHIP["num_channels"]
+    report = {"card": card, "bf16": {k: bf16_run[k] for k in ("decode_tok_s", "ttft_ms", "pools_bytes")},
+              "ratio_arithmetic": (c + 2) / (2 * c)}
+    main_launches = None
+    for part, weight_dtype in (("a int8 cache", None), ("b int8 cache + weights", int8)):
+        engine, warm_up = serve_engine(model, graphed=True, cache_dtype=int8, weight_dtype=weight_dtype)
+        pools = engine._state["cache"]
+        if not all(pool.quantized and pool.k.dtype == int8 for pool in pools):
+            raise SystemExit(f"serve_int8_bf16 {part}: the engine's pools are not int8")
+        graph_name = "serve_int8_bf16" + ("_w8" if weight_dtype else "")
+        check_graph(graph_name, engine._step_fn.captured.graph, warm_up,
+                    {"paged_decode" + BF16: 0, "paged_decode": 0, "flash_packed_fwd" + BF16: 0})
+        run = serve_run(engine, specs)
+        launches, books = run["launches"], engine.books()
+        captures = engine._step_fn.captured.captures
+        log(f"serve_int8_bf16 {part} launches: {json.dumps(launches)} captures={captures}")
+        if launches["paged_decode"] or launches["paged_decode" + BF16] or any(launches[k] for k in SERVE_KERNELS):
+            raise SystemExit(f"serve_int8_bf16 {part}: K3 (or an f32 build) launched over int8 pools: {launches}")
+        if not launches["flash_packed_fwd" + BF16] or not launches["layer_norm_fwd" + BF16]:
+            raise SystemExit(f"serve_int8_bf16 {part}: K2 or K1 (bf16) never launched: {launches}")
+        if captures != 1 or not books["balanced"] or books["ok"] != N_REQUESTS:
+            raise SystemExit(f"serve_int8_bf16 {part}: captures {captures}, books {books}")
+        if engine.ca_alloc.pages_used or engine.sa_alloc.pages_used:
+            raise SystemExit(f"serve_int8_bf16 {part}: pages not returned")
+        n_bytes = pool_bytes(pools)
+        served = dict(engine.served_tokens)
+        report[part] = {"decode_tok_s": run["decode_tok_s"], "ttft_ms": [1e3 * r.ttft_s for r in run["records"]],
+                        "steps": run["steps"], "captures": captures, "k3_launches": 0, "pools_bytes": n_bytes,
+                        "pools_vs_bf16": n_bytes / bf16_run["pools_bytes"],
+                        "vs_bf16_decode_tok_s": run["decode_tok_s"] / bf16_run["decode_tok_s"]}
+        if main_launches is None:
+            main_launches = launches
+        del engine, pools
+        report[part]["tokens_equal_to_sequential"] = check_streams(
+            f"serve_int8_bf16 {part}", model, specs, served, NEAR_TIE_BF16, int8, weight_dtype)
+        free_card()
+    ratio = report["a int8 cache"]["pools_vs_bf16"]
+    log("serve_int8_bf16: " + json.dumps(report))
+    if abs(ratio - report["ratio_arithmetic"]) > 1e-12:
+        raise SystemExit(f"serve_int8_bf16: pools take {ratio} of bf16's bytes, not {report['ratio_arithmetic']}")
+    TIMES["serve_int8_bf16"] = report
+    del model
+    return main_launches
+
+
+# decode_int8_bf16: bench.py's three int8 decode geometries (batch, cache
+# dtype, weight dtype), each beside the bf16 pair at its batch
+DECODE_INT8 = {"b1_int8w": (1, torch.bfloat16, torch.int8), "b8_int8": (8, torch.int8, None),
+               "b8_int8_full": (8, torch.int8, torch.int8)}
+# decode_int8_bf16's bound on the int8 pair's logits, teacher-forced on the
+# bf16 pair's tokens: max |int8 - bf16| over every step's logits, relative to
+# the bf16 logits' largest magnitude. Stated before the first card run from
+# tests/test_torch_int8.py::test_int8_decode_logits_stay_near_the_bf16_pair:
+# the CPU's worst relative error there (1.3e-2, int8 weights) times 4
+DECODE_INT8_REL_BOUND = 0.05
+
+
+def decode_int8_bf16_phase(card: str) -> dict:
+    """``generate`` at bench.py's int8 decode geometries (``DECODE_INT8``: a
+    16384-token prompt, the full window, with all 1024 latents, and 128
+    greedy new tokens on the bf16 flagship), each beside the bf16 pair (bf16 caches, float weights)
+    at the same batch: decode tok/s of both over the 126 steps after the
+    first (the captured step's replays), the weights' and the caches' bytes,
+    the int8 pair's captured step against its eager body (teacher-forced on
+    the bf16 pair's tokens: every step's logits bit for bit), and the int8
+    logits against the bf16 pair's on the same tokens within
+    ``DECODE_INT8_REL_BOUND``. Returns the last geometry's launches."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.quant import quantized_linears
+
+    bf16 = torch.bfloat16
+    new = DECODE_NEW_TOKENS
+    config = generation.GenerationConfig(max_new_tokens=new)
+    model = CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda", dtype=bf16,
+                                generator=torch.Generator().manual_seed(SEED))
+    linears = quantized_linears(model)
+    weights = {"bf16": sum(2 * m.weight.numel() for m in linears.values()),
+               "int8": sum(m.weight.numel() + 4 * m.weight.shape[0] for m in linears.values())}
+    report = {"card": card, "prompt_len": FLAGSHIP["max_seq_len"], "new_tokens": new, "weights_bytes": weights,
+              "rel_bound": DECODE_INT8_REL_BOUND}
+    launches = None
+
+    def pair_run(ids, cache_dtype, weight_dtype, forced=None, eager=False):
+        """The pair over ``ids``: tokens, every step's logits and the steady
+        tok/s; ``forced`` feeds the given tokens (B, new) in place of the
+        sampled ones."""
+        prefill, step = generation.make_decode_fns(model, FLAGSHIP["max_latents"], config, cache_dtype, weight_dtype,
+                                                   device="cuda")
+        if eager:
+            body = generation._eager_step(model, config, model.device, step.body.body)
+            step = lambda st: (lambda out: (out[0], out[1].clone()))(body(st))  # noqa: E731
+        token, state = prefill(ids)
+        tokens, logits = [token], [state["logits"].clone()]
+        cache_bytes = pool_bytes(state["cache"])
+        torch.cuda.synchronize()
+        t0 = None
+        for i in range(new - 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if forced is not None:
+                state["token"].copy_(forced[:, i])
+            state, token = step(state)
+            tokens.append(token)
+            logits.append(state["logits"].clone())
+        torch.cuda.synchronize()
+        tok_s = ids.shape[0] * (new - 2) / (time.perf_counter() - t0)
+        graphed = isinstance(getattr(step, "body", None), generation._GraphedStep)
+        del prefill, step, state
+        return torch.stack(tokens, dim=1), torch.stack(logits, dim=1).float(), tok_s, cache_bytes, graphed
+
+    for name, (batch, cache_dtype, weight_dtype) in DECODE_INT8.items():
+        ids = np.random.default_rng(SEED + 6).integers(0, FLAGSHIP["vocab_size"], size=(batch, FLAGSHIP["max_seq_len"]))
+        ref_tokens, ref_logits, ref_tok_s, ref_bytes, _ = pair_run(ids, bf16, None)
+        build.reset_launches()
+        out = generation.generate(model, ids, FLAGSHIP["max_latents"], config=config, cache_dtype=cache_dtype,
+                                  weight_dtype=weight_dtype, device="cuda")
+        launches = nonzero_launches()
+        stream = out[:, FLAGSHIP["max_seq_len"]:]
+        g_tokens, g_logits, tok_s, cache_bytes, graphed = pair_run(ids, cache_dtype, weight_dtype, ref_tokens)
+        e_tokens, e_logits, _, _, _ = pair_run(ids, cache_dtype, weight_dtype, ref_tokens, eager=True)
+        bit_for_bit = torch.equal(g_logits, e_logits) and torch.equal(g_tokens, e_tokens)
+        rel = rel_diff(g_logits, ref_logits)
+        row = {"batch": batch, "cache_dtype": str(cache_dtype)[6:], "weight_dtype": str(weight_dtype)[6:]
+               if weight_dtype else "bf16 (float)", "tok_s": tok_s, "bf16_tok_s": ref_tok_s,
+               "vs_bf16_tok_s": tok_s / ref_tok_s, "cache_bytes": cache_bytes, "bf16_cache_bytes": ref_bytes,
+               "graph_equals_eager_bit_for_bit": bit_for_bit, "graphed": graphed,
+               "logits_rel_err_vs_bf16": rel,
+               "last_token_rel_err_vs_bf16": rel_diff(g_logits[:, -1], ref_logits[:, -1]),
+               "generate_tokens_equal_bf16_stream": int((stream.cpu() == ref_tokens.cpu()).all(dim=0).cumprod(0).sum()),
+               "launches": launches}
+        log(f"decode_int8_bf16 {name}: " + json.dumps(row))
+        report[name] = row
+        in_vocab = bool(((stream >= 0) & (stream < FLAGSHIP["vocab_size"])).all())
+        finite = bool(torch.isfinite(g_logits).all()) and in_vocab
+        if not (bit_for_bit and graphed and finite) or not within(rel, DECODE_INT8_REL_BOUND):
+            raise SystemExit(f"decode_int8_bf16 {name}: graph against eager {bit_for_bit} (graphed {graphed}), "
+                             f"finite {finite}, logits {rel} of bf16's (bound {DECODE_INT8_REL_BOUND})")
+        if launches.get("paged_decode", 0) or launches.get("paged_decode" + BF16, 0):
+            raise SystemExit(f"decode_int8_bf16 {name}: K3 launched on the contiguous pair: {launches}")
+        del ref_logits, g_logits, e_logits
+        free_card()
+    TIMES["decode_int8_bf16"] = report
+    del model
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4269,6 +4494,9 @@ def main() -> None:
     # the bf16 CLM: serve, train step (graph and eager), gradient check
     by_phase["serve_bf16"] = serve_bf16_phase(card)
     free_card()
+    # int8 page pools and int8 weights (ROADMAP A10) beside serve_bf16
+    by_phase["serve_int8_bf16"] = serve_int8_bf16_phase(card, TIMES["serve_bf16"])
+    free_card()
     # the admission tier (ROADMAP A6) around serve_bf16's captured step
     by_phase["serve_admission_bf16"] = serve_admission_bf16_phase(card)
     free_card()
@@ -4325,6 +4553,9 @@ def main() -> None:
     free_card()
     # the contiguous decode pair (make_decode_fns, generate) as a CUDA graph
     by_phase["decode_pair"] = decode_pair_phase(card)
+    free_card()
+    # generate on int8 caches and int8 weights at bench.py's geometries
+    by_phase["decode_int8_bf16"] = decode_int8_bf16_phase(card)
     free_card()
     image_f32 = image_eval_phase(card)
     by_phase["image_eval"] = image_f32["launches"]

@@ -36,9 +36,9 @@ Routes, each numerically the JAX package's:
   the right-aligned causal mask;
 - paged cache (the engine's batched one-token step): page-indexed append,
   then, by the pools' geometry, the paged decode kernel K3
-  (``ops.paged_attention``: f32 or bf16 pools, head dims up to 128) or,
-  where the JAX package gathers too (or on the CPU), the gather route (the
-  contiguous view of every slot's pages, then the dense path);
+  (``ops.paged_attention``: f32 or bf16 pools, head dims up to 512) or,
+  where the JAX package gathers too (int8 pools, or on the CPU), the gather
+  route (the contiguous view of every slot's pages, then the dense path);
 - paged cache with more than one query (the speculative verify span of
   ``generation.make_speculative_paged_step_fn``): ``append_span``, then the
   gather route with a right-aligned causal mask per slot, for every
@@ -46,6 +46,16 @@ Routes, each numerically the JAX package's:
 
 Keys are rotated once at write (rotate-at-write); ``rope_k`` covers only the
 tokens being appended. Queries are scaled by ``Dqk**-0.5`` before rotation.
+
+int8 caches (``core.cache``: int8 rows, one bf16 scale a token) are read in
+JAX's order on each route: the one-query decode routes (the contiguous one
+under JAX's block-diagonal gate, and the paged gather route) fold the scales
+outside the two products; the span, the generic cached path and a prefill
+whose kernels refuse the head dims dequantize in full first. A prefill runs
+its kernel over the fresh, unquantized keys, and the cache stores them
+quantized, where JAX's prefill takes its kernel (128 or more tokens, head dims
+its packed kernel takes); shorter prompts read the cache they just wrote,
+dequantized, as JAX's einsum does there.
 
 ``dtype`` is the compute dtype, Flax's ``nn.Dense(dtype=...)``: the
 parameters stay f32 and each projection casts its input and weights to
@@ -72,6 +82,7 @@ from perceiver_io_tpu_torch.ops.flash_attention import (
     packed_supported,
 )
 from perceiver_io_tpu_torch.ops.paged_attention import (
+    PAGED_MAX_HEAD_DIM,
     paged_decode_attention,
     paged_kernel_supported,
     reference_kernel_geometry,
@@ -85,10 +96,11 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     dtype)`` applies its f32 parameters: input, weight and bias cast to
     ``dtype``, the product (f32 sums on the tensor cores) in ``dtype``. Where
     all three are ``dtype`` already (the f32 default), ``linear(x)`` as it
-    is. Inside an offloaded layer body (``core.remat``) the product goes
-    through the offload, which keeps its output on the host for the
-    recompute."""
-    if x.dtype == dtype and linear.weight.dtype == dtype:
+    is (a decode step on int8 weights puts weights of the compute dtype in
+    place of the f32 ones, its biases stay f32). Inside an offloaded layer
+    body (``core.remat``) the product goes through the offload, which keeps
+    its output on the host for the recompute."""
+    if x.dtype == dtype and linear.weight.dtype == dtype and (linear.bias is None or linear.bias.dtype == dtype):
         x_dt, w_dt, bias = x, linear.weight, linear.bias
     else:
         x_dt, w_dt = x.to(dtype), linear.weight.to(dtype)
@@ -239,20 +251,57 @@ class MultiHeadAttention(nn.Module):
                             sm_scale=1.0)
         return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], self.v_channels)
 
-    def _dense(self, q, k, v, rope_q, masked, attn_keep=None):
+    def _dense(self, q, k, v, rope_q, masked, attn_keep=None, scales=None, fold=False):
         """Plain attention over packed k/v (B, M, H*D); ``masked`` (B|1, N|1,
         M) bool, True = masked. Scores and softmax in f32; ``attn_keep`` (B,
-        H, N, M), where given, is the dropout of the f32 probabilities."""
+        H, N, M), where given, is the dropout of the f32 probabilities.
+
+        ``scales`` (k_scale, v_scale), each (B, M), mark int8 k/v and are
+        applied in one of JAX's two orders. ``fold`` (its single-query decode
+        routes): the int8 values enter both products as they are, the scores
+        are ``(q . k) * k_scale`` in f32, and the probabilities times
+        ``v_scale`` are rounded to the compute dtype before the value
+        product. Otherwise (its generic and span routes) k and v are
+        dequantized in full first, ``k.to(dt) * k_scale.to(dt)`` in the
+        compute dtype ``dt``."""
         b, n, m = q.shape[0], q.shape[1], k.shape[1]
         h = self.num_heads
         qh = self._scaled_query_heads(q, rope_q)
+        fold = fold and scales is not None
+        if scales is not None and not fold:
+            k = k.to(q.dtype) * scales[0][..., None].to(q.dtype)
+            v = v.to(q.dtype) * scales[1][..., None].to(q.dtype)
         kh = k.reshape(b, m, h, self.d_qk)
         vh = v.reshape(b, m, h, self.d_v)
         scores = torch.einsum("bhic,bjhc->bhij", qh.float(), kh.float())
+        if fold:
+            scores = scores * scales[0][:, None, None, :].float()
         scores = scores.masked_fill(masked[:, None, :, :], _NEG_MAX)
         attn = apply_dropout(torch.softmax(scores, dim=-1), attn_keep, self.dropout)
-        o = torch.einsum("bhij,bjhc->bihc", attn.to(vh.dtype), vh)
+        if fold:
+            aw, vh = (attn * scales[1][:, None, None, :].float()).to(q.dtype), vh.to(q.dtype)
+        else:
+            aw = attn.to(vh.dtype)
+        o = torch.einsum("bhij,bjhc->bihc", aw, vh)
         return o.reshape(b, n, self.v_channels)
+
+    def _prefill_reads_fresh_keys(self, n_q: int, n_kv: int) -> bool:
+        """Whether an int8 cache's prefill attends over the fresh keys: where
+        JAX's prefill takes its kernel on its chip (``packed_route_ok``:
+        head dims multiples of 8 up to 512, ``H * D`` up to 1024, 128 or more
+        queries and keys). Elsewhere JAX's einsum reads the cache it just
+        wrote, dequantized, and so does the port: over int8 rows the two
+        are different functions, where over float rows they are one."""
+        h, d_qk, d_v = self.num_heads, self.d_qk, self.d_v
+        return (all(d % 8 == 0 and d <= 512 and h * d <= 1024 for d in (d_qk, d_v))
+                and n_q >= 128 and n_kv >= 128)
+
+    def _folds_decode_scales(self, n_q: int) -> bool:
+        """JAX's gate of its block-diagonal contiguous decode, the route that
+        folds an int8 cache's scales outside the products: one query, more
+        than one head, and ``H * C`` within 8192 for both widths."""
+        h = self.num_heads
+        return n_q == 1 and h > 1 and h * self.qk_channels <= 8192 and h * self.v_channels <= 8192
 
     def _paged_decode_attend(self, q, cache: PagedKVCache, pad_mask, rope_q) -> AttentionOutput:
         """One query per slot over the paged pools. The route is chosen by
@@ -261,20 +310,24 @@ class MultiHeadAttention(nn.Module):
         128), else the gather route (one gather per pool rebuilds the
         contiguous view, then the dense decode attention of the contiguous
         cache) where the JAX package's own kernel refuses the geometry and it
-        gathers too, or where the pools lie on the CPU. A pool on the card
-        that the JAX package's kernel serves and K3 does not (heads wider
-        than 128) raises. bf16 queries over f32 pools go to K3 as f32, which
-        they are exactly (JAX's product promotes them the same way)."""
+        gathers too (int8 pools among them), or where the pools lie on the
+        CPU. A float pool on the card that the JAX package's kernel serves and
+        K3 does not (heads wider than 512) raises. An int8 pool's scales fold
+        outside the products, as in JAX's gather route. bf16 queries over f32
+        pools go to K3 as f32, which they are exactly (JAX's product promotes
+        them the same way)."""
         b, h = q.shape[0], self.num_heads
         if not paged_kernel_supported(cache, h, self.d_qk, self.d_v):
             if cache.k.device.type != "cpu" and reference_kernel_geometry(cache, h, self.d_qk, self.d_v):
                 raise ValueError(f"paged pool of dtype {cache.k.dtype}, head dims {self.d_qk}/{self.d_v}: "
-                                 "the reference's paged kernel serves it, K3 does not")
-            k_slots, v_slots = cache.gather_view()
+                                 f"the reference's paged kernel serves it, K3 does not (head dims up to "
+                                 f"{PAGED_MAX_HEAD_DIM})")
+            k_slots, v_slots, k_scale, v_scale = cache.gather_view()
             masked = torch.arange(cache.capacity, device=q.device)[None, :] >= cache.length[:, None]
             if pad_mask is not None:
                 masked = masked | pad_mask[:, : cache.capacity]
-            o = self._dense(q, k_slots, v_slots, rope_q, masked[:, None, :])
+            o = self._dense(q, k_slots, v_slots, rope_q, masked[:, None, :],
+                            scales=None if k_scale is None else (k_scale, v_scale), fold=True)
             return AttentionOutput(self._proj(self.o_proj, o), cache)
         qh = self._scaled_query_heads(q, rope_q)[:, :, 0, :]  # (B, H, Dk)
         if qh.dtype == torch.bfloat16 and cache.k.dtype == torch.float32:
@@ -289,16 +342,17 @@ class MultiHeadAttention(nn.Module):
         appended (the speculative verify): the contiguous view of every
         slot's pages, then the dense path with per-slot validity and a
         right-aligned causal mask (query ``i`` of slot ``s`` sits at
-        ``length[s] - n_q + i``), the caller's pad mask, f32 scores. This is
-        the route for every geometry, as in the JAX package."""
+        ``length[s] - n_q + i``), the caller's pad mask, f32 scores; an int8
+        pool dequantized in full first. This is the route for every geometry,
+        as in the JAX package."""
         n_q = q.shape[1]
-        k_slots, v_slots = cache.gather_view()
+        k_slots, v_slots, k_scale, v_scale = cache.gather_view()
         kv_idx = torch.arange(cache.capacity, device=q.device)
         q_abs = cache.length.long()[:, None] - n_q + torch.arange(n_q, device=q.device)[None, :]
         masked = kv_idx[None, None, :] > q_abs[:, :, None]  # (S, n_q, capacity)
         if pad_mask is not None:
             masked = masked | pad_mask[:, None, : cache.capacity]
-        o = self._dense(q, k_slots, v_slots, rope_q, masked)
+        o = self._dense(q, k_slots, v_slots, rope_q, masked, scales=None if k_scale is None else (k_scale, v_scale))
         return AttentionOutput(self._proj(self.o_proj, o), cache)
 
     def forward(
@@ -352,17 +406,17 @@ class MultiHeadAttention(nn.Module):
         span = n_q > 1 and not torch.is_tensor(kv_cache.length)
         new_cache = kv_cache.append(k, v)
         eff_len, cap = new_cache.length, new_cache.capacity
-        if span and kv_cache.length == 0:
+        if span and kv_cache.length == 0 and (not new_cache.quantized or self._prefill_reads_fresh_keys(n_q, n_kv)):
             # prefill: attention over [0, length) IS attention over the fresh
             # keys/values, which occupy slots [0, n_kv)
             fresh_pad = None if pad_mask is None else pad_mask[:, :n_kv]
             o = self._fresh_flash(q, k, v, rope_q, fresh_pad)
             if o is not None:
                 return AttentionOutput(self._proj(self.o_proj, o), new_cache)
-        elif span and self.packed_route_ok():
+        elif span and self.packed_route_ok() and not new_cache.quantized:
             # a span over a filled cache: K2 over the filled slots, in the
             # fresh keys' dtype (rows a bf16 layer wrote into an f32 cache
-            # come back exactly)
+            # come back exactly); an int8 cache takes the dense path below
             span_pad = None if pad_mask is None else pad_mask[:, :eff_len]
             o = self._packed_flash(q, new_cache.k[:, :eff_len].to(k.dtype), new_cache.v[:, :eff_len].to(v.dtype),
                                    rope_q, span_pad)
@@ -374,7 +428,9 @@ class MultiHeadAttention(nn.Module):
             masked = masked | pad_mask[:, None, :cap]
         if self.causal_attention:
             masked = masked | self._causal(n_q, cap, eff_len, q.device)
-        o = self._dense(q, new_cache.k, new_cache.v, rope_q, masked)
+        scales = (new_cache.k_scale, new_cache.v_scale) if new_cache.quantized else None
+        o = self._dense(q, new_cache.k, new_cache.v, rope_q, masked, scales=scales,
+                        fold=self._folds_decode_scales(n_q))
         return AttentionOutput(self._proj(self.o_proj, o), new_cache)
 
     @staticmethod

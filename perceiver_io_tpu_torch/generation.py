@@ -13,6 +13,10 @@ engine's span step :func:`make_speculative_paged_step_fn`),
 (:class:`GenerationAborted`, :class:`GenerationDeadlineExceeded`) and
 :class:`GenerationStats`.
 
+Every decode entry point takes ``cache_dtype`` (f32, bf16 or int8 caches,
+``core.cache``) and ``weight_dtype`` (None, or ``torch.int8``: the decode
+step on int8 weights, :class:`_Int8Weights`), as the JAX package's do.
+
 Windows follow the JAX package's roll-free discipline: the caches get
 ``max_new_tokens`` slots of slack, and "truncate the oldest" masks the
 expired slot through start counters instead of shifting the buffers. The
@@ -67,6 +71,7 @@ from perceiver_io_tpu_torch.core.cache import KVCache
 from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
 from perceiver_io_tpu_torch.device import DeviceLike, check_same_device, resolve_device
 from perceiver_io_tpu_torch.graphs import Graph, capture_stream, warm_up
+from perceiver_io_tpu_torch.ops.quant import quantize_tensor, quantize_weights, quantized_linears
 
 # one generator for every row of a batch, or one per row (None = idle row)
 Generators = Union[torch.Generator, Sequence[Optional[torch.Generator]]]
@@ -106,18 +111,96 @@ class GenerationDeadlineExceeded(GenerationAborted):
 
 def _shift_left_if_full(cache: KVCache) -> KVCache:
     """Drop the oldest slot when the cache is full (the fixed-capacity analog
-    of the reference's ``[:, -max_len+1:]`` truncation). A host length
+    of the reference's ``[:, -max_len+1:]`` truncation), the scale planes of
+    an int8 cache with their rows (JAX's ``map_slots``). A host length
     returns rolled copies; a device length (:func:`beam_search`'s captured
     step) rolls the buffers in place where the cache is full, so the branch
     is the device's and the addresses stay."""
     if torch.is_tensor(cache.length):
         full = cache.length >= cache.capacity
-        for buf in (cache.k, cache.v):
+        for buf in cache.buffers():
             buf.copy_(torch.where(full, torch.roll(buf, -1, dims=1), buf))
-        return KVCache(cache.k, cache.v, cache.length - full.int())
+        return cache.with_length(cache.length - full.int())
     if cache.length < cache.capacity:
         return cache
-    return KVCache(torch.roll(cache.k, -1, dims=1), torch.roll(cache.v, -1, dims=1), cache.length - 1)
+    return cache.map_slots(lambda buf: torch.roll(buf, -1, dims=1), cache.length - 1)
+
+
+class _Int8Weights:
+    """int8 copies of a model's matmul weights (``ops.quant``: every
+    ``nn.Linear`` weight, one f32 scale an output channel) in buffers of
+    their own, at fixed addresses for the object's life: what a decode step
+    under ``weight_dtype=torch.int8`` reads.
+
+    :meth:`quantize_` writes the model's current weights into the buffers in
+    place (where JAX quantizes per call, the prefill of each call does, so a
+    request served poisoned weights quantizes its NaN too). :meth:`serving`
+    is the step's side: it dequantizes every buffer to the model's compute
+    dtype and puts the results in place of the modules' weights for the
+    block, the originals back after it, so that inside a captured step the
+    dequantization is part of the graph and runs at every replay (JAX
+    dequantizes inside its scan body). Modules shared with the model (the
+    speculative drafter's) read the same dequantized weights."""
+
+    def __init__(self, model):
+        self.linears = quantized_linears(model)
+        self.dtype = getattr(model, "dtype", torch.float32)
+        self.q = quantize_weights(model)
+
+    def quantize_(self) -> None:
+        with torch.no_grad():
+            for name, linear in self.linears.items():
+                quantize_tensor(linear.weight, out=self.q[name])
+
+    @contextlib.contextmanager
+    def serving(self):
+        saved = []
+        try:
+            for name, linear in self.linears.items():
+                saved.append((linear, linear._parameters["weight"]))
+                linear._parameters["weight"] = self.q[name].dequantize(self.dtype)
+            yield
+        finally:
+            for linear, weight in saved:
+                linear._parameters["weight"] = weight
+
+
+def _int8_weights(model, weight_dtype) -> Optional[_Int8Weights]:
+    """The decode weights ``weight_dtype`` asks for: None (the model's own,
+    untouched) or ``torch.int8`` (an :class:`_Int8Weights`); anything else
+    raises ValueError, as the JAX package's ``_maybe_quantize_weights``."""
+    if weight_dtype is None:
+        return None
+    if weight_dtype != torch.int8:
+        raise ValueError(f"weight_dtype must be None or torch.int8, got {weight_dtype!r}")
+    return _Int8Weights(model)
+
+
+def _with_weights(body, weights: Optional[_Int8Weights]):
+    """``body`` run with ``weights``' dequantized weights in place (``body``
+    itself where the model's own weights serve)."""
+    if weights is None:
+        return body
+
+    def served(*args):
+        with weights.serving():
+            return body(*args)
+
+    return served
+
+
+def _requantizing(prefill, weights: Optional[_Int8Weights]):
+    """``prefill`` (on the float weights) that then quantizes the model's
+    weights into ``weights``' buffers, per call, as JAX's prefill does."""
+    if weights is None:
+        return prefill
+
+    def fn(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        weights.quantize_()
+        return out
+
+    return fn
 
 
 def _filtered_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
@@ -316,7 +399,8 @@ def _state_tensors(state: dict) -> tuple:
     """The addresses of every tensor a step reads or writes: each cache's
     buffers, (table) and length (the drafter's too), and the state's own
     tensors."""
-    tensors = [t for key in ("cache", "draft_cache") for pool in state.get(key, ()) for t in vars(pool).values()]
+    tensors = [t for key in ("cache", "draft_cache") for pool in state.get(key, ()) for t in vars(pool).values()
+               if t is not None]
     tensors += [state[k] for k in _STATE_KEYS if state.get(k) is not None]
     return tuple(t.data_ptr() for t in tensors)
 
@@ -426,7 +510,7 @@ def _prefill_pass(model, input_ids: torch.Tensor, pad_mask: Optional[torch.Tenso
         ca = cache[0]
         ca.k[:, :skip] = ca_rows[0].to(ca.k.dtype)
         ca.v[:, :skip] = ca_rows[1].to(ca.v.dtype)
-        cache, pos_offset = (KVCache(ca.k, ca.v, skip),) + tuple(cache[1:]), skip
+        cache, pos_offset = (ca.with_length(skip),) + tuple(cache[1:]), skip
     pad_slots = torch.zeros((b, ca_capacity), dtype=torch.bool, device=dev)
     if pad_mask is None:
         pos_shift = torch.zeros((b, 1), dtype=torch.long, device=dev)
@@ -490,10 +574,13 @@ def make_shared_prefill_fn(model, num_latents: int, skip_tokens: int, seq_len: i
     (``skip_tokens // page_size``,). The first token takes one draw from
     ``generator``, as the unshared prefill's does, and ``state`` carries the
     unshared prefill's keys. Only the pools' pages named are read; nothing
-    is written into them.
+    is written into them. An int8 ``cache_dtype`` raises, as in JAX.
     """
     config, dev = _prefill_config(model, config, device)
     suffix_len = seq_len - skip_tokens
+    if cache_dtype == torch.int8:
+        raise ValueError("shared prefill over an int8 cache needs the scale-plane gather; the engine gates sharing "
+                         "off for cache_dtype=torch.int8")
     if skip_tokens < 1:
         raise ValueError(f"skip_tokens must be >= 1, got {skip_tokens}")
     if suffix_len < num_latents:
@@ -535,7 +622,7 @@ def advance_generator(generator: torch.Generator, n_tokens: int, config: Generat
 
 
 def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
-                    cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda"):
+                    cache_dtype: torch.dtype = torch.float32, weight_dtype=None, *, device: DeviceLike = "cuda"):
     """The host-driven decode pair ``(prefill, step)``.
 
     - ``prefill(input_ids, pad_mask=None, generator=None) -> (first_token,
@@ -558,13 +645,24 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
     eagerly. The host draws each step's uniforms before the body runs.
 
     ``cache_dtype`` is the contiguous caches' dtype (f32 by default, as in
-    the JAX package, whatever the model's compute dtype). The model must
-    live on ``device``; asking for CUDA without a card raises.
+    the JAX package, whatever the model's compute dtype; ``torch.int8``
+    stores int8 rows and bf16 scales). ``weight_dtype=torch.int8`` decodes on
+    int8 weights (``ops.quant``): the prefill runs on the float weights and
+    then quantizes them into the pair's own buffers, per call as in JAX, and
+    the step dequantizes them to the model's compute dtype inside its body,
+    at every replay. The model must live on ``device``; asking for CUDA
+    without a card raises.
     """
     config = config or GenerationConfig()
     dev = _model_device(model, device)
-    prefill = make_prefill_fn(model, num_latents, config, cache_dtype, device=dev)
+    weights = _int8_weights(model, weight_dtype)
+    prefill = _requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, device=dev), weights)
+    return prefill, _decode_step(model, config, dev, weights)
 
+
+def _decode_step(model, config: GenerationConfig, dev: torch.device, weights: Optional[_Int8Weights]):
+    """:func:`make_decode_fns`' step over the decode weights ``weights``
+    (None: the model's own)."""
     def step(state: dict):
         state, token = step.body(state)
         return state, token.clone()
@@ -572,25 +670,29 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
     # the body: a _GraphedStep on the card (its ``graph`` is the captured
     # CUDA graph once the first call has run), the eager body on the CPU;
     # ``captured`` is what obs.recompile.RecompileTracker reads
-    step.body = _GraphedStep(model, config, "the decode step") if dev.type == "cuda" else _eager_step(model, config, dev)
+    body = _with_weights(lambda state: _decode_step_body(model, config, state), weights)
+    step.body = (_GraphedStep(model, config, "the decode step", body) if dev.type == "cuda"
+                 else _eager_step(model, config, dev, body))
     step.captured = step.body if dev.type == "cuda" else None
-    return prefill, step
+    return step
 
 
 def generate(model, input_ids, num_latents: int = 1, pad_mask=None,
              config: Optional[GenerationConfig] = None, generator: Optional[torch.Generator] = None,
-             cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda") -> torch.Tensor:
+             cache_dtype: torch.dtype = torch.float32, weight_dtype=None, *,
+             device: DeviceLike = "cuda") -> torch.Tensor:
     """Generate ``config.max_new_tokens`` continuation tokens for a
     left-padded prompt ``input_ids`` (B, S); returns (B, S + max_new_tokens)
     including the prompt. The prefill runs eagerly, then :func:`make_decode_fns`'
     step: on the card one captured CUDA graph, replayed for every token after
-    the second (the JAX package's compiled scan)."""
+    the second (the JAX package's compiled scan). ``cache_dtype`` and
+    ``weight_dtype`` (None or ``torch.int8``) are :func:`make_decode_fns`'."""
     config = config or GenerationConfig()
     dev = _model_device(model, device)
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     if config.max_new_tokens <= 0:
         return input_ids
-    prefill, step = make_decode_fns(model, num_latents, config, cache_dtype, device=device)
+    prefill, step = make_decode_fns(model, num_latents, config, cache_dtype, weight_dtype, device=device)
     token, state = prefill(input_ids, pad_mask, generator)
     tokens: List[torch.Tensor] = [token]
     for _ in range(config.max_new_tokens - 1):
@@ -599,7 +701,8 @@ def generate(model, input_ids, num_latents: int = 1, pad_mask=None,
     return torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
 
 
-def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, device: DeviceLike = "cuda"):
+def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, weight_dtype=None, *,
+                       device: DeviceLike = "cuda"):
     """The batched engine's decode step ``step(state) -> (state, tokens)``
     over a paged-cache state (see :func:`_decode_step_body`); the
     state's tensors are written in place. ``serving.engine`` builds the
@@ -609,12 +712,17 @@ def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, devi
     first call is a real step that also captures the graph on that state's
     tensors, and later calls replay it. On the CPU, where the caller asked
     for the CPU, it runs the body eagerly. The host draws each step's
-    uniforms before the body runs (one per active slot, as before)."""
+    uniforms before the body runs (one per active slot, as before).
+
+    ``weight_dtype=torch.int8`` quantizes the model's weights once, here (the
+    JAX engine quantizes once at construction), into the step's own
+    buffers; the step dequantizes them inside its body at every replay."""
     config = config or GenerationConfig()
     dev = _model_device(model, device)
+    body = _with_weights(lambda state: _decode_step_body(model, config, state), _int8_weights(model, weight_dtype))
     if dev.type == "cuda":
-        return _GraphedStep(model, config, "the paged decode step")
-    return _eager_step(model, config, dev)
+        return _GraphedStep(model, config, "the paged decode step", body)
+    return _eager_step(model, config, dev, body)
 
 
 def _load_state_(dst: dict, src: dict) -> None:
@@ -623,8 +731,8 @@ def _load_state_(dst: dict, src: dict) -> None:
     generator (a host object). ``dst``'s tensors keep their addresses, so a
     step captured on them replays on the new request."""
     for d, c in zip(dst["cache"], src["cache"]):
-        d.k.copy_(c.k)
-        d.v.copy_(c.v)
+        for d_buf, c_buf in zip(d.buffers(), c.buffers()):
+            d_buf.copy_(c_buf)
         d.length.copy_(c.length)
     for key in _STATE_KEYS:
         if key in dst:
@@ -816,14 +924,16 @@ def advance_span_generators(generators: Generators, m, config: GenerationConfig)
             advance_generator(g, int(n), config)
 
 
-def _speculative_step(model, config: GenerationConfig, k: int, draft_depth: int, dev: torch.device, name: str):
+def _speculative_step(model, config: GenerationConfig, k: int, draft_depth: int, dev: torch.device, name: str,
+                      weights: Optional[_Int8Weights] = None):
     """The span step of both speculative builders: a :class:`_GraphedStep`
-    on the card, the eager body on the CPU."""
+    on the card, the eager body on the CPU. With ``weights`` the whole span
+    (the drafter's steps and the verify) runs on the dequantized weights:
+    the drafter shares the model's modules, as JAX's drafter shares the
+    quantized tree (``drafter_decode_params``)."""
     drafter = make_drafter(model, draft_depth)
     stage = _UniformStage(config, dev, k)
-
-    def body(state):
-        return _speculative_step_body(model, drafter, config, k, state)
+    body = _with_weights(lambda state: _speculative_step_body(model, drafter, config, k, state), weights)
 
     if dev.type == "cuda":
         return _GraphedStep(model, config, name, body, stage)
@@ -832,7 +942,7 @@ def _speculative_step(model, config: GenerationConfig, k: int, draft_depth: int,
 
 def make_speculative_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConfig] = None, *,
                                 k: int = 4, draft_depth: int = 1, cache_dtype: torch.dtype = torch.float32,
-                                device: DeviceLike = "cuda"):
+                                weight_dtype=None, device: DeviceLike = "cuda"):
     """The speculative host-driven pair ``(prefill, step)``.
 
     - ``prefill(input_ids, pad_mask=None, generator=None) -> (first_token,
@@ -854,7 +964,8 @@ def make_speculative_decode_fns(model, num_latents: int = 1, config: Optional[Ge
     the sequential marginals and the generator contract of the module
     docstring. On the card the step is one CUDA graph (the first call a real
     step that captures), on the CPU the eager body, as
-    :func:`make_decode_fns`' step.
+    :func:`make_decode_fns`' step. ``cache_dtype`` and ``weight_dtype`` are
+    :func:`make_decode_fns`' (the prefill quantizes the weights per call).
     """
     config = config or GenerationConfig()
     if config.max_new_tokens < 1:
@@ -864,6 +975,7 @@ def make_speculative_decode_fns(model, num_latents: int = 1, config: Optional[Ge
     dev = _model_device(model, device)
     mcfg = model.config
     slack = dataclasses.replace(config, max_new_tokens=config.max_new_tokens + k + 1)
+    weights = _int8_weights(model, weight_dtype)
 
     def prefill(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None):
         generator = generator if generator is not None else torch.Generator().manual_seed(0)
@@ -881,9 +993,11 @@ def make_speculative_decode_fns(model, num_latents: int = 1, config: Optional[Ge
         token, state = _prefill_pass(model, input_ids, pad_mask, prefix_len, num_latents, slack, cache_dtype,
                                      generator)
         state.pop("logits")
-        state["draft_cache"] = tuple(KVCache(c.k.clone(), c.v.clone(), c.length.clone())
+        state["draft_cache"] = tuple(c.map_slots(torch.clone, c.length.clone())
                                      for c in state["cache"][: 1 + draft_depth])
         state["uniforms"] = torch.zeros((b, 3 * k + 1), dtype=torch.float32, device=dev)
+        if weights is not None:
+            weights.quantize_()
         return token, state
 
     def step(state: dict):
@@ -892,13 +1006,13 @@ def make_speculative_decode_fns(model, num_latents: int = 1, config: Optional[Ge
         advance_span_generators(state["generator"], m.tolist() if config.do_sample else (), config)
         return state, tokens, m
 
-    step.body = _speculative_step(model, config, k, draft_depth, dev, "the speculative decode step")
+    step.body = _speculative_step(model, config, k, draft_depth, dev, "the speculative decode step", weights)
     step.captured = step.body if dev.type == "cuda" else None
     return prefill, step
 
 
 def make_speculative_paged_step_fn(model, config: Optional[GenerationConfig] = None, *, k: int = 4,
-                                   draft_depth: int = 1, device: DeviceLike = "cuda"):
+                                   draft_depth: int = 1, weight_dtype=None, device: DeviceLike = "cuda"):
     """The engine's speculative batched step ``step(state) -> (state, tokens
     (S, k+1), m (S,))`` over :func:`make_paged_step_fn`'s paged state plus
     ``draft_cache`` (the drafter's CA pool and first ``draft_depth`` SA
@@ -911,12 +1025,14 @@ def make_speculative_paged_step_fn(model, config: Optional[GenerationConfig] = N
     having read ``m``, advances each slot's generator
     (:func:`advance_span_generators`). On the card one CUDA graph, on the CPU
     the eager body. The windows must never slide: the engine checks its
-    geometry when it is built."""
+    geometry when it is built. ``weight_dtype=torch.int8`` quantizes once,
+    here, as :func:`make_paged_step_fn`."""
     config = config or GenerationConfig()
     if k < 1:
         raise ValueError(f"k (draft tokens per span) must be >= 1, got {k}")
     dev = _model_device(model, device)
-    return _speculative_step(model, config, k, draft_depth, dev, "the speculative paged step")
+    return _speculative_step(model, config, k, draft_depth, dev, "the speculative paged step",
+                             _int8_weights(model, weight_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -944,8 +1060,8 @@ def _beam_step_body(model, state: dict):
     new_token = (flat_idx % vocab).reshape(-1)
     rows = (state["batch_base"].reshape(b, beams) + flat_idx // vocab).reshape(-1)
     for c, advanced in zip(cache, out.kv_cache):
-        c.k.copy_(c.k.index_select(0, rows))
-        c.v.copy_(c.v.index_select(0, rows))
+        for buf in c.buffers():
+            buf.copy_(buf.index_select(0, rows))
         c.length.copy_(advanced.length)
     seqs = state["seqs"]
     seqs.copy_(seqs.index_select(0, rows))
@@ -962,7 +1078,7 @@ def _beam_step_body(model, state: dict):
 
 def beam_search(model, input_ids, num_latents: int = 1, num_beams: int = 4, max_new_tokens: int = 64,
                 length_penalty: float = 1.0, eos_token_id: Optional[int] = None, pad_token_id: int = 0,
-                pad_mask=None, cache_dtype: torch.dtype = torch.float32, *,
+                pad_mask=None, cache_dtype: torch.dtype = torch.float32, weight_dtype=None, *,
                 device: DeviceLike = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam-search decoding over the fixed-capacity caches (the JAX
     function's counterpart). Beams live as extra batch rows (B * num_beams):
@@ -976,7 +1092,10 @@ def beam_search(model, input_ids, num_latents: int = 1, num_beams: int = 4, max_
     windows slide. ``pad_mask`` (B, S), True at left padding, shifts each
     row's positions so a padded row decodes as its unpadded self. Scores are
     the summed log-probabilities over ``length ** length_penalty`` (the
-    length up to and with the first EOS).
+    length up to and with the first EOS). ``cache_dtype`` and
+    ``weight_dtype`` (None or ``torch.int8``: the steps on int8 weights
+    quantized once a call, the prompt pass on the float ones) are
+    :func:`make_decode_fns`'.
 
     :return: ``(sequences (B, S + max_new_tokens), scores (B,))``: each
         batch element's best beam and its length-penalized score.
@@ -987,6 +1106,7 @@ def beam_search(model, input_ids, num_latents: int = 1, num_beams: int = 4, max_
     b, seq_len = input_ids.shape
     if num_beams < 1:
         raise ValueError("num_beams must be >= 1")
+    weights = _int8_weights(model, weight_dtype)
     if seq_len + max_new_tokens > mcfg.max_seq_len:
         raise ValueError(f"seq_len + max_new_tokens ({seq_len + max_new_tokens}) exceeds max_seq_len "
                          f"({mcfg.max_seq_len}) — beam search does not slide the window")
@@ -1001,8 +1121,7 @@ def beam_search(model, input_ids, num_latents: int = 1, num_beams: int = 4, max_
     def tile(x):
         return x.repeat_interleave(num_beams, dim=0)
 
-    cache = tuple(KVCache(tile(c.k), tile(c.v), torch.tensor(c.length, dtype=torch.int32, device=dev))
-                  for c in out.kv_cache)
+    cache = tuple(c.map_slots(tile, torch.tensor(c.length, dtype=torch.int32, device=dev)) for c in out.kv_cache)
     pad_slots = pos_shift = None
     if pad_mask is not None:
         pos_shift = tile(pad_mask.sum(dim=1, keepdim=True))
@@ -1022,8 +1141,7 @@ def beam_search(model, input_ids, num_latents: int = 1, num_beams: int = 4, max_
     if max_new_tokens > 1:
         config = GenerationConfig()
 
-        def body(st):
-            return _beam_step_body(model, st)
+        body = _with_weights(lambda st: _beam_step_body(model, st), weights)
 
         def no_draws(st):
             return None
@@ -1086,11 +1204,11 @@ class _DecodeStates:
     prefilled ``state`` into its geometry's fixed state (:func:`_load_state_`)
     so that the step captured there replays on it; a new geometry keeps
     ``state`` itself and a fresh step (``wrap(step)`` of
-    :func:`make_decode_fns`' step)."""
+    :func:`make_decode_fns`' step, on the decode weights ``weights``)."""
 
-    def __init__(self, model, num_latents: int, config: GenerationConfig, cache_dtype: torch.dtype,
-                 device: torch.device, wrap=None):
-        self._build = lambda: make_decode_fns(model, num_latents, config, cache_dtype, device=device)[1]
+    def __init__(self, model, config: GenerationConfig, device: torch.device,
+                 weights: Optional[_Int8Weights] = None, wrap=None):
+        self._build = lambda: _decode_step(model, config, device, weights)
         self._wrap = wrap if wrap is not None else (lambda step: step)
         self._states: "OrderedDict[tuple, tuple]" = OrderedDict()
 
@@ -1108,19 +1226,22 @@ class _DecodeStates:
 
 
 def make_generate_fn(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
-                     cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda"):
+                     cache_dtype: torch.dtype = torch.float32, weight_dtype=None, *, device: DeviceLike = "cuda"):
     """``fn(input_ids, pad_mask=None, generator=None) -> tokens`` (B, S +
     max_new_tokens): :func:`generate` for many calls (the JAX function's
     counterpart, which jits it once a prompt shape). It keeps one captured
     decode state per (batch, prompt length), as
     :func:`make_instrumented_generate_fn` does: the first call of a geometry
     captures the step on its state, later ones write their prefill into that
-    state and replay."""
+    state and replay. ``weight_dtype=torch.int8``: one set of int8 buffers
+    for the fn, which every call's prefill quantizes the weights into (JAX
+    quantizes inside each call), read by every geometry's step."""
     config = config or GenerationConfig()
     dev = _model_device(model, device)
+    weights = _int8_weights(model, weight_dtype)
     if config.max_new_tokens > 0:
-        prefill = make_prefill_fn(model, num_latents, config, cache_dtype, device=dev)
-        states = _DecodeStates(model, num_latents, config, cache_dtype, dev)
+        prefill = _requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, device=dev), weights)
+        states = _DecodeStates(model, config, dev, weights)
 
     def fn(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         input_ids = torch.as_tensor(input_ids, device=dev).long()
@@ -1173,26 +1294,26 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
     ``obs.metrics.MetricsRegistry``; a fresh one when None) accumulates the
     cross-request counters and histograms and snapshots into ``metrics``
     rows at most every ``snapshot_interval_s``. ``probes=True`` (the decode
-    health gauges, ``obs/probes.py``) waits for ROADMAP A11 and int8
-    ``weight_dtype`` for A10: both raise NotImplementedError.
+    health gauges, ``obs/probes.py``) waits for ROADMAP A11 and raises
+    NotImplementedError. ``cache_dtype`` and ``weight_dtype`` (None or
+    ``torch.int8``) are :func:`make_generate_fn`'s: every request's prefill
+    quantizes the weights it was served into the fn's int8 buffers.
     """
     config = config or GenerationConfig()
     if config.max_new_tokens < 1:
         raise ValueError("instrumented generation requires max_new_tokens >= 1")
     if probes:
         raise NotImplementedError("probes=True needs the decode health gauges (obs/probes.py), ROADMAP A11")
-    if weight_dtype is not None:
-        raise NotImplementedError(f"weight_dtype={weight_dtype!r}: int8 weights are ROADMAP A10")
     from perceiver_io_tpu_torch.obs import trace as obs_trace
     from perceiver_io_tpu_torch.obs.metrics import Histogram, MetricsRegistry
     from perceiver_io_tpu_torch.obs.recompile import RecompileTracker
 
     dev = _model_device(model, device)
+    weights = _int8_weights(model, weight_dtype)
     tracker = RecompileTracker(events=events)
-    prefill_fn = tracker.wrap(make_decode_fns(model, num_latents, config, cache_dtype, device=dev)[0],
-                              "generate_prefill")
-    decode_state = _DecodeStates(model, num_latents, config, cache_dtype, dev,
-                                 lambda step: tracker.wrap(step, "generate_decode_step"))
+    prefill_fn = tracker.wrap(_requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, device=dev),
+                                            weights), "generate_prefill")
+    decode_state = _DecodeStates(model, config, dev, weights, lambda step: tracker.wrap(step, "generate_decode_step"))
 
     registry = registry if registry is not None else MetricsRegistry()
     m_requests = registry.counter("generate_requests_total")

@@ -74,6 +74,18 @@
 // On the H100, fewer rows a stage (more, smaller stages) and two CTAs an SM
 // were slower at the serve's CA case.
 //
+// Head dims up to 512 (the heads-major K8's limit, so the paged and the
+// cache-free routes serve the same heads; JAX's kernel takes any width whose
+// packed row is a multiple of 128 lanes). A lane carries CPL = 1, 2, 4, 8 or
+// 16 channels of a head (lane + 32k), so the butterfly and the probability
+// broadcast are those of the narrow heads, unchanged. Where a lane carries 8
+// or 16 channels (heads over 128 wide), a consumer warp owns one head, since
+// its query and accumulator then take 16 or 32 of a lane's registers, and a
+// head group holds at most 8 heads; the plan sizes a stage's rows by the
+// wider rows' bytes, down to one row of a group where a page of it does not
+// fit three stages. The merge carries MC = 16 channels a lane for such heads
+// (4 otherwise) and loads two items a warp at once instead of four.
+//
 // Tokens at or past the slot's length never enter the walk's softmax. A
 // masked token contributes exactly 0 once its slot has an unmasked one. A
 // slot whose every valid token is masked has, with the finite MASK_VALUE,
@@ -96,6 +108,7 @@
 namespace {
 
 constexpr int MAX_CW = 8;                    // consumer warps a CTA, at most
+constexpr int MAX_D = 512;                   // head dims, at most (16 channels a lane)
 constexpr int NT = (MAX_CW + 1) * 32;        // threads a CTA, at most (warp 0 produces)
 constexpr int TB = 16;                       // tokens a consumer warp scores at once
 constexpr int MIN_STAGES = 3;
@@ -517,10 +530,10 @@ __global__ void __launch_bounds__(NT, 1) paged_walk_kernel(const Params<T> p) {
 // fixed order: the result does not depend on timing). Launched as the walk's
 // programmatic dependent: its CTAs start while the walk runs, form the
 // slot's geometry from the lengths, then wait for the walk's partials.
-template <typename T>
+template <typename T, int MC>
 __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params<T> p) {
   constexpr int NW = MERGE_THREADS / 32;
-  __shared__ float sm_m[NW], sm_l[NW], sm_acc[NW][128], sm_tail[NW][128];
+  __shared__ float sm_m[NW], sm_l[NW], sm_acc[NW][32 * MC], sm_tail[NW][32 * MC];
   __shared__ int geo[4];
   const int s = blockIdx.x, hd = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -551,8 +564,10 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
   __syncthreads();
   const int p1 = geo[0], n = geo[2], len = geo[3];
   T* o = p.out + (long)s * p.h * p.dv + (long)hd * p.dv;
-  constexpr int IF = 4;  // items a warp loads at once
-  float m = -CUDART_INF_F, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int IF = MC <= 4 ? 4 : 2;  // items a warp loads at once
+  float m = -CUDART_INF_F, l = 0.f, acc[MC];
+#pragma unroll
+  for (int k = 0; k < MC; ++k) acc[k] = 0.f;
   if (n > 0) {  // a slot of length 0 has no item
     const int g = hd / p.gh, hh = hd - g * p.gh;
     const int chunk = (p.groups * p1 + p.grid - 1) / p.grid;
@@ -562,7 +577,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
     const float* base = p.part + ((long)(g * p.slots + s + b0) * p.gh + hh) * (p.dv + 2);
     asm volatile("griddepcontrol.wait;" ::: "memory");  // the walk's partials are written
     for (int b = warp; b < nb; b += NW * IF) {
-      float mb[IF], lb[IF], ab[IF][4];
+      float mb[IF], lb[IF], ab[IF][MC];
 #pragma unroll
       for (int j = 0; j < IF; ++j) {
         const bool ok = b + j * NW < nb;
@@ -570,7 +585,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
         mb[j] = ok ? it[0] : -CUDART_INF_F;
         lb[j] = it[1];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) ab[j][k] = lane + 32 * k < p.dv ? it[2 + lane + 32 * k] : 0.f;
+        for (int k = 0; k < MC; ++k) ab[j][k] = lane + 32 * k < p.dv ? it[2 + lane + 32 * k] : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < IF; ++j) {
@@ -579,7 +594,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
         const float alpha = expf(m - m_new), wb = expf(mb[j] - m_new);
         l = fmaf(l, alpha, wb * lb[j]);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[k] = fmaf(acc[k], alpha, wb * ab[j][k]);
+        for (int k = 0; k < MC; ++k) acc[k] = fmaf(acc[k], alpha, wb * ab[j][k]);
         m = m_new;
       }
     }
@@ -589,7 +604,7 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
     sm_l[warp] = l;
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) sm_acc[warp][lane + 32 * k] = acc[k];
+  for (int k = 0; k < MC; ++k) sm_acc[warp][lane + 32 * k] = acc[k];
   __syncthreads();
   float mx = -CUDART_INF_F;
 #pragma unroll
@@ -616,17 +631,18 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
     const long row = (long)p.h * p.dv;
     const T* vcol = p.vpool + (long)hd * p.dv;
     const int* trow = p.table + (long)s * p.pps;
-    float t_acc[4] = {0.f, 0.f, 0.f, 0.f};
+    float t_acc[MC], run[MC];
+#pragma unroll
+    for (int k = 0; k < MC; ++k) t_acc[k] = run[k] = 0.f;
     const int j_first = (len + p.page - 1) / p.page;
     for (int t = len + warp; t < j_first * p.page; t += NW) {
       const T* vr = vcol + ((long)trow[t / p.page] * p.page + t % p.page) * row;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+      for (int k = 0; k < MC; ++k)
         if (lane + 32 * k < p.dv) t_acc[k] += pio::to_f32(vr[lane + 32 * k]);
     }
     const int per = (p.pps - j_first + NW - 1) / NW;
     const int ja = j_first + warp * per, jb = min(p.pps, ja + per);
-    float run[4] = {0.f, 0.f, 0.f, 0.f};
     int prev = -1, count = 0;
     for (int j0 = ja; j0 < jb; j0 += 32) {
       const int mine = j0 + lane < jb ? trow[j0 + lane] : -1;
@@ -638,21 +654,21 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
           continue;
         }
 #pragma unroll
-        for (int k = 0; k < 4; ++k) t_acc[k] = fmaf((float)count, run[k], t_acc[k]);
+        for (int k = 0; k < MC; ++k) t_acc[k] = fmaf((float)count, run[k], t_acc[k]);
         const T* vp = vcol + (long)e * p.page * row;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) run[k] = 0.f;
+        for (int k = 0; k < MC; ++k) run[k] = 0.f;
 #pragma unroll 4
         for (int r = 0; r < p.page; ++r)
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
+          for (int k = 0; k < MC; ++k)
             if (lane + 32 * k < p.dv) run[k] += pio::to_f32(vp[r * row + lane + 32 * k]);
         prev = e;
         count = 1;
       }
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sm_tail[warp][lane + 32 * k] = fmaf((float)count, run[k], t_acc[k]);
+    for (int k = 0; k < MC; ++k) sm_tail[warp][lane + 32 * k] = fmaf((float)count, run[k], t_acc[k]);
     __syncthreads();
     ls = fmaf(w_tail, (float)(cap - len), ls);
   }
@@ -673,26 +689,39 @@ __global__ void __launch_bounds__(MERGE_THREADS) paged_merge_kernel(const Params
 }
 
 template <typename T>
-using WalkFn = void (*)(Params<T>);
+using KernelFn = void (*)(Params<T>);
 
-// the walk's instantiation: CPL channels a lane (1, 2, 4), HPW heads a
-// consumer warp (1, 2, 4)
+// the walk's instantiation: CPL channels a lane (1, 2, 4, and 8, 16 for
+// heads wider than 128), HPW heads a consumer warp (1, 2, 4; 1 for the wide
+// heads, whose query and accumulator fill a lane's registers alone)
 template <typename T>
-WalkFn<T> walk_kernel(int cpl, int hpw) {
-  static const WalkFn<T> table[3][3] = {
+KernelFn<T> walk_kernel(int cpl, int hpw) {
+  static const KernelFn<T> table[3][3] = {
       {paged_walk_kernel<T, 1, 1>, paged_walk_kernel<T, 1, 2>, paged_walk_kernel<T, 1, 4>},
       {paged_walk_kernel<T, 2, 1>, paged_walk_kernel<T, 2, 2>, paged_walk_kernel<T, 2, 4>},
       {paged_walk_kernel<T, 4, 1>, paged_walk_kernel<T, 4, 2>, paged_walk_kernel<T, 4, 4>},
   };
+  if (cpl == 8) return paged_walk_kernel<T, 8, 1>;
+  if (cpl == 16) return paged_walk_kernel<T, 16, 1>;
   return table[cpl == 1 ? 0 : cpl == 2 ? 1 : 2][hpw == 1 ? 0 : hpw == 2 ? 1 : 2];
 }
 
 int cpl_of(int dqk, int dv) {
   const int d = dqk > dv ? dqk : dv;
-  return d <= 32 ? 1 : d <= 64 ? 2 : 4;
+  return d <= 32 ? 1 : d <= 64 ? 2 : d <= 128 ? 4 : d <= 256 ? 8 : 16;
 }
 
 int hpw_of(int gh) { return gh <= MAX_CW ? 1 : gh <= 2 * MAX_CW ? 2 : 4; }
+
+// the most heads a group may hold: up to 4 a consumer warp, one where a lane
+// carries 8 or 16 channels
+int max_gh(int cpl) { return cpl <= 4 ? 4 * MAX_CW : MAX_CW; }
+
+// the merge's instantiation: MC channels a lane, 4 (Dv <= 128) or 16
+template <typename T>
+KernelFn<T> merge_kernel(int dv) {
+  return dv <= 128 ? paged_merge_kernel<T, 4> : paged_merge_kernel<T, 16>;
+}
 
 template <typename T>
 cudaError_t plan_for(int slots, int h, int dqk, int dv, int page, int n_sm, int* plan) {
@@ -701,10 +730,11 @@ cudaError_t plan_for(int slots, int h, int dqk, int dv, int page, int n_sm, int*
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   const long head = header_bytes(slots);
+  const int cpl = cpl_of(dqk, dv);
   int gh = 0, groups = 0, rows = 0;
   for (int ng = 1; ng <= h; ++ng) {
     const int g = (h + ng - 1) / ng;
-    if (g > 4 * MAX_CW) continue;
+    if (g > max_gh(cpl)) continue;
     int r = page;
     while (r > 0 && head + MIN_STAGES * (long)stage_bytes<T>(r, g, dqk, dv) > budget) --r;
     if (r >= 1) {
@@ -721,7 +751,7 @@ cudaError_t plan_for(int slots, int h, int dqk, int dv, int page, int n_sm, int*
   const int smem = (int)(head + stages * tile);
   const int hpw = hpw_of(gh);
   const int ncw = (gh + hpw - 1) / hpw;
-  WalkFn<T> kernel = walk_kernel<T>(cpl_of(dqk, dv), hpw);
+  KernelFn<T> kernel = walk_kernel<T>(cpl, hpw);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
   int per_sm = 0;
   if (err == cudaSuccess)
@@ -757,14 +787,15 @@ cudaError_t launch(Params<T> p, cudaStream_t s) {
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_merge_kernel<T>, p);
+  err = cudaLaunchKernelEx(&cfg, merge_kernel<T>(p.dv), p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K3's plan for a geometry and dtype (0 f32, 1 bf16) on the current device:
+// K3's plan for a geometry and dtype (0 f32, 1 bf16) on the current device
+// (head dims up to 512):
 // plan = {grid, head groups, heads a group, rows a tile, stages, dynamic
 // shared memory bytes, consumer warps}. Whole pages of all heads a stage
 // where three stages fit, else runs of a page's rows, else head groups; as
@@ -772,7 +803,7 @@ cudaError_t launch(Params<T> p, cudaStream_t s) {
 // of one's shared memory, else two. Also lifts the walk's shared-memory limit
 // to the device's. Returns a cudaError_t.
 extern "C" int pio_paged_decode_plan(int slots, int h, int dqk, int dv, int page, int n_sm, int dtype, int* plan) {
-  if (slots <= 0 || h <= 0 || dqk <= 0 || dv <= 0 || dqk > 128 || dv > 128 || page <= 0 || n_sm <= 0)
+  if (slots <= 0 || h <= 0 || dqk <= 0 || dv <= 0 || dqk > MAX_D || dv > MAX_D || page <= 0 || n_sm <= 0)
     return cudaErrorInvalidValue;
   if (dtype == pio::kF32) return plan_for<float>(slots, h, dqk, dv, page, n_sm, plan);
   if (dtype == pio::kBF16) return plan_for<__nv_bfloat16>(slots, h, dqk, dv, page, n_sm, plan);
@@ -791,8 +822,9 @@ extern "C" int pio_paged_decode(const void* q, const void* kpool, const void* vp
                                 void* out, int slots, int h, int dqk, int dv, int page, int pps, int grid,
                                 int groups, int gh, int rows, int stages, int ncw, int dtype, void* stream) {
   if (slots <= 0 || h <= 0) return cudaSuccess;
-  if (dqk <= 0 || dv <= 0 || dqk > 128 || dv > 128 || page <= 0 || pps <= 0 || grid <= 0 ||
-      groups <= 0 || gh <= 0 || (long)gh * groups < h || rows <= 0 || rows > page || stages < 1 ||
+  if (dqk <= 0 || dv <= 0 || dqk > MAX_D || dv > MAX_D || page <= 0 || pps <= 0 || grid <= 0 ||
+      groups <= 0 || gh <= 0 || gh > max_gh(cpl_of(dqk, dv)) || (long)gh * groups < h || rows <= 0 ||
+      rows > page || stages < 1 ||
       stages > MAX_STAGES || ncw <= 0 || ncw > MAX_CW || (long)ncw * hpw_of(gh) < gh || slots > 65535 ||
       h > 65535)
     return cudaErrorInvalidValue;

@@ -10,11 +10,11 @@ mask instead; its callers always include validity in it, so the results
 agree.)
 
 The CUDA kernel (``csrc/paged_decode.cu``; f32 or bf16 q and pools of one
-dtype, the output in it) walks the page tables of all slots as one list,
-split into equal runs of pages over a fixed grid of CTAs
-(:func:`paged_work_items` is that rule in plain Python), copies whole pages
-into shared memory ahead of use, reads the mask as bytes, and merges each
-slot's partials in a second launch;
+dtype, the output in it; head dims up to 512) walks the page tables of
+all slots as one list, split into equal runs of pages over a fixed grid of
+CTAs (:func:`paged_work_items` is that rule in plain Python), copies whole
+pages into shared memory ahead of use, reads the mask as bytes, and merges
+each slot's partials in a second launch;
 :func:`paged_attention_reference` rebuilds the contiguous view with
 ``gather_view`` and runs dense attention. The two agree on every slot, a
 slot whose every valid token is masked and a slot of length 0 included
@@ -35,25 +35,34 @@ from perceiver_io_tpu_torch.ops import build
 from perceiver_io_tpu_torch.ops.flash_attention import _DTYPE_CODES, MASK_VALUE
 
 
+# K3's widest head (16 channels a lane of a warp), the heads-major K8's limit
+PAGED_MAX_HEAD_DIM = 512
+
+
 def paged_kernel_supported(cache, num_heads: int, d_qk: int, d_v: int) -> bool:
     """Whether the kernel serves this pool: f32 or bf16 pools (the engine's
-    ``cache_dtype``) and head dims up to 128 (four channels a lane)."""
-    return (cache.k.dtype in _DTYPE_CODES and cache.v.dtype == cache.k.dtype
-            and 1 <= d_qk <= 128 and 1 <= d_v <= 128)
+    ``cache_dtype``) and head dims up to 512. int8 pools take the gather
+    route, as JAX's gate keeps them off its kernel."""
+    return (not cache.quantized and cache.k.dtype in _DTYPE_CODES and cache.v.dtype == cache.k.dtype
+            and 1 <= d_qk <= PAGED_MAX_HEAD_DIM and 1 <= d_v <= PAGED_MAX_HEAD_DIM)
 
 
 def reference_kernel_geometry(cache, num_heads: int, d_qk: int, d_v: int) -> bool:
     """Whether the JAX package's page-walk kernel serves this geometry: its
     gate takes any float pool with pages of at least 8 rows whose packed
-    head widths (H * D) are multiples of 128 lanes. Where it does not, the
-    JAX package gathers, and so may the port."""
-    return cache.page_size >= 8 and (num_heads * d_qk) % 128 == 0 and (num_heads * d_v) % 128 == 0
+    head widths (H * D) are multiples of 128 lanes, and no int8 pool. Where
+    it does not, the JAX package gathers, and so may the port."""
+    return (not cache.quantized and cache.page_size >= 8 and (num_heads * d_qk) % 128 == 0
+            and (num_heads * d_v) % 128 == 0)
 
 
 def paged_attention_reference(qh: torch.Tensor, cache, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: gather view + dense attention; softmax in f32, value
-    product in the storage dtype. ``qh`` (S, H, Dk) -> (S, H, Dv)."""
-    k_slots, v_slots = cache.gather_view()
+    product in the storage dtype. ``qh`` (S, H, Dk) -> (S, H, Dv). Float
+    pools only (int8 pools never reach the kernel)."""
+    if cache.quantized:
+        raise TypeError("paged_decode_attention takes float pools; int8 pools take the gather route")
+    k_slots, v_slots, _, _ = cache.gather_view()
     s_slots, cap = k_slots.shape[0], k_slots.shape[1]
     invalid = torch.arange(cap, device=cache.k.device)[None, :] >= cache.length[:, None]
     mask = invalid if mask is None else invalid | mask
@@ -148,8 +157,8 @@ def _paged_decode_cuda(qh, cache, mask):
     if dtype not in _DTYPE_CODES or cache.k.dtype != dtype or cache.v.dtype != dtype:
         raise TypeError(f"paged_decode_attention takes f32 or bf16 q and pools of one dtype, got "
                         f"{qh.dtype}/{cache.k.dtype}/{cache.v.dtype}")
-    if d_qk > 128 or d_v > 128:
-        raise ValueError(f"paged decode kernel takes head dims <= 128, got ({d_qk}, {d_v})")
+    if d_qk > PAGED_MAX_HEAD_DIM or d_v > PAGED_MAX_HEAD_DIM:
+        raise ValueError(f"paged decode kernel takes head dims <= {PAGED_MAX_HEAD_DIM}, got ({d_qk}, {d_v})")
     dev = qh.device
     tensors = [cache.k, cache.v, cache.page_table, cache.length] + ([] if mask is None else [mask])
     if any(t.device != dev for t in tensors):
@@ -188,11 +197,11 @@ def _paged_decode_cuda(qh, cache, mask):
 def paged_decode_attention(qh: torch.Tensor, cache, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-query attention over paged KV: ``qh`` (S, H, Dk) scaled and
     rotated, ``cache`` a float ``PagedKVCache`` (on the card f32 or bf16 pools
-    of ``qh``'s dtype), ``mask`` an optional (S, capacity) bool, True =
-    masked, on top of the slot validity. Returns (S, H, Dv): on the card in
-    ``qh``'s dtype, in the plain version in the pools' (which rounds the
-    softmax weights to it before the value product, as the JAX package's
-    plain version does); the caller merges heads.
+    of ``qh``'s dtype, head dims up to 512), ``mask`` an optional (S,
+    capacity) bool, True = masked, on top of the slot validity. Returns (S,
+    H, Dv): on the card in ``qh``'s dtype, in the plain version in the
+    pools' (which rounds the softmax weights to it before the value product,
+    as the JAX package's plain version does); the caller merges heads.
 
     Decode only: it has no gradient (nor has the JAX kernel a VJP), so an
     input that requires grad under grad mode raises rather than return an

@@ -158,8 +158,11 @@ class EngineFrontEnd(RequestFrontEnd):
     ``base_config`` (sampling; ``max_new_tokens`` comes from each request),
     ``cache_dtype`` (the page pools' and the prefill caches' dtype; None:
     f32, as in the JAX engine; a bf16 model serves from bf16 pools with
-    ``torch.bfloat16``), ``config``, ``events``, ``registry``, ``clock``,
-    ``sleep``, ``injector``, ``journal`` (a ``RequestJournal`` or a path;
+    ``torch.bfloat16``; ``torch.int8`` stores int8 rows with bf16 scales,
+    decoded by the gather route, with prefix sharing off), ``weight_dtype``
+    (None, or ``torch.int8``: the decode step reads int8 weights quantized
+    once at construction, dequantized inside the step), ``config``,
+    ``events``, ``registry``, ``clock``, ``sleep``, ``injector``, ``journal`` (a ``RequestJournal`` or a path;
     it needs the no-slide geometry, as ``eviction`` does) and ``device``
     (``"cuda"`` by default; asking for CUDA without a card raises, pass
     ``device="cpu"`` for the plain versions).
@@ -223,13 +226,16 @@ class EngineFrontEnd(RequestFrontEnd):
         # a capture of the step is its "compile": a `compile` event, and the
         # `compiled` flag of the slots a capturing step decodes for
         self._tracker = RecompileTracker(events=self.events)
+        # int8 weights are quantized once, here, by the step's builder (as the
+        # JAX engine quantizes at construction); the prefills run on the
+        # float weights
         if self._spec:
             self._step_fn = self._tracker.wrap(make_speculative_paged_step_fn(
-                model, self._gen_config, k=ec.spec_k, draft_depth=ec.spec_depth, device=dev),
-                "engine_decode_spec_step")
+                model, self._gen_config, k=ec.spec_k, draft_depth=ec.spec_depth, weight_dtype=self.weight_dtype,
+                device=dev), "engine_decode_spec_step")
         else:
-            self._step_fn = self._tracker.wrap(make_paged_step_fn(model, self._gen_config, device=dev),
-                                               "engine_decode_step")
+            self._step_fn = self._tracker.wrap(make_paged_step_fn(model, self._gen_config, self.weight_dtype,
+                                                                  device=dev), "engine_decode_step")
         if dev.type == "cuda":
             # the capture: one step while every slot is idle (it writes only
             # the scratch page), then the state back to its initial values
@@ -279,8 +285,8 @@ class EngineFrontEnd(RequestFrontEnd):
         for pool in st["cache"] + st.get("draft_cache", ()):
             pool.page_table.zero_()
             pool.length.zero_()
-            pool.k[0].zero_()
-            pool.v[0].zero_()
+            for buf in pool.buffers():
+                buf[0].zero_()
         for key in ("ca_start", "sa_start", "token", "uniforms", "pad_slots", "pos_shift"):
             st[key].zero_()
         st["done"].fill_(True)
@@ -379,10 +385,11 @@ class EngineFrontEnd(RequestFrontEnd):
         """The prompt's whole context-region pages (``prompt_len -
         num_latents`` tokens, page by page): the run a join may share (the
         suffix must carry every latent, so a match never reaches past it)
-        and the run it publishes. 0 with sharing off, and in the speculative
+        and the run it publishes. 0 with sharing off, in the speculative
         slot mode (as in JAX: the drafter's pools would need shared pages of
-        their own)."""
-        if not self.engine_config.prefix_sharing or self._spec:
+        their own), and over int8 pools (as in JAX: the shared prefill has no
+        scale-plane gather, so the copy-on-write fork never sees int8)."""
+        if not self.engine_config.prefix_sharing or self._spec or self._cache_dtype == torch.int8:
             return 0
         return max((ticket.record.prompt_len - self.num_latents) // self.engine_config.page_size, 0)
 
@@ -453,9 +460,8 @@ class EngineFrontEnd(RequestFrontEnd):
         if forked is None:
             return None
         fresh = forked.pages[page_slot]
-        pool = self._state["cache"][0]
-        pool.k[fresh].copy_(pool.k[page])
-        pool.v[fresh].copy_(pool.v[page])
+        for buf in self._state["cache"][0].buffers():
+            buf[fresh].copy_(buf[page])
         return forked
 
     def _try_join(self, ticket: _Ticket, slot_id: int) -> bool:

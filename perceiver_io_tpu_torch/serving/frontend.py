@@ -207,6 +207,11 @@ class RequestFrontEnd:
         dead one still owed.
     :param device: ``"cuda"`` by default; asking for CUDA without a card
         raises (pass ``device="cpu"`` for the plain kernel versions).
+
+    ``cache_dtype`` (None: f32; ``torch.bfloat16`` or ``torch.int8``) and
+    ``weight_dtype`` (None or ``torch.int8``) pass to the decode path
+    (``generation.make_instrumented_generate_fn``, the engine's pools and
+    step).
     """
 
     def __init__(
@@ -235,8 +240,8 @@ class RequestFrontEnd:
 
             journal = RequestJournal(journal)
         self.journal = journal
-        if weight_dtype is not None:
-            raise NotImplementedError(f"weight_dtype={weight_dtype!r}: int8 weights are ROADMAP A10")
+        if weight_dtype is not None and weight_dtype != torch.int8:
+            raise ValueError(f"weight_dtype must be None or torch.int8, got {weight_dtype!r}")
         self.model = model
         self.num_latents = num_latents
         self.base_config = base_config
@@ -317,6 +322,7 @@ class RequestFrontEnd:
                 self.model,
                 num_latents=self.num_latents,
                 config=cfg,
+                weight_dtype=self.weight_dtype,
                 events=self.events,
                 registry=self.registry,
                 on_token=self._on_token,

@@ -545,9 +545,11 @@ def test_engine_serves_through_the_kernels(cuda):
 
 
 def test_engine_serves_head_dim_160_by_the_gather_route(cuda):
-    """Pools K3 does not take (head dim 160: 320 channels in 2 heads) take the
-    gather route, chosen by geometry: K3 is never launched, and the served
-    stream equals the sequential one on the card."""
+    """Heads of 160 (320 channels in 2 heads), which K3 took only through the
+    gather route before it served heads up to 512: the engine's decode now
+    launches K3 at every step (the gather route is its plain version), the
+    prefill runs the heads-major K8, and the served stream equals the
+    sequential one on the card."""
     from perceiver_io_tpu_torch.generation import GenerationConfig, make_decode_fns
     from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
     from perceiver_io_tpu_torch.ops import build
@@ -562,7 +564,7 @@ def test_engine_serves_head_dim_160_by_the_gather_route(cuda):
     build.reset_launches()
     records = engine.run_closed([RequestSpec(0, 8, 4, ids, 0)], concurrency=1)
     assert [r.outcome for r in records] == ["ok"]
-    assert build.LAUNCHES["paged_decode"] == 0 and build.LAUNCHES["flash_heads_fwd"] > 0, build.LAUNCHES
+    assert build.LAUNCHES["paged_decode"] > 0 and build.LAUNCHES["flash_heads_fwd"] > 0, build.LAUNCHES
     prefill, step = make_decode_fns(model, 4, GenerationConfig(max_new_tokens=4), device=cuda)
     token, state = prefill(ids)
     want = [int(token[0])]
@@ -572,25 +574,99 @@ def test_engine_serves_head_dim_160_by_the_gather_route(cuda):
     assert engine.served_tokens[0] == want
 
 
-@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 192, torch.bfloat16)])
+@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 192, torch.bfloat16),
+                                           (2, 640, torch.float32), (2, 640, torch.bfloat16)])
 def test_paged_decode_refuses_what_only_the_jax_kernel_serves(cuda, heads, d, dtype):
-    """Pools that the JAX package's paged kernel serves and K3 cannot take
-    (heads of 192, in f32 or bf16 pools) raise on the card before anything
-    launches: the gather route stands in only where the JAX package gathers
-    too."""
+    """Pools that the JAX package's paged kernel serves: K3 takes heads of
+    192 (f32 and bf16 pools) since it serves heads up to 512, one launch a
+    call, its output the plain version's projected (f32 within 1e-5, bf16
+    within 2e-2 of the largest magnitude); heads of 640 still raise before
+    anything launches, with K3's limit in the message (the gather route
+    stands in only where the JAX package gathers too)."""
     from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
     from perceiver_io_tpu_torch.core.cache import init_paged_kv_cache
     from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.paged_attention import paged_attention_reference
 
     c = heads * d
-    layer = MultiHeadAttention(heads, c, c, causal_attention=True).to(device=cuda, dtype=dtype)
+    g = torch.Generator().manual_seed(3)
+    layer = MultiHeadAttention(heads, c, c, causal_attention=True, dtype=dtype).to(cuda)
     cache = init_paged_kv_cache(2, 5, 8, 2, c, c, dtype=dtype, device=cuda)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=g))
+    cache.page_table.copy_(torch.tensor([[1, 2], [3, 4]], dtype=torch.int32))
     cache.length[:] = 3
-    x = torch.randn(2, 1, c, device=cuda, dtype=dtype)
+    x = torch.randn(2, 1, c, generator=g).to(cuda, dtype)
     build.reset_launches()
-    with torch.no_grad(), pytest.raises(ValueError, match="K3 does not"):
-        layer(x, x, kv_cache=cache)
-    assert build.LAUNCHES["paged_decode"] == 0
+    if d > 512:
+        with torch.no_grad(), pytest.raises(ValueError, match="K3 does not.*up to 512"):
+            layer(x, x, kv_cache=cache)
+        assert build.LAUNCHES["paged_decode"] + build.LAUNCHES["paged_decode_bf16"] == 0
+        return
+    with torch.no_grad():
+        out = layer(x, x, kv_cache=cache)
+        qh = layer.project_q(x)[:, :, 0, :]
+        want = layer._proj(layer.o_proj, paged_attention_reference(qh, out.kv_cache).reshape(2, 1, c))
+    name = "paged_decode" if dtype == torch.float32 else "paged_decode_bf16"
+    assert build.LAUNCHES[name] == 1, build.LAUNCHES
+    got, want = out.last_hidden_state.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    else:
+        assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+# name: (slots, page, pages a slot, heads, head dim, lengths); heads wider than 128
+WIDE_PAGED_CASES = {
+    "h2_d192": (4, 16, 64, 2, 192, [0, 1, 517, 1024]),  # the serve CA's page, a length-0 slot
+    "h2_d256": (4, 16, 64, 2, 256, [17, 0, 300, 1023]),
+    "h1_d512": (3, 16, 64, 1, 512, [1000, 0, 16]),
+    "odd_page": (3, 3, 8, 3, 160, [7, 0, 24]),  # pages of 3 rows, items ending mid-page
+    "unaligned": (2, 8, 4, 2, 130, [5, 0]),  # rows of 260 f32 (520 bytes): no bulk copies
+    "head_groups": (2, 16, 4, 16, 512, [33, 64]),  # 16 heads of 512: two groups of 8, a row a stage
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("case", list(WIDE_PAGED_CASES))
+def test_paged_decode_wide_heads_match_plain(cuda, dtype, case, with_mask):
+    """K3 at head dims over 128 (16 or 8 channels a lane, one head a consumer
+    warp), f32 and bf16 builds, against the plain version on every slot,
+    with and without a pad mask, a length-0 slot in most cases: f32 within
+    1e-5; bf16 by the card's bf16 rule against the f64 evaluation (as the
+    narrow bf16 cases) and within 1e-2 of the largest magnitude. One launch
+    a call."""
+    from perceiver_io_tpu_torch.core.cache import PagedKVCache, init_paged_kv_cache
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.paged_attention import paged_attention_reference, paged_decode_attention
+
+    g = torch.Generator().manual_seed(2)
+    slots, page, pps, h, d, lengths = WIDE_PAGED_CASES[case]
+    cache = init_paged_kv_cache(slots, 1 + slots * pps, page, pps, h * d, h * d, dtype=dtype, device=cuda)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=g))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=g))
+    table = (torch.randperm(slots * pps, generator=g) + 1).reshape(slots, pps).to(torch.int32)
+    table[[i for i, n in enumerate(lengths) if n == 0]] = 0  # a retired slot's row is all scratch
+    cache.page_table = table.to(cuda)
+    cache.length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    qh = (torch.randn(slots, h, d, generator=g) * d**-0.5).to(cuda, dtype)
+    mask = None
+    if with_mask:
+        mask = torch.zeros(slots, cache.capacity, dtype=torch.bool, device=cuda)
+        for s, n in enumerate(lengths):
+            mask[s, : min(n, cache.capacity) // 3] = True
+    build.reset_launches()
+    got = paged_decode_attention(qh, cache, mask)
+    name = "paged_decode" if dtype == torch.float32 else "paged_decode_bf16"
+    assert build.LAUNCHES[name] == 1, build.LAUNCHES
+    plain = paged_attention_reference(qh, cache, mask)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, plain, atol=1e-5, rtol=0)
+        return
+    c64 = PagedKVCache(cache.k.double(), cache.v.double(), cache.page_table, cache.length)
+    _bf16_rule(got, plain, paged_attention_reference(qh.double(), c64, mask), 1.0, slack=1e-6)
+    assert float((got.float() - plain.float()).abs().max()) <= 1e-2 * float(plain.float().abs().max())
 
 
 @pytest.mark.parametrize("d", [64, 40, 128, 32])
@@ -854,6 +930,75 @@ def test_graphed_paged_step_equals_the_eager_body_with_joins_and_retires(cuda):
         steps.append(engine._engine_steps)
     assert steps[0] == steps[1] >= 64
     assert streams[0] == streams[1]
+
+
+def test_int8_engine_graph_equals_the_eager_step(cuda):
+    """The engine on int8 pools and int8 weights (a bf16 model): the
+    captured paged step (the gather route, the weights dequantized inside
+    the graph at every replay) against its eager body (the same weights'
+    buffers) on the same sampled, ragged requests: every stream equal token
+    for token over 40+ decode steps with joins and retires; K3 never
+    launches over int8 pools; the step captures once."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd, RequestSpec
+
+    config = CausalLanguageModelConfig(**dict(_GRAPH_CLM, max_seq_len=64, max_latents=16))
+    model = CausalLanguageModel(config, device=cuda, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    gen_config = generation.GenerationConfig(do_sample=True, temperature=0.8, top_k=40)
+    rng = np.random.default_rng(5)
+    specs = [RequestSpec(i, n, int(rng.integers(8, 16)), rng.integers(0, 262, size=(1, n)), i)
+             for i, n in enumerate(int(x) for x in rng.integers(20, 44, size=12))]
+    streams, steps = [], []
+    for graphed in (True, False):
+        engine = EngineFrontEnd(model, num_latents=8, base_config=gen_config, cache_dtype=torch.int8,
+                                weight_dtype=torch.int8, device=cuda,
+                                engine_config=EngineConfig(slots=3, page_size=16, max_ca_tokens=64,
+                                                           max_sa_tokens=32))
+        captured = engine._step_fn.captured
+        if not graphed:
+            engine._step_fn = generation._eager_step(model, gen_config, model.device, captured.body)
+        build.reset_launches()
+        records = engine.run_closed(specs, concurrency=5)
+        assert [r.outcome for r in records] == ["ok"] * len(specs)
+        assert build.LAUNCHES["paged_decode"] == build.LAUNCHES["paged_decode_bf16"] == 0
+        assert captured.captures == 1
+        streams.append(dict(engine.served_tokens))
+        steps.append(engine._engine_steps)
+    assert steps[0] == steps[1] >= 40
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+def test_int8_weights_decode_pair_graph_equals_eager_bit_for_bit(cuda, cache_dtype):
+    """``make_decode_fns`` on int8 weights (and a bf16 or int8 cache) in a
+    bf16 model: the captured step and its eager body (the same weights'
+    buffers, ``step.body.body``) from the same prefill give the same stream
+    and every step's logits bit for bit over 20 steps that slide both
+    windows; the parameters are as they were after both."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_DECODE_CLM), device=cuda, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0))
+    before = {n: p.clone() for n, p in model.named_parameters()}
+    config = generation.GenerationConfig(max_new_tokens=21)
+    ids = np.random.default_rng(4).integers(0, 262, size=(2, 64))
+    prefill, step = generation.make_decode_fns(model, 16, config, cache_dtype, torch.int8, device=cuda)
+    eager = generation._eager_step(model, config, cuda, step.body.body)
+    streams, logits = {}, {}
+    for name, body in (("graph", step), ("eager", eager)):
+        token, state = prefill(ids)
+        streams[name], logits[name] = [token.clone()], []
+        for _ in range(20):
+            state, token = body(state)
+            streams[name].append(token.clone())
+            logits[name].append(state["logits"].clone())
+    assert isinstance(step.body, generation._GraphedStep) and step.body.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(streams["graph"], streams["eager"]))
+    assert all(torch.equal(a, b) and torch.isfinite(a).all() for a, b in zip(logits["graph"], logits["eager"]))
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
 
 
 def test_graph_replays_count_their_launches(cuda):

@@ -1,14 +1,15 @@
-"""The paged decode's route at geometries the paged kernel K3 does not take.
+"""The paged decode's route at wide heads and int8 pools.
 
 The engine at head dim 160 (320 channels in 2 heads, which the JAX
-package's own paged kernel refuses too) on the CPU: the paged decode takes
-the gather route (one gather per pool, then the dense decode attention), and
-the served stream equals the port's sequential ``make_decode_fns`` stream and
-the JAX engine's stream, token for token (greedy, from the same parameters).
-The port's copy of the JAX kernel's gate agrees with the JAX function; on
-the CPU the gather route also serves the geometries only the JAX kernel
-takes (the card refuses those, tests/test_torch_cuda.py): heads wider than
-128, in f32 or bf16 pools (K3 takes both dtypes)."""
+package's own paged kernel refuses) on the CPU: K3 takes heads up to 512, so
+its wrapper runs its plain version there (one gather per pool, then dense
+attention), and the served stream equals the port's sequential
+``make_decode_fns`` stream and the JAX engine's stream, token for token
+(greedy, from the same parameters). The port's copy of the JAX kernel's gate
+agrees with the JAX function, on float and int8 pools (JAX keeps int8 off its
+kernel, and so does K3's gate); on the CPU the gather route serves the
+geometries only the JAX kernel takes (the card refuses those,
+tests/test_torch_cuda.py): heads wider than 512, in f32 or bf16 pools."""
 
 import jax
 import jax.numpy as jnp
@@ -62,7 +63,7 @@ def test_head_dim_160_engine_serves_by_the_gather_route(models):
     spec = _spec()
     engine = EngineFrontEnd(tm, num_latents=NUM_LATENTS, device="cpu", engine_config=EngineConfig(**ENGINE))
     h, d = CONFIG["num_heads"], CONFIG["num_channels"] // CONFIG["num_heads"]
-    assert not any(paged_kernel_supported(pool, h, d, d) for pool in engine._state["cache"])
+    assert all(paged_kernel_supported(pool, h, d, d) for pool in engine._state["cache"])
     records = engine.run_closed([RequestSpec(**spec)], concurrency=1)
     assert [r.outcome for r in records] == ["ok"]
     assert engine.ca_alloc.pages_used == 0 and engine.sa_alloc.pages_used == 0
@@ -85,13 +86,16 @@ def test_head_dim_160_engine_serves_by_the_gather_route(models):
 
 
 @pytest.mark.parametrize("heads,d,page_size,dtype", [
-    (2, 160, 8, "float32"),   # 320 channels: both gather
-    (2, 192, 8, "float32"),   # 384: the JAX kernel serves, K3 (head dims <= 128) does not
-    (2, 192, 8, "bfloat16"),  # 384 in bf16: the JAX kernel serves, K3 (head dims <= 128) does not
+    (2, 160, 8, "float32"),   # 320 channels: the JAX kernel refuses, K3 serves
+    (2, 192, 8, "float32"),   # 384: both kernels (K3 takes heads up to 512)
+    (2, 192, 8, "bfloat16"),  # 384 in bf16: both kernels
     (8, 64, 8, "float32"),    # the flagship's heads: both kernels
     (2, 64, 4, "float32"),    # pages below 8 rows: the JAX kernel refuses
     (3, 40, 8, "float32"),    # 120 channels
     (4, 32, 16, "float32"),
+    (8, 64, 8, "int8"),       # int8 pools: both packages gather
+    (2, 192, 16, "int8"),
+    (2, 640, 8, "float32"),   # 1280: the JAX kernel serves, K3 (heads up to 512) does not
 ])
 def test_the_route_gate_copies_the_jax_kernels_gate(heads, d, page_size, dtype):
     c = heads * d
@@ -100,10 +104,27 @@ def test_the_route_gate_copies_the_jax_kernels_gate(heads, d, page_size, dtype):
     assert reference_kernel_geometry(tcache, heads, d, d) == jax_paged_kernel_supported(jcache, heads, d, d)
 
 
-@pytest.mark.parametrize("heads,d,dtype", [(2, 192, torch.float32), (2, 192, torch.bfloat16)])
+@pytest.mark.parametrize("heads,d,dtype,served", [
+    (8, 64, torch.float32, True),
+    (2, 160, torch.float32, True),    # wide heads, up to 512, in both builds
+    (2, 256, torch.bfloat16, True),
+    (1, 512, torch.float32, True),
+    (1, 513, torch.float32, False),
+    (2, 640, torch.bfloat16, False),
+    (8, 64, torch.int8, False),       # int8 pools take the gather route
+    (2, 192, torch.int8, False),
+])
+def test_k3s_gate_takes_heads_up_to_512_and_no_int8_pool(heads, d, dtype, served):
+    c = heads * d
+    tcache = init_paged_kv_cache(2, 3, 8, 1, c, c, dtype=dtype, device="cpu")
+    assert paged_kernel_supported(tcache, heads, d, d) == served
+
+
+@pytest.mark.parametrize("heads,d,dtype", [(2, 640, torch.float32), (2, 640, torch.bfloat16)])
 def test_cpu_gathers_where_only_the_jax_kernel_serves(heads, d, dtype):
-    """On the CPU the gather route serves pools K3 cannot take, and gives
-    K3's plain version over the same pools, projected."""
+    """On the CPU the gather route serves pools K3 cannot take (heads of 640,
+    over K3's 512), and gives K3's plain version over the same pools,
+    projected."""
     c, slots, page = heads * d, 2, 8
     torch.manual_seed(0)
     layer = MultiHeadAttention(heads, c, c, causal_attention=True).to(dtype)

@@ -129,7 +129,8 @@ class _Routes:
             fn = getattr(tattention, name)
             monkeypatch.setattr(tattention, name, self._spy(name, fn))
         dense = MultiHeadAttention._dense
-        monkeypatch.setattr(MultiHeadAttention, "_dense", lambda mha, *a: self.calls.append("dense") or dense(mha, *a))
+        monkeypatch.setattr(MultiHeadAttention, "_dense",
+                            lambda mha, *a, **kw: self.calls.append("dense") or dense(mha, *a, **kw))
 
     def _spy(self, name, fn):
         def spy(*a, **kw):

@@ -439,11 +439,25 @@ def test_default_registry_shares_the_injected_clock(models, tmp_path):
     assert fe.registry._clock is fe._clock
 
 
-def test_unported_options_raise(models):
+def test_unported_options_raise(models, tmp_path):
+    """The probes (ROADMAP A11) still raise; int8 weights (A10) serve: a
+    front end with ``weight_dtype=torch.int8`` books the same outcomes and
+    token counts as JAX's with ``jnp.int8`` (the streams' equality is
+    ``tests/test_torch_int8.py``'s)."""
     tm = models["torch"][0]
     with pytest.raises(NotImplementedError, match="A11"):
         torch_serving.FrontEndConfig(probes=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        torch_serving.RequestFrontEnd(tm, weight_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         torch_generation.make_instrumented_generate_fn(tm, 4, probes=True, device="cpu")
+    fes = {}
+    for side, dtype in (("torch", torch.int8), ("jax", jnp.int8)):
+        ns = SIDES[side]
+        clock = ns.serving.ManualClock()
+        extra = {} if side == "jax" else {"device": "cpu"}
+        fe = ns.serving.RequestFrontEnd(*models[side], num_latents=4, weight_dtype=dtype, clock=clock,
+                                        sleep=clock.sleep, **extra)
+        fe.run_closed(spec_for(ns).draw(3, 50), concurrency=1)
+        fes[side] = fe
+    assert fes["torch"].books()["ok"] == 3 and fes["torch"].books() == fes["jax"].books()
+    assert [(r.outcome, r.tokens_out) for r in fes["torch"].records] == \
+        [(r.outcome, r.tokens_out) for r in fes["jax"].records]

@@ -142,7 +142,8 @@ def test_paged_append_commit_release_match_jax_exactly():
     for name in ("k", "v", "page_table", "length"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)), err_msg=name)
     jk, jv, _, _ = jp.gather_view()
-    tk, tv = tp.gather_view()
+    tk, tv, tks, tvs = tp.gather_view()
+    assert tks is None and tvs is None and not tp.quantized
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
@@ -153,9 +154,57 @@ def test_paged_append_rejects_multi_token():
         tp.append(torch.zeros(1, 2, 8), torch.zeros(1, 2, 8))
 
 
-def test_int8_cache_is_refused():
-    with pytest.raises(ValueError, match="float KV caches"):
-        tcache.init_paged_kv_cache(1, 3, 4, 2, 8, 8, dtype=torch.int8, device="cpu")
+def _bf16_bits(x) -> np.ndarray:
+    """A bf16 array's bits, from either package (numpy has no bf16)."""
+    if torch.is_tensor(x):
+        return x.view(torch.int16).numpy()
+    return np.asarray(x).view(np.int16)
+
+
+def test_int8_paged_append_commit_release_match_jax_exactly():
+    """The int8 counterpart of the float test above: int8 pools and an int8
+    prefill cache, the rows quantized by ``quantize_kv`` at every write
+    (commit, one-token appends, a span append), and the scale planes moved
+    beside the rows: the pools, the scale planes (bf16 bits), the table, the
+    lengths and the 4-tuple gather view all equal JAX's exactly. A quantized
+    cache committed into a float pool (and the reverse) raises, as in JAX."""
+    rng = np.random.default_rng(2)
+    c, slots, pps, page = 16, 3, 3, 4
+    jp = jcache.init_paged_kv_cache(slots, 1 + slots * pps, page, pps, c, c, dtype=jnp.int8)
+    tp = tcache.init_paged_kv_cache(slots, 1 + slots * pps, page, pps, c, c, dtype=torch.int8, device="cpu")
+    assert tp.quantized and tp.k_scale.shape == (1 + slots * pps, page) and tp.k_scale.dtype == torch.bfloat16
+    rows_k, rows_v = (rng.standard_normal((1, 7, c)).astype(np.float32) * 3 for _ in range(2))
+    jpre = jcache.init_kv_cache(1, 9, c, c, dtype=jnp.int8).append(jnp.asarray(rows_k), jnp.asarray(rows_v))
+    tpre = tcache.init_kv_cache(1, 9, c, c, dtype=torch.int8, device="cpu")
+    tpre = tpre.append(torch.from_numpy(rows_k), torch.from_numpy(rows_v))
+    pages = np.asarray([5, 2], np.int32)
+    jp = jcache.commit_prefill(jp, 1, jnp.asarray(pages), jpre, jpre.length)
+    tp = tcache.commit_prefill(tp, 1, torch.from_numpy(pages), tpre, tpre.length)
+    for _ in range(3):
+        k, v = (rng.standard_normal((slots, 1, c)).astype(np.float32) for _ in range(2))
+        jp = jp.append(jnp.asarray(k), jnp.asarray(v))
+        tp = tp.append(torch.from_numpy(k), torch.from_numpy(v))
+    k, v = (rng.standard_normal((slots, 2, c)).astype(np.float32) for _ in range(2))
+    jp = jp.append_span(jnp.asarray(k), jnp.asarray(v))
+    tp = tp.append_span(torch.from_numpy(k), torch.from_numpy(v))
+    for name in ("k", "v", "page_table", "length"):
+        np.testing.assert_array_equal(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)), err_msg=name)
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_array_equal(_bf16_bits(getattr(tp, name)), _bf16_bits(getattr(jp, name)), err_msg=name)
+    for got, want in zip(tp.gather_view(), jp.gather_view()):
+        if got.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jp = jcache.release_slot(jp, 1)
+    tp = tcache.release_slot(tp, 1)
+    assert tp.quantized and tp.page_table.tolist() == np.asarray(jp.page_table).tolist()
+    fpool = tcache.init_paged_kv_cache(slots, 1 + slots * pps, page, pps, c, c, device="cpu")
+    with pytest.raises(ValueError, match="prefill cache is int8"):
+        tcache.commit_prefill(fpool, 0, torch.from_numpy(pages), tpre, tpre.length)
+    fpre = tcache.init_kv_cache(1, 9, c, c, device="cpu")
+    with pytest.raises(ValueError, match="paged cache is int8"):
+        tcache.commit_prefill(tp, 0, torch.from_numpy(pages), fpre, 0)
 
 
 def test_page_allocator_matches_jax_history():
