@@ -172,7 +172,31 @@ Phases, each fatal on failure (nothing is caught to keep the exit code 0):
 24. beam_bf16 (A10): ``beam_search`` of the bf16 flagship over a
     4096-token prompt, 64 new tokens, one beam (equal to the sequential
     stream up to its first near tie) and four (one captured step a call, K1
-    nodes only), tok/s beside ``generate``'s.
+    nodes only), tok/s beside ``generate``'s;
+25. load_bf16 (A11.2): ``obs.loadgen.run_load`` through the instrumented
+    pair at the flagship (bf16), each prompt length's capture paid before
+    the window, then 128 warm requests of a closed loop at concurrency 2 and
+    128 of an open loop at half the closed loop's service rate, TTFT, TPOT
+    and tok/s,
+    each log's ``build_slo_report`` agreeing with ``summarize_load``; a
+    ``FlightRecorder`` bound under the measured TTFT writes exactly one dump
+    naming the breaching request; an ``ObsServer`` answers ``/metrics``,
+    ``/slo`` and ``/healthz`` over an ``EngineFrontEnd`` while it serves (K3
+    launches, books balanced); then profile_rollup (A11.3):
+    ``obs.profiler.rollup`` of one eager bf16 train step (K2, K4a, K4b, K1
+    under ``train_step``) and one graphed serve (K3 under
+    ``decode_paged``).
+
+The probes (ROADMAP A11.3): train_probes_bf16 (after fit_bf16) runs
+train_bf16's graphed step with ``ProbeConfig()`` (losses equal bit for bit,
+train_bf16's hand-written kernel nodes plus the stats' reductions, each
+step's snapshot a copy, step ms beside train_bf16's) and a probed, sentineled
+``Trainer.fit`` whose NaN batch emits one ``probe.blast`` naming a gradient
+bucket; decode_probes_bf16 (after decode_pair) runs decode_pair's batch-1
+prompt in bf16 with ``probes=True`` (the unprobed stream token for token,
+every ``kv_cache_frac`` the host's, tok/s beside the unprobed pair's), and a
+``RequestFrontEnd(FrontEndConfig(probes=True))`` request on poisoned weights
+opens the breaker through the ``nonfinite-logits`` sentinel.
 
 The training options (ROADMAP A4), each a train pair (graph and eager, from
 the same seed, weights, batch and keep sets) of the flagship:
@@ -4275,6 +4299,394 @@ def image_grad_check_bf16_phase(card: str) -> None:
         raise SystemExit(f"image_grad_check_bf16: key-bias gradients {zero_max} > {IMAGE_ZERO_GRAD_BF16 * scale}")
 
 
+# ---------------------------------------------------------------------------
+# telemetry (ROADMAP A11.2 + A11.3): probes in the captured steps, the load
+# runner, the SLO report, the scrape server, the flight recorder, the rollup
+# ---------------------------------------------------------------------------
+
+# train_probes_bf16's trainer: a fit of this many steps over fit_batches with
+# its NaN batch at FIT_PROBE_POISON (1-based), a log row every 2 steps
+FIT_PROBE_STEPS, FIT_PROBE_POISON = 4, 3
+# load_bf16: the load runner's requests (2048 and 8192-token prompts, budgets
+# of 32, the serve's range), the requests of each measured loop (all warm: a
+# TTFT p99 over 128 samples), the closed loop's concurrency, and the open
+# loop's rate as a share of what the closed loop's requests sustain
+LOAD_PROMPTS, LOAD_BUDGETS, LOAD_REQUESTS, LOAD_CONCURRENCY, LOAD_RATE_SHARE = (2048, 8192), (32,), 128, 2, 0.5
+
+
+class EventRelay:
+    """An event sink that forwards to ``target`` and drops rows while it is
+    None: generate fns bind their sink when built, so a warm-up through the
+    same fns stays out of the measured runs' logs."""
+
+    target = None
+
+    def emit(self, event: str, **fields) -> None:
+        if self.target is not None:
+            self.target.emit(event, **fields)
+
+    def emit_rows(self, event: str, rows) -> None:
+        if self.target is not None:
+            self.target.emit_rows(event, rows)
+
+
+def flagship_bf16():
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    return CausalLanguageModel(CausalLanguageModelConfig(**FLAGSHIP), device="cuda",
+                               generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16)
+
+
+def train_probes_bf16_phase(card: str, train_bf16: dict) -> dict:
+    """train_bf16's graphed step with ``ProbeConfig()``: the same seed,
+    weights, batch and keep sets for its five steps. Its graph holds
+    train_bf16's hand-written kernel nodes, in kind and count, plus the
+    stats' reductions; its losses equal train_bf16's bit for bit; step ms
+    beside train_bf16's graph step. Steps 4 and 5 are consecutive replays:
+    their snapshots hold different stats, and step 4's reads the same after
+    step 5 (copies, not the graph's buffers). Then ``Trainer.fit`` with
+    probes and the sentinel over ``fit_batches`` with a NaN batch at
+    ``FIT_PROBE_POISON``: one ``probe.blast`` at that step, ``trigger``
+    skip, its scope a gradient bucket (the poison multiplies the loss: every
+    activation stays finite), ``probe`` rows at the log boundaries. Returns
+    the five steps' launches."""
+    import os
+    import tempfile
+
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.obs import probes
+    from perceiver_io_tpu_torch.ops import build
+
+    model = flagship_bf16()
+    n, lat = FLAGSHIP["max_seq_len"], FLAGSHIP["max_latents"]
+    rng = np.random.default_rng(SEED)
+    t = torch.from_numpy(rng.integers(0, FLAGSHIP["vocab_size"], size=(TRAIN_BATCH, n + 1))).cuda()
+    tokens = {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None}
+    state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16"))
+    step = tt.make_train_step(poisonable(tt.clm_loss_fn(lat)), microbatch=TRAIN_MICROBATCH, sentinel=True,
+                              probes=probes.ProbeConfig())
+    per_step = train_per_step("concat", "", BF16)
+    losses, step_ms, snaps = [], [], []
+    build.reset_launches()
+    for i in range(TRAIN_STEPS):
+        b = dict(tokens, prefix_keep_idx=tt.sample_prefix_keep_idx(rng, TRAIN_BATCH, n - lat, 0.5),
+                 poison=np.ones(TRAIN_BATCH, np.float32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        snaps.append(metrics["probes"])
+        if i == 0:
+            check_graph("train_probes_bf16", step.captured.graph, nonzero_launches(), per_step)
+    launches = dict(build.LAUNCHES)
+    fourth, fifth = probes.snapshot_to_host(snaps[3]), probes.snapshot_to_host(snaps[4])
+    fourth_again = probes.snapshot_to_host(snaps[3])
+    names = list(dict.fromkeys(k for ks in GRAPH_KERNELS.values() for k in ks))
+    probed_nodes, plain_nodes = GRAPH_NODES["train_probes_bf16"]["nodes"], GRAPH_NODES["train_bf16"]["nodes"]
+    report = {
+        "card": card, "scopes": len(fifth), "first_scopes": list(fifth)[:4],
+        "losses": losses, "train_bf16_losses": train_bf16["graph"]["losses"],
+        "median_step_ms": {"probes": statistics.median(step_ms), "no_probes": train_bf16["graph"]["median_step_ms"]},
+        "kernel_nodes": {"probes": probed_nodes["kernel nodes"], "no_probes": plain_nodes["kernel nodes"]},
+        "step_4_and_5_differ": fourth != fifth, "step_4_unchanged_by_step_5": fourth == fourth_again,
+        "step_5_finite": all(math.isfinite(v) for st in fifth.values() for v in st.values()),
+    }
+    report["probe_overhead_ms"] = report["median_step_ms"]["probes"] - report["median_step_ms"]["no_probes"]
+    log("train_probes_bf16: " + json.dumps(report))
+    if losses != train_bf16["graph"]["losses"]:
+        raise SystemExit(f"train_probes_bf16: losses {losses} are not train_bf16's {train_bf16['graph']['losses']}")
+    if {k: probed_nodes[k] for k in names} != {k: plain_nodes[k] for k in names}:
+        raise SystemExit(f"train_probes_bf16: hand-written kernel nodes {probed_nodes} are not train_bf16's "
+                         f"{plain_nodes}")
+    if not probed_nodes["kernel nodes"] > plain_nodes["kernel nodes"]:
+        raise SystemExit("train_probes_bf16: the probed graph holds no reduction of its own")
+    if not (report["step_4_and_5_differ"] and report["step_4_unchanged_by_step_5"] and report["step_5_finite"]):
+        raise SystemExit(f"train_probes_bf16: the snapshots are not per-step copies: {report}")
+    TIMES["train_probes_bf16_median_ms"] = report["median_step_ms"]
+    del state, step, snaps, model
+    free_card()
+
+    # the trainer: probes + sentinel, one NaN batch
+    config, schedule, state = fit_state()
+    with tempfile.TemporaryDirectory() as root:
+        trainer = tt.Trainer(poisonable(tt.clm_loss_fn(lat)), config=tt.TrainerConfig(
+            max_steps=FIT_PROBE_STEPS, log_interval=2, microbatch=TRAIN_MICROBATCH, prefetch_batches=2,
+            sentinel=True, probes=True), logger=tt.MetricsLogger(os.path.join(root, "logs"), use_tensorboard=False),
+            lr_schedule=schedule)
+        trainer.fit(state, fit_batches((FIT_PROBE_POISON,)), model_config=config)
+        trainer.close()
+        with open(os.path.join(root, "logs", "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+    blasts = [e for e in events if e["event"] == "probe.blast"]
+    probe_rows = [e["step"] for e in events if e["event"] == "probe"]
+    report = {"card": card, "blasts": [{k: b[k] for k in ("step", "trigger", "scope", "n_affected", "n_scopes")}
+                                       for b in blasts], "probe_rows": probe_rows}
+    log("train_probes_bf16 fit: " + json.dumps(report))
+    b = blasts[0] if len(blasts) == 1 else None
+    if (b is None or b["step"] != FIT_PROBE_POISON or b["trigger"] != "skip" or not b["scope"].startswith("grad.")
+            or not all(s.startswith(("grad.", "update.")) for s in b["affected"]) or not probe_rows):
+        raise SystemExit(f"train_probes_bf16 fit: the blast is not the poisoned step's gradient: {report}")
+    del state, trainer
+    free_card()
+    return launches
+
+
+def decode_probes_bf16_phase(card: str) -> dict:
+    """The decode pair (decode_pair's batch-1 8192-token prompt, 128 greedy
+    tokens, bf16 compute, f32 caches) with ``probes=True``: its stream token
+    for token the unprobed pair's, each token's ``kv_cache_frac`` the host's
+    ``(length - start) / capacity``, no non-finite logit; decode tok/s of
+    both. Then a ``RequestFrontEnd(FrontEndConfig(probes=True))`` request
+    on poisoned weights (``FaultInjector.poison_at``) opens the breaker
+    through the ``nonfinite-logits`` sentinel and the next request sheds
+    ``breaker_open``; the weights come back unchanged. Returns the probed
+    pair's launches."""
+    import tempfile
+
+    from perceiver_io_tpu_torch import generation, serving
+    from perceiver_io_tpu_torch.obs.events import EventLog, merged_events
+    from perceiver_io_tpu_torch.ops import build
+
+    model = flagship_bf16()
+    new = DECODE_NEW_TOKENS
+    config = generation.GenerationConfig(max_new_tokens=new)
+    ids = np.random.default_rng(SEED + 4).integers(0, FLAGSHIP["vocab_size"], size=(1, DECODE_PROMPT))
+    runs = {}
+    for probes in (False, True):
+        prefill, step = generation.make_decode_fns(model, NUM_LATENTS, config, torch.float32, probes=probes,
+                                                   device="cuda")
+        build.reset_launches()
+        token, state = prefill(ids)
+        tokens, healths = [token], []
+        for i in range(new - 1):
+            if probes:
+                healths.append({k: v.clone() for k, v in state["probe"].items()})
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, token = step(state)
+            tokens.append(token)
+        torch.cuda.synchronize()
+        runs[probes] = {"stream": torch.stack(tokens, 1).cpu(), "tok_s": (new - 2) / (time.perf_counter() - t0),
+                        "healths": healths, "launches": nonzero_launches()}
+        del prefill, step, state
+    capacity = DECODE_PROMPT + new
+    frac = [float(np.float32(DECODE_PROMPT + i) / np.float32(capacity)) for i in range(new - 1)]
+    got = [float(h["kv_cache_frac"]) for h in runs[True]["healths"]]
+    report = {"card": card, "tok_s": {"probes": runs[True]["tok_s"], "no_probes": runs[False]["tok_s"]},
+              "streams_equal": torch.equal(runs[True]["stream"], runs[False]["stream"]),
+              "kv_cache_frac_equal_host": got == frac,
+              "nonfinite_logit_frac_max": max(float(h["nonfinite_logit_frac"]) for h in runs[True]["healths"]),
+              "logit_entropy_first_last": [float(runs[True]["healths"][i]["logit_entropy"]) for i in (0, -1)]}
+    TIMES["decode_probes_bf16_tok_s"] = report["tok_s"]
+    log("decode_probes_bf16: " + json.dumps(report))
+    if not (report["streams_equal"] and report["kv_cache_frac_equal_host"]) or report["nonfinite_logit_frac_max"]:
+        raise SystemExit(f"decode_probes_bf16: {report}")
+
+    # the breaker's sentinel feed on the card
+    from perceiver_io_tpu_torch.serving import RequestSpec
+
+    rng = np.random.default_rng(SEED + 5)
+    specs = [RequestSpec(i, 2048, 8, rng.integers(0, FLAGSHIP["vocab_size"], size=(1, 2048)), i) for i in range(2)]
+    before = [p.detach().clone() for p in model.parameters()]
+    with tempfile.TemporaryDirectory() as out:
+        clock = serving.ManualClock()
+        fe = serving.RequestFrontEnd(model, num_latents=NUM_LATENTS, config=serving.FrontEndConfig(probes=True),
+                                     events=EventLog(out, main_process=True), clock=clock, sleep=clock.sleep,
+                                     injector=serving.FaultInjector().poison_at(0), device="cuda")
+        recs = fe.run_closed(specs, concurrency=1)
+        rows = merged_events(out)
+    breaker = [e["reason"] for e in rows if e.get("event") == "serve.breaker"]
+    nonfinite = [e.get("nonfinite_logit_frac") for e in rows if e.get("event") == "request"]
+    restored = all(torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    report = {"card": card, "outcomes": [(r.outcome, r.shed_reason) for r in recs], "breaker": fe.breaker.state,
+              "reasons": breaker, "nonfinite_logit_frac": nonfinite, "weights_restored": restored}
+    log("decode_probes_bf16 breaker: " + json.dumps(report))
+    if (report["outcomes"] != [("ok", None), ("shed", "breaker_open")] or report["breaker"] != "open"
+            or breaker[:1] != ["nonfinite-logits"] or not nonfinite or not nonfinite[0] > 0 or not restored):
+        raise SystemExit(f"decode_probes_bf16: the poisoned request did not open the breaker: {report}")
+    launches = runs[True]["launches"]
+    del model, fe, runs, before
+    free_card()
+    return launches
+
+
+def load_bf16_phase(card: str) -> dict:
+    """The load runner at the flagship (bf16 compute, f32 caches). One
+    request of each prompt length first captures its decode step on the
+    fns (its rows dropped, the registry's latency histograms then reset),
+    so that the measured loops hold no capture: a closed loop of
+    ``LOAD_REQUESTS`` at concurrency ``LOAD_CONCURRENCY``, then an open loop
+    of as many at ``LOAD_RATE_SHARE`` of the closed loop's service rate, on
+    the same fns, each into an event log of its own (the histograms reset
+    between them); TTFT, TPOT p50/p99 and tok/s of both, each window's
+    requests all warm; ``build_slo_report`` over each log agrees with
+    ``summarize_load``'s request and token counts. A ``FlightRecorder``
+    wraps the closed loop's log with no bounds (no dump); its TTFT bound is
+    then set below the closed loop's least TTFT and one request on the same
+    fns writes exactly one dump, naming that request's span. Then an
+    ``ObsServer`` over an ``EngineFrontEnd`` (the serve's geometry, bf16
+    pools) answers ``/metrics``, ``/slo`` and ``/healthz`` while a thread
+    serves four of the serve's requests; the engine launches K3. Returns the
+    engine serve's launches."""
+    import os
+    import tempfile
+    import threading
+    import urllib.request
+
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.obs.events import EventLog, merged_events, validate_events
+    from perceiver_io_tpu_torch.obs.flightrec import FlightRecorder, SLOBounds
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec, run_load
+    from perceiver_io_tpu_torch.obs.metrics import MetricsRegistry
+    from perceiver_io_tpu_torch.obs.server import ObsServer
+    from perceiver_io_tpu_torch.obs.slo import build_slo_report
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd
+
+    model = flagship_bf16()
+    spec = WorkloadSpec(seed=SEED, prompt_lens=LOAD_PROMPTS, max_new_tokens=LOAD_BUDGETS)
+    relay, registry = EventRelay(), MetricsRegistry()
+    kw = dict(num_latents=NUM_LATENTS, base_config=generation.GenerationConfig(), snapshot_interval_s=0.0,
+              events=relay, registry=registry, device="cuda")
+
+    def fresh_window(target):
+        relay.target = target
+        for name in ("generate_ttft_s", "generate_tpot_s", "generate_queue_wait_s"):
+            registry.histogram(name).reset()
+
+    fns, t0 = {}, time.perf_counter()
+    for length in LOAD_PROMPTS:
+        fns = run_load(model, dataclasses.replace(spec, prompt_lens=(length,)), n_requests=1, generate_fns=fns,
+                       **kw).generate_fns
+    warm_up_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp()
+    rec = FlightRecorder(EventLog(os.path.join(root, "closed"), main_process=True), slo=SLOBounds())
+    fresh_window(rec)
+    closed = run_load(model, spec, mode="closed", n_requests=LOAD_REQUESTS, concurrency=LOAD_CONCURRENCY,
+                      generate_fns=fns, **kw)
+    rate = LOAD_RATE_SHARE * len(closed.records) / sum(r.ttft_s + r.decode_s for r in closed.records)
+    fresh_window(EventLog(os.path.join(root, "open"), main_process=True))
+    open_ = run_load(model, spec, mode="open", n_requests=LOAD_REQUESTS, rate_rps=rate, generate_fns=fns, **kw)
+    report = {"card": card, "spec": spec.to_dict(), "warm_up_s": warm_up_s}
+    for name, run in (("closed", closed), ("open", open_)):
+        s = run.summary
+        stream = merged_events(os.path.join(root, name))
+        slo = build_slo_report(stream)
+        problems = validate_events(os.path.join(root, name), warnings_out=[])
+        report[name] = {k: s.get(k) for k in ("n_requests", "concurrency", "target_rps", "achieved_rps",
+                                              "throughput_tok_s", "n_cold", "ttft_s", "tpot_s", "queue_wait_s",
+                                              "breakdown_ms")}
+        report[name]["slo"] = {k: slo.get(k) for k in ("n_requests", "outcomes", "tokens_out", "ttft_s", "tpot_s")}
+        if (slo["n_requests"] != s["n_requests"] or slo["outcomes"].get("ok", 0) != s["n_requests"] - s["errors"]
+                or slo["tokens_out"] != s["tokens_out"] or s["errors"] or problems):
+            raise SystemExit(f"load_bf16 {name}: the SLO report disagrees with the load summary, or the stream is "
+                             f"invalid ({problems}): {report[name]}")
+        if s["n_cold"] or s["n_requests"] != LOAD_REQUESTS or s.get("tpot_s", {"low_n": True}).get("low_n"):
+            raise SystemExit(f"load_bf16 {name}: a capture inside the window, or too few samples: {report[name]}")
+    if rec.dumps:
+        raise SystemExit(f"load_bf16: the recorder dumped without bounds: {rec.dumps}")
+    rec.slo = SLOBounds(ttft_s=0.5 * min(r.ttft_s for r in closed.records))
+    relay.target = rec
+    run_load(model, spec, n_requests=1, generate_fns=fns, **kw)
+    last = [e for e in merged_events(os.path.join(root, "closed")) if e.get("event") == "request"][-1]
+    dump = json.load(open(rec.dumps[0])) if len(rec.dumps) == 1 else {}
+    report["flight"] = {"dumps": [os.path.basename(p) for p in rec.dumps], "ttft_bound_s": rec.slo.ttft_s,
+                        "trigger_span_is_the_request": dump.get("trigger_span_id") == last.get("span_id")}
+    TIMES["load_bf16"] = {k: report[k] for k in ("closed", "open")}
+    if report["flight"]["dumps"] != ["flight-slo_ttft-1.json"] or not report["flight"]["trigger_span_is_the_request"]:
+        raise SystemExit(f"load_bf16: the planted TTFT breach wrote {report['flight']}")
+    del closed, open_, rec
+
+    # the scrape server over the engine while it serves
+    out = os.path.join(root, "engine")
+    engine = EngineFrontEnd(model, num_latents=NUM_LATENTS, engine_config=EngineConfig(**SERVE_GEOMETRY),
+                            cache_dtype=torch.bfloat16, events=EventLog(out, main_process=True), device="cuda")
+    specs = serve_specs()[:4]
+    scrapes, failures = [], []
+    build.reset_launches()
+    with ObsServer(registry=engine.registry, run_dir=out, health=engine.health) as server:
+        worker = threading.Thread(target=lambda: engine.run_closed(specs, concurrency=len(specs)))
+        worker.start()
+        while worker.is_alive() or len(scrapes) < 3:
+            for path in ("/metrics", "/slo", "/healthz"):
+                try:
+                    with urllib.request.urlopen(server.url + path, timeout=30) as r:
+                        scrapes.append((path, r.status, len(r.read())))
+                except Exception as e:  # noqa: BLE001 -- reported below
+                    failures.append((path, repr(e)))
+            time.sleep(0.05)
+        worker.join()
+        torch.cuda.synchronize()
+        with urllib.request.urlopen(server.url + "/slo", timeout=30) as r:
+            final = json.loads(r.read())
+        with urllib.request.urlopen(server.url + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+    launches = nonzero_launches()
+    report["server"] = {"scrapes": len(scrapes), "failures": failures[:3], "slo_n_requests": final.get("n_requests"),
+                        "books": engine.books(), "k3_launches": launches.get("paged_decode" + BF16, 0),
+                        "metrics_lines": metrics.count("\n")}
+    log("load_bf16: " + json.dumps(report))
+    if (failures or any(status != 200 for _, status, _ in scrapes) or final.get("n_requests") != len(specs)
+            or not engine.books()["balanced"] or not report["server"]["k3_launches"]
+            or "engine_batch_fill_frac" not in metrics):
+        raise SystemExit(f"load_bf16: the server over the serving engine: {report['server']}")
+    del engine, model
+    free_card()
+    return launches
+
+
+def profile_rollup_phase(card: str) -> None:
+    """``obs.profiler.rollup`` over one eager train step (train_bf16's, after
+    one eager step outside the profile) and one graphed serve (the engine's
+    captured step, two of the serve's requests): the top scopes and kernels
+    of each; K2, K4a, K4b and K1's bf16 builds under the ``train_step``
+    scope, K3's under ``decode_paged`` (the replays' kernels under the
+    replay's scope)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.obs import profiler
+    from perceiver_io_tpu_torch.serving import EngineConfig, EngineFrontEnd
+
+    model = flagship_bf16()
+    batch = next(fit_batches())
+    state = tt.TrainState.create(model, tt.make_optimizer(TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16"))
+    step = tt.make_train_step(poisonable(tt.clm_loss_fn(FLAGSHIP["max_latents"])), microbatch=TRAIN_MICROBATCH,
+                              jit=False)
+    step(state, batch)
+    torch.cuda.synchronize()
+    engine = EngineFrontEnd(model, num_latents=NUM_LATENTS, engine_config=EngineConfig(**SERVE_GEOMETRY),
+                            cache_dtype=torch.bfloat16, device="cuda")
+    runs = {}
+    for name, fn in (("train_step", lambda: step(state, batch)),
+                     ("serve", lambda: engine.run_closed(serve_specs()[:2], concurrency=2))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        planes = {r.plane: r for r in profiler.rollup(prof)}
+        device = [r for p, r in planes.items() if p.startswith("/device")]
+        if not device:
+            raise SystemExit(f"profile_rollup {name}: no device plane in the capture ({sorted(planes)})")
+        runs[name] = device[0]
+        log(f"profile_rollup {name}: " + json.dumps({
+            "card": card, "plane": device[0].plane, "total_ms": device[0].total_ps / 1e9,
+            "top_scopes": [[s, d / 1e9, c] for s, d, c in device[0].top(6)],
+            "top_kernels": [[op[:120], d / 1e9, c] for op, d, c in device[0].top_ops(8)]}))
+    want = {"train_step": ("flash_packed_kernel", "flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                           "_layer_norm_fwd_kernel"), "serve": ("paged_walk_kernel", "paged_merge_kernel")}
+    for name, kernels in want.items():
+        scope = "train_step" if name == "train_step" else "decode_paged"
+        missing = [k for k in kernels if not any(op.split("/")[0] == scope and k in op for op in runs[name].ops)]
+        if missing:
+            raise SystemExit(f"profile_rollup {name}: {missing} not under the {scope} scope: "
+                             f"{[op[:100] for op, _, _ in runs[name].top_ops(20)]}")
+    del state, step, engine, model
+    free_card()
+
+
 def kernel_name(mangled: str) -> str:
     """A mangled kernel's name and template arguments, e.g.
     ``heads_fwd_kernel<264>``, ``flash_packed_kernel<F32,64>`` (a
@@ -4551,9 +4963,13 @@ def main() -> None:
     # the trainer (ROADMAP A5): Trainer.fit around train_bf16's captured step
     by_phase["fit_bf16"] = fit_phase(card)
     free_card()
+    # numerics probes in train_bf16's captured step and the trainer (A11.3)
+    by_phase["train_probes_bf16"] = train_probes_bf16_phase(card, train_bf16)
     # the contiguous decode pair (make_decode_fns, generate) as a CUDA graph
     by_phase["decode_pair"] = decode_pair_phase(card)
     free_card()
+    # its decode health gauges, and the breaker's sentinel feed (A11.3)
+    by_phase["decode_probes_bf16"] = decode_probes_bf16_phase(card)
     # generate on int8 caches and int8 weights at bench.py's geometries
     by_phase["decode_int8_bf16"] = decode_int8_bf16_phase(card)
     free_card()
@@ -4589,6 +5005,10 @@ def main() -> None:
     free_card()
     by_phase["beam_bf16"] = beam_bf16_phase(card)
     free_card()
+    # the load runner, SLO reports, the flight recorder and the scrape server
+    # over the serving engine (A11.2); the profiler rollup (A11.3)
+    by_phase["load_bf16"] = load_bf16_phase(card)
+    profile_rollup_phase(card)
     log("graph against eager, this run: " + json.dumps({"card": card, **TIMES}))
 
     kernels = []

@@ -61,6 +61,12 @@ dequantized, as JAX's einsum does there.
 parameters stay f32 and each projection casts its input and weights to
 ``dtype`` (:func:`dense`), so in bf16 the projections, the attention
 operands and the output are bf16, the scores and softmax f32.
+
+The numerics probe ``attention.out`` (``obs.probes.probe``, a no-op unless a
+collector is open) taps the output of every cache-free route and of the
+generic cached path. The JAX package taps its einsum route's output, which at
+the CPU's shapes (fewer than 128 queries or keys, or flash off) is every
+cache-free call: the port's snapshot keys are that route-independent set.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache
 from perceiver_io_tpu_torch.core.dropout import dropout as apply_dropout
 from perceiver_io_tpu_torch.core.position import apply_rotary_pos_emb
 from perceiver_io_tpu_torch.core.remat import offloaded_linear
+from perceiver_io_tpu_torch.obs.probes import probe
 from perceiver_io_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_packed,
@@ -208,7 +215,7 @@ class MultiHeadAttention(nn.Module):
             self._scaled_rotated_queries(q, rope_q), k_p, v_p, k_l, v_l, num_heads=self.num_heads,
             pad_mask_prefix=pad_mask_prefix, pad_mask_latent=pad_mask_latent, sm_scale=1.0,
         )
-        return AttentionOutput(self._proj(self.o_proj, o), None)
+        return AttentionOutput(probe("attention.out", self._proj(self.o_proj, o)), None)
 
     def _split_heads(self, x: torch.Tensor, d: int) -> torch.Tensor:
         b, n = x.shape[0], x.shape[1]
@@ -306,8 +313,8 @@ class MultiHeadAttention(nn.Module):
     def _paged_decode_attend(self, q, cache: PagedKVCache, pad_mask, rope_q) -> AttentionOutput:
         """One query per slot over the paged pools. The route is chosen by
         the pools' geometry before anything launches: K3 where
-        ``paged_kernel_supported`` holds (f32 or bf16 pools, heads up to
-        128), else the gather route (one gather per pool rebuilds the
+        ``paged_kernel_supported`` holds (f32 or bf16 pools, head dims up
+        to 512), else the gather route (one gather per pool rebuilds the
         contiguous view, then the dense decode attention of the contiguous
         cache) where the JAX package's own kernel refuses the geometry and it
         gathers too (int8 pools among them), or where the pools lie on the
@@ -393,7 +400,7 @@ class MultiHeadAttention(nn.Module):
                 if self.causal_attention:
                     masked = masked | self._causal(n_q, n_kv, n_kv, q.device)
                 o = self._dense(q, k, v, rope_q, masked, attn_keep)
-            return AttentionOutput(self._proj(self.o_proj, o), None)
+            return AttentionOutput(probe("attention.out", self._proj(self.o_proj, o)), None)
 
         if isinstance(kv_cache, PagedKVCache):
             if n_q != 1:
@@ -429,9 +436,11 @@ class MultiHeadAttention(nn.Module):
         if self.causal_attention:
             masked = masked | self._causal(n_q, cap, eff_len, q.device)
         scales = (new_cache.k_scale, new_cache.v_scale) if new_cache.quantized else None
-        o = self._dense(q, new_cache.k, new_cache.v, rope_q, masked, scales=scales,
-                        fold=self._folds_decode_scales(n_q))
-        return AttentionOutput(self._proj(self.o_proj, o), new_cache)
+        fold = self._folds_decode_scales(n_q)
+        o = self._dense(q, new_cache.k, new_cache.v, rope_q, masked, scales=scales, fold=fold)
+        out = self._proj(self.o_proj, o)
+        # JAX's single-query decode route (``fold``'s gate) has no tap
+        return AttentionOutput(out if fold else probe("attention.out", out), new_cache)
 
     @staticmethod
     def _causal(n_q: int, n_kv: int, eff_len: int, device) -> torch.Tensor:

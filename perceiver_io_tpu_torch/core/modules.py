@@ -80,6 +80,7 @@ from perceiver_io_tpu_torch.core.position import positions
 from perceiver_io_tpu_torch.core.remat import OffloadArena, remat_mode
 from perceiver_io_tpu_torch.core.remat import run as run_remat
 from perceiver_io_tpu_torch.device import DeviceLike, resolve_device
+from perceiver_io_tpu_torch.obs.probes import probe
 from perceiver_io_tpu_torch.ops.flash_attention import fast_features, flash_attention, flash_supported
 from perceiver_io_tpu_torch.ops.layernorm import FusedLayerNorm
 
@@ -402,6 +403,10 @@ class SelfAttentionBlock(nn.Sequential):
         ])
         self.num_rotary_layers = num_rotary_layers
 
+    # the probe sites' scope prefix, ``{probe_name}.layer_{i}``: the JAX
+    # block's module name (``PerceiverAR`` names its block ``self_attention``)
+    probe_name = "self_attn"
+
     def set_remat(self, mode: Optional[str], arena: OffloadArena) -> None:
         for layer in self:
             layer.set_remat(mode, arena)
@@ -413,7 +418,7 @@ class SelfAttentionBlock(nn.Sequential):
             use_rope = i < self.num_rotary_layers or self.num_rotary_layers == -1
             out = layer(x, pad_mask, rope_q if use_rope else None, rope_k if use_rope else None,
                         None if kv_cache is None else kv_cache[i], deterministic, generator)
-            x = out.last_hidden_state
+            x = probe(f"{self.probe_name}.layer_{i}", out.last_hidden_state)
             if new_caches is not None:
                 new_caches.append(out.kv_cache)
         return x, None if new_caches is None else tuple(new_caches)
@@ -622,6 +627,7 @@ class PerceiverAR(nn.Module):
             qkv_bias=False, out_bias=False, mlp_bias=False, dtype=dtype, dropout=post_attention_dropout,
             residual_dropout=residual_dropout,
         )
+        self.self_attention.probe_name = "self_attention"
         self.offload_arena = OffloadArena()
         mode = remat_mode(activation_checkpointing, activation_offloading)
         self.cross_attention.set_remat(mode, self.offload_arena)
@@ -696,6 +702,7 @@ class PerceiverAR(nn.Module):
                 # compact route: select token ids and position rows before
                 # embedding, so the full-length embedding never exists
                 x_emb, frq = self.input_adapter.embed_compact(x, keep_idx, prefix_len)
+                x_emb = probe("perceiver_ar.embed", x_emb)
                 return self._attend(x_emb[:, keep:], x_emb[:, :keep], frq[:, keep:], frq[:, :keep],
                                     None, None, kv_cache, deterministic, generator)
         if pad_mask is None:
@@ -706,6 +713,7 @@ class PerceiverAR(nn.Module):
             shift = pad_mask.sum(dim=1, keepdim=True)
             x_emb, frq = self.input_adapter(x, positions(b, n, shift=shift, offset=pos_offset))
             pad_latent, pad_prefix = pad_mask[:, prefix_len:], pad_mask[:, :prefix_len]
+        x_emb = probe("perceiver_ar.embed", x_emb)
         x_prefix, frq_prefix = x_emb[:, :prefix_len], frq[:, :prefix_len]
         if keep_idx is not None:
             # the embedded-row gather (a left-padded batch, or "gather_embed"):
@@ -739,8 +747,8 @@ class PerceiverAR(nn.Module):
                 pad_ca = torch.nn.functional.pad(pad_ca, (0, ca_cache.capacity - pad_ca.shape[1]))
         ca_out = self.cross_attention(x_latent, None, x_prefix, pad_ca, frq_latent, rope_k_ca, ca_cache,
                                       deterministic, generator)
-        h, sa_caches = self.self_attention(ca_out.last_hidden_state, None, frq_latent, frq_latent, sa_cache,
-                                           deterministic, generator)
+        h, sa_caches = self.self_attention(probe("perceiver_ar.cross_attend", ca_out.last_hidden_state), None,
+                                           frq_latent, frq_latent, sa_cache, deterministic, generator)
         new_cache = None if kv_cache is None else (ca_out.kv_cache,) + sa_caches
         return h, new_cache
 
@@ -760,7 +768,8 @@ class PerceiverAR(nn.Module):
         x_emb, frq_q = self.input_adapter(x, q_pos)
         x_prefix = x_emb.new_zeros((b, 0, x_emb.shape[-1]))
         ca_out = self.cross_attention(x_emb, None, x_prefix, pad_mask, frq_q, frq_q, ca_cache)
-        h, sa_caches = self.self_attention(ca_out.last_hidden_state, sa_pad_mask, frq_q, frq_q, sa_cache)
+        h, sa_caches = self.self_attention(probe("perceiver_ar.cross_attend", ca_out.last_hidden_state), sa_pad_mask,
+                                           frq_q, frq_q, sa_cache)
         return h, (ca_out.kv_cache,) + sa_caches
 
 
@@ -836,6 +845,7 @@ class CausalSequenceModel(PerceiverAR):
         block = SelfAttentionBlock.__new__(SelfAttentionBlock)
         nn.Sequential.__init__(block, *list(self.self_attention)[: config.num_self_attention_layers])
         block.num_rotary_layers = config.num_self_attention_rotary_layers
+        block.probe_name = self.self_attention.probe_name
         out.self_attention = block
         out.offload_arena = self.offload_arena
         out.cross_attention_dropout = self.cross_attention_dropout
@@ -908,5 +918,5 @@ class CausalSequenceModel(PerceiverAR):
                                          deterministic, prefix_keep_idx, generator, pos_offset)
             if self.config.output_norm:
                 h = self.out_norm(h)
-            logits = self.output_adapter(h, attend=self.input_adapter.attend)
+            logits = probe("logits", self.output_adapter(h, attend=self.input_adapter.attend))
         return CausalModelOutput(h, logits, cache)

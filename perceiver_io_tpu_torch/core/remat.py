@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from perceiver_io_tpu_torch.obs import probes
 from perceiver_io_tpu_torch.ops.flash_attention import fast_features, fast_kernels
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("offload", default=None)
@@ -156,9 +157,11 @@ class _Offload:
 
 @contextlib.contextmanager
 def _recompute(features: frozenset, offload: Optional[_Offload]):
-    """The recompute's context: the forward's kernel features, and the
-    offload's hand-back where there is one."""
-    with fast_kernels(features), (offload.recompute() if offload is not None else contextlib.nullcontext()):
+    """The recompute's context: the forward's kernel features, the offload's
+    hand-back where there is one, and no probe collector (the forward
+    collected the body's sites once, as the JAX package traces it once)."""
+    with fast_kernels(features), probes.suspended(), (
+            offload.recompute() if offload is not None else contextlib.nullcontext()):
         yield
 
 

@@ -71,6 +71,8 @@ from perceiver_io_tpu_torch.core.cache import KVCache
 from perceiver_io_tpu_torch.core.modules import CausalSequenceModel
 from perceiver_io_tpu_torch.device import DeviceLike, check_same_device, resolve_device
 from perceiver_io_tpu_torch.graphs import Graph, capture_stream, warm_up
+from perceiver_io_tpu_torch.obs import profiler
+from perceiver_io_tpu_torch.obs.probes import decode_health
 from perceiver_io_tpu_torch.ops.quant import quantize_tensor, quantize_weights, quantized_linears
 
 # one generator for every row of a batch, or one per row (None = idle row)
@@ -318,13 +320,16 @@ def _decode_step_body(model, config: GenerationConfig, state: dict):
     :class:`_UniformStage`), ``generator`` (the pair's, one for the batch)
     or ``generators`` (the engine's, one per slot, None for idle slots;
     read by the host only), ``done`` bool, ``pad_slots`` (rows,
-    ca_capacity) bool, ``pos_shift`` (rows, 1), and the pair's ``logits``
-    (the last position's, (B, V)).
+    ca_capacity) bool, ``pos_shift`` (rows, 1), the pair's ``logits``
+    (the last position's, (B, V)), and with the pair's ``probes=True`` its
+    ``probe`` dict (:func:`~perceiver_io_tpu_torch.obs.probes.decode_health`
+    of this step's logits and post-append cross-attention cache, 0-d f32
+    tensors).
 
     The body runs on the device alone (no host sync, no host draw), and it
     writes the next state into the tensors it read: ``token``, ``done``,
-    ``ca_start``, ``sa_start``, every cache's ``length`` (and ``logits``),
-    so a CUDA graph of it replays on the same state. Returns ``(state,
+    ``ca_start``, ``sa_start``, every cache's ``length`` (and ``logits``,
+    ``probe``), so a CUDA graph of it replays on the same state. Returns ``(state,
     tokens)``, ``tokens`` being ``state["token"]``."""
     mcfg = model.config
     cache = state["cache"]
@@ -350,6 +355,9 @@ def _decode_step_body(model, config: GenerationConfig, state: dict):
     state["done"].copy_(done)
     if "logits" in state:
         state["logits"].copy_(logits)
+    if "probe" in state:
+        for key, value in decode_health(logits, cache[0], ca_start).items():
+            state["probe"][key].copy_(value)
     return state, state["token"]
 
 
@@ -402,6 +410,7 @@ def _state_tensors(state: dict) -> tuple:
     tensors = [t for key in ("cache", "draft_cache") for pool in state.get(key, ()) for t in vars(pool).values()
                if t is not None]
     tensors += [state[k] for k in _STATE_KEYS if state.get(k) is not None]
+    tensors += list(state.get("probe", {}).values())
     return tuple(t.data_ptr() for t in tensors)
 
 
@@ -460,14 +469,18 @@ def _eager_step(model, config: GenerationConfig, device: torch.device, body=None
 
 
 def _prefilled_state(out, logits: torch.Tensor, next_token: torch.Tensor, generator: torch.Generator,
-                     config: GenerationConfig, pad_slots: torch.Tensor, pos_shift: torch.Tensor) -> dict:
-    """The decode state a prefill hands over (see :func:`make_decode_fns`)."""
+                     config: GenerationConfig, pad_slots: torch.Tensor, pos_shift: torch.Tensor,
+                     probes: bool = False) -> dict:
+    """The decode state a prefill hands over (see :func:`make_decode_fns`);
+    with ``probes``, its ``probe`` dict holds the prompt pass's decode
+    health (token 0), so the state carries the same keys before and after
+    every step."""
     dev, b = next_token.device, next_token.shape[0]
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     if config.eos_token_id is not None:
         done = next_token == config.eos_token_id
     zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
-    return {
+    state = {
         "cache": tuple(c.on_device() for c in out.kv_cache),
         "ca_start": zero(),
         "sa_start": zero(),
@@ -479,6 +492,9 @@ def _prefilled_state(out, logits: torch.Tensor, next_token: torch.Tensor, genera
         "pos_shift": pos_shift,
         "logits": logits,
     }
+    if probes:
+        state["probe"] = decode_health(logits, state["cache"][0], state["ca_start"])
+    return state
 
 
 def _prefill_config(model, config: Optional[GenerationConfig], device: DeviceLike):
@@ -491,7 +507,7 @@ def _prefill_config(model, config: Optional[GenerationConfig], device: DeviceLik
 
 def _prefill_pass(model, input_ids: torch.Tensor, pad_mask: Optional[torch.Tensor], prefix_len: int,
                   num_latents: int, config: GenerationConfig, cache_dtype: torch.dtype, generator: torch.Generator,
-                  ca_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                  ca_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, probes: bool = False):
     """The prefill both builders run over (B, M) ``input_ids`` on the
     model's device: a fresh cache for the whole prompt and the budget, the
     model's pass, the first sample (one draw from ``generator``) and the
@@ -520,15 +536,16 @@ def _prefill_pass(model, input_ids: torch.Tensor, pad_mask: Optional[torch.Tenso
     out = model(input_ids, prefix_len=prefix_len, pad_mask=pad_mask, kv_cache=cache, pos_offset=pos_offset)
     logits = out.logits[:, -1].clone()
     next_token = _sample(logits, config, generator)
-    return next_token, _prefilled_state(out, logits, next_token, generator, config, pad_slots, pos_shift)
+    return next_token, _prefilled_state(out, logits, next_token, generator, config, pad_slots, pos_shift, probes)
 
 
 def make_prefill_fn(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
-                    cache_dtype: torch.dtype = torch.float32, *, device: DeviceLike = "cuda"):
+                    cache_dtype: torch.dtype = torch.float32, probes: bool = False, *, device: DeviceLike = "cuda"):
     """The prefill of :func:`make_decode_fns` alone, ``prefill(input_ids,
     pad_mask=None, generator=None) -> (first_token, state)``: no decode step
     is built beside it (the serving engine keeps one prefill per decode
-    budget and latent count, and decodes through its own paged step)."""
+    budget and latent count, and decodes through its own paged step).
+    ``probes``: the state's ``probe`` (see :func:`make_decode_fns`)."""
     config, dev = _prefill_config(model, config, device)
     mcfg = model.config
 
@@ -541,7 +558,9 @@ def make_prefill_fn(model, num_latents: int = 1, config: Optional[GenerationConf
             pad_mask = torch.zeros((b, seq_len), dtype=torch.bool, device=dev)
         pad_mask = torch.as_tensor(pad_mask, device=dev).bool()
         _require_pads_in_prefix(pad_mask, prefix_len)
-        return _prefill_pass(model, input_ids, pad_mask, prefix_len, num_latents, config, cache_dtype, generator)
+        with profiler.scope("prefill"):
+            return _prefill_pass(model, input_ids, pad_mask, prefix_len, num_latents, config, cache_dtype, generator,
+                                 probes=probes)
 
     return prefill
 
@@ -599,9 +618,10 @@ def make_shared_prefill_fn(model, num_latents: int, skip_tokens: int, seq_len: i
             raise ValueError(f"{page_ids.shape[0]} pages of {pool_k.shape[1]} do not cover {skip_tokens} skipped "
                              "tokens (whole pages only)")
         # the resident prefix rows: pool pages -> contiguous slots [0, skip)
-        rows = (pool_k[page_ids].reshape(skip_tokens, -1), pool_v[page_ids].reshape(skip_tokens, -1))
-        return _prefill_pass(model, suffix_ids, None, suffix_len - num_latents, num_latents, config, cache_dtype,
-                             generator, rows)
+        with profiler.scope("shared_prefill"):
+            rows = (pool_k[page_ids].reshape(skip_tokens, -1), pool_v[page_ids].reshape(skip_tokens, -1))
+            return _prefill_pass(model, suffix_ids, None, suffix_len - num_latents, num_latents, config,
+                                 cache_dtype, generator, rows)
 
     return shared_prefill
 
@@ -622,7 +642,8 @@ def advance_generator(generator: torch.Generator, n_tokens: int, config: Generat
 
 
 def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConfig] = None,
-                    cache_dtype: torch.dtype = torch.float32, weight_dtype=None, *, device: DeviceLike = "cuda"):
+                    cache_dtype: torch.dtype = torch.float32, weight_dtype=None, probes: bool = False, *,
+                    device: DeviceLike = "cuda"):
     """The host-driven decode pair ``(prefill, step)``.
 
     - ``prefill(input_ids, pad_mask=None, generator=None) -> (first_token,
@@ -652,11 +673,19 @@ def make_decode_fns(model, num_latents: int = 1, config: Optional[GenerationConf
     the step dequantizes them to the model's compute dtype inside its body,
     at every replay. The model must live on ``device``; asking for CUDA
     without a card raises.
+
+    ``probes=True`` (the decode health gauges, ``obs/probes.py``) adds a
+    ``probe`` dict to the state: KV-cache occupancy fraction, mean logit
+    entropy and non-finite logit fraction (0-d f32 tensors) of the prompt
+    pass, then of each step, which writes them in place — outputs of the
+    captured graph, like ``logits``, so a caller that keeps one across steps
+    keeps a copy (``clone()``, no host sync). Off, the pair is exactly the
+    pair without probes.
     """
     config = config or GenerationConfig()
     dev = _model_device(model, device)
     weights = _int8_weights(model, weight_dtype)
-    prefill = _requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, device=dev), weights)
+    prefill = _requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, probes, device=dev), weights)
     return prefill, _decode_step(model, config, dev, weights)
 
 
@@ -664,8 +693,9 @@ def _decode_step(model, config: GenerationConfig, dev: torch.device, weights: Op
     """:func:`make_decode_fns`' step over the decode weights ``weights``
     (None: the model's own)."""
     def step(state: dict):
-        state, token = step.body(state)
-        return state, token.clone()
+        with profiler.scope("decode"):
+            state, token = step.body(state)
+            return state, token.clone()
 
     # the body: a _GraphedStep on the card (its ``graph`` is the captured
     # CUDA graph once the first call has run), the eager body on the CPU;
@@ -720,9 +750,17 @@ def make_paged_step_fn(model, config: Optional[GenerationConfig] = None, weight_
     config = config or GenerationConfig()
     dev = _model_device(model, device)
     body = _with_weights(lambda state: _decode_step_body(model, config, state), _int8_weights(model, weight_dtype))
-    if dev.type == "cuda":
-        return _GraphedStep(model, config, "the paged decode step", body)
-    return _eager_step(model, config, dev, body)
+
+    def step(state: dict):
+        with profiler.scope("decode_paged"):
+            return step.body(state)
+
+    # as _decode_step's: the captured step (or the eager body) and what
+    # obs.recompile.RecompileTracker reads
+    step.body = (_GraphedStep(model, config, "the paged decode step", body) if dev.type == "cuda"
+                 else _eager_step(model, config, dev, body))
+    step.captured = step.body if dev.type == "cuda" else None
+    return step
 
 
 def _load_state_(dst: dict, src: dict) -> None:
@@ -737,6 +775,8 @@ def _load_state_(dst: dict, src: dict) -> None:
     for key in _STATE_KEYS:
         if key in dst:
             dst[key].copy_(src[key])
+    for key, value in dst.get("probe", {}).items():
+        value.copy_(src["probe"][key])
     dst["generator"] = src["generator"]
 
 
@@ -1187,8 +1227,8 @@ class GenerationStats:
     # by the caller and handed in per call); None when the caller did no
     # admission accounting
     queue_wait_s: Optional[float] = None
-    # worst per-token non-finite-logit fraction: the decode health probes'
-    # field (ROADMAP A11); always None in the port today
+    # worst per-token non-finite-logit fraction (probes=True only): the
+    # serving front end's breaker sentinel reads it
     nonfinite_logit_frac: Optional[float] = None
 
 
@@ -1293,17 +1333,22 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
     ``generate_queue_wait_s`` histogram. ``registry`` (an
     ``obs.metrics.MetricsRegistry``; a fresh one when None) accumulates the
     cross-request counters and histograms and snapshots into ``metrics``
-    rows at most every ``snapshot_interval_s``. ``probes=True`` (the decode
-    health gauges, ``obs/probes.py``) waits for ROADMAP A11 and raises
-    NotImplementedError. ``cache_dtype`` and ``weight_dtype`` (None or
+    rows at most every ``snapshot_interval_s``. ``probes=True`` runs the
+    decode pair with its health gauges (``make_decode_fns(probes=True)``):
+    each token's ``state["probe"]`` is copied on the device (no host sync in
+    the token loop) and fetched once after the request, in one copy; the
+    wrapper publishes ``generate_kv_cache_frac`` (gauge) and
+    ``generate_logit_entropy`` (histogram) into the registry, puts
+    ``kv_cache_frac``, ``logit_entropy_mean``/``_last`` and
+    ``nonfinite_logit_frac`` on the ``request`` row, and fills
+    ``GenerationStats.nonfinite_logit_frac`` (the worst token's), which the
+    serving front end's breaker reads. ``cache_dtype`` and ``weight_dtype`` (None or
     ``torch.int8``) are :func:`make_generate_fn`'s: every request's prefill
     quantizes the weights it was served into the fn's int8 buffers.
     """
     config = config or GenerationConfig()
     if config.max_new_tokens < 1:
         raise ValueError("instrumented generation requires max_new_tokens >= 1")
-    if probes:
-        raise NotImplementedError("probes=True needs the decode health gauges (obs/probes.py), ROADMAP A11")
     from perceiver_io_tpu_torch.obs import trace as obs_trace
     from perceiver_io_tpu_torch.obs.metrics import Histogram, MetricsRegistry
     from perceiver_io_tpu_torch.obs.recompile import RecompileTracker
@@ -1311,8 +1356,8 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
     dev = _model_device(model, device)
     weights = _int8_weights(model, weight_dtype)
     tracker = RecompileTracker(events=events)
-    prefill_fn = tracker.wrap(_requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, device=dev),
-                                            weights), "generate_prefill")
+    prefill_fn = tracker.wrap(_requantizing(make_prefill_fn(model, num_latents, config, cache_dtype, probes,
+                                                            device=dev), weights), "generate_prefill")
     decode_state = _DecodeStates(model, config, dev, weights, lambda step: tracker.wrap(step, "generate_decode_step"))
 
     registry = registry if registry is not None else MetricsRegistry()
@@ -1328,7 +1373,15 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
     m_ttft = registry.histogram("generate_ttft_s")
     m_tpot = registry.histogram("generate_tpot_s")
     m_queue = registry.histogram("generate_queue_wait_s")
+    m_entropy = registry.histogram("generate_logit_entropy") if probes else None
+    m_kv_frac = registry.gauge("generate_kv_cache_frac") if probes else None
     tracer = obs_trace.Tracer(events, flush_every=64) if events is not None else None
+
+    def health(state: dict) -> torch.Tensor:
+        # a copy on the device (the next replay rewrites the state's own):
+        # entropy, occupancy, non-finite fraction
+        return torch.stack([state["probe"][k].float() for k in ("logit_entropy", "kv_cache_frac",
+                                                                "nonfinite_logit_frac")])
 
     def fn(input_ids, pad_mask=None, generator: Optional[torch.Generator] = None, queue_wait_s=None,
            arrival_ts=None, tenant=None):
@@ -1337,6 +1390,7 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
         request_id = obs_trace.new_span_id()
         hist = Histogram("tpot_s")  # THIS request's decode latencies
         toks: List[torch.Tensor] = []
+        healths: List[torch.Tensor] = []
         outcome, err = "ok", None
         ttft = 0.0
         if queue_wait_s is not None:
@@ -1355,6 +1409,8 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
                 if tracker.total_compiles == c0:
                     m_ttft.record(ttft)
                 toks.append(token)
+                if probes:
+                    healths.append(health(state))
                 if on_token is not None:
                     on_token(0, token)
                 if config.max_new_tokens > 1:
@@ -1369,6 +1425,8 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
                     if tracker.total_compiles == c0:
                         m_tpot.record(dt)
                     toks.append(token)
+                    if probes:
+                        healths.append(health(state))
                     if on_token is not None:
                         on_token(i, token)
             except BaseException as e:  # noqa: BLE001 — event out, then reraise
@@ -1388,6 +1446,27 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
         decode_s = max(elapsed - ttft, 0.0)
         tokens_out = len(toks)
         compiled = tracker.total_compiles > compiles_before
+        health_row = None
+        if probes and healths:
+            # one host copy for the whole request's gauges. Guarded: on an
+            # aborted request they came from the work that failed and the
+            # copy may raise; the request row still goes out, without them,
+            # and the original exception stays the one surfaced
+            try:
+                hh = torch.stack(healths).cpu().tolist()
+                ents = [row[0] for row in hh]
+                kv_frac = hh[-1][1]
+                for e in ents:
+                    m_entropy.record(e)
+                m_kv_frac.set(kv_frac)
+                health_row = {
+                    "kv_cache_frac": round(kv_frac, 6),
+                    "logit_entropy_mean": round(sum(ents) / len(ents), 6),
+                    "logit_entropy_last": round(ents[-1], 6),
+                    "nonfinite_logit_frac": round(max(row[2] for row in hh), 6),
+                }
+            except Exception:  # noqa: BLE001 — health is telemetry, never fatal
+                health_row = None
         stats = GenerationStats(
             batch=b,
             prompt_len=prompt_len,
@@ -1404,6 +1483,7 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
             tpot_p90_s=hist.percentile(90),
             tpot_p99_s=hist.percentile(99),
             queue_wait_s=None if queue_wait_s is None else round(queue_wait_s, 6),
+            nonfinite_logit_frac=None if health_row is None else health_row["nonfinite_logit_frac"],
         )
         m_requests.inc()
         m_tokens.inc(tokens_out * b)
@@ -1427,7 +1507,10 @@ def make_instrumented_generate_fn(model, num_latents: int = 1, config: Optional[
                 num_latents=num_latents,
                 tpot_hist=dict(sorted((str(k), v) for k, v in hist.counts.items())),
             )
-            row.pop("nonfinite_logit_frac", None)  # the probes' field
+            if health_row is not None:
+                row.update(health_row)
+            else:
+                row.pop("nonfinite_logit_frac", None)  # probes off / copy failed
             if queue_wait_s is None:
                 row.pop("queue_wait_s", None)  # no admission accounting upstream
             elif arrival_ts is not None:

@@ -7,8 +7,8 @@ change, or when it is handed other objects; a decode step
 (``generation._GraphedStep``) captures once, at its first call.
 :class:`RecompileTracker` wraps a step whose ``captured`` attribute is such an
 object (``make_train_step``'s and ``make_eval_step``'s functions,
-``make_decode_fns``' step), or which is one itself (``make_paged_step_fn``'s
-step on the card), reads its ``captures`` count around each call, and books
+``make_decode_fns``' and ``make_paged_step_fn``'s steps), or which is one
+itself (``make_speculative_paged_step_fn``'s step on the card), reads its ``captures`` count around each call, and books
 each new capture's host seconds: a ``compile`` event and the goodput
 ``compile`` bucket. So a ``compiled`` flag of the serving path means "this
 call captured". A step that runs eagerly (on the CPU) never captures and

@@ -1,5 +1,5 @@
 """Host spans (counterpart of ``perceiver_io_tpu/obs/trace.py``: ``Span``,
-``Tracer``, ``maybe_span``, ``current_span_id``).
+``Tracer``, ``maybe_span``, ``current_span_id``, ``host_device_breakdown``).
 
 A :class:`Span` is a host wall-clock interval with an id, a parent, a name and
 attrs, persisted as a ``span`` row in ``events.jsonl``; while a span is open
@@ -14,8 +14,8 @@ so events emitted from other threads (the prefetch producer's
 ``fault.poison_batch``) still land inside it. Span rows are buffered in the
 :class:`Tracer` and flushed in batches at log boundaries and fit exits.
 
-The JAX module's device join (``host_device_breakdown`` over xplane
-rollups) waits for ROADMAP A11.
+:func:`host_device_breakdown` joins a run's step spans to the device side
+of a ``torch.profiler`` capture rolled up by ``obs.profiler.rollup``.
 """
 
 from __future__ import annotations
@@ -181,3 +181,59 @@ def maybe_span(tracer: Optional[Tracer], name: str, **attrs):
     if tracer is None:
         return contextlib.nullcontext(None)
     return tracer.span(name, **attrs)
+
+
+# ---------------------------------------------------------------------------
+# host/device correlation: join step spans to profiler scope rollups
+# ---------------------------------------------------------------------------
+
+
+def host_device_breakdown(span_rows, rollups=None, step_name: str = "step", top_scopes: int = 8) -> Dict:
+    """The per-step host/device breakdown (the JAX function's shape).
+
+    ``span_rows`` are ``span`` event rows (dicts); ``rollups`` is the output
+    of ``obs.profiler.rollup``/``rollup_planes`` over a capture taken during
+    the same run (None → host-only breakdown). Host side: per-step span
+    duration percentiles plus the mean ``input_wait_ms``/``dispatch_ms``
+    attrs the trainer stamps; ``checkpoint``/``eval`` spans aggregate
+    separately. Device side: total device-plane time divided by the step
+    count (the "compute" column host timing cannot see — the step loop never
+    blocks on the card), plus the top scopes; without a device plane (a CPU
+    capture) the host plane stands in.
+    """
+    from perceiver_io_tpu_torch.utils.profiling import summarize_latencies
+
+    spans = [r for r in span_rows if r.get("event", "span") == "span"]
+    steps = [r for r in spans if r.get("name") == step_name]
+    out: Dict = {"steps": len(steps)}
+    if steps:
+        out["step_ms"] = summarize_latencies([float(r["dur_ms"]) for r in steps])
+        for attr in ("input_wait_ms", "dispatch_ms"):
+            vals = [
+                float(r["attrs"][attr])
+                for r in steps
+                if isinstance(r.get("attrs"), dict) and attr in r["attrs"]
+            ]
+            if vals:
+                out[attr] = sum(vals) / len(vals)
+    for phase in ("checkpoint", "eval"):
+        rows = [r for r in spans if r.get("name") == phase]
+        if rows:
+            out[phase] = {
+                "count": len(rows),
+                "total_ms": round(sum(float(r["dur_ms"]) for r in rows), 3),
+            }
+    if rollups:
+        device = [r for r in rollups if "device" in getattr(r, "plane", "").lower()] or list(rollups)
+        total_ps = sum(r.total_ps for r in device)
+        scope_totals: Dict[str, int] = {}
+        for r in device:
+            for scope, (dur, _count) in r.scopes.items():
+                scope_totals[scope] = scope_totals.get(scope, 0) + dur
+        top = sorted(scope_totals.items(), key=lambda kv: -kv[1])[:top_scopes]
+        out["device"] = {
+            "total_ms": round(total_ps / 1e9, 9),
+            "per_step_ms": round(total_ps / 1e9 / max(len(steps), 1), 9) if steps else None,
+            "top_scopes": [{"scope": s, "ms": round(d / 1e9, 9)} for s, d in top],
+        }
+    return out

@@ -26,7 +26,7 @@ into the same clean books:
   seam for explicit cancellation (``cancelled``);
 - **circuit breaking** — ``serving.breaker.CircuitBreaker``: windowed
   error rate or a numerics sentinel (non-finite logits from the decode
-  health gauges, ROADMAP A11 for the port) opens it, half-open probes are spaced by
+  health gauges, ``FrontEndConfig(probes=True)``) opens it, half-open probes are spaced by
   the ``RetryPolicy`` backoff discipline, sheds are stamped
   ``breaker_open``;
 - **bounded pre-decode retry** — transient failures (``RetryPolicy.retry_on``
@@ -60,9 +60,12 @@ The port's differences from the JAX module: the model holds its own weights,
 so the constructor takes no ``params`` (a poisoned request's mapping from the
 fault injector is written into the parameters in place for that request and
 the originals restored after it, :meth:`RequestFrontEnd._served_with`); it
-takes ``device=`` (``"cuda"`` by default, as every entry point of the port);
-``FrontEndConfig(probes=True)`` (the decode health gauges, ROADMAP A11)
-raises NotImplementedError.
+takes ``device=`` (``"cuda"`` by default, as every entry point of the port).
+``FrontEndConfig(probes=True)`` builds the instrumented fns with the decode
+health gauges, so a request whose logits went non-finite feeds the breaker's
+``nonfinite-logits`` sentinel; the engine (``serving.engine``), like the JAX
+package's, decodes through its own paged step and takes no gauges from the
+flag.
 """
 
 from __future__ import annotations
@@ -137,15 +140,10 @@ class FrontEndConfig:
     )
     # circuit breaker (None disables breaking entirely)
     breaker: Optional[BreakerConfig] = field(default_factory=BreakerConfig)
-    # the decode-health gauges (non-finite logits feeding the breaker's
-    # sentinel input): ROADMAP A11, refused until then
+    # the decode-health gauges of the instrumented fns (non-finite logits
+    # feed the breaker's sentinel input)
     probes: bool = False
     snapshot_interval_s: float = 30.0
-
-    def __post_init__(self):
-        if self.probes:
-            raise NotImplementedError("FrontEndConfig(probes=True) needs the decode health gauges "
-                                      "(obs/probes.py), ROADMAP A11")
 
 
 @dataclass
@@ -327,6 +325,7 @@ class RequestFrontEnd:
                 registry=self.registry,
                 on_token=self._on_token,
                 snapshot_interval_s=self.config.snapshot_interval_s,
+                probes=self.config.probes,
                 device=self.device,
                 **kwargs,
             )

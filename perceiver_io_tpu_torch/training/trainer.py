@@ -20,10 +20,17 @@ What the card changes:
   step copies them into its graph's buffers.
 - A step's metrics stay device tensors until the log boundary, except where
   the sentinel reads the loss and the skip flag on the host every step.
+- Probes (``TrainerConfig.probes``, ``obs/probes.py``): each step's snapshot
+  is a copy of the captured step's outputs (``graphs.CapturedStep`` returns
+  copies), parked in a ring of ``ProbeConfig.ring`` entries without a host
+  sync; the latest goes out as a ``probe`` row at each log boundary, and a
+  sentinel skip, rollback or halt emits ``probe.blast`` (the first
+  non-finite scope of the earliest snapshot in the ring) inside the step's
+  span and clears the ring.
 
 Options the port has no counterpart for yet raise ``NotImplementedError``:
-a mesh and the overlap step (ROADMAP A12), probes (A11), ``graphlint`` and
-``graphcheck`` (A14, analyses of JAX programs; off by default here).
+a mesh and the overlap step (ROADMAP A12), ``graphlint`` and ``graphcheck``
+(A14, analyses of JAX programs; off by default here).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from perceiver_io_tpu_torch.obs.events import EventLog, write_run_manifest
+from perceiver_io_tpu_torch.obs import probes as obs_probes
 from perceiver_io_tpu_torch.obs.mfu import GoodputTracker, device_peak_flops
 from perceiver_io_tpu_torch.obs.recompile import RecompileTracker
 from perceiver_io_tpu_torch.obs.trace import Tracer, maybe_span
@@ -121,7 +129,11 @@ class TrainerConfig:
     # drop batches carrying non-finite float leaves before they reach the
     # step, emitting ``fault.poison_batch`` with the offending leaf path
     quarantine_poison_batches: bool = False
-    # per-layer numerics probes: ROADMAP A11 (raises when set)
+    # numerics probes (obs/probes.py): True (the default ProbeConfig) or a
+    # ProbeConfig; the stats are outputs of the train step, parked in a ring
+    # on the device, emitted as a ``probe`` row at each log boundary, and a
+    # sentinel skip/rollback/halt emits a ``probe.blast`` naming the first
+    # non-finite scope, inside the step's span
     probes: "bool | object" = False
     # --- telemetry (obs/) --------------------------------------------------
     # events.jsonl + run_manifest.json next to metrics.csv (written only
@@ -148,7 +160,6 @@ class TrainerConfig:
 
 _UNPORTED = {
     "overlap": "the overlap-scheduled data x fsdp step waits for ROADMAP A12",
-    "probes": "per-layer numerics probes wait for ROADMAP A11",
     "graphlint": "graphlint (jaxpr lint rules) waits for ROADMAP A14",
     "graphcheck": "graphcheck (jaxpr fingerprints) waits for ROADMAP A14",
 }
@@ -196,8 +207,14 @@ class Trainer:
             self._sentinel_cfg = (self.config.sentinel if isinstance(self.config.sentinel, SentinelConfig)
                                   else SentinelConfig())
         in_step_skip = self._sentinel_cfg is not None and self._sentinel_cfg.in_graph_skip
+        # the probes' selection, resolved once; the ring lives in fit()
+        self._probe_cfg = None
+        if self.config.probes:
+            self._probe_cfg = (self.config.probes if isinstance(self.config.probes, obs_probes.ProbeConfig)
+                               else obs_probes.ProbeConfig())
         self._train_step = self.recompiles.wrap(
-            make_train_step(loss_fn, microbatch=self.config.microbatch, sentinel=in_step_skip), "train_step")
+            make_train_step(loss_fn, microbatch=self.config.microbatch, sentinel=in_step_skip,
+                            probes=self._probe_cfg), "train_step")
         # the fit-scoped preemption guard, exposed so tests can trip it
         self._preempt_guard = None
         # dropout off during validation (Lightning model.eval() parity)
@@ -387,6 +404,9 @@ class Trainer:
                 events.emit("resume", **resume_info)
 
         sentinel = DivergenceSentinel(self._sentinel_cfg) if self._sentinel_cfg is not None else None
+        # the last ring-length probe snapshots, on the device: fetched only at
+        # log boundaries (``probe``) and on sentinel trips (``probe.blast``)
+        probe_ring = deque(maxlen=max(int(self._probe_cfg.ring), 1)) if self._probe_cfg is not None else None
         guard = None
         if cfg.preemption_save:
             guard = PreemptionGuard()
@@ -479,6 +499,12 @@ class Trainer:
                         step_span.set("input_wait_ms", round(step_wait_s * 1e3, 3))
                     t_dispatch = time.perf_counter()
                     state, metrics = self._train_step(state, batch)
+                    if probe_ring is not None and "probes" in metrics:
+                        # park the snapshot (device tensors, copies of the
+                        # graph's outputs) with the post-step counter, and
+                        # keep the metrics clean for the log window
+                        metrics = dict(metrics)
+                        probe_ring.append((int(state.step), metrics.pop("probes")))
                     if step_span is not None:
                         step_span.set("dispatch_ms", round((time.perf_counter() - t_dispatch) * 1e3, 3))
                     if cfg.input_double_buffer and i + 1 < cfg.max_steps:
@@ -505,6 +531,21 @@ class Trainer:
                             # poison the log-window mean
                             window.pop()
                             window_samples -= _leading_dim(batch)
+                        # blast-radius attribution: a trip with snapshots on
+                        # record names the first scope of the earliest ring
+                        # entry that went non-finite, inside the open step span
+                        trigger = None
+                        if decision is not None and decision.action in ("rollback", "halt"):
+                            trigger = decision.action
+                        elif skipped_now:
+                            trigger = "skip"
+                        if trigger is not None and probe_ring is not None and events is not None:
+                            report = obs_probes.blast_report(probe_ring)
+                            if report is not None:
+                                events.emit("probe.blast", trigger=trigger, **report)
+                                # an attributed incident is done: a later trip
+                                # attributes to its own origin
+                                probe_ring.clear()
                         if decision is not None and decision.action == "rollback":
                             from_step = step
                             # back to the last valid checkpoint, in place; the
@@ -530,6 +571,10 @@ class Trainer:
                             window, window_samples, t0 = [], 0, time.perf_counter()
                             input_wait_s = 0.0
                             window_overhead0 = goodput.overhead()
+                            if probe_ring is not None:
+                                # the snapshots left describe the rolled-back
+                                # trajectory: the replay starts fresh
+                                probe_ring.clear()
                             continue
                         if decision is not None and decision.action == "halt":
                             if events is not None:
@@ -562,6 +607,11 @@ class Trainer:
                         self._log(step, avg)
                         if events is not None:
                             events.emit("log", step=step, **avg)
+                            if probe_ring:
+                                # the log boundary is the agreed host sync:
+                                # the LATEST snapshot only, in one copy
+                                s_step, snap = probe_ring[-1]
+                                events.emit("probe", step=s_step, scopes=obs_probes.snapshot_to_host(snap))
                         if tracer is not None:
                             tracer.flush()  # span rows land once per window
                         window, window_samples, t0 = [], 0, time.perf_counter()

@@ -1,0 +1,136 @@
+"""Profiling utilities (counterpart of ``perceiver_io_tpu/utils/profiling.py``):
+a ``torch.profiler`` trace context, a step timer for throughput accounting,
+and the shared percentile helpers of the SLO and load reports.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, cuda: Optional[bool] = None):
+    """Profile the enclosed work with ``torch.profiler`` (host operators and,
+    where a card is present, its kernels) and write the Chrome trace to
+    ``<log_dir>/trace.json`` on exit; view it in Perfetto or
+    ``chrome://tracing``, or roll it (or the yielded profiler) up by scope
+    with :func:`perceiver_io_tpu_torch.obs.profiler.rollup`. ``cuda``
+    (default: whether a card is present) adds the CUDA activity."""
+    import json
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from perceiver_io_tpu_torch.obs.profiler import trace_document
+
+    cuda = torch.cuda.is_available() if cuda is None else cuda
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    with open(os.path.join(log_dir, "trace.json"), "w") as f:
+        json.dump(trace_document(prof), f)
+
+
+class StepTimer:
+    """Wall-clock step timing with warmup discard and percentile summary.
+
+    The card runs a step asynchronously: the caller synchronizes it
+    (``torch.cuda.synchronize()``, or a host read of the step's output)
+    before ``tick()``, or the timing is the host's dispatch alone.
+    """
+
+    def __init__(self, warmup: int = 1):
+        self.warmup = warmup
+        self._times: List[float] = []
+        self._last: Optional[float] = None
+
+    def start(self) -> None:
+        self._last = time.perf_counter()
+
+    def tick(self) -> None:
+        now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+        self._last = now
+
+    @property
+    def steps(self) -> List[float]:
+        return self._times[self.warmup :]
+
+    def mean(self) -> float:
+        steps = self.steps
+        if not steps:
+            raise ValueError("No timed steps (after warmup discard)")
+        return sum(steps) / len(steps)
+
+    def percentile(self, p: float) -> float:
+        """The p-th percentile (0..100) of the retained step times, linearly
+        interpolated between order statistics."""
+        steps = self.steps
+        if not steps:
+            raise ValueError("No timed steps (after warmup discard)")
+        return percentile(steps, p)
+
+    def summary(self) -> Dict[str, float]:
+        """p50/p90/p99 plus mean and sample count (:func:`summarize_latencies`:
+        exact order statistics and ``low_n`` below :data:`LOW_N` samples)."""
+        return summarize_latencies(self.steps)
+
+    def steps_per_sec(self) -> float:
+        return 1.0 / self.mean()
+
+
+def percentile(values: Sequence[float], p: float) -> float:
+    """Linear-interpolation percentile of a non-empty sequence (numpy's
+    default method, with a ValueError contract on bad inputs)."""
+    if not values:
+        raise ValueError("percentile of an empty sequence")
+    if not 0.0 <= p <= 100.0:
+        raise ValueError(f"percentile p must be in [0, 100], got {p}")
+    import numpy as np
+
+    return float(np.percentile(list(values), p))
+
+
+# below this many samples, percentile summaries switch to exact order
+# statistics and are marked low_n (interpolated tails over 3 points are
+# extrapolation dressed up as measurement)
+LOW_N = 5
+
+
+def exact_percentile(values: Sequence[float], p: float) -> float:
+    """Nearest-rank percentile: the smallest order statistic covering at
+    least p% of the sample — always an observed value, never interpolated."""
+    if not values:
+        raise ValueError("percentile of an empty sequence")
+    if not 0.0 <= p <= 100.0:
+        raise ValueError(f"percentile p must be in [0, 100], got {p}")
+    s = sorted(float(v) for v in values)
+    import math
+
+    return s[max(int(math.ceil(p / 100.0 * len(s))) - 1, 0)]
+
+
+def summarize_latencies(values: Sequence[float]) -> Dict[str, float]:
+    """``{mean, p50, p90, p99, n[, low_n]}`` — the shared latency-summary
+    shape (StepTimer.summary, span breakdowns, SLO aggregation). Below
+    :data:`LOW_N` samples: exact order statistics plus ``low_n: True``."""
+    vals = [float(v) for v in values]
+    if not vals:
+        raise ValueError("No timed steps (after warmup discard)")
+    low_n = len(vals) < LOW_N
+    pct = exact_percentile if low_n else percentile
+    out = {
+        "mean": sum(vals) / len(vals),
+        "p50": pct(vals, 50),
+        "p90": pct(vals, 90),
+        "p99": pct(vals, 99),
+        "n": float(len(vals)),
+    }
+    if low_n:
+        out["low_n"] = True
+    return out

@@ -14,6 +14,8 @@ suite's conftest imports JAX, which the port does not need). Tolerances: f32
 atol 1e-5 and bf16 outputs within one bf16 step, unless a test states its
 own."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -2516,3 +2518,73 @@ def test_beam_step_graph_equals_eager(cuda, monkeypatch):
                                                                                         stage))
     eager_seqs, eager_scores = generation.beam_search(card, ids, **kw)
     assert torch.equal(seqs, eager_seqs) and torch.equal(scores, eager_scores)
+
+
+# ---------------------------------------------------------------------------
+# numerics probes in the captured steps
+# ---------------------------------------------------------------------------
+
+
+def test_probed_graphed_train_step_keeps_copies_and_equals_the_unprobed_step(cuda):
+    """The probed train step as a CUDA graph: each step's snapshot is a copy
+    of the graph's outputs (two consecutive steps hold different stats, and a
+    third step rewrites neither), its losses and parameters equal the
+    unprobed graph's bit for bit, and its keys are the eager probed step's."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.obs import probes
+
+    def run(probe_cfg, jit=True):
+        model = CausalLanguageModel(CausalLanguageModelConfig(**_GRAPH_CLM), device=cuda,
+                                    generator=torch.Generator().manual_seed(0))
+        state = tt.TrainState.create(model, tt.make_optimizer(1e-3, gradient_clip=1.0))
+        step = tt.make_train_step(tt.clm_loss_fn(128), microbatch=2, sentinel=True, jit=jit, probes=probe_cfg)
+        out = [step(state, b)[1] for b in _graph_batches(3)]
+        return out, [p.detach().clone() for p in model.parameters()]
+
+    probed, probed_params = run(probes.ProbeConfig())
+    plain, plain_params = run(None)
+    eager, _ = run(probes.ProbeConfig(), jit=False)
+    first, second = (probes.snapshot_to_host(m["probes"]) for m in probed[1:])
+    again = probes.snapshot_to_host(probed[1]["probes"])  # read after the third step's replay
+    assert list(first) == list(second) == list(probes.snapshot_to_host(eager[0]["probes"]))
+    assert first == again and first != second
+    assert all(math.isfinite(v) for st in second.values() for v in st.values())
+    for p, q in zip(probed, plain):
+        assert torch.equal(p["loss"], q["loss"]) and "probes" not in q
+    assert all(torch.equal(a, b) for a, b in zip(probed_params, plain_params))
+
+
+def test_probed_decode_pair_equals_the_unprobed_pair(cuda):
+    """``make_decode_fns(probes=True)`` on the card: the same stream as the
+    pair without probes token for token, each token's ``kv_cache_frac`` the
+    host's ``(length - start) / capacity``, the gauges copies per token, and
+    the graph's other kernel nodes the unprobed graph's."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**_DECODE_CLM), device=cuda,
+                                generator=torch.Generator().manual_seed(0))
+    config = generation.GenerationConfig(max_new_tokens=21)
+    ids = np.random.default_rng(4).integers(0, 262, size=(1, 64))
+    runs = {}
+    for probes in (False, True):
+        prefill, step = generation.make_decode_fns(model, 16, config, probes=probes, device=cuda)
+        token, state = prefill(ids)
+        tokens, healths = [token.clone()], []
+        for _ in range(20):
+            if probes:
+                healths.append({k: v.clone() for k, v in state["probe"].items()})
+            state, token = step(state)
+            tokens.append(token)
+        runs[probes] = (torch.stack(tokens, 1), healths, step.body.graph)
+    assert torch.equal(runs[True][0], runs[False][0])
+    capacity = 64 + 21
+    for i, h in enumerate(runs[True][1]):
+        length, start = 64 + i, max(0, 64 + i - _DECODE_CLM["max_seq_len"])
+        assert float(h["kv_cache_frac"]) == float(np.float32(length - start) / np.float32(capacity))
+        assert float(h["nonfinite_logit_frac"]) == 0.0 and math.isfinite(float(h["logit_entropy"]))
+    names = ["_layer_norm_fwd_kernel", "flash_packed_kernel", "paged_walk_kernel"]
+    assert runs[True][2].kernel_nodes(names) != {} and {k: v for k, v in runs[True][2].kernel_nodes(names).items()
+                                                        if k != "kernel nodes"} == \
+        {k: v for k, v in runs[False][2].kernel_nodes(names).items() if k != "kernel nodes"}

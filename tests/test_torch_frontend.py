@@ -11,8 +11,9 @@ rows: a JAX call compiles on the CPU, the port's eager step never captures
 ``validate_events`` must be clean on every port stream.
 
 Mirrors ``tests/test_serving.py`` minus what needs ``FlightRecorder``,
-``ObsServer``, SLO reports or ``run_load`` (ROADMAP A11) and the probes'
-sentinel (A11). One geometry (prompt 10, 4 new tokens), as there."""
+``ObsServer``, SLO reports, ``run_load`` or the probes' sentinel, which
+``tests/test_torch_obs_load.py`` holds. One geometry (prompt 10, 4 new
+tokens), as there."""
 
 import collections
 import sys
@@ -440,15 +441,9 @@ def test_default_registry_shares_the_injected_clock(models, tmp_path):
 
 
 def test_unported_options_raise(models, tmp_path):
-    """The probes (ROADMAP A11) still raise; int8 weights (A10) serve: a
-    front end with ``weight_dtype=torch.int8`` books the same outcomes and
-    token counts as JAX's with ``jnp.int8`` (the streams' equality is
-    ``tests/test_torch_int8.py``'s)."""
-    tm = models["torch"][0]
-    with pytest.raises(NotImplementedError, match="A11"):
-        torch_serving.FrontEndConfig(probes=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        torch_generation.make_instrumented_generate_fn(tm, 4, probes=True, device="cpu")
+    """int8 weights (A10) serve: a front end with ``weight_dtype=torch.int8``
+    books the same outcomes and token counts as JAX's with ``jnp.int8`` (the
+    streams' equality is ``tests/test_torch_int8.py``'s)."""
     fes = {}
     for side, dtype in (("torch", torch.int8), ("jax", jnp.int8)):
         ns = SIDES[side]

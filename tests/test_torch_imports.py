@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "obs.metrics", "obs.loadgen", "serving.breaker", "serving.faultinject", "serving.frontend",
                  "serving.engine",
                  # prefix sharing, eviction and journal recovery (ROADMAP A7 + A8)
-                 "serving.prefix", "serving.journal"):
+                 "serving.prefix", "serving.journal",
+                 # the telemetry (ROADMAP A11.2 + A11.3)
+                 "obs.probes", "obs.slo", "obs.flightrec", "obs.server", "obs.profiler", "utils.profiling"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 

@@ -470,13 +470,13 @@ def test_residuals_survive_noop_and_unprefetched_fits():
     assert seen == list(range(15)), seen
 
 
-@pytest.mark.parametrize("option", ["mesh", "overlap", "probes", "graphlint", "graphcheck"])
+@pytest.mark.parametrize("option", ["mesh", "overlap", "graphlint", "graphcheck"])
 def test_unported_options_raise(option):
     if option == "mesh":
         with pytest.raises(NotImplementedError, match="A12"):
             tt.Trainer(_port_loss, mesh=object())
         return
-    item = {"overlap": "A12", "probes": "A11", "graphlint": "A14", "graphcheck": "A14"}[option]
+    item = {"overlap": "A12", "graphlint": "A14", "graphcheck": "A14"}[option]
     with pytest.raises(NotImplementedError, match=item):
         tt.Trainer(_port_loss, config=tt.TrainerConfig(**{option: True}))
 

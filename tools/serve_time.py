@@ -11,7 +11,11 @@ weights, f32, and bf16 compute over bf16 pools) it builds the engine with
 ROOT's own ``chip_smoke.serve_engine`` (its decode step the captured CUDA
 graph), serves ``chip_smoke.serve_specs()`` once to warm up and then
 ``REPEATS`` times closed-loop (``chip_smoke.serve_run``), and prints one JSON
-line: every run's decode tok/s and wall seconds, and their medians.
+line: every run's decode tok/s and wall seconds, and their medians. Then the
+decode pair of ``chip_smoke.decode_pair_phase``'s bf16 batch-1 run
+(``make_decode_fns``, an 8192-token prompt, greedy): after one prefill and
+the capturing step of a fresh pair, ``PAIR_STEPS`` timed replays; ``REPEATS``
+such runs, printed the same way.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPEATS = 5
+PAIR_STEPS = 126
 
 
 def time_root(root: str) -> None:
@@ -50,6 +55,38 @@ def time_root(root: str) -> None:
                               wall_s=[r["wall_s"] for r in runs], steps=runs[0]["steps"])), flush=True)
         del engine, model
         cs.free_card()
+    time_pair(root, cs)
+
+
+def time_pair(root: str, cs) -> None:
+    import time
+
+    import numpy as np
+    import torch
+
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    model = CausalLanguageModel(CausalLanguageModelConfig(**cs.FLAGSHIP), device="cuda", dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(cs.SEED))
+    ids = np.random.default_rng(cs.SEED + 4).integers(0, cs.FLAGSHIP["vocab_size"], size=(1, cs.DECODE_PROMPT))
+    config = generation.GenerationConfig(max_new_tokens=PAIR_STEPS + 2)
+    tok_s = []
+    for _ in range(REPEATS):  # a pair's step is captured on its first state: a pair a run
+        prefill, step = generation.make_decode_fns(model, cs.NUM_LATENTS, config, torch.float32, device="cuda")
+        _, state = prefill(ids, None)
+        state, _ = step(state)  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAIR_STEPS):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        tok_s.append(PAIR_STEPS / (time.perf_counter() - t0))
+        del prefill, step, state
+    print(json.dumps(dict(root=root, dtype="bfloat16", phase="decode_pair batch1", decode_tok_s=tok_s,
+                          median_decode_tok_s=statistics.median(tok_s))), flush=True)
+    del model
+    cs.free_card()
 
 
 def main() -> None:
