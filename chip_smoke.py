@@ -241,6 +241,35 @@ fit's launches exactly train_bf16's a step plus the validations'; its ms a
 step against the bare step's (sentinel on and off), input wait, async-save
 block and write times, restore time, checkpoint bytes, peak memory and mfu.
 
+The Perceiver IO task models (ROADMAP A13, part 1), after
+image_grad_check_bf16, each at the full width of a published configuration
+with seeded random weights: mlm_fill and mlm_fill_bf16 (the masked LM at
+deepmind/language-perceiver's width, 201,108,230 parameters: a batch of 8
+byte sequences of 2048 tokens, 15% masked, four rows right-padded, through
+``make_eval_step``; its launches and graph nodes exactly, the replay against
+the eager forward, two rows' logits against the port on the CPU; in f32
+``MaskFiller`` on four samples, its top-1 fills the CPU's up to a near tie);
+mlm_train_bf16 and text_clf_train_bf16 (that model and the text classifier
+over its encoder, AdamW, 5 steps on one batch of 8, graph and eager bit for
+bit, then a gradient check in bf16 and a 3-step f32 loss trajectory against
+the CPU at 2 self-attention layers); flow and flow_bf16 (optical flow at
+deepmind/optical-flow-perceiver's width: one 368 x 496 pair against the same
+forward with every kernel on its plain version on the card, then
+``OpticalFlowProcessor.process`` on one patch and on a 400 x 560 pair of 4
+blended patches); timeseries_train (scripts/timeseries.py's defaults, f32,
+batch 8, graph and eager, the gradient and trajectory against the CPU at
+full size). Their kernel geometries join the kernel parity cases: K8/K9 at
+the masked LM encoder's 8 heads of q/k 32 and v 160, at optical flow's
+cross-attention (2048 x 182,528, one head of 322) and decoder (182,528 x
+2048, 512; forward only) and at the time series' heads of 256; K2/K4 at the
+masked LM decoder's 2048 x 256, 8 heads of 32/96, non-causal, and (bf16) at
+the text classifier decoder's one query over 256 latents, 8 heads of 32; K2
+at optical flow's self-attention; K1/K5 at C 768, 1280 and 322, K1 with its
+statistics at the time series' C 256. The image classifier's and the task
+models' train steps, gradient checks and trajectories run one routine each
+over a ``TrainTask`` (``TASKS``). Busy shares count kernels, copies and
+memsets, not the GPU-side copies of the port's profiler ranges.
+
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -252,12 +281,14 @@ that is not finite fails every check.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import time
+import typing
 
 import numpy as np
 import torch
@@ -432,9 +463,116 @@ IMAGE_ROUTE_TOL = 1e-4
 # PERF.md)
 IMAGE_ROUTE_TOL_BF16 = 2e-2
 IMAGE_BF16_TOL = 4e-2
-# image_grad_check_bf16: the key-projection bias gradients (0 in exact
-# arithmetic) of both bf16 evaluations, relative to the largest f32 gradient
-IMAGE_ZERO_GRAD_BF16 = 1e-3
+# the bf16 gradient checks (model_grad_check_phase): the key-projection bias
+# gradients (0 in exact arithmetic) of both bf16 evaluations, relative to
+# the largest f32 gradient
+ZERO_GRAD_BF16 = 1e-3
+# the Perceiver IO task models (ROADMAP A13, part 1), seeded random weights:
+# the masked LM at deepmind/language-perceiver's width (hf/convert.py of the
+# JAX package maps PerceiverConfig(qk_channels=256, v_channels=1280) so:
+# vocab 262, 2048 tokens of 768 channels, 256 latents x 1280, 8 cross- and 8
+# self-attention heads of q/k 32 and v 160, 26 self-attention layers, a
+# decoder of 2048 queries with 8 heads of 32/96 and no attention residual,
+# tied logits; 201,108,230 parameters), its fill at batch 8 and its bf16
+# train step at batch 8 (dropout 0.0, EncoderConfig's default)
+MLM_ENCODER = dict(vocab_size=262, max_seq_len=2048, num_input_channels=768, num_cross_attention_heads=8,
+                   num_cross_attention_qk_channels=256, num_cross_attention_v_channels=1280,
+                   num_self_attention_heads=8, num_self_attention_qk_channels=256,
+                   num_self_attention_v_channels=1280, num_self_attention_layers_per_block=26)
+MLM_DECODER = dict(vocab_size=262, max_seq_len=2048, num_cross_attention_heads=8, num_cross_attention_qk_channels=256,
+                   num_cross_attention_v_channels=768, cross_attention_residual=False)
+MLM_QUERIES, MLM_INPUT, MLM_LATENTS, MLM_CHANNELS, MLM_BATCH = 2048, 768, 256, 1280, 8
+MLM_PARAMS = 201_108_230
+# the text classifier: that encoder with docs/model-construction.md's
+# decoder (2 classes, one query of 256 channels, 8 heads of 32)
+TEXT_CLF_DECODER = dict(num_classes=2, num_output_query_channels=256)
+# optical flow at deepmind/optical-flow-perceiver's width (hf/convert.py:
+# 368 x 496 frame pairs of 27 patch channels, 64 hidden + 258 Fourier = 322
+# input channels, 2048 latents x 512, one cross-attention head of 322, 16
+# self-attention heads of 32, 24 layers, a decoder of one head of 512
+# without attention residual over one query a pixel), batch 1
+FLOW_SHAPE, FLOW_LATENTS, FLOW_CHANNELS, FLOW_WIDTH = (368, 496), 2048, 512, 322
+FLOW_PIXELS = FLOW_SHAPE[0] * FLOW_SHAPE[1]
+FLOW_ENCODER = dict(image_shape=FLOW_SHAPE, num_cross_attention_heads=1, num_self_attention_heads=16,
+                    num_self_attention_qk_channels=512, num_self_attention_v_channels=512,
+                    num_self_attention_layers_per_block=24)
+FLOW_DECODER = dict(image_shape=FLOW_SHAPE, num_cross_attention_heads=1, num_cross_attention_qk_channels=512,
+                    num_cross_attention_v_channels=512, cross_attention_residual=False)
+# a generated pair larger than one patch (the processor's grid: 2 x 2
+# overlapping patches), through OpticalFlowProcessor.process
+FLOW_BIG = (400, 560)
+# the time series at scripts/timeseries.py's defaults: 7 channels, 4096 input
+# and 5000 output steps, 64 bands, 256 latents x 256, one head everywhere, 8
+# weight-shared one-layer self-attention blocks, batch 8, f32
+TS_ENCODER = dict(num_input_channels=7, in_len=4096, num_frequency_bands=64, num_cross_attention_heads=1,
+                  num_self_attention_heads=1, num_self_attention_layers_per_block=1, num_self_attention_blocks=8)
+TS_DECODER = dict(out_len=5000, num_output_channels=7, num_cross_attention_heads=1)
+TS_IN, TS_OUT, TS_LATENTS, TS_CHANNELS, TS_BATCH = 4096, 5000, 256, 256, 8
+# launches a forward: the masked LM's K8 27 (its cross-attention and 26
+# self-attention layers), K2 1 (the decoder), K1 58 (3 a cross-attention
+# layer, 2 a self-attention layer); the text classifier's the same (its
+# one-query decoder's heads of 32 take K2); optical flow's K8 2 (the encoder's
+# and the decoder's cross-attention), K2 24, K1 54, and in bf16 the two
+# LayerNorms that read its f32 adapted input stay f32 builds; the time
+# series' K8 10, K1 22. A train step adds each backward once a forward launch
+MLM_FORWARD = {"flash_heads_fwd": 27, "flash_packed_fwd": 1, "layer_norm_fwd": 58}
+FLOW_FORWARD = {"flash_heads_fwd": 2, "flash_packed_fwd": 24, "layer_norm_fwd": 54}
+FLOW_FORWARD_BF16 = {"flash_heads_fwd" + BF16: 2, "flash_packed_fwd" + BF16: 24, "layer_norm_fwd" + BF16: 52,
+                     "layer_norm_fwd": 2, "flash_heads_fwd": 0, "flash_packed_fwd": 0}
+TS_FORWARD = {"flash_heads_fwd": 10, "layer_norm_fwd": 22}
+
+
+def step_launches(forward: dict) -> dict:
+    """A train step's launches from its forward's: each backward as often as
+    its forward kernel launches."""
+    back = {"flash_heads_fwd": ("flash_heads_bwd_dkv", "flash_heads_bwd_dq"),
+            "flash_packed_fwd": ("flash_packed_bwd_dkv", "flash_packed_bwd_dq"),
+            "layer_norm_fwd": ("layer_norm_bwd",)}
+    return dict(forward, **{b: n for k, n in forward.items() for b in back[k]})
+
+
+def as_bf16(launches: dict) -> dict:
+    """The same launches, every one a bf16 build, and no f32 build."""
+    return {**{k + BF16: n for k, n in launches.items()}, **dict.fromkeys(launches, 0)}
+
+
+# the task models' train steps: AdamW at this rate, clip 1.0, 5 steps on one
+# fixed batch; their gradient checks and trajectories at reduced depth (2
+# self-attention layers for the text models; the time series at full size)
+# and batch 2, against the CPU's plain versions. The rate is the text
+# classifier's and the time series' script default (scripts/text/
+# classifier.py:46, scripts/timeseries.py:95); the MLM script's 1e-3
+# (scripts/text/mlm.py:76) comes after a 1000-step warmup. At 1e-3 from step
+# one, Adam's first step (lr * sign(g) an element) raised all three losses on
+# the card and on the CPU alike
+TASK_LR, TASK_STEPS, TASK_TRAJECTORY_STEPS, TASK_CHECK_LAYERS = 1e-4, 5, 3, 2
+# the time series' f32 gradient against the CPU's (model_grad_check_phase),
+# max abs difference relative to the parameter's largest gradient: its
+# weight gradients sum 8 x 4096 input rows and 8 x 5000 output rows, in
+# another order on each side (K9's f64 products and cuBLAS on the card, the
+# plain versions on the CPU); measured 1.267e-5 on an H100 (the input
+# adapter's position projection; 1.06e-5 the decoder's q projection), the
+# same in every run; about twice it
+TS_GRAD_TOL = 3e-5
+# |logits(card) - logits(CPU)| / max |logits(CPU)| of the f32 fill; the
+# f32 card's kernels and cuBLAS sum in other orders than the CPU's plain
+# versions through 26 layers
+MLM_FILL_REL_TOL = 1e-4
+# flow (f32): |flow(kernels) - flow(plain versions)| / max |flow(plain)| on
+# the card, the same weights and pair
+FLOW_REL_TOL = 1e-4
+# flow_bf16, check_bf16's element rule: |flow(kernels) - flow(plain)| within
+# this share of the plain bf16 flow's largest magnitude. The flow is the head's
+# output over 100 (at most 6.5e-4 on these weights), after ~100 bf16
+# roundings on the way; the two bf16 evaluations round at other points and
+# measured 1.199e-5 apart, 1.84% of the largest 6.52e-4 (an H100, the same
+# in two runs), so the kernels' default 2e-2 sits at the measurement; near
+# the 1.5x margin of the L2 rule
+FLOW_BF16_REL = 3e-2
+# the mask filler's samples (the reference's example and three more)
+MLM_SAMPLES = ("I have watched this [MASK] and it was awesome.",
+               "The capital of France is [MASK][MASK][MASK][MASK][MASK].",
+               "[MASK] is a [MASK] language model.", "Perceiver IO works on [MASK] [MASK] and audio.")
 # peak rates of one H100 SXM (NVIDIA data sheet, dense). An f32-accurate
 # product on the tensor cores takes three TF32 products (the operands split
 # into a TF32 "big" and "small" part), so every f32 attention kernel is
@@ -666,8 +804,10 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     )
 
     (b, nq, c), nkv, d = q.shape, k.shape[1], q.shape[2] // h
+    cv, dv = v.shape[2], v.shape[2] // h  # the value heads' width (the masked LM decoder's 96 to q/k's 32)
     # the kernel's kv split, in either build
-    splits = packed_kv_splits(b, h, nq, nkv, d, torch.cuda.get_device_properties(0).multi_processor_count, q.dtype)
+    splits = packed_kv_splits(b, h, nq, nkv, max(d, dv), torch.cuda.get_device_properties(0).multi_processor_count,
+                              q.dtype)
     o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     ro, rlse = flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal)
@@ -694,16 +834,19 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     plain_ms = time_ms(lambda: flash_attention_packed_reference(q, k, v, h, pad_mask=pad, causal=causal), 3)
     # the library yardstick: one SDPA call on heads-major views with the
     # same right-aligned causal + pad mask
-    qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2) for t in (q, k, v))
+    qh, kh, vh = (t.reshape(b, -1, h, t.shape[2] // h).transpose(1, 2) for t in (q, k, v))
     keep = _sdpa_keep(nq, nkv, pad) if causal else None
     library_ms = time_ms(lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
     el = q.element_size()
     visible = b * visible_pairs(nq, nkv, causal) - (nq * int(pad.sum()) if scattered else 0)
-    n_bytes = el * b * (2 * nq * c + 2 * nkv * c) + 4 * b * nq * h + (4 * b * nkv if pad is not None else 0)
-    bound_ms, bound_by = bound(n_bytes, 4 * d * h * visible,
+    n_bytes = (el * b * (nq * c + nkv * c + nkv * cv + nq * cv) + 4 * b * nq * h
+               + (4 * b * nkv if pad is not None else 0))
+    bound_ms, bound_by = bound(n_bytes, 2 * (d + dv) * h * visible,
                                "bf16_tensor" if q.dtype == torch.bfloat16 else "split_tf32")
     pads = 0 if pad is None else int(pad[0].sum())
-    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} D={d} {'masked' if scattered else 'left_pads'}={pads} "
+    dims = f"D={d}" if d == dv else f"Dqk={d} Dv={dv}"
+    row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} H={h} {dims} "
+                    f"{'masked' if scattered else 'left_pads'}={pads} "
                     f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}", path=path,
                max_abs_err=err, tol="check_bf16 (1.25x)" if tol is None else tol, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -742,6 +885,12 @@ def flash_phase(gen: torch.Generator) -> dict:
     k, v = (torch.randn(1, nkv + SHARE_BUDGETS[1], c, generator=gen).cuda().to(torch.bfloat16) for _ in range(2))
     out["cases"].append(flash_fwd_case("ca_shared_bf16", q, k[:, :nkv], v[:, :nkv], None, h, 5e-4,
                                        "serve_share_evict" + BF16))
+    # optical flow's latent self-attention (2048 latents, 16 heads of 32,
+    # batch 1), the flow forward's K2 in f32 and bf16
+    for dtype, path, tol in ((torch.float32, "flow", 1e-5), (torch.bfloat16, "flow" + BF16, None)):
+        q = (torch.randn(1, FLOW_LATENTS, FLOW_CHANNELS, generator=gen) * 32**-0.5).cuda().to(dtype)
+        k, v = (torch.randn(1, FLOW_LATENTS, FLOW_CHANNELS, generator=gen).cuda().to(dtype) for _ in range(2))
+        out["cases"].append(flash_fwd_case(f"flow_sa_{str(dtype)[6:]}", q, k, v, None, 16, tol, path, False))
     # 512 latents x 8 heads give 64 q blocks: the prefill fills the card by
     # splitting the kv walk
     if out["cases"][0]["kv_splits"] < 2:
@@ -937,7 +1086,25 @@ def layernorm_phase(gen: torch.Generator) -> dict:
                                             bf16),
                                            # the bf16 image step's latent rows
                                            ("image_with_stats_bf16", IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS,
-                                            True, "image_train" + BF16, bf16)):
+                                            True, "image_train" + BF16, bf16),
+                                           # the Perceiver IO task models: the masked LM's input rows (C 768)
+                                           # and latent rows (C 1280) in its fill and bf16 train step, optical
+                                           # flow's adapted input (C 322, f32 whatever the compute dtype)
+                                           ("mlm_input", MLM_BATCH * MLM_QUERIES, MLM_INPUT, False, "mlm_fill",
+                                            f32),
+                                           ("mlm_latent", MLM_BATCH * MLM_LATENTS, MLM_CHANNELS, False,
+                                            "mlm_fill", f32),
+                                           ("mlm_input_with_stats_bf16", MLM_BATCH * MLM_QUERIES, MLM_INPUT, True,
+                                            "mlm_train" + BF16, bf16),
+                                           ("mlm_latent_with_stats_bf16", MLM_BATCH * MLM_LATENTS, MLM_CHANNELS,
+                                            True, "mlm_train" + BF16, bf16),
+                                           ("flow_input", FLOW_PIXELS, FLOW_WIDTH, False, "flow", f32),
+                                           # the time series' f32 train step (C 256): its input, output query
+                                           # and latent rows
+                                           *((f"ts_{kind}_with_stats", TS_BATCH * n, TS_CHANNELS, True,
+                                              "timeseries_train", f32)
+                                             for kind, n in (("input", TS_IN), ("query", TS_OUT),
+                                                             ("latent", TS_LATENTS)))):
         x, w, b = _ln_inputs(gen, rows, c)
         x = x.to(dt)
         rule = None
@@ -1001,7 +1168,10 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     inputs. The plain
     backward computes all three gradients at once, so both kernels carry its
     time; so does the library yardstick, the backward of one
-    ``scaled_dot_product_attention`` call with the same mask. Returns the
+    ``scaled_dot_product_attention`` call with the same mask. Then the masked
+    LM decoder's cross-attention (2048 queries over 256 latents, 8 heads of
+    q/k 32 and v 96, non-causal) in f32 and bf16, and the text classifier's
+    decoder (one query over 256 latents, 8 heads of 32) in bf16. Returns the
     K4a, K4b and K2 rows."""
     from torch.nn.functional import scaled_dot_product_attention
 
@@ -1017,7 +1187,7 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     lat = FLAGSHIP["max_latents"]
     clm = (TRAIN_CHUNK, FLAGSHIP["num_heads"], FLAGSHIP["num_channels"], True)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = {  # name: (nq, nkv, left pads, batch, heads, channels, causal, path, dtype)
+    cases = {  # name: (nq, nkv, left pads, batch, heads, channels, causal, path, dtype[, value channels])
         "ca_f32": (lat, KEEP + lat, 0, *clm, "train", f32),
         "sa_f32": (lat, lat, 0, *clm, "train", f32),
         "ca_f32_leftpad": (lat, KEEP + lat, 3001, *clm, "train", f32),
@@ -1031,6 +1201,14 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         # and at the bf16 image step's self-attention (8 heads of 128)
         "image_sa_bf16": (IMAGE_LATENTS, IMAGE_LATENTS, 0, IMAGE_BATCH, 8, IMAGE_CHANNELS, False,
                           "image_train" + BF16, bf16),
+        # the masked LM decoder's cross-attention: 2048 queries over 256
+        # latents, 8 heads of q/k 32 and v 96, non-causal (f32: the fill's
+        # forward; bf16: the bf16 fill and train step)
+        "mlm_dec_f32": (MLM_QUERIES, MLM_LATENTS, 0, MLM_BATCH, 8, 256, False, "mlm_fill", f32, 768),
+        "mlm_dec_bf16": (MLM_QUERIES, MLM_LATENTS, 0, MLM_BATCH, 8, 256, False, "mlm_train" + BF16, bf16, 768),
+        # the text classifier's decoder: one query over 256 latents, 8 heads
+        # of 32, non-causal (its bf16 train step)
+        "clf_dec_bf16": (1, MLM_LATENTS, 0, MLM_BATCH, 8, 256, False, "text_clf_train" + BF16, bf16),
     }
     # The kernels are held to the plain version evaluated in f64 on the same
     # f32 inputs, within 1e-5, and to no larger an error than the plain
@@ -1046,11 +1224,13 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
     # kernels and to the f64 evaluation is logged beside each case.
     tol = {"dkv": 1e-5, "dq": 1e-5}
     out = {"dkv": {"cases": []}, "dq": {"cases": []}, "fwd": {"cases": []}}
-    for name, (nq, nkv, pads, b, h, c, causal, path, dtype) in cases.items():
-        d = c // h
+    for name, (nq, nkv, pads, b, h, c, causal, path, dtype, *value) in cases.items():
+        d, cv = c // h, (value or [c])[0]
+        d_v = cv // h
         q = (torch.randn(b, nq, c, generator=gen) * d**-0.5).cuda().to(dtype)
-        k, v = (torch.randn(b, nkv, c, generator=gen).cuda().to(dtype) for _ in range(2))
-        do = torch.randn(b, nq, c, generator=gen).cuda().to(dtype)
+        k = torch.randn(b, nkv, c, generator=gen).cuda().to(dtype)
+        v = torch.randn(b, nkv, cv, generator=gen).cuda().to(dtype)
+        do = torch.randn(b, nq, cv, generator=gen).cuda().to(dtype)
         pad, scattered = None, pads == "mask"
         if scattered:
             pad = mask_mode_pad(gen, b, nkv - nq, nq)
@@ -1091,18 +1271,23 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
                  "dq": time_ms(lambda: bwd_dq_cuda(*args), dispatch=f"flash_packed_bwd_dq {name}")}
         plain_ms = time_ms(lambda: flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad,
                                                                         causal=causal), 3)
-        qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        qh, kh, vh = (t.reshape(b, -1, h, t.shape[2] // h).transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
         ref = scaled_dot_product_attention(qh, kh, vh, attn_mask=_sdpa_keep(nq, nkv, pad) if causal else None)
-        go = do.reshape(b, nq, h, d).transpose(1, 2)
+        go = do.reshape(b, nq, h, d_v).transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qh, kh, vh), go, retain_graph=True))
         pairs = b * h * visible_pairs(nq, nkv, causal) - (h * nq * int(pad.sum()) if scattered else 0)
         el, rate = q.element_size(), "split_tf32" if dtype == f32 else "bf16_tensor"
-        reads = el * (2 * b * nq * c + 2 * b * nkv * c) + 4 * (2 * b * nq * h + (b * nkv if pad is not None else 0))
-        bounds = {"dkv": bound(reads + el * 2 * b * nkv * c, 8 * d * pairs, rate),
-                  "dq": bound(reads + el * b * nq * c, 6 * d * pairs, rate)}
+        # q, k, v, o and dO read (o and dO through delta), lse and delta read
+        reads = el * b * (nq * c + nkv * c + nkv * cv + nq * cv) + 4 * (2 * b * nq * h + (b * nkv if pad is not None
+                                                                                          else 0))
+        # dK/dV: recompute S (d), dP (dv), dV (dv), dK (d); dQ: S, dP, dQ
+        bounds = {"dkv": bound(reads + el * b * nkv * (c + cv), 4 * (d + d_v) * pairs, rate),
+                  "dq": bound(reads + el * b * nq * c, 2 * (2 * d + d_v) * pairs, rate)}
         for kernel in ("dkv", "dq"):
             pad_label = f"masked={int(pad[0].sum())}" if scattered else f"left_pads={pads}"
-            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} {pad_label} H={h} D={d} {str(dtype)[6:]} "
+            dims = f"D={d}" if d == d_v else f"Dqk={d} Dv={d_v}"
+            row = dict(case=f"{name} batch={b} nq={nq} nkv={nkv} {pad_label} H={h} {dims} {str(dtype)[6:]} "
                             f"{'causal' if causal else 'full'}", path=path, max_abs_err=errs[kernel],
                        tol=tol[kernel] if dtype == f32 else "check_bf16 (1.25x)",
                        reference="plain version in f64" if dtype == f32 else "bf16 plain version",
@@ -1127,6 +1312,14 @@ def layernorm_bwd_phase(gen: torch.Generator) -> dict:
                                        torch.bfloat16))
     rows_out.append(layernorm_bwd_case(gen, IMAGE_BATCH * IMAGE_LATENTS, IMAGE_CHANNELS, "image_train" + BF16,
                                        torch.bfloat16))
+    # the Perceiver IO task models: the masked LM's bf16 train step (input
+    # rows, C 768, and latent rows, C 1280), and C 322 (optical flow's
+    # adapted input; its backward is on no path this run drives)
+    for rows, c, path in ((MLM_BATCH * MLM_QUERIES, MLM_INPUT, "mlm_train"), (MLM_BATCH * MLM_LATENTS, MLM_CHANNELS,
+                                                                              "mlm_train")):
+        rows_out.append(layernorm_bwd_case(gen, rows, c, path + BF16, torch.bfloat16))
+    rows_out.append(layernorm_bwd_case(gen, 16384, FLOW_WIDTH, "edge"))
+    rows_out.append(layernorm_bwd_case(gen, TS_BATCH * TS_OUT, TS_CHANNELS, "timeseries_train"))
     return {"cases": rows_out}
 
 
@@ -1400,8 +1593,10 @@ def heads_phase(gen: torch.Generator) -> dict:
     on the (B*H, N, D8) operands ``flash_attention`` hands them (odd widths
     zero-padded); the plain versions and the library yardstick, one
     ``scaled_dot_product_attention`` call (and its backward) with the same
-    mask in the same dtype, on the (B, H, N, D) operands. Returns the rows by
-    kernel (the bf16 builds' under ``<kernel>_bf16``)."""
+    mask in the same dtype, on the (B, H, N, D) operands. The Perceiver IO
+    task models' cases follow (``mlm_*``, ``flow_*``, ``ts_*``; the flow
+    cases forward only). Returns the rows by kernel (the bf16 builds' under
+    ``<kernel>_bf16``)."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from perceiver_io_tpu_torch.ops import flash_attention as tflash
@@ -1422,6 +1617,22 @@ def heads_phase(gen: torch.Generator) -> dict:
         ("image_ca_b16_bf16", IMAGE_BATCH, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, "image_train" + BF16,
          bf16),
         ("image_ca_b2_bf16", 2, 1, IMAGE_LATENTS, IMAGE_PIXELS, IMAGE_D, False, 0, "edge", bf16),
+        # the Perceiver IO task models (ROADMAP A13): the masked LM encoder's
+        # cross- and self-attention at the train batch (8 heads of q/k 32 and
+        # v 160; the f32 cases are the fill's forward shapes), optical
+        # flow's encoder cross-attention (2048 latents over 182,528 pixels,
+        # one head of 322, which the wrapper pads to 328) and decoder
+        # (182,528 queries over 2048 latents, one head of 512), forward
+        # only, and the time series' three attentions (one head of 256)
+        *[(f"mlm_{kind}_{str(dt)[6:]}", MLM_BATCH, 8, MLM_LATENTS, nkv, (32, 160), False, 0,
+           "mlm_fill" if dt == f32 else "mlm_train" + BF16, dt)
+          for dt in (f32, bf16) for kind, nkv in (("ca", MLM_QUERIES), ("sa", MLM_LATENTS))],
+        *[(f"flow_{kind}_{str(dt)[6:]}", 1, 1, nq, nkv, d, False, 0, "flow" + ("" if dt == f32 else BF16), dt, False)
+          for dt in (f32, bf16) for kind, nq, nkv, d in (("ca", FLOW_LATENTS, FLOW_PIXELS, FLOW_WIDTH),
+                                                       ("dec", FLOW_PIXELS, FLOW_LATENTS, FLOW_CHANNELS))],
+        *[(f"ts_{kind}", TS_BATCH, 1, nq, nkv, TS_CHANNELS, False, 0, "timeseries_train", f32)
+          for kind, nq, nkv in (("ca", TS_LATENTS, TS_IN), ("sa", TS_LATENTS, TS_LATENTS),
+                                ("dec", TS_OUT, TS_LATENTS))],
     ]
     # K8 against the plain version in f32: measured within 2.2e-6 on an
     # H100 (split-TF32 products; 4.7e-7 at the image CA, PERF.md); 1e-5
@@ -1440,30 +1651,33 @@ def heads_phase(gen: torch.Generator) -> dict:
     # 80GB HBM3 (PERF.md). Both distances are logged beside each case.
     tol = {"flash_heads_fwd": 1e-5, "flash_heads_bwd_dkv": 1e-5, "flash_heads_bwd_dq": 6e-5}
     out = {k + sfx: {"cases": []} for k in HEADS_KERNELS for sfx in ("", BF16)}
-    for name, b, h, nq, nkv, d, causal, pads, path, dtype in cases:
+    for name, b, h, nq, nkv, d, causal, pads, path, dtype, *backward in cases:
+        # d: one head dim, or (q/k, v); backward: False for a forward-only path
+        d, dv = d if isinstance(d, tuple) else (d, d)
         sfx = BF16 if dtype == bf16 else ""
         rate, el = ("bf16_tensor", 2) if dtype == bf16 else ("split_tf32", 4)
         q = (torch.randn(b, h, nq, d, generator=gen) * d**-0.5).cuda().to(dtype)
-        k, v = (torch.randn(b, h, nkv, d, generator=gen).cuda().to(dtype) for _ in range(2))
+        k = torch.randn(b, h, nkv, d, generator=gen).cuda().to(dtype)
+        v = torch.randn(b, h, nkv, dv, generator=gen).cuda().to(dtype)
         pad = None
         if pads:
             pad = torch.zeros(b, nkv, dtype=torch.bool, device="cuda")
             pad[:, :pads] = True
         bias = tflash.bias_row(pad, b, nkv, q.device)
         qf, kf, vf = tflash._heads_layout(q, k, v)
-        d8 = qf.shape[2]
+        d8, dv8 = qf.shape[2], vf.shape[2]
         o, lse = tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0)
         torch.cuda.synchronize()
         ro, rlse = tflash.flash_attention_reference(q, k, v, pad, causal)
-        err = max_err(o[..., :d].reshape(ro.shape), ro)
+        err = max_err(o[..., :dv].reshape(ro.shape), ro)
         check(f"flash_heads_fwd{sfx} {name} lse", lse_err(lse.reshape(rlse.shape), rlse), 1e-4)
         exact = tflash.flash_attention_reference(*(t.double() for t in (q, k, v)), pad, causal)[0]
         rule = None
         if dtype == bf16:
-            rule = check_bf16(f"flash_heads_fwd {name}", o[..., :d].reshape(ro.shape), ro, exact, 1.25)
+            rule = check_bf16(f"flash_heads_fwd {name}", o[..., :dv].reshape(ro.shape), ro, exact, 1.25)
         else:
             check(f"flash_heads_fwd {name} out", err, tol["flash_heads_fwd"])
-        f64 = {"kernel": max_err64(o[..., :d].reshape(ro.shape), exact), "plain": max_err64(ro, exact)}
+        f64 = {"kernel": max_err64(o[..., :dv].reshape(ro.shape), exact), "plain": max_err64(ro, exact)}
         del exact
         log(f"f64 flash_heads_fwd{sfx} {name}: kernel {f64['kernel']:.3e}, plain version {f64['plain']:.3e}")
         mask = None
@@ -1471,14 +1685,17 @@ def heads_phase(gen: torch.Generator) -> dict:
             mask = _sdpa_keep(nq, nkv, pad) if causal else ~pad[:, None, None, :]
         backend = sdpa_backend(q, k, v, mask)
         pairs = b * h * visible_pairs(nq, nkv, causal)
-        shape = (f"{name} batch={b} H={h} nq={nq} nkv={nkv} D={d} (kernel D={d8}) "
+        dims = f"D={d} (kernel D={d8})" if d == dv else f"Dqk={d} Dv={dv} (kernel {d8}/{dv8})"
+        shape = (f"{name} batch={b} H={h} nq={nq} nkv={nkv} {dims} "
                  f"{'causal' if causal else 'full'} left_pads={pads} {str(dtype)[6:]}")
-        reads = el * b * h * (nq * d8 + 2 * nkv * d8) + (4 * b * nkv if pad is not None else 0)
-        bound_ms, bound_by = bound(reads + el * b * h * nq * d8 + 4 * b * h * nq, 4 * d8 * pairs, rate)
+        # the bound counts the function's own head dims: the wrapper's zero
+        # padding to a multiple of 8 is its own extra work
+        reads = el * b * h * (nq * d + nkv * d + nkv * dv) + (4 * b * nkv if pad is not None else 0)
+        bound_ms, bound_by = bound(reads + el * b * h * nq * dv + 4 * b * h * nq, 2 * (d + dv) * pairs, rate)
         # K8's kv split, priced as K9b's below
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        fwd_splits = tflash.heads_fwd_splits(b * h, nq, nkv, d8, sms,
-                                             tflash._heads_fwd_slots(q.device.index, d8, d8, dtype))
+        fwd_splits = tflash.heads_fwd_splits(b * h, nq, nkv, max(d8, dv8), sms,
+                                             tflash._heads_fwd_slots(q.device.index, d8, dv8, dtype))
         row = dict(case=shape, path=path, max_abs_err=err, tol="check_bf16 (1.25x)" if rule else tol["flash_heads_fwd"],
                    bf16_rule=rule, f64_err=f64, dtype=str(dtype)[6:],
                    ms=time_ms(lambda: tflash.heads_fwd_cuda(qf, kf, vf, h, bias, causal, 1.0),
@@ -1494,20 +1711,24 @@ def heads_phase(gen: torch.Generator) -> dict:
         log(f"time flash_heads_fwd{sfx} {name}: {json.dumps(row)}")
         out["flash_heads_fwd" + sfx]["cases"].append(row)
         del ro, rlse
+        if backward == [False]:
+            del o, lse, qf, kf, vf, q, k, v
+            free_card()
+            continue
 
         # the plain backward reads the same inputs as K9a/K9b: K8's output
         # and logsumexp
-        o4, lse4 = o[..., :d].reshape(b, h, nq, d), lse.reshape(b, h, nq)
-        do = torch.randn(b, h, nq, d, generator=gen).cuda().to(dtype)
-        dof = torch.nn.functional.pad(do.reshape(b * h, nq, d), (0, d8 - d))
+        o4, lse4 = o[..., :dv].reshape(b, h, nq, dv), lse.reshape(b, h, nq)
+        do = torch.randn(b, h, nq, dv, generator=gen).cuda().to(dtype)
+        dof = torch.nn.functional.pad(do.reshape(b * h, nq, dv), (0, dv8 - dv))
         delta = (dof.float() * o.float()).sum(dim=-1)
         args = (qf, kf, vf, dof, lse, delta, h, bias, causal, 1.0)
-        dk, dv = tflash.heads_bwd_dkv_cuda(*args)
+        dk, dv_ = tflash.heads_bwd_dkv_cuda(*args)
         dq = tflash.heads_bwd_dq_cuda(*args)
         torch.cuda.synchronize()
         got = {"dq": dq[..., :d].reshape(q.shape), "dk": dk[..., :d].reshape(k.shape),
-               "dv": dv[..., :d].reshape(v.shape)}
-        del dq, dk, dv
+               "dv": dv_[..., :dv].reshape(v.shape)}
+        del dq, dk, dv_
         # the plain version first (its (B, H, Nq, Nkv) intermediates are
         # freed when it returns), then the f64 one: ~20 GB at batch 16
         plain = dict(zip(("dq", "dk", "dv"), tflash.flash_attention_bwd_reference(q, k, v, o4, lse4, do, pad,
@@ -1538,8 +1759,8 @@ def heads_phase(gen: torch.Generator) -> dict:
                                                dispatch=f"flash_heads_bwd_dq{sfx} {name}")}
         # K9b's kv split, priced: the rule's split count and, where it
         # splits, the time of the same call unsplit
-        splits = tflash.heads_dq_splits(b * h, nq, nkv, d8, sms,
-                                        tflash._heads_dq_slots(q.device.index, d8, d8, dtype))
+        splits = tflash.heads_dq_splits(b * h, nq, nkv, max(d8, dv8), sms,
+                                        tflash._heads_dq_slots(q.device.index, d8, dv8, dtype))
         unsplit_ms = time_ms(lambda: tflash.heads_bwd_dq_cuda(*args, nsplit=1)) if splits > 1 else None
         log(f"split flash_heads_bwd_dq{sfx} {name}: kv_splits={splits} ms={times['flash_heads_bwd_dq']:.4f} "
             f"unsplit_ms={unsplit_ms}")
@@ -1547,10 +1768,10 @@ def heads_phase(gen: torch.Generator) -> dict:
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         ref = scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
         library_ms = time_ms(lambda: torch.autograd.grad(ref, (qg, kg, vg), do, retain_graph=True))
-        reads = el * b * h * (2 * nq * d8 + 2 * nkv * d8) + 4 * 2 * b * h * nq + (4 * b * nkv if pad is not None
-                                                                                  else 0)
-        bounds = {"flash_heads_bwd_dkv": bound(reads + el * 2 * b * h * nkv * d8, 8 * d8 * pairs, rate),
-                  "flash_heads_bwd_dq": bound(reads + el * b * h * nq * d8, 6 * d8 * pairs, rate)}
+        reads = el * b * h * (nq * d + nkv * d + nkv * dv + nq * dv) + 4 * 2 * b * h * nq + (
+            4 * b * nkv if pad is not None else 0)
+        bounds = {"flash_heads_bwd_dkv": bound(reads + el * b * h * nkv * (d + dv), 4 * (d + dv) * pairs, rate),
+                  "flash_heads_bwd_dq": bound(reads + el * b * h * nq * d, 2 * (2 * d + dv) * pairs, rate)}
         for kernel in errs:
             row = dict(case=shape, path=path, max_abs_err=errs[kernel],
                        tol="check_bf16 (1.25x)" if rules else tol[kernel],
@@ -3036,6 +3257,10 @@ def profile_phase(model, card: str, graphed: bool) -> None:
     }))
 
 
+# the ranges the port opens under a profiler (obs/profiler.py's scope)
+PROFILER_SCOPES = frozenset({"prefill", "shared_prefill", "decode", "decode_paged", "train_step"})
+
+
 def profile_summary(prof, wall_ms: float, sum_kernels: str = None) -> dict:
     """Device-busy time and share of the wall time, and the top kernels by
     device time and operators by host time, from a ``torch.profiler`` run;
@@ -3048,8 +3273,14 @@ def profile_summary(prof, wall_ms: float, sum_kernels: str = None) -> dict:
     def device_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
-    # kernels only: an operator's entry repeats the time of the kernels it launched
-    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    # kernels, copies and memsets only: an operator's entry repeats the time
+    # of the kernels it launched, and the GPU-side copy of a host range (a
+    # profiler scope such as train_step) spans the kernels it holds
+    def on_device(e):
+        return (getattr(e, "device_type", None) == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and e.key not in PROFILER_SCOPES)
+
+    kernels = [e for e in events if on_device(e)]
     busy_ms = 1e-3 * sum(device_us(e) for e in kernels)
     by_device = sorted(kernels, key=device_us, reverse=True)[:12]
     by_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
@@ -3065,8 +3296,7 @@ def profile_summary(prof, wall_ms: float, sum_kernels: str = None) -> dict:
     # kernels that overlap (K3's merge starts early and waits on its walk
     # through a programmatic dependence) count once in the union of their
     # intervals; the sum above counts them twice
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e))
     union_us, end = 0.0, -math.inf
     for lo, hi in spans:
         union_us += max(0.0, hi - max(lo, end))
@@ -4058,18 +4288,43 @@ def image_eval_phase(card: str, dtype: torch.dtype = torch.float32, f32_logits: 
     return {"launches": launches["split"], "logits": logits["split"]}
 
 
-def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.float32, remat: bool = False) -> dict:
-    """Five AdamW steps (lr ``IMAGE_LR``, f32 moments, global clip 1.0) of
-    the flagship classifier on one fixed batch of 16 random images and labels in
-    one chunk (see the memory reckoning at ``IMAGE_BATCH``), with the
-    non-finite sentinel on, as a CUDA graph (``jit``) or eagerly: every loss
-    finite, the first step lowering the loss (the later ones overshoot at
-    this rate, see ``IMAGE_LR``), no step skipped, the launches of
-    ``IMAGE_STEP`` per step exactly (``IMAGE_STEP_BF16`` with ``dtype``
-    bf16: every launch a bf16 build, K8, K9a and K9b's once a step); then
-    one profiled step. With ``remat`` (``image_train_remat_bf16``): activation
-    checkpointing, ``IMAGE_STEP_REMAT_BF16``'s launches. Returns the five
-    steps' launches, losses, median and peak memory, and the parameters after
+class TrainTask(typing.NamedTuple):
+    """One model's train step and its checks against the CPU's plain
+    versions: ``model_train_phase``, ``model_train_pair``,
+    ``model_grad_check_phase`` and ``model_trajectory_phase`` (``TASKS``)."""
+
+    stem: str  # the phases' names: <stem>_train, <stem>_grad_check, <stem>_trajectory
+    model: object  # (device, dtype, small=False, remat=False) -> the model, seeded; small: the checks' size
+    batch: object  # (size, seed, small=False) -> a numpy batch
+    loss_fn: str  # the loss-function factory in training
+    step: dict  # a full-size f32 step's launches (their bf16 builds in bf16)
+    batch_size: int
+    lr: float
+    steps: int
+    trajectory_steps: int
+    seeds: tuple  # the train batch's, the gradient check's and the trajectory's
+    check_heads: int  # K8's, K9a's and K9b's launches each in the card's gradient at the checks' size
+    grad_tol: float = None  # the f32 gradient check's, per parameter (None: checked in bf16 only)
+    update_tol: float = None  # the f32 optimizer update's L2 distance, relative (None: not compared)
+    first_step_lowers: bool = True  # else a later step below the first
+    remat_step: dict = None  # a bf16 step's launches with activation checkpointing
+
+
+def model_train_phase(card: str, task: TrainTask, jit: bool = True, dtype: torch.dtype = torch.float32,
+                      remat: bool = False) -> dict:
+    """``task.steps`` AdamW steps (lr ``task.lr``, f32 moments, global clip
+    1.0) of a model at full width on one fixed batch of ``task.batch_size``
+    in one chunk, with the non-finite sentinel on, as a CUDA graph (``jit``)
+    or eagerly: every loss finite, no step skipped, the loss lowered (by the
+    first step, or with ``first_step_lowers`` false by a later one: on random
+    weights Adam's first step, the rate times the sign of every gradient
+    element, raises the text classifier's and the time series' loss on the
+    card and on the CPU alike, see their trajectories), ``task.step``'s
+    launches each step exactly (bf16: every launch a bf16 build; ``remat``:
+    activation checkpointing, ``task.remat_step``'s) and the graph's kernel
+    nodes by ``check_graph``; then one profiled step. Returns the steps'
+    launches, losses, median step ms (the first step, which captures the
+    graph, left out), busy share, peak memory and the parameters after
     them."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -4077,17 +4332,16 @@ def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.fl
     from perceiver_io_tpu_torch.ops import build
 
     bf16 = dtype == torch.bfloat16
-    name = "image_train" + ("_remat" if remat else "") + (BF16 if bf16 else "") + ("" if jit else "_eager")
-    want = IMAGE_STEP_REMAT_BF16 if remat else IMAGE_STEP_BF16 if bf16 else IMAGE_STEP
-    model = image_classifier("cuda", dtype, activation_checkpointing=remat)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in
-             image_batch(IMAGE_BATCH, IMAGE_ENCODER["image_shape"], SEED + 5).items()}
-    state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
-    step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True, jit=jit)
+    name = f"{task.stem}_train" + ("_remat" if remat else "") + (BF16 if bf16 else "") + ("" if jit else "_eager")
+    want = task.remat_step if remat else as_bf16(task.step) if bf16 else task.step
+    model = task.model("cuda", dtype, remat=remat)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in task.batch(task.batch_size, task.seeds[0]).items()}
+    state = tt.TrainState.create(model, tt.make_optimizer(task.lr, gradient_clip=1.0))
+    step = tt.make_train_step(getattr(tt, task.loss_fn)(), sentinel=True, jit=jit)
     losses, step_ms, skipped = [], [], []
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    for i in range(IMAGE_STEPS):
+    for i in range(task.steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -4100,203 +4354,492 @@ def image_train_phase(card: str, jit: bool = True, dtype: torch.dtype = torch.fl
     launches = dict(build.LAUNCHES)
     params = [p.detach().clone() for p in model.parameters()]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
-        wall_ms_ = 1e3 * (time.perf_counter() - t0)
-    summary = profile_summary(prof, wall_ms_)
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    summary = profile_summary(prof, prof_ms)
     log(f"{name}_profile: " + json.dumps({"card": card, **summary}))
-    median_ms = statistics.median(step_ms)
+    median_ms = statistics.median(step_ms[1:])
     log(f"{name}: " + json.dumps({
-        "card": card, "step": "graph" if jit else "eager", "dtype": str(dtype)[6:], "batch": IMAGE_BATCH,
-        "microbatch": 1, "steps": IMAGE_STEPS, "losses": losses, "step_ms": step_ms, "median_step_ms": median_ms,
-        "images_per_s": IMAGE_BATCH / (median_ms / 1e3), "peak_memory_gb": peak_gb, "sentinel_skipped": skipped,
-        "launches_per_step": {k: launches[k] / IMAGE_STEPS for k in want},
-    }))
+        "card": card, "step": "graph" if jit else "eager", "dtype": str(dtype)[6:], "batch": task.batch_size,
+        "microbatch": 1, "lr": task.lr, "steps": task.steps, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": median_ms, "samples_per_s": task.batch_size / (median_ms / 1e3),
+        "peak_memory_gb": peak_gb, "sentinel_skipped": skipped, "device_busy_share": summary["device_busy_share"],
+        "launches_per_step": {k: launches[k] / task.steps for k in want}}))
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{name}: non-finite loss {losses}")
-    if not losses[1] < losses[0]:
-        raise SystemExit(f"{name}: the first step did not lower the loss: {losses}")
+    if not (losses[1] if task.first_step_lowers else min(losses[1:])) < losses[0]:
+        raise SystemExit(f"{name}: the loss did not fall below the first: {losses}")
     if any(skipped):
         raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
-    check_launches(name, launches, want, IMAGE_STEPS)
+    check_launches(name, launches, want, task.steps)
     return {"launches": launches, "losses": losses, "median_step_ms": median_ms,
             "busy_share": summary["device_busy_share"], "params": params, "peak_memory_gb": peak_gb}
 
 
-def image_train_pair(card: str, dtype: torch.dtype = torch.float32, remat: bool = False,
+def model_train_pair(card: str, task: TrainTask, dtype: torch.dtype = torch.float32, remat: bool = False,
                      plain: dict = None) -> dict:
-    """The image train phase as a CUDA graph, then eagerly: the losses
-    within ``GRAPH_RTOL`` relative, the differences printed; in bf16
-    (``image_train_bf16``) the losses and the parameters after five steps
-    must be equal bit for bit. With ``remat`` against ``plain`` (the pair
-    without it): each step's loss within ``IMAGE_REMAT_LOSS_TOL`` of the plain
-    step's (another route, see there) at a lower peak of device memory.
-    Returns the graph run's launches, both runs' losses and peaks."""
+    """The model's train phase as a CUDA graph, then eagerly, from the same
+    weights and batch: the losses within ``GRAPH_RTOL`` relative, the
+    differences printed; in bf16 the losses and the parameters after the
+    steps equal bit for bit. With ``remat`` against ``plain`` (the pair
+    without it): each step's loss within ``IMAGE_REMAT_LOSS_TOL`` of the
+    plain step's (another route, see there) at a lower peak of device
+    memory. Returns the graph run's launches, both runs' losses and peaks."""
     runs = {}
-    name = "image_train" + ("_remat" if remat else "") + (BF16 if dtype == torch.bfloat16 else "")
+    name = f"{task.stem}_train" + ("_remat" if remat else "") + (BF16 if dtype == torch.bfloat16 else "")
     for jit in (True, False):
-        runs["graph" if jit else "eager"] = image_train_phase(card, jit, dtype, remat)
+        runs["graph" if jit else "eager"] = model_train_phase(card, task, jit, dtype, remat)
         free_card()
     g, e = runs["graph"], runs["eager"]
     diffs = [rel_diff(a, b) for a, b in zip(g["losses"], e["losses"])]
     identical = g["losses"] == e["losses"] and all(torch.equal(a, b) for a, b in zip(g["params"], e["params"]))
+    peaks = {k: r["peak_memory_gb"] for k, r in runs.items()}
     log(f"{name} graph against eager: " + json.dumps({
         "card": card, "identical": identical, "loss_rel_diff": diffs, "rtol": GRAPH_RTOL,
         "median_step_ms": {k: r["median_step_ms"] for k, r in runs.items()},
-        "busy_share": {k: r["busy_share"] for k, r in runs.items()}}))
+        "busy_share": {k: r["busy_share"] for k, r in runs.items()}, "peak_memory_gb": peaks}))
     if not all(within(d, GRAPH_RTOL) for d in diffs):
         raise SystemExit(f"{name}: the graph's losses leave the eager step's: {diffs}")
     if dtype == torch.bfloat16 and not identical:
         raise SystemExit(f"{name}: the graph's losses and parameters are not the eager step's bit for bit: {diffs}")
     TIMES[f"{name}_median_ms"] = {k: r["median_step_ms"] for k, r in runs.items()}
     TIMES[f"{name}_busy_share"] = {k: r["busy_share"] for k, r in runs.items()}
-    TIMES[f"{name}_peak_memory_gb"] = {k: r["peak_memory_gb"] for k, r in runs.items()}
-    peaks = {k: r["peak_memory_gb"] for k, r in runs.items()}
+    TIMES[f"{name}_peak_memory_gb"] = peaks
     if plain is not None:
+        base = f"{task.stem}_train" + BF16
         against = {kind: {"loss_rel_diff": [rel_diff(a, b) for a, b in zip(runs[kind]["losses"],
                                                                              plain["losses"][kind])],
                           "peak_memory_gb": [peaks[kind], plain["peak_memory_gb"][kind]],
-                          "median_step_ms": [runs[kind]["median_step_ms"], TIMES[
-                              "image_train" + BF16 + "_median_ms"][kind]]} for kind in runs}
-        log(f"{name} against image_train_bf16 ([remat, plain]): " + json.dumps({
+                          "median_step_ms": [runs[kind]["median_step_ms"], TIMES[base + "_median_ms"][kind]]}
+                   for kind in runs}
+        log(f"{name} against {base} ([remat, plain]): " + json.dumps({
             "card": card, "loss_tol": IMAGE_REMAT_LOSS_TOL, **against}))
         for kind, a in against.items():
             if not all(within(d, IMAGE_REMAT_LOSS_TOL) for d in a["loss_rel_diff"]):
-                raise SystemExit(f"{name} {kind}: losses leave image_train_bf16's: {a}")
+                raise SystemExit(f"{name} {kind}: losses leave {base}'s: {a}")
             if not a["peak_memory_gb"][0] < a["peak_memory_gb"][1]:
-                raise SystemExit(f"{name} {kind}: peak memory not below image_train_bf16's: {a}")
+                raise SystemExit(f"{name} {kind}: peak memory not below {base}'s: {a}")
     return {"launches": g["launches"], "losses": {k: r["losses"] for k, r in runs.items()}, "peak_memory_gb": peaks}
 
 
-def image_grad_check_phase(card: str) -> None:
-    """One train-step gradient of the classifier at full width (1024 latent
-    channels, 8 SA heads, 64 bands, 512 latents, 1000 classes) on a reduced
-    image and depth (32x32x3, one block of 2 layers; batch 2) on the card
-    against the CPU's plain versions, from the same weights and batch: per
-    parameter, max abs difference over the CPU gradient's max abs value
-    (the key-projection biases, whose gradient is 0 in exact arithmetic,
-    against an absolute bound instead). Then one optimizer update (clip 1.0,
-    AdamW at ``IMAGE_LR``) from those gradients on each side, compared as the L2
-    norm of their difference over the CPU update's norm."""
+def model_grad_check_phase(card: str, task: TrainTask, dtype: torch.dtype = torch.float32) -> None:
+    """One loss's gradient of the model at the checks' size (``small``; batch
+    2) on the card against the CPU's plain versions, from the same weights
+    and batch, per parameter. f32: max abs difference over the CPU
+    gradient's max abs value within ``task.grad_tol``; then, where
+    ``task.update_tol`` is set, one optimizer update (clip 1.0, AdamW at
+    ``task.lr``) from those gradients on each side, the L2 norm of their
+    difference over the CPU update's norm within it. bf16: the card's bf16
+    gradient no further from the CPU's f32 gradient than 1.5x the CPU's bf16
+    gradient (the plain versions, the same rounding points) is, in L2. The
+    key-projection biases, whose gradient is 0 in exact arithmetic, against
+    an absolute bound instead: 1e-6 (f32) or ``ZERO_GRAD_BF16`` (on both
+    bf16 sides) of the largest f32 gradient. The card's pass launches K8,
+    K9a and K9b ``task.check_heads`` times each, in the build of its dtype
+    only."""
     from perceiver_io_tpu_torch import training as tt
     from perceiver_io_tpu_torch.ops import build
 
-    batch = image_batch(2, IMAGE_SMALL["image_shape"], SEED + 6)
-    grads, losses, updates = [], [], []
-    for device in ("cpu", "cuda"):
-        model = image_classifier(device, **IMAGE_SMALL)
+    bf16 = dtype == torch.bfloat16
+    name = f"{task.stem}_grad_check" + (BF16 if bf16 else "")
+    batch = task.batch(2, task.seeds[1], small=True)
+    loss_fn = getattr(tt, task.loss_fn)(deterministic=True)
+    sides = ((("cpu_f32", "cpu", torch.float32), ("cpu_bf16", "cpu", dtype), ("card_bf16", "cuda", dtype)) if bf16
+             else (("cpu_f32", "cpu", torch.float32), ("card_f32", "cuda", torch.float32)))
+    grads, losses, seconds, updates = {}, {}, {}, {}
+    for side, device, dt in sides:
+        t0 = time.perf_counter()
+        model = task.model(device, dt, small=True)
         build.reset_launches()
-        loss, _ = tt.classification_loss_fn()(model, batch)
+        loss, _ = loss_fn(model, batch)
         loss.backward()
-        losses.append(float(loss.detach()))
-        grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
-        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-        tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0)).apply_gradients()
-        updates.append(torch.cat([(p.detach().cpu() - before[n]).flatten() for n, p in model.named_parameters()]))
-    heads = [build.LAUNCHES[k] for k in HEADS_KERNELS]
-    if heads != [1, 1, 1]:
-        raise SystemExit(f"image_grad_check: the card's K8/K9a/K9b launches {heads}, expected one each")
-    zero = {n for n in grads[0] if n.endswith("attention.k_proj.bias")}
-    rel = {n: float((grads[1][n] - g).abs().max() / g.abs().max()) for n, g in grads[0].items() if n not in zero}
-    zero_max = max(max(float(grads[0][n].abs().max()), float(grads[1][n].abs().max())) for n in zero)
-    worst = sorted(rel.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
-    update_err = float((updates[1] - updates[0]).norm() / updates[0].norm())
-    grad_scale = max(float(g.abs().max()) for g in grads[0].values())
-    # as grad_check_phase: gradients within 1e-5 relative (f32 on both
-    # sides, the sums run in other orders), the update within 3e-4; the zero gradients
-    # within 1e-6 of the largest gradient of the tree
-    tol, update_tol, zero_tol = 1e-5, 3e-4, 1e-6 * grad_scale
-    log("image_grad_check: " + json.dumps({
-        "card": card, "loss_cpu": losses[0], "loss_card": losses[1], "max_rel_err": worst[0][1], "tol": tol,
-        "worst": worst, "n_params": len(grads[0]), "zero_grad_max": zero_max, "zero_grad_tol": zero_tol,
-        "update_rel_err": update_err, "update_tol": update_tol}))
-    if not all(within(r, tol) for r in rel.values()):
-        raise SystemExit(f"image_grad_check failed: {worst}")
+        losses[side] = float(loss.detach())
+        grads[side] = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        if task.update_tol is not None and not bf16:
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            tt.TrainState.create(model, tt.make_optimizer(task.lr, gradient_clip=1.0)).apply_gradients()
+            updates[side] = torch.cat([(p.detach().cpu() - before[n]).flatten()
+                                       for n, p in model.named_parameters()])
+        seconds[side] = time.perf_counter() - t0
+        del model
+    want = {k + sfx: task.check_heads if (sfx == BF16) == bf16 else 0 for k in HEADS_KERNELS for sfx in ("", BF16)}
+    heads = {k: build.LAUNCHES[k] for k in want}
+    if heads != want:
+        raise SystemExit(f"{name}: the card's heads-major launches {heads}, expected {want}")
+    ref, card_side = grads["cpu_f32"], sides[-1][0]
+    zero = {n for n in ref if n.endswith("attention.k_proj.bias")}
+    scale = max(float(g.abs().max()) for g in ref.values())
+    if bf16:
+        errs = {n: l2_err(g, ref[n]) / max(l2_err(grads["cpu_bf16"][n], ref[n]), 1e-30)
+                for n, g in grads[card_side].items() if n not in zero}
+        tol, zero_sides, zero_tol = 1.5, ("cpu_bf16", card_side), ZERO_GRAD_BF16 * scale
+    else:
+        errs = {n: float((grads[card_side][n] - g).abs().max() / g.abs().max()) for n, g in ref.items()
+                if n not in zero}
+        tol, zero_sides, zero_tol = task.grad_tol, ("cpu_f32", card_side), 1e-6 * scale
+    zero_max = max((float(grads[s][n].abs().max()) for s in zero_sides for n in zero), default=0.0)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
+    update_err = float((updates[card_side] - updates["cpu_f32"]).norm() / updates["cpu_f32"].norm()) \
+        if updates else None
+    log(f"{name}: " + json.dumps({
+        "card": card, "cpu_threads": torch.get_num_threads(), "losses": losses, "seconds": seconds,
+        "rule": "L2 ratio to the CPU's bf16 gradient" if bf16 else "max abs err relative", "max": worst[0][1],
+        "tol": tol, "worst": worst, "n_params": len(errs), "zero_grad_max": zero_max, "zero_grad_tol": zero_tol,
+        "update_rel_err": update_err, "update_tol": task.update_tol if updates else None, "heads": heads}))
+    if not all(within(e, tol) for e in errs.values()):
+        raise SystemExit(f"{name} failed: {worst}")
     if not within(zero_max, zero_tol):
-        raise SystemExit(f"image_grad_check: key-bias gradients {zero_max} > {zero_tol}")
-    if not within(update_err, update_tol):
-        raise SystemExit(f"image_grad_check: the card's optimizer update differs from the CPU's by {update_err}")
+        raise SystemExit(f"{name}: key-bias gradients {zero_max} > {zero_tol}")
+    if updates and not within(update_err, task.update_tol):
+        raise SystemExit(f"{name}: the card's optimizer update differs from the CPU's by {update_err}")
 
 
-def image_trajectory_phase(card: str) -> None:
-    """Five train steps (``make_train_step`` with the sentinel, AdamW at
-    ``IMAGE_LR``, clip 1.0) of the classifier at the gradient check's size
-    (full width, 32x32x3 images, one block of 2 layers; one fixed batch of
-    2) on the card and on the CPU's plain versions, from the same weights:
-    each step's loss within ``IMAGE_TRAJECTORY_TOL`` of the CPU's,
-    relative, and no step skipped. Where image_train's losses rise at this
-    rate, this phase says whether the port or the optimizer makes them."""
+def model_trajectory_phase(card: str, task: TrainTask) -> None:
+    """``task.trajectory_steps`` train steps (``make_train_step`` with the
+    sentinel, AdamW at ``task.lr``, clip 1.0) of the model at the checks'
+    size, f32, on one fixed batch of 2 on the card and on the CPU's plain
+    versions, from the same weights: each step's loss within
+    ``IMAGE_TRAJECTORY_TOL`` of the CPU's, relative, and no step skipped.
+    Where a train phase's losses rise, this phase says whether the port or
+    the optimizer makes them."""
     from perceiver_io_tpu_torch import training as tt
 
-    batch = image_batch(2, IMAGE_SMALL["image_shape"], SEED + 7)
+    name = f"{task.stem}_trajectory"
+    batch = task.batch(2, task.seeds[2], small=True)
     losses, skipped, seconds = {}, {}, {}
     for device in ("cpu", "cuda"):
-        model = image_classifier(device, **IMAGE_SMALL)
-        state = tt.TrainState.create(model, tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
-        step = tt.make_train_step(tt.classification_loss_fn(), sentinel=True)
+        model = task.model(device, torch.float32, small=True)
+        state = tt.TrainState.create(model, tt.make_optimizer(task.lr, gradient_clip=1.0))
+        step = tt.make_train_step(getattr(tt, task.loss_fn)(), sentinel=True)
         losses[device], skipped[device] = [], []
         t0 = time.perf_counter()
-        for _ in range(IMAGE_STEPS):
+        for _ in range(task.trajectory_steps):
             state, metrics = step(state, batch)
             losses[device].append(float(metrics["loss"]))
             skipped[device].append(float(metrics["sentinel_skipped"]))
         seconds[device] = time.perf_counter() - t0
+        del model, state, step
     rel = [abs(g - c) / abs(c) for c, g in zip(losses["cpu"], losses["cuda"])]
-    log("image_trajectory: " + json.dumps({
-        "card": card, "lr": IMAGE_LR, "losses_cpu": losses["cpu"], "losses_card": losses["cuda"],
+    log(f"{name}: " + json.dumps({
+        "card": card, "lr": task.lr, "losses_cpu": losses["cpu"], "losses_card": losses["cuda"],
         "rel_err": rel, "tol": IMAGE_TRAJECTORY_TOL, "sentinel_skipped": skipped, "seconds": seconds}))
     if not all(within(r, IMAGE_TRAJECTORY_TOL) for r in rel):
-        raise SystemExit(f"image_trajectory: the card's losses {losses['cuda']} leave the CPU's {losses['cpu']}")
+        raise SystemExit(f"{name}: the card's losses {losses['cuda']} leave the CPU's {losses['cpu']}")
     if any(skipped["cpu"] + skipped["cuda"]):
-        raise SystemExit(f"image_trajectory: the sentinel skipped a step: {skipped}")
+        raise SystemExit(f"{name}: the sentinel skipped a step: {skipped}")
 
 
-def image_grad_check_bf16_phase(card: str) -> None:
-    """image_grad_check's classifier (full width, 32x32x3 images, one block
-    of 2 layers) and batch in bf16 compute on the card against the CPU: per
-    parameter, the card's bf16 gradient lies no further from the CPU's f32
-    gradient than 1.5x the CPU's bf16 gradient (the plain versions, the same
-    rounding points) does (L2), as grad_check_bf16 holds the CLM; the
-    key-projection biases, whose gradient is 0 in exact arithmetic, within
-    ``IMAGE_ZERO_GRAD_BF16`` of the largest f32 gradient on both bf16 sides.
-    The card's cross-attention runs K8, K9a and K9b's bf16 builds once each,
-    and no f32 build."""
+# ---------------------------------------------------------------------------
+# the Perceiver IO task models (ROADMAP A13, part 1): the masked LM and its
+# mask filler, the text classifier, optical flow and the time series
+# ---------------------------------------------------------------------------
+
+
+def mlm_model(device, dtype: torch.dtype = torch.float32, layers: int = None, classifier: bool = False):
+    """The masked LM (or, with ``classifier``, the text classifier over its
+    encoder) at ``MLM_ENCODER``'s width, seeded random weights, with
+    ``layers`` self-attention layers (all 26 by default)."""
+    from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig
+    from perceiver_io_tpu_torch.models.text import (
+        MaskedLanguageModel,
+        MaskedLanguageModelConfig,
+        TextClassifier,
+        TextClassifierConfig,
+        TextDecoderConfig,
+        TextEncoderConfig,
+    )
+
+    enc = TextEncoderConfig(**dict(MLM_ENCODER, **({} if layers is None else
+                                                  {"num_self_attention_layers_per_block": layers})))
+    top = dict(num_latents=MLM_LATENTS, num_latent_channels=MLM_CHANNELS)
+    gen = torch.Generator().manual_seed(SEED)
+    if classifier:
+        config = TextClassifierConfig(encoder=enc, decoder=ClassificationDecoderConfig(**TEXT_CLF_DECODER), **top)
+        return TextClassifier(config, dtype=dtype, device=device, generator=gen)
+    config = MaskedLanguageModelConfig(encoder=enc, decoder=TextDecoderConfig(**MLM_DECODER), **top)
+    return MaskedLanguageModel(config, dtype=dtype, device=device, generator=gen)
+
+
+def flow_model(device, dtype: torch.dtype = torch.float32):
+    from perceiver_io_tpu_torch.models.vision import OpticalFlow, OpticalFlowConfig, OpticalFlowDecoderConfig
+    from perceiver_io_tpu_torch.models.vision import OpticalFlowEncoderConfig
+
+    config = OpticalFlowConfig(encoder=OpticalFlowEncoderConfig(**FLOW_ENCODER),
+                               decoder=OpticalFlowDecoderConfig(**FLOW_DECODER), num_latents=FLOW_LATENTS,
+                               num_latent_channels=FLOW_CHANNELS)
+    return OpticalFlow(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
+
+
+def ts_model(device, dtype: torch.dtype = torch.float32):
+    from perceiver_io_tpu_torch.models.timeseries import (
+        TimeSeriesDecoderConfig,
+        TimeSeriesEncoderConfig,
+        TimeSeriesPerceiver,
+        TimeSeriesPerceiverConfig,
+    )
+
+    config = TimeSeriesPerceiverConfig(encoder=TimeSeriesEncoderConfig(**TS_ENCODER),
+                                       decoder=TimeSeriesDecoderConfig(**TS_DECODER), num_latents=TS_LATENTS,
+                                       num_latent_channels=TS_CHANNELS)
+    return TimeSeriesPerceiver(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
+
+
+def mlm_batch(batch: int, seed: int) -> dict:
+    """``batch`` rows of 2048 byte tokens, the second half of the rows
+    right-padded to 1024-2047 tokens, about 15% of the real tokens masked
+    (labels there, ``IGNORE_INDEX`` elsewhere); a class label a row."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(6, 262, size=(batch, MLM_QUERIES))
+    pad = np.zeros(ids.shape, bool)
+    for row in range(batch // 2, batch):
+        pad[row, rng.integers(1024, MLM_QUERIES):] = True
+    masked = (rng.random(ids.shape) < 0.15) & ~pad
+    labels = np.where(masked, ids, -100)
+    ids = np.where(masked, 3, np.where(pad, 0, ids))
+    return {"input_ids": ids, "labels": labels, "pad_mask": pad, "label": rng.integers(0, 2, size=batch)}
+
+
+def ts_batch(batch: int, seed: int) -> dict:
+    """Windows of a sine mixture with noise (scripts/timeseries.py's
+    synthetic series), ``TS_IN`` steps in and ``TS_OUT`` out."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(TS_IN + TS_OUT)[None, :, None] + rng.integers(0, 10000, size=(batch, 1, 1))
+    freqs = rng.uniform(0.002, 0.05, size=(1, 1, 7))
+    series = (np.sin(2 * np.pi * freqs * t) + 0.05 * rng.normal(size=(batch, TS_IN + TS_OUT, 7))).astype(np.float32)
+    return {"x": series[:, :TS_IN], "y": series[:, TS_IN:]}
+
+
+def pick(batch: dict, *keys) -> dict:
+    return {k: batch[k] for k in keys}
+
+
+# the models the train and check phases drive (TrainTask): the image
+# classifier (its checks at IMAGE_SMALL, with the optimizer update compared
+# too), the masked LM and the text classifier (their checks at
+# TASK_CHECK_LAYERS self-attention layers: K8 in the cross-attention and each
+# layer) and the time series (its checks at full size: K8 10 times)
+TASKS = {
+    "image": TrainTask(
+        "image", lambda device, dtype, small=False, remat=False: image_classifier(
+            device, dtype, remat, **(IMAGE_SMALL if small else {})),
+        lambda size, seed, small=False: image_batch(size, (IMAGE_SMALL if small else IMAGE_ENCODER)["image_shape"],
+                                                    seed),
+        "classification_loss_fn", IMAGE_STEP, IMAGE_BATCH, IMAGE_LR, IMAGE_STEPS, IMAGE_STEPS,
+        (SEED + 5, SEED + 6, SEED + 7), check_heads=1, grad_tol=1e-5, update_tol=3e-4,
+        remat_step=IMAGE_STEP_REMAT_BF16),
+    "mlm": TrainTask(
+        "mlm", lambda device, dtype, small=False, remat=False: mlm_model(
+            device, dtype, TASK_CHECK_LAYERS if small else None),
+        lambda size, seed, small=False: pick(mlm_batch(size, seed), "input_ids", "labels", "pad_mask"),
+        "masked_lm_loss_fn", step_launches(MLM_FORWARD), MLM_BATCH, TASK_LR, TASK_STEPS, TASK_TRAJECTORY_STEPS,
+        (SEED + 31, SEED + 33, SEED + 33), check_heads=TASK_CHECK_LAYERS + 1, first_step_lowers=False),
+    "text_clf": TrainTask(
+        "text_clf", lambda device, dtype, small=False, remat=False: mlm_model(
+            device, dtype, TASK_CHECK_LAYERS if small else None, classifier=True),
+        lambda size, seed, small=False: pick(mlm_batch(size, seed), "input_ids", "label", "pad_mask"),
+        "classification_loss_fn", step_launches(MLM_FORWARD), MLM_BATCH, TASK_LR, TASK_STEPS, TASK_TRAJECTORY_STEPS,
+        (SEED + 31, SEED + 33, SEED + 33), check_heads=TASK_CHECK_LAYERS + 1, first_step_lowers=False),
+    "timeseries": TrainTask(
+        "timeseries", lambda device, dtype, small=False, remat=False: ts_model(device, dtype),
+        lambda size, seed, small=False: ts_batch(size, seed),
+        "mse_loss_fn", step_launches(TS_FORWARD), TS_BATCH, TASK_LR, TASK_STEPS, TASK_TRAJECTORY_STEPS,
+        (SEED + 30, SEED + 32, SEED + 32), check_heads=TS_FORWARD["flash_heads_fwd"], grad_tol=TS_GRAD_TOL,
+        first_step_lowers=False),
+}
+
+def mlm_fill_phase(card: str, dtype: torch.dtype = torch.float32, cpu_f32: dict = None) -> dict:
+    """The masked LM's fill at full width: a batch of 8 byte sequences of
+    2048 tokens (15% masked, four rows right-padded) through
+    ``make_eval_step`` (a CUDA graph; its first call the eager forward):
+    ``MLM_FORWARD``'s launches exactly (bf16: the bf16 builds), finite logits
+    (8, 2048, 262), a replay within ``GRAPH_RTOL`` of the eager forward (bf16:
+    bit for bit); the logits of rows 0 and 7 against the port on the CPU from
+    the same weights: f32 within ``MLM_FILL_REL_TOL`` of the largest, bf16
+    by ``check_bf16`` (1.5x the CPU's bf16 distance from its f32 logits, in
+    L2). f32 only: ``MaskFiller`` on ``MLM_SAMPLES``, its top-1 fills the
+    CPU filler's except at a near tie (top-2 gap under ``NEAR_TIE`` in the
+    CPU's logits), which is printed. Prints ms a batch, sequences/s and the
+    peak memory. Returns the CPU's f32 logits of the two rows (for the bf16
+    phase) and the launches."""
     from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.data.text.tokenizer import ByteTokenizer
+    from perceiver_io_tpu_torch.hf import MaskFiller
     from perceiver_io_tpu_torch.ops import build
 
-    batch = image_batch(2, IMAGE_SMALL["image_shape"], SEED + 6)
-    grads, losses, seconds = {}, {}, {}
-    for name, device, dtype in (("cpu_f32", "cpu", torch.float32), ("cpu_bf16", "cpu", torch.bfloat16),
-                                ("card_bf16", "cuda", torch.bfloat16)):
-        t0 = time.perf_counter()
-        model = image_classifier(device, dtype, **IMAGE_SMALL)
+    bf16 = dtype == torch.bfloat16
+    name = "mlm_fill" + (BF16 if bf16 else "")
+    want = as_bf16(MLM_FORWARD) if bf16 else MLM_FORWARD
+    model = mlm_model("cuda", dtype)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != MLM_PARAMS:
+        raise SystemExit(f"{name}: {n_params} parameters, deepmind/language-perceiver has {MLM_PARAMS}")
+    host = mlm_batch(MLM_BATCH, SEED + 20)
+    batch = {k: torch.from_numpy(host[k]).cuda() for k in ("input_ids", "pad_mask")}
+
+    def forward(model, batch):
+        return model(batch["input_ids"], pad_mask=batch["pad_mask"])
+
+    step = tt.make_eval_step(forward)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    logits = step(model, batch)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check_graph(name, step.captured.graph, nonzero_launches(), want)
+    check_launches(name, launches, want, 1)
+    replay = step(model, batch)
+    graph_err = 0.0 if torch.equal(replay, logits) else rel_diff(replay, logits)
+    if tuple(logits.shape) != (MLM_BATCH, MLM_QUERIES, 262) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{name}: logits not finite or not of shape {(MLM_BATCH, MLM_QUERIES, 262)}")
+    if not within(graph_err, 0.0 if bf16 else GRAPH_RTOL):
+        raise SystemExit(f"{name}: the graph's logits leave the eager forward's by {graph_err}")
+    batch_ms = wall_ms(lambda: step(model, batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = [0, MLM_BATCH - 1]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if cpu_f32 is None:
+            cpu_model = mlm_model("cpu")
+            cpu_f32 = {"logits": cpu_model(torch.from_numpy(host["input_ids"][rows]),
+                                           pad_mask=torch.from_numpy(host["pad_mask"][rows]))}
+        cpu_bf16 = None
+        if bf16:
+            cpu_bf16 = mlm_model("cpu", dtype)(torch.from_numpy(host["input_ids"][rows]),
+                                               pad_mask=torch.from_numpy(host["pad_mask"][rows]))
+    cpu_s = time.perf_counter() - t0
+    card_rows = logits[rows].cpu()
+    report = {"card": card, "dtype": str(dtype)[6:], "batch": MLM_BATCH, "parameters": n_params,
+              "graph_rel_diff_to_eager": graph_err, "batch_ms_graph": batch_ms,
+              "sequences_per_s": MLM_BATCH / (batch_ms / 1e3),
+              "tokens_per_s": MLM_BATCH * MLM_QUERIES / (batch_ms / 1e3),
+              "peak_memory_gb": peak_gb, "cpu_reference_s": cpu_s, "cpu_threads": torch.get_num_threads(),
+              "launches": {k: v for k, v in launches.items() if v}}
+    if bf16:
+        report["bf16_rule"] = check_bf16(f"{name} logits against the CPU", card_rows, cpu_bf16, cpu_f32["logits"],
+                                         1.5)
+    else:
+        err = rel_diff(card_rows, cpu_f32["logits"])
+        report.update(rel_err_to_cpu=err, tol=MLM_FILL_REL_TOL)
+        if not within(err, MLM_FILL_REL_TOL):
+            raise SystemExit(f"{name}: the card's logits leave the CPU's by {err} (relative)")
+        tok = ByteTokenizer()
+        fills = {"card": MaskFiller(model, tok).fill(MLM_SAMPLES, num_predictions=1)}
+        cpu_filler = MaskFiller(cpu_model, tok, device="cpu")
+        fills["cpu"] = cpu_filler.fill(MLM_SAMPLES, num_predictions=1)
+        ids, pad = tok.pad_sequences([cpu_filler._encode_masked(t) for t in MLM_SAMPLES], max_length=MLM_QUERIES)
+        with torch.no_grad():
+            top2 = cpu_model(torch.from_numpy(ids).long(), pad_mask=torch.from_numpy(pad)).topk(2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1]).numpy()
+        near = []
+        for row, (got, want_fill) in enumerate(zip(fills["card"], fills["cpu"])):
+            if got != want_fill:
+                gap = float(gaps[row][ids[row] == tok.mask_token_id].min())
+                near.append({"sample": row, "card": got, "cpu": want_fill, "min_top2_gap": gap})
+                if not within(gap, NEAR_TIE):
+                    raise SystemExit(f"{name}: the card's fill {got} is not the CPU's {want_fill} (gap {gap})")
+        report.update(fills=fills["card"], near_ties=near)
+        del cpu_model
+    log(f"{name}: " + json.dumps(report))
+    TIMES[f"{name}_sequences_per_s"] = report["sequences_per_s"]
+    return {"launches": launches, "cpu_f32": cpu_f32}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of the forward path (K8, K2, K1) computing its
+    plain PyTorch version on the card instead: the reference a forward
+    through the kernels is held to, on the same device, weights and input."""
+    from perceiver_io_tpu_torch.ops import flash_attention as tflash
+    from perceiver_io_tpu_torch.ops import layernorm as tln
+
+    saved = tflash.heads_fwd_cuda, tflash._fwd_cuda, tln.layer_norm_cuda
+    tflash.heads_fwd_cuda = tflash._heads_fwd_plain
+    tflash._fwd_cuda = lambda q, k, v, h, bias, causal, sm_scale, nsplit=None: tflash._fwd_plain(
+        q, k, v, h, bias, causal, sm_scale)
+    tln.layer_norm_cuda = lambda x, w, b, eps, dtype, want_stats=False: tln.layer_norm_reference_stats(
+        x, w, b, eps, dtype)
+    try:
+        yield
+    finally:
+        tflash.heads_fwd_cuda, tflash._fwd_cuda, tln.layer_norm_cuda = saved
+
+
+def flow_phase(card: str, dtype: torch.dtype = torch.float32, f32_plain: torch.Tensor = None) -> dict:
+    """Optical flow at deepmind/optical-flow-perceiver's width: one 368 x 496
+    pair at batch 1, eagerly: ``FLOW_FORWARD``'s launches exactly (bf16:
+    ``FLOW_FORWARD_BF16``), a finite (1, 368, 496, 2) flow, held to the same
+    forward with every kernel on its plain version on the card (``plain_kernels``;
+    f32 within ``FLOW_REL_TOL`` of the largest, bf16 by ``check_bf16``
+    against the f32 phase's plain forward, ``f32_plain``, its element rule at
+    ``FLOW_BF16_REL``); then ``OpticalFlowProcessor.process``
+    on a one-patch pair (20 x the forward's flow within 1e-6 relative: the
+    grid's four copies of the patch blend to it) and on a generated ``FLOW_BIG`` pair (2 x 2
+    overlapping patches blended): finite, of the frame's shape. Prints ms a
+    pair and pairs/s. Returns the forward's launches and the f32 plain flow."""
+    from perceiver_io_tpu_torch.data.vision import OpticalFlowProcessor
+    from perceiver_io_tpu_torch.ops import build
+
+    bf16 = dtype == torch.bfloat16
+    name = "flow" + (BF16 if bf16 else "")
+    want = FLOW_FORWARD_BF16 if bf16 else FLOW_FORWARD
+    model = flow_model("cuda", dtype)
+    rng = np.random.default_rng(SEED + 40)
+    frames = [rng.integers(0, 256, size=FLOW_SHAPE + (3,), dtype=np.uint8) for _ in range(2)]
+    proc = OpticalFlowProcessor(patch_size=FLOW_SHAPE)
+    # a pair of the patch's size makes the reference's grid of 2 x 2 corners,
+    # all at (0, 0): four copies of one patch; the forward takes one
+    x = torch.from_numpy(proc.preprocess(frames)[:1]).cuda()  # (1, 2, 368, 496, 27)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    with torch.no_grad():
+        flow = model(x)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        check_launches(name, launches, want, 1)
         build.reset_launches()
-        loss, _ = tt.classification_loss_fn()(model, batch)
-        loss.backward()
-        losses[name] = float(loss.detach())
-        grads[name] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-        seconds[name] = time.perf_counter() - t0
-    heads = {k: build.LAUNCHES[k] for k in HEADS_KERNELS + tuple(k + BF16 for k in HEADS_KERNELS)}
-    if heads != {**dict.fromkeys(HEADS_KERNELS, 0), **{k + BF16: 1 for k in HEADS_KERNELS}}:
-        raise SystemExit(f"image_grad_check_bf16: the card's heads-major launches {heads}, expected one of each "
-                         "bf16 build")
-    zero = {n for n in grads["cpu_f32"] if n.endswith("attention.k_proj.bias")}
-    ratios = {n: l2_err(g, grads["cpu_f32"][n]) / max(l2_err(grads["cpu_bf16"][n], grads["cpu_f32"][n]), 1e-30)
-              for n, g in grads["card_bf16"].items() if n not in zero}
-    scale = max(float(g.abs().max()) for g in grads["cpu_f32"].values())
-    zero_max = max(float(grads[side][n].abs().max()) for side in ("cpu_bf16", "card_bf16") for n in zero)
-    worst = sorted(ratios.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)[:3]
-    log("image_grad_check_bf16: " + json.dumps({
-        "card": card, "cpu_threads": torch.get_num_threads(), "losses": losses, "seconds": seconds,
-        "max_ratio": worst[0][1], "ratio_tol": 1.5, "worst": worst, "n_params": len(ratios),
-        "zero_grad_max": zero_max, "zero_grad_tol": IMAGE_ZERO_GRAD_BF16 * scale}))
-    if not all(within(r, 1.5) for r in ratios.values()):
-        raise SystemExit(f"image_grad_check_bf16 failed: {worst}")
-    if not within(zero_max, IMAGE_ZERO_GRAD_BF16 * scale):
-        raise SystemExit(f"image_grad_check_bf16: key-bias gradients {zero_max} > {IMAGE_ZERO_GRAD_BF16 * scale}")
+        with plain_kernels():
+            plain = model(x)
+        if any(build.LAUNCHES.values()):
+            raise SystemExit(f"{name}: the plain forward launched {nonzero_launches()}")
+    if tuple(flow.shape) != (1,) + FLOW_SHAPE + (2,) or not bool(torch.isfinite(flow).all()):
+        raise SystemExit(f"{name}: flow not finite or not of shape {(1,) + FLOW_SHAPE + (2,)}")
+    report = {"card": card, "dtype": str(dtype)[6:], "pair": FLOW_SHAPE,
+              "launches": {k: v for k, v in launches.items() if v}}
+    if bf16:
+        report["bf16_rule"] = check_bf16(f"{name} against the f32 plain forward", flow, plain, f32_plain, 1.5,
+                                         rel=FLOW_BF16_REL)
+    else:
+        err = rel_diff(flow, plain)
+        report.update(rel_err_to_plain=err, tol=FLOW_REL_TOL)
+        if not within(err, FLOW_REL_TOL):
+            raise SystemExit(f"{name}: the kernels' flow leaves the plain versions' by {err} (relative)")
+
+    def model_fn(batch):
+        with torch.no_grad():
+            return model(torch.from_numpy(batch).cuda()).float().cpu().numpy()
+
+    one = proc.process(model_fn, [frames])
+    one_err = rel_diff(torch.from_numpy(one), 20 * flow.float().cpu())
+    big = [rng.integers(0, 256, size=FLOW_BIG + (3,), dtype=np.uint8) for _ in range(2)]
+    t0 = time.perf_counter()
+    blended = proc.process(model_fn, [big])
+    process_s = time.perf_counter() - t0
+    if not within(one_err, 1e-6):
+        raise SystemExit(f"{name}: a one-patch process leaves 20 x the forward by {one_err}")
+    if blended.shape != (1,) + FLOW_BIG + (2,) or not np.isfinite(blended).all():
+        raise SystemExit(f"{name}: the blended flow is not finite or not of shape {(1,) + FLOW_BIG + (2,)}")
+    with torch.no_grad():
+        pair_ms = wall_ms(lambda: model(x))
+        device_ms = time_ms(lambda: model(x), 3)
+    report.update(one_patch_rel_err=one_err, big_pair=FLOW_BIG, big_patches=len(proc.compute_patch_grid_indices(
+        FLOW_BIG)), big_process_s=process_s, pair_ms=pair_ms, pair_device_ms=device_ms,
+        pairs_per_s=1e3 / pair_ms, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name}: " + json.dumps(report))
+    TIMES[f"{name}_pairs_per_s"] = report["pairs_per_s"]
+    return {"launches": launches, "plain": plain}
 
 
 # ---------------------------------------------------------------------------
@@ -4976,20 +5519,20 @@ def main() -> None:
     image_f32 = image_eval_phase(card)
     by_phase["image_eval"] = image_f32["launches"]
     free_card()
-    image_train = image_train_pair(card)
+    image_train = model_train_pair(card, TASKS["image"])
     by_phase["image_train"] = image_train["launches"]
-    image_grad_check_phase(card)
-    image_trajectory_phase(card)
+    model_grad_check_phase(card, TASKS["image"])
+    model_trajectory_phase(card, TASKS["image"])
     free_card()
     # the bf16 image classifier: eval and train step (graph and eager), then
     # its gradient against the CPU's
     by_phase["image_eval_bf16"] = image_eval_phase(card, torch.bfloat16, image_f32["logits"])["launches"]
     del image_f32
     free_card()
-    image_train_bf16 = image_train_pair(card, torch.bfloat16)
+    image_train_bf16 = model_train_pair(card, TASKS["image"], torch.bfloat16)
     by_phase["image_train_bf16"] = image_train_bf16["launches"]
     # activation checkpointing (bench.py --remat): the standard route
-    by_phase["image_train_remat_bf16"] = image_train_pair(card, torch.bfloat16, remat=True,
+    by_phase["image_train_remat_bf16"] = model_train_pair(card, TASKS["image"], torch.bfloat16, remat=True,
                                                           plain=image_train_bf16)["launches"]
     log("image_train_bf16 against image_train (f32), this run: " + json.dumps({"card": card, **{
         f"{dt} {kind}": {"median_step_ms": TIMES[f"{name}_median_ms"][kind],
@@ -4998,7 +5541,28 @@ def main() -> None:
         for dt, name, run in (("f32", "image_train", image_train), ("bf16", "image_train" + BF16, image_train_bf16))
         for kind in ("graph", "eager")}}))
     free_card()
-    image_grad_check_bf16_phase(card)
+    model_grad_check_phase(card, TASKS["image"], torch.bfloat16)
+    free_card()
+    # the Perceiver IO task models (ROADMAP A13, part 1): the masked LM's fill
+    # and bf16 train step, the text classifier's bf16 train step, optical
+    # flow at 368 x 496, the time series' train step
+    mlm = mlm_fill_phase(card)
+    by_phase["mlm_fill"] = mlm["launches"]
+    free_card()
+    by_phase["mlm_fill_bf16"] = mlm_fill_phase(card, torch.bfloat16, mlm["cpu_f32"])["launches"]
+    del mlm
+    free_card()
+    for stem, dtype in (("mlm", torch.bfloat16), ("text_clf", torch.bfloat16), ("timeseries", torch.float32)):
+        task = TASKS[stem]
+        by_phase[f"{stem}_train" + (BF16 if dtype == torch.bfloat16 else "")] = model_train_pair(
+            card, task, dtype)["launches"]
+        model_grad_check_phase(card, task, dtype)
+        model_trajectory_phase(card, task)
+        free_card()
+    flow = flow_phase(card)
+    by_phase["flow"] = flow["launches"]
+    by_phase["flow_bf16"] = flow_phase(card, torch.bfloat16, flow["plain"])["launches"]
+    del flow
     free_card()
     # speculative decode (ROADMAP A9) and beam search (A10) on the bf16 CLM
     by_phase["serve_spec_bf16"] = serve_spec_bf16_phase(card)

@@ -2,7 +2,9 @@
 
 :func:`state_dict_from_jax` renames a Flax ``CausalSequenceModel`` parameter
 tree (a nested dict of numpy arrays, with or without the top ``"params"``
-key) to the port's ``state_dict``. The port's parameter names are those of the
+key) to the port's ``state_dict``; ``*_state_dict_from_jax`` do the same for
+the Perceiver IO task models (the image and text classifiers, the masked
+LM, optical flow, the time-series forecaster). The port's parameter names are those of the
 reference PyTorch implementation, so this is the same mapping as the JAX
 package's ``hf/lightning_ckpt.py::export_causal_sequence_model_state_dict``:
 Linear kernels are transposed (Flax stores ``(in, out)``), LayerNorm
@@ -44,13 +46,15 @@ def _mlp(tree, prefix, out) -> None:
     _linear(tree["dense_2"], f"{prefix}.3", out)
 
 
-def _cross_attention_layer(tree, prefix, out) -> None:
-    """A ``CrossAttentionLayer`` whose attention sits in a Residual (the
-    layer's default ``attention_residual=True``)."""
+def _cross_attention_layer(tree, prefix, out, residual: bool = True) -> None:
+    """A ``CrossAttentionLayer``: its attention sits in a Residual
+    (``{prefix}.0.module``) unless the layer was built with
+    ``attention_residual=False`` (``{prefix}.0``)."""
     ca = tree["cross_attn"]
-    _layernorm(ca["q_norm"], f"{prefix}.0.module.q_norm", out)
-    _layernorm(ca["kv_norm"], f"{prefix}.0.module.kv_norm", out)
-    _attention(ca["attention"], f"{prefix}.0.module.attention", out)
+    a = f"{prefix}.0.module" if residual else f"{prefix}.0"
+    _layernorm(ca["q_norm"], f"{a}.q_norm", out)
+    _layernorm(ca["kv_norm"], f"{a}.kv_norm", out)
+    _attention(ca["attention"], f"{a}.attention", out)
     _mlp(tree["mlp"], f"{prefix}.1.module", out)
 
 
@@ -60,6 +64,35 @@ def _self_attention_block(tree, prefix, out) -> None:
         _layernorm(layer["self_attn"]["norm"], f"{prefix}.{i}.0.module.norm", out)
         _attention(layer["self_attn"]["attention"], f"{prefix}.{i}.0.module.attention", out)
         _mlp(layer["mlp"], f"{prefix}.{i}.1.module", out)
+
+
+def _encoder(enc, prefix: str, out) -> None:
+    """A ``PerceiverEncoder`` (its input adapter apart): the latent array,
+    ``cross_attn_1``/``self_attn_1`` and the optional unshared
+    ``cross_attn_n``/``self_attn_n``."""
+    out[f"{prefix}.latent_provider._query"] = _t(enc["latent_provider"]["query"])
+    for name in ("cross_attn_1", "cross_attn_n"):
+        if name in enc:
+            _cross_attention_layer(enc[name], f"{prefix}.{name}", out)
+    for name in ("self_attn_1", "self_attn_n"):
+        if name in enc:
+            _self_attention_block(enc[name], f"{prefix}.{name}", out)
+
+
+def _decoder(dec, prefix: str, out, residual: bool) -> None:
+    """A ``PerceiverDecoder``'s cross-attention layer, and its trainable
+    query array and linear output adapter where it has them."""
+    _cross_attention_layer(dec["cross_attn"], f"{prefix}.cross_attn", out, residual)
+    if "output_query_provider" in dec:
+        out[f"{prefix}.output_query_provider._query"] = _t(dec["output_query_provider"]["query"])
+    if "output_adapter" in dec:
+        _linear(dec["output_adapter"]["linear"], f"{prefix}.output_adapter.linear", out)
+
+
+def _token_input_adapter(adapter, prefix: str, out) -> None:
+    out[f"{prefix}.txt_embedding.weight"] = _t(adapter["txt_embedding"]["embedding"])
+    if "pos_embedding" in adapter:
+        out[f"{prefix}.pos_embedding.weight"] = _t(adapter["pos_embedding"]["embedding"])
 
 
 def image_classifier_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -72,17 +105,71 @@ def image_classifier_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, to
     taken with its residual (``cross_attention_residual=True``, the
     default)."""
     p = params.get("params", params)
-    enc, dec = p["encoder"], p["decoder"]
-    out: Dict[str, torch.Tensor] = {"0.latent_provider._query": _t(enc["latent_provider"]["query"])}
-    for name in ("cross_attn_1", "cross_attn_n"):
-        if name in enc:
-            _cross_attention_layer(enc[name], f"0.{name}", out)
-    for name in ("self_attn_1", "self_attn_n"):
-        if name in enc:
-            _self_attention_block(enc[name], f"0.{name}", out)
-    _cross_attention_layer(dec["cross_attn"], "1.cross_attn", out)
-    out["1.output_query_provider._query"] = _t(dec["output_query_provider"]["query"])
-    _linear(dec["output_adapter"]["linear"], "1.output_adapter.linear", out)
+    out: Dict[str, torch.Tensor] = {}
+    _encoder(p["encoder"], "0", out)
+    _decoder(p["decoder"], "1", out, residual=True)
+    return out
+
+
+def text_classifier_state_dict_from_jax(params: Dict[str, Any], decoder_residual: bool = True
+                                        ) -> Dict[str, torch.Tensor]:
+    """Flax ``TextClassifier`` params -> the port's ``state_dict``: the image
+    classifier's names plus the token adapter's
+    (``0.input_adapter.txt_embedding.weight``,
+    ``0.input_adapter.pos_embedding.weight``), which JAX holds at the top of
+    its tree. ``decoder_residual``: the decoder's ``cross_attention_residual``
+    (the JAX tree does not tell it; the port's names do)."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _token_input_adapter(p["input_adapter"], "0.input_adapter", out)
+    _encoder(p["encoder"], "0", out)
+    _decoder(p["decoder"], "1", out, decoder_residual)
+    return out
+
+
+def mlm_state_dict_from_jax(params: Dict[str, Any], decoder_residual: bool = True) -> Dict[str, torch.Tensor]:
+    """Flax ``MaskedLanguageModel`` params -> the port's ``state_dict``: the
+    text classifier's names, and the output adapter JAX holds at the top of
+    its tree: ``1.output_adapter.bias`` (tied logits) or
+    ``1.output_adapter.linear.*`` (the independent head).
+    ``deepmind/language-perceiver``'s decoder has no attention residual."""
+    p = params.get("params", params)
+    out = text_classifier_state_dict_from_jax(p, decoder_residual)
+    head = p.get("output_adapter", {})
+    if "linear" in head:
+        _linear(head["linear"], "1.output_adapter.linear", out)
+    elif "bias" in head:
+        out["1.output_adapter.bias"] = _t(head["bias"])
+    return out
+
+
+def optical_flow_state_dict_from_jax(params: Dict[str, Any], decoder_residual: bool = True
+                                     ) -> Dict[str, torch.Tensor]:
+    """Flax ``OpticalFlow`` params -> the port's ``state_dict``: the patch
+    projection (``0.input_adapter.linear.*``, at the top of JAX's tree), the
+    encoder, the decoder's cross-attention and its output head
+    (``1.output_adapter.linear.*``); the queries are the adapted input, so
+    no query array. ``deepmind/optical-flow-perceiver``'s decoder has no
+    attention residual."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _linear(p["input_adapter"]["linear"], "0.input_adapter.linear", out)
+    _encoder(p["encoder"], "0", out)
+    _decoder(p["decoder"], "1", out, decoder_residual)
+    return out
+
+
+def timeseries_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``TimeSeriesPerceiver`` params -> the port's ``state_dict``, under
+    the reference application's names: ``encoder.input_adapter.linear.*``,
+    ``encoder.input_adapter.pos_proj.weight`` (bias-free), ``encoder.*`` and
+    ``decoder.*``."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _linear(p["input_adapter"]["linear"], "encoder.input_adapter.linear", out)
+    _linear(p["input_adapter"]["pos_proj"], "encoder.input_adapter.pos_proj", out)
+    _encoder(p["encoder"], "encoder", out)
+    _decoder(p["decoder"], "decoder", out, residual=True)
     return out
 
 
@@ -108,11 +195,13 @@ def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
     """``{port parameter name: the JAX package's path of its counterpart}``
     (``"params/perceiver_ar/cross_attention/cross_attn/q_norm/scale"``, ...):
     the inverse of the renamings above, read off the port's module tree, for
-    a causal sequence model or an image classifier."""
+    a causal sequence model or any of the Perceiver IO task models. The
+    encoder's input adapter and the masked LM's token output adapter sit at
+    the top of JAX's tree."""
     from torch import nn
 
     from perceiver_io_tpu_torch.core import modules
-    from perceiver_io_tpu_torch.core.adapter import TrainableQueryProvider
+    from perceiver_io_tpu_torch.core.adapter import TiedTokenOutputAdapter, TokenOutputAdapter, TrainableQueryProvider
     from perceiver_io_tpu_torch.ops.layernorm import FusedLayerNorm
 
     def child(parent: nn.Module, name: str) -> str:
@@ -151,7 +240,10 @@ def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
         for name, _ in module.named_parameters(recurse=False):
             out[port + name] = jax + leaf(module, name)
         for name, sub in module.named_children():
-            walk(sub, f"{port}{name}.", jax + child(module, name))
+            top = ((isinstance(module, modules.PerceiverEncoder) and name == "input_adapter")
+                   or isinstance(sub, (TiedTokenOutputAdapter, TokenOutputAdapter)) and name == "output_adapter"
+                   and isinstance(module, modules.PerceiverDecoder))
+            walk(sub, f"{port}{name}.", f"params/{name}/" if top else jax + child(module, name))
 
     walk(model, "", "params/")
     return out

@@ -1,7 +1,7 @@
 """Query providers and input/output adapters (counterpart of
 ``perceiver_io_tpu/core/adapter.py``): the trainable query array, the token
-input adapter with rotary support, the tied output adapter and the
-classification head. Parameter names follow the reference PyTorch
+input adapter and its rotary variant, the tied and the independent token
+output adapters and the classification head. Parameter names follow the reference PyTorch
 implementation: ``_query``, ``txt_embedding.weight``,
 ``pos_embedding.weight``, ``bias``, ``linear.weight``."""
 
@@ -79,15 +79,14 @@ class ClassificationOutputAdapter(nn.Module):
         return x[:, 0] if x.shape[1] == 1 else x
 
 
-class TokenInputAdapterWithRotarySupport(nn.Module):
-    """Token embedding + learned absolute position embedding + the rotary
-    frequency encoding of the same absolute positions.
+class TokenInputAdapter(nn.Module):
+    """Token embedding + (optional) learned absolute position embedding:
+    ``forward(x, abs_pos=None)`` gives (B, N, C) in the compute dtype.
 
-    ``forward(x, abs_pos)`` returns ``(embedded, frq_pos_enc)``. With
-    ``abs_pos=None`` the positions are ``arange(N)`` and the position rows are
-    a table slice (positions past the table repeat its last row); otherwise
-    they are looked up, right-aligned to ``x`` and clipped to the table. The
-    frequency encoding follows the full, unclipped ``abs_pos``.
+    With ``abs_pos=None`` the positions are ``arange(N)`` and the position rows
+    are a table slice (positions past the table repeat its last row);
+    otherwise they are looked up, right-aligned to ``x`` and clipped to the
+    table.
 
     ``dtype``: the compute dtype (Flax's ``nn.Embed(dtype=...)``). The f32
     rows are looked up, then cast, and the token and position rows added in
@@ -98,15 +97,13 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
     """
 
     def __init__(self, vocab_size: int, max_seq_len: int, num_input_channels: int,
-                 abs_pos_emb: bool = True, rotated_channels_per_head: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 abs_pos_emb: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
         self.num_input_channels = num_input_channels
         self.abs_pos_emb = abs_pos_emb
-        self.rotated_channels_per_head = rotated_channels_per_head
         self.txt_embedding = nn.Embedding(vocab_size, num_input_channels)
         if abs_pos_emb:
             self.pos_embedding = nn.Embedding(max_seq_len, num_input_channels)
@@ -130,6 +127,28 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
             abs_pos = abs_pos[:, -x.shape[1]:]
         abs_pos = torch.clamp(abs_pos, 0, self.max_seq_len - 1)
         return tok + lookup(self.pos_embedding, abs_pos).to(dt)
+
+    def forward(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.embed(x, abs_pos)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits against the tied token embedding (``x @ E^T``), in the
+        compute dtype (Flax's ``Embed.attend``)."""
+        return x.to(self.dtype) @ self.txt_embedding.weight.to(self.dtype).t()
+
+
+class TokenInputAdapterWithRotarySupport(TokenInputAdapter):
+    """:class:`TokenInputAdapter` that also gives the rotary frequency
+    encoding of the same absolute positions: ``forward(x, abs_pos)`` returns
+    ``(embedded, frq_pos_enc)``; the frequency encoding follows the full,
+    unclipped ``abs_pos``. Its parameters are its base class's
+    (``txt_embedding.weight``, ``pos_embedding.weight``)."""
+
+    def __init__(self, vocab_size: int, max_seq_len: int, num_input_channels: int,
+                 abs_pos_emb: bool = True, rotated_channels_per_head: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(vocab_size, max_seq_len, num_input_channels, abs_pos_emb, dtype)
+        self.rotated_channels_per_head = rotated_channels_per_head
 
     def forward(self, x: torch.Tensor, abs_pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         embedded = self.embed(x, abs_pos)
@@ -158,11 +177,6 @@ class TokenInputAdapterWithRotarySupport(nn.Module):
         abs_pos = torch.cat([keep_idx, latent_pos], dim=1)
         return emb, frequency_position_encoding(abs_pos, self.rotated_channels_per_head)
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits against the tied token embedding (``x @ E^T``), in the
-        compute dtype (Flax's ``Embed.attend``)."""
-        return x.to(self.dtype) @ self.txt_embedding.weight.to(self.dtype).t()
-
 
 class TiedTokenOutputAdapter(nn.Module):
     """Logits tied to the token embedding: ``attend(x) (+ bias)``; the table
@@ -177,3 +191,16 @@ class TiedTokenOutputAdapter(nn.Module):
         if self.bias is not None:
             logits = logits + self.bias.to(logits.dtype)
         return logits
+
+
+class TokenOutputAdapter(nn.Module):
+    """Independent (untied) linear head to vocab logits, in the compute
+    ``dtype`` (:func:`core.attention.dense`)."""
+
+    def __init__(self, vocab_size: int, num_output_query_channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.linear = nn.Linear(num_output_query_channels, vocab_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.linear, x, self.dtype)

@@ -504,15 +504,20 @@ class PerceiverEncoder(nn.Module):
             return False
         return self.remat_mode is None
 
-    def forward(self, x, pad_mask=None, deterministic: bool = True, generator=None) -> torch.Tensor:
+    def forward(self, x, pad_mask=None, return_adapted_input: bool = False, deterministic: bool = True,
+                generator=None):
+        """The latents (B, N, C); with ``return_adapted_input`` the pair
+        ``(latents, adapted input)``, which forgoes the split-kv route (the
+        joined input is made for the return value anyway), as in JAX."""
         self.offload_arena.reset()
         b = x.shape[0]
         x_latent = self.latent_provider().expand(b, -1, -1)
-        use_split = self._use_split_input(pad_mask, deterministic)
+        use_split = not return_adapted_input and self._use_split_input(pad_mask, deterministic)
         if use_split:
             x_pix, enc = self.input_adapter.split(x)
             mha = self.cross_attn_1.cross_attn.attention
             use_split = flash_supported(split_padded(mha.qk_channels), split_padded(mha.v_channels))
+        x_adapted = None
         if use_split:
             def call_ca(layer, x_latent):
                 return layer.call_with_split_kv(x_latent, x_pix, enc, deterministic, generator).last_hidden_state
@@ -534,7 +539,7 @@ class PerceiverEncoder(nn.Module):
             if i < self.num_cross_attention_layers:
                 x_latent = call_ca(cross_attn_n, x_latent)
             x_latent = call_sa(self_attn_n, x_latent)
-        return x_latent
+        return (x_latent, x_adapted) if return_adapted_input else x_latent
 
 
 class PerceiverDecoder(nn.Module):
@@ -563,11 +568,35 @@ class PerceiverDecoder(nn.Module):
         )
         self.cross_attn.set_remat(remat_mode(activation_checkpointing, activation_offloading), self.offload_arena)
 
-    def forward(self, x_latent, deterministic: bool = True, generator=None) -> torch.Tensor:
+    def forward(self, x_latent, x_adapted=None, deterministic: bool = True, generator=None,
+                **adapter_kwargs) -> torch.Tensor:
+        """The output queries come from ``output_query_provider(x_adapted)``
+        (a trainable array ignores it; optical flow's queries are the adapted
+        input); ``adapter_kwargs`` go to the output adapter (the masked LM's
+        ``attend``)."""
         self.offload_arena.reset()
-        query = self.output_query_provider().expand(x_latent.shape[0], -1, -1)
+        query = self.output_query_provider(x_adapted)
+        if query.shape[0] != x_latent.shape[0]:
+            query = query.expand(x_latent.shape[0], -1, -1)
         out = self.cross_attn(query, x_latent, deterministic=deterministic, generator=generator)
-        return self.output_adapter(out.last_hidden_state)
+        return self.output_adapter(out.last_hidden_state, **adapter_kwargs)
+
+
+@torch.no_grad()
+def init_normal_(parts: Sequence[Tuple[nn.Module, float]], generator: torch.Generator) -> None:
+    """The random initialization of a Perceiver IO model, part by part (the
+    encoder with its input adapter, then the decoder): normal(0, the part's
+    ``init_scale``) projections, embeddings and query arrays drawn from
+    ``generator`` on the CPU in module order, zero biases, unit LayerNorms
+    (as constructed)."""
+    for part, scale in parts:
+        for module in part.modules():
+            if isinstance(module, (nn.Linear, nn.Embedding)):
+                module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * scale)
+                if getattr(module, "bias", None) is not None:
+                    module.bias.zero_()
+            elif isinstance(module, TrainableQueryProvider):
+                module._query.copy_(torch.randn(module._query.shape, generator=generator) * scale)
 
 
 class PerceiverIO(nn.Sequential):
@@ -587,7 +616,7 @@ class PerceiverIO(nn.Sequential):
 
     def forward(self, x, pad_mask=None, deterministic: bool = True, generator=None) -> torch.Tensor:
         x_latent = self.encoder(x, pad_mask=pad_mask, deterministic=deterministic, generator=generator)
-        return self.decoder(x_latent, deterministic, generator)
+        return self.decoder(x_latent, deterministic=deterministic, generator=generator)
 
 
 class PerceiverAR(nn.Module):

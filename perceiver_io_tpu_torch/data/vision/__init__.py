@@ -1,0 +1,4 @@
+from perceiver_io_tpu_torch.data.vision.optical_flow import OpticalFlowProcessor, render_optical_flow
+from perceiver_io_tpu_torch.data.vision.preprocessor import ImageNetPreprocessor, ImagePreprocessor
+
+__all__ = ["ImageNetPreprocessor", "ImagePreprocessor", "OpticalFlowProcessor", "render_optical_flow"]

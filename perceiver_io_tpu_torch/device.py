@@ -9,11 +9,15 @@ import torch
 DeviceLike = Union[str, torch.device]
 
 
-def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+def resolve_device(device: DeviceLike = "cuda", allow_meta: bool = False) -> torch.device:
     """``torch.device`` for an entry point's ``device=`` argument. Asking for
     CUDA on a machine without a usable card raises: the port never drops to
-    the CPU unless the caller asks for it with ``device="cpu"``."""
+    the CPU unless the caller asks for it with ``device="cpu"``. With
+    ``allow_meta`` a model builder also takes ``"meta"`` (shapes without
+    data: a parameter count)."""
     dev = torch.device(device)
+    if allow_meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} requested but no CUDA device is available; "

@@ -4,5 +4,20 @@ from perceiver_io_tpu_torch.models.vision.image_classifier import (
     ImageEncoderConfig,
     ImageInputAdapter,
 )
+from perceiver_io_tpu_torch.models.vision.optical_flow import (
+    OpticalFlow,
+    OpticalFlowConfig,
+    OpticalFlowDecoderConfig,
+    OpticalFlowEncoderConfig,
+)
 
-__all__ = ["ImageClassifier", "ImageClassifierConfig", "ImageEncoderConfig", "ImageInputAdapter"]
+__all__ = [
+    "ImageClassifier",
+    "ImageClassifierConfig",
+    "ImageEncoderConfig",
+    "ImageInputAdapter",
+    "OpticalFlow",
+    "OpticalFlowConfig",
+    "OpticalFlowDecoderConfig",
+    "OpticalFlowEncoderConfig",
+]

@@ -16,6 +16,7 @@ from perceiver_io_tpu_torch.core.config import ClassificationDecoderConfig, Enco
 from perceiver_io_tpu_torch.core.modules import PerceiverDecoder, PerceiverEncoder, PerceiverIO
 from perceiver_io_tpu_torch.core.position import FourierPositionEncoding, fourier_position_encodings
 from perceiver_io_tpu_torch.device import DeviceLike, resolve_device
+from perceiver_io_tpu_torch.models.base import finish_model
 
 
 @dataclass
@@ -100,20 +101,7 @@ class ImageClassifier(PerceiverIO):
         super().__init__(encoder, decoder)
         self.config = config
         self.dtype = dtype
-        self._init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
-        self.to(dev)
-        self.eval()
-
-    @torch.no_grad()
-    def _init_weights(self, generator: torch.Generator) -> None:
-        for part in (self.encoder, self.decoder):
-            for module in part.modules():
-                if isinstance(module, nn.Linear):
-                    module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * part.init_scale)
-                    if module.bias is not None:
-                        module.bias.zero_()
-                elif isinstance(module, TrainableQueryProvider):
-                    module._query.copy_(torch.randn(module._query.shape, generator=generator) * part.init_scale)
+        finish_model(self, dev, [(encoder, encoder.init_scale), (decoder, decoder.init_scale)], generator)
 
     @property
     def device(self) -> torch.device:

@@ -1,5 +1,5 @@
 """Training for the port (counterpart of ``perceiver_io_tpu/training/``): the
-CLM and classification losses, ``make_optimizer`` (AdamW, Adam, Lamb, SGD; clip,
+CLM, classification, masked-LM and MSE losses, ``make_optimizer`` (AdamW, Adam, Lamb, SGD; clip,
 accumulation, frozen parameters) with its LR schedules, the train state,
 the train step with microbatching and the non-finite skip, the eval step (both
 CUDA graphs on the card), host-sampled prefix-dropout keep sets, and the
@@ -29,7 +29,13 @@ from perceiver_io_tpu_torch.training.faults import (
     fetch_retry_emitter,
 )
 from perceiver_io_tpu_torch.training.loop import make_eval_step, make_train_step
-from perceiver_io_tpu_torch.training.losses import IGNORE_INDEX, classification_loss_fn, clm_loss_fn
+from perceiver_io_tpu_torch.training.losses import (
+    IGNORE_INDEX,
+    classification_loss_fn,
+    clm_loss_fn,
+    masked_lm_loss_fn,
+    mse_loss_fn,
+)
 from perceiver_io_tpu_torch.training.optim import (
     Optimizer,
     clip_by_global_norm_,
@@ -81,6 +87,8 @@ __all__ = [
     "make_eval_step",
     "make_optimizer",
     "make_train_step",
+    "masked_lm_loss_fn",
+    "mse_loss_fn",
     "prefix_keep_count",
     "sample_prefix_keep_idx",
     "with_prefix_keep_idx",

@@ -1,6 +1,6 @@
-"""The causal LM and classification losses (counterpart of
-``perceiver_io_tpu/training/losses.py``: ``_cross_entropy``, ``clm_loss_fn``
-and ``classification_loss_fn``).
+"""The task losses (counterpart of ``perceiver_io_tpu/training/losses.py``:
+``_cross_entropy``, ``classification_loss_fn``, ``masked_lm_loss_fn``,
+``clm_loss_fn`` and ``mse_loss_fn``).
 
 A loss function has the signature ``loss_fn(model, batch, generator) ->
 (loss, metrics)``: the model takes the place of the JAX package's params and
@@ -70,17 +70,17 @@ def clm_loss_fn(max_latents: int, deterministic: bool = False) -> Callable:
 
 
 def classification_loss_fn(deterministic: bool = False) -> Callable:
-    """CE + accuracy over ``{"x" | "image", "label"}`` batches (an optional
-    ``pad_mask`` goes to the model); ``deterministic`` builds the eval
-    variant. Per-example means: equal chunks weigh equally, so it declares
+    """CE + accuracy over ``{"x" | "image" | "input_ids", "label"}`` batches
+    (an optional ``pad_mask`` goes to the model; token ids go as int64);
+    ``deterministic`` builds the eval variant. Per-example means: equal chunks weigh equally, so it declares
     ``uniform_weighting = True`` and ``make_train_step`` may split any
     batch."""
 
     def loss_fn(model, batch: Dict, generator: Optional[torch.Generator] = None,
                 deterministic: bool = deterministic) -> Tuple[torch.Tensor, Dict]:
         dev = model.device
-        x = _on(batch["x"] if "x" in batch else batch["image"], dev)
-        x = x.float() if x.is_floating_point() else x
+        x = _on(next(batch[k] for k in ("x", "image", "input_ids") if k in batch), dev)
+        x = x.float() if x.is_floating_point() else x.long()
         y = _on(batch["label"], dev).long()
         pad_mask = _on(batch.get("pad_mask"), dev)
         logits = model(x, pad_mask=None if pad_mask is None else pad_mask.bool(), deterministic=deterministic,
@@ -88,6 +88,44 @@ def classification_loss_fn(deterministic: bool = False) -> Callable:
         loss, _ = _cross_entropy(logits, y)
         acc = (torch.argmax(logits, dim=-1) == y).float().mean()
         return loss, {"loss": loss, "acc": acc}
+
+    loss_fn.uniform_weighting = True
+    return loss_fn
+
+
+def masked_lm_loss_fn(deterministic: bool = False) -> Callable:
+    """CE over the masked positions alone: ``labels`` are ``IGNORE_INDEX``
+    except where a token was masked; ``{"input_ids", "labels"}`` batches with
+    an optional ``pad_mask``. Metrics: the loss and ``num_masked``, the
+    count of positions it averages. It normalizes by each call's own count,
+    so chunks of a batch would weigh its tokens unequally: it declares
+    ``uniform_weighting = False`` and ``make_train_step`` refuses
+    ``microbatch > 1``."""
+
+    def loss_fn(model, batch: Dict, generator: Optional[torch.Generator] = None,
+                deterministic: bool = deterministic) -> Tuple[torch.Tensor, Dict]:
+        dev = model.device
+        pad_mask = _on(batch.get("pad_mask"), dev)
+        logits = model(_on(batch["input_ids"], dev).long(), pad_mask=None if pad_mask is None else pad_mask.bool(),
+                       deterministic=deterministic, generator=generator)
+        loss, num_masked = _cross_entropy(logits, _on(batch["labels"], dev).long())
+        return loss, {"loss": loss, "num_masked": num_masked}
+
+    loss_fn.uniform_weighting = False
+    return loss_fn
+
+
+def mse_loss_fn(deterministic: bool = False) -> Callable:
+    """Mean squared error of the model's prediction for ``batch["x"]``
+    against ``batch["y"]`` (the time-series forecaster), in f32. A plain mean
+    over elements: ``uniform_weighting = True``."""
+
+    def loss_fn(model, batch: Dict, generator: Optional[torch.Generator] = None,
+                deterministic: bool = deterministic) -> Tuple[torch.Tensor, Dict]:
+        dev = model.device
+        pred = model(_on(batch["x"], dev).float(), deterministic=deterministic, generator=generator)
+        loss = ((pred.float() - _on(batch["y"], dev).float()) ** 2).mean()
+        return loss, {"loss": loss}
 
     loss_fn.uniform_weighting = True
     return loss_fn

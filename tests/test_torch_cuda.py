@@ -2588,3 +2588,200 @@ def test_probed_decode_pair_equals_the_unprobed_pair(cuda):
     assert runs[True][2].kernel_nodes(names) != {} and {k: v for k, v in runs[True][2].kernel_nodes(names).items()
                                                         if k != "kernel nodes"} == \
         {k: v for k, v in runs[False][2].kernel_nodes(names).items() if k != "kernel nodes"}
+
+
+# ---------------------------------------------------------------------------
+# the Perceiver IO task models' geometries (ROADMAP A13, part 1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,dqk,dv,nq,nkv", [
+    (4, 32, 160, 64, 300),    # the masked LM encoder's heads (q/k 32, v 160), cross-attention
+    (4, 32, 160, 64, 64),     # and self-attention
+    (1, 322, 322, 100, 1500),  # optical flow's encoder head (the wrapper pads 322 to 328)
+    (1, 512, 512, 1500, 100),  # its decoder: many more queries than latents
+    (1, 256, 256, 90, 300),   # the time series' heads
+])
+def test_flash_heads_kernels_at_the_task_models_heads(cuda, dtype, h, dqk, dv, nq, nkv):
+    """K8 and K9a/K9b (through the autograd Function) at the head dims of the
+    masked LM, optical flow and the time series, non-causal, against the
+    plain heads-major versions: f32 out atol 1e-5, gradients against the f64
+    plain backward atol 1e-5 (dQ 6e-5, as ``chip_smoke.py``); bf16 within one
+    bf16 step of the plain bf16 version's output (2e-2 of its largest
+    magnitude, ``chip_smoke.check_bf16``'s element rule)."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    g = torch.Generator().manual_seed(21)
+    q = (torch.randn(2, h, nq, dqk, generator=g) * dqk**-0.5).to(cuda, dtype).requires_grad_()
+    k = torch.randn(2, h, nkv, dqk, generator=g).to(cuda, dtype).requires_grad_()
+    v = torch.randn(2, h, nkv, dv, generator=g).to(cuda, dtype).requires_grad_()
+    do = torch.randn(2, h, nq, dv, generator=g).to(cuda, dtype)
+    build.reset_launches()
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    o.backward(do)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    assert [build.LAUNCHES[n + sfx] for n in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] == \
+        [1, 1, 1]
+    plain = [t.detach() for t in (q, k, v)]
+    ro, _ = flash_attention_reference(*plain)
+    if dtype == torch.bfloat16:
+        rel = 2e-2 * float(ro.float().abs().max())
+        torch.testing.assert_close(o.detach().float(), ro.float(), atol=rel, rtol=0)
+        return
+    torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
+    want = flash_attention_bwd_reference(*(t.double() for t in (*plain, o.detach(), lse, do)))
+    for got, w, tol in zip((q.grad, k.grad, v.grad), want, (6e-5, 1e-5, 1e-5)):
+        torch.testing.assert_close(got.double(), w, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("nq,nkv,dv,batch", [(300, 64, 96, 2), (1, 256, 32, 3)], ids=["mlm", "text_clf"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_packed_kernels_at_the_masked_lm_decoder(cuda, dtype, nq, nkv, dv, batch):
+    """K2 and K4a/K4b at the task models' decoder cross-attentions,
+    non-causal, 8 heads of q/k 32: the masked LM's cut to size (300 queries
+    over 64 latents, v 96; right-padded rows as the batch gives them, no key
+    mask) and the text classifier's (one query over 256 latents, v 32); f32
+    against the plain versions atol 1e-5, bf16 within 2e-2 of the plain
+    bf16 output's and gradients' largest magnitudes."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_bwd_reference,
+        flash_attention_packed_reference,
+    )
+
+    g = torch.Generator().manual_seed(22)
+    h = 8
+    q = (torch.randn(batch, nq, h * 32, generator=g) * 32**-0.5).to(cuda, dtype).requires_grad_()
+    k = torch.randn(batch, nkv, h * 32, generator=g).to(cuda, dtype).requires_grad_()
+    v = torch.randn(batch, nkv, h * dv, generator=g).to(cuda, dtype).requires_grad_()
+    do = torch.randn(batch, nq, h * dv, generator=g).to(cuda, dtype)
+    build.reset_launches()
+    o, lse = flash_attention_packed(q, k, v, h, return_lse=True)
+    o.backward(do)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    assert [build.LAUNCHES[n + sfx] for n in ("flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq")] \
+        == [1, 1, 1]
+    ro, _ = flash_attention_packed_reference(q.detach(), k.detach(), v.detach(), h)
+    want = flash_attention_packed_bwd_reference(q.detach(), k.detach(), v.detach(), o.detach(), lse, do, h)
+    for got, w in zip((o.detach(), q.grad, k.grad, v.grad), (ro, *want)):
+        atol = 2e-2 * float(w.float().abs().max()) if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), w.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("c", [768, 1280, 322, 256])
+def test_layer_norm_kernels_at_the_task_models_widths(cuda, c):
+    """K1 with statistics and K5 at the masked LM's widths (768, 1280),
+    optical flow's (322, no multiple of 8) and the time series' (256),
+    against the plain versions: y
+    atol 1e-5, dx 4e-6, dgamma/dbeta 4e-4 (as the tests above)."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd_reference, layer_norm_reference
+
+    g = torch.Generator().manual_seed(23)
+    x = (torch.randn(999, c, generator=g) * 3 + 1).to(cuda).requires_grad_()
+    w, b = (torch.randn(c, generator=g).to(cuda).requires_grad_() for _ in range(2))
+    dy = torch.randn(999, c, generator=g).to(cuda)
+    build.reset_launches()
+    y = layer_norm(x, w, b)
+    y.backward(dy)
+    assert build.LAUNCHES["layer_norm_fwd"] == 1 and build.LAUNCHES["layer_norm_bwd"] == 1
+    torch.testing.assert_close(y.detach(), layer_norm_reference(x.detach(), w.detach(), b.detach()), atol=1e-5, rtol=0)
+    xd = x.detach()
+    mean = xd.mean(dim=-1)
+    rstd = torch.rsqrt(torch.clamp((xd * xd).mean(dim=-1) - mean * mean, min=0.0) + 1e-5)
+    dx, dw, db = layer_norm_bwd_reference(xd, w.detach(), mean, rstd, dy)
+    torch.testing.assert_close(x.grad, dx, atol=4e-6, rtol=0)
+    torch.testing.assert_close(w.grad, dw, atol=4e-4, rtol=0)
+    torch.testing.assert_close(b.grad, db, atol=4e-4, rtol=0)
+
+
+def _task_models():
+    """Micro masked LM (tied), optical flow and time series, with their
+    inputs, at the heads of ``tests/test_torch_mlm.py``,
+    ``test_torch_optical_flow.py`` and ``test_torch_timeseries.py``."""
+    from perceiver_io_tpu_torch.models.text import MaskedLanguageModelConfig, TextDecoderConfig, TextEncoderConfig
+    from perceiver_io_tpu_torch.models.timeseries import (
+        TimeSeriesDecoderConfig,
+        TimeSeriesEncoderConfig,
+        TimeSeriesPerceiverConfig,
+    )
+    from perceiver_io_tpu_torch.models.vision import OpticalFlowConfig, OpticalFlowDecoderConfig
+    from perceiver_io_tpu_torch.models.vision import OpticalFlowEncoderConfig
+
+    rng = np.random.default_rng(24)
+    mlm = MaskedLanguageModelConfig(
+        encoder=TextEncoderConfig(vocab_size=262, max_seq_len=200, num_input_channels=48, num_cross_attention_heads=2,
+                                  num_cross_attention_qk_channels=16, num_cross_attention_v_channels=40,
+                                  num_self_attention_heads=2, num_self_attention_qk_channels=16,
+                                  num_self_attention_v_channels=40, num_self_attention_layers_per_block=2),
+        decoder=TextDecoderConfig(vocab_size=262, max_seq_len=200, num_cross_attention_heads=2,
+                                  num_cross_attention_qk_channels=16, num_cross_attention_v_channels=48,
+                                  cross_attention_residual=False),
+        num_latents=64, num_latent_channels=32)
+    flow = OpticalFlowConfig(
+        encoder=OpticalFlowEncoderConfig(image_shape=(24, 32), num_patch_hidden_channels=13, num_frequency_bands=4,
+                                         num_cross_attention_heads=1, num_self_attention_heads=2,
+                                         num_self_attention_layers_per_block=2),
+        decoder=OpticalFlowDecoderConfig(image_shape=(24, 32), num_cross_attention_heads=1,
+                                         num_cross_attention_qk_channels=36, num_cross_attention_v_channels=36,
+                                         cross_attention_residual=False),
+        num_latents=64, num_latent_channels=32)
+    ts = TimeSeriesPerceiverConfig(
+        encoder=TimeSeriesEncoderConfig(num_input_channels=3, in_len=300, num_frequency_bands=4,
+                                        num_cross_attention_heads=1, num_self_attention_heads=1,
+                                        num_self_attention_layers_per_block=1, num_self_attention_blocks=2),
+        decoder=TimeSeriesDecoderConfig(out_len=200, num_output_channels=3, num_cross_attention_heads=1),
+        num_latents=64, num_latent_channels=20)
+    ids = rng.integers(0, 262, size=(2, 180))
+    pad = np.zeros((2, 180), bool)
+    pad[1, 150:] = True
+    return {"mlm": (mlm, (torch.from_numpy(ids),), {"pad_mask": torch.from_numpy(pad)}),
+            "flow": (flow, (torch.from_numpy(rng.normal(size=(2, 2, 24, 32, 27)).astype(np.float32)),), {}),
+            "timeseries": (ts, (torch.from_numpy(rng.normal(size=(2, 300, 3)).astype(np.float32)),), {})}
+
+
+@pytest.mark.parametrize("name", ["mlm", "flow", "timeseries"])
+def test_task_models_on_the_card_match_the_cpu(cuda, name):
+    """Each task model's forward on the card (K8 in every one; K2 in the
+    masked LM's decoder and optical flow's self-attention; K1 throughout)
+    against the same weights on the CPU (plain versions), atol 1e-4 relative
+    to the output's largest magnitude."""
+    from perceiver_io_tpu_torch.models.text import MaskedLanguageModel
+    from perceiver_io_tpu_torch.models.timeseries import TimeSeriesPerceiver
+    from perceiver_io_tpu_torch.models.vision import OpticalFlow
+    from perceiver_io_tpu_torch.ops import build
+
+    config, args, kwargs = _task_models()[name]
+    cls = {"mlm": MaskedLanguageModel, "flow": OpticalFlow, "timeseries": TimeSeriesPerceiver}[name]
+    out = {}
+    for dev in ("cpu", cuda):
+        model = cls(config, device=dev, generator=torch.Generator().manual_seed(0))
+        build.reset_launches()
+        with torch.no_grad():
+            out[str(dev)] = model(*(a.to(dev) for a in args), **{k: v.to(dev) for k, v in kwargs.items()}).cpu()
+    assert build.LAUNCHES["flash_heads_fwd"] >= 1 and build.LAUNCHES["layer_norm_fwd"] >= 1
+    if name != "timeseries":
+        assert build.LAUNCHES["flash_packed_fwd"] >= 1
+    scale = float(out["cpu"].abs().max())
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4 * scale, rtol=0)
+
+
+def test_mask_filler_on_the_card_matches_the_cpu(cuda):
+    """``MaskFiller`` on the card gives the CPU filler's strings (top-1 fills
+    of a micro masked LM from the same weights)."""
+    from perceiver_io_tpu_torch.data.text.tokenizer import ByteTokenizer
+    from perceiver_io_tpu_torch.hf import MaskFiller
+    from perceiver_io_tpu_torch.models.text import MaskedLanguageModel
+
+    config = _task_models()["mlm"][0]
+    samples = ["The [MASK] sat on the mat.", "[MASK] and [MASK]"]
+    fills = [MaskFiller(MaskedLanguageModel(config, device=dev, generator=torch.Generator().manual_seed(1)),
+                        ByteTokenizer(), device=dev).fill(samples, num_predictions=1) for dev in ("cpu", cuda)]
+    assert fills[0] == fills[1]

@@ -49,7 +49,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                  # prefix sharing, eviction and journal recovery (ROADMAP A7 + A8)
                  "serving.prefix", "serving.journal",
                  # the telemetry (ROADMAP A11.2 + A11.3)
-                 "obs.probes", "obs.slo", "obs.flightrec", "obs.server", "obs.profiler", "utils.profiling"):
+                 "obs.probes", "obs.slo", "obs.flightrec", "obs.server", "obs.profiler", "utils.profiling",
+                 # the Perceiver IO task models (ROADMAP A13, part 1)
+                 "models.base", "models.text.common", "models.text.mlm", "models.text.classifier",
+                 "models.vision.optical_flow", "models.timeseries", "hf.mask_filler", "data.vision.optical_flow",
+                 "data.vision.preprocessor", "data.timeseries"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 
