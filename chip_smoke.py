@@ -270,6 +270,33 @@ models' train steps, gradient checks and trajectories run one routine each
 over a ``TrainTask`` (``TASKS``). Busy shares count kernels, copies and
 memsets, not the GPU-side copies of the port's profiler ranges.
 
+The symbolic audio model, the inference tier and the CLI (ROADMAP A13,
+part 2), after flow_bf16 (``a13_phases``), files under a temporary
+directory: sam_generate and sam_generate_bf16 (the SAM at the GiantMIDI-
+Piano geometry, 97,072,517 parameters, saved by ``save_pretrained`` and
+served by ``pipeline("symbolic-audio-generation", model_dir=...)``: a
+6000-token prompt of ``midi.encode_notes`` over seeded notes, 512 tokens at
+top_k 15, 1904 latents, both windows sliding; the prefill's K2 and K1, the
+decode step's graph, one seed one stream, the ids below ``PAD_ID`` and
+decoded to notes, the greedy stream against the plain versions' up to the
+first near tie, the graphed stream against the eager one, prefill ms,
+decode tok/s and memory at three prompt lengths); lightning_roundtrip (the
+f32 SAM exported to reference names and imported back bit for bit, the
+same ids through the pipeline); sam_train_bf16 (``TASKS["sam"]``: batch 16
+of the synthetic motif corpus, graph and eager bit for bit, the gradient
+and trajectory against the CPU at one layer) and sam_cli_fit_bf16
+(``scripts/audio/symbolic.py fit`` at train.sh's flags, 4 steps, its
+metrics log read back); pipelines (text-generation sampled and with two
+beams, fill-mask, sentiment-analysis, image-classification, optical-flow,
+each at depth 2 through ``pipeline(task, model_dir=...)`` and equal to the
+same model called directly); mnist_fit (``scripts/vision/
+image_classifier.py fit --smoke``, 20 steps) and timeseries_fit
+(``scripts/timeseries.py fit`` at its defaults on a CSV written here).
+Their kernel geometries join the parity cases: K2/K4 at the SAM's 8 heads
+of 96 (prefill CA 1904 x 6000 and SA, train CA 2048 x 4096 and SA at batch
+16 in bf16, batch 2 in f32) and MNIST's self-attention and decoder, K8/K9
+at MNIST's CA (one head of 131), K1/K5 at C 768 and MNIST's C 131.
+
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -520,6 +547,41 @@ FLOW_FORWARD = {"flash_heads_fwd": 2, "flash_packed_fwd": 24, "layer_norm_fwd": 
 FLOW_FORWARD_BF16 = {"flash_heads_fwd" + BF16: 2, "flash_packed_fwd" + BF16: 24, "layer_norm_fwd" + BF16: 52,
                      "layer_norm_fwd": 2, "flash_heads_fwd": 0, "flash_packed_fwd": 0}
 TS_FORWARD = {"flash_heads_fwd": 10, "layer_norm_fwd": 22}
+# the symbolic audio model at the GiantMIDI-Piano geometry of
+# examples/training/sam/train.sh:8-12 (6144 tokens, 2048 latents, 768
+# channels, 12 self-attention layers; the rest SymbolicAudioModelConfig's
+# defaults: vocab 389, 8 heads of 96, absolute positions; 97,072,517
+# parameters); its generation prompt (6000 tokens of midi.encode_notes over
+# seeded notes, 512 new tokens at top_k 15, so both windows slide and the
+# pipeline raises num_latents to 1904), the prompt lengths whose prefill and
+# decode are timed, and its train step at train.sh's batch 16 (the gather
+# mode keeps 2048 of the 4096 prefix rows), at the task models' rate
+SAM = dict(max_seq_len=6144, max_latents=2048, num_channels=768, num_self_attention_layers=12)
+SAM_PARAMS = 97_072_517
+SAM_PROMPT, SAM_NEW, SAM_TOP_K, SAM_PROMPT_LATENTS = 6000, 512, 15, 1904
+SAM_PROMPT_LENGTHS = (2048, 4096, 6000)
+SAM_BATCH, SAM_KEEP = 16, 2048
+SAM_HEADS, SAM_D = 8, 96
+# a SAM forward: K2 13 times (the cross-attention and 12 self-attention
+# layers), K1 27 (3 in the cross-attention layer, 2 a self-attention layer)
+SAM_FORWARD = {"flash_packed_fwd": 13, "layer_norm_fwd": 27}
+# the SAM's gradient check and loss trajectory against the CPU: full width
+# and window, one self-attention layer
+SAM_CHECK_LAYERS = 1
+# the CLI fits: steps of each, the SAM fit's synthetic corpus (pieces enough
+# for one batch of 16 windows of 6145 tokens in each split) and the time
+# series' CSV (rows of 7 channels: 11 windows of 4096 + 5000 at stride 1000)
+CLI_STEPS = {"sam": 4, "mnist": 20, "timeseries": 4}
+SAM_CORPUS_PIECES, TS_CSV_ROWS = 160, 20000
+# the non-SAM pipelines at reduced depth (their full-depth forwards run in
+# the phases above): layers of the CLM, the masked LM and the text
+# classifier, the image classifier's blocks and optical flow's layers
+PIPELINE_DEPTH = 2
+PIPELINE_PROMPT, PIPELINE_NEW, PIPELINE_BEAM_NEW = 4000, 64, 32
+# MNIST's image classifier (scripts/vision/image_classifier.py's presets):
+# 28 x 28 x 1 images with 32 bands (131 input channels, one CA head), 32
+# latents x 128, 8 SA heads of 16, batch 64
+MNIST_BATCH, MNIST_PIXELS, MNIST_D, MNIST_LATENTS, MNIST_CHANNELS = 64, 784, 131, 32, 128
 
 
 def step_launches(forward: dict) -> dict:
@@ -773,6 +835,16 @@ def bound(n_bytes: float, n_ops: float, rate: str) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def by_batch(fn, b: int, rows: int = 4):
+    """``fn(lo, hi)`` over batch rows ``[lo, hi)`` in runs of ``rows``, its
+    outputs (a tensor or a tuple) joined along dim 0: an f64 plain version
+    at a batch-16 training shape one quarter at a time."""
+    parts = [fn(lo, min(lo + rows, b)) for lo in range(0, b, rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(ts) for ts in zip(*parts))
+    return torch.cat(parts)
+
+
 # ---------------------------------------------------------------------------
 # kernel parity
 # ---------------------------------------------------------------------------
@@ -821,7 +893,9 @@ def flash_fwd_case(name: str, q, k, v, pad, h: int, tol: float, path: str, causa
     unsplit = lambda: _fwd_cuda(q, k, v, h, bias, causal, 1.0, nsplit=1)  # noqa: E731
     bf16 = None
     if q.dtype == torch.bfloat16:
-        eo, _ = flash_attention_packed_reference(q.double(), k.double(), v.double(), h, pad_mask=pad, causal=causal)
+        eo = by_batch(lambda lo, hi: flash_attention_packed_reference(
+            q[lo:hi].double(), k[lo:hi].double(), v[lo:hi].double(), h,
+            pad_mask=None if pad is None else pad[lo:hi], causal=causal)[0], b)
         bf16 = check_bf16(f"flash_packed_fwd {name}", o, ro, eo, 1.25)
         if splits > 1:
             check_bf16(f"flash_packed_fwd {name} unsplit", unsplit()[0], ro, eo, 1.25)
@@ -891,6 +965,15 @@ def flash_phase(gen: torch.Generator) -> dict:
         q = (torch.randn(1, FLOW_LATENTS, FLOW_CHANNELS, generator=gen) * 32**-0.5).cuda().to(dtype)
         k, v = (torch.randn(1, FLOW_LATENTS, FLOW_CHANNELS, generator=gen).cuda().to(dtype) for _ in range(2))
         out["cases"].append(flash_fwd_case(f"flow_sa_{str(dtype)[6:]}", q, k, v, None, 16, tol, path, False))
+    # the symbolic audio model's prefill (sam_generate): 1904 latents over a
+    # 6000-token prompt and over themselves, causal, 8 heads of 96 (the 128
+    # tile), batch 1, in f32 and bf16
+    for dtype, sfx, tol in ((torch.float32, "", 1e-5), (torch.bfloat16, BF16, None)):
+        for kind, nkv in (("ca", SAM_PROMPT), ("sa", SAM_PROMPT_LATENTS)):
+            q = (torch.randn(1, SAM_PROMPT_LATENTS, SAM["num_channels"], generator=gen) * SAM_D**-0.5).cuda().to(dtype)
+            k, v = (torch.randn(1, nkv, SAM["num_channels"], generator=gen).cuda().to(dtype) for _ in range(2))
+            out["cases"].append(flash_fwd_case(f"sam_prefill_{kind}_{str(dtype)[6:]}", q, k, v, None, SAM_HEADS, tol,
+                                               "sam_generate" + sfx))
     # 512 latents x 8 heads give 64 q blocks: the prefill fills the card by
     # splitting the kv walk
     if out["cases"][0]["kv_splits"] < 2:
@@ -1104,7 +1187,20 @@ def layernorm_phase(gen: torch.Generator) -> dict:
                                            *((f"ts_{kind}_with_stats", TS_BATCH * n, TS_CHANNELS, True,
                                               "timeseries_train", f32)
                                              for kind, n in (("input", TS_IN), ("query", TS_OUT),
-                                                             ("latent", TS_LATENTS)))):
+                                                             ("latent", TS_LATENTS))),
+                                           # the symbolic audio model (C 768): the prefill's prompt rows in
+                                           # f32 and bf16, the bf16 train step's latent rows (16 x 2048) with
+                                           # statistics, and f32 beside them; MNIST's input rows (C 131)
+                                           ("sam_prefill", SAM_PROMPT, SAM["num_channels"], False, "sam_generate",
+                                            f32),
+                                           ("sam_prefill_bf16", SAM_PROMPT, SAM["num_channels"], False,
+                                            "sam_generate" + BF16, bf16),
+                                           ("sam_latent_with_stats_bf16", SAM_BATCH * SAM["max_latents"],
+                                            SAM["num_channels"], True, "sam_train" + BF16, bf16),
+                                           ("sam_latent_with_stats", SAM_BATCH * SAM["max_latents"],
+                                            SAM["num_channels"], True, "edge", f32),
+                                           ("mnist_input_with_stats", MNIST_BATCH * MNIST_PIXELS, MNIST_D, True,
+                                            "mnist_fit", f32)):
         x, w, b = _ln_inputs(gen, rows, c)
         x = x.to(dt)
         rule = None
@@ -1209,6 +1305,23 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         # the text classifier's decoder: one query over 256 latents, 8 heads
         # of 32, non-causal (its bf16 train step)
         "clf_dec_bf16": (1, MLM_LATENTS, 0, MLM_BATCH, 8, 256, False, "text_clf_train" + BF16, bf16),
+        # the symbolic audio model's train step (sam_train_bf16): 2048
+        # latents over 2048 kept prefix rows + the latents and over
+        # themselves, causal, 8 heads of 96 (K2's and K4's 128 tile), batch
+        # 16; in f32 at batch 2 (no f32 SAM step runs)
+        "sam_ca_bf16": (SAM["max_latents"], SAM_KEEP + SAM["max_latents"], 0, SAM_BATCH, SAM_HEADS,
+                        SAM["num_channels"], True, "sam_train" + BF16, bf16),
+        "sam_sa_bf16": (SAM["max_latents"], SAM["max_latents"], 0, SAM_BATCH, SAM_HEADS, SAM["num_channels"], True,
+                        "sam_train" + BF16, bf16),
+        "sam_ca_f32": (SAM["max_latents"], SAM_KEEP + SAM["max_latents"], 0, 2, SAM_HEADS, SAM["num_channels"],
+                       True, "edge", f32),
+        "sam_sa_f32": (SAM["max_latents"], SAM["max_latents"], 0, 2, SAM_HEADS, SAM["num_channels"], True, "edge",
+                       f32),
+        # MNIST's (mnist_fit, f32, batch 64): the latent self-attention (32
+        # latents, 8 heads of 16) and the decoder's one query over the
+        # latents (one head of 128)
+        "mnist_sa_f32": (MNIST_LATENTS, MNIST_LATENTS, 0, MNIST_BATCH, 8, MNIST_CHANNELS, False, "mnist_fit", f32),
+        "mnist_dec_f32": (1, MNIST_LATENTS, 0, MNIST_BATCH, 1, MNIST_CHANNELS, False, "mnist_fit", f32),
     }
     # The kernels are held to the plain version evaluated in f64 on the same
     # f32 inputs, within 1e-5, and to no larger an error than the plain
@@ -1244,8 +1357,9 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         dk, dv = bwd_dkv_cuda(*args)
         dq = bwd_dq_cuda(*args)
         torch.cuda.synchronize()
-        edq, edk, edv = flash_attention_packed_bwd_reference(*(t.double() for t in (q, k, v, o, lse, do)), h,
-                                                             pad_mask=pad, causal=causal)
+        edq, edk, edv = by_batch(lambda lo, hi: flash_attention_packed_bwd_reference(
+            *(t[lo:hi].double() for t in (q, k, v, o, lse, do)), h,
+            pad_mask=None if pad is None else pad[lo:hi], causal=causal), b)
         rdq, rdk, rdv = flash_attention_packed_bwd_reference(q, k, v, o, lse, do, h, pad_mask=pad, causal=causal)
         errs = {"dkv": max(max_err64(dk, edk), max_err64(dv, edv)), "dq": max_err64(dq, edq)}
         f32_plain = {"dkv": {"kernel": max(max_err(dk, rdk), max_err(dv, rdv)),
@@ -1320,6 +1434,12 @@ def layernorm_bwd_phase(gen: torch.Generator) -> dict:
         rows_out.append(layernorm_bwd_case(gen, rows, c, path + BF16, torch.bfloat16))
     rows_out.append(layernorm_bwd_case(gen, 16384, FLOW_WIDTH, "edge"))
     rows_out.append(layernorm_bwd_case(gen, TS_BATCH * TS_OUT, TS_CHANNELS, "timeseries_train"))
+    # the symbolic audio model's bf16 train step (16 x 2048 latent rows of
+    # C 768) and f32 beside it, MNIST's input rows (C 131)
+    rows_out.append(layernorm_bwd_case(gen, SAM_BATCH * SAM["max_latents"], SAM["num_channels"], "sam_train" + BF16,
+                                       torch.bfloat16))
+    rows_out.append(layernorm_bwd_case(gen, SAM_BATCH * SAM["max_latents"], SAM["num_channels"], "sam_train_f32"))
+    rows_out.append(layernorm_bwd_case(gen, MNIST_BATCH * MNIST_PIXELS, MNIST_D, "mnist_fit"))
     return {"cases": rows_out}
 
 
@@ -1633,6 +1753,10 @@ def heads_phase(gen: torch.Generator) -> dict:
         *[(f"ts_{kind}", TS_BATCH, 1, nq, nkv, TS_CHANNELS, False, 0, "timeseries_train", f32)
           for kind, nq, nkv in (("ca", TS_LATENTS, TS_IN), ("sa", TS_LATENTS, TS_LATENTS),
                                 ("dec", TS_OUT, TS_LATENTS))],
+        # MNIST's cross-attention (mnist_fit): 32 latents over 784 pixels, one
+        # head of 131 channels, which the wrapper pads to 136; f32, and bf16
+        ("mnist_ca", MNIST_BATCH, 1, MNIST_LATENTS, MNIST_PIXELS, MNIST_D, False, 0, "mnist_fit", f32),
+        ("mnist_ca_bf16", MNIST_BATCH, 1, MNIST_LATENTS, MNIST_PIXELS, MNIST_D, False, 0, "edge", bf16),
     ]
     # K8 against the plain version in f32: measured within 2.2e-6 on an
     # H100 (split-TF32 products; 4.7e-7 at the image CA, PERF.md); 1e-5
@@ -4296,7 +4420,7 @@ class TrainTask(typing.NamedTuple):
     stem: str  # the phases' names: <stem>_train, <stem>_grad_check, <stem>_trajectory
     model: object  # (device, dtype, small=False, remat=False) -> the model, seeded; small: the checks' size
     batch: object  # (size, seed, small=False) -> a numpy batch
-    loss_fn: str  # the loss-function factory in training
+    loss_fn: object  # the loss-function factory: its name in training, or the factory
     step: dict  # a full-size f32 step's launches (their bf16 builds in bf16)
     batch_size: int
     lr: float
@@ -4308,6 +4432,14 @@ class TrainTask(typing.NamedTuple):
     update_tol: float = None  # the f32 optimizer update's L2 distance, relative (None: not compared)
     first_step_lowers: bool = True  # else a later step below the first
     remat_step: dict = None  # a bf16 step's launches with activation checkpointing
+
+
+def loss_factory(task: TrainTask):
+    """The task's loss-function factory (``factory()`` the train loss,
+    ``factory(deterministic=True)`` the checks')."""
+    from perceiver_io_tpu_torch import training as tt
+
+    return getattr(tt, task.loss_fn) if isinstance(task.loss_fn, str) else task.loss_fn
 
 
 def model_train_phase(card: str, task: TrainTask, jit: bool = True, dtype: torch.dtype = torch.float32,
@@ -4335,9 +4467,10 @@ def model_train_phase(card: str, task: TrainTask, jit: bool = True, dtype: torch
     name = f"{task.stem}_train" + ("_remat" if remat else "") + (BF16 if bf16 else "") + ("" if jit else "_eager")
     want = task.remat_step if remat else as_bf16(task.step) if bf16 else task.step
     model = task.model("cuda", dtype, remat=remat)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in task.batch(task.batch_size, task.seeds[0]).items()}
+    batch = {k: None if v is None else torch.from_numpy(v).cuda()
+             for k, v in task.batch(task.batch_size, task.seeds[0]).items()}
     state = tt.TrainState.create(model, tt.make_optimizer(task.lr, gradient_clip=1.0))
-    step = tt.make_train_step(getattr(tt, task.loss_fn)(), sentinel=True, jit=jit)
+    step = tt.make_train_step(loss_factory(task)(), sentinel=True, jit=jit)
     losses, step_ms, skipped = [], [], []
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
@@ -4446,7 +4579,7 @@ def model_grad_check_phase(card: str, task: TrainTask, dtype: torch.dtype = torc
     bf16 = dtype == torch.bfloat16
     name = f"{task.stem}_grad_check" + (BF16 if bf16 else "")
     batch = task.batch(2, task.seeds[1], small=True)
-    loss_fn = getattr(tt, task.loss_fn)(deterministic=True)
+    loss_fn = loss_factory(task)(deterministic=True)
     sides = ((("cpu_f32", "cpu", torch.float32), ("cpu_bf16", "cpu", dtype), ("card_bf16", "cuda", dtype)) if bf16
              else (("cpu_f32", "cpu", torch.float32), ("card_f32", "cuda", torch.float32)))
     grads, losses, seconds, updates = {}, {}, {}, {}
@@ -4513,7 +4646,7 @@ def model_trajectory_phase(card: str, task: TrainTask) -> None:
     for device in ("cpu", "cuda"):
         model = task.model(device, torch.float32, small=True)
         state = tt.TrainState.create(model, tt.make_optimizer(task.lr, gradient_clip=1.0))
-        step = tt.make_train_step(getattr(tt, task.loss_fn)(), sentinel=True)
+        step = tt.make_train_step(loss_factory(task)(), sentinel=True)
         losses[device], skipped[device] = [], []
         t0 = time.perf_counter()
         for _ in range(task.trajectory_steps):
@@ -4563,11 +4696,11 @@ def mlm_model(device, dtype: torch.dtype = torch.float32, layers: int = None, cl
     return MaskedLanguageModel(config, dtype=dtype, device=device, generator=gen)
 
 
-def flow_model(device, dtype: torch.dtype = torch.float32):
+def flow_model(device, dtype: torch.dtype = torch.float32, **encoder_overrides):
     from perceiver_io_tpu_torch.models.vision import OpticalFlow, OpticalFlowConfig, OpticalFlowDecoderConfig
     from perceiver_io_tpu_torch.models.vision import OpticalFlowEncoderConfig
 
-    config = OpticalFlowConfig(encoder=OpticalFlowEncoderConfig(**FLOW_ENCODER),
+    config = OpticalFlowConfig(encoder=OpticalFlowEncoderConfig(**dict(FLOW_ENCODER, **encoder_overrides)),
                                decoder=OpticalFlowDecoderConfig(**FLOW_DECODER), num_latents=FLOW_LATENTS,
                                num_latent_channels=FLOW_CHANNELS)
     return OpticalFlow(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
@@ -4585,6 +4718,40 @@ def ts_model(device, dtype: torch.dtype = torch.float32):
                                        decoder=TimeSeriesDecoderConfig(**TS_DECODER), num_latents=TS_LATENTS,
                                        num_latent_channels=TS_CHANNELS)
     return TimeSeriesPerceiver(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
+
+
+def sam_model(device, dtype: torch.dtype = torch.float32, layers: int = None):
+    """The symbolic audio model at ``SAM``'s geometry, seeded random weights,
+    with ``layers`` self-attention layers (all 12 by default)."""
+    from perceiver_io_tpu_torch.models.audio import SymbolicAudioModel, SymbolicAudioModelConfig
+
+    config = SymbolicAudioModelConfig(**dict(SAM, **({} if layers is None else {"num_self_attention_layers": layers})))
+    return SymbolicAudioModel(config, dtype=dtype, device=device, generator=torch.Generator().manual_seed(SEED))
+
+
+def sam_batch(batch: int, seed: int) -> dict:
+    """``batch`` shifted windows of 6145 event tokens (``input_ids``,
+    ``labels``; no padding) from the synthetic symbolic audio corpus (motifs
+    of velocity, note-on, time-shift and note-off events,
+    ``SyntheticSymbolicAudioDataModule``'s pieces), with a host-sampled keep
+    set of 2048 of the 4096 prefix rows a row."""
+    from perceiver_io_tpu_torch.data.audio.symbolic import SyntheticSymbolicAudioDataModule as corpus
+    from perceiver_io_tpu_torch.training import sample_prefix_keep_idx
+
+    rng = np.random.default_rng(seed)
+    motifs = corpus._motifs(rng)
+    n = SAM["max_seq_len"] + 1
+    t = np.stack([np.concatenate([corpus._piece(None, rng, motifs) for _ in range(10)])[:n] for _ in range(batch)])
+    prefix = SAM["max_seq_len"] - SAM["max_latents"]
+    return {"input_ids": t[:, :-1], "labels": t[:, 1:], "pad_mask": None,
+            "prefix_keep_idx": sample_prefix_keep_idx(rng, batch, prefix, 0.5)}
+
+
+def sam_loss_fn(deterministic: bool = False):
+    """``clm_loss_fn`` over the SAM's 2048 latents."""
+    from perceiver_io_tpu_torch.training import clm_loss_fn
+
+    return clm_loss_fn(SAM["max_latents"], deterministic)
 
 
 def mlm_batch(batch: int, seed: int) -> dict:
@@ -4648,6 +4815,15 @@ TASKS = {
         "mse_loss_fn", step_launches(TS_FORWARD), TS_BATCH, TASK_LR, TASK_STEPS, TASK_TRAJECTORY_STEPS,
         (SEED + 30, SEED + 32, SEED + 32), check_heads=TS_FORWARD["flash_heads_fwd"], grad_tol=TS_GRAD_TOL,
         first_step_lowers=False),
+    # the symbolic audio model (sam_train_bf16): its checks at SAM_CHECK_LAYERS
+    # self-attention layers, no heads-major launch
+    "sam": TrainTask(
+        "sam", lambda device, dtype, small=False, remat=False: sam_model(
+            device, dtype, SAM_CHECK_LAYERS if small else None),
+        lambda size, seed, small=False: sam_batch(size, seed),
+        sam_loss_fn,
+        step_launches(SAM_FORWARD), SAM_BATCH, TASK_LR, TASK_STEPS, TASK_TRAJECTORY_STEPS,
+        (SEED + 40, SEED + 41, SEED + 42), check_heads=0, first_step_lowers=False),
 }
 
 def mlm_fill_phase(card: str, dtype: torch.dtype = torch.float32, cpu_f32: dict = None) -> dict:
@@ -5230,6 +5406,474 @@ def profile_rollup_phase(card: str) -> None:
     free_card()
 
 
+# ---------------------------------------------------------------------------
+# the symbolic audio model, the inference tier and the training CLI (ROADMAP
+# A13, part 2)
+# ---------------------------------------------------------------------------
+
+
+def sam_prompt(n: int) -> np.ndarray:
+    """The first ``n`` event tokens of ``midi.encode_notes`` over seeded
+    notes (a pitch walk with random velocities, onsets and lengths)."""
+    from perceiver_io_tpu_torch.data.audio import midi
+
+    rng = np.random.default_rng(SEED + 50)
+    notes, t = [], 0.0
+    while True:
+        t += float(rng.choice([0.0, 0.05, 0.12, 0.25, 0.5]))
+        notes.append(midi.Note(int(rng.integers(30, 110)), int(rng.integers(36, 96)), t,
+                               t + float(rng.uniform(0.05, 1.2))))
+        if len(notes) % 256 == 0:
+            ids = midi.encode_notes(notes)
+            if len(ids) >= n:
+                return np.asarray(ids[:n], np.int64)
+
+
+def pipeline_fn(pipe, num_latents: int, max_new_tokens: int = SAM_NEW, top_k: int = SAM_TOP_K):
+    """The generate fn a pipeline keeps for one window and budget at one
+    ``top_k`` (its cache key: latents, the two storage dtypes, then
+    ``GenerationConfig``'s fields)."""
+    from perceiver_io_tpu_torch.generation import GenerationConfig
+
+    at = {f.name: 3 + i for i, f in enumerate(dataclasses.fields(GenerationConfig))}
+    fns = [fn for key, fn in pipe._gen_cache.items()
+           if key[0] == num_latents and key[at["max_new_tokens"]] == max_new_tokens and key[at["top_k"]] == top_k]
+    if len(fns) != 1:
+        raise SystemExit(f"pipeline: {len(fns)} generate fns for {num_latents} latents, {max_new_tokens} tokens, "
+                         f"top_k {top_k}")
+    return fns[0]
+
+
+def sam_generate_phase(card: str, root: str, dtype: torch.dtype = torch.float32) -> dict:
+    """The symbolic audio model at the GiantMIDI-Piano geometry (``SAM``,
+    seeded random weights, saved with ``save_pretrained``) through
+    ``pipeline("symbolic-audio-generation", model_dir=...)`` on the card, in
+    ``dtype`` compute: the 6000-token prompt, 512 new tokens at ``top_k`` 15
+    (both windows slide; ``num_latents`` raised to 1904).
+
+    - the prefill (a 1-token call) launches K2 13 times and K1, in the build
+      of ``dtype`` only; the decode step is a captured graph whose kernel
+      nodes hold K1 and no K2 or K3 (``check_graph``), replayed 511 times;
+    - two calls with one seed give the same ids, those of the pipeline's
+      generate fn less the PAD tokens; every id lies below ``PAD_ID`` and
+      ``decode_events`` returns notes;
+    - the ``top_k=1`` stream equals the greedy stream of every kernel on its
+      plain version on the card (``plain_kernels``) up to the first near tie
+      of the plain logits (``check_streams``, which prints it);
+    - the graphed stream equals the eager step's (``generation._eager_step``)
+      token for token from the same prefill and generator;
+    - prefill ms, decode tok/s and the card's memory at three prompt lengths
+      (``SAM_PROMPT_LENGTHS``), every generate fn kept, as a server keeps
+      them.
+
+    Returns the launches of the main call and the directory, prompt and ids
+    the Lightning round trip reads."""
+    import types
+
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.data.audio import midi
+    from perceiver_io_tpu_torch.hf import pipeline
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.training import save_pretrained
+
+    bf16 = dtype == torch.bfloat16
+    sfx = BF16 if bf16 else ""
+    name = "sam_generate" + sfx
+    directory = f"{root}/sam{sfx}"
+    model = sam_model("cuda", dtype)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != SAM_PARAMS:
+        raise SystemExit(f"{name}: {n_params} parameters, not {SAM_PARAMS}")
+    save_pretrained(directory, model, model.config)
+    del model
+    free_card()
+    pipe = pipeline("symbolic-audio-generation", model_dir=directory, dtype=dtype)
+    model = pipe.model
+    prompt = sam_prompt(SAM_PROMPT)
+    x = torch.as_tensor(prompt[None])
+    build.reset_launches()
+    pipe(prompt, max_new_tokens=1, seed=SEED)
+    prefill = nonzero_launches()
+    k2, k1 = "flash_packed_fwd" + sfx, "layer_norm_fwd" + sfx
+    if prefill.get(k2) != SAM_FORWARD["flash_packed_fwd"] or not prefill.get(k1) or set(prefill) - {k2, k1}:
+        raise SystemExit(f"{name}: the prefill launched {prefill}, expected K2 {SAM_FORWARD['flash_packed_fwd']} "
+                         f"times and K1, in {str(dtype)[6:]} alone")
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe(prompt, seed=SEED)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    main_launches = nonzero_launches()
+    # a replay counts its captured launches (graphs.py), so the 511 steps
+    # after the prefill count the step's launches 511 times
+    decode = {k: n - prefill.get(k, 0) for k, n in main_launches.items() if n - prefill.get(k, 0)}
+    step_launch = {k: n // (SAM_NEW - 1) for k, n in decode.items()}
+    if any(n % (SAM_NEW - 1) for n in decode.values()):
+        raise SystemExit(f"{name}: the decode's launches {decode} are not {SAM_NEW - 1} equal steps")
+    fn = pipeline_fn(pipe, SAM_PROMPT_LATENTS)
+    step, _ = next(iter(fn.decode_states._states.values()))
+    if not isinstance(step.body, generation._GraphedStep):
+        raise SystemExit(f"{name}: the decode step on the card is not the captured graph")
+    check_graph(name, step.body.graph, step_launch, {k2: 0, "paged_decode" + sfx: 0})
+    again = pipe(prompt, seed=SEED)
+    raw = fn(x, generator=torch.Generator().manual_seed(SEED)).cpu()[0, SAM_PROMPT:]
+    ids = out.token_ids
+    checks = {"same_ids_for_one_seed": np.array_equal(ids, again.token_ids),
+              "ids_are_the_fn_stream_less_pad": np.array_equal(
+                  ids, np.concatenate([prompt, raw.numpy()])[np.concatenate([prompt, raw.numpy()]) != midi.PAD_ID]),
+              "ids_below_pad": bool((ids < midi.PAD_ID).all()), "notes": len(out.notes)}
+    if not all(checks.values()):
+        raise SystemExit(f"{name}: {checks}")
+    # greedy (top_k 1) through the kernels against every kernel on its plain
+    # version, up to the plain logits' first near tie
+    greedy = pipe(prompt, top_k=1, seed=SEED)
+    got = pipeline_fn(pipe, SAM_PROMPT_LATENTS, top_k=1)(x).cpu()[0, SAM_PROMPT:].tolist()
+    if not np.array_equal(greedy.token_ids[SAM_PROMPT:], [t for t in got if t != midi.PAD_ID]):
+        raise SystemExit(f"{name}: the greedy pipeline's ids are not its generate fn's")
+    spec = types.SimpleNamespace(index=0, input_ids=prompt[None], max_new_tokens=SAM_NEW, prompt_len=SAM_PROMPT)
+    with plain_kernels():
+        agreed = check_streams(f"{name} top_k=1 against the plain versions", model, [spec], {0: got},
+                               NEAR_TIE_BF16 if bf16 else NEAR_TIE, num_latents=SAM_PROMPT_LATENTS)
+    # the graphed pair against the eager body, sampled at the pipeline's
+    # settings from one prefill each
+    config = generation.GenerationConfig(max_new_tokens=SAM_NEW, do_sample=True, top_k=SAM_TOP_K)
+    streams, tok_s = {}, {}
+    for kind in ("graph", "eager"):
+        prefill_fn, pair_step = generation.make_decode_fns(model, SAM_PROMPT_LATENTS, config, device="cuda")
+        if kind == "eager":
+            body = generation._eager_step(model, config, model.device)
+
+            def pair_step(st, body=body):
+                st, tok = body(st)
+                return st, tok.clone()
+        token, state = prefill_fn(x, generator=torch.Generator().manual_seed(SEED))
+        tokens = [token]
+        state, token = pair_step(state)
+        tokens.append(token)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SAM_NEW - 2):
+            state, token = pair_step(state)
+            tokens.append(token)
+        torch.cuda.synchronize()
+        tok_s[kind] = (SAM_NEW - 2) / (time.perf_counter() - t0)
+        streams[kind] = torch.cat(tokens).cpu()
+        del prefill_fn, pair_step, state
+    graph_equal = torch.equal(streams["graph"], streams["eager"]) and torch.equal(streams["graph"], raw)
+    # three prompt lengths: prefill ms (a 1-token call), decode tok/s (the
+    # 512-token call less the prefill), the card's memory after each
+    lengths = {}
+    for n in SAM_PROMPT_LENGTHS:
+        p = sam_prompt(n)
+        pipe(p, max_new_tokens=1, seed=SEED)
+        pipe(p, seed=SEED)  # the first call of a geometry captures its step
+        times = {}
+        for label, budget in (("prefill_ms", 1), ("call_ms", SAM_NEW)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe(p, max_new_tokens=budget, seed=SEED)
+            torch.cuda.synchronize()
+            times[label] = 1e3 * (time.perf_counter() - t0)
+        lengths[n] = {"num_latents": max(1, min(n - (SAM["max_seq_len"] - SAM["max_latents"]), SAM["max_latents"])),
+                      **times, "decode_tok_s": (SAM_NEW - 1) / ((times["call_ms"] - times["prefill_ms"]) / 1e3),
+                      "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "generate_fns": len(pipe._gen_cache)}
+        log(f"{name} prompt={n}: " + json.dumps(lengths[n]))
+    report = {"card": card, "dtype": str(dtype)[6:], "parameters": n_params, "prompt": SAM_PROMPT,
+              "new_tokens": SAM_NEW, "top_k": SAM_TOP_K, "num_latents": SAM_PROMPT_LATENTS,
+              "first_call_s": first_s, "prefill_launches": prefill, "step_launches": step_launch, **checks,
+              "ids": len(ids), "greedy_agreed_with_plain": agreed[0], "graph_equal_eager": graph_equal,
+              "pair_tok_s": tok_s, "by_prompt_length": lengths}
+    log(f"{name}: " + json.dumps(report))
+    if not graph_equal:
+        raise SystemExit(f"{name}: the graphed stream differs from the eager one or the pipeline's")
+    TIMES[f"{name}_pair_tok_s"] = tok_s
+    kept = {"launches": main_launches, "directory": directory, "prompt": prompt, "ids": ids}
+    del pipe, model, fn, step
+    free_card()
+    return kept
+
+
+def lightning_roundtrip_phase(card: str, root: str, sam: dict) -> None:
+    """The f32 SAM of ``sam_generate`` exported as a reference Lightning
+    checkpoint (``save_lightning_checkpoint``: ``model.``-prefixed reference
+    names, flat hyper-parameters) and imported back
+    (``import_symbolic_audio_checkpoint``): the same config, every tensor
+    bit for bit; the imported model, on the card, gives the pipeline's ids
+    for the same prompt and seed, through K2 and K1."""
+    from perceiver_io_tpu_torch.hf import (
+        SymbolicAudioGenerationPipeline,
+        auto_model_for_config,
+        from_pretrained,
+        import_symbolic_audio_checkpoint,
+        save_lightning_checkpoint,
+    )
+    from perceiver_io_tpu_torch.ops import build
+
+    model = from_pretrained(sam["directory"])
+    path = f"{root}/sam.ckpt"
+    t0 = time.perf_counter()
+    save_lightning_checkpoint(path, model, model.config)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    config, sd = import_symbolic_audio_checkpoint(path)
+    import_s = time.perf_counter() - t0
+    want = model.state_dict()
+    exact = sorted(sd) == sorted(want) and all(torch.equal(sd[k], want[k].cpu()) for k in want)
+    del model
+    free_card()
+    back = auto_model_for_config(config)
+    back.load_state_dict(sd, strict=True)
+    build.reset_launches()
+    out = SymbolicAudioGenerationPipeline(back)(sam["prompt"], seed=SEED)
+    launches = nonzero_launches()
+    same_ids = np.array_equal(out.token_ids, sam["ids"])
+    import os
+
+    report = {"card": card, "checkpoint_mb": os.path.getsize(path) / 2**20, "save_s": save_s, "import_s": import_s,
+              "config_equal": config == back.config, "tensors_bit_for_bit": exact, "ids_equal": same_ids,
+              "launches": launches}
+    log("lightning_roundtrip: " + json.dumps(report))
+    if not (exact and same_ids) or not (launches.get("flash_packed_fwd") and launches.get("layer_norm_fwd")):
+        raise SystemExit(f"lightning_roundtrip failed: {report}")
+    os.remove(path)
+    del back
+    free_card()
+
+
+def cli_rows(run_dir: str) -> list:
+    import csv
+
+    with open(f"{run_dir}/metrics.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def cli_fit_phase(card: str, name: str, main, argv: list, steps: int, want: tuple) -> dict:
+    """A task CLI's ``fit`` on the card (``python -m ... fit`` through its
+    ``main``): ``steps`` steps logged every step, then its validation; every
+    kernel of ``want`` launched, its metrics log holding ``steps`` finite
+    train losses and a finite validation loss. Returns its launches."""
+    from perceiver_io_tpu_torch.ops import build
+
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = main(["fit", *argv, f"--trainer.max_steps={steps}", "--trainer.log_interval=1",
+                     "--trainer.tensorboard=false"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = nonzero_launches()
+    run_dir = next(a.split("=", 1)[1] for a in argv if a.startswith("--trainer.default_root_dir=")) + "/" + \
+        next(a.split("=", 1)[1] for a in argv if a.startswith("--trainer.name="))
+    rows = cli_rows(run_dir)
+    losses = [float(r["train_loss"]) for r in rows if r.get("train_loss")]
+    val = [float(r["val_loss"]) for r in rows if r.get("val_loss")]
+    rates = [float(r["steps_per_sec"]) for r in rows if r.get("steps_per_sec")]
+    report = {"card": card, "argv": argv, "steps": int(state.step), "seconds": seconds, "train_loss": losses,
+              "val_loss": val, "steps_per_sec": rates, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "device": str(next(state.model.parameters()).device), "launches": launches}
+    log(f"{name}: " + json.dumps(report))
+    missing = [k for k in want if not launches.get(k)]
+    if int(state.step) != steps or len(losses) != steps or not all(map(math.isfinite, losses + val)) or not val \
+            or missing or report["device"] != "cuda:0":
+        raise SystemExit(f"{name}: steps {state.step}, losses {losses}, val {val}, kernels not launched {missing}")
+    del state
+    free_card()
+    return launches
+
+
+def sam_cli_fit_phase(card: str, root: str) -> dict:
+    """``scripts/audio/symbolic.py fit`` at train.sh's flags (synthetic data,
+    6144 tokens, batch 16, bf16, 2048 latents x 768, 12 layers) for a few
+    steps: its corpus (``SAM_CORPUS_PIECES`` pieces a split, enough windows
+    for a batch of 16) built first into the directory the CLI reads."""
+    from perceiver_io_tpu_torch.data.audio.symbolic import SyntheticSymbolicAudioDataModule
+    from perceiver_io_tpu_torch.scripts.audio import symbolic
+
+    data_dir = f"{root}/sam_data"
+    SyntheticSymbolicAudioDataModule(data_dir, max_seq_len=SAM["max_seq_len"], num_train_pieces=SAM_CORPUS_PIECES,
+                                     num_valid_pieces=SAM_CORPUS_PIECES).prepare_data()
+    argv = ["--data.dataset=synthetic", f"--data.dataset_dir={data_dir}", f"--data.max_seq_len={SAM['max_seq_len']}",
+            f"--data.batch_size={SAM_BATCH}", "--trainer.precision=bf16", f"--model.max_latents={SAM['max_latents']}",
+            f"--model.num_channels={SAM['num_channels']}",
+            f"--model.num_self_attention_layers={SAM['num_self_attention_layers']}",
+            f"--trainer.default_root_dir={root}", "--trainer.name=sam_cli", "--trainer.checkpoint=false"]
+    return cli_fit_phase(card, "sam_cli_fit_bf16", symbolic.main, argv, CLI_STEPS["sam"],
+                         tuple(k + BF16 for k in TRAIN_KERNELS))
+
+
+def mnist_fit_phase(card: str, root: str) -> dict:
+    """``scripts/vision/image_classifier.py fit --smoke`` (synthetic digits,
+    the script's presets, batch 64, f32) for ``CLI_STEPS["mnist"]`` steps:
+    K8/K9a/K9b (the CA's one head of 131), K2/K4 (8 heads of 16), K1/K5."""
+    from perceiver_io_tpu_torch.scripts.vision import image_classifier
+
+    argv = ["--smoke", f"--trainer.default_root_dir={root}", "--trainer.name=mnist", "--trainer.checkpoint=false"]
+    return cli_fit_phase(card, "mnist_fit", image_classifier.main, argv, CLI_STEPS["mnist"],
+                         HEADS_KERNELS + TRAIN_KERNELS)
+
+
+def timeseries_fit_phase(card: str, root: str) -> dict:
+    """``scripts/timeseries.py fit`` at its defaults (timeseries_train's
+    model, batch 8, f32) on a CSV of ``TS_CSV_ROWS`` rows of 7 channels
+    written here: K8/K9a/K9b, K1/K5."""
+    from perceiver_io_tpu_torch.scripts import timeseries
+
+    rng = np.random.default_rng(SEED + 60)
+    t = np.arange(TS_CSV_ROWS)[:, None]
+    series = np.sin(2 * np.pi * rng.uniform(0.002, 0.05, size=(1, 7)) * t) + 0.05 * rng.normal(size=(TS_CSV_ROWS, 7))
+    path = f"{root}/series.csv"
+    np.savetxt(path, np.concatenate([t, series], axis=1), delimiter=",", comments="", fmt="%.5f",
+               header="date," + ",".join(f"ch{i}" for i in range(7)))
+    argv = [f"--data.train_path={path}", f"--data.val_path={path}", f"--trainer.default_root_dir={root}",
+            "--trainer.name=timeseries", "--trainer.checkpoint=false"]
+    return cli_fit_phase(card, "timeseries_fit", timeseries.main, argv, CLI_STEPS["timeseries"],
+                         HEADS_KERNELS + ("layer_norm_fwd", "layer_norm_bwd"))
+
+
+def pipelines_phase(card: str, root: str) -> dict:
+    """The other pipeline tasks, each through ``pipeline(task, model_dir=...)``
+    from a ``save_pretrained`` directory of seeded weights at reduced depth
+    (``PIPELINE_DEPTH``; their full-depth forwards run in earlier phases),
+    f32, each output equal to the same model called directly on the card:
+
+    - ``text-generation``: the flagship CLM on a 4000-byte prompt, 512
+      latents, sampled (``top_k`` 10, one seed) against its generate fn, and
+      ``num_beams=2`` against ``beam_search``;
+    - ``fill-mask``: the masked LM at language-perceiver width against
+      ``MaskFiller.fill``;
+    - ``sentiment-analysis``: the text classifier against the forward's
+      top-k;
+    - ``image-classification``: the classifier of ``bench.py`` (224 x 224 x
+      3, two images) against the forward's top-k;
+    - ``optical-flow``: optical flow on one 368 x 496 pair against
+      ``OpticalFlowProcessor.process`` over the forward.
+
+    Returns each task's launches."""
+    from perceiver_io_tpu_torch import generation
+    from perceiver_io_tpu_torch.data.text.tokenizer import ByteTokenizer
+    from perceiver_io_tpu_torch.data.vision import OpticalFlowProcessor
+    from perceiver_io_tpu_torch.hf import MaskFiller, pipeline
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.training import save_pretrained
+
+    rng = np.random.default_rng(SEED + 70)
+    tok = ByteTokenizer()
+    text = "".join(chr(c) for c in rng.integers(97, 123, size=PIPELINE_PROMPT))
+    texts = ["a fine, quiet film", "loud and overlong " * 40]
+    images = rng.integers(0, 256, size=(2, 224, 224, 3)).astype(np.uint8)
+    pair = [rng.integers(0, 256, size=FLOW_SHAPE + (3,)).astype(np.uint8) for _ in range(2)]
+    makers = {
+        "text-generation": lambda: CausalLanguageModel(CausalLanguageModelConfig(
+            **dict(FLAGSHIP, num_self_attention_layers=PIPELINE_DEPTH)), device="cuda",
+            generator=torch.Generator().manual_seed(SEED)),
+        "fill-mask": lambda: mlm_model("cuda", layers=PIPELINE_DEPTH),
+        "sentiment-analysis": lambda: mlm_model("cuda", layers=PIPELINE_DEPTH, classifier=True),
+        "image-classification": lambda: image_classifier("cuda", num_self_attention_layers_per_block=PIPELINE_DEPTH,
+                                                         num_self_attention_blocks=1),
+        "optical-flow": lambda: flow_model("cuda", num_self_attention_layers_per_block=PIPELINE_DEPTH),
+    }
+
+    @torch.no_grad()
+    def top(model, x, **kw):
+        probs = torch.softmax(model(x, **kw).float(), dim=-1)
+        values, index = torch.topk(probs, 2, dim=-1)
+        return [[{"label": int(i), "score": float(v)} for v, i in zip(vs, ix)]
+                for vs, ix in zip(values.tolist(), index.tolist())]
+
+    launches, report = {}, {"card": card, "depth": PIPELINE_DEPTH}
+    for task, make in makers.items():
+        model = make()
+        directory = f"{root}/{task}"
+        save_pretrained(directory, model, model.config)
+        del model
+        pipe = pipeline(task, model_dir=directory)
+        model = pipe.model if hasattr(pipe, "model") else pipe.filler.model
+        build.reset_launches()
+        t0 = time.perf_counter()
+        if task == "text-generation":
+            got = pipe(text, max_new_tokens=PIPELINE_NEW, num_latents=NUM_LATENTS, top_k=10, seed=SEED)
+            ids, pad = tok.pad_sequences(tok.batch_encode([text]), padding_side="left")
+            config = generation.GenerationConfig(max_new_tokens=PIPELINE_NEW, do_sample=True, top_k=10)
+            direct = generation.make_generate_fn(model, NUM_LATENTS, config, device="cuda")(
+                ids, torch.as_tensor(pad), generator=torch.Generator().manual_seed(SEED))
+            want = tok.batch_decode(direct.cpu().numpy().tolist())[0]
+            beams = pipe(text, max_new_tokens=PIPELINE_BEAM_NEW, num_latents=NUM_LATENTS, do_sample=False,
+                         num_beams=2)
+            best, _ = generation.beam_search(model, ids, NUM_LATENTS, num_beams=2, max_new_tokens=PIPELINE_BEAM_NEW,
+                                             device="cuda")
+            equal = got == want and beams == tok.batch_decode(best.cpu().numpy().tolist())[0]
+            detail = {"sampled_chars": len(got), "beam_chars": len(beams)}
+        elif task == "fill-mask":
+            got = pipe(list(MLM_SAMPLES), top_k=5)
+            want = MaskFiller(model, tok, device="cuda").fill(list(MLM_SAMPLES), 5)
+            equal, detail = got == want, {"top1": [row[0] for row in got]}
+        elif task == "sentiment-analysis":
+            got = pipe(texts, top_k=2)
+            ids, pad = tok.pad_sequences(tok.batch_encode(texts), max_length=MLM_QUERIES, padding_side="right")
+            want = top(model, torch.as_tensor(ids).cuda().long(), pad_mask=torch.as_tensor(pad).cuda())
+            equal, detail = got == want, {"top": got}
+        elif task == "image-classification":
+            got = pipe(images, top_k=2)
+            want = top(model, torch.as_tensor(pipe.preprocess(images)).cuda().float())
+            equal, detail = got == want, {"top": got}
+        else:
+            got = pipe(pair)
+
+            @torch.no_grad()
+            def model_fn(patches):
+                return model(torch.as_tensor(patches).cuda().float()).cpu().numpy()
+
+            want = OpticalFlowProcessor(patch_size=FLOW_SHAPE).process(model_fn, [pair])[0]
+            equal = got.shape == FLOW_SHAPE + (2,) and np.array_equal(got, want) and bool(np.isfinite(got).all())
+            detail = {"shape": list(got.shape), "max_abs": float(np.abs(got).max())}
+        torch.cuda.synchronize()
+        launches[task] = nonzero_launches()
+        report[task] = {"equal": bool(equal), "seconds": time.perf_counter() - t0, "launches": launches[task],
+                        **detail}
+        log(f"pipelines {task}: " + json.dumps(report[task]))
+        if not equal:
+            raise SystemExit(f"pipelines {task}: the pipeline's output differs from the direct call: {report[task]}")
+        kernels = {"text-generation": ("flash_packed_fwd", "layer_norm_fwd"),
+                   "optical-flow": ("flash_heads_fwd", "flash_packed_fwd", "layer_norm_fwd")}.get(
+            task, ("flash_heads_fwd", "flash_packed_fwd", "layer_norm_fwd"))
+        missing = [k for k in kernels if not launches[task].get(k)]
+        if missing:
+            raise SystemExit(f"pipelines {task}: kernels not launched: {missing}")
+        del pipe, model
+        free_card()
+    log("pipelines: " + json.dumps(report))
+    return launches
+
+
+def a13_phases(card: str, by_phase: dict) -> None:
+    """The SAM's generation (f32 and bf16) and its Lightning round trip, its
+    bf16 train step with the checks against the CPU and its CLI fit, the
+    other pipeline tasks, the MNIST and time-series CLI fits; each phase's
+    launches into ``by_phase``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        sam = sam_generate_phase(card, root)
+        by_phase["sam_generate"] = sam["launches"]
+        lightning_roundtrip_phase(card, root, sam)
+        by_phase["sam_generate" + BF16] = sam_generate_phase(card, root, torch.bfloat16)["launches"]
+        del sam
+        free_card()
+        by_phase["sam_train" + BF16] = model_train_pair(card, TASKS["sam"], torch.bfloat16)["launches"]
+        model_grad_check_phase(card, TASKS["sam"], torch.bfloat16)
+        model_trajectory_phase(card, TASKS["sam"])
+        free_card()
+        by_phase["sam_cli_fit" + BF16] = sam_cli_fit_phase(card, root)
+        for task, launches in pipelines_phase(card, root).items():
+            by_phase[f"pipeline {task}"] = launches
+        by_phase["mnist_fit"] = mnist_fit_phase(card, root)
+        by_phase["timeseries_fit"] = timeseries_fit_phase(card, root)
+    free_card()
+
+
 def kernel_name(mangled: str) -> str:
     """A mangled kernel's name and template arguments, e.g.
     ``heads_fwd_kernel<264>``, ``flash_packed_kernel<F32,64>`` (a
@@ -5564,6 +6208,9 @@ def main() -> None:
     by_phase["flow_bf16"] = flow_phase(card, torch.bfloat16, flow["plain"])["launches"]
     del flow
     free_card()
+    # the symbolic audio model, the inference tier and the training CLI
+    # (ROADMAP A13, part 2); their files under a temporary directory
+    a13_phases(card, by_phase)
     # speculative decode (ROADMAP A9) and beam search (A10) on the bf16 CLM
     by_phase["serve_spec_bf16"] = serve_spec_bf16_phase(card)
     free_card()

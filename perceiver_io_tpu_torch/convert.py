@@ -2,7 +2,8 @@
 
 :func:`state_dict_from_jax` renames a Flax ``CausalSequenceModel`` parameter
 tree (a nested dict of numpy arrays, with or without the top ``"params"``
-key) to the port's ``state_dict``; ``*_state_dict_from_jax`` do the same for
+key) to the port's ``state_dict`` (:func:`symbolic_audio_state_dict_from_jax`
+under the symbolic audio model's name); ``*_state_dict_from_jax`` do the same for
 the Perceiver IO task models (the image and text classifiers, the masked
 LM, optical flow, the time-series forecaster). The port's parameter names are those of the
 reference PyTorch implementation, so this is the same mapping as the JAX
@@ -191,11 +192,19 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def symbolic_audio_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``SymbolicAudioModel`` params -> the port's ``state_dict``: the
+    symbolic audio model is a causal sequence model over the MIDI event
+    vocabulary, so this is :func:`state_dict_from_jax`."""
+    return state_dict_from_jax(params)
+
+
 def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
     """``{port parameter name: the JAX package's path of its counterpart}``
     (``"params/perceiver_ar/cross_attention/cross_attn/q_norm/scale"``, ...):
     the inverse of the renamings above, read off the port's module tree, for
-    a causal sequence model or any of the Perceiver IO task models. The
+    a causal sequence model (the CLM, the symbolic audio model) or any of
+    the Perceiver IO task models. The
     encoder's input adapter and the masked LM's token output adapter sit at
     the top of JAX's tree."""
     from torch import nn

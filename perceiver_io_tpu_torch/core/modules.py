@@ -60,6 +60,7 @@ concatenated (B, M, C) input and its LayerNorm output are never built.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -807,7 +808,8 @@ class CausalSequenceModel(PerceiverAR):
     tied-embedding logits.
 
     :param device: where the parameters live — ``"cuda"`` by default; asking
-        for CUDA without a card raises (pass ``device="cpu"``).
+        for CUDA without a card raises (pass ``device="cpu"``); ``"meta"``
+        builds the modules without data (a parameter count).
     :param generator: CPU ``torch.Generator`` for the random initialization
         (normal(0, ``init_scale``) projections and embeddings, zero biases,
         unit LayerNorms); a generator seeded 0 when None, so construction is
@@ -820,33 +822,36 @@ class CausalSequenceModel(PerceiverAR):
 
     def __init__(self, config: CausalSequenceModelConfig, *, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
-        dev = resolve_device(device)
+        dev = resolve_device(device, allow_meta=True)
+        meta = dev.type == "meta"
         rotated = config.num_channels // config.num_heads
         if config.abs_pos_emb:
             rotated //= 2  # rotary embedding on the first half of each head's channels
-        adapter = TokenInputAdapterWithRotarySupport(
-            config.vocab_size, config.max_seq_len, config.num_channels,
-            abs_pos_emb=config.abs_pos_emb, rotated_channels_per_head=rotated, dtype=dtype,
-        )
-        super().__init__(
-            adapter, num_heads=config.num_heads,
-            num_self_attention_layers=config.num_self_attention_layers,
-            num_self_attention_rotary_layers=config.num_self_attention_rotary_layers,
-            self_attention_widening_factor=config.self_attention_widening_factor,
-            cross_attention_widening_factor=config.cross_attention_widening_factor,
-            cross_attention_dropout=config.cross_attention_dropout,
-            prefix_dropout_mode=config.prefix_dropout_mode,
-            post_attention_dropout=config.post_attention_dropout,
-            residual_dropout=config.residual_dropout,
-            activation_checkpointing=config.activation_checkpointing,
-            activation_offloading=config.activation_offloading, dtype=dtype,
-        )
-        self.config = config
-        if config.output_norm:
-            self.out_norm = FusedLayerNorm(config.num_channels, LAYER_NORM_EPSILON)
-        self.output_adapter = TiedTokenOutputAdapter(config.vocab_size, emb_bias=config.output_bias)
-        self._init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
-        self.to(dev)
+        with torch.device("meta") if meta else contextlib.nullcontext():
+            adapter = TokenInputAdapterWithRotarySupport(
+                config.vocab_size, config.max_seq_len, config.num_channels,
+                abs_pos_emb=config.abs_pos_emb, rotated_channels_per_head=rotated, dtype=dtype,
+            )
+            super().__init__(
+                adapter, num_heads=config.num_heads,
+                num_self_attention_layers=config.num_self_attention_layers,
+                num_self_attention_rotary_layers=config.num_self_attention_rotary_layers,
+                self_attention_widening_factor=config.self_attention_widening_factor,
+                cross_attention_widening_factor=config.cross_attention_widening_factor,
+                cross_attention_dropout=config.cross_attention_dropout,
+                prefix_dropout_mode=config.prefix_dropout_mode,
+                post_attention_dropout=config.post_attention_dropout,
+                residual_dropout=config.residual_dropout,
+                activation_checkpointing=config.activation_checkpointing,
+                activation_offloading=config.activation_offloading, dtype=dtype,
+            )
+            self.config = config
+            if config.output_norm:
+                self.out_norm = FusedLayerNorm(config.num_channels, LAYER_NORM_EPSILON)
+            self.output_adapter = TiedTokenOutputAdapter(config.vocab_size, emb_bias=config.output_bias)
+        if not meta:
+            self._init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
+            self.to(dev)
         self.eval()
 
     @torch.no_grad()

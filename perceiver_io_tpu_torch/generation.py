@@ -1296,6 +1296,9 @@ def make_generate_fn(model, num_latents: int = 1, config: Optional[GenerationCon
                 tokens.append(token)
         return torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
 
+    # the fn's decode steps by geometry (their captured graphs, for a caller
+    # that inspects them)
+    fn.decode_states = states if config.max_new_tokens > 0 else None
     return fn
 
 

@@ -1,6 +1,63 @@
-"""Serving entry points of the port's task models (counterpart of
-``perceiver_io_tpu/hf/``): the masked LM's mask filler."""
+"""The inference tier of the port (counterpart of ``perceiver_io_tpu/hf/``):
+auto-model resolution (``auto``), the ``transformers`` converters
+(``convert``), the reference Lightning checkpoints' import and export
+(``lightning_ckpt``), the masked LM's mask filler and the pipelines."""
 
-from perceiver_io_tpu_torch.hf.mask_filler import MaskFiller
+from perceiver_io_tpu_torch.hf.auto import auto_model_for_config, from_pretrained  # noqa: F401
+from perceiver_io_tpu_torch.hf.convert import (  # noqa: F401
+    convert_image_classifier,
+    convert_image_classifier_config,
+    convert_masked_language_model,
+    convert_mlm_config,
+    convert_optical_flow,
+    convert_optical_flow_config,
+)
+from perceiver_io_tpu_torch.hf.lightning_ckpt import (  # noqa: F401
+    export_causal_sequence_model_state_dict,
+    import_clm_checkpoint,
+    import_image_classifier_checkpoint,
+    import_mlm_checkpoint,
+    import_symbolic_audio_checkpoint,
+    import_timeseries_checkpoint,
+    import_text_classifier_checkpoint,
+    load_lightning_checkpoint,
+    save_lightning_checkpoint,
+)
+from perceiver_io_tpu_torch.hf.mask_filler import MaskFiller  # noqa: F401
+from perceiver_io_tpu_torch.hf.pipelines import (  # noqa: F401
+    FillMaskPipeline,
+    ImageClassificationPipeline,
+    OpticalFlowPipeline,
+    SymbolicAudioGenerationPipeline,
+    TextClassificationPipeline,
+    TextGenerationPipeline,
+    pipeline,
+)
 
-__all__ = ["MaskFiller"]
+__all__ = [
+    "auto_model_for_config",
+    "from_pretrained",
+    "convert_image_classifier",
+    "convert_image_classifier_config",
+    "convert_masked_language_model",
+    "convert_mlm_config",
+    "convert_optical_flow",
+    "convert_optical_flow_config",
+    "export_causal_sequence_model_state_dict",
+    "import_clm_checkpoint",
+    "import_image_classifier_checkpoint",
+    "import_mlm_checkpoint",
+    "import_symbolic_audio_checkpoint",
+    "import_timeseries_checkpoint",
+    "import_text_classifier_checkpoint",
+    "load_lightning_checkpoint",
+    "save_lightning_checkpoint",
+    "MaskFiller",
+    "FillMaskPipeline",
+    "ImageClassificationPipeline",
+    "OpticalFlowPipeline",
+    "SymbolicAudioGenerationPipeline",
+    "TextClassificationPipeline",
+    "TextGenerationPipeline",
+    "pipeline",
+]

@@ -27,13 +27,17 @@
 //   m16n8k8 TF32 with an f32 accumulator (flash_mma.cuh's split and mma3).
 //   The tensor core truncates each TF32 mma's sum toward zero at the
 //   magnitude of the accumulator it adds into, so every KJ = 2 k-steps of
-//   a walked tile's product go into a fresh accumulator that an f32 add
-//   (rounded to nearest) joins to the gradient. Chained over a whole walk
+//   a walked tile's product go into fresh accumulators that f32 adds
+//   (rounded to nearest) join to the gradient. Chained over a whole walk
 //   instead, the CPU model of tests/test_torch_flash_tf32.py misses the
 //   1e-5 tolerance; one fresh accumulator a walked tile (8 or 4 k-steps)
 //   left dK/dV up to 3.2e-6 from f64 at short walks on an H100, further
 //   than the f32 plain version (2.6e-6), and two k-steps a third of that
-//   (PERF.md).
+//   (PERF.md). The two small cross terms and big x big sum in two
+//   accumulators, joined by one f32 add (rounded to nearest) before the
+//   gradient's, so no cross term is truncated at the magnitude of the big
+//   products; two n-tiles at a time hold as many registers as four did with
+//   one accumulator.
 // As in K2's P.V, the C fragment of columns 8kk .. 8kk + 7 is, element for
 // element, the A fragment of k-step kk of the product that follows it: no
 // shuffle, no trip through shared memory.
@@ -75,7 +79,7 @@ namespace pio {
 namespace mma_bwd {
 
 using mma::cp_async16;
-using mma::mma3;
+using mma::mma_tf32;
 using mma::split;
 
 // the word offset of column c of tile row r: c ^ 8 sw(r)
@@ -110,8 +114,8 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long ro
 
 // o += P B split-TF32: P the C fragments of NS n-tiles (the k-steps: rows of
 // b), b a swizzled tile read down its rows, output n-tiles of 8 columns up
-// to d; NG n-tiles at a time, every KJ k-steps a fresh accumulator joined to
-// o by an f32 add
+// to d; NG n-tiles at a time, every KJ k-steps two fresh accumulators (the
+// cross terms, big x big) whose f32 sum an f32 add joins to o
 template <int DMAX, int NS, int NG, int KJ>
 __device__ __forceinline__ void prod_ab(float (&o)[DMAX / 8][4], const float (&p)[NS][4], const float* b, int d) {
   static_assert(NS % KJ == 0, "KJ divides the k-steps");
@@ -134,24 +138,28 @@ __device__ __forceinline__ void prod_ab(float (&o)[DMAX / 8][4], const float (&p
     if (8 * n0 < d) {
 #pragma unroll
       for (int k0 = 0; k0 < NS; k0 += KJ) {
-        float acc[NG][4];
+        float big[NG][4], small[NG][4];
 #pragma unroll
         for (int n = 0; n < NG; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) big[n][e] = small[n][e] = 0.f;
 #pragma unroll
         for (int kk = k0; kk < k0 + KJ; ++kk)
 #pragma unroll
           for (int n = 0; n < NG; ++n)
             if (8 * (n0 + n) < d) {
               const float* row = br + 8 * kk * DMAX;
-              mma3(acc[n], pb[kk], ps[kk], row[8 * ((n0 + n) ^ ((s_0 + 2 * kk) & 3))],
-                   row[DMAX + 8 * ((n0 + n) ^ ((s_1 + 2 * kk) & 3))]);
+              uint32_t bb0, bs0, bb1, bs1;
+              split(row[8 * ((n0 + n) ^ ((s_0 + 2 * kk) & 3))], bb0, bs0);
+              split(row[DMAX + 8 * ((n0 + n) ^ ((s_1 + 2 * kk) & 3))], bb1, bs1);
+              mma_tf32(small[n], ps[kk], bb0, bb1);
+              mma_tf32(small[n], pb[kk], bs0, bs1);
+              mma_tf32(big[n], pb[kk], bb0, bb1);
             }
 #pragma unroll
         for (int n = 0; n < NG; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) o[n0 + n][e] += acc[n][e];
+          for (int e = 0; e < 4; ++e) o[n0 + n][e] += big[n][e] + small[n][e];
       }
     }
   }
@@ -341,9 +349,10 @@ struct Dkv {
   static constexpr int BKV = 16 * NW;               // kv rows a CTA owns
   static constexpr int BQT = DMAX <= 64 ? 64 : 32;  // q rows a walked tile
   static constexpr int NS = BQT / 8;
-  // output n-tiles of the gradient products at a time (8 spills at DMAX =
-  // 64; dK and dV fill the registers at 128)
-  static constexpr int NG = 4;
+  // output n-tiles of the gradient products at a time, each with two
+  // accumulators (NG 4 with one spilled nothing; 8 spilled at DMAX = 64;
+  // dK and dV fill the registers at 128)
+  static constexpr int NG = 2;
   static constexpr int DK = 4;  // f64 mma.sync depth (8 and 16 are slower here)
   // k-steps of the split-TF32 gradient products summed in one fresh
   // accumulator before it is added to dK / dV
@@ -542,7 +551,11 @@ __device__ __forceinline__ void dkv_walk(const float* __restrict__ q, const floa
     const bool full = i0 + P::BQT <= nq && jw + 15 < seg.n && jw + 15 <= i0 + seg.off;
     const float *lt = slse(u), *dt = sdelta(u);
     // p: the exponent s + bias - lse in f64, -inf past the segment or the
-    // causal limit
+    // causal limit, and its exp in f64, rounded to f32 once. expf of the
+    // exponent rounded to f32 (up to ~2 ulp of p at exponents of a few
+    // units) left dV 3.38e-7 from f64 at one query row on an H100 (MNIST's
+    // decoder, where dV is p dO with no sum to hide it), further than the
+    // f32 plain version's 3.22e-7
     float p[NS][4], ds[NS][4];
     {
       double st[NS][4];
@@ -552,12 +565,12 @@ __device__ __forceinline__ void dkv_walk(const float* __restrict__ q, const floa
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * n + 2 * t + (e & 1), r = e >> 1;
-          float x = (float)(st[n][e] * (double)sm_scale + (double)bias_r[r] - (double)lt[c]);
+          double x = st[n][e] * (double)sm_scale + (double)bias_r[r] - (double)lt[c];
           if (!full) {
             const int i = i0 + c, j = jw + g + 8 * r;
-            if (!(i < nq && j < seg.n && j <= i + seg.off)) x = -CUDART_INF_F;
+            if (!(i < nq && j < seg.n && j <= i + seg.off)) x = -CUDART_INF;
           }
-          p[n][e] = expf(x);
+          p[n][e] = (float)exp(x);
         }
     }
     // dS^T = p (dP^T - delta) sm_scale, dP^T - delta in f64

@@ -2785,3 +2785,144 @@ def test_mask_filler_on_the_card_matches_the_cpu(cuda):
     fills = [MaskFiller(MaskedLanguageModel(config, device=dev, generator=torch.Generator().manual_seed(1)),
                         ByteTokenizer(), device=dev).fill(samples, num_predictions=1) for dev in ("cpu", cuda)]
     assert fills[0] == fills[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,nq,nkv,n_pad", [
+    (True, 130, 300, 7),    # the SAM's causal cross-attention: latents right-aligned over more keys
+    (True, 200, 200, 0),    # its causal latent self-attention
+    (True, 64, 2100, 0),    # a long kv walk (split in the forward)
+])
+def test_flash_packed_kernels_at_heads_of_96(cuda, dtype, causal, nq, nkv, n_pad):
+    """K2 and K4a/K4b at the symbolic audio model's heads of 96 (the 128
+    tile, 8 heads), causal, through the autograd Function: f32 against the
+    plain forward (atol 1e-5) and the plain backward in f64 (atol 1e-5);
+    bf16 by the card's bf16 rule, one launch each of the dtype's build."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_bwd_reference,
+        flash_attention_packed_reference,
+    )
+
+    g = torch.Generator().manual_seed(23)
+    h, d = 8, 96
+    q, k, v = (torch.randn(2, n, h * d, generator=g).to(cuda, dtype).requires_grad_() for n in (nq, nkv, nkv))
+    do = torch.randn(2, nq, h * d, generator=g).to(cuda, dtype)
+    pad = torch.zeros(2, nkv, dtype=torch.bool, device=cuda)
+    pad[1, :n_pad] = True
+    kw = dict(pad_mask=pad, causal=causal, sm_scale=d**-0.5)
+    build.reset_launches()
+    o, lse = flash_attention_packed(q, k, v, h, return_lse=True, **kw)
+    o.backward(do)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    assert [build.LAUNCHES[n + sfx] for n in ("flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq")] \
+        == [1, 1, 1]
+    ops = [t.detach() for t in (q, k, v)]
+    ro, rlse = flash_attention_packed_reference(*ops, h, **kw)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    f64 = flash_attention_packed_bwd_reference(*(t.double() for t in (*ops, o.detach(), lse, do)), h, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
+        for got, w in zip((q.grad, k.grad, v.grad), f64):
+            torch.testing.assert_close(got.double(), w, atol=1e-5, rtol=0)
+        return
+    eo, _ = flash_attention_packed_reference(*(t.double() for t in ops), h, **kw)
+    _bf16_rule(o.detach(), ro, eo, 1.25)
+    plain = flash_attention_packed_bwd_reference(*ops, o.detach(), lse, do, h, **kw)
+    for got, p, e in zip((q.grad, k.grad, v.grad), plain, f64):
+        _bf16_rule(got, p, e, 1.25)
+
+
+@pytest.mark.parametrize("b,nq,nkv", [(64, 32, 784), (3, 32, 100)])
+def test_flash_heads_kernels_at_mnists_head_of_131(cuda, b, nq, nkv):
+    """K8 and K9a/K9b at MNIST's cross-attention (one head of 131 input
+    channels, which the wrapper pads to 136; 32 latents over 784 pixels,
+    non-causal) against the plain forward (atol 1e-5) and the plain backward
+    in f64 (atol 1e-5)."""
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    g = torch.Generator().manual_seed(24)
+    d = 131
+    q, k, v = (torch.randn(b, 1, n, d, generator=g).to(cuda).requires_grad_() for n in (nq, nkv, nkv))
+    do = torch.randn(b, 1, nq, d, generator=g).to(cuda)
+    build.reset_launches()
+    o, lse = flash_attention(q, k, v, return_lse=True, sm_scale=d**-0.5)
+    o.backward(do)
+    assert [build.LAUNCHES[n] for n in ("flash_heads_fwd", "flash_heads_bwd_dkv", "flash_heads_bwd_dq")] == [1, 1, 1]
+    plain = [t.detach() for t in (q, k, v)]
+    ro, _ = flash_attention_reference(*plain, sm_scale=d**-0.5)
+    torch.testing.assert_close(o.detach(), ro, atol=1e-5, rtol=0)
+    want = flash_attention_bwd_reference(*(t.double() for t in (*plain, o.detach(), lse, do)), sm_scale=d**-0.5)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got.double(), w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [6000, 4097])
+def test_layer_norm_kernels_at_c_768(cuda, dtype, rows):
+    """K1 (with statistics) and K5 at the symbolic audio model's C 768
+    (the prefill's 6000 prompt rows, a ragged row count) against the plain
+    versions: f32 y, dx atol 2e-6 and dgamma/dbeta 5e-4 (chip_smoke.py's);
+    bf16 by the card's bf16 rule against the f64 evaluation."""
+    from perceiver_io_tpu_torch.ops.layernorm import (
+        layer_norm_bwd_cuda,
+        layer_norm_bwd_reference,
+        layer_norm_cuda,
+        layer_norm_reference_stats,
+    )
+
+    g = torch.Generator().manual_seed(25)
+    c = 768
+    x = (torch.randn(rows, c, generator=g) * 2 + 0.5).to(cuda, dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    b = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    dy = torch.randn(rows, c, generator=g).to(cuda, dtype)
+    y, mean, rstd = layer_norm_cuda(x, w, b, 1e-5, dtype, want_stats=True)
+    ry, rmean, rrstd = layer_norm_reference_stats(x, w, b, 1e-5, dtype)
+    got = layer_norm_bwd_cuda(x, w, mean, rstd, dy)
+    plain = layer_norm_bwd_reference(x, w, mean, rstd, dy)
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ry, atol=2e-6, rtol=0)
+        torch.testing.assert_close(got[0], plain[0], atol=2e-6, rtol=0)
+    else:
+        e = layer_norm_reference_stats(x.double(), w.double(), b.double(), 1e-5, torch.float64)[0]
+        _bf16_rule(y, ry, e, 1.25)
+        ed = layer_norm_bwd_reference(x.double(), w.double(), mean.double(), rstd.double(), dy.double())
+        _bf16_rule(got[0], plain[0], ed[0], 1.25)
+    for gw, pw in zip(got[1:], plain[1:]):
+        torch.testing.assert_close(gw, pw, atol=5e-4, rtol=0)
+
+
+def test_symbolic_audio_pipeline_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``pipeline("symbolic-audio-generation", model_dir=...)`` of a micro SAM
+    on the card gives the CPU pipeline's greedy (``top_k=1``) ids from the
+    same ``save_pretrained`` directory, and its one-seed sampled ids twice;
+    the prefill launches K2 and K1, the decode step replays a graph."""
+    from perceiver_io_tpu_torch.data.audio import midi
+    from perceiver_io_tpu_torch.hf import pipeline
+    from perceiver_io_tpu_torch.models.audio import SymbolicAudioModel, SymbolicAudioModelConfig
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.training import save_pretrained
+
+    config = SymbolicAudioModelConfig(max_seq_len=256, max_latents=64, num_channels=192, num_heads=2,
+                                      num_self_attention_layers=2)
+    save_pretrained(str(tmp_path), SymbolicAudioModel(config, device="cpu"), config)
+    prompt = midi.encode_notes([midi.Note(70, 40 + i % 30, 0.1 * i, 0.1 * i + 0.3) for i in range(120)])[:220]
+    assert len(prompt) == 220  # 28 latents: the prefill's spans take K2
+    ids = {}
+    for dev in ("cpu", "cuda"):
+        build.reset_launches()
+        ids[dev] = pipeline("symbolic-audio-generation", model_dir=str(tmp_path), device=dev)(
+            prompt, max_new_tokens=48, top_k=1).token_ids
+    assert build.LAUNCHES["flash_packed_fwd"] == 3 and build.LAUNCHES["layer_norm_fwd"] >= 1
+    np.testing.assert_array_equal(ids["cuda"], ids["cpu"])
+    pipe = pipeline("symbolic-audio-generation", model_dir=str(tmp_path))
+    np.testing.assert_array_equal(pipe(prompt, max_new_tokens=48, seed=5).token_ids,
+                                  pipe(prompt, max_new_tokens=48, seed=5).token_ids)

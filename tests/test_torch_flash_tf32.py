@@ -82,14 +82,24 @@ def _mma(a, b, c, mode):
     return _round(c.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64), mode)
 
 
-def _chain(a, b, c, mode, passes=3, group=None, small="trunc"):
+def _chain(a, b, c, mode, passes=3, group=None, small="trunc", split_acc=False):
     """c + a @ b by 8-wide k-steps of ``passes`` TF32 products each (3: the
     split; 1: big x big alone), all chained into c; or, with ``group``, a
     fresh accumulator every ``group`` k-steps, the groups joined by f32
-    adds (c unused)."""
+    adds (c unused). ``split_acc`` (K4a's and K7a's gradient products): the
+    two cross terms and big x big in two fresh accumulators a group, their
+    f32 sum the group's."""
     (ab, as_), (bb, bs) = split(a, small), split(b, small)
 
     def steps(acc, first, last):
+        if split_acc and passes == 3:
+            cross, big = acc, np.zeros_like(acc)
+            for s in range(first, last):
+                k = slice(8 * s, 8 * s + 8)
+                cross = _mma(as_[:, k], bb[k], cross, mode)
+                cross = _mma(ab[:, k], bs[k], cross, mode)
+                big = _mma(ab[:, k], bb[k], big, mode)
+            return (big + cross).astype(np.float32)
         for s in range(first, last):
             k = slice(8 * s, 8 * s + 8)
             if passes == 3:
@@ -303,15 +313,16 @@ def _pad_rows(x, rows):
     return np.concatenate([x, np.zeros((-x.shape[0] % rows,) + x.shape[1:], x.dtype)])
 
 
-def _grad(a, b, o, mode, passes, group, small):
+def _grad(a, b, o, mode, passes, group, small, split_acc=False):
     """o + a @ b as the gradient products add: ``group`` k-steps a fresh
-    accumulator, each joined to o by an f32 add; or (``group`` None) every
-    k-step chained into o itself."""
+    accumulator (two with ``split_acc``), each joined to o by an f32 add; or
+    (``group`` None) every k-step chained into o itself."""
     if group is None:
         return _chain(a, b, o, mode, passes, small=small)
     for g0 in range(0, a.shape[1], 8 * group):
         k = slice(g0, g0 + 8 * group)
-        o = (o + _chain(a[:, k], b[k], np.zeros_like(o), mode, passes, small=small)).astype(np.float32)
+        o = (o + _chain(a[:, k], b[k], np.zeros_like(o), mode, passes, small=small,
+                        split_acc=split_acc)).astype(np.float32)
     return o
 
 
@@ -354,13 +365,14 @@ def tf32_flash_bwd_dq(q, k, v, do, lse, delta, rows, bias, offset, mode="rz", pa
 
 
 def tf32_flash_bwd_dkv(q, k, v, do, lse, delta, rows, bias, offset, mode="rz", passes=3, kg=(1, 2), f64=True,
-                       small="trunc"):
+                       small="trunc", split_acc=True):
     """K4a for the kv rows ``rows`` of one head (sm_scale 1), transposed: per
     q tile, S^T = K Q^T and dP^T = V dO^T in f64 (``f64``; else split-TF32
     with ``kg[0]`` k-steps a fresh accumulator), p and dS with lse and delta
     per column as in :func:`tf32_flash_bwd_dq`, and dV += P^T dO and
     dK += dS^T Q split-TF32 with ``kg[1]`` k-steps a fresh accumulator (2,
-    as the kernels; "tile": one walked tile; None: chained over the walk)."""
+    as the kernels; "tile": one walked tile; None: chained over the walk),
+    the cross terms and big x big apart (``split_acc``, as the kernels)."""
     nq, walk = q.shape[0], _walk_rows(q.shape[1])
     kr, vr, br = k[rows], v[rows], bias[rows][:, None]
     qp, dop, lp, dp_ = _pad_rows(q, walk), _pad_rows(do, walk), _pad_rows(lse, walk), _pad_rows(delta, walk)
@@ -369,14 +381,15 @@ def tf32_flash_bwd_dkv(q, k, v, do, lse, delta, rows, bias, offset, mode="rz", p
         qt, dot = qp[i0:i0 + walk], dop[i0:i0 + walk]
         st = _scores(kr, qt, f64, mode, passes, kg[0], small)
         dpt = _scores(vr, dot, f64, mode, passes, kg[0], small)
-        x = (st + br - lp[None, i0:i0 + walk]).astype(np.float32)
+        # the exponent in f64 (as the scores) and its exp rounded to f32 once
+        x = st + br.astype(np.float64) - lp[None, i0:i0 + walk].astype(np.float64)
         i = i0 + np.arange(walk)[None]
         visible = (i < nq) & (True if offset is None else rows[:, None] <= i + offset)
-        p = np.exp(np.where(visible, x, np.float32(-np.inf)))
+        p = np.exp(np.where(visible, x, -np.inf)).astype(np.float32)
         ds = (p * (dpt - dp_[None, i0:i0 + walk]).astype(np.float32)).astype(np.float32)
         group = walk // 8 if kg[1] == "tile" else kg[1]
-        dv = _grad(p, dot, dv, mode, passes, group, small)
-        dk = _grad(ds, qt, dk, mode, passes, group, small)
+        dv = _grad(p, dot, dv, mode, passes, group, small, split_acc)
+        dk = _grad(ds, qt, dk, mode, passes, group, small, split_acc)
     return dk, dv
 
 
@@ -943,3 +956,39 @@ def test_k9b_kv_split_never_adds_a_wave(bh, nq, nkv, d, slots):
     rows = 32 if d <= 288 else 16
     assert n >= 1 and (n == 1 or n * bh * -(-nq // rows) <= slots * 132)
     assert n == 1 or -(-nkv // rows) >= 8 * n
+
+
+def test_one_query_row_keeps_dk_dv_within_the_f32_plain_error():
+    """MNIST's decoder (one query over 32 latents, one head of 128, batch
+    64): with p the f64 exp of the f64 exponent, rounded to f32 once, K4a's
+    dK and dV lie no further from f64 than the port's plain backward in f32
+    (one product a column: dV is p dO, so p's rounding is dV's). With expf
+    of the exponent rounded to f32, K4a came 3.38e-7 from f64 on an H100
+    against the f32 plain version's 3.22e-7 (chip_smoke.py's
+    ``mnist_dec_f32``)."""
+    rng = np.random.default_rng(23)
+    b, nkv, d = 64, 32, 128
+    q = (rng.standard_normal((b, 1, d)) * d**-0.5).astype(np.float32)
+    k, v = (rng.standard_normal((b, nkv, d)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((b, 1, d)).astype(np.float32)
+    bias = np.zeros(nkv, np.float32)
+    model = 0.0  # the kernels' arithmetic
+    outs, lses, wants = [], [], []
+    for i in range(b):
+        o, lse = f64_attention(q[i], k[i], v[i], bias=bias)
+        lse = lse.astype(np.float32)
+        delta = (do[i].astype(np.float64) * o).sum(axis=1).astype(np.float32)
+        p = np.exp(q[i].astype(np.float64) @ k[i].astype(np.float64).T - lse[:, None].astype(np.float64))
+        ds = p * (do[i].astype(np.float64) @ v[i].astype(np.float64).T - delta[:, None])
+        want = {"dk": ds.T @ q[i].astype(np.float64), "dv": p.T @ do[i].astype(np.float64)}
+        dk, dv = tf32_flash_bwd_dkv(q[i], k[i], v[i], do[i], lse, delta, np.arange(nkv), bias, None)
+        model = max(model, float(np.abs(dk - want["dk"]).max()), float(np.abs(dv - want["dv"]).max()))
+        outs.append(o.astype(np.float32))
+        lses.append(lse)
+        wants.append(want)
+    got = flash_attention_packed_bwd_reference(
+        *(torch.from_numpy(x) for x in (q, k, v, np.stack(outs))), torch.from_numpy(np.stack(lses))[..., None],
+        torch.from_numpy(do), 1)
+    plain = max(float(np.abs(got[g][i].numpy() - wants[i][n]).max()) for i in range(b)
+                for g, n in ((1, "dk"), (2, "dv")))
+    assert model <= plain, (model, plain)

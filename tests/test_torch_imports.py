@@ -53,7 +53,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                  # the Perceiver IO task models (ROADMAP A13, part 1)
                  "models.base", "models.text.common", "models.text.mlm", "models.text.classifier",
                  "models.vision.optical_flow", "models.timeseries", "hf.mask_filler", "data.vision.optical_flow",
-                 "data.vision.preprocessor", "data.timeseries"):
+                 "data.vision.preprocessor", "data.timeseries",
+                 # the symbolic audio model, the inference tier, MNIST and the CLI (ROADMAP A13, part 2)
+                 "models.audio", "models.audio.symbolic", "data.audio.midi", "data.audio.symbolic",
+                 "data.vision.mnist", "hf", "hf.auto", "hf.convert", "hf.lightning_ckpt", "hf.pipelines",
+                 "scripts", "scripts.cli", "scripts.audio.symbolic", "scripts.audio.preproc",
+                 "scripts.vision.image_classifier", "scripts.timeseries"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 

@@ -389,35 +389,46 @@ def test_speculative_pair_on_int8_stores_is_the_int8_sequential_stream(models):
     assert spec[: cfg.max_new_tokens] == seq == np.asarray(jseq)[0, 10:].tolist()
 
 
+def _bf16_decode(model, ids, gen_cfg, cache_dtype, weight_dtype, forced=None):
+    """The decode pair's tokens and every step's logits, teacher-forced on
+    ``forced`` where given."""
+    prefill, step = tgen.make_decode_fns(model, 64, gen_cfg, cache_dtype, weight_dtype, device="cpu")
+    token, state = prefill(ids)
+    tokens, logits = [token], [state["logits"].clone()]
+    for i in range(gen_cfg.max_new_tokens - 1):
+        if forced is not None:
+            state["token"].copy_(forced[:, i])
+        state, token = step(state)
+        tokens.append(token)
+        logits.append(state["logits"].clone())
+    return torch.stack(tokens, dim=1), torch.stack(logits, dim=1).float()
+
+
+@pytest.fixture(scope="module")
+def bf16_pair():
+    """A bf16 model (8 heads of 16, 4 SA layers, a 512-token window), its
+    prompt, and the bf16 pair's 24 tokens and logits (bf16 caches, float
+    weights): the reference every store is held to, decoded once."""
+    cfg = CausalLanguageModelConfig(vocab_size=262, max_seq_len=512, max_latents=64, num_channels=128, num_heads=8,
+                                    num_self_attention_layers=4)
+    model = CausalLanguageModel(cfg, device="cpu", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    ids = np.random.default_rng(1).integers(0, 262, size=(2, 512))
+    gen_cfg = GenerationConfig(max_new_tokens=24)
+    return (model, ids, gen_cfg, *_bf16_decode(model, ids, gen_cfg, torch.bfloat16, None))
+
+
 @pytest.mark.parametrize("store", list(STORES))
-def test_int8_decode_logits_stay_near_the_bf16_pair(store):
+def test_int8_decode_logits_stay_near_the_bf16_pair(bf16_pair, store):
     """A bf16 model (8 heads of 16, 4 SA layers, a 512-token window) decoding
     24 tokens on int8 stores, teacher-forced on the bf16 pair's tokens (bf16
     caches, float weights): every step's logits within 2e-2 of the bf16
     logits' largest magnitude (the CPU's worst here is 1.3e-2; quantization
     noise, no bug, sets this scale). The card's ``decode_int8_bf16`` states
     its bound from this error."""
-    cfg = CausalLanguageModelConfig(vocab_size=262, max_seq_len=512, max_latents=64, num_channels=128, num_heads=8,
-                                    num_self_attention_layers=4)
-    model = CausalLanguageModel(cfg, device="cpu", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
-    ids = np.random.default_rng(1).integers(0, 262, size=(2, 512))
-    gen_cfg = GenerationConfig(max_new_tokens=24)
-
-    def run(cache_dtype, weight_dtype, forced=None):
-        prefill, step = tgen.make_decode_fns(model, 64, gen_cfg, cache_dtype, weight_dtype, device="cpu")
-        token, state = prefill(ids)
-        tokens, logits = [token], [state["logits"].clone()]
-        for i in range(gen_cfg.max_new_tokens - 1):
-            if forced is not None:
-                state["token"].copy_(forced[:, i])
-            state, token = step(state)
-            tokens.append(token)
-            logits.append(state["logits"].clone())
-        return torch.stack(tokens, dim=1), torch.stack(logits, dim=1).float()
-
-    ref_tokens, ref_logits = run(torch.bfloat16, None)
+    model, ids, gen_cfg, ref_tokens, ref_logits = bf16_pair
     cache_dtype, weight_dtype = STORES[store][1]
-    _, logits = run(torch.bfloat16 if cache_dtype == torch.float32 else cache_dtype, weight_dtype, ref_tokens)
+    _, logits = _bf16_decode(model, ids, gen_cfg, torch.bfloat16 if cache_dtype == torch.float32 else cache_dtype,
+                             weight_dtype, ref_tokens)
     rel = float((logits - ref_logits).abs().max() / ref_logits.abs().max())
     assert 0 < rel <= 2e-2, rel
 
