@@ -297,6 +297,41 @@ of 96 (prefill CA 1904 x 6000 and SA, train CA 2048 x 4096 and SA at batch
 16 in bf16, batch 2 in f32) and MNIST's self-attention and decoder, K8/K9
 at MNIST's CA (one head of 131), K1/K5 at C 768 and MNIST's C 131.
 
+The text data, the text CLIs, the fleet router and the simulator (ROADMAP
+A13, part 3), after a13_phases (``a13_text_phases``), files under a
+temporary directory: text_clm_cli_fit_bf16 (``scripts/text/clm.py fit`` at
+its paper preset, ``TEXT_CLM``: 4096 tokens, 512 latents x 512, 8 heads of
+64, 8 layers, batch 8, prefix dropout 0.5, bf16, on ``textfile`` data: the
+repository's ``docs/*.md`` joined, ``README.md`` for validation, whose end
+generates a sample on the card; K1, K2, K4a, K4b and K5 bf16 launch;
+K2's, K4a's and K4b's launches over the train steps alone, by kv rows,
+exactly once a step for the CA and 8 times for the SA; steps/s and the
+peak recorded);
+text_mlm_cli_fit_bf16 (``scripts/text/mlm.py fit`` at its defaults on the
+synthetic corpus, then ``save_pretrained``) and text_classifier_cli_fit
+(``scripts/text/classifier.py fit`` on the synthetic ``clf`` corpus, its
+encoder warm-started from that artifact and frozen: bit for bit the
+artifact's after the fit), each taking K2/K4 and K1/K5 and no other
+kernel; serve_fleet_bf16 (a ``FleetRouter`` over two
+``EngineFrontEnd`` replicas of serve_bf16's model and engine, each with a
+journal, 12 greedy requests, r0 killed mid-decode and its journal replayed
+onto r1: the fleet's books balanced with one failover, its audit empty,
+one terminal outcome a request, r0's journal closed by handoff, K3, K2 and
+K1 bf16 launched, every stream and one engine's on the same requests equal
+to the sequential stream up to its first near tie, the failover's seconds
+and the fleet's tok/s beside one engine's, the dropped fleet's memory given
+back). After load_bf16, sim_bf16 (host work only): ``ServiceTimeModel.
+from_load_doc`` fitted to load_bf16's closed-loop document, ``run_sim``
+with two tenants at serve_bf16's ``EngineConfig`` and ``run_fleet_sim``
+over two replicas: books balanced, allocator audits empty, the SIM
+document written and logged with the fit beside the card. Its traffic has
+no published source and only checks the books and audits: its results are
+no finding, only its host seconds are. K2, K4a and K4b
+bf16 join the kernel parity cases at the text CLM's train shapes
+(``text_clm_ca_bf16``: 512 latents over 1792 kept prefix rows + the
+latents; ``text_clm_sa_bf16``: 512²; 8 heads of 64, batch 8), each with its
+launches a step as text_clm_cli_fit_bf16 counted them.
+
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -582,6 +617,42 @@ PIPELINE_PROMPT, PIPELINE_NEW, PIPELINE_BEAM_NEW = 4000, 64, 32
 # 28 x 28 x 1 images with 32 bands (131 input channels, one CA head), 32
 # latents x 128, 8 SA heads of 16, batch 64
 MNIST_BATCH, MNIST_PIXELS, MNIST_D, MNIST_LATENTS, MNIST_CHANNELS = 64, 784, 131, 32, 128
+# the text CLIs (ROADMAP A13, part 3). scripts/text/clm.py's paper preset, its
+# defaults: 4096 tokens, 512 latents x 512 channels, 8 heads of 64, 8
+# self-attention layers, batch 8, prefix dropout 0.5 (1792 of the 3584 prefix
+# rows kept); its validation end generates from TEXT_SAMPLE_PROMPT
+TEXT_CLM = dict(max_seq_len=4096, max_latents=512, num_channels=512, num_heads=8, num_self_attention_layers=8,
+                cross_attention_dropout=0.5)
+TEXT_CLM_BATCH = 8
+TEXT_CLM_KEEP = (4096 - 512) - int((4096 - 512) * 0.5)
+# the text CLM's attentions in a train step by kv rows: the cross-attention
+# over the kept prefix rows and the latents, the self-attention over the
+# latents. K2, K4a and K4b each launch once a step for the CA and once a
+# layer for the SA: text_clm_cli_fit_bf16 counts them over its train steps
+# (build.LAUNCHES_BY_KV), checks them against TEXT_CLM_PER_STEP and writes
+# them into the rows of the kernel cases at those shapes (TEXT_CLM_ROWS:
+# case, kernel, row)
+TEXT_CLM_KV = {"text_clm_ca_bf16": TEXT_CLM_KEEP + TEXT_CLM["max_latents"],
+               "text_clm_sa_bf16": TEXT_CLM["max_latents"]}
+TEXT_CLM_PER_STEP = {"text_clm_ca_bf16": 1, "text_clm_sa_bf16": TEXT_CLM["num_self_attention_layers"]}
+TEXT_CLM_ROWS: list = []
+TEXT_SAMPLE_PROMPT, TEXT_SAMPLE_TOKENS = "The Perceiver AR model attends", 128
+CLI_STEPS.update(text_clm=6, text_mlm=4, text_clf=4)
+# serve_fleet_bf16: two replicas of serve_bf16's engine behind a FleetRouter,
+# 12 greedy requests (prompts of 2048-8192 tokens, budgets of 32-64) at 8
+# live fleet-wide, r0 killed at its 24th drive step (mid-decode of its first
+# four requests); a dropped fleet must give back its pools and graphs (all
+# but FLEET_LEAK_BYTES of what it took)
+FLEET_REQUESTS, FLEET_PROMPTS, FLEET_BUDGETS, FLEET_KILL_STEP = 12, (2048, 8192), (32, 64), 24
+FLEET_LEAK_BYTES = 64 << 20
+# sim_bf16, a check of the simulator's books and audits, not a traffic mix
+# with a source: two tenants on serve_bf16's engine geometry, offered 0.5
+# and 0.25 of the fitted engine's capacity (one over a request's p50
+# prefill and its share of the slots' p50 decode steps), with load_bf16's
+# prompt lengths and budget (the range the fit was measured on), the second
+# sharing a preamble shorter than its shortest prompt; the fleet run at
+# twice the rates over two replicas
+SIM_REQUESTS, SIM_RATE_SHARES, SIM_SHARED_PREFIX = (1200, 300), (0.5, 0.25), 1024
 
 
 def step_launches(forward: dict) -> dict:
@@ -1322,6 +1393,11 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
         # latents (one head of 128)
         "mnist_sa_f32": (MNIST_LATENTS, MNIST_LATENTS, 0, MNIST_BATCH, 8, MNIST_CHANNELS, False, "mnist_fit", f32),
         "mnist_dec_f32": (1, MNIST_LATENTS, 0, MNIST_BATCH, 1, MNIST_CHANNELS, False, "mnist_fit", f32),
+        # scripts/text/clm.py's paper preset (text_clm_cli_fit_bf16): 512
+        # latents over the 1792 kept prefix rows + the latents and over
+        # themselves, causal, 8 heads of 64, batch 8
+        **{case: (TEXT_CLM["max_latents"], nkv, 0, TEXT_CLM_BATCH, TEXT_CLM["num_heads"], TEXT_CLM["num_channels"],
+                  True, "text_clm_cli_fit" + BF16, bf16) for case, nkv in TEXT_CLM_KV.items()},
     }
     # The kernels are held to the plain version evaluated in f64 on the same
     # f32 inputs, within 1e-5, and to no larger an error than the plain
@@ -1352,6 +1428,8 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
             pad[:, :pads] = True
         out["fwd"]["cases"].append(flash_fwd_case(f"train_{name}", q, k, v, pad, h,
                                                   1e-5 if dtype == f32 else None, path, causal, scattered))
+        if name in TEXT_CLM_KV:
+            TEXT_CLM_ROWS.append((name, "flash_packed_fwd", out["fwd"]["cases"][-1]))
         o, lse = flash_attention_packed(q, k, v, h, pad_mask=pad, causal=causal, return_lse=True)
         args = (q, k, v, do, lse, bwd_delta(o, do, h), h, bias_row(pad, b, nkv, q.device), causal, 1.0)
         dk, dv = bwd_dkv_cuda(*args)
@@ -1408,6 +1486,8 @@ def flash_bwd_phase(gen: torch.Generator) -> tuple:
                        f32_plain=f32_plain[kernel], bf16_rule=rules.get(kernel), ms=times[kernel], plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
                        dispatch_ms=DISPATCH_MS[f"flash_packed_bwd_{kernel} {name}"], dtype=str(dtype)[6:])
+            if name in TEXT_CLM_KV:
+                TEXT_CLM_ROWS.append((name, f"flash_packed_bwd_{kernel}", row))
             log(f"time flash_packed_bwd_{kernel} {name}: {json.dumps(row)}")
             out[kernel]["cases"].append(row)
     return out["dkv"], out["dq"], out["fwd"]
@@ -5649,11 +5729,13 @@ def cli_rows(run_dir: str) -> list:
         return list(csv.DictReader(f))
 
 
-def cli_fit_phase(card: str, name: str, main, argv: list, steps: int, want: tuple) -> dict:
+def cli_fit_phase(card: str, name: str, main, argv: list, steps: int, want: tuple, after=None) -> dict:
     """A task CLI's ``fit`` on the card (``python -m ... fit`` through its
     ``main``): ``steps`` steps logged every step, then its validation; every
     kernel of ``want`` launched, its metrics log holding ``steps`` finite
-    train losses and a finite validation loss. Returns its launches."""
+    train losses and a finite validation loss; ``after(state, report)``, when
+    given, checks the trained state before it is dropped. Returns its
+    launches."""
     from perceiver_io_tpu_torch.ops import build
 
     build.reset_launches()
@@ -5678,6 +5760,8 @@ def cli_fit_phase(card: str, name: str, main, argv: list, steps: int, want: tupl
     if int(state.step) != steps or len(losses) != steps or not all(map(math.isfinite, losses + val)) or not val \
             or missing or report["device"] != "cuda:0":
         raise SystemExit(f"{name}: steps {state.step}, losses {losses}, val {val}, kernels not launched {missing}")
+    if after is not None:
+        after(state, report)
     del state
     free_card()
     return launches
@@ -5871,6 +5955,297 @@ def a13_phases(card: str, by_phase: dict) -> None:
             by_phase[f"pipeline {task}"] = launches
         by_phase["mnist_fit"] = mnist_fit_phase(card, root)
         by_phase["timeseries_fit"] = timeseries_fit_phase(card, root)
+    free_card()
+
+
+def text_clm_cli_fit_phase(card: str, root: str) -> dict:
+    """``scripts/text/clm.py fit`` at its paper preset (its defaults,
+    ``TEXT_CLM``, batch 8) in bf16 on ``textfile`` data: the repository's
+    ``docs/*.md`` joined for training, ``README.md`` for validation, whose
+    end generates ``TEXT_SAMPLE_TOKENS`` tokens from ``TEXT_SAMPLE_PROMPT``
+    on the card. K1, K2, K4a, K4b and K5 bf16 launch. K2's, K4a's and K4b's
+    launches over the train steps alone (read before the first validation)
+    by kv rows are exactly ``TEXT_CLM_PER_STEP`` a step, and go into the
+    ``TEXT_CLM_ROWS`` kernel cases; the sample is logged; steps/s and the
+    peak memory recorded. Returns its launches."""
+    import glob
+    import os
+
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.scripts.text import clm
+    from perceiver_io_tpu_torch.training.trainer import Trainer
+
+    train = f"{root}/docs.txt"
+    with open(train, "w") as out:
+        for path in sorted(glob.glob("docs/*.md")):
+            with open(path) as f:
+                out.write(f.read() + "\n\n")
+    steps = CLI_STEPS["text_clm"]
+    argv = ["--data.dataset=textfile", f"--data.train_file={train}", "--data.valid_file=README.md",
+            f"--data.cache_dir={root}/text_cache", "--trainer.precision=bf16",
+            f"--task.sample_prompt={TEXT_SAMPLE_PROMPT}", f"--task.num_sample_tokens={TEXT_SAMPLE_TOKENS}",
+            f"--trainer.default_root_dir={root}", "--trainer.name=text_clm", "--trainer.checkpoint=false"]
+
+    def after(state, report):
+        config = {k: getattr(state.model.config, k) for k in TEXT_CLM}
+        with open(f"{root}/text_clm/samples.txt") as f:
+            samples = f.read()
+        head = f"--- step {steps} [generated_text] ---\n{TEXT_SAMPLE_PROMPT}"
+        TIMES["text_clm_cli_fit" + BF16] = {k: report[k] for k in ("steps_per_sec", "peak_memory_gb", "train_loss")}
+        log(f"text_clm_cli_fit_bf16 config={json.dumps(config)} train_bytes={os.path.getsize(train)} "
+            f"sample_chars={len(samples)} card={card}")
+        if config != TEXT_CLM or state.model.dtype != torch.bfloat16 or not samples.startswith(head):
+            raise SystemExit(f"text_clm_cli_fit_bf16: config {config}, dtype {state.model.dtype}, or no sample "
+                             f"from the prompt: {samples[:200]!r}")
+
+    trained, validate = {}, Trainer.validate
+
+    def validate_after_counting(self, state, val_loader):
+        if not trained:
+            trained.update(steps=int(state.step), by_kv=dict(build.LAUNCHES_BY_KV))
+        return validate(self, state, val_loader)
+
+    Trainer.validate = validate_after_counting
+    try:
+        launches = cli_fit_phase(card, "text_clm_cli_fit" + BF16, clm.main, argv, steps,
+                                 tuple(k + BF16 for k in TRAIN_KERNELS), after)
+    finally:
+        Trainer.validate = validate
+    per_step = {f"{kernel} kv={kv}": n / trained["steps"] for (kernel, kv), n in sorted(trained["by_kv"].items())}
+    want = {f"{kernel}{BF16} kv={TEXT_CLM_KV[case]}": n for case, n in TEXT_CLM_PER_STEP.items()
+            for kernel in ("flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq")}
+    TIMES["text_clm_cli_fit" + BF16]["launches_per_step"] = per_step
+    log(f"text_clm_cli_fit_bf16 launches a train step by kv rows, over {trained['steps']} steps: "
+        f"{json.dumps(per_step)} card={card}")
+    if trained["steps"] != steps or per_step != want:
+        raise SystemExit(f"text_clm_cli_fit_bf16: K2/K4a/K4b launches a train step {per_step} over "
+                         f"{trained['steps']} steps, not {want} over {steps}")
+    for case, kernel, row in TEXT_CLM_ROWS:
+        row["launches_per_step"] = per_step[f"{kernel}{BF16} kv={TEXT_CLM_KV[case]}"]
+    return launches
+
+
+def attention_family(name: str, launches: dict, suffix: str, family: str) -> None:
+    """The attention kernels a CLI's heads took: all three kernels of
+    ``family`` (K2/K4 or K8/K9) and K1/K5, each in the ``suffix`` build;
+    fails on a missing one or on any launch of the other family or of the
+    other build."""
+    families = {"K2/K4": ("flash_packed_fwd", "flash_packed_bwd_dkv", "flash_packed_bwd_dq"),
+                "K8/K9": HEADS_KERNELS}
+    want = families[family] + ("layer_norm_fwd", "layer_norm_bwd")
+    took = {k: n for k, n in launches.items() if n}
+    log(f"{name} kernels: {json.dumps(took)} (want {family} with K1/K5, {suffix or '_f32'} builds)")
+    if set(took) != {k + suffix for k in want}:
+        raise SystemExit(f"{name}: launched {took}, not {family} and K1/K5 alone in the {suffix or '_f32'} builds")
+
+
+def text_mlm_classifier_phases(card: str, root: str, by_phase: dict) -> None:
+    """``scripts/text/mlm.py fit`` at its defaults (64 latents x 64, 8
+    layers, 256 tokens, batch 64) in bf16 on the synthetic corpus, its
+    weights saved by ``save_pretrained``; then ``scripts/text/classifier.py
+    fit`` (f32, its defaults) on the synthetic ``clf`` corpus, its encoder
+    warm-started from that artifact and frozen: after the fit the encoder
+    (``classifier.ENCODER_PREFIX``) equals the artifact's bit for bit. Each
+    phase's heads take K2/K4 (head widths that pack) beside K1/K5, and no
+    other kernel."""
+    from perceiver_io_tpu_torch.scripts.text import classifier, mlm
+    from perceiver_io_tpu_torch.training import load_pretrained, save_pretrained
+
+    artifact = f"{root}/mlm_artifact"
+    flags = ["--data.dataset=synthetic", f"--data.cache_dir={root}/text_cache", f"--trainer.default_root_dir={root}",
+             "--trainer.checkpoint=false"]
+    name = "text_mlm_cli_fit" + BF16
+    by_phase[name] = cli_fit_phase(card, name, mlm.main, [*flags, "--trainer.precision=bf16", "--trainer.name=mlm"],
+                                   CLI_STEPS["text_mlm"], (),
+                                   lambda state, report: save_pretrained(artifact, state.model, state.model.config))
+    attention_family(name, by_phase[name], BF16, "K2/K4")
+    source, _ = load_pretrained(artifact)
+
+    def frozen(state, report):
+        weights = state.model.state_dict()
+        encoder = [k for k in weights if k.startswith(classifier.ENCODER_PREFIX + ".")]
+        differ = [k for k in encoder if not torch.equal(weights[k].cpu(), source[k])]
+        log(f"text_classifier_cli_fit encoder tensors={len(encoder)} equal to the artifact's="
+            f"{len(encoder) - len(differ)} card={card}")
+        if not encoder or differ:
+            raise SystemExit(f"text_classifier_cli_fit: the frozen encoder moved: {differ[:5]}")
+
+    by_phase["text_classifier_cli_fit"] = cli_fit_phase(
+        card, "text_classifier_cli_fit", classifier.main,
+        [*flags, "--trainer.name=classifier", f"--model.encoder.params={artifact}", "--model.encoder.freeze=true"],
+        CLI_STEPS["text_clf"], (), frozen)
+    attention_family("text_classifier_cli_fit", by_phase["text_classifier_cli_fit"], "", "K2/K4")
+
+
+def serve_fleet_bf16_phase(card: str, root: str) -> dict:
+    """A ``FleetRouter`` over two ``EngineFrontEnd`` replicas of serve_bf16's
+    model and engine (bf16 pools, their decode steps captured at
+    construction on the shared capture stream, one model's weights), each
+    with a journal under ``root``, on one ``ManualClock``: ``FLEET_REQUESTS``
+    greedy requests at 8 live, r0 killed at its ``FLEET_KILL_STEP``-th drive
+    step and its journal replayed onto r1. The fleet's books balance with
+    one failover and every request ok, its audit is empty, every request
+    reaches exactly one terminal outcome across the replicas and r0's
+    journal closes by handoff; K3, K2 and K1 bf16 launch; every stream (and
+    one engine's on the same requests) equals the sequential bf16 stream up
+    to its first near tie. The failover's seconds, the fleet's and the one
+    engine's tok/s are recorded; the dropped fleet gives its memory back.
+    Returns the fleet's launches."""
+    from perceiver_io_tpu_torch.obs.events import EventLog, merged_events, validate_events
+    from perceiver_io_tpu_torch.ops import build
+    from perceiver_io_tpu_torch.serving import FaultInjector, FleetRouter, ManualClock, RequestJournal, RequestSpec
+
+    bf16 = torch.bfloat16
+    model = flagship_bf16()
+    specs = drawn_specs(RequestSpec, FLEET_REQUESTS, FLEET_PROMPTS, FLEET_BUDGETS, SEED + 80)
+    run_dir = f"{root}/fleet"
+    free_card()
+    before = torch.cuda.memory_allocated()
+    clock, events = ManualClock(), EventLog(run_dir, main_process=True)
+    injector = FaultInjector().kill_replica_at("r0", FLEET_KILL_STEP)
+    router = FleetRouter(clock=clock, events=events, injector=injector)
+    replicas = {}
+    for rid in ("r0", "r1"):
+        replicas[rid], _ = serve_engine(model, graphed=True, cache_dtype=bf16, clock=clock, sleep=clock.sleep,
+                                        injector=injector, events=events, journal=f"{run_dir}/journal-{rid}.jsonl")
+        router.add_replica(rid, replicas[rid])
+    failover_s = []
+    failover = router.failover
+
+    def timed_failover(*args, **kwargs):
+        t = time.perf_counter()
+        info = failover(*args, **kwargs)
+        failover_s.append(time.perf_counter() - t)
+        return info
+
+    router.failover = timed_failover
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router.run_closed(specs, concurrency=2 * SERVE_SLOTS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = nonzero_launches()
+    books, problems = router.books(), router.audit()
+    terminal = collections.Counter(r.index for fe in replicas.values() for r in fe.records if r.outcome is not None)
+    served = {**replicas["r0"].served_tokens, **replicas["r1"].served_tokens}
+    dead = RequestJournal(f"{run_dir}/journal-r0.jsonl").books()
+    rows = [e for e in merged_events(run_dir) if e.get("event") == "serve.failover"]
+    decoded = sum(len(served[s.index]) - 1 for s in specs)
+    report = {"card": card, "requests": len(specs), "books": {k: v for k, v in books.items() if k != "replicas"},
+              "audit": problems, "dead_journal": dead, "failover_s": failover_s,
+              "failover_rows": [{k: r.get(k) for k in ("dead_replica", "survivor", "n_replayed", "n_parked",
+                                                       "n_queued")} for r in rows],
+              "wall_s": wall_s, "decoded": decoded, "fleet_tok_s": decoded / wall_s,
+              "steps": {rid: fe._engine_steps for rid, fe in replicas.items()},
+              "k3": launches.get("paged_decode" + BF16, 0), "launches": launches}
+    invalid = validate_events(run_dir, strict_spans=False)
+    log("serve_fleet_bf16: " + json.dumps(report))
+    if (not books["balanced"] or books["failovers"] != 1 or books["outcomes"]["ok"] != len(specs) or problems
+            or books["orphaned"] < 1 or terminal != {s.index: 1 for s in specs} or not dead["balanced"]
+            or dead.get("pending") or len(rows) != 1 or len(failover_s) != 1 or invalid):
+        raise SystemExit(f"serve_fleet_bf16: the failover's books: {report}, terminal outcomes {dict(terminal)}, "
+                         f"events {invalid}")
+    missing = [k + BF16 for k in SERVE_KERNELS if not launches.get(k + BF16)]
+    if missing:
+        raise SystemExit(f"serve_fleet_bf16: kernels not launched: {missing}")
+    del router, replicas, failover, timed_failover
+    free_card()
+    kept = torch.cuda.memory_allocated() - before
+    log(f"serve_fleet_bf16 dropped: {kept} bytes kept of the fleet's, card={card}")
+    if kept > FLEET_LEAK_BYTES:
+        raise SystemExit(f"serve_fleet_bf16: the dropped fleet keeps {kept} bytes on the card")
+
+    # one engine on the same requests, and both against the sequential streams
+    engine, _ = serve_engine(model, graphed=True, cache_dtype=bf16)
+    t0 = time.perf_counter()
+    engine.run_closed(specs, concurrency=2 * SERVE_SLOTS)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    single = dict(engine.served_tokens)
+    del engine
+    free_card()
+    agreed = check_streams("serve_fleet_bf16", model, specs, served, NEAR_TIE_BF16, bf16)
+    check_streams("serve_fleet_bf16 one engine", model, specs, single, NEAR_TIE_BF16, bf16)
+    TIMES["serve_fleet" + BF16] = {"failover_s": failover_s[0], "fleet_tok_s": decoded / wall_s,
+                                   "one_engine_tok_s": decoded / one_s, "tokens_equal_to_sequential": agreed,
+                                   "equal_to_one_engine": sum(served[s.index] == single[s.index] for s in specs)}
+    log("serve_fleet_bf16 against one engine: " + json.dumps({"card": card, **TIMES["serve_fleet" + BF16]}))
+    del model
+    free_card()
+    return launches
+
+
+def sim_bf16_phase(card: str, root: str) -> None:
+    """The simulator (host work only): ``ServiceTimeModel.from_load_doc``
+    fitted to load_bf16's closed-loop LOAD document, then ``run_sim`` with
+    two tenants at serve_bf16's ``EngineConfig`` (``SIM_*``) and
+    ``run_fleet_sim`` over two replicas at twice the rates: the books
+    balance, every allocator audit is empty, and the SIM document is
+    written under ``root`` and logged with the fit beside the card."""
+    import os
+
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec, build_load_doc
+    from perceiver_io_tpu_torch.serving import EngineConfig, FrontEndConfig, sim
+
+    closed = TIMES["load_bf16"]["closed"]
+    load_doc = build_load_doc(0, dict(closed, mode="closed"),
+                              WorkloadSpec(seed=SEED, prompt_lens=LOAD_PROMPTS, max_new_tokens=LOAD_BUDGETS))
+    fit = sim.ServiceTimeModel.from_load_doc(load_doc, source="load_bf16")
+    log("sim_bf16 service-time fit: " + json.dumps({"card": card, **fit.to_dict()}))
+    engine_config = EngineConfig(**SERVE_GEOMETRY)
+    # a request's share of the engine at p50: its prefill alone (joins run
+    # one at a time), its decode steps shared by the slots
+    capacity = 1.0 / (fit.prefill_p50_s + LOAD_BUDGETS[0] * fit.tpot_p50_s / SERVE_SLOTS)
+
+    def tenants(scale: float):
+        return [sim.TenantSpec("chat", rate_rps=scale * SIM_RATE_SHARES[0] * capacity, n_requests=SIM_REQUESTS[0],
+                               prompt_lens=LOAD_PROMPTS, max_new_tokens=LOAD_BUDGETS, seed=SEED + 1),
+                sim.TenantSpec("docs", rate_rps=scale * SIM_RATE_SHARES[1] * capacity, n_requests=SIM_REQUESTS[1],
+                               prompt_lens=LOAD_PROMPTS, max_new_tokens=LOAD_BUDGETS, seed=SEED + 2,
+                               shared_prefix_len=SIM_SHARED_PREFIX)]
+
+    config = FrontEndConfig(max_queue=512, admission_projection=False)
+    t0 = time.perf_counter()
+    run = sim.run_sim(tenants(1.0), service_model=fit, engine_config=engine_config, config=config, seed=SEED,
+                      vocab_size=FLAGSHIP["vocab_size"])
+    sim_s = time.perf_counter() - t0
+    fe = run.frontend
+    problems = fe.audit() + fe.sharing_audit()
+    doc = sim.build_sim_doc(0, run.summary, tenants(1.0), fit, engine_config, extra={"card": card})
+    path = f"{root}/SIM_bf16.json"
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    with open(path) as f:
+        written = json.load(f)
+    t0 = time.perf_counter()
+    fleet = sim.run_fleet_sim(tenants(2.0), n_replicas=2, service_model=fit, engine_config=engine_config,
+                              config=config, seed=SEED, vocab_size=FLAGSHIP["vocab_size"])
+    fleet_s = time.perf_counter() - t0
+    fleet_problems = fleet.router.audit() + [p for f in fleet.frontends for p in f.ca_alloc.audit() + f.sa_alloc.audit()]
+    metrics = sim.sim_doc_metrics(written)
+    keys = ("n_requests", "duration_s", "offered_rps", "achieved_rps", "fairness_jain", "max_starvation_age_s",
+            "shed_rate", "evictions", "prefix_hits", "ttft_s", "tpot_s", "queue_wait_s", "books_balanced")
+    report = {"card": card, "fit": fit.to_dict(), "capacity_rps": capacity, "host_s": sim_s, "metrics": metrics,
+              "summary": {k: run.summary.get(k) for k in keys}, "doc_bytes": os.path.getsize(path),
+              "fleet": {"host_s": fleet_s, **{k: fleet.summary.get(k) for k in keys + ("throughput_tok_s",)}}}
+    log("sim_bf16: " + json.dumps(report))
+    if (not run.summary["books_balanced"] or problems or fe.ca_alloc.pages_used or fe.sa_alloc.pages_used
+            or not fleet.summary["books_balanced"] or fleet_problems or not metrics
+            or written["summary"]["n_requests"] != sum(SIM_REQUESTS) or not sim.diff_sim(written, doc)["ok"]):
+        raise SystemExit(f"sim_bf16: books, audits or the SIM document: {problems} {fleet_problems} {report}")
+
+
+def a13_text_phases(card: str, by_phase: dict) -> None:
+    """The text CLIs, the fleet router (ROADMAP A13, part 3): text_clm,
+    text_mlm and text_classifier CLI fits and serve_fleet_bf16; each phase's
+    launches into ``by_phase``; files under a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        by_phase["text_clm_cli_fit" + BF16] = text_clm_cli_fit_phase(card, root)
+        text_mlm_classifier_phases(card, root, by_phase)
+        by_phase["serve_fleet" + BF16] = serve_fleet_bf16_phase(card, root)
     free_card()
 
 
@@ -6211,6 +6586,8 @@ def main() -> None:
     # the symbolic audio model, the inference tier and the training CLI
     # (ROADMAP A13, part 2); their files under a temporary directory
     a13_phases(card, by_phase)
+    # the text CLIs and the fleet router (ROADMAP A13, part 3)
+    a13_text_phases(card, by_phase)
     # speculative decode (ROADMAP A9) and beam search (A10) on the bf16 CLM
     by_phase["serve_spec_bf16"] = serve_spec_bf16_phase(card)
     free_card()
@@ -6220,6 +6597,11 @@ def main() -> None:
     # over the serving engine (A11.2); the profiler rollup (A11.3)
     by_phase["load_bf16"] = load_bf16_phase(card)
     profile_rollup_phase(card)
+    # the simulator, its service times fitted to load_bf16's (A13, part 3)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        sim_bf16_phase(card, root)
     log("graph against eager, this run: " + json.dumps({"card": card, **TIMES}))
 
     kernels = []

@@ -1,5 +1,7 @@
 """Text data for the port (counterpart of ``perceiver_io_tpu/data/text/``):
-the byte tokenizer, the collators and the offline data modules."""
+the byte tokenizer, the collators, the data modules (offline ones and the HF
+``datasets`` family in ``datamodule``), the streaming pipeline
+(``streaming``), C4 (``c4``) and the inference-side ``preprocessor``."""
 
 from perceiver_io_tpu_torch.data.text.collators import (
     DefaultCollator,

@@ -7,8 +7,11 @@ Mirrors the reference's map-style preprocessing pipeline and task modes
 md5-keyed preprocessing cache, dynamic vs static masking, random-shift
 training windows for CLM, and random right-truncation. In-memory
 (``TextDataModule``), generated (``SyntheticTextDataModule``) and text-file
-(``TextFileDataModule``) sources; the modules over HF ``datasets`` (IMDb,
-WikiText, ...) need a download and wait for ROADMAP A13.
+(``TextFileDataModule``) sources, and the dataset modules over HF
+``datasets`` (IMDb, WikiText, Wikipedia, BookCorpus, BookCorpusOpen, enwik8):
+thin ``load_source`` overrides exactly like the reference's dataset modules,
+which import ``datasets`` when they load and raise its ``ImportError`` where
+it is missing.
 """
 
 from __future__ import annotations
@@ -363,6 +366,79 @@ class TextDataModule:
 
 
 # ---------------------------------------------------------- dataset modules
+
+
+class HFDatasetTextDataModule(TextDataModule):
+    """Base for modules backed by HF ``datasets`` (the dataset must be in the
+    local HF cache where the machine has no network). Mirrors the
+    reference's thin ``load_source_dataset`` overrides
+    (reference: perceiver/data/text/{imdb,wikitext,...}.py). ``datasets`` is
+    imported here, when the source loads: a machine without it raises its
+    ``ImportError``, and no other source stands in."""
+
+    dataset_name: str = ""
+    dataset_config: Optional[str] = None
+    text_column: str = "text"
+    label_column: Optional[str] = None
+    train_split: str = "train"
+    valid_split: str = "test"
+
+    def load_source(self) -> Dict[str, List]:
+        import datasets
+
+        ds = datasets.load_dataset(self.dataset_name, self.dataset_config)
+
+        def extract(split):
+            out = []
+            for rec in ds[split]:
+                if self.label_column and self.task == "clf":
+                    out.append((rec[self.text_column], rec[self.label_column]))
+                else:
+                    out.append(rec[self.text_column])
+            return out
+
+        return {"train": extract(self.train_split), "valid": extract(self.valid_split)}
+
+
+class ImdbDataModule(HFDatasetTextDataModule):
+    dataset_name = "imdb"
+    label_column = "label"
+    num_classes = 2
+
+    def load_source(self):
+        if self.task == "clf":
+            self.train_split, self.valid_split = "train", "test"
+        else:
+            # mlm uses the unsupervised split (reference: imdb.py)
+            self.train_split, self.valid_split = "unsupervised", "test"
+        return super().load_source()
+
+
+class WikiTextDataModule(HFDatasetTextDataModule):
+    dataset_name = "wikitext"
+    dataset_config = "wikitext-103-raw-v1"
+    valid_split = "validation"
+
+
+class WikipediaDataModule(HFDatasetTextDataModule):
+    dataset_name = "wikipedia"
+    dataset_config = "20220301.en"
+    valid_split = "train"
+
+
+class BookCorpusDataModule(HFDatasetTextDataModule):
+    dataset_name = "bookcorpus"
+    valid_split = "train"
+
+
+class BookCorpusOpenDataModule(HFDatasetTextDataModule):
+    dataset_name = "bookcorpusopen"
+    valid_split = "train"
+
+
+class Enwik8DataModule(HFDatasetTextDataModule):
+    dataset_name = "enwik8"
+    valid_split = "train"
 
 
 class SyntheticTextDataModule(TextDataModule):

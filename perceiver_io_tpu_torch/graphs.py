@@ -15,9 +15,9 @@ static input buffers that the caller fills before each replay.
   its result is the caller's, and its launches are counted.
 - :class:`Graph` captures a warmed-up step. A capture runs no kernel, so the
   launches the wrappers count while it records are taken back out of
-  ``ops.build.LAUNCHES`` and kept as the graph's count a replay;
-  :meth:`Graph.replay` adds them again. ``LAUNCHES`` stays the count of
-  kernels the card ran.
+  ``ops.build.LAUNCHES`` (and ``LAUNCHES_BY_KV``) and kept as the graph's
+  count a replay; :meth:`Graph.replay` adds them again. ``LAUNCHES`` stays
+  the count of kernels the card ran.
 - :class:`CapturedStep` does both for a step whose inputs arrive as a batch
   dict (the train and eval steps): it captures at the first call and again
   when the batch's keys, shapes or dtypes change (as ``jit`` retraces), and
@@ -88,7 +88,7 @@ class Graph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         for generator in generators:
             self.graph.register_generator_state(generator)
-        before = dict(build.LAUNCHES)
+        before, before_kv = dict(build.LAUNCHES), dict(build.LAUNCHES_BY_KV)
         failure = []
 
         def body():
@@ -114,12 +114,18 @@ class Graph:
                 gc.enable()
             self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items() if n != before[k]}
             build.LAUNCHES.update(before)
+            self.launches_by_kv = {k: n - before_kv.get(k, 0) for k, n in build.LAUNCHES_BY_KV.items()
+                                   if n != before_kv.get(k, 0)}
+            build.LAUNCHES_BY_KV.clear()
+            build.LAUNCHES_BY_KV.update(before_kv)
         self.graph.instantiate()
 
     def replay(self) -> Any:
         self.graph.replay()
         for name, n in self.launches.items():
             build.LAUNCHES[name] += n
+        for key, n in self.launches_by_kv.items():
+            build.LAUNCHES_BY_KV[key] = build.LAUNCHES_BY_KV.get(key, 0) + n
         return self.outputs
 
     def kernel_nodes(self, names: Sequence[str]) -> Dict[str, int]:

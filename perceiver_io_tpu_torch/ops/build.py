@@ -32,7 +32,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -84,6 +84,11 @@ LAUNCHES: Dict[str, int] = {
     **{name + BF16_SUFFIX: 0 for name in BF16_KERNELS},
 }
 
+# (kernel name, kv rows) -> launches since the last reset_launches(), for
+# the kernels whose wrappers pass their kv rows (K2, K4a, K4b): which of a
+# model's attentions the launches served
+LAUNCHES_BY_KV: Dict[Tuple[str, int], int] = {}
+
 # source name -> the compiler's output of the build of its library (kept
 # beside the library, so a cached library has its log too)
 BUILD_LOGS: Dict[str, str] = {}
@@ -96,14 +101,19 @@ _LOCK = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_KV.clear()
 
 
-def count_launch(name: str, dtype=None) -> None:
+def count_launch(name: str, dtype=None, kv_rows: Optional[int] = None) -> None:
     """One launch of ``name``; a launch of its bf16 build (``dtype``
-    ``torch.bfloat16``) counts under ``name + BF16_SUFFIX``."""
+    ``torch.bfloat16``) counts under ``name + BF16_SUFFIX``, and also under
+    ``(name, kv_rows)`` in ``LAUNCHES_BY_KV`` where ``kv_rows`` is given."""
     if dtype is not None and str(dtype) == "torch.bfloat16":
         name += BF16_SUFFIX
     LAUNCHES[name] += 1
+    if kv_rows is not None:
+        key = (name, int(kv_rows))
+        LAUNCHES_BY_KV[key] = LAUNCHES_BY_KV.get(key, 0) + 1
 
 
 def _nvcc() -> str:

@@ -313,7 +313,7 @@ def _fwd_cuda(q, k, v, num_heads, bias, causal, sm_scale, nsplit: Optional[int] 
         _DTYPE_CODES[q.dtype], build.current_stream(q.device),
     )
     build.check(err, "flash_packed_fwd")
-    build.count_launch("flash_packed_fwd", q.dtype)
+    build.count_launch("flash_packed_fwd", q.dtype, kv_rows=nkv)
     return o, lse
 
 
@@ -343,7 +343,7 @@ def bwd_dkv_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.check(build.launcher("flash_packed_bwd_dkv")(*ptrs, dk.data_ptr(), dv.data_ptr(), *ints),
                 "flash_packed_bwd_dkv")
-    build.count_launch("flash_packed_bwd_dkv", q.dtype)
+    build.count_launch("flash_packed_bwd_dkv", q.dtype, kv_rows=k.shape[1])
     return dk, dv
 
 
@@ -352,7 +352,7 @@ def bwd_dq_cuda(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale):
     ptrs, ints = _bwd_args(q, k, v, do, lse, delta, num_heads, bias, causal, sm_scale)
     dq = torch.empty_like(q)
     build.check(build.launcher("flash_packed_bwd_dq")(*ptrs, dq.data_ptr(), *ints), "flash_packed_bwd_dq")
-    build.count_launch("flash_packed_bwd_dq", q.dtype)
+    build.count_launch("flash_packed_bwd_dq", q.dtype, kv_rows=k.shape[1])
     return dq
 
 

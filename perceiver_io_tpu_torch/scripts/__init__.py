@@ -4,6 +4,6 @@ dataclasses.
 
 Each task module exposes ``main(argv)`` and runs as
 ``python -m perceiver_io_tpu_torch.scripts.<domain>.<task> fit --model.* --data.*``
-(``scripts.timeseries`` at the top). The text task CLIs wait for the port of
-the HF-``datasets`` text data modules (ROADMAP A13).
+(``scripts.timeseries`` at the top; the text CLIs are ``scripts.text.clm``,
+``mlm``, ``classifier`` and ``preproc``).
 """

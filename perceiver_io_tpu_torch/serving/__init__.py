@@ -8,8 +8,11 @@ retry, graceful drain and the clean-books invariant), the circuit breaker
 caches (``serving.engine.EngineFrontEnd``, a ``RequestFrontEnd``) with its
 host-side page allocator, radix prefix index (``serving.prefix``), eviction
 and the write-ahead request journal its crash recovery replays
-(``serving.journal``). ``RequestSpec`` lives in ``obs.loadgen``. The fleet
-router waits for ROADMAP A13."""
+(``serving.journal``), the fleet router (``serving.router.FleetRouter``: N
+engine replicas behind one submit surface, least-outstanding dispatch,
+drain/join and journal-backed failover) and the discrete-event simulator
+over the engine's host half (``serving.sim``). ``RequestSpec`` lives in
+``obs.loadgen``."""
 
 from perceiver_io_tpu_torch.obs.loadgen import RequestSpec
 from perceiver_io_tpu_torch.serving.breaker import STATE_VALUES, BreakerConfig, CircuitBreaker
@@ -32,6 +35,7 @@ from perceiver_io_tpu_torch.serving.frontend import (
 )
 from perceiver_io_tpu_torch.serving.pages import PageAllocator, PageGrant, PageStats
 from perceiver_io_tpu_torch.serving.prefix import PrefixIndex
+from perceiver_io_tpu_torch.serving.router import FleetConfig, FleetRouter, ReplicaHandle
 
 __all__ = [
     "EngineConfig",
@@ -58,4 +62,7 @@ __all__ = [
     "FrontEndRecord",
     "DecodePathFailure",
     "RequestFrontEnd",
+    "FleetConfig",
+    "FleetRouter",
+    "ReplicaHandle",
 ]

@@ -871,6 +871,12 @@ class EngineFrontEnd(RequestFrontEnd):
 
     # -- crash recovery ------------------------------------------------------
 
+    def _check_recover_geometry(self) -> None:
+        """Recovery resumes by prefill replay, which never slides a window."""
+        ec, mcfg = self.engine_config, self.model.config
+        if not _no_slide(ec, mcfg):
+            raise _slide_error(ec, mcfg, "journal recovery resumes by prefill replay and never slides")
+
     def recover(self, journal, handoff_id: Optional[str] = None) -> dict:
         """Re-admit a dead engine's non-terminal requests from its
         write-ahead journal (a ``RequestJournal`` or a path) into this
@@ -895,9 +901,7 @@ class EngineFrontEnd(RequestFrontEnd):
         now. A stream already at its budget (or ending in eos) books ``ok``
         without a replay. One ``serve.recover`` row (and span) a request.
         Returns a summary dict."""
-        ec, mcfg = self.engine_config, self.model.config
-        if not _no_slide(ec, mcfg):
-            raise _slide_error(ec, mcfg, "journal recovery resumes by prefill replay and never slides")
+        self._check_recover_geometry()
         if not isinstance(journal, RequestJournal):
             journal = RequestJournal(journal)
         handoff_mode = self.journal is not None and self.journal is not journal

@@ -229,10 +229,9 @@ class RequestFrontEnd:
         journal=None,
         device: DeviceLike = "cuda",
     ):
-        from perceiver_io_tpu_torch.generation import _model_device
         from perceiver_io_tpu_torch.obs.metrics import MetricsRegistry
 
-        self.device = _model_device(model, device)
+        self.device = self._serving_device(model, device)
         if isinstance(journal, (str, os.PathLike)):
             from perceiver_io_tpu_torch.serving.journal import RequestJournal
 
@@ -303,6 +302,12 @@ class RequestFrontEnd:
         )
 
     # -- wiring -------------------------------------------------------------
+
+    def _serving_device(self, model, device: DeviceLike) -> torch.device:
+        """The model's device, which must be ``device``."""
+        from perceiver_io_tpu_torch.generation import _model_device
+
+        return _model_device(model, device)
 
     def _fn_for(self, max_new: int) -> Callable:
         if max_new not in self._fns:

@@ -1,0 +1,618 @@
+"""The fleet router: N ``EngineFrontEnd`` replicas behind one submit surface,
+with journal-backed failover (a copy of ``perceiver_io_tpu/serving/router.py``
+over the port's engine; host code, no device work of its own).
+
+The write-ahead journal (``serving/journal.py``) survives the death of an
+*engine* by restarting the same engine over it. A fleet survives it without
+a restart: it routes around the dead replica and replays its journal onto a
+survivor. :class:`FleetRouter` is that host-side control plane:
+
+- **dispatch** — least-outstanding (queued + in-flight + parked) among
+  healthy replicas: ``active`` state, breaker not open, heartbeat fresh on
+  the injectable clock; a ``degraded`` (browned-out) replica sorts last.
+  Ties break on replica id, so dispatch is deterministic under the same
+  fleet state.
+- **bounded re-dispatch** — a request shed ON ADMISSION (the synchronous
+  verdict ``submit`` returns, zero tokens served) is retried on up to
+  ``max_redispatch`` other replicas. A request that reached a decode path
+  is never re-dispatched: at most one replica ever decodes an index.
+- **drain/join** — :meth:`add_replica` joins a replica into the dispatch
+  set; :meth:`drain_replica` stops dispatching to it while the drive loop
+  keeps stepping it until its outstanding work is zero (``drained``), so a
+  drain sheds nothing.
+- **journal failover** — a replica declared dead (an ``EngineCrash`` in the
+  drive loop, injected or real, or missed heartbeats via
+  :meth:`check_replicas`) has its ``RequestJournal`` replayed onto the
+  healthiest survivor through ``EngineFrontEnd.recover`` in handoff mode:
+  the survivor re-journals every adopted request into its own ledger and
+  the dead journal closes with ``handoff`` markers, so every request
+  reaches exactly one terminal outcome fleet-wide and a double replay is a
+  no-op. The failover emits a span-attributed ``serve.failover`` event.
+
+The fleet-level clean-books identity (:meth:`books`/:meth:`audit`):
+``Σ replica submitted == router dispatches + failover re-admissions`` and
+``Σ submitted == Σ terminal + live(non-dead) + orphaned(dead)``; the
+orphaned count must equal the failover's re-admissions, so nothing the
+fleet accepted is lost or served twice.
+
+Under a ``ManualClock`` everything is wall-clock-free: heartbeat ages and
+brownout detection (an EWMA of per-step clock time against the fleet
+minimum) read the injected clock. The replica table, the assignment map and
+the odometers are touched by the serving thread and the scrape thread
+(``ObsServer(health=router.health)``), so every access holds ``_lock``.
+
+Real replicas on one card each hold their own pools, journal and captured
+decode step (captured on the shared capture stream, ``graphs.capture_stream``)
+and may share one model's weights; the simulator's replicas
+(``serving.sim.SimEngineFrontEnd``) run the same router with sampled service
+times.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+from perceiver_io_tpu_torch.serving.faultinject import EngineCrash
+
+__all__ = ["FleetConfig", "FleetRouter", "ReplicaHandle"]
+
+
+@dataclass
+class FleetConfig:
+    """Fleet routing policy knobs.
+
+    :param heartbeat_timeout_s: a replica whose last heartbeat is older
+        than this (on the injected clock) is excluded from dispatch, and
+        :meth:`FleetRouter.check_replicas` declares it dead (None
+        disables heartbeat death — kills still fail over).
+    :param max_redispatch: how many OTHER replicas an admission-shed
+        request may be retried on (0 = first verdict is final).
+    :param brownout_factor: a replica whose per-step EWMA exceeds this
+        multiple of the fleet's fastest replica is marked ``degraded``
+        (dispatch sorts it last); dropping back under restores it.
+    :param ewma_alpha: smoothing of the per-step clock-time EWMA.
+    """
+
+    heartbeat_timeout_s: Optional[float] = None
+    max_redispatch: int = 2
+    brownout_factor: float = 3.0
+    ewma_alpha: float = 0.3
+
+
+@dataclass
+class ReplicaHandle:
+    """One replica's router-side state (the fleet health-table row)."""
+
+    replica_id: str
+    frontend: object
+    state: str = "active"  # active | draining | drained | dead
+    degraded: bool = False
+    last_heartbeat: Optional[float] = None
+    steps: int = 0
+    ewma_step_s: Optional[float] = None
+    attrs: Dict = field(default_factory=dict)
+
+
+class FleetRouter:
+    """Replicated-engine router (see module docstring).
+
+    :param clock: monotonic-seconds callable shared with the replicas; a
+        ``serving.faultinject.ManualClock`` makes the whole fleet
+        wall-clock-free.
+    :param events: event sink (``EventLog``/``FlightRecorder``) for
+        ``serve.replica`` transitions and the ``serve.failover`` row.
+    :param registry: ``obs.metrics.MetricsRegistry`` for the ``router_*``
+        series (per-replica labeled children under unlabeled totals).
+    :param injector: ``serving.faultinject.FaultInjector`` — the drive
+        loop feeds it replica-step coordinates (``on_replica_step``), so
+        replica kills are injectable without touching any engine.
+    """
+
+    def __init__(
+        self,
+        *,
+        clock: Callable[[], float] = time.monotonic,
+        events=None,
+        registry=None,
+        config: Optional[FleetConfig] = None,
+        injector=None,
+    ):
+        from perceiver_io_tpu_torch.obs.metrics import MetricsRegistry
+
+        self.config = config or FleetConfig()
+        self.events = events
+        self.registry = registry if registry is not None else MetricsRegistry(clock=clock)
+        self._clock = clock
+        self._injector = injector
+        # the replica table, assignment map and odometers are shared
+        # between the serving thread (submit/step/failover) and the scrape
+        # thread (health/books): EVERY touch holds this lock (reentrant —
+        # failover runs inside step's except frame which may hold it)
+        self._lock = threading.RLock()
+        self._replicas: Dict[str, ReplicaHandle] = {}
+        self._assigned: Dict[int, str] = {}  # request index -> replica id
+        self._dispatched = 0  # frontend.submit calls made (incl. retries)
+        self._requeued = 0  # admission sheds retried on another replica
+        self._failovers = 0
+        self._readmitted = 0  # requests recover() re-admitted on survivors
+        self._readmit_skipped = 0  # dedupe hits across failover replays
+        from perceiver_io_tpu_torch.obs import trace as obs_trace
+
+        self._tracer = (
+            obs_trace.Tracer(events, flush_every=1) if events is not None else None
+        )
+        r = self.registry
+        self._m_dispatch = r.counter("router_dispatch_total")
+        self._m_redispatch = r.counter("router_redispatch_total")
+        self._m_failovers = r.counter("router_failovers_total")
+        self._m_active = r.gauge("router_replicas_active")
+        self._m_outstanding = r.gauge("router_outstanding")
+        self._m_heartbeat_age = r.gauge("router_heartbeat_age_s")
+
+    # -- fleet membership ----------------------------------------------------
+
+    def add_replica(self, replica_id: str, frontend) -> ReplicaHandle:
+        """Join a replica into the dispatch set (``serve.replica`` kind
+        ``join``). The front end keeps its own journal/breaker/books; the
+        router only reads them."""
+        rid = str(replica_id)
+        rep = ReplicaHandle(replica_id=rid, frontend=frontend,
+                            last_heartbeat=float(self._clock()))
+        with self._lock:
+            if rid in self._replicas:
+                raise ValueError(f"replica {rid!r} already in the fleet")
+            self._replicas[rid] = rep
+        self._m_active.set(self._n_active())
+        self._emit_replica(rep, "join")
+        return rep
+
+    def heartbeat(self, replica_id: str) -> None:
+        """Stamp a replica's liveness on the injected clock (the drive
+        loop stamps automatically per successful step; an external prober
+        can stamp through this)."""
+        with self._lock:
+            rep = self._replicas[str(replica_id)]
+            rep.last_heartbeat = float(self._clock())
+        self._m_heartbeat_age.labels(replica=rep.replica_id).set(0.0)
+
+    def drain_replica(self, replica_id: str) -> None:
+        """Graceful drain (the SIGTERM path): stop dispatching to the
+        replica; the drive loop keeps stepping it until its outstanding
+        work is zero, then marks it ``drained``. The replica's own
+        ``drain()`` gate is NOT raised while it still owes tokens — so a
+        drain sheds nothing."""
+        with self._lock:
+            rep = self._replicas[str(replica_id)]
+            if rep.state not in ("active", "draining"):
+                return
+            rep.state = "draining"
+        self._m_active.set(self._n_active())
+        self._emit_replica(rep, "drain", outstanding=self._outstanding(rep.frontend))
+        self._maybe_finish_drain(rep)
+
+    def _maybe_finish_drain(self, rep: ReplicaHandle) -> None:
+        if rep.state == "draining" and self._outstanding(rep.frontend) == 0:
+            with self._lock:
+                rep.state = "drained"
+            self._emit_replica(rep, "drained")
+
+    # -- dispatch ------------------------------------------------------------
+
+    def _n_active(self) -> int:
+        with self._lock:
+            return sum(1 for r in self._replicas.values() if r.state == "active")
+
+    @staticmethod
+    def _outstanding(fe) -> int:
+        """Point-read of a replica's outstanding depth (queued + in-flight
+        + parked) — the least-outstanding dispatch score."""
+        return len(fe._queue) + fe._in_flight + len(fe._parked)
+
+    def _dispatchable(self, rep: ReplicaHandle, now: float) -> bool:
+        if rep.state != "active":
+            return False
+        breaker = getattr(rep.frontend, "breaker", None)
+        if breaker is not None and breaker.state == "open":
+            return False
+        to = self.config.heartbeat_timeout_s
+        if (to is not None and rep.last_heartbeat is not None
+                and now - rep.last_heartbeat > to):
+            return False
+        return True
+
+    def _pick(self, exclude=()) -> Optional[ReplicaHandle]:
+        """The healthiest dispatch target: active, breaker closed,
+        heartbeat fresh; degraded replicas last, then least outstanding,
+        then replica id (deterministic)."""
+        now = float(self._clock())
+        with self._lock:
+            cands = [
+                r for r in self._replicas.values()
+                if r.replica_id not in exclude and self._dispatchable(r, now)
+            ]
+        if not cands:
+            return None
+        return min(
+            cands,
+            key=lambda r: (r.degraded, self._outstanding(r.frontend), r.replica_id),
+        )
+
+    def submit(self, spec, arrival_s: Optional[float] = None,
+               deadline_s: Optional[float] = None):
+        """Dispatch one request to the healthiest replica. An ADMISSION
+        shed (the synchronous verdict, zero tokens) is retried on up to
+        ``max_redispatch`` other replicas — the last verdict is returned.
+        A request that reached a decode path is never re-dispatched."""
+        tried: set = set()
+        last_rec = None
+        for _ in range(max(int(self.config.max_redispatch), 0) + 1):
+            rep = self._pick(exclude=tried)
+            if rep is None:
+                break
+            tried.add(rep.replica_id)
+            if last_rec is not None:
+                # this attempt is a re-dispatch of an admission shed
+                with self._lock:
+                    self._requeued += 1
+                self._m_redispatch.inc()
+                self._m_redispatch.labels(replica=rep.replica_id).inc()
+            rec = rep.frontend.submit(spec, arrival_s=arrival_s,
+                                      deadline_s=deadline_s)
+            with self._lock:
+                self._dispatched += 1
+                self._assigned[int(rec.index)] = rep.replica_id
+            self._m_dispatch.inc()
+            self._m_dispatch.labels(replica=rep.replica_id).inc()
+            last_rec = rec
+            if rec.outcome == "shed":
+                continue  # synchronous admission verdict: try a healthier one
+            return rec
+        if last_rec is None:
+            raise RuntimeError("no dispatchable replica in the fleet")
+        return last_rec
+
+    # -- the drive loop ------------------------------------------------------
+
+    def _steppable(self) -> List[ReplicaHandle]:
+        with self._lock:
+            return [r for r in self._replicas.values()
+                    if r.state in ("active", "draining")]
+
+    @staticmethod
+    def _has_work(fe) -> bool:
+        return bool(fe._queue or fe._active_ids() or fe._parked)
+
+    def step(self, replica_id: Optional[str] = None) -> int:
+        """One fleet drive step: each live replica with work gets one
+        fill+decode step; a replica that dies mid-step (``EngineCrash`` —
+        injected or real) fails over to a survivor before the next step.
+        ``replica_id`` restricts the step to one replica (the discrete-
+        event fleet simulation always steps the earliest-clock replica to
+        keep causality). Returns the number of replicas stepped."""
+        stepped = 0
+        for rep in self._steppable():
+            if replica_id is not None and rep.replica_id != str(replica_id):
+                continue
+            fe = rep.frontend
+            if not self._has_work(fe):
+                # an idle replica is trivially responsive on this drive
+                with self._lock:
+                    rep.last_heartbeat = float(self._clock())
+                self._maybe_finish_drain(rep)
+                continue
+            # the step's service time is measured on the REPLICA's clock
+            # (per-replica ManualClocks under the fleet sim — each replica
+            # lives on its own timeline; a real fleet shares one clock)
+            t0 = float(fe._clock())
+            try:
+                if self._injector is not None:
+                    self._injector.on_replica_step(rep.replica_id, rep.steps)
+                fe._check_guard()
+                fe._fill_slots()
+                fe._engine_step()
+            except EngineCrash:
+                # the replica "process" vanished mid-step: slots frozen, no
+                # terminals booked — exactly what the journal covers
+                self.failover(rep.replica_id, reason="injected_kill")
+                continue
+            dt = float(fe._clock()) - t0
+            with self._lock:
+                rep.steps += 1
+                rep.last_heartbeat = float(self._clock())
+                a = self.config.ewma_alpha
+                rep.ewma_step_s = (
+                    dt if rep.ewma_step_s is None
+                    else a * dt + (1.0 - a) * rep.ewma_step_s
+                )
+            self._m_outstanding.labels(replica=rep.replica_id).set(
+                self._outstanding(fe)
+            )
+            self._update_degraded()
+            self._maybe_finish_drain(rep)
+            stepped += 1
+        return stepped
+
+    def _update_degraded(self) -> None:
+        """Brownout detection: a replica whose per-step EWMA exceeds
+        ``brownout_factor`` × the fleet's fastest is ``degraded`` (emits
+        ``serve.replica`` ``degraded``/``restored`` on each flip)."""
+        with self._lock:
+            live = [r for r in self._replicas.values()
+                    if r.state == "active" and r.ewma_step_s is not None]
+            if len(live) < 2:
+                return
+            floor = min(r.ewma_step_s for r in live)
+            flips = []
+            for r in live:
+                slow = r.ewma_step_s > self.config.brownout_factor * max(floor, 1e-12)
+                if slow != r.degraded:
+                    r.degraded = slow
+                    flips.append((r, "degraded" if slow else "restored"))
+        for rep, transition in flips:
+            self._emit_replica(rep, transition,
+                               outstanding=self._outstanding(rep.frontend))
+
+    def check_replicas(self) -> List[str]:
+        """Heartbeat sweep: declare dead (and fail over) every active or
+        draining replica whose heartbeat age exceeds the timeout. Returns
+        the ids that died this sweep."""
+        to = self.config.heartbeat_timeout_s
+        if to is None:
+            return []
+        now = float(self._clock())
+        with self._lock:
+            stale = [
+                r.replica_id for r in self._replicas.values()
+                if r.state in ("active", "draining")
+                and r.last_heartbeat is not None
+                and now - r.last_heartbeat > to
+            ]
+        for rid in stale:
+            self.failover(rid, reason="heartbeat_timeout")
+        return stale
+
+    def pump(self) -> int:
+        """Drive the whole fleet until no live replica has work (failover
+        re-homes a dead replica's work, so this terminates). Returns the
+        fleet-wide terminal outcomes booked during the pump."""
+        done0 = self._fleet_terminals()
+        while True:
+            self.check_replicas()
+            if not any(self._has_work(r.frontend) for r in self._steppable()):
+                break
+            if self.step() == 0:
+                break  # nothing steppable though work exists: surface in audit
+        return self._fleet_terminals() - done0
+
+    def run_closed(self, specs, *, concurrency: int = 4,
+                   deadline_s: Optional[float] = None) -> List:
+        """Closed-loop drive across the fleet: ``concurrency`` requests
+        live fleet-wide; completions admit the next. Returns the dispatch
+        records in submission order."""
+        if concurrency < 1:
+            raise ValueError("run_closed needs concurrency >= 1")
+        from collections import deque as _deque
+
+        pending = _deque(specs)
+        out = []
+
+        def live() -> int:
+            return sum(self._outstanding(r.frontend) for r in self._steppable())
+
+        def admit() -> None:
+            while pending and live() < concurrency:
+                out.append(self.submit(pending.popleft(), deadline_s=deadline_s))
+
+        admit()
+        while pending or any(self._has_work(r.frontend) for r in self._steppable()):
+            self.check_replicas()
+            admit()
+            if self.step() == 0:
+                # no steppable work after admission: either everything
+                # drained, or no dispatchable replica is left (submit in
+                # admit() raises on that) — surface via audit, don't spin
+                break
+        return out
+
+    def _fleet_terminals(self) -> int:
+        with self._lock:
+            reps = list(self._replicas.values())
+        total = 0
+        for rep in reps:
+            b = rep.frontend.books()
+            total += b["terminal"]
+        return total
+
+    # -- failover ------------------------------------------------------------
+
+    def failover(self, dead_id: str, reason: str = "dead") -> Optional[dict]:
+        """Declare ``dead_id`` dead and replay its write-ahead journal onto
+        the healthiest survivor (``EngineFrontEnd.recover`` in handoff
+        mode — the survivor keeps its own journal, the dead one closes
+        with handoff markers). Emits ``serve.replica`` (``dead``) and a
+        span-attributed ``serve.failover`` row (a flight-dump trigger).
+        Idempotent: a replica already dead returns None."""
+        dead_rid = str(dead_id)
+        with self._lock:
+            rep = self._replicas.get(dead_rid)
+            if rep is None or rep.state == "dead":
+                return None
+            rep.state = "dead"
+        self._m_active.set(self._n_active())
+        self._emit_replica(rep, "dead", reason=reason,
+                           outstanding=self._outstanding(rep.frontend))
+        survivor = self._pick(exclude={dead_rid})
+        if survivor is None:
+            raise RuntimeError(
+                f"replica {dead_rid!r} died with no dispatchable survivor — "
+                f"its journal is intact at "
+                f"{getattr(rep.frontend.journal, 'path', None)!r}"
+            )
+        journal = rep.frontend.journal
+        if journal is None:
+            raise RuntimeError(
+                f"replica {dead_rid!r} has no write-ahead journal — "
+                "nothing to fail over (run replicas with journal=...)"
+            )
+        info = survivor.frontend.recover(journal, handoff_id=survivor.replica_id)
+        with self._lock:
+            self._failovers += 1
+            self._readmitted += info["recovered"] + info["shed"]
+            self._readmit_skipped += info["skipped"]
+            for idx, rid in list(self._assigned.items()):
+                if rid == dead_rid:
+                    self._assigned[idx] = survivor.replica_id
+        self._m_failovers.inc()
+        if self.events is not None:
+            row = dict(
+                dead_replica=dead_rid,
+                survivor=survivor.replica_id,
+                n_replayed=info["recovered"],
+                n_parked=info["parked"],
+                n_queued=info["queued"],
+                n_already_complete=info["already_complete"],
+                n_shed=info["shed"],
+                journal=str(journal.path),
+            )
+            if self._tracer is not None:
+                with self._tracer.span(
+                    "failover", dead_replica=dead_rid,
+                    survivor=survivor.replica_id,
+                ) as sp:
+                    sp.set("reason", reason)
+                    sp.set("n_replayed", info["recovered"])
+                self._tracer.flush()  # span row BEFORE the failover row
+                row["span_id"] = sp.span_id
+            self.events.emit("serve.failover", **row)
+        return info
+
+    # -- the fleet view ------------------------------------------------------
+
+    def _emit_replica(self, rep: ReplicaHandle, transition: str,
+                      reason: Optional[str] = None,
+                      outstanding: Optional[int] = None) -> None:
+        if self.events is None:
+            return
+        row = dict(replica_id=rep.replica_id, transition=transition)
+        if reason is not None:
+            row["reason"] = str(reason)
+        if outstanding is not None:
+            row["outstanding"] = int(outstanding)
+        self.events.emit("serve.replica", **row)
+
+    def health(self) -> dict:
+        """The fleet ``/healthz`` provider — the per-engine ``health`` seam
+        generalized: one row per replica (state, degradation, outstanding,
+        heartbeat age, EWMA step time, the replica's own health dict)
+        under a fleet status (``ok`` while any replica is dispatchable)."""
+        now = float(self._clock())
+        with self._lock:
+            reps = list(self._replicas.values())
+        replicas = {}
+        n_dispatchable = 0
+        for rep in reps:
+            age = (None if rep.last_heartbeat is None
+                   else round(now - rep.last_heartbeat, 6))
+            if age is not None:
+                self._m_heartbeat_age.labels(replica=rep.replica_id).set(age)
+            ok = self._dispatchable(rep, now)
+            n_dispatchable += ok
+            replicas[rep.replica_id] = {
+                "state": rep.state,
+                "dispatchable": ok,
+                "degraded": rep.degraded,
+                "outstanding": self._outstanding(rep.frontend),
+                "heartbeat_age_s": age,
+                "ewma_step_s": rep.ewma_step_s,
+                "engine": rep.frontend.health(),
+            }
+        with self._lock:
+            out = {
+                "status": "ok" if n_dispatchable else "unroutable",
+                "n_replicas": len(reps),
+                "n_dispatchable": n_dispatchable,
+                "dispatched": self._dispatched,
+                "requeued": self._requeued,
+                "failovers": self._failovers,
+                "replicas": replicas,
+            }
+        return out
+
+    def books(self) -> dict:
+        """The fleet-level accounting identity. ``balanced`` holds when
+        (a) every frontend submission is accounted for — ``Σ submitted ==
+        dispatched + failover re-admissions``; (b) nothing is lost —
+        ``Σ submitted == Σ terminal + live(non-dead) + orphaned(dead)``;
+        (c) the failover covered every orphan — ``orphaned ==
+        re-admissions + dedupe skips`` (a dead replica's frozen
+        non-terminal requests all re-landed, exactly once, on survivors).
+        After a full drain ``live`` is zero and every index has exactly
+        one terminal outcome fleet-wide."""
+        with self._lock:
+            reps = list(self._replicas.values())
+            dispatched = self._dispatched
+            requeued = self._requeued
+            readmitted = self._readmitted
+            skipped = self._readmit_skipped
+            failovers = self._failovers
+        submitted = terminal = live = orphaned = 0
+        outcomes: Dict[str, int] = {}
+        per_replica = {}
+        for rep in reps:
+            b = rep.frontend.books()
+            per_replica[rep.replica_id] = b
+            submitted += b["submitted"]
+            terminal += b["terminal"]
+            depth = b["queued"] + b["in_flight"] + b["parked"]
+            if rep.state == "dead":
+                orphaned += depth
+            else:
+                live += depth
+            for k in ("ok", "error", "timeout", "shed", "cancelled"):
+                outcomes[k] = outcomes.get(k, 0) + b[k]
+        return {
+            "submitted": submitted,
+            "terminal": terminal,
+            "live": live,
+            "orphaned": orphaned,
+            "dispatched": dispatched,
+            "requeued": requeued,
+            "failovers": failovers,
+            "readmitted": readmitted,
+            "readmit_skipped": skipped,
+            "outcomes": outcomes,
+            "replicas": per_replica,
+            "balanced": (
+                submitted == dispatched + readmitted
+                and submitted == terminal + live + orphaned
+                and orphaned == readmitted + skipped
+            ),
+        }
+
+    def audit(self, expect_drained: bool = True) -> List[str]:
+        """Fleet clean-books problems (empty = certified clean): the fleet
+        identity, each live replica's own audit, and each dead replica's
+        journal closed by handoff markers."""
+        problems: List[str] = []
+        b = self.books()
+        if not b["balanced"]:
+            problems.append(f"fleet books unbalanced: { {k: v for k, v in b.items() if k != 'replicas'} }")
+        with self._lock:
+            reps = list(self._replicas.values())
+        for rep in reps:
+            if rep.state == "dead":
+                j = rep.frontend.journal
+                if j is not None:
+                    jb = j.books()
+                    if not jb["balanced"]:
+                        problems.append(
+                            f"dead replica {rep.replica_id}: journal not closed "
+                            f"by handoff ({jb})"
+                        )
+                continue
+            for p in rep.frontend.audit(expect_drained=expect_drained):
+                problems.append(f"replica {rep.replica_id}: {p}")
+        return problems

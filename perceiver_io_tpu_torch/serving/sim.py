@@ -1,0 +1,984 @@
+"""Discrete-event simulation of the port's serving stack (a copy of
+``perceiver_io_tpu/serving/sim.py`` over the port's engine; host work only,
+no device and no model).
+
+The engine answers what one card can decode: hundreds of requests. The
+multi-tenant questions (does admission stay fair when one tenant floods?
+does a long-prompt tenant starve a latency-sensitive one? do the books
+still balance at tens of thousands of requests per second?) live two orders
+of magnitude above that. :class:`SimEngineFrontEnd` answers them without
+mocking the serving stack: it subclasses
+:class:`~perceiver_io_tpu_torch.serving.engine.EngineFrontEnd` and replaces
+ONLY the device programs (the prefill, the captured decode step, the
+in-place state writes of a join and a retire) with **service-time
+distributions** fitted to a LOAD document's measured percentiles
+(:class:`ServiceTimeModel`: seeded lognormals, source and parameters stamped
+for comparability). Everything else is the engine's code under a
+:class:`~perceiver_io_tpu_torch.serving.faultinject.ManualClock`:
+
+- **admission** — the bounded queue, deadline projection, breaker,
+  page-fit check and labeled per-tenant ``serve_*`` counters;
+- **paging** — the :class:`~perceiver_io_tpu_torch.serving.pages.
+  PageAllocator` pair at the engine's pool formulas, so page backpressure,
+  eviction, parking, resume and the per-tenant pages-held gauge all
+  exercise the shipping allocator;
+- **prefix sharing** — the radix :class:`~perceiver_io_tpu_torch.serving.
+  prefix.PrefixIndex` (with the engine's deferred inserts, which answer
+  what eager ones would), refcounted shared grants and the expire-on-release
+  seam run verbatim; only the *service charge* is simulated — a matched
+  join's prefill sample is scaled to the UNMATCHED token fraction, because
+  the engine's shared prefill skips exactly the matched pages' compute;
+- **accounting** — the books identity (``submitted == terminal + queued +
+  in_flight + parked``), journal records, spans and the standard event
+  stream, so ``obs.slo`` reads a simulated run unchanged.
+
+Virtual time only moves when a sampled service time (or an idle jump to
+the next seeded arrival) advances the ``ManualClock``: a run offering tens
+of thousands of requests per second across N tenants completes in
+host-loop time with no wall-clock sleep. :func:`build_sim_doc` writes a run
+as a SIM document and :func:`diff_sim` compares two, as ``diff_load`` does
+LOAD documents; :func:`run_fleet_sim` drives a
+:class:`~perceiver_io_tpu_torch.serving.router.FleetRouter` over simulated
+replicas.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from perceiver_io_tpu_torch.obs.metrics import bucket_index
+from perceiver_io_tpu_torch.serving.engine import EngineConfig, EngineFrontEnd, _EngineSlot
+from perceiver_io_tpu_torch.serving.faultinject import ManualClock
+from perceiver_io_tpu_torch.serving.frontend import RequestFrontEnd
+from perceiver_io_tpu_torch.serving.pages import PageAllocator
+
+# z-score of the 99th percentile of a standard normal: the lognormal fit
+# below solves sigma from the artifact's measured p99/p50 ratio
+_Z99 = 2.326
+
+
+@dataclass(frozen=True)
+class ServiceTimeModel:
+    """Seeded lognormal service-time distributions fitted from a committed
+    artifact's measured percentiles: ``mu = ln(p50)``, ``sigma =
+    ln(p99/p50) / 2.326`` per family. The fit parameters and the source
+    artifact name are part of a SIM artifact's comparability identity —
+    two SIM rounds sampled from different service models are stale vs
+    fresh, never a regression."""
+
+    prefill_p50_s: float
+    prefill_p99_s: float
+    tpot_p50_s: float
+    tpot_p99_s: float
+    source: str = "synthetic"
+
+    def __post_init__(self):
+        for name in ("prefill_p50_s", "prefill_p99_s", "tpot_p50_s", "tpot_p99_s"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"ServiceTimeModel.{name} must be > 0")
+
+    @classmethod
+    def from_load_doc(cls, doc: Dict, source: Optional[str] = None) -> "ServiceTimeModel":
+        """Fit from a ``LOAD_r*.json`` doc's warm TTFT/TPOT percentiles."""
+        s = doc.get("summary", {}) or {}
+        ttft, tpot = s.get("ttft_s") or {}, s.get("tpot_s") or {}
+        missing = [
+            k for k, blk in (("ttft_s", ttft), ("tpot_s", tpot))
+            if not isinstance(blk.get("p50"), (int, float))
+            or not isinstance(blk.get("p99"), (int, float))
+        ]
+        if missing:
+            raise ValueError(
+                f"LOAD doc lacks p50/p99 for {missing} — cannot fit a service model"
+            )
+        return cls(
+            prefill_p50_s=float(ttft["p50"]),
+            prefill_p99_s=float(ttft["p99"]),
+            tpot_p50_s=float(tpot["p50"]),
+            tpot_p99_s=float(tpot["p99"]),
+            source=source or f"LOAD_r{doc.get('n', '?')}",
+        )
+
+    def to_dict(self) -> Dict:
+        return {
+            "source": self.source,
+            "prefill_p50_s": self.prefill_p50_s,
+            "prefill_p99_s": self.prefill_p99_s,
+            "tpot_p50_s": self.tpot_p50_s,
+            "tpot_p99_s": self.tpot_p99_s,
+        }
+
+    @staticmethod
+    def _sample(rng, p50: float, p99: float) -> float:
+        sigma = max(math.log(p99 / p50) / _Z99, 0.0) if p99 > p50 else 0.0
+        return float(math.exp(math.log(p50) + sigma * rng.standard_normal()))
+
+    def sample_prefill(self, rng) -> float:
+        return self._sample(rng, self.prefill_p50_s, self.prefill_p99_s)
+
+    def sample_tpot(self, rng) -> float:
+        return self._sample(rng, self.tpot_p50_s, self.tpot_p99_s)
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One tenant's offered load: a seeded Poisson arrival process at
+    ``rate_rps`` over ``n_requests`` drawn from its own prompt/budget mix
+    (its own ``WorkloadSpec`` stream — heterogeneous tenants are the whole
+    point of the fairness certification)."""
+
+    name: str
+    rate_rps: float
+    n_requests: int
+    prompt_lens: Tuple[int, ...] = (8, 12)
+    max_new_tokens: Tuple[int, ...] = (6, 10)
+    seed: int = 0
+    # prefix sharing: every request of this tenant opens with the same
+    # seeded token run (WorkloadSpec.shared_prefix_len) — the sim's
+    # prefix-skew scenarios model an agent/template tenant whose prompts
+    # share a system preamble
+    shared_prefix_len: int = 0
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("TenantSpec needs a non-empty name")
+        if self.rate_rps <= 0 or self.n_requests < 1:
+            raise ValueError("TenantSpec needs rate_rps > 0 and n_requests >= 1")
+        if not 0 <= self.shared_prefix_len < min(self.prompt_lens):
+            raise ValueError(
+                f"shared_prefix_len {self.shared_prefix_len} must be >= 0 and "
+                f"< the shortest prompt ({min(self.prompt_lens)})"
+            )
+
+    def to_dict(self) -> Dict:
+        d = {
+            "name": self.name,
+            "rate_rps": self.rate_rps,
+            "n_requests": self.n_requests,
+            "prompt_lens": list(self.prompt_lens),
+            "max_new_tokens": list(self.max_new_tokens),
+            "seed": self.seed,
+        }
+        # only stamped when set: SIM documents without sharing (and their
+        # comparability identities) stay byte-identical
+        if self.shared_prefix_len:
+            d["shared_prefix_len"] = self.shared_prefix_len
+        return d
+
+
+def build_multi_tenant_workload(
+    tenants: List[TenantSpec], vocab_size: int = 64
+) -> Tuple[List, List[float]]:
+    """Merge every tenant's seeded stream into ONE arrival-ordered request
+    list: per-tenant ``WorkloadSpec.draw`` for the request identities,
+    per-tenant ``arrival_schedule`` for the Poisson offsets, then a stable
+    merge by offset with globally unique indices reassigned in arrival
+    order (the front end's drive loops require non-decreasing offsets).
+    Returns ``(specs, offsets)``."""
+    import dataclasses
+
+    from perceiver_io_tpu_torch.obs.loadgen import WorkloadSpec, arrival_schedule
+
+    names = [t.name for t in tenants]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate tenant names: {names}")
+    merged: List[Tuple[float, int, object]] = []
+    for ti, t in enumerate(tenants):
+        wspec = WorkloadSpec(
+            seed=t.seed, prompt_lens=t.prompt_lens,
+            max_new_tokens=t.max_new_tokens,
+            shared_prefix_len=t.shared_prefix_len,
+        )
+        specs = wspec.draw(t.n_requests, vocab_size)
+        offsets = arrival_schedule(t.n_requests, t.rate_rps, seed=t.seed + 1)
+        for spec, off in zip(specs, offsets):
+            merged.append((off, ti, dataclasses.replace(spec, tenant=t.name)))
+    merged.sort(key=lambda x: (x[0], x[1]))
+    specs_out, offsets_out = [], []
+    for i, (off, _, spec) in enumerate(merged):
+        specs_out.append(dataclasses.replace(spec, index=i))
+        offsets_out.append(off)
+    return specs_out, offsets_out
+
+
+def jain_fairness(shares: List[float]) -> float:
+    """Jain's fairness index over per-tenant shares ``x_i`` (achieved /
+    offered): ``(Σx)² / (n · Σx²)`` — 1.0 is perfectly fair, 1/n is one
+    tenant taking everything."""
+    if not shares:
+        return 1.0
+    sq = sum(x * x for x in shares)
+    if sq == 0:
+        return 1.0
+    return (sum(shares) ** 2) / (len(shares) * sq)
+
+
+class SimEngineFrontEnd(EngineFrontEnd):
+    """The engine front end with its device programs replaced by sampled
+    service times (see module docstring). Construction skips
+    ``EngineFrontEnd.__init__`` entirely — no model, no pools, no captured
+    step — and rebuilds the HOST half of the engine: the same page-pool
+    formulas, the same page-fit admission check, the same slots/books/
+    gauges. The overridden ``_try_join`` / ``_engine_step`` /
+    ``_try_resume`` advance the injected :class:`ManualClock` by sampled
+    prefill/per-token times instead of running programs, and
+    ``_retire_state`` (the device half of a retire or an eviction) has no
+    state to write; every other method (eviction, parking, sweep, recovery,
+    drive loops, books, audit) is inherited verbatim — which is the point:
+    the simulation certifies the shipping control plane, not a model of
+    it."""
+
+    def __init__(
+        self,
+        *,
+        service_model: ServiceTimeModel,
+        engine_config: Optional[EngineConfig] = None,
+        clock: Optional[ManualClock] = None,
+        seed: int = 1,
+        num_latents: int = 1,
+        config=None,
+        events=None,
+        registry=None,
+        journal=None,
+        injector=None,
+        replica_id: Optional[str] = None,
+    ):
+        clock = clock if clock is not None else ManualClock()
+        if not hasattr(clock, "advance"):
+            raise TypeError("SimEngineFrontEnd needs a ManualClock-style clock")
+        # the fleet: the replica coordinate a FaultInjector brownout keys
+        # on — every sampled service time is scaled by the injector's
+        # latency_factor for this replica (1.0 when nominal/unnamed)
+        self.replica_id = None if replica_id is None else str(replica_id)
+        # the sequential front end's host surface (queue, breaker, books,
+        # tracer, labeled serve_* counters) — skipping EngineFrontEnd's
+        # model and pool construction on purpose
+        RequestFrontEnd.__init__(
+            self, None,
+            num_latents=num_latents, config=config, events=events,
+            registry=registry, clock=clock, sleep=clock.sleep,
+            injector=injector, journal=journal,
+        )
+        self.clock = clock
+        self.service_model = service_model
+        self._rng = np.random.default_rng(seed)
+        self.engine_config = ec = engine_config or EngineConfig()
+        ps = ec.page_size
+        if ec.spec_k > 0:
+            raise ValueError("the simulation models the non-speculative engine")
+        self._spec = False
+        self._spec_slack = 0
+        # the REAL pool formulas and allocators — page backpressure and
+        # eviction behave exactly as the engine's
+        self._ca_pages_per_slot = -(-ec.max_ca_tokens // ps)
+        self._sa_pages_per_slot = -(-ec.max_sa_tokens // ps)
+        ca_pool = 1 + max(2, int(round(ec.slots * self._ca_pages_per_slot * ec.pool_headroom)))
+        sa_pool = 1 + max(2, int(round(ec.slots * self._sa_pages_per_slot * ec.pool_headroom)))
+        self.ca_alloc = PageAllocator(ca_pool, ps)
+        self.sa_alloc = PageAllocator(sa_pool, ps)
+        # the real prefix-sharing admission surface (module docstring):
+        # radix index with its deferred inserts, refcounted shared grants,
+        # expire-on-release — the inherited _match_prefix/_publish_prefix/
+        # _free_ca run verbatim
+        from perceiver_io_tpu_torch.serving.prefix import PrefixIndex
+
+        self.prefix_index = PrefixIndex(ps)
+        self._state = None  # no device state: _retire_state is a no-op
+
+        import types as _types
+
+        self._gen_config = _types.SimpleNamespace(eos_token_id=None)
+        self._slots: List[Optional[_EngineSlot]] = [None] * ec.slots
+        self._engine_steps = 0
+        self._fill_sum = 0
+        self.served_tokens: Dict[int, List[int]] = {}
+        # per-tenant per-token service samples (exact per-step dt, keyed by
+        # the slot's tenant) — the per-tenant TPOT percentile source
+        self.tenant_tpot: Dict[str, List[float]] = {}
+        r = self.registry
+        self._m_tokens = r.counter("generate_tokens_out_total")
+        self._m_requests = r.counter("generate_requests_total")
+        self._m_ttft = r.histogram("generate_ttft_s")
+        self._m_tpot = r.histogram("generate_tpot_s")
+        self._m_queue_wait = r.histogram("generate_queue_wait_s")
+        self._m_fill = r.gauge("engine_batch_fill_frac")
+        self._m_pages = r.gauge("engine_kv_pages_used")
+        self._m_pages_frac = r.gauge("engine_kv_pages_frac")
+        self._m_evictions = r.counter("serve_evictions_total")
+        self._m_resumes = r.counter("serve_resumes_total")
+        self._m_recovered = r.counter("serve_recovered_total")
+        self._m_parked = r.gauge("serve_parked_depth")
+        self._m_prefix_hits = r.counter("serve_prefix_hits_total")
+        self._m_prefix_pages = r.counter("serve_prefix_pages_shared")
+        self._n_prefix_hits = 0
+        self._n_prefix_pages_shared = 0
+        self._tenant_pages: Dict[str, int] = {}
+        self._admission_checks.append(self._page_fit_check)
+
+    # -- virtual time --------------------------------------------------------
+
+    def _now_s(self) -> float:
+        # service timing reads the ManualClock: sampled service times ARE
+        # the timeline (the real engine reads wall perf_counter here)
+        return float(self._clock())
+
+    def _serving_device(self, model, device) -> None:
+        """The simulation serves on no device."""
+        return None
+
+    def _check_recover_geometry(self) -> None:
+        """No model, so no window to slide: recovery replays as it may."""
+
+    def _retire_state(self, slot: int) -> None:
+        """The device half of a retire or an eviction: the simulation holds
+        no device state."""
+
+    def _latency_factor(self) -> float:
+        """The brownout multiplier in force for this replica (the fleet:
+        ``FaultInjector.brownout_replica`` degrades a named replica's
+        service times without taking it out of the fleet)."""
+        if self._injector is None:
+            return 1.0
+        factor = getattr(self._injector, "latency_factor", None)
+        return 1.0 if factor is None else float(factor(self.replica_id))
+
+    # -- join / step / resume, virtual-time editions -------------------------
+
+    def _try_join(self, ticket, slot_id: int) -> bool:
+        rec = ticket.record
+        ca_tokens, sa_tokens = self._grant_tokens(rec.prompt_len, rec.max_new_tokens)
+        matched = self._match_prefix(ticket)
+        ca_grant = (
+            self.ca_alloc.alloc_tokens_shared(ca_tokens, matched)
+            if matched
+            else self.ca_alloc.alloc_tokens(ca_tokens)
+        )
+        if ca_grant is None:
+            return False
+        sa_grant = self.sa_alloc.alloc_tokens(sa_tokens)
+        if sa_grant is None:
+            self._free_ca(ca_grant)
+            return False
+        self._queue.remove(ticket)
+        self._set_queue_gauge()
+        now = float(self._clock())
+        rec.queue_wait_s = round(max(now - ticket.arrival_s, 0.0), 6)
+        self._m_queue_wait.record(rec.queue_wait_s)
+        slot = _EngineSlot(ticket=ticket, slot_id=slot_id,
+                           ca_grant=ca_grant, sa_grant=sa_grant)
+        slot.t_joined = self._now_s()
+        self._tenant_pages_delta(rec, ca_grant.n_pages + sa_grant.n_pages)
+        if self.events is not None and self._tracer is not None:
+            from perceiver_io_tpu_torch.obs.trace import Span
+
+            attrs = {"request_id": slot.request_id}
+            if rec.tenant is not None:
+                attrs["tenant"] = rec.tenant
+            slot.span = Span(name="request", parent_id=None, attrs=attrs)
+        # the sampled prefill IS the service: it advances the timeline. A
+        # matched join is charged only the UNMATCHED token fraction — the
+        # real shared prefill skips exactly the matched pages' embed +
+        # CA k/v compute, so its service span shrinks proportionally
+        ttft = self.service_model.sample_prefill(self._rng) * self._latency_factor()
+        if matched:
+            skip = len(matched) * self.engine_config.page_size
+            ttft *= (rec.prompt_len - skip) / rec.prompt_len
+        self.clock.advance(ttft)
+        slot.ttft_s = ttft
+        rec.attempts += 1
+        slot.tokens_out = 1
+        self.served_tokens[rec.index] = [0]
+        if self.journal is not None:
+            self.journal.append("progress", rec.index, tokens=[0])
+        self._slots[slot_id] = slot
+        self._in_flight += 1
+        # the engine's deferred publish: the index answers what an eager
+        # insert's would (serving.prefix)
+        self._publish_prefix(ticket, ca_grant, defer=True)
+        if matched:
+            self._book_prefix_hit(slot, len(matched))
+        self._m_ttft.record(ttft)
+        self._token_seam(slot, 0)
+        return True
+
+    def _engine_step(self) -> None:
+        self._sweep_terminal()
+        active = self._active_ids()
+        if not active:
+            return
+        # one batched decode step: lockstep, so the step's wall is the MAX
+        # over the active slots' sampled per-token times — the slowest slot
+        # gates the batch, the interference the noisy-neighbor scenario
+        # measures
+        factor = self._latency_factor()
+        per = {sid: self.service_model.sample_tpot(self._rng) * factor
+               for sid in active}
+        dt = max(per.values())
+        self.clock.advance(dt)
+        self._engine_steps += 1
+        self._fill_sum += len(active)
+        batch_size = len(active)
+        for slot_id in active:
+            slot = self._slots[slot_id]
+            rec = slot.ticket.record
+            slot.tokens_out += 1
+            self.served_tokens[rec.index].append(0)
+            slot.step_times.append(dt)
+            slot.step_buckets.append(bucket_index(dt))
+            slot.batch_sizes.append(batch_size)
+            self._m_tpot.record(dt)
+            if rec.tenant is not None:
+                self.tenant_tpot.setdefault(rec.tenant, []).append(dt)
+            if self.journal is not None:
+                self.journal.append("progress", rec.index, tokens=[0])
+            self._token_seam(slot, slot.tokens_out - 1)
+            if slot.outcome is not None:
+                self._retire_slot(slot_id, slot.outcome)
+            elif slot.tokens_out >= rec.max_new_tokens:
+                self._retire_slot(slot_id, "ok")
+        self._update_gauges()
+
+    def _try_resume(self, slot, slot_id: int) -> bool:
+        rec = slot.ticket.record
+        ca_tokens, sa_tokens = self._grant_tokens(rec.prompt_len, rec.max_new_tokens)
+        ca_grant = self.ca_alloc.alloc_tokens(ca_tokens)
+        if ca_grant is None:
+            return False
+        sa_grant = self.sa_alloc.alloc_tokens(sa_tokens)
+        if sa_grant is None:
+            self._free_ca(ca_grant)
+            return False
+        slot.ca_grant, slot.sa_grant = ca_grant, sa_grant
+        self._tenant_pages_delta(rec, ca_grant.n_pages + sa_grant.n_pages)
+        if self.events is not None and self._tracer is not None:
+            from perceiver_io_tpu_torch.obs.trace import Span
+
+            attrs = {"request_id": slot.request_id}
+            if rec.tenant is not None:
+                attrs["tenant"] = rec.tenant
+            slot.span = Span(name="request", parent_id=None, attrs=attrs)
+        # resume replay costs one prefill-shaped service span (prompt +
+        # served prefix), exactly the real engine's replay structure
+        self.clock.advance(
+            self.service_model.sample_prefill(self._rng) * self._latency_factor()
+        )
+        rec.attempts += 1
+        n = slot.tokens_out
+        slot.tokens_out = n + 1
+        slot.slot_id = slot_id
+        self.served_tokens[rec.index].append(0)
+        self._slots[slot_id] = slot
+        self._in_flight += 1
+        # a resumed request's replayed context is resident again — publish
+        # it now, exactly like the real engine's resume path
+        self._publish_prefix(slot.ticket, ca_grant, defer=False)
+        self._n_resumes += 1
+        self._m_resumes.inc()
+        if self.journal is not None:
+            self.journal.append("resume", rec.index, tokens_out=n)
+            self.journal.append("progress", rec.index, tokens=[0])
+        if self.events is not None:
+            row = dict(request_index=rec.index, tokens_out=n)
+            if rec.tenant is not None:
+                row["tenant"] = rec.tenant
+            if slot.span is not None:
+                row["span_id"] = slot.span.span_id
+            self.events.emit("serve.resume", **row)
+        self._token_seam(slot, slot.tokens_out - 1)
+        return True
+
+
+# ---------------------------------------------------------------------------
+# the simulated run: drive + summarize
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SimReport:
+    """:func:`run_sim`'s result: the artifact-body summary, the front end
+    (books/records still inspectable) and the clock's final timeline."""
+
+    summary: Dict
+    frontend: SimEngineFrontEnd
+    duration_s: float
+
+
+def _pct(vals: List[float]) -> Optional[Dict]:
+    from perceiver_io_tpu_torch.obs.loadgen import _pct_block
+
+    return _pct_block(vals)
+
+
+def summarize_sim(
+    fe: SimEngineFrontEnd, tenants: List[TenantSpec], duration_s: float
+) -> Dict:
+    """The ``SIM_r*.json`` summary body: topline achieved/offered rates,
+    Jain's fairness over per-tenant achieved/offered shares, max
+    starvation age (the worst queue wait any admitted request ate), churn
+    odometers, the books, and one full per-tenant block each."""
+    duration_s = max(float(duration_s), 1e-9)
+    books = fe.books()
+    records = fe.records
+    offered_rps = sum(t.rate_rps for t in tenants)
+    terminal = [r for r in records if r.outcome is not None]
+    served = [r for r in terminal if r.outcome != "shed"]
+    starve = [r.queue_wait_s for r in served if r.queue_wait_s is not None]
+    per_tenant: Dict[str, Dict] = {}
+    shares: List[float] = []
+    for t in tenants:
+        trecs = [r for r in records if r.tenant == t.name]
+        tterm = [r for r in trecs if r.outcome is not None]
+        tok = [r for r in tterm if r.outcome == "ok"]
+        tshed = [r for r in tterm if r.outcome == "shed"]
+        ttimeout = [r for r in tterm if r.outcome == "timeout"]
+        achieved = len(tok) / duration_s
+        # the fairness share is demand-normalized: what fraction of ITS
+        # OWN offered rate each tenant achieved — heterogeneous rates stay
+        # comparable, and a flooding tenant cannot look "fair" by volume
+        shares.append(achieved / t.rate_rps)
+        block: Dict = {
+            "offered_rps": round(t.rate_rps, 6),
+            "achieved_rps": round(achieved, 6),
+            "n_requests": len(trecs),
+            "ok": len(tok),
+            "ok_rate": round(len(tok) / max(len(trecs), 1), 6),
+            "shed": len(tshed),
+            "shed_rate": round(len(tshed) / max(len(trecs), 1), 6),
+            "timeout": len(ttimeout),
+            "timeout_rate": round(len(ttimeout) / max(len(trecs), 1), 6),
+            "tokens_out": sum(r.tokens_out for r in tok),
+            "pages_held_peak": fe.registry.gauge("engine_kv_pages_used")
+            .labels(tenant=t.name).peak,
+        }
+        ttfts = [float(r.ttft_s) for r in tok if r.ttft_s is not None]
+        if ttfts:
+            block["ttft_s"] = _pct(ttfts)
+        qws = [float(r.queue_wait_s) for r in tok if r.queue_wait_s is not None]
+        if qws:
+            block["queue_wait_s"] = _pct(qws)
+        tpots = fe.tenant_tpot.get(t.name, [])
+        if tpots:
+            block["tpot_s"] = _pct(tpots)
+        per_tenant[t.name] = block
+    summary: Dict = {
+        "mode": "sim",
+        "n_requests": len(records),
+        "n_tenants": len(tenants),
+        "duration_s": round(duration_s, 6),
+        "offered_rps": round(offered_rps, 6),
+        "achieved_rps": round(sum(1 for r in terminal if r.outcome == "ok") / duration_s, 6),
+        "shed_rate": round(books["shed"] / max(len(records), 1), 6),
+        "error_rate": round(books["error"] / max(books["admitted"], 1), 6),
+        "fairness_jain": round(jain_fairness(shares), 6),
+        "max_starvation_age_s": round(max(starve), 6) if starve else 0.0,
+        "evictions": books["evictions"],
+        "resumes": books["resumes"],
+        "tokens_out": sum(r.tokens_out for r in terminal),
+        "mean_batch_fill": round(fe.mean_batch_fill, 6),
+        "books": books,
+        "books_balanced": books["balanced"],
+        "tenants": per_tenant,
+    }
+    # only stamped when sharing actually happened, so SIM documents
+    # without sharing stay byte-identical
+    if fe._n_prefix_hits:
+        summary["prefix_hits"] = fe._n_prefix_hits
+        summary["prefix_pages_shared"] = fe._n_prefix_pages_shared
+    ttfts = [float(r.ttft_s) for r in served if r.ttft_s is not None]
+    if ttfts:
+        summary["ttft_s"] = _pct(ttfts)
+    qws = [float(r.queue_wait_s) for r in served if r.queue_wait_s is not None]
+    if qws:
+        summary["queue_wait_s"] = _pct(qws)
+    hist = fe.registry.histogram("generate_tpot_s")
+    if hist.n:
+        tpot = {f"p{p}": round(hist.percentile(p), 6) for p in (50, 90, 99)}
+        tpot["n"] = hist.n
+        summary["tpot_s"] = tpot
+    return summary
+
+
+def run_sim(
+    tenants: List[TenantSpec],
+    *,
+    service_model: ServiceTimeModel,
+    engine_config: Optional[EngineConfig] = None,
+    config=None,
+    events=None,
+    registry=None,
+    journal=None,
+    seed: int = 1,
+    vocab_size: int = 64,
+    deadline_s: Optional[float] = None,
+    clock: Optional[ManualClock] = None,
+) -> SimReport:
+    """Drive the merged multi-tenant workload through a
+    :class:`SimEngineFrontEnd` open-loop (the REAL ``run_open`` discrete-
+    event loop) and summarize. Fully deterministic for fixed seeds: the
+    workload, the arrival schedules and every sampled service time come
+    from seeded generators over the ManualClock — a run diffs against
+    itself byte-identically. Emits one ``sim.summary`` event."""
+    fe = SimEngineFrontEnd(
+        service_model=service_model, engine_config=engine_config, clock=clock,
+        seed=seed, config=config, events=events, registry=registry,
+        journal=journal,
+    )
+    specs, offsets = build_multi_tenant_workload(tenants, vocab_size=vocab_size)
+    t0 = float(fe.clock())
+    fe.run_open(specs, offsets=offsets, deadline_s=deadline_s)
+    duration_s = float(fe.clock()) - t0
+    summary = summarize_sim(fe, tenants, duration_s)
+    if events is not None:
+        events.emit("sim.summary", **{
+            k: summary[k] for k in (
+                "n_requests", "n_tenants", "offered_rps", "achieved_rps",
+                "fairness_jain", "max_starvation_age_s", "duration_s",
+                "shed_rate", "evictions", "books_balanced",
+            )
+        })
+        fe.registry.maybe_emit(events, min_interval_s=0.0)
+    return SimReport(summary=summary, frontend=fe, duration_s=duration_s)
+
+
+# ---------------------------------------------------------------------------
+# the fleet-scale discrete-event simulation
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FleetSimReport:
+    """:func:`run_fleet_sim`'s result: the fleet summary, the router (fleet
+    books/health inspectable), the per-replica front ends, and the fleet
+    timeline (the latest replica clock)."""
+
+    summary: Dict
+    router: object
+    frontends: List[SimEngineFrontEnd]
+    duration_s: float
+
+
+def summarize_fleet_sim(router, tenants: List[TenantSpec],
+                        duration_s: float) -> Dict:
+    """The fleet-sim summary: topline achieved/offered rates and token
+    throughput across every replica, demand-normalized Jain fairness, max
+    starvation age, the FLEET books identity (``FleetRouter.books``), and
+    one per-replica block each (state, terminals, step EWMA)."""
+    duration_s = max(float(duration_s), 1e-9)
+    books = router.books()
+    with router._lock:
+        handles = list(router._replicas.values())
+    records = [r for h in handles for r in h.frontend.records]
+    terminal = [r for r in records if r.outcome is not None]
+    ok = [r for r in terminal if r.outcome == "ok"]
+    starve = [float(r.queue_wait_s) for r in ok if r.queue_wait_s is not None]
+    offered_rps = sum(t.rate_rps for t in tenants)
+    shares = []
+    per_tenant: Dict[str, Dict] = {}
+    for t in tenants:
+        tok = [r for r in ok if r.tenant == t.name]
+        achieved = len(tok) / duration_s
+        shares.append(achieved / t.rate_rps)
+        per_tenant[t.name] = {
+            "offered_rps": round(t.rate_rps, 6),
+            "achieved_rps": round(achieved, 6),
+            "ok": len(tok),
+            "tokens_out": sum(r.tokens_out for r in tok),
+        }
+    per_replica: Dict[str, Dict] = {}
+    for h in handles:
+        b = books["replicas"][h.replica_id]
+        per_replica[h.replica_id] = {
+            "state": h.state,
+            "degraded": h.degraded,
+            "steps": h.steps,
+            "ewma_step_s": h.ewma_step_s,
+            "submitted": b["submitted"],
+            "terminal": b["terminal"],
+            "ok": b["ok"],
+            "shed": b["shed"],
+        }
+    # distinct workload requests = dispatches minus the shed re-dispatch
+    # retries (each retry re-submits the SAME index to another replica)
+    n_requests = books["dispatched"] - books["requeued"]
+    return {
+        "mode": "fleet_sim",
+        "n_replicas": len(handles),
+        "n_requests": n_requests,
+        "n_tenants": len(tenants),
+        "duration_s": round(duration_s, 6),
+        "offered_rps": round(offered_rps, 6),
+        "achieved_rps": round(len(ok) / duration_s, 6),
+        "throughput_tok_s": round(sum(r.tokens_out for r in ok) / duration_s, 6),
+        "shed_rate": round(books["outcomes"]["shed"] / max(n_requests, 1), 6),
+        "fairness_jain": round(jain_fairness(shares), 6),
+        "max_starvation_age_s": round(max(starve), 6) if starve else 0.0,
+        "evictions": sum(b["evictions"] for b in books["replicas"].values()),
+        "failovers": books["failovers"],
+        "requeued": books["requeued"],
+        "tokens_out": sum(r.tokens_out for r in ok),
+        "books": {k: v for k, v in books.items() if k != "replicas"},
+        "books_balanced": books["balanced"],
+        "tenants": per_tenant,
+        "replicas": per_replica,
+    }
+
+
+def run_fleet_sim(
+    tenants: List[TenantSpec],
+    *,
+    n_replicas: int,
+    service_model: ServiceTimeModel,
+    engine_config: Optional[EngineConfig] = None,
+    config=None,
+    events=None,
+    registry=None,
+    seed: int = 1,
+    vocab_size: int = 64,
+    deadline_s: Optional[float] = None,
+    injector=None,
+    fleet_config=None,
+    journal_dir: Optional[str] = None,
+) -> FleetSimReport:
+    """Drive the merged multi-tenant workload through a
+    :class:`~perceiver_io_tpu_torch.serving.router.FleetRouter` over
+    ``n_replicas`` :class:`SimEngineFrontEnd` replicas, each on its OWN
+    :class:`ManualClock` — a discrete-event fleet where replica timelines
+    advance independently, exactly like N processes on N hosts. The drive
+    is next-event: arrivals are admitted once the earliest live replica
+    clock reaches their offset, and the earliest-clock replica with work
+    takes the next step (causality — a replica never serves a request
+    "before" another replica's past). The fleet duration is the LATEST
+    replica clock, so throughput honestly reflects parallel service.
+    ``journal_dir`` gives each replica a write-ahead journal
+    (required for kill/failover runs); ``injector`` feeds both the
+    router's replica-kill coordinates and the replicas' brownouts."""
+    from collections import deque as _deque
+
+    from perceiver_io_tpu_torch.serving.journal import RequestJournal
+    from perceiver_io_tpu_torch.serving.router import FleetConfig, FleetRouter
+
+    if int(n_replicas) < 1:
+        raise ValueError("run_fleet_sim needs n_replicas >= 1")
+    clocks = [ManualClock() for _ in range(int(n_replicas))]
+
+    def fleet_now() -> float:
+        # the router's fleet clock: the latest replica timeline (monotonic
+        # — each ManualClock only moves forward)
+        return max(c.now for c in clocks)
+
+    router = FleetRouter(
+        clock=fleet_now, events=events, registry=registry,
+        config=fleet_config or FleetConfig(), injector=injector,
+    )
+    fes: List[SimEngineFrontEnd] = []
+    for i, clk in enumerate(clocks):
+        rid = f"r{i}"
+        journal = None
+        if journal_dir is not None:
+            import os
+
+            journal = RequestJournal(
+                os.path.join(journal_dir, f"journal-{rid}.jsonl")
+            )
+        fe = SimEngineFrontEnd(
+            service_model=service_model, engine_config=engine_config,
+            clock=clk, seed=seed + i, config=config, events=events,
+            registry=registry, journal=journal, injector=injector,
+            replica_id=rid,
+        )
+        fes.append(fe)
+        router.add_replica(rid, fe)
+
+    specs, offsets = build_multi_tenant_workload(tenants, vocab_size=vocab_size)
+    pending = _deque(zip(specs, offsets))
+    while True:
+        router.check_replicas()
+        live = router._steppable()
+        if not live:
+            break
+        workers = [r for r in live if router._has_work(r.frontend)]
+        frontier = min(float(r.frontend._clock())
+                       for r in (workers or live))
+        while pending and pending[0][1] <= frontier:
+            spec, off = pending.popleft()
+            router.submit(spec, arrival_s=off, deadline_s=deadline_s)
+        workers = [r for r in live if router._has_work(r.frontend)]
+        if not workers:
+            if not pending:
+                break
+            # idle fleet: jump every timeline to the next arrival
+            off = pending[0][1]
+            for c in clocks:
+                c.advance_to(off)
+            continue
+        # causality: the earliest-clock replica with work takes the step
+        rep = min(workers,
+                  key=lambda r: (float(r.frontend._clock()), r.replica_id))
+        router.step(rep.replica_id)
+    duration_s = fleet_now()
+    summary = summarize_fleet_sim(router, tenants, duration_s)
+    if events is not None:
+        events.emit("sim.summary", **{
+            k: summary[k] for k in (
+                "n_requests", "n_tenants", "offered_rps", "achieved_rps",
+                "fairness_jain", "max_starvation_age_s", "duration_s",
+                "shed_rate", "evictions", "books_balanced",
+            )
+        })
+        router.registry.maybe_emit(events, min_interval_s=0.0)
+    return FleetSimReport(summary=summary, router=router, frontends=fes,
+                          duration_s=duration_s)
+
+
+# ---------------------------------------------------------------------------
+# SIM_r*.json artifacts: build, extract, diff (the diff_load discipline)
+# ---------------------------------------------------------------------------
+
+SIM_SCHEMA_VERSION = 1
+
+# metric -> (better direction, tolerance kind, default tolerance); the
+# diffable surface of a SIM_r*.json summary. A simulated run is seeded and
+# wall-clock-free, so the defaults are TIGHTER than LOAD's: residual drift
+# comes only from code changes, which is exactly what the diff is for.
+SIM_METRICS: Dict[str, tuple] = {
+    "achieved_rps": ("higher", "rel", 0.05),
+    "fairness_jain": ("higher", "abs", 0.05),
+    "max_starvation_age_s": ("lower", "rel", 0.25),
+    "shed_rate": ("lower", "abs", 0.02),
+    "error_rate": ("lower", "abs", 0.0),
+    "ttft_s_p50": ("lower", "rel", 0.05),
+    "ttft_s_p99": ("lower", "rel", 0.10),
+    "tpot_s_p50": ("lower", "rel", 0.05),
+    "tpot_s_p99": ("lower", "rel", 0.10),
+    "queue_wait_s_p50": ("lower", "rel", 0.25),
+    "queue_wait_s_p99": ("lower", "rel", 0.25),
+}
+
+
+def build_sim_doc(
+    n_round: int,
+    summary: Dict,
+    tenants: List[TenantSpec],
+    service_model: ServiceTimeModel,
+    engine_config: EngineConfig,
+    extra: Optional[Dict] = None,
+) -> Dict:
+    """The committed ``SIM_r<n>.json`` body. The comparability identity is
+    the workload (tenant specs), the service model fit (source artifact +
+    parameters) and the engine geometry — there is no device manifest: the
+    run never touches a device, which is the point."""
+    from dataclasses import asdict
+
+    doc = {
+        "n": int(n_round),
+        "schema_version": SIM_SCHEMA_VERSION,
+        "mode": "sim",
+        "workload": {
+            "tenants": [t.to_dict() for t in tenants],
+            "n_requests": summary["n_requests"],
+            "offered_rps": summary["offered_rps"],
+        },
+        "service_model": service_model.to_dict(),
+        "engine_config": asdict(engine_config),
+        "summary": summary,
+    }
+    if extra:
+        doc.update(extra)
+    return doc
+
+
+def sim_doc_metrics(doc: Dict) -> Dict[str, float]:
+    """The diffable flat metrics of one SIM doc."""
+    s = doc.get("summary", {}) or {}
+    out: Dict[str, float] = {}
+    for key in (
+        "achieved_rps", "fairness_jain", "max_starvation_age_s",
+        "shed_rate", "error_rate",
+    ):
+        if isinstance(s.get(key), (int, float)):
+            out[key] = float(s[key])
+    for fam in ("ttft_s", "tpot_s", "queue_wait_s"):
+        block = s.get(fam) or {}
+        for p in ("p50", "p99"):
+            if isinstance(block.get(p), (int, float)):
+                out[f"{fam}_{p}"] = float(block[p])
+    return out
+
+
+def sim_comparability_problems(old: Dict, new: Dict) -> List[str]:
+    """Identity mismatches that make two SIM artifacts incomparable (exit
+    2, never a regression): different tenant mix, a service model fitted
+    from a different artifact or with different parameters, or different
+    engine geometry."""
+    problems = []
+    for key in ("mode", "schema_version"):
+        if old.get(key) != new.get(key):
+            problems.append(f"{key}: {old.get(key)!r} != {new.get(key)!r}")
+    ow, nw = old.get("workload", {}) or {}, new.get("workload", {}) or {}
+    for key in ("tenants", "n_requests"):
+        if ow.get(key) != nw.get(key):
+            problems.append(f"workload.{key}: {ow.get(key)!r} != {nw.get(key)!r}")
+    for key in ("service_model", "engine_config"):
+        if old.get(key) != new.get(key):
+            problems.append(f"{key}: {old.get(key)!r} != {new.get(key)!r}")
+    return problems
+
+
+def diff_sim(
+    old: Dict, new: Dict, tolerances: Optional[Dict[str, float]] = None
+) -> Dict:
+    """Classify every shared SIM metric under :data:`SIM_METRICS`
+    tolerances — ``diff_load``'s discipline on SIM artifacts. Returns
+    ``{comparable, reason, ok, deltas}``."""
+    problems = sim_comparability_problems(old, new)
+    if problems:
+        return {"comparable": False, "reason": "; ".join(problems),
+                "ok": False, "deltas": []}
+    tolerances = tolerances or {}
+    old_m, new_m = sim_doc_metrics(old), sim_doc_metrics(new)
+    if not old_m or not new_m:
+        return {"comparable": False, "reason": "no metrics in one of the artifacts",
+                "ok": False, "deltas": []}
+    deltas = []
+    for metric, (direction, tol_kind, tol_default) in SIM_METRICS.items():
+        o, n = old_m.get(metric), new_m.get(metric)
+        if o is None and n is None:
+            continue
+        if o is None or n is None:
+            deltas.append({"metric": metric, "kind": "neutral", "old": o, "new": n,
+                           "detail": "present in only one artifact"})
+            continue
+        tol = float(tolerances.get(metric, tol_default))
+        margin = tol * abs(o) if tol_kind == "rel" else tol
+        worse = (o - n) if direction == "higher" else (n - o)
+        kind = "regression" if worse > margin else (
+            "improvement" if -worse > margin else "neutral"
+        )
+        detail = f"{(n - o) / o * 100:+.1f}%" if o else f"{n - o:+.4g}"
+        deltas.append({"metric": metric, "kind": kind, "old": o, "new": n,
+                       "detail": detail})
+    ok = not any(d["kind"] == "regression" for d in deltas)
+    return {"comparable": True, "reason": "", "ok": ok, "deltas": deltas}
+
+
+def format_sim_diff(diff: Dict) -> str:
+    if not diff["comparable"]:
+        return f"sim_diff: NOT COMPARABLE — {diff['reason']}"
+    kinds = {"regression": 0, "improvement": 0, "neutral": 0}
+    for d in diff["deltas"]:
+        kinds[d["kind"]] += 1
+    lines = [
+        f"sim_diff: {kinds['regression']} regression(s), "
+        f"{kinds['improvement']} improvement(s), {kinds['neutral']} neutral"
+    ]
+    order = {"regression": 0, "improvement": 1, "neutral": 2}
+    for d in sorted(diff["deltas"], key=lambda d: (order[d["kind"]], d["metric"])):
+        old = "-" if d["old"] is None else f"{d['old']:.6g}"
+        new = "-" if d["new"] is None else f"{d['new']:.6g}"
+        note = f"  ({d['detail']})" if d.get("detail") else ""
+        lines.append(f"  [{d['kind']:<11}] {d['metric']}: {old} -> {new}{note}")
+    return "\n".join(lines)

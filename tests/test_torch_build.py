@@ -43,3 +43,20 @@ def test_cached_library_keeps_its_build_log(tmp_path, monkeypatch):
     build.build_all(["paged_decode"])
     assert build.BUILD_LOGS["paged_decode"] == first
     assert len((tmp_path / "nvcc.calls").read_text().splitlines()) == 2
+
+
+def test_launches_are_counted_by_kv_rows_where_the_wrapper_passes_them(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(build, "LAUNCHES", dict(build.LAUNCHES))
+    monkeypatch.setattr(build, "LAUNCHES_BY_KV", {})
+    build.count_launch("flash_packed_fwd", torch.bfloat16, kv_rows=2304)
+    build.count_launch("flash_packed_fwd", torch.bfloat16, kv_rows=512)
+    build.count_launch("flash_packed_fwd", torch.bfloat16, kv_rows=512)
+    build.count_launch("flash_packed_bwd_dq", torch.float32, kv_rows=512)
+    build.count_launch("layer_norm_fwd", torch.bfloat16)
+    assert build.LAUNCHES["flash_packed_fwd_bf16"] == 3 and build.LAUNCHES["flash_packed_bwd_dq"] == 1
+    assert build.LAUNCHES_BY_KV == {("flash_packed_fwd_bf16", 2304): 1, ("flash_packed_fwd_bf16", 512): 2,
+                                    ("flash_packed_bwd_dq", 512): 1}
+    build.reset_launches()
+    assert build.LAUNCHES_BY_KV == {} and not any(build.LAUNCHES.values())

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``perceiver_io_tpu_torch``
-and ``chip_smoke.py`` loads neither JAX, Flax nor the JAX package; and
-``chip_smoke.py`` refuses to run (non-zero exit, no result line) without a
-CUDA device."""
+and ``chip_smoke.py`` loads neither JAX, Flax, HF ``datasets`` nor the JAX
+package; and ``chip_smoke.py`` refuses to run (non-zero exit, no result
+line) without a CUDA device."""
 
 import os
 import shutil
@@ -21,8 +21,9 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+# HF datasets is imported where a dataset loads, never at import: the card's machine has none
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax") or m.split(".")[0] == "perceiver_io_tpu")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "datasets") or m.split(".")[0] == "perceiver_io_tpu")
 print(len(names), bad)
 print(" ".join(names))
 """
@@ -58,7 +59,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.audio", "models.audio.symbolic", "data.audio.midi", "data.audio.symbolic",
                  "data.vision.mnist", "hf", "hf.auto", "hf.convert", "hf.lightning_ckpt", "hf.pipelines",
                  "scripts", "scripts.cli", "scripts.audio.symbolic", "scripts.audio.preproc",
-                 "scripts.vision.image_classifier", "scripts.timeseries"):
+                 "scripts.vision.image_classifier", "scripts.timeseries",
+                 # text data on HF datasets and streaming C4, the text CLIs, the fleet router, the
+                 # simulator and the scaling-law fit (ROADMAP A13, part 3)
+                 "data.text.preprocessor", "data.text.streaming", "data.text.c4", "scripts.text",
+                 "scripts.text.common", "scripts.text.clm", "scripts.text.mlm", "scripts.text.classifier",
+                 "scripts.text.preproc", "serving.router", "serving.sim", "utils.laws"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 
