@@ -332,6 +332,29 @@ bf16 join the kernel parity cases at the text CLM's train shapes
 latents; ``text_clm_sa_bf16``: 512²; 8 heads of 64, batch 8), each with its
 launches a step as text_clm_cli_fit_bf16 counted them.
 
+Training across processes (ROADMAP A12, part 1), last (``a12_phases``): the
+card holds one process, so the group is NCCL at world size 1. dist_nccl
+(``parallel.make_mesh`` starts the NCCL group itself; its backend, world
+size and mesh; one all-reduce on the card); fsdp_clm_bf16 (the flagship in
+bf16 with dropout off at batch 2, ``DIST_STEPS`` eager train steps under
+``shard_train_state`` on a (data 1, fsdp 1) mesh against the same steps
+unsharded from a copy of the same weights: losses and parameters within
+``DIST_LOSS_RTOL`` / ``DIST_PARAM_ATOL``, the distances printed; peak
+memory; K1, K2, K4a, K4b and K5 bf16 launches exactly ``DIST_PER_STEP`` a
+step; then ``DIST_TIMED_STEPS`` steps of each kind interleaved for the step
+times); ring_clm_bf16 (``make_ring_clm_loss`` on a (seq 1) mesh on the
+same model and batch, deterministic: its loss and gradient against the dense
+``clm_loss_fn``'s, each held to ``RING_RULE``: the ring's distance from the
+f32 dense evaluation at most 1.5 times the dense bf16 one's plus a slack;
+then ``RING_STEPS`` train steps through ``make_train_step`` on the sharded
+state, their ms and peak, K2/K4a/K4b bf16 8 and K1/K5 19 launches: the latent stack, the
+cross-attention's blocks being plain matmuls as in JAX); and
+text_clm_cli_fsdp_bf16 (``scripts/text/clm.py fit`` at the paper preset
+with ``--trainer.strategy=fsdp`` for ``CLI_STEPS["text_clm_fsdp"]`` steps,
+its checkpoint resumed on the same mesh for 2 more, then
+``--trainer.strategy=ring`` for ``CLI_STEPS["text_clm_ring"]``: finite
+losses, the kernels launched).
+
 The last three lines of standard output are the ``graph_nodes`` JSON line
 (each captured graph's kernel nodes and launches), the ``kernels`` JSON line
 and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -347,6 +370,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import time
@@ -653,6 +677,27 @@ FLEET_LEAK_BYTES = 64 << 20
 # sharing a preamble shorter than its shortest prompt; the fleet run at
 # twice the rates over two replicas
 SIM_REQUESTS, SIM_RATE_SHARES, SIM_SHARED_PREFIX = (1200, 300), (0.5, 0.25), 1024
+# training across processes (ROADMAP A12, part 1): the flagship in bf16 with
+# dropout off at batch 2, 3 eager steps sharded and unsharded; each step one
+# CA and 8 SA layers through K2/K4a/K4b and 19 LayerNorms through K1/K5; the
+# ring step's CA blocks are plain matmuls (JAX's einsums), so 8 of each
+DIST_BATCH, DIST_STEPS = 2, 3
+# after them, DIST_TIMED_STEPS steps of each kind, interleaved, for the step
+# times (one warm step each first); RING_STEPS train steps of the ring loss
+DIST_TIMED_STEPS, RING_STEPS = 10, 3
+DIST_PER_STEP = {"flash_packed_fwd": 9, "flash_packed_bwd_dkv": 9, "flash_packed_bwd_dq": 9, "layer_norm_fwd": 19,
+                 "layer_norm_bwd": 19}
+RING_PER_STEP = dict(DIST_PER_STEP, flash_packed_fwd=8, flash_packed_bwd_dkv=8, flash_packed_bwd_dq=8)
+# one process: FSDP's gather and reduce are copies, so the sharded steps
+# differ from the unsharded only by the clip's norm (its squares summed in
+# f64 across the shard group)
+DIST_LOSS_RTOL, DIST_PARAM_ATOL = 1e-5, 1e-5
+# ring_clm_bf16: the ring's loss and gradient no further from the f32 dense
+# evaluation than RING_RULE[0] times the dense bf16 route's, plus RING_RULE[1]
+# of the f32 value's size (the ring rounds p to bf16 once, JAX's einsum law;
+# K2 bf16 keeps it in two bf16 parts)
+RING_RULE = (1.5, 1e-3)
+CLI_STEPS.update(text_clm_fsdp=20, text_clm_ring=3)
 
 
 def step_launches(forward: dict) -> dict:
@@ -6249,6 +6294,269 @@ def a13_text_phases(card: str, by_phase: dict) -> None:
     free_card()
 
 
+def dist_nccl_phase(card: str):
+    """The card's process group: ``parallel.make_mesh`` starts NCCL at world
+    size 1 (no launcher) and builds the 4-axis mesh; one all-reduce on the
+    card. Returns the mesh. A group that cannot start fails the smoke."""
+    import torch.distributed as dist
+
+    from perceiver_io_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(data=1, fsdp=1, device="cuda")
+    x = torch.full((4,), 3.0, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    report = {"card": card, "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+              "mesh": mesh_shape(mesh), "mesh_device": mesh.device_type, "init_s": time.perf_counter() - t0,
+              "all_reduce": x.tolist()}
+    log("dist_nccl: " + json.dumps(report))
+    if report["backend"] != "nccl" or report["world_size"] != 1 or x.tolist() != [3.0] * 4:
+        raise SystemExit(f"dist_nccl: {report}")
+    return mesh
+
+
+def dist_model(dtype: torch.dtype):
+    from perceiver_io_tpu_torch.models.text import CausalLanguageModel, CausalLanguageModelConfig
+
+    config = CausalLanguageModelConfig(**dict(FLAGSHIP, cross_attention_dropout=0.0))
+    return CausalLanguageModel(config, device="cuda", generator=torch.Generator().manual_seed(SEED), dtype=dtype)
+
+
+def dist_batch() -> dict:
+    n = FLAGSHIP["max_seq_len"]
+    t = torch.from_numpy(np.random.default_rng(SEED).integers(0, FLAGSHIP["vocab_size"], size=(DIST_BATCH, n + 1)))
+    return {"input_ids": t[:, :-1].cuda(), "labels": t[:, 1:].cuda(), "pad_mask": None}
+
+
+def dist_steps(state, step, batch: dict, steps: int) -> dict:
+    """``steps`` eager steps: losses, ms, peak memory and launches."""
+    from perceiver_io_tpu_torch.ops import build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    build.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    return {"losses": losses, "step_ms": step_ms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "memory_before_steps_gb": base_gb, "launches": nonzero_launches()}
+
+
+def check_per_step(name: str, launches: dict, per_step: dict, steps: int) -> None:
+    """Every launch of the run a bf16 build's, exactly ``per_step`` a step."""
+    want = {k + BF16: n * steps for k, n in per_step.items()}
+    got = {k: launches.get(k, 0) for k in want}
+    extra = {k: n for k, n in launches.items() if k not in want}
+    if got != want or extra:
+        raise SystemExit(f"{name}: launches {got} (others {extra}), expected {want}")
+
+
+def fsdp_clm_bf16_phase(card: str, mesh) -> dict:
+    """The flagship bf16 train step under ``shard_train_state`` on the
+    (data 1, fsdp 1) mesh against the same steps unsharded, from copies of
+    the same weights (``dist_model``): DIST_STEPS eager steps each, AdamW
+    1e-3 with bf16 moments and a clip at 1.0 (train_bf16's optimizer), batch
+    2. Returns the sharded run's launches."""
+    from perceiver_io_tpu_torch import training as tt
+
+    batch, runs, params = dist_batch(), {}, {}
+    for kind in ("unsharded", "sharded"):
+        state = tt.TrainState.create(dist_model(torch.bfloat16), tt.make_optimizer(
+            TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16"))
+        if kind == "sharded":
+            state = tt.shard_train_state(state, mesh)
+        step = tt.make_train_step(tt.clm_loss_fn(FLAGSHIP["max_latents"]), jit=False)
+        runs[kind] = dist_steps(state, step, batch, DIST_STEPS)
+        params[kind] = [(p.full_tensor() if kind == "sharded" else p).detach().clone()
+                        for p in state.model.parameters()]
+        del state, step
+        free_card()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(runs["sharded"]["losses"], runs["unsharded"]["losses"])]
+    param_err = max(max_err(a, b) for a, b in zip(params["sharded"], params["unsharded"]))
+    report = {"card": card, "mesh": "data=1 fsdp=1 tensor=1 seq=1", "batch": DIST_BATCH, "steps": DIST_STEPS,
+              "seq_len": FLAGSHIP["max_seq_len"], "latents": FLAGSHIP["max_latents"], "loss_rel_diff": loss_rel,
+              "loss_rtol": DIST_LOSS_RTOL, "param_max_abs_diff": param_err, "param_atol": DIST_PARAM_ATOL, **runs}
+    log("fsdp_clm_bf16: " + json.dumps(report))
+    TIMES["fsdp_clm_bf16"] = {kind: {"median_step_ms": statistics.median(run["step_ms"]),
+                                     "peak_memory_gb": run["peak_memory_gb"]} for kind, run in runs.items()}
+    del params
+    if not all(map(math.isfinite, runs["sharded"]["losses"])) or not all(within(e, DIST_LOSS_RTOL) for e in loss_rel) \
+            or not within(param_err, DIST_PARAM_ATOL):
+        raise SystemExit(f"fsdp_clm_bf16: the sharded steps differ from the unsharded: {report}")
+    for kind, run in runs.items():
+        check_per_step(f"fsdp_clm_bf16 {kind}", run["launches"], DIST_PER_STEP, DIST_STEPS)
+    timed = fsdp_step_times(mesh, batch)
+    log("fsdp_clm_bf16 timed: " + json.dumps({"card": card, "step_ms": timed}))
+    for kind, ms in timed.items():
+        TIMES["fsdp_clm_bf16"][kind].update(timed_median_step_ms=statistics.median(ms), timed_min_step_ms=min(ms),
+                                            timed_max_step_ms=max(ms), timed_steps=len(ms))
+    return runs["sharded"]["launches"]
+
+
+def fsdp_step_times(mesh, batch: dict) -> dict:
+    """``{kind: [ms]}``: DIST_TIMED_STEPS eager steps of the sharded and the
+    unsharded state, interleaved (sharded, unsharded, ...) after one warm
+    step each, so the card's clocks and the allocator weigh on both alike."""
+    from perceiver_io_tpu_torch import training as tt
+
+    states, steps, ms = {}, {}, {"sharded": [], "unsharded": []}
+    for kind in ms:
+        state = tt.TrainState.create(dist_model(torch.bfloat16), tt.make_optimizer(
+            TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16"))
+        states[kind] = tt.shard_train_state(state, mesh) if kind == "sharded" else state
+        steps[kind] = tt.make_train_step(tt.clm_loss_fn(FLAGSHIP["max_latents"]), jit=False)
+        states[kind], _ = steps[kind](states[kind], batch)
+    for _ in range(DIST_TIMED_STEPS):
+        for kind in ms:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[kind], metrics = steps[kind](states[kind], batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms[kind].append(1e3 * (time.perf_counter() - t0))
+    del states, steps
+    free_card()
+    return ms
+
+
+def ring_clm_bf16_phase(card: str) -> dict:
+    """``make_ring_clm_loss`` on a (seq 1) mesh, deterministic, on
+    fsdp_clm_bf16's model and batch: its loss and gradient against the dense
+    ``clm_loss_fn``'s, both held to the f32 dense evaluation by RING_RULE;
+    then RING_STEPS train steps through ``make_train_step`` on the state
+    sharded over that mesh (their ms, peak and launches). Returns the
+    steps' launches."""
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.parallel.long_context import make_ring_clm_loss
+    from perceiver_io_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, seq=1, device="cuda")
+    batch, lat = dist_batch(), FLAGSHIP["max_latents"]
+    dense = tt.clm_loss_fn(lat, deterministic=True)
+
+    def loss_and_grad(model, loss_fn):
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, batch, None, deterministic=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), torch.cat([p.grad.float().flatten() for p in model.parameters()])
+
+    f32 = dist_model(torch.float32)
+    l32, g32 = loss_and_grad(f32, dense)
+    del f32
+    free_card()
+    model = dist_model(torch.bfloat16)
+    l_dense, g_dense = loss_and_grad(model, dense)
+    ring = make_ring_clm_loss(model, mesh, max_latents=lat)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    l_ring, g_ring = loss_and_grad(model, ring)
+    ring_ms, ring_peak = 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated() / 1e9
+    norm = float(g32.norm())
+    dist_ = {"loss": {"dense_bf16": abs(l_dense - l32), "ring_bf16": abs(l_ring - l32)},
+             "grad_rel_l2": {"dense_bf16": float((g_dense - g32).norm()) / norm,
+                             "ring_bf16": float((g_ring - g32).norm()) / norm}}
+    limits = {"loss": RING_RULE[0] * dist_["loss"]["dense_bf16"] + RING_RULE[1] * abs(l32),
+              "grad_rel_l2": RING_RULE[0] * dist_["grad_rel_l2"]["dense_bf16"] + RING_RULE[1]}
+    del g32, g_dense, g_ring
+    model.zero_grad(set_to_none=True)
+    state = tt.shard_train_state(tt.TrainState.create(model, tt.make_optimizer(
+        TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16")), mesh)
+    ring = make_ring_clm_loss(state.model, mesh, max_latents=lat)
+    step = tt.make_train_step(lambda m, b, g: ring(m, b, g, deterministic=True), jit=False)
+    run = dist_steps(state, step, batch, RING_STEPS)
+    report = {"card": card, "mesh": "data=1 fsdp=1 tensor=1 seq=1", "batch": DIST_BATCH,
+              "ca_plain_scores": [DIST_BATCH, FLAGSHIP["num_heads"], lat, FLAGSHIP["max_seq_len"] - lat],
+              "loss": {"f32": l32, "dense_bf16": l_dense, "ring_bf16": l_ring}, "distance_from_f32": dist_,
+              "limits": limits, "rule": RING_RULE, "ring_forward_backward_ms": ring_ms,
+              "ring_forward_backward_peak_gb": ring_peak, "step": run}
+    log("ring_clm_bf16: " + json.dumps(report))
+    TIMES["ring_clm_bf16"] = {"median_step_ms": statistics.median(run["step_ms"]), "step_ms": run["step_ms"],
+                              "peak_memory_gb": run["peak_memory_gb"]}
+    del state, step, model
+    free_card()
+    if not all(within(dist_[k]["ring_bf16"], limits[k]) for k in limits) or not all(map(math.isfinite,
+                                                                                       run["losses"])):
+        raise SystemExit(f"ring_clm_bf16: the ring's loss or gradient is off: {report}")
+    check_per_step("ring_clm_bf16", run["launches"], RING_PER_STEP, RING_STEPS)
+    return run["launches"]
+
+
+def docs_corpus(root: str) -> str:
+    """The repository's ``docs/*.md`` joined into one training file."""
+    import glob
+
+    train = f"{root}/docs.txt"
+    if not os.path.exists(train):
+        with open(train, "w") as out:
+            for path in sorted(glob.glob("docs/*.md")):
+                with open(path) as f:
+                    out.write(f.read() + "\n\n")
+    return train
+
+
+def text_clm_cli_fsdp_bf16_phase(card: str, root: str, by_phase: dict) -> None:
+    """``scripts/text/clm.py fit`` at the paper preset in bf16 with
+    ``--trainer.strategy=fsdp`` for CLI_STEPS["text_clm_fsdp"] steps (a
+    weights-only checkpoint at its validation), then the same run resumed
+    from it on the same mesh (``--trainer.resume=auto``) for 2 steps more,
+    then ``--trainer.strategy=ring`` for CLI_STEPS["text_clm_ring"]: each
+    with finite losses, a validation and the kernels launched."""
+    from perceiver_io_tpu_torch.parallel.mesh import mesh_shape
+    from perceiver_io_tpu_torch.scripts.text import clm
+
+    argv = ["--data.dataset=textfile", f"--data.train_file={docs_corpus(root)}", "--data.valid_file=README.md",
+            f"--data.cache_dir={root}/text_cache", "--trainer.precision=bf16", f"--trainer.default_root_dir={root}"]
+    steps = CLI_STEPS["text_clm_fsdp"]
+    kernels = tuple(k + BF16 for k in TRAIN_KERNELS)
+
+    def on_mesh(state, report):
+        shape = None if state.mesh is None else mesh_shape(state.mesh)
+        log(f"text_clm_cli mesh {json.dumps(shape)} ({report['argv'][-1]}) card={card}")
+        if shape is None:
+            raise SystemExit("text_clm_cli_fsdp_bf16: the fit ran without a mesh")
+
+    fsdp = ["--trainer.strategy=fsdp", "--trainer.name=text_clm_fsdp"]
+    by_phase["text_clm_cli_fsdp" + BF16] = cli_fit_phase(
+        card, "text_clm_cli_fsdp" + BF16, clm.main, [*argv, f"--trainer.val_interval={steps}", *fsdp], steps,
+        kernels, on_mesh)
+    rows = cli_rows(f"{root}/text_clm_fsdp")
+    cli_fit_phase(card, "text_clm_cli_fsdp_resume" + BF16, clm.main,
+                  [*argv, f"--trainer.val_interval={steps + 2}", "--trainer.resume=auto", *fsdp], steps + 2,
+                  kernels, on_mesh)
+    resumed = cli_rows(f"{root}/text_clm_fsdp")
+    if [r["train_loss"] for r in resumed if r.get("train_loss")][:steps] != \
+            [r["train_loss"] for r in rows if r.get("train_loss")]:
+        raise SystemExit("text_clm_cli_fsdp_bf16: the resumed run's log does not keep the first run's rows")
+    ring_steps = CLI_STEPS["text_clm_ring"]
+    by_phase["text_clm_cli_ring" + BF16] = cli_fit_phase(
+        card, "text_clm_cli_ring" + BF16, clm.main,
+        [*argv, f"--trainer.val_interval={ring_steps}", "--trainer.strategy=ring", "--trainer.name=text_clm_ring"],
+        ring_steps, kernels, on_mesh)
+
+
+def a12_phases(card: str, by_phase: dict) -> None:
+    """Training across processes (ROADMAP A12, part 1) on the card's
+    one-process NCCL group: dist_nccl, fsdp_clm_bf16, ring_clm_bf16 and
+    text_clm_cli_fsdp_bf16; each phase's launches into ``by_phase``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    mesh = dist_nccl_phase(card)
+    by_phase["fsdp_clm" + BF16] = fsdp_clm_bf16_phase(card, mesh)
+    by_phase["ring_clm" + BF16] = ring_clm_bf16_phase(card)
+    with tempfile.TemporaryDirectory() as root:
+        text_clm_cli_fsdp_bf16_phase(card, root, by_phase)
+    free_card()
+    log(f"a12_phases: {time.perf_counter() - t0:.1f} s card={card}")
+
+
 def kernel_name(mangled: str) -> str:
     """A mangled kernel's name and template arguments, e.g.
     ``heads_fwd_kernel<264>``, ``flash_packed_kernel<F32,64>`` (a
@@ -6602,6 +6910,9 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as root:
         sim_bf16_phase(card, root)
+    # training across processes (ROADMAP A12, part 1): the one-process NCCL
+    # group, the sharded and sequence-parallel steps, the CLI's strategies
+    a12_phases(card, by_phase)
     log("graph against eager, this run: " + json.dumps({"card": card, **TIMES}))
 
     kernels = []

@@ -356,6 +356,34 @@ class CrossAttentionLayer(_LayerOptions, nn.Sequential):
             o = o[..., : mha.v_channels]
         return AttentionOutput(self._residuals(x_q, mha.merge_output(o), res_keeps), None)
 
+    def seq_parallel(self, x_q, x_kv_prefix_local, rope_q, rope_k_prefix, mask_prefix, group) -> torch.Tensor:
+        """The causal prefix cross-attention layer with the prefix sharded
+        over ``group`` (``PerceiverAR.seq_parallel_forward``; the JAX
+        package's hand-wired block): the kv input is
+        ``[kv_norm(prefix); q_norm(latents)]`` as in ``forward``; this rank's
+        prefix block is attended without a causal mask (every prefix
+        position precedes every latent), LSE-combined across the group, and
+        merged with the replicated causal latent partial by the online
+        combine; then the residuals and the MLP, without dropout.
+        ``mask_prefix`` (B, P_local): True where a prefix row is masked out."""
+        from perceiver_io_tpu_torch.ops.online_softmax import block_attention, finalize, online_combine
+        from perceiver_io_tpu_torch.parallel.ring_attention import seq_sharded_cross_attention
+
+        ca = self.cross_attn
+        mha = ca.attention
+        q_in = ca.q_norm(x_q)
+        q = mha.project_q(q_in, rope_q)
+        k_p, v_p = mha.project_kv(ca.kv_norm(x_kv_prefix_local), rope_k_prefix)
+        k_l, v_l = mha.project_kv(q_in, rope_q)
+        o_p, m_glob, l_p = seq_sharded_cross_attention(q, k_p, v_p, mask_prefix, group=group, causal=False,
+                                                       finalize_output=False)
+        n = x_q.shape[1]
+        lat = torch.arange(n, device=x_q.device)
+        o_l, m_l, l_l = block_attention(q, k_l, v_l, lat[None, None, None, :] > lat[None, None, :, None])
+        o, _, l = online_combine((o_p, m_glob, l_p), (o_l, m_l, l_l))
+        h = x_q + mha.merge_output(finalize(o, l).to(x_q.dtype))
+        return h + self[1].module(h)
+
 
 class SelfAttentionLayer(_LayerOptions, nn.Sequential):
     """Self-attention + MLP, each with a residual; ``dropout`` drops
@@ -782,6 +810,55 @@ class PerceiverAR(nn.Module):
         new_cache = None if kv_cache is None else (ca_out.kv_cache,) + sa_caches
         return h, new_cache
 
+    def seq_parallel_forward(self, x_latent, frq_latent, x_prefix_local, frq_prefix_local, *, group,
+                             prefix_pad_local=None, deterministic: bool = True, generator=None) -> torch.Tensor:
+        """Sequence-parallel forward with the prefix sharded over ``group``
+        (the mesh's ``seq`` group; the JAX method runs inside ``shard_map``).
+        Inputs are embedded (see :meth:`CausalSequenceModel.seq_parallel_forward`
+        for the token-level entry): ``x_latent``/``frq_latent`` replicated,
+        ``x_prefix_local``/``frq_prefix_local`` this rank's prefix block,
+        ``prefix_pad_local`` (B, P_local) True at padding. The causal
+        cross-attention over ``[prefix; latents]`` splits exactly into a
+        per-rank prefix partial, LSE-combined across the group, and the
+        replicated causal latent partial (``CrossAttentionLayer.seq_parallel``);
+        the latent self-attention stack runs replicated, through the usual
+        route (K2, K4a, K4b, K1, K5 on the card). Returns the latent hidden
+        state (B, L, C), the same on every rank.
+
+        Training (``deterministic=False``) keeps the prefix cross-attention
+        dropout as a keep mask: every rank draws the dense ``"mask"`` mode's
+        set from ``generator`` (seeded alike on every rank; required) over
+        the GLOBAL prefix, the top-k of ``torch.rand``, and masks its own
+        block.
+        Post-attention and residual dropout raise, as in JAX."""
+        ca_layer = self.cross_attention
+        if not deterministic and (ca_layer.cross_attn.attention.dropout > 0.0 or ca_layer.residual_dropout > 0.0):
+            raise ValueError("post-attention/residual dropout is not supported on the sequence-parallel path; "
+                             "set post_attention_dropout/residual_dropout to 0 or pass deterministic=True")
+        import torch.distributed as dist
+
+        self.offload_arena.reset()
+        b, p_local = x_prefix_local.shape[0], x_prefix_local.shape[1]
+        mask_p = torch.zeros((b, p_local), dtype=torch.bool, device=x_latent.device)
+        if prefix_pad_local is not None:
+            mask_p = mask_p | prefix_pad_local.bool()
+        if not deterministic and self.cross_attention_dropout > 0.0 and p_local > 0:
+            if generator is None:
+                # the default generator is seeded per process: the ranks would
+                # mask different keep sets of one prefix
+                raise ValueError("the sequence-parallel training forward draws its prefix keep set from "
+                                 "`generator`, seeded alike on every rank; pass one")
+            p_total = p_local * dist.get_world_size(group)
+            keep = p_total - int(p_total * self.cross_attention_dropout)
+            rand = torch.rand((b, p_total), device=x_latent.device, generator=generator)
+            drop = rand < torch.topk(rand, keep, dim=1).values[:, -1:]
+            start = dist.get_rank(group) * p_local
+            mask_p = mask_p | drop[:, start:start + p_local]
+        h = ca_layer.seq_parallel(x_latent, x_prefix_local, frq_latent, frq_prefix_local, mask_p, group)
+        h, _ = self.self_attention(probe("perceiver_ar.cross_attend", h), None, frq_latent, frq_latent, None,
+                                   deterministic, generator)
+        return h
+
     def _decode_step(self, x, pad_mask, kv_cache, sa_pad_mask, pos_shift):
         b, n_x = x.shape[0], x.shape[1]
         ca_cache, sa_cache = kv_cache[0], tuple(kv_cache[1:])
@@ -934,6 +1011,47 @@ class CausalSequenceModel(PerceiverAR):
             for _ in range(config.num_self_attention_layers)
         )
         return (ca,) + sas
+
+    def seq_parallel_forward(self, latent_ids: torch.Tensor, prefix_ids_local: torch.Tensor, *, group,
+                             prefix_pad_local: Optional[torch.Tensor] = None, deterministic: bool = True,
+                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Token-level sequence-parallel forward: ``latent_ids`` (B, L)
+        replicated, ``prefix_ids_local`` (B, P / n) this rank's prefix block
+        over ``group`` (``parallel.long_context.make_seq_parallel_clm_forward``
+        is the whole-array wrapper). Returns the replicated latent logits
+        (B, L, V).
+
+        Positions are global: rank ``i`` embeds prefix positions
+        ``[i * P_local, (i + 1) * P_local)``, the latents sit at ``[P, P + L)``,
+        and left padding shifts every position by the global pad count (the
+        all-reduced sum of the ranks' counts), as the dense forward's
+        ``positions()`` shift."""
+        import torch.distributed as dist
+
+        from perceiver_io_tpu_torch.parallel.ring_attention import psum
+
+        b, n_lat = latent_ids.shape
+        p_local = prefix_ids_local.shape[1]
+        p_total = p_local * dist.get_world_size(group)
+        if p_total > self.max_prefix_len:
+            raise ValueError(f"prefix_len ({p_total}) exceeds max_prefix_len ({self.max_prefix_len})")
+        if not 0 < n_lat <= self.max_latents:
+            raise ValueError(f"number of latent positions ({n_lat}) out of valid range [1..{self.max_latents}]")
+        dev = latent_ids.device
+        shift = None
+        if prefix_pad_local is not None:
+            shift = psum(prefix_pad_local.sum(dim=1, keepdim=True), group)
+        offset = dist.get_rank(group) * p_local
+        emb_prefix, frq_prefix = self.input_adapter(prefix_ids_local,
+                                                    positions(b, p_local, shift=shift, offset=offset, device=dev))
+        emb_latent, frq_latent = self.input_adapter(latent_ids,
+                                                    positions(b, n_lat, shift=shift, offset=p_total, device=dev))
+        h = super().seq_parallel_forward(emb_latent, frq_latent, emb_prefix, frq_prefix, group=group,
+                                         prefix_pad_local=prefix_pad_local, deterministic=deterministic,
+                                         generator=generator)
+        if self.config.output_norm:
+            h = self.out_norm(h)
+        return probe("logits", self.output_adapter(h, attend=self.input_adapter.attend))
 
     def forward(self, x: torch.Tensor, prefix_len: int, pad_mask: Optional[torch.Tensor] = None,
                 kv_cache: Optional[tuple] = None, decode: bool = False, sa_pad_mask=None,

@@ -244,7 +244,16 @@ class TextDataModule:
                     to_save[k] = arr
                 else:
                     to_save[k] = np.asarray(v, dtype=object)
-            np.savez(cache_file, **to_save)
+            # written aside and renamed into place (parallel/dist.py
+            # prepare_once): the processes of one run prepare at once, and a
+            # reader must never open a half-written cache
+            from perceiver_io_tpu_torch.parallel.dist import prepare_once
+
+            def build(tmp):
+                with open(tmp, "wb") as f:
+                    np.savez(f, **to_save)
+
+            prepare_once(cache_file, build)
 
     def _prepare_split(self, split: str, items: List) -> Dict:
         texts, labels = [], []

@@ -11,8 +11,14 @@ rules replace ``link_arguments``, and the runner wires the port's
 ``make_optimizer``, ``MetricsLogger`` and ``Trainer`` in place of Lightning's.
 
 The CLI runs on the card (``--trainer.accelerator=gpu``, the default);
-``--trainer.accelerator=cpu`` runs the plain versions on the CPU. The
-strategies other than ``dp`` on one device wait for ROADMAP A12 and raise.
+``--trainer.accelerator=cpu`` runs the plain versions on the CPU. Across
+processes it runs under ``torchrun`` (one process per card; NCCL on the
+card, gloo with ``--trainer.accelerator=cpu``): ``torchrun
+--nproc_per_node=N -m perceiver_io_tpu_torch.scripts.text.clm fit
+--trainer.strategy=fsdp ...``. The strategies ``dp``, ``fsdp``, ``seq`` and
+``ring`` build JAX's meshes; ``seq`` takes the explicit prefix-sharded route
+of ``ring`` (the port has no GSPMD); ``tp`` and ``fsdp_tp`` wait for ROADMAP
+A12 part 2 and raise.
 """
 
 from __future__ import annotations
@@ -130,8 +136,8 @@ class TrainerArgs:
     precision: str = "float32"  # float32 | bfloat16 (params stay f32)
     gradient_clip_val: Optional[float] = None
     accumulate_grad_batches: int = 1
-    # dp on one device; fsdp | tp | fsdp_tp | seq | ring and more than one
-    # device wait for ROADMAP A12 (make_mesh_for raises)
+    # dp | fsdp | seq | ring over the processes of the run (torchrun);
+    # tp | fsdp_tp wait for ROADMAP A12 part 2 (make_mesh_for raises)
     strategy: str = "dp"
     fsdp_min_weight_size: int = 2**14
     devices: int = -1  # -1 = all visible
@@ -251,9 +257,13 @@ def add_smoke_preset(parser: argparse.ArgumentParser, preset: dict) -> None:
 
 def parse_args(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """Two-pass parse so ``--config`` files (and the ``--smoke`` preset)
-    apply as defaults that explicit flags still override. The JAX function
-    also initializes ``jax.distributed`` here; the port runs one process
-    (ROADMAP A12)."""
+    apply as defaults that explicit flags still override.
+
+    Also the multi-process entry point, as the JAX function's: after the
+    arguments parse, the default group starts when torchrun's coordinates
+    are set (``parallel.dist.maybe_initialize_distributed``: NCCL on the
+    card, gloo with ``--trainer.accelerator=cpu``), before any task code
+    runs. No-op without them."""
     pre, _ = parser.parse_known_args(argv)
     for cfg in pre.config:
         apply_yaml_defaults(parser, cfg)
@@ -264,7 +274,13 @@ def parse_args(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]] = 
         if unknown:
             raise ValueError(f"smoke preset has unknown keys: {sorted(unknown)}")
         parser.set_defaults(**preset)
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    accelerator = getattr(args, "trainer.accelerator", None)
+    if accelerator is not None:
+        from perceiver_io_tpu_torch.parallel.dist import maybe_initialize_distributed
+
+        maybe_initialize_distributed(device_for(TrainerArgs(accelerator=accelerator)))
+    return args
 
 
 def activation_dtype(trainer: TrainerArgs) -> torch.dtype:
@@ -291,24 +307,35 @@ STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp", "seq", "ring")
 
 def make_mesh_for(trainer: TrainerArgs):
     """Strategy string -> mesh (reference strategies 'ddp…'/'fsdp…' remapped in
-    perceiver/scripts/cli.py:26-35 and clm_fsdp.py:29-36). The port trains on
-    one device: ``dp`` there needs no mesh (None, as in the JAX function);
-    every other strategy, and more than one device, raises until ROADMAP
-    A12 (parallelism) is ported."""
+    perceiver/scripts/cli.py:26-35 and clm_fsdp.py:29-36), JAX's meshes over
+    the run's processes (one a device; ``torchrun`` starts them, and a
+    one-process run needs no launcher): ``dp`` on one process needs no mesh
+    (None, as in the JAX function), ``dp`` on more is ``data=n``, ``fsdp``
+    ``fsdp=n``, ``seq`` and ``ring`` ``seq=n``. ``tp`` and ``fsdp_tp`` raise
+    (ROADMAP A12 part 2). ``--trainer.devices`` must match the process count
+    where it is set."""
     if trainer.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy: {trainer.strategy} (expected {'|'.join(STRATEGIES)})")
-    from perceiver_io_tpu_torch.device import resolve_device
+    if trainer.strategy in ("tp", "fsdp_tp"):
+        raise NotImplementedError(f"--trainer.strategy={trainer.strategy}: tensor parallelism waits for ROADMAP A12 "
+                                  "part 2")
+    import torch.distributed as dist
 
-    if resolve_device(device_for(trainer)).type == "cpu":
-        n = 1
-    else:
-        n = torch.cuda.device_count() if trainer.devices in (-1, 0) else trainer.devices
+    from perceiver_io_tpu_torch.device import resolve_device
+    from perceiver_io_tpu_torch.parallel.mesh import make_mesh
+
+    device = resolve_device(device_for(trainer))
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if trainer.devices not in (-1, 0) and trainer.devices != n:
+        raise ValueError(f"--trainer.devices={trainer.devices} but the run has {n} process(es): the port runs one "
+                         "process per device (launch with torchrun --nproc_per_node)")
     if trainer.strategy == "dp" and n == 1:
         return None
-    raise NotImplementedError(
-        f"--trainer.strategy={trainer.strategy} on {n} device(s): the port trains on one device with "
-        "strategy dp; meshes and sharded states wait for ROADMAP A12 (parallelism)"
-    )
+    if trainer.strategy == "dp":
+        return make_mesh(data=n, device=device)
+    if trainer.strategy == "fsdp":
+        return make_mesh(data=1, fsdp=n, device=device)
+    return make_mesh(data=1, seq=n, device=device)
 
 
 def make_lr_schedule(opt: OptimizerArgs, max_steps: int):
@@ -338,6 +365,7 @@ def run_training(
     callbacks: Sequence = (),
     frozen_paths: Sequence[str] = (),
     warm_start=None,
+    ring_loss_builder=None,
 ):
     """Shared fit/validate runner for all task CLIs.
 
@@ -348,14 +376,23 @@ def run_training(
     :param warm_start: optional ``model -> None`` hook applied after the
         build (ckpt / encoder warm start, reference: perceiver/model/core/
         lightning.py:145-147, text/classifier/lightning.py:28-36).
+    :param ring_loss_builder: ``(model, mesh) -> loss_fn`` for the
+        sequence-parallel strategies ``ring`` and ``seq`` (CLM only:
+        ``parallel.long_context.make_ring_clm_loss``); other strategies
+        ignore it, and ``ring``/``seq`` without one raise (the task has no
+        sequence-parallel route).
     :return: ``(state, metrics)``; metrics None after ``fit``.
     """
     from perceiver_io_tpu_torch.obs import clm_train_telemetry
     from perceiver_io_tpu_torch.training.metrics import MetricsLogger
     from perceiver_io_tpu_torch.training.optim import freeze_mask, make_optimizer
+    from perceiver_io_tpu_torch.training.loop import shard_train_state
     from perceiver_io_tpu_torch.training.state import TrainState
     from perceiver_io_tpu_torch.training.trainer import Trainer, TrainerConfig
 
+    if trainer_args.strategy in ("ring", "seq") and ring_loss_builder is None:
+        raise ValueError(f"strategy {trainer_args.strategy!r} requires a sequence-parallel loss route; this task "
+                         "does not provide one (use the CLM CLI, or a dp/fsdp strategy)")
     mesh = make_mesh_for(trainer_args)
     device = device_for(trainer_args)
     model = build_model(device, torch.Generator().manual_seed(trainer_args.seed))
@@ -384,6 +421,8 @@ def run_training(
     # analytic per-sample token/FLOP accounting for the MFU/throughput log
     # columns — available for CLM-shaped configs, None (columns off) otherwise
     tokens_per_sample, flops_per_sample = clm_train_telemetry(model_config) or (None, None)
+    if trainer_args.strategy in ("ring", "seq"):
+        loss_fn = ring_loss_builder(model, mesh)
     trainer = Trainer(
         loss_fn,
         mesh=mesh,
@@ -394,6 +433,7 @@ def run_training(
             checkpoint_dir=str(run_dir / "checkpoints") if trainer_args.checkpoint else None,
             max_checkpoints=trainer_args.max_checkpoints,
             save_weights_only=trainer_args.save_weights_only,
+            fsdp_min_weight_size=trainer_args.fsdp_min_weight_size,
             tokens_per_sample=tokens_per_sample,
             flops_per_sample=flops_per_sample,
         ),
@@ -406,6 +446,8 @@ def run_training(
             # evaluate the trained weights when a checkpoint exists (the
             # Lightning `validate --ckpt_path` analog); otherwise the fresh
             # init is evaluated and we say so
+            if mesh is not None:
+                state = shard_train_state(state, mesh, min_weight_size=trainer_args.fsdp_min_weight_size)
             if trainer.checkpoints is not None and trainer.checkpoints.latest_step() is not None:
                 state = trainer.checkpoints.restore(state)
             else:

@@ -10,8 +10,11 @@ At each validation end a text sample is generated and logged
 
 Run: ``python -m perceiver_io_tpu_torch.scripts.text.clm fit --data.dataset=wikitext
 --trainer.max_steps=1000 ...`` (on the card; ``--trainer.accelerator=cpu``
-runs the plain versions on the CPU). ``--trainer.strategy=ring|seq`` waits
-for ROADMAP A12 and raises.
+runs the plain versions on the CPU). Across processes: ``torchrun
+--nproc_per_node=N -m perceiver_io_tpu_torch.scripts.text.clm fit
+--trainer.strategy=fsdp ...`` (``dp``, ``fsdp``; ``ring`` and ``seq`` shard
+the prefix over the processes through
+``parallel.long_context.make_ring_clm_loss``).
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ def make_sample_callback(tokenizer, task_args: CLMTaskArgs):
     """Validation-end sample generation logged as text (reference:
     clm/lightning.py:55-92, @rank_zero_only) through the port's
     ``generate`` on the trained model, its draws from a CPU generator
-    seeded by the step (the JAX package's ``PRNGKey(step)``)."""
+    seeded by the step (the JAX package's ``PRNGKey(step)``). A sharded
+    state (a mesh) logs no sample: generation from sharded weights waits for
+    ROADMAP A12 part 2."""
 
     def callback(trainer, state, step):
-        if task_args.sample_prompt is None:
+        if task_args.sample_prompt is None or getattr(state, "mesh", None) is not None:
             return
         from perceiver_io_tpu_torch.generation import GenerationConfig, generate
 
@@ -110,10 +115,18 @@ def main(argv: Optional[Sequence[str]] = None):
         max_seq_len=data_args.max_seq_len,
     )
     seq_len = data_args.max_seq_len
+    def ring_loss_builder(model, mesh):
+        # --trainer.strategy=ring|seq: the prefix sharded over the seq axis,
+        # its cross-attention partial through parallel/ring_attention.py
+        from perceiver_io_tpu_torch.parallel.long_context import make_ring_clm_loss
+
+        return make_ring_clm_loss(model, mesh, max_latents=model_config.max_latents)
+
     train_iter = cli.cycle(data.train_batches())
-    if model_config.cross_attention_dropout > 0.0:
+    if model_config.cross_attention_dropout > 0.0 and trainer_args.strategy not in ("ring", "seq"):
         # host-sampled prefix-dropout keep sets: the in-graph draw's law,
-        # drawn while the card computes
+        # drawn while the card computes (ring/seq draw the keep mask in the
+        # forward, from the generator every rank holds alike)
         from perceiver_io_tpu_torch.training.prefix_dropout import with_prefix_keep_idx
 
         train_iter = with_prefix_keep_idx(
@@ -134,6 +147,7 @@ def main(argv: Optional[Sequence[str]] = None):
         opt_args,
         command=args.command,
         callbacks=[make_sample_callback(data.tokenizer, task_args)],
+        ring_loss_builder=ring_loss_builder,
     )
 
 

@@ -28,7 +28,12 @@ from perceiver_io_tpu_torch.training.faults import (
     call_with_retry,
     fetch_retry_emitter,
 )
-from perceiver_io_tpu_torch.training.loop import make_eval_step, make_train_step
+from perceiver_io_tpu_torch.training.loop import (
+    make_eval_step,
+    make_train_step,
+    shard_train_state,
+    train_state_shardings,
+)
 from perceiver_io_tpu_torch.training.losses import (
     IGNORE_INDEX,
     classification_loss_fn,
@@ -87,6 +92,8 @@ __all__ = [
     "make_eval_step",
     "make_optimizer",
     "make_train_step",
+    "shard_train_state",
+    "train_state_shardings",
     "masked_lm_loss_fn",
     "mse_loss_fn",
     "prefix_keep_count",

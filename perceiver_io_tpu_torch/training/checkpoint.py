@@ -30,7 +30,13 @@ What differs from the JAX package, and why:
 - The async save snapshots the payload into pinned host buffers with copies
   enqueued on the current stream, so they are ordered before the next step's
   replay, and a writer thread waits on their event and writes the step.
-- The mesh/sharding fingerprint and the elastic reshard wait for ROADMAP A12.
+- A sharded state (``training.loop.shard_train_state``) is saved whole:
+  every rank gathers the parameters and the optimizer's moments from their
+  shards (a collective) and process 0 writes them; a restore reads the whole
+  payload on every rank and copies each rank's block into its shards. The
+  step records the mesh's shape; a restore onto a mesh of another shape
+  raises, as do the sharding fingerprint and the elastic reshard (ROADMAP
+  A12 part 2).
 
 On disk, a step is a directory ``<step>/`` holding ``state.pt``. It is
 written into a tmp directory, renamed into place, and committed by the
@@ -278,13 +284,57 @@ def _optimizer_tensors(state) -> List[torch.Tensor]:
     return state.optimizer.state_tensors()[len(state.optimizer.params):]
 
 
+def _optimizer_owners(state) -> list:
+    """For each of :func:`_optimizer_tensors`, the sharded parameter it
+    mirrors (a DTensor: its shape and layout), None where the state is not
+    sharded or the tensor mirrors none."""
+    opt = state.optimizer
+    n = len(opt.params)
+    if getattr(opt, "dparams", None) is None:
+        return [None] * (len(opt.state_tensors()) - n)
+    return [None if o is None else opt.dparams[o] for o in opt.state_owners()[n:]]
+
+
+def _optimizer_shapes(state) -> list:
+    """The whole shape of each of :func:`_optimizer_tensors`."""
+    return [tuple(t.shape) if d is None else tuple(d.shape)
+            for t, d in zip(_optimizer_tensors(state), _optimizer_owners(state))]
+
+
+def _mesh_shape(state) -> Optional[dict]:
+    mesh = getattr(state, "mesh", None)
+    if mesh is None:
+        return None
+    from perceiver_io_tpu_torch.parallel.mesh import mesh_shape
+
+    return mesh_shape(mesh)
+
+
+def _whole_payload(state, weights_only: bool) -> tuple:
+    """The model's ``state_dict`` and the optimizer's state tensors, whole:
+    on a sharded state gathered from the ranks' shards (a collective: every
+    rank calls it)."""
+    model = state.model.state_dict()
+    optimizer = [] if weights_only else _optimizer_tensors(state)
+    if getattr(state, "mesh", None) is None:
+        return model, optimizer
+    from torch.distributed.tensor import DTensor
+
+    from perceiver_io_tpu_torch.parallel.mesh import gather_full
+
+    model = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in model.items()}
+    owners = _optimizer_owners(state)
+    return model, [t if d is None else gather_full(t, d) for t, d in zip(optimizer, owners)]
+
+
 def _tensor_spec(state, weights_only: bool) -> Dict[str, Dict]:
     """Shape and dtype of every tensor a payload of ``state`` holds, by name:
-    the model's ``state_dict`` names and ``optimizer[i]``."""
+    the model's ``state_dict`` names and ``optimizer[i]`` (whole shapes on a
+    sharded state)."""
     spec = {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in state.model.state_dict().items()}
     if not weights_only:
-        for i, t in enumerate(_optimizer_tensors(state)):
-            spec[f"optimizer[{i}]"] = {"shape": list(t.shape), "dtype": str(t.dtype)}
+        for i, (t, shape) in enumerate(zip(_optimizer_tensors(state), _optimizer_shapes(state))):
+            spec[f"optimizer[{i}]"] = {"shape": list(shape), "dtype": str(t.dtype)}
     return spec
 
 
@@ -390,6 +440,27 @@ def _quarantine_path(directory: str, name: str) -> str:
         k += 1
 
 
+def _load_sharded(model: torch.nn.Module, weights: Dict[str, torch.Tensor]) -> None:
+    """``load_state_dict(weights, strict=True)`` into a sharded model: each
+    DTensor parameter's block copied into its local shard, in place."""
+    from torch.distributed.tensor import DTensor
+
+    from perceiver_io_tpu_torch.parallel.mesh import local_chunk
+
+    targets = dict(model.named_parameters(remove_duplicate=False))
+    targets.update(model.named_buffers(remove_duplicate=False))
+    expected = set(model.state_dict())
+    if set(weights) != expected:
+        raise RuntimeError(f"state_dict keys differ: missing {sorted(expected - set(weights))[:5]}, unexpected "
+                           f"{sorted(set(weights) - expected)[:5]}")
+    for name, full in weights.items():
+        t = targets[name]
+        if isinstance(t, DTensor):
+            t._local_tensor.copy_(local_chunk(full, t))
+        else:
+            t.copy_(full)
+
+
 class CheckpointManager:
     """Best-k training checkpoints monitored on a metric, with torn-save
     protection (the sweep, integrity records, the valid-step fallback; see
@@ -446,6 +517,9 @@ class CheckpointManager:
         self.retry = retry
         self.event_sink = event_sink
         self._retry_sleep: Callable[[float], None] = time.sleep  # injectable (tests)
+        # a barrier over the processes of a sharded run (the Trainer sets
+        # it): a restore waits there for process 0's last write to commit
+        self.sync: Optional[Callable[[], None]] = None
         self._config_written = False
         self._main_process = is_main_process()
         if self._main_process:
@@ -679,6 +753,8 @@ class CheckpointManager:
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         if self.monitor and self.monitor not in metrics and not force:
             raise ValueError(f"metrics must contain monitored key {self.monitor!r}")
+        # a sharded state is gathered on every process before any returns
+        model, optimizer = _whole_payload(state, self.save_weights_only)
         if not self._main_process:
             return False
         self.wait_until_finished()
@@ -692,15 +768,14 @@ class CheckpointManager:
             committed = self._committed_steps()
             if committed and committed[-1] >= step:
                 return False
-        model = state.model.state_dict()
-        optimizer = [] if self.save_weights_only else _optimizer_tensors(state)
         copies, event = self._snapshot(list(model.values()) + optimizer)
         payload = {"step": step, "model": dict(zip(model, copies[:len(model)])),
                    "generator": None if state.generator is None else state.generator.get_state()}
         if not self.save_weights_only:
             payload["optimizer"] = copies[len(model):]
         meta = {"step": step, "weights_only": self.save_weights_only, "metrics": metrics,
-                "tensors": _tensor_spec(state, self.save_weights_only), "generator": _generator_kind(state)}
+                "tensors": _tensor_spec(state, self.save_weights_only), "generator": _generator_kind(state),
+                "mesh": _mesh_shape(state)}
         row = {"step": step}
         self.saves.append(row)
 
@@ -810,8 +885,14 @@ class CheckpointManager:
         Restores what the checkpoint contains: a weights-only checkpoint sets
         the weights, step and generator and zeroes the optimizer's state in
         place (what a fresh ``make_optimizer`` holds); ``last_restore``
-        says which it was."""
+        says which it was.
+
+        A sharded state restores on every process (each copies its blocks);
+        onto a mesh of another shape than the step's it raises
+        ``NotImplementedError`` (the reshard is ROADMAP A12 part 2)."""
         self.wait_until_finished()
+        if self.sync is not None:
+            self.sync()
         if step is not None:
             if not self._step_valid(step):
                 raise FileNotFoundError(f"checkpoint step {step} under {self.directory} is missing or torn")
@@ -829,22 +910,34 @@ class CheckpointManager:
         raise FileNotFoundError(f"every checkpoint under {self.directory} failed to restore; last: {last_err}")
 
     def _restore_step(self, state, step: int):
+        saved_mesh, mesh = (self._meta(step) or {}).get("mesh"), _mesh_shape(state)
+        if saved_mesh != mesh:
+            raise NotImplementedError(
+                f"checkpoint step {step} was saved on the mesh {saved_mesh} and the state lies on {mesh}: a restore "
+                "onto a mesh of another shape (the elastic reshard) waits for ROADMAP A12 part 2")
         payload = self._load_payload(step)
         saved = payload.get("optimizer")
         target = _optimizer_tensors(state)
+        owners = _optimizer_owners(state)
         if saved is not None:
-            wrong = [i for i, (t, s) in enumerate(zip(target, saved)) if t.shape != s.shape or t.dtype != s.dtype]
+            wrong = [i for i, (t, shape, s) in enumerate(zip(target, _optimizer_shapes(state), saved))
+                     if shape != tuple(s.shape) or t.dtype != s.dtype]
             if len(saved) != len(target) or wrong:
                 raise ValueError(f"checkpoint step {step}'s optimizer state ({len(saved)} tensors) does not fit "
                                  f"the state's ({len(target)} tensors; mismatched at {wrong[:5]})")
         with torch.no_grad():
-            state.model.load_state_dict(payload["model"], strict=True)
+            if mesh is None:
+                state.model.load_state_dict(payload["model"], strict=True)
+            else:
+                _load_sharded(state.model, payload["model"])
             if saved is None:
                 for t in target:
                     t.zero_()
             else:
-                for t, s in zip(target, saved):
-                    t.copy_(s)
+                from perceiver_io_tpu_torch.parallel.mesh import local_chunk
+
+                for t, s, d in zip(target, saved, owners):
+                    t.copy_(s if d is None else local_chunk(s, d))
         state.step = int(payload["step"])
         if payload.get("generator") is not None and state.generator is not None:
             state.generator.set_state(payload["generator"])

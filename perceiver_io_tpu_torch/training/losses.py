@@ -10,24 +10,54 @@ numpy arrays or tensors; they are moved to the model's device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 IGNORE_INDEX = -100  # torch CrossEntropyLoss ignore_index parity
+
+# the train and eval steps of a sharded state set this (global_batch_mean)
+_GLOBAL_MEAN = False
+
+
+@contextlib.contextmanager
+def global_batch_mean():
+    """Inside, every rank of the default group holds a block of one global
+    batch (``parallel.mesh.shard_batch``), and the CE losses below return
+    their block's share of the GLOBAL mean: the local sum of the valid
+    tokens' losses over the global count of valid tokens, times the world
+    size. The ranks' gradients, averaged (FSDP's reduce), are then the
+    gradient of the global mean, and the ranks' losses average to it, even
+    where a pad mask or ``-100`` labels give the blocks different counts
+    (the JAX package's GSPMD step is one program over the global batch).
+    Ranks that hold the same block (the ``seq`` axis) count it once each in
+    both the count and the world size, which cancels."""
+    global _GLOBAL_MEAN
+    prev, _GLOBAL_MEAN = _GLOBAL_MEAN, True
+    try:
+        yield
+    finally:
+        _GLOBAL_MEAN = prev
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CE over labels != IGNORE_INDEX (0 when none is valid), the
     logits cast to f32 before the log-softmax (bf16 logits too, as the JAX
-    package casts them). Returns (loss, num_valid)."""
+    package casts them). Returns (loss, num_valid). Under
+    :func:`global_batch_mean` the mean is the global batch's."""
     valid = labels != IGNORE_INDEX
     safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
     num_valid = valid.sum()
-    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / torch.clamp(num_valid, min=1)
-    return loss, num_valid
+    total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
+    if not _GLOBAL_MEAN:
+        return total / torch.clamp(num_valid, min=1), num_valid
+    count = num_valid.clone()
+    dist.all_reduce(count)
+    return total / torch.clamp(count, min=1) * dist.get_world_size(), num_valid
 
 
 def _on(value, device) -> Optional[torch.Tensor]:

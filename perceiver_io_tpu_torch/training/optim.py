@@ -89,13 +89,26 @@ def constant_with_warmup(base_lr: float, warmup_steps: int = 0) -> Schedule:
     return schedule
 
 
+def tensor_norms(tensors: List[torch.Tensor], group=None) -> torch.Tensor:
+    """The L2 norm of each tensor, stacked; with ``group`` the tensors are
+    this rank's shards and each norm is the whole tensor's, across the
+    group's ranks (their squares summed by an all-reduce)."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if group is None:
+        return norms
+    sq = norms.double() ** 2
+    torch.distributed.all_reduce(sq, group=group)
+    return sq.sqrt().to(norms.dtype)
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, group=None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global L2
     norm exceeds ``max_norm`` (optax's ``clip_by_global_norm``; a NaN norm
     makes every gradient NaN, as there). Returns the norm, without a host
-    sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    sync. With ``group`` the gradients are shards and the norm is the whole
+    gradients' (:func:`tensor_norms`)."""
+    norm = torch.linalg.vector_norm(tensor_norms(grads, group))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -192,6 +205,9 @@ class CompactAdam:
     def state_tensors(self) -> List[torch.Tensor]:
         return self.mu + self.nu
 
+    def state_owners(self) -> List[Optional[int]]:
+        return list(range(len(self.params))) * 2
+
 
 class Lamb:
     """optax's ``lamb`` (the JAX package's ``make_optimizer("lamb")``):
@@ -200,10 +216,12 @@ class Lamb:
     trust ratio is per parameter tensor, ``|p| / |u|``, and 1 where either
     norm is 0 (optax's guard)."""
 
-    def __init__(self, params: List[torch.nn.Parameter], betas, weight_decay: float, eps: float = 1e-6):
+    def __init__(self, params: List[torch.nn.Parameter], betas, weight_decay: float, eps: float = 1e-6,
+                 norm_group=None):
         self.params = params
         self.b1, self.b2 = betas
         self.weight_decay, self.eps = weight_decay, eps
+        self.norm_group = norm_group  # sharded parameters: the trust ratio reads whole-tensor norms
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
@@ -226,8 +244,8 @@ class Lamb:
         torch._foreach_div_(u, den)
         if self.weight_decay:
             torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
-        p_norm = torch.stack(torch._foreach_norm(self.params))
-        u_norm = torch.stack(torch._foreach_norm(u))
+        p_norm = tensor_norms(self.params, self.norm_group)
+        u_norm = tensor_norms(u, self.norm_group)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
         for x, r in zip(u, ratio):
             x.mul_(r)
@@ -236,6 +254,9 @@ class Lamb:
 
     def state_tensors(self) -> List[torch.Tensor]:
         return self.mu + self.nu
+
+    def state_owners(self) -> List[Optional[int]]:
+        return list(range(len(self.params))) * 2
 
 
 class Sgd:
@@ -249,6 +270,9 @@ class Sgd:
         torch._foreach_add_(self.params, torch._foreach_mul(grads, -lr))
 
     def state_tensors(self) -> List[torch.Tensor]:
+        return []
+
+    def state_owners(self) -> List[Optional[int]]:
         return []
 
 
@@ -284,6 +308,9 @@ class TorchAdamW:
             out += [state["exp_avg"], state["exp_avg_sq"], state["step"]]
         return out
 
+    def state_owners(self) -> List[Optional[int]]:
+        return [o for i in range(len(self.params)) for o in (i, i, None)]
+
 
 class Optimizer:
     """The JAX package's ``make_optimizer`` chain over one parameter list
@@ -299,15 +326,33 @@ class Optimizer:
 
     ``params`` are parameters or ``(name, parameter)`` pairs;
     ``frozen_mask`` (``{name: bool}``, :func:`freeze_mask`) needs the
-    names."""
+    names.
+
+    Sharded parameters (the DTensors of FSDP2's ``fully_shard``,
+    ``training.loop.shard_train_state``): the chain runs on each rank's
+    local shards (``params`` are those, ``dparams`` the DTensors, whose
+    ``.grad`` shards :meth:`grads` hands over), and every norm it takes, the
+    clip's global norm and LAMB's per-tensor trust-ratio norms, is the whole
+    tensors' across the shard group (``norm_group``), not the local
+    shard's."""
 
     def __init__(self, params: Iterable, schedule: Schedule, optimizer: str = "adamw", weight_decay: float = 0.01,
                  betas=(0.9, 0.999), gradient_clip: Optional[float] = None,
                  moment_dtype: Optional[torch.dtype] = None, frozen_mask: Optional[Dict[str, bool]] = None,
                  accumulate: int = 1):
+        self._args = (schedule, optimizer, weight_decay, betas, gradient_clip, moment_dtype, frozen_mask, accumulate)
         items = list(params)
         named = bool(items) and isinstance(items[0], tuple)
         self.params = [p for _, p in items] if named else items
+        self.dparams, self.norm_group = None, None
+        from torch.distributed.tensor import DTensor
+
+        if self.params and isinstance(self.params[0], DTensor):
+            self.dparams = self.params
+            # FSDP's mesh is (replicate, shard): the shards of a tensor lie
+            # along its last dim
+            self.norm_group = self.dparams[0].device_mesh.get_group(mesh_dim=-1)
+            self.params = [p._local_tensor for p in self.dparams]
         self.schedule = schedule
         self.gradient_clip = gradient_clip
         dev = self.params[0].device
@@ -321,7 +366,7 @@ class Optimizer:
             self.rule = TorchAdamW(self.params, self.lr, betas, weight_decay if optimizer == "adamw" else 0.0)
             self.adamw = self.rule.adamw
         elif optimizer == "lamb":
-            self.rule = Lamb(self.params, betas, weight_decay)
+            self.rule = Lamb(self.params, betas, weight_decay, norm_group=self.norm_group)
         else:
             self.rule = Sgd(self.params)
         self.frozen: List[torch.nn.Parameter] = []
@@ -332,14 +377,22 @@ class Optimizer:
             names = [n for n, _ in items]
             if sorted(frozen_mask) != sorted(names):
                 raise ValueError("frozen_mask must name every parameter (freeze_mask(model, paths) does)")
-            self.frozen = [p for n, p in items if frozen_mask[n]]
+            self.frozen = [p for n, p in zip(names, self.params) if frozen_mask[n]]
         self.accumulate = accumulate
         if accumulate > 1:
             self.acc = [torch.zeros_like(p) for p in self.params]
             self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
             self.gradient_step = torch.zeros((), dtype=torch.int32, device=dev)
 
+    def like(self, params: Iterable) -> "Optimizer":
+        """A fresh optimizer of this one's configuration over ``params``."""
+        return Optimizer(params, *self._args)
+
     def grads(self) -> List[torch.Tensor]:
+        if self.dparams is not None:
+            for d, p in zip(self.dparams, self.params):
+                if d.grad is not None:
+                    p.grad = d.grad._local_tensor
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -380,7 +433,7 @@ class Optimizer:
             torch._foreach_zero_([p.grad for p in self.frozen])
             held = [p.clone() for p in self.frozen]
         if self.gradient_clip is not None:
-            clip_by_global_norm_(grads, self.gradient_clip)
+            clip_by_global_norm_(grads, self.gradient_clip, self.norm_group)
         lr = self._scheduled_lr()
         if isinstance(lr, torch.Tensor):
             self.lr.copy_(lr)
@@ -417,6 +470,15 @@ class Optimizer:
             out += self.acc + [self.mini_step, self.gradient_step]
         return out + [self.count]
 
+    def state_owners(self) -> List[Optional[int]]:
+        """For each of :meth:`state_tensors`, the index of the parameter it
+        mirrors (its shape and sharding), None for the rest."""
+        n = len(self.params)
+        out = list(range(n)) + self.rule.state_owners()
+        if self.accumulate > 1:
+            out += list(range(n)) + [None, None]
+        return out + [None]
+
     @torch.no_grad()
     def step_where(self, ok: torch.Tensor) -> None:
         """One call where the 0-d bool ``ok`` holds, none where it does not,
@@ -438,6 +500,8 @@ class Optimizer:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+        for d in self.dparams or ():
+            d.grad = None
 
 
 OPTIMIZERS = ("adamw", "adam", "lamb", "sgd")

@@ -3,8 +3,9 @@
 PyTorch keeps parameters and optimizer moments in mutable objects, so the
 state holds them instead of a pytree: the model, its :class:`Optimizer` (the
 ``make_optimizer`` chain), the step counter (calls, as the JAX package counts
-them) and the generator of the training
-forwards' random draws. The train step updates it in place and returns it.
+them), the generator of the training
+forwards' random draws, and the mesh a sharded state lives on. The train step
+updates it in place and returns it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
     generator: Optional[torch.Generator] = None
+    # the DeviceMesh the state is sharded over (training.loop.shard_train_state)
+    mesh: Optional[object] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Callable[[Iterable[torch.nn.Parameter]], Optimizer],

@@ -28,8 +28,18 @@ What the card changes:
   non-finite scope of the earliest snapshot in the ring) inside the step's
   span and clears the ring.
 
+- A mesh (``Trainer(mesh=parallel.make_mesh(...))``, one process per
+  device): ``fit`` shards the state (``training.loop.shard_train_state``),
+  every batch is cut to the rank's block of the global batch
+  (``parallel.mesh.shard_batch``, the leading dim over data x fsdp; the
+  sequence-parallel loss slices its own prefix block, so the token dim is
+  not cut), the steps run eagerly, the train and validation losses are the
+  global batch's means, host writes (metrics, events, checkpoints) are
+  process 0's, checkpoints hold the gathered state, and a barrier orders a
+  restore after process 0's last write.
+
 Options the port has no counterpart for yet raise ``NotImplementedError``:
-a mesh and the overlap step (ROADMAP A12), ``graphlint`` and ``graphcheck``
+the overlap step (ROADMAP A12 part 2), ``graphlint`` and ``graphcheck``
 (A14, analyses of JAX programs; off by default here).
 """
 
@@ -46,6 +56,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from perceiver_io_tpu_torch.obs.events import EventLog, write_run_manifest
@@ -61,7 +72,8 @@ from perceiver_io_tpu_torch.training.faults import (
     QuarantineIterator,
     SentinelConfig,
 )
-from perceiver_io_tpu_torch.training.loop import make_eval_step, make_train_step
+from perceiver_io_tpu_torch.parallel.mesh import batch_shards, shard_batch
+from perceiver_io_tpu_torch.training.loop import make_eval_step, make_train_step, shard_train_state
 from perceiver_io_tpu_torch.training.metrics import MetricsLogger
 from perceiver_io_tpu_torch.training.state import TrainState
 
@@ -114,8 +126,11 @@ class TrainerConfig:
     # batch, near zero when the buffer hits. On the CPU a batch is used where
     # it lies
     input_double_buffer: bool = True
-    # the overlap-scheduled data x fsdp step: ROADMAP A12 (raises when True)
+    # the overlap-scheduled data x fsdp step: ROADMAP A12 part 2 (raises when True)
     overlap: bool = False
+    # parameters smaller than this JAX keeps replicated on a mesh (FSDP2
+    # shards every parameter of a unit; the values are the same)
+    fsdp_min_weight_size: int = 2**14
     # --- robustness (training/faults.py) ---------------------------------
     # SIGTERM/SIGINT request a final checkpoint at the next step boundary
     # and a clean return (the save itself needs checkpoint_dir). Installed
@@ -159,7 +174,7 @@ class TrainerConfig:
 
 
 _UNPORTED = {
-    "overlap": "the overlap-scheduled data x fsdp step waits for ROADMAP A12",
+    "overlap": "the overlap-scheduled data x fsdp step waits for ROADMAP A12 part 2",
     "graphlint": "graphlint (jaxpr lint rules) waits for ROADMAP A14",
     "graphcheck": "graphcheck (jaxpr fingerprints) waits for ROADMAP A14",
 }
@@ -173,6 +188,8 @@ class Trainer:
     - ``eval_loss_fn(model, batch, generator)`` — run without gradient for
       validation, with ``generator=None``; by default ``loss_fn`` with
       ``deterministic=True`` when it takes that keyword, else ``loss_fn``.
+    - ``mesh`` — optional ``DeviceMesh`` from ``parallel.make_mesh``: the
+      state is sharded over it and every batch split (module docstring).
     - ``callbacks`` — callables ``cb(trainer, state, step)`` run after each
       validation.
     """
@@ -188,8 +205,7 @@ class Trainer:
         callbacks: Sequence[Callable] = (),
     ):
         self.config = config or TrainerConfig()
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): meshes and sharded states wait for ROADMAP A12")
+        self.mesh = mesh
         for name, why in _UNPORTED.items():
             if getattr(self.config, name):
                 raise NotImplementedError(f"TrainerConfig.{name}: {why}")
@@ -226,7 +242,7 @@ class Trainer:
                 return loss_fn(model, batch, None, deterministic=True)[1]
             return eval_fn(model, batch, None)[1]
 
-        self._eval_step = self.recompiles.wrap(make_eval_step(eval_metrics), "eval_step")
+        self._eval_step = self.recompiles.wrap(make_eval_step(eval_metrics, sharded=mesh is not None), "eval_step")
         # batches a fit pulled but never consumed, re-injected by the next fit
         # on the SAME iterator (resume, curriculum phases); drained lazily
         self._residual_batches: deque = deque()
@@ -245,6 +261,8 @@ class Trainer:
                 enable_async=True,
                 retry=True,
             )
+            if mesh is not None:
+                self.checkpoints.sync = dist.barrier
 
     # -- helpers ----------------------------------------------------------
 
@@ -252,11 +270,15 @@ class Trainer:
         """A batch for the step on ``device``, numpy arrays as host tensors.
         With ``ahead``, a :class:`_Staged` batch: on the card its arrays and
         CPU tensors go through pinned memory to the card on the copy stream
-        (card tensors stay where they are); on the CPU it is the host batch."""
+        (card tensors stay where they are); on the CPU it is the host batch.
+        On a mesh, the rank's block of the global batch."""
+        raw = batch
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         if not ahead:
             return tree_map(_host_tensor, batch)
         if device.type != "cuda":
-            return _Staged(batch, tree_map(_host_tensor, batch), None)
+            return _Staged(raw, tree_map(_host_tensor, batch), None)
         stream = self._copy_streams.get(device)
         if stream is None:
             stream = self._copy_streams[device] = torch.cuda.Stream(device)
@@ -270,7 +292,7 @@ class Trainer:
             staged = tree_map(to_device, batch)
             event = torch.cuda.Event()
             event.record(stream)
-        return _Staged(batch, staged, event)
+        return _Staged(raw, staged, event)
 
     @staticmethod
     def _consume(staged: _Staged, device: torch.device):
@@ -340,7 +362,13 @@ class Trainer:
         residual batches parked by a previous fit on this Trainer: they
         encode the OLD stream position, which the fast-forward replaces."""
         cfg = self.config
+        if self.mesh is not None:
+            # idempotent: a state placed on this mesh already is returned as is
+            state = shard_train_state(state, self.mesh, min_weight_size=cfg.fsdp_min_weight_size)
+            dist.barrier()
         device = next(state.model.parameters()).device
+        # a rank's batch is its block of the global batch: telemetry counts the global batch
+        shards = 1 if self.mesh is None else batch_shards(self.mesh)
         auto_resume = resume == "auto"
         fast_forward_n = 0
         resume_info = None
@@ -518,7 +546,7 @@ class Trainer:
                         except Exception as e:  # noqa: BLE001 — re-raised next iteration
                             pending, pending_exc = None, e
                     window.append(metrics)
-                    window_samples += _leading_dim(batch)
+                    window_samples += _leading_dim(batch) * shards
                     step = i = int(state.step)
                     if step_span is not None:
                         step_span.set("step", step)
@@ -530,7 +558,7 @@ class Trainer:
                             # the held step's non-finite metrics must not
                             # poison the log-window mean
                             window.pop()
-                            window_samples -= _leading_dim(batch)
+                            window_samples -= _leading_dim(batch) * shards
                         # blast-radius attribution: a trip with snapshots on
                         # record names the first scope of the earliest ring
                         # entry that went non-finite, inside the open step span
@@ -708,6 +736,9 @@ class Trainer:
         if events is not None:
             events.emit("fit_end", step=int(state.step), aborted=False, preempted=preempted,
                         recompiles=self.recompiles.counts(), **goodput.summary())
+        if self.mesh is not None:
+            # process 0's writes (checkpoints, logs) are done before any rank returns
+            dist.barrier()
         return state
 
     def _release_guard(self, guard) -> None:

@@ -64,7 +64,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  # simulator and the scaling-law fit (ROADMAP A13, part 3)
                  "data.text.preprocessor", "data.text.streaming", "data.text.c4", "scripts.text",
                  "scripts.text.common", "scripts.text.clm", "scripts.text.mlm", "scripts.text.classifier",
-                 "scripts.text.preproc", "serving.router", "serving.sim", "utils.laws"):
+                 "scripts.text.preproc", "serving.router", "serving.sim", "utils.laws",
+                 # training across processes (ROADMAP A12, part 1)
+                 "ops.online_softmax", "parallel.mesh", "parallel.ring_attention", "parallel.long_context"):
         assert "perceiver_io_tpu_torch." + name in names.split(), name
 
 

@@ -6,8 +6,9 @@ Covered: the dataclass-argument parser (every flag of the symbolic audio
 model's config, the trainer's and the optimizer's, parsed and rebuilt as
 JAX's are), YAML defaults under explicit flags and their unknown-key error,
 the ``--smoke`` preset under explicit flags, ``activation_dtype``, the LR
-schedules against JAX's; ``make_mesh_for`` (``dp`` on one device; every
-other strategy raises naming ROADMAP A12, an unknown one raises as JAX's);
+schedules against JAX's; ``make_mesh_for`` (``dp`` on one device needs no
+mesh; ``fsdp``, ``seq`` and ``ring`` build one-process meshes; ``tp`` and
+``fsdp_tp`` raise naming ROADMAP A12 part 2, an unknown one raises as JAX's);
 ``MNISTDataModule``'s synthetic digits and batches equal to JAX's; a two-step
 ``fit`` of each task CLI (``--smoke`` presets at micro widths) whose metrics
 log holds finite losses, and ``validate`` after the audio fit reading its
@@ -94,9 +95,24 @@ def test_lr_schedules_match_jax(name):
 
 
 def test_strategies_and_devices():
+    import torch.distributed as dist
+
+    from perceiver_io_tpu_torch.parallel.mesh import mesh_shape
+
     assert cli.make_mesh_for(cli.TrainerArgs(accelerator="cpu")) is None
-    for strategy in ("fsdp", "tp", "fsdp_tp", "seq", "ring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    try:
+        # one process: fsdp, seq and ring build JAX's meshes over a
+        # one-process gloo group the mesh starts itself
+        for strategy, axis in (("fsdp", "fsdp"), ("seq", "seq"), ("ring", "seq")):
+            mesh = cli.make_mesh_for(cli.TrainerArgs(accelerator="cpu", strategy=strategy))
+            assert mesh_shape(mesh) == {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1} and axis in mesh.mesh_dim_names
+        assert cli.make_mesh_for(cli.TrainerArgs(accelerator="cpu")) is None  # dp on one process
+        with pytest.raises(ValueError, match="one process per device"):
+            cli.make_mesh_for(cli.TrainerArgs(accelerator="cpu", strategy="fsdp", devices=2))
+    finally:
+        dist.destroy_process_group()
+    for strategy in ("tp", "fsdp_tp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12 part 2"):
             cli.make_mesh_for(cli.TrainerArgs(accelerator="cpu", strategy=strategy))
     with pytest.raises(ValueError, match="unknown strategy"):
         cli.make_mesh_for(cli.TrainerArgs(accelerator="cpu", strategy="ddp_spawn"))

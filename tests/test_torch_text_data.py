@@ -14,6 +14,7 @@ through its ``text_iter_fn`` seam and through a patched streaming
 ``ImportError``: it never reads another source."""
 
 import itertools
+import os
 import sys
 
 import datasets
@@ -110,6 +111,25 @@ def test_hf_module_cache_round_trip_equals_jax(hf, tmp_path):
     again = _all_batches(datamodule.WikiTextDataModule(cache_dir=str(tmp_path / "port"), **kwargs))
     assert len(hf) == calls  # read back from the cache, not loaded again
     assert all(_equal(a, b) for a, b in zip(first, again))
+
+
+def test_hf_module_cache_appears_only_whole(hf, tmp_path, monkeypatch):
+    # the processes of a multi-process run prepare the same cache at once:
+    # nothing may stand under the cache's name until it is written whole
+    real = np.savez
+    writes = []
+
+    def spy(file, *args, **kwargs):
+        writes.append(os.path.basename(str(getattr(file, "name", file))))
+        return real(file, *args, **kwargs)
+
+    monkeypatch.setattr(np, "savez", spy)
+    module = datamodule.WikiTextDataModule(cache_dir=str(tmp_path / "port"), task="clm", max_seq_len=48,
+                                           batch_size=4, seed=1)
+    assert _all_batches(module)
+    name = f"preproc-{module._cache_key()}.npz"
+    assert len(writes) == 1 and writes[0] != name  # written aside, then renamed
+    assert [p.name for p in (tmp_path / "port").iterdir()] == [name]
 
 
 def test_hf_module_without_datasets_raises(monkeypatch):

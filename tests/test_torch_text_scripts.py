@@ -10,8 +10,9 @@ JAX's for the same argv; the sample callback's greedy text and the mask-fill
 callback's fills equal to JAX's on the same weights; the classifier's warm
 start from an MLM artifact with the encoder frozen, its encoder bit for bit
 the artifact's after the fit and its decoder trained; the preprocessing
-CLI's cache equal to JAX's; ``--trainer.strategy=ring|seq`` raising, naming
-ROADMAP A12, before a model is built."""
+CLI's cache equal to JAX's; ``--trainer.strategy=ring|seq`` fitting on one
+process (and refused, before a model is built, by a task without a
+sequence-parallel route)."""
 
 import csv
 import dataclasses
@@ -284,13 +285,26 @@ def test_preproc_cache_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("strategy", ["ring", "seq"])
 def test_ring_and_seq_raise_naming_a12_before_a_model_is_built(strategy, tmp_path, monkeypatch):
+    """ROADMAP A12 part 1 ported them: ``ring`` and ``seq`` now fit, on one
+    process here, through the prefix-sharded loss (``seq`` takes ``ring``'s
+    route); a task without a sequence-parallel route still refuses them
+    before a model is built."""
+    import torch.distributed as dist
+
+    from perceiver_io_tpu_torch.parallel.mesh import mesh_shape
+    from perceiver_io_tpu_torch.scripts import cli
+
     train = _corpus(tmp_path)
+    try:
+        state = _fit(clm.main, tmp_path, strategy, "--data.dataset=textfile", f"--data.train_file={train}",
+                     f"--data.cache_dir={tmp_path / 'cache'}", *CLM_ARGV, f"--trainer.strategy={strategy}")
+        assert mesh_shape(state.mesh) == {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1}
+    finally:
+        dist.destroy_process_group()
 
     def no_model(*args, **kwargs):
         raise AssertionError("a model was built")
 
-    monkeypatch.setattr(clm, "CausalLanguageModel", no_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        clm.main(["fit", "--data.dataset=textfile", f"--data.train_file={train}", *CLM_ARGV,
-                  f"--data.cache_dir={tmp_path / 'cache'}", "--trainer.accelerator=cpu",
-                  f"--trainer.strategy={strategy}", f"--trainer.default_root_dir={tmp_path}"])
+    with pytest.raises(ValueError, match="sequence-parallel loss route"):
+        cli.run_training(no_model, None, None, iter(()), None,
+                         cli.TrainerArgs(accelerator="cpu", strategy=strategy), cli.OptimizerArgs())
