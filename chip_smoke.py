@@ -698,6 +698,12 @@ DIST_LOSS_RTOL, DIST_PARAM_ATOL = 1e-5, 1e-5
 # K2 bf16 keeps it in two bf16 parts)
 RING_RULE = (1.5, 1e-3)
 CLI_STEPS.update(text_clm_fsdp=20, text_clm_ring=3)
+# tensor parallelism and the elastic reshard (ROADMAP A12 part 2, slice 1):
+# tp_clm_bf16 runs fsdp_clm_bf16's DIST_STEPS steps with the tensor-parallel
+# plan over the mesh's tensor axis of 1, image_fsdp_bf16 one classifier step
+# at batch IMAGE_FSDP_BATCH under fsdp 1; each bit for bit against the same
+# steps unsharded (one process: every gather, reduce and all-reduce a copy)
+IMAGE_FSDP_BATCH = 2
 
 
 def step_launches(forward: dict) -> dict:
@@ -6541,16 +6547,172 @@ def text_clm_cli_fsdp_bf16_phase(card: str, root: str, by_phase: dict) -> None:
         ring_steps, kernels, on_mesh)
 
 
+def placed_against_unsharded(name: str, card: str, build, place, loss_fn, batch: dict, steps: int,
+                             per_step: dict, extra=None) -> dict:
+    """``steps`` eager train steps of a state from ``build()`` and of the same
+    state placed by ``place`` (a fresh build: the same weights), each on the
+    same batch: the losses and the parameters after the steps bit for bit,
+    each kind's launches exactly ``per_step`` a step (bf16 builds), its step
+    times and peak memory. ``extra(state)`` adds the placed state's fields
+    to the report. Returns the placed run's launches."""
+    from perceiver_io_tpu_torch import training as tt
+
+    runs, params, report = {}, {}, {"card": card, "steps": steps}
+    for kind in ("unsharded", "placed"):
+        state = build()
+        if kind == "placed":
+            state = place(state)
+            if extra is not None:
+                report.update(extra(state))
+        step = tt.make_train_step(loss_fn, jit=False)
+        runs[kind] = dist_steps(state, step, batch, steps)
+        params[kind] = [(p.full_tensor() if kind == "placed" else p).detach().clone()
+                        for p in state.model.parameters()]
+        del state, step
+        free_card()
+    param_err = max(max_err(a, b) for a, b in zip(params["placed"], params["unsharded"]))
+    report.update(loss_equal=runs["placed"]["losses"] == runs["unsharded"]["losses"], param_max_abs_diff=param_err,
+                  **runs)
+    log(f"{name}: " + json.dumps(report))
+    TIMES[name] = {kind: {"median_step_ms": statistics.median(run["step_ms"]), "step_ms": run["step_ms"],
+                          "peak_memory_gb": run["peak_memory_gb"]} for kind, run in runs.items()}
+    del params
+    if not all(map(math.isfinite, runs["placed"]["losses"])) or not report["loss_equal"] or param_err != 0.0:
+        raise SystemExit(f"{name}: the placed steps differ from the unsharded ones: {report}")
+    for kind, run in runs.items():
+        check_per_step(f"{name} {kind}", run["launches"], per_step, steps)
+    return runs["placed"]["launches"]
+
+
+def tp_clm_bf16_phase(card: str, mesh) -> dict:
+    """fsdp_clm_bf16's model, optimizer and batch under ``shard_train_state``
+    with the tensor-parallel plan forced over the (data 1, fsdp 1, tensor 1)
+    mesh (``tensor_parallel=True``: ``parallelize_module`` column- and
+    row-parallel on every attention and MLP, each Linear's weight a DTensor
+    over the tensor axis, the row-parallel sums NCCL all-reduces), against
+    the same DIST_STEPS steps unsharded: bit for bit, DIST_PER_STEP's
+    launches a step. Returns the placed run's launches."""
+    from torch.distributed.tensor import DTensor
+
+    from perceiver_io_tpu_torch import training as tt
+
+    def build():
+        return tt.TrainState.create(dist_model(torch.bfloat16), tt.make_optimizer(
+            TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16"))
+
+    def tensor_parallel(state):
+        linears = [m for m in state.model.modules() if isinstance(m, torch.nn.Linear)]
+        tp = [m for m in linears if "tensor" in m.weight.device_mesh.mesh_dim_names]
+        if not tp or not all(isinstance(m.weight, DTensor) for m in linears):
+            raise SystemExit(f"tp_clm_bf16: the tensor-parallel plan placed {len(tp)} of {len(linears)} Linears")
+        return {"mesh": "data=1 fsdp=1 tensor=1 seq=1", "tensor_parallel_linears": len(tp), "linears": len(linears)}
+
+    return placed_against_unsharded(
+        "tp_clm_bf16", card, build, lambda s: tt.shard_train_state(s, mesh, tensor_parallel=True),
+        tt.clm_loss_fn(FLAGSHIP["max_latents"]), dist_batch(), DIST_STEPS, DIST_PER_STEP, tensor_parallel)
+
+
+def image_fsdp_bf16_phase(card: str, mesh) -> dict:
+    """One step of the flagship image classifier in bf16 (image_train_bf16's
+    optimizer) at batch IMAGE_FSDP_BATCH under ``shard_train_state`` on the
+    (data 1, fsdp 1) mesh, FSDP2 gathering its one-head cross-attention's
+    unit through the registered ``call_with_split_kv`` (K8, K9a, K9b),
+    against the same step unsharded: bit for bit, IMAGE_STEP's launches.
+    Returns the placed run's launches."""
+    from perceiver_io_tpu_torch import training as tt
+
+    def build():
+        return tt.TrainState.create(image_classifier("cuda", torch.bfloat16),
+                                    tt.make_optimizer(IMAGE_LR, gradient_clip=1.0))
+
+    return placed_against_unsharded(
+        "image_fsdp_bf16", card, build, lambda s: tt.shard_train_state(s, mesh), tt.classification_loss_fn(),
+        image_batch(IMAGE_FSDP_BATCH, IMAGE_ENCODER["image_shape"], SEED + 50), 1, IMAGE_STEP)
+
+
+class EventRows:
+    """An ``emit()`` sink keeping the rows."""
+
+    def __init__(self):
+        self.rows = []
+
+    def emit(self, kind: str, **fields) -> None:
+        self.rows.append(dict(fields, event=kind))
+
+
+def elastic_bf16_phase(card: str, mesh) -> dict:
+    """The elastic reshard on the card: a flagship bf16 state after one train
+    step (fsdp_clm_bf16's model and optimizer: bf16 moments) saved
+    unsharded, restored with ``restore(mesh=...)`` onto the (data 1, fsdp 1)
+    mesh, saved there and restored back onto a fresh unsharded state. The
+    parameters and the optimizer's state bit for bit after each restore, one
+    ``resume.reshard`` event each (printed), its meshes the two placements.
+    Returns the step's launches."""
+    import tempfile
+
+    from perceiver_io_tpu_torch import training as tt
+    from perceiver_io_tpu_torch.training.checkpoint import _whole_payload
+
+    def build():
+        return tt.TrainState.create(dist_model(torch.bfloat16), tt.make_optimizer(
+            TRAIN_LR, gradient_clip=1.0, moment_dtype="bfloat16"))
+
+    def whole(state):
+        model, optimizer = _whole_payload(state, weights_only=False)
+        return [t.detach().cpu().clone() for t in list(model.values()) + optimizer]
+
+    from perceiver_io_tpu_torch.ops import build as ops_build
+
+    state = build()
+    ops_build.reset_launches()
+    state, _ = tt.make_train_step(tt.clm_loss_fn(FLAGSHIP["max_latents"]), jit=False)(state, dist_batch())
+    launches = nonzero_launches()
+    want = whole(state)
+    report, equal = {"card": card, "tensors": len(want)}, {}
+    saved, state = state, None
+    with tempfile.TemporaryDirectory() as root:
+        for leg, source, target in (("to_mesh", saved, mesh), ("back", None, None)):
+            sink = EventRows()
+            if source is not None:
+                tt.CheckpointManager(f"{root}/{leg}", monitor=None).save(source)
+                saved = source = None
+            manager = tt.CheckpointManager(f"{root}/{leg}", monitor=None, event_sink=sink)
+            t0 = time.perf_counter()
+            restored = manager.restore(build(), mesh=target)
+            torch.cuda.synchronize()
+            report[f"{leg}_restore_s"] = time.perf_counter() - t0
+            equal[leg] = all(torch.equal(a, b) for a, b in zip(whole(restored), want))
+            report[f"{leg}_events"] = sink.rows
+            manager.close()
+            if leg == "to_mesh":
+                tt.CheckpointManager(f"{root}/back", monitor=None).save(restored)
+            del restored
+            free_card()
+    report["bit_for_bit"] = equal
+    log("elastic_bf16: " + json.dumps(report))
+    mesh_1 = {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1}
+    meshes = [(r["old_mesh"], r["new_mesh"]) for leg in equal for r in report[f"{leg}_events"]]
+    if not all(equal.values()) or meshes != [(None, mesh_1), (mesh_1, None)]:
+        raise SystemExit(f"elastic_bf16: the restores differ or their reshard events are wrong: {report}")
+    return launches
+
+
 def a12_phases(card: str, by_phase: dict) -> None:
-    """Training across processes (ROADMAP A12, part 1) on the card's
-    one-process NCCL group: dist_nccl, fsdp_clm_bf16, ring_clm_bf16 and
-    text_clm_cli_fsdp_bf16; each phase's launches into ``by_phase``."""
+    """Training across processes (ROADMAP A12, parts 1 and 2) on the card's
+    one-process NCCL group: dist_nccl, fsdp_clm_bf16, ring_clm_bf16,
+    tp_clm_bf16, elastic_bf16, image_fsdp_bf16 and text_clm_cli_fsdp_bf16;
+    each phase's launches into ``by_phase``."""
     import tempfile
 
     t0 = time.perf_counter()
     mesh = dist_nccl_phase(card)
     by_phase["fsdp_clm" + BF16] = fsdp_clm_bf16_phase(card, mesh)
     by_phase["ring_clm" + BF16] = ring_clm_bf16_phase(card)
+    t1 = time.perf_counter()
+    by_phase["tp_clm" + BF16] = tp_clm_bf16_phase(card, mesh)
+    by_phase["elastic" + BF16] = elastic_bf16_phase(card, mesh)
+    by_phase["image_fsdp" + BF16] = image_fsdp_bf16_phase(card, mesh)
+    log(f"a12 part 2 phases: {time.perf_counter() - t1:.1f} s card={card}")
     with tempfile.TemporaryDirectory() as root:
         text_clm_cli_fsdp_bf16_phase(card, root, by_phase)
     free_card()

@@ -75,6 +75,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from perceiver_io_tpu_torch.core.cache import KVCache, PagedKVCache
 from perceiver_io_tpu_torch.core.dropout import dropout as apply_dropout
@@ -112,8 +113,29 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     else:
         x_dt, w_dt = x.to(dtype), linear.weight.to(dtype)
         bias = None if linear.bias is None else linear.bias.to(dtype)
+    if isinstance(w_dt, DTensor):
+        return _tensor_parallel_linear(x_dt, w_dt, bias)
     y = offloaded_linear(x_dt, w_dt, bias)
     return nn.functional.linear(x_dt, w_dt, bias) if y is None else y
+
+
+def _tensor_parallel_linear(x: torch.Tensor, weight, bias) -> torch.Tensor:
+    """A Linear sharded over the mesh's ``tensor`` axis
+    (``training.loop.shard_train_state``'s ``parallelize_module``): what
+    ``ColwiseParallel`` and ``RowwiseParallel`` do around a module call,
+    which :func:`dense`'s cast to the compute dtype bypasses. Column-parallel
+    (the weight's ``Shard(0)``): the replicated input in, this rank's block
+    of the output channels out. Row-parallel (``Shard(1)``): this rank's
+    block of the input channels in, the whole output, summed over the axis,
+    out. In the backward the replicated input's gradient is summed over the
+    axis (``DTensor.from_local``'s)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = weight.device_mesh
+    col = weight.placements[0] == Shard(0)
+    xd = DTensor.from_local(x, mesh, [Replicate()] if col else [Shard(x.dim() - 1)], run_check=False)
+    y = nn.functional.linear(xd, weight, bias)
+    return y.to_local() if col else y.redistribute(mesh, [Replicate()]).to_local()
 
 
 class AttentionOutput(NamedTuple):
@@ -158,6 +180,22 @@ class MultiHeadAttention(nn.Module):
 
     def _proj(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return dense(linear, x, self.dtype)
+
+    # the size of the tensor axis this layer's heads are split over
+    # (``shard_heads``); 1 where it holds every head
+    tensor_size = 1
+
+    def shard_heads(self, tensor_size: int) -> None:
+        """Hold ``num_heads / tensor_size`` heads, the local ones of a
+        tensor-parallel rank (``training.loop.shard_train_state``): the
+        projections' sharded channels are whole heads, so every route and
+        kernel runs on the local heads as on a narrower layer."""
+        if self.num_heads % tensor_size:
+            raise ValueError(f"{self.num_heads} heads do not split over a tensor axis of {tensor_size}")
+        self.tensor_size = tensor_size
+        self.num_heads //= tensor_size
+        self.qk_channels //= tensor_size
+        self.v_channels //= tensor_size
 
     @property
     def d_qk(self) -> int:

@@ -280,6 +280,11 @@ class _LayerOptions:
         masks), in that order, None where a dropout is inactive."""
         if deterministic:
             return (None,) * (1 + residuals)
+        if attention and mha.dropout > 0.0 and mha.tensor_size > 1:
+            # a rank holds num_heads / tensor heads: it cannot draw its block
+            # of JAX's mask over every head (ROADMAP §C)
+            raise NotImplementedError("dropout on the attention probabilities of a tensor-parallel layer: set the "
+                                      "attention dropout to 0 or shard without tensor parallelism")
         b, n, dev = x_q.shape[0], x_q.shape[1], x_q.device
         attn = keep_mask(mha, 0, (b, mha.num_heads, n, n_kv), mha.dropout, generator, dev) if attention else None
         res = tuple(keep_mask(self, i, x_q.shape, self.residual_dropout, generator, dev) for i in range(residuals))

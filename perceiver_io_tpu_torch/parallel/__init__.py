@@ -3,9 +3,9 @@ of ``perceiver_io_tpu/parallel/``, under the JAX package's names):
 ``dist`` (process roles, the group's start), ``mesh`` (the 4-axis
 ``DeviceMesh``, the batch split, JAX's FSDP placement rule),
 ``ring_attention`` (the sequence-sharded cross-attention and ring
-self-attention) and ``long_context`` (the prefix-sharded CLM). Tensor
-parallelism (``param_shardings``) and the overlap step (``overlap.py``) are
-ROADMAP A12 part 2."""
+self-attention) and ``long_context`` (the prefix-sharded CLM); ``mesh``
+also holds JAX's tensor-parallel rule (``param_shardings``). The overlap
+step (``overlap.py``) is ROADMAP A12 part 2, slice 2."""
 
 from perceiver_io_tpu_torch.parallel.dist import (
     is_main_process,
@@ -22,6 +22,7 @@ from perceiver_io_tpu_torch.parallel.mesh import (
     MESH_AXES,
     fsdp_param_shardings,
     make_mesh,
+    param_shardings,
     shard_batch,
 )
 from perceiver_io_tpu_torch.parallel.ring_attention import (
@@ -44,6 +45,7 @@ __all__ = [
     "MESH_AXES",
     "fsdp_param_shardings",
     "make_mesh",
+    "param_shardings",
     "shard_batch",
     "make_ring_cross_attention",
     "make_ring_self_attention",

@@ -16,16 +16,22 @@ out its devices:
   parameters and the optimizer's state are sharded over ``fsdp``
   (``training.loop.shard_train_state``, FSDP2's ``fully_shard``), one
   parameter dim each (:func:`fsdp_param_shardings`, JAX's rule);
+- **tensor** (Megatron-style, JAX's ``param_shardings``): ``q_proj``,
+  ``k_proj``, ``v_proj`` and the MLP's ``dense_1`` column-parallel (output
+  dim and bias sharded), ``o_proj`` and ``dense_2`` row-parallel (input dim
+  sharded), FSDP on a remaining dim (:func:`param_shardings`), applied by
+  ``training.loop.shard_train_state`` with ``parallelize_module``;
 - **seq** shards the CLM prefix (``parallel.long_context``).
 
-Tensor parallelism (``tensor > 1``) is ROADMAP A12 part 2 and raises.
+``tensor`` and ``seq`` on one mesh (no strategy of the JAX CLI builds it)
+raise (ROADMAP A12 part 2, slice 2).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,6 +58,9 @@ def make_mesh(data: Optional[int] = None, fsdp: int = 1, tensor: int = 1, seq: i
     errors)."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    if tensor > 1 and seq > 1:
+        raise NotImplementedError(f"tensor={tensor} with seq={seq} on one mesh: no strategy builds it; it waits "
+                                  "for ROADMAP A12 part 2, slice 2")
     dev = torch.device(device)
     if not dist.is_initialized() and not pdist.maybe_initialize_distributed(dev):
         world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -67,9 +76,6 @@ def make_mesh(data: Optional[int] = None, fsdp: int = 1, tensor: int = 1, seq: i
         data = n // fixed
     if data * fixed != n:
         raise ValueError(f"mesh {data}x{fsdp}x{tensor}x{seq} != {n} devices")
-    if tensor > 1:
-        raise NotImplementedError(f"tensor={tensor}: tensor parallelism (strategies tp and fsdp_tp) waits for "
-                                  "ROADMAP A12 part 2")
     return init_device_mesh(dev.type, (data, fsdp, tensor, seq), mesh_dim_names=MESH_AXES)
 
 
@@ -156,32 +162,99 @@ def fsdp_param_shardings(model: nn.Module, mesh=None, min_weight_size: int = 2**
                          fsdp_size: Optional[int] = None) -> Dict[str, Optional[int]]:
     """``{name: dim or None}``: the dim of each parameter of ``model`` that
     JAX's ``fsdp_param_shardings`` shards over ``fsdp`` (None where it
-    replicates). The rule runs on the JAX shape and the dim maps across the
-    transpose of a Linear weight: on a square weight JAX shards its output
-    axis (the later one of the kernel), which is dim 0 here; the rule run on
-    the torch shape would pick the input axis. ``fsdp_size`` stands in for
-    the mesh's fsdp size (e.g. on a ``"meta"`` model without a group)."""
-    size = axis_size(mesh, AXIS_FSDP) if fsdp_size is None else fsdp_size
-    transposed = _transposed_weights(model)
-    out = {}
-    for name, p in model.named_parameters():
-        shape = tuple(p.shape)
-        if name in transposed and len(shape) == 2:
-            d = _fsdp_dim(shape[::-1], size, min_weight_size)
-            out[name] = None if d is None else 1 - d
-        else:
-            out[name] = _fsdp_dim(shape, size, min_weight_size)
+    replicates): :func:`param_shardings` without a tensor axis. The rule runs
+    on the JAX shape and the dim maps across the transpose of a Linear
+    weight: on a square weight JAX shards its output axis (the later one of
+    the kernel), which is dim 0 here; the rule run on the torch shape would
+    pick the input axis. ``fsdp_size`` stands in for the mesh's fsdp size
+    (e.g. on a ``"meta"`` model without a group)."""
+    dims = param_shardings(model, mesh, min_weight_size, fsdp_size=fsdp_size, tensor_size=1)
+    return {name: d[1] for name, d in dims.items()}
+
+
+def tensor_parallel_linears(model: nn.Module, tensor_size: int) -> Dict[str, str]:
+    """``{module name: "col" | "row"}``: the Linears of ``model`` the port
+    shards over a ``tensor`` axis of ``tensor_size`` (JAX's ``_tensor_spec``
+    names): in each attention whose HEADS ``tensor_size`` divides, ``q_proj``,
+    ``k_proj`` and ``v_proj`` column-parallel and ``o_proj`` row-parallel; in
+    each MLP whose hidden width it divides, ``dense_1`` (child ``1``)
+    column-parallel and ``dense_2`` (child ``3``) row-parallel (every one of
+    them over an axis of 1).
+
+    JAX's GSPMD shards a projection whose channels divide even where its
+    heads do not, splitting inside a head; the port attends whole heads on
+    each rank, so such an attention keeps its four projections replicated
+    (the values are the same; ROADMAP §C)."""
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+    from perceiver_io_tpu_torch.core.modules import MLP
+
+    out: Dict[str, str] = {}
+    for name, m in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(m, MultiHeadAttention) and m.num_heads % tensor_size == 0:
+            out.update({f"{prefix}{p}": "col" for p in ("q_proj", "k_proj", "v_proj")})
+            out[f"{prefix}o_proj"] = "row"
+        elif isinstance(m, MLP) and m[1].out_features % tensor_size == 0:
+            out[f"{prefix}1"], out[f"{prefix}3"] = "col", "row"
     return out
 
 
-def fsdp_placement_fn(model: nn.Module, mesh, min_weight_size: int = 2**14):
-    """FSDP2's ``shard_placement_fn``: ``Shard(dim)`` on the dim of
-    :func:`fsdp_param_shardings`, ``Shard(0)`` where JAX replicates (FSDP2
-    shards every parameter of a unit; the values are the same)."""
+def param_shardings(model: nn.Module, mesh=None, min_weight_size: int = 2**14, fsdp_size: Optional[int] = None,
+                    tensor_size: Optional[int] = None) -> Dict[str, Tuple[Optional[int], Optional[int]]]:
+    """``{name: (tensor dim, fsdp dim)}``, each None where the axis does not
+    shard the parameter: JAX's ``param_shardings`` on the port's parameters.
+    The tensor dim is that of :func:`tensor_parallel_linears` (a
+    column-parallel weight's output dim 0 and its bias, a row-parallel
+    weight's input dim 1); the fsdp dim is JAX's rule run on the JAX shape
+    with the tensor's axis excluded, mapped across the transpose of a Linear
+    weight (:func:`fsdp_param_shardings`). ``fsdp_size``/``tensor_size``
+    stand in for the mesh's sizes."""
+    fsdp = axis_size(mesh, AXIS_FSDP) if fsdp_size is None else fsdp_size
+    tensor = axis_size(mesh, AXIS_TENSOR) if tensor_size is None else tensor_size
+    tp = tensor_parallel_linears(model, tensor) if tensor > 1 else {}
+    transposed = _transposed_weights(model)
+    out = {}
+    for name, p in model.named_parameters():
+        module, _, leaf = name.rpartition(".")
+        kind = tp.get(module)
+        shape = tuple(p.shape)
+        flip = name in transposed and len(shape) == 2
+        jax_shape = shape[::-1] if flip else shape
+        t_dim = None  # in torch dims
+        if kind == "col":
+            t_dim = 0
+        elif kind == "row" and leaf == "weight":
+            t_dim = 1
+        exclude = () if t_dim is None else ((1 - t_dim) if flip else t_dim,)
+        d = _fsdp_dim(jax_shape, fsdp, min_weight_size, exclude)
+        out[name] = (t_dim, None if d is None else (1 - d if flip else d))
+    return out
+
+
+def jax_spec(shape, dims: Tuple[Optional[int], Optional[int]], transposed: bool) -> str:
+    """The ``str`` of JAX's ``PartitionSpec`` for a parameter of torch
+    ``shape`` placed on ``dims`` (:func:`param_shardings`), on the JAX shape
+    (a Linear weight's axes reversed): ``"PartitionSpec(None, 'fsdp')"``,
+    ``"PartitionSpec('tensor',)"``."""
+    names = [None] * len(shape)
+    for axis, d in zip((AXIS_TENSOR, AXIS_FSDP), dims):
+        if d is not None:
+            names[d] = axis
+    if transposed:
+        names = names[::-1]
+    body = ", ".join("None" if a is None else repr(a) for a in names)
+    return f"PartitionSpec({body}{',' if len(names) == 1 else ''})"
+
+
+def fsdp_placement_fn(model: nn.Module, dims: Dict[str, Optional[int]]):
+    """FSDP2's ``shard_placement_fn`` over ``model``'s parameters as they
+    are now (a tensor-parallel plan replaces them): ``Shard(dim)`` on the
+    fsdp dim ``dims[name]`` (:func:`param_shardings`), ``Shard(0)`` where JAX
+    replicates (FSDP2 shards every parameter of a unit; the values are the
+    same)."""
     from torch.distributed.tensor import Shard
 
-    dims = fsdp_param_shardings(model, mesh, min_weight_size)
-    by_id = {id(p): dims[name] for name, p in model.named_parameters()}
+    by_id = {id(p): dims.get(name) for name, p in model.named_parameters()}
 
     def placement(param: nn.Parameter):
         d = by_id.get(id(param))
@@ -195,18 +268,23 @@ def replicate_group_mesh(mesh):
     shard dim, and ``data`` with ``seq`` the replicate dim (the gradients are
     averaged over both: the batch blocks of ``data``, and the prefix blocks
     of the sequence-parallel loss, whose replicated latent stack sees each
-    rank's upstream gradient n-fold). The same object for the same mesh."""
+    rank's upstream gradient n-fold). ``tensor`` is left out: its ranks hold
+    different blocks of the tensor-parallel weights, whose gradients must
+    not be averaged, and the same gradient of the others. The same object
+    for the same mesh."""
     from torch.distributed.device_mesh import DeviceMesh
 
     cached = getattr(mesh, "_pio_fsdp_mesh", None)
     if cached is not None:
         return cached
-    ranks = mesh.mesh.reshape(*(axis_size(mesh, a) for a in MESH_AXES))
-    d, f, t, s = ranks.shape
-    grid = ranks.permute(0, 3, 2, 1).reshape(d * s * t, f)
     if axis_size(mesh, AXIS_SEQ) == 1:
         out = mesh[AXIS_DATA, AXIS_FSDP]
     else:
+        if axis_size(mesh, AXIS_TENSOR) != 1:
+            raise NotImplementedError("tensor with seq on one mesh waits for ROADMAP A12 part 2, slice 2")
+        ranks = mesh.mesh.reshape(*(axis_size(mesh, a) for a in MESH_AXES))
+        d, f, _, s = ranks.shape
+        grid = ranks.permute(0, 3, 2, 1).reshape(d * s, f)
         out = DeviceMesh(mesh.device_type, grid, mesh_dim_names=("replicate", AXIS_FSDP))
     mesh._pio_fsdp_mesh = out
     return out
@@ -216,16 +294,27 @@ def mesh_shape(mesh) -> Dict[str, int]:
     return {a: axis_size(mesh, a) for a in MESH_AXES}
 
 
+def _is_strided(placement) -> bool:
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return isinstance(placement, _StridedShard)
+
+
 def local_chunk(full: torch.Tensor, dparam) -> torch.Tensor:
     """This rank's block of ``full`` as the DTensor ``dparam`` lays it out
     (``torch.chunk`` along each sharded dim, as FSDP2 and DTensor split; a
-    rank past the last chunk holds an empty block)."""
+    rank past the last chunk holds an empty block). The mesh dims split in
+    their order, except a ``_StridedShard`` (FSDP2's shard of a
+    tensor-parallel block on the same dim), which splits after the later
+    dims' shards: the fsdp block of this rank's tensor block."""
     mesh, coord = dparam.device_mesh, dparam.device_mesh.get_coordinate()
+    order = [i for i, p in enumerate(dparam.placements) if p.is_shard() and not _is_strided(p)]
+    order += [i for i, p in enumerate(dparam.placements) if _is_strided(p)]
     out = full
-    for i, placement in enumerate(dparam.placements):
-        if placement.is_shard():
-            chunks = torch.chunk(out, mesh.size(i), dim=placement.dim)
-            out = chunks[coord[i]] if coord[i] < len(chunks) else out.narrow(placement.dim, 0, 0)
+    for i in order:
+        dim = dparam.placements[i].dim
+        chunks = torch.chunk(out, mesh.size(i), dim=dim)
+        out = chunks[coord[i]] if coord[i] < len(chunks) else out.narrow(dim, 0, 0)
     return out
 
 

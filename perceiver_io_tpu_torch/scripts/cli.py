@@ -15,10 +15,11 @@ The CLI runs on the card (``--trainer.accelerator=gpu``, the default);
 processes it runs under ``torchrun`` (one process per card; NCCL on the
 card, gloo with ``--trainer.accelerator=cpu``): ``torchrun
 --nproc_per_node=N -m perceiver_io_tpu_torch.scripts.text.clm fit
---trainer.strategy=fsdp ...``. The strategies ``dp``, ``fsdp``, ``seq`` and
-``ring`` build JAX's meshes; ``seq`` takes the explicit prefix-sharded route
-of ``ring`` (the port has no GSPMD); ``tp`` and ``fsdp_tp`` wait for ROADMAP
-A12 part 2 and raise.
+--trainer.strategy=fsdp ...``. The strategies ``dp``, ``fsdp``, ``tp``,
+``fsdp_tp``, ``seq`` and ``ring`` build JAX's meshes; ``tp`` and ``fsdp_tp``
+shard the projections over the ``tensor`` axis
+(``training.loop.shard_train_state``); ``seq`` takes the explicit
+prefix-sharded route of ``ring`` (the port has no GSPMD).
 """
 
 from __future__ import annotations
@@ -136,8 +137,8 @@ class TrainerArgs:
     precision: str = "float32"  # float32 | bfloat16 (params stay f32)
     gradient_clip_val: Optional[float] = None
     accumulate_grad_batches: int = 1
-    # dp | fsdp | seq | ring over the processes of the run (torchrun);
-    # tp | fsdp_tp wait for ROADMAP A12 part 2 (make_mesh_for raises)
+    # dp | fsdp | tp | fsdp_tp | seq | ring over the processes of the run
+    # (torchrun; make_mesh_for)
     strategy: str = "dp"
     fsdp_min_weight_size: int = 2**14
     devices: int = -1  # -1 = all visible
@@ -311,14 +312,11 @@ def make_mesh_for(trainer: TrainerArgs):
     the run's processes (one a device; ``torchrun`` starts them, and a
     one-process run needs no launcher): ``dp`` on one process needs no mesh
     (None, as in the JAX function), ``dp`` on more is ``data=n``, ``fsdp``
-    ``fsdp=n``, ``seq`` and ``ring`` ``seq=n``. ``tp`` and ``fsdp_tp`` raise
-    (ROADMAP A12 part 2). ``--trainer.devices`` must match the process count
-    where it is set."""
+    ``fsdp=n``, ``tp`` ``tensor=n``, ``fsdp_tp`` ``tensor=2`` where n is
+    even (else 1) and ``fsdp=n/tensor``, ``seq`` and ``ring`` ``seq=n``.
+    ``--trainer.devices`` must match the process count where it is set."""
     if trainer.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy: {trainer.strategy} (expected {'|'.join(STRATEGIES)})")
-    if trainer.strategy in ("tp", "fsdp_tp"):
-        raise NotImplementedError(f"--trainer.strategy={trainer.strategy}: tensor parallelism waits for ROADMAP A12 "
-                                  "part 2")
     import torch.distributed as dist
 
     from perceiver_io_tpu_torch.device import resolve_device
@@ -335,6 +333,11 @@ def make_mesh_for(trainer: TrainerArgs):
         return make_mesh(data=n, device=device)
     if trainer.strategy == "fsdp":
         return make_mesh(data=1, fsdp=n, device=device)
+    if trainer.strategy == "tp":
+        return make_mesh(data=1, tensor=n, device=device)
+    if trainer.strategy == "fsdp_tp":
+        tensor = 2 if n % 2 == 0 else 1
+        return make_mesh(data=1, fsdp=n // tensor, tensor=tensor, device=device)
     return make_mesh(data=1, seq=n, device=device)
 
 

@@ -44,7 +44,7 @@ def make_sample_callback(tokenizer, task_args: CLMTaskArgs):
     ``generate`` on the trained model, its draws from a CPU generator
     seeded by the step (the JAX package's ``PRNGKey(step)``). A sharded
     state (a mesh) logs no sample: generation from sharded weights waits for
-    ROADMAP A12 part 2."""
+    ROADMAP A12 part 2, slice 2."""
 
     def callback(trainer, state, step):
         if task_args.sample_prompt is None or getattr(state, "mesh", None) is not None:

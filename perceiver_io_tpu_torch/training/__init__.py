@@ -16,6 +16,7 @@ from perceiver_io_tpu_torch.training.checkpoint import (
     load_pretrained,
     save_config,
     save_pretrained,
+    sharding_fingerprint,
 )
 from perceiver_io_tpu_torch.training.faults import (
     DivergenceHalt,
@@ -81,6 +82,7 @@ __all__ = [
     "load_pretrained",
     "save_config",
     "save_pretrained",
+    "sharding_fingerprint",
     "Optimizer",
     "TrainState",
     "classification_loss_fn",

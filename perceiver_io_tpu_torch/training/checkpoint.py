@@ -33,10 +33,15 @@ What differs from the JAX package, and why:
 - A sharded state (``training.loop.shard_train_state``) is saved whole:
   every rank gathers the parameters and the optimizer's moments from their
   shards (a collective) and process 0 writes them; a restore reads the whole
-  payload on every rank and copies each rank's block into its shards. The
-  step records the mesh's shape; a restore onto a mesh of another shape
-  raises, as do the sharding fingerprint and the elastic reshard (ROADMAP
-  A12 part 2).
+  payload on every rank and copies each rank's block into its shards
+  (``parallel.mesh.local_chunk``), whatever mesh it was saved on: the
+  elastic resume. Each step records the JAX package's sharding fingerprint
+  (:func:`sharding_fingerprint`: the mesh, each leaf's placement by JAX's
+  rule, the process count); a restore whose placement differs emits JAX's
+  ``resume.reshard`` event. Every restore takes what JAX calls its
+  host-gather path (the whole tensors on the host, then each rank's block),
+  so the event's ``path`` is ``"host_gather"``; JAX's direct path reads each
+  shard into its new layout.
 
 On disk, a step is a directory ``<step>/`` holding ``state.pt``. It is
 written into a tmp directory, renamed into place, and committed by the
@@ -54,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import math
 import os
 import pickle
 import shutil
@@ -308,6 +314,93 @@ def _mesh_shape(state) -> Optional[dict]:
     from perceiver_io_tpu_torch.parallel.mesh import mesh_shape
 
     return mesh_shape(mesh)
+
+
+# -- mesh/sharding fingerprints (elastic resume) ------------------------------
+#
+# Every save records where the payload lived: the mesh's axis sizes, each
+# leaf's placement as the string of JAX's PartitionSpec by JAX's rule
+# (parallel.mesh.param_shardings, which FSDP2's placement of every parameter
+# does not show: it shards what JAX replicates), its whole shape, dtype and
+# bytes, and the process count. A restore compares it with the target's.
+
+FINGERPRINT_VERSION = 1
+_REPLICATED = "PartitionSpec()"
+
+
+def _leaf(spec: Optional[str], t: torch.Tensor, kind: str, shape=None) -> dict:
+    shape = [int(n) for n in (t.shape if shape is None else shape)]
+    return {"spec": spec, "shape": shape, "dtype": str(t.dtype).replace("torch.", ""),
+            "bytes": t.element_size() * max(1, math.prod(shape)), "kind": kind}
+
+
+def sharding_fingerprint(state, weights_only: bool = False) -> dict:
+    """The JAX package's mesh/sharding fingerprint of ``state``'s payload:
+    ``{"version", "mesh", "process_count", "leaves"}``. Leaves are the
+    model's parameters (``['params']['<name>']``, kind ``param``) and
+    buffers (kind ``buffer``), the optimizer's state tensors
+    (``['opt_state'][i]``: kind ``moment`` where one mirrors a parameter,
+    else ``scalar``), the step and the generator (kind ``other``). On a
+    mesh a parameter's spec is JAX's ``PartitionSpec`` on the JAX shape
+    (``state.placement``), a moment's its parameter's, every other leaf
+    ``PartitionSpec()``; without a mesh every spec is ``"single"`` and the
+    mesh None, as for JAX's leaves on one device."""
+    from perceiver_io_tpu_torch.parallel.dist import process_count
+    from perceiver_io_tpu_torch.parallel.mesh import _transposed_weights, jax_spec
+
+    mesh = _mesh_shape(state)
+    placement = getattr(state, "placement", None) or {}
+    transposed = _transposed_weights(state.model)
+    params = dict(state.model.named_parameters())
+
+    def spec(name=None, shape=()):
+        if mesh is None:
+            return "single"
+        if name is None or name not in placement:
+            return _REPLICATED
+        return jax_spec(shape, placement[name], name in transposed and len(shape) == 2)
+
+    leaves = {"['step']": {"spec": spec(), "shape": [], "dtype": "int64", "bytes": 8, "kind": "other"}}
+    for name, t in state.model.state_dict().items():
+        shape = tuple(t.shape)
+        leaves[f"['params']['{name}']"] = _leaf(spec(name, shape), t, "param" if name in params else "buffer")
+    if not weights_only:
+        names = {id(p): n for n, p in params.items()}
+        opt = state.optimizer
+        mirrored = opt.params if opt.dparams is None else opt.dparams  # the model's parameter objects
+        owners = [None if o is None else names.get(id(mirrored[o])) for o in opt.state_owners()[len(opt.params):]]
+        for i, (t, shape, owner) in enumerate(zip(_optimizer_tensors(state), _optimizer_shapes(state), owners)):
+            leaves[f"['opt_state'][{i}]"] = _leaf(spec(owner, shape) if owner else spec(), t,
+                                                  "moment" if owner else "scalar", shape)
+    if state.generator is not None:
+        g = state.generator.get_state()
+        leaves["['generator']"] = _leaf(spec(), g, "other")
+    return {"version": FINGERPRINT_VERSION, "mesh": mesh, "process_count": process_count(), "leaves": leaves}
+
+
+def diff_fingerprints_for_reshard(saved: dict, target: dict) -> dict:
+    """What a restore onto ``target`` placement moves relative to ``saved``
+    (the JAX package's function): leaves whose (mesh, spec) changed, and
+    their total bytes. Feeds the ``resume.reshard`` event."""
+    mesh_changed = saved.get("mesh") != target.get("mesh")
+    moved, bytes_moved = 0, 0
+    saved_leaves = saved.get("leaves", {})
+    for path, rec in target.get("leaves", {}).items():
+        old = saved_leaves.get(path)
+        if old is None:
+            continue
+        if mesh_changed or old.get("spec") != rec.get("spec"):
+            moved += 1
+            bytes_moved += int(rec.get("bytes", 0))
+    return {
+        "mesh_changed": mesh_changed,
+        "leaves_resharded": moved,
+        "bytes_moved": bytes_moved,
+        "old_mesh": saved.get("mesh"),
+        "new_mesh": target.get("mesh"),
+        "old_process_count": saved.get("process_count"),
+        "new_process_count": target.get("process_count"),
+    }
 
 
 def _whole_payload(state, weights_only: bool) -> tuple:
@@ -755,6 +848,7 @@ class CheckpointManager:
             raise ValueError(f"metrics must contain monitored key {self.monitor!r}")
         # a sharded state is gathered on every process before any returns
         model, optimizer = _whole_payload(state, self.save_weights_only)
+        fingerprint = sharding_fingerprint(state, self.save_weights_only)
         if not self._main_process:
             return False
         self.wait_until_finished()
@@ -775,7 +869,7 @@ class CheckpointManager:
             payload["optimizer"] = copies[len(model):]
         meta = {"step": step, "weights_only": self.save_weights_only, "metrics": metrics,
                 "tensors": _tensor_spec(state, self.save_weights_only), "generator": _generator_kind(state),
-                "mesh": _mesh_shape(state)}
+                "mesh": _mesh_shape(state), "fingerprint": fingerprint}
         row = {"step": step}
         self.saves.append(row)
 
@@ -874,7 +968,7 @@ class CheckpointManager:
         except (OSError, RuntimeError, EOFError, pickle.UnpicklingError) as e:
             raise FileNotFoundError(f"checkpoint step {step} payload is torn: {e}") from e
 
-    def restore(self, state, step: Optional[int] = None):
+    def restore(self, state, step: Optional[int] = None, mesh=None, min_weight_size: int = 2**14):
         """Restore IN PLACE into ``state``'s tensors and return the same
         ``state``: the model's parameters and buffers, the optimizer's state
         tensors, ``state.step`` and ``state.generator``'s state. Every tensor
@@ -887,10 +981,23 @@ class CheckpointManager:
         place (what a fresh ``make_optimizer`` holds); ``last_restore``
         says which it was.
 
-        A sharded state restores on every process (each copies its blocks);
-        onto a mesh of another shape than the step's it raises
-        ``NotImplementedError`` (the reshard is ROADMAP A12 part 2)."""
+        **Mesh-elastic**, as the JAX package's: the target is wherever
+        ``state`` lies, whatever mesh (or none) the step was saved on; each
+        process reads the whole payload and copies its blocks. ``mesh``
+        places ``state`` on it first (``training.loop.shard_train_state``
+        with ``min_weight_size``; a state on another mesh is re-placed, and
+        the returned state then holds new model and optimizer objects).
+        Where the saved fingerprint and the target's differ (the mesh, or a
+        leaf's placement), one ``resume.reshard`` event goes through
+        ``event_sink`` with JAX's fields (``step``, ``mesh_changed``,
+        ``leaves_resharded``, ``bytes_moved``, ``old_mesh``, ``new_mesh``,
+        ``old_process_count``, ``new_process_count``, ``wall_s``, ``path``);
+        none where nothing moved."""
         self.wait_until_finished()
+        if mesh is not None:
+            from perceiver_io_tpu_torch.training.loop import shard_train_state
+
+            state = shard_train_state(state, mesh, min_weight_size=min_weight_size)
         if self.sync is not None:
             self.sync()
         if step is not None:
@@ -909,12 +1016,14 @@ class CheckpointManager:
                 self._quarantine_step(step)
         raise FileNotFoundError(f"every checkpoint under {self.directory} failed to restore; last: {last_err}")
 
+    def step_fingerprint(self, step: int) -> Optional[dict]:
+        """The mesh/sharding fingerprint recorded at save time for ``step``
+        (None for steps that predate fingerprints)."""
+        return (self._meta(step) or {}).get("fingerprint")
+
     def _restore_step(self, state, step: int):
-        saved_mesh, mesh = (self._meta(step) or {}).get("mesh"), _mesh_shape(state)
-        if saved_mesh != mesh:
-            raise NotImplementedError(
-                f"checkpoint step {step} was saved on the mesh {saved_mesh} and the state lies on {mesh}: a restore "
-                "onto a mesh of another shape (the elastic reshard) waits for ROADMAP A12 part 2")
+        meta = self._meta(step) or {}
+        t0 = time.perf_counter()
         payload = self._load_payload(step)
         saved = payload.get("optimizer")
         target = _optimizer_tensors(state)
@@ -926,7 +1035,7 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint step {step}'s optimizer state ({len(saved)} tensors) does not fit "
                                  f"the state's ({len(target)} tensors; mismatched at {wrong[:5]})")
         with torch.no_grad():
-            if mesh is None:
+            if getattr(state, "mesh", None) is None:
                 state.model.load_state_dict(payload["model"], strict=True)
             else:
                 _load_sharded(state.model, payload["model"])
@@ -942,7 +1051,24 @@ class CheckpointManager:
         if payload.get("generator") is not None and state.generator is not None:
             state.generator.set_state(payload["generator"])
         self.last_restore = {"step": int(step), "optimizer": saved is not None}
+        self._emit_reshard(state, step, meta, saved is None, t0)
         return state
+
+    def _emit_reshard(self, state, step: int, meta: dict, weights_only: bool, t0: float) -> None:
+        """The ``resume.reshard`` event of a restore whose placement differs
+        from the step's (a step that predates fingerprints: whose mesh
+        differs, every leaf counted as moved, as JAX counts a legacy one)."""
+        fp_target = sharding_fingerprint(state, weights_only)
+        fp_saved = meta.get("fingerprint")
+        if fp_saved is None:
+            if meta.get("mesh") == fp_target["mesh"]:
+                return
+            fp_saved = {"mesh": meta.get("mesh"), "process_count": None,
+                        "leaves": {k: {"spec": None} for k in fp_target["leaves"]}}
+        diff = diff_fingerprints_for_reshard(fp_saved, fp_target)
+        if diff["mesh_changed"] or diff["leaves_resharded"]:
+            self._emit("resume.reshard", step=int(step), wall_s=round(time.perf_counter() - t0, 6),
+                       path="host_gather", **diff)
 
     def preflight(self, state, step: Optional[int] = None, model_config=None) -> Optional[dict]:
         """Resume preflight: cheap compatibility checks BEFORE reading the
@@ -957,8 +1083,9 @@ class CheckpointManager:
         - **generator**: a checkpoint generator state with no generator in
           ``state``, or the reverse.
 
-        Returns ``{"step": step}`` (None when there is nothing to resume
-        from)."""
+        A change of mesh or placement is not an error: the restore reshards.
+        Returns ``{"step", "reshard", "old_mesh", "new_mesh"}``, the
+        JAX package's (None when there is nothing to resume from)."""
         if step is None:
             steps = self.valid_steps()
             if not steps:
@@ -978,7 +1105,11 @@ class CheckpointManager:
             problems.append(f"generator: checkpoint={meta['generator']!r} != state={_generator_kind(state)!r}")
         if problems:
             raise ResumePreflightError(self.directory, step, problems)
-        return {"step": int(step)}
+        fp_target = sharding_fingerprint(state, self.save_weights_only)
+        fp_saved = meta.get("fingerprint") or {"mesh": meta.get("mesh"), "leaves": {}}
+        diff = diff_fingerprints_for_reshard(fp_saved, fp_target)
+        return {"step": int(step), "reshard": bool(diff["mesh_changed"] or diff["leaves_resharded"]),
+                "old_mesh": diff["old_mesh"], "new_mesh": diff["new_mesh"]}
 
     def load_config(self):
         return load_config(self.directory)

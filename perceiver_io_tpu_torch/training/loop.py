@@ -3,7 +3,7 @@ make_train_step`` and ``make_eval_step``): gradients, the optimizer update and
 metrics for one batch, and an evaluation of one batch. On the card each step
 is a CUDA graph (``graphs.CapturedStep``), as the JAX package jits them; on
 the CPU it runs eagerly. ``donate`` has no counterpart (the state is updated
-in place), nor has the ``overlap`` option yet (ROADMAP A12 part 2).
+in place), nor has the ``overlap`` option yet (ROADMAP A12 part 2, slice 2).
 
 A state sharded over a mesh (:func:`shard_train_state`: FSDP2's
 ``fully_shard`` over the mesh's ``(data, fsdp)`` plane) takes the same step,
@@ -43,15 +43,30 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _rank_mean(metrics: Dict) -> Dict:
-    """The mean of each 0-d metric over the default group's ranks."""
-    keys = [k for k, v in metrics.items() if torch.is_tensor(v) and v.dim() == 0]
-    if not keys:
-        return metrics
-    stacked = torch.stack([metrics[k].float() for k in keys])
-    dist.all_reduce(stacked)
-    stacked /= dist.get_world_size()
-    return {**metrics, **dict(zip(keys, stacked.unbind()))}
+def _rank_mean(metrics: Dict, mesh) -> Dict:
+    """The global batch's metrics from the ranks' blocks: each 0-d floating
+    metric (a block's mean) averaged over the default group's ranks, each
+    0-d integer metric (a block's count, the masked LM's ``num_masked``)
+    summed over the batch blocks, as JAX's GSPMD step counts the global
+    batch (the ranks of one block, its ``tensor`` and ``seq`` line, count it
+    once)."""
+    scalars = {k: v for k, v in metrics.items() if torch.is_tensor(v) and v.dim() == 0}
+    means = [k for k, v in scalars.items() if v.is_floating_point()]
+    counts = [k for k in scalars if k not in means]
+    out = dict(metrics)
+    world = dist.get_world_size()
+    if means:
+        stacked = torch.stack([metrics[k].float() for k in means])
+        dist.all_reduce(stacked)
+        out.update(zip(means, (stacked / world).unbind()))
+    if counts:
+        from perceiver_io_tpu_torch.parallel.mesh import batch_shards
+
+        stacked = torch.stack([metrics[k].long() for k in counts])
+        dist.all_reduce(stacked)
+        stacked //= world // batch_shards(mesh)
+        out.update({k: v.to(metrics[k].dtype) for k, v in zip(counts, stacked.unbind())})
+    return out
 
 
 # spreads the batch blocks' seeds apart (a prime above any block count)
@@ -129,7 +144,7 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
     A sharded state (``state.mesh`` set by :func:`shard_train_state`) runs
     the step eagerly whatever ``jit`` says (see the module docstring); every
     rank calls it with its block of the batch. Probes on a sharded state
-    raise (ROADMAP A12 part 2)."""
+    raise (ROADMAP A12 part 2, slice 2)."""
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     if microbatch > 1 and getattr(loss_fn, "uniform_weighting", None) is False:
@@ -210,9 +225,10 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
         with profiler.scope("train_step"):
             if state.mesh is not None:
                 if probes is not None:
-                    raise NotImplementedError("probes on a sharded state wait for ROADMAP A12 part 2")
+                    raise NotImplementedError("probes on a sharded state wait for ROADMAP A12 part 2, slice 2")
                 with global_batch_mean():
-                    metrics = _rank_mean(body(state.model, state.optimizer, block_generator(state), batch))
+                    metrics = _rank_mean(body(state.model, state.optimizer, block_generator(state), batch),
+                                         state.mesh)
             elif captured is not None and dev.type == "cuda":
                 gen = state.generator
                 metrics = captured(*parts, batch=batch, device=dev,
@@ -226,7 +242,7 @@ def make_train_step(loss_fn: Callable, microbatch: int = 1, sentinel: bool = Fal
     return train_step
 
 
-def make_eval_step(eval_fn: Callable, sharded: bool = False) -> Callable:
+def make_eval_step(eval_fn: Callable, mesh=None) -> Callable:
     """``eval_step(model, batch) -> eval_fn(model, batch)`` under
     ``torch.no_grad()`` (the JAX package's jitted ``eval_step(params,
     batch)``): a CUDA graph when the model lies on the card, captured at the
@@ -235,17 +251,17 @@ def make_eval_step(eval_fn: Callable, sharded: bool = False) -> Callable:
     The returned function's ``captured`` attribute is the
     :class:`~perceiver_io_tpu_torch.graphs.CapturedStep`.
 
-    ``sharded=True`` evaluates a sharded model (every rank with its block of
-    the batch): eagerly, the losses the global batch's, the metrics the
-    ranks' mean."""
+    With ``mesh`` it evaluates a model sharded over it (every rank with its
+    block of the batch): eagerly, the losses and the metrics the global
+    batch's (:func:`_rank_mean`)."""
     captured = CapturedStep(eval_fn, "the eval step")
 
     @torch.no_grad()
     def eval_step(model: torch.nn.Module, batch: Dict):
         dev = _device_of(model)
-        if sharded:
+        if mesh is not None:
             with global_batch_mean():
-                return _rank_mean(eval_fn(model, batch))
+                return _rank_mean(eval_fn(model, batch), mesh)
         if dev.type == "cuda":
             return captured(model, batch=batch, device=dev)
         return eval_fn(model, batch)
@@ -254,13 +270,15 @@ def make_eval_step(eval_fn: Callable, sharded: bool = False) -> Callable:
     return eval_step
 
 
-def train_state_shardings(state: TrainState, mesh, min_weight_size: int = 2**14) -> Dict[str, Optional[int]]:
-    """``{parameter name: the dim sharded over fsdp, or None}``: JAX's
-    placement of each parameter (``parallel.mesh.fsdp_param_shardings``);
-    optimizer moments mirror their parameters, scalars are replicated."""
-    from perceiver_io_tpu_torch.parallel.mesh import fsdp_param_shardings
+def train_state_shardings(state: TrainState, mesh, min_weight_size: int = 2**14
+                          ) -> Dict[str, Tuple[Optional[int], Optional[int]]]:
+    """``{parameter name: (tensor dim, fsdp dim)}``, each None where the axis
+    does not shard it: JAX's placement of each parameter
+    (``parallel.mesh.param_shardings``); optimizer moments mirror their
+    parameters, scalars are replicated."""
+    from perceiver_io_tpu_torch.parallel.mesh import param_shardings
 
-    return fsdp_param_shardings(state.model, mesh, min_weight_size)
+    return param_shardings(state.model, mesh, min_weight_size)
 
 
 # the entry points besides forward that callers reach directly: of the root,
@@ -269,34 +287,119 @@ _ROOT_METHODS = ("seq_parallel_forward",)
 _CROSS_ATTENTION_METHODS = ("seq_parallel", "call_with_split_kv")
 
 
-def shard_train_state(state: TrainState, mesh, min_weight_size: int = 2**14) -> TrainState:
-    """Place ``state`` on ``mesh``, in place, and return it: FSDP2's
-    ``fully_shard`` on each cross- and self-attention layer, then on the root
-    (which keeps the tied input/output embedding in one unit), over the
-    mesh's 2-D ``(replicate, fsdp)`` plane (``parallel.mesh.replicate_group_mesh``:
-    HSDP, replicated over ``data`` and ``seq``, sharded over ``fsdp``), each
-    parameter on the dim JAX shards (``parallel.mesh.fsdp_placement_fn``);
-    then the optimizer rebuilt over the sharded parameters, its state (a
-    trained one's too) carried over shard by shard. The model keeps its class
-    (FSDP2 subclasses it) and attributes. ``state.mesh`` records the mesh.
+def _skeleton(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` with its parameters on the meta device (no
+    memory) and its buffers copied to the CPU: what a re-placement rebuilds
+    the unsharded model from."""
+    import copy
 
-    Placing a state twice on the same mesh is free (it is returned as is);
-    a state placed on another mesh raises (the reshard is ROADMAP A12
-    part 2). FSDP2 shards every parameter of a unit, where JAX keeps those
-    under ``min_weight_size`` replicated: the values are the same."""
+    memo = {id(p): torch.nn.Parameter(torch.empty_like(p, device="meta"), requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    memo.update({id(b): b.detach().cpu().clone() for b in model.buffers()})
+    return copy.deepcopy(model, memo)
+
+
+def _unshard(state: TrainState) -> None:
+    """Bring a sharded ``state`` back to one unsharded model and optimizer on
+    every rank, in place (a collective over its mesh): the whole parameters
+    and optimizer state gathered (as a checkpoint gathers them) into a model
+    built from the skeleton kept at the first placement."""
+    import copy
+
+    from perceiver_io_tpu_torch.training.checkpoint import _whole_payload
+
+    weights, moments = _whole_payload(state, weights_only=False)
+    dev = next(iter(weights.values())).device
+    model = copy.deepcopy(state.template).to_empty(device=dev)
+    with torch.no_grad():
+        for (_, b), (_, src) in zip(model.named_buffers(), state.template.named_buffers()):
+            b.copy_(src)
+        model.load_state_dict(weights, strict=True)
+        opt = state.optimizer.like(model.named_parameters())
+        for new_t, full in zip(opt.state_tensors()[len(opt.params):], moments):
+            new_t.copy_(full)
+    state.model, state.optimizer, state.mesh, state.placement = model, opt, None, None
+
+
+def _apply_tensor_parallel(model: torch.nn.Module, mesh) -> None:
+    """``parallelize_module`` over the mesh's ``tensor`` axis: the Linears of
+    ``parallel.mesh.tensor_parallel_linears`` column- and row-parallel, and
+    each of those attentions holding its local heads."""
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
+
+    from perceiver_io_tpu_torch.core.attention import MultiHeadAttention
+    from perceiver_io_tpu_torch.parallel.mesh import AXIS_TENSOR, axis_size, tensor_parallel_linears
+
+    t = axis_size(mesh, AXIS_TENSOR)
+    linears = tensor_parallel_linears(model, t)
+    if not linears:
+        return
+    parallelize_module(model, mesh[AXIS_TENSOR],
+                       {name: ColwiseParallel() if kind == "col" else RowwiseParallel()
+                        for name, kind in linears.items()})
+    for name, m in model.named_modules():
+        if isinstance(m, MultiHeadAttention) and f"{name}.q_proj".lstrip(".") in linears:
+            m.shard_heads(t)
+
+
+def shard_train_state(state: TrainState, mesh, min_weight_size: int = 2**14,
+                      tensor_parallel: Optional[bool] = None) -> TrainState:
+    """Place ``state`` on ``mesh``, in place, and return it.
+
+    With ``tensor_parallel`` (by default where the mesh's ``tensor`` axis
+    exceeds 1; True applies the plan over an axis of 1 too), first
+    ``parallelize_module`` over the ``tensor`` axis: ``q/k/v_proj`` and the
+    MLPs' ``dense_1`` column-parallel, ``o_proj`` and ``dense_2``
+    row-parallel, in the attentions whose heads the axis divides (each then
+    holds its local heads) and the MLPs whose hidden width it divides
+    (``parallel.mesh.tensor_parallel_linears``; JAX's rule, except that an
+    attention whose heads the axis does not divide stays replicated where
+    GSPMD would split its heads). Then FSDP2's ``fully_shard`` on each cross-
+    and self-attention layer and on the root (which keeps the tied
+    input/output embedding in one unit), over the mesh's 2-D
+    ``(replicate, fsdp)`` plane (``parallel.mesh.replicate_group_mesh``:
+    HSDP, replicated over ``data`` and ``seq``, sharded over ``fsdp``, the
+    ``tensor`` axis left out), each parameter on the fsdp dim JAX shards
+    (``parallel.mesh.param_shardings``: a dim the tensor axis does not
+    take); then the optimizer rebuilt over the sharded parameters, its state
+    (a trained one's too) carried over block by block. The model keeps its
+    class (FSDP2 subclasses it) and attributes. ``state.mesh`` records the
+    mesh, ``state.placement`` JAX's placement of each parameter, and
+    ``state.template`` the model's unsharded skeleton.
+
+    Placing a state twice on the same mesh is free (it is returned as is). A
+    state placed on another mesh is re-placed, as JAX's is (the elastic
+    reshard): its parameters and optimizer state gathered whole on every
+    rank, an unsharded model built from the skeleton, and that placed on
+    ``mesh``; ``state.model`` and ``state.optimizer`` are then new objects.
+    FSDP2 shards every parameter of a unit, where JAX keeps those under
+    ``min_weight_size`` replicated, and on dim 0 where JAX shards none: the
+    values are the same."""
     if state.mesh is mesh:
         return state
     if state.mesh is not None:
-        raise NotImplementedError("the state is sharded over another mesh; placing it on a mesh of another "
-                                  "shape (the elastic reshard) waits for ROADMAP A12 part 2")
+        _unshard(state)
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
     from perceiver_io_tpu_torch.core.modules import CrossAttentionLayer, SelfAttentionLayer
-    from perceiver_io_tpu_torch.parallel.mesh import fsdp_placement_fn, local_chunk, replicate_group_mesh
+    from perceiver_io_tpu_torch.parallel.mesh import (
+        AXIS_TENSOR,
+        axis_size,
+        fsdp_placement_fn,
+        local_chunk,
+        param_shardings,
+        replicate_group_mesh,
+    )
 
     model = state.model
-    placement = fsdp_placement_fn(model, mesh, min_weight_size)
+    if tensor_parallel is None:
+        tensor_parallel = axis_size(mesh, AXIS_TENSOR) > 1
+    dims = param_shardings(model, mesh, min_weight_size, tensor_size=None if tensor_parallel else 1)
+    template = state.template if state.template is not None else _skeleton(model)
     plane = replicate_group_mesh(mesh)
+    if tensor_parallel:
+        _apply_tensor_parallel(model, mesh)
+    placement = fsdp_placement_fn(model, {name: d[1] for name, d in dims.items()})
     old = state.optimizer
     old_state, owners = old.state_tensors(), old.state_owners()
     for module in list(model.modules()):
@@ -317,5 +420,5 @@ def shard_train_state(state: TrainState, mesh, min_weight_size: int = 2**14) -> 
                 continue  # the parameters, which fully_shard sharded
             new_t.copy_(old_t if owner is None else local_chunk(old_t, opt.dparams[owner]))
     state.optimizer = opt
-    state.mesh = mesh
+    state.mesh, state.placement, state.template = mesh, dims, template
     return state

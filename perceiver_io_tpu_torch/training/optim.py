@@ -89,26 +89,61 @@ def constant_with_warmup(base_lr: float, warmup_steps: int = 0) -> Schedule:
     return schedule
 
 
-def tensor_norms(tensors: List[torch.Tensor], group=None) -> torch.Tensor:
-    """The L2 norm of each tensor, stacked; with ``group`` the tensors are
-    this rank's shards and each norm is the whole tensor's, across the
-    group's ranks (their squares summed by an all-reduce)."""
+def shard_groups(dparams) -> List[tuple]:
+    """``[(group, mask)]`` for the DTensors ``dparams`` (FSDP2's sharded
+    parameters, tensor-parallel ones among them): for each mesh dim, by
+    name, along which some of them are sharded, its process group and the
+    bool mask of those that are (a tensor-parallel block is sharded over
+    ``fsdp`` and ``tensor``, a replicated layer's parameter over ``fsdp``
+    alone)."""
+    dims: Dict[str, tuple] = {}
+    for i, d in enumerate(dparams):
+        mesh = d.device_mesh
+        for j, placement in enumerate(d.placements):
+            if placement.is_shard():
+                name = mesh.mesh_dim_names[j]
+                if name not in dims:
+                    dims[name] = (mesh.get_group(j), set())
+                dims[name][1].add(i)
+    dev = dparams[0].to_local().device if dparams else None
+    return [(group, torch.tensor([i in which for i in range(len(dparams))], device=dev))
+            for group, which in dims.values()]
+
+
+def tensor_norms(tensors: List[torch.Tensor], shards: Optional[List[tuple]] = None) -> torch.Tensor:
+    """The L2 norm of each tensor, stacked; with ``shards``
+    (:func:`shard_groups`) the tensors are this rank's blocks and each norm
+    is the whole tensor's: the squares summed over each mesh dim the tensor
+    is sharded along (an all-reduce over its group), never over a dim it is
+    replicated along.
+
+    A CUDA tensor that does not start on a 16-byte boundary is read from an
+    aligned copy: torch's foreach norm sums an aligned tensor in vector loads
+    and a misaligned one element-strided, two orders that round apart, and
+    FSDP2's blocks are views at any offset of one flat buffer. The norm then
+    depends on the values alone, so a block on one process sums as the whole
+    tensor does."""
+    tensors = [t.clone() if t.is_cuda and t.data_ptr() % 16 else t for t in tensors]
     norms = torch.stack(torch._foreach_norm(tensors))
-    if group is None:
+    if not shards:
         return norms
     sq = norms.double() ** 2
-    torch.distributed.all_reduce(sq, group=group)
+    for group, mask in shards:
+        part = torch.where(mask, sq, torch.zeros_like(sq))
+        torch.distributed.all_reduce(part, group=group)
+        sq = torch.where(mask, part, sq)
     return sq.sqrt().to(norms.dtype)
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, group=None) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, shards: Optional[List[tuple]] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` when their global L2
     norm exceeds ``max_norm`` (optax's ``clip_by_global_norm``; a NaN norm
     makes every gradient NaN, as there). Returns the norm, without a host
-    sync. With ``group`` the gradients are shards and the norm is the whole
+    sync. With ``shards`` the gradients are blocks and the norm is the whole
     gradients' (:func:`tensor_norms`)."""
-    norm = torch.linalg.vector_norm(tensor_norms(grads, group))
+    norm = torch.linalg.vector_norm(tensor_norms(grads, shards))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -217,11 +252,11 @@ class Lamb:
     norm is 0 (optax's guard)."""
 
     def __init__(self, params: List[torch.nn.Parameter], betas, weight_decay: float, eps: float = 1e-6,
-                 norm_group=None):
+                 norm_shards=None):
         self.params = params
         self.b1, self.b2 = betas
         self.weight_decay, self.eps = weight_decay, eps
-        self.norm_group = norm_group  # sharded parameters: the trust ratio reads whole-tensor norms
+        self.norm_shards = norm_shards  # sharded parameters: the trust ratio reads whole-tensor norms
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
@@ -244,8 +279,8 @@ class Lamb:
         torch._foreach_div_(u, den)
         if self.weight_decay:
             torch._foreach_add_(u, torch._foreach_mul(self.params, self.weight_decay))
-        p_norm = tensor_norms(self.params, self.norm_group)
-        u_norm = tensor_norms(u, self.norm_group)
+        p_norm = tensor_norms(self.params, self.norm_shards)
+        u_norm = tensor_norms(u, self.norm_shards)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
         for x, r in zip(u, ratio):
             x.mul_(r)
@@ -333,8 +368,8 @@ class Optimizer:
     local shards (``params`` are those, ``dparams`` the DTensors, whose
     ``.grad`` shards :meth:`grads` hands over), and every norm it takes, the
     clip's global norm and LAMB's per-tensor trust-ratio norms, is the whole
-    tensors' across the shard group (``norm_group``), not the local
-    shard's."""
+    tensors' across the mesh dims they are sharded along (``norm_shards``,
+    :func:`shard_groups`), not the local shard's."""
 
     def __init__(self, params: Iterable, schedule: Schedule, optimizer: str = "adamw", weight_decay: float = 0.01,
                  betas=(0.9, 0.999), gradient_clip: Optional[float] = None,
@@ -344,14 +379,12 @@ class Optimizer:
         items = list(params)
         named = bool(items) and isinstance(items[0], tuple)
         self.params = [p for _, p in items] if named else items
-        self.dparams, self.norm_group = None, None
+        self.dparams, self.norm_shards = None, None
         from torch.distributed.tensor import DTensor
 
         if self.params and isinstance(self.params[0], DTensor):
             self.dparams = self.params
-            # FSDP's mesh is (replicate, shard): the shards of a tensor lie
-            # along its last dim
-            self.norm_group = self.dparams[0].device_mesh.get_group(mesh_dim=-1)
+            self.norm_shards = shard_groups(self.dparams)
             self.params = [p._local_tensor for p in self.dparams]
         self.schedule = schedule
         self.gradient_clip = gradient_clip
@@ -366,7 +399,7 @@ class Optimizer:
             self.rule = TorchAdamW(self.params, self.lr, betas, weight_decay if optimizer == "adamw" else 0.0)
             self.adamw = self.rule.adamw
         elif optimizer == "lamb":
-            self.rule = Lamb(self.params, betas, weight_decay, norm_group=self.norm_group)
+            self.rule = Lamb(self.params, betas, weight_decay, norm_shards=self.norm_shards)
         else:
             self.rule = Sgd(self.params)
         self.frozen: List[torch.nn.Parameter] = []
@@ -433,7 +466,7 @@ class Optimizer:
             torch._foreach_zero_([p.grad for p in self.frozen])
             held = [p.clone() for p in self.frozen]
         if self.gradient_clip is not None:
-            clip_by_global_norm_(grads, self.gradient_clip, self.norm_group)
+            clip_by_global_norm_(grads, self.gradient_clip, self.norm_shards)
         lr = self._scheduled_lr()
         if isinstance(lr, torch.Tensor):
             self.lr.copy_(lr)

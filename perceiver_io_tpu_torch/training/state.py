@@ -26,6 +26,12 @@ class TrainState:
     generator: Optional[torch.Generator] = None
     # the DeviceMesh the state is sharded over (training.loop.shard_train_state)
     mesh: Optional[object] = None
+    # on a mesh: {parameter name: (tensor dim, fsdp dim)}, JAX's placement of
+    # each parameter (parallel.mesh.param_shardings; checkpoint fingerprints
+    # read it), and the model's unsharded skeleton (meta parameters) that a
+    # placement on another mesh rebuilds it from
+    placement: Optional[dict] = None
+    template: Optional[torch.nn.Module] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Callable[[Iterable[torch.nn.Parameter]], Optimizer],

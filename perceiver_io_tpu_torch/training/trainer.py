@@ -39,7 +39,7 @@ What the card changes:
   restore after process 0's last write.
 
 Options the port has no counterpart for yet raise ``NotImplementedError``:
-the overlap step (ROADMAP A12 part 2), ``graphlint`` and ``graphcheck``
+the overlap step (ROADMAP A12 part 2, slice 2), ``graphlint`` and ``graphcheck``
 (A14, analyses of JAX programs; off by default here).
 """
 
@@ -126,7 +126,7 @@ class TrainerConfig:
     # batch, near zero when the buffer hits. On the CPU a batch is used where
     # it lies
     input_double_buffer: bool = True
-    # the overlap-scheduled data x fsdp step: ROADMAP A12 part 2 (raises when True)
+    # the overlap-scheduled data x fsdp step: ROADMAP A12 part 2, slice 2 (raises when True)
     overlap: bool = False
     # parameters smaller than this JAX keeps replicated on a mesh (FSDP2
     # shards every parameter of a unit; the values are the same)
@@ -174,7 +174,7 @@ class TrainerConfig:
 
 
 _UNPORTED = {
-    "overlap": "the overlap-scheduled data x fsdp step waits for ROADMAP A12 part 2",
+    "overlap": "the overlap-scheduled data x fsdp step waits for ROADMAP A12 part 2, slice 2",
     "graphlint": "graphlint (jaxpr lint rules) waits for ROADMAP A14",
     "graphcheck": "graphcheck (jaxpr fingerprints) waits for ROADMAP A14",
 }
@@ -242,7 +242,7 @@ class Trainer:
                 return loss_fn(model, batch, None, deterministic=True)[1]
             return eval_fn(model, batch, None)[1]
 
-        self._eval_step = self.recompiles.wrap(make_eval_step(eval_metrics, sharded=mesh is not None), "eval_step")
+        self._eval_step = self.recompiles.wrap(make_eval_step(eval_metrics, mesh=mesh), "eval_step")
         # batches a fit pulled but never consumed, re-injected by the next fit
         # on the SAME iterator (resume, curriculum phases); drained lazily
         self._residual_batches: deque = deque()

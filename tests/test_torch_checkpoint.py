@@ -283,7 +283,8 @@ def test_preflight_names_every_difference(tmp_path):
     config = CausalLanguageModelConfig(vocab_size=10, max_seq_len=8, max_latents=4)
     mngr = tt.CheckpointManager(str(tmp_path), monitor=None)
     mngr.save(run(make_state(), 1), config=config)
-    assert mngr.preflight(make_state(seed=3), model_config=config) == {"step": 1}
+    assert mngr.preflight(make_state(seed=3), model_config=config) == {"step": 1, "reshard": False,
+                                                                       "old_mesh": None, "new_mesh": None}
     wide = tt.TrainState.create(Tiny(width=5), tt.make_optimizer(1e-2), generator=None)
     drifted = CausalLanguageModelConfig(vocab_size=10, max_seq_len=8, max_latents=2)
     with pytest.raises(tt.ResumePreflightError) as err:

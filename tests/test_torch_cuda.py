@@ -2926,3 +2926,24 @@ def test_symbolic_audio_pipeline_on_the_card_matches_the_cpu(cuda, tmp_path):
     pipe = pipeline("symbolic-audio-generation", model_dir=str(tmp_path))
     np.testing.assert_array_equal(pipe(prompt, max_new_tokens=48, seed=5).token_ids,
                                   pipe(prompt, max_new_tokens=48, seed=5).token_ids)
+
+
+def test_tensor_norms_do_not_depend_on_where_a_tensor_starts(cuda):
+    """The clip's and LAMB's norms (``optim.tensor_norms``) of f32 views that
+    start off a 16-byte boundary, as FSDP2 leaves a parameter's block in its
+    flat buffer, equal the norms of the same values in their own allocation,
+    bit for bit: torch's foreach norm sums the two layouts in other orders
+    (without the aligned copy the f32 norms came out apart on an H100)."""
+    from perceiver_io_tpu_torch.training.optim import tensor_norms
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(1024, 264), (4096, 33), (7,), (512, 1024)]
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.randn(2 + sum(sizes), device=cuda, generator=g)
+    views, offset = [], 2
+    for shape, n in zip(shapes, sizes):
+        views.append(flat[offset:offset + n].view(shape))
+        offset += n
+    whole = [v.clone() for v in views]
+    assert all(v.data_ptr() % 16 for v in views) and not any(w.data_ptr() % 16 for w in whole)
+    assert torch.equal(tensor_norms(views), tensor_norms(whole))

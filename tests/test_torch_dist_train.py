@@ -5,7 +5,8 @@ ranks) for 3 steps against JAX's unsharded step on the same converted
 parameters, batches with pad masks and ``-100`` labels included, with AdamW
 under a clip that engages and with LAMB (whole-tensor norms); the mesh's
 errors; ``Trainer(mesh=...)`` fitting, checkpointing and resuming on 2 ranks
-against the 1-process fit; a restore onto a mesh of another shape; and the
+against the 1-process fit; a restore, and a re-placement, onto a mesh of
+another shape; and the
 text CLM CLI run as 2 processes with ``--trainer.accelerator=cpu`` under the
 ``dp``, ``fsdp`` (with an auto-resume), ``seq`` and ``ring`` strategies.
 
@@ -194,12 +195,15 @@ def _train_world(rank, world, d, ref, out):
             out[f"{name}/p/{pname}"] = p.full_tensor().detach().numpy()
         if name == "fsdp":
             out["fsdp/dims"] = np.asarray([p.placements[-1].dim for p in state.model.parameters()])
-            # placing twice on the same mesh is free; on another mesh it raises
+            # placing twice on the same mesh is free; on another mesh the
+            # state is re-placed with its values (the elastic reshard)
             opt_before = state.optimizer
             out["idempotent"] = np.array(shard_train_state(state, mesh) is state and state.optimizer is opt_before)
             other = make_mesh(data=2, fsdp=2, device="cpu")
-            out["reshard_raises"] = np.array(_raises(lambda: shard_train_state(state, other), NotImplementedError,
-                                                     "A12 part 2"))
+            before = [p.full_tensor() for p in state.model.parameters()]
+            moved = shard_train_state(state, other)
+            out["replaced"] = np.array(moved.mesh is other and moved.optimizer is not opt_before and all(
+                torch.equal(a, p.full_tensor()) for a, p in zip(before, moved.model.parameters())))
     # each batch block draws from its own generator; a block's seq line alike
     from perceiver_io_tpu_torch.training.loop import block_generator
 
@@ -216,7 +220,7 @@ def _train_world(rank, world, d, ref, out):
     out["mesh_errors"] = np.array([
         _raises(lambda: make_mesh(data=3, device="cpu"), ValueError, "!= 4 devices"),
         _raises(lambda: make_mesh(fsdp=3, device="cpu"), ValueError, "not divisible"),
-        _raises(lambda: make_mesh(data=1, tensor=4, device="cpu"), NotImplementedError, "A12 part 2"),
+        _raises(lambda: make_mesh(data=1, tensor=2, seq=2, device="cpu"), NotImplementedError, "A12 part 2, slice 2"),
         _raises(lambda: shard_batch({"x": np.zeros((6, 2))}, mesh), ValueError, "['x']: leading dim 6"),
     ])
     dist.barrier()
@@ -231,11 +235,15 @@ def _trainer_world(rank, world, d, ref, out, mesh):
     out["step"] = np.array(state.step)
     for pname, p in state.model.named_parameters():
         out[f"p/{pname}"] = p.full_tensor().detach().numpy()
+    # the checkpoint restores onto a mesh of another shape
     other = make_mesh(data=world, device="cpu")
     fresh = shard_train_state(TrainState.create(_port_model(ref), _optimizer("adamw")), other)
     manager = CheckpointManager(os.path.join(d, "ckpt_two"), monitor=None)
     manager.sync = torch.distributed.barrier
-    out["restore_raises"] = np.array(_raises(lambda: manager.restore(fresh), NotImplementedError, "A12 part 2"))
+    restored = manager.restore(fresh)
+    out["restored_other_mesh"] = np.array(restored.step == 4 and all(
+        torch.equal(a.full_tensor(), b.full_tensor()) for a, b in zip(restored.model.parameters(),
+                                                                      state.model.parameters())))
     manager.close()
 
 
@@ -341,7 +349,7 @@ def test_fsdp_state_places_jax_dims_once_and_refuses_another_mesh(worlds):
     _, got, _ = worlds
     four = got["four"]
     assert 1 in four["fsdp/dims"] and 0 in four["fsdp/dims"]  # both dims of the Linear weights occur
-    assert bool(four["idempotent"]) and bool(four["reshard_raises"])
+    assert bool(four["idempotent"]) and bool(four["replaced"])
     assert four["mesh_errors"].tolist() == [True] * 4
 
 
@@ -357,7 +365,7 @@ def test_batch_blocks_draw_apart_and_a_seq_line_alike(worlds):
 def test_trainer_fit_checkpoint_and_resume_on_two_ranks_match_one_process(worlds):
     want, got, d = worlds
     two = got["two"]
-    assert int(two["step"]) == 4 and bool(two["restore_raises"])
+    assert int(two["step"]) == 4 and bool(two["restored_other_mesh"])
     for pname, p in want["fit"].items():
         np.testing.assert_allclose(two[f"p/{pname}"], p, atol=PARAM_ATOL, rtol=0, err_msg=pname)
         # the 1-process fit is JAX's step over the same batches

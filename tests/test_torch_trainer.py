@@ -473,22 +473,27 @@ def test_residuals_survive_noop_and_unprefetched_fits():
 @pytest.mark.parametrize("option", ["mesh", "overlap", "graphlint", "graphcheck"])
 def test_unported_options_raise(option, tmp_path):
     if option == "mesh":
-        # a mesh is taken now (one process here: the mesh starts a
-        # one-process gloo group); what still raises is a restore onto a mesh
-        # of another shape than the checkpoint's, naming ROADMAP A12 part 2
+        # a mesh is taken (one process here: the mesh starts a one-process
+        # gloo group), and a checkpoint saved without a mesh restores onto
+        # one (the elastic reshard; ROADMAP A12 part 2, slice 1)
         import torch.distributed as dist
 
         from perceiver_io_tpu_torch.parallel import make_mesh
 
+        saved = _port_linear_state()
         manager = tt.CheckpointManager(str(tmp_path / "ckpt"), monitor=None)
-        manager.save(_port_linear_state())  # saved without a mesh
+        manager.save(saved)  # saved without a mesh
         try:
             mesh = make_mesh(device="cpu")
             assert tt.Trainer(_port_loss, mesh=mesh).mesh is mesh
             sharded = tt.shard_train_state(_port_linear_state(), mesh)
             assert sharded.mesh is mesh and tt.shard_train_state(sharded, mesh) is sharded
-            with pytest.raises(NotImplementedError, match="A12 part 2"):
-                manager.restore(sharded)
+            with torch.no_grad():
+                for p in sharded.model.parameters():
+                    p.zero_()
+            assert manager.restore(sharded) is sharded
+            assert all(torch.equal(a.full_tensor(), b) for a, b in zip(sharded.model.parameters(),
+                                                                       saved.model.parameters()))
         finally:
             manager.close()
             dist.destroy_process_group()
